@@ -1,0 +1,213 @@
+// Scaled min-sum belief propagation for a batch of syndromes.
+//
+// Replaces the TPU kernel _sparse_head_kernel
+// (qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740, loop body
+// _minsum_plane_loop at :227), which runs the same decode over VMEM planes
+// with one-hot MXU products standing in for gathers.  Here the gathers are
+// plain loads through the Tanner graph's index maps.
+//
+// Function: ops/bp.py bp_decode(method="minimum_sum") for B shots:
+// per-check top-2 minimum and sign product (with the syndrome sign), scaled
+// check-to-variable messages, variable totals summed in slot order,
+// v2c = total - own c2v, hard decision, parity against the syndrome.  Each
+// shot's outputs (error, posterior, iterations) freeze at its first
+// convergence; a converged shot does no further work, which is exact because
+// its outputs are frozen either way.  Messages are float32.
+//
+// Design: a block owns `lanes` shots (8, or fewer when a shot's messages
+// would not fit) and keeps their messages in shared memory, edge-major and
+// shot-minor (v2c and c2v at [e * lanes + lane]), with the hard decisions the
+// parity pass reads.  Thread t works for shot t % lanes on row t / lanes;
+// the rows split the checks (check pass, parity pass) and the variables
+// (variable pass) between barriers.  The block leaves its iteration loop
+// once all its shots have converged, so small batches (the two-phase tail,
+// B/16 shots) spread over many SMs and blocks of converged shots stop early.
+// Device memory sees the syndromes and channel LLRs read, and the hard
+// decisions and posteriors of live shots written once per iteration (they
+// must freeze at convergence), in (n, B) / (m, B) batch-minor layouts.
+//
+// Bound: the iterations are latency-bound chains of shared-memory passes
+// between barriers; per live shot-iteration the messages cost 16 B per edge
+// of shared-memory traffic and the outputs 5 B per variable of device
+// memory.  Shared memory per block: lanes * (8 * m * rw + n) bytes.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxLanes = 8;
+constexpr int kThreads = 1024;
+constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
+
+__global__ void __launch_bounds__(kThreads)
+bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (m, B)
+                 const float* __restrict__ llr0,       // (n,) or (n, B)
+                 int llr_per_shot,
+                 const int32_t* __restrict__ chk_nbr,  // (m, rw)
+                 const uint8_t* __restrict__ chk_mask, // (m, rw)
+                 const int32_t* __restrict__ var_nbr,  // (n, cw)
+                 const int32_t* __restrict__ var_slot, // (n, cw)
+                 const uint8_t* __restrict__ var_mask, // (n, cw)
+                 uint8_t* __restrict__ err,            // (n, B)
+                 float* __restrict__ llr,              // (n, B)
+                 uint8_t* __restrict__ conv,           // (B,)
+                 int32_t* __restrict__ iters,          // (B,)
+                 int m, int n, int rw, int cw, int B, int max_iter,
+                 float scale, int lanes) {
+  extern __shared__ float smem[];
+  __shared__ int s_done[kMaxLanes];
+  __shared__ int s_bad[kMaxLanes];
+  __shared__ int s_iters[kMaxLanes];
+  const int lane = threadIdx.x % lanes;
+  const int row = threadIdx.x / lanes;
+  const int rows = kThreads / lanes;
+  const int b = blockIdx.x * lanes + lane;
+  const bool valid = b < B;
+  const size_t sB = (size_t)B;
+  const int E = m * rw;
+  float* v2c = smem;                                  // [e * lanes + lane]
+  float* c2v = smem + (size_t)E * lanes;              // [e * lanes + lane]
+  uint8_t* hard = (uint8_t*)(c2v + (size_t)E * lanes);  // [j * lanes + lane]
+
+  if (row == 0) {
+    s_done[lane] = valid ? 0 : 1;
+    s_bad[lane] = 0;
+    s_iters[lane] = max_iter;
+  }
+  if (valid) {
+    for (int e = row; e < E; e += rows) {
+      const int j = chk_nbr[e];
+      v2c[e * lanes + lane] = llr_per_shot ? llr0[j * sB + b] : llr0[j];
+    }
+    for (int j = row; j < n; j += rows) {
+      err[j * sB + b] = 0;
+      llr[j * sB + b] = llr_per_shot ? llr0[j * sB + b] : llr0[j];
+    }
+  }
+  __syncthreads();
+
+  for (int it = 0; it < max_iter; ++it) {
+    if (__syncthreads_and(s_done[lane])) break;
+    const bool active = !s_done[lane];
+
+    // check pass: streaming top-2 magnitudes and the sign product
+    if (active) {
+      for (int i = row; i < m; i += rows) {
+        float sg = synd[i * sB + b] ? -1.f : 1.f;
+        float min1 = kBig, min2 = kBig;
+        int amin = 0;
+        unsigned negs = 0u;
+        for (int s = 0; s < rw; ++s) {
+          const int e = i * rw + s;
+          float mag = kBig;
+          if (chk_mask[e]) {
+            const float v = v2c[e * lanes + lane];
+            mag = fabsf(v);
+            if (v < 0.f) {
+              negs |= 1u << s;
+              sg = -sg;
+            }
+          }
+          if (mag < min1) {
+            min2 = min1;
+            min1 = mag;
+            amin = s;
+          } else if (mag < min2) {
+            min2 = mag;
+          }
+        }
+        for (int s = 0; s < rw; ++s) {
+          const int e = i * rw + s;
+          float c = 0.f;
+          if (chk_mask[e]) {
+            const float ex = fminf(s == amin ? min2 : min1, kBig);
+            c = scale * ex;
+            if ((sg < 0.f) != (((negs >> s) & 1u) != 0u)) c = -c;
+          }
+          c2v[e * lanes + lane] = c;
+        }
+      }
+    }
+    __syncthreads();
+
+    // variable pass: totals summed in slot order, then v2c = total - own
+    if (active) {
+      for (int j = row; j < n; j += rows) {
+        float acc = 0.f;
+        for (int t = 0; t < cw; ++t) {
+          const int q = j * cw + t;
+          float c = 0.f;
+          if (var_mask[q]) c = c2v[(var_nbr[q] * rw + var_slot[q]) * lanes + lane];
+          acc = (t == 0) ? c : acc + c;
+        }
+        const float l0 = llr_per_shot ? llr0[j * sB + b] : llr0[j];
+        const float total = l0 + acc;
+        for (int t = 0; t < cw; ++t) {
+          const int q = j * cw + t;
+          if (var_mask[q]) {
+            const int e = (var_nbr[q] * rw + var_slot[q]) * lanes + lane;
+            v2c[e] = total - c2v[e];
+          }
+        }
+        const uint8_t h = total < 0.f ? 1 : 0;
+        hard[j * lanes + lane] = h;
+        err[j * sB + b] = h;
+        llr[j * sB + b] = total;
+      }
+    }
+    __syncthreads();
+
+    // parity pass: the hard decision must reproduce every syndrome bit
+    if (active) {
+      for (int i = row; i < m; i += rows) {
+        unsigned par = synd[i * sB + b];
+        for (int s = 0; s < rw; ++s) {
+          const int e = i * rw + s;
+          if (chk_mask[e]) par ^= hard[chk_nbr[e] * lanes + lane];
+        }
+        if (par & 1u) s_bad[lane] = 1;
+      }
+    }
+    __syncthreads();
+    if (row == 0 && active) {
+      if (!s_bad[lane]) {
+        s_done[lane] = 1;
+        s_iters[lane] = it + 1;
+      }
+      s_bad[lane] = 0;
+    }
+    __syncthreads();
+  }
+
+  if (row == 0 && valid) {
+    conv[b] = s_done[lane] ? 1 : 0;
+    iters[b] = s_iters[lane];
+  }
+}
+
+}  // namespace
+
+extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
+                                int llr_per_shot, const int32_t* chk_nbr,
+                                const uint8_t* chk_mask,
+                                const int32_t* var_nbr,
+                                const int32_t* var_slot,
+                                const uint8_t* var_mask, uint8_t* err,
+                                float* llr, uint8_t* conv, int32_t* iters,
+                                int m, int n, int rw, int cw, int B,
+                                int max_iter, float scale, int lanes,
+                                int smem_bytes, void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes || kThreads % lanes != 0) return -1;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bp_minsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((B + lanes - 1) / lanes);
+  bp_minsum_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      synd, llr0, llr_per_shot, chk_nbr, chk_mask, var_nbr, var_slot,
+      var_mask, err, llr, conv, iters, m, n, rw, cw, B, max_iter, scale,
+      lanes);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,289 @@
+"""Decoder objects and factory classes.
+
+  * ``BPDecoder`` / ``BPOSD_Decoder`` — the reference decoders' constructor
+    signatures and ``.decode(synd) -> correction`` / ``.h`` contract,
+    batched: ``decode_batch`` (host arrays in and out) and
+    ``decode_batch_device`` (tensors in, tensors out) for the simulators.
+  * ``DecoderClass`` factories — the ``GetDecoder(params)`` dict contract
+    (keys 'h', 'p_data', optionally 'p_syndrome').
+
+A decoder splits into ``device_static`` (a hashable description of the
+program) and ``device_state`` (a dict of tensors), run by ``decode_device``.
+Decoders live on one device, ``"cuda"`` unless the caller passes another.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+
+import numpy as np
+import torch
+
+from ..codes import gf2
+from ..ops import bp, osd_device
+from ..utils.device import resolve_device
+from .osd import DEVICE_METHODS, METHODS, _check_osd_order
+
+__all__ = [
+    "osd_compaction_tiers",
+    "decode_device",
+    "state_from_jax",
+    "BPDecoder",
+    "BPOSD_Decoder",
+    "DecoderClass",
+    "BP_Decoder_Class",
+    "BPOSD_Decoder_Class",
+]
+
+_BP_METHOD_ALIASES = {
+    "minimum_sum": "minimum_sum",
+    "min_sum": "minimum_sum",
+    "ms": "minimum_sum",
+    "msl": "minimum_sum",
+    "product_sum": "product_sum",
+    "ps": "product_sum",
+    "psl": "product_sum",
+}
+
+
+def _norm_method(bp_method: str) -> str:
+    return _BP_METHOD_ALIASES[str(bp_method).lower()]
+
+
+def osd_compaction_tiers(batch_size: int) -> tuple:
+    """Straggler-compaction capacities a ``bposd_dev`` decode of this batch
+    size uses, ascending (empty for batches too small to compact)."""
+    B = int(batch_size)
+    return tuple(c for c in dict.fromkeys((max(B // 16, 128),
+                                           max(B // 4, 128)))
+                 if c < B and c % 128 == 0)
+
+
+def _osd(static, state, syndromes, posterior):
+    _, _bp_static, n, rank, osd_order = static
+    return osd_device.osd_decode_values(
+        (n, rank, osd_order, 256), state["osd_packed"], state["osd_cost"],
+        syndromes, posterior, device=syndromes.device)
+
+
+def decode_device(static, state, syndromes):
+    """Decode a (B, m) uint8 syndrome tensor with the program ``static``
+    over the tensors ``state``.  Returns ``(corrections (B, n) uint8,
+    aux)`` with aux holding ``converged``, ``posterior_llr`` and
+    ``iterations``.
+
+    ``"bposd_dev"`` runs OSD on the BP-failed shots only, gathered into a
+    fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch);
+    results never depend on the tier.  The tier is chosen on the host from
+    one read of the failure count, counted in ``decode_device.host_reads``."""
+    kind = static[0]
+    if kind == "bposd_dev":
+        err, aux = decode_device(static[1], state, syndromes)
+        B = syndromes.shape[0]
+        conv = aux["converged"]
+        bad = ~conv
+        decode_device.host_reads += 1
+        if B < 64:
+            if not bool(bad.any()):
+                return err, aux
+            osd_err = _osd(static, state, syndromes, aux["posterior_llr"])
+            return torch.where(conv[:, None], err, osd_err), aux
+        n_bad = int(bad.sum())
+        if n_bad == 0:
+            return err, aux
+        for cap in osd_compaction_tiers(B):
+            if n_bad <= cap:
+                idx = torch.nonzero(bad).flatten()
+                idx = torch.cat([idx, idx.new_full((cap - n_bad,), B - 1)])
+                sub = _osd(static, state, syndromes[idx],
+                           aux["posterior_llr"][idx])
+                out = err.clone()
+                out[idx[:n_bad]] = sub[:n_bad]
+                return out, aux
+        osd_err = _osd(static, state, syndromes, aux["posterior_llr"])
+        return torch.where(conv[:, None], err, osd_err), aux
+    if kind != "bp":
+        raise ValueError(f"unknown decoder kind {kind!r}")
+    _, max_iter, method, msf, two_phase = static
+    if (two_phase and syndromes.shape[0] >= bp.TWO_PHASE_MIN_BATCH
+            and max_iter >= bp.TWO_PHASE_MIN_ITER):
+        res = bp.bp_decode_two_phase(
+            state["graph"], syndromes, state["llr0"], max_iter=max_iter,
+            method=method, ms_scaling_factor=msf, device=syndromes.device)
+    else:
+        res = bp.bp_decode(
+            state["graph"], syndromes, state["llr0"], max_iter=max_iter,
+            method=method, ms_scaling_factor=msf, device=syndromes.device)
+    return res.error, {"converged": res.converged,
+                       "posterior_llr": res.posterior_llr,
+                       "iterations": res.iterations}
+
+
+decode_device.host_reads = 0
+
+
+def state_from_jax(jax_state, device="cuda") -> dict:
+    """The port's decoder state from a JAX decoder's ``device_state`` given
+    as numpy arrays: the Tanner graph fields, ``llr0`` and, for BPOSD,
+    ``osd_packed`` (uint32 words read as int32 bit patterns) and
+    ``osd_cost``.  The JAX kernel head (``"pallas"``) has no counterpart."""
+    dev = resolve_device(device)
+    fields = jax_state["graph"]._asdict()
+    graph = bp.graph_to(bp.TannerGraph(
+        **{k: np.asarray(fields[k]) for k in bp.TannerGraph._fields}), dev)
+    state = {"graph": graph,
+             "llr0": torch.from_numpy(
+                 np.array(jax_state["llr0"], np.float32)).to(dev)}
+    if "osd_packed" in jax_state:
+        packed = np.array(jax_state["osd_packed"], np.uint32).view(np.int32)
+        state["osd_packed"] = torch.from_numpy(packed).to(dev)
+        state["osd_cost"] = torch.from_numpy(
+            np.array(jax_state["osd_cost"], np.float32)).to(dev)
+    return state
+
+
+class BPDecoder:
+    """Plain BP decoder (reference BPDecoder)."""
+
+    def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
+                 ms_scaling_factor=0.625, two_phase: bool = True,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.h = np.asarray(h)
+        self._h01 = gf2.to_gf2(h)
+        self.graph = bp.build_tanner_graph(self._h01, self.device)
+        self.channel_probs = np.broadcast_to(
+            np.asarray(channel_probs, np.float64), (self._h01.shape[1],)
+        ).copy()
+        # the reference factories pass float max_iter (num_qubits/ratio)
+        self.max_iter = max(1, int(max_iter))
+        self.bp_method = _norm_method(bp_method)
+        self.ms_scaling_factor = float(ms_scaling_factor)
+        # straggler compaction (ops/bp.bp_decode_two_phase): identical
+        # results, fewer shot-iterations at low p
+        self.two_phase = bool(two_phase)
+        self.llr0 = bp.llr_from_probs(self.channel_probs, self.device)
+
+    @property
+    def device_static(self):
+        return ("bp", self.max_iter, self.bp_method,
+                float(self.ms_scaling_factor), self.two_phase)
+
+    @property
+    def device_state(self):
+        return {"graph": self.graph, "llr0": self.llr0}
+
+    def decode_batch_device(self, syndromes):
+        """(B, m) uint8 tensor -> (corrections (B, n) uint8, aux dict)."""
+        return decode_device(self.device_static, self.device_state,
+                             syndromes.to(self.device, torch.uint8))
+
+    def decode_batch(self, syndromes) -> np.ndarray:
+        synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
+        out, _ = self.decode_batch_device(synd)
+        return out.cpu().numpy()
+
+    def decode(self, synd):
+        """Reference-compatible single-shot decode."""
+        return self.decode_batch(np.atleast_2d(synd))[0]
+
+
+class BPOSD_Decoder(BPDecoder):
+    """BP + OSD (reference BPOSD_Decoder): BP for the whole batch, then
+    device OSD (``ops/osd_device.py``) on the shots BP failed."""
+
+    def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
+                 ms_scaling_factor=0.625, osd_method="osd_e", osd_order=10,
+                 device="cuda"):
+        super().__init__(h, channel_probs, max_iter, bp_method,
+                         ms_scaling_factor, device=device)
+        self.osd_method = str(osd_method)
+        if self.osd_method not in DEVICE_METHODS:
+            raise NotImplementedError(
+                f"device OSD implements OSD-0/OSD-E only, not "
+                f"{self.osd_method!r}")
+        self.osd_order = _check_osd_order(osd_order)
+        self._osd_plan = osd_device.build_osd_plan(
+            self._h01, self.channel_probs, device=self.device)
+
+    @property
+    def device_static(self):
+        order = 0 if METHODS[self.osd_method] == 0 else self.osd_order
+        return ("bposd_dev", super().device_static, self._osd_plan.n,
+                self._osd_plan.rank, order)
+
+    @property
+    def device_state(self):
+        return dict(super().device_state, osd_packed=self._osd_plan.packed,
+                    osd_cost=self._osd_plan.cost)
+
+
+class DecoderClass(ABC):
+    """Abstract factory (reference DecoderClass)."""
+
+    @abstractmethod
+    def GetDecoder(self, code_and_noise_channel_params):
+        ...
+
+
+def _channel_from_params(params) -> tuple[np.ndarray, int]:
+    """With 'p_syndrome' present, h is the extended [H|I] matrix and the
+    channel is [p_data x n, p_syndrome x m]; otherwise uniform p_data."""
+    h = np.asarray(params["h"])
+    if "p_syndrome" in params:
+        num_checks = h.shape[0]
+        num_qubits = h.shape[1] - h.shape[0]
+        probs = np.concatenate(
+            [np.full(num_qubits, params["p_data"]),
+             np.full(num_checks, params["p_syndrome"])])
+    else:
+        num_qubits = h.shape[1]
+        probs = np.full(num_qubits, params["p_data"])
+    return probs, num_qubits
+
+
+def _require(params):
+    for key in ("h", "p_data"):
+        if key not in params:
+            raise KeyError(f"decoder params miss {key!r}")
+
+
+class BPOSD_Decoder_Class(DecoderClass):
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 osd_method, osd_order, device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor, "osd_method": osd_method,
+            "osd_order": osd_order,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        _require(code_and_noise_channel_params)
+        probs, num_qubits = _channel_from_params(code_and_noise_channel_params)
+        d = self.decoder_default_params
+        return BPOSD_Decoder(
+            h=code_and_noise_channel_params["h"], channel_probs=probs,
+            max_iter=num_qubits / d["max_iter_ratio"],
+            bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
+            osd_method=d["osd_method"], osd_order=d["osd_order"],
+            device=self.device)
+
+
+class BP_Decoder_Class(DecoderClass):
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        _require(code_and_noise_channel_params)
+        probs, num_qubits = _channel_from_params(code_and_noise_channel_params)
+        d = self.decoder_default_params
+        return BPDecoder(
+            h=code_and_noise_channel_params["h"], channel_probs=probs,
+            max_iter=num_qubits / d["max_iter_ratio"],
+            bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
+            device=self.device)

@@ -1,0 +1,121 @@
+"""Build and load the hand-written Hopper kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into its own shared library, loaded with ``ctypes``.  The build runs at first
+use, keyed on a hash of the source and the flags, into ``build/torch_kernels/``
+at the root of the checkout; ``build_all`` starts one ``nvcc`` per source at
+once.  Nothing here runs when the module is imported.
+
+``force_plain()`` makes every kernel wrapper take its plain PyTorch version
+even for CUDA tensors.  It exists so a run can hold the whole pipeline on the
+card against its plain versions; wrappers count no launch in that mode.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
+           "check_launch"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("bp_minsum", "osd_elim")
+# -fmad=false keeps a*b+c from contracting into one FMA, so the kernels round
+# exactly like their plain PyTorch versions and can be compared bit for bit
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict = {}
+_lock = threading.Lock()
+_force = threading.local()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    ``(target, tmp, process)`` or ``(target, None, None)``."""
+    target = _target(name)
+    if target.exists():
+        return target, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc
+
+
+def _finish_build(name, target, tmp, proc) -> Path:
+    if proc is None:
+        return target
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(tmp, target)
+    return target
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every named kernel library, all ``nvcc`` runs at once; returns
+    ``{name: path}``."""
+    with _lock:
+        started = {name: _start_build(name) for name in names}
+        return {name: _finish_build(name, *started[name]) for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+@contextlib.contextmanager
+def force_plain():
+    """Within the block, kernel wrappers run their plain PyTorch versions on
+    CUDA tensors too (this thread only)."""
+    prev = getattr(_force, "on", False)
+    _force.on = True
+    try:
+        yield
+    finally:
+        _force.on = prev
+
+
+def plain_forced() -> bool:
+    return getattr(_force, "on", False)

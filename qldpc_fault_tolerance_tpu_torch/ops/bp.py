@@ -1,0 +1,253 @@
+"""Batched belief-propagation decoding in PyTorch.
+
+Scaled min-sum and product-sum BP over a sparse parity-check matrix,
+syndrome-conditioned, returning a hard-decision error estimate, convergence
+flags, posterior LLRs (the soft input OSD needs) and iteration counts.
+
+  * The Tanner graph is compiled once per H into padded adjacency tensors
+    (check->variable and variable->check index maps with cross slot maps).
+  * Internally everything is batch-last ((m, rw, B) / (n, cw, B) / (n, B)),
+    the layout the min-sum kernel (``ops/bp_kernel.py``) coalesces on.
+  * Each shot's outputs freeze at its first convergence, so results are
+    independent of the batch a shot rides in and of when the loop stops.
+  * Messages are float32.
+
+Every min-sum decode goes through ``bp_kernel.bp_minsum``: the CUDA kernel
+on the card, its plain version on the CPU.  Product-sum runs as plain
+PyTorch ops on either device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from . import bp_kernel
+
+__all__ = [
+    "TannerGraph",
+    "build_tanner_graph",
+    "build_tanner_graph_host",
+    "bp_decode",
+    "bp_decode_two_phase",
+    "BPResult",
+    "llr_from_probs",
+    "TWO_PHASE_HEAD_ITERS",
+    "TWO_PHASE_TAIL_DIV",
+    "TWO_PHASE_BIG_TIER_MULT",
+    "TWO_PHASE_MIN_BATCH",
+    "TWO_PHASE_MIN_ITER",
+]
+
+
+class TannerGraph(NamedTuple):
+    """Padded adjacency of a parity-check matrix (numpy or torch leaves)."""
+
+    chk_nbr: torch.Tensor       # (m, rw) int32: var index of each row nonzero (pad: 0)
+    chk_nbr_slot: torch.Tensor  # (m, rw) int32: slot of this edge in the var's list
+    var_nbr: torch.Tensor       # (n, cw) int32: check index of each col nonzero (pad: 0)
+    var_nbr_slot: torch.Tensor  # (n, cw) int32: slot of this edge in the check's list
+    chk_mask: torch.Tensor      # (m, rw) bool
+    var_mask: torch.Tensor      # (n, cw) bool
+    h_t: torch.Tensor           # (n, m) uint8 — transpose kept for host-side uses
+
+
+def build_tanner_graph_host(h) -> TannerGraph:
+    """Compile H (host 0/1 matrix) into padded adjacency index maps, as
+    numpy arrays."""
+    h = (np.asarray(h) != 0).astype(np.uint8)
+    m, n = h.shape
+    rows = [np.nonzero(h[i])[0] for i in range(m)]
+    cols = [np.nonzero(h[:, j])[0] for j in range(n)]
+    rw = max((len(r) for r in rows), default=1) or 1
+    cw = max((len(c) for c in cols), default=1) or 1
+
+    chk_nbr = np.zeros((m, rw), dtype=np.int32)
+    chk_mask = np.zeros((m, rw), dtype=bool)
+    var_nbr = np.zeros((n, cw), dtype=np.int32)
+    var_mask = np.zeros((n, cw), dtype=bool)
+    chk_nbr_slot = np.zeros((m, rw), dtype=np.int32)
+    var_nbr_slot = np.zeros((n, cw), dtype=np.int32)
+
+    var_fill = [0] * n
+    for i, r in enumerate(rows):
+        for s, j in enumerate(r):
+            chk_nbr[i, s] = j
+            chk_mask[i, s] = True
+            t = var_fill[j]
+            var_nbr[j, t] = i
+            var_mask[j, t] = True
+            chk_nbr_slot[i, s] = t      # where this edge sits in var j's list
+            var_nbr_slot[j, t] = s      # where this edge sits in check i's list
+            var_fill[j] += 1
+
+    return TannerGraph(
+        chk_nbr=chk_nbr,
+        chk_nbr_slot=chk_nbr_slot,
+        var_nbr=var_nbr,
+        var_nbr_slot=var_nbr_slot,
+        chk_mask=chk_mask,
+        var_mask=var_mask,
+        h_t=np.ascontiguousarray(h.T),
+    )
+
+
+def build_tanner_graph(h, device="cuda") -> TannerGraph:
+    """``build_tanner_graph_host`` uploaded to ``device``."""
+    dev = resolve_device(device)
+    return graph_to(build_tanner_graph_host(h), dev)
+
+
+def graph_to(graph: TannerGraph, device) -> TannerGraph:
+    """A TannerGraph with every field a contiguous tensor on ``device``."""
+    return TannerGraph(*(torch.as_tensor(np.array(f) if isinstance(f, np.ndarray) else f)
+                         .to(device).contiguous() for f in graph))
+
+
+class BPResult(NamedTuple):
+    error: torch.Tensor          # (B, n) uint8 hard-decision error estimate
+    converged: torch.Tensor      # (B,) bool — syndrome matched within max_iter
+    posterior_llr: torch.Tensor  # (B, n) float32 posterior LLRs at the stopping iteration
+    iterations: torch.Tensor     # (B,) int32 — iteration at which each shot converged
+
+
+def llr_from_probs(channel_probs, device="cuda") -> torch.Tensor:
+    """Channel log-likelihood ratios log((1-p)/p), clipped away from p=0,
+    computed in numpy float32 and uploaded once."""
+    p = np.clip(np.asarray(channel_probs, dtype=np.float32), 1e-12, 1.0 - 1e-7)
+    return torch.from_numpy(np.log1p(-p) - np.log(p)).to(resolve_device(device))
+
+
+def _check_update_prodsum(v2c, synd_sign, graph):
+    """Product-sum (tanh rule) update in a numerically-guarded form."""
+    mask = graph.chk_mask[..., None]
+    t = torch.where(mask, torch.tanh(torch.clamp(v2c, -30.0, 30.0) / 2.0), 1.0)
+    t = torch.where(t.abs() < 1e-12, torch.where(t < 0, -1e-12, 1e-12), t)
+    total = torch.prod(t, dim=1, keepdim=True) * synd_sign[:, None, :]
+    excl = torch.clamp(total / t, -0.9999999, 0.9999999)
+    return torch.where(mask, 2.0 * torch.atanh(excl), 0.0)
+
+
+def _inputs(graph, syndromes, channel_llr, device):
+    dev = resolve_device(device)
+    graph = graph_to(graph, dev)
+    synd = torch.as_tensor(syndromes).to(dev, torch.uint8)
+    if synd.dim() == 1:
+        synd = synd[None]
+    llr = torch.as_tensor(channel_llr).to(dev, torch.float32)
+    return graph, synd, llr
+
+
+def bp_decode(graph: TannerGraph, syndromes, channel_llr, *, max_iter: int,
+              method: str = "minimum_sum", ms_scaling_factor=0.625,
+              device="cuda") -> BPResult:
+    """Decode a batch of syndromes against one Tanner graph.
+
+    syndromes: (B, m) {0,1}; channel_llr: (n,) or (B, n) float32.  The
+    public interface is batch-major; internally everything runs
+    batch-last."""
+    graph, synd, llr = _inputs(graph, syndromes, channel_llr, device)
+    return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+
+
+def _decode(graph, synd, llr, max_iter, method, ms_scaling_factor) -> BPResult:
+    if method == "minimum_sum":
+        return BPResult(*bp_kernel.bp_minsum(
+            graph, synd, llr, max_iter=max_iter,
+            ms_scaling_factor=ms_scaling_factor))
+    if method != "product_sum":
+        raise ValueError(f"unknown BP method {method!r}")
+    llr0_bl = llr.t() if llr.dim() == 2 else llr[:, None]
+    err, done, post, iters = bp_kernel.bp_loop(
+        graph, synd.t(), llr0_bl, max_iter, _check_update_prodsum)
+    return BPResult(err.t(), done, post.t(), iters)
+
+
+# two-phase defaults (same values as the JAX package)
+TWO_PHASE_HEAD_ITERS = 3
+TWO_PHASE_TAIL_DIV = 16           # tail_capacity default = b // 16
+TWO_PHASE_BIG_TIER_MULT = 4       # big tier = 4 * tail_capacity
+# engagement gate used by decoders/bp_decoders.py: two-phase only pays off
+# with enough shots to compact and enough iterations to skip
+TWO_PHASE_MIN_BATCH = 64
+TWO_PHASE_MIN_ITER = 9
+
+
+def two_phase_head2_iters(head_iters: int, max_iter: int) -> int:
+    """Deepened-head depth used by the progressive branch."""
+    return min(max(4 * head_iters, 12), max_iter - 1)
+
+
+def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
+                        max_iter: int, method: str = "minimum_sum",
+                        ms_scaling_factor=0.625,
+                        head_iters: int = TWO_PHASE_HEAD_ITERS,
+                        tail_capacity: int | None = None,
+                        device="cuda") -> BPResult:
+    """Straggler-compacted BP: run ``head_iters`` for the whole batch, then
+    decode only the unconverged shots (gathered into a fixed-capacity
+    sub-batch) for the full ``max_iter``.
+
+    Identical to ``bp_decode`` for every shot: converged head shots freeze
+    at their convergence iteration, and the tail redecodes stragglers from
+    scratch — BP is deterministic, so iterations 1..head replay identically
+    before continuing.  The tiers are (tail_capacity, 4x, progressive
+    deepened head, full batch); results never depend on the tier taken.
+
+    The tier is chosen on the host: each decode reads the straggler count
+    once (twice when the deepened head runs), counted in
+    ``bp_decode_two_phase.host_reads``."""
+    graph, synd, llr = _inputs(graph, syndromes, channel_llr, device)
+    b = synd.shape[0]
+    if tail_capacity is None:
+        tail_capacity = max(1, b // TWO_PHASE_TAIL_DIV)
+    if head_iters >= max_iter or tail_capacity >= b:
+        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+
+    def run(s, l, iters):
+        return _decode(graph, s, l, iters, method, ms_scaling_factor)
+
+    def compacted(capacity, head):
+        # pad the gather with an out-of-range sentinel (b): padded rows read
+        # a zero scratch syndrome (row b of the extended arrays) and their
+        # results land in a scratch row sliced off below
+        idx = torch.nonzero(~head.converged).flatten()
+        idx = torch.cat([idx, idx.new_full((capacity - idx.numel(),), b)])
+        synd_ext = torch.cat([synd, synd.new_zeros((1, synd.shape[1]))])
+        llr_c = llr
+        if llr.dim() == 2:
+            llr_c = torch.cat([llr, llr[:1]])[idx]
+        tail = run(synd_ext[idx], llr_c, max_iter)
+
+        def merge(head_arr, tail_arr):
+            ext = torch.cat([head_arr, head_arr.new_zeros((1,) + head_arr.shape[1:])])
+            ext[idx] = tail_arr
+            return ext[:b]
+
+        return BPResult(*(merge(h, t) for h, t in zip(head, tail)))
+
+    tiers = [tail_capacity]
+    if tail_capacity * TWO_PHASE_BIG_TIER_MULT < b:
+        tiers.append(tail_capacity * TWO_PHASE_BIG_TIER_MULT)
+
+    head = run(synd, llr, head_iters)
+    n_bad = int((~head.converged).sum())
+    bp_decode_two_phase.host_reads += 1
+    for cap in tiers:
+        if n_bad <= cap:
+            return compacted(cap, head)
+    # progressive head deepening: when even the largest tier overflows, a
+    # deeper full-batch head runs before conceding to the full decode
+    head2_iters = two_phase_head2_iters(head_iters, max_iter)
+    if head2_iters > head_iters:
+        head2 = run(synd, llr, head2_iters)
+        n_bad2 = int((~head2.converged).sum())
+        bp_decode_two_phase.host_reads += 1
+        if n_bad2 <= tiers[-1]:
+            return compacted(tiers[-1], head2)
+    return run(synd, llr, max_iter)
+
+
+bp_decode_two_phase.host_reads = 0

@@ -1,0 +1,181 @@
+"""Bit-packed GF(2) execution layer: 32 shots per int32 lane word.
+
+Every {0,1} bitplane of the code-capacity pipeline (errors, syndromes,
+corrections, residuals, failure flags) packs 32 Monte-Carlo shots per word:
+a (B, n) uint8 plane becomes (W, n) int32 with W = ceil(B/32), and shot
+``32*w + j`` is bit ``j`` (LSB-first) of ``packed[w, :]``.  The words carry
+the same bit patterns as the JAX package's uint32 words.  Packing along the
+shot axis turns the mod-2 accumulation of every GF(2) product into bitwise
+XOR across lane words; ``popcount`` (SWAR, as torch has none) reads counts
+out, masked by ``lane_mask`` so ragged batches count exactly their shots.
+
+PyTorch's ``>>`` on int32 is an arithmetic shift: every multi-bit use of a
+right shift here is masked afterwards.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "LANE",
+    "num_words",
+    "lane_mask",
+    "pack_shots",
+    "unpack_shots",
+    "xor_reduce",
+    "popcount",
+    "packed_parity_apply",
+    "packed_gf2_matmul",
+    "packed_any",
+    "packed_count",
+    "packed_per_shot_weight",
+    "packed_residual_stats",
+]
+
+LANE = 32  # shots per int32 lane word
+
+
+def num_words(batch_size: int) -> int:
+    """Packed words needed for ``batch_size`` shots."""
+    return -(-int(batch_size) // LANE)
+
+
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensors with the same 32 bits."""
+    return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def lane_mask(batch_size: int, device="cpu") -> torch.Tensor:
+    """(W,) int32 mask of valid shot bits; ragged tails mask the padding.
+    Built on ``device`` (no host-to-device copy)."""
+    w = num_words(batch_size)
+    valid = torch.arange(w * LANE, device=device) < batch_size
+    words = valid.reshape(w, LANE).to(torch.int64) << torch.arange(LANE, device=device)
+    return to_int32(words.sum(dim=1))
+
+
+def _shifts(ndim: int, device) -> torch.Tensor:
+    return torch.arange(LANE, device=device).reshape((1, LANE) + (1,) * ndim)
+
+
+def pack_shots(bits) -> torch.Tensor:
+    """Pack a (B, ...) {0,1} plane into (ceil(B/32), ...) int32 lane words;
+    a ragged tail pads with zero bits."""
+    bits = torch.as_tensor(bits)
+    b = bits.shape[0]
+    w = num_words(b)
+    pad = w * LANE - b
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((pad,) + bits.shape[1:])])
+    x = bits.reshape((w, LANE) + bits.shape[1:]).to(torch.int64)
+    return to_int32((x << _shifts(bits.dim() - 1, bits.device)).sum(dim=1))
+
+
+def unpack_shots(packed, batch_size: int) -> torch.Tensor:
+    """Inverse of ``pack_shots``: (W, ...) int32 -> (batch_size, ...) uint8."""
+    packed = torch.as_tensor(packed)
+    w = packed.shape[0]
+    bits = (packed[:, None] >> _shifts(packed.dim() - 1, packed.device)) & 1
+    out = bits.reshape((w * LANE,) + packed.shape[1:]).to(torch.uint8)
+    return out[:batch_size]
+
+
+def _halving_reduce(x: torch.Tensor, dim: int, op) -> torch.Tensor:
+    """Reduce ``dim`` with a bitwise ``op`` whose identity is 0, by pairwise
+    halving (torch has no bitwise reductions)."""
+    x = x.movedim(dim, 0)
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        x = op(x[0::2], x[1::2])
+    return x[0]
+
+
+def xor_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Bitwise-XOR reduction along ``dim`` (the packed mod-2 accumulator)."""
+    return _halving_reduce(x, dim, torch.bitwise_xor)
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Per-word set-bit count of int32 words (SWAR), int32 out."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x & 0xFF) + ((x >> 8) & 0xFF) + ((x >> 16) & 0xFF) + ((x >> 24) & 0xFF)
+
+
+def packed_parity_apply(nbr, mask, packed_bits) -> torch.Tensor:
+    """Packed sparse GF(2) SpMV ``x @ H.T % 2`` on lane words.
+
+    ``nbr``/``mask`` are a ParityOp's (m, rw) padded adjacency;
+    ``packed_bits`` is (W, n) int32.  Returns (W, m) int32: the XOR of the
+    <= rw gathered neighbour words of each check."""
+    g = packed_bits[..., nbr.long()]                        # (W, m, rw)
+    g = torch.where(mask, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    acc = g[..., 0]
+    for s in range(1, g.shape[-1]):
+        acc = acc ^ g[..., s]
+    return acc
+
+
+def packed_gf2_matmul(packed_bits, h_t) -> torch.Tensor:
+    """Packed dense GF(2) product ``x @ h_t % 2`` on lane words.
+
+    packed_bits: (W, n) int32; h_t: (n, k) {0,1}.  Returns (W, k) int32 —
+    a masked XOR-reduction over n, meant for small k (logical checks)."""
+    sel = torch.where(h_t[None, :, :] != 0, packed_bits[:, :, None],
+                      torch.zeros((), dtype=packed_bits.dtype,
+                                  device=packed_bits.device))  # (W, n, k)
+    return xor_reduce(sel, dim=1)
+
+
+def packed_any(packed_words, dim: int = -1) -> torch.Tensor:
+    """Per-shot OR over a plane axis: (W, m) -> (W,) flag words."""
+    return _halving_reduce(packed_words, dim, torch.bitwise_or)
+
+
+def packed_count(flag_words, batch_size: int) -> torch.Tensor:
+    """Count set shots in (W,) flag words, masking ragged padding lanes.
+    Returns an int32 device scalar (no host sync)."""
+    masked = flag_words & lane_mask(batch_size, flag_words.device)
+    return popcount(masked).sum(dtype=torch.int32)
+
+
+def packed_per_shot_weight(packed_bits, batch_size: int) -> torch.Tensor:
+    """Per-shot Hamming weight of a packed (W, n) plane -> (batch_size,) i32."""
+    w = packed_bits.shape[0]
+    bits = (packed_bits[:, None] >> _shifts(packed_bits.dim() - 1,
+                                            packed_bits.device)) & 1
+    weights = bits.sum(dim=-1, dtype=torch.int32)           # (W, 32)
+    return weights.reshape(w * LANE)[:batch_size]
+
+
+def packed_residual_stats(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
+                          eval_type: str, batch_size: int, n: int):
+    """Residual stabilizer/logical checks on packed planes -> two scalars.
+
+    res_x/res_z: (W, n) packed residual planes.  hz_par/hx_par: ParityOp
+    ``(nbr, mask)`` pairs (hz checks res_x, hx checks res_z).  lz_t/lx_t:
+    (n, k) {0,1} logical transposes.  Returns int32 device scalars
+    (failure count of ``eval_type`` "X", "Z" or "Total", min residual weight
+    among logical failures)."""
+    x_stab = packed_any(packed_parity_apply(hz_par[0], hz_par[1], res_x))
+    x_log = packed_any(packed_gf2_matmul(res_x, lz_t))
+    z_stab = packed_any(packed_parity_apply(hx_par[0], hx_par[1], res_z))
+    z_log = packed_any(packed_gf2_matmul(res_z, lx_t))
+    x_fail = x_stab | x_log
+    z_fail = z_stab | z_log
+    if eval_type == "X":
+        cnt = packed_count(x_fail, batch_size)
+    elif eval_type == "Z":
+        cnt = packed_count(z_fail, batch_size)
+    else:
+        cnt = packed_count(x_fail | z_fail, batch_size)
+    wx = torch.where(unpack_shots(x_log, batch_size).bool(),
+                     packed_per_shot_weight(res_x, batch_size), n)
+    wz = torch.where(unpack_shots(z_log, batch_size).bool(),
+                     packed_per_shot_weight(res_z, batch_size), n)
+    min_w = torch.minimum(wx.min(), wz.min()).to(torch.int32)
+    return cnt, min_w

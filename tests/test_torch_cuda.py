@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
+skip without one; run them on a machine with a card:
+``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — both
+kernels reproduce their plain versions bit for bit (min-sum is built with
+FMA contraction off; the elimination is integer-exact)."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code, ring_code
+from qldpc_fault_tolerance_tpu_torch.decoders import BPOSD_Decoder
+from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
+from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
+
+# one intra-op thread: the suite runs several pytest workers on few cores,
+# and an oversubscribed torch thread pool stalls small ops
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _synd(h, B, p, seed):
+    rng = np.random.default_rng(seed)
+    err = (rng.random((B, h.shape[1])) < p).astype(np.uint8)
+    return torch.from_numpy((err @ h.T % 2).astype(np.uint8))
+
+
+@pytest.mark.parametrize("code,B,per_shot", [("ring", 300, False),
+                                             ("ring", 64, True),
+                                             ("hgp_34_n1600", 44, False)])
+def test_bp_kernel_matches_plain(cuda, code, B, per_shot):
+    """hgp_34_n1600 takes 4 shots per block (shared memory), the ring code 8."""
+    if code == "ring":
+        h = hgp(ring_code(5), ring_code(4)).hx
+    else:
+        h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
+    graph = tbp.build_tanner_graph(h, cuda)
+    synd = _synd(h, B, 0.06, B).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
+    if per_shot:
+        llr = llr * torch.linspace(0.5, 1.5, B, device=cuda)[:, None]
+    before = bp_minsum.launches
+    k = bp_minsum(graph, synd, llr.contiguous(), max_iter=25)
+    assert bp_minsum.launches == before + 1
+    with _kernels.force_plain():
+        p = bp_minsum(graph, synd, llr.contiguous(), max_iter=25)
+    assert bp_minsum.launches == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fcap", [0, 10, 32])
+def test_elim_kernel_matches_plain(cuda, fcap):
+    h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
+    n = h.shape[1]
+    plan = tod.build_osd_plan(h, np.full(n, 0.03), device=cuda)
+    post = torch.randn((40, n), generator=torch.Generator().manual_seed(fcap))
+    perm = torch.sort(post.to(cuda), dim=1, stable=True).indices
+    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
+    synd = _synd(h, 40, 0.05, fcap).to(cuda, torch.int32).t().contiguous()
+    k = tod.osd_elim(packed, synd, n=n, r_star=plan.rank, fcap=fcap)
+    p = tod.eliminate_plain(packed, synd, n=n, r_star=plan.rank, fcap=fcap)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    h = hgp(ring_code(3), ring_code(3)).hx
+    graph = tbp.build_tanner_graph(h, cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
+    with pytest.raises(ValueError):
+        bp_minsum(graph, _synd(h, 8, 0.1, 0).to(cuda).float(), llr, max_iter=5)
+    plan = tod.build_osd_plan(h, np.full(h.shape[1], 0.05), device=cuda)
+    packed = torch.zeros((1, h.shape[0], 4), dtype=torch.int32, device=cuda)
+    synd = torch.zeros((h.shape[0], 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tod.osd_elim(packed, synd, n=h.shape[1], r_star=plan.rank, fcap=33)
+
+
+def test_bposd_on_card_matches_cpu(cuda):
+    code = hgp(ring_code(5), ring_code(5))
+    probs = np.full(code.N, 0.05)
+    synd = _synd(code.hx, 256, 0.06, 9).numpy()
+    gpu = BPOSD_Decoder(code.hx, probs, 20, osd_order=6, device=cuda)
+    cpu = BPOSD_Decoder(code.hx, probs, 20, osd_order=6, device="cpu")
+    a, b = gpu.decode_batch(synd), cpu.decode_batch(synd)
+    cost = np.log((1 - probs) / probs)
+    assert ((a.astype(np.int64) @ code.hx.T % 2) == synd).all()
+    assert ((a == b).all(axis=1) | (np.abs(a @ cost - b @ cost) < 1e-4)).all()

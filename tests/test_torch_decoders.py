@@ -1,0 +1,120 @@
+"""Port decoders/bp_decoders.py: factories, decode API and the JAX-state
+bridge ``state_from_jax``.
+
+Tolerance: none — the state bridge must reproduce the port's own build
+tensor for tensor, and decoding with either state must give identical
+results."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from qldpc_fault_tolerance_tpu import decoders as jdec
+from qldpc_fault_tolerance_tpu_torch.codes import hgp, rep_code, ring_code
+from qldpc_fault_tolerance_tpu_torch.decoders import (
+    BP_Decoder_Class,
+    BPDecoder,
+    BPOSD_Decoder,
+    BPOSD_Decoder_Class,
+    decode_device,
+    state_from_jax,
+)
+
+# one intra-op thread: the suite runs several pytest workers on few cores,
+# and an oversubscribed torch thread pool stalls small ops
+torch.set_num_threads(1)
+
+
+def _syndromes(h, B, p, seed):
+    rng = np.random.default_rng(seed)
+    err = (rng.random((B, h.shape[1])) < p).astype(np.uint8)
+    return (err @ h.T % 2).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["bp", "bposd"])
+def test_state_from_jax_round_trip(kind):
+    code = hgp(ring_code(4), ring_code(4))
+    h = code.hx
+    probs = np.full(code.N, 0.05)
+    if kind == "bp":
+        jd, td = jdec.BPDecoder(h, probs, 20), BPDecoder(h, probs, 20, device="cpu")
+    else:
+        jd = jdec.BPOSD_Decoder(h, probs, 20, osd_order=4)
+        td = BPOSD_Decoder(h, probs, 20, osd_order=4, device="cpu")
+    np_state = jax.tree_util.tree_map(np.asarray, jd.device_state)
+    bridged = state_from_jax(np_state, device="cpu")
+    own = td.device_state
+    assert set(bridged) == set(own)
+    for key in own:
+        if key == "graph":
+            for a, b in zip(bridged["graph"], own["graph"]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert bridged[key].dtype == own[key].dtype
+            assert torch.equal(bridged[key], own[key]), key
+    synd = torch.from_numpy(_syndromes(h, 96, 0.06, 1))
+    a, aux_a = decode_device(td.device_static, bridged, synd)
+    b, aux_b = decode_device(td.device_static, own, synd)
+    assert torch.equal(a, b)
+    for k in aux_a:
+        assert torch.equal(aux_a[k], aux_b[k])
+
+
+def test_factories_match_jax_parameters():
+    code = hgp(rep_code(3), rep_code(3))
+    params = {"h": code.hx, "p_data": 0.02}
+    args = (5, "min_sum", 0.75)
+    jbp, tbp = (jdec.BP_Decoder_Class(*args).GetDecoder(params),
+                BP_Decoder_Class(*args, device="cpu").GetDecoder(params))
+    assert (jbp.max_iter, jbp.bp_method, jbp.ms_scaling_factor) == (
+        tbp.max_iter, tbp.bp_method, tbp.ms_scaling_factor)
+    assert np.array_equal(jbp.channel_probs, tbp.channel_probs)
+    ext = {"h": np.concatenate([code.hx, np.eye(code.hx.shape[0], dtype=np.uint8)], 1),
+           "p_data": 0.02, "p_syndrome": 0.01}
+    jo = jdec.BPOSD_Decoder_Class(*args, "osd_e", 6).GetDecoder(ext)
+    to = BPOSD_Decoder_Class(*args, "osd_e", 6, device="cpu").GetDecoder(ext)
+    assert (jo.max_iter, jo.osd_order) == (to.max_iter, to.osd_order)
+    assert np.array_equal(jo.channel_probs, to.channel_probs)
+    with pytest.raises(KeyError):
+        BP_Decoder_Class(*args, device="cpu").GetDecoder({"h": code.hx})
+
+
+@pytest.mark.parametrize("cls", [BPDecoder, BPOSD_Decoder])
+def test_decode_single_matches_batch_and_satisfies_syndrome(cls):
+    code = hgp(ring_code(3), ring_code(3))
+    dec = cls(code.hx, np.full(code.N, 0.05), 20, device="cpu")
+    synd = _syndromes(code.hx, 70, 0.05, 2)
+    batch = dec.decode_batch(synd)
+    assert batch.shape == (70, code.N) and batch.dtype == np.uint8
+    assert np.array_equal(dec.decode(synd[5]), batch[5])
+    if cls is BPOSD_Decoder:  # OSD always lands on the syndrome
+        assert np.array_equal(batch.astype(np.int64) @ code.hx.T % 2, synd)
+
+
+def test_bposd_tiers_give_identical_shots():
+    """The compacted OSD tiers (B/16, B/4) and the full batch give each shot
+    the same correction: decode the same shots in batches that take each
+    tier and compare with single-shot decodes."""
+    code = hgp(ring_code(5), ring_code(5))
+    dec = BPOSD_Decoder(code.hx, np.full(code.N, 0.08), 8, osd_order=4,
+                        device="cpu")
+    synd = _syndromes(code.hx, 2048, 0.06, 3)
+    reads = decode_device.host_reads
+    whole = dec.decode_batch(synd)
+    assert decode_device.host_reads == reads + 1
+    small = np.concatenate([dec.decode_batch(synd[i:i + 256])
+                            for i in range(0, 2048, 256)])
+    tiny = np.concatenate([dec.decode_batch(synd[i:i + 32])
+                           for i in range(0, 2048, 32)])
+    assert np.array_equal(whole, small) and np.array_equal(whole, tiny)
+
+
+def test_unknown_osd_method_raises():
+    code = hgp(ring_code(3), ring_code(3))
+    with pytest.raises(NotImplementedError):
+        BPOSD_Decoder(code.hx, np.full(code.N, 0.05), 10, osd_method="osd_cs",
+                      device="cpu")
+    with pytest.raises(ValueError):
+        BPOSD_Decoder(code.hx, np.full(code.N, 0.05), 10, osd_order=21,
+                      device="cpu")
