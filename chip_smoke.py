@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build both kernels from qldpc_fault_tolerance_tpu_torch/csrc (one nvcc
+  2. build all five kernels from qldpc_fault_tolerance_tpu_torch/csrc (one nvcc
      per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
@@ -18,8 +18,24 @@ Phases (any failure raises and the script exits non-zero):
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
      replaced by its plain version gives the same failures and min weight;
      a small batch decoded on the CPU and on the card agrees
-  8. a "kernels" JSON line: launches on the main path (phases 5-6), error
-     against the plain version, times, bound
+  8. a "kernels" JSON line, printed after phase 13: for all five kernels
+     the main-path launches (phases 5-6 for kernels 1-2, phase 12 for
+     B3-B5), error against the plain version, times, bound
+  9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
+     p=0.01, B=4096 with and without the error words, and a ragged B=4000;
+     every word bit-exact
+ 10. kernel B4 (residual check) against its plain version: the corrections
+     are BPDecoder decodes of phase 9's syndromes; X, Z and Total
+ 11. kernel B5 (whole-pipeline fused decode) against its plain version:
+     B=4096, p=0.05, 50 iterations, scale 0.625; count, min weight and every
+     shot's converged flag and iterations in both sectors identical
+ 12. main path, fused engines: CodeSimulator_DataError(fused_sampler=True)
+     BP-50 p=0.01, 16 batches of 4096, then fused_sampler="v2" with the same
+     seed (its failures and min weight must equal v1's), then v1 with BPOSD
+     (OSD-E order 10) at p=0.05, 4 batches of 2048
+ 13. anchors: v2 at p=0 gives no failure; one v1 and one v2 batch with every
+     kernel replaced by its plain version give the kernel path's failures
+     and min weight
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -36,6 +52,16 @@ PKG = "qldpc_fault_tolerance_tpu_torch"
 CODE = ROOT / "codes_lib_tpu" / "hgp_34_n625.npz"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# H100 SXM 32-bit integer issue rate: 64 INT32 lanes per SM per clock, 132
+# SMs, 1980 MHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# 32-bit integer operations that one counter draw needs, counted from
+# csrc/counter_gf2.cuh: 1 add of the qubit's counter word (the shot's word
+# c0 + k0 is once per lane), the 20 rounds' add, rotate and xor less the last
+# round's rotate and xor of x1 (dead: only x0 is returned), 9 adds of the key
+# injections (the injected k + i depend on the key only), and the cut's 3
+# compares and 2 logic ops
+DRAW_OPS = 1 + (20 * 3 - 2) + 9 + (3 + 2)
 SEED = 20261016
 
 
@@ -56,6 +82,29 @@ def event_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time per call of the kernels whose name holds ``kernel``,
+    from torch.profiler over ``reps`` calls after one warm-up.  Raises when
+    the profiler records no device time for it: CUDA events around
+    back-to-back calls of a kernel this short time the host's launch cost,
+    which is another number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if kernel in e.key)
+    if total_us <= 0:
+        raise AssertionError(f"the profiler recorded no device time for "
+                             f"{kernel}")
+    return total_us / reps / 1e3
 
 
 def card_line() -> str:
@@ -105,6 +154,86 @@ def elim_bound_ms(W: int, m: int, r_star: int, B: int,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def roofline_ms(nbytes: float, int_ops: float,
+                fp_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations over
+    their type's peak rate (integer and float32 times added)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int_ops / INT32_OPS_PER_S + fp_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def logical_failures(spec, key, B: int, corx_p, corz_p) -> int:
+    """Shots of batch ``key`` whose residual under the packed corrections
+    fails a logical check in either sector (plain PyTorch)."""
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
+    from qldpc_fault_tolerance_tpu_torch.ops.gf2_packed import (
+        packed_parity_apply,
+        unpack_shots,
+    )
+
+    exp, ezp, _, _ = gk.sample_syndrome_plain(spec, key, B)
+    fx = packed_parity_apply(spec.lz_nbr, spec.lz_mask, exp ^ corx_p)
+    fz = packed_parity_apply(spec.lx_nbr, spec.lx_mask, ezp ^ corz_p)
+    return int(unpack_shots(torch.cat([fx, fz], dim=1), B).any(dim=1).sum())
+
+
+def adjacency_stats(nbr, mask) -> tuple[int, int]:
+    """(bytes of an int32 neighbour table and its bool mask, nonzeros)."""
+    return 5 * nbr.numel(), int(mask.sum())
+
+
+def sample_bound_ms(spec, B: int, emit_errors: bool) -> tuple[float, str]:
+    """Least time for B3: the adjacencies of hx and hz read once, the packed
+    words written once, against one draw per (shot, qubit) and one XOR per
+    check nonzero per word."""
+    W, n = -(-B // 32), spec.n
+    (bx, ex), (bz, ez) = (adjacency_stats(spec.hx_nbr, spec.hx_mask),
+                          adjacency_stats(spec.hz_nbr, spec.hz_mask))
+    mx, mz = spec.hx_nbr.shape[0], spec.hz_nbr.shape[0]
+    nbytes = bx + bz + 4 * W * (mx + mz + (2 * n if emit_errors else 0))
+    return roofline_ms(nbytes, B * n * DRAW_OPS + W * (ex + ez))
+
+
+def residual_bound_ms(spec, B: int, logical_failures: int) -> tuple[float, str]:
+    """Least time for B4: the corrections and the four adjacencies read
+    once, the (W, 2) partials written once, against one draw per (shot,
+    qubit), the XOR of each correction word, one XOR per check nonzero per
+    word, and the weights of the shots that fail a logical check (2
+    operations per qubit per sector: extract the shot's bit, add)."""
+    W, n = -(-B // 32), spec.n
+    adj = [adjacency_stats(getattr(spec, f"{a}_nbr"), getattr(spec, f"{a}_mask"))
+           for a in ("hx", "hz", "lx", "lz")]
+    nbytes = 8 * W * n + sum(b for b, _ in adj) + 8 * W
+    ops = (B * n * DRAW_OPS + 2 * W * n + W * sum(e for _, e in adj)
+           + 4 * n * logical_failures)
+    return roofline_ms(nbytes, ops)
+
+
+def fused_bound_ms(spec, B: int, iters_z: int, iters_x: int,
+                   logical_failures: int) -> tuple[float, str]:
+    """Least time for B5: graphs, logical adjacencies and LLRs read once,
+    the per-shot flags and the partials written once, against the integer
+    work of sampling, both syndromes and the residual checks (one operation
+    per nonzero per shot), the residual XOR (1 per qubit per sector per
+    shot), the weights of the shots that fail a logical check (1 add per
+    qubit per sector) and the float32 work of both decodes (per
+    shot-iteration 11 per edge and 2 per variable, as bp_bound_ms)."""
+    n = spec.base.n
+    graphs = (spec.graph_z, spec.graph_x)
+    g_bytes = sum(5 * g.chk_nbr.numel() + 9 * g.var_nbr.numel() for g in graphs)
+    edges = [int(g.chk_mask.sum()) for g in graphs]
+    adj = [adjacency_stats(getattr(spec.base, f"{a}_nbr"),
+                           getattr(spec.base, f"{a}_mask")) for a in ("lx", "lz")]
+    nbytes = g_bytes + sum(b for b, _ in adj) + 8 * n + 10 * B + 8 * (-(-B // 8))
+    int_ops = (B * (n * DRAW_OPS + 2 * sum(edges) + sum(e for _, e in adj) + 2 * n)
+               + 2 * n * logical_failures)
+    fp_ops = (iters_z * (11 * edges[0] + 2 * n) + iters_x * (11 * edges[1] + 2 * n))
+    return roofline_ms(nbytes, int_ops, fp_ops)
+
+
 def main() -> int:
     import torch
 
@@ -126,6 +255,8 @@ def main() -> int:
     )
     from qldpc_fault_tolerance_tpu_torch.ops import _kernels
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
+    from qldpc_fault_tolerance_tpu_torch.ops.gf2_packed import pack_shots, unpack_shots
     from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
     from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
     from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
@@ -245,9 +376,10 @@ def main() -> int:
     l5 = bp_minsum.launches
     wer_phase("6 BPOSD p=0.05", simulator(
         BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e", osd_order=10), 8)
-    launches = {"bp_minsum": bp_minsum.launches, "osd_elim": tod.osd_elim.launches}
-    log(f"[5-6] main-path launches {launches} (bp_minsum {l5} in phase 5)")
-    for name, count in launches.items():
+    launches_56 = {"bp_minsum": bp_minsum.launches,
+                   "osd_elim": tod.osd_elim.launches}
+    log(f"[5-6] main-path launches {launches_56} (bp_minsum {l5} in phase 5)")
+    for name, count in launches_56.items():
         if count <= 0:
             raise AssertionError(f"{name} never launched on the main path")
 
@@ -292,20 +424,220 @@ def main() -> int:
     log(f"[7] {Bs} BPOSD shots, card vs CPU: {int(same.sum())} identical, "
         f"{int((~same & tied).sum())} cost-tied, all syndrome-consistent")
 
-    # 8. the kernels line
+    # 9. kernel B3 vs its plain version
+    key = gk.fold_in(gk.split_key(gk.prng_key(SEED))[1], 0)
+    p9, B9 = 0.01, 4096
+    spec = gk.build_fused_spec(code.hx, code.hz, code.lx, code.lz,
+                               [p9 / 3] * 3, dev)
+    b3_err = 0
+    for B, emit in ((B9, True), (B9, False), (4000, True)):
+        k = gk.sample_syndrome(spec, key, B, emit_errors=emit)
+        pl = gk.sample_syndrome_plain(spec, key, B, emit_errors=emit)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, pl))
+        if len(k) != len(pl) or err:  # tolerance 0: integer words
+            raise AssertionError(f"B3 differs from its plain version at B={B}, "
+                                 f"emit_errors={emit}")
+        b3_err = max(b3_err, err)
+    sxp, szp = gk.sample_syndrome(spec, key, B9, emit_errors=False)
+
+    def run_b3():
+        return gk.sample_syndrome(spec, key, B9, emit_errors=False)
+
+    b3_ms = device_ms(run_b3, 20, "gf2_sample_kernel")
+    b3_plain_ms = event_ms(lambda: gk.sample_syndrome_plain(
+        spec, key, B9, emit_errors=False), 5)
+    b3_bound, b3_by = sample_bound_ms(spec, B9, emit_errors=False)
+    log(f"[9] B3 == plain (every word, B=4096 with and without errors, "
+        f"B=4000); kernel {b3_ms:.4f} ms (profiler device time), plain "
+        f"{b3_plain_ms:.3f} ms, bound {b3_bound:.4f} ms ({b3_by}), syndromes "
+        f"only")
+
+    # 10. kernel B4 vs its plain version, corrections from BP decodes
+    probs9 = np.full(n, 2 * p9 / 3)
+    cor_x, _ = BPDecoder(code.hz, probs9, 50, device=dev).decode_batch_device(
+        unpack_shots(sxp, B9))
+    cor_z, _ = BPDecoder(code.hx, probs9, 50, device=dev).decode_batch_device(
+        unpack_shots(szp, B9))
+    corx_p = pack_shots(cor_x).contiguous()
+    corz_p = pack_shots(cor_z).contiguous()
+    b4_err = 0
+    for ev in ("X", "Z", "Total"):
+        k = gk.residual_check_stats(spec, key, B9, corx_p, corz_p, ev)
+        pl = gk.residual_check_plain(spec, key, B9, corx_p, corz_p, ev)
+        k, pl = [int(x) for x in k], [int(x) for x in pl]
+        if k != pl:  # tolerance 0: integer counts
+            raise AssertionError(f"B4 {ev}: kernel {k} vs plain {pl}")
+        b4_err = max(b4_err, *(abs(a - b) for a, b in zip(k, pl)))
+        log(f"[10] B4 == plain, {ev}: failures {k[0]}, min_w {k[1]}")
+
+    def run_b4():
+        return gk.residual_check_stats(spec, key, B9, corx_p, corz_p, "Total")
+
+    b4_ms = device_ms(run_b4, 20, "gf2_residual_kernel")
+    b4_plain_ms = event_ms(lambda: gk.residual_check_plain(
+        spec, key, B9, corx_p, corz_p, "Total"), 5)
+    lf4 = logical_failures(spec, key, B9, corx_p, corz_p)
+    b4_bound, b4_by = residual_bound_ms(spec, B9, lf4)
+    log(f"[10] B4 kernel {b4_ms:.4f} ms (profiler device time), plain "
+        f"{b4_plain_ms:.3f} ms, bound {b4_bound:.4f} ms ({b4_by}; "
+        f"{lf4} logical failures)")
+
+    # 11. kernel B5 vs its plain version
+    p11, B11, it11 = 0.05, 4096, 50
+    llr11 = tbp.llr_from_probs(np.full(n, 2 * p11 / 3), dev)
+    spec2 = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+                                       [p11 / 3] * 3, llr11, llr11, dev)
+    kw11 = dict(eval_type="Total", max_iter_z=it11, max_iter_x=it11,
+                ms_scaling_factor=scale)
+
+    def run_b5():
+        return gk.fused_decode_stats(spec2, key, B11, **kw11)
+
+    k5 = run_b5()
+    p5 = gk.fused_decode_plain(spec2, key, B11, **kw11)
+    torch.cuda.synchronize()
+    b5_err = max([abs(int(k5[i]) - int(p5[i])) for i in (0, 1)]
+                 + [int((a[f].long() - b[f].long()).abs().max())
+                    for a, b in ((k5[2], p5[2]), (k5[3], p5[3]))
+                    for f in ("converged", "iterations")])
+    # tolerance 0: f32 min-sum built with -fmad=false, same operation order
+    if (int(k5[0]), int(k5[1])) != (int(p5[0]), int(p5[1])):
+        raise AssertionError(f"B5 count/min_w {int(k5[0])}/{int(k5[1])} vs "
+                             f"plain {int(p5[0])}/{int(p5[1])}")
+    for sector, a, b in (("x", k5[2], p5[2]), ("z", k5[3], p5[3])):
+        for field in ("converged", "iterations"):
+            if not torch.equal(a[field], b[field]):
+                raise AssertionError(f"B5 {sector} {field} differ from plain")
+    b5_ms = event_ms(run_b5, 10)
+    b5_plain_ms = event_ms(lambda: gk.fused_decode_plain(spec2, key, B11,
+                                                         **kw11), 1)
+    si_z, si_x = int(k5[3]["iterations"].sum()), int(k5[2]["iterations"].sum())
+    # the same batch through the sampler and BPDecoder's f32 min-sum: the
+    # same failures and min weight (v1 == v2), and its logical failures
+    probs11 = np.full(n, 2 * p11 / 3)
+    sx11, sz11 = gk.sample_syndrome(spec2.base, key, B11, emit_errors=False)
+
+    def bp_correction(h, synd_p):
+        dec = BPDecoder(h, probs11, it11, ms_scaling_factor=scale, device=dev)
+        cor, _ = dec.decode_batch_device(unpack_shots(synd_p, B11))
+        return pack_shots(cor).contiguous()
+
+    cor11 = (bp_correction(code.hz, sx11), bp_correction(code.hx, sz11))
+    v1_11 = [int(x) for x in gk.residual_check_stats(spec2.base, key, B11,
+                                                     *cor11, "Total")]
+    if v1_11 != [int(k5[0]), int(k5[1])]:
+        raise AssertionError(f"B5 {int(k5[0])}/{int(k5[1])} vs sample, "
+                             f"BPDecoder and B4 {v1_11[0]}/{v1_11[1]}")
+    lf5 = logical_failures(spec2.base, key, B11, *cor11)
+    b5_bound, b5_by = fused_bound_ms(spec2, B11, si_z, si_x, lf5)
+    log(f"[11] B5 == plain (count {int(k5[0])}, min_w {int(k5[1])}, converged "
+        f"z {float(k5[3]['converged'].float().mean()):.4f} x "
+        f"{float(k5[2]['converged'].float().mean()):.4f}, shot-iterations "
+        f"z {si_z} x {si_x}); kernel {b5_ms:.3f} ms, plain {b5_plain_ms:.3f} "
+        f"ms, bound {b5_bound:.4f} ms ({b5_by}; {lf5} logical failures); "
+        f"== sample + BPDecoder + B4")
+
+    # 12. main path, fused engines: counts reset just before each run, read
+    # just after
+    def fused_sim(decoder_cls, p, batch, fused, **kw):
+        probs = np.full(n, 2 * p / 3)
+        dx = decoder_cls(code.hz, probs, 50, device=dev, **kw)
+        dz = decoder_cls(code.hx, probs, 50, device=dev, **kw)
+        return CodeSimulator_DataError(
+            code=code, decoder_x=dx, decoder_z=dz,
+            pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
+            scan_chunk=8, fused_sampler=fused, device=dev)
+
+    def counted(fn):
+        wrappers = {"gf2_sample": gk.sample_syndrome,
+                    "gf2_residual": gk.residual_check_stats,
+                    "fused_decode": gk.fused_decode_stats,
+                    "bp_minsum": bp_minsum, "osd_elim": tod.osd_elim}
+        for w in wrappers.values():
+            w.launches = 0
+        fn()
+        return {name: w.launches for name, w in wrappers.items()}
+
+    fused_launches = {}
+    runs = {}
+    for tag, make, n_batches, needs in (
+            ("v1 BP p=0.01", lambda: fused_sim(BPDecoder, 0.01, 4096, True),
+             16, ("gf2_sample", "gf2_residual", "bp_minsum")),
+            ("v2 BP p=0.01", lambda: fused_sim(BPDecoder, 0.01, 4096, "v2"),
+             16, ("fused_decode",)),
+            ("v1 BPOSD p=0.05", lambda: fused_sim(
+                BPOSD_Decoder, 0.05, 2048, True, osd_method="osd_e",
+                osd_order=10), 4,
+             ("gf2_sample", "gf2_residual", "bp_minsum", "osd_elim"))):
+        sim = make()
+        launches = counted(lambda: wer_phase(f"12 {tag}", sim, n_batches))
+        log(f"[12 {tag}] launches {launches}")
+        for name in needs:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on {tag}")
+        for name, count in launches.items():
+            fused_launches[name] = fused_launches.get(name, 0) + count
+        runs[tag] = (sim.last_failures, sim.min_logical_weight)
+    if runs["v2 BP p=0.01"] != runs["v1 BP p=0.01"]:
+        raise AssertionError(f"v2 {runs['v2 BP p=0.01']} != v1 "
+                             f"{runs['v1 BP p=0.01']} (failures, min_w)")
+    log(f"[12] v2 == v1: failures, min_w {runs['v1 BP p=0.01']}")
+
+    # 13. anchors
+    sim0 = fused_sim(BPDecoder, 0.0, 4096, "v2")
+    sim0.WordErrorRate(2 * 4096)
+    if sim0.last_failures != 0:
+        raise AssertionError(f"v2: {sim0.last_failures} failures at p=0")
+    log(f"[13] v2 p=0: 0 failures in {sim0.last_shots} shots")
+    for fused in (True, "v2"):
+        sim_k = fused_sim(BPDecoder, 0.05, 4096, fused)
+        sim_p = fused_sim(BPDecoder, 0.05, 4096, fused)
+        sim_k.WordErrorRate(4096)
+        with _kernels.force_plain():
+            sim_p.WordErrorRate(4096)
+        got = [(s.last_failures, s.min_logical_weight) for s in (sim_k, sim_p)]
+        if got[0] != got[1]:
+            raise AssertionError(f"fused {fused}: kernel path {got[0]} vs "
+                                 f"plain path {got[1]}")
+        log(f"[13] fused {fused}, one p=0.05 batch: kernel path == plain path "
+            f"(failures, min_w) {got[0]}")
+
+    # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
-         "launches": launches["bp_minsum"], "max_abs_err": k1_err,
+         "launches": launches_56["bp_minsum"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "osd_elim", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:547",
-         "launches": launches["osd_elim"], "max_abs_err": float(k2_err),
+         "launches": launches_56["osd_elim"], "max_abs_err": float(k2_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "gf2_sample", "route": "cuda",
+         "source": f"{PKG}/csrc/gf2_sample.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/gf2_pallas.py:242",
+         "launches": fused_launches["gf2_sample"],
+         "max_abs_err": float(b3_err),
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
+         "bound_by": b3_by, "library_ms": None},
+        {"name": "gf2_residual", "route": "cuda",
+         "source": f"{PKG}/csrc/gf2_residual.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/gf2_pallas.py:330",
+         "launches": fused_launches["gf2_residual"],
+         "max_abs_err": float(b4_err),
+         "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
+         "bound_by": b4_by, "library_ms": None},
+        {"name": "fused_decode", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_decode.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/gf2_pallas.py:628",
+         "launches": fused_launches["fused_decode"],
+         "max_abs_err": float(b5_err),
+         "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
+         "bound_by": b5_by, "library_ms": None},
     ]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

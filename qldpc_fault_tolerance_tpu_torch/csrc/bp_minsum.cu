@@ -24,7 +24,8 @@
 // B/16 shots) spread over many SMs and blocks of converged shots stop early.
 // Device memory sees the syndromes and channel LLRs read, and the hard
 // decisions and posteriors of live shots written once per iteration (they
-// must freeze at convergence), in (n, B) / (m, B) batch-minor layouts.
+// must freeze at convergence), in (n, B) / (m, B) batch-minor layouts.  The
+// decode loop itself is minsum_body.cuh, shared with fused_decode.cu.
 //
 // Bound: the iterations are latency-bound chains of shared-memory passes
 // between barriers; per live shot-iteration the messages cost 16 B per edge
@@ -33,11 +34,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "minsum_body.cuh"
+
 namespace {
 
-constexpr int kMaxLanes = 8;
+constexpr int kMaxLanes = minsum::kMaxLanes;
 constexpr int kThreads = 1024;
-constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
+
+// kernel 1's inputs and outputs: syndromes and LLRs of shot b in (m, B) /
+// (n, B) layouts, and the live shot's hard decision and posterior written
+// every iteration (they must freeze at convergence)
+struct DeviceIo {
+  const uint8_t* synd_mb;  // (m, B)
+  const float* llr;
+  int llr_per_shot;
+  uint8_t* err;
+  float* post;
+  size_t sB;
+  int b;
+  __device__ uint8_t synd(int i) const { return synd_mb[i * sB + b]; }
+  __device__ float llr0(int j) const { return llr_per_shot ? llr[j * sB + b] : llr[j]; }
+  __device__ void init_var(int j) {
+    err[j * sB + b] = 0;
+    post[j * sB + b] = llr0(j);
+  }
+  __device__ void store_var(int j, uint8_t h, float total) {
+    err[j * sB + b] = h;
+    post[j * sB + b] = total;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (m, B)
@@ -63,121 +88,17 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (m, B)
   const int rows = kThreads / lanes;
   const int b = blockIdx.x * lanes + lane;
   const bool valid = b < B;
-  const size_t sB = (size_t)B;
   const int E = m * rw;
   float* v2c = smem;                                  // [e * lanes + lane]
   float* c2v = smem + (size_t)E * lanes;              // [e * lanes + lane]
   uint8_t* hard = (uint8_t*)(c2v + (size_t)E * lanes);  // [j * lanes + lane]
 
-  if (row == 0) {
-    s_done[lane] = valid ? 0 : 1;
-    s_bad[lane] = 0;
-    s_iters[lane] = max_iter;
-  }
-  if (valid) {
-    for (int e = row; e < E; e += rows) {
-      const int j = chk_nbr[e];
-      v2c[e * lanes + lane] = llr_per_shot ? llr0[j * sB + b] : llr0[j];
-    }
-    for (int j = row; j < n; j += rows) {
-      err[j * sB + b] = 0;
-      llr[j * sB + b] = llr_per_shot ? llr0[j * sB + b] : llr0[j];
-    }
-  }
-  __syncthreads();
-
-  for (int it = 0; it < max_iter; ++it) {
-    if (__syncthreads_and(s_done[lane])) break;
-    const bool active = !s_done[lane];
-
-    // check pass: streaming top-2 magnitudes and the sign product
-    if (active) {
-      for (int i = row; i < m; i += rows) {
-        float sg = synd[i * sB + b] ? -1.f : 1.f;
-        float min1 = kBig, min2 = kBig;
-        int amin = 0;
-        unsigned negs = 0u;
-        for (int s = 0; s < rw; ++s) {
-          const int e = i * rw + s;
-          float mag = kBig;
-          if (chk_mask[e]) {
-            const float v = v2c[e * lanes + lane];
-            mag = fabsf(v);
-            if (v < 0.f) {
-              negs |= 1u << s;
-              sg = -sg;
-            }
-          }
-          if (mag < min1) {
-            min2 = min1;
-            min1 = mag;
-            amin = s;
-          } else if (mag < min2) {
-            min2 = mag;
-          }
-        }
-        for (int s = 0; s < rw; ++s) {
-          const int e = i * rw + s;
-          float c = 0.f;
-          if (chk_mask[e]) {
-            const float ex = fminf(s == amin ? min2 : min1, kBig);
-            c = scale * ex;
-            if ((sg < 0.f) != (((negs >> s) & 1u) != 0u)) c = -c;
-          }
-          c2v[e * lanes + lane] = c;
-        }
-      }
-    }
-    __syncthreads();
-
-    // variable pass: totals summed in slot order, then v2c = total - own
-    if (active) {
-      for (int j = row; j < n; j += rows) {
-        float acc = 0.f;
-        for (int t = 0; t < cw; ++t) {
-          const int q = j * cw + t;
-          float c = 0.f;
-          if (var_mask[q]) c = c2v[(var_nbr[q] * rw + var_slot[q]) * lanes + lane];
-          acc = (t == 0) ? c : acc + c;
-        }
-        const float l0 = llr_per_shot ? llr0[j * sB + b] : llr0[j];
-        const float total = l0 + acc;
-        for (int t = 0; t < cw; ++t) {
-          const int q = j * cw + t;
-          if (var_mask[q]) {
-            const int e = (var_nbr[q] * rw + var_slot[q]) * lanes + lane;
-            v2c[e] = total - c2v[e];
-          }
-        }
-        const uint8_t h = total < 0.f ? 1 : 0;
-        hard[j * lanes + lane] = h;
-        err[j * sB + b] = h;
-        llr[j * sB + b] = total;
-      }
-    }
-    __syncthreads();
-
-    // parity pass: the hard decision must reproduce every syndrome bit
-    if (active) {
-      for (int i = row; i < m; i += rows) {
-        unsigned par = synd[i * sB + b];
-        for (int s = 0; s < rw; ++s) {
-          const int e = i * rw + s;
-          if (chk_mask[e]) par ^= hard[chk_nbr[e] * lanes + lane];
-        }
-        if (par & 1u) s_bad[lane] = 1;
-      }
-    }
-    __syncthreads();
-    if (row == 0 && active) {
-      if (!s_bad[lane]) {
-        s_done[lane] = 1;
-        s_iters[lane] = it + 1;
-      }
-      s_bad[lane] = 0;
-    }
-    __syncthreads();
-  }
+  const minsum::Graph g{chk_nbr, chk_mask, var_nbr, var_slot, var_mask,
+                        m, n, rw, cw};
+  DeviceIo io{synd, llr0, llr_per_shot, err, llr, (size_t)B, b};
+  minsum::decode(g, io, v2c, c2v, hard,
+                 minsum::LaneState{s_done, s_bad, s_iters}, lanes, lane, row,
+                 rows, valid, max_iter, scale);
 
   if (row == 0 && valid) {
     conv[b] = s_done[lane] ? 1 : 0;

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``.  The build runs at first
-use, keyed on a hash of the source and the flags, into ``build/torch_kernels/``
-at the root of the checkout; ``build_all`` starts one ``nvcc`` per source at
-once.  Nothing here runs when the module is imported.
+use, keyed on a hash of the flags, the source and every ``csrc/`` header it
+includes (transitively), into ``build/torch_kernels/`` at the root of the
+checkout; ``build_all`` starts one ``nvcc`` per source at once.  Nothing
+here runs when the module is imported.
 
 ``force_plain()`` makes every kernel wrapper take its plain PyTorch version
 even for CUDA tensors.  It exists so a run can hold the whole pipeline on the
@@ -16,6 +17,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +28,8 @@ __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("bp_minsum", "osd_elim")
+SOURCES = ("bp_minsum", "osd_elim", "gf2_sample", "gf2_residual",
+           "fused_decode")
 # -fmad=false keeps a*b+c from contracting into one FMA, so the kernels round
 # exactly like their plain PyTorch versions and can be compared bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,10 +53,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and every file it includes with ``#include "..."``,
+    transitively, in a stable order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

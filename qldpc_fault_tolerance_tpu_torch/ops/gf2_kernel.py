@@ -1,0 +1,506 @@
+"""Counter-PRNG fused code-capacity pipeline and its three Hopper kernels.
+
+The counterpart of the JAX package's ``ops/gf2_pallas.py``:
+
+  * ``counter_draws``: Threefry-2x32 (``ops/prng.py``, re-exported here with
+    the host key stream ``prng_key``, ``split_key``, ``fold_in``).  The draw
+    of shot ``s`` and qubit ``v`` is word x0 at counter ``(s, v)``; the cuts
+    of ``depolarizing_cuts`` turn it into an X, Z or Y error.  Bit-exact
+    with the JAX package, so the fused engines draw the same errors seed for
+    seed.
+  * ``sample_syndrome`` (kernel ``csrc/gf2_sample.cu``), the errors' packed
+    words and both syndromes; ``residual_check_stats``
+    (``csrc/gf2_residual.cu``), which regenerates the errors from their
+    counters, XORs the packed corrections in and reduces the residual checks
+    to (failures, min weight); ``fused_decode_stats``
+    (``csrc/fused_decode.cu``), the whole pipeline with both sectors'
+    min-sum decodes in one kernel.
+
+Each kernel has a plain PyTorch version beside it (``*_plain``), built from
+the port's packed GF(2) ops and ``bp_kernel.minsum_plain``.  A wrapper runs
+the plain version only for tensors on the CPU (or under
+``_kernels.force_plain()``); on CUDA tensors it launches its kernel or
+raises.  torch has no uint32 arithmetic: the generator works on int64
+values masked to 32 bits, and packed words are int32 bit patterns.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from . import _kernels
+from .bp import TannerGraph, build_tanner_graph_host, graph_to
+from .bp_kernel import MAX_LANES, SMEM_LIMIT, minsum_plain
+from .gf2_packed import (
+    num_words,
+    pack_shots,
+    packed_parity_apply,
+    packed_residual_stats,
+    unpack_shots,
+)
+from .linalg import ParityOp
+from .prng import fold_in, key_words, prng_key, split_key, threefry2x32
+
+__all__ = [
+    "threefry2x32",
+    "counter_draws",
+    "depolarizing_cuts",
+    "prng_key",
+    "split_key",
+    "fold_in",
+    "key_words",
+    "FusedSpec",
+    "build_fused_spec",
+    "FusedDecodeSpec",
+    "build_fused_decode_spec",
+    "fused_spec_from_jax",
+    "sample_syndrome",
+    "sample_syndrome_plain",
+    "residual_check_stats",
+    "residual_check_plain",
+    "fused_decode_stats",
+    "fused_decode_plain",
+    "fused_block_lanes",
+]
+
+EVAL_CODES = {"X": 0, "Z": 1, "Total": 2}
+
+
+# ---------------------------------------------------------------------------
+# Counter draws and the depolarizing cuts
+def counter_draws(k0: int, k1: int, batch_size: int, n: int,
+                  device="cpu") -> torch.Tensor:
+    """(batch_size, n) int64 draws in [0, 2**32): word (b, v) is
+    Threefry(key, (b, v)).x0."""
+    c0 = torch.arange(batch_size, dtype=torch.int64, device=device)[:, None]
+    c1 = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    x0, _ = threefry2x32(int(k0), int(k1), c0, c1)
+    return x0
+
+
+def depolarizing_cuts(pauli_error_probs) -> np.ndarray:
+    """[pz, pz+px, pz+px+py] as uint32 thresholds on a uniform 32-bit draw
+    (a draw below the first is a Z, then X, then Y)."""
+    px, py, pz = (float(p) for p in pauli_error_probs)
+    edges = np.cumsum([pz, px, py])
+    if edges[-1] > 1.0 + 1e-9:
+        raise ValueError(f"pauli probs sum to {edges[-1]} > 1")
+    return np.minimum(np.round(edges * 4294967296.0), 4294967295.0).astype(
+        np.uint32)
+
+
+def _errors_from_draws(r: torch.Tensor, cuts):
+    """int64 draws + cuts -> (error_x, error_z) uint8 {0,1} planes."""
+    cz, czx, czxy = (int(c) for c in cuts)
+    is_z = r < cz
+    is_x = (r >= cz) & (r < czx)
+    is_y = (r >= czx) & (r < czxy)
+    return (is_x | is_y).to(torch.uint8), (is_z | is_y).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Per-code data
+class FusedSpec(NamedTuple):
+    """Per-(code, channel) tensors of the fused kernels, on one device.
+
+    The checks are padded adjacencies (``ops/linalg.py`` ParityOp: (rows,
+    rw) int32 neighbours, bool mask).  ``lx_t``/``lz_t`` feed the plain
+    version's logical checks (``packed_residual_stats``)."""
+
+    cuts: tuple             # 3 ints, the uint32 depolarizing thresholds
+    hx_nbr: torch.Tensor    # hx: syndrome_z = hx . e_z
+    hx_mask: torch.Tensor
+    hz_nbr: torch.Tensor    # hz: syndrome_x = hz . e_x
+    hz_mask: torch.Tensor
+    lx_nbr: torch.Tensor    # lx: Z logical check of r_z
+    lx_mask: torch.Tensor
+    lz_nbr: torch.Tensor    # lz: X logical check of r_x
+    lz_mask: torch.Tensor
+    lx_t: torch.Tensor      # (n, k) uint8
+    lz_t: torch.Tensor      # (n, k) uint8
+
+    @property
+    def n(self) -> int:
+        return self.lx_t.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.hx_nbr.device
+
+
+def _gf2(h) -> np.ndarray:
+    return (np.asarray(h) != 0).astype(np.uint8)
+
+
+def _spec(hx, hz, lx, lz, cuts, device) -> FusedSpec:
+    adj = []
+    for h in (hx, hz, lx, lz):
+        op = ParityOp(h, device)
+        adj += [op.nbr.contiguous(), op.mask.contiguous()]
+    return FusedSpec(
+        tuple(int(c) for c in cuts), *adj,
+        torch.from_numpy(np.ascontiguousarray(lx.T)).to(device),
+        torch.from_numpy(np.ascontiguousarray(lz.T)).to(device))
+
+
+def build_fused_spec(hx, hz, lx, lz, pauli_error_probs,
+                     device="cuda") -> FusedSpec:
+    """The fused kernels' tensors for a CSS code and a depolarizing channel
+    ``[px, py, pz]``."""
+    return _spec(_gf2(hx), _gf2(hz), _gf2(lx), _gf2(lz),
+                 depolarizing_cuts(pauli_error_probs), resolve_device(device))
+
+
+class FusedDecodeSpec(NamedTuple):
+    """The fused-decode pipeline's tensors: ``base`` plus both sectors'
+    Tanner graphs and channel LLRs ((n,) float32)."""
+
+    base: FusedSpec
+    graph_z: TannerGraph    # of hx: decodes syndrome_z
+    graph_x: TannerGraph    # of hz: decodes syndrome_x
+    llr_z: torch.Tensor
+    llr_x: torch.Tensor
+
+
+def build_fused_decode_spec(hx, hz, lx, lz, pauli_error_probs, llr_x, llr_z,
+                            device="cuda") -> FusedDecodeSpec:
+    """``build_fused_spec`` plus the Tanner graphs of hx and hz and the
+    decoders' channel LLRs (``BPDecoder.llr0``)."""
+    base = build_fused_spec(hx, hz, lx, lz, pauli_error_probs, device)
+    dev = base.device
+
+    def llr(v):
+        if isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+        return torch.from_numpy(np.array(v, np.float32).reshape(-1)).to(dev)
+
+    return FusedDecodeSpec(
+        base, graph_to(build_tanner_graph_host(_gf2(hx)), dev),
+        graph_to(build_tanner_graph_host(_gf2(hz)), dev), llr(llr_z),
+        llr(llr_x))
+
+
+def fused_spec_from_jax(jspec, device="cuda"):
+    """The port's ``FusedSpec`` / ``FusedDecodeSpec`` from a JAX package
+    ``FusedSpec`` / ``FusedDecodeSpec`` whose leaves are numpy arrays.
+
+    The matrices come from the JAX spec's dense transposes; the JAX
+    adjacencies must equal the port's rebuilt ones, or this raises."""
+    if hasattr(jspec, "base"):
+        base = fused_spec_from_jax(jspec.base, device)
+        hx = _gf2(np.asarray(jspec.base.hx_t).T)
+        hz = _gf2(np.asarray(jspec.base.hz_t).T)
+        graphs = []
+        for h, idx, mask in ((hx, jspec.zg_idx, jspec.zg_mask),
+                             (hz, jspec.xg_idx, jspec.xg_mask)):
+            g = build_tanner_graph_host(h)
+            if not (np.array_equal(g.chk_nbr.T, np.asarray(idx))
+                    and np.array_equal(g.chk_mask.T, np.asarray(mask) != 0)):
+                raise ValueError("JAX spec's BP incidence differs from its "
+                                 "parity-check matrix")
+            graphs.append(graph_to(g, base.device))
+        llr = [torch.from_numpy(np.array(v, np.float32).reshape(-1))
+               .to(base.device) for v in (jspec.llr_z, jspec.llr_x)]
+        return FusedDecodeSpec(base, *graphs, *llr)
+    dev = resolve_device(device)
+    hx = _gf2(np.asarray(jspec.hx_t).T)
+    hz = _gf2(np.asarray(jspec.hz_t).T)
+    spec = _spec(hx, hz, _gf2(np.asarray(jspec.lx_t).T),
+                 _gf2(np.asarray(jspec.lz_t).T),
+                 np.asarray(jspec.cuts, np.uint32), dev)
+    for name in ("hx_nbr", "hx_mask", "hz_nbr", "hz_mask"):
+        if not np.array_equal(getattr(spec, name).cpu().numpy(),
+                              np.asarray(getattr(jspec, name))):
+            raise ValueError(f"JAX spec's {name} differs from its "
+                             "parity-check matrix")
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+def _draw_errors(spec: FusedSpec, key, batch_size: int):
+    k0, k1 = key_words(key)
+    r = counter_draws(k0, k1, batch_size, spec.n, spec.device)
+    return _errors_from_draws(r, spec.cuts)
+
+
+def sample_syndrome_plain(spec: FusedSpec, key, batch_size: int, *,
+                          emit_errors: bool = True):
+    """Plain version of ``sample_syndrome``: draws -> pack ->
+    ``packed_parity_apply``."""
+    ex, ez = _draw_errors(spec, key, batch_size)
+    exp, ezp = pack_shots(ex), pack_shots(ez)
+    szp = packed_parity_apply(spec.hx_nbr, spec.hx_mask, ezp)
+    sxp = packed_parity_apply(spec.hz_nbr, spec.hz_mask, exp)
+    return (exp, ezp, sxp, szp) if emit_errors else (sxp, szp)
+
+
+def _residual_stats(spec, res_x, res_z, eval_type, batch_size):
+    return packed_residual_stats(
+        res_x, res_z, (spec.hz_nbr, spec.hz_mask), (spec.hx_nbr, spec.hx_mask),
+        spec.lz_t, spec.lx_t, eval_type, batch_size, spec.n)
+
+
+def residual_check_plain(spec: FusedSpec, key, batch_size: int, corx_p,
+                         corz_p, eval_type: str = "Total"):
+    """Plain version of ``residual_check_stats``: regenerate -> XOR the
+    packed corrections -> ``packed_residual_stats``."""
+    ex, ez = _draw_errors(spec, key, batch_size)
+    return _residual_stats(spec, pack_shots(ex) ^ corx_p,
+                           pack_shots(ez) ^ corz_p, eval_type, batch_size)
+
+
+def fused_decode_plain(spec: FusedDecodeSpec, key, batch_size: int, *,
+                       eval_type: str = "Total", max_iter_z: int,
+                       max_iter_x: int, ms_scaling_factor: float = 0.625):
+    """Plain version of ``fused_decode_stats``: draws -> packed syndromes ->
+    f32 ``minsum_plain`` per sector -> ``packed_residual_stats``."""
+    base = spec.base
+    exp, ezp, sxp, szp = sample_syndrome_plain(base, key, batch_size)
+    sz, sx = unpack_shots(szp, batch_size), unpack_shots(sxp, batch_size)
+
+    def decode(graph, synd, llr, max_iter):
+        err, done, _post, iters = minsum_plain(
+            graph, synd.t().contiguous(), llr[:, None], int(max_iter),
+            float(ms_scaling_factor))
+        return err.t(), {"converged": done, "iterations": iters}
+
+    cor_z, aux_z = decode(spec.graph_z, sz, spec.llr_z, max_iter_z)
+    cor_x, aux_x = decode(spec.graph_x, sx, spec.llr_x, max_iter_x)
+    cnt, min_w = _residual_stats(base, exp ^ pack_shots(cor_x),
+                                 ezp ^ pack_shots(cor_z), eval_type,
+                                 batch_size)
+    return cnt, min_w, aux_x, aux_z
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+def _check_batch(batch_size: int) -> int:
+    b = int(batch_size)
+    if not 1 <= b < 2 ** 31 - 32:
+        raise ValueError(f"batch_size must be in [1, 2**31 - 32), got {b}")
+    return b
+
+
+def _check_eval(eval_type: str) -> int:
+    if eval_type not in EVAL_CODES:
+        raise ValueError(f"eval_type must be X, Z or Total, got {eval_type!r}")
+    return EVAL_CODES[eval_type]
+
+
+def _check_spec(spec: FusedSpec, dev) -> None:
+    for name in ("hx", "hz", "lx", "lz"):
+        nbr, mask = getattr(spec, f"{name}_nbr"), getattr(spec, f"{name}_mask")
+        if (nbr.dtype != torch.int32 or mask.dtype != torch.bool
+                or nbr.shape != mask.shape or nbr.device != dev
+                or mask.device != dev or not nbr.is_contiguous()
+                or not mask.is_contiguous()):
+            raise ValueError(f"spec {name} adjacency must be contiguous int32 "
+                             f"neighbours and a bool mask on {dev}")
+    if 8 * spec.n > SMEM_LIMIT:
+        raise ValueError(f"{spec.n} qubits: two error words per qubit exceed "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+
+
+def _adj(spec: FusedSpec, name: str) -> list:
+    nbr, mask = getattr(spec, f"{name}_nbr"), getattr(spec, f"{name}_mask")
+    return [nbr.data_ptr(), mask.data_ptr(), nbr.shape[0], nbr.shape[1]]
+
+
+def _key_and_cuts(spec: FusedSpec, key) -> list:
+    return [*key_words(key), *spec.cuts]
+
+
+def _call(lib: str, fn_name: str, argtypes, args, dev) -> None:
+    fn = getattr(_kernels.library(lib), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    _kernels.check_launch(lib, rc)
+
+
+_U, _P, _I, _F = ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _launch_sample(spec, key, batch_size, emit_errors):
+    dev = spec.device
+    _check_spec(spec, dev)
+    n, W = spec.n, num_words(batch_size)
+    mx, rwx = spec.hx_nbr.shape
+    mz, rwz = spec.hz_nbr.shape
+    shape_e = (W, n) if emit_errors else (0,)
+    ex_p = torch.empty(shape_e, dtype=torch.int32, device=dev)
+    ez_p = torch.empty(shape_e, dtype=torch.int32, device=dev)
+    sx_p = torch.empty((W, mz), dtype=torch.int32, device=dev)
+    sz_p = torch.empty((W, mx), dtype=torch.int32, device=dev)
+    _call("gf2_sample", "gf2_sample_launch",
+          [_U] * 5 + [_P] * 8 + [_I] * 7 + [_P],
+          [*_key_and_cuts(spec, key), spec.hx_nbr.data_ptr(),
+           spec.hx_mask.data_ptr(), spec.hz_nbr.data_ptr(),
+           spec.hz_mask.data_ptr(), ex_p.data_ptr(), ez_p.data_ptr(),
+           sx_p.data_ptr(), sz_p.data_ptr(), int(emit_errors), n, mx, rwx,
+           mz, rwz, batch_size], dev)
+    sample_syndrome.launches += 1
+    return (ex_p, ez_p, sx_p, sz_p) if emit_errors else (sx_p, sz_p)
+
+
+def sample_syndrome(spec: FusedSpec, key, batch_size: int, *,
+                    emit_errors: bool = True):
+    """Counter-PRNG depolarizing sample and both syndromes, packed.
+
+    Returns int32 words ``(ex_p, ez_p (W, n), sx_p (W, mz), sz_p (W, mx))``,
+    or just ``(sx_p, sz_p)`` without ``emit_errors``; ``sx_p = hz . e_x``,
+    ``sz_p = hx . e_z``.  A spec on the card launches ``csrc/gf2_sample.cu``
+    (or raises); a spec on the CPU runs ``sample_syndrome_plain``.  Any
+    ``batch_size >= 1``: the ragged last word's padding bits are zero."""
+    batch_size = _check_batch(batch_size)
+    if spec.device.type == "cuda" and not _kernels.plain_forced():
+        return _launch_sample(spec, key, batch_size, emit_errors)
+    return sample_syndrome_plain(spec, key, batch_size,
+                                 emit_errors=emit_errors)
+
+
+sample_syndrome.launches = 0
+
+
+def _launch_residual(spec, key, batch_size, corx_p, corz_p, eval_code):
+    dev = spec.device
+    _check_spec(spec, dev)
+    W = num_words(batch_size)
+    for t in (corx_p, corz_p):
+        if (t.dtype != torch.int32 or tuple(t.shape) != (W, spec.n)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"corrections must be contiguous int32 words of "
+                             f"shape {(W, spec.n)} on {dev}")
+    part = torch.empty((W, 2), dtype=torch.int32, device=dev)
+    _call("gf2_residual", "gf2_residual_launch",
+          [_U] * 5 + [_P] * 2 + [_P, _P, _I, _I] * 4 + [_I, _I, _I, _P, _P],
+          [*_key_and_cuts(spec, key), corx_p.data_ptr(), corz_p.data_ptr(),
+           *_adj(spec, "hx"), *_adj(spec, "hz"), *_adj(spec, "lx"),
+           *_adj(spec, "lz"), eval_code, spec.n, batch_size,
+           part.data_ptr()], dev)
+    residual_check_stats.launches += 1
+    return part[:, 0].sum(dtype=torch.int32), part[:, 1].min()
+
+
+def residual_check_stats(spec: FusedSpec, key, batch_size: int, corx_p,
+                         corz_p, eval_type: str = "Total"):
+    """Residual stabilizer and logical checks with the errors regenerated
+    from ``key`` (the key ``sample_syndrome`` drew this batch with).
+
+    corx_p/corz_p: (W, n) int32 packed corrections.  Returns int32 device
+    scalars (failure count of ``eval_type``, min residual weight among
+    logical failures, n when none).  A spec on the card launches
+    ``csrc/gf2_residual.cu`` (or raises); on the CPU this runs
+    ``residual_check_plain``."""
+    batch_size = _check_batch(batch_size)
+    code = _check_eval(eval_type)
+    if spec.device.type == "cuda" and not _kernels.plain_forced():
+        return _launch_residual(spec, key, batch_size, corx_p, corz_p, code)
+    return residual_check_plain(spec, key, batch_size, corx_p, corz_p,
+                                eval_type)
+
+
+residual_check_stats.launches = 0
+
+
+def fused_block_lanes(n: int, mx: int, rwz: int, mz: int,
+                      rwx: int) -> tuple[int, int]:
+    """``(shots per block, shared-memory bytes)`` of the fused decode: 8
+    shots, halved until the larger sector's messages (8 bytes per edge per
+    shot), the hard decisions, both error planes and a syndrome plane fit in
+    shared memory (less 1 KB for the kernel's static arrays); 0 shots when
+    not even one fits."""
+    per_shot = 8 * max(mx * rwz, mz * rwx) + 3 * n + max(mx, mz)
+    lanes = MAX_LANES
+    while lanes and lanes * per_shot > SMEM_LIMIT - 1024:
+        lanes //= 2
+    return lanes, lanes * per_shot
+
+
+def _graph_args(g: TannerGraph, dev) -> list:
+    for t in g[:6]:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("fused decode graphs must be contiguous on "
+                             f"{dev}")
+    m, rw = g.chk_nbr.shape
+    cw = g.var_nbr.shape[1]
+    if not 1 <= rw <= 32:
+        raise ValueError(f"fused decode takes row weights 1..32, got {rw}")
+    return [g.chk_nbr.data_ptr(), g.chk_mask.data_ptr(), g.var_nbr.data_ptr(),
+            g.var_nbr_slot.data_ptr(), g.var_mask.data_ptr(), m, rw, cw]
+
+
+def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
+                  scale):
+    base = spec.base
+    dev = base.device
+    _check_spec(base, dev)
+    n = base.n
+    for llr in (spec.llr_z, spec.llr_x):
+        if (llr.dtype != torch.float32 or tuple(llr.shape) != (n,)
+                or llr.device != dev or not llr.is_contiguous()):
+            raise ValueError(f"channel LLRs must be contiguous float32 ({n},) "
+                             f"on {dev}")
+    if min(max_iter_z, max_iter_x) < 0:
+        raise ValueError("max_iter must be >= 0")
+    gz, gx = _graph_args(spec.graph_z, dev), _graph_args(spec.graph_x, dev)
+    lanes, smem = fused_block_lanes(n, gz[5], gz[6], gx[5], gx[6])
+    if not lanes:
+        raise ValueError("fused decode: one shot's messages and planes exceed "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    blocks = -(-batch_size // lanes)
+    conv_z = torch.empty((batch_size,), dtype=torch.uint8, device=dev)
+    conv_x = torch.empty_like(conv_z)
+    iter_z = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    iter_x = torch.empty_like(iter_z)
+    part = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
+    _call("fused_decode", "fused_decode_launch",
+          [_U] * 5 + ([_P] * 5 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
+          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
+          [*_key_and_cuts(base, key), *gz, *gx, *_adj(base, "lx"),
+           *_adj(base, "lz"), spec.llr_z.data_ptr(), spec.llr_x.data_ptr(),
+           n, int(max_iter_z), int(max_iter_x), float(scale), eval_code,
+           batch_size, lanes, smem, conv_z.data_ptr(), iter_z.data_ptr(),
+           conv_x.data_ptr(), iter_x.data_ptr(), part.data_ptr()], dev)
+    fused_decode_stats.launches += 1
+    aux_z = {"converged": conv_z.to(torch.bool), "iterations": iter_z}
+    aux_x = {"converged": conv_x.to(torch.bool), "iterations": iter_x}
+    return part[:, 0].sum(dtype=torch.int32), part[:, 1].min(), aux_x, aux_z
+
+
+def fused_decode_stats(spec: FusedDecodeSpec, key, batch_size: int, *,
+                       eval_type: str = "Total", max_iter_z: int,
+                       max_iter_x: int, ms_scaling_factor: float = 0.625,
+                       quantize: str | None = None):
+    """Whole-pipeline batch: sample, both syndromes, the Z then the X
+    sector's min-sum decode (f32 messages, each shot frozen at its first
+    convergence), residual checks.  Returns ``(failure count, min weight,
+    aux_x, aux_z)``: int32 device scalars and per-shot ``converged`` (bool)
+    and ``iterations`` (int32) of each sector.
+
+    A spec on the card launches ``csrc/fused_decode.cu`` (or raises); on
+    the CPU this runs ``fused_decode_plain``.  ``quantize="int8"`` raises
+    ``NotImplementedError``: int8 messages wait for the int8 min-sum
+    kernel."""
+    if quantize is not None:
+        raise NotImplementedError(
+            f"quantize={quantize!r}: the fused decode has f32 messages only; "
+            "int8 messages wait for the int8 min-sum kernel")
+    batch_size = _check_batch(batch_size)
+    code = _check_eval(eval_type)
+    if spec.base.device.type == "cuda" and not _kernels.plain_forced():
+        return _launch_fused(spec, key, batch_size, code, int(max_iter_z),
+                             int(max_iter_x), float(ms_scaling_factor))
+    return fused_decode_plain(spec, key, batch_size, eval_type=eval_type,
+                              max_iter_z=max_iter_z, max_iter_x=max_iter_x,
+                              ms_scaling_factor=ms_scaling_factor)
+
+
+fused_decode_stats.launches = 0

@@ -1,11 +1,14 @@
 """Megabatch driver: many Monte-Carlo batches per host read.
 
-``MegabatchDriver`` runs ``stats_fn(generator, *extra)`` for ``k_inner``
-batches per megabatch and folds the results on the device (counts summed,
-min-weights minimized); the carry stays a tuple of device tensors, so a
-megabatch costs the host one read, made by the caller.  Batch ``j`` of a run
-draws from a ``torch.Generator`` seeded by ``batch_seed(seed, j)``: the
-stream is positional, so batch j's draws depend only on (seed, j).
+``MegabatchDriver`` runs ``stats_fn(batch_input(seed, j), *extra)`` for
+``k_inner`` batches per megabatch and folds the results on the device
+(counts summed, min-weights minimized); the carry stays a tuple of device
+tensors, so a megabatch costs the host one read, made by the caller.  The
+stream is positional, so batch j's draws depend only on (seed, j): the
+caller's ``batch_input`` makes them, for example ``batch_generator`` (a
+``torch.Generator`` seeded by ``batch_seed(seed, j)``) or, for the
+counter-PRNG engines, ``ops/prng.py`` ``fold_in`` (the key words the JAX
+package's driver folds).
 """
 from __future__ import annotations
 
@@ -32,26 +35,28 @@ def batch_generator(seed, j: int, device) -> torch.Generator:
 
 
 class MegabatchDriver:
-    """Fold ``stats_fn(generator, *extra)`` over batches, ``k_inner`` per
-    megabatch.
+    """Fold ``stats_fn(batch_input(seed, j), *extra)`` over batches,
+    ``k_inner`` per megabatch.
 
-    stats_fn: (generator, *extra) -> tuple of device tensors.
-    combine:  (carry, out) -> carry — the on-device fold.
-    init_fn:  () -> initial carry (device tensors).
+    stats_fn:    (batch input, *extra) -> tuple of device tensors.
+    combine:     (carry, out) -> carry — the on-device fold.
+    init_fn:     () -> initial carry (device tensors).
+    batch_input: (seed, j) -> what batch ``j`` draws from.
     """
 
-    def __init__(self, stats_fn, combine, init_fn, device, k_inner: int = 8):
+    def __init__(self, stats_fn, combine, init_fn, batch_input,
+                 k_inner: int = 8):
         self.k_inner = max(1, int(k_inner))
         self._stats_fn = stats_fn
         self._combine = combine
         self._init_fn = init_fn
-        self.device = device
+        self._batch_input = batch_input
         self.megabatches = 0  # cumulative
 
     def _megabatch(self, carry, seed, offset, *extra):
         for j in range(self.k_inner):
-            gen = batch_generator(seed, offset + j, self.device)
-            carry = self._combine(carry, self._stats_fn(gen, *extra))
+            batch = self._batch_input(seed, offset + j)
+            carry = self._combine(carry, self._stats_fn(batch, *extra))
         self.megabatches += 1
         return carry
 
@@ -75,10 +80,11 @@ class MegabatchDriver:
             yield carry, s + k
 
 
-def count_min_driver(stats_fn, min_init: int, device,
-                     k_inner: int) -> MegabatchDriver:
-    """MegabatchDriver for the ``(failure count, min logical weight)`` fold;
-    ``min_init`` seeds the min-weight track (the code length N)."""
+def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
+                     batch_input) -> MegabatchDriver:
+    """MegabatchDriver for the ``(failure count, min logical weight)`` fold
+    on ``device``; ``min_init`` seeds the min-weight track (the code length
+    N)."""
 
     def combine(c, o):
         return (c[0] + o[0], torch.minimum(c[1], o[1]))
@@ -88,4 +94,5 @@ def count_min_driver(stats_fn, min_init: int, device,
                 torch.full((), int(min_init), dtype=torch.int32,
                            device=device))
 
-    return MegabatchDriver(stats_fn, combine, init, device, k_inner=k_inner)
+    return MegabatchDriver(stats_fn, combine, init, batch_input,
+                           k_inner=k_inner)

@@ -7,17 +7,33 @@ reduced to a failure count and the minimum residual weight among logical
 failures.  Only the BP stage works on unpacked planes: syndromes unpack at
 its input and corrections pack at its output.
 
+``fused_sampler`` selects the counter-PRNG engines (``ops/gf2_kernel.py``),
+which draw the JAX package's fused engines' errors seed for seed:
+
+  * ``True``: ``sample_syndrome`` writes only the packed syndromes, the
+    decoders run, and ``residual_check_stats`` regenerates the errors from
+    their counters for the checks;
+  * ``"v2"``: ``fused_decode_stats`` runs the whole pipeline, min-sum decodes
+    included, in one kernel; plain min-sum ``BPDecoder``s only.
+
+Both give the same failures and minimum weight for the same key: both decode
+with float32 min-sum frozen at each shot's first convergence.
+
 Batches fold through the megabatch driver (``parallel/shots.py``): the
 count and min weight stay device tensors, read by the host once per run
 (once per megabatch with ``target_failures``).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..decoders.bp_decoders import decode_device
 from ..noise import depolarizing_xz_packed
+from ..ops import gf2_kernel
+from ..ops.prng import fold_in, key_words, prng_key, split_key
 from ..ops.gf2_packed import (
     pack_shots,
     packed_parity_apply,
@@ -25,29 +41,46 @@ from ..ops.gf2_packed import (
     unpack_shots,
 )
 from ..ops.linalg import ParityOp
-from ..parallel.shots import count_min_driver
+from ..parallel.shots import batch_generator, count_min_driver
 from ..utils.device import resolve_device
 from .common import ShotBatcher, wer_single_shot
 
 __all__ = ["CodeSimulator_DataError"]
 
 
+def _bp_loop_params(static):
+    """(max_iter, ms_scaling_factor) off a plain min-sum BP decoder static:
+    the fused decode runs the decode in its kernel, so it takes the
+    decoder's loop parameters rather than its decode program."""
+    kind, max_iter, method, msf = static[:4]
+    if kind != "bp" or method != "minimum_sum":
+        raise ValueError(
+            "fused_sampler='v2' runs min-sum BP inside the fused kernel; "
+            f"decoder static {static[:3]} is not a plain min-sum BP program")
+    return int(max_iter), float(msf)
+
+
 class CodeSimulator_DataError:
     """Reference ``CodeSimulator_DataError`` surface, batched on one device.
 
-    ``seed`` seeds every run's generator stream, ``batch_size`` is the shots
-    per batch, ``scan_chunk`` the batches per megabatch (one host read each
-    when streaming).  Both decoders must live on ``device``.
+    ``seed`` makes the base key, which each ``WordErrorRate`` call splits as
+    the JAX engine does; ``batch_size`` is the shots per batch,
+    ``scan_chunk`` the batches per megabatch (one host read each when
+    streaming); ``fused_sampler`` is False, True or ``"v2"`` (module
+    docstring).  Both decoders must live on ``device``.
     """
 
     def __init__(self, code=None, decoder_x=None, decoder_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01),
                  eval_logical_type="Total", seed: int = 0,
                  batch_size: int = 2048, scan_chunk: int = 8,
-                 device="cuda"):
+                 fused_sampler=False, device="cuda"):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
+        if fused_sampler not in (False, True, "v2"):
+            raise ValueError(f"fused_sampler must be False, True or 'v2', "
+                             f"got {fused_sampler!r}")
         self.device = resolve_device(device)
         for dec in (decoder_x, decoder_z):
             if dec.device != self.device:
@@ -62,8 +95,8 @@ class CodeSimulator_DataError:
         self.min_logical_weight = self.N
         self.batch_size = int(batch_size)
         self._scan_chunk = max(1, int(scan_chunk))
-        self._seed = int(seed)
-        self._runs = 0  # WordErrorRate calls so far: each draws a new stream
+        self._fused_sampler = fused_sampler
+        self._base_key = prng_key(seed)
         # failures and shots of the most recent WordErrorRate run
         self.last_failures = 0
         self.last_shots = 0
@@ -74,6 +107,24 @@ class CodeSimulator_DataError:
         self._hz_par = (hz_par.nbr, hz_par.mask)
         self._lx_t = torch.from_numpy(np.ascontiguousarray(code.lx.T)).to(self.device)
         self._lz_t = torch.from_numpy(np.ascontiguousarray(code.lz.T)).to(self.device)
+        self._stats = self._batch_stats
+        if fused_sampler is True:
+            self._fspec = gf2_kernel.build_fused_spec(
+                code.hx, code.hz, code.lx, code.lz, self.channel_probs,
+                self.device)
+            self._stats = self._stats_fused
+        elif fused_sampler == "v2":
+            self._iters_x, msf_x = _bp_loop_params(decoder_x.device_static)
+            self._iters_z, msf_z = _bp_loop_params(decoder_z.device_static)
+            if msf_x != msf_z:
+                raise ValueError(
+                    "fused_sampler='v2' needs both sector decoders to share "
+                    f"ms_scaling_factor (got {msf_x} vs {msf_z})")
+            self._msf = msf_x
+            self._fspec2 = gf2_kernel.build_fused_decode_spec(
+                code.hx, code.hz, code.lx, code.lz, self.channel_probs,
+                decoder_x.llr0, decoder_z.llr0, self.device)
+            self._stats = self._stats_fused_v2
 
     def _packed_stats(self, ex_p, ez_p):
         """One batch from packed (W, n) error planes -> (failure count,
@@ -81,37 +132,65 @@ class CodeSimulator_DataError:
         B, n = self.batch_size, self.N
         synd_z = unpack_shots(packed_parity_apply(*self._hx_par, ez_p), B)
         synd_x = unpack_shots(packed_parity_apply(*self._hz_par, ex_p), B)
-        dz, dx = self.decoder_z, self.decoder_x
-        cor_z, _ = decode_device(dz.device_static, dz.device_state, synd_z)
-        cor_x, _ = decode_device(dx.device_static, dx.device_state, synd_x)
+        cor_x, cor_z = self._decode(synd_x, synd_z)
         return packed_residual_stats(
             ex_p ^ pack_shots(cor_x), ez_p ^ pack_shots(cor_z),
             self._hz_par, self._hx_par, self._lz_t, self._lx_t,
             self.eval_logical_type, B, n)
+
+    def _decode(self, synd_x, synd_z):
+        dz, dx = self.decoder_z, self.decoder_x
+        cor_z, _ = decode_device(dz.device_static, dz.device_state, synd_z)
+        cor_x, _ = decode_device(dx.device_static, dx.device_state, synd_x)
+        return cor_x, cor_z
 
     def _batch_stats(self, generator):
         ex_p, ez_p = depolarizing_xz_packed(
             generator, (self.batch_size, self.N), self.channel_probs)
         return self._packed_stats(ex_p, ez_p)
 
-    def WordErrorRate(self, num_run: int, target_failures=None):
+    def _stats_fused(self, key):
+        """Counter-PRNG batch: packed syndromes only, both decodes, then the
+        residual checks with the errors regenerated from ``key``."""
+        B = self.batch_size
+        sxp, szp = gf2_kernel.sample_syndrome(self._fspec, key, B,
+                                              emit_errors=False)
+        cor_x, cor_z = self._decode(unpack_shots(sxp, B), unpack_shots(szp, B))
+        return gf2_kernel.residual_check_stats(
+            self._fspec, key, B, pack_shots(cor_x), pack_shots(cor_z),
+            self.eval_logical_type)
+
+    def _stats_fused_v2(self, key):
+        """Whole-pipeline batch: one fused kernel from draws to checks."""
+        cnt, min_w, _aux_x, _aux_z = gf2_kernel.fused_decode_stats(
+            self._fspec2, key, self.batch_size,
+            eval_type=self.eval_logical_type, max_iter_z=self._iters_z,
+            max_iter_x=self._iters_x, ms_scaling_factor=self._msf)
+        return cnt, min_w
+
+    def WordErrorRate(self, num_run: int, key=None, target_failures=None):
         """WER over ``num_run`` shots: ``(wer, error bar)``.
 
+        ``key`` (two 32-bit words) fixes the run's stream; without it the
+        run splits the simulator's base key, as the JAX engine does.
         ``target_failures`` stops the run after the first megabatch whose
         cumulative failure count reaches it; the denominator is the shots
         actually run."""
-        seed = (self._seed, self._runs)
-        self._runs += 1
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+        key = key_words(key)
         batcher = ShotBatcher(num_run, self.batch_size)
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
-        driver = count_min_driver(self._batch_stats, self.N, self.device,
-                                  chunk)
+        batch_input = (fold_in if self._fused_sampler else
+                       functools.partial(batch_generator, device=self.device))
+        driver = count_min_driver(self._stats, self.N, self.device, chunk,
+                                  batch_input)
         if target_failures is None:
-            carry, done = driver.run(seed, n_batches)
+            carry, done = driver.run(key, n_batches)
             failures, min_w = torch.stack(carry).tolist()
         else:
-            for carry, done in driver.stream(seed, n_batches):
+            for carry, done in driver.stream(key, n_batches):
                 failures, min_w = torch.stack(carry).tolist()
                 if failures >= int(target_failures):
                     break

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's WER path goes, on one NVIDIA GPU.
 
-Runs the two main-path configurations of chip_smoke.py (hgp_34_n625, BP-50
-at p=0.01 with batches of 4096; BP-50 + OSD-E order 10 at p=0.05 with
-batches of 2048) once to warm up and once under torch.profiler, and prints
+Runs the main-path configurations of chip_smoke.py (hgp_34_n625, BP-50 at
+p=0.01 with batches of 4096 on the default path and on both fused engines,
+fused_sampler=True and "v2"; BP-50 + OSD-E order 10 at p=0.05 with batches
+of 2048) once to warm up and once under torch.profiler, and prints
 for each: wall time, shots/s, device time summed by kernel name (top 12),
 and the device busy share (summed kernel time over wall time; kernels do
 not overlap on one stream).
@@ -39,16 +40,20 @@ def main() -> int:
     code = load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n625.npz"))
     print(torch.cuda.get_device_name(0), flush=True)
 
-    def simulator(cls, p, batch, **kw):
+    def simulator(cls, p, batch, fused=False, **kw):
         probs = np.full(code.N, 2 * p / 3)
         return CodeSimulator_DataError(
             code=code, decoder_x=cls(code.hz, probs, 50, device=dev, **kw),
             decoder_z=cls(code.hx, probs, 50, device=dev, **kw),
             pauli_error_probs=[p / 3] * 3, seed=1, batch_size=batch,
-            scan_chunk=8, device=dev)
+            scan_chunk=8, fused_sampler=fused, device=dev)
 
     for tag, sim, shots in (
             ("BP p=0.01", simulator(BPDecoder, 0.01, 4096), 16 * 4096),
+            ("fused v1 BP p=0.01", simulator(BPDecoder, 0.01, 4096, True),
+             16 * 4096),
+            ("fused v2 BP p=0.01", simulator(BPDecoder, 0.01, 4096, "v2"),
+             16 * 4096),
             ("BPOSD p=0.05", simulator(BPOSD_Decoder, 0.05, 2048,
                                        osd_order=10), 8 * 2048)):
         sim.WordErrorRate(shots)

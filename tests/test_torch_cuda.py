@@ -2,19 +2,21 @@
 
 These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
 skip without one; run them on a machine with a card:
-``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — both
-kernels reproduce their plain versions bit for bit (min-sum is built with
-FMA contraction off; the elimination is integer-exact)."""
+``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
+kernel reproduces its plain version bit for bit (min-sum, alone or inside
+the fused decode, is built with FMA contraction off; the elimination, the
+counter-PRNG sampler and the residual checks are integer-exact)."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code, ring_code
+from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code, rep_code, ring_code
 from qldpc_fault_tolerance_tpu_torch.decoders import BPOSD_Decoder
 from qldpc_fault_tolerance_tpu_torch.ops import _kernels
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
 from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
 
@@ -102,3 +104,81 @@ def test_bposd_on_card_matches_cpu(cuda):
     cost = np.log((1 - probs) / probs)
     assert ((a.astype(np.int64) @ code.hx.T % 2) == synd).all()
     assert ((a == b).all(axis=1) | (np.abs(a @ cost - b @ cost) < 1e-4)).all()
+
+
+KEY = gk.fold_in(gk.split_key(gk.prng_key(7))[1], 3)
+
+
+def _n225():
+    return load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz"))
+
+
+@pytest.mark.parametrize("B", [256, 200, 33])
+@pytest.mark.parametrize("emit_errors", [True, False])
+def test_sample_kernel_matches_plain(cuda, B, emit_errors):
+    code = _n225()
+    spec = gk.build_fused_spec(code.hx, code.hz, code.lx, code.lz,
+                               (0.02, 0.01, 0.03), cuda)
+    before = gk.sample_syndrome.launches
+    k = gk.sample_syndrome(spec, KEY, B, emit_errors=emit_errors)
+    p = gk.sample_syndrome_plain(spec, KEY, B, emit_errors=emit_errors)
+    assert gk.sample_syndrome.launches == before + 1
+    assert len(k) == len(p) == (4 if emit_errors else 2)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [256, 200])
+@pytest.mark.parametrize("eval_type", ["X", "Z", "Total"])
+def test_residual_kernel_matches_plain(cuda, B, eval_type):
+    code = _n225()
+    spec = gk.build_fused_spec(code.hx, code.hz, code.lx, code.lz,
+                               (0.02, 0.01, 0.03), cuda)
+    exp, ezp, _, _ = gk.sample_syndrome_plain(spec, KEY, B)
+    rng = np.random.default_rng(B)
+    flips = [torch.from_numpy((rng.random(e.shape) < 0.01).astype(np.int32)
+                              << rng.integers(0, 32, e.shape).astype(np.int32))
+             for e in (exp, ezp)]
+    corx, corz = exp ^ flips[0].to(cuda), ezp ^ flips[1].to(cuda)
+    k = gk.residual_check_stats(spec, KEY, B, corx, corz, eval_type)
+    p = gk.residual_check_plain(spec, KEY, B, corx, corz, eval_type)
+    assert 0 < int(p[0]) < B
+    assert (int(k[0]), int(k[1])) == (int(p[0]), int(p[1]))
+
+
+@pytest.mark.parametrize("name,B", [("rep3", 64), ("rep3", 50),
+                                    ("n225", 96), ("n1600", 20)])
+def test_fused_decode_kernel_matches_plain(cuda, name, B):
+    """hgp_34_n1600 takes 4 shots per block (shared memory), the others 8."""
+    if name == "rep3":
+        code = hgp(rep_code(3), rep_code(3))
+    else:
+        code = load_code(os.path.join(REPO, "codes_lib_tpu",
+                                      f"hgp_34_{name}.npz"))
+    p = 0.05
+    rng = np.random.default_rng(B)
+    llr_x, llr_z = (tbp.llr_from_probs(rng.uniform(p / 4, p, code.N), cuda)
+                    for _ in range(2))
+    spec = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+                                      [p / 3] * 3, llr_x, llr_z, cuda)
+    kw = dict(eval_type="Total", max_iter_z=20, max_iter_x=15,
+              ms_scaling_factor=0.625)
+    before = gk.fused_decode_stats.launches
+    k = gk.fused_decode_stats(spec, KEY, B, **kw)
+    pl = gk.fused_decode_plain(spec, KEY, B, **kw)
+    assert gk.fused_decode_stats.launches == before + 1
+    assert (int(k[0]), int(k[1])) == (int(pl[0]), int(pl[1]))
+    for a, b in zip(k[2:], pl[2:]):
+        for field in ("converged", "iterations"):
+            assert torch.equal(a[field], b[field]), field
+
+
+def test_fused_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    code = hgp(rep_code(3), rep_code(3))
+    spec = gk.build_fused_spec(code.hx, code.hz, code.lx, code.lz,
+                               (0.01, 0.01, 0.01), cuda)
+    bad = torch.zeros((2, code.N), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        gk.residual_check_stats(spec, KEY, 64, bad, bad)
+    with pytest.raises(ValueError):
+        gk.sample_syndrome(spec, KEY, 0)
