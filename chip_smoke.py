@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's code-capacity WER path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's code-capacity WER paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build all five kernels from qldpc_fault_tolerance_tpu_torch/csrc (one nvcc
-     per source, started together)
+  2. build all six kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
+     (one nvcc per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
   4. kernel 2 (GF(2) elimination) against its plain version: B=256 shots
@@ -18,9 +18,10 @@ Phases (any failure raises and the script exits non-zero):
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
      replaced by its plain version gives the same failures and min weight;
      a small batch decoded on the CPU and on the card agrees
-  8. a "kernels" JSON line, printed after phase 13: for all five kernels
+  8. a "kernels" JSON line, printed after phase 18: for all eight kernels
      the main-path launches (phases 5-6 for kernels 1-2, phase 12 for
-     B3-B5), error against the plain version, times, bound
+     B3-B5, phase 16 for B7 and B8, phase 17 for B10), error against the
+     plain version, times, bound
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -36,12 +37,25 @@ Phases (any failure raises and the script exits non-zero):
  13. anchors: v2 at p=0 gives no failure; one v1 and one v2 batch with every
      kernel replaced by its plain version give the kernel path's failures
      and min weight
+ 14. kernels B7 (full elimination, fcap 0 and 10) and B10 (per-column
+     elimination) against their plain versions on phase 4's 256 shots: every
+     output bit-exact, the reduced matrix whole
+ 15. kernel B8 (OSD-CS sweep) against its plain version on those shots'
+     planes (f=325, w=10: 371 candidates per shot): cost and index bit-exact
+ 16. main path, BPOSD-CS: BP-50 + OSD-CS order 10, p=0.05, 8 batches of 2048
+ 17. main path, the per-column route: phase 6's OSD-E run (same seed and
+     batches) with QLDPC_OSD_ELIM=pallas_percol; its failures and min weight
+     must equal phase 6's
+ 18. anchors: OSD-CS at p=0 gives no failure; one OSD-CS batch with every
+     kernel replaced by its plain version gives the kernel path's failures
+     and min weight
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,6 +121,23 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     return total_us / reps / 1e3
 
 
+def all_kernels_ms(fn, reps: int) -> float:
+    """Mean device time per call of every kernel ``fn`` launches, from
+    torch.profiler over ``reps`` calls after one warm-up (the kernels' own
+    time, without the host's gaps between launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / reps / 1e3
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -143,15 +174,25 @@ def message_bytes(graph) -> int:
     return 17 * edges + 5 * n + 2 * m
 
 
-def elim_bound_ms(W: int, m: int, r_star: int, B: int,
+def elim_bound_ms(W: int, m: int, B: int, out_words: int,
                   word_ops: int) -> tuple[float, str]:
-    """Least time for the elimination of these inputs: bytes of the packed
-    rows and syndromes read once and the five outputs written once, against
-    the word operations the column-by-column elimination needs (counted by
-    ops/osd_device.py elimination_work, at the float32 scalar rate)."""
-    nbytes = 4 * B * (W * m + m) + 4 * B * (m + 2 * r_star + m + 32)
+    """Least time for an elimination of these inputs: bytes of the packed
+    rows and syndromes read once and the ``out_words`` int32 words per shot
+    that the kernel writes written once, against the word operations the
+    column-by-column elimination needs (``elimination_work``, at the
+    float32 scalar rate)."""
+    nbytes = 4 * B * (W * m + m) + 4 * B * out_words
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, word_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_bound_ms(f: int, w: int, B: int) -> tuple[float, str]:
+    """Least time for B8: dplane, the w*(w-1)/2 rows of xflat that the
+    pairs read and the base read once, cost and index written once, against
+    2 float32 operations per weight-1 candidate (add, compare) and 5 per
+    pair (two adds, a multiply, a subtract, a compare)."""
+    nbytes = 4 * B * (f + w * (w - 1) // 2 + 1) + 8 * B
+    return roofline_ms(nbytes, 0, B * (2 * f + 5 * (w * (w - 1) // 2)))
 
 
 def roofline_ms(nbytes: float, int_ops: float,
@@ -257,6 +298,7 @@ def main() -> int:
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
     from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
     from qldpc_fault_tolerance_tpu_torch.ops.gf2_packed import pack_shots, unpack_shots
+    from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
     from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
     from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
     from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
@@ -341,7 +383,9 @@ def main() -> int:
     with _kernels.force_plain():
         k2_plain_ms = event_ms(run_k2, 1)
     work = tod.elimination_work(packed, synd2, n=n, r_star=plan.rank, fcap=w)
-    k2_bound, k2_by = elim_bound_ms(packed.shape[0], m, plan.rank, B2, work)
+    # written: the syndrome, the pivots, the free panel and w free positions
+    k2_bound, k2_by = elim_bound_ms(packed.shape[0], m, B2,
+                                    m + 2 * plan.rank + m + w, work)
     log(f"[4] kernel 2 == plain (all five outputs bit-exact); rank "
         f"{plan.rank}, fcap {w}, word ops {work}; kernel {k2_ms:.3f} ms, "
         f"plain {k2_plain_ms:.3f} ms, bound {k2_bound:.4f} ms ({k2_by})")
@@ -368,13 +412,14 @@ def main() -> int:
             f"{sim.last_shots / dt:.1f} shots/s ({dt:.2f} s); host reads: "
             f"two-phase {reads[0]}, OSD tier {reads[1]}, megabatch "
             f"{sim.last_megabatches}")
+        return sim.last_failures, sim.min_logical_weight
 
     # 5-6. the main path, counts reset just before and read just after
     bp_minsum.launches = 0
     tod.osd_elim.launches = 0
     wer_phase("5 BP p=0.01", simulator(BPDecoder, 0.01, 4096, SEED), 16)
     l5 = bp_minsum.launches
-    wer_phase("6 BPOSD p=0.05", simulator(
+    run6 = wer_phase("6 BPOSD p=0.05", simulator(
         BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e", osd_order=10), 8)
     launches_56 = {"bp_minsum": bp_minsum.launches,
                    "osd_elim": tod.osd_elim.launches}
@@ -549,15 +594,23 @@ def main() -> int:
             pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
             scan_chunk=8, fused_sampler=fused, device=dev)
 
+    counters = {"gf2_sample": (gk.sample_syndrome, "launches"),
+                "gf2_residual": (gk.residual_check_stats, "launches"),
+                "fused_decode": (gk.fused_decode_stats, "launches"),
+                "bp_minsum": (bp_minsum, "launches"),
+                "osd_elim": (tod.osd_elim, "launches"),
+                "osd_elim_full": (tod.osd_elim, "full_launches"),
+                "osd_elim_percol": (tod.osd_elim_percol, "launches"),
+                "cs_sweep": (tcs.cs_sweep, "launches")}
+
     def counted(fn):
-        wrappers = {"gf2_sample": gk.sample_syndrome,
-                    "gf2_residual": gk.residual_check_stats,
-                    "fused_decode": gk.fused_decode_stats,
-                    "bp_minsum": bp_minsum, "osd_elim": tod.osd_elim}
-        for w in wrappers.values():
-            w.launches = 0
-        fn()
-        return {name: w.launches for name, w in wrappers.items()}
+        """Every launch count set to 0, ``fn`` run, the counts read; returns
+        ``fn()``'s result and the counts."""
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        out = fn()
+        return out, {name: getattr(obj, attr)
+                     for name, (obj, attr) in counters.items()}
 
     fused_launches = {}
     runs = {}
@@ -571,7 +624,7 @@ def main() -> int:
                 osd_order=10), 4,
              ("gf2_sample", "gf2_residual", "bp_minsum", "osd_elim"))):
         sim = make()
-        launches = counted(lambda: wer_phase(f"12 {tag}", sim, n_batches))
+        _, launches = counted(lambda: wer_phase(f"12 {tag}", sim, n_batches))
         log(f"[12 {tag}] launches {launches}")
         for name in needs:
             if launches[name] <= 0:
@@ -602,6 +655,160 @@ def main() -> int:
                                  f"plain path {got[1]}")
         log(f"[13] fused {fused}, one p=0.05 batch: kernel path == plain path "
             f"(failures, min_w) {got[0]}")
+
+    # 14. kernels B7 (fcap 0 and 10) and B10 vs their plain versions on
+    # phase 4's shots
+    W = packed.shape[0]
+    r_star = plan.rank
+    b7_err = 0
+    for fcap in (0, w):
+        k = tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=fcap, full=True)
+        with _kernels.force_plain():
+            pl = tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=fcap,
+                              full=True)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, pl))
+        if len(k) != 6 or err:  # tolerance 0: integer words
+            raise AssertionError(f"B7 differs from its plain version at "
+                                 f"fcap={fcap}")
+        b7_err = max(b7_err, err)
+    b7_out = k
+
+    def run_b7():
+        return tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=0, full=True)
+
+    k10 = tod.osd_elim_percol(packed, synd2, n=n, r_star=r_star)
+    p10 = tod.eliminate_percol_plain(packed, synd2, n=n, r_star=r_star)
+    torch.cuda.synchronize()
+    b10_err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(k10, p10))
+    if b10_err:
+        raise AssertionError("B10 differs from its plain version")
+    # the per-column route's pivots and reduced pivot rows are the full
+    # blocked route's
+    if not (torch.equal(k10[1], b7_out[1]) and torch.equal(k10[2], b7_out[2])
+            and torch.equal(tod.pivot_rows(k10[4], k10[1]),
+                            tod.pivot_rows(b7_out[5], b7_out[1]))):
+        raise AssertionError("B10 pivots or pivot rows differ from B7's")
+    rows_agree = torch.equal(k10[4], b7_out[5])
+
+    def run_b10():
+        return tod.osd_elim_percol(packed, synd2, n=n, r_star=r_star)
+
+    b7_ms, b10_ms = event_ms(run_b7, 20), event_ms(run_b10, 20)
+    with _kernels.force_plain():
+        b7_plain_ms, b10_plain_ms = event_ms(run_b7, 1), event_ms(run_b10, 1)
+    # both walk the same columns with no free panel: the same word
+    # operations; B7 writes the syndrome, the pivots and the matrix, B10
+    # those and r* pivot flags
+    work0 = tod.elimination_work(packed, synd2, n=n, r_star=r_star, fcap=0)
+    b7_bound, b7_by = elim_bound_ms(W, m, B2, m + 2 * r_star + W * m, work0)
+    b10_bound, b10_by = elim_bound_ms(W, m, B2, m + 3 * r_star + W * m, work0)
+    log(f"[14] B7 == plain (fcap 0 and {w}: six outputs, the matrix whole); "
+        f"B10 == plain (five outputs, the matrix whole); B10 pivots and pivot "
+        f"rows == B7's, non-pivot rows {'agree' if rows_agree else 'differ'}; "
+        f"{work0} word ops each; B7 {b7_ms:.3f} ms, plain {b7_plain_ms:.3f} "
+        f"ms, bound {b7_bound:.4f} ms ({b7_by}); B10 {b10_ms:.3f} ms, plain "
+        f"{b10_plain_ms:.3f} ms, bound {b10_bound:.4f} ms ({b10_by})")
+
+    # 15. kernel B8 vs its plain version on those shots' planes
+    order = 10
+    cfg = (n, r_star, order, tcs.cs_pat_chunk(n, r_star, order), "pallas")
+    _, x = tcs.sweep_inputs(cfg, plan.packed, plan.cost, synd[bad], k1[2][bad],
+                            device=dev)
+    f_cs, w_cs = x.dplane.shape[0], min(order, n - r_star)
+
+    def run_b8():
+        return tcs.cs_sweep(x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3])
+
+    k8 = run_b8()
+    p8 = tcs.cs_sweep_plain(x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3])
+    torch.cuda.synchronize()
+    b8_err = float((k8[0] - p8[0]).abs().max())
+    if b8_err or not torch.equal(k8[1], p8[1]):  # tolerance 0
+        raise AssertionError("B8 differs from its plain version")
+    b8_ms = device_ms(run_b8, 20, "cs_sweep_kernel")
+    b8_plain_ms = event_ms(lambda: tcs.cs_sweep_plain(
+        x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3]), 5)
+    # the library yardstick: the TPU formulation as two cuBLAS products
+    # (selector planes times the per-shot planes) and torch.argmin
+    e1t, e2t, *_ = tcs._cs_plane(f_cs, w_cs, 1)
+    e1t, e2t = torch.from_numpy(e1t).to(dev), torch.from_numpy(e2t).to(dev)
+
+    def run_b8_library():
+        costs = (e1t @ x.dplane).add_(x.base).sub_(2.0 * (e2t @ x.xflat))
+        return costs.argmin(dim=0)
+
+    lib_idx = run_b8_library()
+    b8_library_ms = event_ms(run_b8_library, 20)
+    def run_planes():
+        return tcs.cs_planes(x.rows_piv, x.signed_piv, x.cost_free,
+                             x.free_perm, n, w_cs)
+
+    planes_ms, planes_dev_ms = event_ms(run_planes, 5), all_kernels_ms(
+        run_planes, 5)
+    b8_bound, b8_by = sweep_bound_ms(f_cs, w_cs, B2)
+    log(f"[15] B8 == plain (cost and index, f={f_cs}, w={w_cs}, "
+        f"{tcs.cs_sweep_shape(n, r_star, order)[0]} candidates, "
+        f"{int((k8[1] > 0).sum())} of {B2} shots flip); kernel {b8_ms:.4f} "
+        f"ms (profiler device time), plain {b8_plain_ms:.3f} ms, library "
+        f"{b8_library_ms:.4f} ms (index agrees on "
+        f"{int((lib_idx == k8[1]).sum())} shots), bound {b8_bound:.5f} ms "
+        f"({b8_by}); the PyTorch dplane/X pass {planes_ms:.3f} ms by events, "
+        f"{planes_dev_ms:.3f} ms of kernel time (profiler)")
+
+    # 16. main path, BPOSD-CS; 17. main path, the per-column route on phase
+    # 6's run; counts reset just before each run, read just after
+    sim16 = simulator(BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_cs",
+                      osd_order=10)
+    _, launches_16 = counted(lambda: wer_phase("16 BPOSD-CS p=0.05", sim16, 8))
+    log(f"[16] launches {launches_16}")
+    saved_elim = os.environ.get("QLDPC_OSD_ELIM")
+    os.environ["QLDPC_OSD_ELIM"] = "pallas_percol"
+    try:  # the route is read when the decoders are built
+        sim17 = simulator(BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e",
+                          osd_order=10)
+    finally:
+        if saved_elim is None:
+            del os.environ["QLDPC_OSD_ELIM"]
+        else:
+            os.environ["QLDPC_OSD_ELIM"] = saved_elim
+    run17, launches_17 = counted(
+        lambda: wer_phase("17 BPOSD percol p=0.05", sim17, 8))
+    log(f"[17] launches {launches_17}")
+    for name, count in (("bp_minsum", launches_16["bp_minsum"]),
+                        ("osd_elim_full", launches_16["osd_elim_full"]),
+                        ("cs_sweep", launches_16["cs_sweep"]),
+                        ("osd_elim_percol", launches_17["osd_elim_percol"])):
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on its main path")
+    if launches_17["osd_elim"] or launches_16["osd_elim"]:
+        raise AssertionError("the blocked OSD-E kernel ran off its route")
+    if run17 != run6:
+        raise AssertionError(f"per-column route {run17} != blocked route "
+                             f"{run6} (failures, min_w)")
+    log(f"[17] per-column route == blocked route: failures, min_w {run6}")
+
+    # 18. anchors
+    sim0 = simulator(BPOSD_Decoder, 0.0, 2048, SEED, osd_method="osd_cs",
+                     osd_order=10)
+    sim0.WordErrorRate(2 * 2048)
+    if sim0.last_failures != 0:
+        raise AssertionError(f"OSD-CS: {sim0.last_failures} failures at p=0")
+    log(f"[18] OSD-CS p=0: 0 failures in {sim0.last_shots} shots")
+    sims = [simulator(BPOSD_Decoder, 0.05, 2048, SEED + 1, osd_method="osd_cs",
+                      osd_order=10) for _ in range(2)]
+    sims[0].WordErrorRate(2048)
+    t = time.time()
+    with _kernels.force_plain():
+        sims[1].WordErrorRate(2048)
+    dt_plain = time.time() - t
+    got = [(s.last_failures, s.min_logical_weight) for s in sims]
+    if got[0] != got[1]:
+        raise AssertionError(f"OSD-CS kernel path {got[0]} vs plain path "
+                             f"{got[1]}")
+    log(f"[18] one OSD-CS batch, kernels vs plain on the card: (failures, "
+        f"min_w) {got[0]} == {got[1]} (plain path {dt_plain:.2f} s)")
 
     # the kernels line
     kernels = [
@@ -638,6 +845,26 @@ def main() -> int:
          "max_abs_err": float(b5_err),
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
          "bound_by": b5_by, "library_ms": None},
+        {"name": "osd_elim_full", "route": "cuda",
+         "source": f"{PKG}/csrc/osd_elim.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:632",
+         "launches": launches_16["osd_elim_full"],
+         "max_abs_err": float(b7_err),
+         "ms": b7_ms, "plain_ms": b7_plain_ms, "bound_ms": b7_bound,
+         "bound_by": b7_by, "library_ms": None},
+        {"name": "cs_sweep", "route": "cuda",
+         "source": f"{PKG}/csrc/cs_sweep.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/osd_cs_device.py:215",
+         "launches": launches_16["cs_sweep"], "max_abs_err": b8_err,
+         "ms": b8_ms, "plain_ms": b8_plain_ms, "bound_ms": b8_bound,
+         "bound_by": b8_by, "library_ms": b8_library_ms},
+        {"name": "osd_elim_percol", "route": "cuda",
+         "source": f"{PKG}/csrc/osd_elim.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:343",
+         "launches": launches_17["osd_elim_percol"],
+         "max_abs_err": float(b10_err),
+         "ms": b10_ms, "plain_ms": b10_plain_ms, "bound_ms": b10_bound,
+         "bound_by": b10_by, "library_ms": None},
     ]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

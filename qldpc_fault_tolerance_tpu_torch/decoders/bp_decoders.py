@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..codes import gf2
-from ..ops import bp, osd_device
+from ..ops import bp, osd_cs_device, osd_device
 from ..utils.device import resolve_device
 from .osd import DEVICE_METHODS, METHODS, _check_osd_order
 
@@ -59,10 +59,16 @@ def osd_compaction_tiers(batch_size: int) -> tuple:
 
 
 def _osd(static, state, syndromes, posterior):
-    _, _bp_static, n, rank, osd_order = static
-    return osd_device.osd_decode_values(
-        (n, rank, osd_order, 256), state["osd_packed"], state["osd_cost"],
-        syndromes, posterior, device=syndromes.device)
+    _, _bp_static, n, rank, osd_order, elim, method = static
+    if method == "osd_cs":
+        decode = osd_cs_device.osd_cs_decode_values
+        cfg = (n, rank, osd_order,
+               osd_cs_device.cs_pat_chunk(n, rank, osd_order), elim)
+    else:
+        decode = osd_device.osd_decode_values
+        cfg = (n, rank, osd_order, 256, elim)
+    return decode(cfg, state["osd_packed"], state["osd_cost"], syndromes,
+                  posterior, device=syndromes.device)
 
 
 def decode_device(static, state, syndromes):
@@ -71,7 +77,9 @@ def decode_device(static, state, syndromes):
     aux)`` with aux holding ``converged``, ``posterior_llr`` and
     ``iterations``.
 
-    ``"bposd_dev"`` runs OSD on the BP-failed shots only, gathered into a
+    ``"bposd_dev"`` (``("bposd_dev", bp_static, n, rank, order, elim,
+    method)``, ``method`` ``"osd_e"`` or ``"osd_cs"``) runs OSD on the
+    BP-failed shots only, gathered into a
     fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch);
     results never depend on the tier.  The tier is chosen on the host from
     one read of the failure count, counted in ``decode_device.host_reads``."""
@@ -189,7 +197,11 @@ class BPDecoder:
 
 class BPOSD_Decoder(BPDecoder):
     """BP + OSD (reference BPOSD_Decoder): BP for the whole batch, then
-    device OSD (``ops/osd_device.py``) on the shots BP failed."""
+    device OSD on the shots BP failed: OSD-0/OSD-E (``ops/osd_device.py``)
+    or, for ``osd_method="osd_cs"``, the combination sweep
+    (``ops/osd_cs_device.py``).  The elimination route is read from
+    ``QLDPC_OSD_ELIM`` at construction (``"pallas"``, the default, or
+    ``"pallas_percol"``)."""
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, osd_method="osd_e", osd_order=10,
@@ -199,17 +211,19 @@ class BPOSD_Decoder(BPDecoder):
         self.osd_method = str(osd_method)
         if self.osd_method not in DEVICE_METHODS:
             raise NotImplementedError(
-                f"device OSD implements OSD-0/OSD-E only, not "
+                f"device OSD implements OSD-0/OSD-E/OSD-CS only, not "
                 f"{self.osd_method!r}")
         self.osd_order = _check_osd_order(osd_order)
+        self.osd_elim = osd_device.elim_route()
         self._osd_plan = osd_device.build_osd_plan(
             self._h01, self.channel_probs, device=self.device)
 
     @property
     def device_static(self):
         order = 0 if METHODS[self.osd_method] == 0 else self.osd_order
+        method = "osd_cs" if self.osd_method == "osd_cs" else "osd_e"
         return ("bposd_dev", super().device_static, self._osd_plan.n,
-                self._osd_plan.rank, order)
+                self._osd_plan.rank, order, self.osd_elim, method)
 
     @property
     def device_state(self):

@@ -8,12 +8,13 @@ __all__ = ["OSD_CS_MAX_ORDER", "METHODS", "DEVICE_METHODS"]
 
 #: reprocessing methods by name -> 0 (OSD-0), 1 (OSD-E), 2 (OSD-CS)
 METHODS = {"osd_0": 0, "osd0": 0, "osd_e": 1, "osd_cs": 2, "exhaustive": 1}
-#: the methods this port runs on the device (OSD-CS is not ported yet)
-DEVICE_METHODS = ("osd_e", "osd0", "osd_0", "exhaustive")
+#: the methods this port runs on the device
+DEVICE_METHODS = ("osd_e", "osd0", "osd_0", "exhaustive", "osd_cs")
 
 #: Shared order cap for the reprocessing stages — OSD-E's candidate count is
-#: 2^order, so an uncapped order is a resource bug, not a knob; entry points
-#: raise above it instead of silently clamping.
+#: 2^order and OSD-CS's pair block is order^2/2, so an uncapped order is a
+#: resource bug, not a knob; entry points raise above it instead of silently
+#: clamping.
 OSD_CS_MAX_ORDER = 20
 
 
@@ -22,7 +23,9 @@ def _check_osd_order(osd_order: int) -> int:
     if order > OSD_CS_MAX_ORDER:
         raise ValueError(
             f"osd_order={order} exceeds OSD_CS_MAX_ORDER={OSD_CS_MAX_ORDER} — "
-            f"candidate counts grow as 2^order")
+            f"candidate counts grow as 2^order (OSD-E) / order^2 (OSD-CS); "
+            f"raise OSD_CS_MAX_ORDER deliberately rather than relying on a "
+            f"silent clamp")
     return order
 
 

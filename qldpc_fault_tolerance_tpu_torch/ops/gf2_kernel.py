@@ -73,9 +73,10 @@ EVAL_CODES = {"X": 0, "Z": 1, "Total": 2}
 # ---------------------------------------------------------------------------
 # Counter draws and the depolarizing cuts
 def counter_draws(k0: int, k1: int, batch_size: int, n: int,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """(batch_size, n) int64 draws in [0, 2**32): word (b, v) is
     Threefry(key, (b, v)).x0."""
+    device = resolve_device(device)
     c0 = torch.arange(batch_size, dtype=torch.int64, device=device)[:, None]
     c1 = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     x0, _ = threefry2x32(int(k0), int(k1), c0, c1)

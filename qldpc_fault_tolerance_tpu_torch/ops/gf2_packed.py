@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = [
     "LANE",
     "num_words",
@@ -45,9 +47,10 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)
 
 
-def lane_mask(batch_size: int, device="cpu") -> torch.Tensor:
+def lane_mask(batch_size: int, device="cuda") -> torch.Tensor:
     """(W,) int32 mask of valid shot bits; ragged tails mask the padding.
     Built on ``device`` (no host-to-device copy)."""
+    device = resolve_device(device)
     w = num_words(batch_size)
     valid = torch.arange(w * LANE, device=device) < batch_size
     words = valid.reshape(w, LANE).to(torch.int64) << torch.arange(LANE, device=device)

@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["ParityOp", "parity_apply", "gf2_matmul"]
 
 
@@ -23,7 +25,8 @@ class ParityOp:
     Built once per H on the host; ``nbr``/``mask`` are (m, rw) tensors on
     ``device``."""
 
-    def __init__(self, h, device="cpu"):
+    def __init__(self, h, device="cuda"):
+        device = resolve_device(device)
         h = (np.asarray(h) != 0).astype(np.uint8)
         m, n = h.shape
         rows = [np.nonzero(h[i])[0] for i in range(m)]

@@ -1,4 +1,5 @@
-"""Batched ordered-statistics decoding (OSD-0 / OSD-E) on the device.
+"""Batched ordered-statistics decoding (OSD-0 / OSD-E) on the device, and
+the GF(2) eliminations that OSD-CS (``ops/osd_cs_device.py``) shares.
 
   * One GF(2) rank serves all shots: H's rank r* is a property of the matrix,
     so every per-shot array has a static shape — only the column order (by
@@ -12,7 +13,15 @@
     ``_elim_blocked_kernel`` (``qldpc_fault_tolerance_tpu/ops/osd_device.py
     :547``); on CPU tensors it runs ``eliminate_plain``, a port of that
     kernel's blocked twin ``_eliminate_blocked_twin`` (:719).  Both are
-    integer-exact and agree bit for bit.
+    integer-exact and agree bit for bit.  ``osd_elim(..., full=True)`` (the
+    OSD-CS route; TPU kernel ``_elim_blocked_full_kernel`` :632) also
+    returns the fully reduced matrix.
+  * The per-column route (``cfg[4] == "pallas_percol"``, the JAX package's
+    ``QLDPC_OSD_ELIM=pallas_percol``): ``osd_elim_percol`` returns the
+    reduced matrix and the pivot-column flags instead of a free panel, and
+    T is read from the reduced pivot rows; its kernel replaces
+    ``_elim_kernel`` (:343), its plain version ``eliminate_percol_plain``
+    ports ``_eliminate`` (:259).  Both routes give the same pivots and T.
   * OSD-E scores all 2^w free-bit patterns with float32 matmuls (T @ P mod 2
     and cost contractions), chunked so nothing of size (B, r*, 2^w) is
     materialized; only the winning pattern's solution is reconstructed.
@@ -26,6 +35,7 @@ Keep ``torch.backends.cuda.matmul.allow_tf32`` False on the card.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -37,7 +47,9 @@ from . import _kernels
 from .gf2_packed import to_int32
 
 __all__ = ["OsdPlan", "build_osd_plan", "osd_elim", "eliminate_plain",
-           "elimination_work", "osd_decode_values", "osd_decode_device"]
+           "osd_elim_percol", "eliminate_percol_plain", "elimination_work",
+           "ELIM_ROUTES", "elim_route", "osd_decode_values",
+           "osd_decode_device"]
 
 
 def pack_rows(h) -> np.ndarray:
@@ -129,7 +141,7 @@ def _select_sum(onehot, x) -> torch.Tensor:
 
 
 def eliminate_plain(packed0, synd0, *, n: int, r_star: int, fcap: int,
-                    count_work: bool = False):
+                    full: bool = False, count_work: bool = False):
     """Plain PyTorch version of the elimination kernel: a port of the JAX
     package's ``_eliminate_blocked_twin`` (32 columns per block step: a
     micro-elimination on the block's word, then one fused update of the
@@ -137,8 +149,10 @@ def eliminate_plain(packed0, synd0, *, n: int, r_star: int, fcap: int,
 
     packed0: (W, m, B) int32; synd0: (m, B) int32.  Returns ``(synd (m, B),
     pivot_rows (r*, B), pivot_cols (r*, B), fword (m, B), fpos (32, B))``,
-    all int32.  ``count_work`` appends the per-shot word-operation count
-    of the column-by-column elimination (see ``elimination_work``)."""
+    all int32.  ``full`` (the OSD-CS route) applies each block's update to
+    every word, the current one included, and appends the fully reduced
+    matrix (W, m, B).  ``count_work`` appends the per-shot word-operation
+    count of the column-by-column elimination (see ``elimination_work``)."""
     W, m, B = packed0.shape
     dev = packed0.device
     i32 = torch.int32
@@ -195,13 +209,16 @@ def eliminate_plain(packed0, synd0, *, n: int, r_star: int, fcap: int,
             rank = rank + has
             fcnt = fcnt + grow
             if count_work:
-                cleared = clear.sum(dim=0) * (W - t_word + 2)
+                cleared = clear.sum(dim=0) * (W - t_word + 1 + (fcap > 0))
                 work += torch.where(live, m + cleared, 0)
-        if t_word + 1 < W:
-            right = packed[t_word + 1:]
-            packed[t_word + 1:] = right ^ _phase_b_delta(right, pivword, aug)
+        # each delta is computed on block-start values, so applied to the
+        # current word too it reproduces phase A exactly
+        lo = 0 if full else t_word + 1
+        if lo < W:
+            rows = packed[lo:]
+            packed[lo:] = rows ^ _phase_b_delta(rows, pivword, aug)
         t_word += 1
-    out = (synd, pr, pc, fword, fpos)
+    out = (synd, pr, pc, fword, fpos) + ((packed,) if full else ())
     return out + (work,) if count_work else out
 
 
@@ -218,9 +235,54 @@ def _phase_b_delta(rows, pivword, aug) -> torch.Tensor:
     return acc
 
 
-def _elim_argtypes():
+def eliminate_percol_plain(packed0, synd0, *, n: int, r_star: int):
+    """Plain PyTorch version of the per-column elimination kernel: a port of
+    the JAX package's ``_eliminate`` (one pivot column per step, every word
+    of every other row with the column's bit cleared).
+
+    packed0: (W, m, B) int32; synd0: (m, B) int32.  Returns ``(u_piv (r*, B)
+    reduced syndrome at the pivot rows, pivot_rows (r*, B), pivot_cols
+    (r*, B), ip (n, B) bool pivot-column flags, packed (W, m, B) reduced
+    matrix)``, int32 but ``ip``.  Its kernel's work is
+    ``elimination_work(..., fcap=0)``."""
+    W, m, B = packed0.shape
+    dev = packed0.device
+    i32 = torch.int32
+    packed = packed0.clone()
+    synd = synd0.clone()
+    used = torch.zeros((m, B), dtype=torch.bool, device=dev)
+    rank = torch.zeros(B, dtype=i32, device=dev)
+    pr = torch.zeros((r_star, B), dtype=i32, device=dev)
+    pc = torch.zeros((r_star, B), dtype=i32, device=dev)
+    ip = torch.zeros((n, B), dtype=torch.bool, device=dev)
+    rows_m = torch.arange(m, dtype=i32, device=dev)[:, None]
+    slots = torch.arange(r_star, dtype=i32, device=dev)[:, None]
+    t = 0
+    while t < n and bool((rank < r_star).any()):
+        bits = ((packed[t >> 5] >> (t & 31)) & 1) == 1         # (m, B)
+        active = rank < r_star
+        avail = bits & ~used & active[None, :]
+        has = avail.any(dim=0)
+        piv = torch.where(avail, rows_m, m).min(dim=0).values  # first avail
+        onehot = rows_m == piv[None, :]
+        prow = (onehot[None] * packed).sum(dim=1).to(i32)       # (W, B)
+        ps = (onehot * synd).sum(dim=0).to(i32)
+        clear = bits & ~onehot & has[None, :]
+        packed = packed ^ torch.where(clear[None], prow[:, None, :], 0)
+        synd = synd ^ torch.where(clear, ps[None, :], 0)
+        at = (slots == rank[None, :]) & has[None, :]
+        pr = torch.where(at, piv[None, :], pr)
+        pc = torch.where(at, t, pc)
+        ip[t] = has
+        used = used | (onehot & has[None, :])
+        rank = rank + has.to(i32)
+        t += 1
+    return synd.gather(0, pr.long()), pr, pc, ip, packed
+
+
+def _elim_argtypes(n_ptrs: int, n_ints: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    return [p] * n_ptrs + [i] * n_ints + [p]
 
 
 # shared memory a block may take on Hopper (227 KB): one shot's matrix,
@@ -228,69 +290,177 @@ def _elim_argtypes():
 SMEM_LIMIT = 232448
 
 
-def osd_elim(packed, synd, *, n: int, r_star: int, fcap: int):
-    """GF(2) elimination of (W, m, B) int32 packed rows with the (m, B) int32
-    syndrome augmented.  Returns the five int32 arrays of
-    ``eliminate_plain``.  CUDA tensors launch ``csrc/osd_elim.cu`` (or
-    raise); CPU tensors run ``eliminate_plain``."""
-    if not packed.is_cuda or _kernels.plain_forced():
-        return eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap)
+def _check_elim(name, packed, synd, n: int, r_star: int, fcap: int) -> int:
+    """Raise on inputs the elimination kernels cannot take; returns the
+    shared memory one shot needs."""
     W, m, B = packed.shape
-    dev = packed.device
     if packed.dtype != torch.int32 or synd.dtype != torch.int32:
-        raise ValueError("osd_elim takes int32 packed rows and syndromes")
+        raise ValueError(f"{name} takes int32 packed rows and syndromes")
     if tuple(synd.shape) != (m, B) or W != (n + 31) // 32:
-        raise ValueError(f"osd_elim shape mismatch: packed {tuple(packed.shape)}, "
+        raise ValueError(f"{name} shape mismatch: packed {tuple(packed.shape)}, "
                          f"syndromes {tuple(synd.shape)}, n={n}")
-    if synd.device != dev or not packed.is_contiguous() or not synd.is_contiguous():
-        raise ValueError("osd_elim takes contiguous inputs on one device")
+    if (synd.device != packed.device or not packed.is_contiguous()
+            or not synd.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous inputs on one device")
     if not 0 <= fcap <= 32 or not 0 <= r_star <= m:
-        raise ValueError(f"osd_elim takes fcap in 0..32 and r* <= m, "
+        raise ValueError(f"{name} takes fcap in 0..32 and r* <= m, "
                          f"got fcap={fcap}, r*={r_star}")
-    if W * m * B >= 2 ** 31:
-        raise ValueError("osd_elim batch too large for int32 indexing")
+    if W * m * B >= 2 ** 31 or n * B >= 2 ** 31:
+        raise ValueError(f"{name} batch too large for int32 indexing")
     smem = 4 * (W * m + 3 * m)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"osd_elim: a {m}x{n} matrix needs {smem} bytes of "
+        raise ValueError(f"{name}: a {m}x{n} matrix needs {smem} bytes of "
                          f"shared memory per shot, above {SMEM_LIMIT}")
+    return smem
+
+
+def osd_elim(packed, synd, *, n: int, r_star: int, fcap: int,
+             full: bool = False):
+    """GF(2) elimination of (W, m, B) int32 packed rows with the (m, B) int32
+    syndrome augmented.  Returns the int32 arrays of ``eliminate_plain``:
+    five, and with ``full`` the fully reduced matrix as a sixth.  CUDA
+    tensors launch ``csrc/osd_elim.cu`` (``osd_elim_launch``, or
+    ``osd_elim_full_launch`` with ``full``) or raise; CPU tensors run
+    ``eliminate_plain``.  ``launches`` counts the first kernel,
+    ``full_launches`` the second."""
+    if not packed.is_cuda or _kernels.plain_forced():
+        return eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap,
+                               full=full)
+    smem = _check_elim("osd_elim", packed, synd, n, r_star, fcap)
+    W, m, B = packed.shape
+    dev = packed.device
     synd_out = torch.empty((m, B), dtype=torch.int32, device=dev)
-    fword = torch.empty((m, B), dtype=torch.int32, device=dev)
+    # the kernel writes the free panel only when it has one
+    fword = (torch.empty if fcap else torch.zeros)((m, B), dtype=torch.int32,
+                                                   device=dev)
     pr = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     fpos = torch.zeros((32, B), dtype=torch.int32, device=dev)
-    fn = _kernels.library("osd_elim").osd_elim_launch
-    fn.argtypes = _elim_argtypes()
+    outs = [synd_out, pr, pc, fword, fpos]
+    lib = _kernels.library("osd_elim")
+    if full:
+        outs.append(torch.empty((W, m, B), dtype=torch.int32, device=dev))
+        fn = lib.osd_elim_full_launch
+    else:
+        fn = lib.osd_elim_launch
+    fn.argtypes = _elim_argtypes(len(outs) + 2, 7)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(packed.data_ptr(), synd.data_ptr(),
+                *(o.data_ptr() for o in outs),
+                m, n, W, r_star, fcap, B, smem, stream)
+    _kernels.check_launch("osd_elim", rc)
+    if full:
+        osd_elim.full_launches += 1
+    else:
+        osd_elim.launches += 1
+    return tuple(outs)
+
+
+osd_elim.launches = 0
+osd_elim.full_launches = 0
+
+
+def osd_elim_percol(packed, synd, *, n: int, r_star: int):
+    """Per-column GF(2) elimination of (W, m, B) int32 packed rows with the
+    (m, B) int32 syndrome augmented.  Returns the arrays of
+    ``eliminate_percol_plain``.  CUDA tensors launch ``csrc/osd_elim.cu``
+    (``osd_elim_percol_launch``) or raise; CPU tensors run
+    ``eliminate_percol_plain``."""
+    if not packed.is_cuda or _kernels.plain_forced():
+        return eliminate_percol_plain(packed, synd, n=n, r_star=r_star)
+    smem = _check_elim("osd_elim_percol", packed, synd, n, r_star, 0)
+    W, m, B = packed.shape
+    dev = packed.device
+    synd_out = torch.empty((m, B), dtype=torch.int32, device=dev)
+    pr = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
+    pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
+    ip = torch.zeros((n, B), dtype=torch.int32, device=dev)
+    packed_out = torch.empty((W, m, B), dtype=torch.int32, device=dev)
+    fn = _kernels.library("osd_elim").osd_elim_percol_launch
+    fn.argtypes = _elim_argtypes(7, 6)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(packed.data_ptr(), synd.data_ptr(), synd_out.data_ptr(),
-                pr.data_ptr(), pc.data_ptr(), fword.data_ptr(),
-                fpos.data_ptr(), m, n, W, r_star, fcap, B, smem, stream)
-    _kernels.check_launch("osd_elim", rc)
-    osd_elim.launches += 1
-    return synd_out, pr, pc, fword, fpos
+                pr.data_ptr(), pc.data_ptr(), ip.data_ptr(),
+                packed_out.data_ptr(), m, n, W, r_star, B, smem, stream)
+    _kernels.check_launch("osd_elim_percol", rc)
+    osd_elim_percol.launches += 1
+    return synd_out.gather(0, pr.long()), pr, pc, ip == 1, packed_out
 
 
-osd_elim.launches = 0
+osd_elim_percol.launches = 0
 
 
-def elimination_work(packed, synd, *, n: int, r_star: int, fcap: int) -> int:
+def elimination_work(packed, synd, *, n: int, r_star: int,
+                     fcap: int) -> int:
     """Word operations the column-by-column elimination of these inputs
-    needs: per processed column, one test of each of the m rows, plus for
-    every row it clears (W - w + 2) word XORs (the row's words from the
-    pivot word rightwards, its syndrome and its free-panel word)."""
+    needs, in any of the three kernel modes (the per-column route at
+    ``fcap=0``): per processed column, one test of each of the m rows, plus
+    for every row it clears (W - w + 1) word XORs (the row's words from the
+    pivot's word rightwards and its syndrome), and its free-panel word when
+    ``fcap > 0``.  The pivot row is zero left of its word, so no mode needs
+    more."""
     out = eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap,
                           count_work=True)
-    return int(out[5].sum())
+    return int(out[-1].sum())
+
+
+#: elimination routes of the ``cfg[4]`` slot: the blocked route (kernel
+#: ``osd_elim_launch``, or ``osd_elim_full_launch`` for OSD-CS) and the
+#: per-column route (``osd_elim_percol_launch``)
+ELIM_ROUTES = ("pallas", "pallas_percol")
+
+
+def elim_route(elim=None) -> str:
+    """The elimination route ``elim``, or when None ``QLDPC_OSD_ELIM``
+    (default ``"pallas"``).  Raises on a route the port does not have."""
+    if elim is None:
+        elim = os.environ.get("QLDPC_OSD_ELIM", "pallas")
+    if elim not in ELIM_ROUTES:
+        raise ValueError(f"unknown OSD elimination route {elim!r}; the port "
+                         f"has {ELIM_ROUTES}")
+    return elim
+
+
+def _reduced_bits(rows, cols) -> torch.Tensor:
+    """Bits of the reduced pivot rows ``rows`` (W, r*, B) at the permuted
+    columns ``cols`` (k, B): (k, r*, B) int32 {0, 1}."""
+    k, B = cols.shape
+    word = (cols >> 5)[:, None, :].expand(k, rows.shape[1], B)
+    return (rows.gather(0, word) >> (cols & 31)[:, None, :]) & 1
+
+
+def free_positions(n: int, k: int, *, ip=None, pc=None) -> torch.Tensor:
+    """The first ``k`` free (non-pivot) permuted positions of every shot,
+    ascending, which is reliability order: (k, B) int64.  From the
+    pivot-column flags ``ip`` (n, B), or when None from the pivot columns
+    ``pc`` (r*, B) (every shot reaches rank r*, so every slot is a real
+    permuted column)."""
+    if ip is None:
+        ip = torch.zeros((n, pc.shape[1]), dtype=torch.bool,
+                         device=pc.device).scatter_(0, pc.long(), True)
+    # stable: the non-pivot positions (0) keep their ascending order
+    return torch.sort(ip.to(torch.uint8), dim=0, stable=True).indices[:k]
+
+
+def pivot_rows(packed, pr) -> torch.Tensor:
+    """The reduced matrix (W, m, B) read at the pivot rows pr (r*, B)."""
+    W = packed.shape[0]
+    return packed.gather(1, pr.long()[None].expand(W, *pr.shape))
 
 
 def osd_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
                       device="cuda"):
     """OSD decode of a (B, m) syndrome batch from BP posteriors (B, n).
 
-    ``cfg`` = (n, rank, osd_order, pat_chunk); ``h_packed`` (m, W) int32
-    rows and ``cost`` (n,) float32 signed costs.  Returns (B, n) uint8."""
+    ``cfg`` = (n, rank, osd_order, pat_chunk[, elim]), ``elim`` one of
+    ``ELIM_ROUTES`` (see ``elim_route``); ``h_packed`` (m, W) int32 rows and
+    ``cost`` (n,) float32 signed costs.  Returns (B, n) uint8."""
     n, r_star, osd_order, pat_chunk = cfg[:4]
+    elim = elim_route(cfg[4] if len(cfg) > 4 else None)
     dev = resolve_device(device)
     h_packed = torch.as_tensor(h_packed).to(dev)
     cost = torch.as_tensor(cost).to(dev, torch.float32)
@@ -301,10 +471,14 @@ def osd_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     w = min(_check_osd_order(osd_order), n - r_star, OSD_CS_MAX_ORDER)
     packed0 = _permute_and_pack(_unpack_rows(h_packed, n), perm)
     synd0 = syndromes.to(torch.int32).t().contiguous()
-    synd_r, pr, pc, fword, fpos = osd_elim(packed0, synd0, n=n, r_star=r_star,
-                                           fcap=max(w, 0))
-    pr_l = pr.long()
-    u_piv = synd_r.gather(0, pr_l).t()                         # (B, r*)
+    if elim == "pallas":
+        synd_r, pr, pc, fword, fpos = osd_elim(
+            packed0, synd0, n=n, r_star=r_star, fcap=max(w, 0))
+        u_piv = synd_r.gather(0, pr.long()).t()                # (B, r*)
+    else:
+        u_piv, pr, pc, ip, packed = osd_elim_percol(packed0, synd0, n=n,
+                                                    r_star=r_star)
+        u_piv = u_piv.t()
     piv_cols = perm.gather(1, pc.t().long())                   # original ids
     cost_piv = cost[piv_cols]                                  # (B, r*)
     out = torch.zeros((B, n), dtype=torch.uint8, device=dev)
@@ -312,9 +486,17 @@ def osd_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
         return out.scatter_(1, piv_cols, u_piv.to(torch.uint8))
 
     ar_w = torch.arange(w, device=dev)
-    fw_piv = fword.gather(0, pr_l)                             # (r*, B)
-    T = ((fw_piv.t()[:, :, None] >> ar_w) & 1).to(torch.float32)  # (B, r*, w)
-    free = perm.gather(1, fpos[:w].t().long())                 # (B, w)
+    if elim == "pallas":
+        # T is the free panel at the pivot rows
+        fw_piv = fword.gather(0, pr.long())                    # (r*, B)
+        T = ((fw_piv.t()[:, :, None] >> ar_w) & 1).to(torch.float32)
+        free_perm = fpos[:w]                                   # (w, B)
+    else:
+        # T reads the reduced pivot rows at the first w free columns
+        free_perm = free_positions(n, w, ip=ip)
+        T = _reduced_bits(pivot_rows(packed, pr), free_perm).permute(
+            2, 1, 0).to(torch.float32)                         # (B, r*, w)
+    free = perm.gather(1, free_perm.t().long())                # (B, w)
     cost_free = cost[free]                                     # (B, w)
     n_pat = 1 << w
     # chunk starts must never clamp: round a non-dividing chunk down to a
@@ -358,8 +540,9 @@ def osd_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
 def osd_decode_device(plan: OsdPlan, syndromes, posterior_llrs,
                       osd_order: int = 10, pat_chunk: int = 256):
     """OSD-E decode a batch on the plan's device. Returns (B, n) uint8.
-    ``osd_order=0`` gives OSD-0."""
+    ``osd_order=0`` gives OSD-0; the elimination route is
+    ``QLDPC_OSD_ELIM`` (default ``"pallas"``)."""
     return osd_decode_values(
-        (plan.n, plan.rank, int(osd_order), int(pat_chunk)),
+        (plan.n, plan.rank, int(osd_order), int(pat_chunk), elim_route()),
         plan.packed, plan.cost, syndromes, posterior_llrs,
         device=plan.packed.device)

@@ -4,7 +4,9 @@
 Runs the main-path configurations of chip_smoke.py (hgp_34_n625, BP-50 at
 p=0.01 with batches of 4096 on the default path and on both fused engines,
 fused_sampler=True and "v2"; BP-50 + OSD-E order 10 at p=0.05 with batches
-of 2048) once to warm up and once under torch.profiler, and prints
+of 2048, on the blocked and the per-column elimination route; BP-50 +
+OSD-CS order 10 at p=0.05 with batches of 2048) once to warm up and once
+under torch.profiler, and prints
 for each: wall time, shots/s, device time summed by kernel name (top 12),
 and the device busy share (summed kernel time over wall time; kernels do
 not overlap on one stream).
@@ -13,6 +15,7 @@ Run from the root of a checkout:  python3 scripts/profile_port_wer.py
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 from pathlib import Path
@@ -40,8 +43,10 @@ def main() -> int:
     code = load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n625.npz"))
     print(torch.cuda.get_device_name(0), flush=True)
 
-    def simulator(cls, p, batch, fused=False, **kw):
+    def simulator(cls, p, batch, fused=False, elim="pallas", **kw):
         probs = np.full(code.N, 2 * p / 3)
+        # decoders read the elimination route when they are built
+        os.environ["QLDPC_OSD_ELIM"] = elim
         return CodeSimulator_DataError(
             code=code, decoder_x=cls(code.hz, probs, 50, device=dev, **kw),
             decoder_z=cls(code.hx, probs, 50, device=dev, **kw),
@@ -55,7 +60,13 @@ def main() -> int:
             ("fused v2 BP p=0.01", simulator(BPDecoder, 0.01, 4096, "v2"),
              16 * 4096),
             ("BPOSD p=0.05", simulator(BPOSD_Decoder, 0.05, 2048,
-                                       osd_order=10), 8 * 2048)):
+                                       osd_order=10), 8 * 2048),
+            ("BPOSD per-column p=0.05", simulator(
+                BPOSD_Decoder, 0.05, 2048, elim="pallas_percol",
+                osd_order=10), 8 * 2048),
+            ("BPOSD-CS p=0.05", simulator(BPOSD_Decoder, 0.05, 2048,
+                                          osd_method="osd_cs", osd_order=10),
+             8 * 2048)):
         sim.WordErrorRate(shots)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

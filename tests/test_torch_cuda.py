@@ -4,8 +4,9 @@ These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
 skip without one; run them on a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
 kernel reproduces its plain version bit for bit (min-sum, alone or inside
-the fused decode, is built with FMA contraction off; the elimination, the
-counter-PRNG sampler and the residual checks are integer-exact)."""
+the fused decode, and the OSD-CS sweep are built with FMA contraction off;
+the eliminations, the counter-PRNG sampler and the residual checks are
+integer-exact)."""
 import os
 
 import numpy as np
@@ -17,6 +18,7 @@ from qldpc_fault_tolerance_tpu_torch.decoders import BPOSD_Decoder
 from qldpc_fault_tolerance_tpu_torch.ops import _kernels
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
 from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
+from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
 from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
 from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
 
@@ -81,6 +83,81 @@ def test_elim_kernel_matches_plain(cuda, fcap):
         assert torch.equal(a, b)
 
 
+def _elim_inputs(cuda, seed, B=40):
+    h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
+    n = h.shape[1]
+    plan = tod.build_osd_plan(h, np.full(n, 0.03), device=cuda)
+    post = torch.randn((B, n), generator=torch.Generator().manual_seed(seed))
+    perm = torch.sort(post.to(cuda), dim=1, stable=True).indices
+    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
+    synd = _synd(h, B, 0.05, seed).to(cuda, torch.int32).t().contiguous()
+    return packed, synd, n, plan.rank
+
+
+@pytest.mark.parametrize("fcap", [0, 10, 32])
+def test_elim_full_kernel_matches_plain(cuda, fcap):
+    """B7: six outputs, the reduced matrix whole."""
+    packed, synd, n, rank = _elim_inputs(cuda, 100 + fcap)
+    before = tod.osd_elim.full_launches
+    k = tod.osd_elim(packed, synd, n=n, r_star=rank, fcap=fcap, full=True)
+    assert tod.osd_elim.full_launches == before + 1
+    p = tod.eliminate_plain(packed, synd, n=n, r_star=rank, fcap=fcap,
+                            full=True)
+    assert len(k) == len(p) == 6
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [40, 1])
+def test_elim_percol_kernel_matches_plain(cuda, B):
+    """B10: reduced syndrome at the pivots, pivots, pivot flags, matrix."""
+    packed, synd, n, rank = _elim_inputs(cuda, 7, B)
+    before = tod.osd_elim_percol.launches
+    k = tod.osd_elim_percol(packed, synd, n=n, r_star=rank)
+    assert tod.osd_elim_percol.launches == before + 1
+    p = tod.eliminate_percol_plain(packed, synd, n=n, r_star=rank)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("f,w,B,ties", [(325, 10, 256, False),
+                                        (325, 10, 256, True),
+                                        (14, 5, 37, True), (3, 1, 9, False),
+                                        (5, 0, 8, False)])
+def test_cs_sweep_kernel_matches_plain(cuda, f, w, B, ties):
+    """B8: best cost and index bit-exact, ragged batches and w <= 1 too."""
+    rng = np.random.default_rng(f * B + ties)
+    wsq = max(w * w, 1)
+    if ties:
+        planes = (rng.integers(-3, 4, (f, B)), rng.integers(-2, 3, (wsq, B)),
+                  rng.integers(0, 3, B))
+    else:
+        planes = (rng.normal(size=(f, B)), rng.normal(size=(wsq, B)),
+                  rng.normal(size=B))
+    dplane, xflat, base = (torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+                           for a in planes)
+    before = tcs.cs_sweep.launches
+    k = tcs.cs_sweep(dplane, xflat, base, w=w, pat_chunk=64)
+    assert tcs.cs_sweep.launches == before + 1
+    p = tcs.cs_sweep_plain(dplane, xflat, base, w=w, pat_chunk=64)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("elim", ["pallas", "pallas_percol"])
+def test_bposd_cs_on_card_matches_cpu(cuda, elim, monkeypatch):
+    monkeypatch.setenv("QLDPC_OSD_ELIM", elim)
+    code = hgp(ring_code(5), ring_code(5))
+    probs = np.full(code.N, 0.05)
+    synd = _synd(code.hx, 256, 0.06, 11).numpy()
+    kw = dict(osd_method="osd_cs", osd_order=8)
+    gpu = BPOSD_Decoder(code.hx, probs, 20, device=cuda, **kw)
+    cpu = BPOSD_Decoder(code.hx, probs, 20, device="cpu", **kw)
+    a, b = gpu.decode_batch(synd), cpu.decode_batch(synd)
+    cost = np.log((1 - probs) / probs)
+    assert ((a.astype(np.int64) @ code.hx.T % 2) == synd).all()
+    assert ((a == b).all(axis=1) | (np.abs(a @ cost - b @ cost) < 1e-4)).all()
+
+
 def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
     h = hgp(ring_code(3), ring_code(3)).hx
     graph = tbp.build_tanner_graph(h, cuda)
@@ -92,6 +169,15 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
     synd = torch.zeros((h.shape[0], 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tod.osd_elim(packed, synd, n=h.shape[1], r_star=plan.rank, fcap=33)
+    with pytest.raises(ValueError):
+        tod.osd_elim_percol(packed[:, :-1], synd, n=h.shape[1], r_star=plan.rank)
+    d = torch.zeros((6, 4), device=cuda)
+    with pytest.raises(ValueError):
+        tcs.cs_sweep(d, torch.zeros((4, 4), device=cuda), torch.zeros(4, device=cuda),
+                     w=3, pat_chunk=64)
+    with pytest.raises(ValueError):
+        tcs.cs_sweep(d.double(), torch.zeros((1, 4), device=cuda),
+                     torch.zeros(4, device=cuda), w=1, pat_chunk=64)
 
 
 def test_bposd_on_card_matches_cpu(cuda):

@@ -110,11 +110,33 @@ def test_bposd_tiers_give_identical_shots():
     assert np.array_equal(whole, small) and np.array_equal(whole, tiny)
 
 
-def test_unknown_osd_method_raises():
+def test_bposd_static_slots_and_unknown_method_raises(monkeypatch):
+    """The JAX package's 7-slot static; OSD-CS is a device method now, an
+    unknown method or elimination route still raises."""
     code = hgp(ring_code(3), ring_code(3))
+    probs = np.full(code.N, 0.05)
+    cs = BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=4,
+                       device="cpu")
+    j = jdec.BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=4)
+    assert cs.device_static[0] == "bposd_dev" and len(cs.device_static) == 7
+    assert cs.device_static[2:] == j.device_static[2:]
+    assert cs.device_static[2:] == (code.N, cs.device_static[3], 4, "pallas",
+                                    "osd_cs")
+    made = BPOSD_Decoder_Class(10, "minimum_sum", 0.625, "osd_cs", 4,
+                               device="cpu").GetDecoder({"h": code.hx,
+                                                         "p_data": 0.05})
+    assert made.device_static[4:] == (4, "pallas", "osd_cs")
+    e0 = BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_0", device="cpu")
+    assert e0.device_static[4:] == (0, "pallas", "osd_e")
+    monkeypatch.setenv("QLDPC_OSD_ELIM", "pallas_percol")
+    assert BPOSD_Decoder(code.hx, probs, 10, device="cpu").device_static[5] \
+        == "pallas_percol"
+    monkeypatch.setenv("QLDPC_OSD_ELIM", "twin")
+    with pytest.raises(ValueError, match="route"):
+        BPOSD_Decoder(code.hx, probs, 10, device="cpu")
+    monkeypatch.delenv("QLDPC_OSD_ELIM")
     with pytest.raises(NotImplementedError):
-        BPOSD_Decoder(code.hx, np.full(code.N, 0.05), 10, osd_method="osd_cs",
-                      device="cpu")
-    with pytest.raises(ValueError):
-        BPOSD_Decoder(code.hx, np.full(code.N, 0.05), 10, osd_order=21,
+        BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_xyz", device="cpu")
+    with pytest.raises(ValueError, match="OSD_CS_MAX_ORDER"):
+        BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=21,
                       device="cpu")

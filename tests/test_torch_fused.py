@@ -76,7 +76,7 @@ def test_sample_syndrome_matches_jax(specs, B, emit_errors):
                                        interpret=True,
                                        emit_errors=emit_errors), got)
     if B % 32:  # the ragged last word pads with zero bits
-        pad = ~tgp.lane_mask(B)[-1]
+        pad = ~tgp.lane_mask(B, "cpu")[-1]
         assert all(bool(((w[-1] & pad) == 0).all()) for w in got)
 
 

@@ -36,7 +36,7 @@ def test_pack_unpack_and_lane_mask(b):
     assert tp.dtype == torch.int32
     assert np.array_equal(_u32(tp.numpy()), np.asarray(jgp.pack_shots(bits)))
     assert np.array_equal(tgp.unpack_shots(tp, b).numpy(), bits)
-    assert np.array_equal(_u32(tgp.lane_mask(b).numpy()),
+    assert np.array_equal(_u32(tgp.lane_mask(b, "cpu").numpy()),
                           np.asarray(jgp.lane_mask(b)))
 
 
@@ -57,7 +57,7 @@ def test_packed_spmv_matmul_and_residual_stats(b):
     code = hgp(ring_code(3), ring_code(4))
     n = code.N
     jx, jz = jla.ParityOp(code.hx), jla.ParityOp(code.hz)
-    tx, tz = tla.ParityOp(code.hx), tla.ParityOp(code.hz)
+    tx, tz = tla.ParityOp(code.hx, "cpu"), tla.ParityOp(code.hz, "cpu")
     ex, ez = _bits(1, (b, n), 0.1), _bits(2, (b, n), 0.1)
     for jop, top, e in ((jx, tx, ez), (jz, tz, ex)):
         jp, tp = jgp.pack_shots(e), tgp.pack_shots(torch.from_numpy(e))

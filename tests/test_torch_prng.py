@@ -48,7 +48,7 @@ def test_threefry_matches_jax_on_tensors_and_ints():
 def test_counter_draws_and_errors_match_jax(B, n):
     k0, k1 = 0x9E3779B9, 0x7F4A7C15
     want = np.asarray(gp.counter_draws(jnp.uint32(k0), jnp.uint32(k1), B, n))
-    got = gk.counter_draws(k0, k1, B, n)
+    got = gk.counter_draws(k0, k1, B, n, "cpu")
     assert got.dtype == torch.int64
     assert np.array_equal(want.astype(np.int64), got.numpy())
     cuts = gp.depolarizing_cuts((0.1, 0.05, 0.2))

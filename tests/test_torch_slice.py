@@ -141,6 +141,29 @@ def test_depolarizing_sampler_statistics():
     assert torch.equal(again[0], ex) and not torch.equal(other[0], ex)
 
 
+@pytest.mark.parametrize("entry", ["ParityOp", "lane_mask", "counter_draws",
+                                   "osd_cs_decode_values"])
+def test_more_entry_points_default_to_the_card(code, monkeypatch, entry):
+    """These default to ``device="cuda"`` too: with no card they raise
+    unless the caller asks for the CPU."""
+    from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
+    from qldpc_fault_tolerance_tpu_torch.ops import linalg as tla
+    from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
+
+    plan = tod.build_osd_plan(code.hx, np.full(code.N, 0.01), device="cpu")
+    synd = np.zeros((2, code.hx.shape[0]), np.uint8)
+    call = {"ParityOp": lambda **kw: tla.ParityOp(code.hx, **kw),
+            "lane_mask": lambda **kw: tgp.lane_mask(40, **kw),
+            "counter_draws": lambda **kw: gk.counter_draws(1, 2, 4, 5, **kw),
+            "osd_cs_decode_values": lambda **kw: tcs.osd_cs_decode_values(
+                (code.N, plan.rank, 4, 64), plan.packed, plan.cost, synd,
+                np.zeros((2, code.N)), **kw)}[entry]
+    assert call(device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
 def test_entry_points_raise_without_card_or_cpu_request(code, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     probs = np.full(code.N, 0.01)
