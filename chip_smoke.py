@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build all six kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
+  2. build all eight kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
      (one nvcc per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
@@ -18,10 +18,10 @@ Phases (any failure raises and the script exits non-zero):
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
      replaced by its plain version gives the same failures and min weight;
      a small batch decoded on the CPU and on the card agrees
-  8. a "kernels" JSON line, printed after phase 18: for all eight kernels
+  8. a "kernels" JSON line, printed after phase 23: for all ten kernels
      the main-path launches (phases 5-6 for kernels 1-2, phase 12 for
-     B3-B5, phase 16 for B7 and B8, phase 17 for B10), error against the
-     plain version, times, bound
+     B3-B5, phase 16 for B7 and B8, phase 17 for B10, phase 21 for B6,
+     phase 22 for B9), error against the plain version, times, bound
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -49,6 +49,19 @@ Phases (any failure raises and the script exits non-zero):
  18. anchors: OSD-CS at p=0 gives no failure; one OSD-CS batch with every
      kernel replaced by its plain version gives the kernel path's failures
      and min weight
+ 19. kernel B6 (int8 min-sum) against its plain version on phase 3's
+     syndromes: the head at tile 256 without early exit, and a compacted
+     tail of 1024 rows (stragglers of a 3-iteration int8 head and zero
+     sentinel rows) at tile 512 with early exit; every output bit-exact
+ 20. kernel B9 (dense one-hot head) against its plain version on the same
+     syndromes, 50 iterations; every output bit-exact
+ 21. main path, int8: phase 5's run with BPDecoder(quantize="int8"); its
+     WER within int8_parity_tolerance of phase 5's
+ 22. main path, v1: phase 5's run with BPDecoder(bp_kernel="v1"); its
+     failures within 4 combined binomial standard errors of phase 5's
+ 23. anchors: int8 and v1 at p=0 give no failure; one int8 and one v1
+     batch with every kernel replaced by its plain version give the kernel
+     path's failures and min weight; a fused-v1 batch with int8 decoders
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -159,6 +172,49 @@ def bp_bound_ms(graph, B: int, iters_total: int) -> tuple[float, str]:
     ops = iters_total * (11 * edges + 2 * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# Operations of one int8 min-sum shot-iteration (csrc/bp_int8.cu's
+# algorithm, each step counted once): per edge 7 integer operations (the
+# check update's abs, compare, two selects and sign on raw int8 magnitudes;
+# the scatter's add; the parity xor) and 20 float32 operations (c2v: select,
+# convert, two multiplies, sign; its |c| and max; its quantization: divide,
+# two clamps, round; the gather's convert, fused multiply-add and compare;
+# the new v2c's |v| and max; its quantization: 4); per variable 4 float32
+# operations (convert, fused multiply-add, bf16 rounding, compare).
+INT8_EDGE_INT_OPS, INT8_EDGE_FP_OPS, INT8_VAR_FP_OPS = 7, 20, 4
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+
+
+def int8_bound_ms(sgraph, B: int, shot_iters: int) -> tuple[float, str]:
+    """Least time for B6 on these inputs: syndromes, LLRs and index planes
+    read once, the four outputs written once, against the operations of
+    ``shot_iters`` shot-iterations (every shot of a tile iterates while its
+    tile does: the scales need them all)."""
+    rw, m, n = sgraph.rw, sgraph.m, sgraph.n
+    edges = int((sgraph.mask > 0).sum())
+    nbytes = (m * B + 4 * n + 8 * rw * m + 4 * sgraph.var_edge.numel()
+              + n * B + 4 * n * B + B + 4 * B)
+    return roofline_ms(nbytes, shot_iters * INT8_EDGE_INT_OPS * edges,
+                       shot_iters * (INT8_EDGE_FP_OPS * edges
+                                     + INT8_VAR_FP_OPS * n))
+
+
+def int8_shot_iters(iters, block_b: int, head_iters: int,
+                    early_stop: bool) -> int:
+    """Shot-iterations B6 runs: each tile of ``block_b`` shots iterates to
+    head_iters, or with early exit until its slowest shot converges."""
+    if not early_stop:
+        return iters.numel() * head_iters
+    return int(iters.reshape(-1, block_b).amax(dim=1).sum()) * block_b
+
+
+def dense_tensor_core_ms(pgraph, shot_iters: int, B: int) -> float:
+    """Time of B9's one-hot products at the bf16 tensor-core rate: 2 r m n
+    operations per product, one init gather per slot and shot, and per
+    shot-iteration a gather and a scatter per slot."""
+    ops = 2 * pgraph.rw * pgraph.m * pgraph.n * (B + 2 * shot_iters)
+    return ops / BF16_TC_OPS_PER_S * 1e3
 
 
 def message_bytes(graph) -> int:
@@ -296,12 +352,14 @@ def main() -> int:
     )
     from qldpc_fault_tolerance_tpu_torch.ops import _kernels
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
     from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
     from qldpc_fault_tolerance_tpu_torch.ops.gf2_packed import pack_shots, unpack_shots
     from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
     from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
     from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
     from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+    from qldpc_fault_tolerance_tpu_torch.sim.common import wer_single_shot
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -417,7 +475,7 @@ def main() -> int:
     # 5-6. the main path, counts reset just before and read just after
     bp_minsum.launches = 0
     tod.osd_elim.launches = 0
-    wer_phase("5 BP p=0.01", simulator(BPDecoder, 0.01, 4096, SEED), 16)
+    run5 = wer_phase("5 BP p=0.01", simulator(BPDecoder, 0.01, 4096, SEED), 16)
     l5 = bp_minsum.launches
     run6 = wer_phase("6 BPOSD p=0.05", simulator(
         BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e", osd_order=10), 8)
@@ -601,7 +659,9 @@ def main() -> int:
                 "osd_elim": (tod.osd_elim, "launches"),
                 "osd_elim_full": (tod.osd_elim, "full_launches"),
                 "osd_elim_percol": (tod.osd_elim_percol, "launches"),
-                "cs_sweep": (tcs.cs_sweep, "launches")}
+                "cs_sweep": (tcs.cs_sweep, "launches"),
+                "bp_int8": (bk.bp_head_int8, "launches"),
+                "bp_dense": (bk.bp_head_dense, "launches")}
 
     def counted(fn):
         """Every launch count set to 0, ``fn`` run, the counts read; returns
@@ -810,6 +870,151 @@ def main() -> int:
     log(f"[18] one OSD-CS batch, kernels vs plain on the card: (failures, "
         f"min_w) {got[0]} == {got[1]} (plain path {dt_plain:.2f} s)")
 
+    def bits_equal(name, a, b) -> float:
+        """Outputs compared bit for bit (floats by their bit patterns);
+        returns the largest absolute difference, 0.0 when they agree."""
+        for field, x, y in zip(("error", "converged", "posterior",
+                                "iterations"), a, b):
+            xb, yb = x, y
+            if x.dtype == torch.float32:
+                xb = x.contiguous().view(torch.int32)
+                yb = y.contiguous().view(torch.int32)
+            if not torch.equal(xb, yb):
+                raise AssertionError(f"{name} {field} differs from the plain "
+                                     f"version")
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+
+    # 19. kernel B6 vs its plain version on phase 3's syndromes
+    graph_host = tbp.build_tanner_graph_host(hx)
+    sg = bk.build_sparse_head(graph_host, dev)
+    kw6 = dict(ms_scaling_factor=scale)
+
+    def run_b6():
+        return bk.bp_head_int8(sg, synd, llr0, head_iters=it1, block_b=256,
+                               **kw6)
+
+    k6 = run_b6()
+    with _kernels.force_plain():
+        p6 = run_b6()
+    torch.cuda.synchronize()
+    b6_err = bits_equal("B6 head", k6, p6)  # tolerance 0: integer messages, fixed
+    # float order, -fmad=false with explicit fused multiply-adds
+    head3 = bk.bp_head_int8(sg, synd, llr0, head_iters=3, block_b=256, **kw6)
+    strag = torch.nonzero(~head3[1]).flatten()[:768]
+    tail_rows = torch.cat([synd[strag], synd.new_zeros((1024 - strag.numel(), m))])
+
+    def run_b6_tail():
+        return bk.bp_head_int8(sg, tail_rows, llr0, head_iters=it1,
+                               block_b=512, early_stop=True, **kw6)
+
+    k6t = run_b6_tail()
+    with _kernels.force_plain():
+        p6t = run_b6_tail()
+    torch.cuda.synchronize()
+    b6_err = max(b6_err, bits_equal("B6 tail", k6t, p6t))
+    b6_ms, b6_tail_ms = event_ms(run_b6, 5), event_ms(run_b6_tail, 5)
+    with _kernels.force_plain():
+        b6_plain_ms = event_ms(run_b6, 1)
+    b6_iters = int8_shot_iters(k6[3], 256, it1, False)
+    b6_bound, b6_by = int8_bound_ms(sg, B1, b6_iters)
+    b6t_bound, _ = int8_bound_ms(sg, 1024, int8_shot_iters(k6t[3], 512, it1, True))
+    log(f"[19] B6 == plain (head at tile 256, 50 iterations: converged "
+        f"{float(k6[1].float().mean()):.4f}; tail of {strag.numel()} "
+        f"stragglers + {1024 - strag.numel()} sentinel rows at tile 512 with "
+        f"early exit: converged {float(k6t[1].float().mean()):.4f}); head "
+        f"{b6_ms:.3f} ms, plain {b6_plain_ms:.3f} ms, bound {b6_bound:.4f} ms "
+        f"({b6_by}; {b6_iters} shot-iterations); tail {b6_tail_ms:.3f} ms, "
+        f"bound {b6t_bound:.4f} ms; layout (shots per block, blocks per "
+        f"cluster) {bk.int8_layout(256, 7, m, n)} / "
+        f"{bk.int8_layout(512, 7, m, n)}")
+
+    # 20. kernel B9 vs its plain version on the same syndromes
+    pg = bk.build_pallas_head(graph_host, dev)
+
+    def run_b9():
+        return bk.bp_head_dense(pg, synd, llr0, head_iters=it1,
+                                early_stop=True, **kw6)
+
+    k9 = run_b9()
+    torch.cuda.synchronize()
+    with _kernels.force_plain():
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        p9 = run_b9()
+        t1.record()
+        torch.cuda.synchronize()
+        b9_plain_ms = t0.elapsed_time(t1)
+    b9_err = bits_equal("B9", k9, p9)  # tolerance 0: exact products, fixed order
+    b9_ms = event_ms(run_b9, 3)
+    b9_iters = int(k9[3].sum())
+    b9_bound, b9_by = bp_bound_ms(graph, B1, b9_iters)
+    b9_tc_ms = dense_tensor_core_ms(pg, b9_iters, B1)
+    log(f"[20] B9 == plain (converged {float(k9[1].float().mean()):.4f}, "
+        f"{b9_iters} shot-iterations); kernel {b9_ms:.3f} ms, plain "
+        f"{b9_plain_ms:.3f} ms (one call), min-sum bound {b9_bound:.4f} ms "
+        f"({b9_by}), its one-hot products at the bf16 tensor-core rate "
+        f"{b9_tc_ms:.4f} ms")
+
+    # 21-22. main path, int8 and v1: phase 5's run, counts reset just before
+    # each, read just after
+    shots5 = 16 * 4096
+    wer5 = wer_single_shot(run5[0], shots5, code.K)[0]
+    sim21 = simulator(BPDecoder, 0.01, 4096, SEED, quantize="int8")
+    run21, launches_21 = counted(lambda: wer_phase("21 BP int8 p=0.01",
+                                                   sim21, 16))
+    wer21 = wer_single_shot(run21[0], shots5, code.K)[0]
+    tol21 = bk.int8_parity_tolerance(wer5, shots5)
+    log(f"[21] launches {launches_21}; int8 WER {wer21:.6e} vs phase 5 "
+        f"{wer5:.6e}: |diff| {abs(wer21 - wer5):.3e} <= tolerance "
+        f"{tol21:.3e}; B6 {launches_21['bp_int8']} launches, float32 kernel "
+        f"1 {launches_21['bp_minsum']}")
+    if abs(wer21 - wer5) > tol21:
+        raise AssertionError("int8 WER outside int8_parity_tolerance")
+    sim22 = simulator(BPDecoder, 0.01, 4096, SEED, bp_kernel="v1")
+    run22, launches_22 = counted(lambda: wer_phase("22 BP v1 p=0.01",
+                                                   sim22, 16))
+    f5, f22 = run5[0] / shots5, run22[0] / shots5
+    sigma22 = ((f5 * (1 - f5) + f22 * (1 - f22)) / shots5) ** 0.5
+    log(f"[22] launches {launches_22}; v1 failures {run22[0]} vs phase 5 "
+        f"{run5[0]}: |diff| {abs(f22 - f5):.3e} of the shots <= 4 sigma "
+        f"{4 * sigma22:.3e}; B9 {launches_22['bp_dense']} launches, float32 "
+        f"kernel 1 {launches_22['bp_minsum']}")
+    if abs(f22 - f5) > 4 * sigma22:
+        raise AssertionError("v1 failures outside 4 binomial sigma")
+    for name, count in (("bp_int8", launches_21["bp_int8"]),
+                        ("bp_dense", launches_22["bp_dense"])):
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on its main path")
+    if launches_21["bp_dense"] or launches_22["bp_int8"]:
+        raise AssertionError("a head kernel ran off its route")
+
+    # 23. anchors
+    for tag, kw in (("int8", {"quantize": "int8"}), ("v1", {"bp_kernel": "v1"})):
+        sim0 = simulator(BPDecoder, 0.0, 4096, SEED, **kw)
+        sim0.WordErrorRate(2 * 4096)
+        if sim0.last_failures != 0:
+            raise AssertionError(f"{tag}: {sim0.last_failures} failures at p=0")
+        sims = [simulator(BPDecoder, 0.01, 4096, SEED + 1, **kw)
+                for _ in range(2)]
+        sims[0].WordErrorRate(4096)
+        with _kernels.force_plain():
+            sims[1].WordErrorRate(4096)
+        got = [(x.last_failures, x.min_logical_weight) for x in sims]
+        if got[0] != got[1]:
+            raise AssertionError(f"{tag} kernel path {got[0]} vs plain path "
+                                 f"{got[1]}")
+        log(f"[23] {tag}: p=0 gives 0 failures in {sim0.last_shots} shots; "
+            f"one p=0.01 batch, kernels vs plain on the card: (failures, "
+            f"min_w) {got[0]} == {got[1]}")
+    sim23 = fused_sim(BPDecoder, 0.01, 4096, True, quantize="int8")
+    run23, launches_23 = counted(lambda: sim23.WordErrorRate(4096))
+    if launches_23["bp_int8"] <= 0 or launches_23["gf2_sample"] <= 0:
+        raise AssertionError("fused v1 with int8 decoders missed a kernel")
+    log(f"[23] fused v1 with int8 decoders: {sim23.last_failures} failures "
+        f"in {sim23.last_shots} shots; launches {launches_23}")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -865,6 +1070,18 @@ def main() -> int:
          "max_abs_err": float(b10_err),
          "ms": b10_ms, "plain_ms": b10_plain_ms, "bound_ms": b10_bound,
          "bound_by": b10_by, "library_ms": None},
+        {"name": "bp_int8", "route": "cuda",
+         "source": f"{PKG}/csrc/bp_int8.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
+         "launches": launches_21["bp_int8"], "max_abs_err": b6_err,
+         "ms": b6_ms, "plain_ms": b6_plain_ms, "bound_ms": b6_bound,
+         "bound_by": b6_by, "library_ms": None},
+        {"name": "bp_dense", "route": "cuda",
+         "source": f"{PKG}/csrc/bp_dense.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:335",
+         "launches": launches_22["bp_dense"], "max_abs_err": b9_err,
+         "ms": b9_ms, "plain_ms": b9_plain_ms, "bound_ms": b9_bound,
+         "bound_by": b9_by, "library_ms": None},
     ]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

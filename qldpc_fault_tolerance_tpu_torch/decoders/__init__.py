@@ -5,6 +5,7 @@ from .bp_decoders import (
     BPOSD_Decoder_Class,
     DecoderClass,
     decode_device,
+    kernel_variant,
     osd_compaction_tiers,
     state_from_jax,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "BP_Decoder_Class",
     "BPOSD_Decoder_Class",
     "decode_device",
+    "kernel_variant",
     "osd_compaction_tiers",
     "state_from_jax",
 ]

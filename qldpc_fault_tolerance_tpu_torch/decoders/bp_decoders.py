@@ -10,22 +10,31 @@
 A decoder splits into ``device_static`` (a hashable description of the
 program) and ``device_state`` (a dict of tensors), run by ``decode_device``.
 Decoders live on one device, ``"cuda"`` unless the caller passes another.
+
+A min-sum ``BPDecoder`` carries a BP head (the JAX package's vocabulary):
+``bp_kernel`` / ``QLDPC_BP_KERNEL`` ``"v2"`` (default) and ``"xla"`` decode
+with float32 min-sum (kernel 1); ``"v1"`` runs the two-phase head and tail
+in the dense one-hot head (kernel B9); ``quantize="int8"`` in int8 min-sum
+(kernel B6).  The head's tag is the last slot of the BP static and its
+tensors ride in ``device_state["pallas"]``.
 """
 from __future__ import annotations
 
+import os
 from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
 
 from ..codes import gf2
-from ..ops import bp, osd_cs_device, osd_device
+from ..ops import _kernels, bp, bp_kernel, osd_cs_device, osd_device
 from ..utils.device import resolve_device
 from .osd import DEVICE_METHODS, METHODS, _check_osd_order
 
 __all__ = [
     "osd_compaction_tiers",
     "decode_device",
+    "kernel_variant",
     "state_from_jax",
     "BPDecoder",
     "BPOSD_Decoder",
@@ -111,12 +120,16 @@ def decode_device(static, state, syndromes):
         return torch.where(conv[:, None], err, osd_err), aux
     if kind != "bp":
         raise ValueError(f"unknown decoder kind {kind!r}")
-    _, max_iter, method, msf, two_phase = static
+    # head_tag: "none" / "v2" (float32 min-sum), "v1" (the dense one-hot
+    # head), "v2_int8" (int8 min-sum); the head's tensors in state["pallas"]
+    _, max_iter, method, msf, two_phase, head_tag = static
     if (two_phase and syndromes.shape[0] >= bp.TWO_PHASE_MIN_BATCH
             and max_iter >= bp.TWO_PHASE_MIN_ITER):
         res = bp.bp_decode_two_phase(
             state["graph"], syndromes, state["llr0"], max_iter=max_iter,
-            method=method, ms_scaling_factor=msf, device=syndromes.device)
+            method=method, ms_scaling_factor=msf, head=state.get("pallas"),
+            quantize="int8" if head_tag == "v2_int8" else None,
+            device=syndromes.device)
     else:
         res = bp.bp_decode(
             state["graph"], syndromes, state["llr0"], max_iter=max_iter,
@@ -129,18 +142,100 @@ def decode_device(static, state, syndromes):
 decode_device.host_reads = 0
 
 
+def _head_engages(static, state, batch_size: int) -> bool:
+    """Whether a "bp" decode of ``batch_size`` shots runs its head in the
+    head kernel (the gates of ``decode_device`` and
+    ``bp.bp_decode_two_phase``)."""
+    _, max_iter, method, _msf, two_phase, _tag = static
+    return (two_phase and batch_size >= bp.TWO_PHASE_MIN_BATCH
+            and max_iter >= bp.TWO_PHASE_MIN_ITER
+            and bp.head_engages(state.get("pallas"), batch_size, method,
+                                state["llr0"]))
+
+
+def kernel_variant(static, state, batch_size: int | None = None) -> str:
+    """Which BP program a decode with this (static, state) pair runs, in
+    ``bp_kernel.KERNEL_VARIANTS``: ``dense_onehot`` (kernel B9),
+    ``sparse_int8`` (kernel B6), ``sparse_gather`` (float32 min-sum, kernel
+    1) on the card; ``xla_twin`` for the plain versions (CPU tensors,
+    ``force_plain()``) and for product-sum.  With ``batch_size`` the head's
+    per-batch gates apply too (a head that does not engage leaves float32
+    min-sum)."""
+    kind = static[0]
+    if kind == "bposd_dev":
+        return kernel_variant(static[1], state, batch_size)
+    if kind != "bp" or static[2] != "minimum_sum":
+        return "xla_twin"
+    if not state["llr0"].is_cuda or _kernels.plain_forced():
+        return "xla_twin"
+    head_tag = static[5]
+    if head_tag in ("v1", "v2_int8") and (
+            batch_size is None or _head_engages(static, state, batch_size)):
+        return "dense_onehot" if head_tag == "v1" else "sparse_int8"
+    return "sparse_gather"
+
+
+def _make_head(bp_method: str, graph_host, quantize=None,
+               kernel: str | None = None, device="cuda"):
+    """The decoder's BP head, ``(head, head_tag)``, by the JAX package's
+    rules: ``kernel`` (default env ``QLDPC_BP_KERNEL``, "v2") is "v1", "v2"
+    or "xla"; int8 needs min-sum and not v1; a head whose data fails the JAX
+    package's size gate is not built (v1: no head; int8: raises)."""
+    if bp_method != "minimum_sum" or os.environ.get("QLDPC_PALLAS", "1") == "0":
+        if quantize:
+            raise ValueError(
+                "quantize='int8' needs the min-sum v2 head (QLDPC_PALLAS=0 "
+                "or a non-min-sum method disables it)")
+        return None, "none"
+    kernel = kernel or os.environ.get("QLDPC_BP_KERNEL", "v2")
+    if kernel not in ("v1", "v2", "xla"):
+        raise ValueError(f"unknown QLDPC_BP_KERNEL {kernel!r}")
+    if quantize:
+        if kernel == "v1":
+            raise ValueError("quantize='int8' requires the v2 kernel")
+        head = bp_kernel.build_sparse_head(graph_host, device)
+        if not head.fits_vmem():
+            raise ValueError(
+                f"quantize='int8' head infeasible for this shape "
+                f"(fixed VMEM overhead {head.fixed_overhead_bytes})")
+        return head, "v2_int8"
+    if kernel != "v1":
+        return None, "none" if kernel == "xla" else "v2"
+    head = bp_kernel.build_pallas_head(graph_host, device)
+    return (head, "v1") if head.fits_vmem() else (None, "none")
+
+
+def _head_from_jax(head, dev):
+    """A JAX head (SparseHeadGraph or PallasHeadGraph, numpy leaves) as the
+    port's, or None."""
+    if head is None:
+        return None
+    if hasattr(head, "scat"):
+        scat = np.asarray(head.scat, np.float32)
+        mask = np.asarray(head.mask, np.float32)
+        chk_idx = scat.argmax(axis=2).astype(np.int32) * (mask > 0)
+        return bp_kernel.pallas_head_from_planes(chk_idx, mask,
+                                                 scat.shape[2], dev)
+    return bp_kernel.sparse_head_from_planes(
+        np.asarray(head.chk_idx), np.asarray(head.mask),
+        np.asarray(head.nvar).shape[1], dev)
+
+
 def state_from_jax(jax_state, device="cuda") -> dict:
     """The port's decoder state from a JAX decoder's ``device_state`` given
-    as numpy arrays: the Tanner graph fields, ``llr0`` and, for BPOSD,
+    as numpy arrays: the Tanner graph fields, ``llr0``, the BP head
+    (``"pallas"``: a SparseHeadGraph's index planes, or a PallasHeadGraph's
+    one-hot stack, as the port's head types) and, for BPOSD,
     ``osd_packed`` (uint32 words read as int32 bit patterns) and
-    ``osd_cost``.  The JAX kernel head (``"pallas"``) has no counterpart."""
+    ``osd_cost``."""
     dev = resolve_device(device)
     fields = jax_state["graph"]._asdict()
     graph = bp.graph_to(bp.TannerGraph(
         **{k: np.asarray(fields[k]) for k in bp.TannerGraph._fields}), dev)
     state = {"graph": graph,
              "llr0": torch.from_numpy(
-                 np.array(jax_state["llr0"], np.float32)).to(dev)}
+                 np.array(jax_state["llr0"], np.float32)).to(dev),
+             "pallas": _head_from_jax(jax_state.get("pallas"), dev)}
     if "osd_packed" in jax_state:
         packed = np.array(jax_state["osd_packed"], np.uint32).view(np.int32)
         state["osd_packed"] = torch.from_numpy(packed).to(dev)
@@ -150,15 +245,21 @@ def state_from_jax(jax_state, device="cuda") -> dict:
 
 
 class BPDecoder:
-    """Plain BP decoder (reference BPDecoder)."""
+    """Plain BP decoder (reference BPDecoder).  ``quantize="int8"`` decodes
+    with int8 min-sum messages (the JAX package's int8 serving and
+    ``BENCH_QUANT`` decoders: WER within ``bp_kernel.int8_parity_tolerance``
+    of float32, not bit-exact); ``bp_kernel`` (default env
+    ``QLDPC_BP_KERNEL``) picks the BP head (module docstring)."""
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, two_phase: bool = True,
+                 quantize: str | None = None, bp_kernel: str | None = None,
                  device="cuda"):
         self.device = resolve_device(device)
         self.h = np.asarray(h)
         self._h01 = gf2.to_gf2(h)
-        self.graph = bp.build_tanner_graph(self._h01, self.device)
+        graph_host = bp.build_tanner_graph_host(self._h01)
+        self.graph = bp.graph_to(graph_host, self.device)
         self.channel_probs = np.broadcast_to(
             np.asarray(channel_probs, np.float64), (self._h01.shape[1],)
         ).copy()
@@ -169,16 +270,27 @@ class BPDecoder:
         # straggler compaction (ops/bp.bp_decode_two_phase): identical
         # results, fewer shot-iterations at low p
         self.two_phase = bool(two_phase)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.quantize = quantize
         self.llr0 = bp.llr_from_probs(self.channel_probs, self.device)
+        self._head, self._head_tag = _make_head(
+            self.bp_method, graph_host, quantize=quantize, kernel=bp_kernel,
+            device=self.device)
 
     @property
     def device_static(self):
         return ("bp", self.max_iter, self.bp_method,
-                float(self.ms_scaling_factor), self.two_phase)
+                float(self.ms_scaling_factor), self.two_phase, self._head_tag)
 
     @property
     def device_state(self):
-        return {"graph": self.graph, "llr0": self.llr0}
+        return {"graph": self.graph, "llr0": self.llr0, "pallas": self._head}
+
+    @property
+    def kernel_variant(self) -> str:
+        """Which BP program this decoder's decodes run (``kernel_variant``)."""
+        return kernel_variant(self.device_static, self.device_state)
 
     def decode_batch_device(self, syndromes):
         """(B, m) uint8 tensor -> (corrections (B, n) uint8, aux dict)."""
@@ -284,11 +396,13 @@ class BPOSD_Decoder_Class(DecoderClass):
 
 
 class BP_Decoder_Class(DecoderClass):
+    """``quantize`` (default None) builds int8 min-sum decoders."""
+
     def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
-                 device="cuda"):
+                 quantize: str | None = None, device="cuda"):
         self.decoder_default_params = {
             "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
-            "ms_scaling_factor": ms_scaling_factor,
+            "ms_scaling_factor": ms_scaling_factor, "quantize": quantize,
         }
         self.device = device
 
@@ -300,4 +414,4 @@ class BP_Decoder_Class(DecoderClass):
             h=code_and_noise_channel_params["h"], channel_probs=probs,
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
-            device=self.device)
+            quantize=d["quantize"], device=self.device)

@@ -12,9 +12,11 @@ flags, posterior LLRs (the soft input OSD needs) and iteration counts.
     independent of the batch a shot rides in and of when the loop stops.
   * Messages are float32.
 
-Every min-sum decode goes through ``bp_kernel.bp_minsum``: the CUDA kernel
-on the card, its plain version on the CPU.  Product-sum runs as plain
-PyTorch ops on either device.
+Every float32 min-sum decode goes through ``bp_kernel.bp_minsum``: the CUDA
+kernel on the card, its plain version on the CPU.  The two-phase decode runs
+its head and tail in a BP head kernel (int8 or the dense one-hot head) when
+the decoder carries one.  Product-sum runs as plain PyTorch ops on either
+device.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ __all__ = [
     "TWO_PHASE_BIG_TIER_MULT",
     "TWO_PHASE_MIN_BATCH",
     "TWO_PHASE_MIN_ITER",
+    "HEAD_BLOCK",
+    "head_engages",
 ]
 
 
@@ -180,11 +184,41 @@ def two_phase_head2_iters(head_iters: int, max_iter: int) -> int:
     return min(max(4 * head_iters, 12), max_iter - 1)
 
 
+# the head's batch tile (the JAX package's pallas_block default)
+HEAD_BLOCK = 256
+
+
+def head_engages(head, b: int, method: str, llr) -> bool:
+    """The JAX package's gate for running a decode's head and tail in the
+    BP head kernel: a head, min-sum, the batch a multiple of 256, one
+    channel-LLR vector shared by the shots, and a feasible tile."""
+    return (head is not None and method == "minimum_sum"
+            and b % HEAD_BLOCK == 0 and llr.dim() == 1
+            and head.max_block_b(b, want=HEAD_BLOCK) > 0)
+
+
+def _run_head(head, synd, llr, iters, msf, block, quantize, early_stop=False):
+    """One decode through the head kernel: int8 min-sum for a
+    SparseHeadGraph (tile ``block``), the dense one-hot head for a
+    PallasHeadGraph."""
+    if isinstance(head, bp_kernel.SparseHeadGraph):
+        if quantize != "int8":
+            raise ValueError("a SparseHeadGraph head runs int8 min-sum only; "
+                             "pass quantize='int8'")
+        return BPResult(*bp_kernel.bp_head_int8(
+            head, synd, llr, head_iters=iters, ms_scaling_factor=msf,
+            block_b=block, early_stop=early_stop))
+    return BPResult(*bp_kernel.bp_head_dense(
+        head, synd, llr, head_iters=iters, ms_scaling_factor=msf,
+        early_stop=early_stop))
+
+
 def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
                         max_iter: int, method: str = "minimum_sum",
                         ms_scaling_factor=0.625,
                         head_iters: int = TWO_PHASE_HEAD_ITERS,
                         tail_capacity: int | None = None,
+                        head=None, quantize: str | None = None,
                         device="cuda") -> BPResult:
     """Straggler-compacted BP: run ``head_iters`` for the whole batch, then
     decode only the unconverged shots (gathered into a fixed-capacity
@@ -196,58 +230,80 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     before continuing.  The tiers are (tail_capacity, 4x, progressive
     deepened head, full batch); results never depend on the tier taken.
 
+    ``head`` (a ``bp_kernel.SparseHeadGraph`` with ``quantize="int8"``, or a
+    ``bp_kernel.PallasHeadGraph``) runs the head and the compacted tail in
+    that head's kernel where the JAX package does (``head_engages``; the
+    tail when its capacity has a tile, with early exit), at the JAX
+    package's tiles.  Their results then follow that head's numerics, and
+    int8 results depend on the tile.  Everything else (no head, a failed
+    gate, head_iters >= max_iter, the full-batch decode) is float32 min-sum.
+
     The tier is chosen on the host: each decode reads the straggler count
     once (twice when the deepened head runs), counted in
     ``bp_decode_two_phase.host_reads``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     graph, synd, llr = _inputs(graph, syndromes, channel_llr, device)
     b = synd.shape[0]
     if tail_capacity is None:
         tail_capacity = max(1, b // TWO_PHASE_TAIL_DIV)
     if head_iters >= max_iter or tail_capacity >= b:
         return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+    use_head = head_engages(head, b, method, llr)
 
-    def run(s, l, iters):
-        return _decode(graph, s, l, iters, method, ms_scaling_factor)
+    def run(iters):
+        """A full-batch decode of ``iters`` iterations."""
+        if use_head:
+            return _run_head(head, synd, llr, iters, ms_scaling_factor,
+                             head.max_block_b(b, want=HEAD_BLOCK), quantize)
+        return _decode(graph, synd, llr, iters, method, ms_scaling_factor)
 
-    def compacted(capacity, head):
+    def compacted(capacity, head_res):
         # pad the gather with an out-of-range sentinel (b): padded rows read
         # a zero scratch syndrome (row b of the extended arrays) and their
-        # results land in a scratch row sliced off below
-        idx = torch.nonzero(~head.converged).flatten()
+        # results land in a scratch row sliced off below; in the head's
+        # kernel they take part in their tile's int8 scales, as in JAX
+        idx = torch.nonzero(~head_res.converged).flatten()
         idx = torch.cat([idx, idx.new_full((capacity - idx.numel(),), b)])
         synd_ext = torch.cat([synd, synd.new_zeros((1, synd.shape[1]))])
-        llr_c = llr
-        if llr.dim() == 2:
-            llr_c = torch.cat([llr, llr[:1]])[idx]
-        tail = run(synd_ext[idx], llr_c, max_iter)
+        if use_head and head.max_block_b(capacity) > 0:
+            tail = _run_head(head, synd_ext[idx], llr, max_iter,
+                             ms_scaling_factor, head.max_block_b(capacity),
+                             quantize, early_stop=True)
+        else:
+            llr_c = llr
+            if llr.dim() == 2:
+                llr_c = torch.cat([llr, llr[:1]])[idx]
+            tail = _decode(graph, synd_ext[idx], llr_c, max_iter, method,
+                           ms_scaling_factor)
 
         def merge(head_arr, tail_arr):
             ext = torch.cat([head_arr, head_arr.new_zeros((1,) + head_arr.shape[1:])])
             ext[idx] = tail_arr
             return ext[:b]
 
-        return BPResult(*(merge(h, t) for h, t in zip(head, tail)))
+        return BPResult(*(merge(h, t) for h, t in zip(head_res, tail)))
 
     tiers = [tail_capacity]
     if tail_capacity * TWO_PHASE_BIG_TIER_MULT < b:
         tiers.append(tail_capacity * TWO_PHASE_BIG_TIER_MULT)
 
-    head = run(synd, llr, head_iters)
-    n_bad = int((~head.converged).sum())
+    head_res = run(head_iters)
+    n_bad = int((~head_res.converged).sum())
     bp_decode_two_phase.host_reads += 1
     for cap in tiers:
         if n_bad <= cap:
-            return compacted(cap, head)
+            return compacted(cap, head_res)
     # progressive head deepening: when even the largest tier overflows, a
     # deeper full-batch head runs before conceding to the full decode
     head2_iters = two_phase_head2_iters(head_iters, max_iter)
     if head2_iters > head_iters:
-        head2 = run(synd, llr, head2_iters)
+        head2 = run(head2_iters)
         n_bad2 = int((~head2.converged).sum())
         bp_decode_two_phase.host_reads += 1
         if n_bad2 <= tiers[-1]:
             return compacted(tiers[-1], head2)
-    return run(synd, llr, max_iter)
+    return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
 
 
 bp_decode_two_phase.host_reads = 0

@@ -1,32 +1,54 @@
-"""Min-sum BP kernel wrapper (``csrc/bp_minsum.cu``) and its plain version.
+"""Min-sum BP kernel wrappers and their plain versions.
 
 ``bp_minsum`` decodes a (B, m) syndrome batch against one Tanner graph with
 scaled min-sum and per-shot freeze at first convergence — ``ops/bp.py``
 ``bp_decode(method="minimum_sum")``.  On CUDA tensors it launches the Hopper
-kernel that replaces the TPU kernel ``_sparse_head_kernel``
-(``qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740``); on CPU tensors it runs
-``minsum_plain``, the same arithmetic as PyTorch ops.  Every min-sum decode
-of the port goes through this wrapper: the two-phase head, its compacted
-tail and the full-batch decode.
+kernel ``csrc/bp_minsum.cu`` that replaces the TPU kernel
+``_sparse_head_kernel`` (``qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740``);
+on CPU tensors it runs ``minsum_plain``, the same arithmetic as PyTorch ops.
+Every f32 min-sum decode of the port goes through this wrapper: the two-phase
+head, its compacted tail and the full-batch decode.
 
 The plain version mirrors the kernel operation for operation (streaming
 top-2 over check slots, variable totals summed in slot order), so kernel and
-plain version agree bit for bit on the card; the kernel is built with FMA
+plain version agree bit for bit on the card; the kernels are built with FMA
 contraction off for that reason.  Messages are float32, the f32 reference
-numerics of ``ops/bp.py``; the TPU kernel stores bf16 only because VMEM and
-the MXU favour it.
+numerics of ``ops/bp.py``.
+
+The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
+which the two-phase decode runs when a decoder carries a head:
+
+  * ``SparseHeadGraph`` + ``bp_head_int8``: int8 min-sum messages with one
+    float32 scale per batch tile per iteration and direction
+    (``quantize="int8"``); kernel ``csrc/bp_int8.cu``, plain version
+    ``minsum_int8_plain``.
+  * ``PallasHeadGraph`` + ``bp_head_dense``: the dense one-hot head (v1):
+    bf16 messages, gathers and scatter-sums as products with a dense
+    (rw, m, n) one-hot stack, float32 totals; kernel ``csrc/bp_dense.cu``,
+    plain version ``minsum_dense_plain``.
+
+Each wrapper launches its kernel on CUDA tensors (or raises) and runs its
+plain version on CPU tensors or under ``_kernels.force_plain()``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _kernels
 
 __all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop",
-           "check_update_minsum"]
+           "check_update_minsum", "KERNEL_VARIANTS", "INT8_WER_RTOL",
+           "INT8_WER_NSIGMA", "int8_parity_tolerance", "SparseHeadGraph",
+           "PallasHeadGraph", "build_sparse_head", "build_pallas_head",
+           "sparse_head_from_planes", "pallas_head_from_planes",
+           "minsum_int8_plain", "bp_head_int8",
+           "minsum_dense_plain", "bp_head_dense"]
 
 BIG = 1e30  # stands in for +inf without producing NaN in exclusion arithmetic
 
@@ -207,3 +229,570 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
 
 
 bp_minsum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The BP head family: int8 min-sum (B6) and the dense one-hot head (B9)
+# ---------------------------------------------------------------------------
+
+# which BP program serves a decode (the JAX package's vocabulary):
+#   dense_onehot  — the dense one-hot head, csrc/bp_dense.cu
+#   sparse_gather — f32 min-sum over index gathers, csrc/bp_minsum.cu
+#   sparse_int8   — int8 min-sum, csrc/bp_int8.cu
+#   xla_twin      — the plain PyTorch versions (CPU tensors, force_plain)
+KERNEL_VARIANTS = ("dense_onehot", "sparse_gather", "sparse_int8",
+                   "xla_twin")
+
+# The int8 quantization contract, copied from the JAX package: an int8
+# decode's WER matches the unquantized decoder's within INT8_WER_RTOL
+# relative, with a floor of INT8_WER_NSIGMA combined binomial standard errors.
+INT8_WER_RTOL = 0.1
+INT8_WER_NSIGMA = 4.0
+
+
+def int8_parity_tolerance(wer_ref: float, shots: int) -> float:
+    """Allowed |wer_int8 - wer_ref| per the quantization contract."""
+    sigma = math.sqrt(max(wer_ref * (1.0 - wer_ref), 1e-12) / max(shots, 1))
+    return max(INT8_WER_RTOL * wer_ref, INT8_WER_NSIGMA * sigma)
+
+
+BIG_I32 = 2 ** 30  # padded slots' magnitude in the int8 check update
+# The JAX package writes each int8 scale as tile_max / 127.0; XLA compiles a
+# division by that constant into a multiplication by its float32 reciprocal,
+# so the port multiplies by the same constant (0x3c010204).
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+# The JAX package's tile rule, copied with its analytic byte counts.  These
+# are not Hopper memory gates: they decide which decodes get the int8 or
+# dense-head numerics and, for int8, the batch tile that shares one scale —
+# so results hang on them.  No calibration file is read: the JAX package's
+# table has no measured entry for these heads, so it uses the same prior.
+_SCAT_VMEM_LIMIT = 8 * 1024 * 1024
+_V2_ONEHOT_LIVE = 3
+_V2_FIXED_LIMIT = 16 * 1024 * 1024
+_TILE_BUDGET = 30 * 1024 * 1024
+
+
+def _analytic_per_shot_bytes(rw: int, m: int, n: int) -> int:
+    return 2 * (4 * rw * m + 20 * n + 16 * m)
+
+
+def _max_block_b(per_shot: int, budget: int, b: int, want: int) -> int:
+    """Largest batch tile <= ``want`` that divides ``b`` with
+    ``tile * per_shot <= budget``; 0 when none does."""
+    top = min(want, b)
+    for bt in [top] + [1 << k for k in range(9, 2, -1)]:
+        if bt <= top and b % bt == 0 and bt * per_shot <= budget:
+            return bt
+    return 0
+
+
+class SparseHeadGraph(NamedTuple):
+    """The int8 head's per-H data: slot-major edge indices.
+
+    ``chk_idx[s, i]`` is the variable of check i's slot-s edge (0 for
+    padding, which ``mask`` kills); edge ``s * m + i``.  ``var_edge`` lists
+    each variable's edges (-1 pads), the kernel's gather form of the
+    integer scatter-add."""
+
+    chk_idx: torch.Tensor   # (rw, m) int32
+    mask: torch.Tensor      # (rw, m) float32, 1.0 real edge, 0.0 padding
+    var_edge: torch.Tensor  # (n, cw) int32
+
+    @property
+    def rw(self) -> int:
+        return self.chk_idx.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.chk_idx.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.var_edge.shape[0]
+
+    @property
+    def idx_bytes(self) -> int:
+        return self.rw * self.m * 8
+
+    @property
+    def fixed_overhead_bytes(self) -> int:
+        return self.idx_bytes + _V2_ONEHOT_LIVE * self.m * self.n * 2
+
+    def fits_vmem(self) -> bool:
+        """The JAX package's residency gate for this head (module note)."""
+        return self.fixed_overhead_bytes <= _V2_FIXED_LIMIT
+
+    def per_shot_bytes(self) -> int:
+        return _analytic_per_shot_bytes(self.rw, self.m, self.n)
+
+    def max_block_b(self, b: int, want: int = 512) -> int:
+        """The JAX package's batch tile for ``b`` shots (module note)."""
+        return _max_block_b(self.per_shot_bytes(),
+                            _TILE_BUDGET - self.fixed_overhead_bytes, b, want)
+
+
+class PallasHeadGraph(NamedTuple):
+    """The dense head's per-H data: the slot-major one-hot incidence stack,
+    ``scat[s, i, v] = 1`` iff check i's slot-s edge is variable v.
+
+    ``rank[s, i]`` counts the checks before i whose slot-s edge is the same
+    variable.  A slot's scatter-sum adds, for each variable, up to cw
+    messages; their float32 sum is not always exact, so its order is part
+    of the result.  The head fixes it to ascending check order — the
+    order of a sequential dot product, which is what the JAX package's
+    one-hot products give on the CPU — by splitting each slot's product by
+    rank: every rank's product has at most one term per variable, exact in
+    any order, and the ranks add in sequence."""
+
+    scat: torch.Tensor  # (rw, m, n) bfloat16, exact 0/1
+    mask: torch.Tensor  # (rw, m) float32
+    rank: torch.Tensor  # (rw, m) int32
+
+    @property
+    def rw(self) -> int:
+        return self.scat.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.scat.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.scat.shape[2]
+
+    @property
+    def scat_bytes(self) -> int:
+        return self.rw * self.m * self.n * 2
+
+    def fits_vmem(self) -> bool:
+        """The JAX package's residency gate for this head (module note)."""
+        return self.scat_bytes <= _SCAT_VMEM_LIMIT
+
+    def per_shot_bytes(self) -> int:
+        return _analytic_per_shot_bytes(self.rw, self.m, self.n)
+
+    def max_block_b(self, b: int, want: int = 512) -> int:
+        """The JAX package's batch tile for ``b`` shots (module note); the
+        dense head's results do not depend on it, its engage gate does."""
+        return _max_block_b(self.per_shot_bytes(),
+                            _TILE_BUDGET - self.scat_bytes, b, want)
+
+
+def _planes(graph):
+    """Slot-major (rw, m) index and mask planes of a TannerGraph."""
+    chk_nbr = np.asarray(torch.as_tensor(graph.chk_nbr).cpu())
+    chk_mask = np.asarray(torch.as_tensor(graph.chk_mask).cpu())
+    n = graph.var_nbr.shape[0]
+    return (np.ascontiguousarray(chk_nbr.T.astype(np.int32)),
+            np.ascontiguousarray(chk_mask.T.astype(np.float32)), n)
+
+
+def sparse_head_from_planes(chk_idx, mask, n: int,
+                            device="cuda") -> SparseHeadGraph:
+    """A SparseHeadGraph from (rw, m) index and mask planes."""
+    chk_idx = np.asarray(chk_idx, np.int32)
+    mask = np.asarray(mask, np.float32)
+    m = chk_idx.shape[1]
+    s, i = np.nonzero(mask > 0)
+    v = chk_idx[s, i]
+    order = np.argsort(v, kind="stable")
+    v, e = v[order], (s * m + i)[order]
+    counts = np.bincount(v, minlength=n)
+    var_edge = np.full((n, max(1, int(counts.max(initial=0)))), -1, np.int32)
+    starts = np.cumsum(counts) - counts
+    var_edge[v, np.arange(v.size) - starts[v]] = e
+    return SparseHeadGraph(*(torch.from_numpy(np.array(a, order="C")).to(device)
+                             for a in (chk_idx, mask, var_edge)))
+
+
+def build_sparse_head(graph, device="cuda") -> SparseHeadGraph:
+    """The int8 head's index planes from a TannerGraph."""
+    chk_idx, mask, n = _planes(graph)
+    return sparse_head_from_planes(chk_idx, mask, n, device)
+
+
+def pallas_head_from_planes(chk_idx, mask, n: int,
+                            device="cuda") -> PallasHeadGraph:
+    """A PallasHeadGraph from (rw, m) index and mask planes."""
+    chk_idx = np.asarray(chk_idx, np.int32)
+    mask = np.asarray(mask, np.float32)
+    rw, m = chk_idx.shape
+    scat = torch.zeros((rw, m, n), dtype=torch.bfloat16)
+    rank = np.zeros((rw, m), np.int32)
+    for s in range(rw):
+        seen = np.zeros(n, np.int32)
+        for i in np.nonzero(mask[s] > 0)[0]:
+            v = chk_idx[s, i]
+            scat[s, i, v] = 1.0
+            rank[s, i] = seen[v]
+            seen[v] += 1
+    return PallasHeadGraph(scat.to(device),
+                           torch.from_numpy(np.array(mask)).to(device),
+                           torch.from_numpy(rank).to(device))
+
+
+def build_pallas_head(graph, device="cuda") -> PallasHeadGraph:
+    """The dense head's one-hot stack from a TannerGraph."""
+    return pallas_head_from_planes(*_planes(graph), device)
+
+
+def _freeze(state, match, err_new, totals, it):
+    """Each shot's outputs freeze at its first convergence."""
+    err, llr, done, iters = state
+    keep = done[None, :]
+    return (torch.where(keep, err, err_new), torch.where(keep, llr, totals),
+            done | match,
+            torch.where(match & ~done, it + 1, iters).to(torch.int32))
+
+
+def _head_init(n, B, llr0, head_iters, dev):
+    return (torch.zeros((n, B), dtype=torch.uint8, device=dev),
+            llr0[:, None].expand(n, B).clone(),
+            torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.full((B,), head_iters, dtype=torch.int32, device=dev))
+
+
+def _fma(a, b, c):
+    """float32 a * b + c rounded once, as XLA's CPU backend contracts the
+    JAX package's ``c + a * b`` in the int8 loop (kernel B6 calls
+    ``__fmaf_rn``).  ``b`` holds small integers, so the product and, at
+    these magnitudes, the sum are exact in float64 before the one rounding
+    to float32."""
+    return (c.double() + a.double() * b.double()).float()
+
+
+def minsum_int8_plain(sgraph: SparseHeadGraph, synd_bl, llr0, *,
+                      head_iters: int, scale: float, block_b: int,
+                      early_stop: bool):
+    """Plain version of kernel B6: ``_minsum_int8_loop`` per tile of
+    ``block_b`` consecutive shots, all tiles at once.
+
+    synd_bl: (m, B) uint8 with B a multiple of block_b; llr0: (n,) float32.
+    Returns batch-last ``(err (n, B) uint8, done (B,) bool, llr (n, B) f32,
+    iters (B,) int32)``.  Messages are int8 with one scale per tile per
+    iteration and direction, taken over every shot of the tile, converged
+    or not; converged shots' outputs freeze, their messages go on.  The
+    totals and the new v2c are fused multiply-adds (``_fma``).  The
+    quantizing division is a tensor division (never by a host scalar, which
+    PyTorch turns into a multiplication by the reciprocal on the card)."""
+    rw, m = sgraph.chk_idx.shape
+    n = sgraph.n
+    B = synd_bl.shape[1]
+    T = B // block_b
+    dev = synd_bl.device
+    f32 = torch.float32
+    valid = (sgraph.mask > 0)[:, :, None]                      # (rw, m, 1)
+    maskf = sgraph.mask[:, :, None]
+    idx = sgraph.chk_idx.long()
+    scatter_idx = torch.where(valid[:, :, 0], idx, n).reshape(-1)
+    synd_sign = 1.0 - 2.0 * synd_bl.to(f32)                    # (m, B)
+    big = torch.tensor(BIG_I32, dtype=torch.int32, device=dev)
+    scale_t = torch.tensor(scale, dtype=f32, device=dev)
+    inv127 = torch.tensor(INV127, dtype=f32, device=dev)
+    eps = torch.full((T, 1), 1e-30, dtype=f32, device=dev)
+
+    def tile_scale(planes):
+        """max(tile max |planes| * f32(1/127), 1e-30), one per tile, per
+        shot."""
+        tmax = planes.abs().reshape(rw * m, T, block_b).amax(dim=(0, 2))
+        q = torch.maximum(tmax[:, None] * inv127, eps)
+        return q.expand(T, block_b).reshape(B)
+
+    def quantize(planes, q):
+        return torch.round(torch.clamp(planes / q, -127.0, 127.0)).to(torch.int8)
+
+    def gather(tot_b):
+        return torch.where(valid, tot_b.to(f32)[idx], 0.0)    # (rw, m, B)
+
+    t0 = gather(llr0.to(torch.bfloat16)[:, None].expand(n, B))
+    qv = tile_scale(t0)
+    v2c = quantize(t0, qv)
+    state = _head_init(n, B, llr0, head_iters, dev)
+    for it in range(head_iters):
+        if early_stop and bool(state[2].all()):
+            break
+        # check update on raw int8 magnitudes, streaming top-2 over slots
+        v = v2c.to(torch.int32)
+        mag = torch.where(valid, v.abs(), big)
+        sgn = torch.where(valid & (v < 0), -1.0, 1.0)
+        min1 = big.expand(m, B)
+        min2 = min1
+        amin = torch.zeros((m, B), dtype=torch.int64, device=dev)
+        sgn_tot = synd_sign
+        for s in range(rw):
+            sgn_tot = sgn_tot * sgn[s]
+            is_new = mag[s] < min1
+            min2 = torch.where(is_new, min1, torch.minimum(min2, mag[s]))
+            amin = torch.where(is_new, s, amin)
+            min1 = torch.minimum(min1, mag[s])
+        slots = torch.arange(rw, device=dev)[:, None, None]
+        excl = torch.minimum(torch.where(amin[None] == slots, min2[None],
+                                         min1[None]), big)
+        c2v_f = maskf * (scale_t * sgn_tot[None] * sgn
+                         * (excl.to(f32) * qv))
+        qc = tile_scale(c2v_f)
+        c2v = quantize(c2v_f, qc)
+        # exact int32 scatter-add; padded slots land in scratch row n
+        tot_i = torch.zeros((n + 1, B), dtype=torch.int32, device=dev)
+        tot_i.index_add_(0, scatter_idx, c2v.reshape(rw * m, B).to(torch.int32))
+        totals = _fma(qc, tot_i[:n], llr0[:, None])
+        t_e = gather(totals.to(torch.bfloat16))
+        # subtract exactly what was scattered: the quantized message
+        v2c_f = _fma(-qc, c2v, t_e)
+        parity = ((t_e < 0.0) & valid).sum(dim=0) & 1
+        match = (parity == synd_bl).all(dim=0)
+        state = _freeze(state, match, (totals < 0.0).to(torch.uint8), totals, it)
+        qv = tile_scale(v2c_f)
+        v2c = quantize(v2c_f, qv)
+    err, llr, done, iters = state
+    return err, done, llr, iters
+
+
+def _add_rank(part, prod):
+    """One rank's product added to a slot's scatter-sum (float32)."""
+    return part + prod
+
+
+def minsum_dense_plain(pgraph: PallasHeadGraph, synd_bl, llr0, *,
+                       head_iters: int, scale: float, early_stop: bool):
+    """Plain version of kernel B9: ``_minsum_plane_loop`` over the dense
+    one-hot stack, line by line.  Gathers and scatter-sums are float32
+    products of the one-hot planes with bf16-rounded operands, each slot's
+    scatter split by rank (``PallasHeadGraph``); v2c is stored as bf16; the
+    totals add the slots' sums in slot order, starting from the channel
+    LLRs.  Same arguments and outputs as
+    ``minsum_int8_plain`` less the tile: every shot is decoded alone."""
+    rw, m, n = pgraph.scat.shape
+    B = synd_bl.shape[1]
+    dev = synd_bl.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    S = pgraph.scat.to(f32)
+    rank = pgraph.rank[:, :, None]
+    ranks = (pgraph.rank.amax(dim=1) + 1).tolist()
+    valid = (pgraph.mask > 0)[:, :, None]
+    maskf = pgraph.mask[:, :, None]
+    synd_sign = 1.0 - 2.0 * synd_bl.to(f32)
+    big = torch.tensor(BIG, dtype=f32, device=dev)
+    scale_t = torch.tensor(scale, dtype=f32, device=dev)
+    llr0_b = llr0.to(bf16).to(f32)[:, None]
+    v2c = [(S[s] @ llr0_b).expand(m, B).to(bf16) for s in range(rw)]
+    state = _head_init(n, B, llr0, head_iters, dev)
+    for it in range(head_iters):
+        if early_stop and bool(state[2].all()):
+            break
+        min1 = big.expand(m, B)
+        min2 = min1
+        amin = torch.zeros((m, B), dtype=torch.int64, device=dev)
+        sgn_tot = synd_sign
+        sgn = []
+        for s in range(rw):
+            v = v2c[s].to(f32)
+            mag = torch.where(valid[s], v.abs(), big)
+            sg = torch.where(valid[s] & (v < 0), -1.0, 1.0)
+            sgn.append(sg)
+            sgn_tot = sgn_tot * sg
+            is_new = mag < min1
+            min2 = torch.where(is_new, min1, torch.minimum(min2, mag))
+            amin = torch.where(is_new, s, amin)
+            min1 = torch.minimum(min1, mag)
+        totals = llr0[:, None].expand(n, B)
+        c2v = []
+        for s in range(rw):
+            excl = torch.where(amin == s, min2, min1)
+            c = maskf[s] * (scale_t * sgn_tot * sgn[s] * torch.minimum(excl, big))
+            c2v.append(c)
+            c_b = c.to(bf16).to(f32)
+            part = None
+            for r in range(ranks[s]):
+                prod = S[s].t() @ torch.where(rank[s] == r, c_b, 0.0)
+                part = prod if part is None else _add_rank(part, prod)
+            totals = totals + part
+        tot_b = totals.to(bf16).to(f32)
+        parity = torch.zeros((m, B), dtype=torch.int32, device=dev)
+        for s in range(rw):
+            t_e = S[s] @ tot_b
+            v2c[s] = (t_e - c2v[s]).to(bf16)
+            parity += ((t_e < 0.0) & valid[s]).to(torch.int32)
+        match = ((parity & 1) == synd_bl).all(dim=0)
+        state = _freeze(state, match, (totals < 0.0).to(torch.uint8), totals, it)
+    err, llr, done, iters = state
+    return err, done, llr, iters
+
+
+def _check_head_inputs(name, head, syndromes, channel_llr):
+    b, m = syndromes.shape
+    if syndromes.dtype != torch.uint8 or m != head.m:
+        raise ValueError(f"{name}: syndromes must be uint8 with {head.m} checks")
+    if channel_llr.dtype != torch.float32 or tuple(channel_llr.shape) != (head.n,):
+        raise ValueError(f"{name}: channel LLRs must be one float32 vector of "
+                         f"{head.n} (the head shares them across shots)")
+    for t in (channel_llr, *head):
+        if t.device != syndromes.device:
+            raise ValueError(f"{name} needs its tensors on one device")
+    if m * b >= 2 ** 31 or head.n * b >= 2 ** 31:
+        raise ValueError(f"{name}: batch too large for int32 indexing")
+    return b
+
+
+def _stream_call(fn, dev, *args):
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+# shots per block of kernel B6 (a power of two dividing the tile; the tile's
+# blocks form one thread-block cluster of at most INT8_MAX_CLUSTER)
+INT8_MAX_LANES = 32
+INT8_MAX_CLUSTER = 16
+
+
+def int8_smem_bytes(lanes: int, rw: int, m: int, n: int) -> int:
+    """Shared memory of kernel B6: int8 messages (rounded up to 16 bytes)
+    and bf16 totals for each shot of the block."""
+    return -(-lanes * rw * m // 16) * 16 + 2 * n * lanes
+
+
+def int8_layout(block_b: int, rw: int, m: int, n: int) -> tuple[int, int]:
+    """(shots per block, blocks per cluster) of kernel B6 for a tile of
+    ``block_b`` shots: the most shots per block (<= 32, dividing the tile)
+    whose messages and totals fit in shared memory.  Raises when the tile
+    needs a cluster of more than 16 blocks."""
+    lanes = INT8_MAX_LANES
+    while lanes > 1 and (block_b % lanes
+                         or int8_smem_bytes(lanes, rw, m, n) > SMEM_LIMIT):
+        lanes //= 2
+    if int8_smem_bytes(lanes, rw, m, n) > SMEM_LIMIT or rw > 32:
+        raise ValueError(f"bp_head_int8: rw={rw}, m={m}, n={n} do not fit the "
+                         f"kernel ({SMEM_LIMIT} bytes of shared memory for "
+                         f"one shot, row weight <= 32)")
+    if block_b // lanes > INT8_MAX_CLUSTER:
+        raise ValueError(f"bp_head_int8: a tile of {block_b} shots needs "
+                         f"{block_b // lanes} blocks of {lanes}; a cluster "
+                         f"takes at most {INT8_MAX_CLUSTER}")
+    return lanes, block_b // lanes
+
+
+def _launch_int8(sgraph, synd_bl, llr0, head_iters, scale, block_b, early_stop):
+    rw, m = sgraph.chk_idx.shape
+    n, cw = sgraph.var_edge.shape
+    B = synd_bl.shape[1]
+    dev = synd_bl.device
+    lanes, cluster = int8_layout(block_b, rw, m, n)
+    err = torch.empty((n, B), dtype=torch.uint8, device=dev)
+    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
+    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    fn = _kernels.library("bp_int8").bp_int8_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float] + [i] * 4 + [p]
+    fn.restype = ctypes.c_int
+    rc = _stream_call(
+        fn, dev, synd_bl.data_ptr(), llr0.data_ptr(),
+        sgraph.chk_idx.data_ptr(), sgraph.mask.data_ptr(),
+        sgraph.var_edge.data_ptr(), err.data_ptr(), llr.data_ptr(),
+        conv.data_ptr(), iters.data_ptr(), m, n, rw, cw, B, int(head_iters),
+        float(scale), int(bool(early_stop)), lanes, cluster,
+        int8_smem_bytes(lanes, rw, m, n))
+    _kernels.check_launch("bp_int8", rc)
+    bp_head_int8.launches += 1
+    return err, conv.to(torch.bool), llr, iters
+
+
+def bp_head_int8(sgraph: SparseHeadGraph, syndromes, channel_llr, *,
+                 head_iters: int, ms_scaling_factor: float = 0.625,
+                 block_b: int = 256, early_stop: bool = False):
+    """int8 min-sum decode of (B, m) uint8 syndromes, B a multiple of
+    ``block_b``: each tile of ``block_b`` consecutive shots shares its
+    message scales.  ``channel_llr`` is one (n,) float32 vector.  Returns
+    batch-major ``(error (B, n) uint8, converged (B,) bool, posterior_llr
+    (B, n) f32, iterations (B,) int32)``.  CUDA tensors launch kernel B6
+    (or raise); CPU tensors run ``minsum_int8_plain``."""
+    b = _check_head_inputs("bp_head_int8", sgraph, syndromes, channel_llr)
+    if block_b < 1 or b % block_b:
+        raise ValueError(f"bp_head_int8: batch {b} is not a multiple of the "
+                         f"tile {block_b}")
+    if head_iters < 0:
+        raise ValueError(f"head_iters must be >= 0, got {head_iters}")
+    synd_bl = syndromes.t().contiguous()
+    if syndromes.is_cuda and not _kernels.plain_forced():
+        err, conv, llr, iters = _launch_int8(
+            sgraph, synd_bl, channel_llr.contiguous(), head_iters,
+            ms_scaling_factor, block_b, early_stop)
+    else:
+        err, conv, llr, iters = minsum_int8_plain(
+            sgraph, synd_bl, channel_llr, head_iters=head_iters,
+            scale=float(ms_scaling_factor), block_b=block_b,
+            early_stop=early_stop)
+    return err.t(), conv, llr.t(), iters
+
+
+bp_head_int8.launches = 0
+
+# shots per block of kernel B9: 16 (two 8-wide tensor-core tiles), or 8 when
+# a code's messages would not fit in shared memory
+DENSE_LANES = (16, 8)
+
+
+def dense_smem_bytes(lanes: int, rw: int, m: int, n: int) -> int:
+    """Shared memory of kernel B9: bf16 messages over (rw, m rounded up to
+    16) rows, bf16 totals over n rounded up to 16, and 12 bytes of check
+    state per check, for each shot of the block."""
+    m16, n16 = -(-m // 16) * 16, -(-n // 16) * 16
+    return lanes * (2 * rw * m16 + 2 * n16 + 12 * m)
+
+
+def _launch_dense(pgraph, synd_bl, llr0, head_iters, scale):
+    rw, m, n = pgraph.scat.shape
+    B = synd_bl.shape[1]
+    dev = synd_bl.device
+    lanes = next((k for k in DENSE_LANES
+                  if dense_smem_bytes(k, rw, m, n) <= SMEM_LIMIT), 0)
+    if not lanes or rw > 24:
+        raise ValueError(f"bp_head_dense: rw={rw}, m={m}, n={n} do not fit "
+                         f"the kernel ({SMEM_LIMIT} bytes of shared memory, "
+                         f"row weight <= 24)")
+    err = torch.empty((n, B), dtype=torch.uint8, device=dev)
+    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
+    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    fn = _kernels.library("bp_dense").bp_dense_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
+    fn.restype = ctypes.c_int
+    rc = _stream_call(
+        fn, dev, synd_bl.data_ptr(), llr0.data_ptr(), pgraph.scat.data_ptr(),
+        pgraph.mask.data_ptr(), pgraph.rank.data_ptr(), err.data_ptr(),
+        llr.data_ptr(), conv.data_ptr(), iters.data_ptr(), m, n, rw, B,
+        int(head_iters), float(scale), lanes,
+        dense_smem_bytes(lanes, rw, m, n))
+    _kernels.check_launch("bp_dense", rc)
+    bp_head_dense.launches += 1
+    return err, conv.to(torch.bool), llr, iters
+
+
+def bp_head_dense(pgraph: PallasHeadGraph, syndromes, channel_llr, *,
+                  head_iters: int, ms_scaling_factor: float = 0.625,
+                  early_stop: bool = False):
+    """Dense one-hot head decode of (B, m) uint8 syndromes (any B): the
+    same outputs as ``bp_head_int8``.  CUDA tensors launch kernel B9 (or
+    raise); CPU tensors run ``minsum_dense_plain``."""
+    _check_head_inputs("bp_head_dense", pgraph, syndromes, channel_llr)
+    if pgraph.scat.dtype != torch.bfloat16:
+        raise ValueError("bp_head_dense: the one-hot stack must be bfloat16")
+    if head_iters < 0:
+        raise ValueError(f"head_iters must be >= 0, got {head_iters}")
+    synd_bl = syndromes.t().contiguous()
+    if syndromes.is_cuda and not _kernels.plain_forced():
+        # the kernel's blocks leave once their shots have converged, which
+        # is early_stop's result too: outputs freeze at convergence
+        err, conv, llr, iters = _launch_dense(
+            pgraph, synd_bl, channel_llr.contiguous(), head_iters,
+            ms_scaling_factor)
+    else:
+        err, conv, llr, iters = minsum_dense_plain(
+            pgraph, synd_bl, channel_llr, head_iters=head_iters,
+            scale=float(ms_scaling_factor), early_stop=early_stop)
+    return err.t(), conv, llr.t(), iters
+
+
+bp_head_dense.launches = 0

@@ -14,7 +14,8 @@ which draw the JAX package's fused engines' errors seed for seed:
     decoders run, and ``residual_check_stats`` regenerates the errors from
     their counters for the checks;
   * ``"v2"``: ``fused_decode_stats`` runs the whole pipeline, min-sum decodes
-    included, in one kernel; plain min-sum ``BPDecoder``s only.
+    included, in one kernel; plain float32 min-sum ``BPDecoder``s only (int8
+    decoders raise: the fused kernel has no int8 mode yet).
 
 Both give the same failures and minimum weight for the same key: both decode
 with float32 min-sum frozen at each shot's first convergence.
@@ -49,15 +50,16 @@ __all__ = ["CodeSimulator_DataError"]
 
 
 def _bp_loop_params(static):
-    """(max_iter, ms_scaling_factor) off a plain min-sum BP decoder static:
-    the fused decode runs the decode in its kernel, so it takes the
-    decoder's loop parameters rather than its decode program."""
-    kind, max_iter, method, msf = static[:4]
-    if kind != "bp" or method != "minimum_sum":
+    """(max_iter, ms_scaling_factor, quantize) off a plain min-sum BP
+    decoder static: the fused decode runs the decode in its kernel, so it
+    takes the decoder's loop parameters rather than its decode program."""
+    if static[0] != "bp" or static[2] != "minimum_sum":
         raise ValueError(
             "fused_sampler='v2' runs min-sum BP inside the fused kernel; "
             f"decoder static {static[:3]} is not a plain min-sum BP program")
-    return int(max_iter), float(msf)
+    _, max_iter, _method, msf, _two_phase, head_tag = static
+    return int(max_iter), float(msf), (
+        "int8" if head_tag == "v2_int8" else None)
 
 
 class CodeSimulator_DataError:
@@ -114,12 +116,20 @@ class CodeSimulator_DataError:
                 self.device)
             self._stats = self._stats_fused
         elif fused_sampler == "v2":
-            self._iters_x, msf_x = _bp_loop_params(decoder_x.device_static)
-            self._iters_z, msf_z = _bp_loop_params(decoder_z.device_static)
-            if msf_x != msf_z:
+            self._iters_x, msf_x, q_x = _bp_loop_params(decoder_x.device_static)
+            self._iters_z, msf_z, q_z = _bp_loop_params(decoder_z.device_static)
+            if msf_x != msf_z or q_x != q_z:
                 raise ValueError(
                     "fused_sampler='v2' needs both sector decoders to share "
-                    f"ms_scaling_factor (got {msf_x} vs {msf_z})")
+                    "ms_scaling_factor and quantize mode (got "
+                    f"{msf_x}/{q_x} vs {msf_z}/{q_z})")
+            if q_x is not None:
+                # never run float32 quietly in place of the int8 decoders
+                raise NotImplementedError(
+                    "fused_sampler='v2' with quantize='int8' decoders needs "
+                    "the int8 mode of the fused decode kernel (the JAX "
+                    "package's _fused_decode_kernel), which the port does "
+                    "not have yet; use fused_sampler=True or False")
             self._msf = msf_x
             self._fspec2 = gf2_kernel.build_fused_decode_spec(
                 code.hx, code.hz, code.lx, code.lz, self.channel_probs,

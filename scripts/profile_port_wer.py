@@ -2,8 +2,9 @@
 """Where the time of the PyTorch port's WER path goes, on one NVIDIA GPU.
 
 Runs the main-path configurations of chip_smoke.py (hgp_34_n625, BP-50 at
-p=0.01 with batches of 4096 on the default path and on both fused engines,
-fused_sampler=True and "v2"; BP-50 + OSD-E order 10 at p=0.05 with batches
+p=0.01 with batches of 4096 on the default path, with int8 min-sum
+decoders (quantize="int8"), with the dense one-hot head (bp_kernel="v1")
+and on both fused engines, fused_sampler=True and "v2"; BP-50 + OSD-E order 10 at p=0.05 with batches
 of 2048, on the blocked and the per-column elimination route; BP-50 +
 OSD-CS order 10 at p=0.05 with batches of 2048) once to warm up and once
 under torch.profiler, and prints
@@ -55,6 +56,10 @@ def main() -> int:
 
     for tag, sim, shots in (
             ("BP p=0.01", simulator(BPDecoder, 0.01, 4096), 16 * 4096),
+            ("BP int8 p=0.01", simulator(BPDecoder, 0.01, 4096,
+                                         quantize="int8"), 16 * 4096),
+            ("BP v1 p=0.01", simulator(BPDecoder, 0.01, 4096,
+                                       bp_kernel="v1"), 16 * 4096),
             ("fused v1 BP p=0.01", simulator(BPDecoder, 0.01, 4096, True),
              16 * 4096),
             ("fused v2 BP p=0.01", simulator(BPDecoder, 0.01, 4096, "v2"),

@@ -4,9 +4,9 @@ These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
 skip without one; run them on a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
 kernel reproduces its plain version bit for bit (min-sum, alone or inside
-the fused decode, and the OSD-CS sweep are built with FMA contraction off;
-the eliminations, the counter-PRNG sampler and the residual checks are
-integer-exact)."""
+the fused decode, int8 min-sum, the dense one-hot head and the OSD-CS sweep
+are built with FMA contraction off; the eliminations, the counter-PRNG
+sampler and the residual checks are integer-exact)."""
 import os
 
 import numpy as np
@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code, rep_code, ring_code
-from qldpc_fault_tolerance_tpu_torch.decoders import BPOSD_Decoder
+from qldpc_fault_tolerance_tpu_torch.decoders import BPDecoder, BPOSD_Decoder
 from qldpc_fault_tolerance_tpu_torch.ops import _kernels
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
 from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
 from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
@@ -268,3 +269,74 @@ def test_fused_wrappers_reject_what_the_kernels_cannot_take(cuda):
         gk.residual_check_stats(spec, KEY, 64, bad, bad)
     with pytest.raises(ValueError):
         gk.sample_syndrome(spec, KEY, 0)
+
+
+def _bits(res):
+    """A head decode's outputs with the posterior as its bit patterns."""
+    err, conv, post, iters = res
+    return err, conv, post.contiguous().view(torch.int32), iters
+
+
+@pytest.mark.parametrize("code,block_b,early_stop", [
+    ("irregular", 16, False), ("irregular", 64, True),
+    ("hgp_34_n225", 256, False), ("hgp_34_n225", 512, True),
+    ("hgp_34_n625", 512, True)])
+def test_int8_kernel_matches_plain(cuda, code, block_b, early_stop):
+    """B6 at every tile the two-phase decode uses; padded slots (irregular
+    rows); a 512-shot tile is a cluster of 16 blocks."""
+    if code == "irregular":
+        rng = np.random.default_rng(4)
+        h = np.zeros((24, 48), np.uint8)
+        for i in range(24):
+            h[i, rng.choice(48, size=int(rng.integers(2, 7)), replace=False)] = 1
+    else:
+        h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
+    sg = bk.build_sparse_head(tbp.build_tanner_graph_host(h), cuda)
+    synd = _synd(h, 1024, 0.04, block_b).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.04), cuda)
+    kw = dict(head_iters=30, block_b=block_b, early_stop=early_stop)
+    before = bk.bp_head_int8.launches
+    k = bk.bp_head_int8(sg, synd, llr, **kw)
+    assert bk.bp_head_int8.launches == before + 1
+    with _kernels.force_plain():
+        p = bk.bp_head_int8(sg, synd, llr, **kw)
+    assert bk.bp_head_int8.launches == before + 1
+    for a, b in zip(_bits(k), _bits(p)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("code,B", [("ring", 300), ("hgp_34_n225", 256),
+                                    ("hgp_34_n625", 100)])
+def test_dense_kernel_matches_plain(cuda, code, B):
+    """B9 on any batch (a ragged last block at B=300 and 100)."""
+    if code == "ring":
+        h = hgp(ring_code(5), ring_code(4)).hx
+    else:
+        h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
+    pg = bk.build_pallas_head(tbp.build_tanner_graph_host(h), cuda)
+    synd = _synd(h, B, 0.05, B).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
+    before = bk.bp_head_dense.launches
+    k = bk.bp_head_dense(pg, synd, llr, head_iters=40)
+    assert bk.bp_head_dense.launches == before + 1
+    with _kernels.force_plain():
+        p = bk.bp_head_dense(pg, synd, llr, head_iters=40)
+    for a, b in zip(_bits(k), _bits(p)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [{"quantize": "int8"}, {"bp_kernel": "v1"}])
+def test_head_decoders_on_card_match_cpu(cuda, kw):
+    """The two-phase decode through B6 or B9 on the card gives the CPU's
+    plain decode, shot for shot."""
+    h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
+    probs = np.full(h.shape[1], 0.03)
+    synd = _synd(h, 1024, 0.03, 5).numpy()
+    card = BPDecoder(h, probs, 50, device=cuda, **kw)
+    cpu = BPDecoder(h, probs, 50, device="cpu", **kw)
+    a, aux_a = card.decode_batch_device(torch.from_numpy(synd))
+    b, aux_b = cpu.decode_batch_device(torch.from_numpy(synd))
+    assert torch.equal(a.cpu(), b)
+    for key in aux_a:
+        assert torch.equal(aux_a[key].cpu(), aux_b[key]), key
+    assert card.kernel_variant in ("sparse_int8", "dense_onehot")

@@ -11,6 +11,8 @@ import torch
 import jax
 
 from qldpc_fault_tolerance_tpu import decoders as jdec
+from qldpc_fault_tolerance_tpu.ops import bp as jax_bp
+from qldpc_fault_tolerance_tpu.ops import bp_pallas as jax_bp_pallas
 from qldpc_fault_tolerance_tpu_torch.codes import hgp, rep_code, ring_code
 from qldpc_fault_tolerance_tpu_torch.decoders import (
     BP_Decoder_Class,
@@ -18,8 +20,10 @@ from qldpc_fault_tolerance_tpu_torch.decoders import (
     BPOSD_Decoder,
     BPOSD_Decoder_Class,
     decode_device,
+    kernel_variant,
     state_from_jax,
 )
+from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
 
 # one intra-op thread: the suite runs several pytest workers on few cores,
 # and an oversubscribed torch thread pool stalls small ops
@@ -32,28 +36,46 @@ def _syndromes(h, B, p, seed):
     return (err @ h.T % 2).astype(np.uint8)
 
 
-@pytest.mark.parametrize("kind", ["bp", "bposd"])
+def _same_tensors(a, b, what):
+    assert a.dtype == b.dtype and torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("kind", ["bp", "bposd", "bp_int8", "bp_v1"])
 def test_state_from_jax_round_trip(kind):
+    """Every state field, the BP head included: None for the float32
+    decoders, a SparseHeadGraph for int8, a PallasHeadGraph for v1 (JAX
+    builds its v1 head only on a TPU, so the test puts one in its state)."""
     code = hgp(ring_code(4), ring_code(4))
     h = code.hx
     probs = np.full(code.N, 0.05)
-    if kind == "bp":
-        jd, td = jdec.BPDecoder(h, probs, 20), BPDecoder(h, probs, 20, device="cpu")
-    else:
+    if kind == "bposd":
         jd = jdec.BPOSD_Decoder(h, probs, 20, osd_order=4)
         td = BPOSD_Decoder(h, probs, 20, osd_order=4, device="cpu")
-    np_state = jax.tree_util.tree_map(np.asarray, jd.device_state)
+    else:
+        quantize = "int8" if kind == "bp_int8" else None
+        kernel = "v1" if kind == "bp_v1" else None
+        jd = jdec.BPDecoder(h, probs, 20, quantize=quantize)
+        td = BPDecoder(h, probs, 20, quantize=quantize, bp_kernel=kernel,
+                       device="cpu")
+    jstate = dict(jd.device_state)
+    if kind == "bp_v1":
+        jstate["pallas"] = jax_bp_pallas.build_pallas_head(
+            jax_bp.build_tanner_graph_host(h))
+    np_state = jax.tree_util.tree_map(np.asarray, jstate)
     bridged = state_from_jax(np_state, device="cpu")
     own = td.device_state
     assert set(bridged) == set(own)
     for key in own:
-        if key == "graph":
-            for a, b in zip(bridged["graph"], own["graph"]):
-                assert a.dtype == b.dtype and torch.equal(a, b)
+        if key in ("graph", "pallas"):
+            assert (bridged[key] is None) == (own[key] is None), key
+            if own[key] is None:
+                continue
+            assert type(bridged[key]) is type(own[key])
+            for name, x, y in zip(own[key]._fields, bridged[key], own[key]):
+                _same_tensors(x, y, f"{key}.{name}")
         else:
-            assert bridged[key].dtype == own[key].dtype
-            assert torch.equal(bridged[key], own[key]), key
-    synd = torch.from_numpy(_syndromes(h, 96, 0.06, 1))
+            _same_tensors(bridged[key], own[key], key)
+    synd = torch.from_numpy(_syndromes(h, 256, 0.06, 1))
     a, aux_a = decode_device(td.device_static, bridged, synd)
     b, aux_b = decode_device(td.device_static, own, synd)
     assert torch.equal(a, b)
@@ -119,6 +141,11 @@ def test_bposd_static_slots_and_unknown_method_raises(monkeypatch):
                        device="cpu")
     j = jdec.BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=4)
     assert cs.device_static[0] == "bposd_dev" and len(cs.device_static) == 7
+    # the nested BP static is the JAX package's 6 slots; its head tag is
+    # "v2" (float32 min-sum, kernel 1) where JAX off its TPU says "none"
+    assert len(cs.device_static[1]) == len(j.device_static[1]) == 6
+    assert cs.device_static[1][:5] == j.device_static[1][:5]
+    assert cs.device_static[1][5] == "v2"
     assert cs.device_static[2:] == j.device_static[2:]
     assert cs.device_static[2:] == (code.N, cs.device_static[3], 4, "pallas",
                                     "osd_cs")
@@ -140,3 +167,45 @@ def test_bposd_static_slots_and_unknown_method_raises(monkeypatch):
     with pytest.raises(ValueError, match="OSD_CS_MAX_ORDER"):
         BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=21,
                       device="cpu")
+
+
+def test_head_tags_and_kernel_variant(monkeypatch):
+    """bp_kernel / QLDPC_BP_KERNEL and quantize pick the head and its tag;
+    kernel_variant names the program that runs: the plain versions on the
+    CPU, the kernels on the card (a stand-in CUDA state here)."""
+    import types
+
+    code = hgp(ring_code(4), ring_code(4))
+    probs = np.full(code.N, 0.05)
+
+    def make(**kw):
+        return BPDecoder(code.hx, probs, 20, device="cpu", **kw)
+
+    cases = {(): ("v2", type(None), "sparse_gather"),
+             (("bp_kernel", "v2"),): ("v2", type(None), "sparse_gather"),
+             (("bp_kernel", "xla"),): ("none", type(None), "sparse_gather"),
+             (("bp_kernel", "v1"),): ("v1", bk.PallasHeadGraph, "dense_onehot"),
+             (("quantize", "int8"),): ("v2_int8", bk.SparseHeadGraph,
+                                       "sparse_int8"),
+             (("bp_method", "product_sum"),): ("none", type(None), "xla_twin")}
+    for kw, (tag, head_type, on_card) in cases.items():
+        dec = make(**dict(kw))
+        assert dec.device_static[5] == tag, kw
+        assert isinstance(dec.device_state["pallas"], head_type), kw
+        assert dec.kernel_variant == "xla_twin", kw
+        card = dict(dec.device_state,
+                    llr0=types.SimpleNamespace(is_cuda=True, dim=lambda: 1))
+        assert kernel_variant(dec.device_static, card) == on_card, kw
+        if head_type is not type(None):
+            # a batch the head's gate refuses runs float32 min-sum
+            assert kernel_variant(dec.device_static, card, 320) == "sparse_gather"
+            assert kernel_variant(dec.device_static, card, 512) == on_card
+            bposd = ("bposd_dev", dec.device_static, 1, 1, 0, "pallas", "osd_e")
+            assert kernel_variant(bposd, card, 512) == on_card
+    monkeypatch.setenv("QLDPC_BP_KERNEL", "v1")
+    assert make().device_static[5] == "v1"
+    monkeypatch.setenv("QLDPC_BP_KERNEL", "v3")
+    with pytest.raises(ValueError, match="QLDPC_BP_KERNEL"):
+        make()
+    with pytest.raises(ValueError, match="QLDPC_BP_KERNEL"):
+        make(bp_kernel="dense")
