@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build all eight kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
+  2. build all nine kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
      (one nvcc per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
@@ -18,22 +18,23 @@ Phases (any failure raises and the script exits non-zero):
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
      replaced by its plain version gives the same failures and min weight;
      a small batch decoded on the CPU and on the card agrees
-  8. a "kernels" JSON line, printed after phase 23: for all ten kernels
-     the main-path launches (phases 5-6 for kernels 1-2, phase 12 for
-     B3-B5, phase 16 for B7 and B8, phase 17 for B10, phase 21 for B6,
-     phase 22 for B9), error against the plain version, times, bound
+  8. a "kernels" JSON line, printed after phase 25: for all eleven kernels
+     the main-path launches (phases 5-6 for kernels 1-2, phase 12 for B3
+     and B4, phase 16 for B7 and B8, phase 17 for B10, phase 21 for B6,
+     phase 22 for B9, phase 25 for B5's bf16 and int8 modes), error against
+     the plain version, times, bound
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
  10. kernel B4 (residual check) against its plain version: the corrections
      are BPDecoder decodes of phase 9's syndromes; X, Z and Total
- 11. kernel B5 (whole-pipeline fused decode) against its plain version:
-     B=4096, p=0.05, 50 iterations, scale 0.625; count, min weight and every
-     shot's converged flag and iterations in both sectors identical
+ 11. (kernel B5, the whole-pipeline fused decode, is held against its plain
+     versions in phase 24, in both message modes)
  12. main path, fused engines: CodeSimulator_DataError(fused_sampler=True)
      BP-50 p=0.01, 16 batches of 4096, then fused_sampler="v2" with the same
-     seed (its failures and min weight must equal v1's), then v1 with BPOSD
-     (OSD-E order 10) at p=0.05, 4 batches of 2048
+     seed (bf16 messages: its failures within 4 combined binomial standard
+     errors of v1's), then v1 with BPOSD (OSD-E order 10) at p=0.05, 4
+     batches of 2048
  13. anchors: v2 at p=0 gives no failure; one v1 and one v2 batch with every
      kernel replaced by its plain version give the kernel path's failures
      and min weight
@@ -62,6 +63,17 @@ Phases (any failure raises and the script exits non-zero):
  23. anchors: int8 and v1 at p=0 give no failure; one int8 and one v1
      batch with every kernel replaced by its plain version give the kernel
      path's failures and min weight; a fused-v1 batch with int8 decoders
+ 24. kernel B5 in both modes against its plain versions: hgp_34_n625,
+     B=4096, p=0.01 and 0.05, bf16 and int8 at block_w 8 and 1; count, min
+     weight and every shot's converged flag and iterations identical; each
+     mode timed by profiler device time at p=0.01, with its bound
+ 25. main path, fused v2 in both modes: CodeSimulator_DataError(
+     fused_sampler="v2") BP-50 p=0.01, 16 batches of 4096, with float
+     BPDecoders (bf16) and with BPDecoder(quantize="int8"); only the fused
+     kernel launches; bf16 failures within 4 binomial standard errors of
+     phase 12's v1, int8 WER within int8_parity_tolerance of bf16; one batch
+     of each with every kernel replaced by its plain version gives the
+     kernel path's failures and min weight
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -309,25 +321,49 @@ def residual_bound_ms(spec, B: int, logical_failures: int) -> tuple[float, str]:
     return roofline_ms(nbytes, ops)
 
 
-def fused_bound_ms(spec, B: int, iters_z: int, iters_x: int,
-                   logical_failures: int) -> tuple[float, str]:
-    """Least time for B5: graphs, logical adjacencies and LLRs read once,
-    the per-shot flags and the partials written once, against the integer
-    work of sampling, both syndromes and the residual checks (one operation
-    per nonzero per shot), the residual XOR (1 per qubit per sector per
-    shot), the weights of the shots that fail a logical check (1 add per
-    qubit per sector) and the float32 work of both decodes (per
-    shot-iteration 11 per edge and 2 per variable, as bp_bound_ms)."""
-    n = spec.base.n
-    graphs = (spec.graph_z, spec.graph_x)
-    g_bytes = sum(5 * g.chk_nbr.numel() + 9 * g.var_nbr.numel() for g in graphs)
-    edges = [int(g.chk_mask.sum()) for g in graphs]
-    adj = [adjacency_stats(getattr(spec.base, f"{a}_nbr"),
-                           getattr(spec.base, f"{a}_mask")) for a in ("lx", "lz")]
-    nbytes = g_bytes + sum(b for b, _ in adj) + 8 * n + 10 * B + 8 * (-(-B // 8))
-    int_ops = (B * (n * DRAW_OPS + 2 * sum(edges) + sum(e for _, e in adj) + 2 * n)
-               + 2 * n * logical_failures)
-    fp_ops = (iters_z * (11 * edges[0] + 2 * n) + iters_x * (11 * edges[1] + 2 * n))
+# Float32 operations of one bf16 min-sum shot-iteration (csrc/minsum_body.cuh
+# with Bf16Msg, each step counted once): per edge 13 (the check pass's 8 as
+# kernel 1's; the scatter's bf16 rounding of c2v and its add; the new v2c's
+# subtract and bf16 rounding; the parity's compare) and per variable 3 (the
+# add onto the channel LLR, the bf16 rounding of the total, the hard
+# decision's compare).
+BF16_EDGE_FP_OPS, BF16_VAR_FP_OPS = 13, 3
+
+
+def fused_bound_ms(spec, B: int, shot_iters_z: int, shot_iters_x: int,
+                   quantize) -> tuple[float, str]:
+    """Least time for B5 in one message mode: graphs (or int8 index
+    planes), the four check adjacencies and the LLRs read once, the per-shot
+    flags and the partials written once, against the integer work of the
+    draws (DRAW_OPS each, one per (shot, qubit): the function needs each
+    error once, though the int8 mode draws it again for the residual
+    checks), both syndromes and the residual checks (one operation per
+    nonzero per shot) and the residual XOR (1 per qubit per sector per
+    shot), and the decodes' shot-iterations: BF16_* operations per edge and
+    per variable, or B6's INT8_* counts."""
+    base = spec.base
+    n = base.n
+    adj = [adjacency_stats(getattr(base, f"{a}_nbr"), getattr(base, f"{a}_mask"))
+           for a in ("hx", "hz", "lx", "lz")]
+    if quantize is None:
+        graphs = (spec.graph_z, spec.graph_x)
+        g_bytes = sum(5 * g.chk_nbr.numel() + 9 * g.var_nbr.numel() for g in graphs)
+        edges = [int(g.chk_mask.sum()) for g in graphs]
+    else:
+        graphs = (spec.sparse_z, spec.sparse_x)
+        g_bytes = sum(8 * g.chk_idx.numel() + 4 * g.var_edge.numel() for g in graphs)
+        edges = [int((g.mask > 0).sum()) for g in graphs]
+    nbytes = (g_bytes + sum(b for b, _ in adj) + 8 * n + 10 * B
+              + 8 * (-(-B // 8)))
+    (_, e_hx), (_, e_hz), (_, e_lx), (_, e_lz) = adj
+    int_ops = B * (n * DRAW_OPS + 2 * (e_hx + e_hz) + e_lx + e_lz + 2 * n)
+    fp_ops = 0
+    for si, e in ((shot_iters_z, edges[0]), (shot_iters_x, edges[1])):
+        if quantize is None:
+            fp_ops += si * (BF16_EDGE_FP_OPS * e + BF16_VAR_FP_OPS * n)
+        else:
+            int_ops += si * INT8_EDGE_INT_OPS * e
+            fp_ops += si * (INT8_EDGE_FP_OPS * e + INT8_VAR_FP_OPS * n)
     return roofline_ms(nbytes, int_ops, fp_ops)
 
 
@@ -586,61 +622,6 @@ def main() -> int:
         f"{b4_plain_ms:.3f} ms, bound {b4_bound:.4f} ms ({b4_by}; "
         f"{lf4} logical failures)")
 
-    # 11. kernel B5 vs its plain version
-    p11, B11, it11 = 0.05, 4096, 50
-    llr11 = tbp.llr_from_probs(np.full(n, 2 * p11 / 3), dev)
-    spec2 = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
-                                       [p11 / 3] * 3, llr11, llr11, dev)
-    kw11 = dict(eval_type="Total", max_iter_z=it11, max_iter_x=it11,
-                ms_scaling_factor=scale)
-
-    def run_b5():
-        return gk.fused_decode_stats(spec2, key, B11, **kw11)
-
-    k5 = run_b5()
-    p5 = gk.fused_decode_plain(spec2, key, B11, **kw11)
-    torch.cuda.synchronize()
-    b5_err = max([abs(int(k5[i]) - int(p5[i])) for i in (0, 1)]
-                 + [int((a[f].long() - b[f].long()).abs().max())
-                    for a, b in ((k5[2], p5[2]), (k5[3], p5[3]))
-                    for f in ("converged", "iterations")])
-    # tolerance 0: f32 min-sum built with -fmad=false, same operation order
-    if (int(k5[0]), int(k5[1])) != (int(p5[0]), int(p5[1])):
-        raise AssertionError(f"B5 count/min_w {int(k5[0])}/{int(k5[1])} vs "
-                             f"plain {int(p5[0])}/{int(p5[1])}")
-    for sector, a, b in (("x", k5[2], p5[2]), ("z", k5[3], p5[3])):
-        for field in ("converged", "iterations"):
-            if not torch.equal(a[field], b[field]):
-                raise AssertionError(f"B5 {sector} {field} differ from plain")
-    b5_ms = event_ms(run_b5, 10)
-    b5_plain_ms = event_ms(lambda: gk.fused_decode_plain(spec2, key, B11,
-                                                         **kw11), 1)
-    si_z, si_x = int(k5[3]["iterations"].sum()), int(k5[2]["iterations"].sum())
-    # the same batch through the sampler and BPDecoder's f32 min-sum: the
-    # same failures and min weight (v1 == v2), and its logical failures
-    probs11 = np.full(n, 2 * p11 / 3)
-    sx11, sz11 = gk.sample_syndrome(spec2.base, key, B11, emit_errors=False)
-
-    def bp_correction(h, synd_p):
-        dec = BPDecoder(h, probs11, it11, ms_scaling_factor=scale, device=dev)
-        cor, _ = dec.decode_batch_device(unpack_shots(synd_p, B11))
-        return pack_shots(cor).contiguous()
-
-    cor11 = (bp_correction(code.hz, sx11), bp_correction(code.hx, sz11))
-    v1_11 = [int(x) for x in gk.residual_check_stats(spec2.base, key, B11,
-                                                     *cor11, "Total")]
-    if v1_11 != [int(k5[0]), int(k5[1])]:
-        raise AssertionError(f"B5 {int(k5[0])}/{int(k5[1])} vs sample, "
-                             f"BPDecoder and B4 {v1_11[0]}/{v1_11[1]}")
-    lf5 = logical_failures(spec2.base, key, B11, *cor11)
-    b5_bound, b5_by = fused_bound_ms(spec2, B11, si_z, si_x, lf5)
-    log(f"[11] B5 == plain (count {int(k5[0])}, min_w {int(k5[1])}, converged "
-        f"z {float(k5[3]['converged'].float().mean()):.4f} x "
-        f"{float(k5[2]['converged'].float().mean()):.4f}, shot-iterations "
-        f"z {si_z} x {si_x}); kernel {b5_ms:.3f} ms, plain {b5_plain_ms:.3f} "
-        f"ms, bound {b5_bound:.4f} ms ({b5_by}; {lf5} logical failures); "
-        f"== sample + BPDecoder + B4")
-
     # 12. main path, fused engines: counts reset just before each run, read
     # just after
     def fused_sim(decoder_cls, p, batch, fused, **kw):
@@ -655,6 +636,7 @@ def main() -> int:
     counters = {"gf2_sample": (gk.sample_syndrome, "launches"),
                 "gf2_residual": (gk.residual_check_stats, "launches"),
                 "fused_decode": (gk.fused_decode_stats, "launches"),
+                "fused_decode_int8": (gk.fused_decode_stats, "int8_launches"),
                 "bp_minsum": (bp_minsum, "launches"),
                 "osd_elim": (tod.osd_elim, "launches"),
                 "osd_elim_full": (tod.osd_elim, "full_launches"),
@@ -692,10 +674,17 @@ def main() -> int:
         for name, count in launches.items():
             fused_launches[name] = fused_launches.get(name, 0) + count
         runs[tag] = (sim.last_failures, sim.min_logical_weight)
-    if runs["v2 BP p=0.01"] != runs["v1 BP p=0.01"]:
-        raise AssertionError(f"v2 {runs['v2 BP p=0.01']} != v1 "
-                             f"{runs['v1 BP p=0.01']} (failures, min_w)")
-    log(f"[12] v2 == v1: failures, min_w {runs['v1 BP p=0.01']}")
+    # v2 decodes with bf16 messages, v1 with float32 (the JAX package's
+    # engines differ the same way): the same errors, failures within 4
+    # combined binomial standard errors
+    shots12 = 16 * 4096
+    f1, f2 = (runs[t][0] / shots12 for t in ("v1 BP p=0.01", "v2 BP p=0.01"))
+    sigma12 = ((f1 * (1 - f1) + f2 * (1 - f2)) / shots12) ** 0.5
+    log(f"[12] v2 (bf16) failures {runs['v2 BP p=0.01'][0]} vs v1 (float32) "
+        f"{runs['v1 BP p=0.01'][0]}: |diff| {abs(f2 - f1):.3e} of the shots "
+        f"<= 4 sigma {4 * sigma12:.3e}")
+    if abs(f2 - f1) > 4 * sigma12:
+        raise AssertionError("fused v2 failures outside 4 binomial sigma of v1")
 
     # 13. anchors
     sim0 = fused_sim(BPDecoder, 0.0, 4096, "v2")
@@ -1015,6 +1004,118 @@ def main() -> int:
     log(f"[23] fused v1 with int8 decoders: {sim23.last_failures} failures "
         f"in {sim23.last_shots} shots; launches {launches_23}")
 
+    # 24. kernel B5 in both modes vs its plain versions, on the main path's
+    # code and batch
+    def fused_vs_plain(tag, fspec, B, **kw):
+        """B5 and its plain version on one batch: count, min weight and
+        every shot's flags identical (tolerance 0: integer outputs of a
+        decode built with -fmad=false in the plain version's operation
+        order); returns the kernel's outputs and the largest absolute
+        difference over count, min weight and both sectors' converged
+        flags and iterations."""
+        k = gk.fused_decode_stats(fspec, key, B, **kw)
+        pl = gk.fused_decode_plain(fspec, key, B, **kw)
+        torch.cuda.synchronize()
+        err = max(abs(int(k[0]) - int(pl[0])), abs(int(k[1]) - int(pl[1])))
+        for sector, a, b in (("x", k[2], pl[2]), ("z", k[3], pl[3])):
+            for field in ("converged", "iterations"):
+                d = int((a[field].long() - b[field].long()).abs().max())
+                err = max(err, d)
+                if d:
+                    raise AssertionError(f"B5 {tag} {sector} {field} differ "
+                                         f"from plain by up to {d}")
+        if err:
+            raise AssertionError(f"B5 {tag} count/min_w {int(k[0])}/{int(k[1])} "
+                                 f"vs plain {int(pl[0])}/{int(pl[1])}")
+        return k, float(err)
+
+    B24, it24 = 4096, 50
+    modes24 = (("bf16", None, None), ("int8 w8", "int8", 8),
+               ("int8 w1", "int8", 1))
+    b5, b5_err = {}, {}
+    for p24 in (0.01, 0.05):
+        llr24 = tbp.llr_from_probs(np.full(n, 2 * p24 / 3), dev)
+        spec24 = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+                                            [p24 / 3] * 3, llr24, llr24, dev)
+        for tag, q, bw in modes24:
+            kw24 = dict(eval_type="Total", max_iter_z=it24, max_iter_x=it24,
+                        ms_scaling_factor=scale, quantize=q, block_w=bw)
+            k, err = fused_vs_plain(f"{tag} p={p24}", spec24, B24, **kw24)
+            mode = "bf16" if q is None else "int8"
+            b5_err[mode] = max(b5_err.get(mode, 0.0), err)
+
+            def run_b5():
+                return gk.fused_decode_stats(spec24, key, B24, **kw24)
+
+            kname = "fused_decode_kernel" if q is None else "fused_decode_int8_kernel"
+            ms = device_ms(run_b5, 10, kname)
+            if q is None:  # shots leave the loop one by one
+                si = [int(a["iterations"].sum()) for a in (k[3], k[2])]
+            else:  # a tile's shots iterate while the tile does
+                si = [int8_shot_iters(a["iterations"], bw * 32, it24, True)
+                      for a in (k[3], k[2])]
+            bound, by = fused_bound_ms(spec24, B24, *si, q)
+            waves = ""
+            if q is not None:
+                active = gk.fused_int8_active_clusters(spec24, bw)
+                tiles = B24 // (bw * 32)
+                waves = (f"; {tiles} tiles, {active} clusters at once: "
+                         f"{-(-tiles // active)} wave(s)")
+            b5[tag, p24] = entry = dict(ms=ms, bound=bound, by=by)
+            plain = ""
+            if p24 == 0.01 and bw != 1:  # the kernels line's modes
+                entry["plain_ms"] = event_ms(lambda: gk.fused_decode_plain(
+                    spec24, key, B24, **kw24), 1)
+                plain = f", plain {entry['plain_ms']:.3f} ms"
+            log(f"[24] B5 {tag} p={p24} == plain (count {int(k[0])}, min_w "
+                f"{int(k[1])}, converged z "
+                f"{float(k[3]['converged'].float().mean()):.4f} x "
+                f"{float(k[2]['converged'].float().mean()):.4f}, "
+                f"shot-iterations z {si[0]} x {si[1]}); kernel {ms:.3f} ms "
+                f"(profiler device time){plain}, bound {bound:.4f} ms "
+                f"({by}){waves}")
+
+    # 25. main path, fused v2 in both modes; counts reset just before each
+    # run, read just after
+    shots25 = 16 * 4096
+    sim25 = fused_sim(BPDecoder, 0.01, 4096, "v2")
+    run25, launches_25 = counted(lambda: wer_phase("25 v2 bf16 p=0.01", sim25, 16))
+    sim25q = fused_sim(BPDecoder, 0.01, 4096, "v2", quantize="int8")
+    run25q, launches_25q = counted(lambda: wer_phase("25 v2 int8 p=0.01",
+                                                     sim25q, 16))
+    log(f"[25] launches bf16 {launches_25}; int8 {launches_25q}")
+    for name, launches in (("fused_decode", launches_25),
+                           ("fused_decode_int8", launches_25q)):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on its main path")
+        if any(count for other, count in launches.items() if other != name):
+            raise AssertionError(f"v2 launched kernels besides {name}: "
+                                 f"{launches}")
+    f1, fb = runs["v1 BP p=0.01"][0] / shots25, run25[0] / shots25
+    sigma25 = ((f1 * (1 - f1) + fb * (1 - fb)) / shots25) ** 0.5
+    wer_b = wer_single_shot(run25[0], shots25, code.K)[0]
+    wer_q = wer_single_shot(run25q[0], shots25, code.K)[0]
+    tol25 = bk.int8_parity_tolerance(wer_b, shots25)
+    log(f"[25] bf16 failures {run25[0]} vs phase 12's v1 {runs['v1 BP p=0.01'][0]}: "
+        f"|diff| {abs(fb - f1):.3e} of the shots <= 4 sigma {4 * sigma25:.3e}; "
+        f"int8 WER {wer_q:.6e} vs bf16 {wer_b:.6e}: |diff| "
+        f"{abs(wer_q - wer_b):.3e} <= tolerance {tol25:.3e}")
+    if abs(fb - f1) > 4 * sigma25:
+        raise AssertionError("v2 bf16 failures outside 4 binomial sigma of v1")
+    if abs(wer_q - wer_b) > tol25:
+        raise AssertionError("v2 int8 WER outside int8_parity_tolerance")
+    for tag, kw in (("bf16", {}), ("int8", {"quantize": "int8"})):
+        sims = [fused_sim(BPDecoder, 0.01, 4096, "v2", **kw) for _ in range(2)]
+        sims[0].WordErrorRate(4096)
+        with _kernels.force_plain():
+            sims[1].WordErrorRate(4096)
+        got = [(x.last_failures, x.min_logical_weight) for x in sims]
+        if got[0] != got[1]:
+            raise AssertionError(f"v2 {tag} kernel path {got[0]} vs plain "
+                                 f"path {got[1]}")
+        log(f"[25] v2 {tag}, one p=0.01 batch: kernel path == plain path "
+            f"(failures, min_w) {got[0]}")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -1046,10 +1147,20 @@ def main() -> int:
         {"name": "fused_decode", "route": "cuda",
          "source": f"{PKG}/csrc/fused_decode.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/gf2_pallas.py:628",
-         "launches": fused_launches["fused_decode"],
-         "max_abs_err": float(b5_err),
-         "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
-         "bound_by": b5_by, "library_ms": None},
+         "launches": launches_25["fused_decode"],
+         "max_abs_err": b5_err["bf16"],
+         "ms": b5["bf16", 0.01]["ms"], "plain_ms": b5["bf16", 0.01]["plain_ms"],
+         "bound_ms": b5["bf16", 0.01]["bound"],
+         "bound_by": b5["bf16", 0.01]["by"], "library_ms": None},
+        {"name": "fused_decode_int8", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_decode_int8.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/gf2_pallas.py:628",
+         "launches": launches_25q["fused_decode_int8"],
+         "max_abs_err": b5_err["int8"],
+         "ms": b5["int8 w8", 0.01]["ms"],
+         "plain_ms": b5["int8 w8", 0.01]["plain_ms"],
+         "bound_ms": b5["int8 w8", 0.01]["bound"],
+         "bound_by": b5["int8 w8", 0.01]["by"], "library_ms": None},
         {"name": "osd_elim_full", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:632",

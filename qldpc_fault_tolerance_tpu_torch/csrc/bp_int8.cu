@@ -6,36 +6,22 @@
 // :694).  There the batch grid cuts the shots into tiles of block_b; here a
 // tile is one thread-block cluster.
 //
-// Function (ops/bp_kernel.py minsum_int8_plain): v2c and c2v messages are
-// int8, each direction with ONE float32 scale per tile per iteration,
-// q = max(tile max |message| * f32(1/127), 1e-30), taken over every shot of
-// the tile, converged or not, padded slots included as 0.  A message p is
-// stored as rint(clamp(p / q, -127, 127)) with an IEEE division.  The check
-// update runs on the raw int8 magnitudes (padded slots 2^30, ties to the
-// first slot); c2v = ((scale * signs) * (excl * qv)); the variable totals are
-// llr0 + qc * (integer sum of the int8 c2v), one fused multiply-add; the
-// gather reads bf16(totals); v2c = t_e - qc * c2v_int8, one fused
-// multiply-add.  Parity comes from t_e < 0, the hard decision from
-// totals < 0.  Outputs freeze at each shot's first convergence; its messages
-// go on, because they enter the tile's maxima.  With early_stop the tile
+// Function (ops/bp_kernel.py minsum_int8_plain): the int8 min-sum loop of
+// int8_body.cuh (one float32 scale per tile per iteration and direction,
+// the check update on raw int8 magnitudes, exact integer scatter-sums, the
+// two fused multiply-adds XLA's CPU backend contracts), which this kernel
+// shares with the int8 mode of the fused decode (fused_decode_int8.cu).
+// Outputs freeze at each shot's first convergence; with early_stop the tile
 // leaves its loop when all its shots have converged.
 //
 // Design: a tile of block_b shots is a cluster of block_b / lanes blocks
 // (lanes <= 32 shots each, at most 16 blocks: a non-portable cluster size).
-// Each block keeps its shots' int8 messages (one buffer: the check pass
-// turns v2c into c2v in place and the gather pass c2v into the next v2c, each
-// check's edges owned by one thread) and their bf16 totals in shared memory:
-// lanes * rw * m bytes (rounded up to 16) + lanes * 2 * n bytes.  The
-// float32 messages are never stored: each pass that needs a tile maximum
-// runs twice, once for the maximum and once to quantize.  A tile maximum is
-// a block reduction (warp shuffles); after a cluster barrier every block
-// reads the others' partial maxima through distributed shared memory.  The
-// maxima are order-free, so every block gets the same scale.  The "all
-// converged" flag of early_stop rides with the second maximum.  Two cluster
-// barriers per iteration; one launch for the whole batch, no host
-// synchronisation inside.  Built with -fmad=false; the two fused
-// multiply-adds are explicit (__fmaf_rn), as XLA's CPU backend contracts the
-// JAX package's expressions.
+// Each block keeps its shots' int8 messages and bf16 totals in shared
+// memory: lanes * rw * m bytes (rounded up to 16) + lanes * 2 * n bytes; the
+// tile maxima go through distributed shared memory (int8_body.cuh).  One
+// launch for the whole batch, no host synchronisation inside.  The hard
+// decision and posterior of a live shot are written to device memory every
+// iteration.
 //
 // Bound: latency of the passes between barriers; per shot-iteration the
 // messages cost a few bytes of shared-memory traffic per edge, and the
@@ -46,114 +32,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_body.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLanes = 32;
+using int8body::kMaxLanes;
+using int8body::kThreads;
 constexpr int kMaxCluster = 16;
-constexpr int32_t kBigI32 = 1 << 30;
-constexpr float kInv127 = 1.0f / 127.0f;  // float32(1/127), as XLA folds it
 
-__device__ __forceinline__ float tile_scale(float tmax) {
-  return fmaxf(tmax * kInv127, 1e-30f);
-}
-
-__device__ __forceinline__ int8_t quantize(float p, float q) {
-  return (int8_t)__float2int_rn(fminf(fmaxf(p / q, -127.f), 127.f));
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Shared state of the cluster-wide reductions.
-struct Reduce {
-  float* warp;     // [kWarps] per-warp maxima
-  float* cta;      // [2] this block's partial maxima, one slot per direction
-  int* cta_done;   // [2] this block's "all converged"
-  float* out;      // the tile maximum
-  int* out_done;   // the tile's "all converged"
+// B6's inputs and outputs: syndrome of shot b in an (m, B) layout, and the
+// live shot's hard decision and posterior written every iteration (they
+// must freeze at convergence)
+struct DeviceIo {
+  const uint8_t* synd_mb;  // (m, B)
+  const float* llr0;       // (n,)
+  uint8_t* err;            // (n, B)
+  float* post;             // (n, B)
+  size_t sB;
+  int b;
+  __device__ uint8_t synd(int i) const { return synd_mb[i * sB + b]; }
+  __device__ void init_var(int j) {
+    err[j * sB + b] = 0;
+    post[j * sB + b] = llr0[j];
+  }
+  __device__ void store_var(int j, float total, bool live) {
+    if (live) {
+      err[j * sB + b] = total < 0.f ? 1 : 0;
+      post[j * sB + b] = total;
+    }
+  }
 };
-
-// The tile maximum of every thread's `v` (>= 0) and, with it, whether every
-// block of the tile reports `done`; every thread of the cluster must call it.
-// Slot k alternates between the two reductions of an iteration, so a block
-// never overwrites a partial that another block may still read.
-__device__ float tile_max(float v, int done, int k, Reduce r,
-                          cg::cluster_group& cluster, int* all_done) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) r.warp[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = 0.f;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, r.warp[w]);
-    r.cta[k] = mx;
-    r.cta_done[k] = done;
-  }
-  cluster.sync();
-  if (threadIdx.x == 0) {
-    float mx = 0.f;
-    int all = 1;
-    for (unsigned b = 0; b < cluster.num_blocks(); ++b) {
-      mx = fmaxf(mx, *cluster.map_shared_rank(&r.cta[k], b));
-      all &= *cluster.map_shared_rank(&r.cta_done[k], b);
-    }
-    *r.out = mx;
-    *r.out_done = all;
-  }
-  __syncthreads();
-  if (all_done) *all_done = *r.out_done;
-  return *r.out;
-}
-
-struct Check {
-  int32_t min1, min2;
-  int amin;
-  unsigned negs;  // bit s: slot s's message is negative
-  bool neg_tot;   // sign product with the syndrome sign
-};
-
-// Streaming top-2 of check i's int8 magnitudes and its sign product.
-__device__ __forceinline__ Check check_update(const int8_t* msg,
-                                              const float* mask, int i, int m,
-                                              int rw, int lanes, int lane,
-                                              uint8_t synd) {
-  Check c{kBigI32, kBigI32, 0, 0u, synd != 0};
-  for (int s = 0; s < rw; ++s) {
-    const int e = s * m + i;
-    int32_t mag = kBigI32;
-    if (mask[e] > 0.f) {
-      const int v = msg[e * lanes + lane];
-      mag = v < 0 ? -v : v;
-      if (v < 0) {
-        c.negs |= 1u << s;
-        c.neg_tot = !c.neg_tot;
-      }
-    }
-    if (mag < c.min1) {
-      c.min2 = c.min1;
-      c.min1 = mag;
-      c.amin = s;
-    } else if (mag < c.min2) {
-      c.min2 = mag;
-    }
-  }
-  return c;
-}
-
-// Dequantized c2v of slot s: ((scale * signs) * (excl * qv)), 0 if padded.
-__device__ __forceinline__ float c2v_value(const Check& c, int s, bool valid,
-                                           float qv, float scale) {
-  if (!valid) return 0.f;
-  int32_t ex = s == c.amin ? c.min2 : c.min1;
-  ex = ex < kBigI32 ? ex : kBigI32;
-  const float mag = scale * ((float)ex * qv);
-  return (c.neg_tot != (((c.negs >> s) & 1u) != 0u)) ? -mag : mag;
-}
 
 __global__ void __launch_bounds__(kThreads)
 bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
@@ -168,135 +78,25 @@ bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
                int m, int n, int rw, int cw, int B, int head_iters,
                float scale, int early_stop, int lanes) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_warp[kWarps];
-  __shared__ float s_cta[2];
-  __shared__ int s_cta_done[2];
-  __shared__ float s_out;
-  __shared__ int s_out_done;
-  __shared__ int s_done[kMaxLanes];
-  __shared__ int s_bad[kMaxLanes];
-  __shared__ int s_iters[kMaxLanes];
+  __shared__ int8body::Shared sh;
   cg::cluster_group cluster = cg::this_cluster();
-  const Reduce red{s_warp, s_cta, s_cta_done, &s_out, &s_out_done};
 
   const int lane = threadIdx.x % lanes;
   const int row = threadIdx.x / lanes;
   const int rows = kThreads / lanes;
   const int b = blockIdx.x * lanes + lane;
-  const size_t sB = (size_t)B;
   int8_t* msg = (int8_t*)smem;  // [e * lanes + lane]
   __nv_bfloat16* totb =         // [j * lanes + lane]
       (__nv_bfloat16*)(smem + (((size_t)rw * m * lanes + 15) & ~(size_t)15));
 
-  if (row == 0) {
-    s_done[lane] = 0;
-    s_bad[lane] = 0;
-    s_iters[lane] = head_iters;
-  }
-  for (int j = row; j < n; j += rows) {
-    err[j * sB + b] = 0;
-    post[j * sB + b] = llr0[j];
-  }
-
-  // init: bf16 channel LLRs gathered onto the edges, quantized at their own
-  // tile maximum
-  float local = 0.f;
-  for (int i = row; i < m; i += rows)
-    for (int s = 0; s < rw; ++s) {
-      const int e = s * m + i;
-      if (mask[e] > 0.f) local = fmaxf(local, fabsf(bf16_round(llr0[chk_idx[e]])));
-    }
-  float qv = tile_scale(tile_max(local, 0, 1, red, cluster, nullptr));
-  for (int i = row; i < m; i += rows)
-    for (int s = 0; s < rw; ++s) {
-      const int e = s * m + i;
-      const float t = mask[e] > 0.f ? bf16_round(llr0[chk_idx[e]]) : 0.f;
-      msg[e * lanes + lane] = quantize(t, qv);
-    }
-  __syncthreads();
-
-  for (int it = 0; it < head_iters; ++it) {
-    // check pass, twice: the c2v tile maximum, then c2v quantized in place
-    local = 0.f;
-    for (int i = row; i < m; i += rows) {
-      const Check c = check_update(msg, mask, i, m, rw, lanes, lane, synd[i * sB + b]);
-      for (int s = 0; s < rw; ++s)
-        local = fmaxf(local, fabsf(c2v_value(c, s, mask[s * m + i] > 0.f, qv, scale)));
-    }
-    const float qc = tile_scale(tile_max(local, 0, 0, red, cluster, nullptr));
-    for (int i = row; i < m; i += rows) {
-      const Check c = check_update(msg, mask, i, m, rw, lanes, lane, synd[i * sB + b]);
-      for (int s = 0; s < rw; ++s) {
-        const int e = s * m + i;
-        msg[e * lanes + lane] = quantize(c2v_value(c, s, mask[e] > 0.f, qv, scale), qc);
-      }
-    }
-    __syncthreads();
-
-    // variable pass: exact integer sum of the int8 c2v, then the totals
-    const bool live = !s_done[lane];
-    for (int j = row; j < n; j += rows) {
-      int acc = 0;
-      for (int t = 0; t < cw; ++t) {
-        const int e = var_edge[j * cw + t];
-        if (e >= 0) acc += msg[e * lanes + lane];
-      }
-      const float total = __fmaf_rn(qc, (float)acc, llr0[j]);
-      totb[j * lanes + lane] = __float2bfloat16_rn(total);
-      if (live) {
-        err[j * sB + b] = total < 0.f ? 1 : 0;
-        post[j * sB + b] = total;
-      }
-    }
-    __syncthreads();
-
-    // gather pass: parity and the v2c tile maximum
-    local = 0.f;
-    for (int i = row; i < m; i += rows) {
-      unsigned par = synd[i * sB + b];
-      for (int s = 0; s < rw; ++s) {
-        const int e = s * m + i;
-        if (mask[e] > 0.f) {
-          const float te = __bfloat162float(totb[chk_idx[e] * lanes + lane]);
-          const float v = __fmaf_rn(-qc, (float)msg[e * lanes + lane], te);
-          local = fmaxf(local, fabsf(v));
-          if (te < 0.f) par ^= 1u;
-        }
-      }
-      if (par & 1u) s_bad[lane] = 1;
-    }
-    __syncthreads();
-    if (row == 0) {
-      if (!s_bad[lane] && !s_done[lane]) {
-        s_done[lane] = 1;
-        s_iters[lane] = it + 1;
-      }
-      s_bad[lane] = 0;
-    }
-    __syncthreads();
-    int cta_done = 1;
-    for (int l = 0; l < lanes; ++l) cta_done &= s_done[l];
-    int all_done = 0;
-    qv = tile_scale(tile_max(local, cta_done, 1, red, cluster, &all_done));
-
-    // v2c quantized in place of the c2v it subtracts
-    for (int i = row; i < m; i += rows)
-      for (int s = 0; s < rw; ++s) {
-        const int e = s * m + i;
-        float v = 0.f;
-        if (mask[e] > 0.f) {
-          const float te = __bfloat162float(totb[chk_idx[e] * lanes + lane]);
-          v = __fmaf_rn(-qc, (float)msg[e * lanes + lane], te);
-        }
-        msg[e * lanes + lane] = quantize(v, qv);
-      }
-    __syncthreads();
-    if (early_stop && all_done) break;
-  }
+  const int8body::Planes g{chk_idx, mask, var_edge, llr0, m, n, rw, cw};
+  DeviceIo io{synd, llr0, err, post, (size_t)B, b};
+  int8body::decode(g, io, msg, totb, sh, cluster, lanes, lane, row, rows,
+                   head_iters, scale, early_stop != 0);
 
   if (row == 0) {
-    conv[b] = s_done[lane] ? 1 : 0;
-    iters[b] = s_iters[lane];
+    conv[b] = sh.done[lane] ? 1 : 0;
+    iters[b] = sh.iters[lane];
   }
   // no block may leave while another can still read its partial maxima
   cluster.sync();

@@ -96,9 +96,9 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (m, B)
   const minsum::Graph g{chk_nbr, chk_mask, var_nbr, var_slot, var_mask,
                         m, n, rw, cw};
   DeviceIo io{synd, llr0, llr_per_shot, err, llr, (size_t)B, b};
-  minsum::decode(g, io, v2c, c2v, hard,
-                 minsum::LaneState{s_done, s_bad, s_iters}, lanes, lane, row,
-                 rows, valid, max_iter, scale);
+  minsum::decode<minsum::F32Msg>(g, io, v2c, c2v, hard,
+                                 minsum::LaneState{s_done, s_bad, s_iters},
+                                 lanes, lane, row, rows, valid, max_iter, scale);
 
   if (row == 0 && valid) {
     conv[b] = s_done[lane] ? 1 : 0;

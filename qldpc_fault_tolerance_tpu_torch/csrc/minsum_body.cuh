@@ -4,24 +4,56 @@
 //
 // Function: ops/bp.py bp_decode(method="minimum_sum") for the block's
 // `lanes` shots: per-check top-2 minimum and sign product (with the syndrome
-// sign), scaled check-to-variable messages, variable totals summed in slot
-// order, v2c = total - own c2v, hard decision, parity against the syndrome.
-// Each shot freezes at its first convergence; a converged shot does no
-// further work, which is exact because its outputs are frozen either way.
-// Messages are float32.  The caller builds with -fmad=false so the
-// arithmetic rounds like the plain PyTorch version (ops/bp_kernel.py).
+// sign), scaled check-to-variable messages, variable totals, v2c = total -
+// own c2v, hard decision, parity against the syndrome.  Each shot freezes at
+// its first convergence; a converged shot does no further work, which is
+// exact because its outputs are frozen either way.  The caller builds with
+// -fmad=false so the arithmetic rounds like the plain PyTorch versions
+// (ops/bp_kernel.py).
+//
+// Two message formats, a template parameter:
+//   F32Msg  (kernel 1, minsum_plain): float32 v2c; a variable's total is
+//           llr0 + (its c2v summed in the order of its list);
+//   Bf16Msg (the fused decode's bf16 mode, minsum_dense_plain, the JAX
+//           package's _minsum_plane_loop): bf16 v2c; the total starts from
+//           llr0 and adds, slot after slot, the float32 sum of that slot's
+//           bf16-rounded c2v in list order (the caller passes variable lists
+//           sorted by slot, then check: ops/bp_kernel.py slot_ordered_graph);
+//           v2c = bf16(bf16(total) - c2v) and parity reads bf16(total).
+// c2v is float32 in both.
 //
 // Layout: messages edge-major and shot-minor (v2c and c2v at
 // [e * lanes + lane]), hard decisions at [j * lanes + lane], all in shared
-// memory.  Thread t works for shot t % lanes on row t / lanes; the rows
-// split the checks and the variables between barriers.  Every thread of the
-// block must call decode(): it synchronises the block.
+// memory.  A hard-decision byte holds total < 0 in bit 0 and the sign the
+// parity pass reads in bit 1 (the same bit for F32Msg).  Thread t works for
+// shot t % lanes on row t / lanes; the rows split the checks and the
+// variables between barriers.  Every thread of the block must call decode():
+// it synchronises the block.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace minsum {
+
+struct F32Msg {
+  using T = float;
+  static constexpr bool kBf16 = false;
+  __device__ static T store(float x) { return x; }
+  __device__ static float load(T x) { return x; }
+};
+
+struct Bf16Msg {
+  using T = __nv_bfloat16;
+  static constexpr bool kBf16 = true;
+  __device__ static T store(float x) { return __float2bfloat16_rn(x); }
+  __device__ static float load(T x) { return __bfloat162float(x); }
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 constexpr int kMaxLanes = 8;
 constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
@@ -46,8 +78,8 @@ struct LaneState {
 // Io supplies the shot's syndrome bit synd(i) and channel LLR llr0(j), and
 // is told of each variable's start (init_var(j)) and of each hard decision
 // and total of a live shot (store_var(j, h, total)).
-template <class Io>
-__device__ void decode(const Graph& g, Io& io, float* v2c, float* c2v,
+template <class Msg, class Io>
+__device__ void decode(const Graph& g, Io& io, typename Msg::T* v2c, float* c2v,
                        uint8_t* hard, LaneState st, int lanes, int lane,
                        int row, int rows, bool valid, int max_iter,
                        float scale) {
@@ -59,7 +91,8 @@ __device__ void decode(const Graph& g, Io& io, float* v2c, float* c2v,
     st.iters[lane] = max_iter;
   }
   if (valid) {
-    for (int e = row; e < E; e += rows) v2c[e * lanes + lane] = io.llr0(g.chk_nbr[e]);
+    for (int e = row; e < E; e += rows)
+      v2c[e * lanes + lane] = Msg::store(io.llr0(g.chk_nbr[e]));
     for (int j = row; j < n; j += rows) {
       hard[j * lanes + lane] = 0;
       io.init_var(j);
@@ -82,7 +115,7 @@ __device__ void decode(const Graph& g, Io& io, float* v2c, float* c2v,
           const int e = i * rw + s;
           float mag = kBig;
           if (g.chk_mask[e]) {
-            const float v = v2c[e * lanes + lane];
+            const float v = Msg::load(v2c[e * lanes + lane]);
             mag = fabsf(v);
             if (v < 0.f) {
               negs |= 1u << s;
@@ -111,26 +144,48 @@ __device__ void decode(const Graph& g, Io& io, float* v2c, float* c2v,
     }
     __syncthreads();
 
-    // variable pass: totals summed in slot order, then v2c = total - own
+    // variable pass: the totals, then v2c = total - own c2v
     if (active) {
       for (int j = row; j < n; j += rows) {
-        float acc = 0.f;
-        for (int t = 0; t < cw; ++t) {
-          const int q = j * cw + t;
-          float c = 0.f;
-          if (g.var_mask[q]) c = c2v[(g.var_nbr[q] * rw + g.var_slot[q]) * lanes + lane];
-          acc = (t == 0) ? c : acc + c;
+        float total;
+        if constexpr (Msg::kBf16) {
+          total = io.llr0(j);
+          float part = 0.f;
+          int run = -1;  // the slot whose terms `part` sums
+          for (int t = 0; t < cw; ++t) {
+            const int q = j * cw + t;
+            if (!g.var_mask[q]) continue;
+            const int s = g.var_slot[q];
+            const float c = bf16_round(c2v[(g.var_nbr[q] * rw + s) * lanes + lane]);
+            if (s == run) {
+              part = part + c;
+            } else {
+              if (run >= 0) total = total + part;
+              part = c;
+              run = s;
+            }
+          }
+          if (run >= 0) total = total + part;
+        } else {
+          float acc = 0.f;
+          for (int t = 0; t < cw; ++t) {
+            const int q = j * cw + t;
+            float c = 0.f;
+            if (g.var_mask[q]) c = c2v[(g.var_nbr[q] * rw + g.var_slot[q]) * lanes + lane];
+            acc = (t == 0) ? c : acc + c;
+          }
+          total = io.llr0(j) + acc;
         }
-        const float total = io.llr0(j) + acc;
+        const float t_e = Msg::kBf16 ? bf16_round(total) : total;
         for (int t = 0; t < cw; ++t) {
           const int q = j * cw + t;
           if (g.var_mask[q]) {
             const int e = (g.var_nbr[q] * rw + g.var_slot[q]) * lanes + lane;
-            v2c[e] = total - c2v[e];
+            v2c[e] = Msg::store(t_e - c2v[e]);
           }
         }
         const uint8_t h = total < 0.f ? 1 : 0;
-        hard[j * lanes + lane] = h;
+        hard[j * lanes + lane] = h | (t_e < 0.f ? 2 : 0);
         io.store_var(j, h, total);
       }
     }
@@ -142,7 +197,7 @@ __device__ void decode(const Graph& g, Io& io, float* v2c, float* c2v,
         unsigned par = io.synd(i);
         for (int s = 0; s < rw; ++s) {
           const int e = i * rw + s;
-          if (g.chk_mask[e]) par ^= hard[g.chk_nbr[e] * lanes + lane];
+          if (g.chk_mask[e]) par ^= hard[g.chk_nbr[e] * lanes + lane] >> 1;
         }
         if (par & 1u) st.bad[lane] = 1;
       }

@@ -48,7 +48,7 @@ __all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop",
            "PallasHeadGraph", "build_sparse_head", "build_pallas_head",
            "sparse_head_from_planes", "pallas_head_from_planes",
            "minsum_int8_plain", "bp_head_int8",
-           "minsum_dense_plain", "bp_head_dense"]
+           "minsum_dense_plain", "bp_head_dense", "slot_ordered_graph"]
 
 BIG = 1e30  # stands in for +inf without producing NaN in exclusion arithmetic
 
@@ -618,6 +618,27 @@ def minsum_dense_plain(pgraph: PallasHeadGraph, synd_bl, llr0, *,
         state = _freeze(state, match, (totals < 0.0).to(torch.uint8), totals, it)
     err, llr, done, iters = state
     return err, done, llr, iters
+
+
+def slot_ordered_graph(graph):
+    """A TannerGraph whose variable lists run in (check slot, check) order —
+    the order of the dense head's rank-split scatter (``PallasHeadGraph``),
+    which the fused decode's bf16 mode sums in.
+    Takes and returns numpy leaves; ``chk_nbr_slot`` follows the new
+    lists."""
+    var_nbr = np.asarray(graph.var_nbr)
+    var_slot = np.asarray(graph.var_nbr_slot)
+    var_mask = np.asarray(graph.var_mask)
+    m = np.asarray(graph.chk_nbr).shape[0]
+    order = np.argsort(np.where(var_mask, var_slot * m + var_nbr, np.iinfo(np.int64).max),
+                       axis=1, kind="stable")
+    var_nbr, var_slot, var_mask = (np.take_along_axis(a, order, axis=1)
+                                   for a in (var_nbr, var_slot, var_mask))
+    chk_nbr_slot = np.array(graph.chk_nbr_slot)
+    j, t = np.nonzero(var_mask)
+    chk_nbr_slot[var_nbr[j, t], var_slot[j, t]] = t
+    return graph._replace(chk_nbr_slot=chk_nbr_slot, var_nbr=var_nbr,
+                          var_nbr_slot=var_slot, var_mask=var_mask)
 
 
 def _check_head_inputs(name, head, syndromes, channel_llr):

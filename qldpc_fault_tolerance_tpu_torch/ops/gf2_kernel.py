@@ -1,4 +1,4 @@
-"""Counter-PRNG fused code-capacity pipeline and its three Hopper kernels.
+"""Counter-PRNG fused code-capacity pipeline and its Hopper kernels.
 
 The counterpart of the JAX package's ``ops/gf2_pallas.py``:
 
@@ -12,13 +12,17 @@ The counterpart of the JAX package's ``ops/gf2_pallas.py``:
     words and both syndromes; ``residual_check_stats``
     (``csrc/gf2_residual.cu``), which regenerates the errors from their
     counters, XORs the packed corrections in and reduces the residual checks
-    to (failures, min weight); ``fused_decode_stats``
-    (``csrc/fused_decode.cu``), the whole pipeline with both sectors'
-    min-sum decodes in one kernel.
+    to (failures, min weight); ``fused_decode_stats``, the whole pipeline
+    with both sectors' min-sum decodes in one kernel, in the JAX fused
+    kernel's two message modes: bf16 (``csrc/fused_decode.cu``) and int8
+    (``quantize="int8"``, ``csrc/fused_decode_int8.cu``, one message scale
+    per tile of ``block_w * 32`` shots).  Its tile comes from the JAX
+    package's rule (``fused_decode_block_w``), because int8 results depend
+    on it.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``), built from
-the port's packed GF(2) ops and ``bp_kernel.minsum_plain``.  A wrapper runs
-the plain version only for tensors on the CPU (or under
+the port's packed GF(2) ops and ``bp_kernel``'s min-sum loops.  A wrapper
+runs the plain version only for tensors on the CPU (or under
 ``_kernels.force_plain()``); on CUDA tensors it launches its kernel or
 raises.  torch has no uint32 arithmetic: the generator works on int64
 values masked to 32 bits, and packed words are int32 bit patterns.
@@ -34,7 +38,16 @@ import torch
 from ..utils.device import resolve_device
 from . import _kernels
 from .bp import TannerGraph, build_tanner_graph_host, graph_to
-from .bp_kernel import MAX_LANES, SMEM_LIMIT, minsum_plain
+from .bp_kernel import (
+    MAX_LANES,
+    SMEM_LIMIT,
+    SparseHeadGraph,
+    build_pallas_head,
+    build_sparse_head,
+    minsum_dense_plain,
+    minsum_int8_plain,
+    slot_ordered_graph,
+)
 from .gf2_packed import (
     num_words,
     pack_shots,
@@ -65,6 +78,10 @@ __all__ = [
     "fused_decode_stats",
     "fused_decode_plain",
     "fused_block_lanes",
+    "estimate_fused_decode_bytes",
+    "fused_decode_block_w",
+    "fused_int8_smem_bytes",
+    "fused_int8_active_clusters",
 ]
 
 EVAL_CODES = {"X": 0, "Z": 1, "Total": 2}
@@ -157,19 +174,35 @@ def build_fused_spec(hx, hz, lx, lz, pauli_error_probs,
 
 
 class FusedDecodeSpec(NamedTuple):
-    """The fused-decode pipeline's tensors: ``base`` plus both sectors'
-    Tanner graphs and channel LLRs ((n,) float32)."""
+    """The fused-decode pipeline's tensors: ``base`` plus, for each sector,
+    its Tanner graph with slot-ordered variable lists (``slot_ordered_graph``,
+    the bf16 mode's scatter order), its int8 index planes and its channel
+    LLRs ((n,) float32)."""
 
     base: FusedSpec
     graph_z: TannerGraph    # of hx: decodes syndrome_z
     graph_x: TannerGraph    # of hz: decodes syndrome_x
     llr_z: torch.Tensor
     llr_x: torch.Tensor
+    sparse_z: SparseHeadGraph
+    sparse_x: SparseHeadGraph
+
+    @property
+    def statics(self) -> tuple:
+        """``(n, mx, mz, rwz, rwx)``, the JAX spec's ``_decode_statics``."""
+        (mx, rwz), (mz, rwx) = (self.graph_z.chk_nbr.shape,
+                                self.graph_x.chk_nbr.shape)
+        return self.base.n, mx, mz, rwz, rwx
+
+
+def _sector_graphs(h, dev):
+    g = build_tanner_graph_host(h)
+    return graph_to(slot_ordered_graph(g), dev), build_sparse_head(g, dev)
 
 
 def build_fused_decode_spec(hx, hz, lx, lz, pauli_error_probs, llr_x, llr_z,
                             device="cuda") -> FusedDecodeSpec:
-    """``build_fused_spec`` plus the Tanner graphs of hx and hz and the
+    """``build_fused_spec`` plus both sectors' graphs (of hx and hz) and the
     decoders' channel LLRs (``BPDecoder.llr0``)."""
     base = build_fused_spec(hx, hz, lx, lz, pauli_error_probs, device)
     dev = base.device
@@ -179,10 +212,8 @@ def build_fused_decode_spec(hx, hz, lx, lz, pauli_error_probs, llr_x, llr_z,
             v = v.cpu().numpy()
         return torch.from_numpy(np.array(v, np.float32).reshape(-1)).to(dev)
 
-    return FusedDecodeSpec(
-        base, graph_to(build_tanner_graph_host(_gf2(hx)), dev),
-        graph_to(build_tanner_graph_host(_gf2(hz)), dev), llr(llr_z),
-        llr(llr_x))
+    (gz, sz), (gx, sx) = _sector_graphs(_gf2(hx), dev), _sector_graphs(_gf2(hz), dev)
+    return FusedDecodeSpec(base, gz, gx, llr(llr_z), llr(llr_x), sz, sx)
 
 
 def fused_spec_from_jax(jspec, device="cuda"):
@@ -195,7 +226,7 @@ def fused_spec_from_jax(jspec, device="cuda"):
         base = fused_spec_from_jax(jspec.base, device)
         hx = _gf2(np.asarray(jspec.base.hx_t).T)
         hz = _gf2(np.asarray(jspec.base.hz_t).T)
-        graphs = []
+        sectors = []
         for h, idx, mask in ((hx, jspec.zg_idx, jspec.zg_mask),
                              (hz, jspec.xg_idx, jspec.xg_mask)):
             g = build_tanner_graph_host(h)
@@ -203,10 +234,11 @@ def fused_spec_from_jax(jspec, device="cuda"):
                     and np.array_equal(g.chk_mask.T, np.asarray(mask) != 0)):
                 raise ValueError("JAX spec's BP incidence differs from its "
                                  "parity-check matrix")
-            graphs.append(graph_to(g, base.device))
-        llr = [torch.from_numpy(np.array(v, np.float32).reshape(-1))
-               .to(base.device) for v in (jspec.llr_z, jspec.llr_x)]
-        return FusedDecodeSpec(base, *graphs, *llr)
+            sectors.append(_sector_graphs(h, base.device))
+        (gz, sz), (gx, sx) = sectors
+        llr_z, llr_x = (torch.from_numpy(np.array(v, np.float32).reshape(-1))
+                        .to(base.device) for v in (jspec.llr_z, jspec.llr_x))
+        return FusedDecodeSpec(base, gz, gx, llr_z, llr_x, sz, sx)
     dev = resolve_device(device)
     hx = _gf2(np.asarray(jspec.hx_t).T)
     hz = _gf2(np.asarray(jspec.hz_t).T)
@@ -255,23 +287,102 @@ def residual_check_plain(spec: FusedSpec, key, batch_size: int, corx_p,
                            pack_shots(ez) ^ corz_p, eval_type, batch_size)
 
 
+# The JAX package's fused-decode tile rule, copied with its constants: the
+# scoped-VMEM cap its kernel compiles against, the block_w ladder and the
+# calibration ratio it falls back to (calibration/vmem_table.json has no
+# "fused_decode" entry; no file is read here).  On the card it is no memory
+# gate: it is the tile, and int8 results depend on the tile (one message
+# scale per iteration per tile of block_w * 32 shots).
+LANE = 32
+_KERNEL_VMEM_LIMIT = 64 * 1024 * 1024
+_BLOCK_W_LADDER = (8, 4, 2, 1)
+_FUSED_DECODE_RATIO = 2.0
+
+
+def estimate_fused_decode_bytes(n: int, mx: int, mz: int, rwz: int,
+                                rwx: int, block_w: int = 4, *,
+                                quantize=None) -> float:
+    """The JAX package's per-block VMEM estimate of its fused kernel
+    (``gf2_pallas.estimate_fused_decode_bytes``), line for line."""
+    bt = block_w * LANE
+    draws = bt * n * 4
+    errs = 2 * bt * n * 4
+    mxu = bt * n * 4
+    synd = bt * (mx + mz) * 4
+    mats = (n * mx + n * mz + 2 * n * 8) * 4
+    idx = (rwz * mx + rwx * mz) * 8
+    onehot = 3 * max(mx, mz) * n * 2
+    msg_elem = 1 if quantize else 2
+    per_shot = max(
+        (2 + msg_elem) * rwz * mx + 16 * n + 8 * mx,
+        (2 + msg_elem) * rwx * mz + 16 * n + 8 * mz)
+    analytic = draws + errs + mxu + synd + mats + idx + onehot \
+        + bt * per_shot
+    return analytic * _FUSED_DECODE_RATIO
+
+
+def fused_decode_block_w(spec: FusedDecodeSpec, batch_size: int, *,
+                         quantize=None) -> int:
+    """Largest block_w of the ladder whose estimate fits the cap and whose
+    tile divides the batch; 0 when none does (the JAX package's rule)."""
+    n, mx, mz, rwz, rwx = spec.statics
+    for bw in _BLOCK_W_LADDER:
+        if batch_size % (bw * LANE):
+            continue
+        if estimate_fused_decode_bytes(n, mx, mz, rwz, rwx, bw,
+                                       quantize=quantize) <= _KERNEL_VMEM_LIMIT:
+            return bw
+    return 0
+
+
+def _fused_tile(spec: FusedDecodeSpec, batch_size: int, quantize,
+                block_w) -> int:
+    """The batch's block_w, as the JAX package's ``fused_decode_stats``
+    picks it: the tile rule's, or 1 when it finds none; raises when the
+    batch is not a multiple of the tile."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    if block_w is None:
+        block_w = fused_decode_block_w(spec, batch_size, quantize=quantize) or 1
+    block_w = int(block_w)
+    if block_w < 1 or batch_size % (block_w * LANE):
+        raise ValueError(
+            f"fused v2 needs batch_size divisible by {block_w * LANE}, "
+            f"got {batch_size}")
+    return block_w
+
+
 def fused_decode_plain(spec: FusedDecodeSpec, key, batch_size: int, *,
                        eval_type: str = "Total", max_iter_z: int,
-                       max_iter_x: int, ms_scaling_factor: float = 0.625):
-    """Plain version of ``fused_decode_stats``: draws -> packed syndromes ->
-    f32 ``minsum_plain`` per sector -> ``packed_residual_stats``."""
+                       max_iter_x: int, ms_scaling_factor: float = 0.625,
+                       quantize: str | None = None,
+                       block_w: int | None = None):
+    """Plain version of ``fused_decode_stats`` (the JAX package's
+    ``_fused_decode_xla``): draws -> packed syndromes -> each sector's
+    decode -> ``packed_residual_stats``.  The decode is the bf16 loop
+    ``minsum_dense_plain`` (shots are independent, so the tiles' early exit
+    changes no output), or with ``quantize="int8"`` ``minsum_int8_plain``
+    per tile of ``block_w * 32`` shots with early exit."""
+    block_w = _fused_tile(spec, batch_size, quantize, block_w)
     base = spec.base
+    scale = float(ms_scaling_factor)
     exp, ezp, sxp, szp = sample_syndrome_plain(base, key, batch_size)
     sz, sx = unpack_shots(szp, batch_size), unpack_shots(sxp, batch_size)
 
-    def decode(graph, synd, llr, max_iter):
-        err, done, _post, iters = minsum_plain(
-            graph, synd.t().contiguous(), llr[:, None], int(max_iter),
-            float(ms_scaling_factor))
+    def decode(graph, sparse, synd, llr, max_iter):
+        synd_bl = synd.t().contiguous()
+        if quantize is None:
+            err, done, _post, iters = minsum_dense_plain(
+                build_pallas_head(graph, synd_bl.device), synd_bl, llr,
+                head_iters=int(max_iter), scale=scale, early_stop=True)
+        else:
+            err, done, _post, iters = minsum_int8_plain(
+                sparse, synd_bl, llr, head_iters=int(max_iter), scale=scale,
+                block_b=block_w * LANE, early_stop=True)
         return err.t(), {"converged": done, "iterations": iters}
 
-    cor_z, aux_z = decode(spec.graph_z, sz, spec.llr_z, max_iter_z)
-    cor_x, aux_x = decode(spec.graph_x, sx, spec.llr_x, max_iter_x)
+    cor_z, aux_z = decode(spec.graph_z, spec.sparse_z, sz, spec.llr_z, max_iter_z)
+    cor_x, aux_x = decode(spec.graph_x, spec.sparse_x, sx, spec.llr_x, max_iter_x)
     cnt, min_w = _residual_stats(base, exp ^ pack_shots(cor_x),
                                  ezp ^ pack_shots(cor_z), eval_type,
                                  batch_size)
@@ -413,16 +524,33 @@ residual_check_stats.launches = 0
 
 def fused_block_lanes(n: int, mx: int, rwz: int, mz: int,
                       rwx: int) -> tuple[int, int]:
-    """``(shots per block, shared-memory bytes)`` of the fused decode: 8
-    shots, halved until the larger sector's messages (8 bytes per edge per
-    shot), the hard decisions, both error planes and a syndrome plane fit in
-    shared memory (less 1 KB for the kernel's static arrays); 0 shots when
-    not even one fits."""
-    per_shot = 8 * max(mx * rwz, mz * rwx) + 3 * n + max(mx, mz)
+    """``(shots per block, shared-memory bytes)`` of the bf16 fused decode:
+    8 shots, halved until the larger sector's messages (6 bytes per edge
+    per shot: bf16 v2c and float32 c2v), the hard decisions, both error
+    planes and a syndrome plane fit in shared memory (less 1 KB for the
+    kernel's static arrays); 0 shots when not even one fits."""
+    per_shot = 6 * max(mx * rwz, mz * rwx) + 3 * n + max(mx, mz)
     lanes = MAX_LANES
     while lanes and lanes * per_shot > SMEM_LIMIT - 1024:
         lanes //= 2
     return lanes, lanes * per_shot
+
+
+# the int8 fused decode: blocks of 32 shots, a tile's blocks one cluster
+INT8_FUSED_MAX_CLUSTER = 16
+# shared memory of the int8 fused kernel's static arrays, rounded up
+_INT8_FUSED_STATIC = 1024
+
+
+def fused_int8_smem_bytes(n: int, mx: int, rwz: int, mz: int,
+                          rwx: int) -> int:
+    """Dynamic shared memory of the int8 fused decode's 32-shot block: the
+    larger sector's int8 messages (rounded up to 16 bytes; the sampler's
+    error words use the same space before the decodes start), bf16 totals,
+    and as 32-bit words over the block's shots both syndromes and both
+    sectors' corrections."""
+    msg = max(-(-LANE * max(mx * rwz, mz * rwx) // 16) * 16, 8 * n)
+    return msg + 2 * n * LANE + 4 * (mx + mz) + 8 * n
 
 
 def _graph_args(g: TannerGraph, dev) -> list:
@@ -438,70 +566,133 @@ def _graph_args(g: TannerGraph, dev) -> list:
             g.var_nbr_slot.data_ptr(), g.var_mask.data_ptr(), m, rw, cw]
 
 
-def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
-                  scale):
+def _sparse_args(sg: SparseHeadGraph, dev) -> list:
+    for t in sg:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"fused decode index planes must be contiguous "
+                             f"on {dev}")
+    if not 1 <= sg.rw <= 32:
+        raise ValueError(f"fused decode takes row weights 1..32, got {sg.rw}")
+    return [sg.chk_idx.data_ptr(), sg.mask.data_ptr(), sg.var_edge.data_ptr(),
+            sg.m, sg.rw, sg.var_edge.shape[1]]
+
+
+def _fused_outputs(spec, batch_size, blocks):
     base = spec.base
     dev = base.device
     _check_spec(base, dev)
-    n = base.n
     for llr in (spec.llr_z, spec.llr_x):
-        if (llr.dtype != torch.float32 or tuple(llr.shape) != (n,)
+        if (llr.dtype != torch.float32 or tuple(llr.shape) != (base.n,)
                 or llr.device != dev or not llr.is_contiguous()):
-            raise ValueError(f"channel LLRs must be contiguous float32 ({n},) "
-                             f"on {dev}")
-    if min(max_iter_z, max_iter_x) < 0:
-        raise ValueError("max_iter must be >= 0")
-    gz, gx = _graph_args(spec.graph_z, dev), _graph_args(spec.graph_x, dev)
-    lanes, smem = fused_block_lanes(n, gz[5], gz[6], gx[5], gx[6])
-    if not lanes:
-        raise ValueError("fused decode: one shot's messages and planes exceed "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    blocks = -(-batch_size // lanes)
+            raise ValueError(f"channel LLRs must be contiguous float32 "
+                             f"({base.n},) on {dev}")
     conv_z = torch.empty((batch_size,), dtype=torch.uint8, device=dev)
-    conv_x = torch.empty_like(conv_z)
     iter_z = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    iter_x = torch.empty_like(iter_z)
     part = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
-    _call("fused_decode", "fused_decode_launch",
-          [_U] * 5 + ([_P] * 5 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
-          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
-          [*_key_and_cuts(base, key), *gz, *gx, *_adj(base, "lx"),
-           *_adj(base, "lz"), spec.llr_z.data_ptr(), spec.llr_x.data_ptr(),
-           n, int(max_iter_z), int(max_iter_x), float(scale), eval_code,
-           batch_size, lanes, smem, conv_z.data_ptr(), iter_z.data_ptr(),
-           conv_x.data_ptr(), iter_x.data_ptr(), part.data_ptr()], dev)
-    fused_decode_stats.launches += 1
+    return (conv_z, iter_z, torch.empty_like(conv_z), torch.empty_like(iter_z),
+            part)
+
+
+def _fused_result(outs):
+    conv_z, iter_z, conv_x, iter_x, part = outs
     aux_z = {"converged": conv_z.to(torch.bool), "iterations": iter_z}
     aux_x = {"converged": conv_x.to(torch.bool), "iterations": iter_x}
     return part[:, 0].sum(dtype=torch.int32), part[:, 1].min(), aux_x, aux_z
 
 
+def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
+                  scale):
+    base = spec.base
+    dev = base.device
+    gz, gx = _graph_args(spec.graph_z, dev), _graph_args(spec.graph_x, dev)
+    lanes, smem = fused_block_lanes(base.n, gz[5], gz[6], gx[5], gx[6])
+    if not lanes:
+        raise ValueError("fused decode: one shot's messages and planes exceed "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    outs = _fused_outputs(spec, batch_size, batch_size // lanes)
+    _call("fused_decode", "fused_decode_launch",
+          [_U] * 5 + ([_P] * 5 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
+          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
+          [*_key_and_cuts(base, key), *gz, *gx, *_adj(base, "lx"),
+           *_adj(base, "lz"), spec.llr_z.data_ptr(), spec.llr_x.data_ptr(),
+           base.n, max_iter_z, max_iter_x, scale, eval_code, batch_size,
+           lanes, smem, *(t.data_ptr() for t in outs)], dev)
+    fused_decode_stats.launches += 1
+    return _fused_result(outs)
+
+
+def _launch_fused_int8(spec, key, batch_size, eval_code, max_iter_z,
+                       max_iter_x, scale, block_w):
+    base = spec.base
+    dev = base.device
+    sz, sx = _sparse_args(spec.sparse_z, dev), _sparse_args(spec.sparse_x, dev)
+    smem = fused_int8_smem_bytes(base.n, sz[3], sz[4], sx[3], sx[4])
+    if smem + _INT8_FUSED_STATIC > SMEM_LIMIT or block_w > INT8_FUSED_MAX_CLUSTER:
+        raise ValueError(
+            f"fused int8 decode: a block of {LANE} shots needs {smem} bytes of "
+            f"shared memory (at most {SMEM_LIMIT - _INT8_FUSED_STATIC}) and a "
+            f"tile of block_w={block_w} a cluster of {block_w} blocks (at "
+            f"most {INT8_FUSED_MAX_CLUSTER})")
+    outs = _fused_outputs(spec, batch_size, batch_size // LANE)
+    _call("fused_decode_int8", "fused_decode_int8_launch",
+          [_U] * 5 + ([_P] * 3 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 4
+          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
+          [*_key_and_cuts(base, key), *sz, *sx, *_adj(base, "hx"),
+           *_adj(base, "hz"), *_adj(base, "lx"), *_adj(base, "lz"),
+           spec.llr_z.data_ptr(), spec.llr_x.data_ptr(), base.n, max_iter_z,
+           max_iter_x, scale, eval_code, batch_size, block_w, smem,
+           *(t.data_ptr() for t in outs)], dev)
+    fused_decode_stats.int8_launches += 1
+    return _fused_result(outs)
+
+
+def fused_int8_active_clusters(spec: FusedDecodeSpec, block_w: int) -> int:
+    """How many tiles of ``block_w * 32`` shots the int8 fused kernel runs
+    at once on the current card (``cudaOccupancyMaxActiveClusters``); a
+    batch of T tiles runs in ceil(T / this) waves."""
+    n, mx, mz, rwz, rwx = spec.statics
+    fn = _kernels.library("fused_decode_int8").fused_decode_int8_active_clusters
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(spec.base.device):
+        return fn(int(block_w), fused_int8_smem_bytes(n, mx, rwz, mz, rwx))
+
+
 def fused_decode_stats(spec: FusedDecodeSpec, key, batch_size: int, *,
                        eval_type: str = "Total", max_iter_z: int,
                        max_iter_x: int, ms_scaling_factor: float = 0.625,
-                       quantize: str | None = None):
+                       quantize: str | None = None,
+                       block_w: int | None = None):
     """Whole-pipeline batch: sample, both syndromes, the Z then the X
-    sector's min-sum decode (f32 messages, each shot frozen at its first
-    convergence), residual checks.  Returns ``(failure count, min weight,
-    aux_x, aux_z)``: int32 device scalars and per-shot ``converged`` (bool)
-    and ``iterations`` (int32) of each sector.
+    sector's min-sum decode (each shot frozen at its first convergence, each
+    tile leaving its loop when all its shots have converged), residual
+    checks.  Returns ``(failure count, min weight, aux_x, aux_z)``: int32
+    device scalars and per-shot ``converged`` (bool) and ``iterations``
+    (int32) of each sector.
 
-    A spec on the card launches ``csrc/fused_decode.cu`` (or raises); on
-    the CPU this runs ``fused_decode_plain``.  ``quantize="int8"`` raises
-    ``NotImplementedError``: int8 messages wait for the int8 min-sum
-    kernel."""
-    if quantize is not None:
-        raise NotImplementedError(
-            f"quantize={quantize!r}: the fused decode has f32 messages only; "
-            "int8 messages wait for the int8 min-sum kernel")
+    Messages are bf16, or int8 with ``quantize="int8"``; the tile is
+    ``block_w * 32`` shots, ``block_w`` from ``fused_decode_block_w`` unless
+    given, and a batch that is not a multiple of it raises ``ValueError``.
+    A spec on the card launches ``csrc/fused_decode.cu`` (bf16, counted in
+    ``fused_decode_stats.launches``) or ``csrc/fused_decode_int8.cu``
+    (``.int8_launches``), or raises; on the CPU this runs
+    ``fused_decode_plain``."""
     batch_size = _check_batch(batch_size)
     code = _check_eval(eval_type)
+    block_w = _fused_tile(spec, batch_size, quantize, block_w)
+    if min(max_iter_z, max_iter_x) < 0:
+        raise ValueError("max_iter must be >= 0")
     if spec.base.device.type == "cuda" and not _kernels.plain_forced():
-        return _launch_fused(spec, key, batch_size, code, int(max_iter_z),
-                             int(max_iter_x), float(ms_scaling_factor))
+        args = (spec, key, batch_size, code, int(max_iter_z), int(max_iter_x),
+                float(ms_scaling_factor))
+        if quantize is None:
+            return _launch_fused(*args)
+        return _launch_fused_int8(*args, block_w)
     return fused_decode_plain(spec, key, batch_size, eval_type=eval_type,
                               max_iter_z=max_iter_z, max_iter_x=max_iter_x,
-                              ms_scaling_factor=ms_scaling_factor)
+                              ms_scaling_factor=ms_scaling_factor,
+                              quantize=quantize, block_w=block_w)
 
 
 fused_decode_stats.launches = 0
+fused_decode_stats.int8_launches = 0

@@ -14,11 +14,14 @@ which draw the JAX package's fused engines' errors seed for seed:
     decoders run, and ``residual_check_stats`` regenerates the errors from
     their counters for the checks;
   * ``"v2"``: ``fused_decode_stats`` runs the whole pipeline, min-sum decodes
-    included, in one kernel; plain float32 min-sum ``BPDecoder``s only (int8
-    decoders raise: the fused kernel has no int8 mode yet).
+    included, in one kernel, with plain min-sum ``BPDecoder``s: bf16
+    messages for float decoders, int8 messages with one scale per tile for
+    ``BPDecoder(quantize="int8")``, as the JAX package's v2 engine decodes.
 
-Both give the same failures and minimum weight for the same key: both decode
-with float32 min-sum frozen at each shot's first convergence.
+Both draw the same errors for the same key, and each gives the JAX
+package's engine of the same name its failures and minimum weight seed for
+seed.  v2 and v1 differ: v1 runs the decoders' own programs (float32
+min-sum with float decoders), v2 the JAX fused kernel's bf16 or int8 loop.
 
 Batches fold through the megabatch driver (``parallel/shots.py``): the
 count and min weight stay device tensors, read by the host once per run
@@ -123,14 +126,7 @@ class CodeSimulator_DataError:
                     "fused_sampler='v2' needs both sector decoders to share "
                     "ms_scaling_factor and quantize mode (got "
                     f"{msf_x}/{q_x} vs {msf_z}/{q_z})")
-            if q_x is not None:
-                # never run float32 quietly in place of the int8 decoders
-                raise NotImplementedError(
-                    "fused_sampler='v2' with quantize='int8' decoders needs "
-                    "the int8 mode of the fused decode kernel (the JAX "
-                    "package's _fused_decode_kernel), which the port does "
-                    "not have yet; use fused_sampler=True or False")
-            self._msf = msf_x
+            self._msf, self._quantize = msf_x, q_x
             self._fspec2 = gf2_kernel.build_fused_decode_spec(
                 code.hx, code.hz, code.lx, code.lz, self.channel_probs,
                 decoder_x.llr0, decoder_z.llr0, self.device)
@@ -175,7 +171,8 @@ class CodeSimulator_DataError:
         cnt, min_w, _aux_x, _aux_z = gf2_kernel.fused_decode_stats(
             self._fspec2, key, self.batch_size,
             eval_type=self.eval_logical_type, max_iter_z=self._iters_z,
-            max_iter_x=self._iters_x, ms_scaling_factor=self._msf)
+            max_iter_x=self._iters_x, ms_scaling_factor=self._msf,
+            quantize=self._quantize)
         return cnt, min_w
 
     def WordErrorRate(self, num_run: int, key=None, target_failures=None):

@@ -4,8 +4,9 @@
 Runs the main-path configurations of chip_smoke.py (hgp_34_n625, BP-50 at
 p=0.01 with batches of 4096 on the default path, with int8 min-sum
 decoders (quantize="int8"), with the dense one-hot head (bp_kernel="v1")
-and on both fused engines, fused_sampler=True and "v2"; BP-50 + OSD-E order 10 at p=0.05 with batches
-of 2048, on the blocked and the per-column elimination route; BP-50 +
+and on both fused engines, fused_sampler=True and "v2" (bf16 messages with
+float decoders, int8 with quantize="int8"); BP-50 + OSD-E order 10 at
+p=0.05 with batches of 2048, on the blocked and the per-column elimination route; BP-50 +
 OSD-CS order 10 at p=0.05 with batches of 2048) once to warm up and once
 under torch.profiler, and prints
 for each: wall time, shots/s, device time summed by kernel name (top 12),
@@ -64,6 +65,8 @@ def main() -> int:
              16 * 4096),
             ("fused v2 BP p=0.01", simulator(BPDecoder, 0.01, 4096, "v2"),
              16 * 4096),
+            ("fused v2 BP int8 p=0.01", simulator(BPDecoder, 0.01, 4096, "v2",
+                                                  quantize="int8"), 16 * 4096),
             ("BPOSD p=0.05", simulator(BPOSD_Decoder, 0.05, 2048,
                                        osd_order=10), 8 * 2048),
             ("BPOSD per-column p=0.05", simulator(

@@ -24,13 +24,19 @@ def test_every_kernel_source_is_listed_and_its_headers_found(csrc):
     assert set(names["fused_decode"]) == {"fused_decode.cu", "counter_gf2.cuh",
                                           "minsum_body.cuh"}
     assert names["gf2_sample"] == ["gf2_sample.cu", "counter_gf2.cuh"]
+    assert names["bp_int8"] == ["bp_int8.cu", "int8_body.cuh"]
+    assert set(names["fused_decode_int8"]) == {
+        "fused_decode_int8.cu", "counter_gf2.cuh", "int8_body.cuh"}
 
 
 @pytest.mark.parametrize("header,changed,kept", [
     ("minsum_body.cuh", {"bp_minsum", "fused_decode"},
      {"osd_elim", "gf2_sample", "gf2_residual"}),
-    ("counter_gf2.cuh", {"gf2_sample", "gf2_residual", "fused_decode"},
+    ("counter_gf2.cuh", {"gf2_sample", "gf2_residual", "fused_decode",
+                         "fused_decode_int8"},
      {"bp_minsum", "osd_elim"}),
+    ("int8_body.cuh", {"bp_int8", "fused_decode_int8"},
+     {"fused_decode", "bp_minsum", "bp_dense"}),
 ])
 def test_target_name_changes_with_an_included_header(csrc, header, changed,
                                                      kept):

@@ -4,8 +4,8 @@ These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
 skip without one; run them on a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
 kernel reproduces its plain version bit for bit (min-sum, alone or inside
-the fused decode, int8 min-sum, the dense one-hot head and the OSD-CS sweep
-are built with FMA contraction off; the eliminations, the counter-PRNG
+the fused decode in either message mode, int8 min-sum, the dense one-hot
+head and the OSD-CS sweep are built with FMA contraction off; the eliminations, the counter-PRNG
 sampler and the residual checks are integer-exact)."""
 import os
 
@@ -233,31 +233,49 @@ def test_residual_kernel_matches_plain(cuda, B, eval_type):
     assert (int(k[0]), int(k[1])) == (int(p[0]), int(p[1]))
 
 
-@pytest.mark.parametrize("name,B", [("rep3", 64), ("rep3", 50),
-                                    ("n225", 96), ("n1600", 20)])
-def test_fused_decode_kernel_matches_plain(cuda, name, B):
-    """hgp_34_n1600 takes 4 shots per block (shared memory), the others 8."""
+def _fused_spec(cuda, name, B, p=0.05):
     if name == "rep3":
         code = hgp(rep_code(3), rep_code(3))
     else:
         code = load_code(os.path.join(REPO, "codes_lib_tpu",
                                       f"hgp_34_{name}.npz"))
-    p = 0.05
     rng = np.random.default_rng(B)
     llr_x, llr_z = (tbp.llr_from_probs(rng.uniform(p / 4, p, code.N), cuda)
                     for _ in range(2))
-    spec = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+    return gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
                                       [p / 3] * 3, llr_x, llr_z, cuda)
+
+
+def _fused_matches_plain(spec, B, counter, **kw):
     kw = dict(eval_type="Total", max_iter_z=20, max_iter_x=15,
-              ms_scaling_factor=0.625)
-    before = gk.fused_decode_stats.launches
+              ms_scaling_factor=0.625, **kw)
+    before = getattr(gk.fused_decode_stats, counter)
     k = gk.fused_decode_stats(spec, KEY, B, **kw)
     pl = gk.fused_decode_plain(spec, KEY, B, **kw)
-    assert gk.fused_decode_stats.launches == before + 1
+    assert getattr(gk.fused_decode_stats, counter) == before + 1
     assert (int(k[0]), int(k[1])) == (int(pl[0]), int(pl[1]))
     for a, b in zip(k[2:], pl[2:]):
         for field in ("converged", "iterations"):
             assert torch.equal(a[field], b[field]), field
+
+
+@pytest.mark.parametrize("name,B", [("rep3", 64), ("rep3", 32),
+                                    ("n225", 96), ("n625", 256),
+                                    ("n1600", 32)])
+def test_fused_decode_kernel_matches_plain(cuda, name, B):
+    """The bf16 mode; hgp_34_n1600 takes 4 shots per block (shared memory),
+    the others 8."""
+    _fused_matches_plain(_fused_spec(cuda, name, B), B, "launches")
+
+
+@pytest.mark.parametrize("name,B,block_w", [("rep3", 64, 1), ("n225", 512, 8),
+                                            ("n225", 96, 1), ("n625", 512, 8),
+                                            ("n625", 128, 2)])
+def test_fused_decode_int8_kernel_matches_plain(cuda, name, B, block_w):
+    """The int8 mode, two or more tiles per batch (each tile its own
+    message scales)."""
+    _fused_matches_plain(_fused_spec(cuda, name, B), B, "int8_launches",
+                         quantize="int8", block_w=block_w)
 
 
 def test_fused_wrappers_reject_what_the_kernels_cannot_take(cuda):
@@ -269,6 +287,14 @@ def test_fused_wrappers_reject_what_the_kernels_cannot_take(cuda):
         gk.residual_check_stats(spec, KEY, 64, bad, bad)
     with pytest.raises(ValueError):
         gk.sample_syndrome(spec, KEY, 0)
+    kw = dict(max_iter_z=5, max_iter_x=5, quantize="int8")
+    spec2 = _fused_spec(cuda, "rep3", 64)
+    for batch, block_w in ((48, None), (1024, 32)):  # ragged; a cluster of 32
+        with pytest.raises(ValueError):
+            gk.fused_decode_stats(spec2, KEY, batch, block_w=block_w, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        # 32 shots of hgp_34_n1600's int8 messages and totals exceed a block
+        gk.fused_decode_stats(_fused_spec(cuda, "n1600", 32), KEY, 32, **kw)
 
 
 def _bits(res):

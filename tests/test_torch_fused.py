@@ -3,14 +3,17 @@
   * The plain ``sample_syndrome`` (both ``emit_errors``) and
     ``residual_check_stats`` (X/Z/Total) against the JAX package's XLA twins
     and its Pallas kernels in interpret mode.  Tolerance: none.
-  * The plain ``fused_decode_stats`` against a JAX reference composed of
+  * The plain ``fused_decode_stats`` against the JAX fused-decode twin,
+    whose messages are bf16: count, min weight and each shot's converged
+    flag and iterations identical.  Against a JAX reference composed of
     ``counter_draws`` -> ``packed_parity_apply`` -> f32 ``bp_decode`` ->
-    ``packed_residual_stats``: count, min weight and each shot's converged
-    flag and iterations identical.  Against the JAX fused-decode twin, whose
-    messages are bf16, counts agree within 4 binomial sigma.
-  * ``CodeSimulator_DataError(fused_sampler=True)`` against the JAX engine
-    with the same seed: the same failures and min weight, run after run.
-    The port's v2 equals its v1; p=0 gives no failure.
+    ``packed_residual_stats``, counts agree within 4 binomial sigma.
+    (``tests/test_torch_fused_v2.py`` holds both message modes against the
+    JAX package.)
+  * ``CodeSimulator_DataError`` with ``fused_sampler=True`` and ``"v2"``
+    (float and int8 decoders) against the JAX engine of the same mode with
+    the same seed: the same failures and min weight, run after run.  v2's
+    failures lie within 4 binomial sigma of v1's; p=0 gives no failure.
 """
 import os
 
@@ -153,74 +156,90 @@ def _jax_f32_reference(code, jspec, jkey, B, max_iter):
 
 @pytest.mark.parametrize("name,B", [("rep3", 256), ("n225", 256)])
 def test_fused_decode_matches_jax_f32_and_bf16(code, name, B):
+    """Exact against the JAX package's bf16 fused twin; within 4 binomial
+    sigma of float32 min-sum (the JAX package's bp_decode)."""
     c = code if name == "n225" else hgp(rep_code(3), rep_code(3))
     p, it = 0.05, 20
     jspec, tspec = _decode_specs(c, p)
     jkey, tkey = _key(11)
     cnt, mw, ax, az = gk.fused_decode_stats(tspec, tkey, B, max_iter_z=it,
                                             max_iter_x=it)
-    jcnt, jmw, rx, rz = _jax_f32_reference(c, jspec, jkey, B, it)
-    assert (int(cnt), int(mw)) == (int(jcnt), int(jmw))
-    for aux, res in ((ax, rx), (az, rz)):
-        assert np.array_equal(aux["converged"].numpy(),
-                              np.asarray(res.converged))
-        assert np.array_equal(aux["iterations"].numpy(),
-                              np.asarray(res.iterations))
-    # the JAX package's own fused twin stores bf16 messages
-    bcnt, _bmw, bx, bz = gp.fused_decode_stats(
+    bcnt, bmw, bx, bz = gp.fused_decode_stats(
         jspec, jkey, B, eval_type="Total", max_iter_z=it, max_iter_x=it,
         backend="xla", block_w=B // 32)
-    f_t, f_b = int(cnt) / B, int(bcnt) / B
-    sigma = np.sqrt((f_t * (1 - f_t) + f_b * (1 - f_b)) / B)
-    assert abs(f_t - f_b) <= 4 * sigma + 1e-12, (f_t, f_b)
-    same = np.mean([np.mean(np.asarray(b["converged"]) == a["converged"].numpy())
-                    for a, b in ((ax, bx), (az, bz))])
-    print(f"{name}: f32 {int(cnt)} vs bf16 {int(bcnt)} failures; "
+    assert (int(cnt), int(mw)) == (int(bcnt), int(bmw))
+    for aux, res in ((ax, bx), (az, bz)):
+        assert np.array_equal(aux["converged"].numpy(),
+                              np.asarray(res["converged"]))
+        assert np.array_equal(aux["iterations"].numpy(),
+                              np.asarray(res["iterations"]))
+    jcnt, _jmw, rx, rz = _jax_f32_reference(c, jspec, jkey, B, it)
+    f_b, f_f = int(cnt) / B, int(jcnt) / B
+    sigma = np.sqrt((f_b * (1 - f_b) + f_f * (1 - f_f)) / B)
+    assert abs(f_b - f_f) <= 4 * sigma + 1e-12, (f_b, f_f)
+    same = np.mean([np.mean(np.asarray(r.converged) == a["converged"].numpy())
+                    for a, r in ((ax, rx), (az, rz))])
+    print(f"{name}: bf16 {int(cnt)} vs f32 {int(jcnt)} failures; "
           f"converged flags identical on {same:.4f} of shots")
 
 
-def _sims(code, p, fused, seed=5, batch_size=256, kind="bp"):
+def _sims(code, p, fused, seed=5, batch_size=256, kind="bp", **kw):
     probs = np.full(code.N, 2 * p / 3)
     cls = {"bp": tdec.BPDecoder, "bposd": tdec.BPOSD_Decoder}[kind]
     return CodeSimulator_DataError(
-        code=code, decoder_x=cls(code.hz, probs, 50, device="cpu"),
-        decoder_z=cls(code.hx, probs, 50, device="cpu"),
+        code=code, decoder_x=cls(code.hz, probs, 50, device="cpu", **kw),
+        decoder_z=cls(code.hx, probs, 50, device="cpu", **kw),
         pauli_error_probs=[p / 3] * 3, seed=seed, batch_size=batch_size,
         fused_sampler=fused, device="cpu")
 
 
+ENGINE_MODES = ((True, None), ("v2", None), ("v2", "int8"))
+
+
 @pytest.fixture(scope="module")
 def jax_engine_runs(code):
-    """Two successive 4-batch WordErrorRate runs of the JAX fused engine,
-    then one run with an explicit positional key."""
+    """For each (fused_sampler, quantize) of ENGINE_MODES: two successive
+    4-batch WordErrorRate runs of the JAX engine, then one run with an
+    explicit positional key."""
     p = 0.03
     probs = np.full(code.N, 2 * p / 3)
-    jsim = jde.CodeSimulator_DataError(
-        code=code, decoder_x=jdec.BPDecoder(code.hz, probs, 50),
-        decoder_z=jdec.BPDecoder(code.hx, probs, 50),
-        pauli_error_probs=[p / 3] * 3, seed=5, batch_size=256,
-        fused_sampler=True)
-    runs = []
-    for key in (None, None, jax.random.PRNGKey(9)):
-        wer = jsim.WordErrorRate(1024, key) if key is not None \
-            else jsim.WordErrorRate(1024)
-        runs.append((wer, jsim.min_logical_weight))
-    return runs
+    out = {}
+    for fused, quantize in ENGINE_MODES:
+        kw = {"quantize": quantize} if quantize else {}
+        jsim = jde.CodeSimulator_DataError(
+            code=code, decoder_x=jdec.BPDecoder(code.hz, probs, 50, **kw),
+            decoder_z=jdec.BPDecoder(code.hx, probs, 50, **kw),
+            pauli_error_probs=[p / 3] * 3, seed=5, batch_size=256,
+            fused_sampler=fused)
+        runs = []
+        for key in (None, None, jax.random.PRNGKey(9)):
+            wer = jsim.WordErrorRate(1024, key) if key is not None \
+                else jsim.WordErrorRate(1024)
+            runs.append((wer, jsim.min_logical_weight))
+        out[fused, quantize] = runs
+    return out
 
 
 def test_fused_engine_matches_jax_engine_seed_for_seed(code, jax_engine_runs):
-    for fused in (True, "v2"):
-        sim = _sims(code, 0.03, fused)
-        for want in jax_engine_runs[:2]:
+    """Each mode against the JAX engine of the same mode: v1 decodes with
+    the decoders' own programs, v2 with the JAX fused kernel's bf16 loop, or
+    its int8 loop for int8 decoders."""
+    for fused, quantize in ENGINE_MODES:
+        kw = {"quantize": quantize} if quantize else {}
+        sim = _sims(code, 0.03, fused, **kw)
+        want = jax_engine_runs[fused, quantize]
+        for w in want[:2]:
             wer = sim.WordErrorRate(1024)
             assert sim.last_shots == 1024 and sim.last_failures > 0
-            assert (wer, sim.min_logical_weight) == want, fused
+            assert (wer, sim.min_logical_weight) == w, (fused, quantize)
+        wer = sim.WordErrorRate(1024, (0, 9))
+        assert (wer, sim.min_logical_weight) == want[2], (fused, quantize)
 
 
 def test_word_error_rate_takes_key_positionally(code, jax_engine_runs):
     sim = _sims(code, 0.03, True)
     wer = sim.WordErrorRate(1024, (0, 9))
-    assert (wer, sim.min_logical_weight) == jax_engine_runs[2]
+    assert (wer, sim.min_logical_weight) == jax_engine_runs[True, None][2]
     assert sim.WordErrorRate(1024, key=np.array([0, 9], np.uint32)) == wer
     early = _sims(code, 0.03, "v2")
     early.WordErrorRate(8192, (0, 9), 1)
@@ -228,13 +247,20 @@ def test_word_error_rate_takes_key_positionally(code, jax_engine_runs):
 
 
 def test_fused_v2_equals_v1_and_zero_noise(code):
+    """v2 (bf16 messages) and v1 (float32) decode the same errors: their
+    failures agree within 4 combined binomial sigma, not exactly.  p=0
+    gives no failure in any mode."""
     one, two = _sims(code, 0.05, True, seed=2), _sims(code, 0.05, "v2", seed=2)
     for _ in range(2):
-        assert one.WordErrorRate(512) == two.WordErrorRate(512)
-        assert one.last_failures == two.last_failures > 0
-        assert one.min_logical_weight == two.min_logical_weight
-    for fused in (True, "v2"):
-        zero = _sims(code, 0.0, fused)
+        one.WordErrorRate(512)
+        two.WordErrorRate(512)
+        f1, f2 = one.last_failures / 512, two.last_failures / 512
+        sigma = np.sqrt((f1 * (1 - f1) + f2 * (1 - f2)) / 512)
+        assert one.last_failures > 0 and two.last_failures > 0
+        assert abs(f1 - f2) <= 4 * sigma, (f1, f2)
+    for fused, quantize in ENGINE_MODES:
+        kw = {"quantize": quantize} if quantize else {}
+        zero = _sims(code, 0.0, fused, **kw)
         assert zero.WordErrorRate(512) == (0.0, 0.0)
         assert zero.last_failures == 0 and zero.min_logical_weight == code.N
 
@@ -267,9 +293,21 @@ def test_fused_engines_reject_what_they_cannot_run(code):
         CodeSimulator_DataError(code=code, decoder_x=bp[0], decoder_z=other,
                                 fused_sampler="v2", device="cpu")
     _, tspec = _decode_specs(code, 0.03)
-    with pytest.raises(NotImplementedError):
-        gk.fused_decode_stats(tspec, (0, 1), 64, max_iter_z=5, max_iter_x=5,
-                              quantize="int8")
+    for quantize in (None, "int8"):
+        with pytest.raises(ValueError, match="divisible by 32"):
+            gk.fused_decode_stats(tspec, (0, 1), 48, max_iter_z=5,
+                                  max_iter_x=5, quantize=quantize)
+    int8 = [tdec.BPDecoder(h, probs, 20, quantize="int8", device="cpu")
+            for h in (code.hz, code.hx)]
+    with pytest.raises(ValueError, match="quantize"):
+        CodeSimulator_DataError(code=code, decoder_x=int8[0],
+                                decoder_z=bp[1], fused_sampler="v2",
+                                device="cpu")
+    ragged = CodeSimulator_DataError(code=code, decoder_x=int8[0],
+                                     decoder_z=int8[1], fused_sampler="v2",
+                                     batch_size=48, device="cpu")
+    with pytest.raises(ValueError, match="divisible by 32"):
+        ragged.WordErrorRate(48)
 
 
 def test_fused_spec_from_jax_round_trip(code):
