@@ -5,24 +5,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build all nine kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
+  2. build all eight kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
      (one nvcc per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
   4. kernel 2 (GF(2) elimination) against its plain version: B=256 shots
      BP failed in phase 3, permuted by their posteriors
   5. main path, BP: CodeSimulator_DataError WER on hgp_34_n625, BP-50,
-     depolarizing p=0.01, 16 batches of 4096
+     depolarizing p=0.01, 16 batches of 4096 (default decoders: on the card
+     the two-phase head and tail run in the bf16 head)
   6. main path, BPOSD: the same code, BP-50 + OSD-E order 10, p=0.05,
      8 batches of 2048
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
      replaced by its plain version gives the same failures and min weight;
-     a small batch decoded on the CPU and on the card agrees
-  8. a "kernels" JSON line, printed after phase 25: for all eleven kernels
-     the main-path launches (phases 5-6 for kernels 1-2, phase 12 for B3
-     and B4, phase 16 for B7 and B8, phase 17 for B10, phase 21 for B6,
-     phase 22 for B9, phase 25 for B5's bf16 and int8 modes), error against
-     the plain version, times, bound
+     64 shots (no head engages: float32 on both) and 256 shots (the card's
+     bf16 head against the CPU running the same head's plain version)
+     decoded on the CPU and on the card agree
+  8. a "kernels" JSON line, printed after phase 26: for all eleven kernels
+     the main-path launches (phase 26 for kernel 1, phase 6 for kernel 2,
+     phase 5 for the bf16 head, phase 12 for B3 and B4, phase 16 for B7 and
+     B8, phase 17 for B10, phase 21 for B6, phase 25 for B5's bf16 and int8
+     modes), error against the plain version, times, bound; the bf16 head
+     has a second entry for the v1 tag's route (it replaces the dense
+     one-hot B9 too), with phase 22's launches
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -54,12 +59,18 @@ Phases (any failure raises and the script exits non-zero):
      syndromes: the head at tile 256 without early exit, and a compacted
      tail of 1024 rows (stragglers of a 3-iteration int8 head and zero
      sentinel rows) at tile 512 with early exit; every output bit-exact
- 20. kernel B9 (dense one-hot head) against its plain version on the same
-     syndromes, 50 iterations; every output bit-exact
+ 20. the bf16 head (B1's bf16 mode, which serves the v1 tag in place of
+     the dense one-hot B9) against its plain version minsum_dense_plain on
+     the same syndromes: the head at tile 256 without early exit, 50
+     iterations, and a compacted tail of 1024 rows (stragglers of a
+     3-iteration head and zero sentinel rows) with early exit; every
+     output bit-exact
  21. main path, int8: phase 5's run with BPDecoder(quantize="int8"); its
      WER within int8_parity_tolerance of phase 5's
- 22. main path, v1: phase 5's run with BPDecoder(bp_kernel="v1"); its
-     failures within 4 combined binomial standard errors of phase 5's
+ 22. main path, v1: phase 5's run with BPDecoder(bp_kernel="v1"); the same
+     kernel as phase 5, so its failures and min weight equal phase 5's
+     unless a head gate differs between the tags (then it names the gate
+     and holds the failures within 4 combined binomial standard errors)
  23. anchors: int8 and v1 at p=0 give no failure; one int8 and one v1
      batch with every kernel replaced by its plain version give the kernel
      path's failures and min weight; a fused-v1 batch with int8 decoders
@@ -74,6 +85,8 @@ Phases (any failure raises and the script exits non-zero):
      phase 12's v1, int8 WER within int8_parity_tolerance of bf16; one batch
      of each with every kernel replaced by its plain version gives the
      kernel path's failures and min weight
+ 26. main path, float32: phase 5's run with BPDecoder(bp_kernel="xla"),
+     kernel 1 (min-sum, float32 messages) in head and tail
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -102,6 +115,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # compares and 2 logic ops
 DRAW_OPS = 1 + (20 * 3 - 2) + 9 + (3 + 2)
 SEED = 20261016
+# (failures, min weight) of phases 21 and 25's int8 runs at SEED: the int8
+# function's results, which a change to its kernels must keep
+# (scripts/ab_int8_body.py gives them for two checkouts side by side)
+INT8_RUNS = {"21": (212, 3), "25": (231, 3)}
 
 
 def log(msg: str) -> None:
@@ -195,7 +212,6 @@ def bp_bound_ms(graph, B: int, iters_total: int) -> tuple[float, str]:
 # the new v2c's |v| and max; its quantization: 4); per variable 4 float32
 # operations (convert, fused multiply-add, bf16 rounding, compare).
 INT8_EDGE_INT_OPS, INT8_EDGE_FP_OPS, INT8_VAR_FP_OPS = 7, 20, 4
-BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 
 def int8_bound_ms(sgraph, B: int, shot_iters: int) -> tuple[float, str]:
@@ -219,14 +235,6 @@ def int8_shot_iters(iters, block_b: int, head_iters: int,
     if not early_stop:
         return iters.numel() * head_iters
     return int(iters.reshape(-1, block_b).amax(dim=1).sum()) * block_b
-
-
-def dense_tensor_core_ms(pgraph, shot_iters: int, B: int) -> float:
-    """Time of B9's one-hot products at the bf16 tensor-core rate: 2 r m n
-    operations per product, one init gather per slot and shot, and per
-    shot-iteration a gather and a scatter per slot."""
-    ops = 2 * pgraph.rw * pgraph.m * pgraph.n * (B + 2 * shot_iters)
-    return ops / BF16_TC_OPS_PER_S * 1e3
 
 
 def message_bytes(graph) -> int:
@@ -508,17 +516,38 @@ def main() -> int:
             f"{sim.last_megabatches}")
         return sim.last_failures, sim.min_logical_weight
 
-    # 5-6. the main path, counts reset just before and read just after
-    bp_minsum.launches = 0
-    tod.osd_elim.launches = 0
-    run5 = wer_phase("5 BP p=0.01", simulator(BPDecoder, 0.01, 4096, SEED), 16)
-    l5 = bp_minsum.launches
-    run6 = wer_phase("6 BPOSD p=0.05", simulator(
-        BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e", osd_order=10), 8)
-    launches_56 = {"bp_minsum": bp_minsum.launches,
-                   "osd_elim": tod.osd_elim.launches}
-    log(f"[5-6] main-path launches {launches_56} (bp_minsum {l5} in phase 5)")
-    for name, count in launches_56.items():
+    counters = {"gf2_sample": (gk.sample_syndrome, "launches"),
+                "gf2_residual": (gk.residual_check_stats, "launches"),
+                "fused_decode": (gk.fused_decode_stats, "launches"),
+                "fused_decode_int8": (gk.fused_decode_stats, "int8_launches"),
+                "bp_minsum": (bp_minsum, "launches"),
+                "osd_elim": (tod.osd_elim, "launches"),
+                "osd_elim_full": (tod.osd_elim, "full_launches"),
+                "osd_elim_percol": (tod.osd_elim_percol, "launches"),
+                "cs_sweep": (tcs.cs_sweep, "launches"),
+                "bp_int8": (bk.bp_head_int8, "launches"),
+                "bp_minsum_bf16": (bk.bp_head_bf16, "launches")}
+
+    def counted(fn):
+        """Every launch count set to 0, ``fn`` run, the counts read; returns
+        ``fn()``'s result and the counts."""
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        out = fn()
+        return out, {name: getattr(obj, attr)
+                     for name, (obj, attr) in counters.items()}
+
+    # 5-6. the main path, counts reset just before each run, read just after
+    sim5 = simulator(BPDecoder, 0.01, 4096, SEED)
+    run5, launches_5 = counted(lambda: wer_phase("5 BP p=0.01", sim5, 16))
+    sim6 = simulator(BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e",
+                     osd_order=10)
+    run6, launches_6 = counted(lambda: wer_phase("6 BPOSD p=0.05", sim6, 8))
+    log(f"[5] launches {launches_5}; decoders' program "
+        f"{sim5.decoder_z.kernel_variant}\n[6] launches {launches_6}")
+    for name, count in (("bp_minsum_bf16", launches_5["bp_minsum_bf16"]),
+                        ("bp_minsum_bf16", launches_6["bp_minsum_bf16"]),
+                        ("osd_elim", launches_6["osd_elim"])):
         if count <= 0:
             raise AssertionError(f"{name} never launched on the main path")
 
@@ -562,6 +591,33 @@ def main() -> int:
         raise AssertionError("card and CPU BPOSD disagree beyond cost ties")
     log(f"[7] {Bs} BPOSD shots, card vs CPU: {int(same.sum())} identical, "
         f"{int((~same & tied).sum())} cost-tied, all syndrome-consistent")
+    # 256 shots: the card's bf16 head engages; a default CPU decoder decodes
+    # in float32, so the CPU runs the same head's plain version, passed in
+    Bh = 256
+    e_head = (rng.random((Bh, n)) < 2 * p1 / 3).astype(np.uint8)
+    s_head = torch.from_numpy((e_head @ hx.T % 2).astype(np.uint8))
+    card_dec = BPOSD_Decoder(hx, probs, 50, device=dev)
+    cpu_dec = BPOSD_Decoder(hx, probs, 50, device="cpu")
+    head = card_dec.device_state["pallas"]
+    cpu_state = dict(cpu_dec.device_state,
+                     pallas=type(head)(*(t.cpu() for t in head)))
+    before = bk.bp_head_bf16.launches
+    out_gpu, aux_gpu = card_dec.decode_batch_device(s_head)
+    if bk.bp_head_bf16.launches == before:
+        raise AssertionError("the card's 256-shot decode missed the bf16 head")
+    out_cpu, aux_cpu = decode_device(card_dec.device_static, cpu_state, s_head)
+    for field in ("converged", "iterations", "posterior_llr"):
+        if not torch.equal(aux_gpu[field].cpu(), aux_cpu[field]):
+            raise AssertionError(f"card and CPU bf16 BP {field} differ")
+    out_gpu, out_cpu = out_gpu.cpu().numpy(), out_cpu.numpy()
+    same = (out_gpu == out_cpu).all(axis=1)
+    tied = np.abs(out_gpu @ cost - out_cpu @ cost) < 1e-4
+    if not (same | tied).all() or not (
+            (out_gpu @ hx.T % 2) == s_head.numpy()).all():
+        raise AssertionError("card and CPU BPOSD with the bf16 head disagree")
+    log(f"[7] {Bh} BPOSD shots through the bf16 head, card vs CPU plain: BP "
+        f"outputs bit-exact (converged {float(aux_gpu['converged'].float().mean()):.4f}); "
+        f"{int(same.sum())} identical, {int((~same & tied).sum())} cost-tied")
 
     # 9. kernel B3 vs its plain version
     key = gk.fold_in(gk.split_key(gk.prng_key(SEED))[1], 0)
@@ -633,38 +689,17 @@ def main() -> int:
             pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
             scan_chunk=8, fused_sampler=fused, device=dev)
 
-    counters = {"gf2_sample": (gk.sample_syndrome, "launches"),
-                "gf2_residual": (gk.residual_check_stats, "launches"),
-                "fused_decode": (gk.fused_decode_stats, "launches"),
-                "fused_decode_int8": (gk.fused_decode_stats, "int8_launches"),
-                "bp_minsum": (bp_minsum, "launches"),
-                "osd_elim": (tod.osd_elim, "launches"),
-                "osd_elim_full": (tod.osd_elim, "full_launches"),
-                "osd_elim_percol": (tod.osd_elim_percol, "launches"),
-                "cs_sweep": (tcs.cs_sweep, "launches"),
-                "bp_int8": (bk.bp_head_int8, "launches"),
-                "bp_dense": (bk.bp_head_dense, "launches")}
-
-    def counted(fn):
-        """Every launch count set to 0, ``fn`` run, the counts read; returns
-        ``fn()``'s result and the counts."""
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-        out = fn()
-        return out, {name: getattr(obj, attr)
-                     for name, (obj, attr) in counters.items()}
-
     fused_launches = {}
     runs = {}
     for tag, make, n_batches, needs in (
             ("v1 BP p=0.01", lambda: fused_sim(BPDecoder, 0.01, 4096, True),
-             16, ("gf2_sample", "gf2_residual", "bp_minsum")),
+             16, ("gf2_sample", "gf2_residual", "bp_minsum_bf16")),
             ("v2 BP p=0.01", lambda: fused_sim(BPDecoder, 0.01, 4096, "v2"),
              16, ("fused_decode",)),
             ("v1 BPOSD p=0.05", lambda: fused_sim(
                 BPOSD_Decoder, 0.05, 2048, True, osd_method="osd_e",
                 osd_order=10), 4,
-             ("gf2_sample", "gf2_residual", "bp_minsum", "osd_elim"))):
+             ("gf2_sample", "gf2_residual", "bp_minsum_bf16", "osd_elim"))):
         sim = make()
         _, launches = counted(lambda: wer_phase(f"12 {tag}", sim, n_batches))
         log(f"[12 {tag}] launches {launches}")
@@ -825,7 +860,7 @@ def main() -> int:
     run17, launches_17 = counted(
         lambda: wer_phase("17 BPOSD percol p=0.05", sim17, 8))
     log(f"[17] launches {launches_17}")
-    for name, count in (("bp_minsum", launches_16["bp_minsum"]),
+    for name, count in (("bp_minsum_bf16", launches_16["bp_minsum_bf16"]),
                         ("osd_elim_full", launches_16["osd_elim_full"]),
                         ("cs_sweep", launches_16["cs_sweep"]),
                         ("osd_elim_percol", launches_17["osd_elim_percol"])):
@@ -918,33 +953,52 @@ def main() -> int:
         f"cluster) {bk.int8_layout(256, 7, m, n)} / "
         f"{bk.int8_layout(512, 7, m, n)}")
 
-    # 20. kernel B9 vs its plain version on the same syndromes
-    pg = bk.build_pallas_head(graph_host, dev)
+    # 20. the bf16 head vs its plain version on the same syndromes: the head
+    # at the v2 gate's tile without early exit, then a compacted tail with
+    # early exit, as phase 19 runs B6
+    sgh = bk.build_sparse_head(graph_host, dev)
 
-    def run_b9():
-        return bk.bp_head_dense(pg, synd, llr0, head_iters=it1,
-                                early_stop=True, **kw6)
+    def run_bf16():
+        return bk.bp_head_bf16(sgh, synd, llr0, head_iters=it1, **kw6)
 
-    k9 = run_b9()
+    kb = run_bf16()
     torch.cuda.synchronize()
     with _kernels.force_plain():
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        p9 = run_b9()
+        pb = run_bf16()
         t1.record()
         torch.cuda.synchronize()
-        b9_plain_ms = t0.elapsed_time(t1)
-    b9_err = bits_equal("B9", k9, p9)  # tolerance 0: exact products, fixed order
-    b9_ms = event_ms(run_b9, 3)
-    b9_iters = int(k9[3].sum())
-    b9_bound, b9_by = bp_bound_ms(graph, B1, b9_iters)
-    b9_tc_ms = dense_tensor_core_ms(pg, b9_iters, B1)
-    log(f"[20] B9 == plain (converged {float(k9[1].float().mean()):.4f}, "
-        f"{b9_iters} shot-iterations); kernel {b9_ms:.3f} ms, plain "
-        f"{b9_plain_ms:.3f} ms (one call), min-sum bound {b9_bound:.4f} ms "
-        f"({b9_by}), its one-hot products at the bf16 tensor-core rate "
-        f"{b9_tc_ms:.4f} ms")
+        bf16_plain_ms = t0.elapsed_time(t1)
+    # tolerance 0: the plain version's operation order, -fmad=false
+    bf16_err = bits_equal("bf16 head", kb, pb)
+    head3b = bk.bp_head_bf16(sgh, synd, llr0, head_iters=3, **kw6)
+    stragb = torch.nonzero(~head3b[1]).flatten()[:768]
+    tail_b = torch.cat([synd[stragb], synd.new_zeros((1024 - stragb.numel(), m))])
+
+    def run_bf16_tail():
+        return bk.bp_head_bf16(sgh, tail_b, llr0, head_iters=it1,
+                               early_stop=True, **kw6)
+
+    kbt = run_bf16_tail()
+    with _kernels.force_plain():
+        pbt = run_bf16_tail()
+    torch.cuda.synchronize()
+    bf16_err = max(bf16_err, bits_equal("bf16 head tail", kbt, pbt))
+    bf16_ms, bf16_tail_ms = event_ms(run_bf16, 5), event_ms(run_bf16_tail, 5)
+    bf16_dev_ms = device_ms(run_bf16, 5, "bp_minsum_kernel")
+    bf16_iters = int(kb[3].sum())
+    bf16_bound, bf16_by = bp_bound_ms(graph, B1, bf16_iters)
+    log(f"[20] bf16 head == plain (head at tile 256, 50 iterations: converged "
+        f"{float(kb[1].float().mean()):.4f}, {bf16_iters} shot-iterations; "
+        f"tail of {stragb.numel()} stragglers + {1024 - stragb.numel()} "
+        f"sentinel rows with early exit: converged "
+        f"{float(kbt[1].float().mean()):.4f}); head {bf16_ms:.3f} ms by events, "
+        f"{bf16_dev_ms:.3f} ms profiler device time, plain {bf16_plain_ms:.3f} "
+        f"ms (one call), bound {bf16_bound:.4f} ms ({bf16_by}; kernel 1's "
+        f"operation count); tail {bf16_tail_ms:.3f} ms; "
+        f"{bk.block_lanes(m, 7, n, edge_bytes=6)} shots per block")
 
     # 21-22. main path, int8 and v1: phase 5's run, counts reset just before
     # each, read just after
@@ -961,23 +1015,39 @@ def main() -> int:
         f"1 {launches_21['bp_minsum']}")
     if abs(wer21 - wer5) > tol21:
         raise AssertionError("int8 WER outside int8_parity_tolerance")
+    if tuple(run21) != INT8_RUNS["21"]:
+        raise AssertionError(f"int8 (failures, min_w) {run21} != "
+                             f"{INT8_RUNS['21']}")
     sim22 = simulator(BPDecoder, 0.01, 4096, SEED, bp_kernel="v1")
     run22, launches_22 = counted(lambda: wer_phase("22 BP v1 p=0.01",
                                                    sim22, 16))
-    f5, f22 = run5[0] / shots5, run22[0] / shots5
-    sigma22 = ((f5 * (1 - f5) + f22 * (1 - f22)) / shots5) ** 0.5
-    log(f"[22] launches {launches_22}; v1 failures {run22[0]} vs phase 5 "
-        f"{run5[0]}: |diff| {abs(f22 - f5):.3e} of the shots <= 4 sigma "
-        f"{4 * sigma22:.3e}; B9 {launches_22['bp_dense']} launches, float32 "
-        f"kernel 1 {launches_22['bp_minsum']}")
-    if abs(f22 - f5) > 4 * sigma22:
-        raise AssertionError("v1 failures outside 4 binomial sigma")
+    log(f"[22] launches {launches_22}; v1 (failures, min_w) {run22} vs phase "
+        f"5's {run5}; bf16 head {launches_22['bp_minsum_bf16']} launches, "
+        f"float32 kernel 1 {launches_22['bp_minsum']}")
     for name, count in (("bp_int8", launches_21["bp_int8"]),
-                        ("bp_dense", launches_22["bp_dense"])):
+                        ("bp_minsum_bf16", launches_22["bp_minsum_bf16"])):
         if count <= 0:
             raise AssertionError(f"{name} never launched on its main path")
-    if launches_21["bp_dense"] or launches_22["bp_int8"]:
+    if launches_21["bp_minsum_bf16"] or launches_22["bp_int8"]:
         raise AssertionError("a head kernel ran off its route")
+    if run22 != run5:
+        # both tags run the bf16 head: only a gate that sends one tag's
+        # batch or tail to float32 and not the other's can part them
+        heads = (sim5.decoder_z.device_state["pallas"],
+                 sim22.decoder_z.device_state["pallas"])
+        # the head's gate at the batch (tile 256), the tails' at their
+        # capacities (tile up to 512)
+        gates = [cap for cap, want in ((4096, 256), (256, 512), (1024, 512))
+                 if len({h.max_block_b(cap, want=want) > 0 for h in heads}) > 1]
+        f5, f22 = run5[0] / shots5, run22[0] / shots5
+        sigma22 = ((f5 * (1 - f5) + f22 * (1 - f22)) / shots5) ** 0.5
+        log(f"[22] v1 differs from phase 5: the tile gate at capacities "
+            f"{gates} admits one tag's head and not the other's; |diff| "
+            f"{abs(f22 - f5):.3e} of the shots <= 4 sigma {4 * sigma22:.3e}")
+        if not gates or abs(f22 - f5) > 4 * sigma22:
+            raise AssertionError("v1 and v2 differ beyond their gates")
+    else:
+        log("[22] v1 == phase 5 (v2): one kernel, the same gates")
 
     # 23. anchors
     for tag, kw in (("int8", {"quantize": "int8"}), ("v1", {"bp_kernel": "v1"})):
@@ -1104,6 +1174,9 @@ def main() -> int:
         raise AssertionError("v2 bf16 failures outside 4 binomial sigma of v1")
     if abs(wer_q - wer_b) > tol25:
         raise AssertionError("v2 int8 WER outside int8_parity_tolerance")
+    if tuple(run25q) != INT8_RUNS["25"]:
+        raise AssertionError(f"v2 int8 (failures, min_w) {run25q} != "
+                             f"{INT8_RUNS['25']}")
     for tag, kw in (("bf16", {}), ("int8", {"quantize": "int8"})):
         sims = [fused_sim(BPDecoder, 0.01, 4096, "v2", **kw) for _ in range(2)]
         sims[0].WordErrorRate(4096)
@@ -1116,18 +1189,33 @@ def main() -> int:
         log(f"[25] v2 {tag}, one p=0.01 batch: kernel path == plain path "
             f"(failures, min_w) {got[0]}")
 
+    # 26. main path, float32 min-sum: phase 5's run with kernel 1 in head and
+    # tail; counts reset just before, read just after
+    sim26 = simulator(BPDecoder, 0.01, 4096, SEED, bp_kernel="xla")
+    run26, launches_26 = counted(lambda: wer_phase("26 BP xla p=0.01",
+                                                   sim26, 16))
+    f5, f26 = run5[0] / shots5, run26[0] / shots5
+    sigma26 = ((f5 * (1 - f5) + f26 * (1 - f26)) / shots5) ** 0.5
+    log(f"[26] launches {launches_26}; float32 failures {run26[0]} vs bf16 "
+        f"(phase 5) {run5[0]}: |diff| {abs(f26 - f5):.3e} of the shots <= 4 "
+        f"sigma {4 * sigma26:.3e}")
+    if launches_26["bp_minsum"] <= 0 or launches_26["bp_minsum_bf16"]:
+        raise AssertionError("bp_kernel='xla' missed kernel 1 or ran the head")
+    if abs(f26 - f5) > 4 * sigma26:
+        raise AssertionError("float32 and bf16 failures beyond 4 binomial sigma")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
-         "launches": launches_56["bp_minsum"], "max_abs_err": k1_err,
+         "launches": launches_26["bp_minsum"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "osd_elim", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:547",
-         "launches": launches_56["osd_elim"], "max_abs_err": float(k2_err),
+         "launches": launches_6["osd_elim"], "max_abs_err": float(k2_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "gf2_sample", "route": "cuda",
@@ -1187,12 +1275,19 @@ def main() -> int:
          "launches": launches_21["bp_int8"], "max_abs_err": b6_err,
          "ms": b6_ms, "plain_ms": b6_plain_ms, "bound_ms": b6_bound,
          "bound_by": b6_by, "library_ms": None},
-        {"name": "bp_dense", "route": "cuda",
-         "source": f"{PKG}/csrc/bp_dense.cu",
+        {"name": "bp_minsum_bf16", "route": "cuda",
+         "source": f"{PKG}/csrc/bp_minsum.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
+         "launches": launches_5["bp_minsum_bf16"], "max_abs_err": bf16_err,
+         "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
+         "bound_by": bf16_by, "library_ms": None},
+        # the v1 tag's route: the same kernel over a PallasHeadGraph
+        {"name": "bp_minsum_bf16_v1", "route": "cuda",
+         "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:335",
-         "launches": launches_22["bp_dense"], "max_abs_err": b9_err,
-         "ms": b9_ms, "plain_ms": b9_plain_ms, "bound_ms": b9_bound,
-         "bound_by": b9_by, "library_ms": None},
+         "launches": launches_22["bp_minsum_bf16"], "max_abs_err": bf16_err,
+         "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
+         "bound_by": bf16_by, "library_ms": None},
     ]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,18 +15,21 @@
 // leaves its loop when all its shots have converged.
 //
 // Design: a tile of block_b shots is a cluster of block_b / lanes blocks
-// (lanes <= 32 shots each, at most 16 blocks: a non-portable cluster size).
-// Each block keeps its shots' int8 messages and bf16 totals in shared
-// memory: lanes * rw * m bytes (rounded up to 16) + lanes * 2 * n bytes; the
-// tile maxima go through distributed shared memory (int8_body.cuh).  One
-// launch for the whole batch, no host synchronisation inside.  The hard
-// decision and posterior of a live shot are written to device memory every
-// iteration.
+// of 1024 threads (lanes <= 32 shots each, at most 16 blocks: a
+// non-portable cluster size; a 256-shot tile at hgp_34_n625 is 8 blocks of
+// 32 shots).  Each block keeps in shared memory its shots' int8 messages
+// (lanes * rw * m, rounded up to 16) and bf16 totals (2 * n * lanes), and,
+// where it fits beside them (the wrapper's choice, from the shape), the
+// index plane as 16-bit indices (2 * rw * m, rounded up to 16): 111,408 B
+// at hgp_34_n625, so two blocks share an SM; the tile maxima go through
+// distributed shared memory (int8_body.cuh).  One launch for the whole
+// batch, no host synchronisation inside.  The hard decision and posterior
+// of a live shot are written to device memory every iteration.
 //
-// Bound: latency of the passes between barriers; per shot-iteration the
-// messages cost a few bytes of shared-memory traffic per edge, and the
-// posterior and hard decision of a live shot 5 bytes of device memory per
-// variable.
+// Bound: latency of the passes between barriers (two cluster barriers per
+// iteration); per shot-iteration the messages cost a few bytes of
+// shared-memory traffic per edge, and the posterior and hard decision of a
+// live shot 5 bytes of device memory per variable.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +44,10 @@ namespace {
 using int8body::kMaxLanes;
 using int8body::kThreads;
 constexpr int kMaxCluster = 16;
+
+__host__ __device__ inline size_t round16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
 
 // B6's inputs and outputs: syndrome of shot b in an (m, B) layout, and the
 // live shot's hard decision and posterior written every iteration (they
@@ -65,6 +72,7 @@ struct DeviceIo {
   }
 };
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
                const float* __restrict__ llr0,        // (n,)
@@ -85,14 +93,18 @@ bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
   const int row = threadIdx.x / lanes;
   const int rows = kThreads / lanes;
   const int b = blockIdx.x * lanes + lane;
-  int8_t* msg = (int8_t*)smem;  // [e * lanes + lane]
-  __nv_bfloat16* totb =         // [j * lanes + lane]
-      (__nv_bfloat16*)(smem + (((size_t)rw * m * lanes + 15) & ~(size_t)15));
+  const size_t edges = (size_t)rw * m;
+  int16_t* idx = (int16_t*)smem;  // [e], with kStaged
+  int8_t* msg =                   // [e * lanes + lane]
+      (int8_t*)(smem + (kStaged ? round16(2 * edges) : 0));
+  __nv_bfloat16* totb =           // [j * lanes + lane]
+      (__nv_bfloat16*)(msg + round16(edges * lanes));
 
   const int8body::Planes g{chk_idx, mask, var_edge, llr0, m, n, rw, cw};
   DeviceIo io{synd, llr0, err, post, (size_t)B, b};
-  int8body::decode(g, io, msg, totb, sh, cluster, lanes, lane, row, rows,
-                   head_iters, scale, early_stop != 0);
+  int8body::decode<kStaged>(g, io, int8body::Work{msg, totb, idx}, sh,
+                            cluster, lanes, lane, row, rows, head_iters, scale,
+                            early_stop != 0);
 
   if (row == 0) {
     conv[b] = sh.done[lane] ? 1 : 0;
@@ -104,22 +116,30 @@ bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
 
 }  // namespace
 
+// staged: the index plane goes into shared memory (ops/bp_kernel.py
+// int8_staged decides from the shape); smem_bytes must be the layout's
 extern "C" int bp_int8_launch(const uint8_t* synd, const float* llr0,
                               const int32_t* chk_idx, const float* mask,
                               const int32_t* var_edge, uint8_t* err,
                               float* post, uint8_t* conv, int32_t* iters,
                               int m, int n, int rw, int cw, int B,
                               int head_iters, float scale, int early_stop,
-                              int lanes, int cluster, int smem_bytes,
-                              void* stream) {
+                              int lanes, int cluster, int staged,
+                              int smem_bytes, void* stream) {
   if (lanes < 1 || lanes > kMaxLanes || kThreads % lanes != 0) return -1;
   if (cluster < 1 || cluster > kMaxCluster || rw > 32) return -1;
   if (B % (lanes * cluster) != 0) return -1;
+  const size_t edges = (size_t)rw * m;
+  if (staged && n > 32767) return -1;
+  if ((size_t)smem_bytes != (staged ? round16(2 * edges) : 0) +
+                                round16(edges * lanes) + (size_t)2 * n * lanes)
+    return -1;
+  auto kernel = staged ? bp_int8_kernel<true> : bp_int8_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      bp_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   if (cluster > 8) {
-    e = cudaFuncSetAttribute(bp_int8_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
@@ -136,12 +156,12 @@ extern "C" int bp_int8_launch(const uint8_t* synd, const float* llr0,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, (void*)bp_int8_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&active, (void*)kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
   if (active < 1) return -2;  // no SM group can hold one cluster
-  e = cudaLaunchKernelEx(&cfg, bp_int8_kernel, synd, llr0, chk_idx, mask,
-                         var_edge, err, post, conv, iters, m, n, rw, cw, B,
-                         head_iters, scale, early_stop, lanes);
+  e = cudaLaunchKernelEx(&cfg, kernel, synd, llr0, chk_idx, mask, var_edge,
+                         err, post, conv, iters, m, n, rw, cw, B, head_iters,
+                         scale, early_stop, lanes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

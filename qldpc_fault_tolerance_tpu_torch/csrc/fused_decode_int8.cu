@@ -20,7 +20,7 @@
 // (failures, min weight) in a (blocks, 2) partial table that the wrapper
 // reduces.
 //
-// Design: a block owns 32 shots, one per lane of each of its 16 warps, and a
+// Design: a block owns 32 shots, one per lane of each of its 32 warps, and a
 // tile's block_w blocks form one cluster (8 at hgp_34_n625 with a batch of
 // 4096: a portable size), so the tile scales are int8_body.cuh's
 // distributed-shared-memory reductions, as in bp_int8.cu.  With a shot per
@@ -33,18 +33,21 @@
 // residual checks draw them again from their counters, as gf2_residual.cu
 // does, and XOR them into the corrections in place.  Shared memory per
 // block: 32 * rw * m int8 messages (rounded up to 16 bytes) + 64 * n bytes
-// of bf16 totals + 4 * (mx + mz) + 8 * n bytes of words: 114,600 B at
-// hgp_34_n625, so two blocks fit in the 228 KB of an H100 SM (the
-// occupancy query of chip_smoke.py phase 24 reads 30 clusters of 8 at
-// once on an H100 80GB HBM3 at a 700 W limit: one wave for 16 tiles).
+// of bf16 totals + 4 * (mx + mz) + 8 * n bytes of words (rounded up to 8),
+// and, where it fits beside them (the wrapper's choice, from the shape),
+// 2 * rw * m of the index plane as 16-bit indices (the larger sector's,
+// each restaged for its decode): 118,800 B at hgp_34_n625 (staged),
+// 224,616 B at hgp_34_n1225 (not staged).  At 58-60 registers a thread,
+// one block of 1024 threads runs per SM, so a batch of 4096 at n625 (16
+// tiles of 8 blocks) takes two waves of 15 clusters.
 // Nothing but the per-shot flags and the block's two numbers reaches device
 // memory.  A cluster barrier separates the two decodes (the second's first
 // reduction must not overwrite a partial the first's last may still be
 // reading) and ends the kernel.
 //
 // Bound: the decodes' latency — two cluster barriers and four block-wide
-// passes per iteration, each tile iterating until its slowest shot
-// converges, in each sector.  The kernel draws each (shot, qubit) twice,
+// passes per iteration (int8_body.cuh), each tile iterating until its
+// slowest shot converges, in each sector.  The kernel draws each (shot, qubit) twice,
 // once more than the function needs, rather than keep the errors.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -96,6 +99,21 @@ __host__ __device__ inline size_t message_bytes(int n, int ez, int ex) {
   return msg > 8 * (size_t)n ? msg : 8 * (size_t)n;
 }
 
+// bytes of the message buffer, the totals and the words, rounded up to 8:
+// where the index plane starts
+__host__ __device__ inline size_t word_end(int n, int mx, int mz, int ez,
+                                           int ex) {
+  return (message_bytes(n, ez, ex) + (size_t)64 * n + 4 * (size_t)(mx + mz) +
+          8 * (size_t)n + 7) & ~(size_t)7;
+}
+
+__host__ __device__ inline size_t smem_bytes_of(int n, int mx, int mz, int ez,
+                                                int ex, bool staged) {
+  return word_end(n, mx, mz, ez, ex) +
+         (staged ? 2 * (size_t)(ez > ex ? ez : ex) : 0);
+}
+
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
                          int8body::Planes gz,  // of hx: decodes synd_z
@@ -129,6 +147,10 @@ fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
   uint32_t* cor_x = cor_z + n;         // [j]: X correction, then r_x
   uint32_t* ex_w = (uint32_t*)smem;    // the errors, before the decodes
   uint32_t* ez_w = ex_w + n;
+  const int ez = gz.rw * gz.m, ex = gx.rw * gx.m;
+  int16_t* idx =  // [e], with kStaged
+      (int16_t*)(smem + word_end(n, hx.rows, hz.rows, ez, ex));
+  const int8body::Work work{msg, totb, idx};
 
   if (threadIdx.x < 4) s_flags[threadIdx.x] = 0u;
   if (threadIdx.x < kLanes) {
@@ -150,20 +172,22 @@ fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
     synd_x[i] = counter_gf2::xor_row(hz.nbr, hz.mask, hz.rw, i, ex_w);
   __syncthreads();
 
-  WordIo io_z{synd_z, cor_z, lane};
-  int8body::decode(gz, io_z, msg, totb, sh, cluster, kLanes, lane, row, kRows,
-                   max_iter_z, scale, true);
-  if (row == 0) {
-    conv_z[b] = sh.done[lane] ? 1 : 0;
-    iter_z[b] = sh.iters[lane];
-  }
-  cluster.sync();
-  WordIo io_x{synd_x, cor_x, lane};
-  int8body::decode(gx, io_x, msg, totb, sh, cluster, kLanes, lane, row, kRows,
-                   max_iter_x, scale, true);
-  if (row == 0) {
-    conv_x[b] = sh.done[lane] ? 1 : 0;
-    iter_x[b] = sh.iters[lane];
+  // the Z sector's decode, then the X sector's, from one call site (one
+  // inlined copy of the loop); a cluster barrier separates them: the
+  // second's first reduction must not overwrite a partial that the first's
+  // last may still be reading
+#pragma unroll 1
+  for (int sector = 0; sector < 2; ++sector) {
+    const bool z = sector == 0;
+    if (!z) cluster.sync();
+    WordIo io{z ? synd_z : synd_x, z ? cor_z : cor_x, lane};
+    int8body::decode<kStaged>(z ? gz : gx, io, work, sh, cluster, kLanes,
+                              lane, row, kRows, z ? max_iter_z : max_iter_x,
+                              scale, true);
+    if (row == 0) {
+      (z ? conv_z : conv_x)[b] = sh.done[lane] ? 1 : 0;
+      (z ? iter_z : iter_x)[b] = sh.iters[lane];
+    }
   }
   __syncthreads();
 
@@ -229,12 +253,18 @@ void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
   cfg.numAttrs = 1;
 }
 
-cudaError_t set_attributes(int cluster, int smem_bytes) {
+// the kernel instance of a layout: index plane staged or not
+auto kernel_of(bool staged) {
+  return staged ? fused_decode_int8_kernel<true>
+                : fused_decode_int8_kernel<false>;
+}
+
+cudaError_t set_attributes(bool staged, int cluster, int smem_bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_decode_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel_of(staged), cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(fused_decode_int8_kernel,
+    e = cudaFuncSetAttribute(kernel_of(staged),
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
@@ -243,19 +273,22 @@ cudaError_t set_attributes(int cluster, int smem_bytes) {
 
 // How many tiles of `cluster` blocks can run at once on the card (the
 // batch's waves are its tiles over this); negative on an error.
-extern "C" int fused_decode_int8_active_clusters(int cluster, int smem_bytes) {
+extern "C" int fused_decode_int8_active_clusters(int cluster, int staged,
+                                                 int smem_bytes) {
   if (cluster < 1 || cluster > kMaxCluster) return -1;
-  if (set_attributes(cluster, smem_bytes) != cudaSuccess) return -1;
+  if (set_attributes(staged, cluster, smem_bytes) != cudaSuccess) return -1;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(cfg, attr, cluster * kLanes, cluster, smem_bytes, nullptr);
   int active = 0;
-  if (cudaOccupancyMaxActiveClusters(&active, (void*)fused_decode_int8_kernel,
+  if (cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged),
                                      &cfg) != cudaSuccess)
     return -1;
   return active;
 }
 
+// staged: the index plane goes into shared memory (ops/gf2_kernel.py
+// fused_int8_staged decides from the shape); smem_bytes must be the layout's
 extern "C" int fused_decode_int8_launch(
     uint32_t k0, uint32_t k1, uint32_t cz, uint32_t czx, uint32_t czxy,
     const int32_t* z_chk_idx, const float* z_mask, const int32_t* z_var_edge,
@@ -267,29 +300,28 @@ extern "C" int fused_decode_int8_launch(
     const int32_t* lz_nbr, const uint8_t* lz_mask, int kz, int rlz,
     const float* llr_z, const float* llr_x, int n, int max_iter_z,
     int max_iter_x, float scale, int eval_code, int B, int cluster,
-    int smem_bytes, uint8_t* conv_z, int32_t* iter_z, uint8_t* conv_x,
-    int32_t* iter_x, int32_t* part, void* stream) {
+    int staged, int smem_bytes, uint8_t* conv_z, int32_t* iter_z,
+    uint8_t* conv_x, int32_t* iter_x, int32_t* part, void* stream) {
   if (cluster < 1 || cluster > kMaxCluster || rwz > 32 || rwx > 32) return -1;
   if (B % (kLanes * cluster) != 0 || hx_rows != mx || hz_rows != mz) return -1;
-  if ((size_t)smem_bytes != message_bytes(n, rwz * mx, rwx * mz) +
-                                (size_t)64 * n + 4 * (size_t)(mx + mz) +
-                                8 * (size_t)n)
+  if (staged && n > 32767) return -1;
+  if ((size_t)smem_bytes !=
+      smem_bytes_of(n, mx, mz, rwz * mx, rwx * mz, staged != 0))
     return -1;
-  cudaError_t e = set_attributes(cluster, smem_bytes);
+  cudaError_t e = set_attributes(staged, cluster, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(cfg, attr, B, cluster, smem_bytes, stream);
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, (void*)fused_decode_int8_kernel,
-                                     &cfg);
+  e = cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged), &cfg);
   if (e != cudaSuccess) return (int)e;
   if (active < 1) return -2;  // no SM group can hold one cluster
   const int8body::Planes gz{z_chk_idx, z_mask, z_var_edge, llr_z, mx, n, rwz, cwz};
   const int8body::Planes gx{x_chk_idx, x_mask, x_var_edge, llr_x, mz, n, rwx, cwx};
   e = cudaLaunchKernelEx(
-      &cfg, fused_decode_int8_kernel, k0, k1, counter_gf2::Cuts{cz, czx, czxy},
-      gz, gx, Adjacency{hx_nbr, hx_mask, hx_rows, hx_rw},
+      &cfg, kernel_of(staged), k0, k1, counter_gf2::Cuts{cz, czx, czxy}, gz,
+      gx, Adjacency{hx_nbr, hx_mask, hx_rows, hx_rw},
       Adjacency{hz_nbr, hz_mask, hz_rows, hz_rw},
       Adjacency{lx_nbr, lx_mask, kx, rlx}, Adjacency{lz_nbr, lz_mask, kz, rlz},
       max_iter_z, max_iter_x, scale, eval_code, conv_z, iter_z, conv_x, iter_x,

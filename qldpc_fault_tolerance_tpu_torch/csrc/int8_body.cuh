@@ -18,22 +18,42 @@
 // go on, because they enter the tile's maxima.  With early_stop the tile
 // leaves its loop when all its shots have converged.
 //
-// Layout: a tile is one cluster of blocks, `lanes` shots each.  Each block
-// keeps its shots' int8 messages (one buffer: the check pass turns v2c into
-// c2v in place and the gather pass c2v into the next v2c, each check's edges
-// owned by one thread) and their bf16 totals in shared memory, at
-// [index * lanes + lane].  The float32 messages are never stored: each pass
-// that needs a tile maximum runs twice, once for the maximum and once to
-// quantize.  A tile maximum is a block reduction (warp shuffles); after a
-// cluster barrier every block reads the others' partial maxima through
-// distributed shared memory.  The maxima are order-free, so every block gets
-// the same scale.  The "all converged" flag of early_stop rides with the
-// second maximum.  Two cluster barriers per iteration.  The caller builds
-// with -fmad=false; the two fused multiply-adds are explicit (__fmaf_rn), as
-// XLA's CPU backend contracts the JAX package's expressions.  Every thread of
-// the cluster must call decode(); a block must not leave, or start another
-// decode, before a cluster barrier that follows it (the others may still
-// read its partial maxima).
+// Design.  A tile is one cluster of blocks of 1024 threads, `lanes` shots
+// each (32 at hgp_34_n625: a warp is one row of 32 shots, so index loads are
+// warp-uniform broadcasts and message loads 32 consecutive bytes).  An
+// iteration is four block-wide passes and two tile maxima:
+//   check pass   v2c = quantize(t_e - qc * c2v, qv) of each edge (at the
+//                first iteration the quantized bf16 channel LLRs), written
+//                over the c2v it came from and added into the check's top-2
+//                and sign product; the c2v maximum needs no c2v: over a
+//                check's slots |c2v| peaks at the amin slot,
+//                |scale * (min2 * qv)|, since rounding is monotone;
+//   c2v pass     (after the c2v tile maximum) the check's top-2 again from
+//                its int8 v2c (integer work), two quantizations per check,
+//                of the min1 and min2 magnitudes, signed per slot (quantize
+//                is odd), into the message buffer;
+//   variable pass exact integer sums of the int8 c2v -> totals, bf16 totals;
+//   gather pass  parity and the v2c maximum; the shots' convergence is
+//                settled inside the tile maximum that follows.
+// So every v2c and every division by a scale happens once per iteration;
+// v2c is recomputed once (an fma over shared memory) because it must wait
+// for its tile maximum.  Shared memory holds, at [index * lanes + lane],
+// the int8 messages (one buffer: v2c between the check and the c2v pass,
+// c2v otherwise) and the bf16 totals; the caller adds a 16-bit copy of
+// the index plane with padding folded into -1 (once per block, kStaged)
+// where it fits beside them, and otherwise the passes read chk_idx and
+// mask from device memory.  A tile maximum is a warp-shuffle reduction
+// per warp, one more in warp 0 over the warps, a cluster barrier, then
+// warp 0 reads the other blocks' partial maxima through distributed shared
+// memory at once and reduces them.  The maxima
+// are order-free, so every block gets the same scale.  The "all converged"
+// flag of early_stop rides with the v2c maximum.  Two cluster barriers per
+// iteration.  The caller builds with -fmad=false; the two fused
+// multiply-adds are explicit (__fmaf_rn), as XLA's CPU backend contracts the
+// JAX package's expressions.  Every thread of the cluster must call
+// decode(); a block must not leave, or start another decode, before a
+// cluster barrier that follows it (the others may still read its partial
+// maxima).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -45,18 +65,20 @@ namespace int8body {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLanes = 32;
 constexpr int32_t kBigI32 = 1 << 30;
 constexpr float kInv127 = 1.0f / 127.0f;  // float32(1/127), as XLA folds it
 
+static_assert(kWarps == 32, "warp 0 reduces one partial per warp");
+
 __device__ __forceinline__ float tile_scale(float tmax) {
   return fmaxf(tmax * kInv127, 1e-30f);
 }
 
-__device__ __forceinline__ int8_t quantize(float p, float q) {
-  return (int8_t)__float2int_rn(fminf(fmaxf(p / q, -127.f), 127.f));
+__device__ __forceinline__ int quantize(float p, float q) {
+  return __float2int_rn(fminf(fmaxf(p / q, -127.f), 127.f));
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -77,80 +99,93 @@ struct Shared {
 };
 
 // The tile maximum of every thread's `v` (>= 0) and, with it, whether every
-// block of the tile reports `done`; every thread of the cluster must call it.
+// block of the tile reports all its shots converged; every thread of the
+// cluster must call it.  With `settle`, the block's shots first settle this
+// iteration's parity: a shot whose checks all held converges at `it + 1`.
 // Slot k alternates between the two reductions of an iteration, so a block
 // never overwrites a partial that another block may still read.
-__device__ float tile_max(float v, int done, int k, Shared& sh,
-                          cg::cluster_group& cluster, int* all_done) {
+__device__ float tile_max(float v, int k, Shared& sh,
+                          cg::cluster_group& cluster, int lanes, bool settle,
+                          int it, int* all_done) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) sh.warp[threadIdx.x >> 5] = v;
+  const int lane32 = threadIdx.x & 31;
+  if (lane32 == 0) sh.warp[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = 0.f;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sh.warp[w]);
-    sh.cta[k] = mx;
-    sh.cta_done[k] = done;
+  if (threadIdx.x < 32) {
+    int done = 1;
+    if (lane32 < lanes) {
+      if (settle) {
+        if (!sh.bad[lane32] && !sh.done[lane32]) {
+          sh.done[lane32] = 1;
+          sh.iters[lane32] = it + 1;
+        }
+        sh.bad[lane32] = 0;
+      }
+      done = sh.done[lane32];
+    }
+    const int cta_done = __all_sync(0xffffffffu, done);
+    float mx = sh.warp[lane32];
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane32 == 0) {
+      sh.cta[k] = mx;
+      sh.cta_done[k] = cta_done;
+    }
   }
   cluster.sync();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
     float mx = 0.f;
     int all = 1;
-    for (unsigned b = 0; b < cluster.num_blocks(); ++b) {
-      mx = fmaxf(mx, *cluster.map_shared_rank(&sh.cta[k], b));
-      all &= *cluster.map_shared_rank(&sh.cta_done[k], b);
+    if (lane32 < (int)cluster.num_blocks()) {
+      mx = *cluster.map_shared_rank(&sh.cta[k], lane32);
+      all = *cluster.map_shared_rank(&sh.cta_done[k], lane32);
     }
-    sh.out = mx;
-    sh.out_done = all;
+    all = __all_sync(0xffffffffu, all);
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane32 == 0) {
+      sh.out = mx;
+      sh.out_done = all;
+    }
   }
   __syncthreads();
   if (all_done) *all_done = sh.out_done;
   return sh.out;
 }
 
-struct Check {
-  int32_t min1, min2;
-  int amin;
-  unsigned negs;  // bit s: slot s's message is negative
-  bool neg_tot;   // sign product with the syndrome sign
-};
-
-// Streaming top-2 of check i's int8 magnitudes and its sign product.
-__device__ __forceinline__ Check check_update(const int8_t* msg,
-                                              const float* mask, int i, int m,
-                                              int rw, int lanes, int lane,
-                                              uint8_t synd) {
-  Check c{kBigI32, kBigI32, 0, 0u, synd != 0};
-  for (int s = 0; s < rw; ++s) {
-    const int e = s * m + i;
-    int32_t mag = kBigI32;
-    if (mask[e] > 0.f) {
-      const int v = msg[e * lanes + lane];
-      mag = v < 0 ? -v : v;
-      if (v < 0) {
-        c.negs |= 1u << s;
-        c.neg_tot = !c.neg_tot;
-      }
+// A check's update over the int8 v2c of its real slots: the top-2
+// magnitudes (ties to the first slot; padding, magnitude 2^30, never
+// changes them) and the sign product.
+struct CheckUpdate {
+  int32_t min1 = kBigI32, min2 = kBigI32;
+  int amin = 0;
+  uint32_t negs = 0u;  // the slots whose v2c is negative
+  bool neg_tot;        // syndrome bit xor every slot's sign
+  __device__ explicit CheckUpdate(bool synd) : neg_tot(synd) {}
+  __device__ __forceinline__ void add(int s, int q) {
+    const int32_t mag = q < 0 ? -q : q;
+    if (q < 0) {
+      negs |= 1u << s;
+      neg_tot = !neg_tot;
     }
-    if (mag < c.min1) {
-      c.min2 = c.min1;
-      c.min1 = mag;
-      c.amin = s;
-    } else if (mag < c.min2) {
-      c.min2 = mag;
+    if (mag < min1) {
+      min2 = min1;
+      min1 = mag;
+      amin = s;
+    } else if (mag < min2) {
+      min2 = mag;
     }
   }
-  return c;
-}
+  // the slots whose c2v is negative: the product less the slot's own sign
+  __device__ __forceinline__ uint32_t c2v_negs() const {
+    return neg_tot ? ~negs : negs;
+  }
+};
 
-// Dequantized c2v of slot s: ((scale * signs) * (excl * qv)), 0 if padded.
-__device__ __forceinline__ float c2v_value(const Check& c, int s, bool valid,
-                                           float qv, float scale) {
-  if (!valid) return 0.f;
-  int32_t ex = s == c.amin ? c.min2 : c.min1;
-  ex = ex < kBigI32 ? ex : kBigI32;
-  const float mag = scale * ((float)ex * qv);
-  return (c.neg_tot != (((c.negs >> s) & 1u) != 0u)) ? -mag : mag;
+// |c2v| of a slot whose excluded minimum is `mag`: scale * (excl * qv)
+__device__ __forceinline__ float c2v_mag(int32_t mag, float qv, float scale) {
+  return scale * ((float)mag * qv);
 }
 
 // A sector's slot-major index planes (ops/bp_kernel.py SparseHeadGraph), in
@@ -163,58 +198,101 @@ struct Planes {
   int m, n, rw, cw;
 };
 
+// A block's shared-memory buffers, [index * lanes + lane] unless noted.
+struct Work {
+  int8_t* msg;          // rw * m int8 messages
+  __nv_bfloat16* totb;  // n bf16 totals
+  int16_t* idx;         // rw * m: chk_idx, -1 for padding (not per shot);
+                        // only with kStaged (n < 2^15)
+};
+
 // Io supplies the shot's syndrome bit synd(i), is told of each variable's
 // start (init_var(j)) and, every iteration, of each variable's total and
 // whether the shot is still live (store_var(j, total, live); every thread
-// calls it, live or not).
-template <class Io>
-__device__ void decode(const Planes& g, Io& io, int8_t* msg,
-                       __nv_bfloat16* totb, Shared& sh,
+// calls it, live or not).  kStaged: the index plane is copied into w.idx
+// (the caller's choice, from the shape: when it fits); else every pass reads
+// chk_idx and mask from device memory.
+template <bool kStaged, class Io>
+__device__ void decode(const Planes& g, Io& io, const Work& w, Shared& sh,
                        cg::cluster_group& cluster, int lanes, int lane,
                        int row, int rows, int head_iters, float scale,
                        bool early_stop) {
   const int m = g.m, n = g.n, rw = g.rw, cw = g.cw;
-  const int32_t* chk_idx = g.chk_idx;
-  const float* mask = g.mask;
   const float* llr0 = g.llr0;
+  int8_t* msg = w.msg;
+  const __nv_bfloat16* totb = w.totb;
+  // the variable of edge e, -1 for padding
+  auto var_of = [&](int e) -> int {
+    if constexpr (kStaged) return w.idx[e];
+    else return g.mask[e] > 0.f ? g.chk_idx[e] : -1;
+  };
+  if constexpr (kStaged)
+    for (int e = threadIdx.x; e < rw * m; e += kThreads)
+      w.idx[e] = (int16_t)(g.mask[e] > 0.f ? g.chk_idx[e] : -1);
   if (row == 0) {
     sh.done[lane] = 0;
     sh.bad[lane] = 0;
     sh.iters[lane] = head_iters;
   }
   for (int j = row; j < n; j += rows) io.init_var(j);
+  __syncthreads();
 
-  // init: bf16 channel LLRs gathered onto the edges, quantized at their own
-  // tile maximum
+  // the first v2c: bf16 channel LLRs gathered onto the edges, quantized at
+  // their own tile maximum
   float local = 0.f;
   for (int i = row; i < m; i += rows)
     for (int s = 0; s < rw; ++s) {
-      const int e = s * m + i;
-      if (mask[e] > 0.f) local = fmaxf(local, fabsf(bf16_round(llr0[chk_idx[e]])));
+      const int v = var_of(s * m + i);
+      if (v >= 0) local = fmaxf(local, fabsf(bf16_round(llr0[v])));
     }
-  float qv = tile_scale(tile_max(local, 0, 1, sh, cluster, nullptr));
-  for (int i = row; i < m; i += rows)
-    for (int s = 0; s < rw; ++s) {
-      const int e = s * m + i;
-      const float t = mask[e] > 0.f ? bf16_round(llr0[chk_idx[e]]) : 0.f;
-      msg[e * lanes + lane] = quantize(t, qv);
-    }
-  __syncthreads();
+  float qv = tile_scale(tile_max(local, 1, sh, cluster, lanes, false, 0, nullptr));
+  float qc = 0.f;
 
   for (int it = 0; it < head_iters; ++it) {
-    // check pass, twice: the c2v tile maximum, then c2v quantized in place
+    // check pass: each v2c quantized into its edge's message (in place of
+    // the c2v it was made from) and into its check's top-2
     local = 0.f;
     for (int i = row; i < m; i += rows) {
-      const Check c = check_update(msg, mask, i, m, rw, lanes, lane, io.synd(i));
-      for (int s = 0; s < rw; ++s)
-        local = fmaxf(local, fabsf(c2v_value(c, s, mask[s * m + i] > 0.f, qv, scale)));
-    }
-    const float qc = tile_scale(tile_max(local, 0, 0, sh, cluster, nullptr));
-    for (int i = row; i < m; i += rows) {
-      const Check c = check_update(msg, mask, i, m, rw, lanes, lane, io.synd(i));
+      CheckUpdate cu(io.synd(i) != 0);
       for (int s = 0; s < rw; ++s) {
         const int e = s * m + i;
-        msg[e * lanes + lane] = quantize(c2v_value(c, s, mask[e] > 0.f, qv, scale), qc);
+        const int v = var_of(e);
+        if (v >= 0) {
+          const float x =
+              it == 0 ? bf16_round(llr0[v])
+                      : __fmaf_rn(-qc, (float)msg[e * lanes + lane],
+                                  __bfloat162float(totb[v * lanes + lane]));
+          const int q = quantize(x, qv);
+          msg[e * lanes + lane] = (int8_t)q;
+          cu.add(s, q);
+        }
+      }
+      if (cu.min1 < kBigI32)
+        local = fmaxf(local, fabsf(c2v_mag(cu.min2, qv, scale)));
+    }
+    qc = tile_scale(tile_max(local, 0, sh, cluster, lanes, false, it, nullptr));
+
+    // c2v pass: the check's top-2 again from its int8 v2c (integer work),
+    // then the min1 and min2 messages quantized once per check
+    for (int i = row; i < m; i += rows) {
+      CheckUpdate cu(io.synd(i) != 0);
+      uint32_t real = 0u;  // the check's real slots
+      for (int s = 0; s < rw; ++s) {
+        const int e = s * m + i;
+        if (var_of(e) >= 0) {
+          real |= 1u << s;
+          cu.add(s, msg[e * lanes + lane]);
+        }
+      }
+      const int q1 = quantize(c2v_mag(cu.min1, qv, scale), qc);
+      const int q2 = quantize(c2v_mag(cu.min2, qv, scale), qc);
+      const uint32_t neg = cu.c2v_negs();
+      for (int s = 0; s < rw; ++s) {
+        const int e = s * m + i;
+        if ((real >> s) & 1u) {
+          const int q = s == cu.amin ? q2 : q1;
+          msg[e * lanes + lane] = (int8_t)((neg >> s) & 1u ? -q : q);
+        }
       }
     }
     __syncthreads();
@@ -228,7 +306,7 @@ __device__ void decode(const Planes& g, Io& io, int8_t* msg,
         if (e >= 0) acc += msg[e * lanes + lane];
       }
       const float total = __fmaf_rn(qc, (float)acc, llr0[j]);
-      totb[j * lanes + lane] = __float2bfloat16_rn(total);
+      w.totb[j * lanes + lane] = __float2bfloat16_rn(total);
       io.store_var(j, total, live);
     }
     __syncthreads();
@@ -239,41 +317,18 @@ __device__ void decode(const Planes& g, Io& io, int8_t* msg,
       unsigned par = io.synd(i);
       for (int s = 0; s < rw; ++s) {
         const int e = s * m + i;
-        if (mask[e] > 0.f) {
-          const float te = __bfloat162float(totb[chk_idx[e] * lanes + lane]);
-          const float v = __fmaf_rn(-qc, (float)msg[e * lanes + lane], te);
-          local = fmaxf(local, fabsf(v));
+        const int v = var_of(e);
+        if (v >= 0) {
+          const float te = __bfloat162float(totb[v * lanes + lane]);
+          local = fmaxf(local,
+                        fabsf(__fmaf_rn(-qc, (float)msg[e * lanes + lane], te)));
           if (te < 0.f) par ^= 1u;
         }
       }
       if (par & 1u) sh.bad[lane] = 1;
     }
-    __syncthreads();
-    if (row == 0) {
-      if (!sh.bad[lane] && !sh.done[lane]) {
-        sh.done[lane] = 1;
-        sh.iters[lane] = it + 1;
-      }
-      sh.bad[lane] = 0;
-    }
-    __syncthreads();
-    int cta_done = 1;
-    for (int l = 0; l < lanes; ++l) cta_done &= sh.done[l];
     int all_done = 0;
-    qv = tile_scale(tile_max(local, cta_done, 1, sh, cluster, &all_done));
-
-    // v2c quantized in place of the c2v it subtracts
-    for (int i = row; i < m; i += rows)
-      for (int s = 0; s < rw; ++s) {
-        const int e = s * m + i;
-        float v = 0.f;
-        if (mask[e] > 0.f) {
-          const float te = __bfloat162float(totb[chk_idx[e] * lanes + lane]);
-          v = __fmaf_rn(-qc, (float)msg[e * lanes + lane], te);
-        }
-        msg[e * lanes + lane] = quantize(v, qv);
-      }
-    __syncthreads();
+    qv = tile_scale(tile_max(local, 1, sh, cluster, lanes, true, it, &all_done));
     if (early_stop && all_done) break;
   }
 }

@@ -120,8 +120,8 @@ def decode_device(static, state, syndromes):
         return torch.where(conv[:, None], err, osd_err), aux
     if kind != "bp":
         raise ValueError(f"unknown decoder kind {kind!r}")
-    # head_tag: "none" / "v2" (float32 min-sum), "v1" (the dense one-hot
-    # head), "v2_int8" (int8 min-sum); the head's tensors in state["pallas"]
+    # head_tag: "none" (float32 min-sum), "v2" / "v1" (the bf16 head),
+    # "v2_int8" (int8 min-sum); the head's tensors in state["pallas"]
     _, max_iter, method, msf, two_phase, head_tag = static
     if (two_phase and syndromes.shape[0] >= bp.TWO_PHASE_MIN_BATCH
             and max_iter >= bp.TWO_PHASE_MIN_ITER):
@@ -155,12 +155,13 @@ def _head_engages(static, state, batch_size: int) -> bool:
 
 def kernel_variant(static, state, batch_size: int | None = None) -> str:
     """Which BP program a decode with this (static, state) pair runs, in
-    ``bp_kernel.KERNEL_VARIANTS``: ``dense_onehot`` (kernel B9),
-    ``sparse_int8`` (kernel B6), ``sparse_gather`` (float32 min-sum, kernel
-    1) on the card; ``xla_twin`` for the plain versions (CPU tensors,
-    ``force_plain()``) and for product-sum.  With ``batch_size`` the head's
-    per-batch gates apply too (a head that does not engage leaves float32
-    min-sum)."""
+    ``bp_kernel.KERNEL_VARIANTS`` — the JAX package's names for the programs
+    whose results it gives: ``sparse_gather`` for an engaged v2 head and
+    ``dense_onehot`` for an engaged v1 head (the port runs one bf16 gather
+    kernel for both tags), ``sparse_int8`` for int8; ``xla_twin`` for every
+    exact-float32 decode (kernel 1) and every plain-version decode (CPU
+    tensors, ``force_plain()``).  With ``batch_size`` the head's per-batch
+    gates apply too (a head that does not engage leaves float32 min-sum)."""
     kind = static[0]
     if kind == "bposd_dev":
         return kernel_variant(static[1], state, batch_size)
@@ -168,19 +169,26 @@ def kernel_variant(static, state, batch_size: int | None = None) -> str:
         return "xla_twin"
     if not state["llr0"].is_cuda or _kernels.plain_forced():
         return "xla_twin"
+    names = {"v2": "sparse_gather", "v1": "dense_onehot",
+             "v2_int8": "sparse_int8"}
     head_tag = static[5]
-    if head_tag in ("v1", "v2_int8") and (
-            batch_size is None or _head_engages(static, state, batch_size)):
-        return "dense_onehot" if head_tag == "v1" else "sparse_int8"
-    return "sparse_gather"
+    if head_tag not in names or (
+            batch_size is not None
+            and not _head_engages(static, state, batch_size)):
+        return "xla_twin"
+    return names[head_tag]
 
 
 def _make_head(bp_method: str, graph_host, quantize=None,
                kernel: str | None = None, device="cuda"):
     """The decoder's BP head, ``(head, head_tag)``, by the JAX package's
-    rules: ``kernel`` (default env ``QLDPC_BP_KERNEL``, "v2") is "v1", "v2"
-    or "xla"; int8 needs min-sum and not v1; a head whose data fails the JAX
-    package's size gate is not built (v1: no head; int8: raises)."""
+    rules (``_maybe_pallas_head``), a CUDA ``device`` standing for its TPU:
+    ``kernel`` (default env ``QLDPC_BP_KERNEL``, "v2") is "v1", "v2" or
+    "xla".  int8 needs min-sum and not v1 and builds its head on any device
+    (raising when the head fails its size gate); on the card "v2" builds a
+    SparseHeadGraph when it passes its size gate, else (and for "v1") a
+    PallasHeadGraph when that passes its own; otherwise, and on the CPU, no
+    head."""
     if bp_method != "minimum_sum" or os.environ.get("QLDPC_PALLAS", "1") == "0":
         if quantize:
             raise ValueError(
@@ -199,8 +207,12 @@ def _make_head(bp_method: str, graph_host, quantize=None,
                 f"quantize='int8' head infeasible for this shape "
                 f"(fixed VMEM overhead {head.fixed_overhead_bytes})")
         return head, "v2_int8"
-    if kernel != "v1":
-        return None, "none" if kernel == "xla" else "v2"
+    if kernel == "xla" or torch.device(device).type != "cuda":
+        return None, "none"
+    if kernel == "v2":
+        head = bp_kernel.build_sparse_head(graph_host, device)
+        if head.fits_vmem():
+            return head, "v2"
     head = bp_kernel.build_pallas_head(graph_host, device)
     return (head, "v1") if head.fits_vmem() else (None, "none")
 
@@ -224,8 +236,8 @@ def _head_from_jax(head, dev):
 def state_from_jax(jax_state, device="cuda") -> dict:
     """The port's decoder state from a JAX decoder's ``device_state`` given
     as numpy arrays: the Tanner graph fields, ``llr0``, the BP head
-    (``"pallas"``: a SparseHeadGraph's index planes, or a PallasHeadGraph's
-    one-hot stack, as the port's head types) and, for BPOSD,
+    (``"pallas"``: a SparseHeadGraph, or a PallasHeadGraph whose index
+    planes are read off JAX's one-hot stack) and, for BPOSD,
     ``osd_packed`` (uint32 words read as int32 bit patterns) and
     ``osd_cost``."""
     dev = resolve_device(device)
@@ -289,7 +301,8 @@ class BPDecoder:
 
     @property
     def kernel_variant(self) -> str:
-        """Which BP program this decoder's decodes run (``kernel_variant``)."""
+        """Which BP program this decoder's decodes run (``kernel_variant``,
+        the JAX package's name for it)."""
         return kernel_variant(self.device_static, self.device_state)
 
     def decode_batch_device(self, syndromes):

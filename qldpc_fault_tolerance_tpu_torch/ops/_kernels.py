@@ -29,8 +29,7 @@ __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("bp_minsum", "osd_elim", "gf2_sample", "gf2_residual",
-           "fused_decode", "fused_decode_int8", "cs_sweep", "bp_int8",
-           "bp_dense")
+           "fused_decode", "fused_decode_int8", "cs_sweep", "bp_int8")
 # -fmad=false keeps a*b+c from contracting into one FMA, so the kernels round
 # exactly like their plain PyTorch versions and can be compared bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,8 +14,8 @@ flags, posterior LLRs (the soft input OSD needs) and iteration counts.
 
 Every float32 min-sum decode goes through ``bp_kernel.bp_minsum``: the CUDA
 kernel on the card, its plain version on the CPU.  The two-phase decode runs
-its head and tail in a BP head kernel (int8 or the dense one-hot head) when
-the decoder carries one.  Product-sum runs as plain PyTorch ops on either
+its head and tail in a BP head kernel (int8 or bf16) when the decoder
+carries one.  Product-sum runs as plain PyTorch ops on either
 device.
 """
 from __future__ import annotations
@@ -198,17 +198,15 @@ def head_engages(head, b: int, method: str, llr) -> bool:
 
 
 def _run_head(head, synd, llr, iters, msf, block, quantize, early_stop=False):
-    """One decode through the head kernel: int8 min-sum for a
-    SparseHeadGraph (tile ``block``), the dense one-hot head for a
-    PallasHeadGraph."""
-    if isinstance(head, bp_kernel.SparseHeadGraph):
-        if quantize != "int8":
-            raise ValueError("a SparseHeadGraph head runs int8 min-sum only; "
-                             "pass quantize='int8'")
+    """One decode through the head kernel, as the JAX package routes it:
+    int8 min-sum (tile ``block``) for a SparseHeadGraph with
+    ``quantize="int8"``, else the bf16 head (a v1 head ignores
+    ``quantize``)."""
+    if isinstance(head, bp_kernel.SparseHeadGraph) and quantize == "int8":
         return BPResult(*bp_kernel.bp_head_int8(
             head, synd, llr, head_iters=iters, ms_scaling_factor=msf,
             block_b=block, early_stop=early_stop))
-    return BPResult(*bp_kernel.bp_head_dense(
+    return BPResult(*bp_kernel.bp_head_bf16(
         head, synd, llr, head_iters=iters, ms_scaling_factor=msf,
         early_stop=early_stop))
 
@@ -230,12 +228,12 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     before continuing.  The tiers are (tail_capacity, 4x, progressive
     deepened head, full batch); results never depend on the tier taken.
 
-    ``head`` (a ``bp_kernel.SparseHeadGraph`` with ``quantize="int8"``, or a
-    ``bp_kernel.PallasHeadGraph``) runs the head and the compacted tail in
-    that head's kernel where the JAX package does (``head_engages``; the
-    tail when its capacity has a tile, with early exit), at the JAX
-    package's tiles.  Their results then follow that head's numerics, and
-    int8 results depend on the tile.  Everything else (no head, a failed
+    ``head`` (a ``bp_kernel.SparseHeadGraph``, int8 with
+    ``quantize="int8"``, else bf16; or a ``bp_kernel.PallasHeadGraph``, bf16)
+    runs the head and the compacted tail in that head's kernel where the
+    JAX package does (``head_engages``; the tail when its capacity has a
+    tile, with early exit), at the JAX package's tiles.  Their results then
+    follow that head's numerics, and int8 results depend on the tile.  Everything else (no head, a failed
     gate, head_iters >= max_iter, the full-batch decode) is float32 min-sum.
 
     The tier is chosen on the host: each decode reads the straggler count

@@ -22,10 +22,12 @@ which the two-phase decode runs when a decoder carries a head:
     float32 scale per batch tile per iteration and direction
     (``quantize="int8"``); kernel ``csrc/bp_int8.cu``, plain version
     ``minsum_int8_plain``.
-  * ``PallasHeadGraph`` + ``bp_head_dense``: the dense one-hot head (v1):
-    bf16 messages, gathers and scatter-sums as products with a dense
-    (rw, m, n) one-hot stack, float32 totals; kernel ``csrc/bp_dense.cu``,
-    plain version ``minsum_dense_plain``.
+  * ``SparseHeadGraph`` (v2) or ``PallasHeadGraph`` (v1) + ``bp_head_bf16``:
+    bf16 v2c messages and float32 totals, the JAX package's
+    ``_minsum_plane_loop``; the bf16 instance of kernel 1's loop
+    (``csrc/bp_minsum.cu`` ``bp_minsum_bf16_launch``) over either head's
+    index planes, plain version ``minsum_dense_plain`` (the loop over the
+    dense (rw, m, n) one-hot stack, as the JAX v1 kernel writes it).
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain version on CPU tensors or under ``_kernels.force_plain()``.
@@ -47,8 +49,9 @@ __all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop",
            "INT8_WER_NSIGMA", "int8_parity_tolerance", "SparseHeadGraph",
            "PallasHeadGraph", "build_sparse_head", "build_pallas_head",
            "sparse_head_from_planes", "pallas_head_from_planes",
+           "DenseStack", "dense_stack",
            "minsum_int8_plain", "bp_head_int8",
-           "minsum_dense_plain", "bp_head_dense", "slot_ordered_graph"]
+           "minsum_dense_plain", "bp_head_bf16", "slot_ordered_graph"]
 
 BIG = 1e30  # stands in for +inf without producing NaN in exclusion arithmetic
 
@@ -152,12 +155,13 @@ SMEM_LIMIT = 232448
 MAX_LANES = 8  # shots per block
 
 
-def block_lanes(m: int, rw: int, n: int) -> int:
-    """Shots per block of the kernel: 8, halved until the block's messages
-    (two f32 planes of m*rw edges) and hard decisions fit in shared
+def block_lanes(m: int, rw: int, n: int, edge_bytes: int = 8) -> int:
+    """Shots per block of csrc/bp_minsum.cu: 8, halved until the block's
+    messages (``edge_bytes`` per edge: two float32 planes, or float32 c2v
+    and bf16 v2c for the bf16 head) and hard decisions fit in shared
     memory; 0 when not even one shot fits."""
     lanes = MAX_LANES
-    while lanes and lanes * (8 * m * rw + n) > SMEM_LIMIT:
+    while lanes and lanes * (edge_bytes * m * rw + n) > SMEM_LIMIT:
         lanes //= 2
     return lanes
 
@@ -232,14 +236,16 @@ bp_minsum.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The BP head family: int8 min-sum (B6) and the dense one-hot head (B9)
+# The BP head family: int8 min-sum (B6) and the bf16 head (B1 bf16, B9)
 # ---------------------------------------------------------------------------
 
-# which BP program serves a decode (the JAX package's vocabulary):
-#   dense_onehot  — the dense one-hot head, csrc/bp_dense.cu
-#   sparse_gather — f32 min-sum over index gathers, csrc/bp_minsum.cu
+# which BP program serves a decode, in the JAX package's vocabulary, which
+# names its programs by their results:
+#   sparse_gather — the bf16 head of a v2 head (SparseHeadGraph)
+#   dense_onehot  — the bf16 head of a v1 head (PallasHeadGraph): the JAX v1
+#                   kernel's results; the port runs the same gather kernel
 #   sparse_int8   — int8 min-sum, csrc/bp_int8.cu
-#   xla_twin      — the plain PyTorch versions (CPU tensors, force_plain)
+#   xla_twin      — exact float32 min-sum (kernel 1) and every plain version
 KERNEL_VARIANTS = ("dense_onehot", "sparse_gather", "sparse_int8",
                    "xla_twin")
 
@@ -288,12 +294,12 @@ def _max_block_b(per_shot: int, budget: int, b: int, want: int) -> int:
 
 
 class SparseHeadGraph(NamedTuple):
-    """The int8 head's per-H data: slot-major edge indices.
+    """The v2 head's per-H data (int8 and bf16): slot-major edge indices.
 
     ``chk_idx[s, i]`` is the variable of check i's slot-s edge (0 for
     padding, which ``mask`` kills); edge ``s * m + i``.  ``var_edge`` lists
-    each variable's edges (-1 pads), the kernel's gather form of the
-    integer scatter-add."""
+    each variable's edges in ascending order, which is (slot, check) order
+    (-1 pads): the kernels' gather form of the scatter-add."""
 
     chk_idx: torch.Tensor   # (rw, m) int32
     mask: torch.Tensor      # (rw, m) float32, 1.0 real edge, 0.0 padding
@@ -333,33 +339,28 @@ class SparseHeadGraph(NamedTuple):
 
 
 class PallasHeadGraph(NamedTuple):
-    """The dense head's per-H data: the slot-major one-hot incidence stack,
-    ``scat[s, i, v] = 1`` iff check i's slot-s edge is variable v.
+    """The v1 head's per-H data: a SparseHeadGraph's index planes, which
+    the bf16 head kernel reads, under the v1 head's own gates.  The JAX
+    package's v1 head is a dense slot-major one-hot stack (``scat``, rw x m
+    x n bf16), and its residency gate and batch tile count that stack's
+    bytes (``scat_bytes``); ``dense_stack`` builds it for the plain
+    version only."""
 
-    ``rank[s, i]`` counts the checks before i whose slot-s edge is the same
-    variable.  A slot's scatter-sum adds, for each variable, up to cw
-    messages; their float32 sum is not always exact, so its order is part
-    of the result.  The head fixes it to ascending check order — the
-    order of a sequential dot product, which is what the JAX package's
-    one-hot products give on the CPU — by splitting each slot's product by
-    rank: every rank's product has at most one term per variable, exact in
-    any order, and the ranks add in sequence."""
-
-    scat: torch.Tensor  # (rw, m, n) bfloat16, exact 0/1
-    mask: torch.Tensor  # (rw, m) float32
-    rank: torch.Tensor  # (rw, m) int32
+    chk_idx: torch.Tensor   # (rw, m) int32
+    mask: torch.Tensor      # (rw, m) float32
+    var_edge: torch.Tensor  # (n, cw) int32
 
     @property
     def rw(self) -> int:
-        return self.scat.shape[0]
+        return self.chk_idx.shape[0]
 
     @property
     def m(self) -> int:
-        return self.scat.shape[1]
+        return self.chk_idx.shape[1]
 
     @property
     def n(self) -> int:
-        return self.scat.shape[2]
+        return self.var_edge.shape[0]
 
     @property
     def scat_bytes(self) -> int:
@@ -374,9 +375,48 @@ class PallasHeadGraph(NamedTuple):
 
     def max_block_b(self, b: int, want: int = 512) -> int:
         """The JAX package's batch tile for ``b`` shots (module note); the
-        dense head's results do not depend on it, its engage gate does."""
+        bf16 head's results do not depend on it, its engage gate does."""
         return _max_block_b(self.per_shot_bytes(),
                             _TILE_BUDGET - self.scat_bytes, b, want)
+
+
+class DenseStack(NamedTuple):
+    """A head's graph as the plain version of the bf16 head walks it: the
+    slot-major one-hot incidence stack, ``scat[s, i, v] = 1`` iff check i's
+    slot-s edge is variable v.
+
+    ``rank[s, i]`` counts the checks before i whose slot-s edge is the same
+    variable.  A slot's scatter-sum adds, for each variable, up to cw
+    messages; their float32 sum is not always exact, so its order is part
+    of the result.  The plain version fixes it to ascending check order —
+    the order of a sequential dot product, which is what the JAX package's
+    one-hot products give on the CPU — by splitting each slot's product by
+    rank: every rank's product has at most one term per variable, exact in
+    any order, and the ranks add in sequence."""
+
+    scat: torch.Tensor  # (rw, m, n) bfloat16, exact 0/1
+    mask: torch.Tensor  # (rw, m) float32
+    rank: torch.Tensor  # (rw, m) int32
+
+
+def dense_stack(head) -> DenseStack:
+    """The DenseStack of a SparseHeadGraph or a PallasHeadGraph, on the
+    head's device."""
+    chk_idx = head.chk_idx.cpu().numpy()
+    mask = head.mask.cpu().numpy()
+    rw, m = chk_idx.shape
+    es, ei = np.nonzero(mask > 0)
+    scat = np.zeros((rw, m, head.n), np.float32)
+    scat[es, ei, chk_idx[es, ei]] = 1.0
+    rank = np.zeros((rw, m), np.int32)
+    for s in range(rw):
+        seen = np.zeros(head.n, np.int32)
+        for i in np.nonzero(mask[s] > 0)[0]:
+            rank[s, i] = seen[chk_idx[s, i]]
+            seen[chk_idx[s, i]] += 1
+    dev = head.chk_idx.device
+    return DenseStack(torch.from_numpy(scat).to(dev, torch.bfloat16),
+                      head.mask, torch.from_numpy(rank).to(dev))
 
 
 def _planes(graph):
@@ -388,11 +428,9 @@ def _planes(graph):
             np.ascontiguousarray(chk_mask.T.astype(np.float32)), n)
 
 
-def sparse_head_from_planes(chk_idx, mask, n: int,
-                            device="cuda") -> SparseHeadGraph:
-    """A SparseHeadGraph from (rw, m) index and mask planes."""
-    chk_idx = np.asarray(chk_idx, np.int32)
-    mask = np.asarray(mask, np.float32)
+def _var_edge(chk_idx, mask, n: int) -> np.ndarray:
+    """(n, cw) int32: each variable's edges ``s * m + i`` ascending, -1
+    pads."""
     m = chk_idx.shape[1]
     s, i = np.nonzero(mask > 0)
     v = chk_idx[s, i]
@@ -402,38 +440,36 @@ def sparse_head_from_planes(chk_idx, mask, n: int,
     var_edge = np.full((n, max(1, int(counts.max(initial=0)))), -1, np.int32)
     starts = np.cumsum(counts) - counts
     var_edge[v, np.arange(v.size) - starts[v]] = e
-    return SparseHeadGraph(*(torch.from_numpy(np.array(a, order="C")).to(device)
-                             for a in (chk_idx, mask, var_edge)))
+    return var_edge
+
+
+def _head_from_planes(cls, chk_idx, mask, n: int, device):
+    chk_idx = np.asarray(chk_idx, np.int32)
+    mask = np.asarray(mask, np.float32)
+    var_edge = _var_edge(chk_idx, mask, n)
+    return cls(*(torch.from_numpy(np.array(a, order="C")).to(device)
+                 for a in (chk_idx, mask, var_edge)))
+
+
+def sparse_head_from_planes(chk_idx, mask, n: int,
+                            device="cuda") -> SparseHeadGraph:
+    """A SparseHeadGraph from (rw, m) index and mask planes."""
+    return _head_from_planes(SparseHeadGraph, chk_idx, mask, n, device)
 
 
 def build_sparse_head(graph, device="cuda") -> SparseHeadGraph:
-    """The int8 head's index planes from a TannerGraph."""
-    chk_idx, mask, n = _planes(graph)
-    return sparse_head_from_planes(chk_idx, mask, n, device)
+    """The v2 head's index planes from a TannerGraph."""
+    return sparse_head_from_planes(*_planes(graph), device)
 
 
 def pallas_head_from_planes(chk_idx, mask, n: int,
                             device="cuda") -> PallasHeadGraph:
     """A PallasHeadGraph from (rw, m) index and mask planes."""
-    chk_idx = np.asarray(chk_idx, np.int32)
-    mask = np.asarray(mask, np.float32)
-    rw, m = chk_idx.shape
-    scat = torch.zeros((rw, m, n), dtype=torch.bfloat16)
-    rank = np.zeros((rw, m), np.int32)
-    for s in range(rw):
-        seen = np.zeros(n, np.int32)
-        for i in np.nonzero(mask[s] > 0)[0]:
-            v = chk_idx[s, i]
-            scat[s, i, v] = 1.0
-            rank[s, i] = seen[v]
-            seen[v] += 1
-    return PallasHeadGraph(scat.to(device),
-                           torch.from_numpy(np.array(mask)).to(device),
-                           torch.from_numpy(rank).to(device))
+    return _head_from_planes(PallasHeadGraph, chk_idx, mask, n, device)
 
 
 def build_pallas_head(graph, device="cuda") -> PallasHeadGraph:
-    """The dense head's one-hot stack from a TannerGraph."""
+    """The v1 head's index planes from a TannerGraph."""
     return pallas_head_from_planes(*_planes(graph), device)
 
 
@@ -554,15 +590,17 @@ def _add_rank(part, prod):
     return part + prod
 
 
-def minsum_dense_plain(pgraph: PallasHeadGraph, synd_bl, llr0, *,
-                       head_iters: int, scale: float, early_stop: bool):
-    """Plain version of kernel B9: ``_minsum_plane_loop`` over the dense
-    one-hot stack, line by line.  Gathers and scatter-sums are float32
-    products of the one-hot planes with bf16-rounded operands, each slot's
-    scatter split by rank (``PallasHeadGraph``); v2c is stored as bf16; the
-    totals add the slots' sums in slot order, starting from the channel
-    LLRs.  Same arguments and outputs as
+def minsum_dense_plain(head, synd_bl, llr0, *, head_iters: int,
+                       scale: float, early_stop: bool):
+    """Plain version of the bf16 head (and of B5's bf16 mode):
+    ``_minsum_plane_loop`` over the dense one-hot stack of ``head`` (a
+    SparseHeadGraph or a PallasHeadGraph; ``dense_stack``), line by line.
+    Gathers and scatter-sums are float32 products of the one-hot planes
+    with bf16-rounded operands, each slot's scatter split by rank; v2c is
+    stored as bf16; the totals add the slots' sums in slot order, starting
+    from the channel LLRs.  Same arguments and outputs as
     ``minsum_int8_plain`` less the tile: every shot is decoded alone."""
+    pgraph = dense_stack(head)
     rw, m, n = pgraph.scat.shape
     B = synd_bl.shape[1]
     dev = synd_bl.device
@@ -622,7 +660,7 @@ def minsum_dense_plain(pgraph: PallasHeadGraph, synd_bl, llr0, *,
 
 def slot_ordered_graph(graph):
     """A TannerGraph whose variable lists run in (check slot, check) order —
-    the order of the dense head's rank-split scatter (``PallasHeadGraph``),
+    the order of the plain bf16 head's rank-split scatter (``DenseStack``),
     which the fused decode's bf16 mode sums in.
     Takes and returns numpy leaves; ``chk_nbr_slot`` follows the new
     lists."""
@@ -667,10 +705,29 @@ INT8_MAX_LANES = 32
 INT8_MAX_CLUSTER = 16
 
 
-def int8_smem_bytes(lanes: int, rw: int, m: int, n: int) -> int:
-    """Shared memory of kernel B6: int8 messages (rounded up to 16 bytes)
-    and bf16 totals for each shot of the block."""
-    return -(-lanes * rw * m // 16) * 16 + 2 * n * lanes
+# shared memory of kernel B6's static arrays, rounded up
+_INT8_STATIC = 1024
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def int8_smem_bytes(lanes: int, rw: int, m: int, n: int,
+                    staged: bool = False) -> int:
+    """Dynamic shared memory of kernel B6: int8 messages (rounded up to 16
+    bytes) and bf16 totals for each shot of the block, and with ``staged``
+    the block's index plane as 16-bit indices (rounded up to 16 bytes)."""
+    return (_round16(2 * rw * m) if staged else 0) \
+        + _round16(lanes * rw * m) + 2 * n * lanes
+
+
+def int8_staged(lanes: int, rw: int, m: int, n: int) -> bool:
+    """Whether kernel B6 copies the index plane into shared memory, as
+    16-bit indices: when n < 2^15 and it fits beside the messages and totals
+    of ``lanes`` shots; otherwise the kernel reads it from device memory."""
+    return (n < 1 << 15 and int8_smem_bytes(lanes, rw, m, n, True)
+            + _INT8_STATIC <= SMEM_LIMIT)
 
 
 def int8_layout(block_b: int, rw: int, m: int, n: int) -> tuple[int, int]:
@@ -699,21 +756,22 @@ def _launch_int8(sgraph, synd_bl, llr0, head_iters, scale, block_b, early_stop):
     B = synd_bl.shape[1]
     dev = synd_bl.device
     lanes, cluster = int8_layout(block_b, rw, m, n)
+    staged = int8_staged(lanes, rw, m, n)
     err = torch.empty((n, B), dtype=torch.uint8, device=dev)
     llr = torch.empty((n, B), dtype=torch.float32, device=dev)
     conv = torch.empty((B,), dtype=torch.uint8, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _kernels.library("bp_int8").bp_int8_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float] + [i] * 4 + [p]
+    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float] + [i] * 5 + [p]
     fn.restype = ctypes.c_int
     rc = _stream_call(
         fn, dev, synd_bl.data_ptr(), llr0.data_ptr(),
         sgraph.chk_idx.data_ptr(), sgraph.mask.data_ptr(),
         sgraph.var_edge.data_ptr(), err.data_ptr(), llr.data_ptr(),
         conv.data_ptr(), iters.data_ptr(), m, n, rw, cw, B, int(head_iters),
-        float(scale), int(bool(early_stop)), lanes, cluster,
-        int8_smem_bytes(lanes, rw, m, n))
+        float(scale), int(bool(early_stop)), lanes, cluster, int(staged),
+        int8_smem_bytes(lanes, rw, m, n, staged))
     _kernels.check_launch("bp_int8", rc)
     bp_head_int8.launches += 1
     return err, conv.to(torch.bool), llr, iters
@@ -749,71 +807,59 @@ def bp_head_int8(sgraph: SparseHeadGraph, syndromes, channel_llr, *,
 
 bp_head_int8.launches = 0
 
-# shots per block of kernel B9: 16 (two 8-wide tensor-core tiles), or 8 when
-# a code's messages would not fit in shared memory
-DENSE_LANES = (16, 8)
-
-
-def dense_smem_bytes(lanes: int, rw: int, m: int, n: int) -> int:
-    """Shared memory of kernel B9: bf16 messages over (rw, m rounded up to
-    16) rows, bf16 totals over n rounded up to 16, and 12 bytes of check
-    state per check, for each shot of the block."""
-    m16, n16 = -(-m // 16) * 16, -(-n // 16) * 16
-    return lanes * (2 * rw * m16 + 2 * n16 + 12 * m)
-
-
-def _launch_dense(pgraph, synd_bl, llr0, head_iters, scale):
-    rw, m, n = pgraph.scat.shape
+def _launch_bf16(head, synd_bl, llr0, head_iters, scale):
+    rw, m = head.chk_idx.shape
+    n, cw = head.var_edge.shape
     B = synd_bl.shape[1]
     dev = synd_bl.device
-    lanes = next((k for k in DENSE_LANES
-                  if dense_smem_bytes(k, rw, m, n) <= SMEM_LIMIT), 0)
-    if not lanes or rw > 24:
-        raise ValueError(f"bp_head_dense: rw={rw}, m={m}, n={n} do not fit "
-                         f"the kernel ({SMEM_LIMIT} bytes of shared memory, "
-                         f"row weight <= 24)")
+    lanes = block_lanes(m, rw, n, edge_bytes=6)
+    if not lanes or rw > 32:
+        raise ValueError(f"bp_head_bf16: rw={rw}, m={m}, n={n} do not fit the "
+                         f"kernel ({SMEM_LIMIT} bytes of shared memory for "
+                         f"one shot, row weight <= 32)")
+    for t in (head.chk_idx, head.mask, head.var_edge):
+        if not t.is_contiguous():
+            raise ValueError("bp_head_bf16 needs contiguous index planes")
     err = torch.empty((n, B), dtype=torch.uint8, device=dev)
     llr = torch.empty((n, B), dtype=torch.float32, device=dev)
     conv = torch.empty((B,), dtype=torch.uint8, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    fn = _kernels.library("bp_dense").bp_dense_launch
+    fn = _kernels.library("bp_minsum").bp_minsum_bf16_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
+    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float] + [i] * 2 + [p]
     fn.restype = ctypes.c_int
     rc = _stream_call(
-        fn, dev, synd_bl.data_ptr(), llr0.data_ptr(), pgraph.scat.data_ptr(),
-        pgraph.mask.data_ptr(), pgraph.rank.data_ptr(), err.data_ptr(),
-        llr.data_ptr(), conv.data_ptr(), iters.data_ptr(), m, n, rw, B,
-        int(head_iters), float(scale), lanes,
-        dense_smem_bytes(lanes, rw, m, n))
-    _kernels.check_launch("bp_dense", rc)
-    bp_head_dense.launches += 1
+        fn, dev, synd_bl.data_ptr(), llr0.data_ptr(), head.chk_idx.data_ptr(),
+        head.mask.data_ptr(), head.var_edge.data_ptr(), err.data_ptr(),
+        llr.data_ptr(), conv.data_ptr(), iters.data_ptr(), m, n, rw, cw, B,
+        int(head_iters), float(scale), lanes, lanes * (6 * m * rw + n))
+    _kernels.check_launch("bp_minsum_bf16", rc)
+    bp_head_bf16.launches += 1
     return err, conv.to(torch.bool), llr, iters
 
 
-def bp_head_dense(pgraph: PallasHeadGraph, syndromes, channel_llr, *,
-                  head_iters: int, ms_scaling_factor: float = 0.625,
-                  early_stop: bool = False):
-    """Dense one-hot head decode of (B, m) uint8 syndromes (any B): the
-    same outputs as ``bp_head_int8``.  CUDA tensors launch kernel B9 (or
-    raise); CPU tensors run ``minsum_dense_plain``."""
-    _check_head_inputs("bp_head_dense", pgraph, syndromes, channel_llr)
-    if pgraph.scat.dtype != torch.bfloat16:
-        raise ValueError("bp_head_dense: the one-hot stack must be bfloat16")
+def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
+                 ms_scaling_factor: float = 0.625, early_stop: bool = False):
+    """bf16 min-sum decode of (B, m) uint8 syndromes (any B) over a
+    SparseHeadGraph or a PallasHeadGraph: the same outputs as
+    ``bp_head_int8``.  Shots are independent, so no tile enters.  CUDA
+    tensors launch the bf16 head kernel (or raise); CPU tensors run
+    ``minsum_dense_plain``."""
+    _check_head_inputs("bp_head_bf16", head, syndromes, channel_llr)
     if head_iters < 0:
         raise ValueError(f"head_iters must be >= 0, got {head_iters}")
     synd_bl = syndromes.t().contiguous()
     if syndromes.is_cuda and not _kernels.plain_forced():
         # the kernel's blocks leave once their shots have converged, which
         # is early_stop's result too: outputs freeze at convergence
-        err, conv, llr, iters = _launch_dense(
-            pgraph, synd_bl, channel_llr.contiguous(), head_iters,
+        err, conv, llr, iters = _launch_bf16(
+            head, synd_bl, channel_llr.contiguous(), head_iters,
             ms_scaling_factor)
     else:
         err, conv, llr, iters = minsum_dense_plain(
-            pgraph, synd_bl, channel_llr, head_iters=head_iters,
+            head, synd_bl, channel_llr, head_iters=head_iters,
             scale=float(ms_scaling_factor), early_stop=early_stop)
     return err.t(), conv, llr.t(), iters
 
 
-bp_head_dense.launches = 0
+bp_head_bf16.launches = 0

@@ -42,7 +42,6 @@ from .bp_kernel import (
     MAX_LANES,
     SMEM_LIMIT,
     SparseHeadGraph,
-    build_pallas_head,
     build_sparse_head,
     minsum_dense_plain,
     minsum_int8_plain,
@@ -81,6 +80,7 @@ __all__ = [
     "estimate_fused_decode_bytes",
     "fused_decode_block_w",
     "fused_int8_smem_bytes",
+    "fused_int8_staged",
     "fused_int8_active_clusters",
 ]
 
@@ -369,11 +369,11 @@ def fused_decode_plain(spec: FusedDecodeSpec, key, batch_size: int, *,
     exp, ezp, sxp, szp = sample_syndrome_plain(base, key, batch_size)
     sz, sx = unpack_shots(szp, batch_size), unpack_shots(sxp, batch_size)
 
-    def decode(graph, sparse, synd, llr, max_iter):
+    def decode(sparse, synd, llr, max_iter):
         synd_bl = synd.t().contiguous()
         if quantize is None:
             err, done, _post, iters = minsum_dense_plain(
-                build_pallas_head(graph, synd_bl.device), synd_bl, llr,
+                sparse, synd_bl, llr,
                 head_iters=int(max_iter), scale=scale, early_stop=True)
         else:
             err, done, _post, iters = minsum_int8_plain(
@@ -381,8 +381,8 @@ def fused_decode_plain(spec: FusedDecodeSpec, key, batch_size: int, *,
                 block_b=block_w * LANE, early_stop=True)
         return err.t(), {"converged": done, "iterations": iters}
 
-    cor_z, aux_z = decode(spec.graph_z, spec.sparse_z, sz, spec.llr_z, max_iter_z)
-    cor_x, aux_x = decode(spec.graph_x, spec.sparse_x, sx, spec.llr_x, max_iter_x)
+    cor_z, aux_z = decode(spec.sparse_z, sz, spec.llr_z, max_iter_z)
+    cor_x, aux_x = decode(spec.sparse_x, sx, spec.llr_x, max_iter_x)
     cnt, min_w = _residual_stats(base, exp ^ pack_shots(cor_x),
                                  ezp ^ pack_shots(cor_z), eval_type,
                                  batch_size)
@@ -542,15 +542,27 @@ INT8_FUSED_MAX_CLUSTER = 16
 _INT8_FUSED_STATIC = 1024
 
 
-def fused_int8_smem_bytes(n: int, mx: int, rwz: int, mz: int,
-                          rwx: int) -> int:
+def fused_int8_smem_bytes(n: int, mx: int, rwz: int, mz: int, rwx: int,
+                          staged: bool = False) -> int:
     """Dynamic shared memory of the int8 fused decode's 32-shot block: the
     larger sector's int8 messages (rounded up to 16 bytes; the sampler's
     error words use the same space before the decodes start), bf16 totals,
-    and as 32-bit words over the block's shots both syndromes and both
-    sectors' corrections."""
-    msg = max(-(-LANE * max(mx * rwz, mz * rwx) // 16) * 16, 8 * n)
-    return msg + 2 * n * LANE + 4 * (mx + mz) + 8 * n
+    as 32-bit words over the block's shots both syndromes and both sectors'
+    corrections (rounded up to 8 bytes), and with ``staged`` the larger
+    sector's index plane as 16-bit indices."""
+    edges = max(mx * rwz, mz * rwx)
+    msg = max(-(-LANE * edges // 16) * 16, 8 * n)
+    words = -(-(msg + 2 * n * LANE + 4 * (mx + mz) + 8 * n) // 8) * 8
+    return words + (2 * edges if staged else 0)
+
+
+def fused_int8_staged(n: int, mx: int, rwz: int, mz: int, rwx: int) -> bool:
+    """Whether the int8 fused decode copies each sector's index plane into
+    shared memory, as 16-bit indices: when n < 2^15 and it fits beside the
+    rest of the block's layout; otherwise the kernel reads it from device
+    memory."""
+    return (n < 1 << 15 and fused_int8_smem_bytes(n, mx, rwz, mz, rwx, True)
+            + _INT8_FUSED_STATIC <= SMEM_LIMIT)
 
 
 def _graph_args(g: TannerGraph, dev) -> list:
@@ -626,7 +638,9 @@ def _launch_fused_int8(spec, key, batch_size, eval_code, max_iter_z,
     base = spec.base
     dev = base.device
     sz, sx = _sparse_args(spec.sparse_z, dev), _sparse_args(spec.sparse_x, dev)
-    smem = fused_int8_smem_bytes(base.n, sz[3], sz[4], sx[3], sx[4])
+    shape = (base.n, sz[3], sz[4], sx[3], sx[4])
+    staged = fused_int8_staged(*shape)
+    smem = fused_int8_smem_bytes(*shape, staged)
     if smem + _INT8_FUSED_STATIC > SMEM_LIMIT or block_w > INT8_FUSED_MAX_CLUSTER:
         raise ValueError(
             f"fused int8 decode: a block of {LANE} shots needs {smem} bytes of "
@@ -636,12 +650,12 @@ def _launch_fused_int8(spec, key, batch_size, eval_code, max_iter_z,
     outs = _fused_outputs(spec, batch_size, batch_size // LANE)
     _call("fused_decode_int8", "fused_decode_int8_launch",
           [_U] * 5 + ([_P] * 3 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 4
-          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
+          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I] + [_P] * 6,
           [*_key_and_cuts(base, key), *sz, *sx, *_adj(base, "hx"),
            *_adj(base, "hz"), *_adj(base, "lx"), *_adj(base, "lz"),
            spec.llr_z.data_ptr(), spec.llr_x.data_ptr(), base.n, max_iter_z,
-           max_iter_x, scale, eval_code, batch_size, block_w, smem,
-           *(t.data_ptr() for t in outs)], dev)
+           max_iter_x, scale, eval_code, batch_size, block_w, int(staged),
+           smem, *(t.data_ptr() for t in outs)], dev)
     fused_decode_stats.int8_launches += 1
     return _fused_result(outs)
 
@@ -651,11 +665,13 @@ def fused_int8_active_clusters(spec: FusedDecodeSpec, block_w: int) -> int:
     at once on the current card (``cudaOccupancyMaxActiveClusters``); a
     batch of T tiles runs in ceil(T / this) waves."""
     n, mx, mz, rwz, rwx = spec.statics
+    staged = fused_int8_staged(n, mx, rwz, mz, rwx)
     fn = _kernels.library("fused_decode_int8").fused_decode_int8_active_clusters
-    fn.argtypes = [_I, _I]
+    fn.argtypes = [_I, _I, _I]
     fn.restype = ctypes.c_int
     with torch.cuda.device(spec.base.device):
-        return fn(int(block_w), fused_int8_smem_bytes(n, mx, rwz, mz, rwx))
+        return fn(int(block_w), int(staged),
+                  fused_int8_smem_bytes(n, mx, rwz, mz, rwx, staged))
 
 
 def fused_decode_stats(spec: FusedDecodeSpec, key, batch_size: int, *,

@@ -2,9 +2,10 @@
 """Where the time of the PyTorch port's WER path goes, on one NVIDIA GPU.
 
 Runs the main-path configurations of chip_smoke.py (hgp_34_n625, BP-50 at
-p=0.01 with batches of 4096 on the default path, with int8 min-sum
-decoders (quantize="int8"), with the dense one-hot head (bp_kernel="v1")
-and on both fused engines, fused_sampler=True and "v2" (bf16 messages with
+p=0.01 with batches of 4096 on the default path (the bf16 head), with
+float32 min-sum (bp_kernel="xla"), with int8 min-sum decoders
+(quantize="int8"), with the v1 tag (bp_kernel="v1", the bf16 head over a
+PallasHeadGraph) and on both fused engines, fused_sampler=True and "v2" (bf16 messages with
 float decoders, int8 with quantize="int8"); BP-50 + OSD-E order 10 at
 p=0.05 with batches of 2048, on the blocked and the per-column elimination route; BP-50 +
 OSD-CS order 10 at p=0.05 with batches of 2048) once to warm up and once
@@ -57,6 +58,8 @@ def main() -> int:
 
     for tag, sim, shots in (
             ("BP p=0.01", simulator(BPDecoder, 0.01, 4096), 16 * 4096),
+            ("BP xla p=0.01", simulator(BPDecoder, 0.01, 4096,
+                                        bp_kernel="xla"), 16 * 4096),
             ("BP int8 p=0.01", simulator(BPDecoder, 0.01, 4096,
                                          quantize="int8"), 16 * 4096),
             ("BP v1 p=0.01", simulator(BPDecoder, 0.01, 4096,

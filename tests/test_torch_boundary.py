@@ -73,7 +73,7 @@ def test_every_kernel_source_is_scanned_and_built():
     csrc = os.path.join(PORT, "csrc")
     cu = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
     assert cu == sorted(_kernels.SOURCES)
-    assert {"bp_int8", "bp_dense"} <= set(cu)
+    assert {"bp_int8", "bp_minsum"} <= set(cu) and "bp_dense" not in cu
     for name in os.listdir(csrc):
         text = open(os.path.join(csrc, name), encoding="utf-8").read()
         for header in re.findall(r"#\s*include\s*<([^>]+)>", text):

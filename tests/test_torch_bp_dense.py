@@ -1,6 +1,7 @@
-"""Port dense one-hot head (v1, ``QLDPC_BP_KERNEL=v1``): the plain version
-of kernel B9 (``ops/bp_kernel.py`` ``minsum_dense_plain``) and the v1
-two-phase decode against the JAX package.
+"""Port v1 head (``QLDPC_BP_KERNEL=v1``, a PallasHeadGraph): the plain
+version of the bf16 head (``ops/bp_kernel.py`` ``minsum_dense_plain``, the
+loop over the dense one-hot stack) and the v1 two-phase decode against the
+JAX package.
 
 Tolerances: none against the JAX package's v1 kernel ``bp_head_pallas`` run
 in interpret mode and its v1 two-phase decode — every output bit-exact.
@@ -83,7 +84,7 @@ def test_plain_dense_bitexact_vs_v1_interpret(head_iters, early_stop):
     ref = bp_pallas.bp_head_pallas(jpg, synd, llr, head_iters=head_iters,
                                    block_b=64, early_stop=early_stop,
                                    interpret=True)
-    got = bk.bp_head_dense(tpg, torch.from_numpy(synd), torch.from_numpy(llr),
+    got = bk.bp_head_bf16(tpg, torch.from_numpy(synd), torch.from_numpy(llr),
                            head_iters=head_iters, early_stop=early_stop)
     _assert_bitexact(ref, got)
 
@@ -96,7 +97,7 @@ def test_plain_dense_bitexact_on_padded_slots(seed):
     synd = _syndromes(h, 128, 0.05, seed)
     ref = bp_pallas.bp_head_pallas(jpg, synd, llr, head_iters=16, block_b=64,
                                    interpret=True)
-    got = bk.bp_head_dense(tpg, torch.from_numpy(synd), torch.from_numpy(llr),
+    got = bk.bp_head_bf16(tpg, torch.from_numpy(synd), torch.from_numpy(llr),
                            head_iters=16)
     _assert_bitexact(ref, got)
 
@@ -122,7 +123,7 @@ def n225_run():
 
     bk._add_rank = recording_add
     try:
-        got = bk.bp_head_dense(tpg, torch.from_numpy(synd),
+        got = bk.bp_head_bf16(tpg, torch.from_numpy(synd),
                                torch.from_numpy(llr), head_iters=50)
     finally:
         bk._add_rank = add
@@ -177,10 +178,13 @@ def test_v1_two_phase_decode_vs_jax(monkeypatch):
                                   torch.from_numpy(llr), max_iter=20,
                                   head=tpg, device="cpu")
     _assert_bitexact(ref, got)
+    # the CPU decodes in float32 whatever the tag, as JAX off its TPU; the
+    # "v1" program with its head is the card's
     dec = BPDecoder(h, np.full(h.shape[1], p), 20, bp_kernel="v1",
                     device="cpu")
-    assert dec.device_static[5] == "v1"
-    err, aux = decode_device(dec.device_static, dec.device_state,
+    assert dec.device_static[5] == "none"
+    err, aux = decode_device(dec.device_static[:5] + ("v1",),
+                             dict(dec.device_state, pallas=tpg),
                              torch.from_numpy(synd))
     _assert_bitexact(ref, (err, aux["converged"], aux["posterior_llr"],
                            aux["iterations"]))
@@ -192,6 +196,7 @@ def test_dense_head_of_hgp_34_n625_fits_the_jax_gate():
     jpg, tpg = _heads(h)
     assert tpg.scat_bytes == jpg.scat_bytes and tpg.fits_vmem()
     assert tpg.max_block_b(4096, 256) == jpg.max_block_b(4096, 256) == 256
-    assert torch.equal(tpg.scat.float(),
+    stack = bk.dense_stack(tpg)
+    assert torch.equal(stack.scat.float(),
                        torch.from_numpy(np.asarray(jpg.scat, np.float32)))
-    assert int(tpg.rank.max()) == 3
+    assert int(stack.rank.max()) == 3

@@ -28,6 +28,7 @@ from qldpc_fault_tolerance_tpu_torch.decoders import (
 )
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
 from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
 
 # one intra-op thread: the suite runs several pytest workers on few cores,
@@ -137,6 +138,28 @@ def test_int8_layout_of_the_cluster():
         bk.int8_layout(1024, 7, 300, 625)
 
 
+@pytest.mark.parametrize("m,n,lanes,staged,fused_staged", [
+    (300, 625, 32, True, True),      # hgp_34_n625
+    (588, 1225, 32, True, False),    # hgp_34_n1225
+    (768, 1600, 16, True, None),     # hgp_34_n1600: too large for fused int8
+    (660, 1225, 32, False, None)])  # the index plane does not fit beside
+def test_int8_layouts_fit_every_code(m, n, lanes, staged, fused_staged):
+    """The int8 kernels' shared memory at row weight 7: B6 keeps 32 shots per
+    block wherever their messages and totals fit, and stages the index
+    plane only where it fits beside them; the fused int8 decode runs every
+    code whose block fits without the plane (hgp_34_n1225 among them)."""
+    assert bk.int8_layout(256, 7, m, n) == (lanes, 256 // lanes)
+    assert bk.int8_staged(lanes, 7, m, n) is staged
+    assert (bk.int8_smem_bytes(lanes, 7, m, n, staged) + bk._INT8_STATIC
+            <= bk.SMEM_LIMIT)
+    shape = (n, m, 7, m, 7)
+    fits = (gk.fused_int8_smem_bytes(*shape) + gk._INT8_FUSED_STATIC
+            <= bk.SMEM_LIMIT)
+    assert fits is (fused_staged is not None)
+    if fits:
+        assert gk.fused_int8_staged(*shape) is fused_staged
+
+
 def test_tile_rule_is_the_jax_packages():
     """max_block_b and the size gate copied exactly (analytic bytes)."""
     for h in (_irregular_h(0), _n225(),
@@ -216,8 +239,9 @@ def test_int8_factory_and_errors():
     dec = BP_Decoder_Class(1, "minimum_sum", 0.625, quantize="int8",
                            device="cpu").GetDecoder(params)
     assert dec.device_static[5] == "v2_int8" and dec.quantize == "int8"
+    # without quantize a CPU decoder has no head (float32, as JAX off its TPU)
     assert BP_Decoder_Class(1, "ms", 0.625, device="cpu").GetDecoder(
-        params).device_static[5] == "v2"
+        params).device_static[5] == "none"
     probs = np.full(h.shape[1], 0.05)
     with pytest.raises(ValueError, match="requires the v2 kernel"):
         BPDecoder(h, probs, 10, quantize="int8", bp_kernel="v1", device="cpu")

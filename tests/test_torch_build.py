@@ -36,7 +36,7 @@ def test_every_kernel_source_is_listed_and_its_headers_found(csrc):
                          "fused_decode_int8"},
      {"bp_minsum", "osd_elim"}),
     ("int8_body.cuh", {"bp_int8", "fused_decode_int8"},
-     {"fused_decode", "bp_minsum", "bp_dense"}),
+     {"fused_decode", "bp_minsum", "cs_sweep"}),
 ])
 def test_target_name_changes_with_an_included_header(csrc, header, changed,
                                                      kept):

@@ -4,8 +4,8 @@ These tests need an NVIDIA GPU (a CUDA kernel has no interpret mode) and
 skip without one; run them on a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
 kernel reproduces its plain version bit for bit (min-sum, alone or inside
-the fused decode in either message mode, int8 min-sum, the dense one-hot
-head and the OSD-CS sweep are built with FMA contraction off; the eliminations, the counter-PRNG
+the fused decode in either message mode, int8 min-sum, the bf16 head and
+the OSD-CS sweep are built with FMA contraction off; the eliminations, the counter-PRNG
 sampler and the residual checks are integer-exact)."""
 import os
 
@@ -270,10 +270,13 @@ def test_fused_decode_kernel_matches_plain(cuda, name, B):
 
 @pytest.mark.parametrize("name,B,block_w", [("rep3", 64, 1), ("n225", 512, 8),
                                             ("n225", 96, 1), ("n625", 512, 8),
-                                            ("n625", 128, 2)])
+                                            ("n625", 128, 2),
+                                            ("n1225", 512, 8)])
 def test_fused_decode_int8_kernel_matches_plain(cuda, name, B, block_w):
     """The int8 mode, two or more tiles per batch (each tile its own
-    message scales)."""
+    message scales); hgp_34_n1225 reads its index planes from device
+    memory (they do not fit in shared memory beside the rest), the others
+    stage them."""
     _fused_matches_plain(_fused_spec(cuda, name, B), B, "int8_launches",
                          quantize="int8", block_w=block_w)
 
@@ -306,15 +309,24 @@ def _bits(res):
 @pytest.mark.parametrize("code,block_b,early_stop", [
     ("irregular", 16, False), ("irregular", 64, True),
     ("hgp_34_n225", 256, False), ("hgp_34_n225", 512, True),
-    ("hgp_34_n625", 512, True)])
+    ("hgp_34_n625", 512, True), ("hgp_34_n1225", 256, False),
+    ("hgp_34_n1600", 256, True), ("unstaged", 256, False)])
 def test_int8_kernel_matches_plain(cuda, code, block_b, early_stop):
     """B6 at every tile the two-phase decode uses; padded slots (irregular
-    rows); a 512-shot tile is a cluster of 16 blocks."""
+    rows); a 512-shot tile is a cluster of 16 blocks, and so is a 256-shot
+    tile of hgp_34_n1600 (16 shots per block); "unstaged", 660 checks of
+    weight 7 on 1225 bits, keeps 32 shots per block and reads its index
+    plane from device memory."""
+    rng = np.random.default_rng(4)
     if code == "irregular":
-        rng = np.random.default_rng(4)
         h = np.zeros((24, 48), np.uint8)
         for i in range(24):
             h[i, rng.choice(48, size=int(rng.integers(2, 7)), replace=False)] = 1
+    elif code == "unstaged":
+        h = np.zeros((660, 1225), np.uint8)
+        for i in range(660):
+            h[i, rng.choice(1225, size=7, replace=False)] = 1
+        assert not bk.int8_staged(32, 7, 660, 1225)
     else:
         h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
     sg = bk.build_sparse_head(tbp.build_tanner_graph_host(h), cuda)
@@ -331,38 +343,79 @@ def test_int8_kernel_matches_plain(cuda, code, block_b, early_stop):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("code,B", [("ring", 300), ("hgp_34_n225", 256),
-                                    ("hgp_34_n625", 100)])
-def test_dense_kernel_matches_plain(cuda, code, B):
-    """B9 on any batch (a ragged last block at B=300 and 100)."""
+def _head(cuda, code, head_type):
     if code == "ring":
         h = hgp(ring_code(5), ring_code(4)).hx
     else:
         h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
-    pg = bk.build_pallas_head(tbp.build_tanner_graph_host(h), cuda)
+    graph = tbp.build_tanner_graph_host(h)
+    build = bk.build_sparse_head if head_type == "v2" else bk.build_pallas_head
+    return h, build(graph, cuda)
+
+
+@pytest.mark.parametrize("head_type", ["v2", "v1"])
+@pytest.mark.parametrize("code,B", [("ring", 300), ("hgp_34_n225", 256),
+                                    ("hgp_34_n625", 100), ("hgp_34_n625", 300)])
+def test_dense_kernel_matches_plain(cuda, code, B, head_type):
+    """The bf16 head (which serves the v1 tag in place of the dense one-hot
+    kernel) over either head type, on any batch (ragged last blocks at
+    B=300 and 100)."""
+    h, head = _head(cuda, code, head_type)
     synd = _synd(h, B, 0.05, B).to(cuda)
     llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
-    before = bk.bp_head_dense.launches
-    k = bk.bp_head_dense(pg, synd, llr, head_iters=40)
-    assert bk.bp_head_dense.launches == before + 1
+    before = bk.bp_head_bf16.launches
+    k = bk.bp_head_bf16(head, synd, llr, head_iters=40)
+    assert bk.bp_head_bf16.launches == before + 1
     with _kernels.force_plain():
-        p = bk.bp_head_dense(pg, synd, llr, head_iters=40)
+        p = bk.bp_head_bf16(head, synd, llr, head_iters=40)
+    assert bk.bp_head_bf16.launches == before + 1
     for a, b in zip(_bits(k), _bits(p)):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [{"quantize": "int8"}, {"bp_kernel": "v1"}])
+def test_bf16_head_tail_matches_plain(cuda):
+    """The compacted early-exit tail: stragglers of a 3-iteration head and
+    zero sentinel rows, 50 iterations with early exit."""
+    h, head = _head(cuda, "hgp_34_n625", "v2")
+    synd = _synd(h, 1024, 0.05, 11).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
+    first = bk.bp_head_bf16(head, synd, llr, head_iters=3)
+    strag = torch.nonzero(~first[1]).flatten()[:192]
+    rows = torch.cat([synd[strag], synd.new_zeros((256 - strag.numel(),
+                                                   synd.shape[1]))])
+    k = bk.bp_head_bf16(head, rows, llr, head_iters=50, early_stop=True)
+    with _kernels.force_plain():
+        p = bk.bp_head_bf16(head, rows, llr, head_iters=50, early_stop=True)
+    for a, b in zip(_bits(k), _bits(p)):
+        assert torch.equal(a, b)
+    assert bool(k[1][strag.numel():].all())  # sentinel rows converge at once
+
+
+@pytest.mark.parametrize("kw", [{}, {"quantize": "int8"}, {"bp_kernel": "v1"}])
 def test_head_decoders_on_card_match_cpu(cuda, kw):
-    """The two-phase decode through B6 or B9 on the card gives the CPU's
-    plain decode, shot for shot."""
+    """The two-phase decode through the bf16 head (tags v2 and v1) or B6 on
+    the card gives the CPU's plain decode with the same head, shot for
+    shot."""
+    from qldpc_fault_tolerance_tpu_torch.decoders import decode_device
+
     h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
     probs = np.full(h.shape[1], 0.03)
-    synd = _synd(h, 1024, 0.03, 5).numpy()
+    synd = torch.from_numpy(_synd(h, 1024, 0.03, 5).numpy())
     card = BPDecoder(h, probs, 50, device=cuda, **kw)
     cpu = BPDecoder(h, probs, 50, device="cpu", **kw)
-    a, aux_a = card.decode_batch_device(torch.from_numpy(synd))
-    b, aux_b = cpu.decode_batch_device(torch.from_numpy(synd))
+    head = card.device_state["pallas"]
+    state = dict(cpu.device_state, pallas=type(head)(*(t.cpu() for t in head)))
+    launches = (bk.bp_head_bf16.launches, bk.bp_head_int8.launches)
+    a, aux_a = card.decode_batch_device(synd)
+    b, aux_b = decode_device(card.device_static, state, synd)
     assert torch.equal(a.cpu(), b)
     for key in aux_a:
         assert torch.equal(aux_a[key].cpu(), aux_b[key]), key
-    assert card.kernel_variant in ("sparse_int8", "dense_onehot")
+    tag = card.device_static[5]
+    assert tag == {"quantize": "v2_int8", "bp_kernel": "v1"}.get(
+        next(iter(kw), None), "v2")
+    assert card.kernel_variant == {"v2": "sparse_gather", "v1": "dense_onehot",
+                                   "v2_int8": "sparse_int8"}[tag]
+    ran = (bk.bp_head_bf16.launches - launches[0],
+           bk.bp_head_int8.launches - launches[1])
+    assert ran[tag == "v2_int8"] > 0 and ran[tag != "v2_int8"] == 0

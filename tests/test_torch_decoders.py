@@ -23,6 +23,8 @@ from qldpc_fault_tolerance_tpu_torch.decoders import (
     kernel_variant,
     state_from_jax,
 )
+from qldpc_fault_tolerance_tpu_torch.decoders import bp_decoders
+from qldpc_fault_tolerance_tpu_torch.ops import bp
 from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
 
 # one intra-op thread: the suite runs several pytest workers on few cores,
@@ -44,7 +46,8 @@ def _same_tensors(a, b, what):
 def test_state_from_jax_round_trip(kind):
     """Every state field, the BP head included: None for the float32
     decoders, a SparseHeadGraph for int8, a PallasHeadGraph for v1 (JAX
-    builds its v1 head only on a TPU, so the test puts one in its state)."""
+    builds its v1 head only on a TPU, and the port only on the card, so the
+    test puts one in both states and decodes with the "v1" tag)."""
     code = hgp(ring_code(4), ring_code(4))
     h = code.hx
     probs = np.full(code.N, 0.05)
@@ -58,12 +61,16 @@ def test_state_from_jax_round_trip(kind):
         td = BPDecoder(h, probs, 20, quantize=quantize, bp_kernel=kernel,
                        device="cpu")
     jstate = dict(jd.device_state)
+    own = td.device_state
+    static = td.device_static
     if kind == "bp_v1":
         jstate["pallas"] = jax_bp_pallas.build_pallas_head(
             jax_bp.build_tanner_graph_host(h))
+        own = dict(own, pallas=bk.build_pallas_head(
+            jax_bp.build_tanner_graph_host(h), "cpu"))
+        static = static[:5] + ("v1",)
     np_state = jax.tree_util.tree_map(np.asarray, jstate)
     bridged = state_from_jax(np_state, device="cpu")
-    own = td.device_state
     assert set(bridged) == set(own)
     for key in own:
         if key in ("graph", "pallas"):
@@ -76,8 +83,8 @@ def test_state_from_jax_round_trip(kind):
         else:
             _same_tensors(bridged[key], own[key], key)
     synd = torch.from_numpy(_syndromes(h, 256, 0.06, 1))
-    a, aux_a = decode_device(td.device_static, bridged, synd)
-    b, aux_b = decode_device(td.device_static, own, synd)
+    a, aux_a = decode_device(static, bridged, synd)
+    b, aux_b = decode_device(static, own, synd)
     assert torch.equal(a, b)
     for k in aux_a:
         assert torch.equal(aux_a[k], aux_b[k])
@@ -141,11 +148,11 @@ def test_bposd_static_slots_and_unknown_method_raises(monkeypatch):
                        device="cpu")
     j = jdec.BPOSD_Decoder(code.hx, probs, 10, osd_method="osd_cs", osd_order=4)
     assert cs.device_static[0] == "bposd_dev" and len(cs.device_static) == 7
-    # the nested BP static is the JAX package's 6 slots; its head tag is
-    # "v2" (float32 min-sum, kernel 1) where JAX off its TPU says "none"
+    # the nested BP static is the JAX package's 6 slots, its head tag "none"
+    # on the CPU as JAX's off its TPU
     assert len(cs.device_static[1]) == len(j.device_static[1]) == 6
     assert cs.device_static[1][:5] == j.device_static[1][:5]
-    assert cs.device_static[1][5] == "v2"
+    assert cs.device_static[1][5] == j.device_static[1][5] == "none"
     assert cs.device_static[2:] == j.device_static[2:]
     assert cs.device_static[2:] == (code.N, cs.device_static[3], 4, "pallas",
                                     "osd_cs")
@@ -170,9 +177,11 @@ def test_bposd_static_slots_and_unknown_method_raises(monkeypatch):
 
 
 def test_head_tags_and_kernel_variant(monkeypatch):
-    """bp_kernel / QLDPC_BP_KERNEL and quantize pick the head and its tag;
-    kernel_variant names the program that runs: the plain versions on the
-    CPU, the kernels on the card (a stand-in CUDA state here)."""
+    """bp_kernel / QLDPC_BP_KERNEL and quantize pick the head and its tag by
+    the device: on the CPU only int8 builds a head, as the JAX package off
+    its TPU.  kernel_variant gives JAX's names: xla_twin for every float32
+    and every plain decode, the head's name for an engaged head on the card
+    (a stand-in CUDA state here)."""
     import types
 
     code = hgp(ring_code(4), ring_code(4))
@@ -181,10 +190,10 @@ def test_head_tags_and_kernel_variant(monkeypatch):
     def make(**kw):
         return BPDecoder(code.hx, probs, 20, device="cpu", **kw)
 
-    cases = {(): ("v2", type(None), "sparse_gather"),
-             (("bp_kernel", "v2"),): ("v2", type(None), "sparse_gather"),
-             (("bp_kernel", "xla"),): ("none", type(None), "sparse_gather"),
-             (("bp_kernel", "v1"),): ("v1", bk.PallasHeadGraph, "dense_onehot"),
+    cases = {(): ("none", type(None), "xla_twin"),
+             (("bp_kernel", "v2"),): ("none", type(None), "xla_twin"),
+             (("bp_kernel", "xla"),): ("none", type(None), "xla_twin"),
+             (("bp_kernel", "v1"),): ("none", type(None), "xla_twin"),
              (("quantize", "int8"),): ("v2_int8", bk.SparseHeadGraph,
                                        "sparse_int8"),
              (("bp_method", "product_sum"),): ("none", type(None), "xla_twin")}
@@ -198,12 +207,17 @@ def test_head_tags_and_kernel_variant(monkeypatch):
         assert kernel_variant(dec.device_static, card) == on_card, kw
         if head_type is not type(None):
             # a batch the head's gate refuses runs float32 min-sum
-            assert kernel_variant(dec.device_static, card, 320) == "sparse_gather"
+            assert kernel_variant(dec.device_static, card, 320) == "xla_twin"
             assert kernel_variant(dec.device_static, card, 512) == on_card
             bposd = ("bposd_dev", dec.device_static, 1, 1, 0, "pallas", "osd_e")
             assert kernel_variant(bposd, card, 512) == on_card
+    graph = bp.build_tanner_graph_host(code.hx)
+    monkeypatch.setattr(bk, "build_pallas_head",
+                        lambda g, device, b=bk.build_pallas_head: b(g, "cpu"))
     monkeypatch.setenv("QLDPC_BP_KERNEL", "v1")
-    assert make().device_static[5] == "v1"
+    assert make().device_static[5] == "none"
+    assert bp_decoders._make_head("minimum_sum", graph,
+                                  device="cuda")[1] == "v1"
     monkeypatch.setenv("QLDPC_BP_KERNEL", "v3")
     with pytest.raises(ValueError, match="QLDPC_BP_KERNEL"):
         make()
