@@ -8,12 +8,15 @@ Phases (any failure raises and the script exits non-zero):
   2. build all eight kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
      (one nvcc per source, started together)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
-     hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50
+     hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50; its
+     layout (shots per block, threads, blocks, resident blocks per SM from
+     the card's occupancy, shared memory per block)
   4. kernel 2 (GF(2) elimination) against its plain version: B=256 shots
      BP failed in phase 3, permuted by their posteriors
   5. main path, BP: CodeSimulator_DataError WER on hgp_34_n625, BP-50,
      depolarizing p=0.01, 16 batches of 4096 (default decoders: on the card
-     the two-phase head and tail run in the bf16 head)
+     the two-phase head and tail run in the bf16 head); its failures and
+     min weight pinned (MINSUM_RUNS, as phases 6, 16, 17, 22 and 26)
   6. main path, BPOSD: the same code, BP-50 + OSD-E order 10, p=0.05,
      8 batches of 2048
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
@@ -64,7 +67,11 @@ Phases (any failure raises and the script exits non-zero):
      the same syndromes: the head at tile 256 without early exit, 50
      iterations, and a compacted tail of 1024 rows (stragglers of a
      3-iteration head and zero sentinel rows) with early exit; every
-     output bit-exact
+     output bit-exact; the layouts; then both min-sum kernels at the main
+     path's two shapes (a 3-iteration head over 4096 shots at p=0.01 and
+     its compacted tail of 256 rows, 50 iterations with early exit, which
+     phase 5 launches 32 + 32 times), timed, and at phase 3/20's shapes and
+     these on hgp_34_n1225 and n1600, every output bit-exact
  21. main path, int8: phase 5's run with BPDecoder(quantize="int8"); its
      WER within int8_parity_tolerance of phase 5's
  22. main path, v1: phase 5's run with BPDecoder(bp_kernel="v1"); the same
@@ -119,6 +126,12 @@ SEED = 20261016
 # function's results, which a change to its kernels must keep
 # (scripts/ab_int8_body.py gives them for two checkouts side by side)
 INT8_RUNS = {"21": (212, 3), "25": (231, 3)}
+# (failures, min weight) of phases 5, 22 and 26 (BP) and 6, 16 and 17 (BP +
+# OSD, the deepened head) at SEED: the bf16 head's and kernel 1's results,
+# which a change to the min-sum kernels must keep
+# (scripts/ab_minsum_body.py gives them for two checkouts side by side)
+MINSUM_RUNS = {"5": (187, 2), "22": (187, 2), "26": (184, 2), "6": (941, 6),
+               "16": (923, 6), "17": (941, 6)}
 
 
 def log(msg: str) -> None:
@@ -140,27 +153,30 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
     """Mean device time per call of the kernels whose name holds ``kernel``,
     from torch.profiler over ``reps`` calls after one warm-up.  Raises when
     the profiler records no device time for it: CUDA events around
     back-to-back calls of a kernel this short time the host's launch cost,
-    which is another number."""
+    which is another number.  A profiler session now and then records the
+    host's calls and none of the card's kernels (seen on the first session
+    of a process), so such a session is repeated, ``tries`` times at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if kernel in e.key)
-    if total_us <= 0:
-        raise AssertionError(f"the profiler recorded no device time for "
-                             f"{kernel}")
-    return total_us / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if kernel in e.key)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError(f"the profiler recorded no device time for "
+                         f"{kernel}")
 
 
 def all_kernels_ms(fn, reps: int) -> float:
@@ -178,6 +194,16 @@ def all_kernels_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()
                if e.device_type.name == "CUDA") / reps / 1e3
+
+
+def layout_text(bk, dev, B: int, m: int, n: int, bf16: bool) -> str:
+    """The launch of csrc/bp_minsum.cu for B shots of an (m, n) code of
+    row weight 7 and column weight 4 (ops/bp_kernel.py card_minsum_layout),
+    with the card's resident blocks per SM."""
+    lay = bk.card_minsum_layout(dev, B, m, n, 7, 4, bf16)
+    return (f"{lay.lanes} shots x {lay.threads // lay.lanes} threads per "
+            f"block, {lay.grid} blocks, {lay.resident} resident per SM, "
+            f"{lay.smem_bytes} B shared memory")
 
 
 def card_line() -> str:
@@ -458,7 +484,7 @@ def main() -> int:
         f"{float(k1[1].float().mean()):.4f}; kernel {k1_ms:.3f} ms, plain "
         f"{k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}); "
         f"{shot_iters} shot-iterations move {msg_bytes / 1e9:.4f} GB of "
-        f"messages")
+        f"messages; layout {layout_text(bk, dev, B1, m, n, False)}")
 
     # 4. kernel 2 vs its plain version
     B2 = 256
@@ -545,6 +571,10 @@ def main() -> int:
     run6, launches_6 = counted(lambda: wer_phase("6 BPOSD p=0.05", sim6, 8))
     log(f"[5] launches {launches_5}; decoders' program "
         f"{sim5.decoder_z.kernel_variant}\n[6] launches {launches_6}")
+    for tag, run in (("5", run5), ("6", run6)):
+        if tuple(run) != MINSUM_RUNS[tag]:
+            raise AssertionError(f"phase {tag} (failures, min_w) {run} != "
+                                 f"{MINSUM_RUNS[tag]}")
     for name, count in (("bp_minsum_bf16", launches_5["bp_minsum_bf16"]),
                         ("bp_minsum_bf16", launches_6["bp_minsum_bf16"]),
                         ("osd_elim", launches_6["osd_elim"])):
@@ -845,7 +875,7 @@ def main() -> int:
     # 6's run; counts reset just before each run, read just after
     sim16 = simulator(BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_cs",
                       osd_order=10)
-    _, launches_16 = counted(lambda: wer_phase("16 BPOSD-CS p=0.05", sim16, 8))
+    run16, launches_16 = counted(lambda: wer_phase("16 BPOSD-CS p=0.05", sim16, 8))
     log(f"[16] launches {launches_16}")
     saved_elim = os.environ.get("QLDPC_OSD_ELIM")
     os.environ["QLDPC_OSD_ELIM"] = "pallas_percol"
@@ -871,6 +901,10 @@ def main() -> int:
     if run17 != run6:
         raise AssertionError(f"per-column route {run17} != blocked route "
                              f"{run6} (failures, min_w)")
+    for tag, run in (("16", run16), ("17", run17)):
+        if tuple(run) != MINSUM_RUNS[tag]:
+            raise AssertionError(f"phase {tag} (failures, min_w) {run} != "
+                                 f"{MINSUM_RUNS[tag]}")
     log(f"[17] per-column route == blocked route: failures, min_w {run6}")
 
     # 18. anchors
@@ -997,8 +1031,64 @@ def main() -> int:
         f"{float(kbt[1].float().mean()):.4f}); head {bf16_ms:.3f} ms by events, "
         f"{bf16_dev_ms:.3f} ms profiler device time, plain {bf16_plain_ms:.3f} "
         f"ms (one call), bound {bf16_bound:.4f} ms ({bf16_by}; kernel 1's "
-        f"operation count); tail {bf16_tail_ms:.3f} ms; "
-        f"{bk.block_lanes(m, 7, n, edge_bytes=6)} shots per block")
+        f"operation count); tail {bf16_tail_ms:.3f} ms; layout: head "
+        f"{layout_text(bk, dev, B1, m, n, True)}; tail "
+        f"{layout_text(bk, dev, 1024, m, n, True)}")
+
+    # the main path's two shapes (phase 5 launches the bf16 head 32 + 32
+    # times, phase 26 kernel 1): a 3-iteration head over 4096 shots at
+    # p=0.01 and its compacted tail, the stragglers and zero rows to 256,
+    # 50 iterations with early exit; then phase 3/20's shapes and these on
+    # the larger codes; every output bit-exact with its plain version
+    def minsum_shapes(h, head_graph, tanner):
+        mh, nh = h.shape
+        out = {}
+        for tag, p, rows, iters in (("", p1, 1024, it1), ("main ", 0.01, 256, 3)):
+            rng_s = np.random.default_rng(SEED)
+            e = (rng_s.random((B1, nh)) < 2 * p / 3).astype(np.uint8)
+            s = torch.from_numpy((e @ h.T % 2).astype(np.uint8)).to(dev)
+            l = tbp.llr_from_probs(np.full(nh, 2 * p / 3), dev)
+            first = bk.bp_head_bf16(head_graph, s, l, head_iters=3, **kw6)
+            st = torch.nonzero(~first[1]).flatten()[:rows - rows // 4]
+            tl = torch.cat([s[st], s.new_zeros((rows - st.numel(), mh))])
+            for shape, rows_s, its in ((f"{tag}head", s, iters),
+                                       (f"{tag}tail", tl, it1)):
+                out[f"bf16 {shape}"] = (lambda r=rows_s, l=l, i=its: bk.bp_head_bf16(
+                    head_graph, r, l, head_iters=i, early_stop=True, **kw6))
+                out[f"kernel 1 {shape}"] = (lambda r=rows_s, l=l, i=its: bp_minsum(
+                    tanner, r, l, max_iter=i, ms_scaling_factor=scale))
+        return out
+
+    main_ms = {}
+    for name in ("hgp_34_n625", "hgp_34_n1225", "hgp_34_n1600"):
+        h = hx if name == "hgp_34_n625" else load_code(
+            str(ROOT / "codes_lib_tpu" / f"{name}.npz")).hx
+        runs20 = minsum_shapes(h, bk.build_sparse_head(
+            tbp.build_tanner_graph_host(h), dev), tbp.build_tanner_graph(h, dev))
+        for shape, fn in runs20.items():
+            if name == "hgp_34_n625" and shape in ("bf16 head", "bf16 tail",
+                                                   "kernel 1 head"):
+                continue  # held and timed above
+            kr = fn()
+            with _kernels.force_plain():
+                pr = fn()
+            torch.cuda.synchronize()
+            err20 = bits_equal(f"{shape} {name}", kr, pr)
+            if shape.startswith("bf16"):
+                bf16_err = max(bf16_err, err20)
+            else:
+                k1_err = max(k1_err, err20)
+            if name == "hgp_34_n625" and shape.startswith(("bf16 main",
+                                                           "kernel 1 main")):
+                main_ms[shape] = device_ms(fn, 10, "bp_minsum_kernel")
+        log(f"[20] {name}: kernel 1 and the bf16 head == plain at phase 3/20's "
+            f"head and tail and the main path's head and tail")
+    log(f"[20] main path at hgp_34_n625 (profiler device time): bf16 head "
+        f"{main_ms['bf16 main head']:.4f} ms ({layout_text(bk, dev, B1, m, n, True)}), "
+        f"tail {main_ms['bf16 main tail']:.4f} ms "
+        f"({layout_text(bk, dev, 256, m, n, True)}); kernel 1 head "
+        f"{main_ms['kernel 1 main head']:.4f} ms, tail "
+        f"{main_ms['kernel 1 main tail']:.4f} ms")
 
     # 21-22. main path, int8 and v1: phase 5's run, counts reset just before
     # each, read just after
@@ -1024,6 +1114,9 @@ def main() -> int:
     log(f"[22] launches {launches_22}; v1 (failures, min_w) {run22} vs phase "
         f"5's {run5}; bf16 head {launches_22['bp_minsum_bf16']} launches, "
         f"float32 kernel 1 {launches_22['bp_minsum']}")
+    if tuple(run22) != MINSUM_RUNS["22"]:
+        raise AssertionError(f"v1 (failures, min_w) {run22} != "
+                             f"{MINSUM_RUNS['22']}")
     for name, count in (("bp_int8", launches_21["bp_int8"]),
                         ("bp_minsum_bf16", launches_22["bp_minsum_bf16"])):
         if count <= 0:
@@ -1203,6 +1296,9 @@ def main() -> int:
         raise AssertionError("bp_kernel='xla' missed kernel 1 or ran the head")
     if abs(f26 - f5) > 4 * sigma26:
         raise AssertionError("float32 and bf16 failures beyond 4 binomial sigma")
+    if tuple(run26) != MINSUM_RUNS["26"]:
+        raise AssertionError(f"float32 (failures, min_w) {run26} != "
+                             f"{MINSUM_RUNS['26']}")
 
     # the kernels line
     kernels = [

@@ -6,42 +6,63 @@
 // _minsum_plane_loop at :227) in its bf16 mode, and the dense v1 head
 // _head_kernel (:335), which runs the same loop over a resident one-hot
 // stack; both use one-hot MXU products standing in for gathers.  Here the
-// gathers are plain loads through the graph's index maps.
+// gathers are plain loads through index planes in shared memory.
 //
 // Function: per-check top-2 minimum and sign product (with the syndrome
 // sign), scaled check-to-variable messages, variable totals, v2c = total -
-// own c2v, hard decision, parity against the syndrome.  Each shot's outputs
-// (error, posterior, iterations) freeze at its first convergence; a
-// converged shot does no further work, which is exact because its outputs
-// are frozen either way.
+// own c2v, hard decision, parity against the syndrome (minsum_body.cuh,
+// the arithmetic B5's bf16 mode shares).  Each shot's outputs (error,
+// posterior, iterations) are those of its first converged iteration, or of
+// iteration max_iter.
 //   bp_minsum_launch (kernel 1; ops/bp.py bp_decode(method="minimum_sum"),
-//     plain version minsum_plain): float32 messages over the Tanner graph,
-//     variable totals summed in list order.
+//     plain version minsum_plain): float32 messages, variable totals summed
+//     in the order of the Tanner graph's lists.
 //   bp_minsum_bf16_launch (the bf16 head; ops/bp_kernel.py bp_head_bf16,
-//     plain version minsum_dense_plain): bf16 v2c over a head's slot-major
-//     index planes, each variable's terms summed slot by slot in ascending
-//     check order.  Its shots are independent, so the JAX tile (which only
-//     gates whether the head runs) plays no part, and a block's early exit
-//     is the tile early exit's result.
+//     plain version minsum_dense_plain): bf16 v2c, each variable's terms
+//     summed slot by slot in ascending check order.  Its shots are
+//     independent, so the JAX tile (which only gates whether the head runs)
+//     plays no part, and leaving at convergence is the tile early exit's
+//     result.
 //
-// Design: a block owns `lanes` shots (8, or fewer when a shot's messages
-// would not fit) and keeps their messages in shared memory, edge-major and
-// shot-minor (v2c and c2v at [e * lanes + lane]), with the hard decisions the
-// parity pass reads.  Thread t works for shot t % lanes on row t / lanes;
-// the rows split the checks (check pass, parity pass) and the variables
-// (variable pass) between barriers.  The block leaves its iteration loop
-// once all its shots have converged, so small batches (the two-phase tail,
-// B/16 shots) spread over many SMs and blocks of converged shots stop early.
-// Device memory sees the syndromes and channel LLRs read, and the hard
-// decisions and posteriors of live shots written once per iteration (they
-// must freeze at convergence), in (n, B) / (m, B) batch-minor layouts.  The
-// decode loop itself is minsum_body.cuh, shared with fused_decode.cu.
+// Design.  A block holds `lanes` shots at a time; each lane is `tpl`
+// threads (whole warps) that decode one shot with their own named barrier
+// (bar.sync lane + 1), so no lane waits for another.  When a lane's shot
+// converges or reaches max_iter, the lane writes that shot's outputs,
+// claims the next shot from a device counter (atomicAdd; the wrapper zeroes
+// it) and starts it; the block leaves when the counter passes the batch.
+// The wrapper launches as many blocks as the batch needs, at most what the
+// card holds at once (ops/bp_kernel.py minsum_layout): a large batch keeps
+// every SM full of shots, a small one (the two-phase tail) gives each shot
+// up to a whole block, one check and one variable per thread.  A shot's
+// outputs depend only on its syndrome, so the order of the claims changes
+// no bit.  Within a lane, thread r owns checks i = r (mod tpl) and
+// variables j = r (mod tpl).  One iteration is two lane barriers:
+//   variable pass  totals (kept in shared memory), new v2c;   bar.sync
+//   check pass     parity of those totals and, unless it was the last
+//                  iteration, the next check update;          bar.red.or
+// The or-barrier tells every thread whether a check failed; the check
+// update that follows a converged iteration is discarded.  The first check
+// update reads the channel LLRs, and stages the shot's syndrome bits.
+//
+// Shared memory: the block's graph, staged once from the host-built planes
+// (ops/bp_kernel.py minsum_planes): each check slot's variable (2 * rw * m
+// bytes, 0xFFFF for padding), each variable's edges s * m + i in summation
+// order (2 * cw * n) and, for the bf16 head, their slots (cw * n: no term
+// needs a quotient), and the channel LLRs when the shots share them (4 * n);
+// then per lane c2v (4 per edge), v2c (4 or 2 per edge), the totals (4 * n)
+// and the syndrome (m); each piece rounded up to 16 bytes.  At hgp_34_n625
+// (m = 300, n = 625, rw = 7, cw = 4): 11,728 B staged and 19,616 B per
+// shot (float32), 14,240 B and 15,424 B (bf16).  Device memory sees each
+// shot's syndrome and LLRs read once and its outputs written once.
+//
+// Registers: __launch_bounds__(1024, 1) keeps ptxas from squeezing a
+// 1024-thread block into 32 registers with spills (54-56 registers, one
+// block per SM; the layout rule counts on that).
 //
 // Bound: the iterations are latency-bound chains of shared-memory passes
-// between barriers; per live shot-iteration the messages cost 16 B (f32) or
-// 12 B (bf16) per edge of shared-memory traffic and the outputs 5 B per
-// variable of device memory.  Shared memory per block: lanes * (8 * m * rw
-// + n) bytes (f32) or lanes * (6 * m * rw + n) (bf16).
+// between barriers; per shot-iteration the messages cost 16 B (f32) or
+// 12 B (bf16) per edge of shared-memory traffic plus the gathers of the
+// totals.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,114 +70,269 @@
 
 namespace {
 
-constexpr int kMaxLanes = minsum::kMaxLanes;
-constexpr int kThreads = 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxLanes = 15;  // named barriers 1..15, barrier 0 is the block's
+constexpr int kPad = 0xFFFF;
 
-// kernel 1's inputs and outputs: syndromes and LLRs of shot b in (m, B) /
-// (n, B) layouts, and the live shot's hard decision and posterior written
-// every iteration (they must freeze at convergence)
-struct DeviceIo {
-  const uint8_t* synd_mb;  // (m, B)
-  const float* llr;
-  int llr_per_shot;
-  uint8_t* err;
-  float* post;
-  size_t sB;
-  int b;
-  __device__ uint8_t synd(int i) const { return synd_mb[i * sB + b]; }
-  __device__ float llr0(int j) const { return llr_per_shot ? llr[j * sB + b] : llr[j]; }
-  __device__ void init_var(int j) {
-    err[j * sB + b] = 0;
-    post[j * sB + b] = llr0(j);
-  }
-  __device__ void store_var(int j, uint8_t h, float total) {
-    err[j * sB + b] = h;
-    post[j * sB + b] = total;
+__device__ __forceinline__ void lane_sync(int lane, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
+}
+
+// lane_sync that returns whether any thread of the lane gave `pred`
+__device__ __forceinline__ bool lane_sync_or(int lane, int count, bool pred) {
+  int any;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\t"
+      "selp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(any)
+      : "r"((int)pred), "r"(lane + 1), "r"(count)
+      : "memory");
+  return any != 0;
+}
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// byte offsets in dynamic shared memory (mirrored by ops/bp_kernel.py
+// minsum_smem_bytes)
+struct Offsets {
+  size_t edge, slot, llr, lanes;  // staged planes (chk at 0), lane regions
+  size_t v2c, tot, syn, lane;     // within a lane region (c2v at 0); its size
+  __host__ __device__ Offsets(int m, int n, int rw, int cw, int msg_bytes,
+                              bool slots, bool llr_shared) {
+    const size_t E = (size_t)m * rw, V = (size_t)n * cw;
+    edge = align16(2 * E);
+    slot = edge + align16(2 * V);
+    llr = slot + (slots ? align16(V) : 0);
+    lanes = llr + (llr_shared ? align16(4 * (size_t)n) : 0);
+    v2c = align16(4 * E);
+    tot = v2c + align16(msg_bytes * E);
+    syn = tot + align16(4 * (size_t)n);
+    lane = syn + align16((size_t)m);
   }
 };
 
-template <class Msg, class G>
-__global__ void __launch_bounds__(kThreads)
-bp_minsum_kernel(const uint8_t* __restrict__ synd,  // (m, B)
-                 const float* __restrict__ llr0,    // (n,) or (n, B)
-                 int llr_per_shot, const G g,
-                 uint8_t* __restrict__ err,         // (n, B)
-                 float* __restrict__ llr,           // (n, B)
-                 uint8_t* __restrict__ conv,        // (B,)
-                 int32_t* __restrict__ iters,       // (B,)
-                 int B, int max_iter, float scale, int lanes) {
-  extern __shared__ float smem[];
-  __shared__ int s_done[kMaxLanes];
-  __shared__ int s_bad[kMaxLanes];
-  __shared__ int s_iters[kMaxLanes];
-  const int lane = threadIdx.x % lanes;
-  const int row = threadIdx.x / lanes;
-  const int rows = kThreads / lanes;
-  const int b = blockIdx.x * lanes + lane;
-  const bool valid = b < B;
-  const size_t E = (size_t)g.m * g.rw;
-  float* c2v = smem;                                          // [e * lanes + lane]
-  auto* v2c = (typename Msg::T*)(c2v + E * lanes);            // [e * lanes + lane]
-  uint8_t* hard = (uint8_t*)(v2c + E * lanes);                // [j * lanes + lane]
+template <class Msg>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
+                 const float* __restrict__ llr,        // (n,) or (B, n)
+                 int llr_per_shot,
+                 const uint16_t* __restrict__ chk_g,   // (rw, m)
+                 const uint16_t* __restrict__ edge_g,  // (cw, n)
+                 const uint8_t* __restrict__ slot_g,   // (cw, n), bf16 only
+                 uint8_t* __restrict__ err,            // (B, n)
+                 float* __restrict__ post,             // (B, n)
+                 uint8_t* __restrict__ conv,           // (B,)
+                 int32_t* __restrict__ iters,          // (B,)
+                 int* __restrict__ next,               // claims, 0 at launch
+                 int m, int n, int rw, int cw, int B, int max_iter,
+                 float scale, int tpl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_shot[kMaxLanes][2];
+  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
+                  !llr_per_shot);
+  uint16_t* chk = (uint16_t*)smem;
+  uint16_t* edge = (uint16_t*)(smem + o.edge);
+  uint8_t* slot = smem + o.slot;
+  float* llr_s = (float*)(smem + o.llr);
+  const int E = m * rw, V = n * cw;
+  for (int k = threadIdx.x; k < E; k += blockDim.x) chk[k] = chk_g[k];
+  for (int k = threadIdx.x; k < V; k += blockDim.x) {
+    edge[k] = edge_g[k];
+    if (Msg::kBf16) slot[k] = slot_g[k];
+  }
+  if (!llr_per_shot)
+    for (int j = threadIdx.x; j < n; j += blockDim.x) llr_s[j] = llr[j];
+  __syncthreads();
 
-  DeviceIo io{synd, llr0, llr_per_shot, err, llr, (size_t)B, b};
-  minsum::decode<Msg>(g, io, v2c, c2v, hard,
-                      minsum::LaneState{s_done, s_bad, s_iters}, lanes, lane,
-                      row, rows, valid, max_iter, scale);
+  const int lane = threadIdx.x / tpl, r = threadIdx.x % tpl;
+  unsigned char* mine = smem + o.lanes + lane * o.lane;
+  float* c2v = (float*)mine;
+  auto* v2c = (typename Msg::T*)(mine + o.v2c);
+  float* tot = (float*)(mine + o.tot);
+  uint8_t* syn = mine + o.syn;
 
-  if (row == 0 && valid) {
-    conv[b] = s_done[lane] ? 1 : 0;
-    iters[b] = s_iters[lane];
+  // the channel LLR of variable v for shot b
+  auto llr0 = [&](int b, int v) {
+    return llr_per_shot ? __ldg(llr + (size_t)b * n + v) : llr_s[v];
+  };
+  // check i's scaled c2v on its live slots (bit s of `live`)
+  auto put_c2v = [&](int i, const minsum::Top2& c, unsigned live) {
+    for (int s = 0; s < rw; ++s)
+      if ((live >> s) & 1u) c2v[s * m + i] = minsum::check_c2v(c, s, scale);
+  };
+
+  for (int k = 0;; ++k) {
+    // the slot alternates, so a claim never overwrites one a thread of the
+    // lane may still read
+    if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
+    lane_sync(lane, tpl);
+    const int b = s_shot[lane][k & 1];
+    if (b >= B) return;
+    uint8_t* err_b = err + (size_t)b * n;
+    float* post_b = post + (size_t)b * n;
+    if (max_iter == 0) {
+      for (int j = r; j < n; j += tpl) {
+        err_b[j] = 0;
+        post_b[j] = llr0(b, j);
+      }
+      if (r == 0) {
+        conv[b] = 0;
+        iters[b] = 0;
+      }
+      continue;
+    }
+
+    // iteration 1's check update, from the channel LLRs
+    const uint8_t* synd_b = synd + (size_t)b * m;
+    for (int i = r; i < m; i += tpl) {
+      const uint8_t sb = synd_b[i];
+      syn[i] = sb;
+      unsigned live = 0u;
+      const minsum::Top2 c = minsum::check_top2(rw, sb, [&](int s, float& x) {
+        const int v = chk[s * m + i];
+        if (v == kPad) return false;
+        live |= 1u << s;
+        x = Msg::load(Msg::store(llr0(b, v)));
+        return true;
+      });
+      put_c2v(i, c, live);
+    }
+    int it = 0;
+    bool bad;
+    for (;;) {
+      lane_sync(lane, tpl);
+      for (int j = r; j < n; j += tpl) {
+        const float total =
+            minsum::var_total<Msg>(llr0(b, j), cw, [&](int t, float& c, int& s) {
+              const int e = edge[t * n + j];
+              if (e == kPad) return false;
+              s = Msg::kBf16 ? slot[t * n + j] : 0;
+              c = c2v[e];
+              return true;
+            });
+        const float t_e = minsum::gather_total<Msg>(total);
+        for (int t = 0; t < cw; ++t) {
+          const int e = edge[t * n + j];
+          if (e != kPad) v2c[e] = Msg::store(t_e - c2v[e]);
+        }
+        tot[j] = total;
+      }
+      ++it;
+      lane_sync(lane, tpl);
+      // each check's parity of these totals and, unless this was the last
+      // iteration, its next check update, in one walk over its slots
+      bool fail = false;
+      for (int i = r; i < m; i += tpl) {
+        const bool sb = syn[i];
+        unsigned par = sb, live = 0u;
+        if (it < max_iter) {
+          const minsum::Top2 c = minsum::check_top2(rw, sb, [&](int s, float& x) {
+            const int e = s * m + i, v = chk[e];
+            if (v == kPad) return false;
+            live |= 1u << s;
+            par ^= minsum::gather_total<Msg>(tot[v]) < 0.f;
+            x = Msg::load(v2c[e]);
+            return true;
+          });
+          put_c2v(i, c, live);
+        } else {
+          for (int s = 0; s < rw; ++s) {
+            const int v = chk[s * m + i];
+            if (v != kPad) par ^= minsum::gather_total<Msg>(tot[v]) < 0.f;
+          }
+        }
+        fail |= (par & 1u) != 0u;
+      }
+      bad = lane_sync_or(lane, tpl, fail);
+      if (!bad || it == max_iter) break;
+    }
+    // the totals of the last iteration, each read by the thread that wrote it
+    for (int j = r; j < n; j += tpl) {
+      const float t = tot[j];
+      err_b[j] = t < 0.f ? 1 : 0;
+      post_b[j] = t;
+    }
+    if (r == 0) {
+      conv[b] = bad ? 0 : 1;
+      iters[b] = bad ? max_iter : it;
+    }
   }
 }
 
-template <class Msg, class G>
+template <class Msg>
+int set_smem(int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(bp_minsum_kernel<Msg>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes);
+}
+
+template <class Msg>
 int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
-           const G& g, uint8_t* err, float* llr, uint8_t* conv,
-           int32_t* iters, int B, int max_iter, float scale, int lanes,
-           int smem_bytes, void* stream) {
-  if (lanes < 1 || lanes > kMaxLanes || kThreads % lanes != 0) return -1;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bp_minsum_kernel<Msg, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + lanes - 1) / lanes);
-  bp_minsum_kernel<Msg, G><<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      synd, llr0, llr_per_shot, g, err, llr, conv, iters, B, max_iter, scale,
-      lanes);
+           const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
+           uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
+           int* next, int m, int n, int rw, int cw, int B, int max_iter,
+           float scale, int lanes, int tpl, int grid, int smem_bytes,
+           void* stream) {
+  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
+                  !llr_per_shot);
+  if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
+      lanes * tpl > kMaxThreads || rw < 1 || rw > 32 || grid < 1 ||
+      (size_t)smem_bytes < o.lanes + lanes * o.lane)
+    return -1;
+  const int e = set_smem<Msg>(smem_bytes);
+  if (e != 0) return e;
+  bp_minsum_kernel<Msg><<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
+      synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, next,
+      m, n, rw, cw, B, max_iter, scale, tpl);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
-                                int llr_per_shot, const int32_t* chk_nbr,
-                                const uint8_t* chk_mask,
-                                const int32_t* var_nbr,
-                                const int32_t* var_slot,
-                                const uint8_t* var_mask, uint8_t* err,
-                                float* llr, uint8_t* conv, int32_t* iters,
-                                int m, int n, int rw, int cw, int B,
-                                int max_iter, float scale, int lanes,
-                                int smem_bytes, void* stream) {
-  const minsum::Graph g{chk_nbr, chk_mask, var_nbr, var_slot, var_mask,
-                        m, n, rw, cw};
-  return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, g, err, llr, conv,
-                                iters, B, max_iter, scale, lanes, smem_bytes,
+                                int llr_per_shot, const uint16_t* chk,
+                                const uint16_t* edge, uint8_t* err,
+                                float* post, uint8_t* conv, int32_t* iters,
+                                int* next, int m, int n, int rw, int cw, int B,
+                                int max_iter, float scale, int lanes, int tpl,
+                                int grid, int smem_bytes, void* stream) {
+  return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
+                                err, post, conv, iters, next, m, n, rw, cw, B,
+                                max_iter, scale, lanes, tpl, grid, smem_bytes,
                                 stream);
 }
 
 // the bf16 head: one channel-LLR vector shared by the shots
 extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
-                                     const int32_t* chk_idx, const float* mask,
-                                     const int32_t* var_edge, uint8_t* err,
-                                     float* llr, uint8_t* conv,
-                                     int32_t* iters, int m, int n, int rw,
-                                     int cw, int B, int max_iter, float scale,
-                                     int lanes, int smem_bytes, void* stream) {
-  const minsum::SlotPlanes g{chk_idx, mask, var_edge, m, n, rw, cw, 1.0f / m};
-  return launch<minsum::Bf16Msg>(synd, llr0, 0, g, err, llr, conv, iters, B,
-                                 max_iter, scale, lanes, smem_bytes, stream);
+                                     const uint16_t* chk,
+                                     const uint16_t* edge,
+                                     const uint8_t* slot, uint8_t* err,
+                                     float* post, uint8_t* conv,
+                                     int32_t* iters, int* next, int m, int n,
+                                     int rw, int cw, int B, int max_iter,
+                                     float scale, int lanes, int tpl,
+                                     int grid, int smem_bytes, void* stream) {
+  return launch<minsum::Bf16Msg>(synd, llr0, 0, chk, edge, slot, err, post,
+                                 conv, iters, next, m, n, rw, cw, B, max_iter,
+                                 scale, lanes, tpl, grid, smem_bytes, stream);
+}
+
+// blocks of `threads` threads and `smem_bytes` of shared memory that one SM
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int bp_minsum_resident(int bf16, int threads, int smem_bytes,
+                                  int* blocks) {
+  int e = bf16 ? set_smem<minsum::Bf16Msg>(smem_bytes)
+               : set_smem<minsum::F32Msg>(smem_bytes);
+  if (e != 0) return e;
+  return (int)(bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, bp_minsum_kernel<minsum::Bf16Msg>, threads,
+                          smem_bytes)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, bp_minsum_kernel<minsum::F32Msg>, threads,
+                          smem_bytes));
 }

@@ -9,7 +9,8 @@
 // (qldpc_fault_tolerance_tpu/ops/bp_pallas.py:227) with one-hot MXU
 // products for its gathers and scatters.  Here GF(2) products are gathers
 // through the checks' adjacency, and the decode is minsum_body.cuh's loop in
-// its Bf16Msg format, the one-hot products written as gathers; its int8
+// its Bf16Msg format (the per-check and per-variable arithmetic that
+// bp_minsum.cu shares), the one-hot products written as gathers; its int8
 // mode is fused_decode_int8.cu.
 //
 // Function: ops/gf2_kernel.py fused_decode_stats (quantize=None), plain
@@ -28,8 +29,8 @@
 // Design: a block owns `lanes` shots (8 at n = 625; fewer when the larger
 // sector's messages would not fit; B is a multiple of lanes, as the
 // wrapper's tile of 32 shots is) and 1024 threads, thread t working for
-// shot t % lanes on row t / lanes, as in bp_minsum.cu.  Shared memory holds
-// one sector's messages (float32 c2v and bf16 v2c, 6 bytes per edge per
+// shot t % lanes on row t / lanes (minsum_body.cuh decode).  Shared memory
+// holds one sector's messages (float32 c2v and bf16 v2c, 6 bytes per edge per
 // shot, reused by the second sector), the hard decisions, both error planes
 // and one syndrome plane as bytes, [index * lanes + lane].  The errors
 // become residuals in place once each sector's decode ends.  Nothing but the
@@ -61,8 +62,6 @@ struct SharedIo {
   int lanes, lane;
   __device__ uint8_t synd(int i) const { return bits[i * lanes + lane]; }
   __device__ float llr0(int j) const { return llr[j]; }
-  __device__ void init_var(int) {}
-  __device__ void store_var(int, uint8_t, float) {}
 };
 
 // one sector: syndrome of `err` over g's checks, decode, err ^= correction

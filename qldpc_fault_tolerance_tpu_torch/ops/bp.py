@@ -6,8 +6,8 @@ flags, posterior LLRs (the soft input OSD needs) and iteration counts.
 
   * The Tanner graph is compiled once per H into padded adjacency tensors
     (check->variable and variable->check index maps with cross slot maps).
-  * Internally everything is batch-last ((m, rw, B) / (n, cw, B) / (n, B)),
-    the layout the min-sum kernel (``ops/bp_kernel.py``) coalesces on.
+  * The plain versions run batch-last ((m, rw, B) / (n, cw, B) / (n, B));
+    the min-sum kernels (``ops/bp_kernel.py``) take one shot per row.
   * Each shot's outputs freeze at its first convergence, so results are
     independent of the batch a shot rides in and of when the loop stops.
   * Messages are float32.

@@ -13,7 +13,11 @@ The plain version mirrors the kernel operation for operation (streaming
 top-2 over check slots, variable totals summed in slot order), so kernel and
 plain version agree bit for bit on the card; the kernels are built with FMA
 contraction off for that reason.  Messages are float32, the f32 reference
-numerics of ``ops/bp.py``.
+numerics of ``ops/bp.py``.  The kernel and the bf16 head read the graph from
+host-built 16-bit planes (``minsum_planes``, built once per graph) and are
+launched by ``minsum_layout``: shots per block, threads per shot and grid
+from the batch, so a large batch keeps every SM full of shots that refill
+as they converge and a small one gives each shot up to a whole block.
 
 The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
 which the two-phase decode runs when a decoder carries a head:
@@ -37,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -144,72 +149,239 @@ def minsum_plain(graph, synd_bl, llr0_bl, max_iter: int, scale: float):
                    functools.partial(check_update_minsum, scale=float(scale)))
 
 
-def _argtypes():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return [p, p, i, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, ctypes.c_float, i, i, p]
-
-
-# shared memory a block may take on Hopper (227 KB)
+# shared memory a block may take on Hopper (227 KB), and an SM's (228 KB,
+# of which each resident block reserves 1 KB)
 SMEM_LIMIT = 232448
-MAX_LANES = 8  # shots per block
+SM_SMEM = 233472
+SM_THREADS = 2048
+MAX_LANES = 8  # shots per block of the fused decode (gf2_kernel.py)
+
+# csrc/bp_minsum.cu: at most 15 shots per block (one named barrier each) and
+# 1024 threads; index planes hold uint16 with 0xFFFF for padding
+MINSUM_MAX_LANES = 15
+MINSUM_MAX_THREADS = 1024
+PAD16 = 0xFFFF
+# the layout rule's two constants, from scripts/ab_minsum_body.py --sweep on
+# an H100 (PERF.md): a full block's shots get at most 5 checks and 5
+# variables per thread, and a batch takes one shot per block for every 4
+# shots per SM (a block runs its shots at once; one block of these kernels
+# fits an SM by registers)
+MINSUM_ITEMS = 5
+MINSUM_SPREAD = 4
 
 
-def block_lanes(m: int, rw: int, n: int, edge_bytes: int = 8) -> int:
-    """Shots per block of csrc/bp_minsum.cu: 8, halved until the block's
-    messages (``edge_bytes`` per edge: two float32 planes, or float32 c2v
-    and bf16 v2c for the bf16 head) and hard decisions fit in shared
-    memory; 0 when not even one shot fits."""
-    lanes = MAX_LANES
-    while lanes and lanes * (edge_bytes * m * rw + n) > SMEM_LIMIT:
-        lanes //= 2
-    return lanes
+class MinsumPlanes(NamedTuple):
+    """The graph as csrc/bp_minsum.cu stages it in shared memory, built on
+    the host: edge ``s * m + i`` is check i's slot-s edge.  The 16-bit
+    planes hold uint16 values (0xFFFF for padding) in int16 tensors."""
+
+    chk: torch.Tensor   # (rw, m): the variable of edge s * m + i
+    edge: torch.Tensor  # (cw, n): variable j's t-th edge in summation order
+    slot: torch.Tensor  # (cw, n) uint8: that edge's slot s (0 for padding)
 
 
-def _launch(graph, synd_bl, llr0, llr_per_shot, max_iter, scale):
+def _u16(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint16).view(np.int16))
+
+
+def minsum_planes(graph) -> MinsumPlanes:
+    """The MinsumPlanes of a TannerGraph (kernel 1: each variable's terms in
+    the order of its list) or of a SparseHeadGraph / PallasHeadGraph (the
+    bf16 head: in ascending edge order, which is (slot, check) order), on
+    the graph's device."""
+    if hasattr(graph, "chk_nbr"):
+        chk_nbr, chk_mask, var_nbr, var_slot, var_mask = (
+            torch.as_tensor(getattr(graph, f)).cpu().numpy().astype(np.int64)
+            for f in ("chk_nbr", "chk_mask", "var_nbr", "var_nbr_slot",
+                      "var_mask"))
+        m = chk_nbr.shape[0]
+        chk = np.where(chk_mask != 0, chk_nbr, PAD16).T
+        live = var_mask != 0
+        edge = np.where(live, var_slot * m + var_nbr, PAD16).T
+        slot = np.where(live, var_slot, 0).T
+        dev = torch.as_tensor(graph.chk_nbr).device
+    else:
+        chk_idx = graph.chk_idx.cpu().numpy().astype(np.int64)
+        var_edge = graph.var_edge.cpu().numpy().astype(np.int64)
+        m = chk_idx.shape[1]
+        chk = np.where(graph.mask.cpu().numpy() > 0, chk_idx, PAD16)
+        live = var_edge >= 0
+        edge = np.where(live, var_edge, PAD16).T
+        slot = np.where(live, var_edge // m, 0).T
+        dev = graph.chk_idx.device
+    if chk.size >= PAD16 or edge.shape[1] >= PAD16:
+        raise ValueError("the min-sum kernels number edges and variables "
+                         "with 16 bits")
+    return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(slot, np.uint8)).to(dev))
+
+
+_PLANES: dict = {}
+
+
+def _planes_of(graph) -> MinsumPlanes:
+    """``minsum_planes(graph)``, built once for as long as the graph's
+    tensors live (keyed on all of them: two graphs may share some)."""
+    leaves = tuple(graph)
+    key = tuple(map(id, leaves))
+    hit = _PLANES.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], leaves)):
+        return hit[1]
+    planes = minsum_planes(graph)
+    _PLANES[key] = (tuple(weakref.ref(t, lambda _, k=key: _PLANES.pop(k, None))
+                          for t in leaves), planes)
+    return planes
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def minsum_smem_bytes(lanes: int, m: int, n: int, rw: int, cw: int,
+                      bf16: bool, llr_shared: bool = True) -> int:
+    """Dynamic shared memory of csrc/bp_minsum.cu for ``lanes`` shots per
+    block: the staged planes (and the shared channel LLRs), then per shot
+    c2v, v2c, the totals and the syndrome, each rounded up to 16 bytes."""
+    E, V = m * rw, n * cw
+    staged = (_align16(2 * E) + _align16(2 * V) + (_align16(V) if bf16 else 0)
+              + (_align16(4 * n) if llr_shared else 0))
+    per_shot = (_align16(4 * E) + _align16((2 if bf16 else 4) * E)
+                + _align16(4 * n) + _align16(m))
+    return staged + lanes * per_shot
+
+
+class MinsumLayout(NamedTuple):
+    lanes: int       # shots a block holds at once
+    threads: int     # threads per block: lanes x threads per shot
+    grid: int        # blocks launched
+    smem_bytes: int  # dynamic shared memory per block
+    resident: int    # blocks per SM by threads and shared memory
+
+
+def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
+                  sm_count: int, llr_shared: bool = True,
+                  lanes: int | None = None) -> MinsumLayout:
+    """The launch of csrc/bp_minsum.cu for a batch of B shots.
+
+    A block holds ``lanes`` shots at once, each on ``threads / lanes``
+    threads (1024 / lanes in whole warps, at most one check and one
+    variable per thread).  A large batch fills the block with shots of at
+    most five checks and five variables per thread (MINSUM_ITEMS), and its
+    lanes refill as shots converge; a smaller one takes one shot per block
+    for every MINSUM_SPREAD shots per SM, so a two-phase tail gives each
+    straggler up to a whole block.  At most 15 shots and what the block's
+    shared memory holds; ``lanes`` fixes the shots per block instead.  The
+    grid is the blocks the batch needs, at most ``resident`` (by threads
+    and shared memory; the wrapper lowers it to what the card reports,
+    registers included) per SM."""
+    if not 1 <= rw <= 32:
+        raise ValueError(f"the min-sum kernels take row weights 1..32, got {rw}")
+    fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
+    per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
+    cap = min(MINSUM_MAX_LANES, (SMEM_LIMIT - fixed) // per_shot)
+    if cap < 1:
+        raise ValueError(f"the min-sum kernels: one shot's messages and planes "
+                         f"({fixed + per_shot} bytes) exceed {SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    if lanes is None:
+        full = max(1, MINSUM_ITEMS * MINSUM_MAX_THREADS // max(m, n))
+        lanes = max(1, min(cap, full, -(-B // (MINSUM_SPREAD * sm_count))))
+    if not 1 <= lanes <= cap:
+        raise ValueError(f"the min-sum kernels hold 1..{cap} shots per block")
+    per_lane = min(-(-max(m, n) // 32) * 32, MINSUM_MAX_THREADS // lanes // 32 * 32)
+    threads = lanes * per_lane
+    smem = minsum_smem_bytes(lanes, m, n, rw, cw, bf16, llr_shared)
+    resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
+    grid = max(1, min(-(-B // lanes), sm_count * resident))
+    return MinsumLayout(lanes, threads, grid, smem, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int) -> int:
+    """Blocks of csrc/bp_minsum.cu that one SM of CUDA device ``index``
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _kernels.library("bp_minsum").bp_minsum_resident
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(int(bf16), threads, smem_bytes, ctypes.addressof(blocks))
+    _kernels.check_launch("bp_minsum_resident", rc)
+    return blocks.value
+
+
+def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True):
+    """``minsum_layout`` on CUDA device ``dev``: its SM count, and the grid
+    lowered to the blocks the card holds at once."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared)
+    held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes)
+    if held < 1:
+        raise ValueError(f"the min-sum kernels: a block of {lay.threads} "
+                         f"threads and {lay.smem_bytes} bytes does not fit")
+    return lay._replace(grid=min(lay.grid, _sm_count(index) * held),
+                        resident=held)
+
+
+def _minsum_call(name, fn, dev, synd, pointers, planes, bf16, per_shot,
+                 max_iter, scale):
+    """Launch kernel 1 or the bf16 head on (B, m) syndromes: ``fn`` takes
+    ``pointers`` (its inputs before the outputs), the outputs, the claim
+    counter, the sizes and the layout.  Returns batch-major (err, conv,
+    post, iters)."""
+    B, m = synd.shape
+    rw = planes.chk.shape[0]
+    cw, n = planes.edge.shape
+    lay = card_minsum_layout(dev, B, m, n, rw, cw, bf16, not per_shot)
+    err = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    post = torch.empty((B, n), dtype=torch.float32, device=dev)
+    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    claims = torch.zeros((1,), dtype=torch.int32, device=dev)
+    outs = [t.data_ptr() for t in (err, post, conv, iters, claims)]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [type(a) if isinstance(a, ctypes.c_int) else p
+                   for a in pointers] + [p] * 5 + [i] * 6 + [ctypes.c_float] \
+        + [i] * 4 + [p]
+    fn.restype = ctypes.c_int
+    rc = _stream_call(fn, dev, *pointers, *outs, m, n, rw, cw, B,
+                      int(max_iter), float(scale), lay.lanes,
+                      lay.threads // lay.lanes, lay.grid, lay.smem_bytes)
+    _kernels.check_launch(name, rc)
+    return err, conv.to(torch.bool), post, iters
+
+
+def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
     m, rw = graph.chk_nbr.shape
     n, cw = graph.var_nbr.shape
-    B = synd_bl.shape[1]
-    dev = synd_bl.device
-    if synd_bl.dtype != torch.uint8 or synd_bl.shape[0] != m:
+    B = synd.shape[0]
+    dev = synd.device
+    if synd.dtype != torch.uint8 or synd.shape[1] != m:
         raise ValueError(f"syndromes must be uint8 with {m} checks")
-    want = (n, B) if llr_per_shot else (n,)
+    want = (B, n) if llr_per_shot else (n,)
     if llr0.dtype != torch.float32 or tuple(llr0.shape) != want:
         raise ValueError(f"channel LLRs must be float32 of shape {want}")
     if max_iter < 0:
         raise ValueError(f"max_iter must be >= 0, got {max_iter}")
-    tensors = (synd_bl, llr0, graph.chk_nbr, graph.chk_mask, graph.var_nbr,
-               graph.var_nbr_slot, graph.var_mask)
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("bp_minsum needs contiguous tensors on one device")
+    if llr0.device != dev or graph.chk_nbr.device != dev:
+        raise ValueError("bp_minsum needs its tensors on one device")
     if not 1 <= rw <= 32 or cw < 1:
         raise ValueError(f"bp_minsum takes row weights 1..32, got rw={rw}")
     if m * B >= 2 ** 31 or n * B >= 2 ** 31:
         raise ValueError("bp_minsum batch too large for int32 indexing")
-    lanes = block_lanes(m, rw, n)
-    if not lanes:
-        raise ValueError(f"bp_minsum: one shot's messages ({8 * m * rw + n} "
-                         f"bytes) exceed {SMEM_LIMIT} bytes of shared memory")
-    err = torch.empty((n, B), dtype=torch.uint8, device=dev)
-    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
-    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    fn = _kernels.library("bp_minsum").bp_minsum_launch
-    fn.argtypes = _argtypes()
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(synd_bl.data_ptr(), llr0.data_ptr(), int(llr_per_shot),
-                graph.chk_nbr.data_ptr(), graph.chk_mask.data_ptr(),
-                graph.var_nbr.data_ptr(), graph.var_nbr_slot.data_ptr(),
-                graph.var_mask.data_ptr(), err.data_ptr(), llr.data_ptr(),
-                conv.data_ptr(), iters.data_ptr(), m, n, rw, cw, B,
-                int(max_iter), float(scale), lanes,
-                lanes * (8 * m * rw + n), stream)
-    _kernels.check_launch("bp_minsum", rc)
+    planes = _planes_of(graph)
+    out = _minsum_call(
+        "bp_minsum", _kernels.library("bp_minsum").bp_minsum_launch, dev,
+        synd, [synd.data_ptr(), llr0.data_ptr(), ctypes.c_int(int(llr_per_shot)),
+               planes.chk.data_ptr(), planes.edge.data_ptr()],
+        planes, False, llr_per_shot, max_iter, scale)
     bp_minsum.launches += 1
-    return err, conv.to(torch.bool), llr, iters
+    return out
 
 
 def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
@@ -219,16 +391,13 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
     ``(error (B, n) uint8, converged (B,) bool, posterior_llr (B, n) f32,
     iterations (B,) int32)``.  CUDA tensors launch the kernel (or raise);
     CPU tensors run ``minsum_plain``."""
-    synd_bl = syndromes.t().contiguous()
     per_shot = channel_llr.dim() == 2
     if syndromes.is_cuda and not _kernels.plain_forced():
-        llr0 = channel_llr.t().contiguous() if per_shot else channel_llr.contiguous()
-        err, conv, llr, iters = _launch(graph, synd_bl, llr0, per_shot,
-                                        max_iter, ms_scaling_factor)
-    else:
-        llr0_bl = channel_llr.t() if per_shot else channel_llr[:, None]
-        err, conv, llr, iters = minsum_plain(graph, synd_bl, llr0_bl,
-                                             max_iter, ms_scaling_factor)
+        return _launch(graph, syndromes.contiguous(), channel_llr.contiguous(),
+                       per_shot, max_iter, ms_scaling_factor)
+    llr0_bl = channel_llr.t() if per_shot else channel_llr[:, None]
+    err, conv, llr, iters = minsum_plain(graph, syndromes.t().contiguous(),
+                                         llr0_bl, max_iter, ms_scaling_factor)
     return err.t(), conv, llr.t(), iters
 
 
@@ -807,35 +976,21 @@ def bp_head_int8(sgraph: SparseHeadGraph, syndromes, channel_llr, *,
 
 bp_head_int8.launches = 0
 
-def _launch_bf16(head, synd_bl, llr0, head_iters, scale):
-    rw, m = head.chk_idx.shape
-    n, cw = head.var_edge.shape
-    B = synd_bl.shape[1]
-    dev = synd_bl.device
-    lanes = block_lanes(m, rw, n, edge_bytes=6)
-    if not lanes or rw > 32:
-        raise ValueError(f"bp_head_bf16: rw={rw}, m={m}, n={n} do not fit the "
-                         f"kernel ({SMEM_LIMIT} bytes of shared memory for "
-                         f"one shot, row weight <= 32)")
+def _launch_bf16(head, synd, llr0, head_iters, scale):
+    dev = synd.device
+    if head.rw > 32:
+        raise ValueError(f"bp_head_bf16: row weight {head.rw} above 32")
     for t in (head.chk_idx, head.mask, head.var_edge):
         if not t.is_contiguous():
             raise ValueError("bp_head_bf16 needs contiguous index planes")
-    err = torch.empty((n, B), dtype=torch.uint8, device=dev)
-    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
-    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    fn = _kernels.library("bp_minsum").bp_minsum_bf16_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float] + [i] * 2 + [p]
-    fn.restype = ctypes.c_int
-    rc = _stream_call(
-        fn, dev, synd_bl.data_ptr(), llr0.data_ptr(), head.chk_idx.data_ptr(),
-        head.mask.data_ptr(), head.var_edge.data_ptr(), err.data_ptr(),
-        llr.data_ptr(), conv.data_ptr(), iters.data_ptr(), m, n, rw, cw, B,
-        int(head_iters), float(scale), lanes, lanes * (6 * m * rw + n))
-    _kernels.check_launch("bp_minsum_bf16", rc)
+    planes = _planes_of(head)
+    out = _minsum_call(
+        "bp_minsum_bf16", _kernels.library("bp_minsum").bp_minsum_bf16_launch,
+        dev, synd, [synd.data_ptr(), llr0.data_ptr(), planes.chk.data_ptr(),
+                    planes.edge.data_ptr(), planes.slot.data_ptr()],
+        planes, True, False, head_iters, scale)
     bp_head_bf16.launches += 1
-    return err, conv.to(torch.bool), llr, iters
+    return out
 
 
 def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
@@ -848,17 +1003,15 @@ def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
     _check_head_inputs("bp_head_bf16", head, syndromes, channel_llr)
     if head_iters < 0:
         raise ValueError(f"head_iters must be >= 0, got {head_iters}")
-    synd_bl = syndromes.t().contiguous()
     if syndromes.is_cuda and not _kernels.plain_forced():
-        # the kernel's blocks leave once their shots have converged, which
-        # is early_stop's result too: outputs freeze at convergence
-        err, conv, llr, iters = _launch_bf16(
-            head, synd_bl, channel_llr.contiguous(), head_iters,
-            ms_scaling_factor)
-    else:
-        err, conv, llr, iters = minsum_dense_plain(
-            head, synd_bl, channel_llr, head_iters=head_iters,
-            scale=float(ms_scaling_factor), early_stop=early_stop)
+        # the kernel leaves each shot at its convergence, which is
+        # early_stop's result too: outputs freeze at convergence
+        return _launch_bf16(head, syndromes.contiguous(),
+                            channel_llr.contiguous(), head_iters,
+                            ms_scaling_factor)
+    err, conv, llr, iters = minsum_dense_plain(
+        head, syndromes.t().contiguous(), channel_llr, head_iters=head_iters,
+        scale=float(ms_scaling_factor), early_stop=early_stop)
     return err.t(), conv, llr.t(), iters
 
 

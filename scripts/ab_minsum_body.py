@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Time the min-sum kernels of two checkouts of the PyTorch port, in turns,
+on one NVIDIA GPU: kernel 1 (``bp_minsum``, float32 messages) and the bf16
+BP head (``bp_head_bf16``) at chip_smoke.py phase 3/20's shapes and at the
+main path's, on hgp_34_n625, n1225 and n1600, and kernel B5's bf16 mode
+(``fused_decode_stats``, which shares their arithmetic) at phase 24's shape.
+
+  python3 scripts/ab_minsum_body.py --parent DIR
+  python3 scripts/ab_minsum_body.py --sweep
+
+DIR holds another checkout's ``qldpc_fault_tolerance_tpu_torch/`` and
+``codes_lib_tpu/hgp_34_n{625,1225,1600}.npz`` (for example the parent
+commit's, from ``git archive``).  Each side runs in its own process, which
+builds that checkout's kernels into its own ``build/``; the order is
+parent, change, change, parent.  Per run it prints one JSON line with the
+kernels' layouts, ``nvcc -Xptxas -v`` of ``bp_minsum.cu`` and
+``fused_decode.cu`` (registers, spills, shared memory) and the times, by
+profiler device time:
+
+  * head: hx of each code, 4096 syndromes of p=0.05 errors (phase 3's
+    seed), 50 iterations;
+  * tail: 768 stragglers of a 3-iteration decode of those and 256 zero
+    rows, 50 iterations (phase 20's tail);
+  * main head / main tail: 4096 syndromes of p=0.01 errors, 3 iterations,
+    then their stragglers and zero rows to 256, 50 iterations (what the
+    two-phase decode of chip_smoke.py phase 5 launches 32 + 32 times);
+  * B5 bf16: 4096 shots at p=0.01, 50 iterations, block_w 8 (hgp_34_n625).
+
+Every kernel output is checked bit for bit against its plain version
+first.  Each run also gives chip_smoke.py phases 5, 22 and 26's (BP) and
+6, 16 and 17's (BP + OSD) failures and min weight, which must not depend
+on the side.  The last line
+is a summary with the median of each side.  ``--sweep`` times this
+checkout alone with each number of shots per block at each shape;
+``--refill`` prints, on the CPU, the refill arithmetic behind PERF.md's
+predictions (iterations per shot from the plain version).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 20261016  # chip_smoke.py's
+CODES = ("n625", "n1225", "n1600")
+KERNEL = "bp_minsum_kernel"
+
+
+def ptxas_report(root: Path, name: str) -> list:
+    """The lines of ``nvcc -Xptxas -v`` about the kernels of csrc/<name>.cu
+    (the port's build flags, output discarded)."""
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+
+    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           os.devnull, str(root / "qldpc_fault_tolerance_tpu_torch" / "csrc"
+                           / f"{name}.cu")]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    return [ln.split("ptxas info    :")[-1].strip()
+            for ln in (out.stdout + out.stderr).splitlines()
+            if any(k in ln for k in ("entry function", "Function properties",
+                                     "registers", "spill"))]
+
+
+def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
+    """Mean profiler device time per call of the kernels named ``kernel``.
+    A profiler session now and then records the host's calls and none of
+    the card's kernels (seen on the first session of a process), so a
+    session without the kernel is repeated, ``tries`` times at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        keys = prof.key_averages()
+        us = sum(e.device_time_total for e in keys if kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError(f"the profiler recorded no device time for {kernel}: "
+                         f"{[(e.key, e.device_time_total) for e in keys]}")
+
+
+def same(a, b, what):
+    import torch
+
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            x, y = x.contiguous().view(torch.int32), y.contiguous().view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what} differs from its plain version")
+
+
+def shapes(root: Path, name: str, dev):
+    """The four shapes of one code: {shape: (syndromes, llr0, iterations)}
+    and the code's Tanner graph and head."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+
+    hx = load_code(str(root / "codes_lib_tpu" / f"hgp_34_{name}.npz")).hx
+    m, n = hx.shape
+    graph = tbp.build_tanner_graph(hx, dev)
+    head = bk.build_sparse_head(tbp.build_tanner_graph_host(hx), dev)
+    out = {}
+    for tag, p, rows in (("", 0.05, 1024), ("main_", 0.01, 256)):
+        rng = np.random.default_rng(SEED)
+        err = (rng.random((4096, n)) < 2 * p / 3).astype(np.uint8)
+        synd = torch.from_numpy((err @ hx.T % 2).astype(np.uint8)).to(dev)
+        llr0 = tbp.llr_from_probs(np.full(n, 2 * p / 3), dev)
+        first = bk.bp_head_bf16(head, synd, llr0, head_iters=3)
+        strag = torch.nonzero(~first[1]).flatten()[:rows - rows // 4]
+        tail = torch.cat([synd[strag], synd.new_zeros((rows - strag.numel(), m))])
+        out[f"{tag}head"] = (synd, llr0, 50 if not tag else 3)
+        out[f"{tag}tail"] = (tail, llr0, 50)
+    return graph, head, out
+
+
+def layout_of(bk, dev, synd, m, n, bf16):
+    """This checkout's layout of one launch: (shots per block, threads,
+    blocks, resident blocks per SM, shared memory per block)."""
+    B = synd.shape[0]
+    if hasattr(bk, "card_minsum_layout"):
+        lay = bk.card_minsum_layout(dev, B, m, n, 7, 4, bf16)
+        return [lay.lanes, lay.threads, lay.grid, lay.resident, lay.smem_bytes]
+    lanes = bk.block_lanes(m, 7, n, edge_bytes=6 if bf16 else 8)
+    return [lanes, 1024, -(-B // lanes), 1,
+            lanes * ((6 if bf16 else 8) * m * 7 + n)]
+
+
+def measure(root: Path, sweep: bool) -> dict:
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+    from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+    from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
+
+    dev = torch.device("cuda", 0)
+    _kernels.build_all(("bp_minsum", "fused_decode"))
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    for name in CODES:
+        graph, head, runs = shapes(root, name, dev)
+        m, n = graph.chk_nbr.shape[0], graph.var_nbr.shape[0]
+        for shape, (synd, llr0, iters) in runs.items():
+            kernels = {
+                "k1": lambda s=synd, l=llr0, it=iters: bk.bp_minsum(
+                    graph, s, l, max_iter=it),
+                "bf16": lambda s=synd, l=llr0, it=iters: bk.bp_head_bf16(
+                    head, s, l, head_iters=it, early_stop=True)}
+            for kname, fn in kernels.items():
+                key = f"{kname}_{shape}_{name}"
+                with _kernels.force_plain():
+                    plain = fn()
+                got = fn()
+                same(got, plain, key)
+                out[f"{key}_ms"] = device_ms(fn, 5, KERNEL)
+                out[f"{key}_shot_iters"] = int(got[3].sum())
+                out[f"{key}_layout"] = layout_of(bk, dev, synd, m, n,
+                                                 kname == "bf16")
+                if sweep:
+                    orig = bk.minsum_layout
+                    cap = orig(synd.shape[0], m, n, 7, 4, kname == "bf16",
+                               132).lanes
+                    for lanes in sorted({1, 2, 4, 8, cap, 15} - {cap}):
+                        try:
+                            orig(1, m, n, 7, 4, kname == "bf16", 132, lanes=lanes)
+                        except ValueError:
+                            continue
+                        bk.minsum_layout = (lambda *a, _l=lanes, **k:
+                                            orig(*a, **k, lanes=_l))
+                        try:
+                            same(fn(), plain, f"{key} at {lanes} lanes")
+                            out[f"{key}_lanes{lanes}_ms"] = device_ms(fn, 5, KERNEL)
+                        finally:
+                            bk.minsum_layout = orig
+
+    # B5 bf16 at phase 24's shape
+    code = load_code(str(root / "codes_lib_tpu" / "hgp_34_n625.npz"))
+    key = gk.fold_in(gk.split_key(gk.prng_key(SEED))[1], 0)
+    llr = tbp.llr_from_probs(np.full(code.N, 2 * 0.01 / 3), dev)
+    spec = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+                                      [0.01 / 3] * 3, llr, llr, dev)
+    kw = dict(eval_type="Total", max_iter_z=50, max_iter_x=50,
+              ms_scaling_factor=0.625, quantize=None, block_w=8)
+
+    def b5():
+        return gk.fused_decode_stats(spec, key, 4096, **kw)
+
+    k, pl = b5(), gk.fused_decode_plain(spec, key, 4096, **kw)
+    if (int(k[0]), int(k[1])) != (int(pl[0]), int(pl[1])) or not all(
+            torch.equal(a[f], b[f]) for a, b in ((k[2], pl[2]), (k[3], pl[3]))
+            for f in ("converged", "iterations")):
+        raise AssertionError("B5 bf16 differs from its plain version")
+    out["b5_bf16_n625_ms"] = device_ms(b5, 10, "fused_decode_kernel")
+
+    if not sweep:
+        out.update(main_path_runs(root, dev))
+        out["ptxas"] = {name: ptxas_report(root, name)
+                        for name in ("bp_minsum", "fused_decode")}
+    return out
+
+
+def main_path_runs(root: Path, dev) -> dict:
+    """chip_smoke.py phases 5, 22 and 26 (16 batches of 4096 at p=0.01 with
+    the default, v1 and float32 decoders) and 6, 16 and 17 (8 batches of
+    2048 at p=0.05, BP + OSD-E and OSD-CS of order 10, and OSD-E on the
+    per-column route): (failures, min weight) of each."""
+    import numpy as np
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import BPDecoder, BPOSD_Decoder
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+
+    code = load_code(str(root / "codes_lib_tpu" / "hgp_34_n625.npz"))
+    out = {}
+    for tag, cls, p, batch, n_batches, elim, kw in (
+            ("phase5", BPDecoder, 0.01, 4096, 16, None, {}),
+            ("phase22", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "v1"}),
+            ("phase26", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "xla"}),
+            ("phase6", BPOSD_Decoder, 0.05, 2048, 8, None,
+             {"osd_method": "osd_e", "osd_order": 10}),
+            ("phase16", BPOSD_Decoder, 0.05, 2048, 8, None,
+             {"osd_method": "osd_cs", "osd_order": 10}),
+            ("phase17", BPOSD_Decoder, 0.05, 2048, 8, "pallas_percol",
+             {"osd_method": "osd_e", "osd_order": 10})):
+        probs = np.full(code.N, 2 * p / 3)
+        if elim:  # the route is read when the decoders are built
+            os.environ["QLDPC_OSD_ELIM"] = elim
+        try:
+            dx = cls(code.hz, probs, 50, device=dev, **kw)
+            dz = cls(code.hx, probs, 50, device=dev, **kw)
+        finally:
+            os.environ.pop("QLDPC_OSD_ELIM", None)
+        sim = CodeSimulator_DataError(
+            code=code, decoder_x=dx, decoder_z=dz,
+            pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
+            scan_chunk=8, device=dev)
+        sim.WordErrorRate(n_batches * batch)
+        out[tag] = [sim.last_failures, sim.min_logical_weight]
+    return out
+
+
+def refill_arithmetic() -> None:
+    """On the CPU: the iterations each shot of the four shapes needs
+    (``minsum_plain``), and the block-iterations per SM of the parent's
+    blocks of 8 shots (4 when 8 do not fit its shared memory), which
+    iterate until their slowest shot converges, against the lane-iterations
+    per lane of this layout's lanes taking shots in order as theirs
+    converge (greedy makespans over 132 SMs, one block per SM)."""
+    import heapq
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+
+    def makespan(work, slots):
+        heap = [0] * slots
+        for w in work:
+            heapq.heappush(heap, heapq.heappop(heap) + int(w))
+        return max(heap)
+
+    for name in CODES:
+        with np.load(ROOT / "codes_lib_tpu" / f"hgp_34_{name}.npz") as z:
+            hx = z["hx"].astype(np.uint8)
+        m, n = hx.shape
+        graph = tbp.build_tanner_graph(hx, "cpu")
+        parent_lanes = 8 if 8 * (8 * m * 7 + n) <= bk.SMEM_LIMIT else 4
+        for shape, p, iters, rows in (("head", 0.05, 50, 0), ("tail", 0.05, 50, 1024),
+                                      ("main_head", 0.01, 3, 0),
+                                      ("main_tail", 0.01, 50, 256)):
+            rng = np.random.default_rng(SEED)
+            err = (rng.random((4096, n)) < 2 * p / 3).astype(np.uint8)
+            synd = torch.from_numpy((err @ hx.T % 2).astype(np.uint8))
+            llr = tbp.llr_from_probs(np.full(n, 2 * p / 3), "cpu")
+            if rows:
+                first = bk.bp_minsum(graph, synd, llr, max_iter=3)
+                strag = torch.nonzero(~first[1]).flatten()[:rows - rows // 4]
+                synd = torch.cat([synd[strag],
+                                  synd.new_zeros((rows - strag.numel(), m))])
+            its = bk.bp_minsum(graph, synd, llr, max_iter=iters)[3].numpy()
+            B = its.size
+            blocks = np.resize(its, -(-B // parent_lanes) * parent_lanes)
+            blocks[B:] = 0
+            lanes = bk.minsum_layout(B, m, n, 7, 4, False, 132).lanes
+            slots = min(B, 132 * lanes)
+            print(json.dumps({
+                "code": name, "shape": shape, "shots": B,
+                "shot_iterations": int(its.sum()), "max": int(its.max()),
+                "parent_block_iterations_per_sm": makespan(
+                    blocks.reshape(-1, parent_lanes).max(axis=1), 132),
+                "lanes_per_block": lanes,
+                "lane_iterations_per_lane": makespan(its, slots),
+                "even_share": round(float(its.sum()) / slots, 1)}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="the other checkout's root")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time this checkout at each number of shots per block")
+    ap.add_argument("--refill", action="store_true",
+                    help="print the refill arithmetic (CPU, no card needed)")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.refill:
+        refill_arithmetic()
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_minsum_body: no CUDA device available", file=sys.stderr)
+        return 2
+    if args.measure:
+        print(json.dumps(measure(Path(args.measure).resolve(), args.sweep)),
+              flush=True)
+        return 0
+    if not (args.parent or args.sweep):
+        ap.error("--parent or --sweep is required")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    if args.sweep:
+        order = [("change", ROOT)]
+    else:
+        parent = Path(args.parent).resolve()
+        order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+                 ("parent", parent)]
+    runs = {side: [] for side, _ in order}
+    for side, root in order:
+        cmd = [sys.executable, __file__, "--measure", str(root)]
+        out = subprocess.run(cmd + (["--sweep"] if args.sweep else []),
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        res["side"] = side
+        print(json.dumps(res), flush=True)
+        runs[side].append(res)
+    keys = [k for k in runs["change"][0] if k.endswith("_ms")]
+    print(json.dumps({"card": card, "median": {
+        side: {k: statistics.median(r[k] for r in rs) for k in keys}
+        for side, rs in runs.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -391,6 +391,57 @@ def test_bf16_head_tail_matches_plain(cuda):
     assert bool(k[1][strag.numel():].all())  # sentinel rows converge at once
 
 
+def _mixed_synd(h, B, seed):
+    """Syndromes whose shots converge at very different iterations: half
+    of them zero, the rest of p=0.08 errors."""
+    rng = np.random.default_rng(seed)
+    err = (rng.random((B, h.shape[1])) < 0.08).astype(np.uint8)
+    err[rng.random(B) < 0.5] = 0
+    return torch.from_numpy((err @ h.T % 2).astype(np.uint8))
+
+
+@pytest.mark.parametrize("kernel", ["f32", "f32_per_shot", "bf16"])
+@pytest.mark.parametrize("code,B,iters", [
+    ("hgp_34_n625", 4096, 50), ("hgp_34_n625", 1, 50), ("hgp_34_n625", 7, 50),
+    ("hgp_34_n625", 1001, 50), ("hgp_34_n625", 300, 0),
+    ("hgp_34_n225", 333, 30), ("hgp_34_n1225", 2048, 50),
+    ("hgp_34_n1600", 2048, 50)])
+def test_minsum_kernels_refill_match_plain(cuda, kernel, code, B, iters):
+    """Kernel 1 and the bf16 head on batches whose shots converge at very
+    different iterations, so lanes take new shots as theirs converge
+    (4096 and 2048 shots are more than the card holds at once; 1001 is not
+    a multiple of the shots per block), on one shot and seven, and with no
+    iteration at all: every output bit-exact."""
+    h = load_code(os.path.join(REPO, "codes_lib_tpu", f"{code}.npz")).hx
+    synd = _mixed_synd(h, B, B).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.05), cuda)
+    if kernel == "bf16":
+        head = bk.build_sparse_head(tbp.build_tanner_graph_host(h), cuda)
+        counter = bk.bp_head_bf16
+
+        def run():
+            return bk.bp_head_bf16(head, synd, llr, head_iters=iters)
+    else:
+        graph = tbp.build_tanner_graph(h, cuda)
+        if kernel == "f32_per_shot":
+            llr = llr * torch.linspace(0.5, 1.5, B, device=cuda)[:, None]
+        counter = bp_minsum
+
+        def run():
+            return bp_minsum(graph, synd, llr, max_iter=iters)
+    before = counter.launches
+    k = run()
+    assert counter.launches == before + 1
+    with _kernels.force_plain():
+        p = run()
+    assert counter.launches == before + 1
+    for a, b in zip(_bits(k), _bits(p)):
+        assert torch.equal(a, b)
+    if iters and B > 7:
+        its = k[3][k[1]]
+        assert int(its.min()) <= 1 < int(its.max())  # converged far apart
+
+
 @pytest.mark.parametrize("kw", [{}, {"quantize": "int8"}, {"bp_kernel": "v1"}])
 def test_head_decoders_on_card_match_cpu(cuda, kw):
     """The two-phase decode through the bf16 head (tags v2 and v1) or B6 on
