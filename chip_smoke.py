@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
      layout (shots per block, threads, blocks, resident blocks per SM from
      the card's occupancy, shared memory per block)
   4. kernel 2 (GF(2) elimination) against its plain version: B=256 shots
-     BP failed in phase 3, permuted by their posteriors
+     BP failed in phase 3, permuted by their posteriors, and B=512 (phase
+     6's straggler tier); each timed, with its layout (threads per shot,
+     blocks, resident blocks per SM, shared memory)
   5. main path, BP: CodeSimulator_DataError WER on hgp_34_n625, BP-50,
      depolarizing p=0.01, 16 batches of 4096 (default decoders: on the card
      the two-phase head and tail run in the bf16 head); its failures and
@@ -47,8 +49,9 @@ Phases (any failure raises and the script exits non-zero):
      kernel replaced by its plain version give the kernel path's failures
      and min weight
  14. kernels B7 (full elimination, fcap 0 and 10) and B10 (per-column
-     elimination) against their plain versions on phase 4's 256 shots: every
-     output bit-exact, the reduced matrix whole
+     elimination) against their plain versions on phase 4's 256 and 512
+     shots: every output bit-exact, the reduced matrix whole; timed, with
+     their layouts
  15. kernel B8 (OSD-CS sweep) against its plain version on those shots'
      planes (f=325, w=10: 371 candidates per shot): cost and index bit-exact
  16. main path, BPOSD-CS: BP-50 + OSD-CS order 10, p=0.05, 8 batches of 2048
@@ -132,6 +135,9 @@ INT8_RUNS = {"21": (212, 3), "25": (231, 3)}
 # (scripts/ab_minsum_body.py gives them for two checkouts side by side)
 MINSUM_RUNS = {"5": (187, 2), "22": (187, 2), "26": (184, 2), "6": (941, 6),
                "16": (923, 6), "17": (941, 6)}
+# phases 4 and 14 hold the elimination's three modes at these shots: 256,
+# and the 512-shot straggler tier of phase 6's batches of 2048
+ELIM_SHOTS = (256, 512)
 
 
 def log(msg: str) -> None:
@@ -276,16 +282,25 @@ def message_bytes(graph) -> int:
     return 17 * edges + 5 * n + 2 * m
 
 
-def elim_bound_ms(W: int, m: int, B: int, out_words: int,
+def elim_bound_ms(n: int, m: int, B: int, out_words: int,
                   word_ops: int) -> tuple[float, str]:
-    """Least time for an elimination of these inputs: bytes of the packed
-    rows and syndromes read once and the ``out_words`` int32 words per shot
-    that the kernel writes written once, against the word operations the
-    column-by-column elimination needs (``elimination_work``, at the
-    float32 scalar rate)."""
-    nbytes = 4 * B * (W * m + m) + 4 * B * out_words
+    """Least time for an elimination of these inputs: bytes of the
+    permutation (int64), the syndromes and the column-packed H read once and
+    the ``out_words`` int32 words per shot that the kernel writes written
+    once, against the word operations the column-by-column elimination
+    needs (``elimination_work``, at the float32 scalar rate)."""
+    nbytes = 8 * B * n + 4 * B * m + 4 * n * (-(-m // 32)) + 4 * B * out_words
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, word_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def elim_layout_text(tod, dev, B: int, m: int, n: int, fcap: int,
+                     mode: str) -> str:
+    """The launch of csrc/osd_elim.cu for B shots (ops/osd_device.py
+    card_elim_layout), with the card's resident blocks per SM."""
+    lay = tod.card_elim_layout(dev, B, m, n, fcap, mode)
+    return (f"{mode}: {lay.threads} threads per shot, {lay.grid} blocks, "
+            f"{lay.resident} resident per SM, {lay.smem_bytes} B shared memory")
 
 
 def sweep_bound_ms(f: int, w: int, B: int) -> tuple[float, str]:
@@ -486,37 +501,48 @@ def main() -> int:
         f"{shot_iters} shot-iterations move {msg_bytes / 1e9:.4f} GB of "
         f"messages; layout {layout_text(bk, dev, B1, m, n, False)}")
 
-    # 4. kernel 2 vs its plain version
-    B2 = 256
+    # 4. kernel 2 vs its plain version, at 256 shots and at the main path's
+    # 512-shot straggler tier
     plan = tod.build_osd_plan(hx, np.full(n, 2 * p1 / 3), device=dev)
-    w = min(10, n - plan.rank)
-    bad = torch.nonzero(~k1[1]).flatten()[:B2]
-    if bad.numel() < B2:
+    r_star = plan.rank
+    w = min(10, n - r_star)
+    bad = torch.nonzero(~k1[1]).flatten()[:max(ELIM_SHOTS)]
+    if bad.numel() < max(ELIM_SHOTS):
         raise AssertionError(f"only {bad.numel()} BP failures in phase 3")
-    perm = torch.sort(k1[2][bad], dim=1, stable=True).indices
-    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
-    synd2 = synd[bad].to(torch.int32).t().contiguous()
+    h01 = tod._unpack_rows(plan.packed, n)
+    elim_in = {}  # shots: (perm, syndromes, packed rows for the work count)
+    for B2 in ELIM_SHOTS:
+        perm = torch.sort(k1[2][bad[:B2]], dim=1, stable=True).indices
+        elim_in[B2] = (perm, synd[bad[:B2]].to(torch.int32).t().contiguous(),
+                       tod._permute_and_pack(h01, perm))
+    k2_err, k2_times = 0, {}
+    for B2, (perm, synd2, packed) in elim_in.items():
+        def run_k2(perm=perm, synd2=synd2):
+            return tod.osd_elim(plan.packed, perm, synd2, n=n, r_star=r_star,
+                                fcap=w)
 
-    def run_k2():
-        return tod.osd_elim(packed, synd2, n=n, r_star=plan.rank, fcap=w)
-
-    k2 = run_k2()
-    with _kernels.force_plain():
-        p2_out = run_k2()
-    torch.cuda.synchronize()
-    k2_err = max(int((a - b).abs().max()) for a, b in zip(k2, p2_out))
-    if k2_err != 0:
-        raise AssertionError("kernel 2 differs from the plain version")
-    k2_ms = event_ms(run_k2, 20)
-    with _kernels.force_plain():
-        k2_plain_ms = event_ms(run_k2, 1)
-    work = tod.elimination_work(packed, synd2, n=n, r_star=plan.rank, fcap=w)
-    # written: the syndrome, the pivots, the free panel and w free positions
-    k2_bound, k2_by = elim_bound_ms(packed.shape[0], m, B2,
-                                    m + 2 * plan.rank + m + w, work)
-    log(f"[4] kernel 2 == plain (all five outputs bit-exact); rank "
-        f"{plan.rank}, fcap {w}, word ops {work}; kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain_ms:.3f} ms, bound {k2_bound:.4f} ms ({k2_by})")
+        k2 = run_k2()
+        with _kernels.force_plain():
+            p2_out = run_k2()
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(k2, p2_out))
+        if err != 0:  # tolerance 0: integer words
+            raise AssertionError(f"kernel 2 differs from the plain version "
+                                 f"at {B2} shots")
+        k2_err = max(k2_err, err)
+        with _kernels.force_plain():
+            plain_ms = event_ms(run_k2, 1)
+        work = tod.elimination_work(packed, synd2, n=n, r_star=r_star, fcap=w)
+        # written: the syndrome, the pivots, the free panel and w free
+        # positions
+        bound = elim_bound_ms(n, m, B2, m + 2 * r_star + m + w, work)
+        k2_times[B2] = (event_ms(run_k2, 20), plain_ms) + bound
+        log(f"[4] kernel 2 == plain at {B2} shots (all five outputs "
+            f"bit-exact); rank {r_star}, fcap {w}, word ops {work}; kernel "
+            f"{k2_times[B2][0]:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"layout {elim_layout_text(tod, dev, B2, m, n, w, 'skip')}")
+    k2_ms, k2_plain_ms, k2_bound, k2_by = k2_times[256]
 
     def simulator(decoder_cls, p, batch, seed, **kw):
         probs = np.full(n, 2 * p / 3)
@@ -771,65 +797,80 @@ def main() -> int:
             f"(failures, min_w) {got[0]}")
 
     # 14. kernels B7 (fcap 0 and 10) and B10 vs their plain versions on
-    # phase 4's shots
-    W = packed.shape[0]
-    r_star = plan.rank
-    b7_err = 0
-    for fcap in (0, w):
-        k = tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=fcap, full=True)
+    # phase 4's shots, 256 and 512
+    b7_err = b10_err = 0
+    b7_times, b10_times = {}, {}
+    for B2, (perm, synd2, packed) in elim_in.items():
+        for fcap in (0, w):
+            k = tod.osd_elim(plan.packed, perm, synd2, n=n, r_star=r_star,
+                             fcap=fcap, full=True)
+            with _kernels.force_plain():
+                pl = tod.osd_elim(plan.packed, perm, synd2, n=n, r_star=r_star,
+                                  fcap=fcap, full=True)
+            torch.cuda.synchronize()
+            err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(k, pl))
+            if len(k) != 6 or err:  # tolerance 0: integer words
+                raise AssertionError(f"B7 differs from its plain version at "
+                                     f"fcap={fcap}, {B2} shots")
+            b7_err = max(b7_err, err)
+            if fcap == 0:
+                b7_out = k
+
+        def run_b7(perm=perm, synd2=synd2):
+            return tod.osd_elim(plan.packed, perm, synd2, n=n, r_star=r_star,
+                                fcap=0, full=True)
+
+        def run_b10(perm=perm, synd2=synd2):
+            return tod.osd_elim_percol(plan.packed, perm, synd2, n=n,
+                                       r_star=r_star)
+
+        k10 = run_b10()
         with _kernels.force_plain():
-            pl = tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=fcap,
-                              full=True)
+            p10 = run_b10()
         torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, pl))
-        if len(k) != 6 or err:  # tolerance 0: integer words
-            raise AssertionError(f"B7 differs from its plain version at "
-                                 f"fcap={fcap}")
-        b7_err = max(b7_err, err)
-    b7_out = k
-
-    def run_b7():
-        return tod.osd_elim(packed, synd2, n=n, r_star=r_star, fcap=0, full=True)
-
-    k10 = tod.osd_elim_percol(packed, synd2, n=n, r_star=r_star)
-    p10 = tod.eliminate_percol_plain(packed, synd2, n=n, r_star=r_star)
-    torch.cuda.synchronize()
-    b10_err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in zip(k10, p10))
-    if b10_err:
-        raise AssertionError("B10 differs from its plain version")
-    # the per-column route's pivots and reduced pivot rows are the full
-    # blocked route's
-    if not (torch.equal(k10[1], b7_out[1]) and torch.equal(k10[2], b7_out[2])
-            and torch.equal(tod.pivot_rows(k10[4], k10[1]),
-                            tod.pivot_rows(b7_out[5], b7_out[1]))):
-        raise AssertionError("B10 pivots or pivot rows differ from B7's")
-    rows_agree = torch.equal(k10[4], b7_out[5])
-
-    def run_b10():
-        return tod.osd_elim_percol(packed, synd2, n=n, r_star=r_star)
-
-    b7_ms, b10_ms = event_ms(run_b7, 20), event_ms(run_b10, 20)
-    with _kernels.force_plain():
-        b7_plain_ms, b10_plain_ms = event_ms(run_b7, 1), event_ms(run_b10, 1)
-    # both walk the same columns with no free panel: the same word
-    # operations; B7 writes the syndrome, the pivots and the matrix, B10
-    # those and r* pivot flags
-    work0 = tod.elimination_work(packed, synd2, n=n, r_star=r_star, fcap=0)
-    b7_bound, b7_by = elim_bound_ms(W, m, B2, m + 2 * r_star + W * m, work0)
-    b10_bound, b10_by = elim_bound_ms(W, m, B2, m + 3 * r_star + W * m, work0)
-    log(f"[14] B7 == plain (fcap 0 and {w}: six outputs, the matrix whole); "
-        f"B10 == plain (five outputs, the matrix whole); B10 pivots and pivot "
-        f"rows == B7's, non-pivot rows {'agree' if rows_agree else 'differ'}; "
-        f"{work0} word ops each; B7 {b7_ms:.3f} ms, plain {b7_plain_ms:.3f} "
-        f"ms, bound {b7_bound:.4f} ms ({b7_by}); B10 {b10_ms:.3f} ms, plain "
-        f"{b10_plain_ms:.3f} ms, bound {b10_bound:.4f} ms ({b10_by})")
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k10, p10))
+        if err:
+            raise AssertionError(f"B10 differs from its plain version at {B2} "
+                                 f"shots")
+        b10_err = max(b10_err, err)
+        # the per-column route's pivots and reduced pivot rows are the full
+        # blocked route's
+        if not (torch.equal(k10[1], b7_out[1]) and torch.equal(k10[2], b7_out[2])
+                and torch.equal(tod.pivot_rows(k10[4], k10[1]),
+                                tod.pivot_rows(b7_out[5], b7_out[1]))):
+            raise AssertionError("B10 pivots or pivot rows differ from B7's")
+        rows_agree = torch.equal(k10[4], b7_out[5])
+        with _kernels.force_plain():
+            plain_ms = event_ms(run_b7, 1), event_ms(run_b10, 1)
+        # both walk the same columns with no free panel: the same word
+        # operations; B7 writes the syndrome, the pivots and the matrix, B10
+        # those and r* pivot flags
+        work0 = tod.elimination_work(packed, synd2, n=n, r_star=r_star, fcap=0)
+        W = packed.shape[0]
+        b7_times[B2] = (event_ms(run_b7, 20), plain_ms[0]) + \
+            elim_bound_ms(n, m, B2, m + 2 * r_star + W * m, work0)
+        b10_times[B2] = (event_ms(run_b10, 20), plain_ms[1]) + \
+            elim_bound_ms(n, m, B2, m + 3 * r_star + W * m, work0)
+        log(f"[14] {B2} shots: B7 == plain (fcap 0 and {w}: six outputs, the "
+            f"matrix whole); B10 == plain (five outputs, the matrix whole); B10 "
+            f"pivots and pivot rows == B7's, non-pivot rows "
+            f"{'agree' if rows_agree else 'differ'}; {work0} word ops each; B7 "
+            f"{b7_times[B2][0]:.4f} ms, plain {plain_ms[0]:.3f} ms, bound "
+            f"{b7_times[B2][2]:.4f} ms ({b7_times[B2][3]}); B10 "
+            f"{b10_times[B2][0]:.4f} ms, plain {plain_ms[1]:.3f} ms, bound "
+            f"{b10_times[B2][2]:.4f} ms ({b10_times[B2][3]}); layouts "
+            f"{elim_layout_text(tod, dev, B2, m, n, 0, 'full')} "
+            f"and {elim_layout_text(tod, dev, B2, m, n, 0, 'percol')}")
+    b7_ms, b7_plain_ms, b7_bound, b7_by = b7_times[256]
+    b10_ms, b10_plain_ms, b10_bound, b10_by = b10_times[256]
 
     # 15. kernel B8 vs its plain version on those shots' planes
     order = 10
     cfg = (n, r_star, order, tcs.cs_pat_chunk(n, r_star, order), "pallas")
-    _, x = tcs.sweep_inputs(cfg, plan.packed, plan.cost, synd[bad], k1[2][bad],
-                            device=dev)
+    B2 = 256
+    _, x = tcs.sweep_inputs(cfg, plan.packed, plan.cost, synd[bad[:B2]],
+                            k1[2][bad[:B2]], device=dev)
     f_cs, w_cs = x.dplane.shape[0], min(order, n - r_star)
 
     def run_b8():

@@ -279,16 +279,15 @@ def sweep_inputs(cfg, h_packed, cost, syndromes, posterior_llrs, *,
         return out, None
 
     perm = torch.sort(posterior_llrs, dim=1, stable=True).indices  # (B, n)
-    packed0 = od._permute_and_pack(od._unpack_rows(h_packed, n), perm)
     synd0 = syndromes.to(torch.int32).t().contiguous()
     if elim == "pallas":
         synd_r, pr, pc, _fw, _fp, packed = od.osd_elim(
-            packed0, synd0, n=n, r_star=r_star, fcap=0, full=True)
+            h_packed, perm, synd0, n=n, r_star=r_star, fcap=0, full=True)
         u_piv = synd_r.gather(0, pr.long())                    # (r*, B)
         ip = None
     else:
-        u_piv, pr, pc, ip, packed = od.osd_elim_percol(packed0, synd0, n=n,
-                                                       r_star=r_star)
+        u_piv, pr, pc, ip, packed = od.osd_elim_percol(h_packed, perm, synd0,
+                                                       n=n, r_star=r_star)
     piv_cols = perm.gather(1, pc.t().long())                   # (B, r*)
     if f == 0:
         # full column rank: the base OSD-0 solution is the only candidate

@@ -4,18 +4,22 @@ the GF(2) eliminations that OSD-CS (``ops/osd_cs_device.py``) shares.
   * One GF(2) rank serves all shots: H's rank r* is a property of the matrix,
     so every per-shot array has a static shape — only the column order (by
     posterior reliability) differs per shot.
-  * Each shot's reliability-permuted H is bit-packed, rows into int32 words,
-    batch-minor (W, m, B).  The GF(2) elimination (``osd_elim``) returns the
-    reduced syndrome, the pivots and a "free panel": for every row, the bits
-    at the first ``fcap`` pivotless columns, so OSD-E's T matrix is the panel
-    read at the pivot rows.  On CUDA tensors ``osd_elim`` launches the Hopper
-    kernel ``csrc/osd_elim.cu``, which replaces the TPU kernel
-    ``_elim_blocked_kernel`` (``qldpc_fault_tolerance_tpu/ops/osd_device.py
-    :547``); on CPU tensors it runs ``eliminate_plain``, a port of that
-    kernel's blocked twin ``_eliminate_blocked_twin`` (:719).  Both are
-    integer-exact and agree bit for bit.  ``osd_elim(..., full=True)`` (the
-    OSD-CS route; TPU kernel ``_elim_blocked_full_kernel`` :632) also
-    returns the fully reduced matrix.
+  * Each shot's H is eliminated with its columns in reliability order
+    ``perm``.  The GF(2) elimination (``osd_elim(rows, perm, synd)``)
+    returns the reduced syndrome, the pivots and a "free panel": for every
+    row, the bits at the first ``fcap`` pivotless columns, so OSD-E's T
+    matrix is the panel read at the pivot rows.  On CUDA tensors
+    ``osd_elim`` launches the Hopper kernel ``csrc/osd_elim.cu``, which
+    replaces the TPU kernel ``_elim_blocked_kernel``
+    (``qldpc_fault_tolerance_tpu/ops/osd_device.py:547``) and builds each
+    shot's permuted columns itself from the column-packed H (``col_pack``,
+    built once per rows tensor) at the launch ``elim_layout`` chooses; on
+    CPU tensors it packs the permuted rows (W, m, B) (``_permute_and_pack``)
+    and runs ``eliminate_plain``, a port of that kernel's blocked twin
+    ``_eliminate_blocked_twin`` (:719).  Both are integer-exact and agree
+    bit for bit.  ``osd_elim(..., full=True)`` (the OSD-CS route; TPU
+    kernel ``_elim_blocked_full_kernel`` :632) also returns the fully
+    reduced matrix.
   * The per-column route (``cfg[4] == "pallas_percol"``, the JAX package's
     ``QLDPC_OSD_ELIM=pallas_percol``): ``osd_elim_percol`` returns the
     reduced matrix and the pivot-column flags instead of a free panel, and
@@ -35,7 +39,10 @@ Keep ``torch.backends.cuda.matmul.allow_tf32`` False on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,10 +51,13 @@ from ..codes import gf2
 from ..decoders.osd import OSD_CS_MAX_ORDER, _channel_cost, _check_osd_order
 from ..utils.device import resolve_device
 from . import _kernels
+from .bp_kernel import _sm_count
 from .gf2_packed import to_int32
 
 __all__ = ["OsdPlan", "build_osd_plan", "osd_elim", "eliminate_plain",
            "osd_elim_percol", "eliminate_percol_plain", "elimination_work",
+           "col_pack", "ElimLayout", "elim_layout", "elim_smem_bytes",
+           "card_elim_layout",
            "ELIM_ROUTES", "elim_route", "osd_decode_values",
            "osd_decode_device"]
 
@@ -90,6 +100,17 @@ def _unpack_rows(packed, n: int) -> torch.Tensor:
     return bits.reshape(m, W * 32)[:, :n]
 
 
+def col_pack(h01) -> torch.Tensor:
+    """(m, n) {0,1} -> (n, ceil(m/32)) int32 columns: row r of column c at
+    word r >> 5, bit r & 31."""
+    m, n = h01.shape
+    mW = (m + 31) // 32
+    ht = torch.zeros((n, mW * 32), dtype=torch.int64, device=h01.device)
+    ht[:, :m] = h01.t().to(torch.int64)
+    shifts = torch.arange(32, device=h01.device)
+    return to_int32((ht.reshape(n, mW, 32) << shifts).sum(dim=2))
+
+
 def _permute_and_pack(h01, perm) -> torch.Tensor:
     """Per-shot column-permuted bit-packed rows, batch-last: (W, m, B) int32
     with permuted column t at word t >> 5, bit t & 31.
@@ -103,12 +124,7 @@ def _permute_and_pack(h01, perm) -> torch.Tensor:
     m = h01.shape[0]
     W = (n + 31) // 32
     mW = (m + 31) // 32
-    dev = perm.device
-    ht = torch.zeros((n, mW * 32), dtype=torch.int64, device=dev)
-    ht[:, :m] = h01.t().to(torch.int64)
-    shifts = torch.arange(32, device=dev)
-    colpack = to_int32((ht.reshape(n, mW, 32) << shifts).sum(dim=2))  # (n, mW)
-    g = colpack[perm]                                          # (B, n, mW)
+    g = col_pack(h01)[perm]                                    # (B, n, mW)
     pad = W * 32 - n
     if pad:
         g = torch.cat([g, g.new_zeros((B, pad, mW))], dim=1)
@@ -285,50 +301,184 @@ def _elim_argtypes(n_ptrs: int, n_ints: int):
     return [p] * n_ptrs + [i] * n_ints + [p]
 
 
-# shared memory a block may take on Hopper (227 KB): one shot's matrix,
-# syndrome, free panel and pivot flags must fit
+# shared memory a block may take on Hopper (227 KB), and an SM's (228 KB,
+# 1 KB of it reserved per block); threads an SM holds
 SMEM_LIMIT = 232448
+SM_SMEM = 233472
+SM_THREADS = 2048
+# elim_layout: a shot's threads, from ELIM_MIN_THREADS (2048 shots: more
+# blocks per SM) to one lane per column of the first pivot step (at most
+# ELIM_MAX_THREADS), so that the shots an SM holds share its ELIM_SM_THREADS;
+# an even number of warps: warp 0 walks, and the others' columns (every
+# (warps - 1)-th) hit 32 banks.  The kernel's ~64 registers a thread let an
+# SM hold 1024 of its threads.
+ELIM_SM_THREADS = 1024
+ELIM_MIN_THREADS = 64
+ELIM_MAX_THREADS = 1024
+ELIM_MODES = ("skip", "full", "percol")
 
 
-def _check_elim(name, packed, synd, n: int, r_star: int, fcap: int) -> int:
-    """Raise on inputs the elimination kernels cannot take; returns the
-    shared memory one shot needs."""
-    W, m, B = packed.shape
-    if packed.dtype != torch.int32 or synd.dtype != torch.int32:
-        raise ValueError(f"{name} takes int32 packed rows and syndromes")
-    if tuple(synd.shape) != (m, B) or W != (n + 31) // 32:
-        raise ValueError(f"{name} shape mismatch: packed {tuple(packed.shape)}, "
-                         f"syndromes {tuple(synd.shape)}, n={n}")
-    if (synd.device != packed.device or not packed.is_contiguous()
-            or not synd.is_contiguous()):
+class ElimLayout(NamedTuple):
+    threads: int     # threads per block, all on one shot
+    shots: int       # shots per block
+    grid: int        # blocks launched: one per shot
+    smem_bytes: int  # dynamic shared memory per block
+    resident: int    # blocks per SM by threads and shared memory
+
+
+def elim_smem_bytes(m: int, n: int) -> int:
+    """Dynamic shared memory of csrc/osd_elim.cu per shot: the column-packed
+    matrix and syndrome (ceil(m/32) words per column, a row of (n + 1) | 1
+    columns per word), the used rows, 6 words of the walk's state, 32 free
+    positions and the pivots' rows and columns (r* <= m each)."""
+    mW = (m + 31) // 32
+    return 4 * (mW * ((n + 1) | 1) + mW + 6 + 32 + 2 * m)
+
+
+def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
+                threads: int | None = None) -> ElimLayout:
+    """The launch of csrc/osd_elim.cu for B shots of an (m, n) matrix.
+
+    One block per shot (a step's barriers are the shot's own).  The shots
+    an SM holds at once (ceil(B / sm_count), at most what shared memory
+    allows) share ELIM_SM_THREADS threads; a shot takes at least
+    ELIM_MIN_THREADS and at most one lane per column right of the first
+    pivot, in an even number of warps.  ``threads`` fixes the threads per
+    shot instead.  Raises, with the bytes, when one shot's matrix does not
+    fit in shared memory."""
+    if mode not in ELIM_MODES:
+        raise ValueError(f"elimination mode {mode!r} is not one of {ELIM_MODES}")
+    if not 0 <= fcap <= (0 if mode == "percol" else 32):
+        raise ValueError(f"the {mode} elimination takes fcap in 0.."
+                         f"{0 if mode == 'percol' else 32}, got {fcap}")
+    smem = elim_smem_bytes(m, n)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the elimination kernels: a {m}x{n} matrix needs "
+                         f"{smem} bytes of shared memory per shot, above "
+                         f"{SMEM_LIMIT}")
+    if threads is None:
+        per_sm = max(1, min(-(-B // sm_count), SM_SMEM // (smem + 1024)))
+        useful = -(-(n + 1) // 32) * 32
+        threads = max(ELIM_MIN_THREADS,
+                      min(useful, ELIM_MAX_THREADS,
+                          ELIM_SM_THREADS // per_sm // 32 * 32))
+        threads -= threads % 64
+    if threads % 64 or not 64 <= threads <= ELIM_MAX_THREADS:
+        raise ValueError(f"the elimination kernels take 64..{ELIM_MAX_THREADS} "
+                         f"threads per shot in an even number of warps, got "
+                         f"{threads}")
+    resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
+    return ElimLayout(threads, 1, max(B, 1), smem, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def elim_resident(index: int, mode: str, m: int, threads: int,
+                  smem_bytes: int) -> int:
+    """Blocks of csrc/osd_elim.cu (the kernel for m rows) that one SM of CUDA
+    device ``index`` holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _kernels.library("osd_elim").osd_elim_resident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(ELIM_MODES.index(mode), m, threads, smem_bytes,
+                ctypes.addressof(blocks))
+    _kernels.check_launch("osd_elim_resident", rc)
+    return blocks.value
+
+
+def card_elim_layout(dev, B: int, m: int, n: int, fcap: int,
+                     mode: str) -> ElimLayout:
+    """``elim_layout`` on CUDA device ``dev``: its SM count, and the resident
+    blocks the card reports, registers included."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lay = elim_layout(B, m, n, fcap, mode, _sm_count(index))
+    held = elim_resident(index, mode, m, lay.threads, lay.smem_bytes)
+    if held < 1:
+        raise ValueError(f"the elimination kernels: a block of {lay.threads} "
+                         f"threads and {lay.smem_bytes} bytes does not fit")
+    return lay._replace(resident=held)
+
+
+_COLPACK: dict = {}
+
+
+def _colpack_of(h_packed, n: int) -> torch.Tensor:
+    """``col_pack`` of the rows ``h_packed``, built once for as long as the
+    tensor lives."""
+    key = (id(h_packed), n)
+    hit = _COLPACK.get(key)
+    if hit is not None and hit[0]() is h_packed:
+        return hit[1]
+    cols = col_pack(_unpack_rows(h_packed, n))
+    _COLPACK[key] = (weakref.ref(h_packed, lambda _, k=key: _COLPACK.pop(k, None)),
+                     cols)
+    return cols
+
+
+def _check_elim(name, h_packed, perm, synd, n: int, r_star: int,
+                fcap: int) -> int:
+    """Raise on inputs the elimination kernels cannot take; returns m."""
+    m, W = h_packed.shape
+    B = perm.shape[0]
+    if (h_packed.dtype != torch.int32 or synd.dtype != torch.int32
+            or perm.dtype != torch.int64):
+        raise ValueError(f"{name} takes int32 rows and syndromes and an int64 "
+                         f"permutation")
+    if (W != (n + 31) // 32 or perm.dim() != 2 or perm.shape[1] != n
+            or tuple(synd.shape) != (m, B)):
+        raise ValueError(f"{name} shape mismatch: rows {tuple(h_packed.shape)}, "
+                         f"perm {tuple(perm.shape)}, syndromes "
+                         f"{tuple(synd.shape)}, n={n}")
+    if (len({h_packed.device, perm.device, synd.device}) != 1
+            or not perm.is_contiguous() or not synd.is_contiguous()):
         raise ValueError(f"{name} takes contiguous inputs on one device")
-    if not 0 <= fcap <= 32 or not 0 <= r_star <= m:
-        raise ValueError(f"{name} takes fcap in 0..32 and r* <= m, "
-                         f"got fcap={fcap}, r*={r_star}")
+    if not 0 <= r_star <= m:
+        raise ValueError(f"{name} takes r* <= m, got r*={r_star}")
     if W * m * B >= 2 ** 31 or n * B >= 2 ** 31:
         raise ValueError(f"{name} batch too large for int32 indexing")
-    smem = 4 * (W * m + 3 * m)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: a {m}x{n} matrix needs {smem} bytes of "
-                         f"shared memory per shot, above {SMEM_LIMIT}")
-    return smem
+    return m
 
 
-def osd_elim(packed, synd, *, n: int, r_star: int, fcap: int,
+def _elim_call(name, fn, mode, h_packed, perm, synd, outs, n, r_star,
+               fcap) -> None:
+    """Launch ``fn`` of csrc/osd_elim.cu on the column-packed H, the
+    permutation and the syndromes, writing ``outs``."""
+    m = _check_elim(name, h_packed, perm, synd, n, r_star, fcap)
+    B = perm.shape[0]
+    dev = perm.device
+    lay = card_elim_layout(dev, B, m, n, fcap, mode)
+    colpack = _colpack_of(h_packed, n)
+    fixed = [m, n, r_star] + ([] if mode == "percol" else [fcap])
+    fn.argtypes = _elim_argtypes(3 + len(outs), len(fixed) + 3)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(colpack.data_ptr(), perm.data_ptr(), synd.data_ptr(),
+                *(o.data_ptr() for o in outs), *fixed, B, lay.threads,
+                lay.smem_bytes, stream)
+    _kernels.check_launch(name, rc)
+
+
+def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
              full: bool = False):
-    """GF(2) elimination of (W, m, B) int32 packed rows with the (m, B) int32
-    syndrome augmented.  Returns the int32 arrays of ``eliminate_plain``:
-    five, and with ``full`` the fully reduced matrix as a sixth.  CUDA
-    tensors launch ``csrc/osd_elim.cu`` (``osd_elim_launch``, or
-    ``osd_elim_full_launch`` with ``full``) or raise; CPU tensors run
-    ``eliminate_plain``.  ``launches`` counts the first kernel,
-    ``full_launches`` the second."""
-    if not packed.is_cuda or _kernels.plain_forced():
+    """GF(2) elimination of H (rows ``h_packed`` (m, W) int32) with its
+    columns in each shot's order ``perm`` (B, n) int64 and the (m, B) int32
+    0/1 syndromes augmented.  Returns the int32 arrays of
+    ``eliminate_plain`` on ``_permute_and_pack``'s matrix: five, and with
+    ``full`` the fully reduced matrix as a sixth.  CUDA tensors launch
+    ``csrc/osd_elim.cu`` (``osd_elim_launch``, or ``osd_elim_full_launch``
+    with ``full``), which builds each shot's columns itself, or raise; CPU
+    tensors pack and run ``eliminate_plain``.  ``launches`` counts the
+    first kernel, ``full_launches`` the second."""
+    if not perm.is_cuda or _kernels.plain_forced():
+        packed = _permute_and_pack(_unpack_rows(h_packed, n), perm)
         return eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap,
                                full=full)
-    smem = _check_elim("osd_elim", packed, synd, n, r_star, fcap)
-    W, m, B = packed.shape
-    dev = packed.device
+    m, W = h_packed.shape
+    B = perm.shape[0]
+    dev = perm.device
     synd_out = torch.empty((m, B), dtype=torch.int32, device=dev)
     # the kernel writes the free panel only when it has one
     fword = (torch.empty if fcap else torch.zeros)((m, B), dtype=torch.int32,
@@ -340,17 +490,9 @@ def osd_elim(packed, synd, *, n: int, r_star: int, fcap: int,
     lib = _kernels.library("osd_elim")
     if full:
         outs.append(torch.empty((W, m, B), dtype=torch.int32, device=dev))
-        fn = lib.osd_elim_full_launch
-    else:
-        fn = lib.osd_elim_launch
-    fn.argtypes = _elim_argtypes(len(outs) + 2, 7)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(packed.data_ptr(), synd.data_ptr(),
-                *(o.data_ptr() for o in outs),
-                m, n, W, r_star, fcap, B, smem, stream)
-    _kernels.check_launch("osd_elim", rc)
+    _elim_call("osd_elim", lib.osd_elim_full_launch if full
+               else lib.osd_elim_launch, "full" if full else "skip",
+               h_packed, perm, synd, outs, n, r_star, fcap)
     if full:
         osd_elim.full_launches += 1
     else:
@@ -362,31 +504,28 @@ osd_elim.launches = 0
 osd_elim.full_launches = 0
 
 
-def osd_elim_percol(packed, synd, *, n: int, r_star: int):
-    """Per-column GF(2) elimination of (W, m, B) int32 packed rows with the
-    (m, B) int32 syndrome augmented.  Returns the arrays of
-    ``eliminate_percol_plain``.  CUDA tensors launch ``csrc/osd_elim.cu``
-    (``osd_elim_percol_launch``) or raise; CPU tensors run
-    ``eliminate_percol_plain``."""
-    if not packed.is_cuda or _kernels.plain_forced():
+def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
+    """Per-column GF(2) elimination of H (rows ``h_packed``) in each shot's
+    column order ``perm`` (B, n) with the (m, B) int32 0/1 syndromes
+    augmented.  Returns the arrays of ``eliminate_percol_plain`` on
+    ``_permute_and_pack``'s matrix.  CUDA tensors launch
+    ``csrc/osd_elim.cu`` (``osd_elim_percol_launch``) or raise; CPU tensors
+    pack and run ``eliminate_percol_plain``."""
+    if not perm.is_cuda or _kernels.plain_forced():
+        packed = _permute_and_pack(_unpack_rows(h_packed, n), perm)
         return eliminate_percol_plain(packed, synd, n=n, r_star=r_star)
-    smem = _check_elim("osd_elim_percol", packed, synd, n, r_star, 0)
-    W, m, B = packed.shape
-    dev = packed.device
+    m, W = h_packed.shape
+    B = perm.shape[0]
+    dev = perm.device
     synd_out = torch.empty((m, B), dtype=torch.int32, device=dev)
     pr = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     ip = torch.zeros((n, B), dtype=torch.int32, device=dev)
     packed_out = torch.empty((W, m, B), dtype=torch.int32, device=dev)
-    fn = _kernels.library("osd_elim").osd_elim_percol_launch
-    fn.argtypes = _elim_argtypes(7, 6)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(packed.data_ptr(), synd.data_ptr(), synd_out.data_ptr(),
-                pr.data_ptr(), pc.data_ptr(), ip.data_ptr(),
-                packed_out.data_ptr(), m, n, W, r_star, B, smem, stream)
-    _kernels.check_launch("osd_elim_percol", rc)
+    _elim_call("osd_elim_percol",
+               _kernels.library("osd_elim").osd_elim_percol_launch, "percol",
+               h_packed, perm, synd, [synd_out, pr, pc, ip, packed_out], n,
+               r_star, 0)
     osd_elim_percol.launches += 1
     return synd_out.gather(0, pr.long()), pr, pc, ip == 1, packed_out
 
@@ -469,15 +608,14 @@ def osd_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     B = syndromes.shape[0]
     perm = torch.sort(posterior_llrs, dim=1, stable=True).indices  # (B, n)
     w = min(_check_osd_order(osd_order), n - r_star, OSD_CS_MAX_ORDER)
-    packed0 = _permute_and_pack(_unpack_rows(h_packed, n), perm)
     synd0 = syndromes.to(torch.int32).t().contiguous()
     if elim == "pallas":
         synd_r, pr, pc, fword, fpos = osd_elim(
-            packed0, synd0, n=n, r_star=r_star, fcap=max(w, 0))
+            h_packed, perm, synd0, n=n, r_star=r_star, fcap=max(w, 0))
         u_piv = synd_r.gather(0, pr.long()).t()                # (B, r*)
     else:
-        u_piv, pr, pc, ip, packed = osd_elim_percol(packed0, synd0, n=n,
-                                                    r_star=r_star)
+        u_piv, pr, pc, ip, packed = osd_elim_percol(h_packed, perm, synd0,
+                                                    n=n, r_star=r_star)
         u_piv = u_piv.t()
     piv_cols = perm.gather(1, pc.t().long())                   # original ids
     cost_piv = cost[piv_cols]                                  # (B, r*)

@@ -76,34 +76,35 @@ def test_elim_kernel_matches_plain(cuda, fcap):
     plan = tod.build_osd_plan(h, np.full(n, 0.03), device=cuda)
     post = torch.randn((40, n), generator=torch.Generator().manual_seed(fcap))
     perm = torch.sort(post.to(cuda), dim=1, stable=True).indices
-    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
     synd = _synd(h, 40, 0.05, fcap).to(cuda, torch.int32).t().contiguous()
-    k = tod.osd_elim(packed, synd, n=n, r_star=plan.rank, fcap=fcap)
+    k = tod.osd_elim(plan.packed, perm, synd, n=n, r_star=plan.rank, fcap=fcap)
+    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
     p = tod.eliminate_plain(packed, synd, n=n, r_star=plan.rank, fcap=fcap)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
 
 
-def _elim_inputs(cuda, seed, B=40):
-    h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
+def _elim_inputs(cuda, seed, B=40, h=None):
+    if h is None:
+        h = load_code(os.path.join(REPO, "codes_lib_tpu", "hgp_34_n225.npz")).hx
     n = h.shape[1]
     plan = tod.build_osd_plan(h, np.full(n, 0.03), device=cuda)
     post = torch.randn((B, n), generator=torch.Generator().manual_seed(seed))
     perm = torch.sort(post.to(cuda), dim=1, stable=True).indices
-    packed = tod._permute_and_pack(tod._unpack_rows(plan.packed, n), perm)
     synd = _synd(h, B, 0.05, seed).to(cuda, torch.int32).t().contiguous()
-    return packed, synd, n, plan.rank
+    return plan.packed, perm, synd, n, plan.rank
 
 
 @pytest.mark.parametrize("fcap", [0, 10, 32])
 def test_elim_full_kernel_matches_plain(cuda, fcap):
     """B7: six outputs, the reduced matrix whole."""
-    packed, synd, n, rank = _elim_inputs(cuda, 100 + fcap)
+    rows, perm, synd, n, rank = _elim_inputs(cuda, 100 + fcap)
     before = tod.osd_elim.full_launches
-    k = tod.osd_elim(packed, synd, n=n, r_star=rank, fcap=fcap, full=True)
+    k = tod.osd_elim(rows, perm, synd, n=n, r_star=rank, fcap=fcap, full=True)
     assert tod.osd_elim.full_launches == before + 1
-    p = tod.eliminate_plain(packed, synd, n=n, r_star=rank, fcap=fcap,
-                            full=True)
+    with _kernels.force_plain():
+        p = tod.osd_elim(rows, perm, synd, n=n, r_star=rank, fcap=fcap,
+                         full=True)
     assert len(k) == len(p) == 6
     for a, b in zip(k, p):
         assert torch.equal(a, b)
@@ -112,13 +113,84 @@ def test_elim_full_kernel_matches_plain(cuda, fcap):
 @pytest.mark.parametrize("B", [40, 1])
 def test_elim_percol_kernel_matches_plain(cuda, B):
     """B10: reduced syndrome at the pivots, pivots, pivot flags, matrix."""
-    packed, synd, n, rank = _elim_inputs(cuda, 7, B)
+    rows, perm, synd, n, rank = _elim_inputs(cuda, 7, B)
     before = tod.osd_elim_percol.launches
-    k = tod.osd_elim_percol(packed, synd, n=n, r_star=rank)
+    k = tod.osd_elim_percol(rows, perm, synd, n=n, r_star=rank)
     assert tod.osd_elim_percol.launches == before + 1
-    p = tod.eliminate_percol_plain(packed, synd, n=n, r_star=rank)
+    with _kernels.force_plain():
+        p = tod.osd_elim_percol(rows, perm, synd, n=n, r_star=rank)
     for a, b in zip(k, p):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _edge_code(name):
+    if name == "ring":  # hgp of ring codes: r* < m
+        return hgp(ring_code(5), ring_code(4)).hx
+    if name == "n225":  # m = 108 and n = 225, neither a multiple of 32
+        return load_code(os.path.join(REPO, "codes_lib_tpu",
+                                      "hgp_34_n225.npz")).hx
+    rng = np.random.default_rng(33)  # m = 33: one bit in the tail word
+    h = (rng.random((33, 70)) < 0.1).astype(np.uint8)
+    h[:, h.sum(0) == 0] = 1
+    return h
+
+
+@pytest.mark.parametrize("threads", [None, 64, 1024])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("fcap", [0, 10, 32])
+@pytest.mark.parametrize("code", ["ring", "n225", "m33"])
+def test_elim_modes_match_plain_at_edge_shapes(cuda, code, fcap, B, threads,
+                                               monkeypatch):
+    """All three modes against their plain versions: r* < m, m and n not
+    multiples of 32, fcap 0, 10 and 32, one shot and a ragged batch, at the
+    layout's threads per shot and at two warps and 1024 threads a shot;
+    B10's pivots and pivot rows are B7's."""
+    h = _edge_code(code)
+    rows, perm, synd, n, rank = _elim_inputs(cuda, fcap + B, B, h)
+    assert code != "ring" or rank < h.shape[0]
+    fcap = min(fcap, n - rank)
+    if threads is not None:
+        orig = tod.elim_layout
+        monkeypatch.setattr(tod, "elim_layout", lambda *a, **k: orig(
+            *a, **k, threads=threads))
+    runs = {
+        "skip": lambda: tod.osd_elim(rows, perm, synd, n=n, r_star=rank,
+                                     fcap=fcap),
+        "full": lambda: tod.osd_elim(rows, perm, synd, n=n, r_star=rank,
+                                     fcap=fcap, full=True),
+        "percol": lambda: tod.osd_elim_percol(rows, perm, synd, n=n,
+                                              r_star=rank)}
+    got = {}
+    for mode, fn in runs.items():
+        got[mode] = fn()
+        with _kernels.force_plain():
+            plain = fn()
+        for a, b in zip(got[mode], plain):
+            assert a.dtype == b.dtype and torch.equal(a, b), mode
+    full, percol = got["full"], got["percol"]
+    assert torch.equal(percol[1], full[1]) and torch.equal(percol[2], full[2])
+    assert torch.equal(tod.pivot_rows(percol[4], percol[1]),
+                       tod.pivot_rows(full[5], full[1]))
+
+
+@pytest.mark.parametrize("fcap", [0, 10])
+def test_elim_modes_match_plain_on_a_tall_matrix(cuda, fcap):
+    """m = 1100 rows: 35 words a column, more than warp 0's window lanes
+    hold, so the walk rescans after every pivot and the other warps clear
+    every column right of it."""
+    rng = np.random.default_rng(1100 + fcap)
+    h = (rng.random((1100, 1180)) < 0.004).astype(np.uint8)
+    h[:, h.sum(0) == 0] = 1
+    rows, perm, synd, n, rank = _elim_inputs(cuda, fcap, 5, h)
+    runs = (lambda: tod.osd_elim(rows, perm, synd, n=n, r_star=rank,
+                                 fcap=fcap, full=True),
+            lambda: tod.osd_elim_percol(rows, perm, synd, n=n, r_star=rank))
+    for fn in runs:
+        got = fn()
+        with _kernels.force_plain():
+            plain = fn()
+        for a, b in zip(got, plain):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("f,w,B,ties", [(325, 10, 256, False),
@@ -166,12 +238,17 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):
         bp_minsum(graph, _synd(h, 8, 0.1, 0).to(cuda).float(), llr, max_iter=5)
     plan = tod.build_osd_plan(h, np.full(h.shape[1], 0.05), device=cuda)
-    packed = torch.zeros((1, h.shape[0], 4), dtype=torch.int32, device=cuda)
+    perm = torch.arange(h.shape[1], device=cuda).repeat(4, 1)
     synd = torch.zeros((h.shape[0], 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        tod.osd_elim(packed, synd, n=h.shape[1], r_star=plan.rank, fcap=33)
+        tod.osd_elim(plan.packed, perm, synd, n=h.shape[1], r_star=plan.rank,
+                     fcap=33)
     with pytest.raises(ValueError):
-        tod.osd_elim_percol(packed[:, :-1], synd, n=h.shape[1], r_star=plan.rank)
+        tod.osd_elim_percol(plan.packed, perm[:-1], synd, n=h.shape[1],
+                            r_star=plan.rank)
+    with pytest.raises(ValueError):
+        tod.osd_elim(plan.packed, perm.int(), synd, n=h.shape[1],
+                     r_star=plan.rank, fcap=0)
     d = torch.zeros((6, 4), device=cuda)
     with pytest.raises(ValueError):
         tcs.cs_sweep(d, torch.zeros((4, 4), device=cuda), torch.zeros(4, device=cuda),

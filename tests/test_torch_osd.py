@@ -48,14 +48,14 @@ def _both(h, probs, post, synd):
     tpacked = tod._permute_and_pack(tod._unpack_rows(tplan.packed, h.shape[1]),
                                     tperm)
     tsynd = torch.from_numpy(synd).to(torch.int32).t().contiguous()
-    return jplan, tplan, jperm, tpacked, tsynd
+    return jplan, tplan, jperm, tperm, tpacked, tsynd
 
 
 @pytest.mark.parametrize("seed,m,n,B", [(0, 12, 24, 8), (1, 33, 70, 16),
                                         (2, 40, 97, 5)])
 def test_plan_and_permute_and_pack_match_jax(seed, m, n, B):
     h, probs, post, synd = _case(seed, m, n, B)
-    jplan, tplan, jperm, tpacked, _ = _both(h, probs, post, synd)
+    jplan, tplan, jperm, _, tpacked, _ = _both(h, probs, post, synd)
     assert tplan.rank == jplan.rank
     assert np.array_equal(tplan.packed.numpy().view(np.uint32),
                           np.asarray(jplan.packed))
@@ -68,10 +68,11 @@ def test_plan_and_permute_and_pack_match_jax(seed, m, n, B):
 @pytest.mark.parametrize("seed,m,n,B", [(3, 14, 40, 16), (4, 30, 75, 9)])
 def test_plain_elimination_matches_jax_twin(seed, m, n, B, fcap):
     h, probs, post, synd = _case(seed, m, n, B)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
     ref = jod._eliminate_blocked_twin(jplan, jperm, jnp.asarray(synd),
                                       fcap=fcap)
-    out = tod.osd_elim(tpacked, tsynd, n=n, r_star=tplan.rank, fcap=fcap)
+    out = tod.osd_elim(tplan.packed, tperm, tsynd, n=n, r_star=tplan.rank,
+                       fcap=fcap)
     for a, b in zip(ref, out):
         assert np.array_equal(np.asarray(a), b.numpy())
 
@@ -82,18 +83,18 @@ def test_full_elimination_matches_jax_twin(seed, m, n, B, fcap):
     """The OSD-CS route: all six outputs, the reduced matrix whole (its
     non-pivot rows agree too, though the decode reads only pivot rows)."""
     h, probs, post, synd = _case(seed, m, n, B)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
     ref = jod._eliminate_blocked_twin(jplan, jperm, jnp.asarray(synd),
                                       fcap=fcap, full=True)
-    out = tod.osd_elim(tpacked, tsynd, n=n, r_star=tplan.rank, fcap=fcap,
-                       full=True)
+    out = tod.osd_elim(tplan.packed, tperm, tsynd, n=n, r_star=tplan.rank,
+                       fcap=fcap, full=True)
     assert len(ref) == len(out) == 6
     for a, b in zip(ref, out):
         assert np.array_equal(np.asarray(a).view(np.int32), b.numpy())
     # the first five outputs are the skip route's; a free panel adds one
     # word per cleared row to the work
-    for a, b in zip(out, tod.osd_elim(tpacked, tsynd, n=n, r_star=tplan.rank,
-                                      fcap=fcap)):
+    for a, b in zip(out, tod.osd_elim(tplan.packed, tperm, tsynd, n=n,
+                                      r_star=tplan.rank, fcap=fcap)):
         assert torch.equal(a, b)
     work = [tod.elimination_work(tpacked, tsynd, n=n, r_star=tplan.rank,
                                  fcap=cap) for cap in (0, fcap)]
@@ -102,7 +103,7 @@ def test_full_elimination_matches_jax_twin(seed, m, n, B, fcap):
 
 def test_full_elimination_matches_tpu_kernel_interpret():
     h, probs, post, synd = _case(12, 14, 40, 16)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
     ref = jod._eliminate_pallas_blocked(jplan, jperm, jnp.asarray(synd),
                                         fcap=8, bt=8, interpret=True,
                                         full=True)
@@ -129,8 +130,9 @@ def test_percol_elimination_matches_jax(seed, m, n, B):
     """``eliminate_percol_plain`` against ``_eliminate``; every output, the
     reduced matrix whole, and it equals the full blocked route's matrix."""
     h, probs, post, synd = _case(seed, m, n, B)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
-    out = tod.osd_elim_percol(tpacked, tsynd, n=n, r_star=tplan.rank)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
+    out = tod.osd_elim_percol(tplan.packed, tperm, tsynd, n=n,
+                              r_star=tplan.rank)
     _same_percol(jod._eliminate(jplan, jperm, jnp.asarray(synd)), out)
     full = tod.eliminate_plain(tpacked, tsynd, n=n, r_star=tplan.rank, fcap=0,
                                full=True)
@@ -142,7 +144,7 @@ def test_percol_elimination_matches_jax(seed, m, n, B):
 
 def test_percol_elimination_matches_tpu_kernel_interpret():
     h, probs, post, synd = _case(13, 14, 40, 16)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
     ref = jod._eliminate_pallas(jplan, jperm, jnp.asarray(synd), bt=8,
                                 interpret=True)
     _same_percol(ref, tod.eliminate_percol_plain(tpacked, tsynd, n=40,
@@ -182,7 +184,7 @@ def test_plain_elimination_matches_tpu_kernel_interpret():
     """As tests/test_osd_device.py runs the blocked kernel: interpret mode,
     bt=8, m=14, n=40, B=16, w=8."""
     h, probs, post, synd = _case(12, 14, 40, 16)
-    jplan, tplan, jperm, tpacked, tsynd = _both(h, probs, post, synd)
+    jplan, tplan, jperm, tperm, tpacked, tsynd = _both(h, probs, post, synd)
     ref = jod._eliminate_pallas_blocked(jplan, jperm, jnp.asarray(synd),
                                         fcap=8, bt=8, interpret=True)
     out = tod.eliminate_plain(tpacked, tsynd, n=40, r_star=tplan.rank, fcap=8)
