@@ -52,8 +52,12 @@ Phases (any failure raises and the script exits non-zero):
      elimination) against their plain versions on phase 4's 256 and 512
      shots: every output bit-exact, the reduced matrix whole; timed, with
      their layouts
- 15. kernel B8 (OSD-CS sweep) against its plain version on those shots'
-     planes (f=325, w=10: 371 candidates per shot): cost and index bit-exact
+ 15. kernel B8 (OSD-CS sweep) on phase 4's 256 shots (f=325, w=10: 371
+     candidates per shot): the launch that builds its planes from the
+     reduced matrix (the main path's) against cs_planes then
+     cs_sweep_plain, and the launch over given planes against
+     cs_sweep_plain; cost and index bit-exact; timed, with the PyTorch
+     plane pass and sweep the main path no longer runs
  16. main path, BPOSD-CS: BP-50 + OSD-CS order 10, p=0.05, 8 batches of 2048
  17. main path, the per-column route: phase 6's OSD-E run (same seed and
      batches) with QLDPC_OSD_ELIM=pallas_percol; its failures and min weight
@@ -87,12 +91,14 @@ Phases (any failure raises and the script exits non-zero):
  24. kernel B5 in both modes against its plain versions: hgp_34_n625,
      B=4096, p=0.01 and 0.05, bf16 and int8 at block_w 8 and 1; count, min
      weight and every shot's converged flag and iterations identical; each
-     mode timed by profiler device time at p=0.01, with its bound
+     mode timed by profiler device time at p=0.01, with its bound; the
+     bf16 mode's layout
  25. main path, fused v2 in both modes: CodeSimulator_DataError(
      fused_sampler="v2") BP-50 p=0.01, 16 batches of 4096, with float
      BPDecoders (bf16) and with BPDecoder(quantize="int8"); only the fused
      kernel launches; bf16 failures within 4 binomial standard errors of
-     phase 12's v1, int8 WER within int8_parity_tolerance of bf16; one batch
+     phase 12's v1, int8 WER within int8_parity_tolerance of bf16, both
+     modes' failures and min weight pinned (BF16_RUNS, INT8_RUNS); one batch
      of each with every kernel replaced by its plain version gives the
      kernel path's failures and min weight
  26. main path, float32: phase 5's run with BPDecoder(bp_kernel="xla"),
@@ -133,8 +139,16 @@ INT8_RUNS = {"21": (212, 3), "25": (231, 3)}
 # OSD, the deepened head) at SEED: the bf16 head's and kernel 1's results,
 # which a change to the min-sum kernels must keep
 # (scripts/ab_minsum_body.py gives them for two checkouts side by side)
+# (phase 16 moved from (923, 6) when OSD-CS's planes took one stated
+# summation order: 11 shots of its 16 sweeps change winner, each between two
+# candidates of equal cost, which float32 rounding ordered; CHANGES.md names
+# them, scripts/ab_cs_sweep.py --ties finds them)
 MINSUM_RUNS = {"5": (187, 2), "22": (187, 2), "26": (184, 2), "6": (941, 6),
-               "16": (923, 6), "17": (941, 6)}
+               "16": (924, 6), "17": (941, 6)}
+# (failures, min weight) of phase 25's bf16 run at SEED: B5 bf16's results,
+# which a change to its kernel must keep (scripts/ab_minsum_body.py gives
+# them for two checkouts side by side)
+BF16_RUNS = {"25": (216, 2)}
 # phases 4 and 14 hold the elimination's three modes at these shots: 256,
 # and the 512-shot straggler tier of phase 6's batches of 2048
 ELIM_SHOTS = (256, 512)
@@ -303,6 +317,34 @@ def elim_layout_text(tod, dev, B: int, m: int, n: int, fcap: int,
             f"{lay.resident} resident per SM, {lay.smem_bytes} B shared memory")
 
 
+def sweep_rows_bound_ms(x, w: int) -> tuple[float, str]:
+    """Least time for B8 with its planes on these inputs (ops/osd_cs_device
+    SweepInputs): per shot the words of its r* pivot rows that hold a free
+    column, the pivot rows' indices and signed costs, the free columns'
+    costs and positions (int64) and the base read once, cost and index
+    written once, against the float32 adds the planes need (one per set
+    bit of T at a free column, one per pivot row with both of a pair's
+    bits set, the free columns' costs) and the sweep's 2 per weight-1
+    candidate and 5 per pair."""
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
+
+    r, B = x.pr.shape
+    f = x.free_perm.shape[0]
+    npairs = w * (w - 1) // 2
+    words = torch.zeros((x.packed.shape[0], B), dtype=torch.bool,
+                        device=x.free_perm.device)
+    words.scatter_(0, x.free_perm >> 5, True)
+    t = tod._reduced_bits(tod.pivot_rows(x.packed, x.pr), x.free_perm)
+    pairs = [(a, b) for a in range(w) for b in range(a + 1, w)]
+    both = sum(int((t[a] & t[b]).sum()) for a, b in pairs)
+    nbytes = (4 * r * int(words.sum()) + 8 * r * B + 12 * f * B + 4 * B
+              + 8 * B)
+    fp_ops = int(t.sum()) + both + f * B + B * (2 * f + 5 * npairs)
+    return roofline_ms(nbytes, 0, fp_ops)
+
+
 def sweep_bound_ms(f: int, w: int, B: int) -> tuple[float, str]:
     """Least time for B8: dplane, the w*(w-1)/2 rows of xflat that the
     pairs read and the base read once, cost and index written once, against
@@ -381,8 +423,8 @@ BF16_EDGE_FP_OPS, BF16_VAR_FP_OPS = 13, 3
 
 def fused_bound_ms(spec, B: int, shot_iters_z: int, shot_iters_x: int,
                    quantize) -> tuple[float, str]:
-    """Least time for B5 in one message mode: graphs (or int8 index
-    planes), the four check adjacencies and the LLRs read once, the per-shot
+    """Least time for B5 in one message mode: the 16-bit planes (or int8
+    index planes), the four check adjacencies and the LLRs read once, the per-shot
     flags and the partials written once, against the integer work of the
     draws (DRAW_OPS each, one per (shot, qubit): the function needs each
     error once, though the int8 mode draws it again for the residual
@@ -394,14 +436,13 @@ def fused_bound_ms(spec, B: int, shot_iters_z: int, shot_iters_x: int,
     n = base.n
     adj = [adjacency_stats(getattr(base, f"{a}_nbr"), getattr(base, f"{a}_mask"))
            for a in ("hx", "hz", "lx", "lz")]
-    if quantize is None:
-        graphs = (spec.graph_z, spec.graph_x)
-        g_bytes = sum(5 * g.chk_nbr.numel() + 9 * g.var_nbr.numel() for g in graphs)
-        edges = [int(g.chk_mask.sum()) for g in graphs]
+    graphs = (spec.sparse_z, spec.sparse_x)
+    if quantize is None:  # the 16-bit planes: check slots, edges and slots
+        g_bytes = sum(2 * g.chk_idx.numel() + 3 * g.var_edge.numel()
+                      for g in graphs)
     else:
-        graphs = (spec.sparse_z, spec.sparse_x)
         g_bytes = sum(8 * g.chk_idx.numel() + 4 * g.var_edge.numel() for g in graphs)
-        edges = [int((g.mask > 0).sum()) for g in graphs]
+    edges = [int((g.mask > 0).sum()) for g in graphs]
     nbytes = (g_bytes + sum(b for b, _ in adj) + 8 * n + 10 * B
               + 8 * (-(-B // 8)))
     (_, e_hx), (_, e_hz), (_, e_lx), (_, e_lz) = adj
@@ -577,6 +618,7 @@ def main() -> int:
                 "osd_elim_full": (tod.osd_elim, "full_launches"),
                 "osd_elim_percol": (tod.osd_elim_percol, "launches"),
                 "cs_sweep": (tcs.cs_sweep, "launches"),
+                "cs_sweep_rows": (tcs.cs_sweep_rows, "launches"),
                 "bp_int8": (bk.bp_head_int8, "launches"),
                 "bp_minsum_bf16": (bk.bp_head_bf16, "launches")}
 
@@ -865,52 +907,81 @@ def main() -> int:
     b7_ms, b7_plain_ms, b7_bound, b7_by = b7_times[256]
     b10_ms, b10_plain_ms, b10_bound, b10_by = b10_times[256]
 
-    # 15. kernel B8 vs its plain version on those shots' planes
+    # 15. kernel B8 on those shots: the launch that builds its planes (the
+    # main path's) and the launch over given planes, each against its plain
+    # version
     order = 10
     cfg = (n, r_star, order, tcs.cs_pat_chunk(n, r_star, order), "pallas")
     B2 = 256
     _, x = tcs.sweep_inputs(cfg, plan.packed, plan.cost, synd[bad[:B2]],
                             k1[2][bad[:B2]], device=dev)
-    f_cs, w_cs = x.dplane.shape[0], min(order, n - r_star)
+    f_cs, w_cs = x.free_perm.shape[0], min(order, n - r_star)
+    rows_args = (x.packed, x.pr, x.signed_piv, x.cost_free, x.free_perm, x.base)
+    sweep_kw = dict(n=n, w=w_cs, pat_chunk=cfg[3])
 
     def run_b8():
-        return tcs.cs_sweep(x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3])
+        return tcs.cs_sweep_rows(*rows_args, **sweep_kw)
 
-    k8 = run_b8()
-    p8 = tcs.cs_sweep_plain(x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3])
+    def run_b8_plain():
+        return tcs.cs_sweep_rows_plain(*rows_args, **sweep_kw)
+
+    k8, p8 = run_b8(), run_b8_plain()
     torch.cuda.synchronize()
     b8_err = float((k8[0] - p8[0]).abs().max())
     if b8_err or not torch.equal(k8[1], p8[1]):  # tolerance 0
-        raise AssertionError("B8 differs from its plain version")
-    b8_ms = device_ms(run_b8, 20, "cs_sweep_kernel")
-    b8_plain_ms = event_ms(lambda: tcs.cs_sweep_plain(
-        x.dplane, x.xflat, x.base, w=w_cs, pat_chunk=cfg[3]), 5)
-    # the library yardstick: the TPU formulation as two cuBLAS products
-    # (selector planes times the per-shot planes) and torch.argmin
+        raise AssertionError("B8 with its planes differs from its plain version")
+    dplane, xflat = tcs.cs_planes(tod.pivot_rows(x.packed, x.pr), x.signed_piv,
+                                  x.cost_free, x.free_perm, n, w_cs)
+
+    def run_b8_given():
+        return tcs.cs_sweep(dplane, xflat, x.base, w=w_cs, pat_chunk=cfg[3])
+
+    kg, pg = run_b8_given(), tcs.cs_sweep_plain(dplane, xflat, x.base, w=w_cs,
+                                                pat_chunk=cfg[3])
+    torch.cuda.synchronize()
+    if float((kg[0] - pg[0]).abs().max()) or not torch.equal(kg[1], pg[1]):
+        raise AssertionError("B8 over given planes differs from its plain "
+                             "version")
+    if not torch.equal(kg[1], k8[1]):
+        raise AssertionError("B8's two launches pick different winners")
+    b8_ms = device_ms(run_b8, 20, "cs_sweep_rows_kernel")
+    b8_given_ms = device_ms(run_b8_given, 20, "cs_sweep_kernel")
+    b8_plain_ms = event_ms(run_b8_plain, 2)
+    # the library yardstick: what the port ran before B8 built its planes,
+    # as PyTorch calls only: the pivot rows gathered, each packed word's
+    # bit planes times the signed costs summed by torch.sum, then the TPU
+    # formulation of the sweep as two cuBLAS products (selector planes times
+    # the per-shot planes) and torch.argmin
     e1t, e2t, *_ = tcs._cs_plane(f_cs, w_cs, 1)
     e1t, e2t = torch.from_numpy(e1t).to(dev), torch.from_numpy(e2t).to(dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)[None, :, None]
 
     def run_b8_library():
-        costs = (e1t @ x.dplane).add_(x.base).sub_(2.0 * (e2t @ x.xflat))
+        rows = tod.pivot_rows(x.packed, x.pr)
+        W, r8, B8 = rows.shape
+        bits = ((rows[:, :, None, :] >> shifts) & 1).to(torch.float32)
+        dcost = (bits * x.signed_piv[None, :, None, :]).sum(dim=1)
+        d = dcost.reshape(W * 32, B8)[:n].gather(0, x.free_perm) + x.cost_free
+        tw = bits.reshape(W, r8, 32, B8).permute(0, 2, 1, 3).reshape(
+            W * 32, r8, B8)[:n].gather(0, x.free_perm[:w_cs, None, :].expand(
+                w_cs, r8, B8))
+        xf = torch.einsum("arb,rb,crb->acb", tw, x.signed_piv, tw).reshape(
+            w_cs * w_cs, B8)
+        costs = (e1t @ d).add_(x.base).sub_(2.0 * (e2t @ xf))
         return costs.argmin(dim=0)
 
     lib_idx = run_b8_library()
-    b8_library_ms = event_ms(run_b8_library, 20)
-    def run_planes():
-        return tcs.cs_planes(x.rows_piv, x.signed_piv, x.cost_free,
-                             x.free_perm, n, w_cs)
-
-    planes_ms, planes_dev_ms = event_ms(run_planes, 5), all_kernels_ms(
-        run_planes, 5)
-    b8_bound, b8_by = sweep_bound_ms(f_cs, w_cs, B2)
-    log(f"[15] B8 == plain (cost and index, f={f_cs}, w={w_cs}, "
-        f"{tcs.cs_sweep_shape(n, r_star, order)[0]} candidates, "
+    b8_library_ms = event_ms(run_b8_library, 5)
+    b8_bound, b8_by = sweep_rows_bound_ms(x, w_cs)
+    b8_given_bound, _ = sweep_bound_ms(f_cs, w_cs, B2)
+    log(f"[15] B8 with its planes == plain (cost and index, f={f_cs}, "
+        f"w={w_cs}, {tcs.cs_sweep_shape(n, r_star, order)[0]} candidates, "
         f"{int((k8[1] > 0).sum())} of {B2} shots flip); kernel {b8_ms:.4f} "
-        f"ms (profiler device time), plain {b8_plain_ms:.3f} ms, library "
-        f"{b8_library_ms:.4f} ms (index agrees on "
-        f"{int((lib_idx == k8[1]).sum())} shots), bound {b8_bound:.5f} ms "
-        f"({b8_by}); the PyTorch dplane/X pass {planes_ms:.3f} ms by events, "
-        f"{planes_dev_ms:.3f} ms of kernel time (profiler)")
+        f"ms (profiler device time), plain {b8_plain_ms:.3f} ms, the "
+        f"PyTorch pass and sweep it replaces {b8_library_ms:.4f} ms (index "
+        f"agrees on {int((lib_idx == k8[1]).sum())} shots), bound "
+        f"{b8_bound:.5f} ms ({b8_by}); B8 over given planes == plain, "
+        f"{b8_given_ms:.4f} ms, bound {b8_given_bound:.5f} ms")
 
     # 16. main path, BPOSD-CS; 17. main path, the per-column route on phase
     # 6's run; counts reset just before each run, read just after
@@ -933,12 +1004,14 @@ def main() -> int:
     log(f"[17] launches {launches_17}")
     for name, count in (("bp_minsum_bf16", launches_16["bp_minsum_bf16"]),
                         ("osd_elim_full", launches_16["osd_elim_full"]),
-                        ("cs_sweep", launches_16["cs_sweep"]),
+                        ("cs_sweep_rows", launches_16["cs_sweep_rows"]),
                         ("osd_elim_percol", launches_17["osd_elim_percol"])):
         if count <= 0:
             raise AssertionError(f"{name} never launched on its main path")
     if launches_17["osd_elim"] or launches_16["osd_elim"]:
         raise AssertionError("the blocked OSD-E kernel ran off its route")
+    if launches_16["cs_sweep"]:
+        raise AssertionError("BPOSD-CS swept given planes: the plane pass ran")
     if run17 != run6:
         raise AssertionError(f"per-column route {run17} != blocked route "
                              f"{run6} (failures, min_w)")
@@ -1260,7 +1333,13 @@ def main() -> int:
                       for a in (k[3], k[2])]
             bound, by = fused_bound_ms(spec24, B24, *si, q)
             waves = ""
-            if q is not None:
+            if q is None:
+                lay = gk.card_fused_layout(spec24, B24)
+                waves = (f"; layout {lay.lanes} shots x "
+                         f"{lay.threads // lay.lanes} threads per block, "
+                         f"{lay.grid} blocks, {lay.resident} resident per SM, "
+                         f"{lay.smem_bytes} B shared memory")
+            else:
                 active = gk.fused_int8_active_clusters(spec24, bw)
                 tiles = B24 // (bw * 32)
                 waves = (f"; {tiles} tiles, {active} clusters at once: "
@@ -1311,6 +1390,9 @@ def main() -> int:
     if tuple(run25q) != INT8_RUNS["25"]:
         raise AssertionError(f"v2 int8 (failures, min_w) {run25q} != "
                              f"{INT8_RUNS['25']}")
+    if tuple(run25) != BF16_RUNS["25"]:
+        raise AssertionError(f"v2 bf16 (failures, min_w) {run25} != "
+                             f"{BF16_RUNS['25']}")
     for tag, kw in (("bf16", {}), ("int8", {"quantize": "int8"})):
         sims = [fused_sim(BPDecoder, 0.01, 4096, "v2", **kw) for _ in range(2)]
         sims[0].WordErrorRate(4096)
@@ -1393,10 +1475,11 @@ def main() -> int:
          "max_abs_err": float(b7_err),
          "ms": b7_ms, "plain_ms": b7_plain_ms, "bound_ms": b7_bound,
          "bound_by": b7_by, "library_ms": None},
+        # B8 as the main path runs it: its planes built in the kernel
         {"name": "cs_sweep", "route": "cuda",
          "source": f"{PKG}/csrc/cs_sweep.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_cs_device.py:215",
-         "launches": launches_16["cs_sweep"], "max_abs_err": b8_err,
+         "launches": launches_16["cs_sweep_rows"], "max_abs_err": b8_err,
          "ms": b8_ms, "plain_ms": b8_plain_ms, "bound_ms": b8_bound,
          "bound_by": b8_by, "library_ms": b8_library_ms},
         {"name": "osd_elim_percol", "route": "cuda",

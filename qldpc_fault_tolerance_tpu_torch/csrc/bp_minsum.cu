@@ -11,7 +11,7 @@
 // Function: per-check top-2 minimum and sign product (with the syndrome
 // sign), scaled check-to-variable messages, variable totals, v2c = total -
 // own c2v, hard decision, parity against the syndrome (minsum_body.cuh,
-// the arithmetic B5's bf16 mode shares).  Each shot's outputs (error,
+// whose per-shot loop B5's bf16 mode runs too).  Each shot's outputs (error,
 // posterior, iterations) are those of its first converged iteration, or of
 // iteration max_iter.
 //   bp_minsum_launch (kernel 1; ops/bp.py bp_decode(method="minimum_sum"),
@@ -35,14 +35,10 @@
 // every SM full of shots, a small one (the two-phase tail) gives each shot
 // up to a whole block, one check and one variable per thread.  A shot's
 // outputs depend only on its syndrome, so the order of the claims changes
-// no bit.  Within a lane, thread r owns checks i = r (mod tpl) and
-// variables j = r (mod tpl).  One iteration is two lane barriers:
-//   variable pass  totals (kept in shared memory), new v2c;   bar.sync
-//   check pass     parity of those totals and, unless it was the last
-//                  iteration, the next check update;          bar.red.or
-// The or-barrier tells every thread whether a check failed; the check
-// update that follows a converged iteration is discarded.  The first check
-// update reads the channel LLRs, and stages the shot's syndrome bits.
+// no bit.  A lane decodes its shot with minsum_body.cuh lane_decode: thread
+// r owns checks i = r (mod tpl) and variables j = r (mod tpl), and one
+// iteration is two lane barriers (a variable pass, then a check pass that
+// takes the parity and the next check update, on an or-barrier).
 //
 // Shared memory: the block's graph, staged once from the host-built planes
 // (ops/bp_kernel.py minsum_planes): each check slot's variable (2 * rw * m
@@ -71,26 +67,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxLanes = 15;  // named barriers 1..15, barrier 0 is the block's
-constexpr int kPad = 0xFFFF;
-
-__device__ __forceinline__ void lane_sync(int lane, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
-}
-
-// lane_sync that returns whether any thread of the lane gave `pred`
-__device__ __forceinline__ bool lane_sync_or(int lane, int count, bool pred) {
-  int any;
-  asm volatile(
-      "{\n\t.reg .pred p, q;\n\t"
-      "setp.ne.s32 p, %1, 0;\n\t"
-      "bar.red.or.pred q, %2, %3, p;\n\t"
-      "selp.s32 %0, 1, 0, q;\n\t}"
-      : "=r"(any)
-      : "r"((int)pred), "r"(lane + 1), "r"(count)
-      : "memory");
-  return any != 0;
-}
+constexpr int kMaxLanes = minsum::kMaxLanes;
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~(size_t)15;
@@ -159,17 +136,13 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   auto llr0 = [&](int b, int v) {
     return llr_per_shot ? __ldg(llr + (size_t)b * n + v) : llr_s[v];
   };
-  // check i's scaled c2v on its live slots (bit s of `live`)
-  auto put_c2v = [&](int i, const minsum::Top2& c, unsigned live) {
-    for (int s = 0; s < rw; ++s)
-      if ((live >> s) & 1u) c2v[s * m + i] = minsum::check_c2v(c, s, scale);
-  };
+  const minsum::Planes g{chk, edge, slot, m, n, rw, cw};
 
   for (int k = 0;; ++k) {
     // the slot alternates, so a claim never overwrites one a thread of the
     // lane may still read
     if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
-    lane_sync(lane, tpl);
+    minsum::lane_sync(lane, tpl);
     const int b = s_shot[lane][k & 1];
     if (b >= B) return;
     uint8_t* err_b = err + (size_t)b * n;
@@ -185,71 +158,11 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
       }
       continue;
     }
-
-    // iteration 1's check update, from the channel LLRs
     const uint8_t* synd_b = synd + (size_t)b * m;
-    for (int i = r; i < m; i += tpl) {
-      const uint8_t sb = synd_b[i];
-      syn[i] = sb;
-      unsigned live = 0u;
-      const minsum::Top2 c = minsum::check_top2(rw, sb, [&](int s, float& x) {
-        const int v = chk[s * m + i];
-        if (v == kPad) return false;
-        live |= 1u << s;
-        x = Msg::load(Msg::store(llr0(b, v)));
-        return true;
-      });
-      put_c2v(i, c, live);
-    }
-    int it = 0;
-    bool bad;
-    for (;;) {
-      lane_sync(lane, tpl);
-      for (int j = r; j < n; j += tpl) {
-        const float total =
-            minsum::var_total<Msg>(llr0(b, j), cw, [&](int t, float& c, int& s) {
-              const int e = edge[t * n + j];
-              if (e == kPad) return false;
-              s = Msg::kBf16 ? slot[t * n + j] : 0;
-              c = c2v[e];
-              return true;
-            });
-        const float t_e = minsum::gather_total<Msg>(total);
-        for (int t = 0; t < cw; ++t) {
-          const int e = edge[t * n + j];
-          if (e != kPad) v2c[e] = Msg::store(t_e - c2v[e]);
-        }
-        tot[j] = total;
-      }
-      ++it;
-      lane_sync(lane, tpl);
-      // each check's parity of these totals and, unless this was the last
-      // iteration, its next check update, in one walk over its slots
-      bool fail = false;
-      for (int i = r; i < m; i += tpl) {
-        const bool sb = syn[i];
-        unsigned par = sb, live = 0u;
-        if (it < max_iter) {
-          const minsum::Top2 c = minsum::check_top2(rw, sb, [&](int s, float& x) {
-            const int e = s * m + i, v = chk[e];
-            if (v == kPad) return false;
-            live |= 1u << s;
-            par ^= minsum::gather_total<Msg>(tot[v]) < 0.f;
-            x = Msg::load(v2c[e]);
-            return true;
-          });
-          put_c2v(i, c, live);
-        } else {
-          for (int s = 0; s < rw; ++s) {
-            const int v = chk[s * m + i];
-            if (v != kPad) par ^= minsum::gather_total<Msg>(tot[v]) < 0.f;
-          }
-        }
-        fail |= (par & 1u) != 0u;
-      }
-      bad = lane_sync_or(lane, tpl, fail);
-      if (!bad || it == max_iter) break;
-    }
+    int it;
+    const bool bad = minsum::lane_decode<Msg>(
+        g, [&](int i) { return synd_b[i]; }, [&](int v) { return llr0(b, v); },
+        c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it);
     // the totals of the last iteration, each read by the thread that wrote it
     for (int j = r; j < n; j += tpl) {
       const float t = tot[j];

@@ -1,7 +1,8 @@
-// The scaled min-sum arithmetic of one check and of one variable, shared by
-// the min-sum kernels (bp_minsum.cu: kernel 1 and the bf16 head) and the
-// whole-pipeline fused decode (fused_decode.cu), so all run one copy of it;
-// and decode(), the fused decode's loop over a block of shots.
+// The scaled min-sum arithmetic of one check and of one variable, and the
+// loop that decodes one shot on a lane of warps, shared by the min-sum
+// kernels (bp_minsum.cu: kernel 1 and the bf16 head) and the
+// whole-pipeline fused decode's bf16 mode (fused_decode.cu), so all run one
+// copy of it.
 //
 // Function: ops/bp.py bp_decode(method="minimum_sum"): per-check top-2
 // minimum and sign product (with the syndrome sign), scaled
@@ -19,8 +20,8 @@
 //           v2c; the total starts from llr0 and adds, slot after slot, the
 //           float32 sum of that slot's bf16-rounded c2v in list order (the
 //           caller passes variable lists sorted by slot, then check:
-//           ops/bp_kernel.py slot_ordered_graph or minsum_planes); v2c =
-//           bf16(bf16(total) - c2v) and parity reads bf16(total).
+//           ops/bp_kernel.py minsum_planes); v2c = bf16(bf16(total) - c2v)
+//           and parity reads bf16(total).
 // c2v is float32 in both.
 //
 // Bit-exactness: one check's top-2 and sign product are computed by one
@@ -52,8 +53,28 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-constexpr int kMaxLanes = 8;
 constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
+constexpr int kMaxLanes = 15;  // named barriers 1..15, barrier 0 is the block's
+constexpr int kPad = 0xFFFF;   // a padded entry of the 16-bit planes
+
+// the named barrier of lane `lane`, `count` threads (whole warps)
+__device__ __forceinline__ void lane_sync(int lane, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
+}
+
+// lane_sync that returns whether any thread of the lane gave `pred`
+__device__ __forceinline__ bool lane_sync_or(int lane, int count, bool pred) {
+  int any;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\t"
+      "selp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(any)
+      : "r"((int)pred), "r"(lane + 1), "r"(count)
+      : "memory");
+  return any != 0;
+}
 
 // A check's state after its v2c: the two smallest magnitudes (kBig for
 // padding), the slot of the first, each live slot's negative sign as a bit,
@@ -141,115 +162,107 @@ __device__ __forceinline__ float gather_total(float total) {
   return Msg::kBf16 ? bf16_round(total) : total;
 }
 
-// Padded Tanner-graph adjacency (ops/bp.py TannerGraph), in device memory.
-struct Graph {
-  const int32_t* chk_nbr;   // (m, rw)
-  const uint8_t* chk_mask;  // (m, rw)
-  const int32_t* var_nbr;   // (n, cw)
-  const int32_t* var_slot;  // (n, cw)
-  const uint8_t* var_mask;  // (n, cw)
+// The graph as the kernels stage it in shared memory (ops/bp_kernel.py
+// minsum_planes): edge s * m + i is check i's slot-s edge.
+struct Planes {
+  const uint16_t* chk;   // (rw, m): the variable of each edge, kPad if none
+  const uint16_t* edge;  // (cw, n): variable j's t-th edge in summation order
+  const uint8_t* slot;   // (cw, n): that edge's slot (Bf16Msg only)
   int m, n, rw, cw;
 };
 
-// Per-shot decode state in shared memory, one entry per lane.
-struct LaneState {
-  int* done;   // converged (or not a shot of the batch)
-  int* bad;    // parity failed this iteration
-  int* iters;  // iteration of first convergence, max_iter if none
-};
-
-// The fused decode's loop: a block's `lanes` shots in lockstep.  Messages
-// are edge-major and shot-minor (v2c and c2v at [e * lanes + lane], edge
-// i * rw + s), hard decisions at [j * lanes + lane] (total < 0 in bit 0,
-// the sign the parity pass reads in bit 1).  Thread t works for shot
-// t % lanes on row t / lanes; the rows split the checks and the variables
-// between barriers.  Each shot freezes at its first convergence and does
-// no further work; the loop ends when all have.  Io supplies the shot's
-// syndrome bit synd(i) and channel LLR llr0(j).  Every thread of the block
-// must call decode(): it synchronises the block.
-template <class Msg, class Io>
-__device__ void decode(const Graph& g, Io& io, typename Msg::T* v2c,
-                       float* c2v, uint8_t* hard, LaneState st, int lanes,
-                       int lane, int row, int rows, bool valid, int max_iter,
-                       float scale) {
+// One shot's decode, max_iter >= 1 iterations at most, on a lane of `tpl`
+// threads (whole warps) with its own named barrier; thread r of the lane
+// owns checks i = r (mod tpl) and variables j = r (mod tpl).  synd(i) gives
+// check i's syndrome bit (called once, by check i's thread, and kept in
+// syn) and llr0(j) variable j's channel LLR.  Per lane shared memory holds
+// c2v at [s * m + i] (4 bytes per edge), v2c at the same index, the totals
+// (4 * n) and the syndrome (m).  One iteration is two lane barriers:
+//   variable pass  totals (kept in shared memory), new v2c;   lane_sync
+//   check pass     parity of those totals and, unless it was the last
+//                  iteration, the next check update;          lane_sync_or
+// The or-barrier tells every thread whether a check failed; the check
+// update that follows a converged iteration is discarded.  The first check
+// update reads the channel LLRs.  Returns whether the last iteration's
+// parity failed, with its number in `it`; tot then holds that iteration's
+// totals, which each thread may read back for its own variables without a
+// barrier.  c2v, v2c and syn are free on return (the last barrier followed
+// every read of them); tot once the lane has passed its next barrier.
+template <class Msg, class Synd, class Llr>
+__device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
+                                            Llr llr0, float* c2v,
+                                            typename Msg::T* v2c, float* tot,
+                                            uint8_t* syn, int max_iter,
+                                            float scale, int lane, int r,
+                                            int tpl, int& it) {
   const int m = g.m, n = g.n, rw = g.rw, cw = g.cw;
-  const int E = m * rw;
-  if (row == 0) {
-    st.done[lane] = valid ? 0 : 1;
-    st.bad[lane] = 0;
-    st.iters[lane] = max_iter;
-  }
-  if (valid) {
-    for (int e = row; e < E; e += rows)
-      v2c[e * lanes + lane] = Msg::store(io.llr0(g.chk_nbr[e]));
-    for (int j = row; j < n; j += rows) hard[j * lanes + lane] = 0;
-  }
-  __syncthreads();
+  // check i's scaled c2v on its live slots (bit s of `live`)
+  auto put_c2v = [&](int i, const Top2& c, unsigned live) {
+    for (int s = 0; s < rw; ++s)
+      if ((live >> s) & 1u) c2v[s * m + i] = check_c2v(c, s, scale);
+  };
 
-  for (int it = 0; it < max_iter; ++it) {
-    if (__syncthreads_and(st.done[lane])) break;
-    const bool active = !st.done[lane];
-
-    // check pass
-    if (active) {
-      for (int i = row; i < m; i += rows) {
-        const Top2 c = check_top2(rw, io.synd(i), [&](int s, float& x) {
-          const int e = i * rw + s;
-          if (!g.chk_mask[e]) return false;
-          x = Msg::load(v2c[e * lanes + lane]);
+  // iteration 1's check update, from the channel LLRs
+  for (int i = r; i < m; i += tpl) {
+    const uint8_t sb = synd(i);
+    syn[i] = sb;
+    unsigned live = 0u;
+    const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
+      const int v = g.chk[s * m + i];
+      if (v == kPad) return false;
+      live |= 1u << s;
+      x = Msg::load(Msg::store(llr0(v)));
+      return true;
+    });
+    put_c2v(i, c, live);
+  }
+  it = 0;
+  bool bad;
+  for (;;) {
+    lane_sync(lane, tpl);
+    for (int j = r; j < n; j += tpl) {
+      const float total = var_total<Msg>(llr0(j), cw, [&](int t, float& c, int& s) {
+        const int e = g.edge[t * n + j];
+        if (e == kPad) return false;
+        s = Msg::kBf16 ? g.slot[t * n + j] : 0;
+        c = c2v[e];
+        return true;
+      });
+      const float t_e = gather_total<Msg>(total);
+      for (int t = 0; t < cw; ++t) {
+        const int e = g.edge[t * n + j];
+        if (e != kPad) v2c[e] = Msg::store(t_e - c2v[e]);
+      }
+      tot[j] = total;
+    }
+    ++it;
+    lane_sync(lane, tpl);
+    // each check's parity of these totals and, unless this was the last
+    // iteration, its next check update, in one walk over its slots
+    bool fail = false;
+    for (int i = r; i < m; i += tpl) {
+      const bool sb = syn[i];
+      unsigned par = sb, live = 0u;
+      if (it < max_iter) {
+        const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
+          const int e = s * m + i, v = g.chk[e];
+          if (v == kPad) return false;
+          live |= 1u << s;
+          par ^= gather_total<Msg>(tot[v]) < 0.f;
+          x = Msg::load(v2c[e]);
           return true;
         });
+        put_c2v(i, c, live);
+      } else {
         for (int s = 0; s < rw; ++s) {
-          const int e = i * rw + s;
-          c2v[e * lanes + lane] = g.chk_mask[e] ? check_c2v(c, s, scale) : 0.f;
+          const int v = g.chk[s * m + i];
+          if (v != kPad) par ^= gather_total<Msg>(tot[v]) < 0.f;
         }
       }
+      fail |= (par & 1u) != 0u;
     }
-    __syncthreads();
-
-    // variable pass: the totals, then v2c = total - own c2v
-    if (active) {
-      for (int j = row; j < n; j += rows) {
-        const int* nbr = g.var_nbr + j * cw;
-        const int* slot = g.var_slot + j * cw;
-        const uint8_t* live = g.var_mask + j * cw;
-        const float total = var_total<Msg>(io.llr0(j), cw, [&](int t, float& c, int& s) {
-          if (!live[t]) return false;
-          s = slot[t];
-          c = c2v[(nbr[t] * rw + s) * lanes + lane];
-          return true;
-        });
-        const float t_e = gather_total<Msg>(total);
-        for (int t = 0; t < cw; ++t) {
-          if (!live[t]) continue;
-          const int e = nbr[t] * rw + slot[t];
-          v2c[e * lanes + lane] = Msg::store(t_e - c2v[e * lanes + lane]);
-        }
-        hard[j * lanes + lane] = (total < 0.f ? 1 : 0) | (t_e < 0.f ? 2 : 0);
-      }
-    }
-    __syncthreads();
-
-    // parity pass: the hard decision must reproduce every syndrome bit
-    if (active) {
-      for (int i = row; i < m; i += rows) {
-        unsigned par = io.synd(i);
-        for (int s = 0; s < rw; ++s) {
-          const int e = i * rw + s;
-          if (g.chk_mask[e]) par ^= hard[g.chk_nbr[e] * lanes + lane] >> 1;
-        }
-        if (par & 1u) st.bad[lane] = 1;
-      }
-    }
-    __syncthreads();
-    if (row == 0 && active) {
-      if (!st.bad[lane]) {
-        st.done[lane] = 1;
-        st.iters[lane] = it + 1;
-      }
-      st.bad[lane] = 0;
-    }
-    __syncthreads();
+    bad = lane_sync_or(lane, tpl, fail);
+    if (!bad || it == max_iter) return bad;
   }
 }
 

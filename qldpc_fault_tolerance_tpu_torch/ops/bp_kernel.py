@@ -154,10 +154,10 @@ def minsum_plain(graph, synd_bl, llr0_bl, max_iter: int, scale: float):
 SMEM_LIMIT = 232448
 SM_SMEM = 233472
 SM_THREADS = 2048
-MAX_LANES = 8  # shots per block of the fused decode (gf2_kernel.py)
 
-# csrc/bp_minsum.cu: at most 15 shots per block (one named barrier each) and
-# 1024 threads; index planes hold uint16 with 0xFFFF for padding
+# csrc/bp_minsum.cu (and B5's bf16 mode, csrc/fused_decode.cu): at most 15
+# shots per block (one named barrier each) and 1024 threads; index planes
+# hold uint16 with 0xFFFF for padding
 MINSUM_MAX_LANES = 15
 MINSUM_MAX_THREADS = 1024
 PAD16 = 0xFFFF
@@ -258,42 +258,55 @@ class MinsumLayout(NamedTuple):
     resident: int    # blocks per SM by threads and shared memory
 
 
-def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
-                  sm_count: int, llr_shared: bool = True,
-                  lanes: int | None = None) -> MinsumLayout:
-    """The launch of csrc/bp_minsum.cu for a batch of B shots.
+def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
+                lanes: int | None = None, limit: int = SMEM_LIMIT,
+                what: str = "the min-sum kernels",
+                items: int = MINSUM_ITEMS) -> MinsumLayout:
+    """The launch of a kernel whose lanes of warps each decode one shot and
+    refill from a claim counter (csrc/bp_minsum.cu, csrc/fused_decode.cu),
+    for a batch of B shots: ``fixed`` bytes of shared memory staged per
+    block, ``per_shot`` per lane, ``rows`` the larger of a shot's checks and
+    variables, ``limit`` the dynamic shared memory a block may take.
 
     A block holds ``lanes`` shots at once, each on ``threads / lanes``
     threads (1024 / lanes in whole warps, at most one check and one
     variable per thread).  A large batch fills the block with shots of at
-    most five checks and five variables per thread (MINSUM_ITEMS), and its
-    lanes refill as shots converge; a smaller one takes one shot per block
-    for every MINSUM_SPREAD shots per SM, so a two-phase tail gives each
-    straggler up to a whole block.  At most 15 shots and what the block's
+    most ``items`` checks and ``items`` variables per thread (MINSUM_ITEMS
+    for the min-sum kernels), and its lanes refill as shots converge; a
+    smaller one takes one shot per block for every MINSUM_SPREAD shots per
+    SM, so a two-phase tail gives each straggler up to a whole block.  At most 15 shots and what the block's
     shared memory holds; ``lanes`` fixes the shots per block instead.  The
     grid is the blocks the batch needs, at most ``resident`` (by threads
     and shared memory; the wrapper lowers it to what the card reports,
     registers included) per SM."""
+    cap = min(MINSUM_MAX_LANES, (limit - fixed) // per_shot)
+    if cap < 1:
+        raise ValueError(f"{what}: one shot's messages and planes "
+                         f"({fixed + per_shot} bytes) exceed {limit} "
+                         f"bytes of shared memory")
+    if lanes is None:
+        full = max(1, items * MINSUM_MAX_THREADS // rows)
+        lanes = max(1, min(cap, full, -(-B // (MINSUM_SPREAD * sm_count))))
+    if not 1 <= lanes <= cap:
+        raise ValueError(f"{what} hold 1..{cap} shots per block")
+    per_lane = min(-(-rows // 32) * 32, MINSUM_MAX_THREADS // lanes // 32 * 32)
+    threads = lanes * per_lane
+    smem = fixed + lanes * per_shot
+    resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
+    grid = max(1, min(-(-B // lanes), sm_count * resident))
+    return MinsumLayout(lanes, threads, grid, smem, resident)
+
+
+def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
+                  sm_count: int, llr_shared: bool = True,
+                  lanes: int | None = None) -> MinsumLayout:
+    """The launch of csrc/bp_minsum.cu for a batch of B shots
+    (``lane_layout`` with its shared memory, ``minsum_smem_bytes``)."""
     if not 1 <= rw <= 32:
         raise ValueError(f"the min-sum kernels take row weights 1..32, got {rw}")
     fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
     per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
-    cap = min(MINSUM_MAX_LANES, (SMEM_LIMIT - fixed) // per_shot)
-    if cap < 1:
-        raise ValueError(f"the min-sum kernels: one shot's messages and planes "
-                         f"({fixed + per_shot} bytes) exceed {SMEM_LIMIT} "
-                         f"bytes of shared memory")
-    if lanes is None:
-        full = max(1, MINSUM_ITEMS * MINSUM_MAX_THREADS // max(m, n))
-        lanes = max(1, min(cap, full, -(-B // (MINSUM_SPREAD * sm_count))))
-    if not 1 <= lanes <= cap:
-        raise ValueError(f"the min-sum kernels hold 1..{cap} shots per block")
-    per_lane = min(-(-max(m, n) // 32) * 32, MINSUM_MAX_THREADS // lanes // 32 * 32)
-    threads = lanes * per_lane
-    smem = minsum_smem_bytes(lanes, m, n, rw, cw, bf16, llr_shared)
-    resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
-    grid = max(1, min(-(-B // lanes), sm_count * resident))
-    return MinsumLayout(lanes, threads, grid, smem, resident)
+    return lane_layout(B, fixed, per_shot, max(m, n), sm_count, lanes)
 
 
 @functools.lru_cache(maxsize=None)

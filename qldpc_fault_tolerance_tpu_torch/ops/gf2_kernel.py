@@ -30,6 +30,7 @@ values masked to 32 bits, and packed words are int32 bit patterns.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -37,15 +38,19 @@ import torch
 
 from ..utils.device import resolve_device
 from . import _kernels
-from .bp import TannerGraph, build_tanner_graph_host, graph_to
+from .bp import build_tanner_graph_host
 from .bp_kernel import (
-    MAX_LANES,
     SMEM_LIMIT,
+    MinsumLayout,
     SparseHeadGraph,
+    _align16,
+    _planes_of,
+    _sm_count,
     build_sparse_head,
+    lane_layout,
     minsum_dense_plain,
     minsum_int8_plain,
-    slot_ordered_graph,
+    minsum_smem_bytes,
 )
 from .gf2_packed import (
     num_words,
@@ -76,7 +81,9 @@ __all__ = [
     "residual_check_plain",
     "fused_decode_stats",
     "fused_decode_plain",
-    "fused_block_lanes",
+    "fused_smem_bytes",
+    "fused_layout",
+    "card_fused_layout",
     "estimate_fused_decode_bytes",
     "fused_decode_block_w",
     "fused_int8_smem_bytes",
@@ -175,29 +182,25 @@ def build_fused_spec(hx, hz, lx, lz, pauli_error_probs,
 
 class FusedDecodeSpec(NamedTuple):
     """The fused-decode pipeline's tensors: ``base`` plus, for each sector,
-    its Tanner graph with slot-ordered variable lists (``slot_ordered_graph``,
-    the bf16 mode's scatter order), its int8 index planes and its channel
-    LLRs ((n,) float32)."""
+    its channel LLRs ((n,) float32) and its head's index planes, which both
+    message modes decode over (the bf16 mode through their 16-bit planes,
+    ``bp_kernel.minsum_planes``)."""
 
     base: FusedSpec
-    graph_z: TannerGraph    # of hx: decodes syndrome_z
-    graph_x: TannerGraph    # of hz: decodes syndrome_x
     llr_z: torch.Tensor
     llr_x: torch.Tensor
-    sparse_z: SparseHeadGraph
-    sparse_x: SparseHeadGraph
+    sparse_z: SparseHeadGraph   # of hx: decodes syndrome_z
+    sparse_x: SparseHeadGraph   # of hz: decodes syndrome_x
 
     @property
     def statics(self) -> tuple:
         """``(n, mx, mz, rwz, rwx)``, the JAX spec's ``_decode_statics``."""
-        (mx, rwz), (mz, rwx) = (self.graph_z.chk_nbr.shape,
-                                self.graph_x.chk_nbr.shape)
-        return self.base.n, mx, mz, rwz, rwx
+        z, x = self.sparse_z, self.sparse_x
+        return self.base.n, z.m, x.m, z.rw, x.rw
 
 
-def _sector_graphs(h, dev):
-    g = build_tanner_graph_host(h)
-    return graph_to(slot_ordered_graph(g), dev), build_sparse_head(g, dev)
+def _sector_head(h, dev):
+    return build_sparse_head(build_tanner_graph_host(h), dev)
 
 
 def build_fused_decode_spec(hx, hz, lx, lz, pauli_error_probs, llr_x, llr_z,
@@ -212,8 +215,9 @@ def build_fused_decode_spec(hx, hz, lx, lz, pauli_error_probs, llr_x, llr_z,
             v = v.cpu().numpy()
         return torch.from_numpy(np.array(v, np.float32).reshape(-1)).to(dev)
 
-    (gz, sz), (gx, sx) = _sector_graphs(_gf2(hx), dev), _sector_graphs(_gf2(hz), dev)
-    return FusedDecodeSpec(base, gz, gx, llr(llr_z), llr(llr_x), sz, sx)
+    return FusedDecodeSpec(base, llr(llr_z), llr(llr_x),
+                           _sector_head(_gf2(hx), dev),
+                           _sector_head(_gf2(hz), dev))
 
 
 def fused_spec_from_jax(jspec, device="cuda"):
@@ -234,11 +238,10 @@ def fused_spec_from_jax(jspec, device="cuda"):
                     and np.array_equal(g.chk_mask.T, np.asarray(mask) != 0)):
                 raise ValueError("JAX spec's BP incidence differs from its "
                                  "parity-check matrix")
-            sectors.append(_sector_graphs(h, base.device))
-        (gz, sz), (gx, sx) = sectors
+            sectors.append(_sector_head(h, base.device))
         llr_z, llr_x = (torch.from_numpy(np.array(v, np.float32).reshape(-1))
                         .to(base.device) for v in (jspec.llr_z, jspec.llr_x))
-        return FusedDecodeSpec(base, gz, gx, llr_z, llr_x, sz, sx)
+        return FusedDecodeSpec(base, llr_z, llr_x, *sectors)
     dev = resolve_device(device)
     hx = _gf2(np.asarray(jspec.hx_t).T)
     hz = _gf2(np.asarray(jspec.hz_t).T)
@@ -522,18 +525,86 @@ def residual_check_stats(spec: FusedSpec, key, batch_size: int, corx_p,
 residual_check_stats.launches = 0
 
 
-def fused_block_lanes(n: int, mx: int, rwz: int, mz: int,
-                      rwx: int) -> tuple[int, int]:
-    """``(shots per block, shared-memory bytes)`` of the bf16 fused decode:
-    8 shots, halved until the larger sector's messages (6 bytes per edge
-    per shot: bf16 v2c and float32 c2v), the hard decisions, both error
-    planes and a syndrome plane fit in shared memory (less 1 KB for the
-    kernel's static arrays); 0 shots when not even one fits."""
-    per_shot = 6 * max(mx * rwz, mz * rwx) + 3 * n + max(mx, mz)
-    lanes = MAX_LANES
-    while lanes and lanes * per_shot > SMEM_LIMIT - 1024:
-        lanes //= 2
-    return lanes, lanes * per_shot
+# shared memory of the bf16 fused kernel's static arrays, rounded up
+_FUSED_STATIC = 1024
+# a full block's shots get at most 2 checks and 2 variables per thread
+# (bp_kernel.lane_layout's ``items``): a fused shot is a chain of short
+# passes (sampling, syndromes, a few iterations per sector, residual
+# checks) whose latency falls with threads per shot.  From
+# scripts/ab_minsum_body.py --sweep on an H100 (PERF.md): at hgp_34_n625,
+# 4096 shots, 3 shots per block (2 items) ran in 0.297 ms, 4 (3 items) in
+# 0.372 and the min-sum kernels' 8 (5 items) in 0.459.
+FUSED_ITEMS = 2
+
+
+def fused_smem_bytes(lanes: int, n: int, mx: int, rwz: int, cwz: int,
+                     mz: int, rwx: int, cwx: int) -> int:
+    """Dynamic shared memory of the bf16 fused decode (csrc/fused_decode.cu)
+    for ``lanes`` shots per block: both sectors' staged planes and channel
+    LLRs (the Z sector decodes over hx: mx checks of weight rwz, variables
+    of weight cwz), then per shot the larger sector's c2v and v2c, the
+    totals, the syndrome and both error planes, each rounded up to 16
+    bytes."""
+    staged = sum(minsum_smem_bytes(0, m, n, rw, cw, True) for m, rw, cw in
+                 ((mx, rwz, cwz), (mz, rwx, cwx)))
+    e = max(mx * rwz, mz * rwx)
+    per_shot = (_align16(4 * e) + _align16(2 * e) + _align16(4 * n)
+                + _align16(max(mx, mz)) + 2 * _align16(n))
+    return staged + lanes * per_shot
+
+
+def fused_layout(B: int, n: int, mx: int, rwz: int, cwz: int, mz: int,
+                 rwx: int, cwx: int, sm_count: int,
+                 lanes: int | None = None) -> MinsumLayout:
+    """The launch of the bf16 fused decode for a batch of B shots: the
+    min-sum kernels' rule (``bp_kernel.lane_layout``: shots per block,
+    threads per shot, grid from the batch) at FUSED_ITEMS items per thread,
+    over the fused kernel's shared memory, less its static arrays; raises
+    ``ValueError`` where not one shot fits."""
+    if not (1 <= rwz <= 32 and 1 <= rwx <= 32):
+        raise ValueError(f"fused decode takes row weights 1..32, got "
+                         f"{rwz} and {rwx}")
+    if max(mx * rwz, mz * rwx) >= 0xFFFF or n >= 0xFFFF:
+        raise ValueError("the fused decode numbers edges and variables with "
+                         "16 bits")
+    shape = (n, mx, rwz, cwz, mz, rwx, cwx)
+    fixed = fused_smem_bytes(0, *shape)
+    return lane_layout(B, fixed, fused_smem_bytes(1, *shape) - fixed,
+                       max(mx, mz, n), sm_count, lanes,
+                       SMEM_LIMIT - _FUSED_STATIC, "fused decode", FUSED_ITEMS)
+
+
+def _fused_shape(spec) -> tuple:
+    """``(n, mx, rwz, cwz, mz, rwx, cwx)`` of a FusedDecodeSpec."""
+    z, x = spec.sparse_z, spec.sparse_x
+    return (spec.base.n, z.m, z.rw, z.var_edge.shape[1], x.m, x.rw,
+            x.var_edge.shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_resident(index: int, threads: int, smem_bytes: int) -> int:
+    fn = _kernels.library("fused_decode").fused_decode_resident
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(threads, smem_bytes, ctypes.addressof(blocks))
+    _kernels.check_launch("fused_decode_resident", rc)
+    return blocks.value
+
+
+def card_fused_layout(spec: FusedDecodeSpec, batch_size: int) -> MinsumLayout:
+    """``fused_layout`` on the spec's CUDA device: its SM count, and the
+    grid lowered to the blocks the card holds at once."""
+    dev = spec.base.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lay = fused_layout(batch_size, *_fused_shape(spec), _sm_count(index))
+    held = _fused_resident(index, lay.threads, lay.smem_bytes)
+    if held < 1:
+        raise ValueError(f"fused decode: a block of {lay.threads} threads "
+                         f"and {lay.smem_bytes} bytes does not fit")
+    return lay._replace(grid=min(lay.grid, _sm_count(index) * held),
+                        resident=held)
 
 
 # the int8 fused decode: blocks of 32 shots, a tile's blocks one cluster
@@ -563,19 +634,6 @@ def fused_int8_staged(n: int, mx: int, rwz: int, mz: int, rwx: int) -> bool:
     memory."""
     return (n < 1 << 15 and fused_int8_smem_bytes(n, mx, rwz, mz, rwx, True)
             + _INT8_FUSED_STATIC <= SMEM_LIMIT)
-
-
-def _graph_args(g: TannerGraph, dev) -> list:
-    for t in g[:6]:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("fused decode graphs must be contiguous on "
-                             f"{dev}")
-    m, rw = g.chk_nbr.shape
-    cw = g.var_nbr.shape[1]
-    if not 1 <= rw <= 32:
-        raise ValueError(f"fused decode takes row weights 1..32, got {rw}")
-    return [g.chk_nbr.data_ptr(), g.chk_mask.data_ptr(), g.var_nbr.data_ptr(),
-            g.var_nbr_slot.data_ptr(), g.var_mask.data_ptr(), m, rw, cw]
 
 
 def _sparse_args(sg: SparseHeadGraph, dev) -> list:
@@ -616,19 +674,24 @@ def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
                   scale):
     base = spec.base
     dev = base.device
-    gz, gx = _graph_args(spec.graph_z, dev), _graph_args(spec.graph_x, dev)
-    lanes, smem = fused_block_lanes(base.n, gz[5], gz[6], gx[5], gx[6])
-    if not lanes:
-        raise ValueError("fused decode: one shot's messages and planes exceed "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    outs = _fused_outputs(spec, batch_size, batch_size // lanes)
+    for sparse in (spec.sparse_z, spec.sparse_x):
+        _sparse_args(sparse, dev)  # device, contiguity, row weight
+    lay = card_fused_layout(spec, batch_size)
+    outs = _fused_outputs(spec, batch_size, lay.grid)
+    claims = torch.zeros((1,), dtype=torch.int32, device=dev)
+    planes = []
+    for sparse, llr in ((spec.sparse_z, spec.llr_z), (spec.sparse_x, spec.llr_x)):
+        p = _planes_of(sparse)
+        planes += [p.chk.data_ptr(), p.edge.data_ptr(), p.slot.data_ptr(),
+                   llr.data_ptr(), sparse.m, sparse.rw, p.edge.shape[0]]
     _call("fused_decode", "fused_decode_launch",
-          [_U] * 5 + ([_P] * 5 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
-          + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 6,
-          [*_key_and_cuts(base, key), *gz, *gx, *_adj(base, "lx"),
-           *_adj(base, "lz"), spec.llr_z.data_ptr(), spec.llr_x.data_ptr(),
-           base.n, max_iter_z, max_iter_x, scale, eval_code, batch_size,
-           lanes, smem, *(t.data_ptr() for t in outs)], dev)
+          [_U] * 5 + ([_P] * 4 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
+          + [_I, _I, _I, _F, _I, _I, _I, _I, _I, _I] + [_P] * 7,
+          [*_key_and_cuts(base, key), *planes, *_adj(base, "lx"),
+           *_adj(base, "lz"), base.n, max_iter_z, max_iter_x, scale,
+           eval_code, batch_size, lay.lanes, lay.threads // lay.lanes,
+           lay.grid, lay.smem_bytes, *(t.data_ptr() for t in outs),
+           claims.data_ptr()], dev)
     fused_decode_stats.launches += 1
     return _fused_result(outs)
 

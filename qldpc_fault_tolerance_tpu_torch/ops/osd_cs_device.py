@@ -14,17 +14,22 @@ free panel T (r*, f) is never materialized per candidate:
 
 with ``s_i = cost_piv_i * (1 - 2*u_i)`` the signed pivot costs.  For flips
 {j}: ``cost = base + dplane[j]``; for {a, b}: ``cost = base + dplane[a] +
-dplane[b] - 2*X[a, b]``.  Both planes are plain PyTorch here, computed word
-by word over the reduced pivot rows without a matrix product (no TF32 can
-reach them); their sums run in another order than XLA's, so the decode is
-held against the JAX package by the float32 cost-tie contract.
+dplane[b] - 2*X[a, b]``.  Each plane entry is a float32 sum over the pivot
+rows i = 0, 1, ..., r*-1 in that order, one row at a time (``cs_planes``),
+without a matrix product (no TF32 can reach them); XLA sums in another
+order, so the decode is held against the JAX package by the float32
+cost-tie contract.
 
-The sweep (``cs_sweep``) launches ``csrc/cs_sweep.cu`` on CUDA tensors,
-which replaces the TPU kernel ``_cs_sweep_kernel``
-(``qldpc_fault_tolerance_tpu/ops/osd_cs_device.py:215``); on CPU tensors it
-runs ``cs_sweep_plain``, a port of the kernel's XLA twin ``_cs_sweep_xla``
-(first minimum within a chunk, strict-< across chunks: the global first
-minimum, whatever the chunk).  The elimination is ``osd_elim(...,
+The decode's sweep (``cs_sweep_rows``) launches ``csrc/cs_sweep.cu``'s
+kernel that builds the planes in shared memory from the reduced matrix and
+scores the candidates, replacing the TPU kernel ``_cs_sweep_kernel``
+(``qldpc_fault_tolerance_tpu/ops/osd_cs_device.py:215``) and the XLA plane
+pass that feeds it (``:414-438``), so no plane reaches device memory; its
+plain version is ``cs_planes`` then ``cs_sweep_plain``, a port of the
+kernel's XLA twin ``_cs_sweep_xla`` (first minimum within a chunk, strict-<
+across chunks: the global first minimum, whatever the chunk).
+``cs_sweep`` is the same sweep over given planes (the same kernel source).
+CPU tensors run the plain versions.  The elimination is ``osd_elim(...,
 full=True)`` (``"pallas"``) or ``osd_elim_percol`` (``"pallas_percol"``).
 """
 from __future__ import annotations
@@ -44,6 +49,7 @@ from . import _kernels, osd_device as od
 
 __all__ = ["osd_cs_decode_device", "osd_cs_decode_values", "cs_pat_chunk",
            "cs_sweep_shape", "cs_sweep", "cs_sweep_plain", "cs_planes",
+           "cs_sweep_rows", "cs_sweep_rows_plain", "cs_rows_smem_bytes",
            "sweep_inputs", "SweepInputs"]
 
 # per-chunk compute-tile budget of the pattern-chunk chooser (bytes); the
@@ -204,30 +210,120 @@ cs_sweep.launches = 0
 def cs_planes(rows_piv, signed_piv, cost_free, free_perm, n: int, w: int):
     """The sweep's per-shot planes from the reduced pivot rows ``rows_piv``
     (W, r*, B) int32, the signed pivot costs (r*, B), the free columns'
-    costs (f, B) and permuted positions ``free_perm`` (f, B).
+    costs (f, B) and permuted positions ``free_perm`` (f, B) (each below
+    ``n``, the permuted columns' count).
 
     Returns (dplane (f, B), xflat (max(w*w, 1), B)), float32.  xflat
     holds X[a, b] at row a*w + b for the pairs a < b, the only entries the
-    sweep reads, and zeros elsewhere.  dplane's bit-plane pass goes one
-    packed word at a time ((r*, 32, B) at most); X one free column a at a
-    time ((w - 1 - a, r*, B))."""
-    W, _r, B = rows_piv.shape
+    sweep reads, and zeros elsewhere.  Every entry is a float32 sum over
+    the pivot rows in ascending order, one row at a time, then (dplane)
+    the free column's cost: the order ``csrc/cs_sweep.cu`` follows, so the
+    kernel equals this bit for bit."""
+    W, r, B = rows_piv.shape
     dev = rows_piv.device
-    shifts = torch.arange(32, dtype=torch.int32, device=dev)[None, :, None]
-    dcost = torch.empty((W, 32, B), dtype=torch.float32, device=dev)
-    for wi in range(W):
-        bits = ((rows_piv[wi][:, None, :] >> shifts) & 1).to(torch.float32)
-        dcost[wi] = (bits * signed_piv[:, None, :]).sum(dim=0)
-    dplane = dcost.reshape(W * 32, B)[:n].gather(0, free_perm) + cost_free
-    if w <= 0:
-        return dplane, torch.zeros((1, B), dtype=torch.float32, device=dev)
-    tw = od._reduced_bits(rows_piv, free_perm[:w]).to(torch.float32)
-    # tw: (w, r*, B)
-    xflat = torch.zeros((w * w, B), dtype=torch.float32, device=dev)
-    for a in range(w - 1):
-        xflat[a * w + a + 1:(a + 1) * w] = (
-            tw[a + 1:] * (tw[a] * signed_piv)[None]).sum(dim=1)
-    return dplane, xflat
+    word, bit = free_perm >> 5, free_perm & 31                # (f, B)
+    pairs = [(a, b) for a in range(w) for b in range(a + 1, w)]
+    ia, ib = (torch.tensor([p[k] for p in pairs], dtype=torch.int64,
+                           device=dev) for k in (0, 1))
+    dsum = torch.zeros(free_perm.shape, dtype=torch.float32, device=dev)
+    xsum = torch.zeros((len(pairs), B), dtype=torch.float32, device=dev)
+    for i in range(r):
+        t = ((rows_piv[:, i].gather(0, word) >> bit) & 1).to(torch.float32)
+        dsum += t * signed_piv[i]
+        if pairs:
+            xsum += (t[ia] * signed_piv[i]) * t[ib]
+    xflat = torch.zeros((max(w * w, 1), B), dtype=torch.float32, device=dev)
+    if pairs:
+        xflat[ia * w + ib] = xsum
+    return dsum + cost_free, xflat
+
+
+def cs_sweep_rows_plain(packed, pr, signed_piv, cost_free, free_perm, base,
+                        *, n: int, w: int, pat_chunk: int):
+    """Plain version of ``cs_sweep_rows``: the pivot rows gathered
+    (``osd_device.pivot_rows``), ``cs_planes``, then ``cs_sweep_plain``."""
+    dplane, xflat = cs_planes(od.pivot_rows(packed, pr), signed_piv,
+                              cost_free, free_perm, n, w)
+    return cs_sweep_plain(dplane, xflat, base, w=w, pat_chunk=pat_chunk)
+
+
+def cs_rows_smem_bytes(W: int, r: int, f: int, w: int) -> int:
+    """Dynamic shared memory of ``cs_sweep_rows``' block: a shot's r*
+    pivot rows of W words, their signed costs and indices, the free
+    positions, dplane and the pairs' X, 4 bytes each."""
+    return 4 * (r * W + 2 * r + 2 * f + w * (w - 1) // 2)
+
+
+def cs_sweep_rows(packed, pr, signed_piv, cost_free, free_perm, base, *,
+                  n: int, w: int, pat_chunk: int):
+    """Per shot, the first minimum-cost candidate of the combination sweep,
+    planes included: from the reduced matrix ``packed`` (W, m, B) int32 of
+    the full elimination, its pivot rows ``pr`` (r*, B) int32, the signed
+    pivot costs (r*, B), the free columns' costs (f, B) float32 and
+    permuted positions ``free_perm`` (f, B) int64, and ``base`` (B,).
+
+    Returns (best_cost (B,) float32, best_idx (B,) int32).  CUDA tensors
+    launch ``csrc/cs_sweep.cu``'s ``cs_sweep_rows_launch`` (or raise), which
+    builds ``cs_planes``' planes in shared memory in their stated order;
+    CPU tensors run ``cs_sweep_rows_plain``.  ``pat_chunk`` is the plain
+    version's scan chunk; it never changes the result."""
+    if not packed.is_cuda or _kernels.plain_forced():
+        return cs_sweep_rows_plain(packed, pr, signed_piv, cost_free,
+                                   free_perm, base, n=n, w=w,
+                                   pat_chunk=pat_chunk)
+    W, m, B = packed.shape
+    r = pr.shape[0]
+    f = free_perm.shape[0]
+    want = ((packed, torch.int32, (W, m, B)), (pr, torch.int32, (r, B)),
+            (signed_piv, torch.float32, (r, B)),
+            (cost_free, torch.float32, (f, B)),
+            (free_perm, torch.int64, (f, B)), (base, torch.float32, (B,)))
+    for t, dtype, shape in want:
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != packed.device or not t.is_contiguous()):
+            raise ValueError(f"cs_sweep_rows takes contiguous {dtype} of "
+                             f"shape {shape} on {packed.device}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if r < 1 or f < 1 or not 0 <= w <= f or W * 32 < n:
+        raise ValueError(f"cs_sweep_rows: r*={r}, f={f}, w={w}, {W} words "
+                         f"for n={n}")
+    if W * m * B >= 2 ** 31:
+        raise ValueError("cs_sweep_rows batch too large for int32 indexing")
+    smem = cs_rows_smem_bytes(W, r, f, w)
+    if smem > od.SMEM_LIMIT:
+        raise ValueError(f"cs_sweep_rows: r*={r}, {W} words, f={f}, w={w} "
+                         f"need {smem} bytes of shared memory per block, "
+                         f"above {od.SMEM_LIMIT}")
+    # one thread per plane entry, at most 1024
+    threads = min(1024, max(64, -(-(f + w * (w - 1) // 2) // 32) * 32))
+    dev = packed.device
+    best_cost = torch.empty(B, dtype=torch.float32, device=dev)
+    best_idx = torch.empty(B, dtype=torch.int32, device=dev)
+    fn = _kernels.library("cs_sweep").cs_sweep_rows_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 8 + [i] * 8 + [p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(packed.data_ptr(), pr.data_ptr(), signed_piv.data_ptr(),
+                cost_free.data_ptr(), free_perm.data_ptr(), base.data_ptr(),
+                best_cost.data_ptr(), best_idx.data_ptr(), W, m, r, f, w, B,
+                threads, smem, stream)
+    _kernels.check_launch("cs_sweep_rows", rc)
+    cs_sweep_rows.launches += 1
+    return best_cost, best_idx
+
+
+cs_sweep_rows.launches = 0
+
+
+def _pivot_bits(packed, pr, cols):
+    """Bits of the reduced matrix (W, m, B) at the pivot rows ``pr`` (r*,
+    B) and the permuted columns ``cols`` (k, B): (k, r*, B) int32 {0, 1}."""
+    k, B = cols.shape
+    words = packed.gather(0, (cols >> 5)[:, None, :].expand(k, packed.shape[1], B))
+    rows = words.gather(1, pr.long()[None].expand(k, *pr.shape))
+    return (rows >> (cols & 31)[:, None, :]) & 1
 
 
 class SweepInputs(NamedTuple):
@@ -235,29 +331,28 @@ class SweepInputs(NamedTuple):
     (batch minor): the reduced syndrome at the pivots ``u_piv`` (r*, B),
     the pivots' original columns ``piv_cols`` (B, r*), the free columns'
     permuted positions ``free_perm`` (f, B) and original ids ``free_cols``
-    (B, f), the reduced pivot rows ``rows_piv`` (W, r*, B), the signed
-    pivot costs (r*, B), the free columns' costs (f, B), and the sweep's
-    planes ``dplane`` (f, B), ``xflat`` (max(w*w, 1), B) and ``base``
-    (B,)."""
+    (B, f), the reduced matrix ``packed`` (W, m, B) and its pivot rows
+    ``pr`` (r*, B), the signed pivot costs (r*, B), the free columns'
+    costs (f, B) and ``base`` (B,)."""
     u_piv: torch.Tensor
     piv_cols: torch.Tensor
     free_perm: torch.Tensor
     free_cols: torch.Tensor
-    rows_piv: torch.Tensor
+    packed: torch.Tensor
+    pr: torch.Tensor
     signed_piv: torch.Tensor
     cost_free: torch.Tensor
-    dplane: torch.Tensor
-    xflat: torch.Tensor
     base: torch.Tensor
 
 
 def sweep_inputs(cfg, h_packed, cost, syndromes, posterior_llrs, *,
                  device="cuda"):
-    """The elimination and the sweep's planes of an OSD-CS decode (``cfg``
-    as ``osd_cs_decode_values``).  Returns ``(out, inputs)``: ``out`` the
-    (B, n) uint8 correction so far, ``inputs`` a ``SweepInputs``, or None
-    when the base solution is the only candidate (rank 0, or no free
-    column) and ``out`` is final.  Launches nothing when the rank is 0."""
+    """The elimination and what the sweep reads, for an OSD-CS decode
+    (``cfg`` as ``osd_cs_decode_values``).  Returns ``(out, inputs)``:
+    ``out`` the (B, n) uint8 correction so far, ``inputs`` a
+    ``SweepInputs``, or None when the base solution is the only candidate
+    (rank 0, or no free column) and ``out`` is final.  Launches nothing
+    when the rank is 0."""
     n, r_star, osd_order, _pat_chunk = cfg[:4]
     elim = od.elim_route(cfg[4] if len(cfg) > 4 else None)
     if int(osd_order) > OSD_CS_MAX_ORDER:
@@ -272,7 +367,7 @@ def sweep_inputs(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     syndromes = torch.as_tensor(syndromes).to(dev)
     posterior_llrs = torch.as_tensor(posterior_llrs).to(dev, torch.float32)
     B = syndromes.shape[0]
-    f, w, _n_cand = _cs_counts(n, r_star, osd_order)
+    f, _w, _n_cand = _cs_counts(n, r_star, osd_order)
     out = torch.zeros((B, n), dtype=torch.uint8, device=dev)
     if r_star < 1:
         # rank-0 H: the base solution (all zeros) is the only candidate
@@ -299,11 +394,9 @@ def sweep_inputs(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     cost_free = cost[free_cols].t()                            # (f, B)
     u_f = u_piv.to(torch.float32)
     signed_piv = cost_piv * (1.0 - 2.0 * u_f)
-    rows_piv = od.pivot_rows(packed, pr)                       # (W, r*, B)
-    dplane, xflat = cs_planes(rows_piv, signed_piv, cost_free, free_perm, n,
-                              w)
-    return out, SweepInputs(u_piv, piv_cols, free_perm, free_cols, rows_piv,
-                            signed_piv, cost_free, dplane, xflat,
+    return out, SweepInputs(u_piv, piv_cols, free_perm.contiguous(),
+                            free_cols, packed, pr,
+                            signed_piv.contiguous(), cost_free.contiguous(),
                             (u_f * cost_piv).sum(dim=0))
 
 
@@ -319,8 +412,9 @@ def osd_cs_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     if x is None:
         return out
     f, w, _n_cand = _cs_counts(n, r_star, osd_order)
-    _bc, best_idx = cs_sweep(x.dplane, x.xflat, x.base, w=w,
-                             pat_chunk=int(pat_chunk))
+    _bc, best_idx = cs_sweep_rows(x.packed, x.pr, x.signed_piv, x.cost_free,
+                                  x.free_perm, x.base, n=n, w=w,
+                                  pat_chunk=int(pat_chunk))
 
     # reconstruct only the winning candidate's solution
     _e1t, _e2t, j1_tab, j2_tab, _, _ = _cs_plane(f, w, int(pat_chunk))
@@ -328,8 +422,8 @@ def osd_cs_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
     j1, j2 = (torch.from_numpy(j).to(out.device, torch.int64)[best]
               for j in (j1_tab, j2_tab))                       # -1 = none
     v1, v2 = (j1 >= 0).to(torch.int32), (j2 >= 0).to(torch.int32)
-    t1, t2 = (od._reduced_bits(x.rows_piv,
-                               x.free_perm.gather(0, j.clamp(min=0)[None]))[0]
+    t1, t2 = (_pivot_bits(x.packed, x.pr,
+                          x.free_perm.gather(0, j.clamp(min=0)[None]))[0]
               for j in (j1, j2))
     piv_bits = x.u_piv ^ (t1 * v1[None, :]) ^ (t2 * v2[None, :])  # (r*, B)
     out.scatter_(1, x.piv_cols, piv_bits.t().to(torch.uint8))

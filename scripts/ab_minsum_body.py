@@ -3,7 +3,8 @@
 on one NVIDIA GPU: kernel 1 (``bp_minsum``, float32 messages) and the bf16
 BP head (``bp_head_bf16``) at chip_smoke.py phase 3/20's shapes and at the
 main path's, on hgp_34_n625, n1225 and n1600, and kernel B5's bf16 mode
-(``fused_decode_stats``, which shares their arithmetic) at phase 24's shape.
+(``fused_decode_stats``, which runs their per-shot loop) at phase 24's shape
+and on the larger codes.
 
   python3 scripts/ab_minsum_body.py --parent DIR
   python3 scripts/ab_minsum_body.py --sweep
@@ -24,14 +25,17 @@ profiler device time:
   * main head / main tail: 4096 syndromes of p=0.01 errors, 3 iterations,
     then their stragglers and zero rows to 256, 50 iterations (what the
     two-phase decode of chip_smoke.py phase 5 launches 32 + 32 times);
-  * B5 bf16: 4096 shots at p=0.01, 50 iterations, block_w 8 (hgp_34_n625).
+  * B5 bf16: 4096 shots at p=0.01 and at p=0.05, 50 iterations, block_w 8
+    (hgp_34_n625, phase 24's shape), and 4096 shots at p=0.01 on
+    hgp_34_n1225 and n1600, with the layout.
 
 Every kernel output is checked bit for bit against its plain version
-first.  Each run also gives chip_smoke.py phases 5, 22 and 26's (BP) and
-6, 16 and 17's (BP + OSD) failures and min weight, which must not depend
-on the side.  The last line
+first.  Each run also gives chip_smoke.py phases 5, 22 and 26's (BP), 6,
+16 and 17's (BP + OSD) and 25's bf16 run's (the fused v2 engine) failures
+and min weight, which must not depend on the side.  The last line
 is a summary with the median of each side.  ``--sweep`` times this
-checkout alone with each number of shots per block at each shape;
+checkout alone with each number of shots per block at each shape, B5
+bf16 included;
 ``--refill`` prints, on the CPU, the refill arithmetic behind PERF.md's
 predictions (iterations per shot from the plain version).
 """
@@ -127,6 +131,28 @@ def shapes(root: Path, name: str, dev):
     return graph, head, out
 
 
+def b5_same(k, pl, what):
+    """B5's count, min weight and every shot's flags against its plain
+    version."""
+    import torch
+
+    if (int(k[0]), int(k[1])) != (int(pl[0]), int(pl[1])) or not all(
+            torch.equal(a[f], b[f]) for a, b in ((k[2], pl[2]), (k[3], pl[3]))
+            for f in ("converged", "iterations")):
+        raise AssertionError(f"B5 bf16 {what} differs from its plain version")
+
+
+def b5_layout(gk, spec, B):
+    """This checkout's B5 bf16 launch: (shots per block, threads, blocks,
+    resident blocks per SM, shared memory per block)."""
+    if hasattr(gk, "card_fused_layout"):
+        lay = gk.card_fused_layout(spec, B)
+        return [lay.lanes, lay.threads, lay.grid, lay.resident, lay.smem_bytes]
+    n, mx, mz, rwz, rwx = spec.statics
+    lanes, smem = gk.fused_block_lanes(n, mx, rwz, mz, rwx)
+    return [lanes, 1024, B // lanes, 1, smem]
+
+
 def layout_of(bk, dev, synd, m, n, bf16):
     """This checkout's layout of one launch: (shots per block, threads,
     blocks, resident blocks per SM, shared memory per block)."""
@@ -189,24 +215,38 @@ def measure(root: Path, sweep: bool) -> dict:
                         finally:
                             bk.minsum_layout = orig
 
-    # B5 bf16 at phase 24's shape
-    code = load_code(str(root / "codes_lib_tpu" / "hgp_34_n625.npz"))
+    # B5 bf16 at phase 24's shape, at p=0.05, and on the larger codes
     key = gk.fold_in(gk.split_key(gk.prng_key(SEED))[1], 0)
-    llr = tbp.llr_from_probs(np.full(code.N, 2 * 0.01 / 3), dev)
-    spec = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
-                                      [0.01 / 3] * 3, llr, llr, dev)
     kw = dict(eval_type="Total", max_iter_z=50, max_iter_x=50,
               ms_scaling_factor=0.625, quantize=None, block_w=8)
+    for name, p in (("n625", 0.01), ("n625_p05", 0.05), ("n1225", 0.01),
+                    ("n1600", 0.01)):
+        code = load_code(str(root / "codes_lib_tpu"
+                             / f"hgp_34_{name.split('_')[0]}.npz"))
+        llr = tbp.llr_from_probs(np.full(code.N, 2 * p / 3), dev)
+        spec = gk.build_fused_decode_spec(code.hx, code.hz, code.lx, code.lz,
+                                          [p / 3] * 3, llr, llr, dev)
 
-    def b5():
-        return gk.fused_decode_stats(spec, key, 4096, **kw)
+        def b5(spec=spec):
+            return gk.fused_decode_stats(spec, key, 4096, **kw)
 
-    k, pl = b5(), gk.fused_decode_plain(spec, key, 4096, **kw)
-    if (int(k[0]), int(k[1])) != (int(pl[0]), int(pl[1])) or not all(
-            torch.equal(a[f], b[f]) for a, b in ((k[2], pl[2]), (k[3], pl[3]))
-            for f in ("converged", "iterations")):
-        raise AssertionError("B5 bf16 differs from its plain version")
-    out["b5_bf16_n625_ms"] = device_ms(b5, 10, "fused_decode_kernel")
+        pl = gk.fused_decode_plain(spec, key, 4096, **kw)
+        b5_same(b5(), pl, name)
+        out[f"b5_bf16_{name}_ms"] = device_ms(b5, 10, "fused_decode_kernel")
+        out[f"b5_bf16_{name}_layout"] = b5_layout(gk, spec, 4096)
+        if sweep and hasattr(gk, "fused_layout"):
+            orig = gk.fused_layout
+            for lanes in (1, 2, 3, 4, 6, 8, 12):
+                gk.fused_layout = (lambda *a, _l=lanes, **k:
+                                   orig(*a, **k, lanes=_l))
+                try:
+                    b5_same(b5(), pl, f"{name} at {lanes} lanes")
+                    out[f"b5_bf16_{name}_lanes{lanes}_ms"] = device_ms(
+                        b5, 10, "fused_decode_kernel")
+                except ValueError:
+                    pass  # the code does not fit so many shots per block
+                finally:
+                    gk.fused_layout = orig
 
     if not sweep:
         out.update(main_path_runs(root, dev))
@@ -217,9 +257,10 @@ def measure(root: Path, sweep: bool) -> dict:
 
 def main_path_runs(root: Path, dev) -> dict:
     """chip_smoke.py phases 5, 22 and 26 (16 batches of 4096 at p=0.01 with
-    the default, v1 and float32 decoders) and 6, 16 and 17 (8 batches of
+    the default, v1 and float32 decoders), 6, 16 and 17 (8 batches of
     2048 at p=0.05, BP + OSD-E and OSD-CS of order 10, and OSD-E on the
-    per-column route): (failures, min weight) of each."""
+    per-column route) and 25's bf16 run (the fused v2 engine, 16 batches
+    of 4096 at p=0.01): (failures, min weight) of each."""
     import numpy as np
 
     from qldpc_fault_tolerance_tpu_torch.codes import load_code
@@ -228,16 +269,19 @@ def main_path_runs(root: Path, dev) -> dict:
 
     code = load_code(str(root / "codes_lib_tpu" / "hgp_34_n625.npz"))
     out = {}
-    for tag, cls, p, batch, n_batches, elim, kw in (
-            ("phase5", BPDecoder, 0.01, 4096, 16, None, {}),
-            ("phase22", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "v1"}),
-            ("phase26", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "xla"}),
+    for tag, cls, p, batch, n_batches, elim, kw, fused in (
+            ("phase5", BPDecoder, 0.01, 4096, 16, None, {}, False),
+            ("phase22", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "v1"},
+             False),
+            ("phase26", BPDecoder, 0.01, 4096, 16, None, {"bp_kernel": "xla"},
+             False),
             ("phase6", BPOSD_Decoder, 0.05, 2048, 8, None,
-             {"osd_method": "osd_e", "osd_order": 10}),
+             {"osd_method": "osd_e", "osd_order": 10}, False),
             ("phase16", BPOSD_Decoder, 0.05, 2048, 8, None,
-             {"osd_method": "osd_cs", "osd_order": 10}),
+             {"osd_method": "osd_cs", "osd_order": 10}, False),
             ("phase17", BPOSD_Decoder, 0.05, 2048, 8, "pallas_percol",
-             {"osd_method": "osd_e", "osd_order": 10})):
+             {"osd_method": "osd_e", "osd_order": 10}, False),
+            ("phase25_bf16", BPDecoder, 0.01, 4096, 16, None, {}, "v2")):
         probs = np.full(code.N, 2 * p / 3)
         if elim:  # the route is read when the decoders are built
             os.environ["QLDPC_OSD_ELIM"] = elim
@@ -249,7 +293,7 @@ def main_path_runs(root: Path, dev) -> dict:
         sim = CodeSimulator_DataError(
             code=code, decoder_x=dx, decoder_z=dz,
             pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
-            scan_chunk=8, device=dev)
+            scan_chunk=8, fused_sampler=fused, device=dev)
         sim.WordErrorRate(n_batches * batch)
         out[tag] = [sim.last_failures, sim.min_logical_weight]
     return out

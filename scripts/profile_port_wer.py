@@ -10,14 +10,15 @@ float decoders, int8 with quantize="int8"); BP-50 + OSD-E order 10 at
 p=0.05 with batches of 2048, on the blocked and the per-column elimination route; BP-50 +
 OSD-CS order 10 at p=0.05 with batches of 2048) once to warm up and once
 under torch.profiler, and prints
-for each: wall time, shots/s, device time summed by kernel name (top 12),
-and the device busy share (summed kernel time over wall time; kernels do
-not overlap on one stream).
+for each: wall time, shots/s, device time summed by kernel name (the top
+``--rows``, 12 by default), and the device busy share (summed kernel time
+over wall time; kernels do not overlap on one stream).
 
-Run from the root of a checkout:  python3 scripts/profile_port_wer.py
+Run from the root of a checkout:  python3 scripts/profile_port_wer.py [--rows N]
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -27,6 +28,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=12,
+                    help="kernels listed per configuration")
+    args = ap.parse_args()
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -93,7 +98,7 @@ def main() -> int:
         busy = sum(e.device_time_total for e in rows) / 1e6
         print(f"== {tag}: wall {wall:.4f} s, {shots / wall:.1f} shots/s, "
               f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)")
-        for e in rows[:12]:
+        for e in rows[:args.rows]:
             print(f"  {e.device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
                   f"{e.key[:90]}")
     return 0

@@ -5,8 +5,9 @@ skip without one; run them on a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py``.  Tolerance: none — every
 kernel reproduces its plain version bit for bit (min-sum, alone or inside
 the fused decode in either message mode, int8 min-sum, the bf16 head and
-the OSD-CS sweep are built with FMA contraction off; the eliminations, the counter-PRNG
-sampler and the residual checks are integer-exact)."""
+the OSD-CS sweep, over given planes or building its own in their stated
+summation order, are built with FMA contraction off; the eliminations, the
+counter-PRNG sampler and the residual checks are integer-exact)."""
 import os
 
 import numpy as np
@@ -216,6 +217,46 @@ def test_cs_sweep_kernel_matches_plain(cuda, f, w, B, ties):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
+def _rows_inputs(rng, W, m, r, n, f, w, B, ties):
+    """Random inputs of B8 with its planes: a reduced matrix (W, m, B), r
+    distinct pivot rows and f free positions below n per shot; with
+    ``ties`` small integer costs, so many candidates tie exactly."""
+    packed = rng.integers(-2 ** 31, 2 ** 31, (W, m, B), dtype=np.int64)
+    pr = np.stack([rng.permutation(m)[:r] for _ in range(B)], axis=1)
+    fp = np.stack([np.sort(rng.permutation(n)[:f]) for _ in range(B)], axis=1)
+    if ties:
+        signed = rng.integers(-3, 4, (r, B)).astype(np.float32)
+        cost_free = rng.integers(0, 3, (f, B)).astype(np.float32)
+        base = rng.integers(0, 4, B).astype(np.float32)
+    else:
+        signed = rng.normal(0, 4, (r, B)).astype(np.float32)
+        cost_free = rng.uniform(1, 6, (f, B)).astype(np.float32)
+        base = rng.uniform(0, 40, B).astype(np.float32)
+    return (packed.astype(np.int32), pr.astype(np.int32), signed, cost_free,
+            fp.astype(np.int64), base)
+
+
+@pytest.mark.parametrize("W,m,r,n,f,w,B,ties", [
+    (20, 300, 300, 625, 325, 10, 256, False),
+    (20, 300, 300, 625, 325, 10, 256, True),
+    (2, 20, 18, 48, 30, 5, 37, True), (2, 20, 20, 40, 20, 1, 9, False),
+    (1, 8, 5, 12, 7, 0, 8, True), (50, 768, 768, 1600, 832, 20, 16, False)])
+def test_cs_sweep_rows_kernel_matches_plain(cuda, W, m, r, n, f, w, B, ties):
+    """B8 with its planes: best cost and index bit-exact with cs_planes
+    then cs_sweep_plain, exact cost ties included, at hgp_34_n625's and
+    n1600's shapes (orders 10 and 20), ragged and w <= 1."""
+    rng = np.random.default_rng(W * B + ties)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _rows_inputs(rng, W, m, r, n, f, w, B, ties)]
+    before = tcs.cs_sweep_rows.launches
+    k = tcs.cs_sweep_rows(*args, n=n, w=w, pat_chunk=64)
+    assert tcs.cs_sweep_rows.launches == before + 1
+    p = tcs.cs_sweep_rows_plain(*args, n=n, w=w, pat_chunk=64)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if ties:
+        assert (k[1] > 0).any()
+
+
 @pytest.mark.parametrize("elim", ["pallas", "pallas_percol"])
 def test_bposd_cs_on_card_matches_cpu(cuda, elim, monkeypatch):
     monkeypatch.setenv("QLDPC_OSD_ELIM", elim)
@@ -340,8 +381,8 @@ def _fused_matches_plain(spec, B, counter, **kw):
                                     ("n225", 96), ("n625", 256),
                                     ("n1600", 32)])
 def test_fused_decode_kernel_matches_plain(cuda, name, B):
-    """The bf16 mode; hgp_34_n1600 takes 4 shots per block (shared memory),
-    the others 8."""
+    """The bf16 mode on each code's layout (ops/gf2_kernel.py
+    fused_layout)."""
     _fused_matches_plain(_fused_spec(cuda, name, B), B, "launches")
 
 
@@ -356,6 +397,45 @@ def test_fused_decode_int8_kernel_matches_plain(cuda, name, B, block_w):
     stage them."""
     _fused_matches_plain(_fused_spec(cuda, name, B), B, "int8_launches",
                          quantize="int8", block_w=block_w)
+
+
+@pytest.mark.parametrize("name,B,p,iters", [
+    ("n625", 32, 0.05, 20), ("n625", 64, 0.05, 20), ("n625", 4096, 0.01, 50),
+    ("n625", 64, 0.05, 0), ("n625", 64, 0.0, 20), ("n1225", 64, 0.05, 20),
+    ("n1225", 512, 0.03, 30), ("n1600", 64, 0.05, 20)])
+def test_fused_decode_lanes_match_plain(cuda, name, B, p, iters):
+    """B5's bf16 mode: one shot per lane, lanes refilled from the claim
+    counter (4096 shots are more than the card holds at once), no
+    iteration at all, no error at all, and the larger codes: count, min
+    weight and every shot's flags and iterations in both sectors
+    bit-exact."""
+    spec = _fused_spec(cuda, name, B, p)
+    kw = dict(eval_type="Total", max_iter_z=iters, max_iter_x=iters,
+              ms_scaling_factor=0.625)
+    before = gk.fused_decode_stats.launches
+    k = gk.fused_decode_stats(spec, KEY, B, **kw)
+    pl = gk.fused_decode_plain(spec, KEY, B, **kw)
+    assert gk.fused_decode_stats.launches == before + 1
+    assert (int(k[0]), int(k[1])) == (int(pl[0]), int(pl[1]))
+    for a, b in zip(k[2:], pl[2:]):
+        for field in ("converged", "iterations"):
+            assert torch.equal(a[field], b[field]), field
+    if p == 0.0:
+        assert int(k[0]) == 0 and bool(k[3]["converged"].all())
+    if iters == 0:
+        assert not k[2]["converged"].any() and not k[3]["iterations"].any()
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 12])
+def test_fused_decode_any_lane_count_matches_plain(cuda, lanes, monkeypatch):
+    """The layout's shots per block do not change a bit: 1, 3 and 12 lanes
+    (the most hgp_34_n625 fits) on 320 shots."""
+    orig = gk.fused_layout
+    monkeypatch.setattr(gk, "fused_layout",
+                        lambda *a, **k: orig(*a, **k, lanes=lanes))
+    spec = _fused_spec(cuda, "n625", 320)
+    assert gk.card_fused_layout(spec, 320).lanes == lanes
+    _fused_matches_plain(spec, 320, "launches")
 
 
 def test_fused_wrappers_reject_what_the_kernels_cannot_take(cuda):

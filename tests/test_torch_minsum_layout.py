@@ -1,5 +1,6 @@
 """The launch layout and the staged planes of the min-sum kernels
-(csrc/bp_minsum.cu: kernel 1 and the bf16 head), checked on the CPU.
+(csrc/bp_minsum.cu: kernel 1 and the bf16 head, and the lanes of B5's bf16
+mode, csrc/fused_decode.cu), checked on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); what they are
 given is decided in Python and held here: for every shipped code, both
@@ -15,6 +16,7 @@ import pytest
 
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
 from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODES = ("hgp_34_n225", "hgp_34_n625", "hgp_34_n1225", "hgp_34_n1600")
@@ -137,3 +139,71 @@ def test_smem_bytes_match_the_kernel_note():
     for bf16, staged, per_shot in ((False, 11728, 19616), (True, 14240, 15424)):
         assert bk.minsum_smem_bytes(0, 300, 625, 7, 4, bf16) == staged
         assert bk.minsum_smem_bytes(1, 300, 625, 7, 4, bf16) == staged + per_shot
+
+
+# B5's bf16 mode (csrc/fused_decode.cu) runs the same lanes over both
+# sectors' planes, laid out by ops/gf2_kernel.py fused_layout
+
+
+def _irregular_h(seed, m=24, n=48):
+    rng = np.random.default_rng(seed)
+    h = np.zeros((m, n), np.uint8)
+    for i in range(m):
+        h[i, rng.choice(n, size=int(rng.integers(2, 9)), replace=False)] = 1
+    for j in np.nonzero(h.sum(0) == 0)[0]:
+        h[rng.integers(0, m), j] = 1
+    return h
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_shape(code):
+    """(n, mx, rwz, cwz, mz, rwx, cwx) of a code: the Z sector decodes over
+    hx, the X sector over hz."""
+    if code == "irregular":
+        hx, hz = _irregular_h(3), _irregular_h(4)
+    else:
+        hx, hz = _h(code, "hx"), _h(code, "hz")
+    (mx, rwz, n, cwz), (mz, rwx, _, cwx) = (
+        (*g.chk_nbr.shape, *g.var_nbr.shape)
+        for g in map(tbp.build_tanner_graph_host, (hx, hz)))
+    return n, mx, rwz, cwz, mz, rwx, cwx
+
+
+@pytest.mark.parametrize("code", CODES + ("irregular",))
+@pytest.mark.parametrize("B", (32, 64, 256, 4096, 65536))
+def test_fused_layout_fits_every_code(code, B):
+    shape = _fused_shape(code)
+    lay = gk.fused_layout(B, *shape, SMS)
+    per_shot = lay.threads // lay.lanes
+    assert lay.smem_bytes == gk.fused_smem_bytes(lay.lanes, *shape)
+    assert lay.smem_bytes + gk._FUSED_STATIC <= bk.SMEM_LIMIT
+    assert 1 <= lay.lanes <= bk.MINSUM_MAX_LANES
+    assert lay.threads <= bk.MINSUM_MAX_THREADS and per_shot % 32 == 0
+    assert per_shot <= -(-max(shape[:2] + shape[4:5]) // 32) * 32
+    assert 1 <= lay.grid <= SMS * lay.resident
+    assert lay.lanes * lay.grid >= B or lay.grid == SMS * lay.resident
+    assert lay.lanes * lay.grid < B + lay.lanes
+    # the most shots per block the code fits is allowed, one more is not
+    top = max(k for k in range(1, bk.MINSUM_MAX_LANES + 1)
+              if gk.fused_smem_bytes(k, *shape) + gk._FUSED_STATIC
+              <= bk.SMEM_LIMIT)
+    assert gk.fused_layout(B, *shape, SMS, lanes=top).lanes == top
+    if top < bk.MINSUM_MAX_LANES:
+        with pytest.raises(ValueError, match="shots per block"):
+            gk.fused_layout(B, *shape, SMS, lanes=top + 1)
+
+
+def test_fused_layout_refuses_what_no_lane_fits():
+    # one shot of a 6000 x 12000 code of row weight 7 needs 12000 * 4 bytes
+    # of totals and 42000 * 6 of messages: more than a block holds
+    with pytest.raises(ValueError, match="shared memory"):
+        gk.fused_layout(64, 12000, 6000, 7, 4, 6000, 7, 4, SMS)
+    with pytest.raises(ValueError, match="row weights"):
+        gk.fused_layout(64, 625, 300, 33, 4, 300, 7, 4, SMS)
+
+
+def test_fused_smem_bytes_match_the_kernel_note():
+    """csrc/fused_decode.cu's note gives the shared memory at hgp_34_n625."""
+    shape = _fused_shape("hgp_34_n625")
+    assert gk.fused_smem_bytes(0, *shape) == 28480
+    assert gk.fused_smem_bytes(1, *shape) == 28480 + 16704

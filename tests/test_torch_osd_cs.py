@@ -6,6 +6,11 @@
     equals ``_cs_sweep_xla`` and the TPU kernel ``_cs_sweep_pallas`` in
     interpret mode bit for bit, in cost and index, and its index does not
     change with ``pat_chunk``.  Tolerance: none.
+  * ``cs_planes`` sums over the pivot rows in ascending order, equal to a
+    numpy float32 sequential sum bit for bit, and within the float32 error
+    bound of two summation orders of the JAX package's plane pass; the
+    sweep on them picks the JAX sweep's winner or one of equal cost (the
+    tie contract below); ``cs_sweep_rows`` on the CPU is its plain version.
   * The whole decode: the planes' float32 sums over r* terms run in another
     order than XLA's, so each shot must equal the JAX package's device OSD-CS
     and its host oracle (``decoders.osd.osd_decode_batch``), or be
@@ -119,6 +124,175 @@ def test_cs_sweep_plain_matches_jax_twin_and_kernel(f, w, chunk, ties):
     for other in (1, 7, 512):
         c2, i2 = tcs.cs_sweep_plain(*t_args, w=w, pat_chunk=other)
         assert torch.equal(i2, idx) and torch.equal(c2, cost)
+
+
+def _rows_case(rng, W, r, n, f, B, ties):
+    """Reduced pivot rows (W, r, B), signed pivot costs (r, B), the free
+    columns' costs (f, B) and ascending free positions below n (f, B); with
+    ``ties`` small integers, whose float32 sums are exact in any order."""
+    rows = rng.integers(-2 ** 31, 2 ** 31, (W, r, B), dtype=np.int64)
+    fp = np.stack([np.sort(rng.permutation(n)[:f]) for _ in range(B)], axis=1)
+    if ties:
+        signed = rng.integers(-3, 4, (r, B)).astype(np.float32)
+        cost_free = rng.integers(0, 3, (f, B)).astype(np.float32)
+        base = rng.integers(0, 4, B).astype(np.float32)
+    else:  # channel-cost magnitudes, either sign
+        signed = (rng.uniform(1, 6, (r, B)) * rng.choice([-1, 1], (r, B))
+                  ).astype(np.float32)
+        cost_free = rng.uniform(1, 6, (f, B)).astype(np.float32)
+        base = rng.uniform(0, 60, B).astype(np.float32)
+    return rows.astype(np.int32), signed, cost_free, fp.astype(np.int64), base
+
+
+def _bits_at(rows, fp):
+    """T[i, fp[j, b]] for every pivot row i: (f, r, B) int64 {0, 1}."""
+    r = rows.shape[1]
+    word = np.broadcast_to((fp >> 5)[:, None, :], (fp.shape[0], r, fp.shape[1]))
+    got = np.take_along_axis(rows.view(np.uint32).astype(np.int64), word, 0)
+    return (got >> (fp & 31)[:, None, :]) & 1
+
+
+def _pairs(w):
+    return [(a, b) for a in range(w) for b in range(a + 1, w)]
+
+
+def _jax_planes(rows, signed, cost_free, fp, n, w):
+    """The JAX package's plane pass (its ops/osd_cs_device.py:414-438, the
+    XLA part of osd_cs_decode_values), on the CPU: dplane (f, B), xflat
+    (w*w, B)."""
+    W, r, B = rows.shape
+    hi = jax.lax.Precision.HIGHEST
+    rows_piv = jnp.asarray(rows.view(np.uint32))
+    s = jnp.asarray(signed)
+    shifts32 = jnp.arange(32, dtype=jnp.uint32)
+
+    def word_term(rw):
+        bits = ((rw[:, None, :] >> shifts32[None, :, None]) & 1).astype(
+            jnp.float32)
+        return jnp.einsum("rkb,rb->kb", bits, s, precision=hi)
+
+    dcost = jax.lax.map(word_term, rows_piv).reshape(W * 32, B)[:n]
+    fpj = jnp.asarray(fp.astype(np.int32))
+    dplane = jnp.take_along_axis(dcost, fpj, axis=0) + jnp.asarray(cost_free)
+    fp_w = fpj[:w]
+    fword = jnp.broadcast_to((fp_w >> 5)[:, None, :], (w, r, B))
+    fbit = (fp_w & 31).astype(jnp.uint32)[:, None, :]
+    tw = ((jnp.take_along_axis(rows_piv, fword, axis=0) >> fbit) & 1
+          ).astype(jnp.float32)
+    x = jnp.einsum("arb,rb,crb->acb", tw, s, tw, precision=hi)
+    return np.asarray(dplane), np.asarray(x.reshape(max(w * w, 1), B))
+
+
+def _port_planes(rows, signed, cost_free, fp, n, w):
+    d, x = tcs.cs_planes(*(torch.from_numpy(a) for a in (rows, signed,
+                                                         cost_free, fp)), n, w)
+    return d.numpy(), x.numpy()
+
+
+SHAPES = [(2, 34, 48, 14, 5), (20, 300, 625, 325, 10)]  # W, r*, n, f, w
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("W,r,n,f,w", SHAPES)
+def test_cs_planes_sum_pivot_rows_in_ascending_order(W, r, n, f, w, ties):
+    """``cs_planes`` is a float32 sum over the pivot rows i = 0, 1, ...,
+    r*-1 in that order (then the free column's cost), the order the CUDA
+    kernel follows: equal to numpy's sequential float32 sums bit for bit."""
+    rng = np.random.default_rng(r + ties)
+    rows, signed, cost_free, fp, _ = _rows_case(rng, W, r, n, f, 16, ties)
+    t = _bits_at(rows, fp)                                   # (f, r, B)
+    d = np.zeros(fp.shape, np.float32)
+    x = np.zeros((len(_pairs(w)), fp.shape[1]), np.float32)
+    for i in range(r):
+        d = d + np.where(t[:, i] == 1, signed[i], np.float32(0))
+        both = np.stack([t[a, i] & t[b, i] for a, b in _pairs(w)]) if w > 1 \
+            else np.zeros(x.shape, np.int64)
+        x = x + np.where(both == 1, signed[i], np.float32(0))
+    d = d + cost_free
+    got_d, got_x = _port_planes(rows, signed, cost_free, fp, n, w)
+    assert got_d.dtype == np.float32 and got_x.dtype == np.float32
+    assert np.array_equal(got_d.view(np.int32), d.view(np.int32))
+    rows_ab = [a * w + b for a, b in _pairs(w)]
+    assert np.array_equal(got_x[rows_ab].view(np.int32), x.view(np.int32))
+    assert not np.delete(got_x, rows_ab, axis=0).any()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("W,r,n,f,w", SHAPES)
+def test_cs_planes_and_sweep_match_jax_within_tie_contract(W, r, n, f, w,
+                                                           ties):
+    """The port's planes against the JAX package's plane pass: each entry
+    within (2 r* + 2) * 2^-24 * (sum_i |s_i| + |cost_free|), the float32
+    error bound of two summation orders over r* terms (exactly equal on
+    small integers, whose sums are exact in any order).  Then the sweep
+    (``cs_planes`` then ``cs_sweep_plain``) against the JAX package's
+    ``_cs_sweep_xla`` on its own planes, at f = 14, w = 5 and at
+    hgp_34_n625's f = 325, w = 10: the same winner, or two winners whose
+    costs from float64 planes are within 1e-4 of each other and of the
+    least (the float32 cost-tie contract)."""
+    rng = np.random.default_rng(10 * r + ties)
+    B = 64
+    rows, signed, cost_free, fp, base = _rows_case(rng, W, r, n, f, B, ties)
+    jd, jx = _jax_planes(rows, signed, cost_free, fp, n, w)
+    td, tx = _port_planes(rows, signed, cost_free, fp, n, w)
+    scale = np.abs(signed).astype(np.float64).sum(axis=0)
+    tol = (2 * r + 2) * 2.0 ** -24
+    assert (np.abs(td - jd) <= tol * (scale + np.abs(cost_free))).all()
+    rows_ab = [a * w + b for a, b in _pairs(w)]
+    assert (np.abs(tx[rows_ab] - jx[rows_ab]) <= tol * scale).all()
+    if ties:
+        assert np.array_equal(td, jd) and np.array_equal(tx[rows_ab],
+                                                         jx[rows_ab])
+    chunk = 8 if f == 14 else 64
+    e1t, e2t, *_ = jcs._cs_plane(f, w, chunk)
+    want = np.asarray(jcs._cs_sweep_xla(*(jnp.asarray(a) for a in (
+        e1t, e2t, jd, jx, base)), chunk)[1])
+    got = tcs.cs_sweep_plain(torch.from_numpy(td), torch.from_numpy(tx),
+                             torch.from_numpy(base), w=w,
+                             pat_chunk=chunk)[1].numpy()
+    # every candidate's cost from float64 planes
+    t = _bits_at(rows, fp).astype(np.float64)
+    d64 = (t * signed[None].astype(np.float64)).sum(axis=1) + cost_free
+    x64 = np.stack([(t[a] * t[b] * signed).sum(axis=0) for a, b in _pairs(w)])
+    b64 = base.astype(np.float64)
+    cost64 = np.concatenate([b64[None], b64 + d64] + ([np.stack(
+        [b64 + d64[a] + d64[b] - 2 * x64[k]
+         for k, (a, b) in enumerate(_pairs(w))])] if w > 1 else []))
+    shots = np.arange(B)
+    least = cost64.min(axis=0)
+    for idx in (got, want):
+        assert (cost64[idx, shots] - least < 1e-4).all()
+    assert (np.abs(cost64[got, shots] - cost64[want, shots]) < 1e-4).all()
+    if ties:
+        assert np.array_equal(got, want)
+    else:
+        assert (got == want).mean() > 0.9
+    assert (got > 0).any()
+
+
+def test_cs_sweep_rows_on_the_cpu_is_its_plain_version():
+    """On CPU tensors ``cs_sweep_rows`` runs ``cs_sweep_rows_plain``: the
+    pivot rows gathered from the reduced matrix, ``cs_planes``, then
+    ``cs_sweep_plain``; and the reconstruction's bits at the pivot rows
+    are those of the gathered rows."""
+    rng = np.random.default_rng(3)
+    W, m, r, n, f, w, B = 2, 40, 30, 48, 18, 5, 24
+    packed = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (W, m, B),
+                                           dtype=np.int64).astype(np.int32))
+    pr = torch.from_numpy(np.stack([rng.permutation(m)[:r] for _ in range(B)],
+                                   axis=1).astype(np.int32))
+    _, signed, cost_free, fp, base = (torch.from_numpy(a) for a in _rows_case(
+        rng, W, r, n, f, B, False))
+    before = tcs.cs_sweep_rows.launches
+    got = tcs.cs_sweep_rows(packed, pr, signed, cost_free, fp, base, n=n, w=w,
+                            pat_chunk=64)
+    assert tcs.cs_sweep_rows.launches == before
+    rows = tod.pivot_rows(packed, pr)
+    want = tcs.cs_sweep_plain(*tcs.cs_planes(rows, signed, cost_free, fp, n, w),
+                              base, w=w, pat_chunk=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(tcs._pivot_bits(packed, pr, fp[:3]),
+                       tod._reduced_bits(rows, fp[:3]))
 
 
 def _decode_case(kind, order, seed=5, B=96):
