@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's code-capacity WER paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's WER paths (code-capacity and
+phenomenological) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -26,13 +27,14 @@ Phases (any failure raises and the script exits non-zero):
      64 shots (no head engages: float32 on both) and 256 shots (the card's
      bf16 head against the CPU running the same head's plain version)
      decoded on the CPU and on the card agree
-  8. a "kernels" JSON line, printed after phase 26: for all eleven kernels
+  8. a "kernels" JSON line, printed after phase 31: for all eleven kernels
      the main-path launches (phase 26 for kernel 1, phase 6 for kernel 2,
      phase 5 for the bf16 head, phase 12 for B3 and B4, phase 16 for B7 and
      B8, phase 17 for B10, phase 21 for B6, phase 25 for B5's bf16 and int8
      modes), error against the plain version, times, bound; the bf16 head
      has a second entry for the v1 tag's route (it replaces the dense
-     one-hot B9 too), with phase 22's launches
+     one-hot B9 too), with phase 22's launches; and one entry for each
+     device-memory mode of phase 27, with its launches in phases 28-30
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -103,6 +105,37 @@ Phases (any failure raises and the script exits non-zero):
      kernel path's failures and min weight
  26. main path, float32: phase 5's run with BPDecoder(bp_kernel="xla"),
      kernel 1 (min-sum, float32 messages) in head and tail
+ 27. the device-memory modes, which the card takes where one shot does
+     not fit a block's shared memory, against their plain versions: the
+     elimination in its three modes on [H|I] of hgp_34_n1600 (768 x 2368,
+     233,816 B a shot) at 256, 512 and 2048 shots (phase 30's tier);
+     kernel 1 and the bf16 head on three copies of that [H|I] (2304 x
+     7104, ~300 KB a shot: the lanes in a device scratch, the 16-bit planes
+     staged), and with 32-bit planes in device memory; kernel 1 on eleven
+     copies (67,584 edges: 32-bit planes); every output bit-exact; each
+     mode timed, and against the shared-memory mode at a shape both run
+     (hgp_34_n1600's H), the modes fixed by _kernels.force_memory
+ 28. main path, the phenomenological engine (the Threshold notebook's
+     cell, as the JAX package's sweeps build it): CodeSimulator_Phenon on
+     hgp_34_n625, decoder 1 BP (max_iter N/30, min-sum 0.625) on [H|I],
+     decoder 2 BP + OSD-E order 10 (N/10) on H, eval_p 0.02 (p = 0.03
+     depolarizing, q = 0.02 syndrome flips), 9 rounds, 8 batches of 2048;
+     shots/s and host reads per batch; failures and min weight pinned
+     (PHENOM_RUNS)
+ 29. main path, the Single-Shot notebook's decoder 1: FirstMin BP (N/5
+     restarts, 0.9) with phase 28's decoder 2, 11 rounds, eval_p 0.01 (at
+     the notebook's 0.02 every shot fails), 1 batch of 2048; pinned
+ 30. main path, BP + OSD-0 on both decoders at hgp_34_n1600 (the
+     phenomenological BP+OSD-0 configuration of BASELINE.json): decoder 1's
+     elimination on [H|I] takes the device-memory mode; eval_p 0.02, 9
+     rounds, 2 batches of 2048; pinned
+ 31. anchors: p = q = 0 gives no failure; one phase-28 batch with every
+     kernel replaced by its plain version, and with packed=False, gives the
+     kernel path's failures and min weight; so does one phase-30 batch
+     (kernel 1, the bf16 head and the elimination's device-memory mode at
+     phase 30's shapes) with every kernel replaced; fused_sampler="v2" on six
+     copies of hgp_34_n625 (n = 3750, which the fused kernel cannot take)
+     runs as fused v1, its fallback counted, with v1's failures
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -114,6 +147,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 PKG = "qldpc_fault_tolerance_tpu_torch"
@@ -149,9 +183,24 @@ MINSUM_RUNS = {"5": (187, 2), "22": (187, 2), "26": (184, 2), "6": (941, 6),
 # which a change to its kernel must keep (scripts/ab_minsum_body.py gives
 # them for two checkouts side by side)
 BF16_RUNS = {"25": (216, 2)}
+# (failures, min weight) of phases 28, 29 and 30's phenomenological runs at
+# SEED: the phenom engine's results on the card, which a change to it or to
+# its kernels must keep
+PHENOM_RUNS = {"28": (8604, 6), "29": (777, 6), "30": (2781, 8)}
+# phases 28 and 31's eval_p (the Threshold notebook's phenomenological
+# cell: p = 3/2 eval_p depolarizing, q = eval_p syndrome flips)
+PHENOM_P = 0.02
+# phase 29's eval_p: at the Single-Shot notebook's 0.02 its FirstMin
+# decoder 1 leaves every shot of 11 rounds failed; at 0.01 about 38% fail,
+# so the pin still tells how well the path decodes
+PHENOM29_P = 0.01
 # phases 4 and 14 hold the elimination's three modes at these shots: 256,
 # and the 512-shot straggler tier of phase 6's batches of 2048
 ELIM_SHOTS = (256, 512)
+# phase 27 holds the elimination's device-memory mode on [H|I] of
+# hgp_34_n1600 at these shots: its launch layouts at 256 and 512, and the
+# 2048-shot tier that phase 30's decoder 1 launches
+ELIM27_SHOTS = (256, 512, 2048)
 
 
 def log(msg: str) -> None:
@@ -173,14 +222,38 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
+def once_ms(fn):
+    """``fn()`` and its device time, one call timed between CUDA events (no
+    warm-up: for a plain version whose code has run before)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def in_mode(memory: str, fn):
+    """``fn()`` with the min-sum and elimination kernels launched in
+    ``memory`` (_kernels.MEMORY_MODES) instead of their layouts' pick."""
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+
+    with _kernels.force_memory(memory):
+        return fn()
+
+
+def device_ms(fn, reps: int, kernel: str, tries: int = 5) -> float:
     """Mean device time per call of the kernels whose name holds ``kernel``,
-    from torch.profiler over ``reps`` calls after one warm-up.  Raises when
-    the profiler records no device time for it: CUDA events around
-    back-to-back calls of a kernel this short time the host's launch cost,
-    which is another number.  A profiler session now and then records the
-    host's calls and none of the card's kernels (seen on the first session
-    of a process), so such a session is repeated, ``tries`` times at most."""
+    from torch.profiler over ``reps`` calls after one warm-up.  A profiler
+    session now and then records the host's calls and none of the card's
+    kernels (seen on the first session of a process, and once in three
+    sessions in a row), so such a session is repeated, ``tries`` times at
+    most; after that the calls are timed between CUDA events instead, and
+    the log says so: around back-to-back calls of a kernel this short,
+    events time the host's launch cost too, an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,8 +268,10 @@ def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
                        if kernel in e.key)
         if total_us > 0:
             return total_us / reps / 1e3
-    raise AssertionError(f"the profiler recorded no device time for "
-                         f"{kernel}")
+    ms = event_ms(fn, reps)
+    log(f"(the profiler recorded no device time for {kernel} in {tries} "
+        f"sessions: {ms:.4f} ms between CUDA events, launch cost included)")
+    return ms
 
 
 def all_kernels_ms(fn, reps: int) -> float:
@@ -471,6 +546,7 @@ def main() -> int:
     import numpy as np
 
     from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.codes.gf2 import block_diag
     from qldpc_fault_tolerance_tpu_torch.decoders import (
         BPDecoder,
         BPOSD_Decoder,
@@ -620,7 +696,18 @@ def main() -> int:
                 "cs_sweep": (tcs.cs_sweep, "launches"),
                 "cs_sweep_rows": (tcs.cs_sweep_rows, "launches"),
                 "bp_int8": (bk.bp_head_int8, "launches"),
-                "bp_minsum_bf16": (bk.bp_head_bf16, "launches")}
+                "bp_minsum_bf16": (bk.bp_head_bf16, "launches"),
+                # launches of the device-memory modes (among the above)
+                "osd_elim_device": (tod.osd_elim, "device_launches"),
+                "osd_elim_full_device": (tod.osd_elim, "full_device_launches"),
+                "osd_elim_percol_device": (tod.osd_elim_percol,
+                                           "device_launches"),
+                "bp_minsum_device": (bp_minsum, "device_launches"),
+                "bp_minsum_device_planes": (bp_minsum,
+                                            "device_planes_launches"),
+                "bp_minsum_bf16_device": (bk.bp_head_bf16, "device_launches"),
+                "bp_minsum_bf16_device_planes": (bk.bp_head_bf16,
+                                                 "device_planes_launches")}
 
     def counted(fn):
         """Every launch count set to 0, ``fn`` run, the counts read; returns
@@ -1423,6 +1510,345 @@ def main() -> int:
         raise AssertionError(f"float32 (failures, min_w) {run26} != "
                              f"{MINSUM_RUNS['26']}")
 
+    # 27. the device-memory modes against their plain versions, at shapes
+    # whose one shot does not fit a block's shared memory
+    with np.load(ROOT / "codes_lib_tpu" / "hgp_34_n1600.npz") as z16:
+        h16 = z16["hx"].astype(np.uint8)
+    ext16 = np.hstack([h16, np.eye(h16.shape[0], dtype=np.uint8)])
+    me, ne = ext16.shape
+    rng27 = np.random.default_rng(SEED + 27)
+
+    def synd_of(h, B, p):
+        e = (rng27.random((B, h.shape[1])) < p).astype(np.uint8)
+        return torch.from_numpy((e @ h.T % 2).astype(np.uint8)).to(dev)
+
+    def elim_case(h, B, p):
+        """The three elimination modes' runs on B shots of ``h``, permuted
+        by their kernel-1 posteriors: {name: (run, out words, fcap, mode)},
+        the packed rows and the syndromes."""
+        mh, nh = h.shape
+        sy = synd_of(h, B, p)
+        g = tbp.build_tanner_graph(h, dev)
+        post = bp_minsum(g, sy, tbp.llr_from_probs(np.full(nh, p), dev),
+                         max_iter=20)[2]
+        pm = torch.sort(post, dim=1, stable=True).indices
+        pl = tod.build_osd_plan(h, np.full(nh, p), device=dev)
+        rs, s32 = pl.rank, sy.to(torch.int32).t().contiguous()
+        wf = min(10, nh - rs)
+        pk = tod._permute_and_pack(tod._unpack_rows(pl.packed, nh), pm)
+        Wh = pk.shape[0]
+        runs = {
+            "osd_elim": (lambda: tod.osd_elim(
+                pl.packed, pm, s32, n=nh, r_star=rs, fcap=wf),
+                mh + 2 * rs + mh + wf, wf, "skip"),
+            "osd_elim_full": (lambda: tod.osd_elim(
+                pl.packed, pm, s32, n=nh, r_star=rs, fcap=0, full=True),
+                mh + 2 * rs + Wh * mh, 0, "full"),
+            "osd_elim_percol": (lambda: tod.osd_elim_percol(
+                pl.packed, pm, s32, n=nh, r_star=rs),
+                mh + 3 * rs + Wh * mh, 0, "percol")}
+        return runs, pk, s32, rs
+
+    def ints_equal(name, a, b) -> float:
+        err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
+        if err:  # tolerance 0: integer words
+            raise AssertionError(f"{name} differs from its plain version")
+        return float(err)
+
+    dmem = {}  # device-memory modes: name -> their kernels-line numbers
+    for B27 in ELIM27_SHOTS:
+        runs27, pk27, s27, r27 = elim_case(ext16, B27, 0.03)
+        for name, (run, words, fc, mode) in runs27.items():
+            lay = tod.card_elim_layout(dev, B27, me, ne, fc, mode)
+            if lay.memory != "device":
+                raise AssertionError(f"{name}: [H|I] of hgp_34_n1600 took "
+                                     f"the {lay.memory} mode")
+            before = (tod.osd_elim.device_launches,
+                      tod.osd_elim.full_device_launches,
+                      tod.osd_elim_percol.device_launches)
+            k = run()
+            after = (tod.osd_elim.device_launches,
+                     tod.osd_elim.full_device_launches,
+                     tod.osd_elim_percol.device_launches)
+            if sum(after) != sum(before) + 1:
+                raise AssertionError(f"{name}: no device-memory launch "
+                                     f"counted")
+            with _kernels.force_plain():
+                pl27, plain_ms = once_ms(run)
+            err = ints_equal(f"{name} (device memory, {B27} shots)", k, pl27)
+            work = tod.elimination_work(pk27, s27, n=ne, r_star=r27, fcap=fc)
+            bound, by = elim_bound_ms(ne, me, B27, words, work)
+            ms = event_ms(run, 10)
+            log(f"[27] {name} device memory == plain on [H|I] of "
+                f"hgp_34_n1600 ({me}x{ne}, {tod.elim_smem_bytes(me, ne)} B a "
+                f"shot in shared memory), {B27} shots; {lay.smem_bytes} B "
+                f"shared + {lay.scratch_bytes} B scratch a shot, "
+                f"{lay.threads} threads; {ms:.4f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {bound:.4f} ms ({by})")
+            if B27 == ELIM27_SHOTS[-1]:  # the tier phase 30 launches
+                dmem[name + "_device"] = {
+                    "err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound": bound, "by": by, "source": "osd_elim.cu",
+                    "replaces": {"osd_elim": "osd_device.py:547",
+                                 "osd_elim_full": "osd_device.py:632",
+                                 "osd_elim_percol": "osd_device.py:343"}[name]}
+    # both modes at a shape both run: hgp_34_n1600's H
+    B27 = ELIM27_SHOTS[0]
+    runs16 = elim_case(h16, B27, 0.05)[0]
+    for name, (run, _, _, _) in runs16.items():
+        ints_equal(f"{name} device vs shared memory", in_mode("device", run),
+                   in_mode("shared", run))
+        t_sh = in_mode("shared", lambda: event_ms(run, 10))
+        t_dv = in_mode("device", lambda: event_ms(run, 10))
+        dmem[name + "_device"]["vs_shared"] = (t_sh, t_dv)
+        log(f"[27] {name} on hgp_34_n1600 H, {B27} shots: shared memory "
+            f"{t_sh:.4f} ms, device memory {t_dv:.4f} ms (outputs equal)")
+
+    # the min-sum kernels on three copies of [H|I] (2304 x 7104, ~300 KB a
+    # shot), in the mode the layout picks and with 32-bit planes in device
+    # memory, and kernel 1 on eleven copies (67,584 edges: 32-bit planes)
+    stack3 = block_diag(ext16, 3)
+    g3 = tbp.build_tanner_graph(stack3, dev)
+    head3 = bk.build_sparse_head(tbp.build_tanner_graph_host(stack3), dev)
+    B27m, it27 = 256, 50
+    synd3 = synd_of(stack3, B27m, 0.02)
+    llr3 = tbp.llr_from_probs(np.full(stack3.shape[1], 0.02), dev)
+    m3, n3 = stack3.shape
+    minsum27 = {
+        "bp_minsum": (lambda: bp_minsum(g3, synd3, llr3, max_iter=it27),
+                      False),
+        "bp_minsum_bf16": (lambda: bk.bp_head_bf16(
+            head3, synd3, llr3, head_iters=it27), True)}
+    for name, (run, bf) in minsum27.items():
+        counter = bp_minsum if name == "bp_minsum" else bk.bp_head_bf16
+        for mem in ("device", "device_planes"):
+            # "device" is the layout's own pick for the stack; the other
+            # mode is fixed
+            pick = "auto" if mem == "device" else mem
+            lay = bk.card_minsum_layout(dev, B27m, m3, n3, 8, 4, bf,
+                                        memory=pick)
+            if lay.memory != mem:
+                raise AssertionError(f"{name}: the three-copy stack took "
+                                     f"{lay.memory}, not {mem}")
+            before = getattr(counter, f"{mem}_launches")
+            k = run() if pick == "auto" else in_mode(mem, run)
+            if getattr(counter, f"{mem}_launches") != before + 1:
+                raise AssertionError(f"{name}: no {mem} launch counted")
+            with _kernels.force_plain():
+                pl27, plain_ms = once_ms(run)
+            err = bits_equal(f"{name} ({mem})", k, pl27)
+            bound, by = bp_bound_ms(g3, B27m, int(k[3].sum()))
+            key = f"{name}_{mem}"
+            dmem[key] = {"err": err,
+                         "ms": in_mode(mem, lambda: event_ms(run, 5)),
+                         "plain_ms": plain_ms, "bound": bound, "by": by,
+                         "source": "bp_minsum.cu",
+                         "replaces": "bp_pallas.py:740"}
+            log(f"[27] {name} {mem} == plain on three copies of [H|I] "
+                f"({m3}x{n3}, {bk.minsum_smem_bytes(1, m3, n3, 8, 4, bf)} B a "
+                f"shot), {B27m} shots, {it27} iterations; {lay.lanes} shots x "
+                f"{lay.threads // lay.lanes} threads, {lay.grid} blocks, "
+                f"{lay.smem_bytes} B shared, {lay.lane_bytes} B scratch a "
+                f"lane; {dmem[key]['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {bound:.4f} ms ({by})")
+    stack11 = block_diag(ext16, 11)
+    g11 = tbp.build_tanner_graph(stack11, dev)
+    synd11 = synd_of(stack11, 64, 0.02)
+    llr11 = tbp.llr_from_probs(np.full(stack11.shape[1], 0.02), dev)
+    before = bp_minsum.device_planes_launches
+    k = bp_minsum(g11, synd11, llr11, max_iter=20)
+    with _kernels.force_plain():
+        pl27 = bp_minsum(g11, synd11, llr11, max_iter=20)
+    torch.cuda.synchronize()
+    bits_equal("bp_minsum on 67,584 edges", k, pl27)
+    if bp_minsum.device_planes_launches != before + 1 or bk.planes16(
+            *stack11.shape, 8):
+        raise AssertionError("eleven copies of [H|I] missed the 32-bit planes")
+    log(f"[27] bp_minsum device_planes == plain on eleven copies of [H|I] "
+        f"({stack11.shape[0]}x{stack11.shape[1]}, "
+        f"{int(g11.chk_mask.sum())} edges: 32-bit planes), 64 shots")
+    # every min-sum mode at a shape all run: hgp_34_n1600's H, 4096 shots
+    g16 = tbp.build_tanner_graph(h16, dev)
+    head16 = bk.build_sparse_head(tbp.build_tanner_graph_host(h16), dev)
+    synd16 = synd_of(h16, 4096, 0.05)
+    llr16 = tbp.llr_from_probs(np.full(h16.shape[1], 0.05), dev)
+    for name, run in (
+            ("bp_minsum", lambda: bp_minsum(g16, synd16, llr16, max_iter=50)),
+            ("bp_minsum_bf16", lambda: bk.bp_head_bf16(
+                head16, synd16, llr16, head_iters=50))):
+        ref = in_mode("shared", run)
+        times = {}
+        for mem in _kernels.MEMORY_MODES:
+            bits_equal(f"{name} {mem} vs shared", in_mode(mem, run), ref)
+            times[mem] = in_mode(mem, lambda: event_ms(run, 5))
+        for mem in ("device", "device_planes"):
+            dmem[f"{name}_{mem}"]["vs_shared"] = (times["shared"], times[mem])
+        log(f"[27] {name} on hgp_34_n1600 H, 4096 shots, 50 iterations: "
+            + ", ".join(f"{mem} {t:.3f} ms" for mem, t in times.items())
+            + " (outputs equal)")
+
+    # 28-30. the phenomenological engine's main paths: counts reset just
+    # before each run, read just after
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BP_Decoder_Class,
+        BPOSD_Decoder_Class,
+        FirstMinBP_Decoder_Class,
+    )
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_Phenon
+
+    def ext(h):
+        return np.hstack([h, np.eye(h.shape[0], dtype=np.uint8)])
+
+    def phenom_sim(pcode, cls1, cls2, eval_p, batch, seed, **kw):
+        """CodeSimulator_Phenon as the JAX package's sweeps build a
+        phenomenological cell (sweep/family.py _phenl_sim): p = 3/2 eval_p,
+        q = eval_p, decoder 1 on [H|I], decoder 2 on H."""
+        p_data, q = eval_p, eval_p
+        d1 = [cls1.GetDecoder({"h": ext(h), "p_data": p_data, "p_syndrome": q})
+              for h in (pcode.hz, pcode.hx)]
+        d2 = [cls2.GetDecoder({"h": h, "p_data": p_data})
+              for h in (pcode.hz, pcode.hx)]
+        return CodeSimulator_Phenon(
+            code=pcode, decoder1_x=d1[0], decoder1_z=d1[1], decoder2_x=d2[0],
+            decoder2_z=d2[1], pauli_error_probs=[eval_p / 2] * 3, q=q,
+            seed=seed, batch_size=batch, scan_chunk=8, device=dev, **kw)
+
+    def phenom_phase(tag, sim, rounds, n_batches):
+        reads0 = (tbp.bp_decode_two_phase.host_reads, decode_device.host_reads)
+        torch.cuda.synchronize()
+        t = time.time()
+        wer, eb = sim.WordErrorRate(rounds, n_batches * sim.batch_size)
+        dt = time.time() - t
+        reads = (tbp.bp_decode_two_phase.host_reads - reads0[0],
+                 decode_device.host_reads - reads0[1])
+        log(f"[{tag}] failures {sim.last_failures} shots {sim.last_shots} "
+            f"rounds {rounds} WER/cycle {wer:.6e} +- {eb:.3e} min_w "
+            f"{sim.min_logical_weight} {sim.last_shots / dt:.1f} shots/s "
+            f"({dt:.2f} s); host reads per batch: two-phase "
+            f"{reads[0] / n_batches:.2f}, OSD tier {reads[1] / n_batches:.2f}, "
+            f"megabatch {sim.last_megabatches / n_batches:.3f}")
+        return sim.last_failures, sim.min_logical_weight
+
+    def pinned(tag, run):
+        if tuple(run) != PHENOM_RUNS[tag]:
+            raise AssertionError(f"phase {tag} (failures, min_w) {run} != "
+                                 f"{PHENOM_RUNS[tag]}")
+
+    bp30 = BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
+    osd_e10 = BPOSD_Decoder_Class(10, "minimum_sum", 0.625, "osd_e", 10,
+                                  device=dev)
+    sim28 = phenom_sim(code, bp30, osd_e10, PHENOM_P, 2048, SEED)
+    run28, launches_28 = counted(lambda: phenom_phase(
+        f"28 phenom BP/BPOSD-E n625 eval_p={PHENOM_P}", sim28, 9, 8))
+    log(f"[28] launches {launches_28}")
+    if run28[0] < 50:
+        raise AssertionError(f"phase 28 counted {run28[0]} failures (< 50)")
+    for name in ("bp_minsum_bf16", "osd_elim"):
+        if launches_28[name] <= 0:
+            raise AssertionError(f"{name} never launched in phase 28")
+    pinned("28", run28)
+
+    sim29 = phenom_sim(code, FirstMinBP_Decoder_Class(
+        5, "minimum_sum", 0.9, device=dev), osd_e10, PHENOM29_P, 2048, SEED)
+    run29, launches_29 = counted(lambda: phenom_phase(
+        f"29 phenom FirstMin/BPOSD-E n625 eval_p={PHENOM29_P}", sim29, 11,
+        1))
+    log(f"[29] launches {launches_29}")
+    if launches_29["osd_elim"] <= 0:
+        raise AssertionError("osd_elim never launched in phase 29")
+    pinned("29", run29)
+
+    with np.load(ROOT / "codes_lib_tpu" / "hgp_34_n1600.npz") as z16:
+        code16 = SimpleNamespace(N=int(z16["hx"].shape[1]),
+                                 K=int(z16["lx"].shape[0]),
+                                 **{k: z16[k].astype(np.uint8)
+                                    for k in ("hx", "hz", "lx", "lz")})
+    osd0 = [BPOSD_Decoder_Class(ratio, "minimum_sum", 0.625, "osd_0", 0,
+                                device=dev) for ratio in (30, 10)]
+    sim30 = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
+    run30, launches_30 = counted(lambda: phenom_phase(
+        "30 phenom BPOSD-0/BPOSD-0 n1600 eval_p=0.02", sim30, 9, 2))
+    log(f"[30] launches {launches_30}; the elimination's device-memory "
+        f"route {launches_30['osd_elim_device']} of "
+        f"{launches_30['osd_elim']} launches")
+    if launches_30["osd_elim_device"] <= 0:
+        raise AssertionError("phase 30 never took the elimination's "
+                             "device-memory route")
+    pinned("30", run30)
+
+    # 31. anchors
+    sim31 = phenom_sim(code, bp30, osd_e10, 0.0, 2048, SEED)
+    sim31.WordErrorRate(9, 2 * 2048)
+    if sim31.last_failures != 0:
+        raise AssertionError(f"{sim31.last_failures} failures at p = q = 0")
+    key31 = (7, SEED)
+    got31 = []
+    for plain in (False, True):
+        s = phenom_sim(code, bp30, osd_e10, PHENOM_P, 2048, SEED)
+        if plain:
+            with _kernels.force_plain():
+                s.WordErrorRate(9, 2048, key=key31)
+        else:
+            s.WordErrorRate(9, 2048, key=key31)
+        got31.append((s.last_failures, s.min_logical_weight))
+    s = phenom_sim(code, bp30, osd_e10, PHENOM_P, 2048, SEED, packed=False)
+    s.WordErrorRate(9, 2048, key=key31)
+    got31.append((s.last_failures, s.min_logical_weight))
+    if got31[1] != got31[0] or got31[2] != got31[0]:
+        raise AssertionError(f"phase 28 batch: kernels {got31[0]}, plain "
+                             f"{got31[1]}, packed=False {got31[2]}")
+    log(f"[31] p = q = 0: 0 failures in {sim31.last_shots} shots; one phase "
+        f"28 batch: kernel path == plain path == packed=False "
+        f"(failures, min_w) {got31[0]}")
+    # one phase-30 batch: kernel 1 and the bf16 head on [H|I] of
+    # hgp_34_n1600 and the elimination's device-memory mode at the 2048-shot
+    # tier, against the same batch with every kernel replaced by its plain
+    # version
+    s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
+    _, l30 = counted(lambda: s.WordErrorRate(9, 2048, key=key31))
+    got30 = [(s.last_failures, s.min_logical_weight)]
+    if min(l30["bp_minsum_bf16"], l30["bp_minsum"],
+           l30["osd_elim_device"]) <= 0:
+        raise AssertionError(f"the phase 30 batch missed a kernel: {l30}")
+    s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
+    t = time.time()
+    with _kernels.force_plain():
+        s.WordErrorRate(9, 2048, key=key31)
+    got30.append((s.last_failures, s.min_logical_weight))
+    if got30[1] != got30[0]:
+        raise AssertionError(f"phase 30 batch: kernels {got30[0]}, plain "
+                             f"{got30[1]}")
+    log(f"[31] one phase 30 batch (launches {l30}): kernel path == plain "
+        f"path (failures, min_w) {got30[0]} (plain {time.time() - t:.1f} s)")
+    # fused v2 on six copies of hgp_34_n625 (n = 3750: one fused shot needs
+    # more than a block's shared memory) runs as fused v1, counted
+    with np.load(CODE) as z6:
+        code6 = SimpleNamespace(**{k: block_diag(z6[k], 6)
+                                   for k in ("hx", "hz", "lx", "lz")})
+    code6.N, code6.K = code6.hx.shape[1], code6.lx.shape[0]
+    probs6 = np.full(code6.N, 0.01 * 2 / 3)
+    fused6 = []
+    for fused in ("v2", True):
+        before = CodeSimulator_DataError.fused_fallbacks
+        s = CodeSimulator_DataError(
+            code=code6, decoder_x=BPDecoder(code6.hz, probs6, 50, device=dev),
+            decoder_z=BPDecoder(code6.hx, probs6, 50, device=dev),
+            pauli_error_probs=[0.01 / 3] * 3, seed=SEED, batch_size=4096,
+            fused_sampler=fused, device=dev)
+        fell = CodeSimulator_DataError.fused_fallbacks - before
+        if fell != (fused == "v2") or s._fused_sampler is not True:
+            raise AssertionError(f"fused_sampler={fused!r} on six copies of "
+                                 f"hgp_34_n625: fallback {fell}")
+        _, fl = counted(lambda s=s: s.WordErrorRate(2 * 4096))
+        if fl["fused_decode"] or fl["gf2_sample"] <= 0:
+            raise AssertionError(f"the fallback ran {fl}")
+        fused6.append((s.last_failures, s.min_logical_weight))
+    if fused6[0] != fused6[1]:
+        raise AssertionError(f"fused v2 fallback {fused6[0]} != v1 {fused6[1]}")
+    log(f"[31] fused_sampler='v2' on six copies of hgp_34_n625 (n=3750) ran "
+        f"as fused v1 (fused_fallbacks +1; no fused_decode launch): "
+        f"(failures, min_w) {fused6[0]} == v1's")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -1509,6 +1935,16 @@ def main() -> int:
          "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
          "bound_by": bf16_by, "library_ms": None},
     ]
+    # the device-memory modes (phase 27), with their launches on the
+    # phenomenological main paths (phases 28-30)
+    for key, d in dmem.items():
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{PKG}/csrc/{d['source']}",
+            "replaces": f"qldpc_fault_tolerance_tpu/ops/{d['replaces']}",
+            "launches": sum(run[key] for run in (
+                launches_28, launches_29, launches_30)),
+            "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound"], "bound_by": d["by"], "library_ms": None})
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

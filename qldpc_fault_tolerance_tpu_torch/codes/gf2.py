@@ -16,6 +16,7 @@ __all__ = [
     "nullspace",
     "row_basis",
     "gf2_mul",
+    "block_diag",
     "IncrementalRowReducer",
 ]
 
@@ -91,6 +92,17 @@ def row_basis(a) -> np.ndarray:
     """A basis (subset of reduced rows) of the row space of ``a``."""
     r, pivots = rref(a)
     return r[: len(pivots)].copy()
+
+
+def block_diag(a, copies: int) -> np.ndarray:
+    """The block-diagonal stack of ``copies`` copies of the 0/1 matrix
+    ``a`` (uint8): ``copies`` independent codes as one graph."""
+    a = to_gf2(a)
+    m, n = a.shape
+    out = np.zeros((copies * m, copies * n), np.uint8)
+    for k in range(copies):
+        out[k * m:(k + 1) * m, k * n:(k + 1) * n] = a
+    return out
 
 
 def gf2_mul(a, b) -> np.ndarray:

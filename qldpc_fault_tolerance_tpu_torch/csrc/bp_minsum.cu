@@ -51,6 +51,23 @@
 // shot (float32), 14,240 B and 15,424 B (bf16).  Device memory sees each
 // shot's syndrome and LLRs read once and its outputs written once.
 //
+// Device-memory modes (kMem, a template flag; ops/bp_kernel.py
+// minsum_layout picks them where one shot's messages do not fit beside the
+// staged planes in the 232,448 bytes a block may take):
+//   kMem 1: each lane's c2v, v2c, totals and syndrome live in a device
+//     scratch (grid x lanes regions of the per-lane bytes above, region
+//     blockIdx.x * lanes + lane); the 16-bit planes and shared channel
+//     LLRs stay staged in shared memory;
+//   kMem 2: the planes do not fit a block, or 16 bits cannot number the
+//     graph's edges and variables (65,535 or more): 32-bit planes and the
+//     channel LLRs are read from device memory, no shared memory is
+//     staged, and the lanes live in the scratch as in kMem 1.
+// The loop, its order and its arithmetic are those of kMem 0, so the
+// outputs are bit for bit the same; a lane barrier orders the lane's
+// device-memory writes as it orders its shared ones.  kMem 0 (the shared-
+// memory mode every shipped code takes) is unchanged; the scratch is the
+// kernel's last argument, so the others keep their offsets.
+//
 // Registers: __launch_bounds__(1024, 1) keeps ptxas from squeezing a
 // 1024-thread block into 32 registers with spills (54-56 registers, one
 // block per SM; the layout rule counts on that).
@@ -61,6 +78,8 @@
 // totals.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "minsum_body.cuh"
 
@@ -92,7 +111,7 @@ struct Offsets {
   }
 };
 
-template <class Msg>
+template <class Msg, int kMem>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
                  const float* __restrict__ llr,        // (n,) or (B, n)
@@ -106,7 +125,8 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
                  int32_t* __restrict__ iters,          // (B,)
                  int* __restrict__ next,               // claims, 0 at launch
                  int m, int n, int rw, int cw, int B, int max_iter,
-                 float scale, int tpl) {
+                 float scale, int tpl,
+                 unsigned char* lanes_g) {  // lane regions; kMem > 0
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_shot[kMaxLanes][2];
   const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
@@ -115,18 +135,23 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   uint16_t* edge = (uint16_t*)(smem + o.edge);
   uint8_t* slot = smem + o.slot;
   float* llr_s = (float*)(smem + o.llr);
-  const int E = m * rw, V = n * cw;
-  for (int k = threadIdx.x; k < E; k += blockDim.x) chk[k] = chk_g[k];
-  for (int k = threadIdx.x; k < V; k += blockDim.x) {
-    edge[k] = edge_g[k];
-    if (Msg::kBf16) slot[k] = slot_g[k];
+  if (kMem < 2) {
+    const int E = m * rw, V = n * cw;
+    for (int k = threadIdx.x; k < E; k += blockDim.x) chk[k] = chk_g[k];
+    for (int k = threadIdx.x; k < V; k += blockDim.x) {
+      edge[k] = edge_g[k];
+      if (Msg::kBf16) slot[k] = slot_g[k];
+    }
+    if (!llr_per_shot)
+      for (int j = threadIdx.x; j < n; j += blockDim.x) llr_s[j] = llr[j];
+    __syncthreads();
   }
-  if (!llr_per_shot)
-    for (int j = threadIdx.x; j < n; j += blockDim.x) llr_s[j] = llr[j];
-  __syncthreads();
 
   const int lane = threadIdx.x / tpl, r = threadIdx.x % tpl;
-  unsigned char* mine = smem + o.lanes + lane * o.lane;
+  unsigned char* mine =
+      kMem == 0 ? smem + o.lanes + lane * o.lane
+                : lanes_g + ((size_t)blockIdx.x * (blockDim.x / tpl) + lane) *
+                                o.lane;
   float* c2v = (float*)mine;
   auto* v2c = (typename Msg::T*)(mine + o.v2c);
   float* tot = (float*)(mine + o.tot);
@@ -134,9 +159,16 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
 
   // the channel LLR of variable v for shot b
   auto llr0 = [&](int b, int v) {
-    return llr_per_shot ? __ldg(llr + (size_t)b * n + v) : llr_s[v];
+    return llr_per_shot ? __ldg(llr + (size_t)b * n + v)
+           : kMem == 2  ? __ldg(llr + v)
+                        : llr_s[v];
   };
-  const minsum::Planes g{chk, edge, slot, m, n, rw, cw};
+  using G = typename std::conditional<kMem == 2, minsum::Planes32,
+                                      minsum::Planes>::type;
+  using Idx = typename G::Index;
+  const G g{kMem == 2 ? (const Idx*)chk_g : (const Idx*)chk,
+            kMem == 2 ? (const Idx*)edge_g : (const Idx*)edge,
+            kMem == 2 ? slot_g : slot, m, n, rw, cw};
 
   for (int k = 0;; ++k) {
     // the slot alternates, so a claim never overwrites one a thread of the
@@ -176,33 +208,79 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   }
 }
 
-template <class Msg>
+template <class Msg, int kMem>
 int set_smem(int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(bp_minsum_kernel<Msg>,
+  return (int)cudaFuncSetAttribute(bp_minsum_kernel<Msg, kMem>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes);
 }
 
+template <class Msg, int kMem>
+int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
+               const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
+               uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
+               int* next, int m, int n, int rw, int cw, int B, int max_iter,
+               float scale, int lanes, int tpl, int grid, int smem_bytes,
+               unsigned char* lanes_g, void* stream) {
+  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
+                  !llr_per_shot);
+  // the shared memory each mode stages
+  const long long need = kMem == 0 ? (long long)(o.lanes + lanes * o.lane)
+                         : kMem == 1 ? (long long)o.lanes
+                                     : 0;
+  if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
+      lanes * tpl > kMaxThreads || rw < 1 || rw > 32 || grid < 1 ||
+      smem_bytes < need || (kMem > 0 && lanes_g == nullptr))
+    return -1;
+  const int e = set_smem<Msg, kMem>(smem_bytes);
+  if (e != 0) return e;
+  bp_minsum_kernel<Msg, kMem>
+      <<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
+          synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters,
+          next, m, n, rw, cw, B, max_iter, scale, tpl, lanes_g);
+  return (int)cudaGetLastError();
+}
+
+// mem 0: the shared-memory mode; 1 and 2: the device-memory modes, lanes
+// in `lanes_g` (chk and edge then 32-bit planes in mode 2)
 template <class Msg>
 int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
            uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
            int* next, int m, int n, int rw, int cw, int B, int max_iter,
-           float scale, int lanes, int tpl, int grid, int smem_bytes,
-           void* stream) {
-  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
-                  !llr_per_shot);
-  if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
-      lanes * tpl > kMaxThreads || rw < 1 || rw > 32 || grid < 1 ||
-      (size_t)smem_bytes < o.lanes + lanes * o.lane)
-    return -1;
-  const int e = set_smem<Msg>(smem_bytes);
+           float scale, int lanes, int tpl, int grid, int smem_bytes, int mem,
+           unsigned char* lanes_g, void* stream) {
+#define BP_MINSUM_LAUNCH(MEM)                                                 \
+  return launch_mem<Msg, MEM>(synd, llr0, llr_per_shot, chk, edge, slot, err, \
+                              post, conv, iters, next, m, n, rw, cw, B,       \
+                              max_iter, scale, lanes, tpl, grid, smem_bytes,  \
+                              lanes_g, stream)
+  switch (mem) {
+    case 0: BP_MINSUM_LAUNCH(0);
+    case 1: BP_MINSUM_LAUNCH(1);
+    case 2: BP_MINSUM_LAUNCH(2);
+    default: return -1;
+  }
+#undef BP_MINSUM_LAUNCH
+}
+
+template <class Msg, int kMem>
+int resident_mem(int threads, int smem_bytes, int* blocks) {
+  const int e = set_smem<Msg, kMem>(smem_bytes);
   if (e != 0) return e;
-  bp_minsum_kernel<Msg><<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
-      synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, next,
-      m, n, rw, cw, B, max_iter, scale, tpl);
-  return (int)cudaGetLastError();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, bp_minsum_kernel<Msg, kMem>, threads, smem_bytes);
+}
+
+template <class Msg>
+int resident(int threads, int smem_bytes, int mem, int* blocks) {
+  switch (mem) {
+    case 0: return resident_mem<Msg, 0>(threads, smem_bytes, blocks);
+    case 1: return resident_mem<Msg, 1>(threads, smem_bytes, blocks);
+    case 2: return resident_mem<Msg, 2>(threads, smem_bytes, blocks);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -213,11 +291,12 @@ extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
                                 float* post, uint8_t* conv, int32_t* iters,
                                 int* next, int m, int n, int rw, int cw, int B,
                                 int max_iter, float scale, int lanes, int tpl,
-                                int grid, int smem_bytes, void* stream) {
+                                int grid, int smem_bytes, int mem,
+                                unsigned char* lanes_g, void* stream) {
   return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
                                 err, post, conv, iters, next, m, n, rw, cw, B,
                                 max_iter, scale, lanes, tpl, grid, smem_bytes,
-                                stream);
+                                mem, lanes_g, stream);
 }
 
 // the bf16 head: one channel-LLR vector shared by the shots
@@ -229,23 +308,19 @@ extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
                                      int32_t* iters, int* next, int m, int n,
                                      int rw, int cw, int B, int max_iter,
                                      float scale, int lanes, int tpl,
-                                     int grid, int smem_bytes, void* stream) {
+                                     int grid, int smem_bytes, int mem,
+                                     unsigned char* lanes_g, void* stream) {
   return launch<minsum::Bf16Msg>(synd, llr0, 0, chk, edge, slot, err, post,
                                  conv, iters, next, m, n, rw, cw, B, max_iter,
-                                 scale, lanes, tpl, grid, smem_bytes, stream);
+                                 scale, lanes, tpl, grid, smem_bytes, mem,
+                                 lanes_g, stream);
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM
-// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// holds at once in memory mode `mem`
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 extern "C" int bp_minsum_resident(int bf16, int threads, int smem_bytes,
-                                  int* blocks) {
-  int e = bf16 ? set_smem<minsum::Bf16Msg>(smem_bytes)
-               : set_smem<minsum::F32Msg>(smem_bytes);
-  if (e != 0) return e;
-  return (int)(bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, bp_minsum_kernel<minsum::Bf16Msg>, threads,
-                          smem_bytes)
-                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, bp_minsum_kernel<minsum::F32Msg>, threads,
-                          smem_bytes));
+                                  int mem, int* blocks) {
+  return bf16 ? resident<minsum::Bf16Msg>(threads, smem_bytes, mem, blocks)
+              : resident<minsum::F32Msg>(threads, smem_bytes, mem, blocks);
 }

@@ -162,14 +162,22 @@ __device__ __forceinline__ float gather_total(float total) {
   return Msg::kBf16 ? bf16_round(total) : total;
 }
 
-// The graph as the kernels stage it in shared memory (ops/bp_kernel.py
-// minsum_planes): edge s * m + i is check i's slot-s edge.
-struct Planes {
-  const uint16_t* chk;   // (rw, m): the variable of each edge, kPad if none
-  const uint16_t* edge;  // (cw, n): variable j's t-th edge in summation order
-  const uint8_t* slot;   // (cw, n): that edge's slot (Bf16Msg only)
+// The graph as the kernels read it (ops/bp_kernel.py minsum_planes): edge
+// s * m + i is check i's slot-s edge.  16-bit planes (Planes) are staged in
+// shared memory; 32-bit ones (Planes32, for graphs that 16 bits cannot
+// number or whose planes do not fit a block) are read from device memory.
+template <class Idx>
+struct PlanesT {
+  // a padded entry as the int it loads as
+  using Index = Idx;
+  static constexpr int kPad = sizeof(Idx) == 2 ? minsum::kPad : -1;
+  const Idx* chk;       // (rw, m): the variable of each edge, kPad if none
+  const Idx* edge;      // (cw, n): variable j's t-th edge in summation order
+  const uint8_t* slot;  // (cw, n): that edge's slot (Bf16Msg only)
   int m, n, rw, cw;
 };
+using Planes = PlanesT<uint16_t>;
+using Planes32 = PlanesT<uint32_t>;
 
 // One shot's decode, max_iter >= 1 iterations at most, on a lane of `tpl`
 // threads (whole warps) with its own named barrier; thread r of the lane
@@ -177,7 +185,9 @@ struct Planes {
 // check i's syndrome bit (called once, by check i's thread, and kept in
 // syn) and llr0(j) variable j's channel LLR.  Per lane shared memory holds
 // c2v at [s * m + i] (4 bytes per edge), v2c at the same index, the totals
-// (4 * n) and the syndrome (m).  One iteration is two lane barriers:
+// (4 * n) and the syndrome (m); in shared memory, or in device memory for
+// the min-sum kernels' device-memory modes (a lane barrier orders either).
+// One iteration is two lane barriers:
 //   variable pass  totals (kept in shared memory), new v2c;   lane_sync
 //   check pass     parity of those totals and, unless it was the last
 //                  iteration, the next check update;          lane_sync_or
@@ -188,8 +198,8 @@ struct Planes {
 // totals, which each thread may read back for its own variables without a
 // barrier.  c2v, v2c and syn are free on return (the last barrier followed
 // every read of them); tot once the lane has passed its next barrier.
-template <class Msg, class Synd, class Llr>
-__device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
+template <class Msg, class Synd, class Llr, class G>
+__device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
                                             Llr llr0, float* c2v,
                                             typename Msg::T* v2c, float* tot,
                                             uint8_t* syn, int max_iter,
@@ -209,7 +219,7 @@ __device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
     unsigned live = 0u;
     const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
       const int v = g.chk[s * m + i];
-      if (v == kPad) return false;
+      if (v == G::kPad) return false;
       live |= 1u << s;
       x = Msg::load(Msg::store(llr0(v)));
       return true;
@@ -223,7 +233,7 @@ __device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
     for (int j = r; j < n; j += tpl) {
       const float total = var_total<Msg>(llr0(j), cw, [&](int t, float& c, int& s) {
         const int e = g.edge[t * n + j];
-        if (e == kPad) return false;
+        if (e == G::kPad) return false;
         s = Msg::kBf16 ? g.slot[t * n + j] : 0;
         c = c2v[e];
         return true;
@@ -231,7 +241,7 @@ __device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
       const float t_e = gather_total<Msg>(total);
       for (int t = 0; t < cw; ++t) {
         const int e = g.edge[t * n + j];
-        if (e != kPad) v2c[e] = Msg::store(t_e - c2v[e]);
+        if (e != G::kPad) v2c[e] = Msg::store(t_e - c2v[e]);
       }
       tot[j] = total;
     }
@@ -246,7 +256,7 @@ __device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
       if (it < max_iter) {
         const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
           const int e = s * m + i, v = g.chk[e];
-          if (v == kPad) return false;
+          if (v == G::kPad) return false;
           live |= 1u << s;
           par ^= gather_total<Msg>(tot[v]) < 0.f;
           x = Msg::load(v2c[e]);
@@ -256,7 +266,7 @@ __device__ __forceinline__ bool lane_decode(const Planes& g, Synd synd,
       } else {
         for (int s = 0; s < rw; ++s) {
           const int v = g.chk[s * m + i];
-          if (v != kPad) par ^= gather_total<Msg>(tot[v]) < 0.f;
+          if (v != G::kPad) par ^= gather_total<Msg>(tot[v]) < 0.f;
         }
       }
       fail |= (par & 1u) != 0u;

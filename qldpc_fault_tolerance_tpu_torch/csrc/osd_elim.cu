@@ -67,8 +67,21 @@
 //     128-512 shots get 256-640 threads each and 2048 shots 128.
 //
 // Shared memory per block: 4 * (mW * P + mW + 6 + 32 + 2 m) bytes: 27,672
-// at hgp_34_n625, 98,184 at n1225 and 160,088 at n1600 (the wrapper refuses
-// more than 232,448).  Syndromes are 0/1 words.
+// at hgp_34_n625, 98,184 at n1225 and 160,088 at n1600.  Syndromes are 0/1
+// words.
+//
+// Device-memory mode (kGlobal, a template flag; ops/osd_device.py
+// elim_layout picks it where one shot's matrix does not fit the 232,448
+// bytes a block may take, e.g. [H|I] of hgp_34_n1600, 768 x 2368, 233,816
+// bytes).  The shot's column-packed matrix and syndrome live in a
+// per-launch scratch tensor, mW * P words per shot (block b's at
+// scratch + b * mW * P, same layout); the used rows, the walk's state, the
+// free positions and the pivots stay in shared memory, 4 * (mW + 6 + 32 +
+// 2 m) bytes.  The walk, its order and its arithmetic are the
+// shared-memory mode's, so the outputs are bit for bit the same;
+// __syncthreads orders the block's device-memory writes as it orders its
+// shared ones.  The shared-memory instantiations are unchanged.  The
+// scratch is the last kernel argument, so the others keep their offsets.
 //
 // Bound: integer word operations on shared memory.  A pivot step tests one
 // word of each column right of t and XORs the pivot column's words into the
@@ -193,7 +206,7 @@ __device__ int scan(Walk& wk, const uint32_t* A, uint32_t* U, int* out,
   return -1;
 }
 
-template <int kMode, int kWl>
+template <int kMode, int kWl, bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 osd_elim_kernel(const int32_t* __restrict__ colpack,  // (n, mW)
                 const int64_t* __restrict__ perm,     // (B, n)
@@ -205,7 +218,8 @@ osd_elim_kernel(const int32_t* __restrict__ colpack,  // (n, mW)
                 int32_t* __restrict__ fpos,           // (32, B) zeroed; not kPercol
                 int32_t* __restrict__ packed_out,     // (W, m, B); not kSkip
                 int32_t* __restrict__ ip,             // (n, B) zeroed; kPercol
-                int m, int n, int r_star, int fcap, int B) {
+                int m, int n, int r_star, int fcap, int B,
+                uint32_t* scratch) {               // (B, mW, P); kGlobal
   extern __shared__ uint32_t smem[];
   const int mW = (m + 31) >> 5;
   const int P = (n + 1) | 1;
@@ -214,8 +228,9 @@ osd_elim_kernel(const int32_t* __restrict__ colpack,  // (n, mW)
   const int warp = tid >> 5;
   const int nt = blockDim.x;
   const int nw = nt >> 5;
-  uint32_t* A = smem;                      // (mW, P): columns, syndrome at n
-  uint32_t* U = A + (size_t)mW * P;        // (mW): used rows (warp 0's)
+  // (mW, P): columns, syndrome at n
+  uint32_t* A = kGlobal ? scratch + (size_t)blockIdx.x * mW * P : smem;
+  uint32_t* U = kGlobal ? smem : A + (size_t)mW * P;  // (mW): used rows
   int* slot = (int*)(U + mW);              // (2, 2): pivot column and row
   int* counts = slot + 4;                  // (2): pivots, free columns
   int* fpos_s = counts + 2;                // (32): free columns
@@ -429,27 +444,46 @@ inline int window_words(int mW) {
   return need <= 4 ? need : need <= 6 ? 6 : need <= 8 ? 8 : 1;
 }
 
-template <int kMode, int kWl>
+template <int kMode, int kWl, bool kGlobal>
 int set_smem(int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(osd_elim_kernel<kMode, kWl>,
+  return (int)cudaFuncSetAttribute(osd_elim_kernel<kMode, kWl, kGlobal>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes);
 }
 
+template <int kMode, int kWl, bool kGlobal>
+int launch_mem(const int32_t* colpack, const int64_t* perm,
+               const int32_t* synd_in, int32_t* synd_out, int32_t* pr,
+               int32_t* pc, int32_t* fword, int32_t* fpos,
+               int32_t* packed_out, int32_t* ip, int m, int n, int r_star,
+               int fcap, int B, int threads, int smem_bytes,
+               uint32_t* scratch, void* stream) {
+  const int e = set_smem<kMode, kWl, kGlobal>(smem_bytes);
+  if (e != 0) return e;
+  osd_elim_kernel<kMode, kWl, kGlobal>
+      <<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+          colpack, perm, synd_in, synd_out, pr, pc, fword, fpos, packed_out,
+          ip, m, n, r_star, fcap, B, scratch);
+  return (int)cudaGetLastError();
+}
+
+// the shared-memory mode, or with a scratch tensor the device-memory mode
 template <int kMode, int kWl>
 int launch_wl(const int32_t* colpack, const int64_t* perm,
               const int32_t* synd_in, int32_t* synd_out, int32_t* pr,
               int32_t* pc, int32_t* fword, int32_t* fpos, int32_t* packed_out,
               int32_t* ip, int m, int n, int r_star, int fcap, int B,
-              int threads, int smem_bytes, void* stream) {
-  const int e = set_smem<kMode, kWl>(smem_bytes);
-  if (e != 0) return e;
-  osd_elim_kernel<kMode, kWl>
-      <<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
-          colpack, perm, synd_in, synd_out, pr, pc, fword, fpos, packed_out,
-          ip, m, n, r_star, fcap, B);
-  return (int)cudaGetLastError();
+              int threads, int smem_bytes, uint32_t* scratch, void* stream) {
+  return scratch != nullptr
+             ? launch_mem<kMode, kWl, true>(
+                   colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
+                   packed_out, ip, m, n, r_star, fcap, B, threads, smem_bytes,
+                   scratch, stream)
+             : launch_mem<kMode, kWl, false>(
+                   colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
+                   packed_out, ip, m, n, r_star, fcap, B, threads, smem_bytes,
+                   nullptr, stream);
 }
 
 template <int kMode>
@@ -457,14 +491,14 @@ int launch(const int32_t* colpack, const int64_t* perm, const int32_t* synd_in,
            int32_t* synd_out, int32_t* pr, int32_t* pc, int32_t* fword,
            int32_t* fpos, int32_t* packed_out, int32_t* ip, int m, int n,
            int r_star, int fcap, int B, int threads, int smem_bytes,
-           void* stream) {
+           uint32_t* scratch, void* stream) {
   // warp 0 walks and clears the columns after the pivot, the others the
   // rest: a block has two warps at least
   if (threads < 64 || threads % 32) return (int)cudaErrorInvalidValue;
 #define OSD_ELIM_LAUNCH(WL)                                                   \
   return launch_wl<kMode, WL>(colpack, perm, synd_in, synd_out, pr, pc,       \
                               fword, fpos, packed_out, ip, m, n, r_star,      \
-                              fcap, B, threads, smem_bytes, stream)
+                              fcap, B, threads, smem_bytes, scratch, stream)
   switch (window_words((m + 31) >> 5)) {
     case 2: OSD_ELIM_LAUNCH(2);
     case 3: OSD_ELIM_LAUNCH(3);
@@ -476,23 +510,29 @@ int launch(const int32_t* colpack, const int64_t* perm, const int32_t* synd_in,
 #undef OSD_ELIM_LAUNCH
 }
 
-template <int kMode, int kWl>
-int resident_wl(int threads, int smem_bytes, int* blocks) {
-  const int e = set_smem<kMode, kWl>(smem_bytes);
+template <int kMode, int kWl, bool kGlobal>
+int resident_mem(int threads, int smem_bytes, int* blocks) {
+  const int e = set_smem<kMode, kWl, kGlobal>(smem_bytes);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, osd_elim_kernel<kMode, kWl>, threads, smem_bytes);
+      blocks, osd_elim_kernel<kMode, kWl, kGlobal>, threads, smem_bytes);
+}
+
+template <int kMode, int kWl>
+int resident_wl(int threads, int smem_bytes, int global, int* blocks) {
+  return global ? resident_mem<kMode, kWl, true>(threads, smem_bytes, blocks)
+                : resident_mem<kMode, kWl, false>(threads, smem_bytes, blocks);
 }
 
 template <int kMode>
-int resident(int m, int threads, int smem_bytes, int* blocks) {
+int resident(int m, int threads, int smem_bytes, int global, int* blocks) {
   switch (window_words((m + 31) >> 5)) {
-    case 2: return resident_wl<kMode, 2>(threads, smem_bytes, blocks);
-    case 3: return resident_wl<kMode, 3>(threads, smem_bytes, blocks);
-    case 4: return resident_wl<kMode, 4>(threads, smem_bytes, blocks);
-    case 6: return resident_wl<kMode, 6>(threads, smem_bytes, blocks);
-    case 8: return resident_wl<kMode, 8>(threads, smem_bytes, blocks);
-    default: return resident_wl<kMode, 1>(threads, smem_bytes, blocks);
+    case 2: return resident_wl<kMode, 2>(threads, smem_bytes, global, blocks);
+    case 3: return resident_wl<kMode, 3>(threads, smem_bytes, global, blocks);
+    case 4: return resident_wl<kMode, 4>(threads, smem_bytes, global, blocks);
+    case 6: return resident_wl<kMode, 6>(threads, smem_bytes, global, blocks);
+    case 8: return resident_wl<kMode, 8>(threads, smem_bytes, global, blocks);
+    default: return resident_wl<kMode, 1>(threads, smem_bytes, global, blocks);
   }
 }
 
@@ -503,10 +543,10 @@ extern "C" int osd_elim_launch(const int32_t* colpack, const int64_t* perm,
                                int32_t* pr, int32_t* pc, int32_t* fword,
                                int32_t* fpos, int m, int n, int r_star,
                                int fcap, int B, int threads, int smem_bytes,
-                               void* stream) {
+                               uint32_t* scratch, void* stream) {
   return launch<kSkip>(colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                        nullptr, nullptr, m, n, r_star, fcap, B, threads,
-                       smem_bytes, stream);
+                       smem_bytes, scratch, stream);
 }
 
 extern "C" int osd_elim_full_launch(const int32_t* colpack,
@@ -516,10 +556,10 @@ extern "C" int osd_elim_full_launch(const int32_t* colpack,
                                     int32_t* fpos, int32_t* packed_out, int m,
                                     int n, int r_star, int fcap, int B,
                                     int threads, int smem_bytes,
-                                    void* stream) {
+                                    uint32_t* scratch, void* stream) {
   return launch<kFull>(colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                        packed_out, nullptr, m, n, r_star, fcap, B, threads,
-                       smem_bytes, stream);
+                       smem_bytes, scratch, stream);
 }
 
 extern "C" int osd_elim_percol_launch(const int32_t* colpack,
@@ -529,18 +569,21 @@ extern "C" int osd_elim_percol_launch(const int32_t* colpack,
                                       int32_t* pc, int32_t* ip,
                                       int32_t* packed_out, int m, int n,
                                       int r_star, int B, int threads,
-                                      int smem_bytes, void* stream) {
+                                      int smem_bytes, uint32_t* scratch,
+                                      void* stream) {
   return launch<kPercol>(colpack, perm, synd_in, synd_out, pr, pc, nullptr,
                          nullptr, packed_out, ip, m, n, r_star, 0, B, threads,
-                         smem_bytes, stream);
+                         smem_bytes, scratch, stream);
 }
 
-// blocks of mode `mode` for m rows with `threads` threads and `smem_bytes`
-// of shared memory that one SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// blocks of mode `mode` (in device memory when `global`) for m rows with
+// `threads` threads and `smem_bytes` of shared memory that one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 extern "C" int osd_elim_resident(int mode, int m, int threads, int smem_bytes,
-                                 int* blocks) {
-  return mode == kSkip   ? resident<kSkip>(m, threads, smem_bytes, blocks)
-         : mode == kFull ? resident<kFull>(m, threads, smem_bytes, blocks)
-                         : resident<kPercol>(m, threads, smem_bytes, blocks);
+                                 int global, int* blocks) {
+  return mode == kSkip
+             ? resident<kSkip>(m, threads, smem_bytes, global, blocks)
+         : mode == kFull
+             ? resident<kFull>(m, threads, smem_bytes, global, blocks)
+             : resident<kPercol>(m, threads, smem_bytes, global, blocks);
 }

@@ -4,6 +4,8 @@ from .bp_decoders import (
     BPOSD_Decoder,
     BPOSD_Decoder_Class,
     DecoderClass,
+    FirstMinBP_Decoder_Class,
+    FirstMinBPDecoder,
     decode_device,
     kernel_variant,
     osd_compaction_tiers,
@@ -16,6 +18,8 @@ __all__ = [
     "DecoderClass",
     "BP_Decoder_Class",
     "BPOSD_Decoder_Class",
+    "FirstMinBPDecoder",
+    "FirstMinBP_Decoder_Class",
     "decode_device",
     "kernel_variant",
     "osd_compaction_tiers",

@@ -1,9 +1,10 @@
 """Decoder objects and factory classes.
 
-  * ``BPDecoder`` / ``BPOSD_Decoder`` — the reference decoders' constructor
-    signatures and ``.decode(synd) -> correction`` / ``.h`` contract,
-    batched: ``decode_batch`` (host arrays in and out) and
-    ``decode_batch_device`` (tensors in, tensors out) for the simulators.
+  * ``BPDecoder`` / ``BPOSD_Decoder`` / ``FirstMinBPDecoder`` — the
+    reference decoders' constructor signatures and ``.decode(synd) ->
+    correction`` / ``.h`` contract, batched: ``decode_batch`` (host arrays
+    in and out) and ``decode_batch_device`` (tensors in, tensors out) for
+    the simulators.
   * ``DecoderClass`` factories — the ``GetDecoder(params)`` dict contract
     (keys 'h', 'p_data', optionally 'p_syndrome').
 
@@ -38,9 +39,11 @@ __all__ = [
     "state_from_jax",
     "BPDecoder",
     "BPOSD_Decoder",
+    "FirstMinBPDecoder",
     "DecoderClass",
     "BP_Decoder_Class",
     "BPOSD_Decoder_Class",
+    "FirstMinBP_Decoder_Class",
 ]
 
 _BP_METHOD_ALIASES = {
@@ -91,8 +94,18 @@ def decode_device(static, state, syndromes):
     BP-failed shots only, gathered into a
     fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch);
     results never depend on the tier.  The tier is chosen on the host from
-    one read of the failure count, counted in ``decode_device.host_reads``."""
+    one read of the failure count, counted in ``decode_device.host_reads``.
+
+    ``"firstmin"`` (``("firstmin", max_restarts, ms_scaling_factor)``) runs
+    ``bp.first_min_bp_decode``; its aux holds ``final_weight``."""
     kind = static[0]
+    if kind == "firstmin":
+        _, max_restarts, msf = static
+        corr, w = bp.first_min_bp_decode(
+            state["graph"], syndromes, state["llr0"],
+            max_restarts=max_restarts, ms_scaling_factor=msf,
+            device=syndromes.device)
+        return corr, {"final_weight": w}
     if kind == "bposd_dev":
         err, aux = decode_device(static[1], state, syndromes)
         B = syndromes.shape[0]
@@ -160,8 +173,9 @@ def kernel_variant(static, state, batch_size: int | None = None) -> str:
     ``dense_onehot`` for an engaged v1 head (the port runs one bf16 gather
     kernel for both tags), ``sparse_int8`` for int8; ``xla_twin`` for every
     exact-float32 decode (kernel 1) and every plain-version decode (CPU
-    tensors, ``force_plain()``).  With ``batch_size`` the head's per-batch
-    gates apply too (a head that does not engage leaves float32 min-sum)."""
+    tensors, ``force_plain()``), and for decoders without a BP stage
+    (``"firstmin"``).  With ``batch_size`` the head's per-batch gates apply
+    too (a head that does not engage leaves float32 min-sum)."""
     kind = static[0]
     if kind == "bposd_dev":
         return kernel_variant(static[1], state, batch_size)
@@ -237,7 +251,8 @@ def state_from_jax(jax_state, device="cuda") -> dict:
     """The port's decoder state from a JAX decoder's ``device_state`` given
     as numpy arrays: the Tanner graph fields, ``llr0``, the BP head
     (``"pallas"``: a SparseHeadGraph, or a PallasHeadGraph whose index
-    planes are read off JAX's one-hot stack) and, for BPOSD,
+    planes are read off JAX's one-hot stack; None for a FirstMin decoder,
+    whose state is its graph and ``llr0`` alone) and, for BPOSD,
     ``osd_packed`` (uint32 words read as int32 bit patterns) and
     ``osd_cost``."""
     dev = resolve_device(device)
@@ -356,6 +371,53 @@ class BPOSD_Decoder(BPDecoder):
                     osd_cost=self._osd_plan.cost)
 
 
+class FirstMinBPDecoder:
+    """Sequential-restart decoder (reference FirstMinBPDecoder,
+    ``src/Decoders.py:49-74``): ``max_iter`` restarts of one min-sum
+    iteration each (``bp.first_min_bp_decode``, plain PyTorch on either
+    device)."""
+
+    def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
+                 ms_scaling_factor=0.9, device="cuda"):
+        if _norm_method(bp_method) != "minimum_sum":
+            raise NotImplementedError("FirstMinBPDecoder supports min-sum only")
+        self.device = resolve_device(device)
+        self.h = np.asarray(h)
+        self._h01 = gf2.to_gf2(h)
+        self.graph = bp.build_tanner_graph(self._h01, self.device)
+        self.channel_probs = np.broadcast_to(
+            np.asarray(channel_probs, np.float64), (self._h01.shape[1],)
+        ).copy()
+        self.max_iter = max(1, int(max_iter))
+        self.ms_scaling_factor = float(ms_scaling_factor)
+        self.llr0 = bp.llr_from_probs(self.channel_probs, self.device)
+
+    @property
+    def device_static(self):
+        return ("firstmin", self.max_iter, float(self.ms_scaling_factor))
+
+    @property
+    def device_state(self):
+        return {"graph": self.graph, "llr0": self.llr0}
+
+    @property
+    def kernel_variant(self) -> str:
+        return kernel_variant(self.device_static, self.device_state)
+
+    def decode_batch_device(self, syndromes):
+        """(B, m) uint8 tensor -> (corrections (B, n) uint8, aux dict)."""
+        return decode_device(self.device_static, self.device_state,
+                             syndromes.to(self.device, torch.uint8))
+
+    def decode_batch(self, syndromes) -> np.ndarray:
+        synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
+        out, _ = self.decode_batch_device(synd)
+        return out.cpu().numpy()
+
+    def decode(self, synd):
+        return self.decode_batch(np.atleast_2d(synd))[0]
+
+
 class DecoderClass(ABC):
     """Abstract factory (reference DecoderClass)."""
 
@@ -428,3 +490,25 @@ class BP_Decoder_Class(DecoderClass):
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
             quantize=d["quantize"], device=self.device)
+
+
+class FirstMinBP_Decoder_Class(DecoderClass):
+    """Factory for the restart decoder (the Single-Shot notebook's)."""
+
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        _require(code_and_noise_channel_params)
+        probs, num_qubits = _channel_from_params(code_and_noise_channel_params)
+        d = self.decoder_default_params
+        return FirstMinBPDecoder(
+            h=code_and_noise_channel_params["h"], channel_probs=probs,
+            max_iter=num_qubits / d["max_iter_ratio"],
+            bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
+            device=self.device)

@@ -1,3 +1,9 @@
-from .samplers import bit_flips, depolarizing_xz, depolarizing_xz_packed
+from .samplers import (
+    bit_flips,
+    bit_flips_packed,
+    depolarizing_xz,
+    depolarizing_xz_packed,
+)
 
-__all__ = ["depolarizing_xz", "depolarizing_xz_packed", "bit_flips"]
+__all__ = ["depolarizing_xz", "depolarizing_xz_packed", "bit_flips",
+           "bit_flips_packed"]

@@ -11,7 +11,8 @@ import torch
 
 from ..ops.gf2_packed import pack_shots
 
-__all__ = ["depolarizing_xz", "depolarizing_xz_packed", "bit_flips"]
+__all__ = ["depolarizing_xz", "depolarizing_xz_packed", "bit_flips",
+           "bit_flips_packed"]
 
 
 def _uniform(generator: torch.Generator, shape) -> torch.Tensor:
@@ -46,3 +47,9 @@ def bit_flips(generator: torch.Generator, shape, p):
     """i.i.d. Bernoulli(p) flips."""
     u = _uniform(generator, shape)
     return (u < float(np.float32(p))).to(torch.uint8)
+
+
+def bit_flips_packed(generator: torch.Generator, shape, p):
+    """``bit_flips`` packed 32 shots per int32 word (the same draws):
+    (ceil(B/32), m)."""
+    return pack_shots(bit_flips(generator, shape, p))

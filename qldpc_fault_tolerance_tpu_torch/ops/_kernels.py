@@ -10,6 +10,11 @@ here runs when the module is imported.
 ``force_plain()`` makes every kernel wrapper take its plain PyTorch version
 even for CUDA tensors.  It exists so a run can hold the whole pipeline on the
 card against its plain versions; wrappers count no launch in that mode.
+
+The min-sum and elimination wrappers launch their kernels in the memory mode
+(``MEMORY_MODES``) that their layouts pick from the shape.
+``force_memory(mode)`` fixes the mode instead, so that a timing run can hold
+the modes against each other at one shape.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
-           "check_launch"]
+           "MEMORY_MODES", "force_memory", "memory_mode", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -139,3 +144,31 @@ def force_plain():
 
 def plain_forced() -> bool:
     return getattr(_force, "on", False)
+
+
+# where a kernel keeps one shot's working set: in its block's shared memory;
+# in a device-memory scratch (the min-sum kernels keep their 16-bit planes
+# staged); in a device-memory scratch with the graph's 32-bit planes read
+# from device memory too (the min-sum kernels only)
+MEMORY_MODES = ("shared", "device", "device_planes")
+
+
+@contextlib.contextmanager
+def force_memory(mode: str):
+    """Within the block, the min-sum and elimination wrappers launch their
+    kernels in ``mode`` (one of MEMORY_MODES) in place of the one their
+    layouts pick (this thread only)."""
+    if mode not in MEMORY_MODES:
+        raise ValueError(f"memory mode {mode!r} is not one of {MEMORY_MODES}")
+    prev = getattr(_force, "memory", "auto")
+    _force.memory = mode
+    try:
+        yield
+    finally:
+        _force.memory = prev
+
+
+def memory_mode() -> str:
+    """The mode ``force_memory`` fixes, else ``"auto"``: the layout's
+    choice."""
+    return getattr(_force, "memory", "auto")

@@ -16,7 +16,8 @@ Every float32 min-sum decode goes through ``bp_kernel.bp_minsum``: the CUDA
 kernel on the card, its plain version on the CPU.  The two-phase decode runs
 its head and tail in a BP head kernel (int8 or bf16) when the decoder
 carries one.  Product-sum runs as plain PyTorch ops on either
-device.
+device, and so does ``first_min_bp_decode`` (the restart decoder), which
+the JAX package also computes outside any kernel.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ __all__ = [
     "build_tanner_graph_host",
     "bp_decode",
     "bp_decode_two_phase",
+    "first_min_bp_decode",
     "BPResult",
     "llr_from_probs",
     "TWO_PHASE_HEAD_ITERS",
@@ -305,3 +307,47 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
 
 
 bp_decode_two_phase.host_reads = 0
+
+
+def first_min_bp_decode(graph: TannerGraph, syndromes, channel_llr, *,
+                        max_restarts: int, ms_scaling_factor=0.9,
+                        device="cuda"):
+    """Sequential-restart one-iteration BP (reference FirstMinBPDecoder,
+    ``src/Decoders.py:49-74``; the JAX package's ``first_min_bp_decode``):
+    ``max_restarts`` times, one min-sum iteration from fresh messages on
+    the current syndrome; a shot accepts the hard decision into its
+    correction while the syndrome weight does not grow, and stops at its
+    first refusal.  A fixed loop with a per-shot active mask: no host read.
+
+    Batch-last like ``bp_decode``; the check update is ``bp_loop``'s and
+    the totals add each variable's terms in list order.  Returns
+    ``(correction (B, n) uint8, final syndrome weight (B,) int32)``."""
+    graph, synd, llr = _inputs(graph, syndromes, channel_llr, device)
+    b = synd.shape[0]
+    n, cw = graph.var_nbr.shape
+    llr0_bl = llr.expand(b, n).t()                             # (n, B)
+    scale = float(ms_scaling_factor)
+    chk_nbr = graph.chk_nbr.long()
+    var_nbr = graph.var_nbr.long()
+    var_slot = graph.var_nbr_slot.long()
+    var_mask = graph.var_mask[..., None]
+    v2c0 = llr0_bl[chk_nbr]                                    # (m, rw, B)
+    cur = synd.t().contiguous()                                # (m, B)
+    corr = torch.zeros((n, b), dtype=torch.uint8, device=synd.device)
+    active = torch.ones(b, dtype=torch.bool, device=synd.device)
+    weight = cur.sum(dim=0, dtype=torch.int32)
+    for _ in range(int(max_restarts)):
+        c2v = bp_kernel.check_update_minsum(
+            v2c0, 1.0 - 2.0 * cur.to(torch.float32), graph, scale)
+        c2v_var = torch.where(var_mask, c2v[var_nbr, var_slot], 0.0)
+        acc = c2v_var[:, 0]
+        for t in range(1, cw):
+            acc = acc + c2v_var[:, t]
+        err = ((llr0_bl + acc) < 0).to(torch.uint8)             # (n, B)
+        new = bp_kernel._edge_parity(err, graph) ^ cur
+        new_weight = new.sum(dim=0, dtype=torch.int32)
+        active = active & (new_weight <= weight)
+        corr = torch.where(active[None, :], corr ^ err, corr)
+        cur = torch.where(active[None, :], new, cur)
+        weight = torch.where(active, new_weight, weight)
+    return corr.t(), weight

@@ -18,6 +18,11 @@ host-built 16-bit planes (``minsum_planes``, built once per graph) and are
 launched by ``minsum_layout``: shots per block, threads per shot and grid
 from the batch, so a large batch keeps every SM full of shots that refill
 as they converge and a small one gives each shot up to a whole block.
+Where one shot's messages do not fit a block's shared memory beside the
+planes, the card runs the kernels' device-memory modes instead (the
+messages in a device scratch; with 32-bit planes in device memory too when
+the planes do not fit or 16 bits cannot number the graph), counted in
+``device_launches`` and ``device_planes_launches``.
 
 The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
 which the two-phase decode runs when a decoder carries a head:
@@ -171,9 +176,11 @@ MINSUM_SPREAD = 4
 
 
 class MinsumPlanes(NamedTuple):
-    """The graph as csrc/bp_minsum.cu stages it in shared memory, built on
-    the host: edge ``s * m + i`` is check i's slot-s edge.  The 16-bit
-    planes hold uint16 values (0xFFFF for padding) in int16 tensors."""
+    """The graph as csrc/bp_minsum.cu reads it, built on the host: edge
+    ``s * m + i`` is check i's slot-s edge.  The 16-bit planes (staged in
+    shared memory) hold uint16 values (0xFFFF for padding) in int16
+    tensors; the 32-bit ones (read from device memory by the kernels'
+    device-memory mode) int32 values, -1 for padding."""
 
     chk: torch.Tensor   # (rw, m): the variable of edge s * m + i
     edge: torch.Tensor  # (cw, n): variable j's t-th edge in summation order
@@ -184,50 +191,60 @@ def _u16(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint16).view(np.int16))
 
 
-def minsum_planes(graph) -> MinsumPlanes:
+def planes16(m: int, n: int, rw: int) -> bool:
+    """Whether 16-bit planes number a graph's edges (rw * m) and variables
+    (n), 0xFFFF being the padding."""
+    return m * rw < PAD16 and n < PAD16
+
+
+def minsum_planes(graph, wide: bool = False) -> MinsumPlanes:
     """The MinsumPlanes of a TannerGraph (kernel 1: each variable's terms in
     the order of its list) or of a SparseHeadGraph / PallasHeadGraph (the
     bf16 head: in ascending edge order, which is (slot, check) order), on
-    the graph's device."""
+    the graph's device: 16-bit planes, or 32-bit with ``wide``."""
+    pad = -1 if wide else PAD16
     if hasattr(graph, "chk_nbr"):
         chk_nbr, chk_mask, var_nbr, var_slot, var_mask = (
             torch.as_tensor(getattr(graph, f)).cpu().numpy().astype(np.int64)
             for f in ("chk_nbr", "chk_mask", "var_nbr", "var_nbr_slot",
                       "var_mask"))
         m = chk_nbr.shape[0]
-        chk = np.where(chk_mask != 0, chk_nbr, PAD16).T
+        chk = np.where(chk_mask != 0, chk_nbr, pad).T
         live = var_mask != 0
-        edge = np.where(live, var_slot * m + var_nbr, PAD16).T
+        edge = np.where(live, var_slot * m + var_nbr, pad).T
         slot = np.where(live, var_slot, 0).T
         dev = torch.as_tensor(graph.chk_nbr).device
     else:
         chk_idx = graph.chk_idx.cpu().numpy().astype(np.int64)
         var_edge = graph.var_edge.cpu().numpy().astype(np.int64)
         m = chk_idx.shape[1]
-        chk = np.where(graph.mask.cpu().numpy() > 0, chk_idx, PAD16)
+        chk = np.where(graph.mask.cpu().numpy() > 0, chk_idx, pad)
         live = var_edge >= 0
-        edge = np.where(live, var_edge, PAD16).T
+        edge = np.where(live, var_edge, pad).T
         slot = np.where(live, var_edge // m, 0).T
         dev = graph.chk_idx.device
-    if chk.size >= PAD16 or edge.shape[1] >= PAD16:
+    slot = torch.from_numpy(np.ascontiguousarray(slot, np.uint8)).to(dev)
+    if wide:
+        return MinsumPlanes(*(torch.from_numpy(np.ascontiguousarray(
+            a, np.int32)).to(dev) for a in (chk, edge)), slot)
+    if not planes16(chk.shape[1], edge.shape[1], chk.shape[0]):
         raise ValueError("the min-sum kernels number edges and variables "
                          "with 16 bits")
-    return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev),
-                        torch.from_numpy(np.ascontiguousarray(slot, np.uint8)).to(dev))
+    return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev), slot)
 
 
 _PLANES: dict = {}
 
 
-def _planes_of(graph) -> MinsumPlanes:
-    """``minsum_planes(graph)``, built once for as long as the graph's
+def _planes_of(graph, wide: bool = False) -> MinsumPlanes:
+    """``minsum_planes(graph, wide)``, built once for as long as the graph's
     tensors live (keyed on all of them: two graphs may share some)."""
     leaves = tuple(graph)
-    key = tuple(map(id, leaves))
+    key = tuple(map(id, leaves)) + ((True,) if wide else ())
     hit = _PLANES.get(key)
     if hit is not None and all(r() is t for r, t in zip(hit[0], leaves)):
         return hit[1]
-    planes = minsum_planes(graph)
+    planes = minsum_planes(graph, wide)
     _PLANES[key] = (tuple(weakref.ref(t, lambda _, k=key: _PLANES.pop(k, None))
                           for t in leaves), planes)
     return planes
@@ -256,17 +273,25 @@ class MinsumLayout(NamedTuple):
     grid: int        # blocks launched
     smem_bytes: int  # dynamic shared memory per block
     resident: int    # blocks per SM by threads and shared memory
+    # where a lane's messages live: _kernels.MEMORY_MODES, whose index is
+    # csrc/bp_minsum.cu's kMem
+    memory: str = "shared"
+    lane_bytes: int = 0     # device scratch per lane (device modes)
 
 
 def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
                 lanes: int | None = None, limit: int = SMEM_LIMIT,
                 what: str = "the min-sum kernels",
-                items: int = MINSUM_ITEMS) -> MinsumLayout:
+                items: int = MINSUM_ITEMS,
+                memory: str = "shared") -> MinsumLayout:
     """The launch of a kernel whose lanes of warps each decode one shot and
     refill from a claim counter (csrc/bp_minsum.cu, csrc/fused_decode.cu),
     for a batch of B shots: ``fixed`` bytes of shared memory staged per
     block, ``per_shot`` per lane, ``rows`` the larger of a shot's checks and
-    variables, ``limit`` the dynamic shared memory a block may take.
+    variables, ``limit`` the dynamic shared memory a block may take.  With
+    a device ``memory`` (_kernels.MEMORY_MODES) the lanes' ``per_shot``
+    bytes live in a device scratch instead and only ``fixed`` is shared
+    memory.
 
     A block holds ``lanes`` shots at once, each on ``threads / lanes``
     threads (1024 / lanes in whole warps, at most one check and one
@@ -279,7 +304,9 @@ def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
     grid is the blocks the batch needs, at most ``resident`` (by threads
     and shared memory; the wrapper lowers it to what the card reports,
     registers included) per SM."""
-    cap = min(MINSUM_MAX_LANES, (limit - fixed) // per_shot)
+    shared = memory == "shared"
+    cap = min(MINSUM_MAX_LANES, (limit - fixed) // per_shot if shared
+              else MINSUM_MAX_LANES * (fixed <= limit))
     if cap < 1:
         raise ValueError(f"{what}: one shot's messages and planes "
                          f"({fixed + per_shot} bytes) exceed {limit} "
@@ -291,22 +318,40 @@ def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
         raise ValueError(f"{what} hold 1..{cap} shots per block")
     per_lane = min(-(-rows // 32) * 32, MINSUM_MAX_THREADS // lanes // 32 * 32)
     threads = lanes * per_lane
-    smem = fixed + lanes * per_shot
+    smem = fixed + (lanes * per_shot if shared else 0)
     resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
     grid = max(1, min(-(-B // lanes), sm_count * resident))
-    return MinsumLayout(lanes, threads, grid, smem, resident)
+    return MinsumLayout(lanes, threads, grid, smem, resident, memory,
+                        0 if shared else per_shot)
 
 
 def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
                   sm_count: int, llr_shared: bool = True,
-                  lanes: int | None = None) -> MinsumLayout:
+                  lanes: int | None = None,
+                  memory: str = "shared") -> MinsumLayout:
     """The launch of csrc/bp_minsum.cu for a batch of B shots
-    (``lane_layout`` with its shared memory, ``minsum_smem_bytes``)."""
+    (``lane_layout`` with its shared memory, ``minsum_smem_bytes``) in
+    ``memory``, one of _kernels.MEMORY_MODES (``"shared"`` raises where not
+    one shot fits a block) or ``"auto"``, as the card's wrappers ask: the
+    shared-memory mode where 16-bit planes number the graph and a shot
+    fits, else ``"device"`` (the lanes' messages in a device scratch, the
+    16-bit planes staged) while the planes fit a block, else
+    ``"device_planes"`` (32-bit planes read from device memory, nothing
+    staged)."""
     if not 1 <= rw <= 32:
         raise ValueError(f"the min-sum kernels take row weights 1..32, got {rw}")
     fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
     per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
-    return lane_layout(B, fixed, per_shot, max(m, n), sm_count, lanes)
+    if memory == "auto":
+        narrow = planes16(m, n, rw)
+        memory = ("shared" if narrow and fixed + per_shot <= SMEM_LIMIT
+                  else "device" if narrow and fixed <= SMEM_LIMIT
+                  else "device_planes")
+    if memory not in _kernels.MEMORY_MODES:
+        raise ValueError(f"min-sum memory {memory!r} is not one of "
+                         f"{_kernels.MEMORY_MODES} or 'auto'")
+    return lane_layout(B, 0 if memory == "device_planes" else fixed,
+                       per_shot, max(m, n), sm_count, lanes, memory=memory)
 
 
 @functools.lru_cache(maxsize=None)
@@ -315,25 +360,33 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int) -> int:
-    """Blocks of csrc/bp_minsum.cu that one SM of CUDA device ``index``
-    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int,
+                    memory: str = "shared") -> int:
+    """Blocks of csrc/bp_minsum.cu (in ``memory``) that one SM of CUDA
+    device ``index`` holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     fn = _kernels.library("bp_minsum").bp_minsum_resident
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        rc = fn(int(bf16), threads, smem_bytes, ctypes.addressof(blocks))
+        rc = fn(int(bf16), threads, smem_bytes,
+                _kernels.MEMORY_MODES.index(memory),
+                ctypes.addressof(blocks))
     _kernels.check_launch("bp_minsum_resident", rc)
     return blocks.value
 
 
-def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True):
-    """``minsum_layout`` on CUDA device ``dev``: its SM count, and the grid
+def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
+                       memory="auto"):
+    """``minsum_layout`` on CUDA device ``dev`` (by default a device-memory
+    mode where the shared one does not fit): its SM count, and the grid
     lowered to the blocks the card holds at once."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared)
-    held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes)
+    lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared,
+                        memory=memory)
+    held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes,
+                           lay.memory)
     if held < 1:
         raise ValueError(f"the min-sum kernels: a block of {lay.threads} "
                          f"threads and {lay.smem_bytes} bytes does not fit")
@@ -341,16 +394,26 @@ def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True):
                         resident=held)
 
 
-def _minsum_call(name, fn, dev, synd, pointers, planes, bf16, per_shot,
+def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
                  max_iter, scale):
-    """Launch kernel 1 or the bf16 head on (B, m) syndromes: ``fn`` takes
-    ``pointers`` (its inputs before the outputs), the outputs, the claim
-    counter, the sizes and the layout.  Returns batch-major (err, conv,
-    post, iters)."""
+    """Launch kernel 1 or the bf16 head on (B, m) syndromes, in the memory
+    mode ``card_minsum_layout`` picks (or ``_kernels.force_memory``
+    fixes): ``fn`` takes ``inputs(planes)`` (its inputs before the
+    outputs, over the graph's planes), the outputs, the claim counter, the
+    sizes, the layout and the device scratch of its device-memory modes.
+    Returns batch-major (err, conv, post, iters) and the mode."""
     B, m = synd.shape
-    rw = planes.chk.shape[0]
-    cw, n = planes.edge.shape
-    lay = card_minsum_layout(dev, B, m, n, rw, cw, bf16, not per_shot)
+    if hasattr(graph, "chk_nbr"):  # a TannerGraph
+        rw, (n, cw) = graph.chk_nbr.shape[1], graph.var_nbr.shape
+    else:                          # a head's planes
+        rw, (n, cw) = graph.chk_idx.shape[0], graph.var_edge.shape
+    lay = card_minsum_layout(dev, B, m, n, rw, cw, bf16, not per_shot,
+                             _kernels.memory_mode())
+    lanes_g = None
+    if lay.memory != "shared":
+        lanes_g = torch.empty((lay.grid * lay.lanes * lay.lane_bytes,),
+                              dtype=torch.uint8, device=dev)
+    pointers = inputs(_planes_of(graph, wide=lay.memory == "device_planes"))
     err = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = torch.empty((B, n), dtype=torch.float32, device=dev)
     conv = torch.empty((B,), dtype=torch.uint8, device=dev)
@@ -360,13 +423,15 @@ def _minsum_call(name, fn, dev, synd, pointers, planes, bf16, per_shot,
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [type(a) if isinstance(a, ctypes.c_int) else p
                    for a in pointers] + [p] * 5 + [i] * 6 + [ctypes.c_float] \
-        + [i] * 4 + [p]
+        + [i] * 5 + [p, p]
     fn.restype = ctypes.c_int
     rc = _stream_call(fn, dev, *pointers, *outs, m, n, rw, cw, B,
                       int(max_iter), float(scale), lay.lanes,
-                      lay.threads // lay.lanes, lay.grid, lay.smem_bytes)
+                      lay.threads // lay.lanes, lay.grid, lay.smem_bytes,
+                      _kernels.MEMORY_MODES.index(lay.memory),
+                      None if lanes_g is None else lanes_g.data_ptr())
     _kernels.check_launch(name, rc)
-    return err, conv.to(torch.bool), post, iters
+    return (err, conv.to(torch.bool), post, iters), lay.memory
 
 
 def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
@@ -387,13 +452,15 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
         raise ValueError(f"bp_minsum takes row weights 1..32, got rw={rw}")
     if m * B >= 2 ** 31 or n * B >= 2 ** 31:
         raise ValueError("bp_minsum batch too large for int32 indexing")
-    planes = _planes_of(graph)
-    out = _minsum_call(
+    out, memory = _minsum_call(
         "bp_minsum", _kernels.library("bp_minsum").bp_minsum_launch, dev,
-        synd, [synd.data_ptr(), llr0.data_ptr(), ctypes.c_int(int(llr_per_shot)),
-               planes.chk.data_ptr(), planes.edge.data_ptr()],
-        planes, False, llr_per_shot, max_iter, scale)
+        synd, lambda planes: [synd.data_ptr(), llr0.data_ptr(),
+                              ctypes.c_int(int(llr_per_shot)),
+                              planes.chk.data_ptr(), planes.edge.data_ptr()],
+        graph, False, llr_per_shot, max_iter, scale)
     bp_minsum.launches += 1
+    bp_minsum.device_launches += memory == "device"
+    bp_minsum.device_planes_launches += memory == "device_planes"
     return out
 
 
@@ -402,8 +469,10 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
     """Min-sum decode of (B, m) uint8 syndromes; ``channel_llr`` is (n,) or
     (B, n) float32 on the same device.  Returns batch-major
     ``(error (B, n) uint8, converged (B,) bool, posterior_llr (B, n) f32,
-    iterations (B,) int32)``.  CUDA tensors launch the kernel (or raise);
-    CPU tensors run ``minsum_plain``."""
+    iterations (B,) int32)``.  CUDA tensors launch the kernel (or raise) in
+    the memory mode ``minsum_layout`` picks: ``launches`` counts them,
+    ``device_launches`` and ``device_planes_launches`` those in each
+    device-memory mode.  CPU tensors run ``minsum_plain``."""
     per_shot = channel_llr.dim() == 2
     if syndromes.is_cuda and not _kernels.plain_forced():
         return _launch(graph, syndromes.contiguous(), channel_llr.contiguous(),
@@ -415,6 +484,8 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
 
 
 bp_minsum.launches = 0
+bp_minsum.device_launches = 0
+bp_minsum.device_planes_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -996,13 +1067,16 @@ def _launch_bf16(head, synd, llr0, head_iters, scale):
     for t in (head.chk_idx, head.mask, head.var_edge):
         if not t.is_contiguous():
             raise ValueError("bp_head_bf16 needs contiguous index planes")
-    planes = _planes_of(head)
-    out = _minsum_call(
+    out, memory = _minsum_call(
         "bp_minsum_bf16", _kernels.library("bp_minsum").bp_minsum_bf16_launch,
-        dev, synd, [synd.data_ptr(), llr0.data_ptr(), planes.chk.data_ptr(),
-                    planes.edge.data_ptr(), planes.slot.data_ptr()],
-        planes, True, False, head_iters, scale)
+        dev, synd, lambda planes: [synd.data_ptr(), llr0.data_ptr(),
+                                   planes.chk.data_ptr(),
+                                   planes.edge.data_ptr(),
+                                   planes.slot.data_ptr()],
+        head, True, False, head_iters, scale)
     bp_head_bf16.launches += 1
+    bp_head_bf16.device_launches += memory == "device"
+    bp_head_bf16.device_planes_launches += memory == "device_planes"
     return out
 
 
@@ -1011,8 +1085,8 @@ def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
     """bf16 min-sum decode of (B, m) uint8 syndromes (any B) over a
     SparseHeadGraph or a PallasHeadGraph: the same outputs as
     ``bp_head_int8``.  Shots are independent, so no tile enters.  CUDA
-    tensors launch the bf16 head kernel (or raise); CPU tensors run
-    ``minsum_dense_plain``."""
+    tensors launch the bf16 head kernel (or raise; the counters as
+    ``bp_minsum``'s); CPU tensors run ``minsum_dense_plain``."""
     _check_head_inputs("bp_head_bf16", head, syndromes, channel_llr)
     if head_iters < 0:
         raise ValueError(f"head_iters must be >= 0, got {head_iters}")
@@ -1029,3 +1103,5 @@ def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
 
 
 bp_head_bf16.launches = 0
+bp_head_bf16.device_launches = 0
+bp_head_bf16.device_planes_launches = 0

@@ -86,6 +86,7 @@ __all__ = [
     "card_fused_layout",
     "estimate_fused_decode_bytes",
     "fused_decode_block_w",
+    "fused_decode_feasible",
     "fused_int8_smem_bytes",
     "fused_int8_staged",
     "fused_int8_active_clusters",
@@ -735,6 +736,30 @@ def fused_int8_active_clusters(spec: FusedDecodeSpec, block_w: int) -> int:
     with torch.cuda.device(spec.base.device):
         return fn(int(block_w), int(staged),
                   fused_int8_smem_bytes(n, mx, rwz, mz, rwx, staged))
+
+
+def fused_decode_feasible(spec: FusedDecodeSpec, batch_size: int, *,
+                          quantize=None) -> bool:
+    """Whether the card's fused decode takes this spec and batch, without
+    raising: the batch a multiple of its tile (``fused_decode_block_w``'s,
+    or 1 x 32 shots), two error words per qubit in shared memory, and the
+    kernel's layout: for bf16 ``fused_layout``'s (row weights 1..32, 16-bit
+    edge and variable numbers, one shot beside the staged planes), for
+    int8 a 32-shot block in shared memory and the tile's blocks one
+    cluster.  Where it is False the engine runs fused v1 instead."""
+    n, mx, mz, rwz, rwx = spec.statics
+    block_w = fused_decode_block_w(spec, batch_size, quantize=quantize) or 1
+    if batch_size % (block_w * LANE) or 8 * n > SMEM_LIMIT \
+            or not (1 <= rwz <= 32 and 1 <= rwx <= 32):
+        return False
+    if quantize == "int8":
+        staged = fused_int8_staged(n, mx, rwz, mz, rwx)
+        return (fused_int8_smem_bytes(n, mx, rwz, mz, rwx, staged)
+                + _INT8_FUSED_STATIC <= SMEM_LIMIT
+                and block_w <= INT8_FUSED_MAX_CLUSTER)
+    shape = _fused_shape(spec)
+    return (max(mx * rwz, mz * rwx) < 0xFFFF and n < 0xFFFF
+            and fused_smem_bytes(1, *shape) + _FUSED_STATIC <= SMEM_LIMIT)
 
 
 def fused_decode_stats(spec: FusedDecodeSpec, key, batch_size: int, *,

@@ -156,14 +156,17 @@ def packed_per_shot_weight(packed_bits, batch_size: int) -> torch.Tensor:
 
 
 def packed_residual_stats(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
-                          eval_type: str, batch_size: int, n: int):
+                          eval_type: str, batch_size: int, n: int, *,
+                          z_weight_excludes_stab: bool = False):
     """Residual stabilizer/logical checks on packed planes -> two scalars.
 
     res_x/res_z: (W, n) packed residual planes.  hz_par/hx_par: ParityOp
     ``(nbr, mask)`` pairs (hz checks res_x, hx checks res_z).  lz_t/lx_t:
     (n, k) {0,1} logical transposes.  Returns int32 device scalars
     (failure count of ``eval_type`` "X", "Z" or "Total", min residual weight
-    among logical failures)."""
+    among logical failures).  ``z_weight_excludes_stab`` is the phenom
+    engine's convention (the reference's if/elif): a Z residual's weight
+    counts only where its stabilizer check passed."""
     x_stab = packed_any(packed_parity_apply(hz_par[0], hz_par[1], res_x))
     x_log = packed_any(packed_gf2_matmul(res_x, lz_t))
     z_stab = packed_any(packed_parity_apply(hx_par[0], hx_par[1], res_z))
@@ -178,7 +181,8 @@ def packed_residual_stats(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
         cnt = packed_count(x_fail | z_fail, batch_size)
     wx = torch.where(unpack_shots(x_log, batch_size).bool(),
                      packed_per_shot_weight(res_x, batch_size), n)
-    wz = torch.where(unpack_shots(z_log, batch_size).bool(),
+    wz_flags = z_log & ~z_stab if z_weight_excludes_stab else z_log
+    wz = torch.where(unpack_shots(wz_flags, batch_size).bool(),
                      packed_per_shot_weight(res_z, batch_size), n)
     min_w = torch.minimum(wx.min(), wz.min()).to(torch.int32)
     return cnt, min_w

@@ -13,7 +13,9 @@ the GF(2) eliminations that OSD-CS (``ops/osd_cs_device.py``) shares.
     replaces the TPU kernel ``_elim_blocked_kernel``
     (``qldpc_fault_tolerance_tpu/ops/osd_device.py:547``) and builds each
     shot's permuted columns itself from the column-packed H (``col_pack``,
-    built once per rows tensor) at the launch ``elim_layout`` chooses; on
+    built once per rows tensor) at the launch ``elim_layout`` chooses (in
+    shared memory, or where one shot's matrix does not fit there in a
+    device-memory scratch, ``osd_elim.device_launches``); on
     CPU tensors it packs the permuted rows (W, m, B) (``_permute_and_pack``)
     and runs ``eliminate_plain``, a port of that kernel's blocked twin
     ``_eliminate_blocked_twin`` (:719).  Both are integer-exact and agree
@@ -57,7 +59,7 @@ from .gf2_packed import to_int32
 __all__ = ["OsdPlan", "build_osd_plan", "osd_elim", "eliminate_plain",
            "osd_elim_percol", "eliminate_percol_plain", "elimination_work",
            "col_pack", "ElimLayout", "elim_layout", "elim_smem_bytes",
-           "card_elim_layout",
+           "elim_state_bytes", "card_elim_layout",
            "ELIM_ROUTES", "elim_route", "osd_decode_values",
            "osd_decode_device"]
 
@@ -298,7 +300,7 @@ def eliminate_percol_plain(packed0, synd0, *, n: int, r_star: int):
 
 def _elim_argtypes(n_ptrs: int, n_ints: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p] * n_ptrs + [i] * n_ints + [p]
+    return [p] * n_ptrs + [i] * n_ints + [p, p]
 
 
 # shared memory a block may take on Hopper (227 KB), and an SM's (228 KB,
@@ -324,6 +326,10 @@ class ElimLayout(NamedTuple):
     grid: int        # blocks launched: one per shot
     smem_bytes: int  # dynamic shared memory per block
     resident: int    # blocks per SM by threads and shared memory
+    # "shared": the shot's matrix in shared memory; "device": in a
+    # device-memory scratch of scratch_bytes per shot (_kernels.MEMORY_MODES)
+    memory: str = "shared"
+    scratch_bytes: int = 0
 
 
 def elim_smem_bytes(m: int, n: int) -> int:
@@ -335,8 +341,17 @@ def elim_smem_bytes(m: int, n: int) -> int:
     return 4 * (mW * ((n + 1) | 1) + mW + 6 + 32 + 2 * m)
 
 
+def elim_state_bytes(m: int) -> int:
+    """Dynamic shared memory of csrc/osd_elim.cu's device-memory mode per
+    shot: ``elim_smem_bytes`` without the matrix, which lives in a
+    device-memory scratch of ``elim_smem_bytes(m, n) - elim_state_bytes(m)``
+    bytes per shot."""
+    return 4 * ((m + 31) // 32 + 6 + 32 + 2 * m)
+
+
 def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
-                threads: int | None = None) -> ElimLayout:
+                threads: int | None = None,
+                memory: str = "shared") -> ElimLayout:
     """The launch of csrc/osd_elim.cu for B shots of an (m, n) matrix.
 
     One block per shot (a step's barriers are the shot's own).  The shots
@@ -344,14 +359,27 @@ def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
     allows) share ELIM_SM_THREADS threads; a shot takes at least
     ELIM_MIN_THREADS and at most one lane per column right of the first
     pivot, in an even number of warps.  ``threads`` fixes the threads per
-    shot instead.  Raises, with the bytes, when one shot's matrix does not
-    fit in shared memory."""
+    shot instead.  ``memory``: ``"shared"``, the shared-memory mode,
+    raises with the bytes where one shot's matrix does not fit;
+    ``"device"`` is the kernel's device-memory mode, whose matrix lives in
+    a scratch of ``scratch_bytes`` per shot (it raises only where not even
+    the walk's state fits); ``"auto"``, as the card's wrappers ask, the
+    first where it fits, else the second.  (The elimination has no
+    ``"device_planes"`` mode: it reads no graph planes.)"""
     if mode not in ELIM_MODES:
         raise ValueError(f"elimination mode {mode!r} is not one of {ELIM_MODES}")
     if not 0 <= fcap <= (0 if mode == "percol" else 32):
         raise ValueError(f"the {mode} elimination takes fcap in 0.."
                          f"{0 if mode == 'percol' else 32}, got {fcap}")
+    if memory not in ("auto", "shared", "device"):
+        raise ValueError(f"elimination memory {memory!r} is not 'auto', "
+                         f"'shared' or 'device'")
     smem = elim_smem_bytes(m, n)
+    if memory == "auto":
+        memory = "shared" if smem <= SMEM_LIMIT else "device"
+    scratch = 0
+    if memory == "device":
+        scratch, smem = smem - elim_state_bytes(m), elim_state_bytes(m)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the elimination kernels: a {m}x{n} matrix needs "
                          f"{smem} bytes of shared memory per shot, above "
@@ -368,33 +396,35 @@ def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
                          f"threads per shot in an even number of warps, got "
                          f"{threads}")
     resident = max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
-    return ElimLayout(threads, 1, max(B, 1), smem, resident)
+    return ElimLayout(threads, 1, max(B, 1), smem, resident, memory, scratch)
 
 
 @functools.lru_cache(maxsize=None)
 def elim_resident(index: int, mode: str, m: int, threads: int,
-                  smem_bytes: int) -> int:
-    """Blocks of csrc/osd_elim.cu (the kernel for m rows) that one SM of CUDA
-    device ``index`` holds at once
+                  smem_bytes: int, memory: str = "shared") -> int:
+    """Blocks of csrc/osd_elim.cu (the kernel for m rows, in ``memory``)
+    that one SM of CUDA device ``index`` holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     fn = _kernels.library("osd_elim").osd_elim_resident
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = fn(ELIM_MODES.index(mode), m, threads, smem_bytes,
-                ctypes.addressof(blocks))
+                int(memory == "device"), ctypes.addressof(blocks))
     _kernels.check_launch("osd_elim_resident", rc)
     return blocks.value
 
 
 def card_elim_layout(dev, B: int, m: int, n: int, fcap: int,
-                     mode: str) -> ElimLayout:
-    """``elim_layout`` on CUDA device ``dev``: its SM count, and the resident
-    blocks the card reports, registers included."""
+                     mode: str, memory: str = "auto") -> ElimLayout:
+    """``elim_layout`` on CUDA device ``dev`` (by default the device-memory
+    mode where the matrix does not fit shared memory): its SM count, and
+    the resident blocks the card reports, registers included."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    lay = elim_layout(B, m, n, fcap, mode, _sm_count(index))
-    held = elim_resident(index, mode, m, lay.threads, lay.smem_bytes)
+    lay = elim_layout(B, m, n, fcap, mode, _sm_count(index), memory=memory)
+    held = elim_resident(index, mode, m, lay.threads, lay.smem_bytes,
+                         lay.memory)
     if held < 1:
         raise ValueError(f"the elimination kernels: a block of {lay.threads} "
                          f"threads and {lay.smem_bytes} bytes does not fit")
@@ -442,23 +472,31 @@ def _check_elim(name, h_packed, perm, synd, n: int, r_star: int,
 
 
 def _elim_call(name, fn, mode, h_packed, perm, synd, outs, n, r_star,
-               fcap) -> None:
+               fcap) -> bool:
     """Launch ``fn`` of csrc/osd_elim.cu on the column-packed H, the
-    permutation and the syndromes, writing ``outs``."""
+    permutation and the syndromes, writing ``outs``, in the memory mode
+    ``card_elim_layout`` picks (or ``_kernels.force_memory`` fixes);
+    returns whether the launch took the device-memory mode."""
     m = _check_elim(name, h_packed, perm, synd, n, r_star, fcap)
     B = perm.shape[0]
     dev = perm.device
-    lay = card_elim_layout(dev, B, m, n, fcap, mode)
+    lay = card_elim_layout(dev, B, m, n, fcap, mode, _kernels.memory_mode())
     colpack = _colpack_of(h_packed, n)
     fixed = [m, n, r_star] + ([] if mode == "percol" else [fcap])
+    scratch = None
+    if lay.memory == "device":
+        scratch = torch.empty((B * lay.scratch_bytes // 4,),
+                              dtype=torch.int32, device=dev)
     fn.argtypes = _elim_argtypes(3 + len(outs), len(fixed) + 3)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(colpack.data_ptr(), perm.data_ptr(), synd.data_ptr(),
                 *(o.data_ptr() for o in outs), *fixed, B, lay.threads,
-                lay.smem_bytes, stream)
+                lay.smem_bytes, None if scratch is None else scratch.data_ptr(),
+                stream)
     _kernels.check_launch(name, rc)
+    return scratch is not None
 
 
 def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
@@ -470,8 +508,9 @@ def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
     ``full`` the fully reduced matrix as a sixth.  CUDA tensors launch
     ``csrc/osd_elim.cu`` (``osd_elim_launch``, or ``osd_elim_full_launch``
     with ``full``), which builds each shot's columns itself, or raise; CPU
-    tensors pack and run ``eliminate_plain``.  ``launches`` counts the
-    first kernel, ``full_launches`` the second."""
+    tensors pack and run ``eliminate_plain``.  ``launches`` counts the first kernel, ``full_launches`` the second,
+    ``device_launches`` and ``full_device_launches`` those of theirs that
+    ran in device memory."""
     if not perm.is_cuda or _kernels.plain_forced():
         packed = _permute_and_pack(_unpack_rows(h_packed, n), perm)
         return eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap,
@@ -490,18 +529,22 @@ def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
     lib = _kernels.library("osd_elim")
     if full:
         outs.append(torch.empty((W, m, B), dtype=torch.int32, device=dev))
-    _elim_call("osd_elim", lib.osd_elim_full_launch if full
-               else lib.osd_elim_launch, "full" if full else "skip",
-               h_packed, perm, synd, outs, n, r_star, fcap)
+    in_device = _elim_call("osd_elim", lib.osd_elim_full_launch if full
+                           else lib.osd_elim_launch, "full" if full else "skip",
+                           h_packed, perm, synd, outs, n, r_star, fcap)
     if full:
         osd_elim.full_launches += 1
+        osd_elim.full_device_launches += in_device
     else:
         osd_elim.launches += 1
+        osd_elim.device_launches += in_device
     return tuple(outs)
 
 
 osd_elim.launches = 0
 osd_elim.full_launches = 0
+osd_elim.device_launches = 0
+osd_elim.full_device_launches = 0
 
 
 def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
@@ -509,8 +552,9 @@ def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
     column order ``perm`` (B, n) with the (m, B) int32 0/1 syndromes
     augmented.  Returns the arrays of ``eliminate_percol_plain`` on
     ``_permute_and_pack``'s matrix.  CUDA tensors launch
-    ``csrc/osd_elim.cu`` (``osd_elim_percol_launch``) or raise; CPU tensors
-    pack and run ``eliminate_percol_plain``."""
+    ``csrc/osd_elim.cu`` (``osd_elim_percol_launch``; ``device_launches``
+    counts those in device memory) or raise; CPU tensors pack and run
+    ``eliminate_percol_plain``."""
     if not perm.is_cuda or _kernels.plain_forced():
         packed = _permute_and_pack(_unpack_rows(h_packed, n), perm)
         return eliminate_percol_plain(packed, synd, n=n, r_star=r_star)
@@ -522,15 +566,16 @@ def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
     pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     ip = torch.zeros((n, B), dtype=torch.int32, device=dev)
     packed_out = torch.empty((W, m, B), dtype=torch.int32, device=dev)
-    _elim_call("osd_elim_percol",
-               _kernels.library("osd_elim").osd_elim_percol_launch, "percol",
-               h_packed, perm, synd, [synd_out, pr, pc, ip, packed_out], n,
-               r_star, 0)
+    osd_elim_percol.device_launches += _elim_call(
+        "osd_elim_percol",
+        _kernels.library("osd_elim").osd_elim_percol_launch, "percol",
+        h_packed, perm, synd, [synd_out, pr, pc, ip, packed_out], n, r_star, 0)
     osd_elim_percol.launches += 1
     return synd_out.gather(0, pr.long()), pr, pc, ip == 1, packed_out
 
 
 osd_elim_percol.launches = 0
+osd_elim_percol.device_launches = 0
 
 
 def elimination_work(packed, synd, *, n: int, r_star: int,

@@ -2,8 +2,12 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["wer_single_shot", "ShotBatcher"]
+from ..ops.linalg import gf2_matmul
+
+__all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
+           "dense_check_flags", "select_failures"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -17,6 +21,57 @@ def wer_single_shot(error_count: int, num_run: int, K: int):
         logical_error_rate_eb * ((1 - logical_error_rate_eb) ** (1 / K - 1)) / K
     )
     return word_error_rate, word_error_rate_eb
+
+
+def wer_per_cycle(error_count: int, num_samples: int, K: int, num_cycles: int):
+    """Per-qubit-per-cycle WER + error bar (reference
+    ``src/Simulators.py:334-362``), as the JAX package computes it.
+
+    The inversion of (1 - 2P)^(1/cycles) takes its second branch above a
+    per-qubit rate of 1/2, for any cycle count (the published notebooks
+    sweep even counts, which the current reference's assert forbids).  The
+    error bar is the notebook-era one: the binomial error of the per-cycle
+    logical rate, then the (1 - eb)^(1/K - 1) / K factor of
+    ``wer_single_shot``; the inversion base is clamped at 0 above a total
+    rate of 1/2, where the reference's expression turns complex."""
+    logical_error_rate = error_count / num_samples
+    per_qubit = 1.0 - (1 - logical_error_rate) ** (1 / K)
+    if per_qubit <= 0.5:
+        wer = (1.0 - (1 - 2 * per_qubit) ** (1 / num_cycles)) / 2
+    else:
+        wer = (1.0 + (-1 + 2 * per_qubit) ** (1 / num_cycles)) / 2
+    per_cycle = (1.0 - max(1 - 2 * logical_error_rate, 0.0)
+                 ** (1 / num_cycles)) / 2
+    per_cycle_eb = np.sqrt(max((1 - per_cycle) * per_cycle, 0.0) / num_samples)
+    wer_eb = per_cycle_eb * ((1 - per_cycle_eb) ** (1 / K - 1)) / K
+    return wer, wer_eb
+
+
+def dense_check_flags(res_x, res_z, hz_t, hx_t, lz_t, lx_t, n: int, *,
+                      z_weight_excludes_stab: bool = False):
+    """Residual stabilizer/logical checks on unpacked (B, n) uint8 planes
+    (``packed=False``; the same bits as ``packed_residual_stats``).  The
+    ``*_t`` are (n, k) {0,1} transposes.  Returns per-shot ``(x_fail,
+    z_fail)`` bool and the int32 minimum residual weight among logical
+    failures (of the Z residuals whose stabilizer check passed with
+    ``z_weight_excludes_stab``, the phenom engine's convention)."""
+    x_stab, x_log, z_stab, z_log = (gf2_matmul(r, h_t).bool().any(dim=-1)
+                                    for r, h_t in ((res_x, hz_t), (res_x, lz_t),
+                                                   (res_z, hx_t), (res_z, lx_t)))
+    z_counted = z_log & ~z_stab if z_weight_excludes_stab else z_log
+    wx = torch.where(x_log, res_x.sum(dim=-1, dtype=torch.int32), n)
+    wz = torch.where(z_counted, res_z.sum(dim=-1, dtype=torch.int32), n)
+    min_w = torch.minimum(wx.min(), wz.min()).to(torch.int32)
+    return x_stab | x_log, z_stab | z_log, min_w
+
+
+def select_failures(x_fail, z_fail, eval_type: str):
+    """The per-shot failures of ``eval_type`` ("X", "Z" or "Total")."""
+    if eval_type == "X":
+        return x_fail
+    if eval_type == "Z":
+        return z_fail
+    return x_fail | z_fail
 
 
 class ShotBatcher:

@@ -22,6 +22,14 @@ Both draw the same errors for the same key, and each gives the JAX
 package's engine of the same name its failures and minimum weight seed for
 seed.  v2 and v1 differ: v1 runs the decoders' own programs (float32
 min-sum with float decoders), v2 the JAX fused kernel's bf16 or int8 loop.
+On the card a ``"v2"`` whose kernel cannot take the code and batch
+(``gf2_kernel.fused_decode_feasible``) runs as ``True`` (the same counter
+stream) from construction, counted in
+``CodeSimulator_DataError.fused_fallbacks``, as the JAX package drops an
+infeasible v2 to its v1 fused path on its TPU.
+
+``packed=False`` (the default engine only) keeps the planes unpacked:
+dense syndromes and checks on the same draws, bit for bit the same.
 
 Batches fold through the megabatch driver (``parallel/shots.py``): the
 count and min weight stay device tensors, read by the host once per run
@@ -35,7 +43,7 @@ import numpy as np
 import torch
 
 from ..decoders.bp_decoders import decode_device
-from ..noise import depolarizing_xz_packed
+from ..noise import depolarizing_xz, depolarizing_xz_packed
 from ..ops import gf2_kernel
 from ..ops.prng import fold_in, key_words, prng_key, split_key
 from ..ops.gf2_packed import (
@@ -44,10 +52,15 @@ from ..ops.gf2_packed import (
     packed_residual_stats,
     unpack_shots,
 )
-from ..ops.linalg import ParityOp
+from ..ops.linalg import ParityOp, gf2_matmul
 from ..parallel.shots import batch_generator, count_min_driver
 from ..utils.device import resolve_device
-from .common import ShotBatcher, wer_single_shot
+from .common import (
+    ShotBatcher,
+    dense_check_flags,
+    select_failures,
+    wer_single_shot,
+)
 
 __all__ = ["CodeSimulator_DataError"]
 
@@ -71,15 +84,20 @@ class CodeSimulator_DataError:
     ``seed`` makes the base key, which each ``WordErrorRate`` call splits as
     the JAX engine does; ``batch_size`` is the shots per batch,
     ``scan_chunk`` the batches per megabatch (one host read each when
-    streaming); ``fused_sampler`` is False, True or ``"v2"`` (module
-    docstring).  Both decoders must live on ``device``.
+    streaming); ``fused_sampler`` is False, True or ``"v2"``, ``packed``
+    whether the default engine packs its planes (module docstring).  Both
+    decoders must live on ``device``.
     """
+
+    # v2 engines that ran as fused v1 because the card's fused kernel
+    # could not take them
+    fused_fallbacks = 0
 
     def __init__(self, code=None, decoder_x=None, decoder_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01),
                  eval_logical_type="Total", seed: int = 0,
                  batch_size: int = 2048, scan_chunk: int = 8,
-                 fused_sampler=False, device="cuda"):
+                 fused_sampler=False, packed: bool = True, device="cuda"):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -101,6 +119,7 @@ class CodeSimulator_DataError:
         self.batch_size = int(batch_size)
         self._scan_chunk = max(1, int(scan_chunk))
         self._fused_sampler = fused_sampler
+        self._packed = bool(packed)
         self._base_key = prng_key(seed)
         # failures and shots of the most recent WordErrorRate run
         self.last_failures = 0
@@ -112,13 +131,11 @@ class CodeSimulator_DataError:
         self._hz_par = (hz_par.nbr, hz_par.mask)
         self._lx_t = torch.from_numpy(np.ascontiguousarray(code.lx.T)).to(self.device)
         self._lz_t = torch.from_numpy(np.ascontiguousarray(code.lz.T)).to(self.device)
-        self._stats = self._batch_stats
-        if fused_sampler is True:
-            self._fspec = gf2_kernel.build_fused_spec(
-                code.hx, code.hz, code.lx, code.lz, self.channel_probs,
-                self.device)
-            self._stats = self._stats_fused
-        elif fused_sampler == "v2":
+        self._hx_t, self._hz_t = (
+            torch.from_numpy(np.ascontiguousarray(h.T)).to(self.device)
+            for h in (code.hx, code.hz))
+        self._stats = self._batch_stats if self._packed else self._dense_stats
+        if fused_sampler == "v2":
             self._iters_x, msf_x, q_x = _bp_loop_params(decoder_x.device_static)
             self._iters_z, msf_z, q_z = _bp_loop_params(decoder_z.device_static)
             if msf_x != msf_z or q_x != q_z:
@@ -131,6 +148,16 @@ class CodeSimulator_DataError:
                 code.hx, code.hz, code.lx, code.lz, self.channel_probs,
                 decoder_x.llr0, decoder_z.llr0, self.device)
             self._stats = self._stats_fused_v2
+            if self.device.type == "cuda" and not \
+                    gf2_kernel.fused_decode_feasible(
+                        self._fspec2, self.batch_size, quantize=q_x):
+                CodeSimulator_DataError.fused_fallbacks += 1
+                self._fused_sampler = fused_sampler = True
+        if fused_sampler is True:
+            self._fspec = gf2_kernel.build_fused_spec(
+                code.hx, code.hz, code.lx, code.lz, self.channel_probs,
+                self.device)
+            self._stats = self._stats_fused
 
     def _packed_stats(self, ex_p, ez_p):
         """One batch from packed (W, n) error planes -> (failure count,
@@ -154,6 +181,38 @@ class CodeSimulator_DataError:
         ex_p, ez_p = depolarizing_xz_packed(
             generator, (self.batch_size, self.N), self.channel_probs)
         return self._packed_stats(ex_p, ez_p)
+
+    def _dense_flags(self, generator, batch_size: int):
+        """One unpacked batch: per-shot failures (bool) and the min logical
+        weight (``packed=False``, ``run_batch``)."""
+        ex, ez = depolarizing_xz(generator, (batch_size, self.N),
+                                 self.channel_probs)
+        cor_x, cor_z = self._decode(gf2_matmul(ex, self._hz_t),
+                                    gf2_matmul(ez, self._hx_t))
+        x_fail, z_fail, min_w = dense_check_flags(
+            ex ^ cor_x, ez ^ cor_z, self._hz_t, self._hx_t, self._lz_t,
+            self._lx_t, self.N)
+        return select_failures(x_fail, z_fail, self.eval_logical_type), min_w
+
+    def _dense_stats(self, generator):
+        fail, min_w = self._dense_flags(generator, self.batch_size)
+        return fail.sum(dtype=torch.int32), min_w
+
+    def run_batch(self, key, batch_size: int | None = None) -> np.ndarray:
+        """One batch drawn from ``key`` (batch 0 of a default-engine run's
+        stream with that key), unpacked: per-shot failure flags (host bool
+        array); updates ``min_logical_weight``."""
+        bs = int(batch_size or self.batch_size)
+        gen = batch_generator(key_words(key), 0, self.device)
+        fail, min_w = self._dense_flags(gen, bs)
+        fail = fail.cpu().numpy()
+        self.min_logical_weight = min(self.min_logical_weight, int(min_w))
+        return fail
+
+    def _single_run(self) -> int:
+        """Reference-compatible single-shot entry."""
+        self._base_key, sub = split_key(self._base_key)
+        return int(self.run_batch(sub, 1)[0])
 
     def _stats_fused(self, key):
         """Counter-PRNG batch: packed syndromes only, both decodes, then the

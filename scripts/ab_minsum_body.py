@@ -7,6 +7,7 @@ main path's, on hgp_34_n625, n1225 and n1600, and kernel B5's bf16 mode
 and on the larger codes.
 
   python3 scripts/ab_minsum_body.py --parent DIR
+  python3 scripts/ab_minsum_body.py --parent DIR --sass
   python3 scripts/ab_minsum_body.py --sweep
 
 DIR holds another checkout's ``qldpc_fault_tolerance_tpu_torch/`` and
@@ -37,7 +38,11 @@ is a summary with the median of each side.  ``--sweep`` times this
 checkout alone with each number of shots per block at each shape, B5
 bf16 included;
 ``--refill`` prints, on the CPU, the refill arithmetic behind PERF.md's
-predictions (iterations per shot from the plain version).
+predictions (iterations per shot from the plain version).  ``--sass``
+compares instead the machine code of ``bp_minsum.cu`` and
+``fused_decode.cu`` with DIR's, kernel by kernel (``scripts/sass_diff.py``:
+a kernel whose instructions are the parent's runs the parent's code), and
+exits 1 if one of the parent's kernels differs.
 """
 from __future__ import annotations
 
@@ -362,11 +367,20 @@ def main() -> int:
                     help="time this checkout at each number of shots per block")
     ap.add_argument("--refill", action="store_true",
                     help="print the refill arithmetic (CPU, no card needed)")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the kernels' machine code with --parent's")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.refill:
         refill_arithmetic()
         return 0
+    if args.sass:
+        import sass_diff
+
+        if not args.parent:
+            ap.error("--sass needs --parent")
+        return 0 if sass_diff.compare(Path(args.parent).resolve(),
+                                      ["bp_minsum", "fused_decode"]) else 1
     import torch
 
     if not torch.cuda.is_available():

@@ -6,6 +6,7 @@ turns, on one NVIDIA GPU: ``csrc/osd_elim.cu`` in its three modes (kernel 2
 2048 shots.
 
   python3 scripts/ab_osd_elim.py --parent DIR
+  python3 scripts/ab_osd_elim.py --parent DIR --sass
   python3 scripts/ab_osd_elim.py --layout
 
 DIR holds another checkout's ``qldpc_fault_tolerance_tpu_torch/`` and
@@ -30,6 +31,10 @@ and OSD-CS of order 10, p=0.05, 8 batches of 2048, and OSD-E on the
 per-column route), which must not depend on the side.  The last line is a
 summary with the median of each side.  ``--layout`` times this checkout
 alone at each number of threads per shot (``elim_layout``'s ``threads``).
+``--sass`` compares instead the machine code of ``osd_elim.cu`` with DIR's,
+kernel by kernel (``scripts/sass_diff.py``: a kernel whose instructions are
+the parent's runs the parent's code), and exits 1 if one of the parent's
+kernels differs.
 """
 from __future__ import annotations
 
@@ -253,8 +258,17 @@ def main() -> int:
     ap.add_argument("--parent", help="the other checkout's root")
     ap.add_argument("--layout", action="store_true",
                     help="time this checkout at each number of threads per shot")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the kernels' machine code with --parent's")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sass:
+        import sass_diff
+
+        if not args.parent:
+            ap.error("--sass needs --parent")
+        return 0 if sass_diff.compare(Path(args.parent).resolve(),
+                                      ["osd_elim"]) else 1
     import torch
 
     if not torch.cuda.is_available():
