@@ -4,10 +4,24 @@ phenomenological) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+On the card every WordErrorRate replays a captured CUDA graph of one
+megabatch (parallel/shots.py), its tier ladders conditional nodes
+(utils/device.py device_cond): one host read per megabatch.  The main-path
+phases run it under torch.cuda.set_sync_debug_mode("error") from the first
+replay to each megabatch read (parallel/shots.py check_syncs) and print
+their host reads per megabatch, the capture's warm-up, capture and
+instantiate seconds, its node count and the phase's peak device memory;
+phases 5, 6, 16, 25 (both modes), 28, 29 and 30 must read the host once a
+megabatch and never for a tier (decode_device.host_reads and
+bp_decode_two_phase.host_reads stay 0), and each holds one megabatch of its
+graph (a fresh key) against the same megabatch run eagerly
+(_kernels.force_eager).  Launch counts count the replays' launches.
+
 Phases (any failure raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit); TF32 off for every matmul
-  2. build all eight kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
-     (one nvcc per source, started together)
+  2. build all nine kernel sources from qldpc_fault_tolerance_tpu_torch/csrc
+     (one nvcc per source, started together; graph_cond.cu holds the
+     conditional-node capture, no TPU kernel)
   3. kernel 1 (min-sum BP) against its plain PyTorch version on the card:
      hgp_34_n625 hx, B=4096, syndromes of p=0.05 errors, max_iter 50; its
      layout (shots per block, threads, blocks, resident blocks per SM from
@@ -19,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
   5. main path, BP: CodeSimulator_DataError WER on hgp_34_n625, BP-50,
      depolarizing p=0.01, 16 batches of 4096 (default decoders: on the card
      the two-phase head and tail run in the bf16 head); its failures and
-     min weight pinned (MINSUM_RUNS, as phases 6, 16, 17, 22 and 26)
+     min weight pinned (MINSUM_RUNS, as phases 6, 16, 17, 22 and 26); a
+     target_failures run of its simulator stops where the eager loop stops,
+     with the eager loop's failures and shots
   6. main path, BPOSD: the same code, BP-50 + OSD-E order 10, p=0.05,
      8 batches of 2048
   7. anchors: zero failures at p=0; one BPOSD batch with every kernel
@@ -187,6 +203,10 @@ BF16_RUNS = {"25": (216, 2)}
 # SEED: the phenom engine's results on the card, which a change to it or to
 # its kernels must keep
 PHENOM_RUNS = {"28": (8604, 6), "29": (777, 6), "30": (2781, 8)}
+# the phases that must read the host once a megabatch and never for a tier
+SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30")
+# the key of the graph-against-eager megabatches and the target_failures run
+GRAPH_KEY = (12, SEED)
 # phases 28 and 31's eval_p (the Threshold notebook's phenomenological
 # cell: p = 3/2 eval_p depolarizing, q = eval_p syndrome flips)
 PHENOM_P = 0.02
@@ -203,8 +223,12 @@ ELIM_SHOTS = (256, 512)
 ELIM27_SHOTS = (256, 512, 2048)
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` with the seconds since the script started."""
+    print(f"{msg} [{time.time() - _T0:.1f} s]", flush=True)
 
 
 def event_ms(fn, reps: int) -> float:
@@ -560,11 +584,13 @@ def main() -> int:
     from qldpc_fault_tolerance_tpu_torch.ops import osd_cs_device as tcs
     from qldpc_fault_tolerance_tpu_torch.ops import osd_device as tod
     from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
+    from qldpc_fault_tolerance_tpu_torch.parallel.shots import check_syncs
     from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
     from qldpc_fault_tolerance_tpu_torch.sim.common import wer_single_shot
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
+    graph_stats = {}  # phase tag -> what its graph run measured
 
     # 1. the card
     card = card_line()
@@ -670,20 +696,72 @@ def main() -> int:
             pauli_error_probs=[p / 3] * 3, seed=seed, batch_size=batch,
             scan_chunk=8, device=dev)
 
-    def wer_phase(tag, sim, n_batches):
+    def graph_run(tag, sim, run):
+        """``run(sim)`` through its captured graph under check_syncs: the
+        host reads and the capture's cost logged and held (phases in
+        SYNC_FREE); returns (result, wall s, replay wall s, text)."""
         reads0 = (tbp.bp_decode_two_phase.host_reads, decode_device.host_reads)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.time()
-        wer, eb = sim.WordErrorRate(n_batches * sim.batch_size)
+        with check_syncs():
+            out = run(sim)
         dt = time.time() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
         reads = (tbp.bp_decode_two_phase.host_reads - reads0[0],
                  decode_device.host_reads - reads0[1])
+        g = sim.last_graph
+        per_mb = sim.last_host_reads / sim.last_megabatches
+        setup = g["warmup_s"] + g["capture_s"] + g["instantiate_s"] \
+            if g is not None else 0.0
+        if tag.split()[0] in SYNC_FREE and (per_mb != 1 or reads != (0, 0)):
+            raise AssertionError(
+                f"phase {tag}: {per_mb} host reads per megabatch, tier "
+                f"reads (two-phase, OSD) {reads}")
+        text = (f"host reads: {per_mb:.3f} per megabatch "
+                f"({sim.last_megabatches} megabatches), tier reads two-phase "
+                f"{reads[0]}, OSD {reads[1]}; graph: " + (
+                    "none (replayed a cached capture)" if g is None else
+                    f"warm-up {g['warmup_s']:.3f} s, capture "
+                    f"{g['capture_s']:.3f} s, instantiate "
+                    f"{g['instantiate_s']:.3f} s, {g['nodes']} nodes")
+                + f"; peak device memory {peak:.1f} MiB")
+        graph_stats[tag] = {"per_megabatch": per_mb, "peak_mib": peak,
+                            "wall_s": dt, "replay_s": dt - setup,
+                            "shots": sim.last_shots, **(g or {})}
+        return out, dt, dt - setup, text
+
+    def graph_vs_eager(tag, sim, n_batches, rounds=None):
+        """One megabatch of the phase's graph (``sim``'s, ``n_batches``
+        batches a run) on a fresh key against the same megabatch run
+        eagerly: (failures, min weight) equal.  After the phase's counted
+        run, so its launches count in no phase."""
+        shots = min(n_batches, 8) * sim.batch_size
+        got = []
+        for ctx in (check_syncs, _kernels.force_eager):
+            sim.min_logical_weight = sim.N
+            with ctx():
+                if rounds is None:
+                    sim.WordErrorRate(shots, key=GRAPH_KEY)
+                else:
+                    sim.WordErrorRate(rounds, shots, key=GRAPH_KEY)
+            got.append((sim.last_failures, sim.min_logical_weight))
+        if got[0] != got[1]:
+            raise AssertionError(f"phase {tag}: one megabatch, graph "
+                                 f"{got[0]} vs eager {got[1]}")
+        log(f"[{tag}] one megabatch ({sim.last_shots} shots), graph == eager "
+            f"(failures, min_w) {got[0]}")
+
+    def wer_phase(tag, sim, n_batches):
+        (wer, eb), dt, dt_replay, text = graph_run(
+            tag, sim, lambda s: s.WordErrorRate(n_batches * s.batch_size))
+        run = (sim.last_failures, sim.min_logical_weight)
         log(f"[{tag}] failures {sim.last_failures} shots {sim.last_shots} "
             f"WER {wer:.6e} +- {eb:.3e} min_w {sim.min_logical_weight} "
-            f"{sim.last_shots / dt:.1f} shots/s ({dt:.2f} s); host reads: "
-            f"two-phase {reads[0]}, OSD tier {reads[1]}, megabatch "
-            f"{sim.last_megabatches}")
-        return sim.last_failures, sim.min_logical_weight
+            f"{sim.last_shots / dt_replay:.1f} shots/s replayed "
+            f"({dt_replay:.3f} s; {sim.last_shots / dt:.1f} with the capture, "
+            f"{dt:.2f} s); {text}")
+        return run
 
     counters = {"gf2_sample": (gk.sample_syndrome, "launches"),
                 "gf2_residual": (gk.residual_check_stats, "launches"),
@@ -709,12 +787,19 @@ def main() -> int:
                 "bp_minsum_bf16_device_planes": (bk.bp_head_bf16,
                                                  "device_planes_launches")}
 
+    def fold_counts():
+        """Add the replays' launches, counted on the device, to the
+        counters (a read outside any timed run)."""
+        _kernels.fold_launch_counts(dev, _kernels.launch_counts(dev).tolist())
+
     def counted(fn):
         """Every launch count set to 0, ``fn`` run, the counts read; returns
         ``fn()``'s result and the counts."""
+        fold_counts()
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         out = fn()
+        fold_counts()
         return out, {name: getattr(obj, attr)
                      for name, (obj, attr) in counters.items()}
 
@@ -724,6 +809,8 @@ def main() -> int:
     sim6 = simulator(BPOSD_Decoder, 0.05, 2048, SEED, osd_method="osd_e",
                      osd_order=10)
     run6, launches_6 = counted(lambda: wer_phase("6 BPOSD p=0.05", sim6, 8))
+    graph_vs_eager("5", sim5, 16)
+    graph_vs_eager("6", sim6, 8)
     log(f"[5] launches {launches_5}; decoders' program "
         f"{sim5.decoder_z.kernel_variant}\n[6] launches {launches_6}")
     for tag, run in (("5", run5), ("6", run6)):
@@ -735,6 +822,18 @@ def main() -> int:
                         ("osd_elim", launches_6["osd_elim"])):
         if count <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # phase 5's simulator with target_failures: the graph's double-buffered
+    # drain stops at the eager loop's megabatch with its counts
+    stops = []
+    for ctx in (check_syncs, _kernels.force_eager):
+        with ctx():
+            sim5.WordErrorRate(16 * 4096, key=GRAPH_KEY, target_failures=50)
+        stops.append((sim5.last_failures, sim5.last_shots))
+    if stops[0] != stops[1] or stops[0][1] >= 16 * 4096:
+        raise AssertionError(f"target_failures: graph {stops[0]}, eager "
+                             f"{stops[1]}")
+    log(f"[5] target_failures=50: graph == eager (failures, shots) "
+        f"{stops[0]} of {16 * 4096} shots")
 
     # 7. anchors
     sim0 = simulator(BPOSD_Decoder, 0.0, 2048, SEED, osd_method="osd_e",
@@ -1076,6 +1175,7 @@ def main() -> int:
                       osd_order=10)
     run16, launches_16 = counted(lambda: wer_phase("16 BPOSD-CS p=0.05", sim16, 8))
     log(f"[16] launches {launches_16}")
+    graph_vs_eager("16", sim16, 8)
     saved_elim = os.environ.get("QLDPC_OSD_ELIM")
     os.environ["QLDPC_OSD_ELIM"] = "pallas_percol"
     try:  # the route is read when the decoders are built
@@ -1454,6 +1554,8 @@ def main() -> int:
     run25q, launches_25q = counted(lambda: wer_phase("25 v2 int8 p=0.01",
                                                      sim25q, 16))
     log(f"[25] launches bf16 {launches_25}; int8 {launches_25q}")
+    graph_vs_eager("25 bf16", sim25, 16)
+    graph_vs_eager("25 int8", sim25q, 16)
     for name, launches in (("fused_decode", launches_25),
                            ("fused_decode_int8", launches_25q)):
         if launches[name] <= 0:
@@ -1714,20 +1816,17 @@ def main() -> int:
             seed=seed, batch_size=batch, scan_chunk=8, device=dev, **kw)
 
     def phenom_phase(tag, sim, rounds, n_batches):
-        reads0 = (tbp.bp_decode_two_phase.host_reads, decode_device.host_reads)
-        torch.cuda.synchronize()
-        t = time.time()
-        wer, eb = sim.WordErrorRate(rounds, n_batches * sim.batch_size)
-        dt = time.time() - t
-        reads = (tbp.bp_decode_two_phase.host_reads - reads0[0],
-                 decode_device.host_reads - reads0[1])
+        (wer, eb), dt, dt_replay, text = graph_run(
+            tag, sim, lambda s: s.WordErrorRate(rounds,
+                                                n_batches * s.batch_size))
+        run = (sim.last_failures, sim.min_logical_weight)
         log(f"[{tag}] failures {sim.last_failures} shots {sim.last_shots} "
             f"rounds {rounds} WER/cycle {wer:.6e} +- {eb:.3e} min_w "
-            f"{sim.min_logical_weight} {sim.last_shots / dt:.1f} shots/s "
-            f"({dt:.2f} s); host reads per batch: two-phase "
-            f"{reads[0] / n_batches:.2f}, OSD tier {reads[1] / n_batches:.2f}, "
-            f"megabatch {sim.last_megabatches / n_batches:.3f}")
-        return sim.last_failures, sim.min_logical_weight
+            f"{sim.min_logical_weight} {sim.last_shots / dt_replay:.1f} "
+            f"shots/s replayed ({dt_replay:.3f} s; "
+            f"{sim.last_shots / dt:.1f} with the capture, {dt:.2f} s); "
+            f"{text}")
+        return run
 
     def pinned(tag, run):
         if tuple(run) != PHENOM_RUNS[tag]:
@@ -1741,6 +1840,7 @@ def main() -> int:
     run28, launches_28 = counted(lambda: phenom_phase(
         f"28 phenom BP/BPOSD-E n625 eval_p={PHENOM_P}", sim28, 9, 8))
     log(f"[28] launches {launches_28}")
+    graph_vs_eager("28", sim28, 8, rounds=9)
     if run28[0] < 50:
         raise AssertionError(f"phase 28 counted {run28[0]} failures (< 50)")
     for name in ("bp_minsum_bf16", "osd_elim"):
@@ -1754,6 +1854,7 @@ def main() -> int:
         f"29 phenom FirstMin/BPOSD-E n625 eval_p={PHENOM29_P}", sim29, 11,
         1))
     log(f"[29] launches {launches_29}")
+    graph_vs_eager("29", sim29, 1, rounds=11)
     if launches_29["osd_elim"] <= 0:
         raise AssertionError("osd_elim never launched in phase 29")
     pinned("29", run29)
@@ -1775,6 +1876,7 @@ def main() -> int:
         raise AssertionError("phase 30 never took the elimination's "
                              "device-memory route")
     pinned("30", run30)
+    graph_vs_eager("30", sim30, 2, rounds=9)
 
     # 31. anchors
     sim31 = phenom_sim(code, bp30, osd_e10, 0.0, 2048, SEED)

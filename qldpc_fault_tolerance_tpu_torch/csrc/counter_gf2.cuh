@@ -20,6 +20,17 @@ __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
   x1 = __funnelshift_l(x1, x1, r) ^ x0;
 }
 
+// Word i of a key in device memory, loaded where it is used: the load is
+// volatile, so the compiler cannot hoist it to the kernel's start and keep
+// the word in a register through the decode loops (the words were launch
+// arguments, read from the constant bank, before a captured CUDA graph
+// needed them in device memory).
+__device__ __forceinline__ uint32_t key_word(const uint32_t* key, int i) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(key + i));
+  return v;
+}
+
 // word x0 of Threefry-2x32 (20 rounds) at key (k0, k1), counter (c0, c1)
 __device__ __forceinline__ uint32_t draw(uint32_t k0, uint32_t k1,
                                          uint32_t c0, uint32_t c1) {

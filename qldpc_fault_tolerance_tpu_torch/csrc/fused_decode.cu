@@ -14,10 +14,11 @@
 //
 // Function: ops/gf2_kernel.py fused_decode_stats (quantize=None), plain
 // version fused_decode_plain.  For each shot s < B: the errors of
-// sample_syndrome (Threefry at counters (s, v)), syndromes synd_z = hx . e_z
-// and synd_x = hz . e_x, the Z sector's then the X sector's min-sum decode
-// with bf16 v2c (ops/bp_kernel.py minsum_dense_plain: each shot frozen at its
-// first convergence, max_iter_z / max_iter_x iterations at most), residuals
+// sample_syndrome (Threefry at counters (s, v), the key read from device
+// memory), syndromes synd_z = hx . e_z and synd_x = hz . e_x, the Z
+// sector's then the X sector's min-sum decode with bf16 v2c
+// (ops/bp_kernel.py minsum_dense_plain: each shot frozen at its first
+// convergence, max_iter_z / max_iter_x iterations at most), residuals
 // r = e ^ correction and the checks of gf2_residual.cu.  Outputs: each
 // shot's converged flag and iterations for both sectors, and per block
 // (failures, min weight) in a (blocks, 2) partial table that the wrapper
@@ -146,7 +147,7 @@ __device__ __forceinline__ unsigned plane_parity(const minsum::Planes& g,
 }
 
 __global__ void __launch_bounds__(kMaxThreads, 1)
-fused_decode_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
+fused_decode_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                     Sector sz,  // of hx: decodes synd_z
                     Sector sx,  // of hz: decodes synd_x
                     Adjacency lx, Adjacency lz, int n, int max_iter_z,
@@ -223,6 +224,8 @@ fused_decode_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
     const int b = s_shot[lane][k & 1];
     if (b >= B) break;
 
+    const uint32_t k0 = counter_gf2::key_word(key, 0);
+    const uint32_t k1 = counter_gf2::key_word(key, 1);
     for (int j = r; j < n; j += tpl) {
       bool bx = false, bz = false;
       counter_gf2::depolarize(
@@ -274,7 +277,7 @@ int set_smem(int smem_bytes) {
 }  // namespace
 
 extern "C" int fused_decode_launch(
-    uint32_t k0, uint32_t k1, uint32_t cz, uint32_t czx, uint32_t czxy,
+    const uint32_t* key, uint32_t cz, uint32_t czx, uint32_t czxy,
     const uint16_t* z_chk, const uint16_t* z_edge, const uint8_t* z_slot,
     const float* llr_z, int mx, int rwz, int cwz,
     const uint16_t* x_chk, const uint16_t* x_edge, const uint8_t* x_slot,
@@ -296,7 +299,7 @@ extern "C" int fused_decode_launch(
   const Sector sx{x_chk, x_edge, x_slot, llr_x, mz, rwx, cwx};
   const counter_gf2::Cuts cuts{cz, czx, czxy};
   fused_decode_kernel<<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
-      k0, k1, cuts, sz, sx, Adjacency{lx_nbr, lx_mask, kx, rlx},
+      key, cuts, sz, sx, Adjacency{lx_nbr, lx_mask, kx, rlx},
       Adjacency{lz_nbr, lz_mask, kz, rlz}, n, max_iter_z, max_iter_x, scale,
       eval_code, B, tpl, conv_z, iter_z, conv_x, iter_x, part, next);
   return (int)cudaGetLastError();

@@ -11,9 +11,10 @@
 //
 // Function: ops/gf2_kernel.py fused_decode_stats (quantize="int8"), plain
 // version fused_decode_plain.  For each tile of block_w * 32 consecutive
-// shots: the errors of sample_syndrome (Threefry at counters (s, v)),
-// syndromes synd_z = hx . e_z and synd_x = hz . e_x, the Z sector's then the
-// X sector's int8 min-sum decode with early exit (int8_body.cuh, as
+// shots: the errors of sample_syndrome (Threefry at counters (s, v), the
+// key read from device memory), syndromes synd_z = hx . e_z and
+// synd_x = hz . e_x, the Z sector's then the X sector's int8 min-sum decode
+// with early exit (int8_body.cuh, as
 // minsum_int8_plain with block_b = block_w * 32 and early_stop), residuals
 // r = e ^ correction and the checks of gf2_residual.cu.  Outputs: each
 // shot's converged flag and iterations for both sectors, and per block
@@ -115,7 +116,7 @@ __host__ __device__ inline size_t smem_bytes_of(int n, int mx, int mz, int ez,
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
+fused_decode_int8_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                          int8body::Planes gz,  // of hx: decodes synd_z
                          int8body::Planes gx,  // of hz: decodes synd_x
                          Adjacency hx, Adjacency hz, Adjacency lx,
@@ -157,12 +158,16 @@ fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
     s_wx[threadIdx.x] = 0;
     s_wz[threadIdx.x] = 0;
   }
-  for (int j = row; j < n; j += kRows) {
-    uint32_t wx, wz;
-    error_words(k0, k1, cuts, b, j, wx, wz);
-    if (lane == 0) {
-      ex_w[j] = wx;
-      ez_w[j] = wz;
+  {
+    const uint32_t k0 = counter_gf2::key_word(key, 0);
+    const uint32_t k1 = counter_gf2::key_word(key, 1);
+    for (int j = row; j < n; j += kRows) {
+      uint32_t wx, wz;
+      error_words(k0, k1, cuts, b, j, wx, wz);
+      if (lane == 0) {
+        ex_w[j] = wx;
+        ez_w[j] = wz;
+      }
     }
   }
   __syncthreads();
@@ -191,13 +196,18 @@ fused_decode_int8_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
   }
   __syncthreads();
 
-  // residuals: the errors drawn again, XORed into the corrections
-  for (int j = row; j < n; j += kRows) {
-    uint32_t wx, wz;
-    error_words(k0, k1, cuts, b, j, wx, wz);
-    if (lane == 0) {
-      cor_x[j] ^= wx;
-      cor_z[j] ^= wz;
+  // residuals: the errors drawn again (the key read again, not held
+  // through the decodes), XORed into the corrections
+  {
+    const uint32_t k0 = counter_gf2::key_word(key, 0);
+    const uint32_t k1 = counter_gf2::key_word(key, 1);
+    for (int j = row; j < n; j += kRows) {
+      uint32_t wx, wz;
+      error_words(k0, k1, cuts, b, j, wx, wz);
+      if (lane == 0) {
+        cor_x[j] ^= wx;
+        cor_z[j] ^= wz;
+      }
     }
   }
   __syncthreads();
@@ -290,7 +300,7 @@ extern "C" int fused_decode_int8_active_clusters(int cluster, int staged,
 // staged: the index plane goes into shared memory (ops/gf2_kernel.py
 // fused_int8_staged decides from the shape); smem_bytes must be the layout's
 extern "C" int fused_decode_int8_launch(
-    uint32_t k0, uint32_t k1, uint32_t cz, uint32_t czx, uint32_t czxy,
+    const uint32_t* key, uint32_t cz, uint32_t czx, uint32_t czxy,
     const int32_t* z_chk_idx, const float* z_mask, const int32_t* z_var_edge,
     int mx, int rwz, int cwz, const int32_t* x_chk_idx, const float* x_mask,
     const int32_t* x_var_edge, int mz, int rwx, int cwx,
@@ -320,7 +330,7 @@ extern "C" int fused_decode_int8_launch(
   const int8body::Planes gz{z_chk_idx, z_mask, z_var_edge, llr_z, mx, n, rwz, cwz};
   const int8body::Planes gx{x_chk_idx, x_mask, x_var_edge, llr_x, mz, n, rwx, cwx};
   e = cudaLaunchKernelEx(
-      &cfg, kernel_of(staged), k0, k1, counter_gf2::Cuts{cz, czx, czxy}, gz,
+      &cfg, kernel_of(staged), key, counter_gf2::Cuts{cz, czx, czxy}, gz,
       gx, Adjacency{hx_nbr, hx_mask, hx_rows, hx_rw},
       Adjacency{hz_nbr, hz_mask, hz_rows, hz_rw},
       Adjacency{lx_nbr, lx_mask, kx, rlx}, Adjacency{lz_nbr, lz_mask, kz, rlz},

@@ -7,10 +7,10 @@
 // dense f32 MXU products.  Here the checks are XOR gathers of packed words.
 //
 // Function: ops/gf2_kernel.py residual_check_stats.  The error words of
-// ops/gf2_kernel.py sample_syndrome (same key, same counters) XOR the packed
-// corrections cor_x, cor_z (W, n) into the residuals r_x, r_z.  A shot fails
-// X when hz . r_x or lz . r_x is nonzero, Z when hx . r_z or lx . r_z is;
-// eval_code 0, 1, 2 counts X, Z or either.  The minimum weight is taken over
+// ops/gf2_kernel.py sample_syndrome (same key, read from device memory, same
+// counters) XOR the packed corrections cor_x, cor_z (W, n) into the
+// residuals r_x, r_z.  A shot fails X when hz . r_x or lz . r_x is nonzero,
+// Z when hx . r_z or lx . r_z is; eval_code 0, 1, 2 counts X, Z or either.  The minimum weight is taken over
 // the logical failures of both sectors (|r_x| where lz . r_x != 0, |r_z|
 // where lx . r_z != 0), n when there are none: ops/gf2_packed.py
 // packed_residual_stats bit for bit.  Lanes at shot >= B count nowhere.
@@ -39,13 +39,15 @@ constexpr int kWarps = kThreads / 32;
 using counter_gf2::Adjacency;
 
 __global__ void __launch_bounds__(kThreads)
-gf2_residual_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
+gf2_residual_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                     const uint32_t* __restrict__ cor_x,  // (W, n)
                     const uint32_t* __restrict__ cor_z,  // (W, n)
                     Adjacency hx, Adjacency hz, Adjacency lx, Adjacency lz,
                     int eval_code, int n, int B,
                     int32_t* __restrict__ part) {  // (W, 2)
   extern __shared__ uint32_t words[];
+  const uint32_t k0 = counter_gf2::key_word(key, 0);
+  const uint32_t k1 = counter_gf2::key_word(key, 1);
   uint32_t* rx = words;      // residual X words [v]
   uint32_t* rz = words + n;  // residual Z words [v]
   // x_stab, x_log, z_stab, z_log flag words
@@ -124,7 +126,7 @@ gf2_residual_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
 }  // namespace
 
 extern "C" int gf2_residual_launch(
-    uint32_t k0, uint32_t k1, uint32_t cz, uint32_t czx, uint32_t czxy,
+    const uint32_t* key, uint32_t cz, uint32_t czx, uint32_t czxy,
     const uint32_t* cor_x, const uint32_t* cor_z,
     const int32_t* hx_nbr, const uint8_t* hx_mask, int mx, int rwx,
     const int32_t* hz_nbr, const uint8_t* hz_mask, int mz, int rwz,
@@ -141,7 +143,7 @@ extern "C" int gf2_residual_launch(
   }
   const counter_gf2::Cuts cuts{cz, czx, czxy};
   gf2_residual_kernel<<<W, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      k0, k1, cuts, cor_x, cor_z, Adjacency{hx_nbr, hx_mask, mx, rwx},
+      key, cuts, cor_x, cor_z, Adjacency{hx_nbr, hx_mask, mx, rwx},
       Adjacency{hz_nbr, hz_mask, mz, rwz}, Adjacency{lx_nbr, lx_mask, kx, rlx},
       Adjacency{lz_nbr, lz_mask, kz, rlz}, eval_code, n, B, part);
   return (int)cudaGetLastError();

@@ -9,7 +9,9 @@
 //
 // Function: ops/gf2_kernel.py sample_syndrome.  For shot s < B and qubit v
 // the draw is Threefry(key, (s, v)).x0; the cuts make it an X, Z or Y error
-// (counter_gf2.cuh).  Shot 32 w + j is bit j of word w.  Outputs, int32 bit
+// (counter_gf2.cuh).  The key's two words are read from device memory, so
+// that a captured CUDA graph draws each batch from the key it folds on the
+// device.  Shot 32 w + j is bit j of word w.  Outputs, int32 bit
 // patterns: the error words ex_p, ez_p (W, n) when emit_errors, and the
 // syndrome words sx_p = hz . ex (W, mz), sz_p = hx . ez (W, mx).  Lanes at
 // shot >= B (the ragged last word) give zero bits, as pack_shots pads, so
@@ -36,7 +38,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
 __global__ void __launch_bounds__(kThreads)
-gf2_sample_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
+gf2_sample_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                   const int32_t* __restrict__ hx_nbr,   // (mx, rwx)
                   const uint8_t* __restrict__ hx_mask,
                   const int32_t* __restrict__ hz_nbr,   // (mz, rwz)
@@ -48,6 +50,8 @@ gf2_sample_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
                   int emit_errors, int n, int mx, int rwx, int mz, int rwz,
                   int B) {
   extern __shared__ uint32_t words[];
+  const uint32_t k0 = counter_gf2::key_word(key, 0);
+  const uint32_t k1 = counter_gf2::key_word(key, 1);
   uint32_t* exw = words;      // [v]: bit j = shot 32 w + j has an X or Y
   uint32_t* ezw = words + n;  // [v]: ... a Z or Y
   const int w = blockIdx.x;
@@ -86,7 +90,7 @@ gf2_sample_kernel(uint32_t k0, uint32_t k1, counter_gf2::Cuts cuts,
 
 }  // namespace
 
-extern "C" int gf2_sample_launch(uint32_t k0, uint32_t k1, uint32_t cz,
+extern "C" int gf2_sample_launch(const uint32_t* key, uint32_t cz,
                                  uint32_t czx, uint32_t czxy,
                                  const int32_t* hx_nbr, const uint8_t* hx_mask,
                                  const int32_t* hz_nbr, const uint8_t* hz_mask,
@@ -104,7 +108,7 @@ extern "C" int gf2_sample_launch(uint32_t k0, uint32_t k1, uint32_t cz,
   }
   const counter_gf2::Cuts cuts{cz, czx, czxy};
   gf2_sample_kernel<<<W, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      k0, k1, cuts, hx_nbr, hx_mask, hz_nbr, hz_mask, ex_p, ez_p, sx_p, sz_p,
+      key, cuts, hx_nbr, hx_mask, hz_nbr, hz_mask, ex_p, ez_p, sx_p, sz_p,
       emit_errors, n, mx, rwx, mz, rwz, B);
   return (int)cudaGetLastError();
 }

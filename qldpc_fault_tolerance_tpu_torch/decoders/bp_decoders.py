@@ -29,7 +29,7 @@ import torch
 
 from ..codes import gf2
 from ..ops import _kernels, bp, bp_kernel, osd_cs_device, osd_device
-from ..utils.device import resolve_device
+from ..utils.device import device_cond, host_value, resolve_device
 from .osd import DEVICE_METHODS, METHODS, _check_osd_order
 
 __all__ = [
@@ -93,8 +93,10 @@ def decode_device(static, state, syndromes):
     method)``, ``method`` ``"osd_e"`` or ``"osd_cs"``) runs OSD on the
     BP-failed shots only, gathered into a
     fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch);
-    results never depend on the tier.  The tier is chosen on the host from
-    one read of the failure count, counted in ``decode_device.host_reads``.
+    results never depend on the tier.  The tiers are ``device_cond``s, as
+    the JAX package's ``lax.cond``s: conditional nodes during a CUDA-graph
+    capture, elsewhere chosen on the host from one read of the failure
+    count, counted in ``decode_device.host_reads``.
 
     ``"firstmin"`` (``("firstmin", max_restarts, ms_scaling_factor)``) runs
     ``bp.first_min_bp_decode``; its aux holds ``final_weight``."""
@@ -111,26 +113,38 @@ def decode_device(static, state, syndromes):
         B = syndromes.shape[0]
         conv = aux["converged"]
         bad = ~conv
-        decode_device.host_reads += 1
-        if B < 64:
-            if not bool(bad.any()):
-                return err, aux
+
+        def full():
             osd_err = _osd(static, state, syndromes, aux["posterior_llr"])
-            return torch.where(conv[:, None], err, osd_err), aux
-        n_bad = int(bad.sum())
-        if n_bad == 0:
-            return err, aux
-        for cap in osd_compaction_tiers(B):
-            if n_bad <= cap:
-                idx = torch.nonzero(bad).flatten()
-                idx = torch.cat([idx, idx.new_full((cap - n_bad,), B - 1)])
-                sub = _osd(static, state, syndromes[idx],
-                           aux["posterior_llr"][idx])
-                out = err.clone()
-                out[idx[:n_bad]] = sub[:n_bad]
-                return out, aux
-        osd_err = _osd(static, state, syndromes, aux["posterior_llr"])
-        return torch.where(conv[:, None], err, osd_err), aux
+            return torch.where(conv[:, None], err, osd_err)
+
+        def none():
+            return err
+
+        if B < 64:
+            return device_cond(host_value(bad.any(), decode_device) != 0,
+                               full, none), aux
+
+        def compacted(cap):
+            def run():
+                # pad with an out-of-range sentinel (B): padded rows decode
+                # shot B-1 again and their results land in a scratch row
+                idx = torch.nonzero_static(bad, size=cap,
+                                           fill_value=B).flatten()
+                idx_c = idx.clamp(max=B - 1)
+                sub = _osd(static, state, syndromes[idx_c],
+                           aux["posterior_llr"][idx_c])
+                out = torch.cat([err, err.new_zeros((1, err.shape[1]))])
+                out[idx] = sub
+                return out[:B]
+            return run
+
+        n_bad = host_value(bad.sum(dtype=torch.int32), decode_device)
+        out = full
+        for cap in reversed(osd_compaction_tiers(B)):
+            out = (lambda cap, nxt: lambda: device_cond(
+                n_bad <= cap, compacted(cap), nxt))(cap, out)
+        return device_cond(n_bad == 0, none, out), aux
     if kind != "bp":
         raise ValueError(f"unknown decoder kind {kind!r}")
     # head_tag: "none" (float32 min-sum), "v2" / "v1" (the bf16 head),

@@ -10,6 +10,16 @@ here runs when the module is imported.
 ``force_plain()`` makes every kernel wrapper take its plain PyTorch version
 even for CUDA tensors.  It exists so a run can hold the whole pipeline on the
 card against its plain versions; wrappers count no launch in that mode.
+``force_eager()`` makes the megabatch driver run its batches eagerly on the
+card instead of replaying a captured CUDA graph, so that a run can hold the
+graph against the eager path.
+
+Launch counts: each wrapper calls ``count_launch`` where it launches its
+kernel.  Outside a CUDA-graph capture that adds one to the wrapper's
+attribute at once.  During a capture it adds one to a device counter in the
+same branch as the launch, so only replays that run the branch count;
+``fold_launch_counts`` adds the device counters' growth to the attributes
+(the megabatch driver reads them with its carry).
 
 The min-sum and elimination wrappers launch their kernels in the memory mode
 (``MEMORY_MODES``) that their layouts pick from the shape.
@@ -28,13 +38,20 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
+from ..utils.device import capturing
+
 __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
-           "MEMORY_MODES", "force_memory", "memory_mode", "check_launch"]
+           "force_eager", "eager_forced", "MEMORY_MODES", "force_memory",
+           "memory_mode", "check_launch", "count_launch", "launch_counts",
+           "fold_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("bp_minsum", "osd_elim", "gf2_sample", "gf2_residual",
-           "fused_decode", "fused_decode_int8", "cs_sweep", "bp_int8")
+           "fused_decode", "fused_decode_int8", "cs_sweep", "bp_int8",
+           "graph_cond")
 # -fmad=false keeps a*b+c from contracting into one FMA, so the kernels round
 # exactly like their plain PyTorch versions and can be compared bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,6 +161,95 @@ def force_plain():
 
 def plain_forced() -> bool:
     return getattr(_force, "on", False)
+
+
+@contextlib.contextmanager
+def force_eager():
+    """Within the block, the megabatch driver runs its batches eagerly on
+    the card, one host read per tier choice, in place of its captured CUDA
+    graph (this thread only)."""
+    prev = getattr(_force, "eager", False)
+    _force.eager = True
+    try:
+        yield
+    finally:
+        _force.eager = prev
+
+
+def eager_forced() -> bool:
+    return getattr(_force, "eager", False)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within the block launches count nowhere (this thread only): the
+    megabatch driver's warm-up before a capture."""
+    prev = getattr(_force, "uncounted", False)
+    _force.uncounted = True
+    try:
+        yield
+    finally:
+        _force.uncounted = prev
+
+
+# (function, attribute) of every launch counter, in the order of their
+# slots in the device counters
+_COUNTERS: list = []
+_COUNTER_SLOTS = 64
+# device index -> [int64 device counters, their values last folded (host)]
+_device_counts: dict = {}
+
+
+def _slot(fn, attr: str) -> int:
+    key = (fn, attr)
+    if key not in _COUNTERS:
+        if len(_COUNTERS) == _COUNTER_SLOTS:
+            raise RuntimeError("no launch-counter slot left")
+        _COUNTERS.append(key)
+    return _COUNTERS.index(key)
+
+
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def launch_counts(device) -> torch.Tensor:
+    """The int64 device counters of ``device`` (a CUDA device), made on
+    first use; make them before a capture, which must not allocate them."""
+    index = _index(device)
+    entry = _device_counts.get(index)
+    if entry is None:
+        if capturing():
+            raise RuntimeError("launch counters must exist before a capture")
+        counts = torch.zeros(_COUNTER_SLOTS, dtype=torch.int64,
+                             device=torch.device("cuda", index))
+        entry = _device_counts[index] = [counts, [0] * _COUNTER_SLOTS]
+    return entry[0]
+
+
+def count_launch(fn, attr: str, device, launched=True) -> None:
+    """Count one launch of ``fn``'s kernel on ``device`` in ``fn.attr``
+    (nothing when ``launched`` is false): at once, or during a CUDA-graph
+    capture at each replay that runs it (module docstring)."""
+    if not launched or getattr(_force, "uncounted", False):
+        return
+    if capturing():
+        launch_counts(device)[_slot(fn, attr)].add_(1)
+    else:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def fold_launch_counts(device, values) -> None:
+    """Add to each counted attribute its device counter's growth since the
+    last fold; ``values`` are ``launch_counts(device)``'s values read on
+    the host (a snapshot, in stream order)."""
+    last = _device_counts[_index(device)][1]
+    for i, (fn, attr) in enumerate(list(_COUNTERS)):
+        grown = int(values[i]) - last[i]
+        if grown:
+            setattr(fn, attr, getattr(fn, attr) + grown)
+            last[i] = int(values[i])
 
 
 # where a kernel keeps one shot's working set: in its block's shared memory;

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import device_cond, host_value, resolve_device
 from . import bp_kernel
 
 __all__ = [
@@ -238,8 +238,10 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     follow that head's numerics, and int8 results depend on the tile.  Everything else (no head, a failed
     gate, head_iters >= max_iter, the full-batch decode) is float32 min-sum.
 
-    The tier is chosen on the host: each decode reads the straggler count
-    once (twice when the deepened head runs), counted in
+    The tier ladder is a nest of ``device_cond``s, shaped like the JAX
+    package's ``lax.cond``s: during a CUDA-graph capture it is conditional
+    nodes and reads nothing on the host; elsewhere each decode reads the
+    straggler count once (twice when the deepened head runs), counted in
     ``bp_decode_two_phase.host_reads``."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -258,13 +260,16 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
                              head.max_block_b(b, want=HEAD_BLOCK), quantize)
         return _decode(graph, synd, llr, iters, method, ms_scaling_factor)
 
+    def full():
+        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+
     def compacted(capacity, head_res):
         # pad the gather with an out-of-range sentinel (b): padded rows read
         # a zero scratch syndrome (row b of the extended arrays) and their
         # results land in a scratch row sliced off below; in the head's
         # kernel they take part in their tile's int8 scales, as in JAX
-        idx = torch.nonzero(~head_res.converged).flatten()
-        idx = torch.cat([idx, idx.new_full((capacity - idx.numel(),), b)])
+        idx = torch.nonzero_static(~head_res.converged, size=capacity,
+                                   fill_value=b).flatten()
         synd_ext = torch.cat([synd, synd.new_zeros((1, synd.shape[1]))])
         if use_head and head.max_block_b(capacity) > 0:
             tail = _run_head(head, synd_ext[idx], llr, max_iter,
@@ -284,26 +289,30 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
 
         return BPResult(*(merge(h, t) for h, t in zip(head_res, tail)))
 
+    def stragglers(res):
+        return host_value((~res.converged).sum(dtype=torch.int32),
+                          bp_decode_two_phase)
+
     tiers = [tail_capacity]
     if tail_capacity * TWO_PHASE_BIG_TIER_MULT < b:
         tiers.append(tail_capacity * TWO_PHASE_BIG_TIER_MULT)
 
-    head_res = run(head_iters)
-    n_bad = int((~head_res.converged).sum())
-    bp_decode_two_phase.host_reads += 1
-    for cap in tiers:
-        if n_bad <= cap:
-            return compacted(cap, head_res)
     # progressive head deepening: when even the largest tier overflows, a
     # deeper full-batch head runs before conceding to the full decode
     head2_iters = two_phase_head2_iters(head_iters, max_iter)
-    if head2_iters > head_iters:
+
+    def deepen():
         head2 = run(head2_iters)
-        n_bad2 = int((~head2.converged).sum())
-        bp_decode_two_phase.host_reads += 1
-        if n_bad2 <= tiers[-1]:
-            return compacted(tiers[-1], head2)
-    return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+        return device_cond(stragglers(head2) <= tiers[-1],
+                           lambda: compacted(tiers[-1], head2), full)
+
+    head_res = run(head_iters)
+    n_bad = stragglers(head_res)
+    out = deepen if head2_iters > head_iters else full
+    for cap in reversed(tiers):
+        out = (lambda cap, nxt: lambda: device_cond(
+            n_bad <= cap, lambda: compacted(cap, head_res), nxt))(cap, out)
+    return out()
 
 
 bp_decode_two_phase.host_reads = 0

@@ -52,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import capturing
 from . import _kernels
 
 __all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop",
@@ -73,8 +74,9 @@ def check_update_minsum(v2c, synd_sign, graph, scale):
     v2c: (m, rw, B); synd_sign: (m, B) of +-1.  Returns c2v (m, rw, B)."""
     m, rw, _ = v2c.shape
     mask = graph.chk_mask
-    big = torch.tensor(BIG, dtype=torch.float32, device=v2c.device)
-    scale_t = torch.tensor(scale, dtype=torch.float32, device=v2c.device)
+    # filled on the device, not copied there: a CUDA graph captures this
+    big = torch.full((), BIG, dtype=torch.float32, device=v2c.device)
+    scale_t = torch.full((), scale, dtype=torch.float32, device=v2c.device)
     min1 = big.expand_as(synd_sign)
     min2 = min1
     amin = torch.zeros(synd_sign.shape, dtype=torch.int64, device=v2c.device)
@@ -112,7 +114,9 @@ def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
     synd_bl: (m, B) uint8; llr0_bl: (n, B) or (n, 1) float32.  Returns
     ``(err (n, B) uint8, done (B,) bool, llr (n, B) f32, iters (B,) i32)``
     frozen at each shot's first convergence.  Messages of converged shots
-    keep updating; their values never reach an output."""
+    keep updating; their values never reach an output, so the loop may stop
+    early when every shot has converged (a host read), which it skips while
+    a CUDA graph is being captured."""
     n, cw = graph.var_nbr.shape
     B = synd_bl.shape[1]
     dev = synd_bl.device
@@ -129,7 +133,7 @@ def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
     for it in range(max_iter):
-        if bool(done.all()):
+        if not capturing() and bool(done.all()):
             break
         c2v = check_update(v2c, synd_sign, graph)              # (m, rw, B)
         c2v_var = torch.where(var_mask, c2v[var_nbr, var_slot], 0.0)
@@ -458,9 +462,11 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
                               ctypes.c_int(int(llr_per_shot)),
                               planes.chk.data_ptr(), planes.edge.data_ptr()],
         graph, False, llr_per_shot, max_iter, scale)
-    bp_minsum.launches += 1
-    bp_minsum.device_launches += memory == "device"
-    bp_minsum.device_planes_launches += memory == "device_planes"
+    _kernels.count_launch(bp_minsum, "launches", dev)
+    _kernels.count_launch(bp_minsum, "device_launches", dev,
+                          memory == "device")
+    _kernels.count_launch(bp_minsum, "device_planes_launches", dev,
+                          memory == "device_planes")
     return out
 
 
@@ -1026,7 +1032,7 @@ def _launch_int8(sgraph, synd_bl, llr0, head_iters, scale, block_b, early_stop):
         float(scale), int(bool(early_stop)), lanes, cluster, int(staged),
         int8_smem_bytes(lanes, rw, m, n, staged))
     _kernels.check_launch("bp_int8", rc)
-    bp_head_int8.launches += 1
+    _kernels.count_launch(bp_head_int8, "launches", dev)
     return err, conv.to(torch.bool), llr, iters
 
 
@@ -1074,9 +1080,11 @@ def _launch_bf16(head, synd, llr0, head_iters, scale):
                                    planes.edge.data_ptr(),
                                    planes.slot.data_ptr()],
         head, True, False, head_iters, scale)
-    bp_head_bf16.launches += 1
-    bp_head_bf16.device_launches += memory == "device"
-    bp_head_bf16.device_planes_launches += memory == "device_planes"
+    _kernels.count_launch(bp_head_bf16, "launches", dev)
+    _kernels.count_launch(bp_head_bf16, "device_launches", dev,
+                          memory == "device")
+    _kernels.count_launch(bp_head_bf16, "device_planes_launches", dev,
+                          memory == "device_planes")
     return out
 
 

@@ -20,6 +20,12 @@ The counterpart of the JAX package's ``ops/gf2_pallas.py``:
     package's rule (``fused_decode_block_w``), because int8 results depend
     on it.
 
+A key is two 32-bit words (host ints) or a (2,) int32 tensor holding them
+on the spec's device (``prng.key_tensor``): the kernels read the words from
+device memory, so a captured CUDA graph draws each batch from the key it
+folds on the device (``prng.fold_in_device``), and the plain versions draw
+from a key tensor without a host read.
+
 Each kernel has a plain PyTorch version beside it (``*_plain``), built from
 the port's packed GF(2) ops and ``bp_kernel``'s min-sum loops.  A wrapper
 runs the plain version only for tensors on the CPU (or under
@@ -60,7 +66,15 @@ from .gf2_packed import (
     unpack_shots,
 )
 from .linalg import ParityOp
-from .prng import fold_in, key_words, prng_key, split_key, threefry2x32
+from .prng import (
+    fold_in,
+    key_parts,
+    key_tensor,
+    key_words,
+    prng_key,
+    split_key,
+    threefry2x32,
+)
 
 __all__ = [
     "threefry2x32",
@@ -97,14 +111,15 @@ EVAL_CODES = {"X": 0, "Z": 1, "Total": 2}
 
 # ---------------------------------------------------------------------------
 # Counter draws and the depolarizing cuts
-def counter_draws(k0: int, k1: int, batch_size: int, n: int,
+def counter_draws(k0, k1, batch_size: int, n: int,
                   device="cuda") -> torch.Tensor:
     """(batch_size, n) int64 draws in [0, 2**32): word (b, v) is
-    Threefry(key, (b, v)).x0."""
+    Threefry(key, (b, v)).x0.  The key words are ints or int64 scalars on
+    ``device`` (``prng.key_parts``)."""
     device = resolve_device(device)
     c0 = torch.arange(batch_size, dtype=torch.int64, device=device)[:, None]
     c1 = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    x0, _ = threefry2x32(int(k0), int(k1), c0, c1)
+    x0, _ = threefry2x32(k0, k1, c0, c1)
     return x0
 
 
@@ -260,7 +275,7 @@ def fused_spec_from_jax(jspec, device="cuda"):
 # ---------------------------------------------------------------------------
 # Plain versions
 def _draw_errors(spec: FusedSpec, key, batch_size: int):
-    k0, k1 = key_words(key)
+    k0, k1 = key_parts(key)
     r = counter_draws(k0, k1, batch_size, spec.n, spec.device)
     return _errors_from_draws(r, spec.cuts)
 
@@ -427,8 +442,12 @@ def _adj(spec: FusedSpec, name: str) -> list:
     return [nbr.data_ptr(), mask.data_ptr(), nbr.shape[0], nbr.shape[1]]
 
 
-def _key_and_cuts(spec: FusedSpec, key) -> list:
-    return [*key_words(key), *spec.cuts]
+def _key_and_cuts(spec: FusedSpec, key) -> tuple:
+    """The kernels' leading arguments: a pointer to the key's two words on
+    the spec's device (a key tensor as given, host words uploaded) and the
+    cuts.  Keep the returned key tensor alive until the launch."""
+    key = key_tensor(key, spec.device)
+    return key, [key.data_ptr(), *spec.cuts]
 
 
 def _call(lib: str, fn_name: str, argtypes, args, dev) -> None:
@@ -455,14 +474,15 @@ def _launch_sample(spec, key, batch_size, emit_errors):
     ez_p = torch.empty(shape_e, dtype=torch.int32, device=dev)
     sx_p = torch.empty((W, mz), dtype=torch.int32, device=dev)
     sz_p = torch.empty((W, mx), dtype=torch.int32, device=dev)
+    key, lead = _key_and_cuts(spec, key)
     _call("gf2_sample", "gf2_sample_launch",
-          [_U] * 5 + [_P] * 8 + [_I] * 7 + [_P],
-          [*_key_and_cuts(spec, key), spec.hx_nbr.data_ptr(),
+          [_P] + [_U] * 3 + [_P] * 8 + [_I] * 7 + [_P],
+          [*lead, spec.hx_nbr.data_ptr(),
            spec.hx_mask.data_ptr(), spec.hz_nbr.data_ptr(),
            spec.hz_mask.data_ptr(), ex_p.data_ptr(), ez_p.data_ptr(),
            sx_p.data_ptr(), sz_p.data_ptr(), int(emit_errors), n, mx, rwx,
            mz, rwz, batch_size], dev)
-    sample_syndrome.launches += 1
+    _kernels.count_launch(sample_syndrome, "launches", dev)
     return (ex_p, ez_p, sx_p, sz_p) if emit_errors else (sx_p, sz_p)
 
 
@@ -495,13 +515,15 @@ def _launch_residual(spec, key, batch_size, corx_p, corz_p, eval_code):
             raise ValueError(f"corrections must be contiguous int32 words of "
                              f"shape {(W, spec.n)} on {dev}")
     part = torch.empty((W, 2), dtype=torch.int32, device=dev)
+    key, lead = _key_and_cuts(spec, key)
     _call("gf2_residual", "gf2_residual_launch",
-          [_U] * 5 + [_P] * 2 + [_P, _P, _I, _I] * 4 + [_I, _I, _I, _P, _P],
-          [*_key_and_cuts(spec, key), corx_p.data_ptr(), corz_p.data_ptr(),
+          [_P] + [_U] * 3 + [_P] * 2 + [_P, _P, _I, _I] * 4
+          + [_I, _I, _I, _P, _P],
+          [*lead, corx_p.data_ptr(), corz_p.data_ptr(),
            *_adj(spec, "hx"), *_adj(spec, "hz"), *_adj(spec, "lx"),
            *_adj(spec, "lz"), eval_code, spec.n, batch_size,
            part.data_ptr()], dev)
-    residual_check_stats.launches += 1
+    _kernels.count_launch(residual_check_stats, "launches", dev)
     return part[:, 0].sum(dtype=torch.int32), part[:, 1].min()
 
 
@@ -685,15 +707,16 @@ def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
         p = _planes_of(sparse)
         planes += [p.chk.data_ptr(), p.edge.data_ptr(), p.slot.data_ptr(),
                    llr.data_ptr(), sparse.m, sparse.rw, p.edge.shape[0]]
+    key, lead = _key_and_cuts(base, key)
     _call("fused_decode", "fused_decode_launch",
-          [_U] * 5 + ([_P] * 4 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
+          [_P] + [_U] * 3 + ([_P] * 4 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 2
           + [_I, _I, _I, _F, _I, _I, _I, _I, _I, _I] + [_P] * 7,
-          [*_key_and_cuts(base, key), *planes, *_adj(base, "lx"),
+          [*lead, *planes, *_adj(base, "lx"),
            *_adj(base, "lz"), base.n, max_iter_z, max_iter_x, scale,
            eval_code, batch_size, lay.lanes, lay.threads // lay.lanes,
            lay.grid, lay.smem_bytes, *(t.data_ptr() for t in outs),
            claims.data_ptr()], dev)
-    fused_decode_stats.launches += 1
+    _kernels.count_launch(fused_decode_stats, "launches", dev)
     return _fused_result(outs)
 
 
@@ -712,15 +735,16 @@ def _launch_fused_int8(spec, key, batch_size, eval_code, max_iter_z,
             f"tile of block_w={block_w} a cluster of {block_w} blocks (at "
             f"most {INT8_FUSED_MAX_CLUSTER})")
     outs = _fused_outputs(spec, batch_size, batch_size // LANE)
+    key, lead = _key_and_cuts(base, key)
     _call("fused_decode_int8", "fused_decode_int8_launch",
-          [_U] * 5 + ([_P] * 3 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 4
+          [_P] + [_U] * 3 + ([_P] * 3 + [_I] * 3) * 2 + [_P, _P, _I, _I] * 4
           + [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I] + [_P] * 6,
-          [*_key_and_cuts(base, key), *sz, *sx, *_adj(base, "hx"),
+          [*lead, *sz, *sx, *_adj(base, "hx"),
            *_adj(base, "hz"), *_adj(base, "lx"), *_adj(base, "lz"),
            spec.llr_z.data_ptr(), spec.llr_x.data_ptr(), base.n, max_iter_z,
            max_iter_x, scale, eval_code, batch_size, block_w, int(staged),
            smem, *(t.data_ptr() for t in outs)], dev)
-    fused_decode_stats.int8_launches += 1
+    _kernels.count_launch(fused_decode_stats, "int8_launches", dev)
     return _fused_result(outs)
 
 

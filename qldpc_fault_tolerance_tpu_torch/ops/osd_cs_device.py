@@ -122,6 +122,15 @@ def _cs_plane(f: int, w: int, pat_chunk: int):
     return e1t, e2t, j1, j2, n_cand, n_pad
 
 
+@functools.lru_cache(maxsize=64)
+def _cs_decode_table(f: int, w: int, pat_chunk: int, device):
+    """``_cs_plane``'s (j1, j2) as int64 tensors on ``device``, uploaded
+    once: a decode inside a CUDA-graph capture cannot copy from the
+    host."""
+    _e1t, _e2t, j1, j2, _n_cand, _n_pad = _cs_plane(f, w, pat_chunk)
+    return tuple(torch.from_numpy(j).to(device, torch.int64) for j in (j1, j2))
+
+
 def cs_sweep_plain(dplane, xflat, base, *, w: int, pat_chunk: int):
     """Plain PyTorch version of the sweep kernel: a port of the JAX
     package's ``_cs_sweep_xla``.  Every candidate's float32 cost as the
@@ -200,7 +209,7 @@ def cs_sweep(dplane, xflat, base, *, w: int, pat_chunk: int):
         rc = fn(dplane.data_ptr(), xflat.data_ptr(), base.data_ptr(),
                 best_cost.data_ptr(), best_idx.data_ptr(), f, w, B, smem, stream)
     _kernels.check_launch("cs_sweep", rc)
-    cs_sweep.launches += 1
+    _kernels.count_launch(cs_sweep, "launches", dev)
     return best_cost, best_idx
 
 
@@ -310,7 +319,7 @@ def cs_sweep_rows(packed, pr, signed_piv, cost_free, free_perm, base, *,
                 best_cost.data_ptr(), best_idx.data_ptr(), W, m, r, f, w, B,
                 threads, smem, stream)
     _kernels.check_launch("cs_sweep_rows", rc)
-    cs_sweep_rows.launches += 1
+    _kernels.count_launch(cs_sweep_rows, "launches", dev)
     return best_cost, best_idx
 
 
@@ -417,10 +426,9 @@ def osd_cs_decode_values(cfg, h_packed, cost, syndromes, posterior_llrs, *,
                                   pat_chunk=int(pat_chunk))
 
     # reconstruct only the winning candidate's solution
-    _e1t, _e2t, j1_tab, j2_tab, _, _ = _cs_plane(f, w, int(pat_chunk))
     best = best_idx.long()
-    j1, j2 = (torch.from_numpy(j).to(out.device, torch.int64)[best]
-              for j in (j1_tab, j2_tab))                       # -1 = none
+    j1, j2 = (j[best] for j in _cs_decode_table(
+        f, w, int(pat_chunk), out.device))                     # -1 = none
     v1, v2 = (j1 >= 0).to(torch.int32), (j2 >= 0).to(torch.int32)
     t1, t2 = (_pivot_bits(x.packed, x.pr,
                           x.free_perm.gather(0, j.clamp(min=0)[None]))[0]

@@ -532,12 +532,10 @@ def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
     in_device = _elim_call("osd_elim", lib.osd_elim_full_launch if full
                            else lib.osd_elim_launch, "full" if full else "skip",
                            h_packed, perm, synd, outs, n, r_star, fcap)
-    if full:
-        osd_elim.full_launches += 1
-        osd_elim.full_device_launches += in_device
-    else:
-        osd_elim.launches += 1
-        osd_elim.device_launches += in_device
+    launches, in_memory = (("full_launches", "full_device_launches") if full
+                           else ("launches", "device_launches"))
+    _kernels.count_launch(osd_elim, launches, dev)
+    _kernels.count_launch(osd_elim, in_memory, dev, in_device)
     return tuple(outs)
 
 
@@ -566,11 +564,12 @@ def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
     pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     ip = torch.zeros((n, B), dtype=torch.int32, device=dev)
     packed_out = torch.empty((W, m, B), dtype=torch.int32, device=dev)
-    osd_elim_percol.device_launches += _elim_call(
+    in_device = _elim_call(
         "osd_elim_percol",
         _kernels.library("osd_elim").osd_elim_percol_launch, "percol",
         h_packed, perm, synd, [synd_out, pr, pc, ip, packed_out], n, r_star, 0)
-    osd_elim_percol.launches += 1
+    _kernels.count_launch(osd_elim_percol, "launches", dev)
+    _kernels.count_launch(osd_elim_percol, "device_launches", dev, in_device)
     return synd_out.gather(0, pr.long()), pr, pc, ip == 1, packed_out
 
 

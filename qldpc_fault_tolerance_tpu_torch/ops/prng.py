@@ -7,13 +7,17 @@
     ``split`` and ``fold_in`` (default ``threefry_partitionable``) on Python
     ints, so deriving a batch's key costs no device sync.  A key is a pair of
     ints, its two 32-bit words.
+  * ``fold_in_device``: ``fold_in`` of one key with many batch indices on
+    the device, as the JAX package folds inside its scan; a captured CUDA
+    graph derives its batches' keys with it.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["MASK", "threefry2x32", "key_words", "prng_key", "split_key",
-           "fold_in"]
+           "fold_in", "fold_in_device", "key_tensor", "key_parts"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -67,3 +71,41 @@ def fold_in(key, data: int) -> tuple[int, int]:
     """``jax.random.fold_in(key, data)``: Threefry(key, (0, data))."""
     k0, k1 = key_words(key)
     return threefry2x32(k0, k1, 0, int(data) & MASK)
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as int32 bit patterns."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def fold_in_device(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fold_in(key, d)`` for every ``d`` of ``data`` on the device:
+    ``key`` (2,) int64 words, ``data`` int64 indices; returns
+    ``(len(data), 2)`` int32 bit patterns, one key per row, in the layout
+    the counter-PRNG kernels read."""
+    x0, x1 = threefry2x32(key[0], key[1], 0, data & MASK)
+    return _as_int32(torch.stack([x0.expand_as(x1), x1], dim=-1))
+
+
+def key_tensor(key, device) -> torch.Tensor:
+    """A key's two words as a (2,) int32 tensor on ``device`` (the kernels'
+    layout); a tensor already in that layout passes through."""
+    if isinstance(key, torch.Tensor):
+        if (key.dtype != torch.int32 or tuple(key.shape) != (2,)
+                or key.device.type != torch.device(device).type):
+            raise ValueError(f"a device key is a (2,) int32 tensor on "
+                             f"{device}, got {key.dtype} {tuple(key.shape)} "
+                             f"on {key.device}")
+        return key
+    words = torch.tensor(key_words(key), dtype=torch.int64)
+    return _as_int32(words).to(device)
+
+
+def key_parts(key):
+    """The key's words as Python ints, or, for a key tensor, as int64 device
+    scalars in [0, 2**32) (no host read)."""
+    if isinstance(key, torch.Tensor):
+        k = key.to(torch.int64) & MASK
+        return k[0], k[1]
+    return key_words(key)

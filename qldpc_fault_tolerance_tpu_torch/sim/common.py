@@ -3,11 +3,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..ops.linalg import gf2_matmul
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
-           "dense_check_flags", "select_failures"]
+           "dense_check_flags", "select_failures", "decoder_key",
+           "count_failures"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -88,3 +90,27 @@ class ShotBatcher:
     @property
     def total(self) -> int:
         return self.num_batches * self.batch_size
+
+
+def decoder_key(dec) -> tuple:
+    """What a captured batch bakes in of a decoder: the object (held, so
+    its id is not reused), its program and its state tensors' addresses."""
+    leaves = pytree.tree_leaves(dec.device_state)
+    return (dec, dec.device_static, tuple(
+        t.data_ptr() if isinstance(t, torch.Tensor) else t for t in leaves))
+
+
+def count_failures(sim, driver, key, n_batches: int, target_failures, *extra):
+    """Drain ``driver.run_keys`` for one run of ``sim``: ``(failures,
+    min weight, batches run)``, stopping after the first megabatch whose
+    cumulative failure count reaches ``target_failures``.  Records on
+    ``sim`` the megabatches the run counted (one more may have been
+    launched), its host reads and its capture."""
+    reads = driver.host_reads
+    for (failures, min_w), done in driver.run_keys(key, n_batches, *extra):
+        if target_failures is not None and failures >= int(target_failures):
+            break
+    sim.last_megabatches = done // driver.k_inner
+    sim.last_host_reads = driver.host_reads - reads
+    sim.last_graph = driver.graph_stats
+    return failures, min_w, done

@@ -32,12 +32,13 @@ infeasible v2 to its v1 fused path on its TPU.
 dense syndromes and checks on the same draws, bit for bit the same.
 
 Batches fold through the megabatch driver (``parallel/shots.py``): the
-count and min weight stay device tensors, read by the host once per run
-(once per megabatch with ``target_failures``).
+count and min weight stay device tensors, read by the host once per
+megabatch, double-buffered.  On the card every ``WordErrorRate`` path (the
+default engine, the fused engines, every OSD method) replays a captured
+megabatch, cached per simulator and shape, so a run makes no other host
+read; ``run_batch`` returns per-shot flags and stays eager.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -45,7 +46,7 @@ import torch
 from ..decoders.bp_decoders import decode_device
 from ..noise import depolarizing_xz, depolarizing_xz_packed
 from ..ops import gf2_kernel
-from ..ops.prng import fold_in, key_words, prng_key, split_key
+from ..ops.prng import key_words, prng_key, split_key
 from ..ops.gf2_packed import (
     pack_shots,
     packed_parity_apply,
@@ -53,10 +54,17 @@ from ..ops.gf2_packed import (
     unpack_shots,
 )
 from ..ops.linalg import ParityOp, gf2_matmul
-from ..parallel.shots import batch_generator, count_min_driver
+from ..parallel.shots import (
+    GeneratorInput,
+    KeyInput,
+    batch_generator,
+    count_min_driver,
+)
 from ..utils.device import resolve_device
 from .common import (
     ShotBatcher,
+    count_failures,
+    decoder_key,
     dense_check_flags,
     select_failures,
     wer_single_shot,
@@ -125,6 +133,9 @@ class CodeSimulator_DataError:
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_host_reads = 0
+        self.last_graph = None  # the captured megabatch's cost, on the card
+        self._drivers = {}
         hx_par = ParityOp(code.hx, self.device)
         hz_par = ParityOp(code.hz, self.device)
         self._hx_par = (hx_par.nbr, hx_par.mask)
@@ -248,19 +259,23 @@ class CodeSimulator_DataError:
         batcher = ShotBatcher(num_run, self.batch_size)
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
-        batch_input = (fold_in if self._fused_sampler else
-                       functools.partial(batch_generator, device=self.device))
-        driver = count_min_driver(self._stats, self.N, self.device, chunk,
-                                  batch_input)
-        if target_failures is None:
-            carry, done = driver.run(key, n_batches)
-            failures, min_w = torch.stack(carry).tolist()
-        else:
-            for carry, done in driver.stream(key, n_batches):
-                failures, min_w = torch.stack(carry).tolist()
-                if failures >= int(target_failures):
-                    break
-        self.last_megabatches = driver.megabatches
+        failures, min_w, done = count_failures(
+            self, self._driver(chunk), key, n_batches, target_failures)
         self.last_failures, self.last_shots = failures, done * self.batch_size
         self.min_logical_weight = min(self.min_logical_weight, min_w)
         return wer_single_shot(failures, self.last_shots, self.K)
+
+    def _driver(self, chunk: int):
+        """The megabatch driver of ``chunk`` batches per megabatch, kept
+        with the simulator (and its captured graph with it) as long as what
+        a batch bakes in is unchanged."""
+        program = (chunk, self.batch_size, tuple(self.channel_probs),
+                   self.eval_logical_type, self._fused_sampler, self._packed,
+                   decoder_key(self.decoder_x), decoder_key(self.decoder_z))
+        driver = self._drivers.get(program)
+        if driver is None:
+            batch_input = (KeyInput if self._fused_sampler else
+                           GeneratorInput)(self.device)
+            driver = self._drivers[program] = count_min_driver(
+                self._stats, self.N, self.device, chunk, batch_input)
+        return driver

@@ -18,9 +18,11 @@ int32 word (``ops/gf2_packed.py``): syndromes are XOR gathers and the
 checks ``packed_residual_stats``; only the decoders see unpacked planes.
 ``packed=False`` runs dense ``gf2_matmul`` syndromes and checks on the same
 draws, bit for bit the same.  Batches fold through the megabatch driver
-(``parallel/shots.py``), so a run reads the host once (once per megabatch
-with ``target_failures``); the only other host reads are the decoders' own
-(``decode_device``: the two-phase straggler count, the OSD tier).
+(``parallel/shots.py``), one host read per megabatch.  On the card a run
+replays a captured megabatch (cached per simulator, rounds and shape), in
+which the decoders' tier choices (``decode_device``: the two-phase
+straggler count, the OSD tier) are conditional nodes, so it makes no other
+host read; eagerly (the CPU) each tier choice reads the host once.
 
 The errors are drawn from ``torch.Generator`` streams, not ``jax.random``,
 so the JAX engine's failures are matched within binomial error; the
@@ -28,8 +30,6 @@ pipeline itself is held exactly against the JAX engine's functions on
 injected errors (``_stats_from_errors``).
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -49,10 +49,16 @@ from ..ops.gf2_packed import (
 )
 from ..ops.linalg import ParityOp, gf2_matmul
 from ..ops.prng import key_words, prng_key, split_key
-from ..parallel.shots import batch_generator, count_min_driver
+from ..parallel.shots import (
+    GeneratorInput,
+    batch_generator,
+    count_min_driver,
+)
 from ..utils.device import resolve_device
 from .common import (
     ShotBatcher,
+    count_failures,
+    decoder_key,
     dense_check_flags,
     select_failures,
     wer_per_cycle,
@@ -114,6 +120,9 @@ class CodeSimulator_Phenon:
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_host_reads = 0
+        self.last_graph = None  # the captured megabatch's cost, on the card
+        self._drivers = {}
         dev = self.device
         # sparse adjacency of [H | I] (row weight rw(H) + 1) and of H for
         # the packed syndromes and checks; (n, m) transposes for the dense
@@ -265,21 +274,28 @@ class CodeSimulator_Phenon:
         batcher = ShotBatcher(num_samples, self.batch_size)
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
-        driver = count_min_driver(
-            self._batch_stats, self.N, self.device, chunk,
-            functools.partial(batch_generator, device=self.device))
-        if target_failures is None:
-            carry, done = driver.run(key, n_batches, int(num_rounds))
-            failures, min_w = torch.stack(carry).tolist()
-        else:
-            for carry, done in driver.stream(key, n_batches, int(num_rounds)):
-                failures, min_w = torch.stack(carry).tolist()
-                if failures >= int(target_failures):
-                    break
-        self.last_megabatches = driver.megabatches
+        failures, min_w, done = count_failures(
+            self, self._driver(chunk), key, n_batches, target_failures,
+            int(num_rounds))
         self.last_failures, self.last_shots = failures, done * self.batch_size
         self.min_logical_weight = min(self.min_logical_weight, min_w)
         return failures, self.last_shots
+
+    def _driver(self, chunk: int):
+        """The megabatch driver of ``chunk`` batches per megabatch, kept
+        with the simulator (its captured graphs, one per round count, with
+        it) as long as what a batch bakes in is unchanged."""
+        program = (chunk, self.batch_size, tuple(self.channel_probs),
+                   self.synd_prob, self.eval_logical_type, self._packed,
+                   *(decoder_key(d) for d in (
+                       self.decoder1_x, self.decoder1_z, self.decoder2_x,
+                       self.decoder2_z)))
+        driver = self._drivers.get(program)
+        if driver is None:
+            driver = self._drivers[program] = count_min_driver(
+                self._batch_stats, self.N, self.device, chunk,
+                GeneratorInput(self.device))
+        return driver
 
     def WordErrorRate(self, num_rounds: int, num_samples: int, key=None,
                       target_failures=None):

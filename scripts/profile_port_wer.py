@@ -13,10 +13,11 @@ engine of chip_smoke.py phases 28-30: CodeSimulator_Phenon on hgp_34_n625,
 BP (max_iter N/30) on [H|I] then BP + OSD-E order 10 (N/10) on H,
 eval_p=0.02, 9 rounds, batches of 2048; the FirstMin decoder 1 of phase
 29, 11 rounds at eval_p=0.01; and BP + OSD-0 on both at hgp_34_n1600) once
-to warm up and
-once under torch.profiler, and prints for each: wall time, shots/s, the
-host reads per batch (the two-phase straggler count and the OSD tier,
-``decode_device``'s syncs), device time summed by kernel name (the top
+to warm up (on the card: to capture the megabatch's CUDA graph) and once
+under torch.profiler (on the card: replaying it), and prints for each: wall
+time, shots/s, the host reads per megabatch and per batch (the two-phase
+straggler count and the OSD tier, ``decode_device``'s syncs, which a
+replay does not make), device time summed by kernel name (the top
 ``--rows``, 12 by default), and the device busy share (summed kernel time
 over wall time; kernels do not overlap on one stream).
 
@@ -166,8 +167,9 @@ def main() -> int:
         busy = sum(e.device_time_total for e in rows) / 1e6
         print(f"== {tag}: wall {wall:.4f} s, {shots / wall:.1f} shots/s, "
               f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%); host "
-              f"reads per batch: two-phase {reads[0] / batches:.2f}, OSD "
-              f"tier {reads[1] / batches:.2f}")
+              f"reads per megabatch {sim.last_host_reads}/"
+              f"{sim.last_megabatches}, per batch: two-phase "
+              f"{reads[0] / batches:.2f}, OSD tier {reads[1] / batches:.2f}")
         for e in rows[:args.rows]:
             print(f"  {e.device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
                   f"{e.key[:90]}")

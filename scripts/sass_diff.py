@@ -3,6 +3,7 @@
 checkouts, kernel by kernel, on a machine with the CUDA toolkit.
 
   python3 scripts/sass_diff.py --parent DIR osd_elim bp_minsum fused_decode
+  python3 scripts/sass_diff.py --parent DIR --diff gf2_sample
 
 Each named ``csrc/<name>.cu`` of this checkout and of the one under DIR is
 compiled to a cubin with the port's build flags (``ops/_kernels.py``
@@ -12,13 +13,16 @@ template arguments, less a trailing template flag of ``false`` or ``0``
 that this checkout added (a memory mode whose first value is the parent's
 code), and the two instruction lists are compared with their addresses
 and encodings removed.  Prints one line per kernel (IDENTICAL, DIFFERS or
-new) and exits 1 if a kernel the parent has differs or is missing.
+new) and exits 1 if a kernel the parent has differs or is missing; with
+``--diff``, a kernel that differs is followed by the unified diff of its
+instruction lists.
 ``scripts/ab_osd_elim.py --sass`` and ``scripts/ab_minsum_body.py --sass``
 run it on their sources.
 """
 from __future__ import annotations
 
 import argparse
+import difflib
 import re
 import subprocess
 import sys
@@ -74,7 +78,7 @@ def _key(kernel: str) -> str:
     return re.sub(r",\s*(false|0)>$", ">", head.strip()).replace(" ", "")
 
 
-def compare(parent: Path, names) -> bool:
+def compare(parent: Path, names, show_diff: bool = False) -> bool:
     """Print the comparison of every kernel of ``names``; True when each of
     the parent's kernels has this checkout's counterpart, instruction for
     instruction."""
@@ -94,6 +98,10 @@ def compare(parent: Path, names) -> bool:
             same &= got == insns
             print(f"{name}: {_key(kernel)}: {verdict} ({len(insns)} / "
                   f"{len(got)} instructions)")
+            if show_diff and got != insns:
+                for line in difflib.unified_diff(insns, got, "parent", "this",
+                                                 n=1, lineterm=""):
+                    print(f"    {line}")
         for kernel in new:
             if _key(kernel) not in matched:
                 print(f"{name}: {_key(kernel)}: new ({len(new[kernel])} "
@@ -104,9 +112,12 @@ def compare(parent: Path, names) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="the other checkout's root")
+    ap.add_argument("--diff", action="store_true",
+                    help="print the instruction diff of a kernel that differs")
     ap.add_argument("names", nargs="+", help="csrc sources, without .cu")
     args = ap.parse_args()
-    return 0 if compare(Path(args.parent).resolve(), args.names) else 1
+    return 0 if compare(Path(args.parent).resolve(), args.names,
+                        args.diff) else 1
 
 
 if __name__ == "__main__":
