@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's WER paths (code-capacity and
-phenomenological) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's WER paths (code-capacity,
+phenomenological, phenomenological space-time and circuit-level) on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -11,8 +12,8 @@ phases run it under torch.cuda.set_sync_debug_mode("error") from the first
 replay to each megabatch read (parallel/shots.py check_syncs) and print
 their host reads per megabatch, the capture's warm-up, capture and
 instantiate seconds, its node count and the phase's peak device memory;
-phases 5, 6, 16, 25 (both modes), 28, 29 and 30 must read the host once a
-megabatch and never for a tier (decode_device.host_reads and
+phases 5, 6, 16, 25 (both modes), 28, 29, 30, 32, 33 and 34 must read the
+host once a megabatch and never for a tier (decode_device.host_reads and
 bp_decode_two_phase.host_reads stay 0), and each holds one megabatch of its
 graph (a fresh key) against the same megabatch run eagerly
 (_kernels.force_eager).  Launch counts count the replays' launches.
@@ -43,14 +44,16 @@ Phases (any failure raises and the script exits non-zero):
      64 shots (no head engages: float32 on both) and 256 shots (the card's
      bf16 head against the CPU running the same head's plain version)
      decoded on the CPU and on the card agree
-  8. a "kernels" JSON line, printed after phase 31: for all eleven kernels
+  8. a "kernels" JSON line, printed after phase 35: for all eleven kernels
      the main-path launches (phase 26 for kernel 1, phase 6 for kernel 2,
      phase 5 for the bf16 head, phase 12 for B3 and B4, phase 16 for B7 and
      B8, phase 17 for B10, phase 21 for B6, phase 25 for B5's bf16 and int8
      modes), error against the plain version, times, bound; the bf16 head
      has a second entry for the v1 tag's route (it replaces the dense
      one-hot B9 too), with phase 22's launches; and one entry for each
-     device-memory mode of phase 27, with its launches in phases 28-30
+     device-memory mode of phase 27, with its launches in phases 28-30 and
+     33 (kernel 1's device-memory mode, bp_minsum_device, with phase 33's
+     numbers: the one main path that launches it)
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -152,6 +155,32 @@ Phases (any failure raises and the script exits non-zero):
      phase 30's shapes) with every kernel replaced; fused_sampler="v2" on six
      copies of hgp_34_n625 (n = 3750, which the fused kernel cannot take)
      runs as fused v1, its fallback counted, with v1's failures
+ 32. main path, the phenomenological space-time engine (the JAX package's
+     sweep/family_spacetime.py _phenl_wer cell): CodeSimulator_Phenon_SpaceTime
+     on hgp_34_n625, decoder 1 the space-time BP window decoder
+     (ST_BP_Decoder_Class(30, min-sum, 0.625), windows of num_rep 3 slices
+     of [H|I]: 900 x 2775), decoder 2 BP + OSD-E order 10 on H, eval_p
+     ST_P (p = 3/2 eval_p depolarizing, q = eval_p), 13 cycles (5 rounds:
+     4 windows and the final round), 8 batches of 2048; the window
+     decoder's program and layout; pinned (ST_RUNS)
+ 33. phase 32's cell with windows of 8 slices (2400 x 7400, beyond a
+     block's shared memory: the min-sum kernels' device-memory modes) at
+     eval_p ST33_P, 17 cycles (3 rounds), 2 batches of 2048; pinned;
+     kernel 1 in device memory on window histories of that matrix at each
+     launch its ladder can make (2048 shots at the head's, the deepened
+     head's and the full max_iter; the big straggler tier), every output
+     bit-exact with the plain version
+ 34. main path, the circuit-level engine (the JAX package's
+     sweep/family.py _circuit_wer cell with SpaceTimeDecodingDemo's CX-only
+     noise): CodeSimulator_Circuit on hgp_34_n625, coloration schedule,
+     p_CX = CIRCUIT_P, 6 cycles, decoder 1 BP (N/30) on [H|I] per round,
+     decoder 2 BP + OSD-E order 10 on H, 4 batches of 2048; the circuit's
+     qubits, measurements, detectors and noise ops; pinned (CIRCUIT_RUNS)
+ 35. anchors: p = q = 0 gives no failure in both engines; one batch of
+     phases 32, 33 and 34 with every kernel replaced by its plain version
+     gives the kernel path's failures and min weight; the card's
+     FrameSampler fed the CPU's uniforms gives the CPU's detectors and
+     observables, bit for bit
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -203,13 +232,27 @@ BF16_RUNS = {"25": (216, 2)}
 # SEED: the phenom engine's results on the card, which a change to it or to
 # its kernels must keep
 PHENOM_RUNS = {"28": (8604, 6), "29": (777, 6), "30": (2781, 8)}
+# (failures, min weight) of phases 32 and 33 (the phenomenological
+# space-time engine) and 34 (the circuit engine, whose weight slot is N) at
+# SEED: their results on the card, which a change to them or to their
+# kernels must keep
+ST_RUNS = {"32": (8560, 6), "33": (1344, 6)}
+CIRCUIT_RUNS = {"34": (236, 625)}
 # the phases that must read the host once a megabatch and never for a tier
-SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30")
+SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30", "32", "33", "34")
 # the key of the graph-against-eager megabatches and the target_failures run
 GRAPH_KEY = (12, SEED)
 # phases 28 and 31's eval_p (the Threshold notebook's phenomenological
 # cell: p = 3/2 eval_p depolarizing, q = eval_p syndrome flips)
 PHENOM_P = 0.02
+# phases 32, 33 and 35's eval_p (the space-time cell of
+# sweep/family_spacetime.py: p = 3/2 eval_p, q = eval_p) and phases 34-35's
+# CX error rate p (SpaceTimeDecodingDemo's CX-only circuit noise)
+ST_P = 0.01
+CIRCUIT_P = 0.002
+# phase 33's eval_p: with windows of 8 slices every shot fails at ST_P (128
+# of 128 shots on the CPU); at 0.005 about a third do
+ST33_P = 0.005
 # phase 29's eval_p: at the Single-Shot notebook's 0.02 its FirstMin
 # decoder 1 leaves every shot of 11 rounds failed; at 0.01 about 38% fail,
 # so the pin still tells how well the path decodes
@@ -1815,23 +1858,23 @@ def main() -> int:
             decoder2_z=d2[1], pauli_error_probs=[eval_p / 2] * 3, q=q,
             seed=seed, batch_size=batch, scan_chunk=8, device=dev, **kw)
 
-    def phenom_phase(tag, sim, rounds, n_batches):
+    def phenom_phase(tag, sim, rounds, n_batches, unit="rounds"):
         (wer, eb), dt, dt_replay, text = graph_run(
             tag, sim, lambda s: s.WordErrorRate(rounds,
                                                 n_batches * s.batch_size))
         run = (sim.last_failures, sim.min_logical_weight)
         log(f"[{tag}] failures {sim.last_failures} shots {sim.last_shots} "
-            f"rounds {rounds} WER/cycle {wer:.6e} +- {eb:.3e} min_w "
+            f"{unit} {rounds} WER/cycle {wer:.6e} +- {eb:.3e} min_w "
             f"{sim.min_logical_weight} {sim.last_shots / dt_replay:.1f} "
             f"shots/s replayed ({dt_replay:.3f} s; "
             f"{sim.last_shots / dt:.1f} with the capture, {dt:.2f} s); "
             f"{text}")
         return run
 
-    def pinned(tag, run):
-        if tuple(run) != PHENOM_RUNS[tag]:
+    def pinned(tag, run, runs=PHENOM_RUNS):
+        if tuple(run) != runs[tag]:
             raise AssertionError(f"phase {tag} (failures, min_w) {run} != "
-                                 f"{PHENOM_RUNS[tag]}")
+                                 f"{runs[tag]}")
 
     bp30 = BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
     osd_e10 = BPOSD_Decoder_Class(10, "minimum_sum", 0.625, "osd_e", 10,
@@ -1951,6 +1994,229 @@ def main() -> int:
         f"as fused v1 (fused_fallbacks +1; no fused_decode launch): "
         f"(failures, min_w) {fused6[0]} == v1's")
 
+    # 32-35. the phenomenological space-time engine and the circuit-level
+    # engine on hgp_34_n625: counts reset just before each run, read just
+    # after
+    from qldpc_fault_tolerance_tpu_torch.circuits import FrameSampler
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        ST_BP_Decoder_Class,
+        kernel_variant,
+    )
+    from qldpc_fault_tolerance_tpu_torch.sim import (
+        CodeSimulator_Circuit,
+        CodeSimulator_Phenon_SpaceTime,
+    )
+
+    t_new = time.time()
+    st_bp30 = ST_BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
+
+    def st_sim(num_rep, eval_p, batch, seed):
+        """CodeSimulator_Phenon_SpaceTime as the JAX package's sweeps build
+        a cell (sweep/family_spacetime.py _phenl_wer): p = 3/2 eval_p, q =
+        eval_p, decoder 1 the space-time BP window decoder over num_rep
+        slices of [H|I], decoder 2 BP + OSD-E 10 on H."""
+        d1 = [st_bp30.GetDecoder({"h": h, "p_data": eval_p,
+                                  "p_syndrome": eval_p, "num_rep": num_rep})
+              for h in (code.hz, code.hx)]
+        d2 = [osd_e10.GetDecoder({"h": h, "p_data": eval_p})
+              for h in (code.hz, code.hx)]
+        return CodeSimulator_Phenon_SpaceTime(
+            code=code, decoder1_x=d1[0], decoder1_z=d1[1], decoder2_x=d2[0],
+            decoder2_z=d2[1], pauli_error_probs=[eval_p / 2] * 3, q=eval_p,
+            num_rep=num_rep, seed=seed, batch_size=batch, scan_chunk=8,
+            device=dev)
+
+    def window_text(dec, B: int) -> str:
+        """A window decoder's matrix, BP program and the min-sum layout the
+        card takes for it at B shots."""
+        h = dec.ST_h
+        rw, cw = int(h.sum(1).max()), int(h.sum(0).max())
+        variant = kernel_variant(dec.device_static, dec.device_state, B)
+        lay = bk.card_minsum_layout(dev, B, *h.shape, rw, cw,
+                                    variant != "xla_twin")
+        return (f"{h.shape[0]}x{h.shape[1]} (row weight {rw}, column weight "
+                f"{cw}), head tag {dec.device_static[4][5]}, kernel_variant "
+                f"{variant}; at {B} shots {lay.memory} memory, {lay.lanes} "
+                f"shots x {lay.threads // lay.lanes} threads per block, "
+                f"{lay.grid} blocks, {lay.smem_bytes} B shared memory")
+
+    def b1_b2_launched(tag, launches):
+        if launches["bp_minsum_bf16"] + launches["bp_minsum"] <= 0:
+            raise AssertionError(f"no min-sum kernel launched in phase {tag}")
+        if launches["osd_elim"] <= 0:
+            raise AssertionError(f"osd_elim never launched in phase {tag}")
+
+    # 32. the space-time engine's main path: windows of 3
+    sim32 = st_sim(3, ST_P, 2048, SEED)
+    log(f"[32] window decoder {window_text(sim32.decoder1_z, 2048)}")
+    run32, launches_32 = counted(lambda: phenom_phase(
+        f"32 phenom space-time BP-ST/BPOSD-E n625 num_rep 3 eval_p={ST_P}",
+        sim32, 13, 8, unit="cycles"))
+    log(f"[32] launches {launches_32}")
+    graph_vs_eager("32", sim32, 8, rounds=13)
+    b1_b2_launched("32", launches_32)
+    pinned("32", run32, ST_RUNS)
+
+    # 33. a window beyond shared memory: windows of 8
+    sim33 = st_sim(8, ST33_P, 2048, SEED)
+    log(f"[33] window decoder {window_text(sim33.decoder1_z, 2048)}")
+    run33, launches_33 = counted(lambda: phenom_phase(
+        f"33 phenom space-time BP-ST/BPOSD-E n625 num_rep 8 eval_p={ST33_P}",
+        sim33, 17, 2, unit="cycles"))
+    dmem33 = {k: launches_33[k] for k in dmem}
+    log(f"[33] launches {launches_33}; device-memory modes {dmem33}")
+    if not sum(dmem33.values()):
+        raise AssertionError("phase 33's window decode took no "
+                             "device-memory mode")
+    graph_vs_eager("33", sim33, 2, rounds=17)
+    b1_b2_launched("33", launches_33)
+    pinned("33", run33, ST_RUNS)
+    # kernel 1 in device memory at phase 33's shapes, held against its
+    # plain version on window histories drawn from the window decoder's
+    # own channel (ST_h e, e ~ its tiled [p_data x n | p_synd x m]), at
+    # every launch the ladder can make there: the head and the deepened
+    # head over the full batch, the big straggler tier (the deepened
+    # head's unconverged shots) and the full-batch decode at max_iter; the
+    # kernels line's bp_minsum_device entry takes the full decode's numbers
+    # and the largest error of the four
+    dec33 = sim33.decoder1_z
+    g33, llr33 = dec33.device_state["graph"], dec33.device_state["llr0"]
+    it33, msf33 = dec33.device_static[4][1], dec33.device_static[4][3]
+    gen33 = torch.Generator(device=dev).manual_seed(SEED)
+    h33 = torch.as_tensor(dec33.ST_h, dtype=torch.float32, device=dev)
+    e33 = torch.rand((2048, h33.shape[1]), generator=gen33,
+                     device=dev) < torch.sigmoid(-llr33)
+    synd33 = torch.remainder(e33.float() @ h33.t(), 2).to(torch.uint8)
+    head2_33 = tbp.two_phase_head2_iters(tbp.TWO_PHASE_HEAD_ITERS, it33)
+    conv33 = bp_minsum(g33, synd33, llr33, max_iter=head2_33,
+                       ms_scaling_factor=msf33)[1]
+    cap33 = 2048 // tbp.TWO_PHASE_TAIL_DIV * tbp.TWO_PHASE_BIG_TIER_MULT
+    tail33 = synd33[torch.nonzero_static(~conv33, size=cap33,
+                                         fill_value=0).flatten()]
+    k1_33 = {}
+    for name, iters, synd in (
+            ("head", tbp.TWO_PHASE_HEAD_ITERS, synd33),
+            ("deepened head", head2_33, synd33),
+            ("straggler tier", it33, tail33), ("full decode", it33, synd33)):
+        def run(synd=synd, iters=iters):
+            return bp_minsum(g33, synd, llr33, max_iter=iters,
+                             ms_scaling_factor=msf33)
+        before = bp_minsum.device_launches
+        k = run()
+        if bp_minsum.device_launches != before + 1:
+            raise AssertionError(f"phase 33's {name} launch took no "
+                                 f"device-memory mode")
+        with _kernels.force_plain():
+            pl33, plain_ms = once_ms(run)
+        err = bits_equal(f"bp_minsum device memory, phase 33 {name}", k, pl33)
+        B = synd.shape[0]
+        bound, by = bp_bound_ms(g33, B, int(k[3].sum()))
+        k1_33[name] = {"err": err, "ms": event_ms(run, 5),
+                       "plain_ms": plain_ms, "bound": bound, "by": by}
+        log(f"[33] bp_minsum device memory == plain on a window history "
+            f"({h33.shape[0]}x{h33.shape[1]}), {name}: {B} shots, max_iter "
+            f"{iters}, {int((~k[1]).sum())} unconverged; "
+            f"{k1_33[name]['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+    dmem["bp_minsum_device"].update(
+        k1_33["full decode"], err=max(d["err"] for d in k1_33.values()))
+
+    # 34. the circuit engine's main path
+    def circuit_sim(p, batch, seed):
+        """CodeSimulator_Circuit as the JAX package's sweeps build a cell
+        (sweep/family.py _circuit_wer, SpaceTimeDecodingDemo's CX-only
+        error parameters): decoder 1 BP on [H|I], decoder 2 BP + OSD-E 10
+        on H, eval_logical_type "Z", 6 cycles, coloration schedule; a fresh
+        code object (an "X" engine swaps it in place)."""
+        ccode = load_code(str(CODE))
+        d1 = bp30.GetDecoder({"h": ext(ccode.hx), "p_data": p,
+                              "p_syndrome": p})
+        d2 = osd_e10.GetDecoder({"h": ccode.hx, "p_data": p})
+        sim = CodeSimulator_Circuit(
+            code=ccode, decoder1_z=d1, decoder2_z=d2, p=p, num_cycles=6,
+            error_params={"p_i": 0, "p_state_p": 0, "p_m": 0, "p_CX": p,
+                          "p_idling_gate": 0},
+            eval_logical_type="Z", circuit_type="coloration", seed=seed,
+            batch_size=batch, scan_chunk=4, device=dev)
+        t = time.time()
+        sim._generate_circuit()
+        return sim, time.time() - t
+
+    sim34, build34 = circuit_sim(CIRCUIT_P, 2048, SEED)
+    fs = sim34._sampler
+    log(f"[34] circuit built in {build34:.2f} s: {fs.num_qubits} qubits, "
+        f"{fs.num_measurements} measurements, {fs.num_detectors} detectors, "
+        f"{fs.num_observables} observables, {fs.num_noise_ops} noise ops "
+        f"({sum(len(seg.ops) for seg in fs.compiled.segments)} ops in "
+        f"{len(fs.compiled.segments)} segments); decoder 1 "
+        f"{sim34.decoder1_z.kernel_variant}")
+    run34, launches_34 = counted(lambda: wer_phase(
+        f"34 circuit BP/BPOSD-E n625 p={CIRCUIT_P} 6 cycles", sim34, 4))
+    log(f"[34] launches {launches_34}")
+    graph_vs_eager("34", sim34, 4)
+    b1_b2_launched("34", launches_34)
+    pinned("34", run34, CIRCUIT_RUNS)
+
+    # 35. anchors
+    s = st_sim(3, 0.0, 2048, SEED)
+    s.WordErrorRate(13, 2048)
+    s0, _ = circuit_sim(0.0, 2048, SEED)
+    s0.WordErrorRate(2048)
+    if (s.last_failures, s0.last_failures) != (0, 0):
+        raise AssertionError(f"at p = q = 0: space-time {s.last_failures}, "
+                             f"circuit {s0.last_failures} failures")
+    key35 = (7, SEED)
+    got35 = {}
+    dmem35 = 0
+    for tag, sim, run in (("32", sim32, lambda s: s.WordErrorRate(
+            13, 2048, key=key35)), ("33", sim33, lambda s: s.WordErrorRate(
+                17, 2048, key=key35)), ("34", sim34, lambda s: s.WordErrorRate(
+                    2048, key=key35))):
+        for ctx in (_kernels.force_eager, _kernels.force_plain):
+            sim.min_logical_weight = sim.N
+            before = bp_minsum.device_launches
+            t = time.time()
+            with ctx():
+                run(sim)
+            got35[tag, ctx.__name__] = (sim.last_failures,
+                                        sim.min_logical_weight,
+                                        round(time.time() - t, 1))
+            if tag == "33" and ctx is _kernels.force_eager:
+                dmem35 = bp_minsum.device_launches - before
+        kern, plain = got35[tag, "force_eager"], got35[tag, "force_plain"]
+        if kern[:2] != plain[:2]:
+            raise AssertionError(f"one phase {tag} batch: kernels {kern}, "
+                                 f"plain {plain}")
+    if dmem35 <= 0:
+        raise AssertionError("phase 33's batch with the kernels took no "
+                             "device-memory mode")
+    # the card's sampler and the CPU's, fed the same uniforms
+    planes = {}
+    gen35 = torch.Generator().manual_seed(SEED)
+
+    def cpu_uniform(si, it, nid, shape):
+        planes[si, it, nid] = torch.rand(shape, generator=gen35)
+        return planes[si, it, nid]
+
+    want35 = FrameSampler(sim34.circuit, device="cpu").sample_with(
+        cpu_uniform, 256)
+    got_s = sim34._sampler.sample_with(
+        lambda si, it, nid, shape: planes[si, it, nid].to(dev), 256)
+    for a, b in zip(got_s, want35):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("the card's FrameSampler differs from the "
+                                 "CPU's on the same uniforms")
+    log(f"[35] p = q = 0: 0 failures (space-time, circuit); one batch with "
+        f"the kernels (eager) and with every kernel plain, (failures, min_w,"
+        f" s): 32 {got35['32', 'force_eager']} == "
+        f"{got35['32', 'force_plain']}, 33 {got35['33', 'force_eager']} == "
+        f"{got35['33', 'force_plain']} (kernel 1 in device memory, {dmem35} "
+        f"launches), 34 {got35['34', 'force_eager']} == "
+        f"{got35['34', 'force_plain']}; the card's FrameSampler == the CPU's "
+        f"on {len(planes)} uniform planes, 256 shots: detectors "
+        f"{tuple(want35[0].shape)}, {int(want35[0].sum())} set")
+    log(f"phases 32-35 took {time.time() - t_new:.1f} s")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -2037,14 +2303,14 @@ def main() -> int:
          "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
          "bound_by": bf16_by, "library_ms": None},
     ]
-    # the device-memory modes (phase 27), with their launches on the
-    # phenomenological main paths (phases 28-30)
+    # the device-memory modes (phase 27; kernel 1's from phase 33), with
+    # their launches on the phenomenological main paths (phases 28-30, 33)
     for key, d in dmem.items():
         kernels.append({
             "name": key, "route": "cuda", "source": f"{PKG}/csrc/{d['source']}",
             "replaces": f"qldpc_fault_tolerance_tpu/ops/{d['replaces']}",
             "launches": sum(run[key] for run in (
-                launches_28, launches_29, launches_30)),
+                launches_28, launches_29, launches_30, launches_33)),
             "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
             "bound_ms": d["bound"], "bound_by": d["by"], "library_ms": None})
     log(f"total {time.time() - t_start:.1f} s")

@@ -5,8 +5,12 @@
     correction`` / ``.h`` contract, batched: ``decode_batch`` (host arrays
     in and out) and ``decode_batch_device`` (tensors in, tensors out) for
     the simulators.
+  * ``ST_BP_Decoder_syndrome`` — the phenomenological space-time window
+    decoder: BP over the block-bidiagonal ``GetSpaceTimeCheckMat``, its
+    per-slice data corrections XOR-folded.
   * ``DecoderClass`` factories — the ``GetDecoder(params)`` dict contract
-    (keys 'h', 'p_data', optionally 'p_syndrome').
+    (keys 'h', 'p_data', optionally 'p_syndrome'; 'num_rep' for the
+    space-time class).
 
 A decoder splits into ``device_static`` (a hashable description of the
 program) and ``device_state`` (a dict of tensors), run by ``decode_device``.
@@ -40,10 +44,13 @@ __all__ = [
     "BPDecoder",
     "BPOSD_Decoder",
     "FirstMinBPDecoder",
+    "GetSpaceTimeCheckMat",
+    "ST_BP_Decoder_syndrome",
     "DecoderClass",
     "BP_Decoder_Class",
     "BPOSD_Decoder_Class",
     "FirstMinBP_Decoder_Class",
+    "ST_BP_Decoder_Class",
 ]
 
 _BP_METHOD_ALIASES = {
@@ -99,8 +106,20 @@ def decode_device(static, state, syndromes):
     count, counted in ``decode_device.host_reads``.
 
     ``"firstmin"`` (``("firstmin", max_restarts, ms_scaling_factor)``) runs
-    ``bp.first_min_bp_decode``; its aux holds ``final_weight``."""
+    ``bp.first_min_bp_decode``; its aux holds ``final_weight``.
+
+    ``"st_syndrome"`` (``("st_syndrome", num_rep, m, n, inner_static)``)
+    decodes (B, num_rep, m) detector histories with the inner program over
+    the space-time matrix and returns the XOR of the num_rep slices' data
+    corrections, (B, n)."""
     kind = static[0]
+    if kind == "st_syndrome":
+        _, num_rep, m, n, inner = static
+        b = syndromes.shape[0]
+        corr, aux = decode_device(inner, state,
+                                  syndromes.reshape(b, num_rep * m))
+        data = corr.reshape(b, num_rep, n + m)[:, :, :n]
+        return (data.sum(dim=1, dtype=torch.int32) & 1).to(torch.uint8), aux
     if kind == "firstmin":
         _, max_restarts, msf = static
         corr, w = bp.first_min_bp_decode(
@@ -193,6 +212,8 @@ def kernel_variant(static, state, batch_size: int | None = None) -> str:
     kind = static[0]
     if kind == "bposd_dev":
         return kernel_variant(static[1], state, batch_size)
+    if kind == "st_syndrome":
+        return kernel_variant(static[4], state, batch_size)
     if kind != "bp" or static[2] != "minimum_sum":
         return "xla_twin"
     if not state["llr0"].is_cuda or _kernels.plain_forced():
@@ -432,6 +453,76 @@ class FirstMinBPDecoder:
         return self.decode_batch(np.atleast_2d(synd))[0]
 
 
+def GetSpaceTimeCheckMat(h, t0: int) -> np.ndarray:
+    """Block-lower-bidiagonal space-time check matrix (reference
+    ``src/Decoders.py:179-194``): diagonal blocks [H | I_m], first
+    subdiagonal blocks [0 | I_m]; t0*m rows by t0*(n+m) columns."""
+    h = gf2.to_gf2(h)
+    m, n = h.shape
+    eye = np.eye(m, dtype=np.uint8)
+    st = np.zeros((t0 * m, t0 * (n + m)), dtype=np.uint8)
+    for i in range(t0):
+        st[i * m:(i + 1) * m, i * (n + m):i * (n + m) + n] = h
+        st[i * m:(i + 1) * m, i * (n + m) + n:(i + 1) * (n + m)] = eye
+        if i >= 1:
+            j = i - 1
+            st[i * m:(i + 1) * m, j * (n + m) + n:(j + 1) * (n + m)] = eye
+    return st
+
+
+class ST_BP_Decoder_syndrome:
+    """Space-time syndrome decoder (reference ``src/Decoders.py:200-223``):
+    a ``BPDecoder`` over ``GetSpaceTimeCheckMat(h, num_rep)`` with the
+    channel [p_data x n, p_synd x m] tiled num_rep times; the output is the
+    XOR of the per-slice data-error estimates.  The inner decoder picks its
+    BP head by the window matrix's shape, as any ``BPDecoder``."""
+
+    def __init__(self, h, p_data, p_synd, max_iter, bp_method="minimum_sum",
+                 ms_scaling_factor=0.625, num_rep=1, device="cuda"):
+        h = gf2.to_gf2(h)
+        self.num_checks, self.num_qubits = h.shape
+        self.h = h
+        self.num_rep = int(num_rep)
+        self.ST_h = GetSpaceTimeCheckMat(h, self.num_rep)
+        probs = np.concatenate([np.full(self.num_qubits, p_data),
+                                np.full(self.num_checks, p_synd)])
+        self._bp = BPDecoder(self.ST_h, np.tile(probs, self.num_rep),
+                             max_iter, bp_method, ms_scaling_factor,
+                             device=device)
+        self.device = self._bp.device
+
+    @property
+    def device_static(self):
+        return ("st_syndrome", self.num_rep, self.num_checks,
+                self.num_qubits, self._bp.device_static)
+
+    @property
+    def device_state(self):
+        return self._bp.device_state
+
+    @property
+    def kernel_variant(self) -> str:
+        return kernel_variant(self.device_static, self.device_state)
+
+    def decode_batch_device(self, detector_histories):
+        """(B, num_rep, m) uint8 tensor -> (folded data corrections (B, n)
+        uint8, the inner decode's aux)."""
+        return decode_device(self.device_static, self.device_state,
+                             detector_histories.to(self.device, torch.uint8))
+
+    def decode_batch(self, detector_histories) -> np.ndarray:
+        """(B, num_rep, m) -> (B, n) folded data corrections (host arrays);
+        a single (num_rep, m) history is a batch of one."""
+        arr = np.asarray(detector_histories, np.uint8)
+        if arr.ndim == 2:
+            arr = arr[None]
+        out, _ = self.decode_batch_device(torch.from_numpy(arr))
+        return out.cpu().numpy()
+
+    def decode(self, detector_history):
+        return self.decode_batch(np.asarray(detector_history)[None])[0]
+
+
 class DecoderClass(ABC):
     """Abstract factory (reference DecoderClass)."""
 
@@ -525,4 +616,35 @@ class FirstMinBP_Decoder_Class(DecoderClass):
             h=code_and_noise_channel_params["h"], channel_probs=probs,
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
+            device=self.device)
+
+
+class ST_BP_Decoder_Class(DecoderClass):
+    """Factory of ``ST_BP_Decoder_syndrome`` (reference
+    ``src/Decoders.py:227-257``), keys 'h', 'p_data', 'num_rep'.  The
+    reference's quirk is kept: with 'p_syndrome' present the syndrome prior
+    is p_data, not the p_syndrome value; without it the prior is 0 (which
+    ``bp.llr_from_probs`` clips); ``max_iter`` is n / max_iter_ratio."""
+
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        p = code_and_noise_channel_params
+        _require(p)
+        if "num_rep" not in p:
+            raise KeyError("decoder params miss 'num_rep'")
+        h = np.asarray(p["h"])
+        d = self.decoder_default_params
+        return ST_BP_Decoder_syndrome(
+            h=h, p_data=p["p_data"],
+            p_synd=p["p_data"] if "p_syndrome" in p else 0,
+            max_iter=h.shape[1] / d["max_iter_ratio"],
+            bp_method=d["bp_method"],
+            ms_scaling_factor=d["ms_scaling_factor"], num_rep=p["num_rep"],
             device=self.device)

@@ -6,10 +6,13 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..ops.linalg import gf2_matmul
+from ..ops.prng import key_words, split_key
+from ..parallel.shots import count_min_driver
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "dense_check_flags", "select_failures", "decoder_key",
-           "count_failures"]
+           "megabatch_driver", "count_failures", "st_round_counts",
+           "st_window_count"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -100,17 +103,82 @@ def decoder_key(dec) -> tuple:
         t.data_ptr() if isinstance(t, torch.Tensor) else t for t in leaves))
 
 
-def count_failures(sim, driver, key, n_batches: int, target_failures, *extra):
-    """Drain ``driver.run_keys`` for one run of ``sim``: ``(failures,
-    min weight, batches run)``, stopping after the first megabatch whose
-    cumulative failure count reaches ``target_failures``.  Records on
-    ``sim`` the megabatches the run counted (one more may have been
-    launched), its host reads and its capture."""
+def megabatch_driver(sim, chunk: int, program: tuple, stats_fn,
+                     batch_input):
+    """``sim``'s megabatch driver of ``chunk`` batches per megabatch over
+    ``stats_fn``, kept in ``sim._drivers`` (its captured graphs with it) as
+    long as ``program``, what a batch bakes in, is unchanged."""
+    key = (chunk, *program)
+    driver = sim._drivers.get(key)
+    if driver is None:
+        driver = sim._drivers[key] = count_min_driver(
+            stats_fn, sim.N, sim.device, chunk, batch_input)
+    return driver
+
+
+def count_failures(sim, num_samples: int, key=None, target_failures=None,
+                   *extra):
+    """One run of ``sim``: ``num_samples`` shots in batches of
+    ``sim.batch_size``, ``sim._scan_chunk`` per megabatch, drained from
+    ``sim._driver(chunk)`` (``extra`` goes to every batch).  Without
+    ``key`` the run splits ``sim``'s base key.  With ``target_failures``
+    the run stops after the first megabatch whose cumulative failure count
+    reaches it; the shots actually run are the denominator.  Records on
+    ``sim`` the run's failures and shots, the megabatches it counted (one
+    more may have been launched), its host reads and its capture, and folds
+    its min weight into ``min_logical_weight``; returns ``(failures, shots
+    run)``."""
+    if key is None:
+        sim._base_key, key = split_key(sim._base_key)
+    batcher = ShotBatcher(num_samples, sim.batch_size)
+    chunk = min(batcher.num_batches, sim._scan_chunk)
+    n_batches = -(-batcher.num_batches // chunk) * chunk
+    driver = sim._driver(chunk)
     reads = driver.host_reads
-    for (failures, min_w), done in driver.run_keys(key, n_batches, *extra):
+    for (failures, min_w), done in driver.run_keys(key_words(key), n_batches,
+                                                   *extra):
         if target_failures is not None and failures >= int(target_failures):
             break
     sim.last_megabatches = done // driver.k_inner
     sim.last_host_reads = driver.host_reads - reads
     sim.last_graph = driver.graph_stats
-    return failures, min_w, done
+    sim.last_failures, sim.last_shots = failures, done * sim.batch_size
+    sim.min_logical_weight = min(sim.min_logical_weight, min_w)
+    return failures, sim.last_shots
+
+
+def st_round_counts(num_cycles: int, num_rep: int) -> tuple[int, int]:
+    """Phenomenological space-time round bookkeeping, as the JAX package
+    computes it: how many windowed rounds cover ``num_cycles`` noisy cycles
+    (final perfect cycle included), and how many cycles those rounds
+    realize.  Integer arithmetic (the reference's float division drifts for
+    large cycle counts)."""
+    num_cycles = int(num_cycles)
+    num_rep = int(num_rep)
+    if num_cycles < 1 or num_rep < 1:
+        raise ValueError(
+            f"need num_cycles >= 1 and num_rep >= 1, got "
+            f"num_cycles={num_cycles}, num_rep={num_rep}")
+    num_rounds = (num_cycles - 1) // num_rep + 1
+    total_num_cycles = (num_rounds - 1) * num_rep + 1
+    return num_rounds, total_num_cycles
+
+
+def st_window_count(num_cycles: int, num_rep: int) -> int:
+    """Circuit-level space-time window count: ``num_cycles`` holds
+    ``num_rounds`` windows of ``num_rep`` noisy cycles plus one final
+    perfect cycle, so ``num_cycles - 1`` must divide evenly (the
+    reference's float assert lets a non-multiple slip for num_rep > 100)."""
+    num_cycles = int(num_cycles)
+    num_rep = int(num_rep)
+    if num_cycles < 1 or num_rep < 1:
+        raise ValueError(
+            f"need num_cycles >= 1 and num_rep >= 1, got "
+            f"num_cycles={num_cycles}, num_rep={num_rep}")
+    num_rounds, rem = divmod(num_cycles - 1, num_rep)
+    if rem:
+        raise ValueError(
+            f"num_cycles - 1 must be a multiple of num_rep "
+            f"(got num_cycles={num_cycles}, num_rep={num_rep}, "
+            f"remainder {rem})")
+    return num_rounds

@@ -58,14 +58,13 @@ from ..parallel.shots import (
     GeneratorInput,
     KeyInput,
     batch_generator,
-    count_min_driver,
 )
 from ..utils.device import resolve_device
 from .common import (
-    ShotBatcher,
     count_failures,
     decoder_key,
     dense_check_flags,
+    megabatch_driver,
     select_failures,
     wer_single_shot,
 )
@@ -253,29 +252,16 @@ class CodeSimulator_DataError:
         ``target_failures`` stops the run after the first megabatch whose
         cumulative failure count reaches it; the denominator is the shots
         actually run."""
-        if key is None:
-            self._base_key, key = split_key(self._base_key)
-        key = key_words(key)
-        batcher = ShotBatcher(num_run, self.batch_size)
-        chunk = min(batcher.num_batches, self._scan_chunk)
-        n_batches = -(-batcher.num_batches // chunk) * chunk
-        failures, min_w, done = count_failures(
-            self, self._driver(chunk), key, n_batches, target_failures)
-        self.last_failures, self.last_shots = failures, done * self.batch_size
-        self.min_logical_weight = min(self.min_logical_weight, min_w)
-        return wer_single_shot(failures, self.last_shots, self.K)
+        failures, shots = count_failures(self, num_run, key, target_failures)
+        return wer_single_shot(failures, shots, self.K)
 
     def _driver(self, chunk: int):
-        """The megabatch driver of ``chunk`` batches per megabatch, kept
-        with the simulator (and its captured graph with it) as long as what
-        a batch bakes in is unchanged."""
-        program = (chunk, self.batch_size, tuple(self.channel_probs),
+        """The megabatch driver of ``chunk`` batches per megabatch (its
+        captured graph with it)."""
+        program = (self.batch_size, tuple(self.channel_probs),
                    self.eval_logical_type, self._fused_sampler, self._packed,
                    decoder_key(self.decoder_x), decoder_key(self.decoder_z))
-        driver = self._drivers.get(program)
-        if driver is None:
-            batch_input = (KeyInput if self._fused_sampler else
-                           GeneratorInput)(self.device)
-            driver = self._drivers[program] = count_min_driver(
-                self._stats, self.N, self.device, chunk, batch_input)
-        return driver
+        batch_input = (KeyInput if self._fused_sampler else
+                       GeneratorInput)(self.device)
+        return megabatch_driver(self, chunk, program, self._stats,
+                                batch_input)

@@ -52,14 +52,13 @@ from ..ops.prng import key_words, prng_key, split_key
 from ..parallel.shots import (
     GeneratorInput,
     batch_generator,
-    count_min_driver,
 )
 from ..utils.device import resolve_device
 from .common import (
-    ShotBatcher,
     count_failures,
     decoder_key,
     dense_check_flags,
+    megabatch_driver,
     select_failures,
     wer_per_cycle,
     wer_single_shot,
@@ -72,15 +71,12 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-class CodeSimulator_Phenon:
-    """Reference ``CodeSimulator_Phenon`` surface, batched on one device.
-
-    Decoder 1 of each sector decodes against the extended matrix [H | I]
-    (``hx_ext`` for Z errors, ``hz_ext`` for X errors), decoder 2 against
-    the bare H.  ``q`` is the syndrome flip rate, ``seed`` makes the base
-    key that each run splits, ``batch_size`` the shots per batch,
-    ``scan_chunk`` the batches per megabatch.  All four decoders must live
-    on ``device``.
+class PhenomEngine:
+    """What the phenomenological engines share: the draws, syndromes,
+    decodes, final perfect round and residual checks of a batch, its
+    megabatch driver, and ``run_batch`` / ``_single_run``.  A subclass
+    gives ``_pipeline(draw, num_rounds, batch_size)``: a batch's rounds
+    from ``draw`` to the final round's residuals.
     """
 
     def __init__(self, code=None, decoder1_x=None, decoder1_z=None,
@@ -175,27 +171,18 @@ class CodeSimulator_Phenon:
             return pack_shots(cx), pack_shots(cz)
         return cx, cz
 
-    def _pipeline(self, draw, num_rounds: int, batch_size: int):
-        """Every round of one batch from ``draw`` -> the final round's
-        residuals (X, Z), packed or unpacked."""
-        n = self.N
-        dev = self.device
+    def _zeros(self, batch_size: int):
+        """A zero (X, Z) data carry, packed or unpacked."""
         if self._packed:
-            rows = -(-batch_size // 32)
-            data_x = torch.zeros((rows, n), dtype=torch.int32, device=dev)
+            shape, dtype = (-(-batch_size // 32), self.N), torch.int32
         else:
-            data_x = torch.zeros((batch_size, n), dtype=torch.uint8, device=dev)
-        data_z = torch.zeros_like(data_x)
-        for _ in range(max(int(num_rounds) - 1, 0)):
-            ex, ez, sx, sz = draw(False)
-            cur_x = torch.cat([ex ^ data_x, sx], dim=1)
-            cur_z = torch.cat([ez ^ data_z, sz], dim=1)
-            synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx_ext", "hz_ext",
-                                             batch_size)
-            dx, dz = self._decode(self.decoder1_x, self.decoder1_z, synd_x,
-                                  synd_z)
-            data_x = (cur_x ^ dx)[:, :n]
-            data_z = (cur_z ^ dz)[:, :n]
+            shape, dtype = (batch_size, self.N), torch.uint8
+        data_x = torch.zeros(shape, dtype=dtype, device=self.device)
+        return data_x, torch.zeros_like(data_x)
+
+    def _final_round(self, draw, data_x, data_z, batch_size: int):
+        """The final perfect round on the carried data errors: fresh data
+        errors, bare-H syndromes, decoder 2 -> the residuals (X, Z)."""
         ex, ez = draw(True)
         cur_x, cur_z = data_x ^ ex, data_z ^ ez
         synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx", "hz", batch_size)
@@ -227,19 +214,20 @@ class CodeSimulator_Phenon:
         return self._stats(*self._pipeline(self._draws(generator, B),
                                            num_rounds, B), B)
 
-    def _stats_from_errors(self, rounds, final):
-        """The pipeline on given errors: ``rounds`` a list of numpy (data X,
-        data Z, X syndrome flips, Z syndrome flips) (B, ·) uint8 tuples, one
-        per noisy round, ``final`` the last round's (data X, data Z).
-        Returns int32 device scalars (failure count, min weight)."""
+    def _stats_given(self, draws, final, num_rounds: int):
+        """The pipeline of ``num_rounds`` rounds on given errors: ``draws``
+        a list of numpy (data X, data Z, X syndrome flips, Z syndrome flips)
+        (B, ·) uint8 tuples in the order the pipeline draws them, ``final``
+        the last round's (data X, data Z).  Returns int32 device scalars
+        (failure count, min weight)."""
         planes = [[_tensor(np.asarray(a, np.uint8), self.device) for a in r]
-                  for r in list(rounds) + [final]]
+                  for r in list(draws) + [final]]
         if self._packed:
             planes = [[pack_shots(a) for a in r] for r in planes]
         batch_size = np.asarray(final[0]).shape[0]
         it = iter(planes)
         return self._stats(*self._pipeline(lambda final: tuple(next(it)),
-                                           len(planes), batch_size),
+                                           num_rounds, batch_size),
                            batch_size)
 
     # ------------------------------------------------------------------
@@ -263,39 +251,60 @@ class CodeSimulator_Phenon:
 
     def _count_failures(self, num_rounds: int, num_samples: int, key=None,
                         target_failures=None):
-        """(failure count, shots run): ``num_samples`` shots in batches of
-        ``batch_size``, ``scan_chunk`` per megabatch; with
-        ``target_failures`` the run stops after the first megabatch whose
-        cumulative count reaches it (the shots actually run are the
-        denominator)."""
-        if key is None:
-            self._base_key, key = split_key(self._base_key)
-        key = key_words(key)
-        batcher = ShotBatcher(num_samples, self.batch_size)
-        chunk = min(batcher.num_batches, self._scan_chunk)
-        n_batches = -(-batcher.num_batches // chunk) * chunk
-        failures, min_w, done = count_failures(
-            self, self._driver(chunk), key, n_batches, target_failures,
-            int(num_rounds))
-        self.last_failures, self.last_shots = failures, done * self.batch_size
-        self.min_logical_weight = min(self.min_logical_weight, min_w)
-        return failures, self.last_shots
+        """(failure count, shots run) of ``num_samples`` shots of
+        ``num_rounds`` rounds (``sim.common.count_failures``)."""
+        return count_failures(self, num_samples, key, target_failures,
+                              int(num_rounds))
 
     def _driver(self, chunk: int):
-        """The megabatch driver of ``chunk`` batches per megabatch, kept
-        with the simulator (its captured graphs, one per round count, with
-        it) as long as what a batch bakes in is unchanged."""
-        program = (chunk, self.batch_size, tuple(self.channel_probs),
-                   self.synd_prob, self.eval_logical_type, self._packed,
-                   *(decoder_key(d) for d in (
-                       self.decoder1_x, self.decoder1_z, self.decoder2_x,
-                       self.decoder2_z)))
-        driver = self._drivers.get(program)
-        if driver is None:
-            driver = self._drivers[program] = count_min_driver(
-                self._batch_stats, self.N, self.device, chunk,
-                GeneratorInput(self.device))
-        return driver
+        """The megabatch driver of ``chunk`` batches per megabatch (its
+        captured graphs, one per round count, with it)."""
+        return megabatch_driver(self, chunk, self._program(),
+                                self._batch_stats, GeneratorInput(self.device))
+
+    def _program(self) -> tuple:
+        """What a captured batch bakes in besides its chunk."""
+        return (self.batch_size, tuple(self.channel_probs), self.synd_prob,
+                self.eval_logical_type, self._packed,
+                *(decoder_key(d) for d in (
+                    self.decoder1_x, self.decoder1_z, self.decoder2_x,
+                    self.decoder2_z)))
+
+
+class CodeSimulator_Phenon(PhenomEngine):
+    """Reference ``CodeSimulator_Phenon`` surface, batched on one device.
+
+    Decoder 1 of each sector decodes against the extended matrix [H | I]
+    (``hx_ext`` for Z errors, ``hz_ext`` for X errors), decoder 2 against
+    the bare H.  ``q`` is the syndrome flip rate, ``seed`` makes the base
+    key that each run splits, ``batch_size`` the shots per batch,
+    ``scan_chunk`` the batches per megabatch.  All four decoders must live
+    on ``device``.
+    """
+
+    def _pipeline(self, draw, num_rounds: int, batch_size: int):
+        """Every round of one batch from ``draw`` -> the final round's
+        residuals (X, Z), packed or unpacked."""
+        n = self.N
+        data_x, data_z = self._zeros(batch_size)
+        for _ in range(max(int(num_rounds) - 1, 0)):
+            ex, ez, sx, sz = draw(False)
+            cur_x = torch.cat([ex ^ data_x, sx], dim=1)
+            cur_z = torch.cat([ez ^ data_z, sz], dim=1)
+            synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx_ext", "hz_ext",
+                                             batch_size)
+            dx, dz = self._decode(self.decoder1_x, self.decoder1_z, synd_x,
+                                  synd_z)
+            data_x = (cur_x ^ dx)[:, :n]
+            data_z = (cur_z ^ dz)[:, :n]
+        return self._final_round(draw, data_x, data_z, batch_size)
+
+    def _stats_from_errors(self, rounds, final):
+        """The pipeline on given errors: ``rounds`` a list of numpy (data X,
+        data Z, X syndrome flips, Z syndrome flips) (B, ·) uint8 tuples, one
+        per noisy round, ``final`` the last round's (data X, data Z).
+        Returns int32 device scalars (failure count, min weight)."""
+        return self._stats_given(rounds, final, len(rounds) + 1)
 
     def WordErrorRate(self, num_rounds: int, num_samples: int, key=None,
                       target_failures=None):

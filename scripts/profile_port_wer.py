@@ -12,7 +12,13 @@ OSD-CS order 10 at p=0.05 with batches of 2048; and the phenomenological
 engine of chip_smoke.py phases 28-30: CodeSimulator_Phenon on hgp_34_n625,
 BP (max_iter N/30) on [H|I] then BP + OSD-E order 10 (N/10) on H,
 eval_p=0.02, 9 rounds, batches of 2048; the FirstMin decoder 1 of phase
-29, 11 rounds at eval_p=0.01; and BP + OSD-0 on both at hgp_34_n1600) once
+29, 11 rounds at eval_p=0.01; and BP + OSD-0 on both at hgp_34_n1600;
+the phenomenological space-time engine of chip_smoke.py phase 32:
+CodeSimulator_Phenon_SpaceTime on hgp_34_n625, the space-time BP window
+decoder (N/30, windows of 3) then BP + OSD-E order 10, eval_p=0.01, 13
+cycles, batches of 2048; and the circuit engine of phase 34:
+CodeSimulator_Circuit on hgp_34_n625, p_CX=0.002, 6 cycles, BP (N/30) on
+[H|I] per round then BP + OSD-E order 10, batches of 2048) once
 to warm up (on the card: to capture the megabatch's CUDA graph) and once
 under torch.profiler (on the card: replaying it), and prints for each: wall
 time, shots/s, the host reads per megabatch and per batch (the two-phase
@@ -59,13 +65,16 @@ def main() -> int:
         BPOSD_Decoder,
         BPOSD_Decoder_Class,
         FirstMinBP_Decoder_Class,
+        ST_BP_Decoder_Class,
         decode_device,
     )
     from qldpc_fault_tolerance_tpu_torch.ops import _kernels
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
     from qldpc_fault_tolerance_tpu_torch.sim import (
+        CodeSimulator_Circuit,
         CodeSimulator_DataError,
         CodeSimulator_Phenon,
+        CodeSimulator_Phenon_SpaceTime,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,12 +93,12 @@ def main() -> int:
             pauli_error_probs=[p / 3] * 3, seed=1, batch_size=batch,
             scan_chunk=8, fused_sampler=fused, device=dev)
 
+    def ext(h):
+        return np.hstack([h, np.eye(h.shape[0], dtype=np.uint8)])
+
     def phenom(pcode, cls1, cls2, eval_p=0.02):
         """chip_smoke.py's phenomenological cell: p = 3/2 eval_p, q =
         eval_p, decoder 1 on [H|I], decoder 2 on H."""
-        def ext(h):
-            return np.hstack([h, np.eye(h.shape[0], dtype=np.uint8)])
-
         d1 = [cls1.GetDecoder({"h": ext(h), "p_data": eval_p,
                                "p_syndrome": eval_p})
               for h in (pcode.hz, pcode.hx)]
@@ -99,6 +108,33 @@ def main() -> int:
             code=pcode, decoder1_x=d1[0], decoder1_z=d1[1], decoder2_x=d2[0],
             decoder2_z=d2[1], pauli_error_probs=[eval_p / 2] * 3, q=eval_p,
             seed=1, batch_size=2048, scan_chunk=8, device=dev)
+
+    def spacetime(num_rep=3, eval_p=0.01):
+        """chip_smoke.py phase 32's cell: decoder 1 the space-time window
+        decoder over num_rep slices of [H|I], decoder 2 BP + OSD-E on H."""
+        st = ST_BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
+        d1 = [st.GetDecoder({"h": h, "p_data": eval_p, "p_syndrome": eval_p,
+                             "num_rep": num_rep}) for h in (code.hz, code.hx)]
+        d2 = [osd_e10.GetDecoder({"h": h, "p_data": eval_p})
+              for h in (code.hz, code.hx)]
+        return CodeSimulator_Phenon_SpaceTime(
+            code=code, decoder1_x=d1[0], decoder1_z=d1[1], decoder2_x=d2[0],
+            decoder2_z=d2[1], pauli_error_probs=[eval_p / 2] * 3, q=eval_p,
+            num_rep=num_rep, seed=1, batch_size=2048, scan_chunk=8,
+            device=dev)
+
+    def circuit(p=0.002):
+        """chip_smoke.py phase 34's cell (a fresh code object: an "X"
+        engine would swap it in place)."""
+        ccode = load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n625.npz"))
+        return CodeSimulator_Circuit(
+            code=ccode, decoder1_z=bp30.GetDecoder(
+                {"h": ext(ccode.hx), "p_data": p, "p_syndrome": p}),
+            decoder2_z=osd_e10.GetDecoder({"h": ccode.hx, "p_data": p}),
+            p=p, num_cycles=6, error_params={
+                "p_i": 0, "p_state_p": 0, "p_m": 0, "p_CX": p,
+                "p_idling_gate": 0},
+            seed=1, batch_size=2048, scan_chunk=4, device=dev)
 
     def data_run(shots):
         return (lambda sim: sim.WordErrorRate(shots)), shots
@@ -143,7 +179,11 @@ def main() -> int:
                                       / "hgp_34_n1600.npz")),
                         *(BPOSD_Decoder_Class(r, "minimum_sum", 0.625, "osd_0",
                                               0, device=dev) for r in (30, 10))),
-         phenom_run(9, 2)))
+         phenom_run(9, 2)),
+        ("phenom space-time BP-ST/BPOSD-E n625 num_rep 3 eval_p=0.01 13 "
+         "cycles", spacetime, phenom_run(13, 8)),
+        ("circuit BP/BPOSD-E n625 p=0.002 6 cycles", circuit,
+         data_run(4 * 2048)))
     for tag, make, (run, shots) in configs:
         if args.only not in tag:
             continue
