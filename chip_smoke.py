@@ -12,7 +12,7 @@ phases run it under torch.cuda.set_sync_debug_mode("error") from the first
 replay to each megabatch read (parallel/shots.py check_syncs) and print
 their host reads per megabatch, the capture's warm-up, capture and
 instantiate seconds, its node count and the phase's peak device memory;
-phases 5, 6, 16, 25 (both modes), 28, 29, 30, 32, 33 and 34 must read the
+phases 5, 6, 16, 25 (both modes), 28-30 and 32-34 and 36 must read the
 host once a megabatch and never for a tier (decode_device.host_reads and
 bp_decode_two_phase.host_reads stay 0), and each holds one megabatch of its
 graph (a fresh key) against the same megabatch run eagerly
@@ -44,7 +44,7 @@ Phases (any failure raises and the script exits non-zero):
      64 shots (no head engages: float32 on both) and 256 shots (the card's
      bf16 head against the CPU running the same head's plain version)
      decoded on the CPU and on the card agree
-  8. a "kernels" JSON line, printed after phase 35: for all eleven kernels
+  8. a "kernels" JSON line, printed after phase 37: for all eleven kernels
      the main-path launches (phase 26 for kernel 1, phase 6 for kernel 2,
      phase 5 for the bf16 head, phase 12 for B3 and B4, phase 16 for B7 and
      B8, phase 17 for B10, phase 21 for B6, phase 25 for B5's bf16 and int8
@@ -53,7 +53,10 @@ Phases (any failure raises and the script exits non-zero):
      one-hot B9 too), with phase 22's launches; and one entry for each
      device-memory mode of phase 27, with its launches in phases 28-30 and
      33 (kernel 1's device-memory mode, bp_minsum_device, with phase 33's
-     numbers: the one main path that launches it)
+     numbers: the one main path that launches it); and the min-sum kernels'
+     wide instances at phase 36's shapes, kernel 1's in its 32-bit-plane
+     mode on h1 (bp_minsum_wide_device_planes) and the bf16 head's in
+     shared memory on h2 (bp_minsum_bf16_wide), with phase 36's launches
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -181,6 +184,28 @@ Phases (any failure raises and the script exits non-zero):
      gives the kernel path's failures and min weight; the card's
      FrameSampler fed the CPU's uniforms gives the CPU's detectors and
      observables, bit for bit
+ 36. main path, the circuit-level space-time engine (the JAX package's
+     flagship, SpaceTimeDecodingDemo's cell): CodeSimulator_Circuit_SpaceTime
+     on hgp_34_n625, CX-only noise at p_CX = CIRCUIT_P, coloration schedule,
+     windows of num_rep 3, 13 cycles, decoder 1
+     ST_BP_Decoder_Circuit_Class(1, min-sum, 0.625) on the detector error
+     model's window matrix h1, decoder 2 ST_BPOSD_Decoder_Circuit_Class(1,
+     min-sum, 0.625, osd_e, 10) on h2, 4 batches of 2048 in one captured
+     megabatch; the DEM is built in a second process from the start of the
+     run (its seconds printed, with the shapes and row weights of h1 and
+     h2); the memory mode of each decode from the launch counters (kernel 1
+     on h1 in its device-memory mode with 32-bit planes, the bf16 head on
+     h2 in shared memory, both the wide instances for row weights above
+     32), each held bit for bit against its plain version at its main-path
+     shapes; pinned (CIRCUIT_RUNS); a noiseless anchor (the sampler's
+     probabilities zeroed) fails no shot
+ 37. the streaming drivers: CircuitStreamDriver over phase 36's engine,
+     its carry after each of the 4 windows and its final decode equal to
+     phase 36's window scan on the same detectors, bit for bit;
+     PhenomStreamDriver over phase 32's engine, 4 windows and the final
+     round equal to its run_batch on one key; then 100 replayed steps of
+     each under torch.cuda.set_sync_debug_mode("error") (no host read), with
+     their steps per second
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -233,13 +258,18 @@ BF16_RUNS = {"25": (216, 2)}
 # its kernels must keep
 PHENOM_RUNS = {"28": (8604, 6), "29": (777, 6), "30": (2781, 8)}
 # (failures, min weight) of phases 32 and 33 (the phenomenological
-# space-time engine) and 34 (the circuit engine, whose weight slot is N) at
+# space-time engine), 34 and 36 (the circuit engines, whose weight slot is
+# N) at
 # SEED: their results on the card, which a change to them or to their
 # kernels must keep
 ST_RUNS = {"32": (8560, 6), "33": (1344, 6)}
-CIRCUIT_RUNS = {"34": (236, 625)}
+CIRCUIT_RUNS = {"34": (236, 625), "36": (429, 625)}
 # the phases that must read the host once a megabatch and never for a tier
-SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30", "32", "33", "34")
+SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30", "32", "33", "34", "36")
+# phase 36's cell: windows of ST36_REP cycles, ST36_CYCLES cycles in all
+ST36_REP, ST36_CYCLES = 3, 13
+# phase 37's replayed steps of each stream driver
+STREAM_STEPS = 100
 # the key of the graph-against-eager megabatches and the target_failures run
 GRAPH_KEY = (12, SEED)
 # phases 28 and 31's eval_p (the Threshold notebook's phenomenological
@@ -267,6 +297,33 @@ ELIM27_SHOTS = (256, 512, 2048)
 
 
 _T0 = time.time()
+
+
+def circuit_st_sim(code, p: float, device, **kw):
+    """Phase 36's engine without its decoders: CodeSimulator_Circuit_
+    SpaceTime on ``code`` with SpaceTimeDecodingDemo's CX-only noise at
+    ``p``, coloration schedule, windows of ST36_REP, ST36_CYCLES cycles."""
+    from qldpc_fault_tolerance_tpu_torch.sim import \
+        CodeSimulator_Circuit_SpaceTime
+
+    return CodeSimulator_Circuit_SpaceTime(
+        code=code, p=p, num_cycles=ST36_CYCLES, num_rep=ST36_REP,
+        error_params={"p_i": 0, "p_state_p": 0, "p_m": 0, "p_CX": p,
+                      "p_idling_gate": 0},
+        circuit_type="coloration", device=device, **kw)
+
+
+def build_dem(root: str, code_path: str, p: float):
+    """Phase 36's decoding graphs, built on the CPU (in a second process,
+    while the card runs the earlier phases): (circuit_graph, h1_space_cor,
+    seconds)."""
+    sys.path.insert(0, root)
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+
+    t = time.time()
+    sim = circuit_st_sim(load_code(code_path), p, "cpu")
+    sim._generate_circuit_graph()
+    return sim.circuit_graph, sim.h1_space_cor, time.time() - t
 
 
 def log(msg: str) -> None:
@@ -610,7 +667,25 @@ def main() -> int:
               f"codes_lib_tpu/", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    # phase 36's detector error model: pure host work, built beside the
+    # card's phases
+    dem_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        dem_job = dem_pool.submit(build_dem, str(ROOT), str(CODE), CIRCUIT_P)
+        return run_phases(dem_job)
+    finally:
+        dem_pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(dem_job) -> int:
+    """Phases 1-37 (module docstring); ``dem_job`` the future of phase
+    36's decoding graphs."""
     import numpy as np
+    import torch
 
     from qldpc_fault_tolerance_tpu_torch.codes import load_code
     from qldpc_fault_tolerance_tpu_torch.codes.gf2 import block_diag
@@ -828,7 +903,10 @@ def main() -> int:
                                             "device_planes_launches"),
                 "bp_minsum_bf16_device": (bk.bp_head_bf16, "device_launches"),
                 "bp_minsum_bf16_device_planes": (bk.bp_head_bf16,
-                                                 "device_planes_launches")}
+                                                 "device_planes_launches"),
+                # launches of the wide instances (row weights 33-64)
+                "bp_minsum_wide": (bp_minsum, "wide_launches"),
+                "bp_minsum_bf16_wide": (bk.bp_head_bf16, "wide_launches")}
 
     def fold_counts():
         """Add the replays' launches, counted on the device, to the
@@ -2217,6 +2295,228 @@ def main() -> int:
         f"{tuple(want35[0].shape)}, {int(want35[0].sum())} set")
     log(f"phases 32-35 took {time.time() - t_new:.1f} s")
 
+    # 36. the circuit-level space-time engine, the JAX package's flagship
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        ST_BP_Decoder_Circuit_Class,
+        ST_BPOSD_Decoder_Circuit_Class,
+    )
+    from qldpc_fault_tolerance_tpu_torch.sim import (
+        CircuitStreamDriver,
+        PhenomStreamDriver,
+        st_round_counts,
+    )
+
+    t_new = time.time()
+    code36 = load_code(str(CODE))  # a fresh object: "X" swaps in place
+    sim36 = circuit_st_sim(code36, CIRCUIT_P, dev, seed=SEED,
+                           batch_size=2048, scan_chunk=4)
+    sim36._generate_circuit()
+    g36, space36, dem_s = dem_job.result()
+    sim36.circuit_graph, sim36.h1_space_cor = g36, space36
+    log(f"[36] waited {time.time() - t_new:.1f} s for the detector error "
+        f"model, built in {dem_s:.1f} s in a second process beside the "
+        f"earlier phases")
+    shapes36 = {}
+    for name in ("h1", "h2"):
+        h = g36[name]
+        ps = np.asarray(g36["channel_ps" + name[1]])
+        shapes36[name] = (*h.shape, int(h.sum(1).max()), int(h.sum(0).max()))
+        log(f"[36] {name}: {h.shape[0]} x {h.shape[1]}, row weight max "
+            f"{shapes36[name][2]} (mean {h.sum(1).mean():.1f}), column "
+            f"weight max {shapes36[name][3]}, {int(h.sum())} edges, priors "
+            f"{ps.min():.3g}..{ps.max():.3g}")
+    log(f"[36] h1_space_cor {space36.shape[0]} x {space36.shape[1]}; "
+        f"circuit: {sim36.detector_sampler.num_detectors} detectors, "
+        f"{sim36.detector_sampler.num_noise_ops} noise ops")
+    if shapes36["h1"][2] <= 32 or shapes36["h2"][2] <= 32:
+        raise AssertionError("phase 36's window matrices have no row wider "
+                             "than 32")
+    st1 = ST_BP_Decoder_Circuit_Class(1, "minimum_sum", 0.625, device=dev)
+    st2 = ST_BPOSD_Decoder_Circuit_Class(1, "minimum_sum", 0.625, "osd_e", 10,
+                                         device=dev)
+    for k, cls in (("1", st1), ("2", st2)):
+        setattr(sim36, f"decoder{k}_z", cls.GetDecoder(
+            {"h": g36["h" + k], "code_h": code36.hx,
+             "channel_probs": g36["channel_ps" + k]}))
+    for k, dec in (("1", sim36.decoder1_z), ("2", sim36.decoder2_z)):
+        m_k, n_k, rw_k, cw_k = shapes36["h" + k]
+        variant = kernel_variant(dec.device_static, dec.device_state, 2048)
+        lay = bk.card_minsum_layout(dev, 2048, m_k, n_k, rw_k, cw_k,
+                                    variant != "xla_twin")
+        log(f"[36] decoder {k}: kernel_variant {variant}, max_iter "
+            f"{dec.max_iter}; at 2048 shots {lay.memory} memory, "
+            f"{lay.lanes} shots x {lay.threads // lay.lanes} threads per "
+            f"block, {lay.grid} blocks, {lay.smem_bytes} B shared memory")
+    run36, launches_36 = counted(lambda: wer_phase(
+        f"36 circuit space-time BP/BPOSD-E n625 p={CIRCUIT_P} "
+        f"{ST36_CYCLES} cycles num_rep {ST36_REP}", sim36, 4))
+    log(f"[36] launches {launches_36}")
+    modes36 = {k: launches_36[k] for k in (
+        "bp_minsum", "bp_minsum_device", "bp_minsum_device_planes",
+        "bp_minsum_wide", "bp_minsum_bf16", "bp_minsum_bf16_device",
+        "bp_minsum_bf16_device_planes", "bp_minsum_bf16_wide")}
+    log(f"[36] memory modes from the launch counters: {modes36}")
+    for k in ("bp_minsum_device_planes", "bp_minsum_wide",
+              "bp_minsum_bf16_wide", "osd_elim"):
+        if launches_36[k] <= 0:
+            raise AssertionError(f"phase 36 launched no {k}")
+    if launches_36["bp_minsum_bf16_device"] + launches_36[
+            "bp_minsum_bf16_device_planes"]:
+        raise AssertionError("phase 36's bf16 head left shared memory")
+    graph_vs_eager("36", sim36, 4)
+    pinned("36", run36, CIRCUIT_RUNS)
+    # the noiseless anchor: the sampler's probabilities zeroed
+    noisy36 = sim36.detector_sampler
+    sim36.detector_sampler = noisy36.without_noise()
+    with _kernels.force_eager():
+        sim36.WordErrorRate(2048, key=GRAPH_KEY)
+    sim36.detector_sampler = noisy36
+    if sim36.last_failures != 0:
+        raise AssertionError(f"phase 36 noiseless: {sim36.last_failures} "
+                             f"failures")
+    # the two decodes' kernels at their main-path shapes, against their
+    # plain versions: kernel 1 on window 1's detectors at each launch of
+    # decoder 1's ladder (the head; the deepened head where the head leaves
+    # more stragglers than the big tier holds; the stragglers' tier at
+    # max_iter, padded with zero syndromes as the ladder pads it), the
+    # bf16 head on the final syndromes (the head and the deepened head)
+    dets36, obs36 = noisy36.sample((36, SEED), 2048)
+    m36 = sim36.num_checks
+    hist36 = dets36.reshape(2048, ST36_CYCLES, m36)
+    windows36 = hist36[:, :sim36.num_rounds * ST36_REP].reshape(
+        2048, sim36.num_rounds, ST36_REP * m36)
+    with _kernels.force_eager():
+        carries36 = [(torch.zeros((2048, m36), dtype=torch.uint8,
+                                  device=dev),
+                      torch.zeros((2048, sim36.num_logicals),
+                                  dtype=torch.uint8, device=dev))]
+        for j in range(sim36.num_rounds):
+            carries36.append(sim36._window_commit(carries36[-1],
+                                                  windows36[:, j])[0])
+        scan36 = sim36._final_decode(carries36[-1], hist36[:, -1])
+    d1, d2 = sim36.decoder1_z, sim36.decoder2_z
+    g1, llr1 = d1.device_state["graph"], d1.device_state["llr0"]
+    g2, llr2 = d2.device_state["graph"], d2.device_state["llr0"]
+    head2 = d2.device_state["pallas"]
+    syn1 = windows36[:, 0].contiguous()
+    tiers36 = (2048 // tbp.TWO_PHASE_TAIL_DIV,
+               2048 // tbp.TWO_PHASE_TAIL_DIV * tbp.TWO_PHASE_BIG_TIER_MULT)
+    deep1 = tbp.two_phase_head2_iters(tbp.TWO_PHASE_HEAD_ITERS, d1.max_iter)
+    deep2 = tbp.two_phase_head2_iters(tbp.TWO_PHASE_HEAD_ITERS, d2.max_iter)
+    cases1 = [("head", tbp.TWO_PHASE_HEAD_ITERS, syn1)]
+    conv1 = bp_minsum(g1, syn1, llr1, max_iter=cases1[0][1])[1]
+    tier36 = next((c for c in tiers36 if int((~conv1).sum()) <= c), None)
+    if tier36 is None:
+        cases1.append(("deepened head", deep1, syn1))
+        conv1 = bp_minsum(g1, syn1, llr1, max_iter=deep1)[1]
+        tier36 = tiers36[-1] if int((~conv1).sum()) <= tiers36[-1] else 2048
+    n_bad36 = int((~conv1).sum())
+    syn1_ext = torch.cat([syn1, syn1.new_zeros((1, syn1.shape[1]))])
+    cases1.append((f"stragglers ({n_bad36} in a tier of {tier36})",
+                   d1.max_iter, syn1_ext[torch.nonzero_static(
+                       ~conv1, size=tier36, fill_value=2048).flatten()]))
+    wide36 = {}
+    for kname, graph_k, fn, counter, attr, cases in (
+            ("bp_minsum_wide_device_planes", g1,
+             lambda synd, iters: bp_minsum(g1, synd, llr1, max_iter=iters,
+                                           ms_scaling_factor=0.625),
+             bp_minsum, "device_planes_launches", cases1),
+            ("bp_minsum_bf16_wide", g2,
+             lambda synd, iters: bk.bp_head_bf16(
+                 head2, synd, llr2, head_iters=iters,
+                 ms_scaling_factor=0.625),
+             bk.bp_head_bf16, "launches",
+             [("head", tbp.TWO_PHASE_HEAD_ITERS, scan36[1]),
+              ("deepened head", deep2, scan36[1])])):
+        rows = {}
+        for case, iters, synd in cases:
+            def run(synd=synd, iters=iters, fn=fn):
+                return fn(synd, iters)
+            before = (getattr(counter, attr), counter.wide_launches,
+                      counter.device_launches)
+            k = run()
+            after = (getattr(counter, attr), counter.wide_launches,
+                     counter.device_launches)
+            if after[:2] != (before[0] + 1, before[1] + 1) or (
+                    after[2] != before[2]):
+                raise AssertionError(f"phase 36 {kname} {case}: launch "
+                                     f"counts {before} -> {after}")
+            with _kernels.force_plain():
+                pl, plain_ms = once_ms(run)
+            err = bits_equal(f"phase 36 {kname} {case}", k, pl)
+            bound, by = bp_bound_ms(graph_k, synd.shape[0], int(k[3].sum()))
+            rows[case] = {"err": err, "ms": event_ms(run, 3),
+                          "plain_ms": plain_ms, "bound": bound, "by": by}
+            log(f"[36] {kname} == plain, {case}: {synd.shape[0]} shots, "
+                f"max_iter {iters}, {int((~k[1]).sum())} unconverged; "
+                f"{rows[case]['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+        # the kernels line takes the full batch's last launch of the
+        # ladder and the largest error of the cases
+        full = [c for c, _, synd in cases if synd.shape[0] == 2048][-1]
+        wide36[kname] = dict(rows[full],
+                             err=max(r["err"] for r in rows.values()))
+    log(f"phase 36 took {time.time() - t_new:.1f} s")
+
+    # 37. the streaming drivers
+    t_new = time.time()
+    drv = CircuitStreamDriver(sim36, 2048)
+    for j in range(sim36.num_rounds):
+        drv.step(windows36[:, j])
+        for a, b in zip(drv.carry, carries36[j + 1]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 37: the circuit driver's carry "
+                                     f"after window {j + 1} differs from "
+                                     f"phase 36's window scan")
+    got37 = drv.finalize(hist36[:, -1])
+    for name, a, b in zip(("logical correction", "final syndrome",
+                           "final correction"), got37, scan36):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 37: the circuit driver's {name} "
+                                 f"differs from phase 36's window scan")
+    flags37 = sim36._check(obs36, *got37)
+    stream37 = {"circuit": drv._step.graph_stats}
+
+    def steps_per_s(step):
+        torch.cuda.synchronize()
+        t = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(STREAM_STEPS):
+                step(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return STREAM_STEPS / (time.time() - t)
+
+    rate_c = steps_per_s(lambda i: drv.step(
+        windows36[:, i % sim36.num_rounds]))
+    phen = PhenomStreamDriver(sim32, 2048)
+    key37 = (37, SEED)
+    want37 = sim32.run_batch(key37, st_round_counts(ST36_CYCLES, 3)[0])
+    phen.reset(key37)
+    for _ in range(st_round_counts(ST36_CYCLES, 3)[0] - 1):
+        phen.step()
+    got_p = phen.finalize()
+    if not np.array_equal(got_p, want37):
+        raise AssertionError("phase 37: the phenom driver's flags differ "
+                             "from phase 32's run_batch")
+    stream37["phenom"] = phen._step.graph_stats
+    rate_p = steps_per_s(lambda i: phen.step())
+    for name, st in stream37.items():
+        if st is None:
+            raise AssertionError(f"phase 37: the {name} driver captured no "
+                                 f"step")
+    log(f"[37] circuit driver == phase 36's window scan on 2048 shots "
+        f"(carry after each of {sim36.num_rounds} windows, final decode; "
+        f"{int(flags37.sum())} failures); phenom driver == phase 32's "
+        f"run_batch on one key ({int(want37.sum())} failures of 2048); "
+        f"{STREAM_STEPS} replayed steps each with no host read: circuit "
+        f"{rate_c:.1f} steps/s ({2048 * rate_c:.0f} shot-windows/s), "
+        f"phenom {rate_p:.1f} steps/s ({2048 * rate_p:.0f} "
+        f"shot-windows/s); captures {stream37}")
+    log(f"phase 37 took {time.time() - t_new:.1f} s")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -2303,6 +2603,18 @@ def main() -> int:
          "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
          "bound_by": bf16_by, "library_ms": None},
     ]
+    # the wide instances at phase 36's shapes, with their launches there
+    for key, name, source in (
+            ("bp_minsum_wide_device_planes", "bp_minsum_device_planes", 1),
+            ("bp_minsum_bf16_wide", "bp_minsum_bf16_wide", 0)):
+        d = wide36[key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"{PKG}/csrc/bp_minsum.cu",
+            "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
+            "launches": launches_36[name], "max_abs_err": d["err"],
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"],
+            "bound_by": d["by"], "library_ms": None})
     # the device-memory modes (phase 27; kernel 1's from phase 33), with
     # their launches on the phenomenological main paths (phases 28-30, 33)
     for key, d in dmem.items():

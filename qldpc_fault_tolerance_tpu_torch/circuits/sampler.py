@@ -297,6 +297,17 @@ class FrameSampler:
             out = out ^ rec[:, idx[:, t]]
         return out[:, :width]
 
+    def without_noise(self) -> "FrameSampler":
+        """A sampler of the same circuit whose noise ops never fire (each
+        probability 0; it draws the same uniforms): the noiseless anchor of
+        an engine whose decoding graphs came from the noisy circuit."""
+        quiet = FrameSampler(self.compiled, device=self.device)
+        for _, plans in quiet._segments:
+            for plan in plans:
+                if plan.op.kind in ("dep1", "dep2", "perr"):
+                    plan.p = 0.0
+        return quiet
+
     def sample_generator(self, generator: torch.Generator, shots: int):
         """Detectors and observables drawn from ``generator``: one
         ``torch.rand`` per noise op, in circuit order."""

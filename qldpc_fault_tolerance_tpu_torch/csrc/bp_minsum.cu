@@ -63,10 +63,18 @@
 //     channel LLRs are read from device memory, no shared memory is
 //     staged, and the lanes live in the scratch as in kMem 1.
 // The loop, its order and its arithmetic are those of kMem 0, so the
-// outputs are bit for bit the same; a lane barrier orders the lane's
+// outputs are bit for bit the same (kMem 2 with the non-aligned barrier
+// form, minsum_body.cuh lane_sync); a lane barrier orders the lane's
 // device-memory writes as it orders its shared ones.  kMem 0 (the shared-
 // memory mode every shipped code takes) is unchanged; the scratch is the
 // kernel's last argument, so the others keep their offsets.
+//
+// Row weights: a check's live slots and negative signs are bit masks
+// (minsum_body.cuh Top2), 32-bit up to row weight 32; the wide instances
+// (kWide, a template flag whose false value is the 32-bit code) take 64-bit
+// masks and row weights up to 64, the detector error models' window
+// matrices (row weight 59 at hgp_34_n625).  launch() picks the instance
+// from rw; the loop, its order and its arithmetic are the same.
 //
 // Registers: __launch_bounds__(1024, 1) keeps ptxas from squeezing a
 // 1024-thread block into 32 registers with spills (54-56 registers, one
@@ -111,7 +119,7 @@ struct Offsets {
   }
 };
 
-template <class Msg, int kMem>
+template <class Msg, int kMem, bool kWide>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
                  const float* __restrict__ llr,        // (n,) or (B, n)
@@ -147,6 +155,8 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     __syncthreads();
   }
 
+  // the barriers' form (minsum_body.cuh lane_sync)
+  constexpr bool kAligned = kMem < 2;
   const int lane = threadIdx.x / tpl, r = threadIdx.x % tpl;
   unsigned char* mine =
       kMem == 0 ? smem + o.lanes + lane * o.lane
@@ -174,7 +184,7 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     // the slot alternates, so a claim never overwrites one a thread of the
     // lane may still read
     if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
-    minsum::lane_sync(lane, tpl);
+    minsum::lane_sync<kAligned>(lane, tpl);
     const int b = s_shot[lane][k & 1];
     if (b >= B) return;
     uint8_t* err_b = err + (size_t)b * n;
@@ -192,7 +202,9 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     }
     const uint8_t* synd_b = synd + (size_t)b * m;
     int it;
-    const bool bad = minsum::lane_decode<Msg>(
+    using Mask =
+        typename std::conditional<kWide, unsigned long long, unsigned>::type;
+    const bool bad = minsum::lane_decode<Msg, Mask, kAligned>(
         g, [&](int i) { return synd_b[i]; }, [&](int v) { return llr0(b, v); },
         c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it);
     // the totals of the last iteration, each read by the thread that wrote it
@@ -208,21 +220,23 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   }
 }
 
-template <class Msg, int kMem>
+template <class Msg, int kMem, bool kWide>
 int set_smem(int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(bp_minsum_kernel<Msg, kMem>,
+  return (int)cudaFuncSetAttribute(bp_minsum_kernel<Msg, kMem, kWide>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes);
 }
 
-template <class Msg, int kMem>
+template <class Msg, int kMem, bool kWide>
 int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
                const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
                uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
                int* next, int m, int n, int rw, int cw, int B, int max_iter,
                float scale, int lanes, int tpl, int grid, int smem_bytes,
                unsigned char* lanes_g, void* stream) {
+  constexpr int kMaxRw = kWide ? minsum::kMaxRowWeight
+                                : minsum::mask_slots<unsigned>();
   const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
                   !llr_per_shot);
   // the shared memory each mode stages
@@ -230,12 +244,12 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
                          : kMem == 1 ? (long long)o.lanes
                                      : 0;
   if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
-      lanes * tpl > kMaxThreads || rw < 1 || rw > 32 || grid < 1 ||
+      lanes * tpl > kMaxThreads || rw < 1 || rw > kMaxRw || grid < 1 ||
       smem_bytes < need || (kMem > 0 && lanes_g == nullptr))
     return -1;
-  const int e = set_smem<Msg, kMem>(smem_bytes);
+  const int e = set_smem<Msg, kMem, kWide>(smem_bytes);
   if (e != 0) return e;
-  bp_minsum_kernel<Msg, kMem>
+  bp_minsum_kernel<Msg, kMem, kWide>
       <<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
           synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters,
           next, m, n, rw, cw, B, max_iter, scale, tpl, lanes_g);
@@ -243,7 +257,8 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
 }
 
 // mem 0: the shared-memory mode; 1 and 2: the device-memory modes, lanes
-// in `lanes_g` (chk and edge then 32-bit planes in mode 2)
+// in `lanes_g` (chk and edge then 32-bit planes in mode 2); the wide
+// instance for row weights above 32
 template <class Msg>
 int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
@@ -251,34 +266,41 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            int* next, int m, int n, int rw, int cw, int B, int max_iter,
            float scale, int lanes, int tpl, int grid, int smem_bytes, int mem,
            unsigned char* lanes_g, void* stream) {
-#define BP_MINSUM_LAUNCH(MEM)                                                 \
-  return launch_mem<Msg, MEM>(synd, llr0, llr_per_shot, chk, edge, slot, err, \
-                              post, conv, iters, next, m, n, rw, cw, B,       \
-                              max_iter, scale, lanes, tpl, grid, smem_bytes,  \
-                              lanes_g, stream)
-  switch (mem) {
-    case 0: BP_MINSUM_LAUNCH(0);
-    case 1: BP_MINSUM_LAUNCH(1);
-    case 2: BP_MINSUM_LAUNCH(2);
+#define BP_MINSUM_LAUNCH(MEM, WIDE)                                     \
+  return launch_mem<Msg, MEM, WIDE>(                                    \
+      synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, \
+      next, m, n, rw, cw, B, max_iter, scale, lanes, tpl, grid,          \
+      smem_bytes, lanes_g, stream)
+  const bool wide = rw > minsum::mask_slots<unsigned>();
+  switch (mem * 2 + wide) {
+    case 0: BP_MINSUM_LAUNCH(0, false);
+    case 1: BP_MINSUM_LAUNCH(0, true);
+    case 2: BP_MINSUM_LAUNCH(1, false);
+    case 3: BP_MINSUM_LAUNCH(1, true);
+    case 4: BP_MINSUM_LAUNCH(2, false);
+    case 5: BP_MINSUM_LAUNCH(2, true);
     default: return -1;
   }
 #undef BP_MINSUM_LAUNCH
 }
 
-template <class Msg, int kMem>
+template <class Msg, int kMem, bool kWide>
 int resident_mem(int threads, int smem_bytes, int* blocks) {
-  const int e = set_smem<Msg, kMem>(smem_bytes);
+  const int e = set_smem<Msg, kMem, kWide>(smem_bytes);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, bp_minsum_kernel<Msg, kMem>, threads, smem_bytes);
+      blocks, bp_minsum_kernel<Msg, kMem, kWide>, threads, smem_bytes);
 }
 
 template <class Msg>
-int resident(int threads, int smem_bytes, int mem, int* blocks) {
-  switch (mem) {
-    case 0: return resident_mem<Msg, 0>(threads, smem_bytes, blocks);
-    case 1: return resident_mem<Msg, 1>(threads, smem_bytes, blocks);
-    case 2: return resident_mem<Msg, 2>(threads, smem_bytes, blocks);
+int resident(int threads, int smem_bytes, int mem, int wide, int* blocks) {
+  switch (mem * 2 + (wide != 0)) {
+    case 0: return resident_mem<Msg, 0, false>(threads, smem_bytes, blocks);
+    case 1: return resident_mem<Msg, 0, true>(threads, smem_bytes, blocks);
+    case 2: return resident_mem<Msg, 1, false>(threads, smem_bytes, blocks);
+    case 3: return resident_mem<Msg, 1, true>(threads, smem_bytes, blocks);
+    case 4: return resident_mem<Msg, 2, false>(threads, smem_bytes, blocks);
+    case 5: return resident_mem<Msg, 2, true>(threads, smem_bytes, blocks);
     default: return -1;
   }
 }
@@ -317,10 +339,12 @@ extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM
-// holds at once in memory mode `mem`
+// holds at once in memory mode `mem`, of the wide instance with `wide`
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 extern "C" int bp_minsum_resident(int bf16, int threads, int smem_bytes,
-                                  int mem, int* blocks) {
-  return bf16 ? resident<minsum::Bf16Msg>(threads, smem_bytes, mem, blocks)
-              : resident<minsum::F32Msg>(threads, smem_bytes, mem, blocks);
+                                  int mem, int wide, int* blocks) {
+  return bf16 ? resident<minsum::Bf16Msg>(threads, smem_bytes, mem, wide,
+                                          blocks)
+              : resident<minsum::F32Msg>(threads, smem_bytes, mem, wide,
+                                         blocks);
 }

@@ -57,49 +57,87 @@ constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
 constexpr int kMaxLanes = 15;  // named barriers 1..15, barrier 0 is the block's
 constexpr int kPad = 0xFFFF;   // a padded entry of the 16-bit planes
 
-// the named barrier of lane `lane`, `count` threads (whole warps)
+// The named barrier of lane `lane`, `count` threads (whole warps).
+// kAligned picks the PTX form: `bar.sync` is `barrier.sync.aligned`, which
+// tells ptxas that every thread of the block executes that same barrier
+// instruction, an assumption it may optimise on; `barrier.sync` makes none.
+// The lanes of a block reach their barriers at different points and a
+// lane's threads diverge between barriers, so only the non-aligned form
+// matches what the loop does.  The device-memory mode with 32-bit planes
+// (csrc/bp_minsum.cu kMem 2) takes it: built with the aligned form at -O3
+// it gave wrong outputs or illegal addresses at some shapes (e.g. 120 x
+// 600 random matrices), which the non-aligned form (and ptxas -O1) cured.
+// The other instances keep the aligned form, and their machine code.
+template <bool kAligned = true>
 __device__ __forceinline__ void lane_sync(int lane, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
+  if constexpr (kAligned)
+    asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
+  else
+    asm volatile("barrier.sync %0, %1;" ::"r"(lane + 1), "r"(count)
+                 : "memory");
 }
 
 // lane_sync that returns whether any thread of the lane gave `pred`
+template <bool kAligned = true>
 __device__ __forceinline__ bool lane_sync_or(int lane, int count, bool pred) {
   int any;
-  asm volatile(
-      "{\n\t.reg .pred p, q;\n\t"
-      "setp.ne.s32 p, %1, 0;\n\t"
-      "bar.red.or.pred q, %2, %3, p;\n\t"
-      "selp.s32 %0, 1, 0, q;\n\t}"
-      : "=r"(any)
-      : "r"((int)pred), "r"(lane + 1), "r"(count)
-      : "memory");
+  if constexpr (kAligned)
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\t"
+        "setp.ne.s32 p, %1, 0;\n\t"
+        "bar.red.or.pred q, %2, %3, p;\n\t"
+        "selp.s32 %0, 1, 0, q;\n\t}"
+        : "=r"(any)
+        : "r"((int)pred), "r"(lane + 1), "r"(count)
+        : "memory");
+  else
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\t"
+        "setp.ne.s32 p, %1, 0;\n\t"
+        "barrier.red.or.pred q, %2, %3, p;\n\t"
+        "selp.s32 %0, 1, 0, q;\n\t}"
+        : "=r"(any)
+        : "r"((int)pred), "r"(lane + 1), "r"(count)
+        : "memory");
   return any != 0;
 }
 
 // A check's state after its v2c: the two smallest magnitudes (kBig for
-// padding), the slot of the first, each live slot's negative sign as a bit,
-// and whether the product of the signs and the syndrome sign is negative.
+// padding), the slot of the first, each live slot's negative sign as a bit
+// of a Mask, and whether the product of the signs and the syndrome sign is
+// negative.  Mask is `unsigned` for row weights up to 32 (the code every
+// rw <= 32 instance compiles to) and `unsigned long long` for up to 64
+// (kMaxRowWeight), the detector error models' wide rows.
+template <class Mask = unsigned>
 struct Top2 {
   float min1, min2;
   int amin;
-  unsigned negs;
+  Mask negs;
   bool neg;
 };
 
+constexpr int kMaxRowWeight = 64;
+
+// the row weights one Mask numbers
+template <class Mask>
+constexpr int mask_slots() {
+  return 8 * (int)sizeof(Mask);
+}
+
 // The streaming top-2 over a check's rw slots in slot order; v(s, x) gives
 // slot s's v2c in x and returns false for a padded slot.
-template <class V>
-__device__ __forceinline__ Top2 check_top2(int rw, bool synd, V v) {
+template <class Mask = unsigned, class V>
+__device__ __forceinline__ Top2<Mask> check_top2(int rw, bool synd, V v) {
   float sg = synd ? -1.f : 1.f;
   float min1 = kBig, min2 = kBig;
   int amin = 0;
-  unsigned negs = 0u;
+  Mask negs = 0u;
   for (int s = 0; s < rw; ++s) {
     float x, mag = kBig;
     if (v(s, x)) {
       mag = fabsf(x);
       if (x < 0.f) {
-        negs |= 1u << s;
+        negs |= Mask(1) << s;
         sg = -sg;
       }
     }
@@ -111,13 +149,15 @@ __device__ __forceinline__ Top2 check_top2(int rw, bool synd, V v) {
       min2 = mag;
     }
   }
-  return Top2{min1, min2, amin, negs, sg < 0.f};
+  return Top2<Mask>{min1, min2, amin, negs, sg < 0.f};
 }
 
 // the scaled c2v of live slot s
-__device__ __forceinline__ float check_c2v(const Top2& c, int s, float scale) {
+template <class Mask>
+__device__ __forceinline__ float check_c2v(const Top2<Mask>& c, int s,
+                                           float scale) {
   float r = scale * fminf(s == c.amin ? c.min2 : c.min1, kBig);
-  if (c.neg != (((c.negs >> s) & 1u) != 0u)) r = -r;
+  if (c.neg != (((c.negs >> s) & Mask(1)) != 0u)) r = -r;
   return r;
 }
 
@@ -179,8 +219,10 @@ struct PlanesT {
 using Planes = PlanesT<uint16_t>;
 using Planes32 = PlanesT<uint32_t>;
 
-// One shot's decode, max_iter >= 1 iterations at most, on a lane of `tpl`
-// threads (whole warps) with its own named barrier; thread r of the lane
+// One shot's decode, max_iter >= 1 iterations at most and row weights up to
+// mask_slots<Mask>() (Top2), on a lane of `tpl` threads (whole warps) with
+// its own named barrier (of the form kAligned picks, lane_sync); thread r
+// of the lane
 // owns checks i = r (mod tpl) and variables j = r (mod tpl).  synd(i) gives
 // check i's syndrome bit (called once, by check i's thread, and kept in
 // syn) and llr0(j) variable j's channel LLR.  Per lane shared memory holds
@@ -198,7 +240,8 @@ using Planes32 = PlanesT<uint32_t>;
 // totals, which each thread may read back for its own variables without a
 // barrier.  c2v, v2c and syn are free on return (the last barrier followed
 // every read of them); tot once the lane has passed its next barrier.
-template <class Msg, class Synd, class Llr, class G>
+template <class Msg, class Mask = unsigned, bool kAligned = true, class Synd,
+          class Llr, class G>
 __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
                                             Llr llr0, float* c2v,
                                             typename Msg::T* v2c, float* tot,
@@ -207,20 +250,20 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
                                             int tpl, int& it) {
   const int m = g.m, n = g.n, rw = g.rw, cw = g.cw;
   // check i's scaled c2v on its live slots (bit s of `live`)
-  auto put_c2v = [&](int i, const Top2& c, unsigned live) {
+  auto put_c2v = [&](int i, const Top2<Mask>& c, Mask live) {
     for (int s = 0; s < rw; ++s)
-      if ((live >> s) & 1u) c2v[s * m + i] = check_c2v(c, s, scale);
+      if ((live >> s) & Mask(1)) c2v[s * m + i] = check_c2v(c, s, scale);
   };
 
   // iteration 1's check update, from the channel LLRs
   for (int i = r; i < m; i += tpl) {
     const uint8_t sb = synd(i);
     syn[i] = sb;
-    unsigned live = 0u;
-    const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
+    Mask live = 0u;
+    const Top2<Mask> c = check_top2<Mask>(rw, sb, [&](int s, float& x) {
       const int v = g.chk[s * m + i];
       if (v == G::kPad) return false;
-      live |= 1u << s;
+      live |= Mask(1) << s;
       x = Msg::load(Msg::store(llr0(v)));
       return true;
     });
@@ -229,7 +272,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
   it = 0;
   bool bad;
   for (;;) {
-    lane_sync(lane, tpl);
+    lane_sync<kAligned>(lane, tpl);
     for (int j = r; j < n; j += tpl) {
       const float total = var_total<Msg>(llr0(j), cw, [&](int t, float& c, int& s) {
         const int e = g.edge[t * n + j];
@@ -246,18 +289,19 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
       tot[j] = total;
     }
     ++it;
-    lane_sync(lane, tpl);
+    lane_sync<kAligned>(lane, tpl);
     // each check's parity of these totals and, unless this was the last
     // iteration, its next check update, in one walk over its slots
     bool fail = false;
     for (int i = r; i < m; i += tpl) {
       const bool sb = syn[i];
-      unsigned par = sb, live = 0u;
+      unsigned par = sb;
+      Mask live = 0u;
       if (it < max_iter) {
-        const Top2 c = check_top2(rw, sb, [&](int s, float& x) {
+        const Top2<Mask> c = check_top2<Mask>(rw, sb, [&](int s, float& x) {
           const int e = s * m + i, v = g.chk[e];
           if (v == G::kPad) return false;
-          live |= 1u << s;
+          live |= Mask(1) << s;
           par ^= gather_total<Msg>(tot[v]) < 0.f;
           x = Msg::load(v2c[e]);
           return true;
@@ -271,7 +315,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
       }
       fail |= (par & 1u) != 0u;
     }
-    bad = lane_sync_or(lane, tpl, fail);
+    bad = lane_sync_or<kAligned>(lane, tpl, fail);
     if (!bad || it == max_iter) return bad;
   }
 }

@@ -8,9 +8,13 @@
   * ``ST_BP_Decoder_syndrome`` — the phenomenological space-time window
     decoder: BP over the block-bidiagonal ``GetSpaceTimeCheckMat``, its
     per-slice data corrections XOR-folded.
+  * ``ST_BP_Decoder_Circuit`` / ``ST_BPOSD_Decoder_Circuit`` — BP and
+    BP+OSD over a detector error model's fault matrix with its per-column
+    priors (the circuit-level space-time engine's decoders).
   * ``DecoderClass`` factories — the ``GetDecoder(params)`` dict contract
     (keys 'h', 'p_data', optionally 'p_syndrome'; 'num_rep' for the
-    space-time class).
+    space-time class; 'h', 'code_h', 'channel_probs' for the circuit
+    space-time classes).
 
 A decoder splits into ``device_static`` (a hashable description of the
 program) and ``device_state`` (a dict of tensors), run by ``decode_device``.
@@ -46,11 +50,15 @@ __all__ = [
     "FirstMinBPDecoder",
     "GetSpaceTimeCheckMat",
     "ST_BP_Decoder_syndrome",
+    "ST_BP_Decoder_Circuit",
+    "ST_BPOSD_Decoder_Circuit",
     "DecoderClass",
     "BP_Decoder_Class",
     "BPOSD_Decoder_Class",
     "FirstMinBP_Decoder_Class",
     "ST_BP_Decoder_Class",
+    "ST_BP_Decoder_Circuit_Class",
+    "ST_BPOSD_Decoder_Circuit_Class",
 ]
 
 _BP_METHOD_ALIASES = {
@@ -523,6 +531,22 @@ class ST_BP_Decoder_syndrome:
         return self.decode_batch(np.asarray(detector_history)[None])[0]
 
 
+class ST_BP_Decoder_Circuit(BPDecoder):
+    """BP over a detector error model's fault matrix ``h`` with one prior
+    per fault column (reference ``src/Decoders_SpaceTime.py:261-274``):
+    a ``BPDecoder``, whose BP head follows the matrix's shape."""
+
+    def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
+                 ms_scaling_factor=0.625, device="cuda"):
+        super().__init__(h, channel_probs, max_iter, bp_method,
+                         ms_scaling_factor, device=device)
+
+
+class ST_BPOSD_Decoder_Circuit(BPOSD_Decoder):
+    """BP+OSD over a detector error model's fault matrix (reference
+    ``src/Decoders_SpaceTime.py:277-292``): a ``BPOSD_Decoder``."""
+
+
 class DecoderClass(ABC):
     """Abstract factory (reference DecoderClass)."""
 
@@ -647,4 +671,65 @@ class ST_BP_Decoder_Class(DecoderClass):
             max_iter=h.shape[1] / d["max_iter_ratio"],
             bp_method=d["bp_method"],
             ms_scaling_factor=d["ms_scaling_factor"], num_rep=p["num_rep"],
+            device=self.device)
+
+
+def _require_circuit(params):
+    for key in ("h", "code_h", "channel_probs"):
+        if key not in params:
+            raise KeyError(f"decoder params miss {key!r}")
+
+
+class ST_BP_Decoder_Circuit_Class(DecoderClass):
+    """Factory of ``ST_BP_Decoder_Circuit`` (reference
+    ``src/Decoders_SpaceTime.py:296-321``), keys 'h' (the fault matrix),
+    'code_h' and 'channel_probs'.  The reference's quirk is kept:
+    ``max_iter`` scales with the code's width (``code_h``), not the fault
+    matrix's, and is ``int(n / max_iter_ratio)``."""
+
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        p = code_and_noise_channel_params
+        _require_circuit(p)
+        num_qubits = np.asarray(p["code_h"]).shape[1]
+        d = self.decoder_default_params
+        return ST_BP_Decoder_Circuit(
+            h=p["h"], channel_probs=p["channel_probs"],
+            max_iter=int(num_qubits / d["max_iter_ratio"]),
+            bp_method=d["bp_method"],
+            ms_scaling_factor=d["ms_scaling_factor"], device=self.device)
+
+
+class ST_BPOSD_Decoder_Circuit_Class(DecoderClass):
+    """Factory of ``ST_BPOSD_Decoder_Circuit`` (reference
+    ``src/Decoders_SpaceTime.py:323-357``), the keys of
+    ``ST_BP_Decoder_Circuit_Class``; ``max_iter`` is ``code_h``'s width
+    over ``max_iter_ratio``, passed unrounded as the reference does."""
+
+    def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
+                 osd_method, osd_order, device="cuda"):
+        self.decoder_default_params = {
+            "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
+            "ms_scaling_factor": ms_scaling_factor, "osd_method": osd_method,
+            "osd_order": osd_order,
+        }
+        self.device = device
+
+    def GetDecoder(self, code_and_noise_channel_params):
+        p = code_and_noise_channel_params
+        _require_circuit(p)
+        num_qubits = np.asarray(p["code_h"]).shape[1]
+        d = self.decoder_default_params
+        return ST_BPOSD_Decoder_Circuit(
+            h=p["h"], channel_probs=p["channel_probs"],
+            max_iter=num_qubits / d["max_iter_ratio"],
+            bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
+            osd_method=d["osd_method"], osd_order=d["osd_order"],
             device=self.device)

@@ -22,7 +22,10 @@ Where one shot's messages do not fit a block's shared memory beside the
 planes, the card runs the kernels' device-memory modes instead (the
 messages in a device scratch; with 32-bit planes in device memory too when
 the planes do not fit or 16 bits cannot number the graph), counted in
-``device_launches`` and ``device_planes_launches``.
+``device_launches`` and ``device_planes_launches``.  Row weights up to 32
+run the kernels' 32-bit slot masks, up to 64 (a detector error model's
+window matrix) their wide instances (``minsum_wide``), counted in
+``wide_launches``; the plain versions take any row weight.
 
 The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
 which the two-phase decode runs when a decoder carries a head:
@@ -55,7 +58,7 @@ import torch
 from ..utils.device import capturing
 from . import _kernels
 
-__all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop",
+__all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop", "minsum_wide",
            "check_update_minsum", "KERNEL_VARIANTS", "INT8_WER_RTOL",
            "INT8_WER_NSIGMA", "int8_parity_tolerance", "SparseHeadGraph",
            "PallasHeadGraph", "build_sparse_head", "build_pallas_head",
@@ -170,6 +173,22 @@ SM_THREADS = 2048
 MINSUM_MAX_LANES = 15
 MINSUM_MAX_THREADS = 1024
 PAD16 = 0xFFFF
+# row weights of csrc/bp_minsum.cu: a check's slots are bits of a 32-bit
+# mask up to MINSUM_NARROW_RW, of a 64-bit one (the wide instances) up to
+# MINSUM_MAX_RW
+MINSUM_NARROW_RW = 32
+MINSUM_MAX_RW = 64
+
+
+def minsum_wide(rw: int) -> bool:
+    """Whether csrc/bp_minsum.cu launches its wide instance (64-bit slot
+    masks) for row weight ``rw``; raises above MINSUM_MAX_RW."""
+    if not 1 <= rw <= MINSUM_MAX_RW:
+        raise ValueError(f"the min-sum kernels take row weights "
+                         f"1..{MINSUM_MAX_RW}, got {rw}")
+    return rw > MINSUM_NARROW_RW
+
+
 # the layout rule's two constants, from scripts/ab_minsum_body.py --sweep on
 # an H100 (PERF.md): a full block's shots get at most 5 checks and 5
 # variables per thread, and a batch takes one shot per block for every 4
@@ -342,8 +361,7 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
     16-bit planes staged) while the planes fit a block, else
     ``"device_planes"`` (32-bit planes read from device memory, nothing
     staged)."""
-    if not 1 <= rw <= 32:
-        raise ValueError(f"the min-sum kernels take row weights 1..32, got {rw}")
+    minsum_wide(rw)
     fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
     per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
     if memory == "auto":
@@ -365,17 +383,17 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int,
-                    memory: str = "shared") -> int:
-    """Blocks of csrc/bp_minsum.cu (in ``memory``) that one SM of CUDA
-    device ``index`` holds at once
+                    memory: str = "shared", wide: bool = False) -> int:
+    """Blocks of csrc/bp_minsum.cu (in ``memory``; its wide instance with
+    ``wide``) that one SM of CUDA device ``index`` holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     fn = _kernels.library("bp_minsum").bp_minsum_resident
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = fn(int(bf16), threads, smem_bytes,
-                _kernels.MEMORY_MODES.index(memory),
+                _kernels.MEMORY_MODES.index(memory), int(wide),
                 ctypes.addressof(blocks))
     _kernels.check_launch("bp_minsum_resident", rc)
     return blocks.value
@@ -390,7 +408,7 @@ def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
     lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared,
                         memory=memory)
     held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes,
-                           lay.memory)
+                           lay.memory, minsum_wide(rw))
     if held < 1:
         raise ValueError(f"the min-sum kernels: a block of {lay.threads} "
                          f"threads and {lay.smem_bytes} bytes does not fit")
@@ -452,8 +470,9 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
         raise ValueError(f"max_iter must be >= 0, got {max_iter}")
     if llr0.device != dev or graph.chk_nbr.device != dev:
         raise ValueError("bp_minsum needs its tensors on one device")
-    if not 1 <= rw <= 32 or cw < 1:
-        raise ValueError(f"bp_minsum takes row weights 1..32, got rw={rw}")
+    if cw < 1:
+        raise ValueError(f"bp_minsum needs a variable degree >= 1, got {cw}")
+    minsum_wide(rw)
     if m * B >= 2 ** 31 or n * B >= 2 ** 31:
         raise ValueError("bp_minsum batch too large for int32 indexing")
     out, memory = _minsum_call(
@@ -467,6 +486,7 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
                           memory == "device")
     _kernels.count_launch(bp_minsum, "device_planes_launches", dev,
                           memory == "device_planes")
+    _kernels.count_launch(bp_minsum, "wide_launches", dev, minsum_wide(rw))
     return out
 
 
@@ -478,7 +498,8 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
     iterations (B,) int32)``.  CUDA tensors launch the kernel (or raise) in
     the memory mode ``minsum_layout`` picks: ``launches`` counts them,
     ``device_launches`` and ``device_planes_launches`` those in each
-    device-memory mode.  CPU tensors run ``minsum_plain``."""
+    device-memory mode, ``wide_launches`` those of the wide instance (row
+    weights 33-64).  CPU tensors run ``minsum_plain``."""
     per_shot = channel_llr.dim() == 2
     if syndromes.is_cuda and not _kernels.plain_forced():
         return _launch(graph, syndromes.contiguous(), channel_llr.contiguous(),
@@ -492,6 +513,7 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
 bp_minsum.launches = 0
 bp_minsum.device_launches = 0
 bp_minsum.device_planes_launches = 0
+bp_minsum.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1068,8 +1090,9 @@ bp_head_int8.launches = 0
 
 def _launch_bf16(head, synd, llr0, head_iters, scale):
     dev = synd.device
-    if head.rw > 32:
-        raise ValueError(f"bp_head_bf16: row weight {head.rw} above 32")
+    if head.rw > MINSUM_MAX_RW:
+        raise ValueError(f"bp_head_bf16: row weight {head.rw} above "
+                         f"{MINSUM_MAX_RW}")
     for t in (head.chk_idx, head.mask, head.var_edge):
         if not t.is_contiguous():
             raise ValueError("bp_head_bf16 needs contiguous index planes")
@@ -1085,6 +1108,8 @@ def _launch_bf16(head, synd, llr0, head_iters, scale):
                           memory == "device")
     _kernels.count_launch(bp_head_bf16, "device_planes_launches", dev,
                           memory == "device_planes")
+    _kernels.count_launch(bp_head_bf16, "wide_launches", dev,
+                          minsum_wide(head.rw))
     return out
 
 
@@ -1113,3 +1138,4 @@ def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
 bp_head_bf16.launches = 0
 bp_head_bf16.device_launches = 0
 bp_head_bf16.device_planes_launches = 0
+bp_head_bf16.wide_launches = 0

@@ -39,7 +39,7 @@ from ..utils import device as _device
 
 __all__ = ["batch_seed", "batch_generator", "GeneratorInput", "KeyInput",
            "MegabatchDriver", "count_min_driver", "drain_double_buffered",
-           "check_syncs"]
+           "check_syncs", "CapturedStep"]
 
 
 def batch_seed(seed, j: int) -> int:
@@ -204,6 +204,36 @@ def check_syncs():
         _checks.syncs = prev
 
 
+def _capture_graph(dev, warmup, body, register=None):
+    """``warmup()`` under ``device_cond``'s both-branches hook on a side
+    stream (counting no launch), then ``body()`` captured into a CUDA graph
+    (``register(graph)`` first, for its generators) and instantiated.
+    Returns (graph, body's outputs, the pool its conditional bodies
+    allocate from, which must live as long as the graph, and what the
+    capture cost)."""
+    _kernels.launch_counts(dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    t0 = time.perf_counter()
+    with (torch.cuda.stream(stream), _device._both_branches(),
+          _kernels.uncounted()):
+        warmup()
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    if register is not None:
+        register(graph)
+    with _device.graph_capture(graph, dev, stream) as rec:
+        outs = body()
+    t2 = time.perf_counter()
+    graph.instantiate()
+    t3 = time.perf_counter()
+    stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
+             "instantiate_s": t3 - t2,
+             "nodes": _device.graph_nodes(graph) + rec.body_nodes}
+    return graph, outs, rec.body_pool, stats
+
+
 class MegabatchDriver:
     """Fold ``stats_fn(batch_input(seed, j), *extra)`` over batches,
     ``k_inner`` per megabatch (module docstring).
@@ -243,35 +273,22 @@ class MegabatchDriver:
     def _capture(self, extra, carry) -> _Graph:
         """Warm every branch up on throwaway draws, then capture one
         megabatch folding into ``carry``."""
-        dev = carry[0].device
         if not hasattr(self._batch_input, "captured"):
             raise TypeError("a run on the card needs a batch input with a "
                             "captured counterpart (GeneratorInput, KeyInput)")
         inputs = self._batch_input.captured(self.k_inner)
-        _kernels.launch_counts(dev)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with (torch.cuda.stream(stream), _device._both_branches(),
-              _kernels.uncounted()):
-            self._stats_fn(inputs.warmup(), *extra)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        inputs.register(graph)
-        with _device.graph_capture(graph, dev, stream) as rec:
+
+        def megabatch():
             for batch in inputs.inputs():
                 new = self._combine(carry, self._stats_fn(batch, *extra))
                 for c, v in zip(carry, new):
                     c.copy_(v)
             inputs.advance()
-        t2 = time.perf_counter()
-        graph.instantiate()
-        t3 = time.perf_counter()
-        stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
-                 "instantiate_s": t3 - t2,
-                 "nodes": _device.graph_nodes(graph) + rec.body_nodes}
-        return _Graph(graph, carry, inputs, rec.body_pool, stats)
+
+        graph, _, body_pool, stats = _capture_graph(
+            carry[0].device, lambda: self._stats_fn(inputs.warmup(), *extra),
+            megabatch, inputs.register)
+        return _Graph(graph, carry, inputs, body_pool, stats)
 
     def stream(self, seed, n_batches: int, *extra):
         """Yield ``(carry, batches_done)`` after every megabatch.  On the
@@ -369,3 +386,59 @@ def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
 
     return MegabatchDriver(stats_fn, combine, init, batch_input,
                            k_inner=k_inner)
+
+
+class CapturedStep:
+    """One fixed-shape step of a stream, replayed from a CUDA graph on the
+    card: ``body(generator, carry) -> (new carry, outputs)`` over device
+    tensors, ``carry`` a tuple that the step updates in place (the new
+    carry is copied into it).
+
+    On the card the first call warms every branch up (``device_cond``'s
+    both-branches hook, on a throwaway generator, its carry left as it
+    was), captures one step, ``generator`` registered with the graph, and
+    every call replays it: no host read, and the registered generator's
+    Philox offset advances by one step's draws a replay, so step i draws
+    what the i-th step draws eagerly.  The outputs are the graph's own
+    buffers, which the next call overwrites.  Elsewhere (the CPU,
+    ``force_plain()``, ``force_eager()``) a call runs ``body`` eagerly.
+    ``generator`` may be None for a body that draws nothing."""
+
+    def __init__(self, body, carry: tuple, generator=None):
+        self._body = body
+        self.carry = carry
+        self.generator = generator
+        self._graph = None  # (graph, outputs, body pool)
+        self.graph_stats = None
+
+    def _graphed(self) -> bool:
+        return (self.carry[0].is_cuda and not _kernels.plain_forced()
+                and not _kernels.eager_forced())
+
+    def _step(self, generator):
+        new, outs = self._body(generator, self.carry)
+        for c, v in zip(self.carry, new):
+            c.copy_(v)
+        return outs
+
+    def _capture(self):
+        dev = self.carry[0].device
+        gen = self.generator
+        throwaway = (None if gen is None
+                     else batch_generator(_THROWAWAY, 0, dev))
+        graph, outs, body_pool, self.graph_stats = _capture_graph(
+            dev, lambda: self._body(throwaway, self.carry),
+            lambda: self._step(gen),
+            None if gen is None
+            else lambda graph: graph.register_generator_state(gen))
+        self._graph = (graph, outs, body_pool)
+
+    def __call__(self):
+        if not self._graphed():
+            return self._step(self.generator)
+        if self._graph is None:
+            self._capture()
+        graph, outs, _ = self._graph
+        with _sync_mode(getattr(_checks, "syncs", False)):
+            graph.replay()
+        return outs

@@ -73,10 +73,13 @@ def _tensor(a, dev) -> torch.Tensor:
 
 class PhenomEngine:
     """What the phenomenological engines share: the draws, syndromes,
-    decodes, final perfect round and residual checks of a batch, its
-    megabatch driver, and ``run_batch`` / ``_single_run``.  A subclass
-    gives ``_pipeline(draw, num_rounds, batch_size)``: a batch's rounds
-    from ``draw`` to the final round's residuals.
+    decodes, final perfect round and residual checks of a batch, the
+    pipeline of its rounds, its megabatch driver, and ``run_batch`` /
+    ``_single_run``.  A subclass gives ``_window(draw, data_x, data_z,
+    batch_size)``: one noisy window from ``draw`` (one round, or
+    ``num_rep`` sub-rounds decoded jointly), returning the new data carry
+    and the window's corrections; it is also the step of
+    ``sim/stream_spacetime.py``'s ``PhenomStreamDriver``.
     """
 
     def __init__(self, code=None, decoder1_x=None, decoder1_z=None,
@@ -189,6 +192,15 @@ class PhenomEngine:
         dx, dz = self._decode(self.decoder2_x, self.decoder2_z, synd_x, synd_z)
         return cur_x ^ dx, cur_z ^ dz
 
+    def _pipeline(self, draw, num_rounds: int, batch_size: int):
+        """Every window of one batch from ``draw`` -> the final round's
+        residuals (X, Z), packed or unpacked."""
+        data_x, data_z = self._zeros(batch_size)
+        for _ in range(max(int(num_rounds) - 1, 0)):
+            (data_x, data_z), _ = self._window(draw, data_x, data_z,
+                                               batch_size)
+        return self._final_round(draw, data_x, data_z, batch_size)
+
     def _stats(self, res_x, res_z, batch_size: int):
         """(failure count, min logical weight) int32 device scalars."""
         if self._packed:
@@ -282,22 +294,19 @@ class CodeSimulator_Phenon(PhenomEngine):
     on ``device``.
     """
 
-    def _pipeline(self, draw, num_rounds: int, batch_size: int):
-        """Every round of one batch from ``draw`` -> the final round's
-        residuals (X, Z), packed or unpacked."""
+    def _window(self, draw, data_x, data_z, batch_size: int):
+        """One noisy round: fresh data errors and syndrome flips, the [H | I]
+        syndromes, decoder 1; the data part of the residual carried on.
+        Returns the new (X, Z) carry and decoder 1's (X, Z) corrections."""
         n = self.N
-        data_x, data_z = self._zeros(batch_size)
-        for _ in range(max(int(num_rounds) - 1, 0)):
-            ex, ez, sx, sz = draw(False)
-            cur_x = torch.cat([ex ^ data_x, sx], dim=1)
-            cur_z = torch.cat([ez ^ data_z, sz], dim=1)
-            synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx_ext", "hz_ext",
-                                             batch_size)
-            dx, dz = self._decode(self.decoder1_x, self.decoder1_z, synd_x,
-                                  synd_z)
-            data_x = (cur_x ^ dx)[:, :n]
-            data_z = (cur_z ^ dz)[:, :n]
-        return self._final_round(draw, data_x, data_z, batch_size)
+        ex, ez, sx, sz = draw(False)
+        cur_x = torch.cat([ex ^ data_x, sx], dim=1)
+        cur_z = torch.cat([ez ^ data_z, sz], dim=1)
+        synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx_ext", "hz_ext",
+                                         batch_size)
+        dx, dz = self._decode(self.decoder1_x, self.decoder1_z, synd_x,
+                              synd_z)
+        return ((cur_x ^ dx)[:, :n], (cur_z ^ dz)[:, :n]), (dx, dz)
 
     def _stats_from_errors(self, rounds, final):
         """The pipeline on given errors: ``rounds`` a list of numpy (data X,

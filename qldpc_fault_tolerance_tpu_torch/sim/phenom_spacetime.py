@@ -65,29 +65,27 @@ class CodeSimulator_Phenon_SpaceTime(PhenomEngine):
                          device=device)
         self.num_rep = int(num_rep)
 
-    def _pipeline(self, draw, num_rounds: int, batch_size: int):
-        """Every window of one batch from ``draw`` -> the final round's
-        residuals (X, Z)."""
-        data_x, data_z = self._zeros(batch_size)
-        for _ in range(max(int(num_rounds) - 1, 0)):
-            hist_x, hist_z = [], []
-            for _ in range(self.num_rep):
-                ex, ez, sx, sz = draw(False)
-                data_x, data_z = data_x ^ ex, data_z ^ ez
-                synd_x, synd_z = self._syndromes(
-                    torch.cat([data_x, sx], dim=1),
-                    torch.cat([data_z, sz], dim=1), "hx_ext", "hz_ext",
-                    batch_size)
-                hist_x.append(synd_x)
-                hist_z.append(synd_z)
-            # (B, num_rep, m); Z differenced slice to slice, X raw
-            det_z = torch.stack([hist_z[0]] + [b ^ a for a, b in zip(
-                hist_z, hist_z[1:])], dim=1)
-            det_x = torch.stack(hist_x, dim=1)
-            cx, cz = self._decode(self.decoder1_x, self.decoder1_z, det_x,
-                                  det_z)
-            data_x, data_z = data_x ^ cx, data_z ^ cz
-        return self._final_round(draw, data_x, data_z, batch_size)
+    def _window(self, draw, data_x, data_z, batch_size: int):
+        """One window: ``num_rep`` sub-rounds of fresh errors and flips
+        stacked into (B, num_rep, m) detector histories, decoded jointly by
+        decoder 1.  Returns the new (X, Z) carry and the folded (X, Z)
+        corrections."""
+        hist_x, hist_z = [], []
+        for _ in range(self.num_rep):
+            ex, ez, sx, sz = draw(False)
+            data_x, data_z = data_x ^ ex, data_z ^ ez
+            synd_x, synd_z = self._syndromes(
+                torch.cat([data_x, sx], dim=1),
+                torch.cat([data_z, sz], dim=1), "hx_ext", "hz_ext",
+                batch_size)
+            hist_x.append(synd_x)
+            hist_z.append(synd_z)
+        # (B, num_rep, m); Z differenced slice to slice, X raw
+        det_z = torch.stack([hist_z[0]] + [b ^ a for a, b in zip(
+            hist_z, hist_z[1:])], dim=1)
+        det_x = torch.stack(hist_x, dim=1)
+        cx, cz = self._decode(self.decoder1_x, self.decoder1_z, det_x, det_z)
+        return (data_x ^ cx, data_z ^ cz), (cx, cz)
 
     def _stats_from_errors(self, sub_rounds, final):
         """The pipeline on given errors: ``sub_rounds`` a list of numpy

@@ -18,7 +18,12 @@ CodeSimulator_Phenon_SpaceTime on hgp_34_n625, the space-time BP window
 decoder (N/30, windows of 3) then BP + OSD-E order 10, eval_p=0.01, 13
 cycles, batches of 2048; and the circuit engine of phase 34:
 CodeSimulator_Circuit on hgp_34_n625, p_CX=0.002, 6 cycles, BP (N/30) on
-[H|I] per round then BP + OSD-E order 10, batches of 2048) once
+[H|I] per round then BP + OSD-E order 10, batches of 2048; and the
+circuit-level space-time engine of phase 36, tagged circuit-st:
+CodeSimulator_Circuit_SpaceTime on hgp_34_n625, p_CX=0.002, 13 cycles,
+windows of 3, BP (max_iter N) on the detector error model's window matrix
+then BP + OSD-E order 10 (N) on its final-layer matrix, batches of 2048,
+its decoding graphs built on the host first) once
 to warm up (on the card: to capture the megabatch's CUDA graph) and once
 under torch.profiler (on the card: replaying it), and prints for each: wall
 time, shots/s, the host reads per megabatch and per batch (the two-phase
@@ -65,13 +70,16 @@ def main() -> int:
         BPOSD_Decoder,
         BPOSD_Decoder_Class,
         FirstMinBP_Decoder_Class,
+        ST_BP_Decoder_Circuit_Class,
         ST_BP_Decoder_Class,
+        ST_BPOSD_Decoder_Circuit_Class,
         decode_device,
     )
     from qldpc_fault_tolerance_tpu_torch.ops import _kernels
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
     from qldpc_fault_tolerance_tpu_torch.sim import (
         CodeSimulator_Circuit,
+        CodeSimulator_Circuit_SpaceTime,
         CodeSimulator_DataError,
         CodeSimulator_Phenon,
         CodeSimulator_Phenon_SpaceTime,
@@ -136,6 +144,27 @@ def main() -> int:
                 "p_idling_gate": 0},
             seed=1, batch_size=2048, scan_chunk=4, device=dev)
 
+    def circuit_st(p=0.002):
+        """chip_smoke.py phase 36's cell: SpaceTimeDecodingDemo's decoders
+        (ratio 1) on the detector error model's matrices."""
+        ccode = load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n625.npz"))
+        sim = CodeSimulator_Circuit_SpaceTime(
+            code=ccode, p=p, num_cycles=13, num_rep=3, error_params={
+                "p_i": 0, "p_state_p": 0, "p_m": 0, "p_CX": p,
+                "p_idling_gate": 0},
+            seed=1, batch_size=2048, scan_chunk=4, device=dev)
+        sim._generate_circuit_graph()
+        g = sim.circuit_graph
+        for k, cls in (("1", ST_BP_Decoder_Circuit_Class(
+                1, "minimum_sum", 0.625, device=dev)),
+                       ("2", ST_BPOSD_Decoder_Circuit_Class(
+                           1, "minimum_sum", 0.625, "osd_e", 10,
+                           device=dev))):
+            setattr(sim, f"decoder{k}_z", cls.GetDecoder(
+                {"h": g["h" + k], "code_h": ccode.hx,
+                 "channel_probs": g["channel_ps" + k]}))
+        return sim
+
     def data_run(shots):
         return (lambda sim: sim.WordErrorRate(shots)), shots
 
@@ -183,6 +212,8 @@ def main() -> int:
         ("phenom space-time BP-ST/BPOSD-E n625 num_rep 3 eval_p=0.01 13 "
          "cycles", spacetime, phenom_run(13, 8)),
         ("circuit BP/BPOSD-E n625 p=0.002 6 cycles", circuit,
+         data_run(4 * 2048)),
+        ("circuit-st BP/BPOSD-E n625 p=0.002 13 cycles num_rep 3", circuit_st,
          data_run(4 * 2048)))
     for tag, make, (run, shots) in configs:
         if args.only not in tag:

@@ -69,13 +69,14 @@ def kernels_sass(root: Path, name: str) -> dict:
 def _key(kernel: str) -> str:
     """A kernel's name and template arguments, without its return type,
     namespace, parameter list and casts of its template values, and
-    without a trailing ``false`` / ``0`` template flag."""
+    without its trailing ``false`` / ``0`` template flags (on both sides,
+    so a flag added after one whose value is 0 still pairs)."""
     name = re.sub(r"^void\s+", "", kernel)
     name = re.sub(r"\((int|bool|unsigned int)\)", "",
                   name.replace("<unnamed>::", "")
                   .replace("(anonymous namespace)::", ""))
     head = name.split("(")[0]
-    return re.sub(r",\s*(false|0)>$", ">", head.strip()).replace(" ", "")
+    return re.sub(r"(,\s*(false|0))+>$", ">", head.strip()).replace(" ", "")
 
 
 def compare(parent: Path, names, show_diff: bool = False) -> bool:

@@ -74,7 +74,7 @@ def test_small_batches_get_more_threads_per_shot(code, bf16):
 
 def test_layout_rejects_what_the_kernels_cannot_take():
     with pytest.raises(ValueError):
-        bk.minsum_layout(64, 300, 625, 33, 4, False, SMS)  # row weight > 32
+        bk.minsum_layout(64, 300, 625, 65, 4, False, SMS)  # row weight > 64
     with pytest.raises(ValueError):
         bk.minsum_layout(64, 300, 625, 7, 4, False, SMS, lanes=16)
     with pytest.raises(ValueError):  # one shot's messages exceed the block

@@ -1,0 +1,94 @@
+"""The min-sum kernels' wide instances on the card: kernel 1 and the bf16
+head at row weights 33, 40, 59 and 64, in each memory mode (shared memory,
+lanes in device memory, 32-bit planes in device memory too), against their
+plain versions.  Tolerance: none, every output bit-exact (the kernels are
+built with -fmad=false and keep the plain versions' order).  Needs an
+NVIDIA GPU; skips without one."""
+import numpy as np
+import pytest
+import torch
+
+from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(rw, dev, m=120, n=600, B=96, p=0.02):
+    """A random H with row weights up to ``rw`` (row 0 exactly ``rw``) and
+    syndromes of errors at rate p."""
+    rng = np.random.default_rng(rw)
+    h = np.zeros((m, n), np.uint8)
+    for i in range(m):
+        w = rw if i == 0 else int(rng.integers(rw // 2, rw + 1))
+        h[i, rng.choice(n, w, replace=False)] = 1
+    err = (rng.random((B, n)) < p).astype(np.uint8)
+    synd = torch.from_numpy((err @ h.T % 2).astype(np.uint8)).to(dev)
+    llr = tbp.llr_from_probs(np.full(n, p), dev)
+    return h, synd, llr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("memory", ["shared", "device", "device_planes"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rw", [33, 40, 59, 64])
+def test_wide_minsum_kernels_match_plain(cuda, rw, bf16, memory):
+    h, synd, llr = _case(rw, cuda)
+    g = tbp.build_tanner_graph_host(h)
+    if bf16:
+        head = bk.build_sparse_head(g, cuda)
+        fn, counter = (lambda: bk.bp_head_bf16(head, synd, llr,
+                                               head_iters=25)), bk.bp_head_bf16
+    else:
+        graph = tbp.graph_to(g, cuda)
+        fn, counter = (lambda: bk.bp_minsum(graph, synd, llr,
+                                            max_iter=25)), bk.bp_minsum
+    before = (counter.launches, counter.wide_launches)
+    with _kernels.force_memory(memory):
+        k = fn()
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.wide_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    with _kernels.force_plain():
+        p = fn()
+    for name, a, b in zip(("error", "converged", "posterior", "iterations"),
+                          k, p):
+        if name == "posterior":
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+        else:
+            assert torch.equal(a, b), name
+    assert int(k[3].max()) > 1  # the decode iterated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rw,m,n,B", [(7, 120, 600, 1), (7, 120, 600, 96),
+                                      (7, 250, 600, 96), (32, 120, 600, 256)])
+def test_device_planes_mode_at_small_shapes(cuda, rw, m, n, B, bf16):
+    """The 32-bit-plane mode at shapes where, built with the aligned
+    barrier form, it faulted or disagreed with its plain version
+    (csrc/minsum_body.cuh lane_sync): bit-exact now, narrow rows too."""
+    h, synd, llr = _case(rw, cuda, m=m, n=n, B=B)
+    g = tbp.build_tanner_graph_host(h)
+    if bf16:
+        head = bk.build_sparse_head(g, cuda)
+        fn = lambda: bk.bp_head_bf16(head, synd, llr, head_iters=25)  # noqa: E731
+    else:
+        graph = tbp.graph_to(g, cuda)
+        fn = lambda: bk.bp_minsum(graph, synd, llr, max_iter=25)  # noqa: E731
+    with _kernels.force_memory("device_planes"):
+        k = fn()
+    torch.cuda.synchronize()
+    with _kernels.force_plain():
+        p = fn()
+    for a, b in zip(k, p):
+        assert torch.equal(a.contiguous().view(torch.int32)
+                           if a.dtype == torch.float32 else a,
+                           b.contiguous().view(torch.int32)
+                           if b.dtype == torch.float32 else b)
