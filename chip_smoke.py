@@ -44,7 +44,7 @@ Phases (any failure raises and the script exits non-zero):
      64 shots (no head engages: float32 on both) and 256 shots (the card's
      bf16 head against the CPU running the same head's plain version)
      decoded on the CPU and on the card agree
-  8. a "kernels" JSON line, printed after phase 37: for all eleven kernels
+  8. a "kernels" JSON line, printed after phase 39: for all eleven kernels
      the main-path launches (phase 26 for kernel 1, phase 6 for kernel 2,
      phase 5 for the bf16 head, phase 12 for B3 and B4, phase 16 for B7 and
      B8, phase 17 for B10, phase 21 for B6, phase 25 for B5's bf16 and int8
@@ -56,7 +56,10 @@ Phases (any failure raises and the script exits non-zero):
      numbers: the one main path that launches it); and the min-sum kernels'
      wide instances at phase 36's shapes, kernel 1's in its 32-bit-plane
      mode on h1 (bp_minsum_wide_device_planes) and the bf16 head's in
-     shared memory on h2 (bp_minsum_bf16_wide), with phase 36's launches
+     shared memory on h2 (bp_minsum_bf16_wide), with phase 36's launches;
+     and B6's and B5's wide instances (bp_int8_wide at h2's shape,
+     fused_decode_wide and fused_decode_int8_wide on phase 38's code),
+     with phase 38's launches
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -206,6 +209,24 @@ Phases (any failure raises and the script exits non-zero):
      round equal to its run_batch on one key; then 100 replayed steps of
      each under torch.cuda.set_sync_debug_mode("error") (no host read), with
      their steps per second
+ 38. the repaired row-weight limits (ROADMAP §C): B6 on phase 36's h2 (row
+     weight 40) at 2048 shots and at the decoder's tile, and
+     BPDecoder(h2, quantize="int8") decoding them; B6 and B5 in both modes
+     on hgp(ones(3, 37), ones(3, 5)) (hx rows 40, hz rows 8); each wide
+     instance bit-exact with its plain version, counted, timed with its
+     bound; on that code fused_sampler="v2" in both modes (no fallback to
+     v1 counted) and the int8 two-phase decode, each equal seed for seed
+     to the same run on the plain versions; the min-sum kernels' times in
+     this run, all in the non-aligned barrier form
+ 39. the sweep layer (sweep/): CodeFamily([hgp_34_n225, hgp_34_n625],
+     BP, BP + OSD-E 10).EvalThreshold("data", "Total") over 12 cells of
+     SWEEP_SHOTS shots and the fit: p_c with its bootstrap CI from the run
+     ledger; one "phenl" and one "circuit" "Z" EvalWER cell on hgp_34_n625,
+     the cells of phases 28 and 34, whose failures must equal their pins;
+     a mid-cell resume (phase 5's simulator stopped after 2 of 4
+     megabatches, resumed from its CellProgress on the same captured graph:
+     the unbroken run's counts); CodeFamily_SpaceTime's phenl branch at
+     phase 32's cell, pinned
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -270,6 +291,10 @@ SYNC_FREE = ("5", "6", "16", "25", "28", "29", "30", "32", "33", "34", "36")
 ST36_REP, ST36_CYCLES = 3, 13
 # phase 37's replayed steps of each stream driver
 STREAM_STEPS = 100
+# phase 39's data threshold: EvalThreshold's estimate (its p-grid is
+# logspace(0.4 est, 0.8 est, 6): 0.056..0.112, across the hgp_34 family's
+# BPOSD-E crossing) and the shots of each of its 12 cells
+SWEEP_EST, SWEEP_SHOTS = 0.14, 4 * 2048
 # the key of the graph-against-eager megabatches and the target_failures run
 GRAPH_KEY = (12, SEED)
 # phases 28 and 31's eval_p (the Threshold notebook's phenomenological
@@ -682,7 +707,7 @@ def main() -> int:
 
 
 def run_phases(dem_job) -> int:
-    """Phases 1-37 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-39 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs."""
     import numpy as np
     import torch
@@ -906,7 +931,11 @@ def run_phases(dem_job) -> int:
                                                  "device_planes_launches"),
                 # launches of the wide instances (row weights 33-64)
                 "bp_minsum_wide": (bp_minsum, "wide_launches"),
-                "bp_minsum_bf16_wide": (bk.bp_head_bf16, "wide_launches")}
+                "bp_minsum_bf16_wide": (bk.bp_head_bf16, "wide_launches"),
+                "bp_int8_wide": (bk.bp_head_int8, "wide_launches"),
+                "fused_decode_wide": (gk.fused_decode_stats, "wide_launches"),
+                "fused_decode_int8_wide": (gk.fused_decode_stats,
+                                           "int8_wide_launches")}
 
     def fold_counts():
         """Add the replays' launches, counted on the device, to the
@@ -2517,6 +2546,334 @@ def run_phases(dem_job) -> int:
         f"shot-windows/s); captures {stream37}")
     log(f"phase 37 took {time.time() - t_new:.1f} s")
 
+    # 38. the repaired row-weight limits (ROADMAP §C): B6 on phase 36's h2
+    # (row weight 40) and B6 and both B5 modes on a hypergraph product whose
+    # rows reach 40, each bit-exact with its plain version; the main paths
+    # that launch them
+    from qldpc_fault_tolerance_tpu_torch.codes import hgp
+
+    t_new = time.time()
+    wide38 = {}  # the wide instances' kernels-line numbers
+
+    def int8_vs_plain(tag, head, synd, llr, iters, block_b):
+        """B6's wide instance and its plain version on one batch (bit for
+        bit); its time, plain time and bound."""
+        def run():
+            return bk.bp_head_int8(head, synd, llr, head_iters=iters,
+                                   block_b=block_b, ms_scaling_factor=scale)
+
+        before = (bk.bp_head_int8.launches, bk.bp_head_int8.wide_launches)
+        k = run()
+        torch.cuda.synchronize()
+        after = (bk.bp_head_int8.launches, bk.bp_head_int8.wide_launches)
+        if after != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"B6 {tag}: launch counts {before} -> "
+                                 f"{after}")
+        with _kernels.force_plain():
+            pl, plain_ms = once_ms(run)
+        err = bits_equal(f"B6 {tag}", k, pl)
+        bound, by = int8_bound_ms(head, synd.shape[0], int8_shot_iters(
+            k[3], block_b, iters, False))
+        row = {"err": err, "ms": event_ms(run, 3), "plain_ms": plain_ms,
+               "bound": bound, "by": by}
+        log(f"[38] B6 wide == plain, {tag}: rw {head.rw}, {synd.shape[0]} "
+            f"shots, tile {block_b} {bk.int8_layout(block_b, head.rw, head.m, head.n)} "
+            f"(shots per block, blocks per cluster), {iters} iterations, "
+            f"converged {float(k[1].float().mean()):.4f}; {row['ms']:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+        return row
+
+    h2_38, ps2_38 = g36["h2"], np.asarray(g36["channel_ps2"])
+    head38 = bk.build_sparse_head(tbp.build_tanner_graph_host(h2_38), dev)
+    llr38 = tbp.llr_from_probs(ps2_38, dev)
+    tile38 = head38.max_block_b(2048, want=tbp.HEAD_BLOCK)
+    wide38["h2"] = int8_vs_plain("phase 36's h2, its final syndromes",
+                                 head38, scan36[1], llr38, deep2, tile38)
+    # the decoder that raised on the card before: BPDecoder(h2, int8)
+    dec38 = BPDecoder(h2_38, ps2_38, 50, quantize="int8", device=dev)
+    _, l38h2 = counted(lambda: dec38.decode_batch_device(scan36[1]))
+    if l38h2["bp_int8_wide"] <= 0:
+        raise AssertionError(f"BPDecoder(h2, quantize='int8') launched no "
+                             f"wide B6: {l38h2}")
+    log(f"[38] BPDecoder(h2, quantize='int8') decodes 2048 shots on the "
+        f"card: launches {l38h2}")
+
+    # hgp of the all-ones 3 x 37 and 3 x 5 matrices: hx rows 37 + 3 = 40,
+    # hz rows 5 + 3 = 8, n = 194
+    code38 = hgp(np.ones((3, 37), np.uint8), np.ones((3, 5), np.uint8),
+                 name="hgp_ones37x5")
+    rw38 = (int(code38.hx.sum(1).max()), int(code38.hz.sum(1).max()))
+    p38, n38 = 0.005, code38.N
+    # B6's batch at four times the run's rate, so its shots iterate
+    e38 = (rng.random((2048, n38)) < 8 * p38 / 3).astype(np.uint8)
+    synd38 = torch.from_numpy((e38 @ code38.hx.T % 2).astype(np.uint8)).to(dev)
+    probs38 = np.full(n38, 2 * p38 / 3)
+    head38w = bk.build_sparse_head(tbp.build_tanner_graph_host(code38.hx), dev)
+    wide38["hx"] = int8_vs_plain(
+        f"{code38.name} hx", head38w, synd38,
+        tbp.llr_from_probs(probs38, dev), 50, tbp.HEAD_BLOCK)
+    llr38w = tbp.llr_from_probs(probs38, dev)
+    spec38 = gk.build_fused_decode_spec(code38.hx, code38.hz, code38.lx,
+                                        code38.lz, [p38 / 3] * 3, llr38w,
+                                        llr38w, dev)
+    key38 = gk.fold_in(gk.split_key(gk.prng_key(SEED))[1], 38)
+    for tag, q in (("bf16", None), ("int8", "int8")):
+        bw38 = gk.fused_decode_block_w(spec38, 4096, quantize=q)
+        kw38 = dict(eval_type="Total", max_iter_z=50, max_iter_x=50,
+                    ms_scaling_factor=scale, quantize=q, block_w=bw38)
+        attr = "wide_launches" if q is None else "int8_wide_launches"
+        before = getattr(gk.fused_decode_stats, attr)
+        k = gk.fused_decode_stats(spec38, key38, 4096, **kw38)
+        pl = gk.fused_decode_plain(spec38, key38, 4096, **kw38)
+        torch.cuda.synchronize()
+        if getattr(gk.fused_decode_stats, attr) != before + 1:
+            raise AssertionError(f"B5 {tag} on {code38.name}: no wide launch")
+        if (int(k[0]), int(k[1])) != (int(pl[0]), int(pl[1])) or not all(
+                torch.equal(a[f], b[f]) for a, b in ((k[2], pl[2]),
+                                                     (k[3], pl[3]))
+                for f in ("converged", "iterations")):
+            raise AssertionError(f"B5 {tag} on {code38.name} differs from "
+                                 f"its plain version")
+
+        def run_b5w(kw38=kw38):
+            return gk.fused_decode_stats(spec38, key38, 4096, **kw38)
+
+        ms = device_ms(run_b5w, 5, "fused_decode_kernel" if q is None
+                       else "fused_decode_int8_kernel")
+        _, plain_ms = once_ms(lambda: gk.fused_decode_plain(
+            spec38, key38, 4096, **kw38))
+        if q is None:
+            si = [int(a["iterations"].sum()) for a in (k[3], k[2])]
+        else:
+            si = [int8_shot_iters(a["iterations"], bw38 * 32, 50, True)
+                  for a in (k[3], k[2])]
+        bound, by = fused_bound_ms(spec38, 4096, *si, q)
+        wide38["b5 " + tag] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                               "bound": bound, "by": by}
+        log(f"[38] B5 {tag} wide == plain on {code38.name} (rows {rw38}): "
+            f"4096 shots, block_w {bw38}, count {int(k[0])}, min_w "
+            f"{int(k[1])}; kernel {ms:.3f} ms (profiler device time), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+
+    # the main paths on that code: fused v2 in both modes (no fallback to
+    # v1) and the int8 two-phase decode (B6's head), each equal seed for
+    # seed to the same run on the plain versions
+    def sim38(fused, **kw):
+        return CodeSimulator_DataError(
+            code=code38,
+            decoder_x=BPDecoder(code38.hz, probs38, 50, device=dev, **kw),
+            decoder_z=BPDecoder(code38.hx, probs38, 50, device=dev, **kw),
+            pauli_error_probs=[p38 / 3] * 3, seed=SEED, batch_size=4096,
+            scan_chunk=2, fused_sampler=fused, device=dev)
+
+    launches_38 = {}
+    for tag, fused, kw, name in (
+            ("v2 bf16", "v2", {}, "fused_decode_wide"),
+            ("v2 int8", "v2", {"quantize": "int8"}, "fused_decode_int8_wide"),
+            ("int8", False, {"quantize": "int8"}, "bp_int8_wide")):
+        fallbacks = CodeSimulator_DataError.fused_fallbacks
+        s_k = sim38(fused, **kw)
+        if CodeSimulator_DataError.fused_fallbacks != fallbacks or (
+                fused and s_k._fused_sampler != "v2"):
+            raise AssertionError(f"phase 38 {tag}: fused v2 fell back to v1")
+        run_k, launches = counted(lambda s_k=s_k, tag=tag: wer_phase(
+            f"38 {tag} {code38.name} p={p38}", s_k, 2))
+        launches_38[name] = launches[name]
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 38 {tag} launched no {name}: "
+                                 f"{launches}")
+        s_p = sim38(fused, **kw)
+        with _kernels.force_plain():
+            s_p.WordErrorRate(2 * 4096)
+        if tuple(run_k) != (s_p.last_failures, s_p.min_logical_weight):
+            raise AssertionError(f"phase 38 {tag}: kernels {run_k}, plain "
+                                 f"({s_p.last_failures}, "
+                                 f"{s_p.min_logical_weight})")
+        log(f"[38] {tag} on {code38.name}: (failures, min_w) {run_k} == the "
+            f"plain versions' seed for seed; fused fallbacks unchanged "
+            f"({fallbacks}); launches {launches}")
+    log(f"[38] barrier form: every min-sum instance non-aligned "
+        f"(barrier.sync / barrier.red); this run's times: kernel 1 kMem 0 "
+        f"{k1_ms:.3f} ms (phase 3), bf16 head kMem 0 {bf16_ms:.3f} ms (phase "
+        f"20), kernel 1 kMem 1 {dmem['bp_minsum_device']['ms']:.3f} ms "
+        f"(phase 33), bf16 head kMem 1 "
+        f"{dmem['bp_minsum_bf16_device']['ms']:.3f} ms (phase 27), B5 bf16 "
+        f"{b5['bf16', 0.01]['ms']:.3f} ms (phase 24); scripts/ab_minsum_body.py "
+        f"--parent DIR times them against another checkout")
+    log(f"phase 38 took {time.time() - t_new:.1f} s")
+
+    # 39. the sweep layer at full width: a data threshold over hgp_34_n225
+    # and n625 (12 cells and the fit), one phenl and one circuit cell (the
+    # cells of phases 28 and 34, pinned), a mid-cell resume, and the
+    # space-time family's phenl branch (phase 32's cell, pinned)
+    import tempfile
+
+    from qldpc_fault_tolerance_tpu_torch.sweep import (
+        CodeFamily,
+        CodeFamily_SpaceTime,
+    )
+    from qldpc_fault_tolerance_tpu_torch.utils import diagnostics
+    from qldpc_fault_tolerance_tpu_torch.utils.checkpoint import (
+        CellProgress,
+        SweepCheckpoint,
+    )
+
+    t_new = time.time()
+    # phases 1-38 keep every simulator's and stream driver's captured
+    # graphs (~44 GiB reserved by now); phase 39 builds an engine a cell,
+    # so all but phase 5's (the resume below replays it) are released
+    import gc
+
+    from qldpc_fault_tolerance_tpu_torch.parallel.shots import (
+        CapturedStep,
+        MegabatchDriver,
+    )
+
+    held39 = (torch.cuda.memory_allocated() / 2 ** 30,
+              torch.cuda.memory_reserved() / 2 ** 30)
+    keep39 = {id(d) for d in sim5._drivers.values()}
+    for obj in gc.get_objects():
+        if isinstance(obj, MegabatchDriver) and id(obj) not in keep39:
+            obj._graphs.clear()
+        elif isinstance(obj, CapturedStep):
+            obj._graph = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[39] the earlier phases' graphs released: allocated / reserved "
+        f"{held39[0]:.1f} / {held39[1]:.1f} -> "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} / "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB on the card")
+
+    def ledger_run(fn):
+        """``fn(ledger dir)`` under a run ledger in a temporary directory;
+        returns its result, the ledger record and the launches."""
+        with tempfile.TemporaryDirectory() as tmp:
+            out, launches = counted(lambda: fn(tmp))
+            (rec,) = diagnostics.load_ledger(tmp)
+        return out, rec, launches
+
+    codes39 = [load_code(str(ROOT / "codes_lib_tpu" / f"hgp_34_{t}.npz"))
+               for t in ("n225", "n625")]
+    fam39 = CodeFamily(codes39, bp30, osd_e10, batch_size=2048, seed=SEED,
+                       device=dev)
+    t39 = time.time()
+    with check_syncs():
+        pc39, rec39, launches_39 = ledger_run(lambda tmp: fam39.EvalThreshold(
+            "data", "Total", "extrapolation", SWEEP_EST, SWEEP_SHOTS,
+            ledger=tmp))
+    dt39 = time.time() - t39
+    torch.cuda.empty_cache()
+    log(f"[39] after the threshold's 12 cells: allocated / reserved "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} / "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB")
+    fit39 = [f for f in rec39["fits"] if f["fit"] == "threshold"][0]
+    cells39 = rec39["cells"]
+    if len(cells39) != 12 or not rec39["complete"] or "pc_ci" not in fit39 \
+            or not np.isfinite(pc39) or pc39 != fit39["p_c"]:
+        raise AssertionError(f"phase 39 threshold: {len(cells39)} cells, "
+                             f"p_c {pc39}, fit {fit39}")
+    for name in ("bp_minsum_bf16", "osd_elim"):
+        if launches_39[name] <= 0:
+            raise AssertionError(f"phase 39's sweep launched no {name}")
+    log("[39] CodeFamily([hgp_34_n225, hgp_34_n625], BP/BPOSD-E 10)."
+        f"EvalThreshold('data', 'Total', est {SWEEP_EST}): {len(cells39)} "
+        f"cells of {SWEEP_SHOTS} shots in {dt39:.1f} s ("
+        + "; ".join(f"{c['cell']['code']} p={c['cell']['p']:.4f} "
+                    f"{c['failures']}/{c['shots']} WER {c['wer']:.4e}"
+                    for c in cells39)
+        + f"); p_c {pc39:.5f}, bootstrap 95% CI [{fit39['pc_ci'][0]:.5f}, "
+        f"{fit39['pc_ci'][1]:.5f}] ({fit39['bootstrap']} replicates), "
+        f"d_eff {[round(d, 3) for d in fit39['d_per_code']]}; launches "
+        f"{launches_39}")
+
+    fam39n = CodeFamily([load_code(str(CODE))], bp30, osd_e10,
+                        batch_size=2048, seed=SEED, device=dev)
+    for tag, noise, kw, want in (
+            ("phenl", "phenl", dict(eval_p_list=[PHENOM_P],
+                                    num_samples=8 * 2048, num_cycles=9),
+             PHENOM_RUNS["28"][0]),
+            ("circuit Z", "circuit", dict(
+                eval_p_list=[CIRCUIT_P], num_samples=4 * 2048, num_cycles=6,
+                circuit_error_params={"p_i": 0, "p_state_p": 0, "p_m": 0,
+                                      "p_CX": 1, "p_idling_gate": 0}),
+             CIRCUIT_RUNS["34"][0])):
+        t = time.time()
+        wer, rec, launches = ledger_run(lambda tmp, noise=noise, kw=kw: (
+            fam39n.EvalWER(noise, "Z" if noise == "circuit" else "Total",
+                           if_plot=False, ledger=tmp, **kw)))
+        (cell,) = rec["cells"]
+        if cell["failures"] != want:
+            raise AssertionError(f"phase 39 {tag} cell: {cell['failures']} "
+                                 f"failures, its engine's phase pins {want}")
+        log(f"[39] CodeFamily.EvalWER {tag} cell on hgp_34_n625: WER "
+            f"{float(wer[0, 0]):.6e}, {cell['failures']}/{cell['shots']} == "
+            f"the engine's pinned run, {time.time() - t:.1f} s")
+
+    # a mid-cell resume on phase 5's simulator: the run stopped after two
+    # of four megabatches (its cursor saved), then resumed from its
+    # CellProgress on the same captured graph (no capture again), under
+    # check_syncs: the unbroken run's counts, bit for bit
+    class _Stop(Exception):
+        pass
+
+    class StoppingProgress(CellProgress):
+        def save(self, *args, **kwargs):
+            super().save(*args, **kwargs)
+            if self._saves == 2:
+                raise _Stop
+
+    key39, shots39 = (39, SEED), 32 * 4096
+    with tempfile.TemporaryDirectory() as tmp:
+        ck39 = SweepCheckpoint(os.path.join(tmp, "sweep.jsonl"))
+        cell_key = {"code": "hgp_34_n625", "noise": "data", "p": 0.01}
+        runs39 = []
+        with check_syncs():
+            sim5.min_logical_weight = sim5.N
+            sim5.WordErrorRate(shots39, key=key39)
+            runs39.append((sim5.last_failures, sim5.last_shots,
+                           sim5.min_logical_weight, sim5.last_megabatches))
+            driver39 = sim5._driver(8)
+            graphs39 = {k: id(v) for k, v in driver39._graphs.items()}
+            sim5.min_logical_weight = sim5.N
+            try:
+                sim5.WordErrorRate(shots39, key=key39,
+                                   progress=StoppingProgress(ck39, cell_key))
+                raise AssertionError("phase 39: the run was not stopped")
+            except _Stop:
+                pass
+            state39 = SweepCheckpoint(ck39.path).get_progress(cell_key)
+            sim5.min_logical_weight = sim5.N
+            sim5.WordErrorRate(shots39, key=key39, progress=CellProgress(
+                SweepCheckpoint(ck39.path), cell_key))
+            runs39.append((sim5.last_failures, sim5.last_shots,
+                           sim5.min_logical_weight, sim5.last_megabatches))
+    if runs39[1][:3] != runs39[0][:3] or runs39[1][3] != 2 or \
+            state39["batches_done"] != 16 or graphs39 != {
+                k: id(v) for k, v in driver39._graphs.items()}:
+        raise AssertionError(f"phase 39 resume: unbroken {runs39[0]}, "
+                             f"resumed {runs39[1]} from {state39}")
+    log(f"[39] mid-cell resume: stopped after 2 of 4 megabatches "
+        f"(cursor: {state39['batches_done']} batches, {state39['failures']} "
+        f"failures), resumed on the same captured graph: (failures, shots, "
+        f"min_w) {runs39[1][:3]} == the unbroken run's {runs39[0][:3]}")
+
+    fam39st = CodeFamily_SpaceTime([load_code(str(CODE))], st_bp30, osd_e10,
+                                   batch_size=2048, seed=SEED, device=dev)
+    t = time.time()
+    (wer39st, p39st), rec, launches = ledger_run(lambda tmp: fam39st.EvalWER(
+        "phenl", "Total", [ST_P], 8 * 2048, num_cycles=ST36_CYCLES,
+        num_rep=3, if_plot=False, ledger=tmp))
+    (cell,) = rec["cells"]
+    if cell["failures"] != ST_RUNS["32"][0] or list(p39st[0]) != [ST_P]:
+        raise AssertionError(f"phase 39 space-time phenl cell: "
+                             f"{cell['failures']} failures, phase 32 pins "
+                             f"{ST_RUNS['32'][0]}")
+    log(f"[39] CodeFamily_SpaceTime.EvalWER phenl cell (phase 32's): WER "
+        f"{float(wer39st[0][0]):.6e}, {cell['failures']}/{cell['shots']} == "
+        f"phase 32's pinned run, {time.time() - t:.1f} s; launches "
+        f"{launches}")
+    log(f"phase 39 took {time.time() - t_new:.1f} s")
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -2613,6 +2970,20 @@ def run_phases(dem_job) -> int:
             "source": f"{PKG}/csrc/bp_minsum.cu",
             "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
             "launches": launches_36[name], "max_abs_err": d["err"],
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"],
+            "bound_by": d["by"], "library_ms": None})
+    # the wide instances of B6 and B5 (phase 38): B6 at phase 36's h2, B5 on
+    # phase 38's code, with their launches on phase 38's main paths
+    for key, d, source, replaces in (
+            ("bp_int8_wide", wide38["h2"], "bp_int8.cu", "bp_pallas.py:740"),
+            ("fused_decode_wide", wide38["b5 bf16"], "fused_decode.cu",
+             "gf2_pallas.py:628"),
+            ("fused_decode_int8_wide", wide38["b5 int8"],
+             "fused_decode_int8.cu", "gf2_pallas.py:628")):
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+            "replaces": f"qldpc_fault_tolerance_tpu/ops/{replaces}",
+            "launches": launches_38[key], "max_abs_err": d["err"],
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"],
             "bound_by": d["by"], "library_ms": None})
     # the device-memory modes (phase 27; kernel 1's from phase 33), with

@@ -26,6 +26,13 @@
 // batch, no host synchronisation inside.  The hard decision and posterior
 // of a live shot are written to device memory every iteration.
 //
+// Row weights: a check's real slots and signs are bit masks, 32-bit up to
+// row weight 32; the wide instances (kWide, a template flag whose false
+// value is the 32-bit code) take 64-bit masks and row weights up to 64
+// (int8_body.cuh CheckUpdate), e.g. the circuit space-time detector error
+// model's h2 (row weight 40 at hgp_34_n625).  The launcher picks the
+// instance from rw.
+//
 // Bound: latency of the passes between barriers (two cluster barriers per
 // iteration); per shot-iteration the messages cost a few bytes of
 // shared-memory traffic per edge, and the posterior and hard decision of a
@@ -72,7 +79,7 @@ struct DeviceIo {
   }
 };
 
-template <bool kStaged>
+template <bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
                const float* __restrict__ llr0,        // (n,)
@@ -102,7 +109,7 @@ bp_int8_kernel(const uint8_t* __restrict__ synd,      // (m, B)
 
   const int8body::Planes g{chk_idx, mask, var_edge, llr0, m, n, rw, cw};
   DeviceIo io{synd, llr0, err, post, (size_t)B, b};
-  int8body::decode<kStaged>(g, io, int8body::Work{msg, totb, idx}, sh,
+  int8body::decode<kStaged, kWide>(g, io, int8body::Work{msg, totb, idx}, sh,
                             cluster, lanes, lane, row, rows, head_iters, scale,
                             early_stop != 0);
 
@@ -127,14 +134,21 @@ extern "C" int bp_int8_launch(const uint8_t* synd, const float* llr0,
                               int lanes, int cluster, int staged,
                               int smem_bytes, void* stream) {
   if (lanes < 1 || lanes > kMaxLanes || kThreads % lanes != 0) return -1;
-  if (cluster < 1 || cluster > kMaxCluster || rw > 32) return -1;
+  if (cluster < 1 || cluster > kMaxCluster || rw < 1 ||
+      rw > int8body::kMaxRowWeight)
+    return -1;
   if (B % (lanes * cluster) != 0) return -1;
   const size_t edges = (size_t)rw * m;
   if (staged && n > 32767) return -1;
   if ((size_t)smem_bytes != (staged ? round16(2 * edges) : 0) +
                                 round16(edges * lanes) + (size_t)2 * n * lanes)
     return -1;
-  auto kernel = staged ? bp_int8_kernel<true> : bp_int8_kernel<false>;
+  // the instance: index plane staged or not, 64-bit slot masks above 32
+  const bool wide = rw > 32;
+  auto kernel = staged ? (wide ? bp_int8_kernel<true, true>
+                               : bp_int8_kernel<true, false>)
+                       : (wide ? bp_int8_kernel<false, true>
+                               : bp_int8_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;

@@ -26,7 +26,7 @@
 //
 // Design.  A block holds `lanes` shots at a time; each lane is `tpl`
 // threads (whole warps) that decode one shot with their own named barrier
-// (bar.sync lane + 1), so no lane waits for another.  When a lane's shot
+// (barrier.sync lane + 1), so no lane waits for another.  When a lane's shot
 // converges or reaches max_iter, the lane writes that shot's outputs,
 // claims the next shot from a device counter (atomicAdd; the wrapper zeroes
 // it) and starts it; the block leaves when the counter passes the batch.
@@ -63,8 +63,8 @@
 //     channel LLRs are read from device memory, no shared memory is
 //     staged, and the lanes live in the scratch as in kMem 1.
 // The loop, its order and its arithmetic are those of kMem 0, so the
-// outputs are bit for bit the same (kMem 2 with the non-aligned barrier
-// form, minsum_body.cuh lane_sync); a lane barrier orders the lane's
+// outputs are bit for bit the same; a lane barrier (every mode in the
+// non-aligned form, minsum_body.cuh lane_sync) orders the lane's
 // device-memory writes as it orders its shared ones.  kMem 0 (the shared-
 // memory mode every shipped code takes) is unchanged; the scratch is the
 // kernel's last argument, so the others keep their offsets.
@@ -155,8 +155,6 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     __syncthreads();
   }
 
-  // the barriers' form (minsum_body.cuh lane_sync)
-  constexpr bool kAligned = kMem < 2;
   const int lane = threadIdx.x / tpl, r = threadIdx.x % tpl;
   unsigned char* mine =
       kMem == 0 ? smem + o.lanes + lane * o.lane
@@ -184,7 +182,7 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     // the slot alternates, so a claim never overwrites one a thread of the
     // lane may still read
     if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
-    minsum::lane_sync<kAligned>(lane, tpl);
+    minsum::lane_sync(lane, tpl);
     const int b = s_shot[lane][k & 1];
     if (b >= B) return;
     uint8_t* err_b = err + (size_t)b * n;
@@ -204,7 +202,7 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     int it;
     using Mask =
         typename std::conditional<kWide, unsigned long long, unsigned>::type;
-    const bool bad = minsum::lane_decode<Msg, Mask, kAligned>(
+    const bool bad = minsum::lane_decode<Msg, Mask>(
         g, [&](int i) { return synd_b[i]; }, [&](int v) { return llr0(b, v); },
         c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it);
     // the totals of the last iteration, each read by the thread that wrote it

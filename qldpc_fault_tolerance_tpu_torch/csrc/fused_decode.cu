@@ -52,12 +52,19 @@
 // block, the logical checks read per shot, and each shot's four outputs
 // written once.  Built with -fmad=false, as the plain version rounds.
 //
+// Row weights: the decode's slot masks are 32-bit up to row weight 32; the
+// wide instance (kWide, a template flag whose false value is the 32-bit
+// code) takes 64-bit masks (minsum_body.cuh Top2) and row weights up to
+// 64 in either sector.  The launcher picks it from the row weights.
+//
 // Bound: per live shot-iteration the decode's passes (as bp_minsum.cu),
 // plus one Threefry draw per (shot, qubit); the iterations are
 // latency-bound chains of shared-memory passes between lane barriers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "counter_gf2.cuh"
 #include "minsum_body.cuh"
@@ -146,6 +153,7 @@ __device__ __forceinline__ unsigned plane_parity(const minsum::Planes& g,
   return par & 1u;
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_decode_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                     Sector sz,  // of hx: decodes synd_z
@@ -192,7 +200,9 @@ fused_decode_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
     int it = 0;
     bool bad = true;
     if (max_iter > 0) {
-      bad = minsum::lane_decode<minsum::Bf16Msg>(
+      using Mask =
+          typename std::conditional<kWide, unsigned long long, unsigned>::type;
+      bad = minsum::lane_decode<minsum::Bf16Msg, Mask>(
           g, [&](int i) { return (uint8_t)plane_parity(g, i, err); },
           [&](int j) { return llr[j]; }, c2v, v2c, tot, syn, max_iter, scale,
           lane, r, tpl, it);
@@ -267,11 +277,18 @@ fused_decode_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
   }
 }
 
+template <bool kWide>
 int set_smem(int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fused_decode_kernel,
+  return (int)cudaFuncSetAttribute(fused_decode_kernel<kWide>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes);
+}
+
+// whether either sector's rows need the wide instance (64-bit slot masks)
+bool wide_rows(int rwz, int rwx) {
+  return rwz > minsum::mask_slots<unsigned>() ||
+         rwx > minsum::mask_slots<unsigned>();
 }
 
 }  // namespace
@@ -290,15 +307,18 @@ extern "C" int fused_decode_launch(
     int* next, void* stream) {
   const Offsets o(n, mx, rwz, cwz, mz, rwx, cwx);
   if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
-      lanes * tpl > kMaxThreads || rwz < 1 || rwz > 32 || rwx < 1 ||
-      rwx > 32 || grid < 1 || (size_t)smem_bytes < o.lanes + lanes * o.lane)
+      lanes * tpl > kMaxThreads || rwz < 1 || rwz > minsum::kMaxRowWeight ||
+      rwx < 1 || rwx > minsum::kMaxRowWeight || grid < 1 ||
+      (size_t)smem_bytes < o.lanes + lanes * o.lane)
     return -1;
-  const int e = set_smem(smem_bytes);
+  const bool wide = wide_rows(rwz, rwx);
+  const int e = wide ? set_smem<true>(smem_bytes) : set_smem<false>(smem_bytes);
   if (e != 0) return e;
   const Sector sz{z_chk, z_edge, z_slot, llr_z, mx, rwz, cwz};
   const Sector sx{x_chk, x_edge, x_slot, llr_x, mz, rwx, cwx};
   const counter_gf2::Cuts cuts{cz, czx, czxy};
-  fused_decode_kernel<<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
+  auto kernel = wide ? fused_decode_kernel<true> : fused_decode_kernel<false>;
+  kernel<<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
       key, cuts, sz, sx, Adjacency{lx_nbr, lx_mask, kx, rlx},
       Adjacency{lz_nbr, lz_mask, kz, rlz}, n, max_iter_z, max_iter_x, scale,
       eval_code, B, tpl, conv_z, iter_z, conv_x, iter_x, part, next);
@@ -306,11 +326,13 @@ extern "C" int fused_decode_launch(
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM
-// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-extern "C" int fused_decode_resident(int threads, int smem_bytes,
+// holds at once, of the wide instance with `wide`
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int fused_decode_resident(int threads, int smem_bytes, int wide,
                                      int* blocks) {
-  const int e = set_smem(smem_bytes);
+  const int e = wide ? set_smem<true>(smem_bytes) : set_smem<false>(smem_bytes);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fused_decode_kernel, threads, smem_bytes);
+      blocks, wide ? fused_decode_kernel<true> : fused_decode_kernel<false>,
+      threads, smem_bytes);
 }

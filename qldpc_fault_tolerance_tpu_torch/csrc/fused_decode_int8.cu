@@ -46,6 +46,10 @@
 // reduction must not overwrite a partial the first's last may still be
 // reading) and ends the kernel.
 //
+// Row weights up to 32 take 32-bit slot masks; the wide instances (kWide,
+// a template flag whose false value is the 32-bit code) 64-bit ones and
+// row weights up to 64 in either sector (int8_body.cuh CheckUpdate).
+//
 // Bound: the decodes' latency — two cluster barriers and four block-wide
 // passes per iteration (int8_body.cuh), each tile iterating until its
 // slowest shot converges, in each sector.  The kernel draws each (shot, qubit) twice,
@@ -114,7 +118,7 @@ __host__ __device__ inline size_t smem_bytes_of(int n, int mx, int mz, int ez,
          (staged ? 2 * (size_t)(ez > ex ? ez : ex) : 0);
 }
 
-template <bool kStaged>
+template <bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_int8_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cuts,
                          int8body::Planes gz,  // of hx: decodes synd_z
@@ -186,7 +190,7 @@ fused_decode_int8_kernel(const uint32_t* __restrict__ key, counter_gf2::Cuts cut
     const bool z = sector == 0;
     if (!z) cluster.sync();
     WordIo io{z ? synd_z : synd_x, z ? cor_z : cor_x, lane};
-    int8body::decode<kStaged>(z ? gz : gx, io, work, sh, cluster, kLanes,
+    int8body::decode<kStaged, kWide>(z ? gz : gx, io, work, sh, cluster, kLanes,
                               lane, row, kRows, z ? max_iter_z : max_iter_x,
                               scale, true);
     if (row == 0) {
@@ -263,18 +267,22 @@ void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
   cfg.numAttrs = 1;
 }
 
-// the kernel instance of a layout: index plane staged or not
-auto kernel_of(bool staged) {
-  return staged ? fused_decode_int8_kernel<true>
-                : fused_decode_int8_kernel<false>;
+// the kernel instance of a layout: index plane staged or not, 64-bit slot
+// masks (row weights 33..64) or 32-bit
+auto kernel_of(bool staged, bool wide) {
+  return staged ? (wide ? fused_decode_int8_kernel<true, true>
+                        : fused_decode_int8_kernel<true, false>)
+                : (wide ? fused_decode_int8_kernel<false, true>
+                        : fused_decode_int8_kernel<false, false>);
 }
 
-cudaError_t set_attributes(bool staged, int cluster, int smem_bytes) {
+cudaError_t set_attributes(bool staged, bool wide, int cluster,
+                           int smem_bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel_of(staged), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel_of(staged, wide), cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(kernel_of(staged),
+    e = cudaFuncSetAttribute(kernel_of(staged, wide),
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
@@ -284,14 +292,15 @@ cudaError_t set_attributes(bool staged, int cluster, int smem_bytes) {
 // How many tiles of `cluster` blocks can run at once on the card (the
 // batch's waves are its tiles over this); negative on an error.
 extern "C" int fused_decode_int8_active_clusters(int cluster, int staged,
-                                                 int smem_bytes) {
+                                                 int wide, int smem_bytes) {
   if (cluster < 1 || cluster > kMaxCluster) return -1;
-  if (set_attributes(staged, cluster, smem_bytes) != cudaSuccess) return -1;
+  if (set_attributes(staged, wide, cluster, smem_bytes) != cudaSuccess)
+    return -1;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(cfg, attr, cluster * kLanes, cluster, smem_bytes, nullptr);
   int active = 0;
-  if (cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged),
+  if (cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged, wide),
                                      &cfg) != cudaSuccess)
     return -1;
   return active;
@@ -312,25 +321,30 @@ extern "C" int fused_decode_int8_launch(
     int max_iter_x, float scale, int eval_code, int B, int cluster,
     int staged, int smem_bytes, uint8_t* conv_z, int32_t* iter_z,
     uint8_t* conv_x, int32_t* iter_x, int32_t* part, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || rwz > 32 || rwx > 32) return -1;
+  if (cluster < 1 || cluster > kMaxCluster || rwz < 1 ||
+      rwz > int8body::kMaxRowWeight || rwx < 1 ||
+      rwx > int8body::kMaxRowWeight)
+    return -1;
   if (B % (kLanes * cluster) != 0 || hx_rows != mx || hz_rows != mz) return -1;
   if (staged && n > 32767) return -1;
   if ((size_t)smem_bytes !=
       smem_bytes_of(n, mx, mz, rwz * mx, rwx * mz, staged != 0))
     return -1;
-  cudaError_t e = set_attributes(staged, cluster, smem_bytes);
+  const bool wide = rwz > 32 || rwx > 32;
+  cudaError_t e = set_attributes(staged, wide, cluster, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(cfg, attr, B, cluster, smem_bytes, stream);
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged), &cfg);
+  e = cudaOccupancyMaxActiveClusters(&active, (void*)kernel_of(staged, wide),
+                                     &cfg);
   if (e != cudaSuccess) return (int)e;
   if (active < 1) return -2;  // no SM group can hold one cluster
   const int8body::Planes gz{z_chk_idx, z_mask, z_var_edge, llr_z, mx, n, rwz, cwz};
   const int8body::Planes gx{x_chk_idx, x_mask, x_var_edge, llr_x, mz, n, rwx, cwx};
   e = cudaLaunchKernelEx(
-      &cfg, kernel_of(staged), key, counter_gf2::Cuts{cz, czx, czxy}, gz,
+      &cfg, kernel_of(staged, wide), key, counter_gf2::Cuts{cz, czx, czxy}, gz,
       gx, Adjacency{hx_nbr, hx_mask, hx_rows, hx_rw},
       Adjacency{hz_nbr, hz_mask, hz_rows, hz_rw},
       Adjacency{lx_nbr, lx_mask, kx, rlx}, Adjacency{lz_nbr, lz_mask, kz, rlz},

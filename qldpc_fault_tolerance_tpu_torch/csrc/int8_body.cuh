@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace int8body {
 
 namespace cg = cooperative_groups;
@@ -156,17 +158,20 @@ __device__ float tile_max(float v, int k, Shared& sh,
 
 // A check's update over the int8 v2c of its real slots: the top-2
 // magnitudes (ties to the first slot; padding, magnitude 2^30, never
-// changes them) and the sign product.
+// changes them) and the sign product.  A slot is a bit of a Mask:
+// `uint32_t` for row weights up to 32 (the code every rw <= 32 instance
+// compiles to), `uint64_t` up to 64 (kMaxRowWeight; the wide instances).
+template <class Mask = uint32_t>
 struct CheckUpdate {
   int32_t min1 = kBigI32, min2 = kBigI32;
   int amin = 0;
-  uint32_t negs = 0u;  // the slots whose v2c is negative
-  bool neg_tot;        // syndrome bit xor every slot's sign
+  Mask negs = 0u;  // the slots whose v2c is negative
+  bool neg_tot;    // syndrome bit xor every slot's sign
   __device__ explicit CheckUpdate(bool synd) : neg_tot(synd) {}
   __device__ __forceinline__ void add(int s, int q) {
     const int32_t mag = q < 0 ? -q : q;
     if (q < 0) {
-      negs |= 1u << s;
+      negs |= Mask(1) << s;
       neg_tot = !neg_tot;
     }
     if (mag < min1) {
@@ -178,10 +183,12 @@ struct CheckUpdate {
     }
   }
   // the slots whose c2v is negative: the product less the slot's own sign
-  __device__ __forceinline__ uint32_t c2v_negs() const {
+  __device__ __forceinline__ Mask c2v_negs() const {
     return neg_tot ? ~negs : negs;
   }
 };
+
+constexpr int kMaxRowWeight = 64;
 
 // |c2v| of a slot whose excluded minimum is `mag`: scale * (excl * qv)
 __device__ __forceinline__ float c2v_mag(int32_t mag, float qv, float scale) {
@@ -211,12 +218,14 @@ struct Work {
 // whether the shot is still live (store_var(j, total, live); every thread
 // calls it, live or not).  kStaged: the index plane is copied into w.idx
 // (the caller's choice, from the shape: when it fits); else every pass reads
-// chk_idx and mask from device memory.
-template <bool kStaged, class Io>
+// chk_idx and mask from device memory.  kWide: row weights 33..64, 64-bit
+// slot masks (CheckUpdate); otherwise up to 32.
+template <bool kStaged, bool kWide, class Io>
 __device__ void decode(const Planes& g, Io& io, const Work& w, Shared& sh,
                        cg::cluster_group& cluster, int lanes, int lane,
                        int row, int rows, int head_iters, float scale,
                        bool early_stop) {
+  using Mask = typename std::conditional<kWide, uint64_t, uint32_t>::type;
   const int m = g.m, n = g.n, rw = g.rw, cw = g.cw;
   const float* llr0 = g.llr0;
   int8_t* msg = w.msg;
@@ -253,7 +262,7 @@ __device__ void decode(const Planes& g, Io& io, const Work& w, Shared& sh,
     // the c2v it was made from) and into its check's top-2
     local = 0.f;
     for (int i = row; i < m; i += rows) {
-      CheckUpdate cu(io.synd(i) != 0);
+      CheckUpdate<Mask> cu(io.synd(i) != 0);
       for (int s = 0; s < rw; ++s) {
         const int e = s * m + i;
         const int v = var_of(e);
@@ -275,23 +284,23 @@ __device__ void decode(const Planes& g, Io& io, const Work& w, Shared& sh,
     // c2v pass: the check's top-2 again from its int8 v2c (integer work),
     // then the min1 and min2 messages quantized once per check
     for (int i = row; i < m; i += rows) {
-      CheckUpdate cu(io.synd(i) != 0);
-      uint32_t real = 0u;  // the check's real slots
+      CheckUpdate<Mask> cu(io.synd(i) != 0);
+      Mask real = 0u;  // the check's real slots
       for (int s = 0; s < rw; ++s) {
         const int e = s * m + i;
         if (var_of(e) >= 0) {
-          real |= 1u << s;
+          real |= Mask(1) << s;
           cu.add(s, msg[e * lanes + lane]);
         }
       }
       const int q1 = quantize(c2v_mag(cu.min1, qv, scale), qc);
       const int q2 = quantize(c2v_mag(cu.min2, qv, scale), qc);
-      const uint32_t neg = cu.c2v_negs();
+      const Mask neg = cu.c2v_negs();
       for (int s = 0; s < rw; ++s) {
         const int e = s * m + i;
-        if ((real >> s) & 1u) {
+        if ((real >> s) & Mask(1)) {
           const int q = s == cu.amin ? q2 : q1;
-          msg[e * lanes + lane] = (int8_t)((neg >> s) & 1u ? -q : q);
+          msg[e * lanes + lane] = (int8_t)((neg >> s) & Mask(1) ? -q : q);
         }
       }
     }

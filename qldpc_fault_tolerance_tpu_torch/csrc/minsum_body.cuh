@@ -57,48 +57,31 @@ constexpr float kBig = 1e30f;  // stands in for +inf, as ops/bp.py _BIG
 constexpr int kMaxLanes = 15;  // named barriers 1..15, barrier 0 is the block's
 constexpr int kPad = 0xFFFF;   // a padded entry of the 16-bit planes
 
-// The named barrier of lane `lane`, `count` threads (whole warps).
-// kAligned picks the PTX form: `bar.sync` is `barrier.sync.aligned`, which
-// tells ptxas that every thread of the block executes that same barrier
-// instruction, an assumption it may optimise on; `barrier.sync` makes none.
+// The named barrier of lane `lane`, `count` threads (whole warps), in the
+// non-aligned form: `barrier.sync`, where `bar.sync` would be
+// `barrier.sync.aligned`, which tells ptxas that every thread of the block
+// executes that same barrier instruction, an assumption it may optimise on.
 // The lanes of a block reach their barriers at different points and a
 // lane's threads diverge between barriers, so only the non-aligned form
-// matches what the loop does.  The device-memory mode with 32-bit planes
-// (csrc/bp_minsum.cu kMem 2) takes it: built with the aligned form at -O3
-// it gave wrong outputs or illegal addresses at some shapes (e.g. 120 x
-// 600 random matrices), which the non-aligned form (and ptxas -O1) cured.
-// The other instances keep the aligned form, and their machine code.
-template <bool kAligned = true>
+// matches what the loop does.  Built with the aligned form at -O3, the
+// device-memory mode with 32-bit planes (csrc/bp_minsum.cu kMem 2) gave
+// wrong outputs or illegal addresses at some shapes (e.g. 120 x 600 random
+// matrices); every instance now takes the non-aligned form.
 __device__ __forceinline__ void lane_sync(int lane, int count) {
-  if constexpr (kAligned)
-    asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
-  else
-    asm volatile("barrier.sync %0, %1;" ::"r"(lane + 1), "r"(count)
-                 : "memory");
+  asm volatile("barrier.sync %0, %1;" ::"r"(lane + 1), "r"(count) : "memory");
 }
 
 // lane_sync that returns whether any thread of the lane gave `pred`
-template <bool kAligned = true>
 __device__ __forceinline__ bool lane_sync_or(int lane, int count, bool pred) {
   int any;
-  if constexpr (kAligned)
-    asm volatile(
-        "{\n\t.reg .pred p, q;\n\t"
-        "setp.ne.s32 p, %1, 0;\n\t"
-        "bar.red.or.pred q, %2, %3, p;\n\t"
-        "selp.s32 %0, 1, 0, q;\n\t}"
-        : "=r"(any)
-        : "r"((int)pred), "r"(lane + 1), "r"(count)
-        : "memory");
-  else
-    asm volatile(
-        "{\n\t.reg .pred p, q;\n\t"
-        "setp.ne.s32 p, %1, 0;\n\t"
-        "barrier.red.or.pred q, %2, %3, p;\n\t"
-        "selp.s32 %0, 1, 0, q;\n\t}"
-        : "=r"(any)
-        : "r"((int)pred), "r"(lane + 1), "r"(count)
-        : "memory");
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 p, %1, 0;\n\t"
+      "barrier.red.or.pred q, %2, %3, p;\n\t"
+      "selp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(any)
+      : "r"((int)pred), "r"(lane + 1), "r"(count)
+      : "memory");
   return any != 0;
 }
 
@@ -221,10 +204,8 @@ using Planes32 = PlanesT<uint32_t>;
 
 // One shot's decode, max_iter >= 1 iterations at most and row weights up to
 // mask_slots<Mask>() (Top2), on a lane of `tpl` threads (whole warps) with
-// its own named barrier (of the form kAligned picks, lane_sync); thread r
-// of the lane
-// owns checks i = r (mod tpl) and variables j = r (mod tpl).  synd(i) gives
-// check i's syndrome bit (called once, by check i's thread, and kept in
+// its own named barrier (lane_sync); thread r of the lane owns checks
+// i = r (mod tpl) and variables j = r (mod tpl).  synd(i) gives check i's syndrome bit (called once, by check i's thread, and kept in
 // syn) and llr0(j) variable j's channel LLR.  Per lane shared memory holds
 // c2v at [s * m + i] (4 bytes per edge), v2c at the same index, the totals
 // (4 * n) and the syndrome (m); in shared memory, or in device memory for
@@ -240,8 +221,7 @@ using Planes32 = PlanesT<uint32_t>;
 // totals, which each thread may read back for its own variables without a
 // barrier.  c2v, v2c and syn are free on return (the last barrier followed
 // every read of them); tot once the lane has passed its next barrier.
-template <class Msg, class Mask = unsigned, bool kAligned = true, class Synd,
-          class Llr, class G>
+template <class Msg, class Mask = unsigned, class Synd, class Llr, class G>
 __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
                                             Llr llr0, float* c2v,
                                             typename Msg::T* v2c, float* tot,
@@ -272,7 +252,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
   it = 0;
   bool bad;
   for (;;) {
-    lane_sync<kAligned>(lane, tpl);
+    lane_sync(lane, tpl);
     for (int j = r; j < n; j += tpl) {
       const float total = var_total<Msg>(llr0(j), cw, [&](int t, float& c, int& s) {
         const int e = g.edge[t * n + j];
@@ -289,7 +269,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
       tot[j] = total;
     }
     ++it;
-    lane_sync<kAligned>(lane, tpl);
+    lane_sync(lane, tpl);
     // each check's parity of these totals and, unless this was the last
     // iteration, its next check update, in one walk over its slots
     bool fail = false;
@@ -315,7 +295,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
       }
       fail |= (par & 1u) != 0u;
     }
-    bad = lane_sync_or<kAligned>(lane, tpl, fail);
+    bad = lane_sync_or(lane, tpl, fail);
     if (!bad || it == max_iter) return bad;
   }
 }

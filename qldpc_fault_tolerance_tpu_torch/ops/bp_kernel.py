@@ -25,7 +25,8 @@ the planes do not fit or 16 bits cannot number the graph), counted in
 ``device_launches`` and ``device_planes_launches``.  Row weights up to 32
 run the kernels' 32-bit slot masks, up to 64 (a detector error model's
 window matrix) their wide instances (``minsum_wide``), counted in
-``wide_launches``; the plain versions take any row weight.
+``wide_launches``; so does the int8 head B6 (``bp_head_int8.wide_launches``);
+the plain versions take any row weight.
 
 The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
 which the two-phase decode runs when a decoder carries a head:
@@ -984,6 +985,9 @@ def _stream_call(fn, dev, *args):
 # blocks form one thread-block cluster of at most INT8_MAX_CLUSTER)
 INT8_MAX_LANES = 32
 INT8_MAX_CLUSTER = 16
+# row weights of csrc/bp_int8.cu (and B5's int8 mode): 32-bit slot masks up
+# to MINSUM_NARROW_RW, 64-bit ones (the wide instances) up to INT8_MAX_RW
+INT8_MAX_RW = 64
 
 
 # shared memory of kernel B6's static arrays, rounded up
@@ -1020,10 +1024,11 @@ def int8_layout(block_b: int, rw: int, m: int, n: int) -> tuple[int, int]:
     while lanes > 1 and (block_b % lanes
                          or int8_smem_bytes(lanes, rw, m, n) > SMEM_LIMIT):
         lanes //= 2
-    if int8_smem_bytes(lanes, rw, m, n) > SMEM_LIMIT or rw > 32:
+    if int8_smem_bytes(lanes, rw, m, n) > SMEM_LIMIT \
+            or not 1 <= rw <= INT8_MAX_RW:
         raise ValueError(f"bp_head_int8: rw={rw}, m={m}, n={n} do not fit the "
                          f"kernel ({SMEM_LIMIT} bytes of shared memory for "
-                         f"one shot, row weight <= 32)")
+                         f"one shot, row weights 1..{INT8_MAX_RW})")
     if block_b // lanes > INT8_MAX_CLUSTER:
         raise ValueError(f"bp_head_int8: a tile of {block_b} shots needs "
                          f"{block_b // lanes} blocks of {lanes}; a cluster "
@@ -1055,6 +1060,8 @@ def _launch_int8(sgraph, synd_bl, llr0, head_iters, scale, block_b, early_stop):
         int8_smem_bytes(lanes, rw, m, n, staged))
     _kernels.check_launch("bp_int8", rc)
     _kernels.count_launch(bp_head_int8, "launches", dev)
+    _kernels.count_launch(bp_head_int8, "wide_launches", dev,
+                          rw > MINSUM_NARROW_RW)
     return err, conv.to(torch.bool), llr, iters
 
 
@@ -1087,6 +1094,7 @@ def bp_head_int8(sgraph: SparseHeadGraph, syndromes, channel_llr, *,
 
 
 bp_head_int8.launches = 0
+bp_head_int8.wide_launches = 0
 
 def _launch_bf16(head, synd, llr0, head_iters, scale):
     dev = synd.device

@@ -46,6 +46,8 @@ from ..utils.device import resolve_device
 from . import _kernels
 from .bp import build_tanner_graph_host
 from .bp_kernel import (
+    MINSUM_MAX_RW,
+    MINSUM_NARROW_RW,
     SMEM_LIMIT,
     MinsumLayout,
     SparseHeadGraph,
@@ -576,6 +578,18 @@ def fused_smem_bytes(lanes: int, n: int, mx: int, rwz: int, cwz: int,
     return staged + lanes * per_shot
 
 
+def _fused_rows_ok(rw: int) -> bool:
+    """Whether B5 (both modes) takes row weight ``rw``: 32-bit slot masks up
+    to 32, the wide instances' 64-bit ones up to MINSUM_MAX_RW."""
+    return 1 <= rw <= MINSUM_MAX_RW
+
+
+def fused_wide(spec) -> bool:
+    """Whether B5 launches its wide instance (64-bit slot masks) for this
+    spec: a sector's row weight above 32."""
+    return max(spec.sparse_z.rw, spec.sparse_x.rw) > MINSUM_NARROW_RW
+
+
 def fused_layout(B: int, n: int, mx: int, rwz: int, cwz: int, mz: int,
                  rwx: int, cwx: int, sm_count: int,
                  lanes: int | None = None) -> MinsumLayout:
@@ -584,9 +598,9 @@ def fused_layout(B: int, n: int, mx: int, rwz: int, cwz: int, mz: int,
     threads per shot, grid from the batch) at FUSED_ITEMS items per thread,
     over the fused kernel's shared memory, less its static arrays; raises
     ``ValueError`` where not one shot fits."""
-    if not (1 <= rwz <= 32 and 1 <= rwx <= 32):
-        raise ValueError(f"fused decode takes row weights 1..32, got "
-                         f"{rwz} and {rwx}")
+    if not (_fused_rows_ok(rwz) and _fused_rows_ok(rwx)):
+        raise ValueError(f"fused decode takes row weights 1..{MINSUM_MAX_RW}, "
+                         f"got {rwz} and {rwx}")
     if max(mx * rwz, mz * rwx) >= 0xFFFF or n >= 0xFFFF:
         raise ValueError("the fused decode numbers edges and variables with "
                          "16 bits")
@@ -605,13 +619,14 @@ def _fused_shape(spec) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_resident(index: int, threads: int, smem_bytes: int) -> int:
+def _fused_resident(index: int, threads: int, smem_bytes: int,
+                    wide: bool) -> int:
     fn = _kernels.library("fused_decode").fused_decode_resident
-    fn.argtypes = [_I, _I, _P]
+    fn.argtypes = [_I, _I, _I, _P]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        rc = fn(threads, smem_bytes, ctypes.addressof(blocks))
+        rc = fn(threads, smem_bytes, int(wide), ctypes.addressof(blocks))
     _kernels.check_launch("fused_decode_resident", rc)
     return blocks.value
 
@@ -622,7 +637,8 @@ def card_fused_layout(spec: FusedDecodeSpec, batch_size: int) -> MinsumLayout:
     dev = spec.base.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = fused_layout(batch_size, *_fused_shape(spec), _sm_count(index))
-    held = _fused_resident(index, lay.threads, lay.smem_bytes)
+    held = _fused_resident(index, lay.threads, lay.smem_bytes,
+                           fused_wide(spec))
     if held < 1:
         raise ValueError(f"fused decode: a block of {lay.threads} threads "
                          f"and {lay.smem_bytes} bytes does not fit")
@@ -664,8 +680,9 @@ def _sparse_args(sg: SparseHeadGraph, dev) -> list:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"fused decode index planes must be contiguous "
                              f"on {dev}")
-    if not 1 <= sg.rw <= 32:
-        raise ValueError(f"fused decode takes row weights 1..32, got {sg.rw}")
+    if not _fused_rows_ok(sg.rw):
+        raise ValueError(f"fused decode takes row weights "
+                         f"1..{MINSUM_MAX_RW}, got {sg.rw}")
     return [sg.chk_idx.data_ptr(), sg.mask.data_ptr(), sg.var_edge.data_ptr(),
             sg.m, sg.rw, sg.var_edge.shape[1]]
 
@@ -717,6 +734,8 @@ def _launch_fused(spec, key, batch_size, eval_code, max_iter_z, max_iter_x,
            lay.grid, lay.smem_bytes, *(t.data_ptr() for t in outs),
            claims.data_ptr()], dev)
     _kernels.count_launch(fused_decode_stats, "launches", dev)
+    _kernels.count_launch(fused_decode_stats, "wide_launches", dev,
+                          fused_wide(spec))
     return _fused_result(outs)
 
 
@@ -745,6 +764,8 @@ def _launch_fused_int8(spec, key, batch_size, eval_code, max_iter_z,
            max_iter_x, scale, eval_code, batch_size, block_w, int(staged),
            smem, *(t.data_ptr() for t in outs)], dev)
     _kernels.count_launch(fused_decode_stats, "int8_launches", dev)
+    _kernels.count_launch(fused_decode_stats, "int8_wide_launches", dev,
+                          fused_wide(spec))
     return _fused_result(outs)
 
 
@@ -755,10 +776,10 @@ def fused_int8_active_clusters(spec: FusedDecodeSpec, block_w: int) -> int:
     n, mx, mz, rwz, rwx = spec.statics
     staged = fused_int8_staged(n, mx, rwz, mz, rwx)
     fn = _kernels.library("fused_decode_int8").fused_decode_int8_active_clusters
-    fn.argtypes = [_I, _I, _I]
+    fn.argtypes = [_I, _I, _I, _I]
     fn.restype = ctypes.c_int
     with torch.cuda.device(spec.base.device):
-        return fn(int(block_w), int(staged),
+        return fn(int(block_w), int(staged), int(fused_wide(spec)),
                   fused_int8_smem_bytes(n, mx, rwz, mz, rwx, staged))
 
 
@@ -767,14 +788,14 @@ def fused_decode_feasible(spec: FusedDecodeSpec, batch_size: int, *,
     """Whether the card's fused decode takes this spec and batch, without
     raising: the batch a multiple of its tile (``fused_decode_block_w``'s,
     or 1 x 32 shots), two error words per qubit in shared memory, and the
-    kernel's layout: for bf16 ``fused_layout``'s (row weights 1..32, 16-bit
+    kernel's layout: for bf16 ``fused_layout``'s (row weights 1..64, 16-bit
     edge and variable numbers, one shot beside the staged planes), for
     int8 a 32-shot block in shared memory and the tile's blocks one
     cluster.  Where it is False the engine runs fused v1 instead."""
     n, mx, mz, rwz, rwx = spec.statics
     block_w = fused_decode_block_w(spec, batch_size, quantize=quantize) or 1
     if batch_size % (block_w * LANE) or 8 * n > SMEM_LIMIT \
-            or not (1 <= rwz <= 32 and 1 <= rwx <= 32):
+            or not (_fused_rows_ok(rwz) and _fused_rows_ok(rwx)):
         return False
     if quantize == "int8":
         staged = fused_int8_staged(n, mx, rwz, mz, rwx)
@@ -824,3 +845,5 @@ def fused_decode_stats(spec: FusedDecodeSpec, key, batch_size: int, *,
 
 fused_decode_stats.launches = 0
 fused_decode_stats.int8_launches = 0
+fused_decode_stats.wide_launches = 0
+fused_decode_stats.int8_wide_launches = 0

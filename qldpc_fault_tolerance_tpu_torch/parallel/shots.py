@@ -94,7 +94,7 @@ class _CapturedGenerators:
     def advance(self) -> None:
         pass
 
-    def start(self, seed) -> None:
+    def start(self, seed, offset: int) -> None:
         pass
 
     def before_replay(self, seed, offset: int) -> None:
@@ -138,12 +138,12 @@ class _CapturedKeys:
     def advance(self) -> None:
         self.index.add_(self.k)
 
-    def start(self, seed) -> None:
+    def start(self, seed, offset: int) -> None:
         # kernels, each with its value as an argument: no host buffer that a
         # queued copy could still read
         for i, word in enumerate(seed):
             self.base[i].fill_(int(word))
-        self.index.fill_(0)
+        self.index.fill_(int(offset))
 
     def before_replay(self, seed, offset: int) -> None:
         pass
@@ -290,15 +290,39 @@ class MegabatchDriver:
             megabatch, inputs.register)
         return _Graph(graph, carry, inputs, body_pool, stats)
 
-    def stream(self, seed, n_batches: int, *extra):
-        """Yield ``(carry, batches_done)`` after every megabatch.  On the
-        card the carry is the graph's own buffer, which the next megabatch
-        updates: read or copy it before advancing."""
+    def _start(self, n_batches: int, start: int, carry0):
+        """The run's batch count (a k_inner multiple) and its first carry:
+        ``init_fn()``'s, or ``carry0``'s values written into it."""
         k = self.k_inner
         n_run = -(-int(n_batches) // k) * k
+        if start % k or not 0 <= start <= n_run:
+            raise ValueError(f"start={start} must be a multiple of k_inner="
+                             f"{k} in [0, {n_run}]")
         carry = self._init_fn()
+        if carry0 is not None:
+            if len(carry0) != len(carry):
+                raise ValueError(f"carry0 has {len(carry0)} values, the "
+                                 f"carry {len(carry)}")
+            # a kernel each, the value as its argument (no host read)
+            for c, v in zip(carry, carry0):
+                c.fill_(int(v))
+        return n_run, carry
+
+    def stream(self, seed, n_batches: int, *extra, start: int = 0,
+               carry0=None):
+        """Yield ``(carry, batches_done)`` after every megabatch.  On the
+        card the carry is the graph's own buffer, which the next megabatch
+        updates: read or copy it before advancing.
+
+        ``start`` (a multiple of ``k_inner``) and ``carry0`` resume a run:
+        batches ``start..`` fold into a carry holding ``carry0``'s values
+        (ints, one per carry slot), so the stream from there is what an
+        unbroken run draws; a captured megabatch resumes by writing them
+        into its graph's carry and batch index, without capturing again."""
+        k = self.k_inner
+        n_run, carry = self._start(n_batches, int(start), carry0)
         if not self._graphed(carry):
-            for s in range(0, n_run, k):
+            for s in range(int(start), n_run, k):
                 carry = self._megabatch(carry, seed, s, *extra)
                 yield carry, s + k
             return
@@ -310,8 +334,8 @@ class MegabatchDriver:
         with _sync_mode(checked):
             for c, v in zip(entry.carry, carry):
                 c.copy_(v)
-            entry.inputs.start(seed)
-        for s in range(0, n_run, k):
+            entry.inputs.start(seed, int(start))
+        for s in range(int(start), n_run, k):
             with _sync_mode(checked):
                 entry.inputs.before_replay(seed, s)
                 entry.graph.replay()
@@ -327,14 +351,16 @@ class MegabatchDriver:
             pass
         return tuple(c.clone() for c in carry), done
 
-    def run_keys(self, seed, n_batches: int, *extra):
+    def run_keys(self, seed, n_batches: int, *extra, start: int = 0,
+                 carry0=None):
         """Like ``stream`` but yields ``(host carry, batches_done)``: a
         tuple of ints per megabatch, drained double-buffered (module
         docstring), one host read each.  A caller that stops early has
-        launched one megabatch more than it reads."""
+        launched one megabatch more than it reads.  ``start`` and
+        ``carry0`` resume a run (``stream``)."""
         k = self.k_inner
         n_run = -(-int(n_batches) // k) * k
-        it = self.stream(seed, n_batches, *extra)
+        it = self.stream(seed, n_batches, *extra, start=start, carry0=carry0)
         checked = getattr(_checks, "syncs", False)
 
         def launch(_):
@@ -367,7 +393,8 @@ class MegabatchDriver:
                 _kernels.fold_launch_counts(dev, values[n_carry:])
             return tuple(values[:n_carry]), done
 
-        yield from drain_double_buffered(launch, finish, range(0, n_run, k))
+        yield from drain_double_buffered(launch, finish,
+                                         range(int(start), n_run, k))
 
 
 def count_min_driver(stats_fn, min_init: int, device, k_inner: int,

@@ -8,11 +8,13 @@ import torch.utils._pytree as pytree
 from ..ops.linalg import gf2_matmul
 from ..ops.prng import key_words, split_key
 from ..parallel.shots import count_min_driver
+from ..utils import diagnostics
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "dense_check_flags", "select_failures", "decoder_key",
-           "megabatch_driver", "count_failures", "st_round_counts",
-           "st_window_count"]
+           "megabatch_driver", "release_graphs", "run_signature",
+           "resumable_stream",
+           "count_failures", "st_round_counts", "st_window_count"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -116,18 +118,70 @@ def megabatch_driver(sim, chunk: int, program: tuple, stats_fn,
     return driver
 
 
+def release_graphs(sim) -> None:
+    """Drop ``sim``'s megabatch drivers and the CUDA graphs they captured.
+    A driver's batch function is a method of ``sim``, so the two hold each
+    other until the garbage collector runs; a loop over many simulators
+    (a sweep's cells) frees each one's graph memory here, at once.  A
+    later run of ``sim`` captures again."""
+    sim._drivers.clear()
+
+
+def run_signature(engine: str, key, **fields) -> dict:
+    """Identity of a megabatch shot stream, stored with mid-cell progress
+    records (``utils.checkpoint.CellProgress``): the key words plus the
+    batch layout.  A resume is honoured only when it matches — resuming a
+    cursor under another stream would silently change the estimate."""
+    return {"engine": engine, "key": [int(w) for w in key_words(key)],
+            **fields}
+
+
+def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
+                     min_init):
+    """The mid-cell resume protocol of the megabatch engines, as the JAX
+    package's: ``driver.run_keys`` with its cursor loaded from and saved
+    to a ``utils.checkpoint.CellProgress``.
+
+    Returns ``((carry, batches_done), stream)``: the initial host carry —
+    the persisted one on resume, ``(0, min_init)`` fresh — and an iterator
+    of ``(carry, done)`` per drained megabatch that saves the cursor as it
+    yields.  The cursor is honoured only when ``signature``
+    (``run_signature``) matches; telemetry is not part of that identity
+    (the port's carry holds no telemetry)."""
+    start, carry0 = 0, None
+    state = progress.load(signature) if progress is not None else None
+    if state:
+        start = int(state["batches_done"])
+        carry0 = (int(state["failures"]), int(state["min_w"]))
+    initial = carry0 if state else (0, int(min_init))
+
+    def stream():
+        for carry, done in driver.run_keys(key_words(key), n_batches, *extra,
+                                           start=start, carry0=carry0):
+            if progress is not None:
+                progress.save(signature, batches_done=done,
+                              failures=int(carry[0]), min_w=int(carry[1]))
+            yield carry, done
+
+    return (initial, start), stream()
+
+
 def count_failures(sim, num_samples: int, key=None, target_failures=None,
-                   *extra):
+                   *extra, progress=None):
     """One run of ``sim``: ``num_samples`` shots in batches of
     ``sim.batch_size``, ``sim._scan_chunk`` per megabatch, drained from
     ``sim._driver(chunk)`` (``extra`` goes to every batch).  Without
     ``key`` the run splits ``sim``'s base key.  With ``target_failures``
     the run stops after the first megabatch whose cumulative failure count
-    reaches it; the shots actually run are the denominator.  Records on
-    ``sim`` the run's failures and shots, the megabatches it counted (one
-    more may have been launched), its host reads and its capture, and folds
-    its min weight into ``min_logical_weight``; returns ``(failures, shots
-    run)``."""
+    reaches it; the shots actually run are the denominator.  With
+    ``progress`` (a ``utils.checkpoint.CellProgress``) the cursor persists
+    after every megabatch, and a run whose cursor was saved resumes from
+    it, seed for seed what the unbroken run gives (``resumable_stream``).
+    Records on ``sim`` the run's failures and shots, the megabatches it
+    counted (one more may have been launched), its host reads and its
+    capture, and folds its min weight into ``min_logical_weight``; with
+    diagnostics active, reports the counts to an enclosing sweep cell
+    (``utils.diagnostics.note_run``); returns ``(failures, shots run)``."""
     if key is None:
         sim._base_key, key = split_key(sim._base_key)
     batcher = ShotBatcher(num_samples, sim.batch_size)
@@ -135,15 +189,32 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     n_batches = -(-batcher.num_batches // chunk) * chunk
     driver = sim._driver(chunk)
     reads = driver.host_reads
-    for (failures, min_w), done in driver.run_keys(key_words(key), n_batches,
-                                                   *extra):
-        if target_failures is not None and failures >= int(target_failures):
-            break
-    sim.last_megabatches = done // driver.k_inner
+    signature = run_signature(type(sim).__name__, key,
+                              batch_size=sim.batch_size, chunk=chunk,
+                              n_batches=n_batches,
+                              extra=[repr(e) for e in extra])
+    ((failures, min_w), start), stream = resumable_stream(
+        driver, key, n_batches, extra, signature=signature,
+        progress=progress, min_init=sim.N)
+
+    def hit(f):
+        return target_failures is not None and f >= int(target_failures)
+
+    # a resumed cursor may already sit past the early stop (killed between
+    # the crossing megabatch's save and the cell's record): stopping here
+    # returns what the unbroken run returned
+    done = start
+    if not hit(failures):
+        for (failures, min_w), done in stream:
+            if hit(failures):
+                break
+    sim.last_megabatches = (done - start) // driver.k_inner
     sim.last_host_reads = driver.host_reads - reads
     sim.last_graph = driver.graph_stats
     sim.last_failures, sim.last_shots = failures, done * sim.batch_size
     sim.min_logical_weight = min(sim.min_logical_weight, min_w)
+    if diagnostics.active():
+        diagnostics.note_run(failures, sim.last_shots)
     return failures, sim.last_shots
 
 

@@ -244,15 +244,20 @@ class CodeSimulator_DataError:
             quantize=self._quantize)
         return cnt, min_w
 
-    def WordErrorRate(self, num_run: int, key=None, target_failures=None):
+    def WordErrorRate(self, num_run: int, key=None, target_failures=None,
+                      progress=None):
         """WER over ``num_run`` shots: ``(wer, error bar)``.
 
         ``key`` (two 32-bit words) fixes the run's stream; without it the
         run splits the simulator's base key, as the JAX engine does.
         ``target_failures`` stops the run after the first megabatch whose
         cumulative failure count reaches it; the denominator is the shots
-        actually run."""
-        failures, shots = count_failures(self, num_run, key, target_failures)
+        actually run.  ``progress`` (a ``utils.checkpoint.CellProgress``)
+        persists the run's cursor after every megabatch, and resumes a run
+        killed mid-cell from it, seed for seed the unbroken run's result
+        (``sim.common.resumable_stream``)."""
+        failures, shots = count_failures(self, num_run, key, target_failures,
+                                         progress=progress)
         return wer_single_shot(failures, shots, self.K)
 
     def _driver(self, chunk: int):

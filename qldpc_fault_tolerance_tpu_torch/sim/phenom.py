@@ -262,11 +262,11 @@ class PhenomEngine:
         return int(self.run_batch(sub, num_rounds, 1)[0])
 
     def _count_failures(self, num_rounds: int, num_samples: int, key=None,
-                        target_failures=None):
+                        target_failures=None, progress=None):
         """(failure count, shots run) of ``num_samples`` shots of
         ``num_rounds`` rounds (``sim.common.count_failures``)."""
         return count_failures(self, num_samples, key, target_failures,
-                              int(num_rounds))
+                              int(num_rounds), progress=progress)
 
     def _driver(self, chunk: int):
         """The megabatch driver of ``chunk`` batches per megabatch (its
@@ -316,11 +316,12 @@ class CodeSimulator_Phenon(PhenomEngine):
         return self._stats_given(rounds, final, len(rounds) + 1)
 
     def WordErrorRate(self, num_rounds: int, num_samples: int, key=None,
-                      target_failures=None):
+                      target_failures=None, progress=None):
         """Per-qubit-per-cycle WER and its error bar
-        (``sim.common.wer_per_cycle``)."""
+        (``sim.common.wer_per_cycle``).  ``progress``: mid-cell resume, as
+        the data engine's ``WordErrorRate``."""
         count, total = self._count_failures(num_rounds, num_samples, key,
-                                            target_failures)
+                                            target_failures, progress)
         return wer_per_cycle(count, total, self.K, num_rounds)
 
     def WordErrorProbability(self, num_rounds: int, num_samples: int,

@@ -1,0 +1,36 @@
+"""Family orchestration and statistical analysis.
+
+  fits      threshold / effective-distance / sustainable-threshold fits
+            (host scipy, reference src/Simulators.py:675-741)
+  family    CodeFamily — (code x p) sweeps for data / phenl / circuit noise
+            (reference src/Simulators.py:746-963)
+  family_spacetime
+            CodeFamily_SpaceTime — the space-time decoding stack
+            (reference src/Simulators_SpaceTime.py:1152-1362)
+
+The JAX package's ``sweep/__init__.py`` exports, less its fused cell path
+(``sweep/fused.py``, not ported yet).
+"""
+from .family import CodeFamily
+from .family_spacetime import CodeFamily_SpaceTime
+from .fits import (
+    CriticalExponentFit,
+    DistanceEst,
+    EmpericalFit,
+    FitDistance,
+    FitSusThreshold,
+    SustainableThresholdEst,
+    ThresholdEst_extrapolation,
+)
+
+__all__ = [
+    "CriticalExponentFit",
+    "DistanceEst",
+    "EmpericalFit",
+    "FitDistance",
+    "FitSusThreshold",
+    "SustainableThresholdEst",
+    "ThresholdEst_extrapolation",
+    "CodeFamily",
+    "CodeFamily_SpaceTime",
+]

@@ -170,8 +170,13 @@ def _if_node(rec: _Capture, pred: torch.Tensor, negate: bool, fn):
     finally:
         rec.depth -= 1
         if rec.depth == 0:
+            # each begin takes a reference on the pool, which its release
+            # gives back (as torch.cuda.use_mem_pool does); the MemPool's own
+            # keeps the memory while the graph lives, and the pool is freed
+            # with it
             torch._C._cuda_endAllocateToPool(rec.device.index,
                                              rec.body_pool.id)
+            torch._C._cuda_releasePool(rec.device.index, rec.body_pool.id)
         nodes = ctypes.c_ulonglong(0)
         rc = lib.graph_if_end(body.cuda_stream, ctypes.byref(nodes))
         rec.body_nodes += nodes.value

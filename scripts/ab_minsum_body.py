@@ -20,7 +20,8 @@ kernels' layouts, ``nvcc -Xptxas -v`` of ``bp_minsum.cu`` and
 profiler device time:
 
   * head: hx of each code, 4096 syndromes of p=0.05 errors (phase 3's
-    seed), 50 iterations;
+    seed), 50 iterations, in the shared-memory mode and (``*_device_ms``)
+    with the lanes in device memory (``_kernels.force_memory("device")``);
   * tail: 768 stragglers of a 3-iteration decode of those and 256 zero
     rows, 50 iterations (phase 20's tail);
   * main head / main tail: 4096 syndromes of p=0.01 errors, 3 iterations,
@@ -203,6 +204,11 @@ def measure(root: Path, sweep: bool) -> dict:
                 out[f"{key}_shot_iters"] = int(got[3].sum())
                 out[f"{key}_layout"] = layout_of(bk, dev, synd, m, n,
                                                  kname == "bf16")
+                if shape == "head" and not sweep:
+                    # the lanes in a device scratch (kMem 1)
+                    with _kernels.force_memory("device"):
+                        same(fn(), plain, f"{key} device")
+                        out[f"{key}_device_ms"] = device_ms(fn, 5, KERNEL)
                 if sweep:
                     orig = bk.minsum_layout
                     cap = orig(synd.shape[0], m, n, 7, 4, kname == "bf16",

@@ -70,13 +70,15 @@ def _key(kernel: str) -> str:
     """A kernel's name and template arguments, without its return type,
     namespace, parameter list and casts of its template values, and
     without its trailing ``false`` / ``0`` template flags (on both sides,
-    so a flag added after one whose value is 0 still pairs)."""
+    so a flag added after one whose value is 0 still pairs, and a kernel
+    that gained its first flag pairs with the parent's plain one)."""
     name = re.sub(r"^void\s+", "", kernel)
     name = re.sub(r"\((int|bool|unsigned int)\)", "",
                   name.replace("<unnamed>::", "")
                   .replace("(anonymous namespace)::", ""))
-    head = name.split("(")[0]
-    return re.sub(r"(,\s*(false|0))+>$", ">", head.strip()).replace(" ", "")
+    head = re.sub(r"(,\s*(false|0))+>$", ">", name.split("(")[0].strip())
+    # a flag added to a kernel that had no template arguments
+    return re.sub(r"<\s*(false|0)\s*>$", "", head).replace(" ", "")
 
 
 def compare(parent: Path, names, show_diff: bool = False) -> bool:

@@ -198,8 +198,14 @@ def test_fused_layout_refuses_what_no_lane_fits():
     # of totals and 42000 * 6 of messages: more than a block holds
     with pytest.raises(ValueError, match="shared memory"):
         gk.fused_layout(64, 12000, 6000, 7, 4, 6000, 7, 4, SMS)
+    # rows above 32 take B5's wide instance, up to 64; 65 is refused
     with pytest.raises(ValueError, match="row weights"):
-        gk.fused_layout(64, 625, 300, 33, 4, 300, 7, 4, SMS)
+        gk.fused_layout(64, 625, 300, 65, 4, 300, 7, 4, SMS)
+    for rw in (33, 64):
+        shape = (625, 300, rw, 4, 300, 7, 4)
+        lay = gk.fused_layout(64, *shape, SMS)
+        assert lay.lanes >= 1 and lay.grid >= 1
+        assert lay.smem_bytes == gk.fused_smem_bytes(lay.lanes, *shape)
 
 
 def test_fused_smem_bytes_match_the_kernel_note():

@@ -13,19 +13,31 @@ hgp_34_n225 (row weight 42): kernel 1's plain version against JAX's
 float32 min-sum (tolerances of tests/test_torch_bp.py: bit-exact hard
 outputs and posteriors within rtol 1e-5 outside near-tie shots, at most 1%
 of them), the bf16 head's against JAX's v1 head kernel in interpret mode
-(bit-exact).  The kernels themselves run in
-tests/test_torch_minsum_wide_cuda.py on the card."""
+(bit-exact).
+
+The int8 head (B6) and the fused decode (B5, both modes) take the same
+rows through their own wide instances: ``int8_layout`` and the fused
+decode's gates accept row weights 33..64 and refuse 65; B6's plain version
+equals the JAX package's int8 XLA twin bit for bit on ``h2`` of
+hgp_34_n225 (tighter than the int8 contract, ``int8_parity_tolerance``),
+and B5's plain version equals the JAX package's fused XLA twin, seed for
+seed, on a hypergraph product whose rows reach 40.  The kernels themselves
+run in tests/test_torch_minsum_wide_cuda.py on the card."""
 import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from qldpc_fault_tolerance_tpu.ops import bp as jbp
 from qldpc_fault_tolerance_tpu.ops import bp_pallas
-from qldpc_fault_tolerance_tpu_torch.codes import load_code
+from qldpc_fault_tolerance_tpu.ops import gf2_pallas as gp
+from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
 from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_Circuit_SpaceTime
 
 torch.set_num_threads(1)
@@ -185,3 +197,109 @@ def test_bf16_head_plain_version_matches_jax_v1_at_row_weight_42():
         else:
             assert np.array_equal(a.astype(b.dtype), b), name
     assert 0 < got[1].float().mean() < 1
+
+
+# ------------------------------------------- B6 and B5: rows 33-64 (wide)
+
+@pytest.mark.parametrize("rw", [33, 40, 59, 64])
+def test_int8_layout_takes_rows_to_64(rw):
+    lanes, cluster = bk.int8_layout(256, rw, 120, 600)
+    assert lanes * cluster == 256 and cluster <= bk.INT8_MAX_CLUSTER
+    assert bk.int8_smem_bytes(lanes, rw, 120, 600) <= bk.SMEM_LIMIT
+    # h2's shape at the tile its decoder takes there (128, the JAX rule)
+    lanes, cluster = bk.int8_layout(128, rw, 300, 1825)
+    assert lanes * cluster == 128 and cluster <= bk.INT8_MAX_CLUSTER
+
+
+@pytest.mark.parametrize("rw", [0, 65, 128])
+def test_int8_layout_refuses_rows_outside_1_to_64(rw):
+    with pytest.raises(ValueError, match="row weights 1..64"):
+        bk.int8_layout(256, rw, 120, 600)
+
+
+def _wide_hgp():
+    """hgp(H1, H2) of the all-ones 3 x 37 and 3 x 5 matrices: hx's rows
+    have weight 37 + 3 = 40, hz's 5 + 3 = 8 (n = 194)."""
+    return hgp(np.ones((3, 37), np.uint8), np.ones((3, 5), np.uint8))
+
+
+def _wide_specs(code, p=0.01):
+    rng = np.random.default_rng(code.N)
+    llr_x, llr_z = (np.asarray(jbp.llr_from_probs(
+        rng.uniform(p / 4, p, code.N))) for _ in range(2))
+    args = (code.hx, code.hz, code.lx, code.lz, [p / 3] * 3, llr_x, llr_z)
+    return gp.build_fused_decode_spec(*args), gk.build_fused_decode_spec(
+        *args, "cpu")
+
+
+def _row_spec(rw):
+    """A fused spec whose hx rows reach ``rw`` (random, not a code: the
+    gates read shapes only)."""
+    h = _graph(40, 200, rw, rw)
+    llr = tbp.llr_from_probs(np.full(200, 0.02), "cpu")
+    return gk.build_fused_decode_spec(h, h, h[:2], h[:2], [0.01] * 3, llr,
+                                      llr, "cpu")
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rw", [33, 40, 59, 64, 65])
+def test_fused_decode_gates_take_rows_to_64(rw, quantize):
+    spec = _row_spec(rw)
+    assert spec.sparse_z.rw == rw
+    assert gk.fused_wide(spec) == (rw > 32)
+    assert gk.fused_decode_feasible(spec, 256, quantize=quantize) == (rw <= 64)
+    if rw <= 64:
+        gk.fused_layout(256, *gk._fused_shape(spec), SMS)
+        gk._sparse_args(spec.sparse_z, spec.base.device)
+    else:
+        with pytest.raises(ValueError, match="row weights 1..64"):
+            gk.fused_layout(256, *gk._fused_shape(spec), SMS)
+        with pytest.raises(ValueError, match="row weights 1..64"):
+            gk._sparse_args(spec.sparse_z, spec.base.device)
+
+
+def test_wide_hgp_takes_the_fused_decode():
+    code = _wide_hgp()
+    _, tspec = _wide_specs(code)
+    assert (tspec.sparse_z.rw, tspec.sparse_x.rw) == (40, 8)
+    for quantize in (None, "int8"):
+        assert gk.fused_decode_feasible(tspec, 4096, quantize=quantize)
+
+
+@pytest.mark.parametrize("block_b", [64, 128])
+def test_int8_plain_version_matches_jax_at_row_weight_42(block_b):
+    h, synd, llr = _case()
+    jsg = bp_pallas.build_sparse_head(jbp.build_tanner_graph_host(h))
+    tsg = bk.build_sparse_head(tbp.build_tanner_graph_host(h), "cpu")
+    assert tsg.rw == 42 and bk.int8_layout(block_b, 42, *h.shape)
+    want = bp_pallas._bp_head_sparse_xla(
+        jsg, synd, llr, head_iters=30, ms_scaling_factor=0.625,
+        block_b=block_b, early_stop=False, quantize="int8")
+    got = bk.bp_head_int8(tsg, torch.from_numpy(synd), torch.from_numpy(llr),
+                          head_iters=30, block_b=block_b)
+    for name, a, b in zip(("error", "converged", "posterior", "iterations"),
+                          want, got):
+        a, b = np.asarray(a), b.numpy()
+        if name == "posterior":
+            assert np.array_equal(a.view(np.int32), b.view(np.int32)), name
+        else:
+            assert np.array_equal(a.astype(b.dtype), b), name
+    assert 0 < got[1].float().mean() < 1
+
+
+@pytest.mark.parametrize("quantize,block_w", [(None, None), ("int8", 2),
+                                              ("int8", 8)],
+                         ids=["bf16", "int8-w2", "int8-w8"])
+def test_fused_plain_version_matches_jax_on_wide_rows(quantize, block_w):
+    jspec, tspec = _wide_specs(_wide_hgp())
+    jkey = jax.random.fold_in(jax.random.PRNGKey(4), 3)
+    tkey = gk.fold_in(gk.prng_key(4), 3)
+    kw = dict(eval_type="Total", max_iter_z=20, max_iter_x=20,
+              quantize=quantize, block_w=block_w)
+    want = gp.fused_decode_stats(jspec, jkey, 256, backend="xla", **kw)
+    got = gk.fused_decode_stats(tspec, tkey, 256, **kw)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+    assert 0 < int(got[0]) < 256
+    for w, g in ((want[2], got[2]), (want[3], got[3])):
+        for field in ("converged", "iterations"):
+            assert np.array_equal(np.asarray(w[field]), g[field].numpy())

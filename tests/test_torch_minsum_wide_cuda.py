@@ -1,7 +1,8 @@
 """The min-sum kernels' wide instances on the card: kernel 1 and the bf16
 head at row weights 33, 40, 59 and 64, in each memory mode (shared memory,
-lanes in device memory, 32-bit planes in device memory too), against their
-plain versions.  Tolerance: none, every output bit-exact (the kernels are
+lanes in device memory, 32-bit planes in device memory too), the int8 head
+(B6) and the fused decode (B5) in both message modes at the same row
+weights, against their plain versions.  Tolerance: none, every output bit-exact (the kernels are
 built with -fmad=false and keep the plain versions' order).  Needs an
 NVIDIA GPU; skips without one."""
 import numpy as np
@@ -11,6 +12,7 @@ import torch
 from qldpc_fault_tolerance_tpu_torch.ops import _kernels
 from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
 from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+from qldpc_fault_tolerance_tpu_torch.ops import gf2_kernel as gk
 
 
 @pytest.fixture
@@ -92,3 +94,64 @@ def test_device_planes_mode_at_small_shapes(cuda, rw, m, n, B, bf16):
                            if a.dtype == torch.float32 else a,
                            b.contiguous().view(torch.int32)
                            if b.dtype == torch.float32 else b)
+
+
+def _same(k, p):
+    for a, b in zip(k, p):
+        if a.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+                torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rw", [33, 40, 59, 64])
+def test_wide_int8_head_matches_plain(cuda, rw):
+    h, synd, llr = _case(rw, cuda, B=256)
+    head = bk.build_sparse_head(tbp.build_tanner_graph_host(h), cuda)
+
+    def fn():
+        return bk.bp_head_int8(head, synd, llr, head_iters=25, block_b=128)
+
+    before = (bk.bp_head_int8.launches, bk.bp_head_int8.wide_launches)
+    k = fn()
+    torch.cuda.synchronize()
+    assert (bk.bp_head_int8.launches, bk.bp_head_int8.wide_launches) == (
+        before[0] + 1, before[1] + 1)
+    with _kernels.force_plain():
+        p = fn()
+    _same(k, p)
+    assert int(k[3].max()) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rw", [33, 40, 59, 64])
+def test_wide_fused_decode_matches_plain(cuda, rw, quantize):
+    hx, _, _ = _case(rw, cuda, m=60, n=300)
+    hz, _, _ = _case(rw // 2 + 1, cuda, m=60, n=300)
+    llr = tbp.llr_from_probs(np.full(300, 0.02), cuda)
+    spec = gk.build_fused_decode_spec(hx, hz, hz[:3], hx[:3], [0.01] * 3,
+                                      llr, llr, cuda)
+    assert gk.fused_wide(spec)
+    assert gk.fused_decode_feasible(spec, 256, quantize=quantize)
+    key = gk.fold_in(gk.prng_key(rw), 3)
+
+    def fn():
+        return gk.fused_decode_stats(spec, key, 256, max_iter_z=25,
+                                     max_iter_x=25, quantize=quantize)
+
+    name = "int8_" if quantize else ""
+    count = lambda: (getattr(gk.fused_decode_stats, f"{name}launches"),  # noqa: E731
+                     getattr(gk.fused_decode_stats, f"{name}wide_launches"))
+    before = count()
+    k = fn()
+    torch.cuda.synchronize()
+    assert count() == (before[0] + 1, before[1] + 1)
+    with _kernels.force_plain():
+        p = fn()
+    assert (int(k[0]), int(k[1])) == (int(p[0]), int(p[1]))
+    for a, b in ((k[2], p[2]), (k[3], p[3])):
+        for field in ("converged", "iterations"):
+            assert torch.equal(a[field], b[field]), field
+    assert int(k[3]["iterations"].max()) > 1
