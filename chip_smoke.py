@@ -51,12 +51,15 @@ Phases (any failure raises and the script exits non-zero):
      modes), error against the plain version, times, bound; the bf16 head
      has a second entry for the v1 tag's route (it replaces the dense
      one-hot B9 too), with phase 22's launches; and one entry for each
-     device-memory mode of phase 27, with its launches in phases 28-30 and
-     33 (kernel 1's device-memory mode, bp_minsum_device, with phase 33's
-     numbers: the one main path that launches it); and the min-sum kernels'
-     wide instances at phase 36's shapes, kernel 1's in its 32-bit-plane
-     mode on h1 (bp_minsum_wide_device_planes) and the bf16 head's in
-     shared memory on h2 (bp_minsum_bf16_wide), with phase 36's launches;
+     device-memory and check-state mode of phase 27, with its launches in
+     phases 28-30 and 33 (kernel 1's check-state mode, bp_minsum_checks,
+     with phase 33's numbers: the one phenomenological main path that
+     launches it); and the min-sum kernels' wide instances at phase 36's
+     shapes, kernel 1's in its check-state mode on h1
+     (bp_minsum_wide_checks) and, fixed, in its 32-bit-plane mode
+     (bp_minsum_wide_device_planes, which no main path launches now), and
+     the bf16 head's in shared memory on h2 (bp_minsum_bf16_wide), with
+     phase 36's launches;
      and B6's and B5's wide instances (bp_int8_wide at h2's shape,
      fused_decode_wide and fused_decode_int8_wide on phase 38's code),
      with phase 38's launches
@@ -135,11 +138,14 @@ Phases (any failure raises and the script exits non-zero):
      elimination in its three modes on [H|I] of hgp_34_n1600 (768 x 2368,
      233,816 B a shot) at 256, 512 and 2048 shots (phase 30's tier);
      kernel 1 and the bf16 head on three copies of that [H|I] (2304 x
-     7104, ~300 KB a shot: the lanes in a device scratch, the 16-bit planes
-     staged), and with 32-bit planes in device memory; kernel 1 on eleven
-     copies (67,584 edges: 32-bit planes); every output bit-exact; each
-     mode timed, and against the shared-memory mode at a shape both run
-     (hgp_34_n1600's H), the modes fixed by _kernels.force_memory
+     7104, ~300 KB of messages a shot) in the check-state mode the layout
+     picks (one record per check and the totals in shared memory, the
+     16-bit planes staged), and, fixed, with the lanes in a device scratch
+     (the 16-bit planes staged) and with 32-bit planes in device memory;
+     kernel 1 on eleven copies (67,584 edges: 32-bit planes, and records
+     beyond a block); every output bit-exact; each mode timed, and against
+     the shared-memory mode at a shape all run (hgp_34_n1600's H), the
+     modes fixed by _kernels.force_memory
  28. main path, the phenomenological engine (the Threshold notebook's
      cell, as the JAX package's sweeps build it): CodeSimulator_Phenon on
      hgp_34_n625, decoder 1 BP (max_iter N/30, min-sum 0.625) on [H|I],
@@ -152,8 +158,9 @@ Phases (any failure raises and the script exits non-zero):
      the notebook's 0.02 every shot fails), 1 batch of 2048; pinned
  30. main path, BP + OSD-0 on both decoders at hgp_34_n1600 (the
      phenomenological BP+OSD-0 configuration of BASELINE.json): decoder 1's
-     elimination on [H|I] takes the device-memory mode; eval_p 0.02, 9
-     rounds, 2 batches of 2048; pinned
+     elimination on [H|I] takes the device-memory mode, its min-sum
+     decodes shared memory (no check-state or device-memory launch
+     counted); eval_p 0.02, 9 rounds, 2 batches of 2048; pinned
  31. anchors: p = q = 0 gives no failure; one phase-28 batch with every
      kernel replaced by its plain version, and with packed=False, gives the
      kernel path's failures and min weight; so does one phase-30 batch
@@ -170,12 +177,12 @@ Phases (any failure raises and the script exits non-zero):
      4 windows and the final round), 8 batches of 2048; the window
      decoder's program and layout; pinned (ST_RUNS)
  33. phase 32's cell with windows of 8 slices (2400 x 7400, beyond a
-     block's shared memory: the min-sum kernels' device-memory modes) at
-     eval_p ST33_P, 17 cycles (3 rounds), 2 batches of 2048; pinned;
-     kernel 1 in device memory on window histories of that matrix at each
-     launch its ladder can make (2048 shots at the head's, the deepened
-     head's and the full max_iter; the big straggler tier), every output
-     bit-exact with the plain version
+     block's shared memory: the min-sum kernels' check-state mode, and no
+     device-memory mode) at eval_p ST33_P, 17 cycles (3 rounds), 2 batches
+     of 2048; pinned; kernel 1 in the check-state mode on window histories
+     of that matrix at each launch its ladder can make (2048 shots at the
+     head's, the deepened head's and the full max_iter; the big straggler
+     tier), every output bit-exact with the plain version
  34. main path, the circuit-level engine (the JAX package's
      sweep/family.py _circuit_wer cell with SpaceTimeDecodingDemo's CX-only
      noise): CodeSimulator_Circuit on hgp_34_n625, coloration schedule,
@@ -197,11 +204,12 @@ Phases (any failure raises and the script exits non-zero):
      megabatch; the DEM is built in a second process from the start of the
      run (its seconds printed, with the shapes and row weights of h1 and
      h2); the memory mode of each decode from the launch counters (kernel 1
-     on h1 in its device-memory mode with 32-bit planes, the bf16 head on
+     on h1 in its check-state mode, no device-memory mode, the bf16 head on
      h2 in shared memory, both the wide instances for row weights above
      32), each held bit for bit against its plain version at its main-path
-     shapes; pinned (CIRCUIT_RUNS); a noiseless anchor (the sampler's
-     probabilities zeroed) fails no shot
+     shapes, and kernel 1's 32-bit-plane device-memory mode, fixed, on the
+     stragglers' tier; pinned (CIRCUIT_RUNS); a noiseless anchor (the
+     sampler's probabilities zeroed) fails no shot
  37. the streaming drivers: CircuitStreamDriver over phase 36's engine,
      its carry after each of the 4 windows and its final decode equal to
      phase 36's window scan on the same detectors, bit for bit;
@@ -929,6 +937,9 @@ def run_phases(dem_job) -> int:
                 "bp_minsum_bf16_device": (bk.bp_head_bf16, "device_launches"),
                 "bp_minsum_bf16_device_planes": (bk.bp_head_bf16,
                                                  "device_planes_launches"),
+                # launches of the check-state mode (among the above)
+                "bp_minsum_checks": (bp_minsum, "checks_launches"),
+                "bp_minsum_bf16_checks": (bk.bp_head_bf16, "checks_launches"),
                 # launches of the wide instances (row weights 33-64)
                 "bp_minsum_wide": (bp_minsum, "wide_launches"),
                 "bp_minsum_bf16_wide": (bk.bp_head_bf16, "wide_launches"),
@@ -1857,8 +1868,9 @@ def run_phases(dem_job) -> int:
             f"{t_sh:.4f} ms, device memory {t_dv:.4f} ms (outputs equal)")
 
     # the min-sum kernels on three copies of [H|I] (2304 x 7104, ~300 KB a
-    # shot), in the mode the layout picks and with 32-bit planes in device
-    # memory, and kernel 1 on eleven copies (67,584 edges: 32-bit planes)
+    # shot), in the mode the layout picks (the check-state mode, its 16-bit
+    # planes staged) and in the device-memory modes, fixed, and kernel 1 on
+    # eleven copies (67,584 edges: 32-bit planes, records beyond a block)
     stack3 = block_diag(ext16, 3)
     g3 = tbp.build_tanner_graph(stack3, dev)
     head3 = bk.build_sparse_head(tbp.build_tanner_graph_host(stack3), dev)
@@ -1873,10 +1885,10 @@ def run_phases(dem_job) -> int:
             head3, synd3, llr3, head_iters=it27), True)}
     for name, (run, bf) in minsum27.items():
         counter = bp_minsum if name == "bp_minsum" else bk.bp_head_bf16
-        for mem in ("device", "device_planes"):
-            # "device" is the layout's own pick for the stack; the other
-            # mode is fixed
-            pick = "auto" if mem == "device" else mem
+        for mem in ("checks", "device", "device_planes"):
+            # "checks" is the layout's own pick for the stack; the other
+            # modes are fixed
+            pick = "auto" if mem == "checks" else mem
             lay = bk.card_minsum_layout(dev, B27m, m3, n3, 8, 4, bf,
                                         memory=pick)
             if lay.memory != mem:
@@ -1901,8 +1913,8 @@ def run_phases(dem_job) -> int:
                 f"shot), {B27m} shots, {it27} iterations; {lay.lanes} shots x "
                 f"{lay.threads // lay.lanes} threads, {lay.grid} blocks, "
                 f"{lay.smem_bytes} B shared, {lay.lane_bytes} B scratch a "
-                f"lane; {dmem[key]['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {bound:.4f} ms ({by})")
+                f"lane, planes {lay.planes}; {dmem[key]['ms']:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
     stack11 = block_diag(ext16, 11)
     g11 = tbp.build_tanner_graph(stack11, dev)
     synd11 = synd_of(stack11, 64, 0.02)
@@ -1918,7 +1930,9 @@ def run_phases(dem_job) -> int:
         raise AssertionError("eleven copies of [H|I] missed the 32-bit planes")
     log(f"[27] bp_minsum device_planes == plain on eleven copies of [H|I] "
         f"({stack11.shape[0]}x{stack11.shape[1]}, "
-        f"{int(g11.chk_mask.sum())} edges: 32-bit planes), 64 shots")
+        f"{int(g11.chk_mask.sum())} edges: 32-bit planes; "
+        f"{bk.minsum_checks_bytes(1, *stack11.shape, 8, 4, 'global32')} B "
+        f"of check records a shot, beyond a block), 64 shots")
     # every min-sum mode at a shape all run: hgp_34_n1600's H, 4096 shots
     g16 = tbp.build_tanner_graph(h16, dev)
     head16 = bk.build_sparse_head(tbp.build_tanner_graph_host(h16), dev)
@@ -1933,7 +1947,7 @@ def run_phases(dem_job) -> int:
         for mem in _kernels.MEMORY_MODES:
             bits_equal(f"{name} {mem} vs shared", in_mode(mem, run), ref)
             times[mem] = in_mode(mem, lambda: event_ms(run, 5))
-        for mem in ("device", "device_planes"):
+        for mem in ("checks", "device", "device_planes"):
             dmem[f"{name}_{mem}"]["vs_shared"] = (times["shared"], times[mem])
         log(f"[27] {name} on hgp_34_n1600 H, 4096 shots, 50 iterations: "
             + ", ".join(f"{mem} {t:.3f} ms" for mem, t in times.items())
@@ -2025,6 +2039,13 @@ def run_phases(dem_job) -> int:
     if launches_30["osd_elim_device"] <= 0:
         raise AssertionError("phase 30 never took the elimination's "
                              "device-memory route")
+    # its min-sum decodes ([H|I] and H of hgp_34_n1600) fit shared memory:
+    # neither the check-state mode nor a device-memory mode
+    minsum30 = {k: launches_30[k] for k in dmem if k.startswith("bp_minsum")}
+    log(f"[30] min-sum memory modes from the launch counters: {minsum30}")
+    if sum(minsum30.values()):
+        raise AssertionError(f"phase 30's min-sum decodes left shared "
+                             f"memory: {minsum30}")
     pinned("30", run30)
     graph_vs_eager("30", sim30, 2, rounds=9)
 
@@ -2171,20 +2192,23 @@ def run_phases(dem_job) -> int:
         f"33 phenom space-time BP-ST/BPOSD-E n625 num_rep 8 eval_p={ST33_P}",
         sim33, 17, 2, unit="cycles"))
     dmem33 = {k: launches_33[k] for k in dmem}
-    log(f"[33] launches {launches_33}; device-memory modes {dmem33}")
-    if not sum(dmem33.values()):
-        raise AssertionError("phase 33's window decode took no "
-                             "device-memory mode")
+    log(f"[33] launches {launches_33}; check-state and device-memory modes "
+        f"{dmem33}")
+    if launches_33["bp_minsum_checks"] <= 0 or (
+            launches_33["bp_minsum_device"]
+            + launches_33["bp_minsum_device_planes"]):
+        raise AssertionError("phase 33's window decode did not take the "
+                             "check-state mode alone")
     graph_vs_eager("33", sim33, 2, rounds=17)
     b1_b2_launched("33", launches_33)
     pinned("33", run33, ST_RUNS)
-    # kernel 1 in device memory at phase 33's shapes, held against its
-    # plain version on window histories drawn from the window decoder's
+    # kernel 1 in the check-state mode at phase 33's shapes, held against
+    # its plain version on window histories drawn from the window decoder's
     # own channel (ST_h e, e ~ its tiled [p_data x n | p_synd x m]), at
     # every launch the ladder can make there: the head and the deepened
     # head over the full batch, the big straggler tier (the deepened
     # head's unconverged shots) and the full-batch decode at max_iter; the
-    # kernels line's bp_minsum_device entry takes the full decode's numbers
+    # kernels line's bp_minsum_checks entry takes the full decode's numbers
     # and the largest error of the four
     dec33 = sim33.decoder1_z
     g33, llr33 = dec33.device_state["graph"], dec33.device_state["llr0"]
@@ -2208,24 +2232,24 @@ def run_phases(dem_job) -> int:
         def run(synd=synd, iters=iters):
             return bp_minsum(g33, synd, llr33, max_iter=iters,
                              ms_scaling_factor=msf33)
-        before = bp_minsum.device_launches
+        before = bp_minsum.checks_launches
         k = run()
-        if bp_minsum.device_launches != before + 1:
+        if bp_minsum.checks_launches != before + 1:
             raise AssertionError(f"phase 33's {name} launch took no "
-                                 f"device-memory mode")
+                                 f"check-state mode")
         with _kernels.force_plain():
             pl33, plain_ms = once_ms(run)
-        err = bits_equal(f"bp_minsum device memory, phase 33 {name}", k, pl33)
+        err = bits_equal(f"bp_minsum check state, phase 33 {name}", k, pl33)
         B = synd.shape[0]
         bound, by = bp_bound_ms(g33, B, int(k[3].sum()))
         k1_33[name] = {"err": err, "ms": event_ms(run, 5),
                        "plain_ms": plain_ms, "bound": bound, "by": by}
-        log(f"[33] bp_minsum device memory == plain on a window history "
+        log(f"[33] bp_minsum check state == plain on a window history "
             f"({h33.shape[0]}x{h33.shape[1]}), {name}: {B} shots, max_iter "
             f"{iters}, {int((~k[1]).sum())} unconverged; "
             f"{k1_33[name]['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound:.4f} ms ({by})")
-    dmem["bp_minsum_device"].update(
+    dmem["bp_minsum_checks"].update(
         k1_33["full decode"], err=max(d["err"] for d in k1_33.values()))
 
     # 34. the circuit engine's main path
@@ -2281,7 +2305,7 @@ def run_phases(dem_job) -> int:
                     2048, key=key35))):
         for ctx in (_kernels.force_eager, _kernels.force_plain):
             sim.min_logical_weight = sim.N
-            before = bp_minsum.device_launches
+            before = bp_minsum.checks_launches
             t = time.time()
             with ctx():
                 run(sim)
@@ -2289,14 +2313,14 @@ def run_phases(dem_job) -> int:
                                         sim.min_logical_weight,
                                         round(time.time() - t, 1))
             if tag == "33" and ctx is _kernels.force_eager:
-                dmem35 = bp_minsum.device_launches - before
+                dmem35 = bp_minsum.checks_launches - before
         kern, plain = got35[tag, "force_eager"], got35[tag, "force_plain"]
         if kern[:2] != plain[:2]:
             raise AssertionError(f"one phase {tag} batch: kernels {kern}, "
                                  f"plain {plain}")
     if dmem35 <= 0:
         raise AssertionError("phase 33's batch with the kernels took no "
-                             "device-memory mode")
+                             "check-state mode")
     # the card's sampler and the CPU's, fed the same uniforms
     planes = {}
     gen35 = torch.Generator().manual_seed(SEED)
@@ -2317,8 +2341,8 @@ def run_phases(dem_job) -> int:
         f"the kernels (eager) and with every kernel plain, (failures, min_w,"
         f" s): 32 {got35['32', 'force_eager']} == "
         f"{got35['32', 'force_plain']}, 33 {got35['33', 'force_eager']} == "
-        f"{got35['33', 'force_plain']} (kernel 1 in device memory, {dmem35} "
-        f"launches), 34 {got35['34', 'force_eager']} == "
+        f"{got35['33', 'force_plain']} (kernel 1 in the check-state mode, "
+        f"{dmem35} launches), 34 {got35['34', 'force_eager']} == "
         f"{got35['34', 'force_plain']}; the card's FrameSampler == the CPU's "
         f"on {len(planes)} uniform planes, 256 shots: detectors "
         f"{tuple(want35[0].shape)}, {int(want35[0].sum())} set")
@@ -2381,15 +2405,20 @@ def run_phases(dem_job) -> int:
         f"{ST36_CYCLES} cycles num_rep {ST36_REP}", sim36, 4))
     log(f"[36] launches {launches_36}")
     modes36 = {k: launches_36[k] for k in (
-        "bp_minsum", "bp_minsum_device", "bp_minsum_device_planes",
-        "bp_minsum_wide", "bp_minsum_bf16", "bp_minsum_bf16_device",
+        "bp_minsum", "bp_minsum_checks", "bp_minsum_device",
+        "bp_minsum_device_planes", "bp_minsum_wide", "bp_minsum_bf16",
+        "bp_minsum_bf16_checks", "bp_minsum_bf16_device",
         "bp_minsum_bf16_device_planes", "bp_minsum_bf16_wide")}
     log(f"[36] memory modes from the launch counters: {modes36}")
-    for k in ("bp_minsum_device_planes", "bp_minsum_wide",
-              "bp_minsum_bf16_wide", "osd_elim"):
+    for k in ("bp_minsum_checks", "bp_minsum_wide", "bp_minsum_bf16_wide",
+              "osd_elim"):
         if launches_36[k] <= 0:
             raise AssertionError(f"phase 36 launched no {k}")
-    if launches_36["bp_minsum_bf16_device"] + launches_36[
+    if launches_36["bp_minsum_device"] + launches_36[
+            "bp_minsum_device_planes"]:
+        raise AssertionError("phase 36's kernel 1 took a device-memory mode")
+    if launches_36["bp_minsum_bf16_checks"] + launches_36[
+            "bp_minsum_bf16_device"] + launches_36[
             "bp_minsum_bf16_device_planes"]:
         raise AssertionError("phase 36's bf16 head left shared memory")
     graph_vs_eager("36", sim36, 4)
@@ -2445,11 +2474,17 @@ def run_phases(dem_job) -> int:
                    d1.max_iter, syn1_ext[torch.nonzero_static(
                        ~conv1, size=tier36, fill_value=2048).flatten()]))
     wide36 = {}
+    plain36 = {}  # kernel 1's plain outputs and times, by case
     for kname, graph_k, fn, counter, attr, cases in (
-            ("bp_minsum_wide_device_planes", g1,
+            ("bp_minsum_wide_checks", g1,
              lambda synd, iters: bp_minsum(g1, synd, llr1, max_iter=iters,
                                            ms_scaling_factor=0.625),
-             bp_minsum, "device_planes_launches", cases1),
+             bp_minsum, "checks_launches", cases1),
+            # the parent's mode, fixed, on the stragglers' tier alone
+            ("bp_minsum_wide_device_planes", g1,
+             lambda synd, iters: in_mode("device_planes", lambda: bp_minsum(
+                 g1, synd, llr1, max_iter=iters, ms_scaling_factor=0.625)),
+             bp_minsum, "device_planes_launches", cases1[-1:]),
             ("bp_minsum_bf16_wide", g2,
              lambda synd, iters: bk.bp_head_bf16(
                  head2, synd, llr2, head_iters=iters,
@@ -2461,17 +2496,27 @@ def run_phases(dem_job) -> int:
         for case, iters, synd in cases:
             def run(synd=synd, iters=iters, fn=fn):
                 return fn(synd, iters)
-            before = (getattr(counter, attr), counter.wide_launches,
-                      counter.device_launches)
+            def modes(attr=attr, counter=counter):
+                """The launch counts of ``attr``, of the wide instance, and
+                of every other memory mode but the shared one."""
+                return (getattr(counter, attr), counter.wide_launches,
+                        sum(getattr(counter, a) for a in (
+                            "checks_launches", "device_launches",
+                            "device_planes_launches") if a != attr))
+            before = modes()
             k = run()
-            after = (getattr(counter, attr), counter.wide_launches,
-                     counter.device_launches)
+            after = modes()
             if after[:2] != (before[0] + 1, before[1] + 1) or (
                     after[2] != before[2]):
                 raise AssertionError(f"phase 36 {kname} {case}: launch "
                                      f"counts {before} -> {after}")
-            with _kernels.force_plain():
-                pl, plain_ms = once_ms(run)
+            if kname == "bp_minsum_wide_device_planes":
+                pl, plain_ms = plain36[case]
+            else:
+                with _kernels.force_plain():
+                    pl, plain_ms = once_ms(run)
+                if counter is bp_minsum:
+                    plain36[case] = (pl, plain_ms)
             err = bits_equal(f"phase 36 {kname} {case}", k, pl)
             bound, by = bp_bound_ms(graph_k, synd.shape[0], int(k[3].sum()))
             rows[case] = {"err": err, "ms": event_ms(run, 3),
@@ -2481,8 +2526,10 @@ def run_phases(dem_job) -> int:
                 f"{rows[case]['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{bound:.4f} ms ({by})")
         # the kernels line takes the full batch's last launch of the
-        # ladder and the largest error of the cases
-        full = [c for c, _, synd in cases if synd.shape[0] == 2048][-1]
+        # ladder (the stragglers' tier for the device-memory mode) and the
+        # largest error of the cases
+        full = [c for c, _, synd in cases
+                if synd.shape[0] == 2048 or len(cases) == 1][-1]
         wide36[kname] = dict(rows[full],
                              err=max(r["err"] for r in rows.values()))
     log(f"phase 36 took {time.time() - t_new:.1f} s")
@@ -2696,8 +2743,9 @@ def run_phases(dem_job) -> int:
         f"(barrier.sync / barrier.red); this run's times: kernel 1 kMem 0 "
         f"{k1_ms:.3f} ms (phase 3), bf16 head kMem 0 {bf16_ms:.3f} ms (phase "
         f"20), kernel 1 kMem 1 {dmem['bp_minsum_device']['ms']:.3f} ms "
-        f"(phase 33), bf16 head kMem 1 "
-        f"{dmem['bp_minsum_bf16_device']['ms']:.3f} ms (phase 27), B5 bf16 "
+        f"(phase 27), bf16 head kMem 1 "
+        f"{dmem['bp_minsum_bf16_device']['ms']:.3f} ms (phase 27), kernel 1 "
+        f"kMem 3 {dmem['bp_minsum_checks']['ms']:.3f} ms (phase 33), B5 bf16 "
         f"{b5['bf16', 0.01]['ms']:.3f} ms (phase 24); scripts/ab_minsum_body.py "
         f"--parent DIR times them against another checkout")
     log(f"phase 38 took {time.time() - t_new:.1f} s")
@@ -2961,9 +3009,10 @@ def run_phases(dem_job) -> int:
          "bound_by": bf16_by, "library_ms": None},
     ]
     # the wide instances at phase 36's shapes, with their launches there
-    for key, name, source in (
-            ("bp_minsum_wide_device_planes", "bp_minsum_device_planes", 1),
-            ("bp_minsum_bf16_wide", "bp_minsum_bf16_wide", 0)):
+    for key, name in (
+            ("bp_minsum_wide_checks", "bp_minsum_checks"),
+            ("bp_minsum_wide_device_planes", "bp_minsum_device_planes"),
+            ("bp_minsum_bf16_wide", "bp_minsum_bf16_wide")):
         d = wide36[key]
         kernels.append({
             "name": key, "route": "cuda",

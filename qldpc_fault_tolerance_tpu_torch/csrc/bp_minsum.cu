@@ -69,6 +69,25 @@
 // memory mode every shipped code takes) is unchanged; the scratch is the
 // kernel's last argument, so the others keep their offsets.
 //
+// The check-state mode (kMem 3, bp_minsum_checks_kernel; minsum_layout
+// takes it before kMem 1 and 2, wherever one shot's records fit): in kMem
+// 1 and 2 every access of a shot's messages is a scattered 4-byte access to
+// a device scratch (at phase 36's h1, 464,112 B a shot; 61 MB for the 132
+// shots the card holds, past the 50 MB L2), and each block waits on them
+// (PERF.md, section 6).  Here a shot's state is one 16-byte record per check
+// (CheckRecords: its Top2, from which check_c2v rebuilds every c2v of the
+// check) and the totals, in shared memory (53,712 B at h1); the check pass
+// rebuilds each v2c as Msg::store(gather_total(tot[v]) - c2v) from the
+// record it is about to overwrite, so no per-edge message is kept.  The
+// loop calls minsum_body.cuh's check_top2, check_c2v, var_total and
+// gather_total in the same slot and list order, with the same two lane
+// barriers an iteration, claims and convergence rule, so the outputs are
+// those of kMem 0 bit for bit; each walk stops at its list's last live
+// entry (MinsumPlanes.lens).  The planes (kPlanes, a template flag) are
+// staged 16-bit where they fit beside the lanes, else 16-bit read through
+// L2, which every block shares, else 32-bit; the variable pass loads a
+// variable's first kTerms entries at once.
+//
 // Row weights: a check's live slots and negative signs are bit masks
 // (minsum_body.cuh Top2), 32-bit up to row weight 32; the wide instances
 // (kWide, a template flag whose false value is the 32-bit code) take 64-bit
@@ -83,7 +102,9 @@
 // Bound: the iterations are latency-bound chains of shared-memory passes
 // between barriers; per shot-iteration the messages cost 16 B (f32) or
 // 12 B (bf16) per edge of shared-memory traffic plus the gathers of the
-// totals.
+// totals.  The check-state mode computes each c2v twice an iteration (once
+// per pass) in place of storing it: it issues more instructions per edge
+// and moves no message through device memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -218,6 +239,255 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   }
 }
 
+// The check-state mode (kMem 3): per lane one 16-byte record per check
+// (and, for 64-bit masks, a byte beside it) and the totals, in shared
+// memory (ops/bp_kernel.py minsum_checks_bytes); the planes in the form
+// kPlanes (_kernels.PLANE_FORMS): 0 16-bit, staged (with the shared channel
+// LLRs), 1 16-bit read from device memory, 2 32-bit read from device memory
+struct CheckOffsets {
+  size_t edge, llr, lanes;  // staged planes (chk at 0), lane regions
+  size_t meta, tot, lane;   // within a lane region (records at 0)
+  __host__ __device__ CheckOffsets(int m, int n, int rw, int cw, bool wide,
+                                   bool staged, bool llr_shared) {
+    const size_t E = (size_t)m * rw, V = (size_t)n * cw;
+    edge = staged ? align16(2 * E) : 0;
+    llr = edge + (staged ? align16(2 * V) : 0);
+    lanes = llr + (staged && llr_shared ? align16(4 * (size_t)n) : 0);
+    meta = 16 * (size_t)m;
+    tot = meta + (wide ? align16((size_t)m) : 0);
+    lane = tot + align16(4 * (size_t)n);
+  }
+};
+
+// A check's record: its Top2 (min1, min2, the negative signs' mask, and a
+// byte that holds the slot of the first minimum in bits 0-5, the sign
+// product in bit 6 and the syndrome bit in bit 7), one 16-byte load or
+// store; the byte lies in the record for 32-bit masks and beside it for
+// 64-bit ones.  Every c2v of the check is check_c2v of its Top2, and the
+// v2c of its slot-s edge is Msg::store(gather_total(tot[v]) - that c2v):
+// the check pass rebuilds both from the record it overwrites, so no
+// per-edge message is kept.
+template <class Mask>
+struct alignas(16) Record {
+  float min1, min2;
+  Mask negs;
+  unsigned meta;  // 32-bit masks only
+};
+template <>
+struct alignas(16) Record<unsigned long long> {
+  float min1, min2;
+  unsigned long long negs;
+};
+
+template <class Mask>
+struct CheckRecords {
+  static constexpr bool kWide = sizeof(Mask) == 8;
+  Record<Mask>* rec;
+  uint8_t* meta;  // 64-bit masks only
+  __device__ __forceinline__ minsum::Top2<Mask> get(int i,
+                                                    bool& synd) const {
+    const Record<Mask> c = rec[i];
+    unsigned mt;
+    if constexpr (kWide) mt = meta[i];
+    else mt = c.meta;
+    synd = (mt & 128u) != 0u;
+    return minsum::Top2<Mask>{c.min1, c.min2, (int)(mt & 63u), c.negs,
+                              (mt & 64u) != 0u};
+  }
+  __device__ __forceinline__ void put(int i, const minsum::Top2<Mask>& c,
+                                      bool synd) const {
+    const unsigned mt =
+        (unsigned)c.amin | (c.neg ? 64u : 0u) | (synd ? 128u : 0u);
+    if constexpr (kWide) {
+      rec[i] = Record<Mask>{c.min1, c.min2, c.negs};
+      meta[i] = (uint8_t)mt;
+    } else {
+      rec[i] = Record<Mask>{c.min1, c.min2, c.negs, mt};
+    }
+  }
+};
+
+// a variable's first terms, loaded together in the variable pass
+constexpr int kTerms = 4;
+
+template <class Msg, bool kWide, int kPlanes>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+bp_minsum_checks_kernel(const uint8_t* __restrict__ synd,     // (B, m)
+                        const float* __restrict__ llr,        // (n,) or (B, n)
+                        int llr_per_shot,
+                        const void* __restrict__ chk_g,       // (rw, m)
+                        const void* __restrict__ edge_g,      // (cw, n)
+                        const uint8_t* __restrict__ lens,     // (m + n,)
+                        uint8_t* __restrict__ err,            // (B, n)
+                        float* __restrict__ post,             // (B, n)
+                        uint8_t* __restrict__ conv,           // (B,)
+                        int32_t* __restrict__ iters,          // (B,)
+                        int* __restrict__ next,               // claims
+                        int m, int n, int rw, int cw, int B, int max_iter,
+                        float scale, int tpl) {
+  using Mask =
+      typename std::conditional<kWide, unsigned long long, unsigned>::type;
+  using G = typename std::conditional<kPlanes == 2, minsum::Planes32,
+                                      minsum::Planes>::type;
+  using Idx = typename G::Index;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_shot[kMaxLanes][2];
+  const CheckOffsets o(m, n, rw, cw, kWide, kPlanes == 0, !llr_per_shot);
+  uint16_t* chk_s = (uint16_t*)smem;
+  uint16_t* edge_s = (uint16_t*)(smem + o.edge);
+  float* llr_s = (float*)(smem + o.llr);
+  if (kPlanes == 0) {
+    const int E = m * rw, V = n * cw;
+    for (int k = threadIdx.x; k < E; k += blockDim.x)
+      chk_s[k] = ((const uint16_t*)chk_g)[k];
+    for (int k = threadIdx.x; k < V; k += blockDim.x)
+      edge_s[k] = ((const uint16_t*)edge_g)[k];
+    if (!llr_per_shot)
+      for (int j = threadIdx.x; j < n; j += blockDim.x) llr_s[j] = llr[j];
+    __syncthreads();
+  }
+  const Idx* chk = kPlanes == 0 ? (const Idx*)chk_s : (const Idx*)chk_g;
+  const Idx* edge = kPlanes == 0 ? (const Idx*)edge_s : (const Idx*)edge_g;
+  // a plane entry: from shared memory, or through the read-only path
+  auto ld = [&](const Idx* p, int k) -> int {
+    if constexpr (kPlanes == 0) return (int)p[k];
+    else return (int)__ldg(p + k);
+  };
+  // edge e's slot e / m: for 16-bit planes (e < 65,535, m < 65,535) the
+  // high word of e * (floor((2^32 - 1) / m) + 1) is exact
+  const unsigned magic = m > 1 ? 0xFFFFFFFFu / (unsigned)m + 1u : 0u;
+  auto slot_of = [&](int e) -> int {
+    if constexpr (kPlanes == 2) return e / m;
+    else return m > 1 ? (int)__umulhi((unsigned)e, magic) : e;
+  };
+  // `lens` holds the length of each check's and each variable's list up to
+  // its last live entry (ops/bp_kernel.py minsum_planes), so a walk stops
+  // there: a padded slot leaves a Top2 as it is, and padded terms add
+  // nothing to a bf16 total and 0 to a float32 one (a float32 walk takes
+  // one padded term past its length, if the list has one, as x + 0 is
+  // x + 0 + 0)
+  auto slots_of = [&](int i) { return (int)__ldg(lens + i); };
+
+  const int lane = threadIdx.x / tpl, r = threadIdx.x % tpl;
+  unsigned char* mine = smem + o.lanes + lane * o.lane;
+  const CheckRecords<Mask> rec{(Record<Mask>*)mine, mine + o.meta};
+  float* tot = (float*)(mine + o.tot);
+
+  auto llr0 = [&](int b, int v) {
+    return llr_per_shot ? __ldg(llr + (size_t)b * n + v)
+           : kPlanes == 0 ? llr_s[v]
+                          : __ldg(llr + v);
+  };
+
+  for (int k = 0;; ++k) {
+    // the slot alternates, so a claim never overwrites one a thread of the
+    // lane may still read
+    if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
+    minsum::lane_sync(lane, tpl);
+    const int b = s_shot[lane][k & 1];
+    if (b >= B) return;
+    uint8_t* err_b = err + (size_t)b * n;
+    float* post_b = post + (size_t)b * n;
+    if (max_iter == 0) {
+      for (int j = r; j < n; j += tpl) {
+        err_b[j] = 0;
+        post_b[j] = llr0(b, j);
+      }
+      if (r == 0) {
+        conv[b] = 0;
+        iters[b] = 0;
+      }
+      continue;
+    }
+    const uint8_t* synd_b = synd + (size_t)b * m;
+    // iteration 1's check update, from the channel LLRs
+    for (int i = r; i < m; i += tpl) {
+      const bool sb = synd_b[i] != 0;
+      rec.put(i,
+              minsum::check_top2<Mask>(slots_of(i), sb, [&](int s, float& x) {
+                const int v = ld(chk, s * m + i);
+                if (v == G::kPad) return false;
+                x = Msg::load(Msg::store(llr0(b, v)));
+                return true;
+              }),
+              sb);
+    }
+    // minsum_body.cuh lane_decode's two lane barriers an iteration, with
+    // each c2v rebuilt from its check's record
+    int it = 0;
+    bool bad;
+    for (;;) {
+      minsum::lane_sync(lane, tpl);
+      for (int j = r; j < n; j += tpl) {
+        const int live = __ldg(lens + m + j);
+        // the first kTerms entries of the variable's list, loaded at once
+        // (one wait for the memory where one a term would wait each)
+        int first[kTerms];
+#pragma unroll
+        for (int u = 0; u < kTerms; ++u)
+          first[u] = u < live ? ld(edge, u * n + j) : G::kPad;
+        tot[j] = minsum::var_total<Msg>(
+            llr0(b, j), Msg::kBf16 ? live : min(live + 1, cw),
+            [&](int t, float& c, int& s) {
+              if (t >= live) return false;
+              int e = t < kTerms ? first[0] : ld(edge, t * n + j);
+#pragma unroll
+              for (int u = 1; u < kTerms; ++u)
+                if (t == u) e = first[u];
+              if (e == G::kPad) return false;
+              bool sb;
+              s = slot_of(e);
+              c = minsum::check_c2v(rec.get(e - s * m, sb), s, scale);
+              return true;
+            });
+      }
+      ++it;
+      minsum::lane_sync(lane, tpl);
+      // each check's parity of these totals and, unless this was the last
+      // iteration, its next check update from its v2c (the totals less its
+      // record's c2v), in one walk over its slots
+      bool fail = false;
+      for (int i = r; i < m; i += tpl) {
+        bool sb;
+        const minsum::Top2<Mask> old = rec.get(i, sb);
+        const int len = slots_of(i);
+        unsigned par = sb;
+        if (it < max_iter) {
+          rec.put(i,
+                  minsum::check_top2<Mask>(len, sb, [&](int s, float& x) {
+                    const int v = ld(chk, s * m + i);
+                    if (v == G::kPad) return false;
+                    const float t_v = minsum::gather_total<Msg>(tot[v]);
+                    par ^= t_v < 0.f;
+                    x = Msg::load(
+                        Msg::store(t_v - minsum::check_c2v(old, s, scale)));
+                    return true;
+                  }),
+                  sb);
+        } else {
+          for (int s = 0; s < len; ++s) {
+            const int v = ld(chk, s * m + i);
+            if (v != G::kPad) par ^= minsum::gather_total<Msg>(tot[v]) < 0.f;
+          }
+        }
+        fail |= (par & 1u) != 0u;
+      }
+      bad = minsum::lane_sync_or(lane, tpl, fail);
+      if (!bad || it == max_iter) break;
+    }
+    // the totals of the last iteration, each read by the thread that wrote it
+    for (int j = r; j < n; j += tpl) {
+      const float t = tot[j];
+      err_b[j] = t < 0.f ? 1 : 0;
+      post_b[j] = t;
+    }
+    if (r == 0) {
+      conv[b] = bad ? 0 : 1;
+      iters[b] = bad ? max_iter : it;
+    }
+  }
+}
+
 template <class Msg, int kMem, bool kWide>
 int set_smem(int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return 0;
@@ -254,22 +524,75 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
   return (int)cudaGetLastError();
 }
 
+template <class Msg, bool kWide, int kPlanes>
+int set_smem_checks(int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      bp_minsum_checks_kernel<Msg, kWide, kPlanes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+template <class Msg, bool kWide, int kPlanes>
+int launch_checks(const uint8_t* synd, const float* llr0, int llr_per_shot,
+                  const void* chk, const void* edge, const uint8_t* lens,
+                  uint8_t* err,
+                  float* post, uint8_t* conv, int32_t* iters, int* next,
+                  int m, int n, int rw, int cw, int B, int max_iter,
+                  float scale, int lanes, int tpl, int grid, int smem_bytes,
+                  void* stream) {
+  constexpr int kMaxRw = kWide ? minsum::kMaxRowWeight
+                                : minsum::mask_slots<unsigned>();
+  const CheckOffsets o(m, n, rw, cw, kWide, kPlanes == 0, !llr_per_shot);
+  // 16-bit planes number edges and variables below 0xFFFF
+  const bool narrow = (long long)m * rw < minsum::kPad && n < minsum::kPad;
+  if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
+      lanes * tpl > kMaxThreads || rw < 1 || rw > kMaxRw || grid < 1 ||
+      smem_bytes < (long long)(o.lanes + lanes * o.lane) ||
+      (kPlanes < 2 && !narrow) || cw > 254 || lens == nullptr)
+    return -1;
+  const int e = set_smem_checks<Msg, kWide, kPlanes>(smem_bytes);
+  if (e != 0) return e;
+  bp_minsum_checks_kernel<Msg, kWide, kPlanes>
+      <<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
+          synd, llr0, llr_per_shot, chk, edge, lens, err, post, conv, iters,
+          next, m, n, rw, cw, B, max_iter, scale, tpl);
+  return (int)cudaGetLastError();
+}
+
 // mem 0: the shared-memory mode; 1 and 2: the device-memory modes, lanes
-// in `lanes_g` (chk and edge then 32-bit planes in mode 2); the wide
-// instance for row weights above 32
+// in `lanes_g` (chk and edge then 32-bit planes in mode 2); 3: the
+// check-state mode, its planes in the form `planes` (CheckOffsets); the
+// wide instance for row weights above 32
 template <class Msg>
 int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            const uint16_t* chk, const uint16_t* edge, const uint8_t* slot,
            uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
            int* next, int m, int n, int rw, int cw, int B, int max_iter,
            float scale, int lanes, int tpl, int grid, int smem_bytes, int mem,
-           unsigned char* lanes_g, void* stream) {
+           int planes, const uint8_t* lens, unsigned char* lanes_g,
+           void* stream) {
+#define BP_MINSUM_CHECKS(WIDE, PLANES)                                  \
+  return launch_checks<Msg, WIDE, PLANES>(                              \
+      synd, llr0, llr_per_shot, chk, edge, lens, err, post, conv, iters, \
+      next, m, n, rw, cw, B, max_iter, scale, lanes, tpl, grid,         \
+      smem_bytes, stream)
 #define BP_MINSUM_LAUNCH(MEM, WIDE)                                     \
   return launch_mem<Msg, MEM, WIDE>(                                    \
       synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, \
       next, m, n, rw, cw, B, max_iter, scale, lanes, tpl, grid,          \
       smem_bytes, lanes_g, stream)
   const bool wide = rw > minsum::mask_slots<unsigned>();
+  if (mem == 3) {
+    switch (planes * 2 + wide) {
+      case 0: BP_MINSUM_CHECKS(false, 0);
+      case 1: BP_MINSUM_CHECKS(true, 0);
+      case 2: BP_MINSUM_CHECKS(false, 1);
+      case 3: BP_MINSUM_CHECKS(true, 1);
+      case 4: BP_MINSUM_CHECKS(false, 2);
+      case 5: BP_MINSUM_CHECKS(true, 2);
+      default: return -1;
+    }
+  }
   switch (mem * 2 + wide) {
     case 0: BP_MINSUM_LAUNCH(0, false);
     case 1: BP_MINSUM_LAUNCH(0, true);
@@ -280,6 +603,7 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
     default: return -1;
   }
 #undef BP_MINSUM_LAUNCH
+#undef BP_MINSUM_CHECKS
 }
 
 template <class Msg, int kMem, bool kWide>
@@ -290,8 +614,29 @@ int resident_mem(int threads, int smem_bytes, int* blocks) {
       blocks, bp_minsum_kernel<Msg, kMem, kWide>, threads, smem_bytes);
 }
 
+template <class Msg, bool kWide, int kPlanes>
+int resident_checks(int threads, int smem_bytes, int* blocks) {
+  const int e = set_smem_checks<Msg, kWide, kPlanes>(smem_bytes);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, bp_minsum_checks_kernel<Msg, kWide, kPlanes>, threads,
+      smem_bytes);
+}
+
 template <class Msg>
-int resident(int threads, int smem_bytes, int mem, int wide, int* blocks) {
+int resident(int threads, int smem_bytes, int mem, int planes, int wide,
+             int* blocks) {
+  if (mem == 3) {
+    switch (planes * 2 + (wide != 0)) {
+      case 0: return resident_checks<Msg, false, 0>(threads, smem_bytes, blocks);
+      case 1: return resident_checks<Msg, true, 0>(threads, smem_bytes, blocks);
+      case 2: return resident_checks<Msg, false, 1>(threads, smem_bytes, blocks);
+      case 3: return resident_checks<Msg, true, 1>(threads, smem_bytes, blocks);
+      case 4: return resident_checks<Msg, false, 2>(threads, smem_bytes, blocks);
+      case 5: return resident_checks<Msg, true, 2>(threads, smem_bytes, blocks);
+      default: return -1;
+    }
+  }
   switch (mem * 2 + (wide != 0)) {
     case 0: return resident_mem<Msg, 0, false>(threads, smem_bytes, blocks);
     case 1: return resident_mem<Msg, 0, true>(threads, smem_bytes, blocks);
@@ -312,11 +657,12 @@ extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
                                 int* next, int m, int n, int rw, int cw, int B,
                                 int max_iter, float scale, int lanes, int tpl,
                                 int grid, int smem_bytes, int mem,
+                                int planes, const uint8_t* lens,
                                 unsigned char* lanes_g, void* stream) {
   return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
                                 err, post, conv, iters, next, m, n, rw, cw, B,
                                 max_iter, scale, lanes, tpl, grid, smem_bytes,
-                                mem, lanes_g, stream);
+                                mem, planes, lens, lanes_g, stream);
 }
 
 // the bf16 head: one channel-LLR vector shared by the shots
@@ -329,20 +675,23 @@ extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
                                      int rw, int cw, int B, int max_iter,
                                      float scale, int lanes, int tpl,
                                      int grid, int smem_bytes, int mem,
+                                     int planes, const uint8_t* lens,
                                      unsigned char* lanes_g, void* stream) {
   return launch<minsum::Bf16Msg>(synd, llr0, 0, chk, edge, slot, err, post,
                                  conv, iters, next, m, n, rw, cw, B, max_iter,
                                  scale, lanes, tpl, grid, smem_bytes, mem,
-                                 lanes_g, stream);
+                                 planes, lens, lanes_g, stream);
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM
-// holds at once in memory mode `mem`, of the wide instance with `wide`
+// holds at once in memory mode `mem` (plane form `planes` in mode 3), of
+// the wide instance with `wide`
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 extern "C" int bp_minsum_resident(int bf16, int threads, int smem_bytes,
-                                  int mem, int wide, int* blocks) {
-  return bf16 ? resident<minsum::Bf16Msg>(threads, smem_bytes, mem, wide,
-                                          blocks)
-              : resident<minsum::F32Msg>(threads, smem_bytes, mem, wide,
-                                         blocks);
+                                  int mem, int planes, int wide,
+                                  int* blocks) {
+  return bf16 ? resident<minsum::Bf16Msg>(threads, smem_bytes, mem, planes,
+                                          wide, blocks)
+              : resident<minsum::F32Msg>(threads, smem_bytes, mem, planes,
+                                         wide, blocks);
 }

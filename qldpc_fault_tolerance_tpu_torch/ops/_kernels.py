@@ -24,7 +24,8 @@ same branch as the launch, so only replays that run the branch count;
 The min-sum and elimination wrappers launch their kernels in the memory mode
 (``MEMORY_MODES``) that their layouts pick from the shape.
 ``force_memory(mode)`` fixes the mode instead, so that a timing run can hold
-the modes against each other at one shape.
+the modes against each other at one shape; ``force_planes(form)`` fixes the
+plane form (``PLANE_FORMS``) of the min-sum kernels' check-state mode.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ from ..utils.device import capturing
 
 __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
            "force_eager", "eager_forced", "MEMORY_MODES", "force_memory",
-           "memory_mode", "check_launch", "count_launch", "launch_counts",
+           "memory_mode", "PLANE_FORMS", "force_planes", "planes_form",
+           "check_launch", "count_launch", "launch_counts",
            "fold_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -255,8 +257,10 @@ def fold_launch_counts(device, values) -> None:
 # where a kernel keeps one shot's working set: in its block's shared memory;
 # in a device-memory scratch (the min-sum kernels keep their 16-bit planes
 # staged); in a device-memory scratch with the graph's 32-bit planes read
-# from device memory too (the min-sum kernels only)
-MEMORY_MODES = ("shared", "device", "device_planes")
+# from device memory too (the min-sum kernels only); as one record per
+# check and the totals in shared memory, the planes staged or read from
+# device memory (the min-sum kernels' check-state mode only)
+MEMORY_MODES = ("shared", "device", "device_planes", "checks")
 
 
 @contextlib.contextmanager
@@ -278,3 +282,31 @@ def memory_mode() -> str:
     """The mode ``force_memory`` fixes, else ``"auto"``: the layout's
     choice."""
     return getattr(_force, "memory", "auto")
+
+
+# where the min-sum kernels' check-state mode ("checks") reads its graph
+# from (csrc/bp_minsum.cu kPlanes, by index): 16-bit planes staged in
+# shared memory, 16-bit planes read from device memory, 32-bit planes read
+# from device memory
+PLANE_FORMS = ("staged16", "global16", "global32")
+
+
+@contextlib.contextmanager
+def force_planes(form: str):
+    """Within the block, the min-sum wrappers' check-state mode reads its
+    planes in ``form`` (one of PLANE_FORMS) in place of the one its layout
+    picks (this thread only)."""
+    if form not in PLANE_FORMS:
+        raise ValueError(f"plane form {form!r} is not one of {PLANE_FORMS}")
+    prev = getattr(_force, "planes", None)
+    _force.planes = form
+    try:
+        yield
+    finally:
+        _force.planes = prev
+
+
+def planes_form():
+    """The plane form ``force_planes`` fixes, else None: the layout's
+    choice."""
+    return getattr(_force, "planes", None)

@@ -19,9 +19,12 @@ launched by ``minsum_layout``: shots per block, threads per shot and grid
 from the batch, so a large batch keeps every SM full of shots that refill
 as they converge and a small one gives each shot up to a whole block.
 Where one shot's messages do not fit a block's shared memory beside the
-planes, the card runs the kernels' device-memory modes instead (the
-messages in a device scratch; with 32-bit planes in device memory too when
-the planes do not fit or 16 bits cannot number the graph), counted in
+planes, the card runs the kernels' check-state mode instead (each shot's
+state one record per check and the totals, in shared memory; the planes
+staged or read from device memory), counted in ``checks_launches``, and
+where not even that fits, their device-memory modes (the messages in a
+device scratch; with 32-bit planes in device memory too when the planes
+do not fit or 16 bits cannot number the graph), counted in
 ``device_launches`` and ``device_planes_launches``.  Row weights up to 32
 run the kernels' 32-bit slot masks, up to 64 (a detector error model's
 window matrix) their wide instances (``minsum_wide``), counted in
@@ -209,6 +212,9 @@ class MinsumPlanes(NamedTuple):
     chk: torch.Tensor   # (rw, m): the variable of edge s * m + i
     edge: torch.Tensor  # (cw, n): variable j's t-th edge in summation order
     slot: torch.Tensor  # (cw, n) uint8: that edge's slot s (0 for padding)
+    # (m + n,) uint8: the length of each check's list, then of each
+    # variable's, up to its last live entry (255 above 254)
+    lens: torch.Tensor
 
 
 def _u16(a) -> torch.Tensor:
@@ -247,14 +253,20 @@ def minsum_planes(graph, wide: bool = False) -> MinsumPlanes:
         edge = np.where(live, var_edge, pad).T
         slot = np.where(live, var_edge // m, 0).T
         dev = graph.chk_idx.device
+    # csrc/bp_minsum.cu's check-state mode walks each list up to its
+    # length and reads no entry past it
+    lens = [np.minimum(np.where((lists != pad).any(axis=1), lists.shape[1] - (
+        lists[:, ::-1] != pad).argmax(axis=1), 0), 255)
+            for lists in (chk.T, edge.T)]
+    lens = torch.from_numpy(np.concatenate(lens).astype(np.uint8)).to(dev)
     slot = torch.from_numpy(np.ascontiguousarray(slot, np.uint8)).to(dev)
     if wide:
         return MinsumPlanes(*(torch.from_numpy(np.ascontiguousarray(
-            a, np.int32)).to(dev) for a in (chk, edge)), slot)
+            a, np.int32)).to(dev) for a in (chk, edge)), slot, lens)
     if not planes16(chk.shape[1], edge.shape[1], chk.shape[0]):
         raise ValueError("the min-sum kernels number edges and variables "
                          "with 16 bits")
-    return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev), slot)
+    return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev), slot, lens)
 
 
 _PLANES: dict = {}
@@ -291,6 +303,31 @@ def minsum_smem_bytes(lanes: int, m: int, n: int, rw: int, cw: int,
     return staged + lanes * per_shot
 
 
+PLANE_FORMS = _kernels.PLANE_FORMS
+
+
+def minsum_checks_bytes(lanes: int, m: int, n: int, rw: int, cw: int,
+                        planes: str = "staged16",
+                        llr_shared: bool = True) -> int:
+    """Dynamic shared memory of csrc/bp_minsum.cu's check-state mode
+    (``"checks"``) for ``lanes`` shots per block: with ``planes`` =
+    ``"staged16"`` the 16-bit planes and the shared channel LLRs, then per
+    shot one 16-byte record per check — min1 and min2, the negative signs
+    of its slots (a 4-byte mask, 8 above row weight 32) and a byte for the
+    first minimum's slot, the sign product and the syndrome bit, which for
+    8-byte masks lies beside the records — and the totals (4 * n), each
+    piece rounded up to 16 bytes."""
+    if planes not in PLANE_FORMS:
+        raise ValueError(f"plane form {planes!r} is not one of {PLANE_FORMS}")
+    staged = 0
+    if planes == "staged16":
+        staged = (_align16(2 * m * rw) + _align16(2 * n * cw)
+                  + (_align16(4 * n) if llr_shared else 0))
+    per_shot = (16 * m + (_align16(m) if minsum_wide(rw) else 0)
+                + _align16(4 * n))
+    return staged + lanes * per_shot
+
+
 class MinsumLayout(NamedTuple):
     lanes: int       # shots a block holds at once
     threads: int     # threads per block: lanes x threads per shot
@@ -301,6 +338,9 @@ class MinsumLayout(NamedTuple):
     # csrc/bp_minsum.cu's kMem
     memory: str = "shared"
     lane_bytes: int = 0     # device scratch per lane (device modes)
+    # the check-state mode's plane form (PLANE_FORMS); the other modes read
+    # staged 16-bit planes, or 32-bit ones in "device_planes"
+    planes: str = "staged16"
 
 
 def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
@@ -327,8 +367,9 @@ def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
     shared memory holds; ``lanes`` fixes the shots per block instead.  The
     grid is the blocks the batch needs, at most ``resident`` (by threads
     and shared memory; the wrapper lowers it to what the card reports,
-    registers included) per SM."""
-    shared = memory == "shared"
+    registers included) per SM.  ``"checks"`` (the check-state mode)
+    keeps its lanes in shared memory as ``"shared"`` does."""
+    shared = memory in ("shared", "checks")
     cap = min(MINSUM_MAX_LANES, (limit - fixed) // per_shot if shared
               else MINSUM_MAX_LANES * (fixed <= limit))
     if cap < 1:
@@ -349,32 +390,81 @@ def lane_layout(B: int, fixed: int, per_shot: int, rows: int, sm_count: int,
                         0 if shared else per_shot)
 
 
+# the check-state mode's largest column weight (MinsumPlanes.lens holds a
+# float32 walk's terms, a variable's live terms and one padded, in a byte)
+CHECKS_MAX_CW = 254
+
+
+def checks_planes(m: int, n: int, rw: int, cw: int,
+                  llr_shared: bool = True) -> str | None:
+    """The plane form of the check-state mode for a graph: its 16-bit
+    planes staged where one shot's check records fit beside them in a
+    block's shared memory, else read from device memory while 16 bits
+    number the graph, else 32-bit planes; None where not even one shot's
+    records fit, or a column is heavier than CHECKS_MAX_CW."""
+    if cw > CHECKS_MAX_CW:
+        return None
+    if planes16(m, n, rw):
+        for form in ("staged16", "global16"):
+            if minsum_checks_bytes(1, m, n, rw, cw, form,
+                                   llr_shared) <= SMEM_LIMIT:
+                return form
+        return None
+    if minsum_checks_bytes(1, m, n, rw, cw, "global32") <= SMEM_LIMIT:
+        return "global32"
+    return None
+
+
 def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
                   sm_count: int, llr_shared: bool = True,
                   lanes: int | None = None,
-                  memory: str = "shared") -> MinsumLayout:
+                  memory: str = "shared",
+                  planes: str | None = None) -> MinsumLayout:
     """The launch of csrc/bp_minsum.cu for a batch of B shots
     (``lane_layout`` with its shared memory, ``minsum_smem_bytes``) in
     ``memory``, one of _kernels.MEMORY_MODES (``"shared"`` raises where not
-    one shot fits a block) or ``"auto"``, as the card's wrappers ask: the
-    shared-memory mode where 16-bit planes number the graph and a shot
-    fits, else ``"device"`` (the lanes' messages in a device scratch, the
-    16-bit planes staged) while the planes fit a block, else
-    ``"device_planes"`` (32-bit planes read from device memory, nothing
-    staged)."""
+    one shot fits a block) or ``"auto"``, as the card's wrappers ask, in
+    this order: the shared-memory mode where 16-bit planes number the
+    graph and a shot fits; else ``"checks"``, the check-state mode (one
+    record per check and the totals per shot in shared memory,
+    ``minsum_checks_bytes``; its planes in the form ``checks_planes``
+    picks, or ``planes`` fixes), wherever one shot's records fit; else
+    ``"device"`` (the lanes' messages in a device scratch, the 16-bit
+    planes staged) while the planes fit a block, else ``"device_planes"``
+    (32-bit planes read from device memory, nothing staged).  Every mode
+    takes ``lane_layout``'s shots per block."""
     minsum_wide(rw)
     fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
     per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
+    narrow = planes16(m, n, rw)
+    form = planes or checks_planes(m, n, rw, cw, llr_shared)
     if memory == "auto":
-        narrow = planes16(m, n, rw)
         memory = ("shared" if narrow and fixed + per_shot <= SMEM_LIMIT
+                  else "checks" if form is not None
                   else "device" if narrow and fixed <= SMEM_LIMIT
                   else "device_planes")
     if memory not in _kernels.MEMORY_MODES:
         raise ValueError(f"min-sum memory {memory!r} is not one of "
                          f"{_kernels.MEMORY_MODES} or 'auto'")
+    if memory == "checks":
+        if form is None or cw > CHECKS_MAX_CW:
+            raise ValueError(
+                f"the min-sum kernels: one shot's check records "
+                f"({minsum_checks_bytes(1, m, n, rw, cw, 'global32')} "
+                f"bytes) exceed {SMEM_LIMIT} bytes of shared memory, or "
+                f"column weight {cw} exceeds {CHECKS_MAX_CW}")
+        if form != "global32" and not narrow:
+            raise ValueError("the min-sum kernels number edges and "
+                             "variables with 16 bits")
+        fixed = minsum_checks_bytes(0, m, n, rw, cw, form, llr_shared)
+        per_shot = minsum_checks_bytes(1, m, n, rw, cw, form,
+                                       llr_shared) - fixed
+        return lane_layout(B, fixed, per_shot, max(m, n), sm_count, lanes,
+                           memory=memory)._replace(planes=form)
     return lane_layout(B, 0 if memory == "device_planes" else fixed,
-                       per_shot, max(m, n), sm_count, lanes, memory=memory)
+                       per_shot, max(m, n), sm_count, lanes, memory=memory
+                       )._replace(planes="global32" if memory == "device_planes"
+                                  else "staged16")
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,32 +474,35 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int,
-                    memory: str = "shared", wide: bool = False) -> int:
-    """Blocks of csrc/bp_minsum.cu (in ``memory``; its wide instance with
-    ``wide``) that one SM of CUDA device ``index`` holds at once
+                    memory: str = "shared", wide: bool = False,
+                    planes: str = "staged16") -> int:
+    """Blocks of csrc/bp_minsum.cu (in ``memory``, with the check-state
+    mode's plane form ``planes``; its wide instance with ``wide``) that one
+    SM of CUDA device ``index`` holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     fn = _kernels.library("bp_minsum").bp_minsum_resident
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = fn(int(bf16), threads, smem_bytes,
-                _kernels.MEMORY_MODES.index(memory), int(wide),
+                _kernels.MEMORY_MODES.index(memory),
+                PLANE_FORMS.index(planes), int(wide),
                 ctypes.addressof(blocks))
     _kernels.check_launch("bp_minsum_resident", rc)
     return blocks.value
 
 
 def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
-                       memory="auto"):
-    """``minsum_layout`` on CUDA device ``dev`` (by default a device-memory
-    mode where the shared one does not fit): its SM count, and the grid
-    lowered to the blocks the card holds at once."""
+                       memory="auto", planes=None):
+    """``minsum_layout`` on CUDA device ``dev`` (by default the check-state
+    or a device-memory mode where the shared one does not fit): its SM
+    count, and the grid lowered to the blocks the card holds at once."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared,
-                        memory=memory)
+                        memory=memory, planes=planes)
     held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes,
-                           lay.memory, minsum_wide(rw))
+                           lay.memory, minsum_wide(rw), lay.planes)
     if held < 1:
         raise ValueError(f"the min-sum kernels: a block of {lay.threads} "
                          f"threads and {lay.smem_bytes} bytes does not fit")
@@ -431,12 +524,13 @@ def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
     else:                          # a head's planes
         rw, (n, cw) = graph.chk_idx.shape[0], graph.var_edge.shape
     lay = card_minsum_layout(dev, B, m, n, rw, cw, bf16, not per_shot,
-                             _kernels.memory_mode())
+                             _kernels.memory_mode(), _kernels.planes_form())
     lanes_g = None
-    if lay.memory != "shared":
+    if lay.lane_bytes:
         lanes_g = torch.empty((lay.grid * lay.lanes * lay.lane_bytes,),
                               dtype=torch.uint8, device=dev)
-    pointers = inputs(_planes_of(graph, wide=lay.memory == "device_planes"))
+    planes = _planes_of(graph, wide=lay.planes == "global32")
+    pointers = inputs(planes)
     err = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = torch.empty((B, n), dtype=torch.float32, device=dev)
     conv = torch.empty((B,), dtype=torch.uint8, device=dev)
@@ -446,12 +540,13 @@ def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [type(a) if isinstance(a, ctypes.c_int) else p
                    for a in pointers] + [p] * 5 + [i] * 6 + [ctypes.c_float] \
-        + [i] * 5 + [p, p]
+        + [i] * 6 + [p, p, p]
     fn.restype = ctypes.c_int
     rc = _stream_call(fn, dev, *pointers, *outs, m, n, rw, cw, B,
                       int(max_iter), float(scale), lay.lanes,
                       lay.threads // lay.lanes, lay.grid, lay.smem_bytes,
                       _kernels.MEMORY_MODES.index(lay.memory),
+                      PLANE_FORMS.index(lay.planes), planes.lens.data_ptr(),
                       None if lanes_g is None else lanes_g.data_ptr())
     _kernels.check_launch(name, rc)
     return (err, conv.to(torch.bool), post, iters), lay.memory
@@ -487,6 +582,8 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
                           memory == "device")
     _kernels.count_launch(bp_minsum, "device_planes_launches", dev,
                           memory == "device_planes")
+    _kernels.count_launch(bp_minsum, "checks_launches", dev,
+                          memory == "checks")
     _kernels.count_launch(bp_minsum, "wide_launches", dev, minsum_wide(rw))
     return out
 
@@ -498,6 +595,7 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
     ``(error (B, n) uint8, converged (B,) bool, posterior_llr (B, n) f32,
     iterations (B,) int32)``.  CUDA tensors launch the kernel (or raise) in
     the memory mode ``minsum_layout`` picks: ``launches`` counts them,
+    ``checks_launches`` those in the check-state mode,
     ``device_launches`` and ``device_planes_launches`` those in each
     device-memory mode, ``wide_launches`` those of the wide instance (row
     weights 33-64).  CPU tensors run ``minsum_plain``."""
@@ -514,6 +612,7 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
 bp_minsum.launches = 0
 bp_minsum.device_launches = 0
 bp_minsum.device_planes_launches = 0
+bp_minsum.checks_launches = 0
 bp_minsum.wide_launches = 0
 
 
@@ -1116,6 +1215,8 @@ def _launch_bf16(head, synd, llr0, head_iters, scale):
                           memory == "device")
     _kernels.count_launch(bp_head_bf16, "device_planes_launches", dev,
                           memory == "device_planes")
+    _kernels.count_launch(bp_head_bf16, "checks_launches", dev,
+                          memory == "checks")
     _kernels.count_launch(bp_head_bf16, "wide_launches", dev,
                           minsum_wide(head.rw))
     return out
@@ -1146,4 +1247,5 @@ def bp_head_bf16(head, syndromes, channel_llr, *, head_iters: int,
 bp_head_bf16.launches = 0
 bp_head_bf16.device_launches = 0
 bp_head_bf16.device_planes_launches = 0
+bp_head_bf16.checks_launches = 0
 bp_head_bf16.wide_launches = 0

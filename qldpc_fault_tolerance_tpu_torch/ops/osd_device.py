@@ -365,7 +365,8 @@ def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
     a scratch of ``scratch_bytes`` per shot (it raises only where not even
     the walk's state fits); ``"auto"``, as the card's wrappers ask, the
     first where it fits, else the second.  (The elimination has no
-    ``"device_planes"`` mode: it reads no graph planes.)"""
+    ``"device_planes"`` or ``"checks"`` mode: it reads no graph planes and
+    keeps no check records.)"""
     if mode not in ELIM_MODES:
         raise ValueError(f"elimination mode {mode!r} is not one of {ELIM_MODES}")
     if not 0 <= fcap <= (0 if mode == "percol" else 32):

@@ -86,15 +86,22 @@ def test_launches_above_64_raise_before_the_kernel(bf16):
 def test_layouts_at_the_dem_shapes():
     """h1 of hgp_34_n625 (900 x 9600, rw 59, cw 12): the staged planes are
     2 * 53,100 -> 106,208 + 2 * 115,200 + 4 * 9600 = 375,008 B, above a
-    block's 232,448, so kernel 1 takes its device-memory mode with 32-bit
-    planes, a lane's 4 + 4 bytes an edge, 4 * 9600 totals and 900 syndrome
-    bits in the scratch (464,112 B); h2 (300 x 1825, rw 40, cw 12) fits the
+    block's 232,448, so kernel 1 takes its check-state mode with 16-bit
+    planes read from device memory: a shot's 900 records of 16 B, their
+    900 bytes (912) and 4 * 9600 totals, 53,712 B of shared memory, one
+    shot a block.  Its device-memory mode with 32-bit planes, fixed, keeps
+    a lane's 4 + 4 bytes an edge, 4 * 9600 totals and 900 syndrome bits in
+    the scratch (464,112 B); h2 (300 x 1825, rw 40, cw 12) fits the
     bf16 head's shared mode: 24,000 + 43,808 + 21,904 + 7,312 = 97,024 B
     staged and 48,000 + 24,000 + 7,312 + 304 = 79,616 B a shot."""
     assert bk.minsum_smem_bytes(0, 900, 9600, 59, 12, False) == 375_008
     assert bk.planes16(900, 9600, 59)
     lay = bk.minsum_layout(2048, 900, 9600, 59, 12, False, SMS,
                            memory="auto")
+    assert (lay.memory, lay.planes, lay.lanes, lay.threads, lay.smem_bytes,
+            lay.lane_bytes) == ("checks", "global16", 1, 1024, 53_712, 0)
+    lay = bk.minsum_layout(2048, 900, 9600, 59, 12, False, SMS,
+                           memory="device_planes")
     assert (lay.memory, lay.lanes, lay.threads, lay.smem_bytes,
             lay.lane_bytes) == ("device_planes", 1, 1024, 0, 464_112)
     assert bk.minsum_smem_bytes(0, 300, 1825, 40, 12, True) == 97_024

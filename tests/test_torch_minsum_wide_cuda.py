@@ -1,8 +1,12 @@
 """The min-sum kernels' wide instances on the card: kernel 1 and the bf16
 head at row weights 33, 40, 59 and 64, in each memory mode (shared memory,
-lanes in device memory, 32-bit planes in device memory too), the int8 head
-(B6) and the fused decode (B5) in both message modes at the same row
-weights, against their plain versions.  Tolerance: none, every output bit-exact (the kernels are
+lanes in device memory, 32-bit planes in device memory too, one record per
+check in shared memory), the int8 head (B6) and the fused decode (B5) in
+both message modes at the same row weights, against their plain versions.
+The check-state mode (``"checks"``) also at row weight 7, in each of its
+plane forms (16-bit planes staged, 16-bit or 32-bit planes read from
+device memory), at 1, 256 and 2048 shots and 0, 1, 3 and 50 iterations,
+and at the small random shapes that once broke the 32-bit-plane mode.  Tolerance: none, every output bit-exact (the kernels are
 built with -fmad=false and keep the plain versions' order).  Needs an
 NVIDIA GPU; skips without one."""
 import numpy as np
@@ -155,3 +159,63 @@ def test_wide_fused_decode_matches_plain(cuda, rw, quantize):
         for field in ("converged", "iterations"):
             assert torch.equal(a[field], b[field]), field
     assert int(k[3]["iterations"].max()) > 1
+
+
+def _minsum_fn(h, synd, llr, bf16, dev, iters):
+    """The decode of kernel 1 (f32) or the bf16 head on H and its counter."""
+    g = tbp.build_tanner_graph_host(h)
+    if bf16:
+        head = bk.build_sparse_head(g, dev)
+        return (lambda: bk.bp_head_bf16(head, synd, llr, head_iters=iters),
+                bk.bp_head_bf16)
+    graph = tbp.graph_to(g, dev)
+    return (lambda: bk.bp_minsum(graph, synd, llr, max_iter=iters),
+            bk.bp_minsum)
+
+
+def _checks_vs_plain(fn, counter, planes):
+    """``fn`` in the check-state mode with ``planes``, one launch counted
+    there and none in the device-memory modes, against its plain version
+    bit for bit."""
+    count = lambda: (counter.launches, counter.checks_launches,  # noqa: E731
+                     counter.device_launches, counter.device_planes_launches)
+    before = count()
+    with _kernels.force_memory("checks"), _kernels.force_planes(planes):
+        k = fn()
+    torch.cuda.synchronize()
+    assert count() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    with _kernels.force_plain():
+        p = fn()
+    _same(k, p)
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", _kernels.PLANE_FORMS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rw", [7, 33, 40, 59, 64])
+def test_check_state_mode_matches_plain(cuda, rw, bf16, planes):
+    h, synd, llr = _case(rw, cuda, B=256)
+    k = _checks_vs_plain(*_minsum_fn(h, synd, llr, bf16, cuda, 50), planes)
+    assert int(k[3].max()) > 1  # the decode iterated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iter", [0, 1, 3, 50])
+@pytest.mark.parametrize("B", [1, 256, 2048])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_check_state_mode_at_each_batch_and_depth(cuda, bf16, B, max_iter):
+    h, synd, llr = _case(7, cuda, B=B, p=0.03)
+    fn, counter = _minsum_fn(h, synd, llr, bf16, cuda, max_iter)
+    for planes in _kernels.PLANE_FORMS:
+        _checks_vs_plain(fn, counter, planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", _kernels.PLANE_FORMS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rw,m,n,B", [(7, 120, 600, 1), (7, 120, 600, 96),
+                                      (7, 250, 600, 96), (32, 120, 600, 256)])
+def test_check_state_mode_at_small_shapes(cuda, rw, m, n, B, bf16, planes):
+    h, synd, llr = _case(rw, cuda, m=m, n=n, B=B)
+    _checks_vs_plain(*_minsum_fn(h, synd, llr, bf16, cuda, 25), planes)

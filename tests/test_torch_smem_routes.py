@@ -145,6 +145,9 @@ def test_elim_keeps_the_smaller_extended_matrices_in_shared_memory():
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 256, 4096])
 def test_minsum_routes_the_three_copy_stack(bf16, B):
+    """The layout takes the check-state mode with its 16-bit planes staged
+    (122,112 B of planes and LLRs, 65,280 B of records and totals a shot);
+    the device-memory mode, fixed, keeps its layout."""
     m, n, rw, cw = _shape(("hgp_34_n1600", 3))
     assert (m, n, rw, cw) == (2304, 7104, 8, 4)
     need = bk.minsum_smem_bytes(1, m, n, rw, cw, bf16)
@@ -152,6 +155,10 @@ def test_minsum_routes_the_three_copy_stack(bf16, B):
     with pytest.raises(ValueError, match="exceed"):
         bk.minsum_layout(B, m, n, rw, cw, bf16, SMS)
     lay = bk.minsum_layout(B, m, n, rw, cw, bf16, SMS, memory="auto")
+    assert (lay.memory, lay.planes, lay.lanes, lay.smem_bytes,
+            lay.lane_bytes) == ("checks", "staged16", 1, 122_112 + 65_280, 0)
+    assert lay.grid == min(B, SMS)
+    lay = bk.minsum_layout(B, m, n, rw, cw, bf16, SMS, memory="device")
     fixed = bk.minsum_smem_bytes(0, m, n, rw, cw, bf16)
     assert lay.memory == "device"          # the 16-bit planes stay staged
     assert lay.smem_bytes == fixed <= bk.SMEM_LIMIT
@@ -164,8 +171,17 @@ def test_minsum_routes_the_three_copy_stack(bf16, B):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_minsum_takes_32_bit_planes_past_65535_edges(bf16):
+    """Eleven copies: the check-state mode's records and totals (16 * 8448
+    + 4 * 26,048 = 239,360 B) exceed a block, so the layout takes the
+    device-memory mode with 32-bit planes; a wider graph whose records fit
+    takes the check-state mode with 32-bit planes."""
     m, n, rw, cw = _shape(("hgp_34_n1600", 11))
     assert m * rw == 67584 >= bk.PAD16 and not bk.planes16(m, n, rw)
+    assert bk.minsum_checks_bytes(1, m, n, rw, cw, "global32") == 239_360
+    assert bk.checks_planes(m, n, rw, cw) is None
+    lay = bk.minsum_layout(2000, 2000, 8000, 33, 30, bf16, SMS, memory="auto")
+    assert (lay.memory, lay.planes, lay.smem_bytes) == (
+        "checks", "global32", 16 * 2000 + 2000 + 4 * 8000)
     lay = bk.minsum_layout(256, m, n, rw, cw, bf16, SMS, memory="auto")
     assert lay.memory == "device_planes"
     assert lay.smem_bytes == 0
@@ -174,14 +190,23 @@ def test_minsum_takes_32_bit_planes_past_65535_edges(bf16):
 
 
 def test_minsum_takes_device_planes_when_16_bit_planes_do_not_fit():
+    """Seven copies: the 16-bit planes do not fit a block, so the layout
+    takes the check-state mode with them read from device memory (records
+    and totals 16 * 5376 + 4 * 16,576 = 152,320 B); fixed, the
+    device-memory mode with 32-bit planes keeps its layout."""
     m, n, rw, cw = _shape(("hgp_34_n1600", 7))
     assert bk.planes16(m, n, rw)
     assert bk.minsum_smem_bytes(0, m, n, rw, cw, True) > bk.SMEM_LIMIT
     lay = bk.minsum_layout(64, m, n, rw, cw, True, SMS, memory="auto")
+    assert (lay.memory, lay.planes, lay.smem_bytes) == ("checks", "global16",
+                                                        152_320)
+    lay = bk.minsum_layout(64, m, n, rw, cw, True, SMS,
+                           memory="device_planes")
     assert lay.memory == "device_planes" and lay.smem_bytes == 0
 
 
-@pytest.mark.parametrize("memory", ["shared", "device", "device_planes"])
+@pytest.mark.parametrize("memory", ["shared", "device", "device_planes",
+                                    "checks"])
 def test_minsum_modes_can_be_fixed(memory):
     m, n = _h("hgp_34_n1600").shape
     lay = bk.minsum_layout(4096, m, n, 7, 4, True, SMS, memory=memory)
@@ -189,7 +214,8 @@ def test_minsum_modes_can_be_fixed(memory):
     assert lay.memory == memory
     assert lay.smem_bytes == {"shared": bk.minsum_smem_bytes(
         lay.lanes, m, n, 7, 4, True), "device": fixed,
-        "device_planes": 0}[memory]
+        "device_planes": 0, "checks": bk.minsum_checks_bytes(
+            lay.lanes, m, n, 7, 4, "staged16")}[memory]
     with pytest.raises(ValueError, match="memory"):
         bk.minsum_layout(4096, m, n, 7, 4, True, SMS, memory="global")
 
@@ -197,11 +223,15 @@ def test_minsum_modes_can_be_fixed(memory):
 def test_force_memory_fixes_one_vocabulary_and_restores():
     """The wrappers read ``memory_mode()``: "auto" (the layouts' choice)
     unless ``force_memory`` fixes one of MEMORY_MODES; the elimination has
-    no graph planes, so its layout refuses "device_planes"."""
+    no graph planes and no check records, so its layout refuses
+    "device_planes" and "checks"."""
     assert _kernels.memory_mode() == "auto"
     with _kernels.force_memory("device"):
         assert _kernels.memory_mode() == "device"
         with _kernels.force_memory("device_planes"):
+            assert _kernels.memory_mode() == "device_planes"
+            with _kernels.force_memory("checks"):
+                assert _kernels.memory_mode() == "checks"
             assert _kernels.memory_mode() == "device_planes"
         assert _kernels.memory_mode() == "device"
     assert _kernels.memory_mode() == "auto"
@@ -212,8 +242,9 @@ def test_force_memory_fixes_one_vocabulary_and_restores():
     for memory in _kernels.MEMORY_MODES[:2]:
         assert tod.elim_layout(256, m, n, 10, "skip", SMS,
                                memory=memory).memory == memory
-    with pytest.raises(ValueError, match="memory"):
-        tod.elim_layout(256, m, n, 10, "skip", SMS, memory="device_planes")
+    for memory in ("device_planes", "checks"):
+        with pytest.raises(ValueError, match="memory"):
+            tod.elim_layout(256, m, n, 10, "skip", SMS, memory=memory)
 
 
 def test_32_bit_planes_hold_the_16_bit_planes_values():
@@ -386,17 +417,20 @@ def test_elim_device_memory_mode_matches_plain(cuda, full, percol):
 @pytest.mark.parametrize("copies,memory", [(3, "device"),
                                            (11, "device_planes")])
 def test_minsum_device_memory_modes_match_plain(cuda, copies, memory):
+    """The device-memory modes, which the layout now takes only where not
+    even the check-state mode fits, fixed by force_memory."""
     h = _matrix(("hgp_34_n1600", copies))
     graph = tbp.build_tanner_graph(h, cuda)
     synd = _synd(h, 96, 0.02, copies).to(cuda)
     llr = tbp.llr_from_probs(np.full(h.shape[1], 0.02), cuda)
     m, n = h.shape
     lay = bk.card_minsum_layout(cuda, 96, m, n, *graph.chk_nbr.shape[1:],
-                                graph.var_nbr.shape[1], False)
+                                graph.var_nbr.shape[1], False, memory=memory)
     assert lay.memory == memory
     counts = (bk.bp_minsum.device_launches,
               bk.bp_minsum.device_planes_launches)
-    k = bk.bp_minsum(graph, synd, llr, max_iter=20)
+    with _kernels.force_memory(memory):
+        k = bk.bp_minsum(graph, synd, llr, max_iter=20)
     assert (bk.bp_minsum.device_launches,
             bk.bp_minsum.device_planes_launches) == \
         (counts[0] + (memory == "device"), counts[1] + (memory != "device"))
@@ -413,10 +447,56 @@ def test_bf16_head_device_memory_mode_matches_plain(cuda):
     synd = _synd(h, 64, 0.02, 5).to(cuda)
     llr = tbp.llr_from_probs(np.full(h.shape[1], 0.02), cuda)
     before = bk.bp_head_bf16.device_launches
-    k = bk.bp_head_bf16(head, synd, llr, head_iters=12)
+    with _kernels.force_memory("device"):
+        k = bk.bp_head_bf16(head, synd, llr, head_iters=12)
     assert bk.bp_head_bf16.device_launches == before + 1
     with _kernels.force_plain():
         p = bk.bp_head_bf16(head, synd, llr, head_iters=12)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def _wide_random(m=2000, n=8000, rw=33, seed=6):
+    """A random H whose rows all have weight ``rw``: 66,000 edges at the
+    defaults, past what 16 bits number, with check records that fit."""
+    rng = np.random.default_rng(seed)
+    h = np.zeros((m, n), np.uint8)
+    for i in range(m):
+        h[i, rng.choice(n, rw, replace=False)] = 1
+    return h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("copies,planes", [(3, "staged16"), (7, "global16"),
+                                           (0, "global32")])
+def test_minsum_check_state_mode_matches_plain(cuda, copies, planes, bf16):
+    """The layout's own pick past shared memory: the check-state mode, its
+    planes staged (three copies of [H|I]), read from device memory (seven)
+    and 32-bit (a random 2000 x 8000 matrix of row weight 33: 66,000
+    edges)."""
+    h = _matrix(("hgp_34_n1600", copies)) if copies else _wide_random()
+    g = tbp.build_tanner_graph_host(h)
+    synd = _synd(h, 96, 0.02, copies).to(cuda)
+    llr = tbp.llr_from_probs(np.full(h.shape[1], 0.02), cuda)
+    (m, rw), (n, cw) = g.chk_nbr.shape, g.var_nbr.shape
+    lay = bk.card_minsum_layout(cuda, 96, m, n, rw, cw, bf16)
+    assert (lay.memory, lay.planes) == ("checks", planes)
+    if bf16:
+        head = bk.build_sparse_head(g, cuda)
+        run, counter = (lambda: bk.bp_head_bf16(head, synd, llr,
+                                                head_iters=20)), bk.bp_head_bf16
+    else:
+        graph = tbp.graph_to(g, cuda)
+        run, counter = (lambda: bk.bp_minsum(graph, synd, llr,
+                                             max_iter=20)), bk.bp_minsum
+    before = (counter.checks_launches, counter.device_launches,
+              counter.device_planes_launches)
+    k = run()
+    assert (counter.checks_launches, counter.device_launches,
+            counter.device_planes_launches) == (before[0] + 1, *before[1:])
+    with _kernels.force_plain():
+        p = run()
     for a, b in zip(k, p):
         assert torch.equal(a, b)
 
