@@ -51,8 +51,8 @@ Phases (any failure raises and the script exits non-zero):
      modes), error against the plain version, times, bound; the bf16 head
      has a second entry for the v1 tag's route (it replaces the dense
      one-hot B9 too), with phase 22's launches; and one entry for each
-     device-memory and check-state mode of phase 27, with its launches in
-     phases 28-30 and 33 (kernel 1's check-state mode, bp_minsum_checks,
+     device-memory, transform and check-state mode of phase 27, with its
+     launches in phases 28-30 and 33 (kernel 1's check-state mode, bp_minsum_checks,
      with phase 33's numbers: the one phenomenological main path that
      launches it); and the min-sum kernels' wide instances at phase 36's
      shapes, kernel 1's in its check-state mode on h1
@@ -133,10 +133,16 @@ Phases (any failure raises and the script exits non-zero):
      kernel path's failures and min weight
  26. main path, float32: phase 5's run with BPDecoder(bp_kernel="xla"),
      kernel 1 (min-sum, float32 messages) in head and tail
- 27. the device-memory modes, which the card takes where one shot does
-     not fit a block's shared memory, against their plain versions: the
-     elimination in its three modes on [H|I] of hgp_34_n1600 (768 x 2368,
-     233,816 B a shot) at 256, 512 and 2048 shots (phase 30's tier);
+ 27. the modes the card takes where one shot does not fit a block's
+     shared memory, against their plain versions: the elimination on
+     [H|I] of hgp_34_n1600 (768 x 2368, 233,816 B a shot) at 256, 512 and
+     2048 shots (phase 30's tier), the blocked routes in the transform mode
+     the layout picks (the shot's 768 x 768 row transform in shared memory)
+     and, fixed, in the device-memory mode, the per-column route in the
+     device-memory mode; each launch counted in its mode; the transform
+     walk's word operations (ops/osd_device.py transform_work) beside the
+     matrix walk's (elimination_work), the smaller bounding the transform
+     rows;
      kernel 1 and the bf16 head on three copies of that [H|I] (2304 x
      7104, ~300 KB of messages a shot) in the check-state mode the layout
      picks (one record per check and the totals in shared memory, the
@@ -145,7 +151,8 @@ Phases (any failure raises and the script exits non-zero):
      kernel 1 on eleven copies (67,584 edges: 32-bit planes, and records
      beyond a block); every output bit-exact; each mode timed, and against
      the shared-memory mode at a shape all run (hgp_34_n1600's H), the
-     modes fixed by _kernels.force_memory
+     modes fixed by _kernels.force_memory (the elimination's transform
+     mode there too)
  28. main path, the phenomenological engine (the Threshold notebook's
      cell, as the JAX package's sweeps build it): CodeSimulator_Phenon on
      hgp_34_n625, decoder 1 BP (max_iter N/30, min-sum 0.625) on [H|I],
@@ -158,13 +165,14 @@ Phases (any failure raises and the script exits non-zero):
      the notebook's 0.02 every shot fails), 1 batch of 2048; pinned
  30. main path, BP + OSD-0 on both decoders at hgp_34_n1600 (the
      phenomenological BP+OSD-0 configuration of BASELINE.json): decoder 1's
-     elimination on [H|I] takes the device-memory mode, its min-sum
+     elimination on [H|I] takes the transform mode (no device-memory
+     launch), its min-sum
      decodes shared memory (no check-state or device-memory launch
      counted); eval_p 0.02, 9 rounds, 2 batches of 2048; pinned
  31. anchors: p = q = 0 gives no failure; one phase-28 batch with every
      kernel replaced by its plain version, and with packed=False, gives the
      kernel path's failures and min weight; so does one phase-30 batch
-     (kernel 1, the bf16 head and the elimination's device-memory mode at
+     (kernel 1, the bf16 head and the elimination's transform mode at
      phase 30's shapes) with every kernel replaced; fused_sampler="v2" on six
      copies of hgp_34_n625 (n = 3750, which the fused kernel cannot take)
      runs as fused v1, its fallback counted, with v1's failures
@@ -323,9 +331,9 @@ PHENOM29_P = 0.01
 # phases 4 and 14 hold the elimination's three modes at these shots: 256,
 # and the 512-shot straggler tier of phase 6's batches of 2048
 ELIM_SHOTS = (256, 512)
-# phase 27 holds the elimination's device-memory mode on [H|I] of
-# hgp_34_n1600 at these shots: its launch layouts at 256 and 512, and the
-# 2048-shot tier that phase 30's decoder 1 launches
+# phase 27 holds the elimination's transform and device-memory modes on
+# [H|I] of hgp_34_n1600 at these shots: its launch layouts at 256 and 512,
+# and the 2048-shot tier that phase 30's decoder 1 launches
 ELIM27_SHOTS = (256, 512, 2048)
 
 
@@ -931,6 +939,11 @@ def run_phases(dem_job) -> int:
                 "osd_elim_full_device": (tod.osd_elim, "full_device_launches"),
                 "osd_elim_percol_device": (tod.osd_elim_percol,
                                            "device_launches"),
+                # launches of the elimination's transform mode (among the
+                # above)
+                "osd_elim_transform": (tod.osd_elim, "transform_launches"),
+                "osd_elim_full_transform": (tod.osd_elim,
+                                            "full_transform_launches"),
                 "bp_minsum_device": (bp_minsum, "device_launches"),
                 "bp_minsum_device_planes": (bp_minsum,
                                             "device_planes_launches"),
@@ -1773,8 +1786,9 @@ def run_phases(dem_job) -> int:
         raise AssertionError(f"float32 (failures, min_w) {run26} != "
                              f"{MINSUM_RUNS['26']}")
 
-    # 27. the device-memory modes against their plain versions, at shapes
-    # whose one shot does not fit a block's shared memory
+    # 27. the transform, device-memory and check-state modes against their
+    # plain versions, at shapes whose one shot does not fit a block's
+    # shared memory
     with np.load(ROOT / "codes_lib_tpu" / "hgp_34_n1600.npz") as z16:
         h16 = z16["hx"].astype(np.uint8)
     ext16 = np.hstack([h16, np.eye(h16.shape[0], dtype=np.uint8)])
@@ -1788,7 +1802,8 @@ def run_phases(dem_job) -> int:
     def elim_case(h, B, p):
         """The three elimination modes' runs on B shots of ``h``, permuted
         by their kernel-1 posteriors: {name: (run, out words, fcap, mode)},
-        the packed rows and the syndromes."""
+        the packed rows, the syndromes, the rank, the permutation and each
+        column's rows (ops/osd_device.py col_rows)."""
         mh, nh = h.shape
         sy = synd_of(h, B, p)
         g = tbp.build_tanner_graph(h, dev)
@@ -1810,7 +1825,8 @@ def run_phases(dem_job) -> int:
             "osd_elim_percol": (lambda: tod.osd_elim_percol(
                 pl.packed, pm, s32, n=nh, r_star=rs),
                 mh + 3 * rs + Wh * mh, 0, "percol")}
-        return runs, pk, s32, rs
+        return (runs, pk, s32, rs, pm,
+                tod.col_rows(tod._unpack_rows(pl.packed, nh)))
 
     def ints_equal(name, a, b) -> float:
         err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
@@ -1818,54 +1834,87 @@ def run_phases(dem_job) -> int:
             raise AssertionError(f"{name} differs from its plain version")
         return float(err)
 
-    dmem = {}  # device-memory modes: name -> their kernels-line numbers
+    dmem = {}  # modes past shared memory: name -> their kernels-line numbers
+    elim_counts = ("device_launches", "full_device_launches",
+                   "transform_launches", "full_transform_launches")
+
+    def elim_launched():
+        return ([getattr(tod.osd_elim, a) for a in elim_counts]
+                + [tod.osd_elim_percol.device_launches])
+
     for B27 in ELIM27_SHOTS:
-        runs27, pk27, s27, r27 = elim_case(ext16, B27, 0.03)
+        runs27, pk27, s27, r27, pm27, rows27 = elim_case(ext16, B27, 0.03)
         for name, (run, words, fc, mode) in runs27.items():
+            # the layout's pick: the transform mode for the blocked routes,
+            # the device-memory mode for the per-column one; the blocked
+            # routes' device-memory mode fixed beside it
+            picked = "device" if mode == "percol" else "transform"
             lay = tod.card_elim_layout(dev, B27, me, ne, fc, mode)
-            if lay.memory != "device":
+            if lay.memory != picked:
                 raise AssertionError(f"{name}: [H|I] of hgp_34_n1600 took "
-                                     f"the {lay.memory} mode")
-            before = (tod.osd_elim.device_launches,
-                      tod.osd_elim.full_device_launches,
-                      tod.osd_elim_percol.device_launches)
-            k = run()
-            after = (tod.osd_elim.device_launches,
-                     tod.osd_elim.full_device_launches,
-                     tod.osd_elim_percol.device_launches)
-            if sum(after) != sum(before) + 1:
-                raise AssertionError(f"{name}: no device-memory launch "
-                                     f"counted")
+                                     f"the {lay.memory} mode, not {picked}")
             with _kernels.force_plain():
                 pl27, plain_ms = once_ms(run)
-            err = ints_equal(f"{name} (device memory, {B27} shots)", k, pl27)
             work = tod.elimination_work(pk27, s27, n=ne, r_star=r27, fcap=fc)
-            bound, by = elim_bound_ms(ne, me, B27, words, work)
-            ms = event_ms(run, 10)
-            log(f"[27] {name} device memory == plain on [H|I] of "
-                f"hgp_34_n1600 ({me}x{ne}, {tod.elim_smem_bytes(me, ne)} B a "
-                f"shot in shared memory), {B27} shots; {lay.smem_bytes} B "
-                f"shared + {lay.scratch_bytes} B scratch a shot, "
-                f"{lay.threads} threads; {ms:.4f} ms, plain {plain_ms:.3f} "
-                f"ms, bound {bound:.4f} ms ({by})")
-            if B27 == ELIM27_SHOTS[-1]:  # the tier phase 30 launches
-                dmem[name + "_device"] = {
-                    "err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound": bound, "by": by, "source": "osd_elim.cu",
-                    "replaces": {"osd_elim": "osd_device.py:547",
-                                 "osd_elim_full": "osd_device.py:632",
-                                 "osd_elim_percol": "osd_device.py:343"}[name]}
-    # both modes at a shape both run: hgp_34_n1600's H
+            for mem in (picked, "device") if mode != "percol" else (picked,):
+                fixed = "auto" if mem == picked else mem
+                before = elim_launched()
+                k = run() if fixed == "auto" else in_mode(mem, run)
+                grown = [a - b for a, b in zip(elim_launched(), before)]
+                slot = (("full_" if mode == "full" else "") + mem
+                        + "_launches")
+                if mode == "percol":
+                    want = [0, 0, 0, 0, 1]
+                else:
+                    want = [int(a == slot) for a in elim_counts] + [0]
+                if grown != want:
+                    raise AssertionError(f"{name} in {mem}: launches counted "
+                                         f"{grown}, not {want}")
+                err = ints_equal(f"{name} ({mem}, {B27} shots)", k, pl27)
+                bound_work, t_work = work, None
+                if mem == "transform" and B27 == ELIM27_SHOTS[-1]:
+                    # the smaller of the two walks' counts bounds the mode
+                    t_work = tod.transform_work(rows27, pm27, s27,
+                                                r_star=r27, fcap=fc,
+                                                full=mode == "full")
+                    bound_work = min(work, t_work)
+                bound, by = elim_bound_ms(ne, me, B27, words, bound_work)
+                lay = tod.card_elim_layout(dev, B27, me, ne, fc, mode, mem,
+                                           cw=int(rows27.shape[1]))
+                ms = in_mode(mem, lambda: event_ms(run, 10))
+                log(f"[27] {name} {mem} == plain on [H|I] of hgp_34_n1600 "
+                    f"({me}x{ne}, {tod.elim_smem_bytes(me, ne)} B a shot in "
+                    f"shared memory), {B27} shots; {lay.smem_bytes} B shared "
+                    f"+ {lay.scratch_bytes} B scratch a shot, {lay.threads} "
+                    f"threads, {lay.resident} resident per SM; {ms:.4f} ms, "
+                    f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}); "
+                    f"word ops: matrix walk {work}"
+                    + (f", transform walk {t_work}" if t_work else ""))
+                if B27 == ELIM27_SHOTS[-1]:  # the tier phase 30 launches
+                    dmem[f"{name}_{mem}"] = {
+                        "err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound": bound, "by": by, "source": "osd_elim.cu",
+                        "replaces": {"osd_elim": "osd_device.py:547",
+                                     "osd_elim_full": "osd_device.py:632",
+                                     "osd_elim_percol": "osd_device.py:343"
+                                     }[name]}
+    # every mode at a shape all run: hgp_34_n1600's H, 256 shots
     B27 = ELIM27_SHOTS[0]
     runs16 = elim_case(h16, B27, 0.05)[0]
-    for name, (run, _, _, _) in runs16.items():
-        ints_equal(f"{name} device vs shared memory", in_mode("device", run),
-                   in_mode("shared", run))
-        t_sh = in_mode("shared", lambda: event_ms(run, 10))
-        t_dv = in_mode("device", lambda: event_ms(run, 10))
-        dmem[name + "_device"]["vs_shared"] = (t_sh, t_dv)
-        log(f"[27] {name} on hgp_34_n1600 H, {B27} shots: shared memory "
-            f"{t_sh:.4f} ms, device memory {t_dv:.4f} ms (outputs equal)")
+    for name, (run, _, _, mode) in runs16.items():
+        mems = ("shared", "device") + (() if mode == "percol"
+                                       else ("transform",))
+        ref = in_mode("shared", run)
+        times = {}
+        for mem in mems:
+            ints_equal(f"{name} {mem} vs shared memory", in_mode(mem, run),
+                       ref)
+            times[mem] = in_mode(mem, lambda: event_ms(run, 10))
+        for mem in mems[1:]:
+            dmem[f"{name}_{mem}"]["vs_shared"] = (times["shared"], times[mem])
+        log(f"[27] {name} on hgp_34_n1600 H, {B27} shots: "
+            + ", ".join(f"{mem} {t:.4f} ms" for mem, t in times.items())
+            + " (outputs equal)")
 
     # the min-sum kernels on three copies of [H|I] (2304 x 7104, ~300 KB a
     # shot), in the mode the layout picks (the check-state mode, its 16-bit
@@ -2033,12 +2082,16 @@ def run_phases(dem_job) -> int:
     sim30 = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
     run30, launches_30 = counted(lambda: phenom_phase(
         "30 phenom BPOSD-0/BPOSD-0 n1600 eval_p=0.02", sim30, 9, 2))
-    log(f"[30] launches {launches_30}; the elimination's device-memory "
-        f"route {launches_30['osd_elim_device']} of "
-        f"{launches_30['osd_elim']} launches")
-    if launches_30["osd_elim_device"] <= 0:
+    log(f"[30] launches {launches_30}; the elimination's transform mode "
+        f"{launches_30['osd_elim_transform']} of {launches_30['osd_elim']} "
+        f"launches, its device-memory mode "
+        f"{launches_30['osd_elim_device']}")
+    if launches_30["osd_elim_transform"] <= 0:
         raise AssertionError("phase 30 never took the elimination's "
-                             "device-memory route")
+                             "transform mode")
+    if launches_30["osd_elim_device"] or launches_30["osd_elim_full_device"]:
+        raise AssertionError("phase 30 took the elimination's device-memory "
+                             "mode")
     # its min-sum decodes ([H|I] and H of hgp_34_n1600) fit shared memory:
     # neither the check-state mode nor a device-memory mode
     minsum30 = {k: launches_30[k] for k in dmem if k.startswith("bp_minsum")}
@@ -2074,14 +2127,14 @@ def run_phases(dem_job) -> int:
         f"28 batch: kernel path == plain path == packed=False "
         f"(failures, min_w) {got31[0]}")
     # one phase-30 batch: kernel 1 and the bf16 head on [H|I] of
-    # hgp_34_n1600 and the elimination's device-memory mode at the 2048-shot
+    # hgp_34_n1600 and the elimination's transform mode at the 2048-shot
     # tier, against the same batch with every kernel replaced by its plain
     # version
     s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
     _, l30 = counted(lambda: s.WordErrorRate(9, 2048, key=key31))
     got30 = [(s.last_failures, s.min_logical_weight)]
     if min(l30["bp_minsum_bf16"], l30["bp_minsum"],
-           l30["osd_elim_device"]) <= 0:
+           l30["osd_elim_transform"]) <= 0 or l30["osd_elim_device"]:
         raise AssertionError(f"the phase 30 batch missed a kernel: {l30}")
     s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
     t = time.time()
@@ -3035,8 +3088,9 @@ def run_phases(dem_job) -> int:
             "launches": launches_38[key], "max_abs_err": d["err"],
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"],
             "bound_by": d["by"], "library_ms": None})
-    # the device-memory modes (phase 27; kernel 1's from phase 33), with
-    # their launches on the phenomenological main paths (phases 28-30, 33)
+    # the device-memory and transform modes (phase 27; kernel 1's
+    # check-state mode from phase 33), with their launches on the
+    # phenomenological main paths (phases 28-30, 33)
     for key, d in dmem.items():
         kernels.append({
             "name": key, "route": "cuda", "source": f"{PKG}/csrc/{d['source']}",

@@ -83,12 +83,49 @@
 // shared ones.  The shared-memory instantiations are unchanged.  The
 // scratch is the last kernel argument, so the others keep their offsets.
 //
+// Transform mode (kTransform, a template flag after kGlobal; kSkip and kFull
+// only; elim_layout takes it where the matrix does not fit shared memory
+// and the transform does).  kGlobal's time was one shot's chain of pivot
+// steps, each testing ~1,970 columns of a 227 KB scratch far past L2 (20.95
+// ms at phase 30's 2048 shots).  The reduced matrix is T A, T (m x m) the
+// product of the walk's row operations, which starts as the identity and
+// does not depend on n.  So shared memory holds T column-packed in the
+// matrix's layout (column j at T[w * Q + j], Q = (m + 2) | 1, odd; the
+// syndrome at column m, zero at column m + 1) with each permuted column's
+// rows (rows_s (cw, n) uint16, m + 1 past a column's weight, so a gather
+// reads the zero column and never branches): 101,080 bytes at [H|I] of
+// hgp_34_n1600, two shots an SM.  A column of T A is gathered as the XOR
+// of T's columns at its rows.  A step is kGlobal's, on T, with the gathers
+// off warp 0's chain (measured: a window gathered by warp 0 itself cost
+// ~1,100 cycles a step, as much as the rest of its step):
+//   * warp 0 reads its window's kWindow columns from a two-entry buffer
+//     (win), clears, tests and publishes as before, and writes the next
+//     pivot column, which T does not hold, to a two-entry buffer (pcol);
+//     it does not read T in a step;
+//   * meanwhile warps 1.. test bit p of T's m + 1 columns and XOR the
+//     pivot column, without its pivot bit, into the set ones (m + 1
+//     columns instead of n - t + 1);
+//   * after a __syncthreads (every update done, the next step published)
+//     warps 1.. gather the next step's window from T into win, a word a
+//     lane, and a second __syncthreads ends the step;
+//   * the walk starts with a rescan; in a rescan warp 0 scans T (gathering
+//     each column it tests) while warps 1.. wait, and they then gather the
+//     window of the pivot it published;
+//   * after the walk (rank r* or not, T frozen) the syndrome is T's column
+//     m, and the free panel and kFull's matrix are T a_c gathered from T,
+//     32 columns a warp through ballot_transpose (a pivot column's T a_c is
+//     its unit vector).
+// The gathers read the same bits that kGlobal's matrix holds, so the
+// outputs are bit for bit the other modes'.
+//
 // Bound: integer word operations on shared memory.  A pivot step tests one
 // word of each column right of t and XORs the pivot column's words into the
 // set ones; ops/osd_device.py elimination_work counts the row-wise walk's
-// operations per run, which chip_smoke.py takes for the operations bound.
-// Device memory sees the permutation, the syndromes and colpack read once
-// and each output word written once.
+// operations per run, which chip_smoke.py takes for the operations bound
+// (and for the transform mode the smaller of that and transform_work, the
+// transform walk's count).  Device memory sees the permutation, the
+// syndromes and colpack (or the row lists) read once and each output word
+// written once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -206,7 +243,331 @@ __device__ int scan(Walk& wk, const uint32_t* A, uint32_t* U, int* out,
   return -1;
 }
 
-template <int kMode, int kWl, bool kGlobal>
+// ---------------------------------------------------------- transform mode
+
+// column c's first four rows, m + 1 (T's zero column) past its weight or
+// where the column is not `in` the matrix
+struct Rows4 {
+  int r[4];
+};
+__device__ __forceinline__ Rows4 rows4(const uint16_t* rows_s, int n, int cw,
+                                       int m, int c, bool in) {
+  Rows4 x;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x.r[k] = in && k < cw ? rows_s[k * n + c] : m + 1;
+  return x;
+}
+
+// word w of column c of T A: the XOR of T's columns at c's rows (`rr`, and
+// past four from rows_s), its loads issued together
+__device__ __forceinline__ uint32_t gather_word(const uint32_t* T,
+                                                const uint16_t* rows_s,
+                                                const Rows4& rr, int n, int cw,
+                                                int Q, int c, int w) {
+  const uint32_t* Tw = T + w * Q;
+  uint32_t x = (Tw[rr.r[0]] ^ Tw[rr.r[1]]) ^ (Tw[rr.r[2]] ^ Tw[rr.r[3]]);
+  for (int k = 4; k < cw; ++k) x ^= Tw[rows_s[k * n + c]];
+  return x;
+}
+
+// scan over T: lane j gathers column t0 + j; the pivot column, gathered a
+// word a lane, goes to pcol_out
+__device__ int scan_transform(Walk& wk, const uint32_t* T,
+                              const uint16_t* rows_s, uint32_t* U, int* out,
+                              uint32_t* pcol_out, int* fpos_s, int* pr_s,
+                              int* pc_s, int lane, int mW, int Q, int m, int n,
+                              int cw, int r_star, int fcap) {
+  while (wk.t0 < n && (wk.rank < r_star || wk.fcnt < fcap)) {
+    const int c = wk.t0 + lane;
+    uint32_t acc = 0u;
+    if (wk.rank < r_star && c < n) {
+      const Rows4 rr = rows4(rows_s, n, cw, m, c, true);
+      for (int w = 0; w < mW; ++w) {
+        acc |= gather_word(T, rows_s, rr, n, cw, Q, c, w) & ~U[w];
+      }
+    }
+    const unsigned cand = __ballot_sync(kAll, acc != 0u);
+    const int upto = cand ? __ffs(cand) - 1 : 32;
+    record_free(wk, wk.t0, min(upto, n - wk.t0), lane, fcap, fpos_s);
+    if (cand) {
+      const int t = wk.t0 + upto;
+      const Rows4 rt = rows4(rows_s, n, cw, m, t, true);
+      int piv = -1;
+      for (int wb = 0; wb < mW; wb += 32) {
+        const int w = wb + lane;
+        uint32_t f = 0u;
+        if (w < mW) {
+          const uint32_t x = gather_word(T, rows_s, rt, n, cw, Q, t, w);
+          pcol_out[w] = x;
+          f = x & ~U[w];
+        }
+        const unsigned any = __ballot_sync(kAll, f != 0u);
+        if (any && piv < 0) {
+          const int lw = __ffs(any) - 1;
+          piv = ((wb + lw) << 5) + __ffs(__shfl_sync(kAll, f, lw)) - 1;
+        }
+      }
+      publish_pivot(wk, t, piv, lane, U, out, pr_s, pc_s, true);
+      return piv;
+    }
+    wk.t0 += 32;
+  }
+  publish(wk, kDone, 0, lane, out);
+  return -1;
+}
+
+// the transform mode's kernel body (header comment): shared memory holds
+// T (mW, Q), U (mW), pcol (2, mW), win (2, kWindow, mW), the slot and
+// counts, fpos_s (32), pr_s and pc_s (m each) and rows_s (cw, n) uint16
+template <int kMode, int kWl>
+__device__ __forceinline__ void elim_transform(
+    uint32_t* smem, const int64_t* __restrict__ perm,
+    const int32_t* __restrict__ synd_in, int32_t* __restrict__ synd_out,
+    int32_t* __restrict__ pr, int32_t* __restrict__ pc,
+    int32_t* __restrict__ fword_out, int32_t* __restrict__ fpos,
+    int32_t* __restrict__ packed_out, int m, int n, int r_star, int fcap,
+    int B, const int16_t* __restrict__ rows, int cw) {
+  const int mW = (m + 31) >> 5;
+  const int Q = (m + 2) | 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nt = blockDim.x;
+  const int nw = nt >> 5;
+  uint32_t* T = smem;                        // (mW, Q): T, the syndrome at m
+  uint32_t* U = T + (size_t)mW * Q;          // (mW): used rows
+  uint32_t* pcol = U + mW;                   // (2, mW): the steps' pivot columns
+  uint32_t* win = pcol + 2 * mW;             // (2, kWindow, mW): their windows
+  int* slot = (int*)(win + 2 * kWindow * mW);  // (2, 2): pivot column and row
+  int* counts = slot + 4;                    // (2): pivots, free columns
+  int* fpos_s = counts + 2;                  // (32): free columns
+  int* pr_s = fpos_s + 32;                   // (m): pivot rows
+  int* pc_s = pr_s + m;                      // (m): pivot columns
+  uint16_t* rows_s = (uint16_t*)(pc_s + m);  // (cw, n): the columns' rows
+  const int b = blockIdx.x;
+  const size_t sB = (size_t)B;
+
+  const int64_t* perm_b = perm + (size_t)b * n;
+  for (int c = tid; c < n; c += nt) {
+    const int16_t* src = rows + (size_t)perm_b[c] * cw;
+    for (int k = 0; k < cw; ++k) {
+      const int r = src[k];
+      rows_s[k * n + c] = (uint16_t)(r >= 0 && r < m ? r : m + 1);
+    }
+  }
+  for (int i = tid; i < mW * Q; i += nt) {
+    const int w = i / Q;
+    const int j = i - w * Q;
+    if (j != m) T[i] = j < m && (j >> 5) == w ? 1u << (j & 31) : 0u;
+  }
+  for (int w = warp; w < mW; w += nw) {
+    const int r = (w << 5) + lane;
+    const unsigned bits = __ballot_sync(kAll, r < m && (synd_in[r * sB + b] & 1));
+    if (lane == 0) T[w * Q + m] = bits;
+  }
+  for (int i = tid; i < mW; i += nt) U[i] = 0u;
+  if (tid == 0) *reinterpret_cast<int2*>(slot) = make_int2(kRescan, 0);
+  __syncthreads();
+
+  // the first iteration scans from column 0
+  Walk wk{0, 0, 0, make_int2(kRescan, 0)};
+  const int g = lane & 3;
+  uint32_t used[kWl] = {};  // warp 0's used rows, its words
+  const int G = mW <= 32 ? 32 / mW : 1;
+  const int sub = mW <= 32 && lane < G * mW ? lane / mW : 32;
+  const int wl = mW <= 32 ? lane - (lane / mW) * mW : 0;
+  const int nw1 = nw - 1;
+  int par = 0;
+  const bool windowed = mW <= 4 * kWl;
+  for (;;) {
+    const int2 step = warp == 0 ? wk.out
+                                : *reinterpret_cast<const int2*>(slot + 2 * par);
+    const int t = step.x;
+    if (t == kDone) break;
+    const uint32_t* pv = pcol + par * mW;  // column t, as the step found it
+    // columns t + 1 .. t + kWindow, reduced by the steps before t
+    const uint32_t* wv = win + par * kWindow * mW;
+    par ^= 1;
+    int* nxt = slot + 2 * par;
+    uint32_t* pnxt = pcol + par * mW;
+    const int piv = step.y;
+    const int pw = piv >> 5;
+    const uint32_t pbit = 1u << (piv & 31);
+    if (warp == 0) {
+      if (t == kRescan) {
+        if (windowed) {  // U from the window lanes' words
+#pragma unroll
+          for (int i = 0; i < kWl; ++i) {
+            if (lane < 4 && lane + 4 * i < mW) U[lane + 4 * i] = used[i];
+          }
+          __syncwarp();
+        }
+        const int piv1 = scan_transform(wk, T, rows_s, U, nxt, pnxt, fpos_s,
+                                        pr_s, pc_s, lane, mW, Q, m, n, cw,
+                                        r_star, fcap);
+        if (piv1 >= 0) mark_used(used, g, piv1);
+      } else if (!windowed) {
+        publish(wk, kRescan, 0, lane, nxt);
+      } else {
+        // the window t + 1 .. t + kWindow (lane (j, g): column t + 1 + j,
+        // words g, g + 4, ...) from win: clear it, test its columns for the
+        // next pivot, record the free ones, publish the next step and its
+        // pivot column
+        const int c = t + 1 + (lane >> 2);
+        const bool in = c < n;
+        uint32_t x[kWl], y[kWl];
+#pragma unroll
+        for (int i = 0; i < kWl; ++i) {
+          const int w = g + 4 * i;
+          x[i] = w < mW ? wv[(lane >> 2) * mW + w] : 0u;
+          y[i] = w < mW ? pv[w] : 0u;
+        }
+        // bit piv of the lane's column: word pw is lane (j, pw & 3)'s (every
+        // lane joins the shuffle, those past n too)
+        uint32_t xp = 0u;
+#pragma unroll
+        for (int i = 0; i < kWl; ++i) {
+          if (g + 4 * i == pw) xp = x[i];
+        }
+        xp = __shfl_sync(kAll, xp, (lane & ~3) | (pw & 3));
+        const bool set = in && (xp & pbit);
+        int fw = kNone;    // the lane's first word with a row outside U
+        uint32_t fx = 0u;  // that word's bits outside U
+#pragma unroll
+        for (int i = 0; i < kWl; ++i) {
+          const int w = g + 4 * i;
+          if (w == pw) y[i] &= ~pbit;
+          if (set) x[i] ^= y[i];
+          const uint32_t free_bits = x[i] & ~used[i];
+          if (fw == kNone && free_bits) {
+            fw = w;
+            fx = free_bits;
+          }
+        }
+        const bool may = wk.rank < r_star && in;
+        const unsigned key = may && fw != kNone
+                                 ? (unsigned)(((lane >> 2) << 10) | fw) : ~0u;
+        const unsigned best = __reduce_min_sync(kAll, key);
+        const int jc = best != ~0u ? (int)(best >> 10) : kWindow;
+        if (wk.fcnt < fcap) {
+          record_free(wk, t + 1, min(jc, n - t - 1), lane, fcap, fpos_s);
+        }
+        if (best != ~0u) {
+          const int w1 = (int)(best & 1023u);
+          const uint32_t fx1 = __shfl_sync(kAll, fx, (jc << 2) + (w1 & 3));
+          const int piv1 = (w1 << 5) + __ffs(fx1) - 1;
+          publish_pivot(wk, t + 1 + jc, piv1, lane, U, nxt, pr_s, pc_s,
+                        false);
+          mark_used(used, g, piv1);
+          if ((lane >> 2) == jc) {  // the next step's pivot column
+#pragma unroll
+            for (int i = 0; i < kWl; ++i) {
+              if (g + 4 * i < mW) pnxt[g + 4 * i] = x[i];
+            }
+          }
+        } else {
+          wk.t0 = min(t + 1 + kWindow, n);
+          publish(wk, wk.t0 < n && (wk.rank < r_star || wk.fcnt < fcap)
+                          ? kRescan : kDone, 0, lane, nxt);
+        }
+      }
+    } else if (t >= 0) {
+      // T's columns 0..m, (warp - 1) + nw1 * (lane + 32 k) a warp: as
+      // kGlobal's columns right of the window
+      if (mW <= 32) {
+        uint32_t ct = sub < 32 ? pv[wl] : 0u;
+        if (wl == pw) ct &= ~pbit;
+        for (int base = warp - 1; base <= m; base += nw1 << 5) {
+          const int c = base + nw1 * lane;
+          unsigned hit = __ballot_sync(kAll, c <= m && (T[pw * Q + c] & pbit));
+          while (hit) {
+            if (sub < 32 && ct) {
+              unsigned h = hit;
+              for (int k = 0; k < sub && h; ++k) h &= h - 1u;
+              if (h) T[wl * Q + base + nw1 * (__ffs(h) - 1)] ^= ct;
+            }
+            for (int k = 0; k < G && hit; ++k) hit &= hit - 1u;
+          }
+        }
+      } else {
+        for (int base = warp - 1; base <= m; base += nw1 << 5) {
+          const int c = base + nw1 * lane;
+          unsigned hit = __ballot_sync(kAll, c <= m && (T[pw * Q + c] & pbit));
+          while (hit) {
+            const int cc = base + nw1 * (__ffs(hit) - 1);
+            hit &= hit - 1u;
+            for (int w = lane; w < mW; w += 32) {
+              uint32_t x = pv[w];
+              if (w == pw) x &= ~pbit;
+              if (x) T[w * Q + cc] ^= x;
+            }
+          }
+        }
+      }
+    }
+    // the next step published, every update of T done: warps 1.. gather
+    // its window from T, a word a lane
+    __syncthreads();
+    const int t1 = reinterpret_cast<const int2*>(nxt)->x;
+    if (warp > 0 && windowed && t1 >= 0) {
+      uint32_t* wn = win + par * kWindow * mW;
+      for (int e = tid - 32; e < kWindow * mW; e += nt - 32) {
+        const int j = e / mW;
+        const int w = e - j * mW;
+        const int c = t1 + 1 + j;
+        wn[e] = c < n ? gather_word(T, rows_s,
+                                    rows4(rows_s, n, cw, m, c, true), n, cw,
+                                    Q, c, w)
+                      : 0u;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    counts[0] = wk.rank;
+    counts[1] = wk.fcnt;
+  }
+  __syncthreads();
+  const int n_piv = counts[0];
+  const int n_free = counts[1];
+
+  for (int k = tid; k < n_piv; k += nt) {
+    pr[k * sB + b] = pr_s[k];
+    pc[k * sB + b] = pc_s[k];
+  }
+  for (int k = tid; k < n_free; k += nt) fpos[k * sB + b] = fpos_s[k];
+  for (int r = tid; r < m; r += nt) {
+    synd_out[r * sB + b] = (int32_t)((T[(r >> 5) * Q + m] >> (r & 31)) & 1u);
+  }
+  if (fcap > 0) {
+    // the free panel: word w of free column k (lane k), transposed
+    for (int w = warp; w < mW; w += nw) {
+      const int c = lane < n_free ? fpos_s[lane] : 0;
+      const uint32_t x = lane < n_free
+          ? gather_word(T, rows_s, rows4(rows_s, n, cw, m, c, true), n, cw, Q,
+                        c, w) : 0u;
+      const uint32_t row = ballot_transpose(x, lane);
+      const int r = (w << 5) + lane;
+      if (r < m) fword_out[r * sB + b] = (int32_t)row;
+    }
+  }
+  if (kMode == kFull) {
+    const int W = (n + 31) >> 5;
+    for (int tile = warp; tile < W * mW; tile += nw) {
+      const int wc = tile / mW;
+      const int rw = tile - wc * mW;
+      const int c = (wc << 5) + lane;
+      const uint32_t x = c < n ? gather_word(T, rows_s,
+                                             rows4(rows_s, n, cw, m, c, true),
+                                             n, cw, Q, c, rw) : 0u;
+      const uint32_t row = ballot_transpose(x, lane);
+      const int r = (rw << 5) + lane;
+      if (r < m) packed_out[((size_t)wc * m + r) * sB + b] = (int32_t)row;
+    }
+  }
+}
+
+template <int kMode, int kWl, bool kGlobal, bool kTransform>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 osd_elim_kernel(const int32_t* __restrict__ colpack,  // (n, mW)
                 const int64_t* __restrict__ perm,     // (B, n)
@@ -219,8 +580,16 @@ osd_elim_kernel(const int32_t* __restrict__ colpack,  // (n, mW)
                 int32_t* __restrict__ packed_out,     // (W, m, B); not kSkip
                 int32_t* __restrict__ ip,             // (n, B) zeroed; kPercol
                 int m, int n, int r_star, int fcap, int B,
-                uint32_t* scratch) {               // (B, mW, P); kGlobal
+                uint32_t* scratch,                  // (B, mW, P); kGlobal
+                const int16_t* __restrict__ rows,   // (n, cw); kTransform
+                int cw) {
   extern __shared__ uint32_t smem[];
+  if constexpr (kTransform) {
+    elim_transform<kMode, kWl>(smem, perm, synd_in, synd_out, pr, pc,
+                               fword_out, fpos, packed_out, m, n, r_star, fcap,
+                               B, rows, cw);
+    return;
+  }
   const int mW = (m + 31) >> 5;
   const int P = (n + 1) | 1;
   const int tid = threadIdx.x;
@@ -444,46 +813,74 @@ inline int window_words(int mW) {
   return need <= 4 ? need : need <= 6 ? 6 : need <= 8 ? 8 : 1;
 }
 
-template <int kMode, int kWl, bool kGlobal>
-int set_smem(int smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(osd_elim_kernel<kMode, kWl, kGlobal>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes);
+// where a shot's matrix lives: in the block's shared memory, in a device
+// scratch (kGlobal), or as its row transform in shared memory (kTransform)
+enum Memory { kShared = 0, kDevice = 1, kTransformMem = 2 };
+
+// the transform mode's shared memory (ops/osd_device.py
+// elim_transform_bytes): T, U, pcol, win, the walk's state, the pivots and
+// the columns' rows
+inline long transform_bytes(int m, int n, int cw) {
+  const long mW = (m + 31) >> 5;
+  return 4 * (mW * (((m + 2) | 1) + 3 + 2 * kWindow) + 6 + 32 + 2L * m) +
+         4 * (((long)cw * n + 1) / 2);
 }
 
-template <int kMode, int kWl, bool kGlobal>
+template <int kMode, int kWl, bool kGlobal, bool kTransform>
+int set_smem(int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      osd_elim_kernel<kMode, kWl, kGlobal, kTransform>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+template <int kMode, int kWl, bool kGlobal, bool kTransform>
 int launch_mem(const int32_t* colpack, const int64_t* perm,
                const int32_t* synd_in, int32_t* synd_out, int32_t* pr,
                int32_t* pc, int32_t* fword, int32_t* fpos,
                int32_t* packed_out, int32_t* ip, int m, int n, int r_star,
                int fcap, int B, int threads, int smem_bytes,
-               uint32_t* scratch, void* stream) {
-  const int e = set_smem<kMode, kWl, kGlobal>(smem_bytes);
+               uint32_t* scratch, const int16_t* rows, int cw, void* stream) {
+  const int e = set_smem<kMode, kWl, kGlobal, kTransform>(smem_bytes);
   if (e != 0) return e;
-  osd_elim_kernel<kMode, kWl, kGlobal>
+  osd_elim_kernel<kMode, kWl, kGlobal, kTransform>
       <<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
           colpack, perm, synd_in, synd_out, pr, pc, fword, fpos, packed_out,
-          ip, m, n, r_star, fcap, B, scratch);
+          ip, m, n, r_star, fcap, B, scratch, rows, cw);
   return (int)cudaGetLastError();
 }
 
-// the shared-memory mode, or with a scratch tensor the device-memory mode
+// the shared-memory mode; with a scratch tensor the device-memory mode;
+// with row lists the transform mode (not kPercol)
 template <int kMode, int kWl>
 int launch_wl(const int32_t* colpack, const int64_t* perm,
               const int32_t* synd_in, int32_t* synd_out, int32_t* pr,
               int32_t* pc, int32_t* fword, int32_t* fpos, int32_t* packed_out,
               int32_t* ip, int m, int n, int r_star, int fcap, int B,
-              int threads, int smem_bytes, uint32_t* scratch, void* stream) {
+              int threads, int smem_bytes, uint32_t* scratch,
+              const int16_t* rows, int cw, void* stream) {
+  if (rows != nullptr) {
+    if constexpr (kMode == kPercol) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (cw < 1 || m > 65534 || smem_bytes < transform_bytes(m, n, cw)) {
+        return (int)cudaErrorInvalidValue;
+      }
+      return launch_mem<kMode, kWl, false, true>(
+          colpack, perm, synd_in, synd_out, pr, pc, fword, fpos, packed_out,
+          ip, m, n, r_star, fcap, B, threads, smem_bytes, nullptr, rows, cw,
+          stream);
+    }
+  }
   return scratch != nullptr
-             ? launch_mem<kMode, kWl, true>(
+             ? launch_mem<kMode, kWl, true, false>(
                    colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                    packed_out, ip, m, n, r_star, fcap, B, threads, smem_bytes,
-                   scratch, stream)
-             : launch_mem<kMode, kWl, false>(
+                   scratch, nullptr, 0, stream)
+             : launch_mem<kMode, kWl, false, false>(
                    colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                    packed_out, ip, m, n, r_star, fcap, B, threads, smem_bytes,
-                   nullptr, stream);
+                   nullptr, nullptr, 0, stream);
 }
 
 template <int kMode>
@@ -491,14 +888,15 @@ int launch(const int32_t* colpack, const int64_t* perm, const int32_t* synd_in,
            int32_t* synd_out, int32_t* pr, int32_t* pc, int32_t* fword,
            int32_t* fpos, int32_t* packed_out, int32_t* ip, int m, int n,
            int r_star, int fcap, int B, int threads, int smem_bytes,
-           uint32_t* scratch, void* stream) {
+           uint32_t* scratch, const int16_t* rows, int cw, void* stream) {
   // warp 0 walks and clears the columns after the pivot, the others the
   // rest: a block has two warps at least
   if (threads < 64 || threads % 32) return (int)cudaErrorInvalidValue;
 #define OSD_ELIM_LAUNCH(WL)                                                   \
   return launch_wl<kMode, WL>(colpack, perm, synd_in, synd_out, pr, pc,       \
                               fword, fpos, packed_out, ip, m, n, r_star,      \
-                              fcap, B, threads, smem_bytes, scratch, stream)
+                              fcap, B, threads, smem_bytes, scratch, rows,    \
+                              cw, stream)
   switch (window_words((m + 31) >> 5)) {
     case 2: OSD_ELIM_LAUNCH(2);
     case 3: OSD_ELIM_LAUNCH(3);
@@ -510,43 +908,57 @@ int launch(const int32_t* colpack, const int64_t* perm, const int32_t* synd_in,
 #undef OSD_ELIM_LAUNCH
 }
 
-template <int kMode, int kWl, bool kGlobal>
+template <int kMode, int kWl, bool kGlobal, bool kTransform>
 int resident_mem(int threads, int smem_bytes, int* blocks) {
-  const int e = set_smem<kMode, kWl, kGlobal>(smem_bytes);
+  const int e = set_smem<kMode, kWl, kGlobal, kTransform>(smem_bytes);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, osd_elim_kernel<kMode, kWl, kGlobal>, threads, smem_bytes);
+      blocks, osd_elim_kernel<kMode, kWl, kGlobal, kTransform>, threads,
+      smem_bytes);
 }
 
 template <int kMode, int kWl>
-int resident_wl(int threads, int smem_bytes, int global, int* blocks) {
-  return global ? resident_mem<kMode, kWl, true>(threads, smem_bytes, blocks)
-                : resident_mem<kMode, kWl, false>(threads, smem_bytes, blocks);
+int resident_wl(int threads, int smem_bytes, int memory, int* blocks) {
+  if (memory == kTransformMem) {
+    if constexpr (kMode == kPercol) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return resident_mem<kMode, kWl, false, true>(threads, smem_bytes,
+                                                   blocks);
+    }
+  }
+  return memory == kDevice
+             ? resident_mem<kMode, kWl, true, false>(threads, smem_bytes, blocks)
+             : resident_mem<kMode, kWl, false, false>(threads, smem_bytes,
+                                                      blocks);
 }
 
 template <int kMode>
-int resident(int m, int threads, int smem_bytes, int global, int* blocks) {
+int resident(int m, int threads, int smem_bytes, int memory, int* blocks) {
   switch (window_words((m + 31) >> 5)) {
-    case 2: return resident_wl<kMode, 2>(threads, smem_bytes, global, blocks);
-    case 3: return resident_wl<kMode, 3>(threads, smem_bytes, global, blocks);
-    case 4: return resident_wl<kMode, 4>(threads, smem_bytes, global, blocks);
-    case 6: return resident_wl<kMode, 6>(threads, smem_bytes, global, blocks);
-    case 8: return resident_wl<kMode, 8>(threads, smem_bytes, global, blocks);
-    default: return resident_wl<kMode, 1>(threads, smem_bytes, global, blocks);
+    case 2: return resident_wl<kMode, 2>(threads, smem_bytes, memory, blocks);
+    case 3: return resident_wl<kMode, 3>(threads, smem_bytes, memory, blocks);
+    case 4: return resident_wl<kMode, 4>(threads, smem_bytes, memory, blocks);
+    case 6: return resident_wl<kMode, 6>(threads, smem_bytes, memory, blocks);
+    case 8: return resident_wl<kMode, 8>(threads, smem_bytes, memory, blocks);
+    default: return resident_wl<kMode, 1>(threads, smem_bytes, memory, blocks);
   }
 }
 
 }  // namespace
 
+// rows (n, cw) int16, each column's rows (-1 past its weight), selects the
+// transform mode; else scratch the device-memory mode; else shared memory
 extern "C" int osd_elim_launch(const int32_t* colpack, const int64_t* perm,
                                const int32_t* synd_in, int32_t* synd_out,
                                int32_t* pr, int32_t* pc, int32_t* fword,
                                int32_t* fpos, int m, int n, int r_star,
                                int fcap, int B, int threads, int smem_bytes,
-                               uint32_t* scratch, void* stream) {
+                               uint32_t* scratch, const int16_t* rows, int cw,
+                               void* stream) {
   return launch<kSkip>(colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                        nullptr, nullptr, m, n, r_star, fcap, B, threads,
-                       smem_bytes, scratch, stream);
+                       smem_bytes, scratch, rows, cw, stream);
 }
 
 extern "C" int osd_elim_full_launch(const int32_t* colpack,
@@ -556,10 +968,11 @@ extern "C" int osd_elim_full_launch(const int32_t* colpack,
                                     int32_t* fpos, int32_t* packed_out, int m,
                                     int n, int r_star, int fcap, int B,
                                     int threads, int smem_bytes,
-                                    uint32_t* scratch, void* stream) {
+                                    uint32_t* scratch, const int16_t* rows,
+                                    int cw, void* stream) {
   return launch<kFull>(colpack, perm, synd_in, synd_out, pr, pc, fword, fpos,
                        packed_out, nullptr, m, n, r_star, fcap, B, threads,
-                       smem_bytes, scratch, stream);
+                       smem_bytes, scratch, rows, cw, stream);
 }
 
 extern "C" int osd_elim_percol_launch(const int32_t* colpack,
@@ -570,20 +983,21 @@ extern "C" int osd_elim_percol_launch(const int32_t* colpack,
                                       int32_t* packed_out, int m, int n,
                                       int r_star, int B, int threads,
                                       int smem_bytes, uint32_t* scratch,
+                                      const int16_t* rows, int cw,
                                       void* stream) {
   return launch<kPercol>(colpack, perm, synd_in, synd_out, pr, pc, nullptr,
                          nullptr, packed_out, ip, m, n, r_star, 0, B, threads,
-                         smem_bytes, scratch, stream);
+                         smem_bytes, scratch, rows, cw, stream);
 }
 
-// blocks of mode `mode` (in device memory when `global`) for m rows with
-// `threads` threads and `smem_bytes` of shared memory that one SM holds at
-// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// blocks of mode `mode` in memory `memory` (0 shared, 1 device, 2 transform)
+// for m rows with `threads` threads and `smem_bytes` of shared memory that
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 extern "C" int osd_elim_resident(int mode, int m, int threads, int smem_bytes,
-                                 int global, int* blocks) {
+                                 int memory, int* blocks) {
   return mode == kSkip
-             ? resident<kSkip>(m, threads, smem_bytes, global, blocks)
+             ? resident<kSkip>(m, threads, smem_bytes, memory, blocks)
          : mode == kFull
-             ? resident<kFull>(m, threads, smem_bytes, global, blocks)
-             : resident<kPercol>(m, threads, smem_bytes, global, blocks);
+             ? resident<kFull>(m, threads, smem_bytes, memory, blocks)
+             : resident<kPercol>(m, threads, smem_bytes, memory, blocks);
 }

@@ -22,8 +22,8 @@ same branch as the launch, so only replays that run the branch count;
 (the megabatch driver reads them with its carry).
 
 The min-sum and elimination wrappers launch their kernels in the memory mode
-(``MEMORY_MODES``) that their layouts pick from the shape.
-``force_memory(mode)`` fixes the mode instead, so that a timing run can hold
+(``MEMORY_MODES``, ``ELIM_MEMORY_MODES``) that their layouts pick from the
+shape.  ``force_memory(mode)`` fixes the mode instead, so that a timing run can hold
 the modes against each other at one shape; ``force_planes(form)`` fixes the
 plane form (``PLANE_FORMS``) of the min-sum kernels' check-state mode.
 """
@@ -44,7 +44,8 @@ import torch
 from ..utils.device import capturing
 
 __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
-           "force_eager", "eager_forced", "MEMORY_MODES", "force_memory",
+           "force_eager", "eager_forced", "MEMORY_MODES", "ELIM_MEMORY_MODES",
+           "force_memory",
            "memory_mode", "PLANE_FORMS", "force_planes", "planes_form",
            "check_launch", "count_launch", "launch_counts",
            "fold_launch_counts"]
@@ -261,15 +262,22 @@ def fold_launch_counts(device, values) -> None:
 # check and the totals in shared memory, the planes staged or read from
 # device memory (the min-sum kernels' check-state mode only)
 MEMORY_MODES = ("shared", "device", "device_planes", "checks")
+# the elimination's (csrc/osd_elim.cu): its shot's matrix in shared memory;
+# in a device-memory scratch (kGlobal); as the shot's m x m row transform
+# in shared memory (kTransform).  "transform" is no min-sum mode, so it
+# stays out of MEMORY_MODES, whose index is csrc/bp_minsum.cu's kMem.
+ELIM_MEMORY_MODES = ("shared", "device", "transform")
 
 
 @contextlib.contextmanager
 def force_memory(mode: str):
     """Within the block, the min-sum and elimination wrappers launch their
-    kernels in ``mode`` (one of MEMORY_MODES) in place of the one their
-    layouts pick (this thread only)."""
-    if mode not in MEMORY_MODES:
-        raise ValueError(f"memory mode {mode!r} is not one of {MEMORY_MODES}")
+    kernels in ``mode`` (one of MEMORY_MODES, or ``"transform"``, which
+    only the elimination has) in place of the one their layouts pick (this
+    thread only); a wrapper whose kernel has no such mode raises."""
+    if mode not in MEMORY_MODES + ELIM_MEMORY_MODES[2:]:
+        raise ValueError(f"memory mode {mode!r} is not one of "
+                         f"{MEMORY_MODES + ELIM_MEMORY_MODES[2:]}")
     prev = getattr(_force, "memory", "auto")
     _force.memory = mode
     try:

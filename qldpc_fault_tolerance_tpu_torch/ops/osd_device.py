@@ -14,8 +14,10 @@ the GF(2) eliminations that OSD-CS (``ops/osd_cs_device.py``) shares.
     (``qldpc_fault_tolerance_tpu/ops/osd_device.py:547``) and builds each
     shot's permuted columns itself from the column-packed H (``col_pack``,
     built once per rows tensor) at the launch ``elim_layout`` chooses (in
-    shared memory, or where one shot's matrix does not fit there in a
-    device-memory scratch, ``osd_elim.device_launches``); on
+    shared memory; where one shot's matrix does not fit there, as its m x m
+    row transform in shared memory, ``osd_elim.transform_launches``, built
+    from each column's rows, ``col_rows``; past that in a device-memory
+    scratch, ``osd_elim.device_launches``); on
     CPU tensors it packs the permuted rows (W, m, B) (``_permute_and_pack``)
     and runs ``eliminate_plain``, a port of that kernel's blocked twin
     ``_eliminate_blocked_twin`` (:719).  Both are integer-exact and agree
@@ -58,8 +60,9 @@ from .gf2_packed import to_int32
 
 __all__ = ["OsdPlan", "build_osd_plan", "osd_elim", "eliminate_plain",
            "osd_elim_percol", "eliminate_percol_plain", "elimination_work",
-           "col_pack", "ElimLayout", "elim_layout", "elim_smem_bytes",
-           "elim_state_bytes", "card_elim_layout",
+           "col_pack", "col_rows", "ElimLayout", "elim_layout",
+           "elim_smem_bytes", "elim_state_bytes", "elim_transform_bytes",
+           "card_elim_layout", "eliminate_transform_plain", "transform_work",
            "ELIM_ROUTES", "elim_route", "osd_decode_values",
            "osd_decode_device"]
 
@@ -113,20 +116,32 @@ def col_pack(h01) -> torch.Tensor:
     return to_int32((ht.reshape(n, mW, 32) << shifts).sum(dim=2))
 
 
+def col_rows(h01) -> torch.Tensor:
+    """(m, n) {0,1} -> (n, cw) int16: each column's rows, ascending, -1 past
+    its weight; cw is the heaviest column's weight (at least 1)."""
+    ht = h01.t().to(torch.int64)
+    weight = ht.sum(dim=1, keepdim=True)
+    cw = max(1, int(weight.max())) if ht.numel() else 1
+    first = torch.sort(1 - ht, dim=1, stable=True).indices[:, :cw]
+    k = torch.arange(first.shape[1], device=h01.device)
+    return torch.where(k[None, :] < weight, first, -1).to(torch.int16)
+
+
 def _permute_and_pack(h01, perm) -> torch.Tensor:
     """Per-shot column-permuted bit-packed rows, batch-last: (W, m, B) int32
-    with permuted column t at word t >> 5, bit t & 31.
+    with permuted column t at word t >> 5, bit t & 31 (``_cols_to_rows`` of
+    the permuted columns of ``col_pack``)."""
+    return _cols_to_rows(col_pack(h01)[perm], h01.shape[0])
 
-    Gathers column-packed words (each permuted column's bits over rows,
-    (B, n, mW)), then converts to row-packed with a 32x32 bit-matrix
-    transpose (5 masked shift/combine rounds, Hacker's Delight 7-3).  Right
-    shifts are arithmetic on int32; each is masked to bits it cannot
-    pollute."""
-    B, n = perm.shape
-    m = h01.shape[0]
+
+def _cols_to_rows(g, m: int) -> torch.Tensor:
+    """Column-packed words (B, n, mW) int32 (each column's bits over m rows)
+    -> row-packed (W, m, B) int32, column t at word t >> 5, bit t & 31: a
+    32x32 bit-matrix transpose (5 masked shift/combine rounds, Hacker's
+    Delight 7-3).  Right shifts are arithmetic on int32; each is masked to
+    bits it cannot pollute."""
+    B, n, mW = g.shape
     W = (n + 31) // 32
-    mW = (m + 31) // 32
-    g = col_pack(h01)[perm]                                    # (B, n, mW)
     pad = W * 32 - n
     if pad:
         g = torch.cat([g, g.new_zeros((B, pad, mW))], dim=1)
@@ -298,9 +313,144 @@ def eliminate_percol_plain(packed0, synd0, *, n: int, r_star: int):
     return synd.gather(0, pr.long()), pr, pc, ip, packed
 
 
+def eliminate_transform_plain(rows, perm, synd0, *, r_star: int, fcap: int,
+                              full: bool = False, count_work: bool = False):
+    """Plain PyTorch model of the elimination kernel's transform mode: the
+    same column walk as ``eliminate_plain`` (first available row, free
+    columns recorded while fewer than ``fcap``), run on each shot's row
+    transform T (m x m, the identity at first, with the syndrome as its
+    column m) instead of its matrix.  A walked column is gathered as the
+    XOR of T's columns at its rows (``rows`` (n, cw) int16, ``col_rows``;
+    the permuted column t of shot b is ``rows[perm[b, t]]``), and a pivot
+    step XORs the pivot column, without its pivot bit, into every column
+    of T whose bit at the pivot row is set.  Once the rank is r*, T is
+    frozen; the free panel and the reduced matrix (``full``) are T a_c of
+    their columns.
+
+    synd0: (m, B) int32.  Returns ``eliminate_plain``'s arrays, bit for
+    bit.  ``count_work`` appends the per-shot word operations of the
+    transform walk (``transform_work``)."""
+    B, n = perm.shape
+    m = synd0.shape[0]
+    mW = (m + 31) // 32
+    Q = m + 2  # m columns, the syndrome and a zero column
+    dev = perm.device
+    i32, i64 = torch.int32, torch.int64
+    bidx = torch.arange(B, device=dev)
+    j = torch.arange(m, device=dev)
+    T = torch.zeros((B, mW, Q), dtype=i64, device=dev)
+    T[:, j >> 5, j] = torch.ones_like(j) << (j & 31)
+    T[:, :, m] = _pack_bits(synd0.t().to(i64) & 1, mW)
+    r = rows.to(dev, i64)
+    r = torch.where((r >= 0) & (r < m), r, m + 1)            # (n, cw)
+    cw = r.shape[1]
+    weight = (r <= m).sum(dim=1)                              # (n,)
+
+    def gather(cols):
+        """The columns ``cols`` (B, k) of T A: (B, mW, k) words."""
+        rc = r[cols]                                          # (B, k, cw)
+        k = cols.shape[1]
+        g = T.gather(2, rc.reshape(B, 1, k * cw).expand(B, mW, k * cw))
+        g = g.reshape(B, mW, k, cw)
+        x = g[..., 0]
+        for kk in range(1, cw):
+            x = x ^ g[..., kk]
+        return x
+
+    used = torch.zeros((B, mW), dtype=i64, device=dev)
+    rank = torch.zeros(B, dtype=i64, device=dev)
+    fcnt = torch.zeros(B, dtype=i64, device=dev)
+    pr = torch.zeros((r_star, B), dtype=i32, device=dev)
+    pc = torch.zeros((r_star, B), dtype=i32, device=dev)
+    fpos = torch.zeros((32, B), dtype=i32, device=dev)
+    work = torch.zeros(B, dtype=i64, device=dev)
+    slots = torch.arange(r_star, device=dev)[:, None]
+    k32 = torch.arange(32, device=dev)[:, None]
+    for t in range(n):
+        live = (rank < r_star) | (fcnt < fcap)
+        if not bool(live.any()):
+            break
+        active = rank < r_star
+        col = gather(perm[:, t:t + 1])[..., 0]               # (B, mW)
+        avail = col & ~used
+        nz = avail != 0
+        has = nz.any(dim=1) & active
+        w0 = nz.to(torch.int8).argmax(dim=1)                  # first such word
+        word = avail[bidx, w0]
+        low = torch.where(has, word & -word, 1)
+        bit = torch.log2(low.double()).round().to(i64)       # exact: 2^k
+        piv = torch.where(has, w0 * 32 + bit, 0)
+        pw, pbit = piv >> 5, (torch.ones_like(piv) << (piv & 31)) * has
+        hit = ((T[bidx, pw, :] >> (piv & 31)[:, None]) & 1) * has[:, None]
+        pcol = col.clone()
+        pcol[bidx, pw] ^= pbit
+        T ^= hit[:, None, :] * pcol[:, :, None]
+        used[bidx, pw] |= pbit
+        at = (slots == rank[None, :]) & has[None, :]
+        pr = torch.where(at, piv[None, :].to(i32), pr)
+        pc = torch.where(at, t, pc)
+        grow = ~has & (fcnt < fcap)
+        fpos = torch.where((k32 == fcnt[None, :]) & grow[None, :], t, fpos)
+        if count_work:
+            # the gather and its test, then a step's m + 1 tests and the
+            # set columns' XORs
+            step = weight[perm[:, t]] * mW + mW * active
+            step = step + has * (m + 1 + hit.sum(dim=1) * mW)
+            work += torch.where(live, step, 0)
+        rank = rank + has
+        fcnt = fcnt + grow
+    synd = _unpack_bits(T[:, :, m], m).t().to(i32).contiguous()
+    fword = torch.zeros((m, B), dtype=i64, device=dev)
+    if fcap > 0:
+        free = perm.gather(1, fpos.t().long())                 # (B, 32)
+        bits = _unpack_bits(gather(free).permute(0, 2, 1), m)  # (B, 32, m)
+        live_k = (k32.t() < fcnt[:, None]).to(i64)             # (B, 32)
+        fword = ((bits * live_k[:, :, None])
+                 << torch.arange(32, device=dev)[None, :, None]).sum(dim=1).t()
+        if count_work:
+            work += (weight[free] * live_k).sum(dim=1) * mW
+    out = (synd, pr, pc, to_int32(fword).contiguous(), fpos)
+    if full:
+        cols = torch.cat([gather(perm[:, c0:c0 + 256])
+                          for c0 in range(0, n, 256)], dim=2)  # (B, mW, n)
+        out = out + (_cols_to_rows(to_int32(cols.permute(0, 2, 1)), m),)
+        if count_work:
+            work += weight[perm].sum(dim=1) * mW
+    return out + (work,) if count_work else out
+
+
+def transform_work(rows, perm, synd, *, r_star: int, fcap: int,
+                   full: bool = False) -> int:
+    """Word operations the transform walk of these inputs needs
+    (``eliminate_transform_plain``): per walked column the XOR of T's words
+    at its rows and the test of its words against the used rows; per pivot
+    step one test of each of T's m + 1 columns and the pivot column's words
+    XORed into each set one; the free panel's (and with ``full`` every
+    column's) gathers after the walk."""
+    out = eliminate_transform_plain(rows, perm, synd, r_star=r_star,
+                                    fcap=fcap, full=full, count_work=True)
+    return int(out[-1].sum())
+
+
+def _pack_bits(bits, words: int) -> torch.Tensor:
+    """(..., k) {0,1} int64 -> (..., words) 32-bit words in int64, bit i at
+    word i >> 5, bit i & 31."""
+    pad = words * 32 - bits.shape[-1]
+    bits = torch.nn.functional.pad(bits, (0, pad))
+    shifts = torch.arange(32, device=bits.device)
+    return (bits.reshape(*bits.shape[:-1], words, 32) << shifts).sum(dim=-1)
+
+
+def _unpack_bits(words, k: int) -> torch.Tensor:
+    """(..., W) 32-bit words -> (..., k) {0,1} int64, bit i of word i >> 5."""
+    shifts = torch.arange(32, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :k]
+
+
 def _elim_argtypes(n_ptrs: int, n_ints: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p] * n_ptrs + [i] * n_ints + [p, p]
+    return [p] * n_ptrs + [i] * n_ints + [p, p, i, p]
 
 
 # shared memory a block may take on Hopper (227 KB), and an SM's (228 KB,
@@ -315,6 +465,10 @@ SM_THREADS = 2048
 # (warps - 1)-th) hit 32 banks.  The kernel's ~64 registers a thread let an
 # SM hold 1024 of its threads.
 ELIM_SM_THREADS = 1024
+# the transform mode's shots share 512 threads an SM: 256 a shot at two
+# shots an SM took 5.96 ms at phase 30's 2048 shots, 384 6.18, 512 6.53
+# (chip runs, NVIDIA H100 80GB HBM3, 700.00 W)
+ELIM_TRANSFORM_SM_THREADS = 512
 ELIM_MIN_THREADS = 64
 ELIM_MAX_THREADS = 1024
 ELIM_MODES = ("skip", "full", "percol")
@@ -326,8 +480,9 @@ class ElimLayout(NamedTuple):
     grid: int        # blocks launched: one per shot
     smem_bytes: int  # dynamic shared memory per block
     resident: int    # blocks per SM by threads and shared memory
-    # "shared": the shot's matrix in shared memory; "device": in a
-    # device-memory scratch of scratch_bytes per shot (_kernels.MEMORY_MODES)
+    # _kernels.ELIM_MEMORY_MODES: "shared", the shot's matrix in shared
+    # memory; "device", in a device-memory scratch of scratch_bytes per
+    # shot; "transform", its m x m row transform in shared memory
     memory: str = "shared"
     scratch_bytes: int = 0
 
@@ -349,48 +504,76 @@ def elim_state_bytes(m: int) -> int:
     return 4 * ((m + 31) // 32 + 6 + 32 + 2 * m)
 
 
+def elim_transform_bytes(m: int, n: int, cw: int) -> int:
+    """Dynamic shared memory of csrc/osd_elim.cu's transform mode per shot:
+    the row transform T with the syndrome (ceil(m/32) words per column, a
+    row of (m + 2) | 1 columns per word: T's m, the syndrome and a zero
+    column), the used rows, two pivot columns and two windows of 8 columns,
+    6 words of the walk's state, 32 free positions, the pivots' rows and
+    columns, and each permuted column's ``cw`` rows in 16 bits.  It grows
+    with m^2 and only by the rows with n."""
+    mW = (m + 31) // 32
+    return (4 * (mW * (((m + 2) | 1) + 3 + 16) + 6 + 32 + 2 * m)
+            + 4 * ((cw * n + 1) // 2))
+
+
 def elim_layout(B: int, m: int, n: int, fcap: int, mode: str, sm_count: int,
-                threads: int | None = None,
-                memory: str = "shared") -> ElimLayout:
-    """The launch of csrc/osd_elim.cu for B shots of an (m, n) matrix.
+                threads: int | None = None, memory: str = "shared",
+                cw: int = 4) -> ElimLayout:
+    """The launch of csrc/osd_elim.cu for B shots of an (m, n) matrix whose
+    columns have at most ``cw`` rows (4 in the hypergraph-product codes and
+    their [H|I]; the wrappers pass their H's).
 
     One block per shot (a step's barriers are the shot's own).  The shots
     an SM holds at once (ceil(B / sm_count), at most what shared memory
-    allows) share ELIM_SM_THREADS threads; a shot takes at least
-    ELIM_MIN_THREADS and at most one lane per column right of the first
-    pivot, in an even number of warps.  ``threads`` fixes the threads per
-    shot instead.  ``memory``: ``"shared"``, the shared-memory mode,
-    raises with the bytes where one shot's matrix does not fit;
-    ``"device"`` is the kernel's device-memory mode, whose matrix lives in
-    a scratch of ``scratch_bytes`` per shot (it raises only where not even
-    the walk's state fits); ``"auto"``, as the card's wrappers ask, the
-    first where it fits, else the second.  (The elimination has no
-    ``"device_planes"`` or ``"checks"`` mode: it reads no graph planes and
-    keeps no check records.)"""
+    allows) share ELIM_SM_THREADS threads (ELIM_TRANSFORM_SM_THREADS in the
+    transform mode); a shot takes at least
+    ELIM_MIN_THREADS and at most one lane per column that the first pivot
+    step tests (n + 1 in the matrix, m + 1 in the transform), in an even
+    number of warps.  ``threads`` fixes the threads per shot instead.
+    ``memory`` (_kernels.ELIM_MEMORY_MODES): ``"shared"``, the
+    shared-memory mode, raises with the bytes where one shot's matrix does
+    not fit; ``"transform"`` (``skip`` and ``full`` only) keeps the shot's
+    row transform in shared memory instead (``elim_transform_bytes``; it
+    raises where that does not fit); ``"device"`` is the kernel's
+    device-memory mode, whose matrix lives in a scratch of
+    ``scratch_bytes`` per shot (it raises only where not even the walk's
+    state fits); ``"auto"``, as the card's wrappers ask, the first of the
+    three that fits (the per-column route has no transform mode).  (The
+    elimination has no ``"device_planes"`` or ``"checks"`` mode: it reads
+    no graph planes and keeps no check records.)"""
     if mode not in ELIM_MODES:
         raise ValueError(f"elimination mode {mode!r} is not one of {ELIM_MODES}")
     if not 0 <= fcap <= (0 if mode == "percol" else 32):
         raise ValueError(f"the {mode} elimination takes fcap in 0.."
                          f"{0 if mode == 'percol' else 32}, got {fcap}")
-    if memory not in ("auto", "shared", "device"):
-        raise ValueError(f"elimination memory {memory!r} is not 'auto', "
-                         f"'shared' or 'device'")
+    if memory not in ("auto",) + _kernels.ELIM_MEMORY_MODES:
+        raise ValueError(f"elimination memory {memory!r} is not 'auto' or "
+                         f"one of {_kernels.ELIM_MEMORY_MODES}")
     smem = elim_smem_bytes(m, n)
+    t_smem = elim_transform_bytes(m, n, cw)
     if memory == "auto":
-        memory = "shared" if smem <= SMEM_LIMIT else "device"
-    scratch = 0
+        memory = ("shared" if smem <= SMEM_LIMIT
+                  else "transform" if mode != "percol" and t_smem <= SMEM_LIMIT
+                  else "device")
+    scratch, useful, sm_threads = 0, n + 1, ELIM_SM_THREADS
     if memory == "device":
         scratch, smem = smem - elim_state_bytes(m), elim_state_bytes(m)
+    elif memory == "transform":
+        if mode == "percol":
+            raise ValueError("the per-column elimination has no transform "
+                             "mode")
+        smem, useful, sm_threads = t_smem, m + 1, ELIM_TRANSFORM_SM_THREADS
     if smem > SMEM_LIMIT:
         raise ValueError(f"the elimination kernels: a {m}x{n} matrix needs "
-                         f"{smem} bytes of shared memory per shot, above "
-                         f"{SMEM_LIMIT}")
+                         f"{smem} bytes of shared memory per shot"
+                         f"{' in its transform' if memory == 'transform' else ''}"
+                         f", above {SMEM_LIMIT}")
     if threads is None:
         per_sm = max(1, min(-(-B // sm_count), SM_SMEM // (smem + 1024)))
-        useful = -(-(n + 1) // 32) * 32
         threads = max(ELIM_MIN_THREADS,
-                      min(useful, ELIM_MAX_THREADS,
-                          ELIM_SM_THREADS // per_sm // 32 * 32))
+                      min(-(-useful // 32) * 32, ELIM_MAX_THREADS,
+                          sm_threads // per_sm // 32 * 32))
         threads -= threads % 64
     if threads % 64 or not 64 <= threads <= ELIM_MAX_THREADS:
         raise ValueError(f"the elimination kernels take 64..{ELIM_MAX_THREADS} "
@@ -412,18 +595,21 @@ def elim_resident(index: int, mode: str, m: int, threads: int,
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = fn(ELIM_MODES.index(mode), m, threads, smem_bytes,
-                int(memory == "device"), ctypes.addressof(blocks))
+                _kernels.ELIM_MEMORY_MODES.index(memory),
+                ctypes.addressof(blocks))
     _kernels.check_launch("osd_elim_resident", rc)
     return blocks.value
 
 
 def card_elim_layout(dev, B: int, m: int, n: int, fcap: int,
-                     mode: str, memory: str = "auto") -> ElimLayout:
-    """``elim_layout`` on CUDA device ``dev`` (by default the device-memory
-    mode where the matrix does not fit shared memory): its SM count, and
-    the resident blocks the card reports, registers included."""
+                     mode: str, memory: str = "auto",
+                     cw: int = 4) -> ElimLayout:
+    """``elim_layout`` on CUDA device ``dev`` (by default the transform or
+    device-memory mode where the matrix does not fit shared memory): its SM
+    count, and the resident blocks the card reports, registers included."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    lay = elim_layout(B, m, n, fcap, mode, _sm_count(index), memory=memory)
+    lay = elim_layout(B, m, n, fcap, mode, _sm_count(index), memory=memory,
+                      cw=cw)
     held = elim_resident(index, mode, m, lay.threads, lay.smem_bytes,
                          lay.memory)
     if held < 1:
@@ -435,17 +621,32 @@ def card_elim_layout(dev, B: int, m: int, n: int, fcap: int,
 _COLPACK: dict = {}
 
 
+def _cached(table: dict, build, h_packed, n: int) -> torch.Tensor:
+    """``build`` of the rows ``h_packed``' bits (m, n), made once for as
+    long as the tensor lives."""
+    key = (id(h_packed), n)
+    hit = table.get(key)
+    if hit is not None and hit[0]() is h_packed:
+        return hit[1]
+    out = build(_unpack_rows(h_packed, n))
+    table[key] = (weakref.ref(h_packed, lambda _, k=key: table.pop(k, None)),
+                  out)
+    return out
+
+
 def _colpack_of(h_packed, n: int) -> torch.Tensor:
     """``col_pack`` of the rows ``h_packed``, built once for as long as the
     tensor lives."""
-    key = (id(h_packed), n)
-    hit = _COLPACK.get(key)
-    if hit is not None and hit[0]() is h_packed:
-        return hit[1]
-    cols = col_pack(_unpack_rows(h_packed, n))
-    _COLPACK[key] = (weakref.ref(h_packed, lambda _, k=key: _COLPACK.pop(k, None)),
-                     cols)
-    return cols
+    return _cached(_COLPACK, col_pack, h_packed, n)
+
+
+_COLROWS: dict = {}
+
+
+def _colrows_of(h_packed, n: int) -> torch.Tensor:
+    """``col_rows`` of the rows ``h_packed`` (the transform mode's input),
+    built once for as long as the tensor lives."""
+    return _cached(_COLROWS, col_rows, h_packed, n)
 
 
 def _check_elim(name, h_packed, perm, synd, n: int, r_star: int,
@@ -473,21 +674,25 @@ def _check_elim(name, h_packed, perm, synd, n: int, r_star: int,
 
 
 def _elim_call(name, fn, mode, h_packed, perm, synd, outs, n, r_star,
-               fcap) -> bool:
-    """Launch ``fn`` of csrc/osd_elim.cu on the column-packed H, the
-    permutation and the syndromes, writing ``outs``, in the memory mode
-    ``card_elim_layout`` picks (or ``_kernels.force_memory`` fixes);
-    returns whether the launch took the device-memory mode."""
+               fcap) -> str:
+    """Launch ``fn`` of csrc/osd_elim.cu on the column-packed H (or, in the
+    transform mode, each column's rows), the permutation and the syndromes,
+    writing ``outs``, in the memory mode ``card_elim_layout`` picks (or
+    ``_kernels.force_memory`` fixes); returns that mode."""
     m = _check_elim(name, h_packed, perm, synd, n, r_star, fcap)
     B = perm.shape[0]
     dev = perm.device
-    lay = card_elim_layout(dev, B, m, n, fcap, mode, _kernels.memory_mode())
+    colrows = _colrows_of(h_packed, n)
+    lay = card_elim_layout(dev, B, m, n, fcap, mode, _kernels.memory_mode(),
+                           cw=colrows.shape[1])
     colpack = _colpack_of(h_packed, n)
     fixed = [m, n, r_star] + ([] if mode == "percol" else [fcap])
-    scratch = None
+    scratch = rows = None
     if lay.memory == "device":
         scratch = torch.empty((B * lay.scratch_bytes // 4,),
                               dtype=torch.int32, device=dev)
+    elif lay.memory == "transform":
+        rows = colrows
     fn.argtypes = _elim_argtypes(3 + len(outs), len(fixed) + 3)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
@@ -495,9 +700,10 @@ def _elim_call(name, fn, mode, h_packed, perm, synd, outs, n, r_star,
         rc = fn(colpack.data_ptr(), perm.data_ptr(), synd.data_ptr(),
                 *(o.data_ptr() for o in outs), *fixed, B, lay.threads,
                 lay.smem_bytes, None if scratch is None else scratch.data_ptr(),
-                stream)
+                None if rows is None else rows.data_ptr(),
+                colrows.shape[1], stream)
     _kernels.check_launch(name, rc)
-    return scratch is not None
+    return lay.memory
 
 
 def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
@@ -509,9 +715,11 @@ def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
     ``full`` the fully reduced matrix as a sixth.  CUDA tensors launch
     ``csrc/osd_elim.cu`` (``osd_elim_launch``, or ``osd_elim_full_launch``
     with ``full``), which builds each shot's columns itself, or raise; CPU
-    tensors pack and run ``eliminate_plain``.  ``launches`` counts the first kernel, ``full_launches`` the second,
-    ``device_launches`` and ``full_device_launches`` those of theirs that
-    ran in device memory."""
+    tensors pack and run ``eliminate_plain``.  ``launches`` counts the
+    first kernel, ``full_launches`` the second; ``device_launches`` and
+    ``full_device_launches`` those of theirs that ran in device memory,
+    ``transform_launches`` and ``full_transform_launches`` those in the
+    transform mode."""
     if not perm.is_cuda or _kernels.plain_forced():
         packed = _permute_and_pack(_unpack_rows(h_packed, n), perm)
         return eliminate_plain(packed, synd, n=n, r_star=r_star, fcap=fcap,
@@ -530,13 +738,14 @@ def osd_elim(h_packed, perm, synd, *, n: int, r_star: int, fcap: int,
     lib = _kernels.library("osd_elim")
     if full:
         outs.append(torch.empty((W, m, B), dtype=torch.int32, device=dev))
-    in_device = _elim_call("osd_elim", lib.osd_elim_full_launch if full
-                           else lib.osd_elim_launch, "full" if full else "skip",
-                           h_packed, perm, synd, outs, n, r_star, fcap)
-    launches, in_memory = (("full_launches", "full_device_launches") if full
-                           else ("launches", "device_launches"))
-    _kernels.count_launch(osd_elim, launches, dev)
-    _kernels.count_launch(osd_elim, in_memory, dev, in_device)
+    memory = _elim_call("osd_elim", lib.osd_elim_full_launch if full
+                        else lib.osd_elim_launch, "full" if full else "skip",
+                        h_packed, perm, synd, outs, n, r_star, fcap)
+    prefix = "full_" if full else ""
+    _kernels.count_launch(osd_elim, prefix + "launches", dev)
+    for mem in ("device", "transform"):
+        _kernels.count_launch(osd_elim, f"{prefix}{mem}_launches", dev,
+                              memory == mem)
     return tuple(outs)
 
 
@@ -544,6 +753,8 @@ osd_elim.launches = 0
 osd_elim.full_launches = 0
 osd_elim.device_launches = 0
 osd_elim.full_device_launches = 0
+osd_elim.transform_launches = 0
+osd_elim.full_transform_launches = 0
 
 
 def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
@@ -565,12 +776,13 @@ def osd_elim_percol(h_packed, perm, synd, *, n: int, r_star: int):
     pc = torch.zeros((r_star, B), dtype=torch.int32, device=dev)
     ip = torch.zeros((n, B), dtype=torch.int32, device=dev)
     packed_out = torch.empty((W, m, B), dtype=torch.int32, device=dev)
-    in_device = _elim_call(
+    memory = _elim_call(
         "osd_elim_percol",
         _kernels.library("osd_elim").osd_elim_percol_launch, "percol",
         h_packed, perm, synd, [synd_out, pr, pc, ip, packed_out], n, r_star, 0)
     _kernels.count_launch(osd_elim_percol, "launches", dev)
-    _kernels.count_launch(osd_elim_percol, "device_launches", dev, in_device)
+    _kernels.count_launch(osd_elim_percol, "device_launches", dev,
+                          memory == "device")
     return synd_out.gather(0, pr.long()), pr, pc, ip == 1, packed_out
 
 

@@ -2,10 +2,13 @@
 """Time the GF(2) elimination kernel of two checkouts of the PyTorch port, in
 turns, on one NVIDIA GPU: ``csrc/osd_elim.cu`` in its three modes (kernel 2
 ``osd_elim`` at fcap 10, B7 ``osd_elim(full=True)`` at fcap 0 and 10, B10
-``osd_elim_percol``) on hgp_34_n625, n1225 and n1600, at 128, 256, 512 and
-2048 shots.
+``osd_elim_percol``) on hgp_34_n625, n1225 and n1600 and on [H|I] of
+hgp_34_n1600 (``n1600ext``, 768 x 2368: past shared memory, where the
+blocked modes take the transform mode and a checkout without it
+``kGlobal``), at 128, 256, 512 and 2048 shots.
 
   python3 scripts/ab_osd_elim.py --parent DIR
+  python3 scripts/ab_osd_elim.py --parent DIR --memory device
   python3 scripts/ab_osd_elim.py --parent DIR --sass
   python3 scripts/ab_osd_elim.py --layout
 
@@ -22,10 +25,14 @@ batch and mode, the wrapper's time per call between CUDA events (median
 of three rounds of ten calls; ``..._ms``), the profiler device time of
 every kernel ``_permute_and_pack`` launches for that batch
 (``pack_..._ms``: the (W, m, B) matrix a checkout whose kernel reads
-packed rows needs first), a digest of the outputs, the layout, and
+packed rows needs first), a digest of the outputs, the layout (its memory
+mode among its fields), and
 ``nvcc -Xptxas -v`` of ``osd_elim.cu``.  Every output is checked bit for
 bit against the plain version (``_kernels.force_plain()``) on the 2048
-shots, and the digests must agree between the sides.  Each run also gives
+shots, and the digests must agree between the sides.  ``--memory MODE``
+fixes every launch's memory mode (``_kernels.force_memory``) on each side
+that has the mode, and leaves a side without it (the parent has no
+``"transform"``) to its layout's pick.  Each run also gives
 chip_smoke.py phases 6, 16 and 17's failures and min weight (BP-50 + OSD-E
 and OSD-CS of order 10, p=0.05, 8 batches of 2048, and OSD-E on the
 per-column route), which must not depend on the side.  The last line is a
@@ -50,7 +57,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 20261016  # chip_smoke.py's
-CODES = ("n625", "n1225", "n1600")
+# hx of the shipped codes, and [H|I] of n1600's hx (phase 30's decoder 1)
+CODES = ("n625", "n1225", "n1600", "n1600ext")
 BATCHES = (128, 256, 512, 2048)
 LAYOUT_THREADS = (128, 256, 512, 640, 1024)
 
@@ -112,8 +120,9 @@ def kernels_ms(fn, reps: int = 5, tries: int = 3) -> float:
 
 
 def failures(root: Path, name: str, dev, count: int):
-    """hx of the code, and ``count`` BP failures: (perm (count, n) int64,
-    syndromes (m, count) int32), drawn in batches of 4096 from SEED."""
+    """hx of the code (with ``name`` ending in "ext", [hx|I]), and
+    ``count`` BP failures: (perm (count, n) int64, syndromes (m, count)
+    int32), drawn in batches of 4096 from SEED."""
     import numpy as np
     import torch
 
@@ -121,7 +130,10 @@ def failures(root: Path, name: str, dev, count: int):
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
     from qldpc_fault_tolerance_tpu_torch.ops.bp_kernel import bp_minsum
 
-    hx = load_code(str(root / "codes_lib_tpu" / f"hgp_34_{name}.npz")).hx
+    code = name[:-3] if name.endswith("ext") else name
+    hx = load_code(str(root / "codes_lib_tpu" / f"hgp_34_{code}.npz")).hx
+    if name.endswith("ext"):
+        hx = np.hstack([hx, np.eye(hx.shape[0], dtype=hx.dtype)])
     m, n = hx.shape
     graph = tbp.build_tanner_graph(hx, dev)
     llr0 = tbp.llr_from_probs(np.full(n, 2 * 0.05 / 3), dev)
@@ -148,8 +160,25 @@ def digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def measure(root: Path, layout: bool) -> dict:
+def measure(root: Path, layout: bool, memory: str | None = None) -> dict:
     sys.path.insert(0, str(root))
+    import contextlib
+
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+
+    fixed = contextlib.nullcontext()
+    if memory:
+        try:  # a checkout without the mode runs its layout's pick
+            fixed = _kernels.force_memory(memory)
+        except ValueError:
+            memory = None
+    with fixed:
+        out = _measure(root, layout)
+    out["memory"] = memory or "auto"
+    return out
+
+
+def _measure(root: Path, layout: bool) -> dict:
     import numpy as np
     import torch
 
@@ -260,6 +289,8 @@ def main() -> int:
                     help="time this checkout at each number of threads per shot")
     ap.add_argument("--sass", action="store_true",
                     help="compare the kernels' machine code with --parent's")
+    ap.add_argument("--memory", help="fix every launch's memory mode "
+                    "(_kernels.force_memory) on each side that has it")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sass:
@@ -275,8 +306,8 @@ def main() -> int:
         print("ab_osd_elim: no CUDA device available", file=sys.stderr)
         return 2
     if args.measure:
-        print(json.dumps(measure(Path(args.measure).resolve(), args.layout)),
-              flush=True)
+        print(json.dumps(measure(Path(args.measure).resolve(), args.layout,
+                                 args.memory)), flush=True)
         return 0
     if not (args.parent or args.layout):
         ap.error("--parent or --layout is required")
@@ -292,7 +323,8 @@ def main() -> int:
                  ("parent", parent)]
     runs = {side: [] for side, _ in order}
     for side, root in order:
-        cmd = [sys.executable, __file__, "--measure", str(root)]
+        cmd = [sys.executable, __file__, "--measure", str(root)] + (
+            ["--memory", args.memory] if args.memory else [])
         out = subprocess.run(cmd + (["--layout"] if args.layout else []),
                              capture_output=True, text=True, timeout=1500)
         if out.returncode:

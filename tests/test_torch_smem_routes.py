@@ -1,6 +1,8 @@
 """Where one shot does not fit a block's shared memory, the card routes
-instead of raising: the eliminations (csrc/osd_elim.cu), kernel 1 and the
-bf16 head (csrc/bp_minsum.cu) take their device-memory modes, and an
+instead of raising: the blocked eliminations (csrc/osd_elim.cu) take their
+transform mode (the shot's row transform in shared memory) where it fits
+and the per-column one its device-memory mode, kernel 1 and the bf16 head
+(csrc/bp_minsum.cu) their check-state or device-memory modes, and an
 infeasible fused v2 runs as fused v1.
 
 On the CPU the routes are pure arithmetic with a given SM count: the
@@ -11,8 +13,8 @@ three copies of it, 2304 x 7104, for the min-sum kernels; eleven copies,
 that ``fused_layout`` refuses, and every shipped shape keeps the layout
 it had (``memory="shared"``, the layouts' default, is the parent's
 shared-memory rule); ``_kernels.force_memory`` fixes a mode, to time it.
-The card-gated cases hold each device-memory mode bit for bit
-against its plain version (tolerance 0: integer words, and min-sum built
+The card-gated cases hold each device-memory and transform mode bit
+for bit against its plain version (tolerance 0: integer words, and min-sum built
 with FMA contraction off)."""
 import functools
 import os
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from qldpc_fault_tolerance_tpu_torch.codes import hgp, ring_code
 from qldpc_fault_tolerance_tpu_torch.codes.gf2 import block_diag
 from qldpc_fault_tolerance_tpu_torch.decoders import BPDecoder
 from qldpc_fault_tolerance_tpu_torch.ops import _kernels
@@ -76,11 +79,24 @@ def _matrix(h_key):
                                        ("full", 10), ("percol", 0)])
 @pytest.mark.parametrize("B", [1, 256, 2048])
 def test_elim_routes_the_n1600_extended_matrix_to_device_memory(mode, fcap, B):
+    """Past shared memory the blocked routes take the transform mode (the
+    shot's 768 x 768 row transform in shared memory, two shots an SM), the
+    per-column route the device-memory mode; the device-memory mode, fixed,
+    keeps its layout for all three."""
     m, n = 768, 2368  # [H|I] of hgp_34_n1600
     assert tod.elim_smem_bytes(m, n) == 233816 > tod.SMEM_LIMIT
     with pytest.raises(ValueError, match="233816 bytes"):
         tod.elim_layout(B, m, n, fcap, mode, SMS)
     lay = tod.elim_layout(B, m, n, fcap, mode, SMS, memory="auto")
+    if mode == "percol":
+        assert lay == tod.elim_layout(B, m, n, fcap, mode, SMS,
+                                      memory="device")
+    else:
+        assert lay.memory == "transform" and lay.scratch_bytes == 0
+        assert lay.smem_bytes == tod.elim_transform_bytes(m, n, 4) == 101_080
+        assert lay.resident == 2
+        assert lay.threads == (512 if B == 1 else 256)
+        lay = tod.elim_layout(B, m, n, fcap, mode, SMS, memory="device")
     assert lay.memory == "device"
     assert lay.smem_bytes == tod.elim_state_bytes(m) == 4 * (24 + 6 + 32 + 2 * m)
     # the matrix words the shared-memory mode would hold, per shot
@@ -92,7 +108,11 @@ def test_elim_routes_the_n1600_extended_matrix_to_device_memory(mode, fcap, B):
 
 @pytest.mark.parametrize("m", [1, 300, 768, 2000])
 def test_elim_routes_every_width_past_shared_memory(m):
-    """Just past the widest matrix shared memory holds, and far past it."""
+    """Just past the widest matrix shared memory holds, and far past it:
+    the transform mode while the shot's transform and rows fit (it grows
+    with m^2 and with n only by the rows, 8 bytes a column), else the
+    device-memory mode; the per-column route takes the device-memory
+    mode."""
     n = 1
     while tod.elim_smem_bytes(m, n + 1) <= tod.SMEM_LIMIT:
         n += 1
@@ -100,8 +120,94 @@ def test_elim_routes_every_width_past_shared_memory(m):
                            memory="auto").memory == "shared"
     for wider in (n + 1, 4 * n):
         lay = tod.elim_layout(1, m, wider, 0, "full", SMS, memory="auto")
-        assert lay.memory == "device"
-        assert lay.smem_bytes == tod.elim_state_bytes(m) <= tod.SMEM_LIMIT
+        fits = tod.elim_transform_bytes(m, wider, 4) <= tod.SMEM_LIMIT
+        assert lay.memory == ("transform" if fits else "device")
+        assert lay.smem_bytes == (tod.elim_transform_bytes(m, wider, 4)
+                                  if fits else tod.elim_state_bytes(m))
+        assert lay.smem_bytes <= tod.SMEM_LIMIT
+        assert tod.elim_layout(1, m, wider, 0, "percol", SMS,
+                               memory="auto").memory == "device"
+    # 300 and 768 rows take the transform just past shared memory; one row
+    # (58,000 columns of rows) and 2000 rows (a 504 KB transform) do not
+    assert (tod.elim_layout(1, m, n + 1, 0, "skip", SMS, memory="auto").memory
+            == ("transform" if m in (300, 768) else "device"))
+
+
+def test_elim_transform_bytes_and_resident_blocks():
+    """T and the syndrome (24 words a column of a 771-column row), U, two
+    pivot columns, two windows of 8 columns, the walk's state, the pivots
+    and 4 rows a column in 16 bits: two shots an SM at [H|I] of
+    hgp_34_n1600, and at its H."""
+    m, n, mW = 768, 2368, 24
+    assert tod.elim_transform_bytes(m, n, 4) == (
+        4 * (mW * 771 + mW + 2 * mW + 2 * 8 * mW + 6 + 32 + 2 * m)
+        + 2 * 4 * n)
+    for shape in ((768, 2368), (768, 1600)):
+        for B in (128, 256, 512, 2048):
+            lay = tod.elim_layout(B, *shape, 10, "skip", SMS,
+                                  memory="transform")
+            assert lay.memory == "transform" and lay.resident == 2
+            assert lay.resident * (lay.smem_bytes + 1024) <= tod.SM_SMEM
+            # at most one lane per column of T that a step tests
+            assert lay.threads <= -(-(m + 1) // 32) * 32
+            assert lay.threads % 64 == 0
+    # a heavier column stages more rows; an odd row count rounds to a word
+    assert (tod.elim_transform_bytes(768, 2368, 7)
+            - tod.elim_transform_bytes(768, 2368, 4)) == 2 * 3 * 2368
+    assert tod.elim_transform_bytes(25, 51, 3) % 4 == 0
+    # three shots an SM would need at most 76,800 bytes a shot
+    assert 3 * (tod.elim_transform_bytes(768, 2368, 4) + 1024) > tod.SM_SMEM
+
+
+@pytest.mark.parametrize("extra", [1600, 4000])
+def test_elim_transform_m_limit(extra):
+    """The largest m whose transform fits a block, for an (m, m + extra)
+    matrix with columns of 4 rows ([H|I] of n1600 is 768 x 2368), whose
+    matrix does not fit: 1248 rows with 1600 more columns, 1184 with 4000;
+    one row more takes the device-memory mode."""
+    m = 1
+    while tod.elim_transform_bytes(m + 1, m + 1 + extra, 4) <= tod.SMEM_LIMIT:
+        m += 1
+    assert m == {1600: 1248, 4000: 1184}[extra]
+    for rows, want in ((m, "transform"), (m + 1, "device")):
+        assert tod.elim_layout(2048, rows, rows + extra, 10, "skip", SMS,
+                               memory="auto").memory == want
+    with pytest.raises(ValueError, match="in its transform"):
+        tod.elim_layout(1, m + 1, m + 1 + extra, 0, "full", SMS,
+                        memory="transform")
+
+
+@pytest.mark.parametrize("mode", ["skip", "full", "percol"])
+@pytest.mark.parametrize("memory", ["transform", "device"])
+def test_force_memory_fixes_the_elimination_modes(memory, mode):
+    """``force_memory("transform")`` and ``("device")`` reach the layout
+    through ``memory_mode()``; at hgp_34_n1600's H, which fits every mode,
+    each is taken as fixed; the per-column route has no transform mode and
+    raises rather than taking another."""
+    m, n = _h("hgp_34_n1600").shape
+    with _kernels.force_memory(memory):
+        assert _kernels.memory_mode() == memory
+        fixed = _kernels.memory_mode()
+    assert _kernels.memory_mode() == "auto"
+    fcap = 0 if mode == "percol" else 10
+    if mode == "percol" and memory == "transform":
+        with pytest.raises(ValueError, match="no transform mode"):
+            tod.elim_layout(256, m, n, fcap, mode, SMS, memory=fixed)
+        return
+    lay = tod.elim_layout(256, m, n, fcap, mode, SMS, memory=fixed)
+    assert lay.memory == memory
+    assert lay.smem_bytes == (tod.elim_transform_bytes(m, n, 4)
+                              if memory == "transform"
+                              else tod.elim_state_bytes(m))
+
+
+def test_force_memory_transform_is_no_min_sum_mode():
+    """"transform" stays out of MEMORY_MODES (the min-sum kernels' kMem):
+    a min-sum layout asked for it raises."""
+    assert "transform" not in _kernels.MEMORY_MODES
+    assert _kernels.ELIM_MEMORY_MODES == ("shared", "device", "transform")
+    with pytest.raises(ValueError, match="min-sum memory"):
+        bk.minsum_layout(256, 768, 1600, 7, 4, False, SMS, memory="transform")
 
 
 def test_elim_modes_can_be_fixed():
@@ -405,12 +511,104 @@ def test_elim_device_memory_mode_matches_plain(cuda, full, percol):
     else:
         run = lambda: tod.osd_elim(plan.packed, perm, synd, n=n,  # noqa: E731
                                    r_star=plan.rank, fcap=10, full=full)
-    k = run()
+    # the blocked routes take the transform mode here: fix kGlobal
+    with _kernels.force_memory("device"):
+        k = run()
     assert getattr(counter, attr) == before + 1
     with _kernels.force_plain():
         p = run()
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+def _elim_case(cuda, h, B, seed):
+    """The rows, permutation (posteriors drawn from normals), syndromes of
+    p = 0.02 errors and rank of B shots of ``h`` on the card."""
+    n = h.shape[1]
+    plan = tod.build_osd_plan(h, np.full(n, 0.03), device=cuda)
+    post = torch.randn((B, n), generator=torch.Generator().manual_seed(seed))
+    perm = torch.sort(post.to(cuda), dim=1, stable=True).indices
+    synd = _synd(h, B, 0.02, seed).to(cuda, torch.int32).t().contiguous()
+    return plan.packed, perm, synd, plan.rank
+
+
+def _transform_matches_plain(cuda, h, B, seed, fcap, full):
+    """One osd_elim launch on B shots of ``h``: counted as a transform
+    launch (and no device-memory one), every output equal to the plain
+    version's."""
+    rows, perm, synd, rank = _elim_case(cuda, h, B, seed)
+    n = h.shape[1]
+    fcap = min(fcap, n - rank)
+    prefix = "full_" if full else ""
+    before = (getattr(tod.osd_elim, prefix + "transform_launches"),
+              getattr(tod.osd_elim, prefix + "device_launches"))
+    run = lambda: tod.osd_elim(rows, perm, synd, n=n, r_star=rank,  # noqa: E731
+                               fcap=fcap, full=full)
+    k = run()
+    torch.cuda.synchronize()
+    assert (getattr(tod.osd_elim, prefix + "transform_launches"),
+            getattr(tod.osd_elim, prefix + "device_launches")) == \
+        (before[0] + 1, before[1])
+    with _kernels.force_plain():
+        p = run()
+    assert len(k) == len(p) == (6 if full else 5)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full,fcap", [(False, 0), (False, 10), (True, 0),
+                                       (True, 10)])
+@pytest.mark.parametrize("B", [256, 2048])
+def test_elim_transform_mode_matches_plain(cuda, B, full, fcap):
+    """The layout's own pick at [H|I] of hgp_34_n1600 (phase 30's decoder
+    1 launches 2048 shots), bit for bit."""
+    h = _ext(_h("hgp_34_n1600"))
+    lay = tod.card_elim_layout(cuda, B, *h.shape, fcap,
+                               "full" if full else "skip")
+    assert lay.memory == "transform" and lay.resident >= 1
+    _transform_matches_plain(cuda, h, B, 7, fcap, full)
+
+
+def _edge_h(case):
+    """n625's H (300 x 625); [H|I] of n225's H (m 108, not a multiple of
+    32); hgp(ring_code(5), ring_code(5)) (m 25, rank below m)."""
+    if case == "n625":
+        return _h("hgp_34_n625")
+    if case == "odd_m":
+        return _ext(_h("hgp_34_n225"))
+    return np.asarray(hgp(ring_code(5), ring_code(5)).hx, dtype=np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full,fcap", [(False, 0), (False, 10), (True, 10),
+                                       (False, 32)])
+@pytest.mark.parametrize("case", ["n625", "odd_m", "rank_deficient"])
+def test_elim_transform_mode_forced_matches_plain(cuda, case, full, fcap):
+    """``force_memory("transform")`` at shapes shared memory holds: m not a
+    multiple of 32, r* < m, fcap 0, 10 and 32, 256 shots and one."""
+    h = _edge_h(case)
+    if case == "rank_deficient":
+        assert tod.build_osd_plan(h, np.full(h.shape[1], 0.03),
+                                  device="cpu").rank < h.shape[0]
+    with _kernels.force_memory("transform"):
+        for B in (256, 1):
+            _transform_matches_plain(cuda, h, B, 11, fcap, full)
+
+
+@pytest.mark.cuda
+def test_elim_transform_mode_zero_syndromes_match_plain(cuda):
+    h = _ext(_h("hgp_34_n1600"))
+    rows, perm, _, rank = _elim_case(cuda, h, 64, 5)
+    synd = torch.zeros((h.shape[0], 64), dtype=torch.int32, device=cuda)
+    for full in (False, True):
+        run = lambda: tod.osd_elim(rows, perm, synd, n=h.shape[1],  # noqa: E731
+                                   r_star=rank, fcap=10, full=full)
+        k = run()
+        with _kernels.force_plain():
+            p = run()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
