@@ -242,7 +242,23 @@ Phases (any failure raises and the script exits non-zero):
      a mid-cell resume (phase 5's simulator stopped after 2 of 4
      megabatches, resumed from its CellProgress on the same captured graph:
      the unbroken run's counts); CodeFamily_SpaceTime's phenl branch at
-     phase 32's cell, pinned
+     phase 32's cell, pinned; the threshold runs fused=False (the serial
+     loop)
+ 40. the fused sweep path (sweep/fused.py): phase 39's threshold with
+     fused="auto", every cell's (failures, shots) and p_c equal to phase
+     39's, one captured graph a bucket, at most one host read a megabatch,
+     no fallback cell, bf16 head and elimination launched; each bucket's
+     megabatches, graph nodes, build and capture seconds and peak memory;
+     the n625 bucket alone with its capture and replayed (shots/s); one
+     fused megabatch (n225, one batch a cell) equal to itself with every
+     kernel replaced by its plain version
+ 41. rare-event estimation (rare/): WeightedWordErrorRate at zero tilt on
+     phase 5's simulator equal to WordErrorRate (failures, shots, min
+     weight; s1 and w1 the uniform limit), with its capture and replayed;
+     eval_rare_grid of RARE_P on hgp_34_n625 with BP (max_iter N/12.5),
+     each rung tilted to RARE_TILT times its channel, one weighted fused
+     bucket equal rung by rung to the serial WeightedWordErrorRate (counts
+     exact, moments to 1e-6); each rung's WER, rse and ESS
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -697,6 +713,229 @@ def fused_bound_ms(spec, B: int, shot_iters_z: int, shot_iters_x: int,
     return roofline_ms(nbytes, int_ops, fp_ops)
 
 
+# phase 41's rare-event grid: three sub-threshold rungs of hgp_34_n625
+# (eval_p, the channel 3/2 eval_p), each tilted to twice its channel's
+# total rate, and the shots of each rung
+RARE_P, RARE_TILT, RARE_SHOTS = (0.004, 0.008, 0.016), 2.0, 8 * 2048
+
+
+def fused_and_rare_phases(ctx) -> dict:
+    """Phases 40 and 41 (module docstring) on ``ctx.dev``: ``ctx`` holds
+    phase 39's codes, decoder classes, threshold (``pc``, its ledger
+    record ``rec``) and helpers (``counted``, ``ledger_run``), phase 5's
+    simulator, the batch size and the shots.  Returns their launches
+    ``{"40": ..., "41": ...}``."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+    from qldpc_fault_tolerance_tpu_torch.parallel.shots import check_syncs
+    from qldpc_fault_tolerance_tpu_torch.rare import (
+        eval_rare_grid,
+        tilt_channel,
+    )
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+    from qldpc_fault_tolerance_tpu_torch.sim import common as simc
+    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+    from qldpc_fault_tolerance_tpu_torch.sweep.fused import eval_cells_fused
+    from qldpc_fault_tolerance_tpu_torch.utils import telemetry
+
+    dev = ctx.dev
+    cuda = dev.type == "cuda"
+
+    def start():
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        return time.time()
+
+    def stop(t0):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.time() - t0
+
+    def peak():
+        return (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda
+                else float("nan"))
+
+    def need(names, launches, tag):
+        for name in names:
+            if cuda and launches[name] <= 0:
+                raise AssertionError(f"phase {tag} launched no {name}")
+
+    # 40. phase 39's threshold on the fused path (fused="auto", the
+    # default): one bucket a code, one graph a bucket
+    t_new = time.time()
+    fam = CodeFamily(ctx.codes, ctx.dec1, ctx.dec2, batch_size=ctx.batch,
+                     seed=ctx.seed, device=dev)
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        t0 = start()
+        with check_syncs():
+            pc, rec, launches40 = ctx.ledger_run(
+                lambda tmp: fam.EvalThreshold(
+                    "data", "Total", "extrapolation", ctx.est, ctx.shots,
+                    ledger=tmp, fused="auto"))
+        wall = stop(t0)
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.disable()
+    buckets = list(eval_cells_fused.buckets)
+
+    def cells_of(record):
+        return [(c["cell"]["code"], round(c["cell"]["p"], 12),
+                 c["failures"], c["shots"]) for c in record["cells"]]
+
+    cells = cells_of(rec)
+    if cells != cells_of(ctx.rec) or pc != ctx.pc:
+        raise AssertionError(f"phase 40: fused cells {cells}, p_c {pc}; "
+                             f"phase 39's {cells_of(ctx.rec)}, {ctx.pc}")
+    if snap.get("sweep.fused_fallback_cells", {}).get("value", 0) \
+            or snap["sweep.fused_cells"]["value"] != len(cells) \
+            or len(buckets) != len(ctx.codes):
+        raise AssertionError(f"phase 40: fused counters {snap}, buckets "
+                             f"{buckets}")
+    for b in buckets:
+        if (cuda and b["graphs"] != 1) or b["host_reads"] > b["megabatches"]:
+            raise AssertionError(f"phase 40 bucket {b}: one captured graph "
+                                 f"and one host read a megabatch at most")
+    need(("bp_minsum_bf16", "osd_elim"), launches40, "40")
+    shots40 = sum(c[3] for c in cells)
+    log(f"[40] CodeFamily.EvalThreshold(fused='auto'): {len(cells)} cells "
+        f"== phase 39's (failures, shots) cell by cell, p_c {pc:.6f} == "
+        f"phase 39's; {wall:.2f} s ({shots40 / wall:.1f} shots/s with the "
+        f"builds and captures; phase 39's serial loop {ctx.wall39:.2f} s); "
+        "buckets " + "; ".join(
+            f"{b['cells']} cells, {b['megabatches']} megabatch(es), "
+            f"{b['host_reads']} host read(s), {b['graphs']} graph(s) of "
+            f"{b['nodes']} nodes, build {b['build_s']:.2f} s, capture "
+            f"{b['capture_s'] or 0:.2f} s, peak "
+            f"{b.get('peak_gib', float('nan')):.2f} GiB" for b in buckets)
+        + f"; launches {launches40}")
+
+    # one bucket (the last code's cells) launched twice: with its capture,
+    # then replayed; both runs equal phase 40's cells
+    ci = len(ctx.codes) - 1
+    code = ctx.codes[ci]
+    p_list = sorted({c["cell"]["p"] for c in rec["cells"]})
+    bucket = [(i, ci, code, p) for i, p in enumerate(p_list)]
+    want = [c[2:] for c in cells[-len(p_list):]]
+    prog = fam._data_bucket_program(bucket, "Total", ctx.shots)
+    times = []
+    for _ in range(2):
+        t0 = start()
+        with check_syncs():
+            failures, shots, _ = simc.fused_cell_finish(
+                simc.fused_cell_launch(prog)[0])
+        times.append(stop(t0))
+        if [(int(f), int(n)) for f, n in zip(failures, shots)] != want:
+            raise AssertionError(f"phase 40 bucket run {failures} {shots} "
+                                 f"!= the threshold's {want}")
+    n_shots = int(np.sum(shots))
+    log(f"[40] {code.name or code.N} bucket of {len(p_list)} cells alone: "
+        f"{n_shots} shots, {n_shots / times[0]:.1f} shots/s with its "
+        f"capture ({times[0]:.2f} s), {n_shots / times[1]:.1f} replayed "
+        f"({times[1]:.3f} s), graph {prog.driver.graph_stats}, peak "
+        f"{peak():.2f} GiB")
+    prog.release()
+
+    # one fused megabatch (one batch a cell) equal to itself with every
+    # kernel replaced by its plain version
+    bucket0 = [(i, 0, ctx.codes[0], p) for i, p in enumerate(p_list)]
+    runs = []
+    for plain in (False, True):
+        prog = fam._data_bucket_program(bucket0, "Total", ctx.batch)
+        with (_kernels.force_plain() if plain else check_syncs()):
+            runs.append(tuple(tuple(int(x) for x in a) for a in
+                              simc.fused_cell_finish(
+                                  simc.fused_cell_launch(prog)[0])))
+        prog.release()
+    if runs[0] != runs[1]:
+        raise AssertionError(f"phase 40 fused megabatch: kernels {runs[0]}, "
+                             f"plain {runs[1]}")
+    log(f"[40] one fused megabatch ({len(p_list)} lanes x 1 batch of "
+        f"{ctx.batch} on {ctx.codes[0].name or ctx.codes[0].N}): (failures, "
+        f"shots, min_w) {runs[0]} == with every kernel replaced by its "
+        f"plain version")
+    log(f"phase 40 took {time.time() - t_new:.1f} s")
+
+    # 41. rare-event estimation: WeightedWordErrorRate at zero tilt on
+    # phase 5's simulator, then a weighted fused rung ladder
+    t_new = time.time()
+    sim5 = ctx.sim5
+    n5 = ctx.shots5
+    out = []
+    for key in ((41, ctx.seed), (42, ctx.seed)):
+        t0 = start()
+        with check_syncs():
+            sim5.min_logical_weight = sim5.N
+            sim5.WeightedWordErrorRate(n5, key=key)
+        out.append((sim5.last_weighted, stop(t0), sim5.last_host_reads))
+    ws, wall_w, reads_w = out[0]
+    with check_syncs():
+        sim5.min_logical_weight = sim5.N
+        sim5.WordErrorRate(n5, key=(41, ctx.seed))
+    direct = (sim5.last_failures, sim5.last_shots, sim5.min_logical_weight)
+    if (ws.failures, ws.shots, ws.min_w) != direct or ws.s1 != ws.failures \
+            or ws.w1 != ws.shots or ws.s2 != ws.failures:
+        raise AssertionError(f"phase 41 zero tilt: {ws} != WordErrorRate's "
+                             f"{direct}")
+    log(f"[41] WeightedWordErrorRate at zero tilt on phase 5's simulator: "
+        f"(failures, shots, min_w) {direct} == WordErrorRate's, s1 = "
+        f"{ws.s1} and w1 = {ws.w1} (the uniform limit); {n5 / wall_w:.1f} "
+        f"shots/s with its capture ({wall_w:.2f} s), {n5 / out[1][1]:.1f} "
+        f"replayed ({out[1][1]:.3f} s), {reads_w} host read(s), peak "
+        f"{peak():.2f} GiB")
+
+    code = ctx.codes[-1]
+    tilts = [RARE_TILT * 1.5 * p for p in RARE_P]
+    t0 = start()
+    with check_syncs():
+        points, launches41 = ctx.counted(lambda: eval_rare_grid(
+            code, ctx.rare_class, RARE_P, ctx.rare_shots, q_total=tilts,
+            batch_size=ctx.batch, seed=ctx.seed, device=dev))
+    wall_r = stop(t0)
+    peak_r = peak()
+    need(("bp_minsum_bf16",), launches41, "41")
+    for p, q, pt in zip(RARE_P, tilts, points):
+        p_ch = p * 3 / 2
+        sim = CodeSimulator_DataError(
+            code=code,
+            decoder_x=ctx.rare_class.GetDecoder({"h": code.hz, "p_data": p}),
+            decoder_z=ctx.rare_class.GetDecoder({"h": code.hx, "p_data": p}),
+            pauli_error_probs=[p_ch / 3] * 3, batch_size=ctx.batch,
+            seed=ctx.seed, device=dev)
+        with check_syncs():
+            sim.WeightedWordErrorRate(
+                ctx.rare_shots,
+                tilt_probs=tilt_channel(sim.channel_probs, q))
+        a, b = sim.last_weighted, pt["stats"]
+        if (a.failures, a.shots, a.min_w) != (b.failures, b.shots, b.min_w) \
+                or not np.allclose([b.s1, b.s2, b.w1, b.w2],
+                                   [a.s1, a.s2, a.w1, a.w2], rtol=1e-6,
+                                   atol=0):
+            raise AssertionError(f"phase 41 rung p={p}: fused {b} != serial "
+                                 f"{a}")
+        if not (np.isfinite(pt["wer"]) and b.failures > 0):
+            raise AssertionError(f"phase 41 rung p={p}: {pt}")
+        simc.release_graphs(sim)
+    log(f"[41] eval_rare_grid on {code.name or code.N} with BP "
+        f"({ctx.rare_class.decoder_default_params}), {len(RARE_P)} rungs "
+        f"of {ctx.rare_shots} shots, fused weighted == serial "
+        f"WeightedWordErrorRate rung by rung (counts exact, moments to "
+        f"1e-6): " + "; ".join(
+            f"eval_p {p} tilt {q:.4f}: WER {pt['wer']:.4e} +- "
+            f"{pt['wer_eb']:.2e}, rse {pt['rse']}, ESS {pt['ess']:.1f}, "
+            f"{pt['stats'].failures} raw failures"
+            for p, q, pt in zip(RARE_P, tilts, points))
+        + f"; {wall_r:.2f} s for the ladder "
+        f"({len(RARE_P) * ctx.rare_shots / wall_r:.1f} shots/s with its "
+        f"capture), peak {peak_r:.2f} GiB; launches {launches41}")
+    log(f"phase 41 took {time.time() - t_new:.1f} s")
+    return {"40": launches40, "41": launches41}
+
+
 def main() -> int:
     import torch
 
@@ -723,7 +962,7 @@ def main() -> int:
 
 
 def run_phases(dem_job) -> int:
-    """Phases 1-39 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-41 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs."""
     import numpy as np
     import torch
@@ -2861,7 +3100,7 @@ def run_phases(dem_job) -> int:
     with check_syncs():
         pc39, rec39, launches_39 = ledger_run(lambda tmp: fam39.EvalThreshold(
             "data", "Total", "extrapolation", SWEEP_EST, SWEEP_SHOTS,
-            ledger=tmp))
+            ledger=tmp, fused=False))
     dt39 = time.time() - t39
     torch.cuda.empty_cache()
     log(f"[39] after the threshold's 12 cells: allocated / reserved "
@@ -2974,6 +3213,15 @@ def run_phases(dem_job) -> int:
         f"phase 32's pinned run, {time.time() - t:.1f} s; launches "
         f"{launches}")
     log(f"phase 39 took {time.time() - t_new:.1f} s")
+
+    # 40-41. the fused sweep path and rare-event estimation
+    fused_and_rare_phases(SimpleNamespace(
+        dev=dev, codes=codes39, dec1=bp30, dec2=osd_e10, batch=2048,
+        seed=SEED, est=SWEEP_EST, shots=SWEEP_SHOTS, pc=pc39, rec=rec39,
+        wall39=dt39, counted=counted, ledger_run=ledger_run, sim5=sim5,
+        shots5=16 * 4096, rare_shots=RARE_SHOTS,
+        rare_class=BP_Decoder_Class(12.5, "minimum_sum", 0.625,
+                                    device=dev)))
 
     # the kernels line
     kernels = [

@@ -19,6 +19,12 @@
 A decoder splits into ``device_static`` (a hashable description of the
 program) and ``device_state`` (a dict of tensors), run by ``decode_device``.
 Decoders live on one device, ``"cuda"`` unless the caller passes another.
+What depends on H alone (the Tanner graph, the BP head, OSD's rank and
+packed rows) is built once per matrix and device (``_per_h``, a small
+bounded memo), so decoders of one H share those objects; the factories'
+``GetDecoderState`` gives a decoder's (static, state) pair without
+building it, its only new leaves the p-dependent priors (the fused
+sweep's per-cell payload, ``sweep/fused.py``).
 
 A min-sum ``BPDecoder`` carries a BP head (the JAX package's vocabulary):
 ``bp_kernel`` / ``QLDPC_BP_KERNEL`` ``"v2"`` (default) and ``"xla"`` decode
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import os
 from abc import ABC, abstractmethod
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ import torch
 from ..codes import gf2
 from ..ops import _kernels, bp, bp_kernel, osd_cs_device, osd_device
 from ..utils.device import device_cond, host_value, resolve_device
-from .osd import DEVICE_METHODS, METHODS, _check_osd_order
+from .osd import DEVICE_METHODS, METHODS, _channel_cost, _check_osd_order
 
 __all__ = [
     "osd_compaction_tiers",
@@ -314,6 +321,51 @@ def state_from_jax(jax_state, device="cuda") -> dict:
     return state
 
 
+# (H's bytes and shape, device, the head's settings) -> the per-H build
+_PER_H: OrderedDict = OrderedDict()
+_PER_H_SIZE = 16
+
+
+def _memo(key, build):
+    hit = _PER_H.get(key)
+    if hit is None:
+        hit = _PER_H[key] = build()
+        while len(_PER_H) > _PER_H_SIZE:
+            _PER_H.popitem(last=False)
+    else:
+        _PER_H.move_to_end(key)
+    return hit
+
+
+def _h_key(h01) -> tuple:
+    return (h01.shape, h01.tobytes())
+
+
+def _per_h(h01, device, bp_method, quantize=None, kernel=None):
+    """``(graph, head, head_tag)`` of H on ``device``, built once (the
+    head's rules: ``_make_head``, the environment read now)."""
+    kernel = kernel or os.environ.get("QLDPC_BP_KERNEL", "v2")
+    key = ("bp", _h_key(h01), str(device), bp_method, quantize, kernel,
+           os.environ.get("QLDPC_PALLAS", "1"))
+
+    def build():
+        graph_host = bp.build_tanner_graph_host(h01)
+        head, tag = _make_head(bp_method, graph_host, quantize=quantize,
+                               kernel=kernel, device=device)
+        return bp.graph_to(graph_host, device), head, tag
+
+    return _memo(key, build)
+
+
+def _osd_plan(h01, channel_probs, device):
+    """The OSD plan of H with these priors' costs: rank and packed rows
+    built once per H (``_per_h``'s memo), the costs per call."""
+    base = _memo(("osd", _h_key(h01), str(device)),
+                 lambda: osd_device.build_osd_plan(
+                     h01, np.full(h01.shape[1], 0.5), device=device))
+    return base.with_cost(_channel_cost(channel_probs))
+
+
 class BPDecoder:
     """Plain BP decoder (reference BPDecoder).  ``quantize="int8"`` decodes
     with int8 min-sum messages (the JAX package's int8 serving and
@@ -328,8 +380,6 @@ class BPDecoder:
         self.device = resolve_device(device)
         self.h = np.asarray(h)
         self._h01 = gf2.to_gf2(h)
-        graph_host = bp.build_tanner_graph_host(self._h01)
-        self.graph = bp.graph_to(graph_host, self.device)
         self.channel_probs = np.broadcast_to(
             np.asarray(channel_probs, np.float64), (self._h01.shape[1],)
         ).copy()
@@ -344,9 +394,9 @@ class BPDecoder:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantize = quantize
         self.llr0 = bp.llr_from_probs(self.channel_probs, self.device)
-        self._head, self._head_tag = _make_head(
-            self.bp_method, graph_host, quantize=quantize, kernel=bp_kernel,
-            device=self.device)
+        self.graph, self._head, self._head_tag = _per_h(
+            self._h01, self.device, self.bp_method, quantize=quantize,
+            kernel=bp_kernel)
 
     @property
     def device_static(self):
@@ -398,8 +448,8 @@ class BPOSD_Decoder(BPDecoder):
                 f"{self.osd_method!r}")
         self.osd_order = _check_osd_order(osd_order)
         self.osd_elim = osd_device.elim_route()
-        self._osd_plan = osd_device.build_osd_plan(
-            self._h01, self.channel_probs, device=self.device)
+        self._osd_plan = _osd_plan(self._h01, self.channel_probs,
+                                   self.device)
 
     @property
     def device_static(self):
@@ -554,6 +604,31 @@ class DecoderClass(ABC):
     def GetDecoder(self, code_and_noise_channel_params):
         ...
 
+    def GetDecoderState(self, code_and_noise_channel_params):
+        """``(device_static, device_state)`` of the decoder ``GetDecoder``
+        would build for these params: the per-cell payload the fused sweep
+        stacks along its cell axis.  This default builds the decoder; the
+        BP and BPOSD classes give the pair without building it."""
+        dec = self.GetDecoder(code_and_noise_channel_params)
+        return dec.device_static, dec.device_state
+
+
+def _bp_state(d, params, device):
+    """The BP part of ``GetDecoderState`` (the factories' settings ``d``):
+    ``(bp static, {graph, llr0, pallas}, h01, channel probs)``, the graph
+    and head from ``_per_h``, as ``BPDecoder`` builds them."""
+    probs, num_qubits = _channel_from_params(params)
+    h01 = gf2.to_gf2(params["h"])
+    method = _norm_method(d["bp_method"])
+    dev = resolve_device(device)
+    graph, head, tag = _per_h(h01, dev, method, quantize=d.get("quantize"))
+    static = ("bp", max(1, int(num_qubits / d["max_iter_ratio"])), method,
+              float(d["ms_scaling_factor"]), True, tag)
+    channel = np.broadcast_to(np.asarray(probs, np.float64),
+                              (h01.shape[1],)).copy()
+    return (static, {"graph": graph, "llr0": bp.llr_from_probs(channel, dev),
+                     "pallas": head}, h01, channel)
+
 
 def _channel_from_params(params) -> tuple[np.ndarray, int]:
     """With 'p_syndrome' present, h is the extended [H|I] matrix and the
@@ -598,6 +673,28 @@ class BPOSD_Decoder_Class(DecoderClass):
             osd_method=d["osd_method"], osd_order=d["osd_order"],
             device=self.device)
 
+    def GetDecoderState(self, code_and_noise_channel_params):
+        """``GetDecoder(params)``'s ``(device_static, device_state)``
+        without the build: its new leaves are the priors and OSD's costs
+        (``BPOSD_Decoder``'s statics and per-H leaves, equal to a full
+        build's)."""
+        _require(code_and_noise_channel_params)
+        d = self.decoder_default_params
+        if d["osd_method"] not in DEVICE_METHODS:
+            raise NotImplementedError(
+                f"device OSD implements OSD-0/OSD-E/OSD-CS only, not "
+                f"{d['osd_method']!r}")
+        bp_static, state, h01, channel = _bp_state(
+            d, code_and_noise_channel_params, self.device)
+        plan = _osd_plan(h01, channel, resolve_device(self.device))
+        order = (0 if METHODS[d["osd_method"]] == 0
+                 else _check_osd_order(d["osd_order"]))
+        method = "osd_cs" if d["osd_method"] == "osd_cs" else "osd_e"
+        static = ("bposd_dev", bp_static, plan.n, plan.rank, order,
+                  osd_device.elim_route(), method)
+        return static, dict(state, osd_packed=plan.packed,
+                            osd_cost=plan.cost)
+
 
 class BP_Decoder_Class(DecoderClass):
     """``quantize`` (default None) builds int8 min-sum decoders."""
@@ -619,6 +716,16 @@ class BP_Decoder_Class(DecoderClass):
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
             quantize=d["quantize"], device=self.device)
+
+    def GetDecoderState(self, code_and_noise_channel_params):
+        """``GetDecoder(params)``'s ``(device_static, device_state)``
+        without the build: the graph and head from the per-H memo, a new
+        prior (the JAX package's fast path)."""
+        _require(code_and_noise_channel_params)
+        static, state, _, _ = _bp_state(
+            self.decoder_default_params, code_and_noise_channel_params,
+            self.device)
+        return static, state
 
 
 class FirstMinBP_Decoder_Class(DecoderClass):

@@ -32,6 +32,7 @@ __all__ = [
     "packed_count",
     "packed_per_shot_weight",
     "packed_residual_stats",
+    "packed_residual_flags",
 ]
 
 LANE = 32  # shots per int32 lane word
@@ -155,6 +156,24 @@ def packed_per_shot_weight(packed_bits, batch_size: int) -> torch.Tensor:
     return weights.reshape(w * LANE)[:batch_size]
 
 
+def _residual_flag_words(res_x, res_z, hz_par, hx_par, lz_t, lx_t):
+    """Per-shot stabilizer and logical failure flag words of packed
+    residuals: ``(x_stab, x_log, z_stab, z_log)``, each (W,) int32."""
+    x_stab = packed_any(packed_parity_apply(hz_par[0], hz_par[1], res_x))
+    x_log = packed_any(packed_gf2_matmul(res_x, lz_t))
+    z_stab = packed_any(packed_parity_apply(hx_par[0], hx_par[1], res_z))
+    z_log = packed_any(packed_gf2_matmul(res_z, lx_t))
+    return x_stab, x_log, z_stab, z_log
+
+
+def _min_weight(res_x, res_z, x_log, wz_flags, batch_size: int, n: int):
+    wx = torch.where(unpack_shots(x_log, batch_size).bool(),
+                     packed_per_shot_weight(res_x, batch_size), n)
+    wz = torch.where(unpack_shots(wz_flags, batch_size).bool(),
+                     packed_per_shot_weight(res_z, batch_size), n)
+    return torch.minimum(wx.min(), wz.min()).to(torch.int32)
+
+
 def packed_residual_stats(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
                           eval_type: str, batch_size: int, n: int, *,
                           z_weight_excludes_stab: bool = False):
@@ -162,27 +181,40 @@ def packed_residual_stats(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
 
     res_x/res_z: (W, n) packed residual planes.  hz_par/hx_par: ParityOp
     ``(nbr, mask)`` pairs (hz checks res_x, hx checks res_z).  lz_t/lx_t:
-    (n, k) {0,1} logical transposes.  Returns int32 device scalars
-    (failure count of ``eval_type`` "X", "Z" or "Total", min residual weight
-    among logical failures).  ``z_weight_excludes_stab`` is the phenom
-    engine's convention (the reference's if/elif): a Z residual's weight
-    counts only where its stabilizer check passed."""
-    x_stab = packed_any(packed_parity_apply(hz_par[0], hz_par[1], res_x))
-    x_log = packed_any(packed_gf2_matmul(res_x, lz_t))
-    z_stab = packed_any(packed_parity_apply(hx_par[0], hx_par[1], res_z))
-    z_log = packed_any(packed_gf2_matmul(res_z, lx_t))
+    (n, k) {0,1} logical transposes.  Returns int32 device values (failure
+    count of ``eval_type`` "X", "Z" or "Total", or for "ALL" the (3,)
+    counts of all three, as the JAX package's fused sweep unit takes them;
+    min residual weight among logical failures).  ``z_weight_excludes_stab``
+    is the phenom engine's convention (the reference's if/elif): a Z
+    residual's weight counts only where its stabilizer check passed."""
+    x_stab, x_log, z_stab, z_log = _residual_flag_words(
+        res_x, res_z, hz_par, hx_par, lz_t, lx_t)
     x_fail = x_stab | x_log
     z_fail = z_stab | z_log
     if eval_type == "X":
         cnt = packed_count(x_fail, batch_size)
     elif eval_type == "Z":
         cnt = packed_count(z_fail, batch_size)
+    elif eval_type == "ALL":
+        cnt = torch.stack([packed_count(f, batch_size)
+                           for f in (x_fail, z_fail, x_fail | z_fail)])
     else:
         cnt = packed_count(x_fail | z_fail, batch_size)
-    wx = torch.where(unpack_shots(x_log, batch_size).bool(),
-                     packed_per_shot_weight(res_x, batch_size), n)
     wz_flags = z_log & ~z_stab if z_weight_excludes_stab else z_log
-    wz = torch.where(unpack_shots(wz_flags, batch_size).bool(),
-                     packed_per_shot_weight(res_z, batch_size), n)
-    min_w = torch.minimum(wx.min(), wz.min()).to(torch.int32)
-    return cnt, min_w
+    return cnt, _min_weight(res_x, res_z, x_log, wz_flags, batch_size, n)
+
+
+def packed_residual_flags(res_x, res_z, hz_par, hx_par, lz_t, lx_t,
+                          batch_size: int, n: int, *,
+                          z_weight_excludes_stab: bool = False):
+    """Per-SHOT residual failure flags from packed planes: ``(x_fail,
+    z_fail, min_w)``, the flags (batch_size,) uint8, the unit the weighted
+    pipelines multiply by per-shot weights (the JAX package's function of
+    that name).  The flag words of ``packed_residual_stats``, so the flags'
+    sums equal its counts."""
+    x_stab, x_log, z_stab, z_log = _residual_flag_words(
+        res_x, res_z, hz_par, hx_par, lz_t, lx_t)
+    wz_flags = z_log & ~z_stab if z_weight_excludes_stab else z_log
+    return (unpack_shots(x_stab | x_log, batch_size),
+            unpack_shots(z_stab | z_log, batch_size),
+            _min_weight(res_x, res_z, x_log, wz_flags, batch_size, n))

@@ -42,6 +42,7 @@ Keep ``torch.backends.cuda.matmul.allow_tf32`` False on the card.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 import os
@@ -91,6 +92,13 @@ class OsdPlan:
         self.packed = torch.from_numpy(pack_rows(h)).to(dev)
         self.cost = torch.from_numpy(
             np.asarray(channel_cost, np.float32)).to(dev)
+
+    def with_cost(self, channel_cost) -> "OsdPlan":
+        """This plan (its rank and packed rows, shared) with other costs."""
+        plan = copy.copy(self)
+        plan.cost = torch.from_numpy(
+            np.asarray(channel_cost, np.float32)).to(self.packed.device)
+        return plan
 
 
 def build_osd_plan(h, channel_probs, device="cuda") -> OsdPlan:

@@ -38,8 +38,9 @@ from ..ops.prng import fold_in, fold_in_device
 from ..utils import device as _device
 
 __all__ = ["batch_seed", "batch_generator", "GeneratorInput", "KeyInput",
-           "MegabatchDriver", "count_min_driver", "drain_double_buffered",
-           "check_syncs", "CapturedStep"]
+           "MegabatchDriver", "CellFusedDriver", "count_min_driver",
+           "cell_fused_driver", "drain_double_buffered", "check_syncs",
+           "CapturedStep"]
 
 
 def batch_seed(seed, j: int) -> int:
@@ -300,13 +301,77 @@ class MegabatchDriver:
                              f"{k} in [0, {n_run}]")
         carry = self._init_fn()
         if carry0 is not None:
-            if len(carry0) != len(carry):
-                raise ValueError(f"carry0 has {len(carry0)} values, the "
-                                 f"carry {len(carry)}")
-            # a kernel each, the value as its argument (no host read)
-            for c, v in zip(carry, carry0):
-                c.fill_(int(v))
+            self._fill(carry, carry0)
         return n_run, carry
+
+    @staticmethod
+    def _fill(carry, values) -> None:
+        """Write host ``values`` (a number, or a sequence for a vector slot,
+        per carry slot) into the device ``carry``: a kernel each, the value
+        as its argument (no host buffer that a queued copy could still
+        read)."""
+        if len(values) != len(carry):
+            raise ValueError(f"carry0 has {len(values)} values, the carry "
+                             f"{len(carry)}")
+        for c, v in zip(carry, values):
+            conv = float if c.is_floating_point() else int
+            if c.dim() == 0:
+                c.fill_(conv(v))
+            else:
+                for i, x in enumerate(np.asarray(v).reshape(-1).tolist()):
+                    c[i].fill_(conv(x))
+
+    @staticmethod
+    def _pack(carry) -> torch.Tensor:
+        """The carry as one 1-D tensor for one host read: int64, or float64
+        when a slot is floating (exact for float32 moments and for counts
+        below 2**53)."""
+        dtype = (torch.float64 if any(c.is_floating_point() for c in carry)
+                 else torch.int64)
+        return torch.cat([c.reshape(-1).to(dtype) for c in carry])
+
+    @staticmethod
+    def _unpack(carry, values) -> tuple:
+        """Host values of ``_pack(carry)``: a Python number per scalar slot,
+        a numpy array per vector slot."""
+        out, i = [], 0
+        for c in carry:
+            n = c.numel()
+            vals = values[i:i + n]
+            i += n
+            if c.dim() == 0:
+                out.append(float(vals[0]) if c.is_floating_point()
+                           else int(vals[0]))
+            else:
+                out.append(np.asarray(vals, np.float64 if c.is_floating_point()
+                                      else np.int64))
+        return tuple(out)
+
+    def read_launch(self, carry) -> "_PendingRead":
+        """Start the one host read of ``carry`` (with a replayed graph's
+        launch counts): a pinned copy and an event; ``.finish()`` waits and
+        returns the host values."""
+        dev = carry[0].device if self._graphed(carry) else None
+        checked = getattr(_checks, "syncs", False)
+        ready = None
+        with _sync_mode(checked and dev is not None):
+            snap = self._pack(carry)
+            if dev is not None:
+                snap = torch.cat([snap, _kernels.launch_counts(dev).to(
+                    snap.dtype)])
+            if snap.is_cuda:
+                host = torch.empty(snap.shape, dtype=snap.dtype,
+                                   pin_memory=True)
+                host.copy_(snap, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host = snap
+        return _PendingRead(self, carry, host, ready, dev, checked)
+
+    def read(self, carry) -> tuple:
+        """The host values of ``carry``: one host read."""
+        return self.read_launch(carry).finish()
 
     def stream(self, seed, n_batches: int, *extra, start: int = 0,
                carry0=None):
@@ -353,48 +418,48 @@ class MegabatchDriver:
 
     def run_keys(self, seed, n_batches: int, *extra, start: int = 0,
                  carry0=None):
-        """Like ``stream`` but yields ``(host carry, batches_done)``: a
-        tuple of ints per megabatch, drained double-buffered (module
-        docstring), one host read each.  A caller that stops early has
-        launched one megabatch more than it reads.  ``start`` and
-        ``carry0`` resume a run (``stream``)."""
+        """Like ``stream`` but yields ``(host carry, batches_done)``: host
+        values per megabatch, drained double-buffered (module docstring),
+        one host read each.  A caller that stops early has launched one
+        megabatch more than it reads.  ``start`` and ``carry0`` resume a
+        run (``stream``)."""
         k = self.k_inner
         n_run = -(-int(n_batches) // k) * k
         it = self.stream(seed, n_batches, *extra, start=start, carry0=carry0)
-        checked = getattr(_checks, "syncs", False)
 
         def launch(_):
             carry, done = next(it)
-            # a replayed graph's launch counts ride with its carry
-            dev = carry[0].device if self._graphed(carry) else None
-            ready = None
-            with _sync_mode(checked and dev is not None):
-                snap = torch.stack([c.to(torch.int64) for c in carry])
-                if dev is not None:
-                    snap = torch.cat([snap, _kernels.launch_counts(dev)])
-                if snap.is_cuda:
-                    host = torch.empty(snap.shape, dtype=snap.dtype,
-                                       pin_memory=True)
-                    host.copy_(snap, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record()
-                else:
-                    host = snap
-            return host, ready, dev, len(carry), done
+            return self.read_launch(carry), done
 
         def finish(item):
-            host, ready, dev, n_carry, done = item
-            with _sync_mode(checked and dev is not None):
-                if ready is not None:
-                    ready.synchronize()
-                values = host.tolist()
-            self.host_reads += 1
-            if dev is not None:
-                _kernels.fold_launch_counts(dev, values[n_carry:])
-            return tuple(values[:n_carry]), done
+            pending, done = item
+            return pending.finish(), done
 
         yield from drain_double_buffered(launch, finish,
                                          range(int(start), n_run, k))
+
+
+class _PendingRead(NamedTuple):
+    """A host read in flight (``MegabatchDriver.read_launch``)."""
+
+    driver: object
+    carry: tuple
+    host: torch.Tensor
+    ready: object
+    dev: object
+    checked: bool
+
+    def finish(self) -> tuple:
+        with _sync_mode(self.checked and self.dev is not None):
+            if self.ready is not None:
+                self.ready.synchronize()
+            values = self.host.tolist()
+        self.driver.host_reads += 1
+        n = sum(c.numel() for c in self.carry)
+        if self.dev is not None:
+            _kernels.fold_launch_counts(self.dev,
+                                        [int(v) for v in values[n:]])
+        return self.driver._unpack(self.carry, values[:n])
 
 
 def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
@@ -413,6 +478,236 @@ def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
 
     return MegabatchDriver(stats_fn, combine, init, batch_input,
                            k_inner=k_inner)
+
+
+class _LaneGenerators:
+    """``k`` x ``L`` generators registered with a fused graph: batch j of
+    lane l draws from ``gens[j][l]``, reseeded before each replay with its
+    batch index of the lane plan."""
+
+    def __init__(self, device, k: int, n_lanes: int):
+        self.gens = [[batch_generator(_THROWAWAY, j * n_lanes + lane, device)
+                      for lane in range(n_lanes)] for j in range(k)]
+
+    def warmup(self):
+        return batch_generator(_THROWAWAY, 0, self.gens[0][0].device)
+
+    def register(self, graph) -> None:
+        for row in self.gens:
+            for gen in row:
+                graph.register_generator_state(gen)
+
+    def reseed(self, seed, base, stride) -> None:
+        for j, row in enumerate(self.gens):
+            for lane, gen in enumerate(row):
+                gen.manual_seed(batch_seed(
+                    seed, int(base[lane]) + j * int(stride[lane])))
+
+
+class CellFusedDriver(MegabatchDriver):
+    """Megabatch driver of a fused sweep bucket (the JAX package's
+    ``CellFusedDriver``): one megabatch advances ``n_cells`` lanes, each
+    running ``k_inner`` batches of one (code, p, logical type) cell, and
+    folds a carry of per-CELL counters.
+
+    ``stats_fn(generator, cell, *extra)``: one batch of the cell ``cell``
+    (a (1,) int64 device index into the bucket's stacked states) drawn from
+    ``generator`` -> ``(count, min_w)`` int32 device scalars, and with
+    ``weighted`` the four float32 weight moments ``(s1, s2, w1, w2)``
+    after them.  The stats function gathers its cell's state; the driver
+    masks by ``active`` and adds at the lane's cell.
+
+    Carry: ``(failures (C,) int32, shots (C,) int64, min_w (C,) int32)``,
+    with ``weighted`` ``(s1, s2, w1, w2) (C,) float32`` after them.
+
+    The lane plan, per megabatch, is host vectors ``(lane_base,
+    lane_stride, lane_cell, active)``: batch j of lane l draws from
+    ``batch_generator(seed, lane_base[l] + j * lane_stride[l])``, the
+    serial stream's batch of that index, so a cell's draws are its serial
+    run's whichever lane (or lanes) run them.  ``lane_cell`` and
+    ``active`` live in device buffers (written by a kernel per changed
+    lane), so a changed plan (adaptive reallocation) replays the same
+    graph.
+
+    On the card a megabatch is one captured CUDA graph per ``extra``: the
+    L x k lane units in turn, each the serial cell's unit on its lane's
+    gathered state, with L x k registered generators reseeded before each
+    replay.  Elsewhere the megabatch is the eager loop, which skips
+    inactive lanes (they add nothing)."""
+
+    def __init__(self, stats_fn, n_cells: int, batch_size: int,
+                 k_inner: int, min_init: int, device,
+                 weighted: bool = False):
+        self.n_cells = int(n_cells)
+        self.batch_size = int(batch_size)
+        self.weighted = bool(weighted)
+        self.device = torch.device(device)
+        self._min_init = int(min_init)
+        super().__init__(stats_fn, None, self._init, GeneratorInput(device),
+                         k_inner=k_inner)
+        C, dev = self.n_cells, self.device
+        self._arange = torch.arange(C, device=dev)
+        self._cell = torch.arange(C, device=dev)
+        self._active = torch.ones(C, dtype=torch.bool, device=dev)
+        self._plan = [(c, True) for c in range(C)]  # the buffers' values
+
+    def _init(self):
+        C, dev = self.n_cells, self.device
+        carry = (torch.zeros(C, dtype=torch.int32, device=dev),
+                 torch.zeros(C, dtype=torch.int64, device=dev),
+                 torch.full((C,), self._min_init, dtype=torch.int32,
+                            device=dev))
+        if self.weighted:
+            carry += tuple(torch.zeros(C, dtype=torch.float32, device=dev)
+                           for _ in range(4))
+        return carry
+
+    def host_init(self) -> tuple:
+        """The initial carry's host values (no device read)."""
+        C = self.n_cells
+        host = (np.zeros(C, np.int64), np.zeros(C, np.int64),
+                np.full(C, self._min_init, np.int64))
+        if self.weighted:
+            host += tuple(np.zeros(C, np.float64) for _ in range(4))
+        return host
+
+    def _fold(self, carry, lane: int, out):
+        """Add lane ``lane``'s batch ``out`` at its cell if it is active:
+        the cell's slots take the serial fold (``c + o``, ``min(c, o)``),
+        every other slot keeps its value."""
+        hit = (self._arange == self._cell[lane]) & self._active[lane]
+        new = (torch.where(hit, carry[0] + out[0], carry[0]),
+               torch.where(hit, carry[1] + self.batch_size, carry[1]),
+               torch.where(hit, torch.minimum(carry[2], out[1]), carry[2]))
+        if self.weighted:
+            new += tuple(torch.where(hit, carry[3 + i] + out[2 + i],
+                                     carry[3 + i]) for i in range(4))
+        return new
+
+    def _lane(self, lane: int):
+        return self._cell[lane:lane + 1]
+
+    def _write_plan(self, cells, active) -> None:
+        for lane, (c, a) in enumerate(zip(cells, active)):
+            want = (int(c), bool(a))
+            if self._plan[lane] != want:
+                self._cell[lane].fill_(want[0])
+                self._active[lane].fill_(want[1])
+                self._plan[lane] = want
+
+    def _megabatch_plan(self, carry, seed, base, stride, active, *extra):
+        for j in range(self.k_inner):
+            for lane in range(self.n_cells):
+                if not active[lane]:
+                    continue
+                gen = batch_generator(
+                    seed, int(base[lane]) + j * int(stride[lane]),
+                    self.device)
+                carry = self._fold(carry, lane, self._stats_fn(
+                    gen, self._lane(lane), *extra))
+        self.megabatches += 1
+        return carry
+
+    def _capture(self, extra, carry) -> _Graph:
+        inputs = _LaneGenerators(self.device, self.k_inner, self.n_cells)
+
+        def megabatch():
+            new = carry
+            for j in range(self.k_inner):
+                for lane in range(self.n_cells):
+                    new = self._fold(new, lane, self._stats_fn(
+                        inputs.gens[j][lane], self._lane(lane), *extra))
+            for c, v in zip(carry, new):
+                c.copy_(v)
+
+        graph, _, body_pool, stats = _capture_graph(
+            self.device, lambda: self._stats_fn(inputs.warmup(),
+                                                self._lane(0), *extra),
+            megabatch, inputs.register)
+        return _Graph(graph, carry, inputs, body_pool, stats)
+
+    def dispatch(self, carry, seed, plan, *extra):
+        """One megabatch of every lane under the host lane plan ``(base,
+        stride, cell, active)``, folded into ``carry``; returns the new
+        carry (on the card the graph's own buffers, which the next
+        dispatch updates)."""
+        base, stride, cells, active = plan
+        self._write_plan(cells, active)
+        if not self._graphed(carry):
+            return self._megabatch_plan(carry, seed, base, stride, active,
+                                        *extra)
+        entry = self._graphs.get(extra)
+        if entry is None:
+            entry = self._graphs[extra] = self._capture(extra, carry)
+        self.graph_stats = entry.stats
+        with _sync_mode(getattr(_checks, "syncs", False)):
+            if carry is not entry.carry:
+                for c, v in zip(entry.carry, carry):
+                    c.copy_(v)
+            entry.inputs.reseed(seed, base, stride)
+            entry.graph.replay()
+        self.megabatches += 1
+        return entry.carry
+
+    def stream_plan(self, seed, n_batches: int, *extra, start: int = 0,
+                    carry0=None):
+        """The fixed-budget stream: lane l runs cell l, every cell batches
+        ``[start, n_run)`` in lockstep; yields ``(carry, batches_done)``
+        after each megabatch.  ``start`` and ``carry0`` (host values per
+        slot) resume it, as ``MegabatchDriver.stream``."""
+        k, C = self.k_inner, self.n_cells
+        n_run, carry = self._start(n_batches, int(start), carry0)
+        cells, active, stride = list(range(C)), [True] * C, [1] * C
+        for s in range(int(start), n_run, k):
+            carry = self.dispatch(carry, seed, ([s] * C, stride, cells,
+                                                active), *extra)
+            yield carry, s + k
+
+    def run_plan(self, seed, n_batches: int, *extra, start: int = 0,
+                 carry0=None):
+        """Fold the fixed-budget stream with no host read: ``(carry,
+        batches run)``, the carry unread device tensors."""
+        carry, done = None, int(start)
+        for carry, done in self.stream_plan(seed, n_batches, *extra,
+                                            start=start, carry0=carry0):
+            pass
+        if carry is None:
+            _, carry = self._start(n_batches, int(start), carry0)
+        return carry, done
+
+    def run_plan_keys(self, seed, n_batches: int, *extra, start: int = 0,
+                      carry0=None):
+        """``run_plan`` drained megabatch by megabatch: yields ``(host
+        carry, batches_done)``, double-buffered, one host read each."""
+        k = self.k_inner
+        n_run = -(-int(n_batches) // k) * k
+        it = self.stream_plan(seed, n_batches, *extra, start=start,
+                              carry0=carry0)
+
+        def launch(_):
+            carry, done = next(it)
+            return self.read_launch(carry), done
+
+        def finish(item):
+            pending, done = item
+            return pending.finish(), done
+
+        yield from drain_double_buffered(launch, finish,
+                                         range(int(start), n_run, k))
+
+
+def cell_fused_driver(stats_fn, n_cells: int, batch_size: int, k_inner: int,
+                      *, min_init: int, device, weighted: bool = False,
+                      mesh=None) -> CellFusedDriver:
+    """A ``CellFusedDriver`` for one bucket (its graph is captured once,
+    at its first megabatch, and replayed for every megabatch and plan).
+    ``mesh`` is the JAX package's shot-axis sharding, not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: a fused bucket across devices is not ported yet (ROADMAP "
+            "queue A item 7); run it on one device")
+    return CellFusedDriver(stats_fn, n_cells, batch_size, k_inner, min_init,
+                           device, weighted=weighted)
 
 
 class CapturedStep:

@@ -1,5 +1,24 @@
-"""Shared Monte-Carlo helpers of the simulators."""
+"""Shared Monte-Carlo helpers of the simulators.
+
+Besides the serial run's helpers, the JAX package's two families of
+``sim/common.py`` helpers:
+
+  * the cell-fused sweep's (``LTYPE_CODES`` to ``fused_cell_adaptive``):
+    a bucket of same-shape cells (one code, many p) runs as one
+    ``parallel.shots.CellFusedDriver`` program.  The port's lane unit is
+    the serial cell's own batch unit, run once per lane on a ``lane_view``
+    of the bucket's representative engine whose p-dependent leaves (priors,
+    channel probabilities) are gathered from the cells' stacked states by
+    the lane's device cell index;
+  * the weighted (importance-sampled) runs' (``check_tilt_probs`` to
+    ``drive_weighted_run``): the carry gains the weight moments
+    ``(s1, s2, w1, w2)`` and ``WeightedStats`` holds them on the host.
+"""
 from __future__ import annotations
+
+import copy
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -7,14 +26,24 @@ import torch.utils._pytree as pytree
 
 from ..ops.linalg import gf2_matmul
 from ..ops.prng import key_words, split_key
-from ..parallel.shots import count_min_driver
-from ..utils import diagnostics
+from ..parallel.shots import MegabatchDriver, count_min_driver
+from ..utils import diagnostics, telemetry
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "dense_check_flags", "select_failures", "decoder_key",
            "megabatch_driver", "release_graphs", "run_signature",
            "resumable_stream",
-           "count_failures", "st_round_counts", "st_window_count"]
+           "count_failures", "st_round_counts", "st_window_count",
+           "LTYPE_CODES", "CELL_LEAVES", "LaneDecoder", "lane_view",
+           "stack_cell_states", "states_share_but_llr",
+           "stack_from_overrides", "gather_lane_states", "FusedCellProgram",
+           "tags_json", "plan_lanes", "fused_cell_launch", "fused_cell_finish",
+           "fused_cell_stream", "fused_cell_adaptive",
+           "check_tilt_probs", "weight_moments", "weighted_unit",
+           "WeightedStats",
+           "wer_single_shot_weighted", "wer_per_cycle_weighted",
+           "weighted_driver", "resumable_weighted_stream",
+           "drive_weighted_run"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -73,11 +102,14 @@ def dense_check_flags(res_x, res_z, hz_t, hx_t, lz_t, lx_t, n: int, *,
 
 
 def select_failures(x_fail, z_fail, eval_type: str):
-    """The per-shot failures of ``eval_type`` ("X", "Z" or "Total")."""
+    """The per-shot failures of ``eval_type`` ("X", "Z" or "Total"), or for
+    "ALL" the (B, 3) flags of all three (a fused sweep lane's)."""
     if eval_type == "X":
         return x_fail
     if eval_type == "Z":
         return z_fail
+    if eval_type == "ALL":
+        return torch.stack([x_fail, z_fail, x_fail | z_fail], dim=-1)
     return x_fail | z_fail
 
 
@@ -253,3 +285,611 @@ def st_window_count(num_cycles: int, num_rep: int) -> int:
             f"(got num_cycles={num_cycles}, num_rep={num_rep}, "
             f"remainder {rem})")
     return num_rounds
+
+
+# ---------------------------------------------------------------------------
+# Cell-fused sweep execution (every p of a code in one program)
+# ---------------------------------------------------------------------------
+# per-cell logical-type codes: a fused lane computes the X, Z and Total
+# counts of its batch and picks its cell's by this index, on the device,
+# so cells of every logical type share one program
+LTYPE_CODES = {"X": 0, "Z": 1, "Total": 2}
+# the decoder-state leaves that depend on p (the rest depend on H alone)
+CELL_LEAVES = ("llr0", "osd_cost")
+
+
+class LaneDecoder:
+    """A decoder as a fused lane sees it: the representative's program and
+    the lane's state (its cell's priors gathered on the device)."""
+
+    __slots__ = ("device_static", "device_state")
+
+    def __init__(self, device_static, device_state):
+        self.device_static = device_static
+        self.device_state = device_state
+
+
+def lane_view(rep, **fields):
+    """A shallow copy of the engine ``rep`` with ``fields`` replaced: the
+    serial batch unit run on a lane's state (probabilities as device
+    tensors, decoders as ``LaneDecoder``s, ``eval_logical_type="ALL"``)."""
+    view = copy.copy(rep)
+    view.__dict__.update(fields)
+    return view
+
+
+def _leaf_equal(a, b) -> bool:
+    if a is b:
+        return True
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and a.device == b.device and bool(torch.equal(a, b)))
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return False
+    return a == b
+
+
+def stack_cell_states(states):
+    """Stack per-cell state pytrees along a leading cell axis, sharing the
+    leaves equal across cells (Tanner graphs, heads, parity adjacencies:
+    whatever does not depend on p).  Returns ``(stacked, spec, axes)``:
+    the stacked pytree, its spec and a tuple with 0 for each stacked leaf
+    and None for each shared one.  Raises ValueError when the states differ
+    in structure or in a leaf that is not a tensor (such cells cannot
+    share a program)."""
+    flats = [pytree.tree_flatten(s) for s in states]
+    spec = flats[0][1]
+    if any(sp != spec for _, sp in flats[1:]):
+        raise ValueError("cell states differ in structure; cells of one "
+                         "fused bucket must come from identically "
+                         "configured decoders and engines")
+    stacked, axes = [], []
+    for group in zip(*(leaves for leaves, _ in flats)):
+        if all(_leaf_equal(group[0], x) for x in group[1:]):
+            stacked.append(group[0])
+            axes.append(None)
+        elif all(isinstance(x, torch.Tensor) and x.shape == group[0].shape
+                 for x in group):
+            stacked.append(torch.stack(list(group)))
+            axes.append(0)
+        else:
+            raise ValueError("cell states differ in a leaf that cannot be "
+                             "stacked; split them into separate buckets")
+    return pytree.tree_unflatten(stacked, spec), spec, tuple(axes)
+
+
+def states_share_but_llr(rep_dec_state, dec_state) -> bool:
+    """Whether a decoder state dict differs from the representative's only
+    in its p-dependent leaves (``CELL_LEAVES``: the prior and OSD's costs),
+    the other leaves compared by identity (the decoders' per-H memo makes
+    them the same objects): the gate of ``stack_from_overrides``."""
+    if not (isinstance(dec_state, dict)
+            and dec_state.keys() == rep_dec_state.keys()):
+        return False
+    return all(dec_state[k] is rep_dec_state[k]
+               for k in dec_state if k not in CELL_LEAVES)
+
+
+def _path_key(path) -> tuple:
+    return tuple(getattr(p, "key", getattr(p, "name", getattr(p, "idx", p)))
+                 for p in path)
+
+
+def stack_from_overrides(rep_state, overrides):
+    """``stack_cell_states`` for builders that know which leaves vary: the
+    representative's pytree with the (C, ...) ``overrides`` at their key
+    paths, e.g. ``{("dx", "llr0"): (C, n) tensor, ("probs",): (C, 3)}``.
+    Returns the same ``(stacked, spec, axes)`` triple; raises KeyError for
+    a path the state does not have."""
+    paths, spec = pytree.tree_flatten_with_path(rep_state)
+    stacked, axes, used = [], [], set()
+    for path, leaf in paths:
+        key = _path_key(path)
+        if key in overrides:
+            stacked.append(overrides[key])
+            axes.append(0)
+            used.add(key)
+        else:
+            stacked.append(leaf)
+            axes.append(None)
+    missing = set(overrides) - used
+    if missing:
+        raise KeyError(f"override paths not found in state: {missing}")
+    return pytree.tree_unflatten(stacked, spec), spec, tuple(axes)
+
+
+def gather_lane_states(stacked, spec, axes, lane_cell):
+    """One lane's view of a stacked bucket state: each stacked leaf at the
+    lane's cell (``lane_cell`` a (1,) int64 device index: a gather kernel,
+    no host read), the shared leaves as they are."""
+    return pytree.tree_unflatten(
+        [x.index_select(0, lane_cell).squeeze(0) if a == 0 else x
+         for x, a in zip(pytree.tree_leaves(stacked), axes)], spec)
+
+
+@dataclasses.dataclass
+class FusedCellProgram:
+    """One shape bucket's fused cell-axis run, ready to drive: built by the
+    engines (``sim/data_error.fused_cells_program``,
+    ``sim/phenom.fused_cells_program``) from same-shape cells, run by
+    ``sweep/fused.py``.  ``key`` is the key every cell's serial run splits
+    from the shared seed, so each cell draws its serial stream."""
+
+    driver: object          # parallel.shots.CellFusedDriver
+    key: tuple              # the run key's two words
+    extras: tuple           # the driver's extra arguments (hashable)
+    n_batches: int          # per-cell batch budget (chunk-rounded)
+    chunk: int
+    batch_size: int
+    n_cells: int
+    engine: str             # "data" | "phenl"
+    wer_fn: object          # (failures, shots) -> (wer, eb) for one cell
+    signature_fn: object = None
+    _signature: dict = dataclasses.field(default=None, repr=False)
+    cell_tags: tuple = None
+    cell_keys: list = None
+    # importance-sampled bucket: the carry gains the per-cell weight
+    # moments and rare/sweep.py drives it
+    weighted: bool = False
+    # lane-batches given to lanes beyond a cell's first (adaptive runs)
+    reallocated_batches: int = 0
+
+    @property
+    def signature(self) -> dict:
+        if self._signature is None:
+            self._signature = self.signature_fn()
+        return self._signature
+
+    def release(self) -> None:
+        """Drop the bucket's captured graph (its memory with it)."""
+        self.driver._graphs.clear()
+
+
+def tags_json(cell_tags) -> list:
+    """Cell tags as a resume fingerprint stores them: JSON lists (a tuple
+    would come back a list and fail the fingerprint's match)."""
+    return [list(t) if isinstance(t, (list, tuple)) else t
+            for t in cell_tags]
+
+
+def plan_lanes(cursors, undecided, n_lanes: int, k_inner: int,
+               max_batches: int):
+    """Assign ``n_lanes`` lanes across the undecided cells of a fused
+    bucket for one megabatch (adaptive shot reallocation), as the JAX
+    package does.
+
+    Each undecided cell gets a fair share of lanes, capped by its remaining
+    batch budget; leftover lanes spill to cells that can still absorb them.
+    Co-assigned lanes interleave disjoint batch indices (stride = share),
+    so a cell's stream stays the serial positional stream regardless of how
+    many lanes serve it.
+
+    Returns ``(lane_base, lane_stride, lane_cell, active, advance,
+    realloc_batches)``: the lane plan vectors, the per-cell batch advance
+    this megabatch, and how many lane-batches went to lanes BEYOND a cell's
+    first (the reallocated work the fused batch would otherwise idle)."""
+    cursors = np.asarray(cursors, np.int64)
+    undecided = list(undecided)
+    m = len(undecided)
+    base = np.zeros(n_lanes, np.int64)
+    stride = np.ones(n_lanes, np.int64)
+    cell = np.zeros(n_lanes, np.int64)
+    active = np.zeros(n_lanes, bool)
+    advance = np.zeros(len(cursors), np.int64)
+    if m == 0:
+        return base, stride, cell, active, advance, 0
+    cap = np.array(
+        [-(-(max_batches - cursors[c]) // k_inner) for c in undecided],
+        np.int64)
+    share = np.array([n_lanes // m + (i < n_lanes % m) for i in range(m)],
+                     np.int64)
+    share = np.minimum(share, cap)
+    # spill leftover lanes round-robin into cells with remaining budget
+    leftover = n_lanes - int(share.sum())
+    while leftover > 0:
+        room = np.nonzero(share < cap)[0]
+        if room.size == 0:
+            break
+        for i in room[:leftover]:
+            share[i] += 1
+        leftover = n_lanes - int(share.sum())
+    lane = 0
+    realloc = 0
+    for i, c in enumerate(undecided):
+        s = int(share[i])
+        for r in range(s):
+            cell[lane] = c
+            base[lane] = cursors[c] + r
+            stride[lane] = s
+            active[lane] = True
+            lane += 1
+        advance[c] = s * k_inner
+        realloc += max(0, s - 1) * k_inner
+    return base, stride, cell, active, advance, realloc
+
+
+def _fused_carry0(state, weighted: bool = False):
+    """A fused carry's host values from a persisted per-cell progress
+    record (``utils.checkpoint.CellProgress.save_cells``)."""
+    carry = [state["failures"], state["shots"], state["min_w"]]
+    if weighted:
+        wm = state.get("weighted") or {}
+        C = len(state["failures"])
+        carry += [wm.get(k, [0.0] * C) for k in ("s1", "s2", "w1", "w2")]
+    return tuple(carry)
+
+
+def _fused_host(carry):
+    """(failures, shots, min_w) host arrays of a fused host carry."""
+    return tuple(np.asarray(x) for x in carry[:3])
+
+
+def _save_cells(progress, prog, signature, batches_done, host,
+                cursors=None) -> None:
+    failures, shots, min_w = _fused_host(host)
+    extra = None
+    if prog.weighted:
+        extra = {"weighted": {k: [float(x) for x in v] for k, v in zip(
+            ("s1", "s2", "w1", "w2"), host[3:7])}}
+    progress.save_cells(signature, batches_done=batches_done,
+                        failures=failures, shots=shots, min_w=min_w,
+                        cursors=cursors, extra=extra)
+
+
+def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
+                      carry0=None):
+    """Enqueue a whole fixed-budget fused bucket and the read of its
+    carry, without waiting: the launch half of the bucket pipeline (while
+    it runs on the card the caller builds the next bucket).  Returns
+    ``(pending read, batches run)``; ``fused_cell_finish`` completes the
+    read."""
+    with telemetry.span("fused_cells_launch"):
+        carry, n_run = prog.driver.run_plan(
+            prog.key, prog.n_batches, *prog.extras, start=start,
+            carry0=carry0)
+        return prog.driver.read_launch(carry), n_run
+
+
+def fused_cell_finish(pending):
+    """The drain half: one host read of the whole bucket's per-cell
+    counters -> host ``(failures, shots, min_w)`` arrays."""
+    with telemetry.span("megabatch_drain"):
+        return _fused_host(pending.finish())
+
+
+def fused_cell_stream(prog: FusedCellProgram, *, progress=None):
+    """Fixed-budget fused run drained megabatch by megabatch
+    (double-buffered, one host read each), every drained carry saving the
+    bucket's per-cell cursors to ``progress``, so a killed sweep resumes
+    inside the bucket seed for seed.  Returns the last host carry."""
+    start, carry0 = 0, None
+    state = progress.load(prog.signature) if progress is not None else None
+    if state:
+        start = int(state["batches_done"])
+        carry0 = _fused_carry0(state, prog.weighted)
+    k = prog.chunk
+    n_run = -(-int(prog.n_batches) // k) * k
+    if start >= n_run and state:
+        # resumed past the end: the persisted counters are the result
+        return tuple(np.asarray(x) for x in carry0)
+    last = None
+    for host, done in prog.driver.run_plan_keys(
+            prog.key, prog.n_batches, *prog.extras, start=start,
+            carry0=carry0):
+        if progress is not None:
+            _save_cells(progress, prog, prog.signature, done, host)
+        last = tuple(np.asarray(x) for x in host)
+    return last
+
+
+def fused_cell_adaptive(prog: FusedCellProgram, *, target_failures=None,
+                        converged=None, mode=None, progress=None):
+    """Adaptive shot reallocation over a fused bucket: megabatches with one
+    host read each for the whole bucket; cells that reached
+    ``target_failures`` (or ``converged(host carry, cell)``, the weighted
+    runs' test) or their batch budget are masked out and their lanes go to
+    the undecided cells (``plan_lanes``), so the bucket's lanes stay busy
+    until every cell is decided.
+
+    Every batch a cell runs draws from its serial positional stream (exact
+    counts); once lanes reallocate, a cell's stop is checked at coarser
+    boundaries than the serial early stop, so it may run more shots than
+    the serial run would have (never beyond its serial budget).  ``mode``
+    (a dict, by default the target) joins the progress fingerprint: the
+    adaptive stream's per-cell cursors are not the uniform stream's.  Records
+    the reallocated lane-batches in ``prog.reallocated_batches`` and
+    telemetry's ``sweep.reallocated_shots``.  Returns the host carry."""
+    driver, k = prog.driver, prog.chunk
+    C = prog.n_cells
+    n_run = -(-int(prog.n_batches) // k) * k
+    cursors = np.zeros(C, np.int64)
+    signature = None
+    if progress is not None:
+        signature = dict(prog.signature, **(
+            mode if mode is not None else {"adaptive": int(target_failures)}))
+    state = progress.load(signature) if progress is not None else None
+    host = driver.host_init()
+    carry = driver._init_fn()
+    if state:
+        cursors = np.asarray(
+            state.get("cursors") or [state["batches_done"]] * C, np.int64)
+        host = _fused_carry0(state, prog.weighted)
+        driver._fill(carry, host)
+    host = tuple(np.asarray(x) for x in host)
+
+    def decided(c):
+        if target_failures is not None:
+            return host[0][c] >= int(target_failures)
+        return converged(host, c)
+
+    while True:
+        undecided = [c for c in range(C)
+                     if cursors[c] < n_run and not decided(c)]
+        if not undecided:
+            break
+        base, stride, cell, active, advance, realloc = plan_lanes(
+            cursors, undecided, C, k, n_run)
+        if realloc:
+            prog.reallocated_batches += realloc
+            telemetry.count("sweep.reallocated_shots",
+                            realloc * prog.batch_size)
+        carry = driver.dispatch(carry, prog.key, (base, stride, cell,
+                                                  active), *prog.extras)
+        cursors += advance
+        host = tuple(np.asarray(x) for x in driver.read(carry))
+        if progress is not None:
+            _save_cells(progress, prog, signature, 0, host, cursors=cursors)
+    stopped = sum(1 for c in range(C) if cursors[c] < n_run)
+    if stopped:
+        telemetry.count("driver.early_stops", stopped)
+    return host
+
+
+# ---------------------------------------------------------------------------
+# Weighted (importance-sampled) runs: the rare-event estimators' statistics
+# ---------------------------------------------------------------------------
+def check_tilt_probs(tilt_probs, channel_probs) -> list:
+    """Validate an importance-sampling tilt against its target channel and
+    return it as a plain float list.
+
+    The weighted estimator is unbiased only when the proposal covers the
+    target's support: a component the channel can produce (``p_i > 0``)
+    that the tilt never proposes (``q_i == 0``) biases the estimate low, so
+    it is rejected here."""
+    tilt = [float(np.asarray(q)) for q in tilt_probs]
+    probs = [float(np.asarray(p)) for p in channel_probs]
+    if len(tilt) != len(probs):
+        raise ValueError(
+            f"tilt_probs must have {len(probs)} components (one per Pauli "
+            f"type), got {len(tilt)}")
+    if any(q < 0 for q in tilt) or not 0.0 <= sum(tilt) < 1.0:
+        raise ValueError(
+            f"tilt_probs must be a sub-probability triple (q_i >= 0, "
+            f"sum < 1), got {tilt}")
+    for i, (q, p) in enumerate(zip(tilt, probs)):
+        if p > 0 and q <= 0:
+            raise ValueError(
+                f"tilt component {i} is 0 but the channel's is {p}: the "
+                "proposal must cover the target's support (outcomes the "
+                "physical channel produces would never be drawn, biasing "
+                "the estimate low); use rare.tilt_channel to scale the "
+                "channel, or give every p>0 component a q>0")
+    return tilt
+
+
+def weight_moments(fail, w):
+    """``(count, s1, s2)`` of one weighted batch: the raw failure count and
+    the failure-weight moments ``sum w*I`` and ``sum w^2*I``, on the
+    device (int32, float32, float32)."""
+    wf = w * fail.to(torch.float32)
+    return (fail.to(torch.int32).sum(dtype=torch.int32),
+            wf.sum(dtype=torch.float32), (wf * w).sum(dtype=torch.float32))
+
+
+def weighted_unit(x_fail, z_fail, min_w, logw):
+    """The weighted batch unit of every logical type: ``(counts (3,),
+    min_w, s1 (3,), s2 (3,), w1, w2)`` from per-shot flags and log weights.
+    A serial run takes its type's slots, a fused lane its cell's."""
+    w = torch.exp(logw)
+    moments = [weight_moments(f, w) for f in
+               (x_fail.bool(), z_fail.bool(), x_fail.bool() | z_fail.bool())]
+    cnt, s1, s2 = (torch.stack(list(v)) for v in zip(*moments))
+    return (cnt, min_w, s1, s2, w.sum(dtype=torch.float32),
+            (w * w).sum(dtype=torch.float32))
+
+
+@dataclasses.dataclass
+class WeightedStats:
+    """First and second weight moments of an importance-sampled failure
+    stream, as the JAX package keeps them: per cell ``s1 = sum w_i I_i``,
+    ``s2 = sum w_i^2 I_i``, ``w1 = sum w_i``, ``w2 = sum w_i^2`` and the
+    raw failure count.  ``rate = s1 / shots`` is unbiased (the weights are
+    exact likelihood ratios); uniform weights collapse every field onto the
+    direct counts."""
+
+    failures: int
+    shots: int
+    s1: float
+    s2: float
+    w1: float
+    w2: float
+    min_w: int | None = None
+
+    @classmethod
+    def from_carry(cls, carry, shots: int) -> "WeightedStats":
+        """From a serial weighted host carry ``(count, min_w, s1, s2, w1,
+        w2)``."""
+        return cls(failures=int(carry[0]), shots=int(shots),
+                   s1=float(carry[2]), s2=float(carry[3]),
+                   w1=float(carry[4]), w2=float(carry[5]),
+                   min_w=int(carry[1]))
+
+    def merge(self, other: "WeightedStats") -> "WeightedStats":
+        """Fold two disjoint weighted streams (moments and counts add)."""
+        mins = [m for m in (self.min_w, other.min_w) if m is not None]
+        return WeightedStats(
+            failures=self.failures + other.failures,
+            shots=self.shots + other.shots,
+            s1=self.s1 + other.s1, s2=self.s2 + other.s2,
+            w1=self.w1 + other.w1, w2=self.w2 + other.w2,
+            min_w=min(mins) if mins else None)
+
+    @property
+    def rate(self) -> float:
+        return self.s1 / self.shots if self.shots else 0.0
+
+    @property
+    def variance(self) -> float:
+        """Variance estimate of ``rate`` (population form of the sample
+        variance of the per-shot ``w*I`` terms, over ``shots``)."""
+        if not self.shots:
+            return 0.0
+        r = self.rate
+        return max(self.s2 / self.shots - r * r, 0.0) / self.shots
+
+    @property
+    def rse(self) -> float | None:
+        r = self.rate
+        return math.sqrt(self.variance) / r if r > 0 else None
+
+    @property
+    def ess(self) -> float:
+        return diagnostics.effective_sample_size(self.w1, self.w2)
+
+    @property
+    def log_weight_sum(self) -> float | None:
+        """``log sum w_i``: ``log(shots)`` for uniform weights; None when
+        nothing ran."""
+        return math.log(self.w1) if self.w1 > 0 else None
+
+    def ci_fields(self, z: float | None = None) -> dict:
+        """The ESS-aware uncertainty block (``utils.diagnostics.
+        weighted_ci_fields``) of this stream."""
+        kw = {} if z is None else {"z": z}
+        return diagnostics.weighted_ci_fields(
+            self.failures, self.s1, self.s2, self.w1, self.w2, self.shots,
+            **kw)
+
+    def event_fields(self, tilt=None) -> dict:
+        """The weighted ``wer_run`` fields."""
+        out = {"log_weight_sum": self.log_weight_sum, "ess": self.ess}
+        if tilt is not None:
+            out["tilt"] = float(tilt)
+        return out
+
+
+def wer_single_shot_weighted(stats: WeightedStats, K: int):
+    """``wer_single_shot`` on the weighted rate, its binomial standard
+    error replaced by the weighted estimator's ``sqrt(variance)``."""
+    logical_error_rate = stats.rate
+    logical_error_rate_eb = math.sqrt(stats.variance)
+    word_error_rate = 1.0 - (1 - logical_error_rate) ** (1 / K)
+    word_error_rate_eb = (
+        logical_error_rate_eb * ((1 - logical_error_rate_eb) ** (1 / K - 1))
+        / K)
+    return word_error_rate, word_error_rate_eb
+
+
+def wer_per_cycle_weighted(stats: WeightedStats, K: int, num_cycles: int):
+    """``wer_per_cycle`` on the weighted rate; the per-cycle binomial error
+    scaled by the weighted-over-binomial standard-error ratio of the total
+    rate (1 for uniform weights: the reference's propagation)."""
+    logical_error_rate = stats.rate
+    per_qubit = 1.0 - (1 - logical_error_rate) ** (1 / K)
+    if per_qubit <= 0.5:
+        wer = (1.0 - (1 - 2 * per_qubit) ** (1 / num_cycles)) / 2
+    else:
+        wer = (1.0 + (-1 + 2 * per_qubit) ** (1 / num_cycles)) / 2
+    per_cycle = (1.0 - max(1 - 2 * logical_error_rate, 0.0)
+                 ** (1 / num_cycles)) / 2
+    var_binom = max((1 - logical_error_rate) * logical_error_rate, 0.0) \
+        / max(stats.shots, 1)
+    scale = math.sqrt(stats.variance / var_binom) if var_binom > 0 else 1.0
+    per_cycle_eb = math.sqrt(
+        max((1 - per_cycle) * per_cycle, 0.0) / max(stats.shots, 1)) * scale
+    wer_eb = per_cycle_eb * ((1 - per_cycle_eb) ** (1 / K - 1)) / K
+    return wer, wer_eb
+
+
+def weighted_driver(sim, chunk: int, program: tuple, stats_fn,
+                    batch_input) -> MegabatchDriver:
+    """``sim``'s weighted megabatch driver (carry ``(count, min_w, s1, s2,
+    w1, w2)``), kept in ``sim._drivers`` like ``megabatch_driver``'s."""
+    key = ("weighted", chunk, *program)
+    driver = sim._drivers.get(key)
+    if driver is None:
+        dev = sim.device
+
+        def combine(c, o):
+            return (c[0] + o[0], torch.minimum(c[1], o[1]),
+                    *(c[i] + o[i] for i in range(2, 6)))
+
+        def init():
+            return (torch.zeros((), dtype=torch.int32, device=dev),
+                    torch.full((), int(sim.N), dtype=torch.int32,
+                               device=dev),
+                    *(torch.zeros((), dtype=torch.float32, device=dev)
+                      for _ in range(4)))
+
+        driver = sim._drivers[key] = MegabatchDriver(
+            stats_fn, combine, init, batch_input, k_inner=chunk)
+    return driver
+
+
+def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
+                              progress):
+    """``resumable_stream`` for the weighted carry ``(count, min_w, s1, s2,
+    w1, w2)``: the float32 moments persist exactly in the cursor's
+    ``weighted`` block.  Returns ``((host carry0 or None, start),
+    stream)``."""
+    start, carry0 = 0, None
+    state = progress.load(signature) if progress is not None else None
+    if state:
+        start = int(state["batches_done"])
+        wm = state.get("weighted") or {}
+        carry0 = (int(state["failures"]), int(state["min_w"]),
+                  *(float(wm.get(k, 0.0)) for k in ("s1", "s2", "w1", "w2")))
+
+    def stream():
+        for carry, done in driver.run_keys(key_words(key), n_batches, *extra,
+                                           start=start, carry0=carry0):
+            if progress is not None:
+                progress.save(
+                    signature, batches_done=done, failures=int(carry[0]),
+                    min_w=int(carry[1]),
+                    extra={"weighted": {
+                        "s1": float(carry[2]), "s2": float(carry[3]),
+                        "w1": float(carry[4]), "w2": float(carry[5])}})
+            yield carry, done
+
+    return (carry0, start), stream()
+
+
+def drive_weighted_run(driver, key, n_batches, extra, *, batch_size, total,
+                       carry0, start, stream, target_rse, progress):
+    """The drive loop of the weighted engines: a fixed budget is one fold
+    and one host read; with ``progress`` or ``target_rse`` the megabatch
+    stream runs instead, stopping once the weighted relative standard
+    error reaches ``target_rse``.  Returns the host carry and the batches
+    done."""
+    if progress is None and target_rse is None:
+        carry, done = driver.run(key_words(key), n_batches, *extra)
+        return driver.read(carry), done
+
+    def rse_hit(c, shots):
+        if target_rse is None or not shots:
+            return False
+        rse = WeightedStats.from_carry(c, shots).rse
+        return rse is not None and rse <= float(target_rse)
+
+    carry, done = carry0, start
+    if carry is None or not rse_hit(carry, start * batch_size):
+        for carry, done in stream:
+            if rse_hit(carry, done * batch_size):
+                if done * batch_size < total:
+                    telemetry.count("driver.early_stops")
+                break
+    else:
+        telemetry.count("driver.early_stops")
+    return carry, done
+

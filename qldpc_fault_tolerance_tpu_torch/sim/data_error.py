@@ -31,6 +31,15 @@ infeasible v2 to its v1 fused path on its TPU.
 ``packed=False`` (the default engine only) keeps the planes unpacked:
 dense syndromes and checks on the same draws, bit for bit the same.
 
+``WeightedWordErrorRate`` draws from a tilted channel and folds the
+per-shot importance weights into the carry's weight moments (the
+rare-event estimators, ``rare/``); at zero tilt its draws and counts are
+``WordErrorRate``'s bit for bit.  ``fused_cells_program`` and
+``weighted_cells_program`` run many same-shape cells (a sweep's p-points)
+as one ``parallel.shots.CellFusedDriver`` program, each lane the serial
+batch unit on its cell's gathered state, so each cell's counts are its
+serial run's seed for seed.
+
 Batches fold through the megabatch driver (``parallel/shots.py``): the
 count and min weight stay device tensors, read by the host once per
 megabatch, double-buffered.  On the card every ``WordErrorRate`` path (the
@@ -44,12 +53,18 @@ import numpy as np
 import torch
 
 from ..decoders.bp_decoders import decode_device
-from ..noise import depolarizing_xz, depolarizing_xz_packed
+from ..noise import (
+    depolarizing_xz,
+    depolarizing_xz_packed,
+    depolarizing_xz_tilted,
+    depolarizing_xz_tilted_packed,
+)
 from ..ops import gf2_kernel
 from ..ops.prng import key_words, prng_key, split_key
 from ..ops.gf2_packed import (
     pack_shots,
     packed_parity_apply,
+    packed_residual_flags,
     packed_residual_stats,
     unpack_shots,
 )
@@ -58,18 +73,36 @@ from ..parallel.shots import (
     GeneratorInput,
     KeyInput,
     batch_generator,
+    cell_fused_driver,
 )
 from ..utils.device import resolve_device
 from .common import (
+    LTYPE_CODES,
+    FusedCellProgram,
+    LaneDecoder,
+    ShotBatcher,
+    WeightedStats,
+    check_tilt_probs,
     count_failures,
     decoder_key,
     dense_check_flags,
+    drive_weighted_run,
+    gather_lane_states,
+    lane_view,
     megabatch_driver,
+    resumable_weighted_stream,
+    run_signature,
     select_failures,
+    stack_cell_states,
+    tags_json,
+    weighted_driver,
+    weighted_unit,
     wer_single_shot,
+    wer_single_shot_weighted,
 )
 
-__all__ = ["CodeSimulator_DataError"]
+__all__ = ["CodeSimulator_DataError", "fused_cells_program",
+           "fused_cells_program_states", "weighted_cells_program"]
 
 
 def _bp_loop_params(static):
@@ -144,6 +177,12 @@ class CodeSimulator_DataError:
         self._hx_t, self._hz_t = (
             torch.from_numpy(np.ascontiguousarray(h.T)).to(self.device)
             for h in (code.hx, code.hz))
+        # the channel as a device tensor: the tilted sampler's target and a
+        # fused bucket's per-cell leaf
+        self._probs_t = torch.tensor(np.asarray(self.channel_probs,
+                                                np.float32),
+                                     device=self.device)
+        self._tilts = {}  # tilt triple -> its device tensor
         self._stats = self._batch_stats if self._packed else self._dense_stats
         if fused_sampler == "v2":
             self._iters_x, msf_x, q_x = _bp_loop_params(decoder_x.device_static)
@@ -206,7 +245,69 @@ class CodeSimulator_DataError:
 
     def _dense_stats(self, generator):
         fail, min_w = self._dense_flags(generator, self.batch_size)
-        return fail.sum(dtype=torch.int32), min_w
+        return fail.sum(dim=0, dtype=torch.int32), min_w
+
+    def _cell_state(self) -> dict:
+        """What a fused bucket stacks of this cell: the channel and both
+        decoders' states."""
+        return {"probs": self._probs_t, "dx": self.decoder_x.device_state,
+                "dz": self.decoder_z.device_state}
+
+    def _lane(self, state):
+        """This engine on a fused lane's gathered ``state``: its batch
+        unit counts all three logical types."""
+        return lane_view(
+            self, channel_probs=state["probs"], _probs_t=state["probs"],
+            eval_logical_type="ALL",
+            decoder_x=LaneDecoder(self.decoder_x.device_static, state["dx"]),
+            decoder_z=LaneDecoder(self.decoder_z.device_static, state["dz"]))
+
+    def _lane_stats(self, generator):
+        """The serial batch unit (packed or dense) of this engine."""
+        if self._packed:
+            return self._batch_stats(generator)
+        return self._dense_stats(generator)
+
+    def _weighted_batch(self, generator, tilt):
+        """One batch from the channel tilted to ``tilt`` (a (3,) float32
+        device tensor) -> ``weighted_unit``'s outputs, every logical
+        type's."""
+        B, n = self.batch_size, self.N
+        if self._packed:
+            ex_p, ez_p, logw = depolarizing_xz_tilted_packed(
+                generator, (B, n), self._probs_t, tilt)
+            synd_z = unpack_shots(packed_parity_apply(*self._hx_par, ez_p), B)
+            synd_x = unpack_shots(packed_parity_apply(*self._hz_par, ex_p), B)
+            cor_x, cor_z = self._decode(synd_x, synd_z)
+            x_fail, z_fail, min_w = packed_residual_flags(
+                ex_p ^ pack_shots(cor_x), ez_p ^ pack_shots(cor_z),
+                self._hz_par, self._hx_par, self._lz_t, self._lx_t, B, n)
+        else:
+            ex, ez, logw = depolarizing_xz_tilted(generator, (B, n),
+                                                  self._probs_t, tilt)
+            cor_x, cor_z = self._decode(gf2_matmul(ex, self._hz_t),
+                                        gf2_matmul(ez, self._hx_t))
+            x_fail, z_fail, min_w = dense_check_flags(
+                ex ^ cor_x, ez ^ cor_z, self._hz_t, self._hx_t, self._lz_t,
+                self._lx_t, n)
+        return weighted_unit(x_fail, z_fail, min_w, logw)
+
+    def _weighted_stats(self, generator, tilt):
+        """The serial weighted unit: ``(count, min_w, s1, s2, w1, w2)`` of
+        this engine's logical type."""
+        cnt, min_w, s1, s2, w1, w2 = self._weighted_batch(generator, tilt)
+        i = LTYPE_CODES[self.eval_logical_type]
+        return cnt[i], min_w, s1[i], s2[i], w1, w2
+
+    def _tilt_tensor(self, tilt) -> torch.Tensor:
+        """The device tensor of a tilt triple, one per triple (a captured
+        run's graph is keyed on it)."""
+        key = tuple(float(q) for q in tilt)
+        t = self._tilts.get(key)
+        if t is None:
+            t = self._tilts[key] = torch.tensor(np.asarray(key, np.float32),
+                                                device=self.device)
+        return t
 
     def run_batch(self, key, batch_size: int | None = None) -> np.ndarray:
         """One batch drawn from ``key`` (batch 0 of a default-engine run's
@@ -260,13 +361,210 @@ class CodeSimulator_DataError:
                                          progress=progress)
         return wer_single_shot(failures, shots, self.K)
 
+    def WeightedWordErrorRate(self, num_run: int, tilt_probs=None, key=None,
+                              progress=None, target_rse=None):
+        """Importance-sampled WER over ``num_run`` shots drawn from the
+        TILTED channel ``tilt_probs`` (a ``[qx, qy, qz]`` triple, usually
+        ``rare.tilt_channel``'s), the JAX package's contract: the per-shot
+        log weights fold into the weight moments on the device, one host
+        read a megabatch.  ``tilt_probs=None`` (or the channel's own) is
+        the zero tilt: draws, failures and min weight are
+        ``WordErrorRate``'s bit for bit.  ``progress`` persists the cursor
+        with the moments; ``target_rse`` stops once the weighted relative
+        standard error reaches it.  Returns ``(wer, wer_eb)``; the
+        ``WeightedStats`` lands on ``self.last_weighted``."""
+        if self._fused_sampler:
+            raise ValueError(
+                "the fused sampler has its own PRNG stream; weighted "
+                "estimation covers the seed-comparable packed/dense paths")
+        if tilt_probs is None:
+            tilt_probs = list(self.channel_probs)
+        tilt = check_tilt_probs(tilt_probs, self.channel_probs)
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+        batcher = ShotBatcher(num_run, self.batch_size)
+        chunk = min(batcher.num_batches, self._scan_chunk)
+        n_batches = -(-batcher.num_batches // chunk) * chunk
+        extra = (self._tilt_tensor(tilt),)
+        driver = weighted_driver(self, chunk, self._program(),
+                                 self._weighted_stats,
+                                 GeneratorInput(self.device))
+        reads = driver.host_reads
+        fp = run_signature("data-w", key, batch_size=self.batch_size,
+                           chunk=chunk, n_batches=n_batches,
+                           tilt=[round(q, 12) for q in tilt])
+        (carry0, start), stream = resumable_weighted_stream(
+            driver, key, n_batches, extra, signature=fp, progress=progress)
+        carry, done = drive_weighted_run(
+            driver, key, n_batches, extra, batch_size=self.batch_size,
+            total=batcher.total, carry0=carry0, start=start, stream=stream,
+            target_rse=target_rse, progress=progress)
+        ws = WeightedStats.from_carry(carry, done * self.batch_size)
+        self.last_host_reads = driver.host_reads - reads
+        self.last_graph = driver.graph_stats
+        self.last_failures, self.last_shots = ws.failures, ws.shots
+        self.min_logical_weight = min(self.min_logical_weight, ws.min_w)
+        self.last_weighted = ws
+        return wer_single_shot_weighted(ws, self.K)
+
+    def _program(self) -> tuple:
+        """What a captured batch bakes in besides its chunk."""
+        return (self.batch_size, tuple(self.channel_probs),
+                self.eval_logical_type, self._fused_sampler, self._packed,
+                decoder_key(self.decoder_x), decoder_key(self.decoder_z))
+
     def _driver(self, chunk: int):
         """The megabatch driver of ``chunk`` batches per megabatch (its
         captured graph with it)."""
-        program = (self.batch_size, tuple(self.channel_probs),
-                   self.eval_logical_type, self._fused_sampler, self._packed,
-                   decoder_key(self.decoder_x), decoder_key(self.decoder_z))
         batch_input = (KeyInput if self._fused_sampler else
                        GeneratorInput)(self.device)
-        return megabatch_driver(self, chunk, program, self._stats,
+        return megabatch_driver(self, chunk, self._program(), self._stats,
                                 batch_input)
+
+
+# ---------------------------------------------------------------------------
+# Cell-fused sweep execution: every p-point (and logical type) of a code in
+# one CellFusedDriver program (sweep/fused.py drives it)
+# ---------------------------------------------------------------------------
+def _check_rep_fusable(rep) -> None:
+    """Raise ValueError for an engine whose cells cannot share a fused
+    program: the fused sampler (its counter stream has no per-lane
+    generator), or a decoder without a device program."""
+    if rep._fused_sampler:
+        raise ValueError(
+            "the fused sampler has its own PRNG stream; cell fusion only "
+            "covers the seed-comparable packed/dense paths")
+    for dec in (rep.decoder_x, rep.decoder_z):
+        if not hasattr(dec, "device_static"):
+            raise ValueError(
+                "cell fusion needs decoders with a device program")
+
+
+def _bucket_layout(rep, num_samples: int):
+    """The key, chunk and batch budget of each cell's serial run: the key
+    its first ``WordErrorRate`` splits from the shared seed, and
+    ``count_failures``'s chunk rounding."""
+    key = split_key(rep._base_key)[1]
+    batcher = ShotBatcher(num_samples, rep.batch_size)
+    chunk = min(batcher.num_batches, rep._scan_chunk)
+    return key, chunk, -(-batcher.num_batches // chunk) * chunk
+
+
+def _cell_key(sim) -> tuple:
+    return (sim.batch_size, sim.N, sim.K, sim.decoder_x.device_static,
+            sim.decoder_z.device_static, sim._packed, sim._fused_sampler,
+            key_words(sim._base_key), sim.device)
+
+
+def _check_bucket(sims) -> None:
+    rep = sims[0]
+    for s in sims[1:]:
+        if _cell_key(s) != _cell_key(rep):
+            raise ValueError(
+                "cells differ in program structure (batch size, code shape, "
+                "decoder statics, seed or device); split them into separate "
+                "buckets")
+
+
+def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
+                               num_samples: int, mesh=None,
+                               prestacked=None) -> FusedCellProgram:
+    """One data bucket's fused program from its representative engine
+    ``rep`` (cell 0, built) and the cells' states (``_cell_state``-shaped
+    dicts: the light path takes the other cells' decoder states from
+    ``GetDecoderState``), or ``prestacked`` (``stack_from_overrides``'s
+    triple).  ``cell_tags`` name the cells in the resume fingerprint.  The
+    key, batch layout and chunk are each cell's serial run's, so each
+    cell's counts are its serial run's seed for seed."""
+    _check_rep_fusable(rep)
+    stacked, spec, axes = (prestacked if prestacked is not None
+                           else stack_cell_states(cell_states))
+    codes = [int(c) for c in ltype_codes]
+    ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
+    key, chunk, n_batches = _bucket_layout(rep, num_samples)
+
+    def stats(generator, cell):
+        view = rep._lane(gather_lane_states(stacked, spec, axes, cell))
+        cnt3, min_w = view._lane_stats(generator)
+        return cnt3.index_select(0, ltypes.index_select(0, cell))[0], min_w
+
+    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
+                               min_init=rep.N, device=rep.device, mesh=mesh)
+    K = rep.K
+    return FusedCellProgram(
+        driver=driver, key=key_words(key), extras=(), n_batches=n_batches,
+        chunk=chunk, batch_size=rep.batch_size, n_cells=len(codes),
+        engine="data",
+        wer_fn=lambda failures, shots: wer_single_shot(
+            int(failures), int(shots), K),
+        signature_fn=lambda: run_signature(
+            "data-cells", key, batch_size=rep.batch_size, chunk=chunk,
+            n_batches=n_batches, cells=tags_json(cell_tags), ltypes=codes),
+        cell_tags=tuple(cell_tags))
+
+
+def fused_cells_program(sims, num_samples: int, mesh=None):
+    """A ``FusedCellProgram`` of same-shape data engines (one per (p,
+    logical type) cell of a sweep bucket, one seed): every p-dependent
+    leaf (the channel, the decoders' priors) stacked along a cell axis,
+    the rest shared.  Raises ValueError when the bucket cannot fuse."""
+    _check_bucket(sims)
+    return fused_cells_program_states(
+        sims[0], [s._cell_state() for s in sims],
+        [LTYPE_CODES[s.eval_logical_type] for s in sims],
+        [[float(p) for p in s.channel_probs] for s in sims], num_samples,
+        mesh=mesh)
+
+
+def weighted_cells_program(sims, tilts, num_samples: int, mesh=None):
+    """A weighted ``FusedCellProgram``: one cell per (p, tilt) rung of a
+    rare-event grid, the channel, priors and tilt stacked on the cell
+    axis.  A cell's moments are its serial ``WeightedWordErrorRate``'s
+    seed for seed; a cell tilted to its own channel runs the zero tilt."""
+    _check_bucket(sims)
+    rep = sims[0]
+    _check_rep_fusable(rep)
+    tilts = [check_tilt_probs(t, s.channel_probs)
+             for s, t in zip(sims, tilts)]
+    stacked, spec, axes = stack_cell_states([
+        dict(s._cell_state(), tilt=s._tilt_tensor(t))
+        for s, t in zip(sims, tilts)])
+    codes = [LTYPE_CODES[s.eval_logical_type] for s in sims]
+    ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
+    key, chunk, n_batches = _bucket_layout(rep, num_samples)
+
+    def stats(generator, cell):
+        state = gather_lane_states(stacked, spec, axes, cell)
+        cnt, min_w, s1, s2, w1, w2 = rep._lane(state)._weighted_batch(
+            generator, state["tilt"])
+        t = ltypes.index_select(0, cell)
+        return (cnt.index_select(0, t)[0], min_w, s1.index_select(0, t)[0],
+                s2.index_select(0, t)[0], w1, w2)
+
+    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
+                               min_init=rep.N, device=rep.device,
+                               weighted=True, mesh=mesh)
+    cell_tags = [[float(p) for p in s.channel_probs] + [float(q) for q in t]
+                 for s, t in zip(sims, tilts)]
+
+    def direct_wer(failures, shots):
+        raise ValueError(
+            "a weighted fused program's raw counts have no WER meaning; "
+            "drive it through rare.sweep.eval_weighted_cells")
+
+    return FusedCellProgram(
+        driver=driver, key=key_words(key), extras=(), n_batches=n_batches,
+        chunk=chunk, batch_size=rep.batch_size, n_cells=len(codes),
+        engine="data", wer_fn=direct_wer,
+        signature_fn=lambda: run_signature(
+            "data-cells-w", key, batch_size=rep.batch_size, chunk=chunk,
+            n_batches=n_batches, cells=tags_json(cell_tags), ltypes=codes),
+        cell_tags=tuple(map(tuple, cell_tags)), weighted=True)
+
+
+# the cell-fused sweep's entries on the engine, as in the JAX package
+CodeSimulator_DataError.fused_cells_program = staticmethod(fused_cells_program)
+CodeSimulator_DataError.fused_cells_program_states = staticmethod(
+    fused_cells_program_states)
+CodeSimulator_DataError.weighted_cells_program = staticmethod(
+    weighted_cells_program)

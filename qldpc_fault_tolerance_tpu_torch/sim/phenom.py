@@ -28,6 +28,12 @@ The errors are drawn from ``torch.Generator`` streams, not ``jax.random``,
 so the JAX engine's failures are matched within binomial error; the
 pipeline itself is held exactly against the JAX engine's functions on
 injected errors (``_stats_from_errors``).
+
+``CodeSimulator_Phenon.WeightedWordErrorRate`` draws every round's data
+errors and syndrome flips from tilted rates and carries the per-shot log
+weight through the rounds (zero tilt: ``WordErrorRate``'s draws and counts
+bit for bit), and ``fused_cells_program`` runs a sweep bucket's cells as
+one ``parallel.shots.CellFusedDriver`` program, as the data engine's.
 """
 from __future__ import annotations
 
@@ -38,12 +44,17 @@ from ..decoders.bp_decoders import decode_device
 from ..noise import (
     bit_flips,
     bit_flips_packed,
+    bit_flips_tilted,
+    bit_flips_tilted_packed,
     depolarizing_xz,
     depolarizing_xz_packed,
+    depolarizing_xz_tilted,
+    depolarizing_xz_tilted_packed,
 )
 from ..ops.gf2_packed import (
     pack_shots,
     packed_parity_apply,
+    packed_residual_flags,
     packed_residual_stats,
     unpack_shots,
 )
@@ -52,19 +63,39 @@ from ..ops.prng import key_words, prng_key, split_key
 from ..parallel.shots import (
     GeneratorInput,
     batch_generator,
+    cell_fused_driver,
 )
 from ..utils.device import resolve_device
 from .common import (
+    LTYPE_CODES,
+    FusedCellProgram,
+    LaneDecoder,
+    ShotBatcher,
+    WeightedStats,
+    check_tilt_probs,
     count_failures,
     decoder_key,
     dense_check_flags,
+    drive_weighted_run,
+    gather_lane_states,
+    lane_view,
     megabatch_driver,
+    resumable_weighted_stream,
+    run_signature,
     select_failures,
+    stack_cell_states,
+    tags_json,
+    weighted_driver,
+    weighted_unit,
     wer_per_cycle,
+    wer_per_cycle_weighted,
     wer_single_shot,
 )
 
-__all__ = ["CodeSimulator_Phenon"]
+__all__ = ["CodeSimulator_Phenon", "fused_cells_program",
+           "fused_cells_program_states"]
+
+_DECODERS = ("decoder1_x", "decoder1_z", "decoder2_x", "decoder2_z")
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -134,6 +165,13 @@ class PhenomEngine:
             ("hx_ext", self.hx_ext), ("hz_ext", self.hz_ext),
             ("hx", code.hx), ("hz", code.hz), ("lx", code.lx),
             ("lz", code.lz))}
+        # the channel and the flip rate as device tensors: the tilted
+        # samplers' targets and a fused bucket's per-cell leaves
+        self._probs_t = _tensor(np.asarray(self.channel_probs, np.float32),
+                                dev)
+        self._q_t = torch.tensor(float(np.float32(q)), dtype=torch.float32,
+                                 device=dev)
+        self._tilts = {}  # (tilt triple, tilt_q) -> their device tensors
 
     # ------------------------------------------------------------------
     def _draws(self, generator, batch_size: int):
@@ -209,7 +247,7 @@ class PhenomEngine:
                 self._t["lz"], self._t["lx"], self.eval_logical_type,
                 batch_size, self.N, z_weight_excludes_stab=True)
         fail, min_w = self._flags(res_x, res_z, batch_size)
-        return fail.sum(dtype=torch.int32), min_w
+        return fail.sum(dim=0, dtype=torch.int32), min_w
 
     def _flags(self, res_x, res_z, batch_size: int):
         """Per-shot failures (bool) and the min logical weight."""
@@ -225,6 +263,82 @@ class PhenomEngine:
         B = self.batch_size
         return self._stats(*self._pipeline(self._draws(generator, B),
                                            num_rounds, B), B)
+
+    # ------------------------------------------------------------------
+    def _cell_state(self) -> dict:
+        """What a fused bucket stacks of this cell: the channel, the flip
+        rate and the four decoders' states."""
+        return {"probs": self._probs_t, "q": self._q_t,
+                **{name: getattr(self, name).device_state
+                   for name in _DECODERS}}
+
+    def _lane(self, state):
+        """This engine on a fused lane's gathered ``state``: its batch
+        unit counts all three logical types."""
+        return lane_view(
+            self, channel_probs=state["probs"], _probs_t=state["probs"],
+            synd_prob=state["q"], _q_t=state["q"], eval_logical_type="ALL",
+            **{name: LaneDecoder(getattr(self, name).device_static,
+                                 state[name]) for name in _DECODERS})
+
+    def _tilted_draws(self, generator, batch_size: int, tilt, tilt_q, logw):
+        """``_draws`` from the tilted rates (device tensors), the same
+        uniforms in the same order; each draw adds its per-shot log weight
+        to ``logw[0]``."""
+        shape = (batch_size, self.N)
+        dep = (depolarizing_xz_tilted_packed if self._packed
+               else depolarizing_xz_tilted)
+        flips = bit_flips_tilted_packed if self._packed else bit_flips_tilted
+
+        def draw(final: bool):
+            ex, ez, lw = dep(generator, shape, self._probs_t, tilt)
+            logw[0] = logw[0] + lw
+            if final:
+                return ex, ez
+            sx, lwx = flips(generator, (batch_size, self._mz), self._q_t,
+                            tilt_q)
+            sz, lwz = flips(generator, (batch_size, self._mx), self._q_t,
+                            tilt_q)
+            logw[0] = logw[0] + lwx + lwz
+            return ex, ez, sx, sz
+        return draw
+
+    def _weighted_batch(self, generator, num_rounds: int, tilt, tilt_q):
+        """One tilted batch -> ``weighted_unit``'s outputs, every logical
+        type's (the Z weight counted where its stabilizer check passed)."""
+        B = self.batch_size
+        logw = [torch.zeros(B, dtype=torch.float32, device=self.device)]
+        res_x, res_z = self._pipeline(
+            self._tilted_draws(generator, B, tilt, tilt_q, logw),
+            num_rounds, B)
+        if self._packed:
+            x_fail, z_fail, min_w = packed_residual_flags(
+                res_x, res_z, self._par["hz"], self._par["hx"],
+                self._t["lz"], self._t["lx"], B, self.N,
+                z_weight_excludes_stab=True)
+        else:
+            x_fail, z_fail, min_w = dense_check_flags(
+                res_x, res_z, self._t["hz"], self._t["hx"], self._t["lz"],
+                self._t["lx"], self.N, z_weight_excludes_stab=True)
+        return weighted_unit(x_fail, z_fail, min_w, logw[0])
+
+    def _weighted_stats(self, generator, num_rounds: int, tilt, tilt_q):
+        cnt, min_w, s1, s2, w1, w2 = self._weighted_batch(
+            generator, num_rounds, tilt, tilt_q)
+        i = LTYPE_CODES[self.eval_logical_type]
+        return cnt[i], min_w, s1[i], s2[i], w1, w2
+
+    def _tilt_tensors(self, tilt, tilt_q):
+        """The device tensors of a tilt, one pair per tilt (a captured
+        run's graph is keyed on them)."""
+        key = (tuple(float(q) for q in tilt), float(tilt_q))
+        pair = self._tilts.get(key)
+        if pair is None:
+            pair = self._tilts[key] = (
+                _tensor(np.asarray(key[0], np.float32), self.device),
+                torch.tensor(key[1], dtype=torch.float32,
+                             device=self.device))
+        return pair
 
     def _stats_given(self, draws, final, num_rounds: int):
         """The pipeline of ``num_rounds`` rounds on given errors: ``draws``
@@ -329,3 +443,124 @@ class CodeSimulator_Phenon(PhenomEngine):
         """End-of-run word error probability (``wer_single_shot``)."""
         count, total = self._count_failures(num_rounds, num_samples, key)
         return wer_single_shot(count, total, self.K)
+
+    def WeightedWordErrorRate(self, num_rounds: int, num_samples: int,
+                              tilt_probs=None, tilt_q=None, key=None,
+                              progress=None, target_rse=None):
+        """Importance-sampled per-qubit-per-cycle WER (the JAX package's
+        contract): every round's data errors draw from ``tilt_probs`` and
+        its syndrome flips from ``tilt_q``, the per-shot log weight carried
+        through the rounds and folded into the weight moments on the
+        device.  Zero tilt (both None, or the channel's own) gives
+        ``WordErrorRate``'s draws and counts bit for bit; ``progress`` and
+        ``target_rse`` as the data engine's.  Returns ``(wer, wer_eb)``
+        (``wer_per_cycle_weighted``); the ``WeightedStats`` lands on
+        ``self.last_weighted``."""
+        if tilt_probs is None:
+            tilt_probs = list(self.channel_probs)
+        tilt = check_tilt_probs(tilt_probs, self.channel_probs)
+        tilt_q = float(self.synd_prob if tilt_q is None else tilt_q)
+        if not 0.0 <= tilt_q < 1.0 or (float(self.synd_prob) > 0
+                                       and tilt_q == 0):
+            raise ValueError(
+                f"tilt_q must be a probability covering the syndrome "
+                f"channel's support (synd_prob={float(self.synd_prob)}), "
+                f"got {tilt_q}")
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+        batcher = ShotBatcher(num_samples, self.batch_size)
+        chunk = min(batcher.num_batches, self._scan_chunk)
+        n_batches = -(-batcher.num_batches // chunk) * chunk
+        extra = (int(num_rounds), *self._tilt_tensors(tilt, tilt_q))
+        driver = weighted_driver(self, chunk, self._program(),
+                                 self._weighted_stats,
+                                 GeneratorInput(self.device))
+        fp = run_signature("phenl-w", key, batch_size=self.batch_size,
+                           chunk=chunk, n_batches=n_batches,
+                           rounds=int(num_rounds),
+                           tilt=[round(q, 12) for q in tilt],
+                           tilt_q=round(tilt_q, 12))
+        (carry0, start), stream = resumable_weighted_stream(
+            driver, key, n_batches, extra, signature=fp, progress=progress)
+        carry, done = drive_weighted_run(
+            driver, key, n_batches, extra, batch_size=self.batch_size,
+            total=batcher.total, carry0=carry0, start=start, stream=stream,
+            target_rse=target_rse, progress=progress)
+        ws = WeightedStats.from_carry(carry, done * self.batch_size)
+        self.last_failures, self.last_shots = ws.failures, ws.shots
+        self.min_logical_weight = min(self.min_logical_weight, ws.min_w)
+        self.last_weighted = ws
+        return wer_per_cycle_weighted(ws, self.K, num_rounds)
+
+
+# ---------------------------------------------------------------------------
+# Cell-fused sweep execution (see sim/data_error.py; a phenom cell also
+# stacks its flip rate and its decoder-1 priors over [H | I])
+# ---------------------------------------------------------------------------
+def _cell_key(sim) -> tuple:
+    return (sim.batch_size, sim.N, sim.K, sim._packed,
+            key_words(sim._base_key), sim.device,
+            *(getattr(sim, name).device_static for name in _DECODERS))
+
+
+def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
+                               num_samples: int, num_rounds: int, mesh=None,
+                               prestacked=None) -> FusedCellProgram:
+    """One phenom bucket's fused program; the contract of
+    ``sim/data_error.fused_cells_program_states``, the per-cell WER the
+    serial ``WordErrorRate``'s cycle inversion over ``num_rounds``."""
+    for name in _DECODERS:
+        if not hasattr(getattr(rep, name), "device_static"):
+            raise ValueError(
+                "cell fusion needs decoders with a device program")
+    stacked, spec, axes = (prestacked if prestacked is not None
+                           else stack_cell_states(cell_states))
+    codes = [int(c) for c in ltype_codes]
+    ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
+    key = split_key(rep._base_key)[1]
+    batcher = ShotBatcher(num_samples, rep.batch_size)
+    chunk = min(batcher.num_batches, rep._scan_chunk)
+    n_batches = -(-batcher.num_batches // chunk) * chunk
+
+    def stats(generator, cell, rounds):
+        view = rep._lane(gather_lane_states(stacked, spec, axes, cell))
+        cnt3, min_w = view._batch_stats(generator, rounds)
+        return cnt3.index_select(0, ltypes.index_select(0, cell))[0], min_w
+
+    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
+                               min_init=rep.N, device=rep.device, mesh=mesh)
+    K = rep.K
+    return FusedCellProgram(
+        driver=driver, key=key_words(key), extras=(int(num_rounds),),
+        n_batches=n_batches, chunk=chunk, batch_size=rep.batch_size,
+        n_cells=len(codes), engine="phenl",
+        wer_fn=lambda failures, shots: wer_per_cycle(
+            int(failures), int(shots), K, num_rounds),
+        signature_fn=lambda: run_signature(
+            "phenl-cells", key, batch_size=rep.batch_size, chunk=chunk,
+            n_batches=n_batches, rounds=int(num_rounds),
+            cells=tags_json(cell_tags), ltypes=codes),
+        cell_tags=tuple(cell_tags))
+
+
+def fused_cells_program(sims, num_samples: int, num_rounds: int, mesh=None):
+    """A ``FusedCellProgram`` of same-shape phenomenological engines (one
+    per sweep cell, one seed); raises ValueError when they cannot fuse."""
+    rep = sims[0]
+    for s in sims[1:]:
+        if _cell_key(s) != _cell_key(rep):
+            raise ValueError(
+                "cells differ in program structure (batch size, code shape, "
+                "decoder statics, seed or device); split them into separate "
+                "buckets")
+    return fused_cells_program_states(
+        rep, [s._cell_state() for s in sims],
+        [LTYPE_CODES[s.eval_logical_type] for s in sims],
+        [[float(p) for p in s.channel_probs] + [float(s.synd_prob)]
+         for s in sims], num_samples, num_rounds, mesh=mesh)
+
+
+# the cell-fused sweep's entries on the engine, as in the JAX package
+CodeSimulator_Phenon.fused_cells_program = staticmethod(fused_cells_program)
+CodeSimulator_Phenon.fused_cells_program_states = staticmethod(
+    fused_cells_program_states)

@@ -8,8 +8,11 @@
             CodeFamily_SpaceTime — the space-time decoding stack
             (reference src/Simulators_SpaceTime.py:1152-1362)
 
-The JAX package's ``sweep/__init__.py`` exports, less its fused cell path
-(``sweep/fused.py``, not ported yet).
+  fused     the fused cell path: every p of a code in one program
+            (``eval_cells_fused``, the families' default for data and phenl
+            grids)
+
+The JAX package's ``sweep/__init__.py`` exports.
 """
 from .family import CodeFamily
 from .family_spacetime import CodeFamily_SpaceTime

@@ -5,16 +5,16 @@ Decoder wiring, probability scalings and p-grids follow the reference and
 the JAX package's ``sweep/family.py`` exactly (data: depolarizing
 p' = 3p/2 split evenly; phenl: p_data = p, p_synd = p, decoder 1 over the
 extended [H|I] matrix; circuit: per-gate params scaled by p, decoder-1
-priors from the analytic ``data_synd_noise_ratio`` heuristic).  Each
-(code, p) cell builds its decoders and engine and runs it on the device;
-the grid loop is the host's.
+priors from the analytic ``data_synd_noise_ratio`` heuristic).
 
-What the JAX package has and the port does not yet: the fused cell path
-(``fused=True``: every p of a code in one device program,
-``sweep/fused.py``; ROADMAP queue A item 6, its second half) and a grid
-shared across processes (queue A item 7).  The JAX package documents its
-fused path as bit-exact, seed for seed, with ``fused=False``, so the
-serial loop here gives the results of its default.
+Data and phenl grids run on the fused path by default (``fused="auto"``
+or True, ``sweep/fused.py``), as the JAX package's do: every p of a code
+in one program, one representative engine built a code and one graph
+captured a bucket, each cell's counts its serial run's seed for seed.
+``fused=False``, circuit grids and buckets that cannot fuse run the
+serial loop, each (code, p) cell building its decoders and engine.  What
+the JAX package has and the port does not yet: a grid shared across
+processes (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
@@ -33,20 +33,12 @@ from .fits import DistanceEst, SustainableThresholdEst, ThresholdEst_extrapolati
 
 __all__ = ["CodeFamily"]
 
-FUSED_NOT_PORTED = ("fused=True: the fused cell path (every p of a code in "
-                    "one device program) is not ported yet (ROADMAP queue A "
-                    "item 6, its second half); fused='auto' and fused=False "
-                    "run the serial per-cell loop")
-
-
 def _ext(h):
     return np.hstack([h, np.eye(h.shape[0], dtype=np.asarray(h).dtype)])
 
 
 def _check_fused(fused) -> None:
-    if fused is True:
-        raise NotImplementedError(FUSED_NOT_PORTED)
-    if fused not in (False, "auto"):
+    if fused not in (True, False, "auto"):
         raise ValueError(f"fused must be True, False or 'auto', got {fused!r}")
 
 
@@ -186,6 +178,78 @@ class CodeFamily:
                 num_rounds=num_cycles, num_samples=num_samples,
                 progress=progress, target_failures=target_failures)[0])
 
+    # ------------------------------------------------------------------
+    # fused bucket builders (sweep/fused.py): one representative engine a
+    # bucket; the other cells give only their p-dependent decoder state
+    # through the factories' GetDecoderState
+    def _data_bucket_program(self, bucket, eval_logical_type, num_samples):
+        from .fused import build_data_bucket
+
+        _, _, code, p0 = bucket[0]
+        rep = self._data_sim(code, p0, eval_logical_type)
+        return build_data_bucket(
+            rep, bucket, self.decoder2_class,
+            lambda p, sector: {"h": code.hz if sector == "x" else code.hx,
+                               "p_data": p},
+            eval_logical_type, num_samples)
+
+    def _phenl_bucket_program(self, bucket, eval_logical_type, num_samples,
+                              num_cycles):
+        import torch
+
+        from ..sim.common import (
+            CELL_LEAVES,
+            LTYPE_CODES,
+            stack_from_overrides,
+            states_share_but_llr,
+        )
+
+        _, _, code, p0 = bucket[0]
+        rep = self._phenl_sim(code, p0, eval_logical_type)
+        base = rep._cell_state()
+        decs = ("decoder1_x", "decoder1_z", "decoder2_x", "decoder2_z")
+        cells = {k: [base[k]] for k in decs}
+        probs, qs = [base["probs"]], [base["q"]]
+        statics = tuple(getattr(rep, k).device_static for k in decs)
+        for _, _, _, eval_p in bucket[1:]:
+            p = 3 / 2 * eval_p
+            q = eval_p
+            p_data = p * 2 / 3
+            built = (
+                self.decoder1_class.GetDecoderState(
+                    {"h": _ext(code.hz), "p_data": p_data, "p_syndrome": q}),
+                self.decoder1_class.GetDecoderState(
+                    {"h": _ext(code.hx), "p_data": p_data, "p_syndrome": q}),
+                self.decoder2_class.GetDecoderState(
+                    {"h": code.hz, "p_data": p_data}),
+                self.decoder2_class.GetDecoderState(
+                    {"h": code.hx, "p_data": p_data}),
+            )
+            if tuple(s for s, _ in built) != statics:
+                raise ValueError(
+                    "decoder statics differ across the bucket's p-points")
+            for k, (_, st) in zip(decs, built):
+                cells[k].append(st)
+            probs.append(torch.tensor([p / 3] * 3, dtype=torch.float32,
+                                      device=rep.device))
+            qs.append(torch.tensor(q, dtype=torch.float32,
+                                   device=rep.device))
+        tags = [float(eval_p) for _, _, _, eval_p in bucket]
+        lt = [LTYPE_CODES[eval_logical_type]] * len(bucket)
+        if all(states_share_but_llr(cells[k][0], d)
+               for k in decs for d in cells[k]):
+            over = {(k, leaf): torch.stack([d[leaf] for d in cells[k]])
+                    for k in decs for leaf in CELL_LEAVES if leaf in base[k]}
+            over[("probs",)] = torch.stack(probs)
+            over[("q",)] = torch.stack(qs)
+            return CodeSimulator_Phenon.fused_cells_program_states(
+                rep, None, lt, tags, num_samples, num_cycles,
+                prestacked=stack_from_overrides(base, over))
+        states = [dict(zip(decs, ds), probs=pr, q=q) for pr, q, *ds in zip(
+            probs, qs, *(cells[k] for k in decs))]
+        return CodeSimulator_Phenon.fused_cells_program_states(
+            rep, states, lt, tags, num_samples, num_cycles)
+
     def _circuit_wer(self, code, eval_p, eval_logical_type, num_samples,
                      num_cycles, data_synd_noise_ratio, circuit_type,
                      circuit_error_params):
@@ -235,8 +299,10 @@ class CodeFamily:
         """(len(code_list), len(eval_p_list)) WER array
         (src/Simulators.py:752-908), the JAX package's contract:
 
-        ``fused``: "auto" (the default) and False run the serial per-cell
-        loop; True raises ``NotImplementedError`` (module docstring).
+        ``fused``: "auto" (the default) and True run data and phenl grids
+        on the fused path (module docstring), bucket by bucket, a bucket
+        that cannot fuse in the serial loop; False runs every cell in the
+        serial loop.  The results are the same.
         ``target_failures``: per-cell early stop — a cell stops after the
         first megabatch whose failure count reaches it (the denominator is
         the shots actually run); the circuit model raises.
@@ -332,10 +398,31 @@ class CodeFamily:
         }
         values = np.full(len(cells), np.nan)
         with diagnostics.sweep_run(grid_cfg, ledger=ledger):
+            serial = [c for c, mine in zip(cells, owned) if mine]
+            # a grid across processes keeps the serial loop, as in the JAX
+            # package
+            if (fused is not False and noise_model in ("data", "phenl")
+                    and not shard_across_processes):
+                from .fused import eval_cells_fused
+
+                if noise_model == "data":
+                    def builder(bucket):
+                        return self._data_bucket_program(
+                            bucket, eval_logical_type, num_samples)
+                else:
+                    def builder(bucket):
+                        return self._phenl_bucket_program(
+                            bucket, eval_logical_type, num_samples,
+                            num_cycles)
+                results, serial = eval_cells_fused(
+                    serial, builder, cell_key_fn, checkpoint=checkpoint,
+                    progress_every=progress_every,
+                    target_failures=target_failures)
+                for i, wer in results.items():
+                    values[i] = wer
             run_serial_cells(
-                [c for c, mine in zip(cells, owned) if mine], cell_key_fn,
-                run_fn, noise_model, checkpoint=checkpoint,
-                progress_every=progress_every,
+                serial, cell_key_fn, run_fn, noise_model,
+                checkpoint=checkpoint, progress_every=progress_every,
                 store=lambda i, wer: values.__setitem__(i, wer))
             if shard_across_processes:
                 values = merge_cell_results(values)
@@ -384,12 +471,13 @@ class CodeFamily:
                       eval_method: str, est_threshold: float,
                       num_samples: int, num_cycles=1, data_synd_noise_ratio=1,
                       circuit_type="coloration", circuit_error_params=None,
-                      if_plot=False, ledger=None):
+                      if_plot=False, ledger=None, fused="auto"):
         """p-grid = logspace(0.4 est, 0.8 est, 6); extrapolation fit
         (src/Simulators.py:912-924).  ``ledger``: as in EvalWER — the
         sweep-run scope spans the grid AND the fit, so the threshold's
         ``fit_report`` (bootstrap CI on p_c included) lands in the same
-        ledger record as the cells it was fit from."""
+        ledger record as the cells it was fit from.  ``fused``: EvalWER's
+        (the grid is the same either way)."""
         assert eval_method in ["extrapolation"], (
             "eval_method should be one of [extrapolation]"
         )
@@ -403,7 +491,7 @@ class CodeFamily:
             eval_wer_array = self.EvalWER(
                 noise_model, eval_logical_type, eval_p_list, num_samples,
                 num_cycles, data_synd_noise_ratio, circuit_type,
-                circuit_error_params, if_plot=False,
+                circuit_error_params, if_plot=False, fused=fused,
             )
             return ThresholdEst_extrapolation(eval_p_list, eval_wer_array,
                                               if_plot)

@@ -12,9 +12,11 @@ The JAX package's fixes of the reference, kept (SURVEY §2.4):
     the ``num_rep`` positional slot of EvalWER
     (src/Simulators_SpaceTime.py:1318-1321); here ``num_rep`` is explicit.
 
-Every cell runs in the serial loop (``sweep/family.py``); ``fused=True``
-raises, as there.  A circuit cell rebuilds its detector error model for
-each p, host work that dominates such a cell at hgp_34_n625.
+The data branch runs on the fused path by default (``fused="auto"`` or
+True, ``sweep/fused.py``), as the JAX package's does; the phenl and
+circuit branches, and ``fused=False``, run every cell in the serial loop
+(``sweep/family.py``).  A circuit cell rebuilds its detector error model
+for each p, host work that dominates such a cell at hgp_34_n625.
 """
 from __future__ import annotations
 
@@ -133,10 +135,24 @@ class CodeFamily_SpaceTime:
         }
         flat_wer = np.full(len(cells), np.nan)
         with diagnostics.sweep_run(grid_cfg, ledger=ledger):
+            serial = [(idx, ci, self.code_list[ci], eval_p)
+                      for idx, (ci, eval_p) in enumerate(cells) if owned[idx]]
+            # the data branch (the only one on the megabatch data engine)
+            # rides the fused planner; a grid across processes keeps the
+            # serial loop
+            if (fused is not False and noise_model == "data"
+                    and not shard_across_processes):
+                from .fused import eval_cells_fused
+
+                results, serial = eval_cells_fused(
+                    serial, lambda bucket: self._data_bucket_program(
+                        bucket, eval_logical_type, num_samples),
+                    cell_key_fn, checkpoint=checkpoint,
+                    progress_every=progress_every)
+                for idx, wer in results.items():
+                    flat_wer[idx] = wer
             run_serial_cells(
-                [(idx, ci, self.code_list[ci], eval_p)
-                 for idx, (ci, eval_p) in enumerate(cells) if owned[idx]],
-                cell_key_fn, run_fn, f"st-{noise_model}",
+                serial, cell_key_fn, run_fn, f"st-{noise_model}",
                 checkpoint=checkpoint, progress_every=progress_every,
                 store=lambda idx, wer: flat_wer.__setitem__(idx, wer))
         if shard_across_processes:
@@ -169,6 +185,22 @@ class CodeFamily_SpaceTime:
             eval_logical_type=eval_logical_type,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
         )
+
+    def _data_bucket_program(self, bucket, eval_logical_type, num_samples):
+        """The fused data bucket (``sweep/fused.build_data_bucket``) with
+        this family's decoder params."""
+        from .fused import build_data_bucket
+
+        _, _, code, p0 = bucket[0]
+        rep = self._data_sim(code, p0, eval_logical_type)
+
+        def params(p, sector):
+            h = code.hz if sector == "x" else code.hx
+            return {"code_h": h, "h": h, "p_data": p,
+                    "channel_probs": p * np.ones(code.N)}
+
+        return build_data_bucket(rep, bucket, self.decoder2_class, params,
+                                 eval_logical_type, num_samples)
 
     def _data_wer(self, code, eval_p, eval_logical_type, num_samples,
                   progress=None):

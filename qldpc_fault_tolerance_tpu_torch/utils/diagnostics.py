@@ -18,10 +18,13 @@ Free when disabled and bit-exact on/off: host bookkeeping over counts that
 already crossed to the host.  The switch follows the telemetry enable;
 ``enable()`` / ``disable()`` force it.
 
+The weighted (importance-sampled) runs' intervals map a weight stream to
+its effective binomial counts (``ess_interval``, ``weighted_ci_fields``).
+
 Not here yet (ROADMAP queue A item 10): the BP-statistics detectors
 (stalled convergence, iteration-histogram drift), which read the device
-telemetry vector, the degradation-ladder detectors (the port has no
-ladder), and the weighted (importance-sampled) intervals (queue A item 8).
+telemetry vector, and the degradation-ladder detectors (the port has no
+ladder).
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ __all__ = [
     "clopper_pearson_interval",
     "ci_fields",
     "ci_arrays",
+    "effective_sample_size",
+    "ess_interval",
+    "weighted_ci_fields",
     "enabled",
     "enable",
     "disable",
@@ -113,6 +119,54 @@ def clopper_pearson_interval(failures, shots, alpha: float = 0.05):
     lo = 0.0 if f == 0 else float(beta.ppf(alpha / 2.0, f, n - f + 1))
     hi = 1.0 if f >= n else float(beta.ppf(1.0 - alpha / 2.0, f + 1, n - f))
     return lo, hi
+
+
+def effective_sample_size(w1, w2):
+    """Kish effective sample size ``(sum w)^2 / sum w^2`` of a weight
+    stream from its moments: the shot count for uniform weights, toward 1
+    for a degenerate stream, 0.0 for an empty one."""
+    w1 = float(w1)
+    w2 = float(w2)
+    return (w1 * w1 / w2) if w2 > 0 else 0.0
+
+
+def ess_interval(s1, s2, shots, z: float = Z_95):
+    """Confidence interval of a weighted failure rate ``s1 / shots``
+    (``s1 = sum w_i I_i``, ``s2 = sum w_i^2 I_i``), as the JAX package
+    computes it: the Wilson interval of the effective counts ``f_eff =
+    s1^2 / s2`` failures in ``n_eff = shots * s1 / s2`` shots.  Uniform
+    weights give ``wilson_interval(failures, shots)``; no failures fall
+    back to Wilson at ``(0, shots)``."""
+    s1 = float(s1)
+    s2 = float(s2)
+    shots = float(shots)
+    if shots <= 0:
+        return 0.0, 1.0
+    if s1 <= 0 or s2 <= 0:
+        return wilson_interval(0.0, shots, z)
+    return wilson_interval(s1 * s1 / s2, shots * s1 / s2, z)
+
+
+def weighted_ci_fields(failures, s1, s2, w1, w2, shots,
+                       z: float = Z_95) -> dict:
+    """``ci_fields`` of an importance-sampled run: the rate ``s1 /
+    shots``, the ``ess_interval``, the rse from the sample variance of the
+    per-shot ``w*I`` terms, and the effective sample sizes of the whole
+    weight stream (``ess``) and of its failure terms (``ess_failures``).
+    ``failures`` stays the raw failure count."""
+    s1 = float(s1)
+    s2 = float(s2)
+    n = int(shots)
+    rate = s1 / n if n else 0.0
+    lo, hi = ess_interval(s1, s2, n, z)
+    rel_width = (hi - lo) / rate if rate > 0 else None
+    var = max(s2 / n - rate * rate, 0.0) / n if n else 0.0
+    rse = math.sqrt(var) / rate if rate > 0 else None
+    return {"failures": int(failures), "shots": n, "rate": rate,
+            "ci_low": lo, "ci_high": hi,
+            "rel_ci_width": rel_width, "rse": rse,
+            "ess": effective_sample_size(w1, w2),
+            "ess_failures": effective_sample_size(s1, s2)}
 
 
 def ci_fields(failures, shots, z: float = Z_95) -> dict:

@@ -249,13 +249,14 @@ def test_sweep_killed_mid_cell_reruns_to_the_unbroken_grid(tmp_path,
                                                            monkeypatch):
     p_list = [0.03, 0.08]
     samples = 64 * 8 * 3  # 3 megabatches a cell (8 batches each)
-    want = _family().EvalWER("data", "Total", p_list, samples, if_plot=False)
+    want = _family().EvalWER("data", "Total", p_list, samples, if_plot=False,
+                             fused=False)
     path = str(tmp_path / "sweep.jsonl")
     # cell 0 finishes (3 progress records), cell 1 dies at its second,
     # after 16 of its 24 batches
     with pytest.raises(_Killed):
         _family().EvalWER("data", "Total", p_list, samples, if_plot=False,
-                          checkpoint=_DyingCheckpoint(path, 5))
+                          checkpoint=_DyingCheckpoint(path, 5), fused=False)
     ck = SweepCheckpoint(path)
     assert len(ck) == 1
     runs = []
@@ -268,7 +269,7 @@ def test_sweep_killed_mid_cell_reruns_to_the_unbroken_grid(tmp_path,
 
     monkeypatch.setattr(CodeFamily, "_data_wer", counting)
     got = _family().EvalWER("data", "Total", p_list, samples, if_plot=False,
-                            checkpoint=ck)
+                            checkpoint=ck, fused=False)
     np.testing.assert_array_equal(got, want)
     # cell 0 skipped; cell 1 resumed after two megabatches; cells 2-3 fresh
     assert runs == [(13, 0.08, 16), (18, 0.03, 0), (18, 0.08, 0)]

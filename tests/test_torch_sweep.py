@@ -10,7 +10,8 @@
     the JAX package's within 4 binomial sigma of each cell's failure rate,
     the counts read from both packages' run ledgers (the PRNG streams
     differ); the pruned p lists are equal.
-  * ``fused=True`` raises; ``fused="auto"`` is the serial loop.
+  * ``fused=True``, ``fused="auto"`` (the fused cell path) and
+    ``fused=False`` (the serial loop) give equal grids.
 Small codes: hgp(rep_code(3), rep_code(3)) and hgp(ring_code(3),
 ring_code(3)), as the JAX package's tests/test_sweep.py uses.
 """
@@ -337,12 +338,14 @@ def test_threshold_runs_the_grid_and_the_fit(tmp_path):
 
 @pytest.mark.parametrize("st", [False, True])
 def test_fused_true_raises_and_auto_is_the_serial_loop(st):
+    """fused=True, fused="auto" (both the fused cell path now) and
+    fused=False (the serial loop) give equal grids, bit for bit."""
     fam = _port_family(_codes(_Port)[:1], 34, st=st)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        fam.EvalWER("data", "Total", [0.05], 128, if_plot=False, fused=True)
-    a = fam.EvalWER("data", "Total", [0.05], 256, if_plot=False, fused="auto")
-    b = fam.EvalWER("data", "Total", [0.05], 256, if_plot=False, fused=False)
-    np.testing.assert_array_equal(np.asarray(a, float), np.asarray(b, float))
+    grids = [fam.EvalWER("data", "Total", [0.05, 0.08], 256, if_plot=False,
+                         fused=fused) for fused in (True, "auto", False)]
+    for g in grids[1:]:
+        np.testing.assert_array_equal(np.asarray(g[0], float),
+                                      np.asarray(grids[0][0], float))
 
 
 def test_plot_without_matplotlib_raises_a_clear_error(monkeypatch):
@@ -427,5 +430,6 @@ def test_each_cell_releases_its_engine_graphs(monkeypatch, noise):
 
     monkeypatch.setattr(cls, "WordErrorRate", spy)
     _port_family(_codes(_Port)[:1], 38).EvalWER(
-        noise, "Total", [0.03, 0.06], 128, num_cycles=3, if_plot=False)
+        noise, "Total", [0.03, 0.06], 128, num_cycles=3, if_plot=False,
+        fused=False)
     assert len(seen) == 2 and all(s._drivers == {} for s in seen)
