@@ -260,6 +260,30 @@ Phases (any failure raises and the script exits non-zero):
      bucket equal rung by rung to the serial WeightedWordErrorRate (counts
      exact, moments to 1e-6); each rung's WER, rse and ESS
 
+ 42. the shot mesh (parallel/shots.py): phase 5's run on
+     shot_mesh(["cuda:0", "cuda:0"]) (two replicas, one captured graph a
+     logical device), MESH42_BATCHES x 4096 shots a logical device: its
+     (failures, min weight, shots) equal to its degrade_mesh() replay on
+     one device, its failure rate within 4 binomial sigma of phase 5's;
+     graphs, nodes, host reads a megabatch per device, peak memory per
+     device; the same with fused_sampler="v2", pinned in MESH_RUNS and
+     equal to its replay, and a small v2 run equal to the same mesh on the
+     CPU through the plain versions (built in the second process beside
+     the earlier phases); with two cards or more, shot_mesh() over every
+     card against its replay, shots/s in all and a card
+ 43. phase 40's threshold on the 2-entry mesh (CodeFamily(mesh=),
+     fused="auto") at MESH43_SCALE times its shots a cell: every cell's
+     failure rate within 4 sigma of phase 40's (a two-proportion z), its
+     p_c printed beside phase 40's and its bootstrap CI, one graph a
+     device a bucket; phase 40's
+     n625 bucket alone on the mesh, shots per cell twice phase 40's for the
+     same lane-batches, counts equal to its degrade_mesh() replay
+ 44. a sweep grid across two processes: two workers on the card form a
+     gloo group (nccl, one card a rank, with two cards or more) and run
+     CodeFamily.EvalWER(shard_across_processes=True) on GRID44_P of
+     hgp_34_n225; each ran only its own cells and the merged grid equals
+     the single-process grid; each worker has a timeout
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -353,6 +377,23 @@ ELIM_SHOTS = (256, 512)
 ELIM27_SHOTS = (256, 512, 2048)
 
 
+# phases 42-44: the shot mesh.  Phase 42's key, its batches a logical
+# device (phase 5's 16 batches split over the 2-entry mesh), the
+# (failures, min weight) of its fused v2 run at MESH42_BATCHES x 4096 shots
+# a device (the plain versions' result on the CPU, which the kernels give
+# bit for bit), and the small run that the CPU repeats beside the card
+# (MESH42_SMALL batches of 1024 shots a device)
+MESH42_KEY, MESH42_BATCHES, MESH42_SMALL = (42, SEED), 8, 1
+MESH_RUNS = {"42 v2": (195, 2)}
+# phase 43's mesh threshold runs MESH43_SCALE times phase 40's shots a
+# cell, so its p_c's spread is about half of phase 40's
+MESH43_SCALE = 4
+# phase 44's grid across two processes: hgp_34_n225, these p, these shots
+GRID44_P, GRID44_SHOTS = (0.02, 0.04, 0.06, 0.08), 2 * 2048
+# a worker of phase 44 that has not finished by then is killed
+GRID44_TIMEOUT = 300
+
+
 _T0 = time.time()
 
 
@@ -381,6 +422,73 @@ def build_dem(root: str, code_path: str, p: float):
     sim = circuit_st_sim(load_code(code_path), p, "cpu")
     sim._generate_circuit_graph()
     return sim.circuit_graph, sim.h1_space_cor, time.time() - t
+
+
+def mesh42_cpu(root: str, code_path: str):
+    """Phase 42's small fused v2 run on the CPU (in a second process, while
+    the card runs the earlier phases): the 2-entry mesh through the plain
+    versions, MESH42_SMALL batches of 1024 shots a device.  Returns
+    (failures, min weight, shots, seconds)."""
+    sys.path.insert(0, root)
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.parallel import shot_mesh
+
+    t = time.time()
+    sim = mesh42_sim(load_code(code_path), "cpu", shot_mesh(["cpu"] * 2),
+                     1024, "v2")
+    sim.WordErrorRate(2 * MESH42_SMALL * 1024, key=MESH42_KEY)
+    return (sim.last_failures, sim.min_logical_weight, sim.last_shots,
+            time.time() - t)
+
+
+def mesh42_sim(code, device, mesh, batch: int, fused=False):
+    """Phase 42's engine: phase 5's (BP-50, p = 0.01, seed SEED) on
+    ``mesh``."""
+    import numpy as np
+
+    from qldpc_fault_tolerance_tpu_torch.decoders import BPDecoder
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+
+    p = 0.01
+    probs = np.full(code.N, 2 * p / 3)
+    return CodeSimulator_DataError(
+        code=code, decoder_x=BPDecoder(code.hz, probs, 50, device=device),
+        decoder_z=BPDecoder(code.hx, probs, 50, device=device),
+        pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=batch,
+        scan_chunk=8, fused_sampler=fused, device=device, mesh=mesh)
+
+
+# phase 44's worker: one rank of a two-process grid (its argv: the port,
+# the rank, the store's port and the backend)
+GRID44_WORKER = r"""
+import json, sys, time
+root, rank, port, backend = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+t0 = time.time()
+dev = torch.device("cuda", rank if backend == "nccl" else 0)
+torch.cuda.set_device(dev)
+dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+from qldpc_fault_tolerance_tpu_torch.codes import load_code
+from qldpc_fault_tolerance_tpu_torch.decoders import BP_Decoder_Class
+from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+from qldpc_fault_tolerance_tpu_torch.utils.observability import timings
+spec = json.loads(sys.argv[5])
+bp = BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
+fam = CodeFamily([load_code(spec["code"])], bp, bp, batch_size=2048,
+                 seed=spec["seed"], device=dev)
+t1 = time.time()
+wer = fam.EvalWER("data", "Total", spec["p"], spec["shots"], if_plot=False,
+                  shard_across_processes=True)
+t2 = time.time()
+print("RESULT" + json.dumps({
+    "wer": wer.tolist(), "cells": timings().get("cell:data", {}).get(
+        "count", 0), "device": str(dev), "start_s": t1 - t0,
+    "grid_s": t2 - t1}), flush=True)
+dist.destroy_process_group()
+"""
 
 
 def log(msg: str) -> None:
@@ -936,6 +1044,283 @@ def fused_and_rare_phases(ctx) -> dict:
     return {"40": launches40, "41": launches41}
 
 
+def mesh_phases(ctx) -> dict:
+    """Phases 42-44 (module docstring) on ``ctx.dev``: ``ctx`` holds the
+    hgp_34_n625 code, phase 39's codes, decoder classes and fit, phase
+    5's run, the helpers (``counted``, ``ledger_run``) and the future of
+    phase 42's CPU run.  Returns their launches."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import BP_Decoder_Class
+    from qldpc_fault_tolerance_tpu_torch.parallel import shot_mesh
+    from qldpc_fault_tolerance_tpu_torch.parallel.shots import check_syncs
+    from qldpc_fault_tolerance_tpu_torch.sim import common as simc
+    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+    from qldpc_fault_tolerance_tpu_torch.sweep.fused import eval_cells_fused
+
+    dev = ctx.dev
+    n_cards = torch.cuda.device_count()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    def reset(devices):
+        for d in dict.fromkeys(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def peaks(devices) -> str:
+        return ", ".join(
+            f"{d} {torch.cuda.max_memory_allocated(d) / 2 ** 30:.2f} GiB"
+            for d in dict.fromkeys(devices))
+
+    def graphs(sim) -> int:
+        return sum(len(drv._graphs) for _, rep in sim._mesh_replicas.values()
+                   for drv in rep._drivers.values())
+
+    def per_device(sim) -> str:
+        return "; ".join(
+            f"{r['device']}: {r['megabatches']} megabatch(es), "
+            f"{r['host_reads'] / r['megabatches']:.0f} host read(s) a "
+            f"megabatch, graph of " + (
+                f"{r['graph']['nodes']} nodes" if r["graph"] else "(cached)")
+            for r in sim.last_mesh)
+
+    def run(sim, shots, key=MESH42_KEY):
+        with check_syncs():
+            sim.min_logical_weight = sim.N
+            sim.WordErrorRate(shots, key=key)
+        return sim.last_failures, sim.min_logical_weight, sim.last_shots
+
+    def replay_of(make, shots, key=MESH42_KEY):
+        sim = make()
+        sim.degrade_mesh()
+        return run(sim, shots, key)
+
+    # 42. phase 5's run on a 2-entry mesh on one card, then its replay
+    t_new = time.time()
+    mesh2 = shot_mesh([dev, dev])
+    shots42 = mesh2.size * MESH42_BATCHES * 4096
+    sim42 = mesh42_sim(ctx.code, dev, mesh2, 4096)
+    reset(mesh2.devices)
+    (got42, wall42), launches42 = ctx.counted(
+        lambda: timed(lambda: run(sim42, shots42)))
+    text42, peak42 = per_device(sim42), peaks(mesh2.devices)
+    _, wall42r = timed(lambda: run(sim42, shots42, key=(43, SEED)))
+    want42 = replay_of(lambda: mesh42_sim(ctx.code, dev, mesh2, 4096),
+                       shots42)
+    if got42 != want42 or got42[2] != shots42:
+        raise AssertionError(f"phase 42: mesh {got42} != its replay "
+                             f"{want42}")
+    if launches42["bp_minsum_bf16"] <= 0:
+        raise AssertionError(f"phase 42 launched no bf16 head: {launches42}")
+    f5, f42 = ctx.run5[0] / ctx.shots5, got42[0] / shots42
+    sigma42 = (f5 * (1 - f5) / ctx.shots5 + f42 * (1 - f42) / shots42) ** 0.5
+    if abs(f42 - f5) > 4 * sigma42:
+        raise AssertionError(f"phase 42: failures {got42[0]}/{shots42} "
+                             f"outside 4 sigma of phase 5's {ctx.run5[0]}/"
+                             f"{ctx.shots5}")
+    log(f"[42] phase 5's run on shot_mesh([{dev}, {dev}]) ({MESH42_BATCHES} "
+        f"x 4096 shots a logical device): (failures, min_w, shots) {got42} "
+        f"== its degrade_mesh() replay on one device; failure rate "
+        f"{f42:.4e} vs phase 5's {f5:.4e}: |diff| {abs(f42 - f5):.3e} <= 4 "
+        f"sigma {4 * sigma42:.3e}; {shots42 / wall42:.1f} shots/s with the "
+        f"captures ({wall42:.2f} s), {shots42 / wall42r:.1f} replayed "
+        f"({wall42r:.3f} s); {graphs(sim42)} graphs; {text42}; peak "
+        f"{peak42}; launches {launches42}")
+
+    # the fused v2 counter-PRNG engine on the same mesh: pinned, its
+    # replay, and a small run equal to the CPU's through the plain versions
+    simv = mesh42_sim(ctx.code, dev, mesh2, 4096, "v2")
+    (gotv, wallv), launches42v = ctx.counted(
+        lambda: timed(lambda: run(simv, shots42)))
+    wantv = replay_of(lambda: mesh42_sim(ctx.code, dev, mesh2, 4096, "v2"),
+                      shots42)
+    if gotv != wantv or gotv[:2] != MESH_RUNS["42 v2"]:
+        raise AssertionError(f"phase 42 v2: mesh {gotv}, replay {wantv}, "
+                             f"pinned {MESH_RUNS['42 v2']}")
+    if launches42v["fused_decode"] <= 0:
+        raise AssertionError(f"phase 42 v2 launched no fused decode: "
+                             f"{launches42v}")
+    small = run(mesh42_sim(ctx.code, dev, mesh2, 1024, "v2"),
+                2 * MESH42_SMALL * 1024)
+    cpu = ctx.cpu42.result()
+    if small != tuple(cpu[:3]):
+        raise AssertionError(f"phase 42 v2: card {small} != CPU {cpu}")
+    log(f"[42] fused_sampler='v2' on the same mesh: (failures, min_w, "
+        f"shots) {gotv} == its replay == pinned {MESH_RUNS['42 v2']}; "
+        f"{shots42 / wallv:.1f} shots/s with the captures ({wallv:.2f} s); "
+        f"{MESH42_SMALL} x 1024 shots a device {small} == the CPU's plain "
+        f"versions ({cpu[3]:.1f} s there); launches {launches42v}")
+
+    if n_cards >= 2:
+        mesh_n = shot_mesh()
+        shots_n = n_cards * MESH42_BATCHES * 4096
+        sim_n = mesh42_sim(ctx.code, dev, mesh_n, 4096)
+        reset(mesh_n.devices)
+        got_n, wall_n = timed(lambda: run(sim_n, shots_n))
+        _, wall_nr = timed(lambda: run(sim_n, shots_n, key=(43, SEED)))
+        want_n = replay_of(lambda: mesh42_sim(ctx.code, dev, mesh_n, 4096),
+                           shots_n)
+        if got_n != want_n:
+            raise AssertionError(f"phase 42 on {n_cards} cards: {got_n} != "
+                                 f"its replay {want_n}")
+        log(f"[42] shot_mesh() over {n_cards} cards: {got_n} == its replay "
+            f"on {dev}; {shots_n / wall_nr:.1f} shots/s in all, "
+            f"{shots_n / n_cards / wall_nr:.1f} a card, replayed "
+            f"({wall_nr:.3f} s; {shots_n / wall_n:.1f} with the captures); "
+            f"{per_device(sim_n)}; peak {peaks(mesh_n.devices)}")
+    else:
+        log("[42] one card: the mesh over every card is not run")
+    log(f"phase 42 took {time.time() - t_new:.1f} s")
+
+    # 43. phase 40's threshold on the 2-entry mesh, then its n625 bucket
+    # alone and its replay
+    t_new = time.time()
+    fam = CodeFamily(ctx.codes, ctx.dec1, ctx.dec2, batch_size=2048,
+                     seed=SEED, device=dev, mesh=mesh2)
+    shots43 = MESH43_SCALE * SWEEP_SHOTS
+    reset(mesh2.devices)
+    (pc43, rec43, launches43), wall43 = timed(lambda: ctx.ledger_run(
+        lambda tmp: fam.EvalThreshold("data", "Total", "extrapolation",
+                                      SWEEP_EST, shots43, ledger=tmp,
+                                      fused="auto")))
+    buckets = list(eval_cells_fused.buckets)
+    lo, hi = ctx.fit["pc_ci"]
+    def by_cell(record):
+        return {(c["cell"]["code"], round(c["cell"]["p"], 12)): c
+                for c in record["cells"]}
+
+    cells40, cells43 = by_cell(ctx.rec), by_cell(rec43)
+    if cells43.keys() != cells40.keys() or any(
+            cells43[k]["shots"] != MESH43_SCALE * cells40[k]["shots"]
+            for k in cells40):
+        raise AssertionError(f"phase 43 cells' shots {rec43['cells']}")
+    # every cell's failure rate against phase 40's: a two-proportion z on
+    # the pooled rate.  (p_c itself is no test here: phase 40's top n625
+    # cell failed all its shots, which the WER transform maps to 1, and the
+    # extrapolation fit follows that one cell; its bootstrap replicates
+    # all keep it at 1, so its CI does not cover a grid where the cell
+    # does not saturate.)
+    zs = []
+    for a, b in ((cells40[k], cells43[k]) for k in cells40):
+        pool = (a["failures"] + b["failures"]) / (a["shots"] + b["shots"])
+        var = pool * (1 - pool) * (1 / a["shots"] + 1 / b["shots"])
+        diff = b["failures"] / b["shots"] - a["failures"] / a["shots"]
+        zs.append(diff / var ** 0.5 if var > 0 else 0.0)
+    if max(abs(z) for z in zs) > 4:
+        raise AssertionError(f"phase 43: cells' failure rates against "
+                             f"phase 40's, z {zs}")
+    if dev.type == "cuda" and any(b["graphs"] != mesh2.size
+                                  for b in buckets):
+        raise AssertionError(f"phase 43 buckets {buckets}: one graph a "
+                             f"device")
+    log(f"[43] the threshold on the mesh ({MESH43_SCALE} x phase 40's "
+        f"shots a cell): every cell's failure rate within 4 sigma of "
+        f"phase 40's (z {', '.join(f'{z:+.2f}' for z in zs)}); p_c "
+        f"{pc43:.5f} against phase 40's {ctx.fit['p_c']:.5f}, bootstrap "
+        f"CI [{lo:.5f}, {hi:.5f}]: "
+        + ("inside" if lo <= pc43 <= hi else "outside") + "; cells "
+        + "; ".join(f"{c['cell']['code']} p={c['cell']['p']:.4f} "
+                    f"{c['failures']}/{c['shots']} WER {c['wer']:.4e}"
+                    for c in rec43["cells"])
+        + f"; {wall43:.2f} s "
+        f"({sum(c['shots'] for c in rec43['cells']) / wall43:.1f} shots/s "
+        "with the builds and captures); buckets " + "; ".join(
+            f"{b['cells']} cells, {b['megabatches']} megabatches, "
+            f"{b['host_reads']} host reads, {b['graphs']} graphs of "
+            f"{b['nodes']} nodes, peak {b.get('peak_gib_devices')}"
+            for b in buckets) + f"; launches {launches43}")
+
+    ci = len(ctx.codes) - 1
+    p_list = sorted({c["cell"]["p"] for c in ctx.rec["cells"]})
+    bucket = [(i, ci, ctx.codes[ci], p) for i, p in enumerate(p_list)]
+    runs43 = []
+    for degraded in (False, True):
+        prog = fam._data_bucket_program(bucket, "Total", 2 * SWEEP_SHOTS,
+                                        mesh2)
+        if degraded:
+            prog.driver.degrade_mesh()
+        with check_syncs():
+            host, wall = timed(lambda prog=prog: simc.fused_cell_finish(
+                simc.fused_cell_launch(prog)[0]))
+        runs43.append((tuple(tuple(int(x) for x in a) for a in host), wall,
+                       prog.n_batches, len(prog.driver._graphs)))
+        prog.release()
+    (cells43, wall_m, n_b, g_m), (cells43r, wall_r, _, g_r) = runs43
+    want_shots = tuple(2 * cells40[(ctx.codes[ci].name, round(p, 12))][
+        "shots"] for p in p_list)
+    if cells43 != cells43r or cells43[1] != want_shots \
+            or set(cells43[1]) != {n_b * 2048 * mesh2.size}:
+        raise AssertionError(f"phase 43 bucket: mesh {cells43}, replay "
+                             f"{cells43r}, phase 40's shots x 2 "
+                             f"{want_shots}")
+    n43 = sum(cells43[1])
+    log(f"[43] {ctx.codes[ci].name or ctx.codes[ci].N} bucket of "
+        f"{len(p_list)} cells on the mesh: {n_b} lane-batches of 2048 x "
+        f"{mesh2.size} a cell, shots {cells43[1]} (phase 40's x 2), "
+        f"failures {cells43[0]}, min_w {cells43[2]} == its degrade_mesh() "
+        f"replay; {n43 / wall_m:.1f} shots/s with its {g_m} captures "
+        f"({wall_m:.2f} s), replay {n43 / wall_r:.1f} ({wall_r:.2f} s, "
+        f"{g_r} graph)")
+    log(f"phase 43 took {time.time() - t_new:.1f} s")
+
+    # 44. a sweep grid across two processes
+    t_new = time.time()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n225 = str(ROOT / "codes_lib_tpu" / "hgp_34_n225.npz")
+    spec = json.dumps({"code": n225, "seed": SEED, "p": list(GRID44_P),
+                       "shots": GRID44_SHOTS})
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GRID44_WORKER, str(ROOT), str(rank),
+         str(port), backend, spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    try:
+        bp = BP_Decoder_Class(30, "minimum_sum", 0.625, device=dev)
+        want44 = CodeFamily([load_code(n225)], bp, bp, batch_size=2048,
+                            seed=SEED, device=dev).EvalWER(
+            "data", "Total", list(GRID44_P), GRID44_SHOTS, if_plot=False,
+            fused=False)
+        results = []
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=GRID44_TIMEOUT)
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("RESULT")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"phase 44 rank {rank} exited "
+                                     f"{proc.returncode}: {err[-3000:]}")
+            results.append(json.loads(lines[-1][len("RESULT"):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    cells44 = [r["cells"] for r in results]
+    if cells44 != [2, 2] or any(
+            not np.array_equal(np.asarray(r["wer"]), want44)
+            for r in results):
+        raise AssertionError(f"phase 44: ranks {results} vs the single "
+                             f"process's grid {want44.tolist()}")
+    log(f"[44] CodeFamily.EvalWER(shard_across_processes=True) over "
+        f"{backend} in two processes ({', '.join(r['device'] for r in results)}"
+        f"): {len(GRID44_P)} cells of hgp_34_n225, {cells44} run by ranks 0 "
+        f"and 1, the merged grid {want44.tolist()} == the single process's; "
+        + "; ".join(f"rank {i}: start {r['start_s']:.1f} s, grid "
+                    f"{r['grid_s']:.2f} s" for i, r in enumerate(results)))
+    log(f"phase 44 took {time.time() - t_new:.1f} s")
+    return {"42": launches42, "42 v2": launches42v, "43": launches43}
+
+
 def main() -> int:
     import torch
 
@@ -956,14 +1341,15 @@ def main() -> int:
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
         dem_job = dem_pool.submit(build_dem, str(ROOT), str(CODE), CIRCUIT_P)
-        return run_phases(dem_job)
+        cpu42_job = dem_pool.submit(mesh42_cpu, str(ROOT), str(CODE))
+        return run_phases(dem_job, cpu42_job)
     finally:
         dem_pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run_phases(dem_job) -> int:
-    """Phases 1-41 (module docstring); ``dem_job`` the future of phase
-    36's decoding graphs."""
+def run_phases(dem_job, cpu42_job) -> int:
+    """Phases 1-44 (module docstring); ``dem_job`` the future of phase
+    36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
 
@@ -3222,6 +3608,12 @@ def run_phases(dem_job) -> int:
         shots5=16 * 4096, rare_shots=RARE_SHOTS,
         rare_class=BP_Decoder_Class(12.5, "minimum_sum", 0.625,
                                     device=dev)))
+
+    # 42-44. the shot mesh and a grid across processes
+    mesh_phases(SimpleNamespace(
+        dev=dev, code=code, codes=codes39, dec1=bp30, dec2=osd_e10,
+        fit=fit39, rec=rec39, counted=counted, ledger_run=ledger_run,
+        run5=run5, shots5=16 * 4096, cpu42=cpu42_job))
 
     # the kernels line
     kernels = [

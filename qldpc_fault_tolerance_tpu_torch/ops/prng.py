@@ -10,6 +10,9 @@
   * ``fold_in_device``: ``fold_in`` of one key with many batch indices on
     the device, as the JAX package folds inside its scan; a captured CUDA
     graph derives its batches' keys with it.
+  * ``mesh_key`` / ``mesh_keys_device``: the key of logical device ``d``'s
+    batch ``j`` on a shot mesh, ``split(fold_in(key, j), n)[d]``, on the
+    host and, for many ``j``, on the device.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["MASK", "threefry2x32", "key_words", "prng_key", "split_key",
-           "fold_in", "fold_in_device", "key_tensor", "key_parts"]
+           "fold_in", "fold_in_device", "mesh_key", "mesh_keys_device",
+           "key_tensor", "key_parts"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -86,6 +90,24 @@ def fold_in_device(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     the counter-PRNG kernels read."""
     x0, x1 = threefry2x32(key[0], key[1], 0, data & MASK)
     return _as_int32(torch.stack([x0.expand_as(x1), x1], dim=-1))
+
+
+def mesh_key(key, j: int, d: int) -> tuple[int, int]:
+    """Key of batch ``j`` of logical device ``d`` on a shot mesh of any
+    size ``n > d``: ``split_key(fold_in(key, j), n)[d]``, the key the JAX
+    package's mesh path gives that device (``split``'s key ``d`` is
+    Threefry(key, (0, d)), which is ``fold_in(key, d)``, so it does not
+    depend on ``n``)."""
+    return fold_in(fold_in(key, j), d)
+
+
+def mesh_keys_device(key: torch.Tensor, data: torch.Tensor,
+                     d: int) -> torch.Tensor:
+    """``mesh_key(key, j, d)`` for every ``j`` of ``data`` on the device, in
+    ``fold_in_device``'s layout: ``(len(data), 2)`` int32 bit patterns."""
+    x0, x1 = threefry2x32(key[0], key[1], 0, data & MASK)
+    y0, y1 = threefry2x32(x0.expand_as(x1), x1, 0, int(d) & MASK)
+    return _as_int32(torch.stack([y0, y1], dim=-1))
 
 
 def key_tensor(key, device) -> torch.Tensor:

@@ -21,6 +21,18 @@ megabatch d's carry is snapshotted and copied to the host while d+1
 computes, one host read per megabatch.  Elsewhere (the CPU, the plain
 versions under ``_kernels.force_plain()``, ``_kernels.force_eager()``) a
 megabatch is the eager loop.
+
+The shot mesh (the JAX package's ``shot_mesh`` / ``shard_map`` over a
+``shots`` axis): a ``ShotMesh`` is a tuple of ``torch.device``s, logical
+devices that may repeat (two entries on one card run two replicas there, as
+the JAX tests' virtual CPU devices do).  Logical device ``d`` draws batch
+``j`` of a run keyed ``seed`` from ``prng.mesh_key(seed, j, d)``
+(``split(fold_in(key, j), n)[d]``): a batch input's ``slot`` selects that
+stream.  Every device runs its own replica of the state; only the folded
+scalars (counts summed, min weights minimized, ``replay_fold``) cross
+between them, on the host.  ``MeshCellFusedDriver`` shards a fused bucket
+that way, and its ``degrade_mesh()`` swaps in the same folds run in turn
+on one device.
 """
 from __future__ import annotations
 
@@ -34,13 +46,116 @@ import numpy as np
 import torch
 
 from ..ops import _kernels
-from ..ops.prng import fold_in, fold_in_device
+from ..ops.prng import (
+    fold_in,
+    fold_in_device,
+    mesh_key,
+    mesh_keys_device,
+    split_key,
+)
 from ..utils import device as _device
+from ..utils import telemetry
 
-__all__ = ["batch_seed", "batch_generator", "GeneratorInput", "KeyInput",
-           "MegabatchDriver", "CellFusedDriver", "count_min_driver",
-           "cell_fused_driver", "drain_double_buffered", "check_syncs",
-           "CapturedStep"]
+__all__ = ["SHOT_AXIS", "ShotMesh", "shot_mesh", "check_mesh",
+           "split_keys_for_mesh", "replay_fold", "sharded_batch_stats",
+           "batch_seed",
+           "batch_generator", "GeneratorInput", "KeyInput",
+           "MegabatchDriver", "CellFusedDriver", "MeshCellFusedDriver",
+           "count_min_driver", "cell_fused_driver", "drain_double_buffered",
+           "check_syncs", "CapturedStep"]
+
+SHOT_AXIS = "shots"
+
+
+class ShotMesh(NamedTuple):
+    """A 1-D mesh of logical devices over the shot axis: ``devices`` a
+    tuple of ``torch.device``s (entries may repeat).  Immutable and
+    hashable, so drivers and caches key on it."""
+
+    devices: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def shot_mesh(devices=None) -> ShotMesh:
+    """The mesh over ``devices`` (names or ``torch.device``s; by default
+    every visible CUDA device).  A CUDA entry raises when no card is
+    present or its index is past the cards there."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass the mesh's "
+                               "devices, e.g. shot_mesh(['cpu'] * 2)")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    out = []
+    for dev in devices:
+        dev = _device.canonical(dev)
+        if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev} is past the {torch.cuda.device_count()} "
+                             "visible CUDA devices")
+        out.append(dev)
+    if not out:
+        raise ValueError("a shot mesh needs at least one device")
+    return ShotMesh(tuple(out))
+
+
+def check_mesh(mesh):
+    """``mesh`` itself when it is None or a ``ShotMesh``; raises otherwise."""
+    if mesh is not None and not isinstance(mesh, ShotMesh):
+        raise TypeError(f"mesh must be a parallel.shots.ShotMesh "
+                        f"(shot_mesh(...)), got {type(mesh).__name__}")
+    return mesh
+
+
+def split_keys_for_mesh(key, mesh: ShotMesh) -> tuple:
+    """One key per mesh device: ``split_key(key, mesh.size)``, the JAX
+    package's ``jax.random.split(key, n)``."""
+    return split_key(key, mesh.size)
+
+
+def _minimum(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.minimum(a, b)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.minimum(a, b)
+    return min(a, b)
+
+
+def replay_fold(outs, n_w: int = 0, has_tele: bool = False):
+    """Fold per-logical-device stats ``outs[d] = (count, min_w, *moments[,
+    tele])`` in device order, as the JAX package's mesh collectives fold
+    them: counts summed, min weights minimized, the ``n_w`` weight moments
+    and a trailing telemetry vector summed.  Host numbers, numpy arrays or
+    device tensors.  Integer folds are order-free, so a replay of the same
+    key streams gives the mesh run's counts bit for bit."""
+    width = 2 + n_w + (1 if has_tele else 0)
+    res = list(outs[0][:width])
+    for out in outs[1:]:
+        res[0] = res[0] + out[0]
+        res[1] = _minimum(res[1], out[1])
+        for i in range(2, width):
+            res[i] = res[i] + out[i]
+    return tuple(res)
+
+
+def sharded_batch_stats(stats_fn, mesh: ShotMesh, has_tele: bool = False):
+    """The mesh unit of every engine: ``run(keys)`` runs ``stats_fn(key,
+    device) -> (count, min_w[, tele])`` once on each mesh device with that
+    device's key (``split_keys_for_mesh``), the function placing its work
+    on ``device`` (its replica of the state there), launches every device
+    before reading any, and returns the ``replay_fold`` of the host
+    values.  Only those scalars leave the devices."""
+
+    def run(keys):
+        if len(keys) != mesh.size:
+            raise ValueError(f"{len(keys)} keys for a mesh of {mesh.size}")
+        outs = [stats_fn(k, dev) for k, dev in zip(keys, mesh.devices)]
+        host = [tuple(x.tolist() if isinstance(x, torch.Tensor) else x
+                      for x in out) for out in outs]
+        return replay_fold(host, has_tele=has_tele)
+
+    return run
 
 
 def batch_seed(seed, j: int) -> int:
@@ -62,25 +177,41 @@ def batch_generator(seed, j: int, device) -> torch.Generator:
 _THROWAWAY = (0x5EED, 0xC0DE)
 
 
-class GeneratorInput:
-    """Batch ``j`` draws from ``batch_generator(seed, j, device)``."""
+def slot_seed(seed, j: int, slot=None) -> tuple:
+    """The ``(seed, index)`` a batch generator is seeded from: batch ``j``
+    of stream ``seed``, or on logical device ``slot`` of a mesh the
+    one-batch unit under that device's key (``mesh_key(seed, j, slot)``,
+    index 0)."""
+    if slot is None:
+        return seed, j
+    return mesh_key(seed, j, slot), 0
 
-    def __init__(self, device):
+
+class GeneratorInput:
+    """Batch ``j`` draws from ``batch_generator(seed, j, device)``; with a
+    mesh ``slot``, from the generator of ``slot_seed(seed, j, slot)``."""
+
+    def __init__(self, device, slot=None):
         self.device = torch.device(device)
+        self.slot = slot
 
     def __call__(self, seed, j: int) -> torch.Generator:
-        return batch_generator(seed, j, self.device)
+        return batch_generator(*slot_seed(seed, j, self.slot), self.device)
+
+    def on_slot(self, slot) -> "GeneratorInput":
+        return GeneratorInput(self.device, slot)
 
     def captured(self, k: int):
-        return _CapturedGenerators(self.device, k)
+        return _CapturedGenerators(self.device, k, self.slot)
 
 
 class _CapturedGenerators:
     """``k`` generators registered with the graph, reseeded before each
     replay."""
 
-    def __init__(self, device, k: int):
+    def __init__(self, device, k: int, slot=None):
         self.gens = [batch_generator(_THROWAWAY, j, device) for j in range(k)]
+        self.slot = slot
 
     def warmup(self):
         return batch_generator(_THROWAWAY, 0, self.gens[0].device)
@@ -100,28 +231,38 @@ class _CapturedGenerators:
 
     def before_replay(self, seed, offset: int) -> None:
         for j, gen in enumerate(self.gens):
-            gen.manual_seed(batch_seed(seed, offset + j))
+            gen.manual_seed(batch_seed(*slot_seed(seed, offset + j,
+                                                  self.slot)))
 
 
 class KeyInput:
-    """Batch ``j`` draws from the counter-PRNG key ``fold_in(seed, j)``."""
+    """Batch ``j`` draws from the counter-PRNG key ``fold_in(seed, j)``;
+    with a mesh ``slot``, from ``mesh_key(seed, j, slot)``."""
 
-    def __init__(self, device):
+    def __init__(self, device, slot=None):
         self.device = torch.device(device)
+        self.slot = slot
 
     def __call__(self, seed, j: int):
-        return fold_in(seed, j)
+        if self.slot is None:
+            return fold_in(seed, j)
+        return mesh_key(seed, j, self.slot)
+
+    def on_slot(self, slot) -> "KeyInput":
+        return KeyInput(self.device, slot)
 
     def captured(self, k: int):
-        return _CapturedKeys(self.device, k)
+        return _CapturedKeys(self.device, k, self.slot)
 
 
 class _CapturedKeys:
     """The run's key words and the next batch index on the device; the
-    graph folds ``k`` keys from them and advances the index by ``k``."""
+    graph folds ``k`` keys from them (and, on a mesh slot, each key's
+    split for that slot) and advances the index by ``k``."""
 
-    def __init__(self, device, k: int):
+    def __init__(self, device, k: int, slot=None):
         self.k = k
+        self.slot = slot
         self.base = torch.tensor(_THROWAWAY, dtype=torch.int64).to(device)
         self.index = torch.zeros((), dtype=torch.int64, device=device)
 
@@ -133,7 +274,8 @@ class _CapturedKeys:
 
     def inputs(self):
         j = self.index + torch.arange(self.k, device=self.index.device)
-        keys = fold_in_device(self.base, j)
+        keys = (fold_in_device(self.base, j) if self.slot is None
+                else mesh_keys_device(self.base, j, self.slot))
         return [keys[i] for i in range(self.k)]
 
     def advance(self) -> None:
@@ -175,6 +317,14 @@ class _Graph(NamedTuple):
     stats: dict
 
 
+def _on(device):
+    """``torch.cuda.device(device)`` for a CUDA device, else nothing: the
+    guard a launch or event on a mesh replica's card needs."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def _sync_mode(checked: bool):
     if not checked:
@@ -212,23 +362,24 @@ def _capture_graph(dev, warmup, body, register=None):
     Returns (graph, body's outputs, the pool its conditional bodies
     allocate from, which must live as long as the graph, and what the
     capture cost)."""
-    _kernels.launch_counts(dev)
-    stream = torch.cuda.Stream(dev)
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    t0 = time.perf_counter()
-    with (torch.cuda.stream(stream), _device._both_branches(),
-          _kernels.uncounted()):
-        warmup()
-    torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    if register is not None:
-        register(graph)
-    with _device.graph_capture(graph, dev, stream) as rec:
-        outs = body()
-    t2 = time.perf_counter()
-    graph.instantiate()
-    t3 = time.perf_counter()
+    with torch.cuda.device(dev):
+        _kernels.launch_counts(dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with (torch.cuda.stream(stream), _device._both_branches(),
+              _kernels.uncounted()):
+            warmup()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if register is not None:
+            register(graph)
+        with _device.graph_capture(graph, dev, stream) as rec:
+            outs = body()
+        t2 = time.perf_counter()
+        graph.instantiate()
+        t3 = time.perf_counter()
     stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
              "instantiate_s": t3 - t2,
              "nodes": _device.graph_nodes(graph) + rec.body_nodes}
@@ -354,7 +505,7 @@ class MegabatchDriver:
         dev = carry[0].device if self._graphed(carry) else None
         checked = getattr(_checks, "syncs", False)
         ready = None
-        with _sync_mode(checked and dev is not None):
+        with _sync_mode(checked and dev is not None), _on(carry[0].device):
             snap = self._pack(carry)
             if dev is not None:
                 snap = torch.cat([snap, _kernels.launch_counts(dev).to(
@@ -363,8 +514,10 @@ class MegabatchDriver:
                 host = torch.empty(snap.shape, dtype=snap.dtype,
                                    pin_memory=True)
                 host.copy_(snap, non_blocking=True)
+                # the copy runs on the carry's device's stream: the event
+                # goes there too, whichever device is current
                 ready = torch.cuda.Event()
-                ready.record()
+                ready.record(torch.cuda.current_stream(snap.device))
             else:
                 host = snap
         return _PendingRead(self, carry, host, ready, dev, checked)
@@ -372,6 +525,10 @@ class MegabatchDriver:
     def read(self, carry) -> tuple:
         """The host values of ``carry``: one host read."""
         return self.read_launch(carry).finish()
+
+    def release(self) -> None:
+        """Drop the captured graphs (their memory with them)."""
+        self._graphs.clear()
 
     def stream(self, seed, n_batches: int, *extra, start: int = 0,
                carry0=None):
@@ -481,27 +638,33 @@ def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
 
 
 class _LaneGenerators:
-    """``k`` x ``L`` generators registered with a fused graph: batch j of
-    lane l draws from ``gens[j][l]``, reseeded before each replay with its
-    batch index of the lane plan."""
+    """``k`` x ``L`` x ``S`` generators registered with a fused graph:
+    batch j of lane l draws, for each of the driver's ``S`` slots, from
+    ``gens[j][l][s]``, reseeded before each replay from its batch index of
+    the lane plan (``slot_seed``)."""
 
-    def __init__(self, device, k: int, n_lanes: int):
-        self.gens = [[batch_generator(_THROWAWAY, j * n_lanes + lane, device)
+    def __init__(self, device, k: int, n_lanes: int, slots):
+        self.slots = slots
+        self.gens = [[[batch_generator(_THROWAWAY, (j * n_lanes + lane)
+                                       * len(slots) + s, device)
+                       for s in range(len(slots))]
                       for lane in range(n_lanes)] for j in range(k)]
 
     def warmup(self):
-        return batch_generator(_THROWAWAY, 0, self.gens[0][0].device)
+        return batch_generator(_THROWAWAY, 0, self.gens[0][0][0].device)
 
     def register(self, graph) -> None:
         for row in self.gens:
-            for gen in row:
-                graph.register_generator_state(gen)
+            for lane in row:
+                for gen in lane:
+                    graph.register_generator_state(gen)
 
     def reseed(self, seed, base, stride) -> None:
         for j, row in enumerate(self.gens):
-            for lane, gen in enumerate(row):
-                gen.manual_seed(batch_seed(
-                    seed, int(base[lane]) + j * int(stride[lane])))
+            for lane, gens in enumerate(row):
+                b = int(base[lane]) + j * int(stride[lane])
+                for gen, slot in zip(gens, self.slots):
+                    gen.manual_seed(batch_seed(*slot_seed(seed, b, slot)))
 
 
 class CellFusedDriver(MegabatchDriver):
@@ -529,23 +692,31 @@ class CellFusedDriver(MegabatchDriver):
     lane), so a changed plan (adaptive reallocation) replays the same
     graph.
 
+    ``slots``: the mesh slots (logical devices) a lane-batch runs, each
+    from its own key (``slot_seed``), folded with ``replay_fold``; a
+    lane-batch then counts ``batch_size * len(slots)`` shots.  One slot
+    ``(d,)`` is device ``d``'s share of a ``MeshCellFusedDriver``, every
+    slot ``(0, ..., n-1)`` the mesh's replay on one device.
+
     On the card a megabatch is one captured CUDA graph per ``extra``: the
     L x k lane units in turn, each the serial cell's unit on its lane's
-    gathered state, with L x k registered generators reseeded before each
-    replay.  Elsewhere the megabatch is the eager loop, which skips
-    inactive lanes (they add nothing)."""
+    gathered state, with L x k registered generators (per slot) reseeded
+    before each replay.  Elsewhere the megabatch is the eager loop, which
+    skips inactive lanes (they add nothing)."""
 
     def __init__(self, stats_fn, n_cells: int, batch_size: int,
                  k_inner: int, min_init: int, device,
-                 weighted: bool = False):
+                 weighted: bool = False, slots=None):
         self.n_cells = int(n_cells)
         self.batch_size = int(batch_size)
         self.weighted = bool(weighted)
         self.device = torch.device(device)
+        self.slots = None if slots is None else tuple(int(d) for d in slots)
         self._min_init = int(min_init)
         super().__init__(stats_fn, None, self._init, GeneratorInput(device),
                          k_inner=k_inner)
         C, dev = self.n_cells, self.device
+        self._shots_inc = self.batch_size * len(self.slots or (None,))
         self._arange = torch.arange(C, device=dev)
         self._cell = torch.arange(C, device=dev)
         self._active = torch.ones(C, dtype=torch.bool, device=dev)
@@ -571,13 +742,21 @@ class CellFusedDriver(MegabatchDriver):
             host += tuple(np.zeros(C, np.float64) for _ in range(4))
         return host
 
+    def _unit(self, gens, lane: int, extra):
+        """Lane ``lane``'s batch on each slot's generator of ``gens``, the
+        slots folded."""
+        outs = [self._stats_fn(gen, self._lane(lane), *extra) for gen in gens]
+        if len(outs) == 1:
+            return outs[0]
+        return replay_fold(outs, n_w=4 if self.weighted else 0)
+
     def _fold(self, carry, lane: int, out):
         """Add lane ``lane``'s batch ``out`` at its cell if it is active:
         the cell's slots take the serial fold (``c + o``, ``min(c, o)``),
         every other slot keeps its value."""
         hit = (self._arange == self._cell[lane]) & self._active[lane]
         new = (torch.where(hit, carry[0] + out[0], carry[0]),
-               torch.where(hit, carry[1] + self.batch_size, carry[1]),
+               torch.where(hit, carry[1] + self._shots_inc, carry[1]),
                torch.where(hit, torch.minimum(carry[2], out[1]), carry[2]))
         if self.weighted:
             new += tuple(torch.where(hit, carry[3 + i] + out[2 + i],
@@ -600,23 +779,24 @@ class CellFusedDriver(MegabatchDriver):
             for lane in range(self.n_cells):
                 if not active[lane]:
                     continue
-                gen = batch_generator(
-                    seed, int(base[lane]) + j * int(stride[lane]),
-                    self.device)
-                carry = self._fold(carry, lane, self._stats_fn(
-                    gen, self._lane(lane), *extra))
+                b = int(base[lane]) + j * int(stride[lane])
+                gens = [batch_generator(*slot_seed(seed, b, slot),
+                                        self.device)
+                        for slot in self.slots or (None,)]
+                carry = self._fold(carry, lane, self._unit(gens, lane, extra))
         self.megabatches += 1
         return carry
 
     def _capture(self, extra, carry) -> _Graph:
-        inputs = _LaneGenerators(self.device, self.k_inner, self.n_cells)
+        inputs = _LaneGenerators(self.device, self.k_inner, self.n_cells,
+                                 self.slots or (None,))
 
         def megabatch():
             new = carry
             for j in range(self.k_inner):
                 for lane in range(self.n_cells):
-                    new = self._fold(new, lane, self._stats_fn(
-                        inputs.gens[j][lane], self._lane(lane), *extra))
+                    new = self._fold(new, lane, self._unit(
+                        inputs.gens[j][lane], lane, extra))
             for c, v in zip(carry, new):
                 c.copy_(v)
 
@@ -696,18 +876,174 @@ class CellFusedDriver(MegabatchDriver):
                                          range(int(start), n_run, k))
 
 
+def _fold_cells(hosts, weighted: bool) -> tuple:
+    """Fold fused host carries ``(failures, shots, min_w[, s1, s2, w1,
+    w2])`` of a mesh's devices in device order: counts, shots and moments
+    summed, min weights minimized."""
+    out = list(hosts[0])
+    for host in hosts[1:]:
+        for i, x in enumerate(host):
+            out[i] = np.minimum(out[i], x) if i == 2 else out[i] + x
+    return tuple(out)
+
+
+class _MeshRead(NamedTuple):
+    """Host reads of every device's carry in flight; ``finish`` waits for
+    each and folds them."""
+
+    reads: list
+    weighted: bool
+
+    def finish(self) -> tuple:
+        return _fold_cells([r.finish() for r in self.reads], self.weighted)
+
+
+class MeshCellFusedDriver:
+    """A fused bucket sharded over a ``ShotMesh`` (the JAX package's
+    ``CellFusedDriver(mesh=)``): every mesh device runs all lanes at the
+    lane batch size, device ``d`` from its keys ``mesh_key(seed, b, d)``
+    (``fold_in(key_lane, d)``), in a ``CellFusedDriver`` of slot ``(d,)``
+    on its replica of the bucket's state (``replicate(device)`` gives that
+    device's stats function).  Each device's carry stays on it; the host
+    reads every device's carry (every launch before any read) and folds the
+    per-cell vectors.  A lane-batch counts ``batch_size * n_dev`` shots.
+
+    The carry is one ``CellFusedDriver`` carry per device, in a list; a
+    resumed run's ``carry0`` goes to device 0's and the others start from
+    the initial carry, which the fold leaves unchanged.
+
+    ``degrade_mesh()`` (the ``mesh_replan`` rung, called directly) swaps
+    the devices for one ``CellFusedDriver`` on the first mesh device that
+    runs every slot's keys in turn, ``replay_fold``-ed: its counts and min
+    weights are the mesh run's bit for bit, its float moments up to the
+    order of summation."""
+
+    def __init__(self, replicate, n_cells: int, batch_size: int,
+                 k_inner: int, min_init: int, mesh: ShotMesh,
+                 weighted: bool = False):
+        self.mesh = mesh
+        self.n_cells = int(n_cells)
+        self.batch_size = int(batch_size)
+        self.k_inner = max(1, int(k_inner))
+        self.weighted = bool(weighted)
+        self.device = mesh.devices[0]
+        self.mesh_degraded = False
+        self._replicate = replicate
+        self._min_init = int(min_init)
+        self.subs = [self._sub(dev, (d,))
+                     for d, dev in enumerate(mesh.devices)]
+
+    def _sub(self, device, slots) -> CellFusedDriver:
+        return CellFusedDriver(self._replicate(device), self.n_cells,
+                               self.batch_size, self.k_inner, self._min_init,
+                               device, weighted=self.weighted, slots=slots)
+
+    def degrade_mesh(self) -> None:
+        """Run the mesh's key streams in turn on its first device from the
+        next dispatch on (idempotent); counted in telemetry's
+        ``mesh.replans``."""
+        if self.mesh_degraded:
+            return
+        self.mesh_degraded = True
+        telemetry.count("mesh.replans")
+        self.release()
+        self.subs = [self._sub(self.device, tuple(range(self.mesh.size)))]
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(dict.fromkeys(sub.device for sub in self.subs))
+
+    @property
+    def megabatches(self) -> int:
+        return sum(sub.megabatches for sub in self.subs)
+
+    @property
+    def host_reads(self) -> int:
+        return sum(sub.host_reads for sub in self.subs)
+
+    @property
+    def graph_stats(self):
+        return self.subs[0].graph_stats
+
+    @property
+    def _graphs(self) -> dict:
+        return {(d, k): g for d, sub in enumerate(self.subs)
+                for k, g in sub._graphs.items()}
+
+    def release(self) -> None:
+        for sub in self.subs:
+            sub.release()
+
+    def host_init(self) -> tuple:
+        return self.subs[0].host_init()
+
+    def _init_fn(self) -> list:
+        return [sub._init_fn() for sub in self.subs]
+
+    def _fill(self, carry, values) -> None:
+        self.subs[0]._fill(carry[0], values)
+
+    def read_launch(self, carry) -> _MeshRead:
+        return _MeshRead([sub.read_launch(c)
+                          for sub, c in zip(self.subs, carry)],
+                         self.weighted)
+
+    def read(self, carry) -> tuple:
+        return self.read_launch(carry).finish()
+
+    def dispatch(self, carry, seed, plan, *extra) -> list:
+        return [sub.dispatch(c, seed, plan, *extra)
+                for sub, c in zip(self.subs, carry)]
+
+    def run_plan(self, seed, n_batches: int, *extra, start: int = 0,
+                 carry0=None):
+        """Every device's fixed-budget fold, launched device after device
+        with no host read: ``(carry, batches run)``."""
+        carry, done = [], int(start)
+        for d, sub in enumerate(self.subs):
+            c, done = sub.run_plan(seed, n_batches, *extra, start=start,
+                                   carry0=carry0 if d == 0 else None)
+            carry.append(c)
+        return carry, done
+
+    def run_plan_keys(self, seed, n_batches: int, *extra, start: int = 0,
+                      carry0=None):
+        """``run_plan`` drained megabatch by megabatch: every device's
+        megabatch launched, then their reads, double-buffered; yields the
+        folded ``(host carry, batches_done)``."""
+        k = self.k_inner
+        n_run = -(-int(n_batches) // k) * k
+        its = [sub.stream_plan(seed, n_batches, *extra, start=start,
+                               carry0=carry0 if d == 0 else None)
+               for d, sub in enumerate(self.subs)]
+
+        def launch(_):
+            steps = [next(it) for it in its]
+            return (self.read_launch([c for c, _ in steps]), steps[0][1])
+
+        def finish(item):
+            pending, done = item
+            return pending.finish(), done
+
+        yield from drain_double_buffered(launch, finish,
+                                         range(int(start), n_run, k))
+
+
 def cell_fused_driver(stats_fn, n_cells: int, batch_size: int, k_inner: int,
                       *, min_init: int, device, weighted: bool = False,
-                      mesh=None) -> CellFusedDriver:
+                      mesh=None, replicate=None):
     """A ``CellFusedDriver`` for one bucket (its graph is captured once,
-    at its first megabatch, and replayed for every megabatch and plan).
-    ``mesh`` is the JAX package's shot-axis sharding, not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: a fused bucket across devices is not ported yet (ROADMAP "
-            "queue A item 7); run it on one device")
-    return CellFusedDriver(stats_fn, n_cells, batch_size, k_inner, min_init,
-                           device, weighted=weighted)
+    at its first megabatch, and replayed for every megabatch and plan), or
+    with a ``ShotMesh`` a ``MeshCellFusedDriver`` whose device ``dev``
+    runs ``replicate(dev)`` (the bucket's stats function on that device's
+    replica of its state; ``stats_fn`` itself where ``replicate`` is
+    None)."""
+    if check_mesh(mesh) is None:
+        return CellFusedDriver(stats_fn, n_cells, batch_size, k_inner,
+                               min_init, device, weighted=weighted)
+    return MeshCellFusedDriver(
+        replicate or (lambda dev: stats_fn), n_cells, batch_size, k_inner,
+        min_init, mesh, weighted=weighted)
 
 
 class CapturedStep:

@@ -88,10 +88,12 @@ def stratified_wer(sim, strata, samples_per_stratum: int,
     from ..sim.common import (
         ShotBatcher,
         WeightedStats,
+        refuse_mesh,
         wer_single_shot_weighted,
     )
     from ..utils import telemetry
 
+    refuse_mesh(sim, "stratified estimation")
     if sim._fused_sampler:
         raise ValueError(
             "stratified estimation runs the default sampler's stream, not "

@@ -75,7 +75,9 @@ def eval_weighted_cells(sims, tilts, num_samples: int, *,
     rung tilted to its own channel runs the zero tilt).  With
     ``target_rse`` converged rungs' lanes go to the undecided ones;
     otherwise every rung runs the fixed budget.  ``checkpoint``: a
-    ``utils.checkpoint.SweepCheckpoint`` for per-cell cursors.  Returns one
+    ``utils.checkpoint.SweepCheckpoint`` for per-cell cursors.  ``mesh``
+    (a ``parallel.shots.ShotMesh``) shards the bucket's lane-batches over
+    its devices, the budget divided by its size.  Returns one
     dict per rung, ``{index, p, tilt, wer, wer_eb, sigma, ess, rse,
     stats}``, ready for ``fit_rare_distance``."""
     from ..sim.data_error import weighted_cells_program
@@ -143,7 +145,9 @@ def eval_rare_grid(code, decoder_class, p_list, num_samples: int, *,
     at the failure shell) or ``q_total`` (a scalar or one per rung), the
     ladder run as one weighted fused bucket (``eval_weighted_cells``).
     ``device`` is the engines' (the card unless the caller asks for the
-    CPU; the decoder class carries its own).  Returns the fit points."""
+    CPU; the decoder class carries its own); ``cells_kw`` go to
+    ``eval_weighted_cells`` (``mesh`` among them).  Returns the fit
+    points."""
     from ..sim.data_error import CodeSimulator_DataError
     from .tilt import auto_tilt, tilt_channel
 

@@ -36,11 +36,12 @@ from ..circuits.ir import fmt_float
 from ..decoders.bp_decoders import decode_device
 from ..ops.linalg import ParityOp, parity_apply
 from ..ops.prng import key_words, prng_key, split_key
-from ..parallel.shots import GeneratorInput, batch_generator
+from ..parallel.shots import GeneratorInput, batch_generator, check_mesh
 from ..utils.device import resolve_device
 from .common import (
     count_failures,
     decoder_key,
+    degrade_mesh,
     megabatch_driver,
     wer_per_cycle,
 )
@@ -206,7 +207,9 @@ def _swap_xz_inplace(code):
 class CodeSimulator_Circuit:
     """Reference ``CodeSimulator_Circuit`` surface (``src/Simulators.py:
     386-435``), plus ``seed``, ``batch_size``, ``scan_chunk`` (batches per
-    megabatch) and ``device``, on which both decoders must live.
+    megabatch) and ``device``, on which both decoders must live; ``mesh``
+    (a ``parallel.shots.ShotMesh``) shards the shots over its devices, a
+    replica of the engine on each (``sim.common.mesh_batch_stats``).
 
     Decoder 1 decodes each noisy round's corrected syndrome against [H | I]
     (a BP decoder), decoder 2 the final one against H.  ``eval_logical_type
@@ -220,7 +223,7 @@ class CodeSimulator_Circuit:
                  error_params=None, eval_logical_type="Z",
                  circuit_type="coloration", rand_scheduling_seed=0,
                  seed: int = 0, batch_size: int = 256, scan_chunk: int = 4,
-                 pz=None, device="cuda"):
+                 pz=None, device="cuda", mesh=None):
         if pz is not None:
             p = pz
         self.device = resolve_device(device)
@@ -249,6 +252,7 @@ class CodeSimulator_Circuit:
         self.batch_size = int(batch_size)
         self._scan_chunk = max(1, int(scan_chunk))
         self._base_key = prng_key(seed)
+        self._mesh = check_mesh(mesh)
         if circuit_type == "random":
             self.scheduling_X = RandomCircuit(code.hx)
             self.scheduling_Z = RandomCircuit(code.hz)
@@ -272,6 +276,7 @@ class CodeSimulator_Circuit:
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_dispatches = 0  # megabatches launched, every device's
         self.last_host_reads = 0
         self.last_graph = None  # the captured megabatch's cost, on the card
         self._drivers = {}
@@ -354,6 +359,11 @@ class CodeSimulator_Circuit:
         (``sim.common.count_failures``)."""
         self._ensure_circuit()
         return count_failures(self, num_samples, key)
+
+    def degrade_mesh(self) -> None:
+        """Replay this engine's mesh runs on one device from now on
+        (``sim.common.degrade_mesh``)."""
+        degrade_mesh(self)
 
     def _driver(self, chunk: int):
         """The megabatch driver of ``chunk`` batches per megabatch (its

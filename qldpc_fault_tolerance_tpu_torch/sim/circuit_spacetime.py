@@ -49,12 +49,13 @@ from ..circuits import (
 from ..decoders.bp_decoders import decode_device
 from ..ops.linalg import ParityOp
 from ..ops.prng import fold_in, key_words, prng_key, split_key
-from ..parallel.shots import GeneratorInput, batch_generator
+from ..parallel.shots import GeneratorInput, batch_generator, check_mesh
 from ..utils.device import resolve_device
 from .circuit import _swap_xz_inplace, build_memory_circuit
 from .common import (
     count_failures,
     decoder_key,
+    degrade_mesh,
     megabatch_driver,
     st_window_count,
     wer_per_cycle,
@@ -67,7 +68,8 @@ class CodeSimulator_Circuit_SpaceTime:
     """Reference ``CodeSimulator_Circuit_SpaceTime`` surface
     (``src/Simulators_SpaceTime.py:672-735``), plus ``seed``,
     ``batch_size``, ``scan_chunk`` (batches per megabatch) and ``device``,
-    on which both decoders must live.
+    on which both decoders must live; ``mesh`` shards the shots as the
+    circuit engine's does.
 
     ``decoder1_z`` decodes each window's ``num_rep * m`` detectors against
     ``circuit_graph["h1"]`` (a device BP decoder, ``ST_BP_Decoder_Circuit``),
@@ -82,7 +84,7 @@ class CodeSimulator_Circuit_SpaceTime:
                  num_rep=1, error_params=None, eval_logical_type="Z",
                  circuit_type="coloration", rand_scheduling_seed=0,
                  seed: int = 0, batch_size: int = 256, scan_chunk: int = 4,
-                 pz=None, device="cuda"):
+                 pz=None, device="cuda", mesh=None):
         if pz is not None:
             p = pz
         self.device = resolve_device(device)
@@ -109,6 +111,7 @@ class CodeSimulator_Circuit_SpaceTime:
         self.batch_size = int(batch_size)
         self._scan_chunk = max(1, int(scan_chunk))
         self._base_key = prng_key(seed)
+        self._mesh = check_mesh(mesh)
         if circuit_type == "random":
             self.scheduling_X = RandomCircuit(code.hx)
             self.scheduling_Z = RandomCircuit(code.hz)
@@ -133,6 +136,7 @@ class CodeSimulator_Circuit_SpaceTime:
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_dispatches = 0  # megabatches launched, every device's
         self.last_host_reads = 0
         self.last_graph = None  # the captured megabatch's cost, on the card
         self._drivers = {}
@@ -294,6 +298,11 @@ class CodeSimulator_Circuit_SpaceTime:
         (``sim.common.count_failures``)."""
         self._ensure_ready()
         return count_failures(self, num_samples, key)
+
+    def degrade_mesh(self) -> None:
+        """Replay this engine's mesh runs on one device from now on
+        (``sim.common.degrade_mesh``)."""
+        degrade_mesh(self)
 
     def _driver(self, chunk: int):
         """The megabatch driver of ``chunk`` batches per megabatch (its

@@ -12,13 +12,18 @@ Besides the serial run's helpers, the JAX package's two families of
     the lane's device cell index;
   * the weighted (importance-sampled) runs' (``check_tilt_probs`` to
     ``drive_weighted_run``): the carry gains the weight moments
-    ``(s1, s2, w1, w2)`` and ``WeightedStats`` holds them on the host.
+    ``(s1, s2, w1, w2)`` and ``WeightedStats`` holds them on the host;
+  * the shot mesh's (``replicate`` to ``degrade_mesh``): an engine built
+    with ``mesh=`` runs every mesh device's share of the shots on its own
+    replica of the engine (``mesh_batch_stats``), one captured megabatch
+    graph per device, and folds the devices' host reads.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import math
+import types
 
 import numpy as np
 import torch
@@ -26,8 +31,16 @@ import torch.utils._pytree as pytree
 
 from ..ops.linalg import gf2_matmul
 from ..ops.prng import key_words, split_key
-from ..parallel.shots import MegabatchDriver, count_min_driver
+from ..parallel.shots import (
+    MegabatchDriver,
+    cell_fused_driver,
+    check_mesh,
+    count_min_driver,
+    drain_double_buffered,
+    replay_fold,
+)
 from ..utils import diagnostics, telemetry
+from ..utils.device import canonical
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "dense_check_flags", "select_failures", "decoder_key",
@@ -37,13 +50,15 @@ __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "LTYPE_CODES", "CELL_LEAVES", "LaneDecoder", "lane_view",
            "stack_cell_states", "states_share_but_llr",
            "stack_from_overrides", "gather_lane_states", "FusedCellProgram",
+           "bucket_layout", "bucket_driver",
            "tags_json", "plan_lanes", "fused_cell_launch", "fused_cell_finish",
            "fused_cell_stream", "fused_cell_adaptive",
            "check_tilt_probs", "weight_moments", "weighted_unit",
            "WeightedStats",
            "wer_single_shot_weighted", "wer_per_cycle_weighted",
            "weighted_driver", "resumable_weighted_stream",
-           "drive_weighted_run"]
+           "drive_weighted_run", "replicate", "mesh_replica",
+           "mesh_batch_stats", "degrade_mesh", "refuse_mesh"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -141,10 +156,14 @@ def megabatch_driver(sim, chunk: int, program: tuple, stats_fn,
                      batch_input):
     """``sim``'s megabatch driver of ``chunk`` batches per megabatch over
     ``stats_fn``, kept in ``sim._drivers`` (its captured graphs with it) as
-    long as ``program``, what a batch bakes in, is unchanged."""
+    long as ``program``, what a batch bakes in, is unchanged.  A mesh
+    replica (``mesh_replica``) draws its slot's stream."""
     key = (chunk, *program)
     driver = sim._drivers.get(key)
     if driver is None:
+        slot = getattr(sim, "_mesh_slot", None)
+        if slot is not None:
+            batch_input = batch_input.on_slot(slot)
         driver = sim._drivers[key] = count_min_driver(
             stats_fn, sim.N, sim.device, chunk, batch_input)
     return driver
@@ -213,7 +232,17 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     counted (one more may have been launched), its host reads and its
     capture, and folds its min weight into ``min_logical_weight``; with
     diagnostics active, reports the counts to an enclosing sweep cell
-    (``utils.diagnostics.note_run``); returns ``(failures, shots run)``."""
+    (``utils.diagnostics.note_run``); returns ``(failures, shots run)``.
+    An engine with a mesh runs ``mesh_batch_stats`` instead (no
+    ``target_failures``, no cursor)."""
+    if getattr(sim, "_mesh", None) is not None:
+        if target_failures is not None:
+            raise ValueError(
+                "target_failures early stopping requires the single-device "
+                "path (no mesh)")
+        if key is None:
+            sim._base_key, key = split_key(sim._base_key)
+        return mesh_batch_stats(sim, num_samples, key, *extra)
     if key is None:
         sim._base_key, key = split_key(sim._base_key)
     batcher = ShotBatcher(num_samples, sim.batch_size)
@@ -241,6 +270,7 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
             if hit(failures):
                 break
     sim.last_megabatches = (done - start) // driver.k_inner
+    sim.last_dispatches = sim.last_megabatches
     sim.last_host_reads = driver.host_reads - reads
     sim.last_graph = driver.graph_stats
     sim.last_failures, sim.last_shots = failures, done * sim.batch_size
@@ -248,6 +278,208 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     if diagnostics.active():
         diagnostics.note_run(failures, sim.last_shots)
     return failures, sim.last_shots
+
+
+# ---------------------------------------------------------------------------
+# The shot mesh: an engine's replicas and its sharded shot loop
+# ---------------------------------------------------------------------------
+_PORT = __name__.split(".")[0]
+
+
+def replicate(obj, device, **fields):
+    """``obj`` with every tensor it reaches moved to ``device``: tensors
+    ``.to(device)``, ``torch.device`` values replaced, and tuples, lists,
+    dicts, named tuples and the port's own objects (its dataclasses too)
+    rebuilt where something inside them moved (bound methods follow their object;
+    what is shared stays shared).  What already lives on ``device`` is
+    returned as it is, so a replica on the object's own device shares its
+    state.  ``fields`` set attributes of the (always copied) top object,
+    whose own values under those names are not visited.  The mesh's one
+    copy path: engines (``mesh_replica``) and fused buckets' states."""
+    device = canonical(device)
+    memo: dict = {}
+
+    def moved_dict(x, skip=()):
+        return {k: v if k in skip else move(v) for k, v in vars(x).items()}
+
+    def move(x):
+        hit = memo.get(id(x))
+        if hit is not None:
+            return hit[1]
+        if isinstance(x, torch.Tensor):
+            out = x.to(device)
+        elif isinstance(x, torch.device):
+            out = x if canonical(x) == device else device
+        elif isinstance(x, types.MethodType):
+            self_ = move(x.__self__)
+            out = x if self_ is x.__self__ else types.MethodType(x.__func__,
+                                                                 self_)
+        elif isinstance(x, tuple) and hasattr(type(x), "_fields"):
+            items = [move(v) for v in x]
+            out = x if all(a is b for a, b in zip(items, x)) else \
+                type(x)(*items)
+        elif isinstance(x, (tuple, list)):
+            items = [move(v) for v in x]
+            out = x if all(a is b for a, b in zip(items, x)) else \
+                type(x)(items)
+        elif isinstance(x, dict):
+            items = {k: move(v) for k, v in x.items()}
+            out = x if all(items[k] is v for k, v in x.items()) else \
+                type(x)(items)
+        elif type(x).__module__.split(".")[0] == _PORT and (
+                hasattr(x, "__dict__") or hasattr(x, "__slots__")):
+            # held while its fields move, so a cycle back to it ends here
+            memo[id(x)] = (x, x)
+            if hasattr(x, "__dict__"):
+                items = moved_dict(x)
+                changed = any(items[k] is not v for k, v in vars(x).items())
+            else:
+                items = {k: move(getattr(x, k)) for k in x.__slots__}
+                changed = any(items[k] is not getattr(x, k) for k in items)
+            out = x
+            if changed:
+                out = copy.copy(x)
+                for k, v in items.items():
+                    object.__setattr__(out, k, v)
+        else:
+            out = x
+        memo[id(x)] = (x, out)
+        return out
+
+    if not fields:
+        return move(obj)
+    out = copy.copy(obj)
+    memo[id(obj)] = (obj, out)
+    for k, v in moved_dict(obj, skip=fields).items():
+        object.__setattr__(out, k, v)
+    for k, v in fields.items():
+        object.__setattr__(out, k, v)
+    return out
+
+
+# bookkeeping that changes run to run and is not what a replica copies
+_RUN_FIELDS = ("min_logical_weight", "_base_key", "_drivers",
+               "_mesh_replicas", "_mesh_lost")
+
+
+def _state_of(sim) -> list:
+    """What ``sim``'s state is made of: the object each attribute holds (a
+    reassigned decoder or a rebuilt graph changes it)."""
+    return [(k, v) for k, v in vars(sim).items()
+            if k not in _RUN_FIELDS and not k.startswith("last_")]
+
+
+def _same_state(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        ka == kb and va is vb for (ka, va), (kb, vb) in zip(a, b))
+
+
+def mesh_replica(sim, device, slot: int):
+    """Logical device ``slot``'s replica of ``sim`` on ``device``: its
+    state moved there (``replicate``; shared where it already lives
+    there), its own megabatch drivers and graphs, its batches drawn from
+    the slot's stream.  Kept on ``sim`` until its state changes."""
+    cache = sim.__dict__.setdefault("_mesh_replicas", {})
+    state = _state_of(sim)
+    hit = cache.get((device, slot))
+    if hit is not None and _same_state(hit[0], state):
+        return hit[1]
+    rep = replicate(sim, device, _drivers={}, _mesh=None, _mesh_slot=slot,
+                    _mesh_replicas={})
+    cache[(device, slot)] = (state, rep)
+    return rep
+
+
+def refuse_mesh(sim, what: str) -> None:
+    """Raise for a path the mesh does not shard (the JAX package's
+    refusals)."""
+    if getattr(sim, "_mesh", None) is not None:
+        raise ValueError(f"{what} requires the single-device path (no mesh)")
+
+
+def degrade_mesh(sim) -> None:
+    """The ``mesh_replan`` rung of the JAX package's engines, called
+    directly: from the next run on, ``sim``'s mesh runs replay the same
+    logical key streams in turn on the mesh's first device (counted in
+    telemetry's ``mesh.replans``).  Triggering it on a classified device
+    fault waits for the resilience ladder (ROADMAP queue A item 10)."""
+    if getattr(sim, "_mesh", None) is None or sim.__dict__.get("_mesh_lost"):
+        return
+    telemetry.count("mesh.replans")
+    sim._mesh_lost = True
+
+
+def _mesh_stream(drivers, seed, n_batches, extra):
+    """Every driver's megabatch stream in lockstep: each megabatch launched
+    on every device, then their reads, double-buffered.  Returns each
+    driver's last host carry."""
+    k = drivers[0].k_inner
+    n_run = -(-int(n_batches) // k) * k
+    its = [drv.stream(seed, n_batches, *extra) for drv in drivers]
+
+    def launch(_):
+        return [drv.read_launch(next(it)[0]) for drv, it in zip(drivers, its)]
+
+    def finish(pending):
+        return [p.finish() for p in pending]
+
+    last = None
+    for last in drain_double_buffered(launch, finish, range(0, n_run, k)):
+        pass
+    return last
+
+
+def mesh_batch_stats(sim, num_samples: int, key, *extra):
+    """The shot loop sharded over ``sim._mesh`` (the JAX package's
+    ``mesh_batch_stats``): ``ShotBatcher(num_samples, batch_size *
+    n_dev)``; logical device ``d`` runs batch ``i`` of the run as the
+    engine's one-batch unit under ``split(fold_in(key, i), n_dev)[d]``,
+    on its replica (``mesh_replica``), ``sim._scan_chunk`` batches per
+    captured megabatch, one host read a megabatch per device; the devices'
+    host carries fold with ``replay_fold``.  After ``degrade_mesh(sim)``
+    the same streams run in turn on the mesh's first device (the replay
+    runner) and fold the same way, so counts and min weight are the mesh
+    run's bit for bit.  ``progress`` has no cursor here (as in the JAX
+    package).  Records the run on ``sim`` (``last_mesh`` per device) and
+    returns ``(failures, shots run)``."""
+    mesh = sim._mesh
+    n = mesh.size
+    batcher = ShotBatcher(num_samples, sim.batch_size * n)
+    chunk = min(batcher.num_batches, sim._scan_chunk)
+    n_batches = -(-batcher.num_batches // chunk) * chunk
+    seed = key_words(key)
+    if sim.__dict__.get("_mesh_lost"):
+        # the replay runner: the n streams one after another on one device
+        home = mesh.devices[0]
+        drivers = [mesh_replica(sim, home, d)._driver(chunk)
+                   for d in range(n)]
+        reads = [drv.host_reads for drv in drivers]
+        hosts = [_mesh_stream([drv], seed, n_batches, extra)[0]
+                 for drv in drivers]
+        devices = [home] * n
+    else:
+        drivers = [mesh_replica(sim, dev, d)._driver(chunk)
+                   for d, dev in enumerate(mesh.devices)]
+        reads = [drv.host_reads for drv in drivers]
+        hosts = _mesh_stream(drivers, seed, n_batches, extra)
+        devices = list(mesh.devices)
+    failures, min_w = replay_fold(hosts)
+    megabatches = n_batches // chunk
+    sim.last_megabatches = megabatches
+    sim.last_dispatches = megabatches * n
+    sim.last_host_reads = sum(drv.host_reads - r
+                              for drv, r in zip(drivers, reads))
+    sim.last_graph = drivers[0].graph_stats
+    sim.last_mesh = [{"device": str(dev), "megabatches": megabatches,
+                      "host_reads": drv.host_reads - r,
+                      "graph": drv.graph_stats}
+                     for dev, drv, r in zip(devices, drivers, reads)]
+    sim.last_failures = int(failures)
+    sim.last_shots = n_batches * sim.batch_size * n
+    sim.min_logical_weight = min(sim.min_logical_weight, int(min_w))
+    if diagnostics.active():
+        diagnostics.note_run(sim.last_failures, sim.last_shots)
+    return sim.last_failures, sim.last_shots
 
 
 def st_round_counts(num_cycles: int, num_rep: int) -> tuple[int, int]:
@@ -441,8 +673,34 @@ class FusedCellProgram:
         return self._signature
 
     def release(self) -> None:
-        """Drop the bucket's captured graph (its memory with it)."""
-        self.driver._graphs.clear()
+        """Drop the bucket's captured graphs (their memory with them)."""
+        self.driver.release()
+
+
+def bucket_layout(rep, num_samples: int, mesh=None):
+    """The key, chunk and batch budget of each cell's serial run: the key
+    its first ``WordErrorRate`` splits from the shared seed, and
+    ``count_failures``'s chunk rounding.  A fused lane-batch runs on every
+    mesh device, so the budget divides by the mesh size, as the serial
+    mesh path's does."""
+    key = split_key(rep._base_key)[1]
+    n_dev = 1 if mesh is None else mesh.size
+    batcher = ShotBatcher(num_samples, rep.batch_size * n_dev)
+    chunk = min(batcher.num_batches, rep._scan_chunk)
+    return key, chunk, -(-batcher.num_batches // chunk) * chunk
+
+
+def bucket_driver(unit, rep, stacked, ltypes, chunk: int, mesh=None,
+                  weighted: bool = False):
+    """The ``CellFusedDriver`` of a bucket whose lane unit is ``unit(rep,
+    stacked, ltypes)`` (its representative engine, stacked states and
+    logical-type codes); on a ``mesh`` each device runs the unit on its
+    ``replicate`` of the three."""
+    return cell_fused_driver(
+        unit(rep, stacked, ltypes), len(ltypes), rep.batch_size, chunk,
+        min_init=rep.N, device=rep.device, weighted=weighted,
+        mesh=check_mesh(mesh),
+        replicate=lambda dev: unit(*replicate((rep, stacked, ltypes), dev)))
 
 
 def tags_json(cell_tags) -> list:

@@ -40,6 +40,12 @@ as one ``parallel.shots.CellFusedDriver`` program, each lane the serial
 batch unit on its cell's gathered state, so each cell's counts are its
 serial run's seed for seed.
 
+``mesh`` (a ``parallel.shots.ShotMesh``) shards the shots over its
+devices (``sim.common.mesh_batch_stats``), as the JAX engine's ``mesh``
+does: each device runs ``batch_size`` shots a batch on its own replica of
+the engine, the counts fold on the host.  A mesh takes no
+``target_failures`` and no weighted run, as in the JAX package.
+
 Batches fold through the megabatch driver (``parallel/shots.py``): the
 count and min weight stay device tensors, read by the host once per
 megabatch, double-buffered.  On the card every ``WordErrorRate`` path (the
@@ -73,7 +79,7 @@ from ..parallel.shots import (
     GeneratorInput,
     KeyInput,
     batch_generator,
-    cell_fused_driver,
+    check_mesh,
 )
 from ..utils.device import resolve_device
 from .common import (
@@ -82,14 +88,18 @@ from .common import (
     LaneDecoder,
     ShotBatcher,
     WeightedStats,
+    bucket_driver,
+    bucket_layout,
     check_tilt_probs,
     count_failures,
     decoder_key,
+    degrade_mesh,
     dense_check_flags,
     drive_weighted_run,
     gather_lane_states,
     lane_view,
     megabatch_driver,
+    refuse_mesh,
     resumable_weighted_stream,
     run_signature,
     select_failures,
@@ -126,7 +136,8 @@ class CodeSimulator_DataError:
     ``scan_chunk`` the batches per megabatch (one host read each when
     streaming); ``fused_sampler`` is False, True or ``"v2"``, ``packed``
     whether the default engine packs its planes (module docstring).  Both
-    decoders must live on ``device``.
+    decoders must live on ``device``; with a ``mesh`` the runs go to its
+    devices, each holding a replica (module docstring).
     """
 
     # v2 engines that ran as fused v1 because the card's fused kernel
@@ -137,7 +148,8 @@ class CodeSimulator_DataError:
                  pauli_error_probs=(0.01, 0.01, 0.01),
                  eval_logical_type="Total", seed: int = 0,
                  batch_size: int = 2048, scan_chunk: int = 8,
-                 fused_sampler=False, packed: bool = True, device="cuda"):
+                 fused_sampler=False, packed: bool = True, device="cuda",
+                 mesh=None):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -161,10 +173,12 @@ class CodeSimulator_DataError:
         self._fused_sampler = fused_sampler
         self._packed = bool(packed)
         self._base_key = prng_key(seed)
+        self._mesh = check_mesh(mesh)
         # failures and shots of the most recent WordErrorRate run
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_dispatches = 0  # megabatches launched, every device's
         self.last_host_reads = 0
         self.last_graph = None  # the captured megabatch's cost, on the card
         self._drivers = {}
@@ -373,6 +387,7 @@ class CodeSimulator_DataError:
         with the moments; ``target_rse`` stops once the weighted relative
         standard error reaches it.  Returns ``(wer, wer_eb)``; the
         ``WeightedStats`` lands on ``self.last_weighted``."""
+        refuse_mesh(self, "weighted estimation")
         if self._fused_sampler:
             raise ValueError(
                 "the fused sampler has its own PRNG stream; weighted "
@@ -407,6 +422,11 @@ class CodeSimulator_DataError:
         self.last_weighted = ws
         return wer_single_shot_weighted(ws, self.K)
 
+    def degrade_mesh(self) -> None:
+        """Replay this engine's mesh runs on one device from now on
+        (``sim.common.degrade_mesh``)."""
+        degrade_mesh(self)
+
     def _program(self) -> tuple:
         """What a captured batch bakes in besides its chunk."""
         return (self.batch_size, tuple(self.channel_probs),
@@ -440,16 +460,6 @@ def _check_rep_fusable(rep) -> None:
                 "cell fusion needs decoders with a device program")
 
 
-def _bucket_layout(rep, num_samples: int):
-    """The key, chunk and batch budget of each cell's serial run: the key
-    its first ``WordErrorRate`` splits from the shared seed, and
-    ``count_failures``'s chunk rounding."""
-    key = split_key(rep._base_key)[1]
-    batcher = ShotBatcher(num_samples, rep.batch_size)
-    chunk = min(batcher.num_batches, rep._scan_chunk)
-    return key, chunk, -(-batcher.num_batches // chunk) * chunk
-
-
 def _cell_key(sim) -> tuple:
     return (sim.batch_size, sim.N, sim.K, sim.decoder_x.device_static,
             sim.decoder_z.device_static, sim._packed, sim._fused_sampler,
@@ -481,15 +491,16 @@ def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
                            else stack_cell_states(cell_states))
     codes = [int(c) for c in ltype_codes]
     ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
-    key, chunk, n_batches = _bucket_layout(rep, num_samples)
+    key, chunk, n_batches = bucket_layout(rep, num_samples, mesh)
 
-    def stats(generator, cell):
-        view = rep._lane(gather_lane_states(stacked, spec, axes, cell))
-        cnt3, min_w = view._lane_stats(generator)
-        return cnt3.index_select(0, ltypes.index_select(0, cell))[0], min_w
+    def unit(r, st, lt):
+        def stats(generator, cell):
+            view = r._lane(gather_lane_states(st, spec, axes, cell))
+            cnt3, min_w = view._lane_stats(generator)
+            return cnt3.index_select(0, lt.index_select(0, cell))[0], min_w
+        return stats
 
-    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
-                               min_init=rep.N, device=rep.device, mesh=mesh)
+    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
     K = rep.K
     return FusedCellProgram(
         driver=driver, key=key_words(key), extras=(), n_batches=n_batches,
@@ -531,19 +542,21 @@ def weighted_cells_program(sims, tilts, num_samples: int, mesh=None):
         for s, t in zip(sims, tilts)])
     codes = [LTYPE_CODES[s.eval_logical_type] for s in sims]
     ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
-    key, chunk, n_batches = _bucket_layout(rep, num_samples)
+    key, chunk, n_batches = bucket_layout(rep, num_samples, mesh)
 
-    def stats(generator, cell):
-        state = gather_lane_states(stacked, spec, axes, cell)
-        cnt, min_w, s1, s2, w1, w2 = rep._lane(state)._weighted_batch(
-            generator, state["tilt"])
-        t = ltypes.index_select(0, cell)
-        return (cnt.index_select(0, t)[0], min_w, s1.index_select(0, t)[0],
-                s2.index_select(0, t)[0], w1, w2)
+    def unit(r, st, lt):
+        def stats(generator, cell):
+            state = gather_lane_states(st, spec, axes, cell)
+            cnt, min_w, s1, s2, w1, w2 = r._lane(state)._weighted_batch(
+                generator, state["tilt"])
+            t = lt.index_select(0, cell)
+            return (cnt.index_select(0, t)[0], min_w,
+                    s1.index_select(0, t)[0], s2.index_select(0, t)[0],
+                    w1, w2)
+        return stats
 
-    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
-                               min_init=rep.N, device=rep.device,
-                               weighted=True, mesh=mesh)
+    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh,
+                           weighted=True)
     cell_tags = [[float(p) for p in s.channel_probs] + [float(q) for q in t]
                  for s, t in zip(sims, tilts)]
 

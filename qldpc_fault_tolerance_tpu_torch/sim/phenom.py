@@ -29,6 +29,10 @@ so the JAX engine's failures are matched within binomial error; the
 pipeline itself is held exactly against the JAX engine's functions on
 injected errors (``_stats_from_errors``).
 
+``mesh`` shards the shots over a ``parallel.shots.ShotMesh``'s devices, as
+the data engine's does (``sim.common.mesh_batch_stats``); the phenom
+space-time engine inherits it.
+
 ``CodeSimulator_Phenon.WeightedWordErrorRate`` draws every round's data
 errors and syndrome flips from tilted rates and carries the per-shot log
 weight through the rounds (zero tilt: ``WordErrorRate``'s draws and counts
@@ -63,7 +67,7 @@ from ..ops.prng import key_words, prng_key, split_key
 from ..parallel.shots import (
     GeneratorInput,
     batch_generator,
-    cell_fused_driver,
+    check_mesh,
 )
 from ..utils.device import resolve_device
 from .common import (
@@ -72,14 +76,18 @@ from .common import (
     LaneDecoder,
     ShotBatcher,
     WeightedStats,
+    bucket_driver,
+    bucket_layout,
     check_tilt_probs,
     count_failures,
     decoder_key,
+    degrade_mesh,
     dense_check_flags,
     drive_weighted_run,
     gather_lane_states,
     lane_view,
     megabatch_driver,
+    refuse_mesh,
     resumable_weighted_stream,
     run_signature,
     select_failures,
@@ -118,7 +126,7 @@ class PhenomEngine:
                  pauli_error_probs=(0.01, 0.01, 0.01), q=0,
                  eval_logical_type="Total", seed: int = 0,
                  batch_size: int = 1024, scan_chunk: int = 4,
-                 packed: bool = True, device="cuda"):
+                 packed: bool = True, device="cuda", mesh=None):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -145,11 +153,13 @@ class PhenomEngine:
         self._scan_chunk = max(1, int(scan_chunk))
         self._packed = bool(packed)
         self._base_key = prng_key(seed)
+        self._mesh = check_mesh(mesh)
         self._mx, self._mz = code.hx.shape[0], code.hz.shape[0]
         # failures and shots of the most recent run
         self.last_failures = 0
         self.last_shots = 0
         self.last_megabatches = 0
+        self.last_dispatches = 0  # megabatches launched, every device's
         self.last_host_reads = 0
         self.last_graph = None  # the captured megabatch's cost, on the card
         self._drivers = {}
@@ -382,6 +392,11 @@ class PhenomEngine:
         return count_failures(self, num_samples, key, target_failures,
                               int(num_rounds), progress=progress)
 
+    def degrade_mesh(self) -> None:
+        """Replay this engine's mesh runs on one device from now on
+        (``sim.common.degrade_mesh``)."""
+        degrade_mesh(self)
+
     def _driver(self, chunk: int):
         """The megabatch driver of ``chunk`` batches per megabatch (its
         captured graphs, one per round count, with it)."""
@@ -405,7 +420,7 @@ class CodeSimulator_Phenon(PhenomEngine):
     the bare H.  ``q`` is the syndrome flip rate, ``seed`` makes the base
     key that each run splits, ``batch_size`` the shots per batch,
     ``scan_chunk`` the batches per megabatch.  All four decoders must live
-    on ``device``.
+    on ``device``; ``mesh`` shards the runs (module docstring).
     """
 
     def _window(self, draw, data_x, data_z, batch_size: int):
@@ -456,6 +471,7 @@ class CodeSimulator_Phenon(PhenomEngine):
         ``target_rse`` as the data engine's.  Returns ``(wer, wer_eb)``
         (``wer_per_cycle_weighted``); the ``WeightedStats`` lands on
         ``self.last_weighted``."""
+        refuse_mesh(self, "weighted estimation")
         if tilt_probs is None:
             tilt_probs = list(self.channel_probs)
         tilt = check_tilt_probs(tilt_probs, self.channel_probs)
@@ -517,18 +533,16 @@ def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
                            else stack_cell_states(cell_states))
     codes = [int(c) for c in ltype_codes]
     ltypes = torch.tensor(codes, dtype=torch.int64, device=rep.device)
-    key = split_key(rep._base_key)[1]
-    batcher = ShotBatcher(num_samples, rep.batch_size)
-    chunk = min(batcher.num_batches, rep._scan_chunk)
-    n_batches = -(-batcher.num_batches // chunk) * chunk
+    key, chunk, n_batches = bucket_layout(rep, num_samples, mesh)
 
-    def stats(generator, cell, rounds):
-        view = rep._lane(gather_lane_states(stacked, spec, axes, cell))
-        cnt3, min_w = view._batch_stats(generator, rounds)
-        return cnt3.index_select(0, ltypes.index_select(0, cell))[0], min_w
+    def unit(r, st, lt):
+        def stats(generator, cell, rounds):
+            view = r._lane(gather_lane_states(st, spec, axes, cell))
+            cnt3, min_w = view._batch_stats(generator, rounds)
+            return cnt3.index_select(0, lt.index_select(0, cell))[0], min_w
+        return stats
 
-    driver = cell_fused_driver(stats, len(codes), rep.batch_size, chunk,
-                               min_init=rep.N, device=rep.device, mesh=mesh)
+    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
     K = rep.K
     return FusedCellProgram(
         driver=driver, key=key_words(key), extras=(int(num_rounds),),

@@ -48,21 +48,23 @@ class CodeSimulator_Phenon_SpaceTime(PhenomEngine):
     decoder 2 decodes the bare H.  ``q`` is the syndrome flip rate, ``seed``
     makes the base key that each run splits, ``batch_size`` the shots per
     batch, ``scan_chunk`` the batches per megabatch.  All four decoders must
-    live on ``device``.
+    live on ``device``; ``mesh`` shards the runs over a
+    ``parallel.shots.ShotMesh``, as the phenom engine's does.
     """
 
     def __init__(self, code=None, decoder1_x=None, decoder1_z=None,
                  decoder2_x=None, decoder2_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01), q=0,
                  eval_logical_type="Total", num_rep: int = 1, seed: int = 0,
-                 batch_size: int = 512, scan_chunk: int = 4, device="cuda"):
+                 batch_size: int = 512, scan_chunk: int = 4, device="cuda",
+                 mesh=None):
         super().__init__(code=code, decoder1_x=decoder1_x,
                          decoder1_z=decoder1_z, decoder2_x=decoder2_x,
                          decoder2_z=decoder2_z,
                          pauli_error_probs=pauli_error_probs, q=q,
                          eval_logical_type=eval_logical_type, seed=seed,
                          batch_size=batch_size, scan_chunk=scan_chunk,
-                         device=device)
+                         device=device, mesh=mesh)
         self.num_rep = int(num_rep)
 
     def _window(self, draw, data_x, data_z, batch_size: int):

@@ -12,9 +12,13 @@ or True, ``sweep/fused.py``), as the JAX package's do: every p of a code
 in one program, one representative engine built a code and one graph
 captured a bucket, each cell's counts its serial run's seed for seed.
 ``fused=False``, circuit grids and buckets that cannot fuse run the
-serial loop, each (code, p) cell building its decoders and engine.  What
-the JAX package has and the port does not yet: a grid shared across
-processes (ROADMAP queue A item 7).
+serial loop, each (code, p) cell building its decoders and engine.
+
+``mesh`` (a ``parallel.shots.ShotMesh``) shards every cell's shots over its
+devices, on the fused path and in the serial loop, as the JAX package's
+``mesh`` does; ``shard_across_processes`` gives each process of a
+``torch.distributed`` group its round-robin share of the cells and merges
+the grid (``parallel/grid.py``).
 """
 from __future__ import annotations
 
@@ -114,19 +118,20 @@ def distance_grid(est_threshold: float) -> np.ndarray:
 
 class CodeFamily:
     """The reference class's constructor and methods, with the JAX
-    package's ``batch_size`` / ``seed`` engine knobs and ``device`` (the
-    engines' device, the card unless the caller asks for the CPU) in the
-    place of its ``mesh``."""
+    package's ``batch_size`` / ``seed`` / ``mesh`` engine knobs and
+    ``device`` (the engines' device, the card unless the caller asks for
+    the CPU; with a ``mesh`` the runs go to its devices)."""
 
     def __init__(self, code_list: list, decoder1_class: DecoderClass,
                  decoder2_class: DecoderClass, batch_size: int = 512,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
         self.code_list = code_list
         self.decoder1_class = decoder1_class
         self.decoder2_class = decoder2_class
         self.batch_size = int(batch_size)
         self.seed = int(seed)
         self.device = device
+        self.mesh = mesh  # the shot mesh every engine shards over
 
     # ------------------------------------------------------------------
     def _data_sim(self, code, eval_p, eval_logical_type):
@@ -139,6 +144,7 @@ class CodeFamily:
             pauli_error_probs=[p / 3, p / 3, p / 3],
             eval_logical_type=eval_logical_type,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
+            mesh=self.mesh,
         )
 
     def _data_wer(self, code, eval_p, eval_logical_type, num_samples,
@@ -167,6 +173,7 @@ class CodeFamily:
             pauli_error_probs=[p / 3, p / 3, p / 3], q=q,
             eval_logical_type=eval_logical_type,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
+            mesh=self.mesh,
         )
 
     def _phenl_wer(self, code, eval_p, eval_logical_type, num_samples,
@@ -182,7 +189,8 @@ class CodeFamily:
     # fused bucket builders (sweep/fused.py): one representative engine a
     # bucket; the other cells give only their p-dependent decoder state
     # through the factories' GetDecoderState
-    def _data_bucket_program(self, bucket, eval_logical_type, num_samples):
+    def _data_bucket_program(self, bucket, eval_logical_type, num_samples,
+                             mesh=None):
         from .fused import build_data_bucket
 
         _, _, code, p0 = bucket[0]
@@ -191,10 +199,10 @@ class CodeFamily:
             rep, bucket, self.decoder2_class,
             lambda p, sector: {"h": code.hz if sector == "x" else code.hx,
                                "p_data": p},
-            eval_logical_type, num_samples)
+            eval_logical_type, num_samples, mesh=mesh)
 
     def _phenl_bucket_program(self, bucket, eval_logical_type, num_samples,
-                              num_cycles):
+                              num_cycles, mesh=None):
         import torch
 
         from ..sim.common import (
@@ -243,12 +251,12 @@ class CodeFamily:
             over[("probs",)] = torch.stack(probs)
             over[("q",)] = torch.stack(qs)
             return CodeSimulator_Phenon.fused_cells_program_states(
-                rep, None, lt, tags, num_samples, num_cycles,
+                rep, None, lt, tags, num_samples, num_cycles, mesh=mesh,
                 prestacked=stack_from_overrides(base, over))
         states = [dict(zip(decs, ds), probs=pr, q=q) for pr, q, *ds in zip(
             probs, qs, *(cells[k] for k in decs))]
         return CodeSimulator_Phenon.fused_cells_program_states(
-            rep, states, lt, tags, num_samples, num_cycles)
+            rep, states, lt, tags, num_samples, num_cycles, mesh=mesh)
 
     def _circuit_wer(self, code, eval_p, eval_logical_type, num_samples,
                      num_cycles, data_synd_noise_ratio, circuit_type,
@@ -276,6 +284,7 @@ class CodeFamily:
                 eval_logical_type=logical_type, circuit_type=circuit_type,
                 rand_scheduling_seed=1, batch_size=self.batch_size,
                 seed=self.seed, device=self.device,
+                mesh=self.mesh,
             )
             sim._generate_circuit()
             return run_engine(
@@ -313,8 +322,11 @@ class CodeFamily:
         seed what the unbroken run gives (``CellProgress``).
         ``progress_every``: persist the cursor every that-many megabatches
         (0: no mid-cell resume).
-        ``shard_across_processes``: raises in a multi-process group
-        (``parallel/grid.py``; one process owns every cell).
+        ``shard_across_processes``: in a ``torch.distributed`` group each
+        process runs its round-robin share of the cells (in the serial
+        loop, as in the JAX package) and the grid merges across the
+        processes (``parallel/grid.py``); at world size 1 it changes
+        nothing.
         ``ledger``: the run ledger (``utils.diagnostics.RunLedger``): True
         = ``ledger/``, a path = that dir or .jsonl file, None = the
         ``QLDPC_LEDGER_DIR`` environment variable (unset: none).  With a
@@ -406,18 +418,18 @@ class CodeFamily:
                 from .fused import eval_cells_fused
 
                 if noise_model == "data":
-                    def builder(bucket):
+                    def builder(bucket, mesh):
                         return self._data_bucket_program(
-                            bucket, eval_logical_type, num_samples)
+                            bucket, eval_logical_type, num_samples, mesh)
                 else:
-                    def builder(bucket):
+                    def builder(bucket, mesh):
                         return self._phenl_bucket_program(
                             bucket, eval_logical_type, num_samples,
-                            num_cycles)
+                            num_cycles, mesh)
                 results, serial = eval_cells_fused(
                     serial, builder, cell_key_fn, checkpoint=checkpoint,
                     progress_every=progress_every,
-                    target_failures=target_failures)
+                    target_failures=target_failures, mesh=self.mesh)
                 for i, wer in results.items():
                     values[i] = wer
             run_serial_cells(

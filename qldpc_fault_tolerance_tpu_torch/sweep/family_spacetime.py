@@ -42,19 +42,21 @@ __all__ = ["CodeFamily_SpaceTime"]
 
 
 class CodeFamily_SpaceTime:
-    """The reference class's constructor and methods; ``device`` (the
-    card unless the caller asks for the CPU) in the place of the JAX
-    package's ``mesh``."""
+    """The reference class's constructor and methods, with the JAX
+    package's ``mesh`` (every engine shards its shots over it, as in
+    ``sweep/family.py``) and ``device`` (the card unless the caller asks
+    for the CPU)."""
 
     def __init__(self, code_list: list, decoder1_class: DecoderClass,
                  decoder2_class: DecoderClass, batch_size: int = 512,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
         self.code_list = code_list
         self.decoder1_class = decoder1_class
         self.decoder2_class = decoder2_class
         self.batch_size = int(batch_size)
         self.seed = int(seed)
         self.device = device
+        self.mesh = mesh  # the shot mesh every engine shards over
 
     # ------------------------------------------------------------------
     def EvalWER(self, noise_model: str, eval_logical_type: str,
@@ -145,10 +147,10 @@ class CodeFamily_SpaceTime:
                 from .fused import eval_cells_fused
 
                 results, serial = eval_cells_fused(
-                    serial, lambda bucket: self._data_bucket_program(
-                        bucket, eval_logical_type, num_samples),
+                    serial, lambda bucket, mesh: self._data_bucket_program(
+                        bucket, eval_logical_type, num_samples, mesh),
                     cell_key_fn, checkpoint=checkpoint,
-                    progress_every=progress_every)
+                    progress_every=progress_every, mesh=self.mesh)
                 for idx, wer in results.items():
                     flat_wer[idx] = wer
             run_serial_cells(
@@ -184,9 +186,11 @@ class CodeFamily_SpaceTime:
             pauli_error_probs=[p / 3, p / 3, p / 3],
             eval_logical_type=eval_logical_type,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
+            mesh=self.mesh,
         )
 
-    def _data_bucket_program(self, bucket, eval_logical_type, num_samples):
+    def _data_bucket_program(self, bucket, eval_logical_type, num_samples,
+                             mesh=None):
         """The fused data bucket (``sweep/fused.build_data_bucket``) with
         this family's decoder params."""
         from .fused import build_data_bucket
@@ -200,7 +204,7 @@ class CodeFamily_SpaceTime:
                     "channel_probs": p * np.ones(code.N)}
 
         return build_data_bucket(rep, bucket, self.decoder2_class, params,
-                                 eval_logical_type, num_samples)
+                                 eval_logical_type, num_samples, mesh=mesh)
 
     def _data_wer(self, code, eval_p, eval_logical_type, num_samples,
                   progress=None):
@@ -227,6 +231,7 @@ class CodeFamily_SpaceTime:
             pauli_error_probs=[p / 3, p / 3, p / 3], q=q,
             eval_logical_type=eval_logical_type, num_rep=num_rep,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
+            mesh=self.mesh,
         )
         return run_engine(sim, lambda s: s.WordErrorRate(
             num_cycles=num_cycles, num_samples=num_samples)[0])
@@ -245,6 +250,7 @@ class CodeFamily_SpaceTime:
             error_params=error_params, eval_logical_type=eval_logical_type,
             circuit_type=circuit_type, rand_scheduling_seed=1,
             batch_size=self.batch_size, seed=self.seed, device=self.device,
+            mesh=self.mesh,
         )
         sim._generate_circuit()
         sim._generate_circuit_graph()

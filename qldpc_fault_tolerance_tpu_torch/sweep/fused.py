@@ -21,9 +21,12 @@ read for the whole bucket, or one a megabatch when streaming.
     (``parallel.shots.drain_double_buffered``).
 
 Every cell draws its serial run's stream, so its counts are the serial
-loop's seed for seed.  A bucket that cannot fuse (a decoder without a
-device program, the fused sampler, statics that differ across its p) runs
-in the serial loop, counted in ``sweep.fused_fallback_cells``.
+loop's seed for seed.  With a ``mesh`` every bucket runs sharded over its
+devices (``parallel.shots.MeshCellFusedDriver``), each cell then the
+serial mesh run's seed for seed.  A bucket that cannot fuse (a decoder
+without a device program, the fused sampler, statics that differ across
+its p) runs in the serial loop, counted in
+``sweep.fused_fallback_cells``.
 """
 from __future__ import annotations
 
@@ -89,6 +92,13 @@ def build_data_bucket(rep, bucket, decoder_class, params_fn,
                                       mesh=mesh)
 
 
+def _devices(prog) -> list:
+    """The distinct CUDA devices a bucket's program runs on."""
+    driver = prog.driver
+    devs = getattr(driver, "devices", (driver.device,))
+    return [dev for dev in dict.fromkeys(devs) if dev.type == "cuda"]
+
+
 def _bucket_progress_key(cell_keys: list[dict]) -> dict:
     """Checkpoint key of a fused bucket's mid-run progress records: the
     first cell's identity plus the full p-list, so a changed remainder
@@ -120,21 +130,23 @@ def _record_cell(cell_key: dict, wer: float, failures: int,
 
 def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
                      checkpoint=None, progress_every: int = 1,
-                     target_failures=None):
+                     target_failures=None, mesh=None):
     """Run a sweep grid on the fused path.
 
     ``cells``: ``(index, ci, code, eval_p)`` in grid order; consecutive
-    cells of one ``ci`` form a bucket.  ``bucket_builder(bucket)``: the
-    bucket's ``sim.common.FusedCellProgram``; it raises ValueError when the
-    bucket cannot fuse.  ``cell_key_fn(index, ci, code, eval_p)``: the
-    cell's checkpoint key, the serial loop's.
+    cells of one ``ci`` form a bucket.  ``bucket_builder(bucket, mesh)``:
+    the bucket's ``sim.common.FusedCellProgram`` (sharded over ``mesh``, a
+    ``parallel.shots.ShotMesh``, when it is given); it raises ValueError
+    when the bucket cannot fuse.  ``cell_key_fn(index, ci, code,
+    eval_p)``: the cell's checkpoint key, the serial loop's.
 
     Returns ``(results, leftovers)``: ``{index: wer}`` for every cell that
     ran (or was checkpointed), and the cells of unfusable buckets for the
     caller's serial loop.  ``eval_cells_fused.buckets`` lists each fused
     bucket's run: its cells, megabatches, host reads, captured graphs and
     their nodes, build seconds, and on the card the peak device memory
-    allocated while it was built and launched."""
+    allocated while it was built and launched (``peak_gib``, the largest
+    of its devices', and per device in ``peak_gib_devices``)."""
     from ..parallel.shots import drain_double_buffered
     from ..sim import common as simc
     from ..utils import diagnostics, resilience, telemetry
@@ -167,15 +179,14 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
         """(bucket, program, run record), or None when it runs serially."""
         t0 = time.perf_counter()
         try:
-            prog = bucket_builder(bucket)
+            prog = bucket_builder(bucket, mesh)
         except ValueError as e:
             telemetry.count("sweep.fused_fallback_cells", len(bucket))
             telemetry.event("fused_fallback", reason=str(e),
                             cells=len(bucket))
             leftovers.extend(bucket)
             return None
-        dev = prog.driver.device
-        if dev.type == "cuda":
+        for dev in _devices(prog):
             torch.cuda.reset_peak_memory_stats(dev)
         telemetry.count("sweep.fused_buckets")
         prog.cell_keys = [cell_key_fn(*it) for it in bucket]
@@ -202,9 +213,11 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
         prog.release()
 
     def peak(run, prog):
-        dev = prog.driver.device
-        if dev.type == "cuda":
-            run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        gib = {str(dev): torch.cuda.max_memory_allocated(dev) / 2 ** 30
+               for dev in _devices(prog)}
+        if gib:
+            run["peak_gib"] = max(gib.values())
+            run["peak_gib_devices"] = gib
 
     if not streaming:
         def launch(bucket):

@@ -24,8 +24,8 @@ import threading
 import torch
 import torch.utils._pytree as pytree
 
-__all__ = ["resolve_device", "capturing", "graph_capture", "graph_nodes",
-           "device_cond", "host_value"]
+__all__ = ["resolve_device", "canonical", "capturing", "graph_capture",
+           "graph_nodes", "device_cond", "host_value"]
 
 _state = threading.local()
 # nesting depths whose body streams exist before a capture starts (the BP
@@ -40,6 +40,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def canonical(device) -> torch.device:
+    """``resolve_device(device)`` with a CUDA device's index filled in (the
+    current device for a bare ``"cuda"``), so equal devices compare
+    equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -155,8 +165,9 @@ def _if_node(rec: _Capture, pred: torch.Tensor, negate: bool, fn):
     lib = _lib()
     parent = torch.cuda.current_stream(rec.device)
     body = _body_stream(rec.device, rec.depth)
-    rc = lib.graph_if_begin(parent.cuda_stream, body.cuda_stream,
-                            pred.data_ptr(), int(negate))
+    with torch.cuda.device(rec.device):
+        rc = lib.graph_if_begin(parent.cuda_stream, body.cuda_stream,
+                                pred.data_ptr(), int(negate))
     if rc != 0:
         raise RuntimeError(f"conditional node capture failed with CUDA "
                            f"error {rc}")
@@ -178,7 +189,8 @@ def _if_node(rec: _Capture, pred: torch.Tensor, negate: bool, fn):
                                              rec.body_pool.id)
             torch._C._cuda_releasePool(rec.device.index, rec.body_pool.id)
         nodes = ctypes.c_ulonglong(0)
-        rc = lib.graph_if_end(body.cuda_stream, ctypes.byref(nodes))
+        with torch.cuda.device(rec.device):
+            rc = lib.graph_if_end(body.cuda_stream, ctypes.byref(nodes))
         rec.body_nodes += nodes.value
         if rc != 0:
             raise RuntimeError(f"conditional node capture failed with CUDA "

@@ -11,6 +11,11 @@ registry only:
     (``QLDPC_TELEMETRY_JSONL`` or ``enable(path)``) and an in-memory list;
   * ``session`` for one enabled region.
 
+Counters the port's modules keep include ``driver.early_stops``,
+``sweep.*`` (cells, fused buckets and fallbacks, reallocated shots) and
+``mesh.replans`` (a mesh run or fused bucket switched to its one-device
+replay by ``degrade_mesh()``).
+
 Everything is behind one enable switch and costs nothing when disabled:
 every hot-path helper (``count`` / ``span`` / ``event``) starts with a
 single module-global boolean check.

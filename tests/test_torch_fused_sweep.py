@@ -26,7 +26,10 @@ from qldpc_fault_tolerance_tpu.sim import common as jsimc
 from qldpc_fault_tolerance_tpu_torch import decoders as tdec
 from qldpc_fault_tolerance_tpu_torch import sweep as tsweep
 from qldpc_fault_tolerance_tpu_torch.codes import hgp, rep_code, ring_code
-from qldpc_fault_tolerance_tpu_torch.parallel.shots import cell_fused_driver
+from qldpc_fault_tolerance_tpu_torch.parallel.shots import (
+    cell_fused_driver,
+    shot_mesh,
+)
 from qldpc_fault_tolerance_tpu_torch.sim import (
     CodeSimulator_DataError,
     CodeSimulator_Phenon,
@@ -327,9 +330,12 @@ def test_programs_refuse_what_cannot_fuse():
         batch_size=64, fused_sampler=True, device="cpu")] * 2
     with pytest.raises(ValueError, match="fused sampler"):
         CodeSimulator_DataError.fused_cells_program(fused, 128)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(TypeError, match="mesh"):
         cell_fused_driver(lambda *a: a, 2, 64, 1, min_init=9, device="cpu",
                           mesh=object())
+    driver = cell_fused_driver(lambda *a: a, 2, 64, 1, min_init=9,
+                               device="cpu", mesh=shot_mesh(["cpu"] * 2))
+    assert [sub.slots for sub in driver.subs] == [(0,), (1,)]
 
 
 def test_fused_cells_reach_the_run_ledger(tmp_path):

@@ -379,13 +379,14 @@ def test_circuit_x_keeps_the_swap_warning_and_total_sums_two_runs():
     assert len(calls) == 2 and wer[0, 0] == calls[0] + calls[1]
 
 
-def test_a_grid_across_processes_raises_in_a_group(monkeypatch):
+def test_a_grid_across_processes_is_round_robin_in_a_group(monkeypatch):
     from qldpc_fault_tolerance_tpu_torch.parallel import grid
 
     assert grid.process_cell_owner(3).all()
     monkeypatch.setattr(grid, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        grid.process_cell_owner(3)
+    for me, want in ((0, [True, False, True]), (1, [False, True, False])):
+        monkeypatch.setattr(grid, "rank", lambda me=me: me)
+        assert grid.process_cell_owner(3).tolist() == want
 
 
 def test_cells_reach_telemetry_sinks_with_their_intervals(tmp_path):
