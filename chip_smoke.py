@@ -283,6 +283,35 @@ Phases (any failure raises and the script exits non-zero):
      CodeFamily.EvalWER(shard_across_processes=True) on GRID44_P of
      hgp_34_n225; each ran only its own cells and the merged grid equals
      the single-process grid; each worker has a timeout
+ 45. decode-as-a-service on the card (serve/): sessions n625_a/b/c
+     (hgp_34_n625 hx, BP-50 min-sum, p_data SERVE_FAMILY_P: one bucket
+     family, so their rounds fuse), n225 (hgp_34_n225, BP-50) and n625_osd
+     (BP-50 + OSD-E order 10, p 0.05) on the bucket ladder 32-4096, every
+     bucket captured before serving (ContinuousBatcher.warm: each session's
+     ladder, the family's fused lanes 2-3 to max_batch_shots 4096), the
+     captures counted and timed; a TCP server and four pipelined tenant
+     clients (three on the packed codec, one on JSON) send SERVE_REQUESTS
+     requests of 32-1024 shots (sizes and syndromes from the seed, errors
+     at each session's p); gates: every request answered once with its
+     dispatched round's rows, every round equal to the offline
+     decode_device of the same rows padded into the same buckets, fused
+     dispatches > 0 and a 3-lane fused round equal to each member's
+     program, no capture during the storm, one host read a dispatch (no
+     tier read), and the bf16 head, kernel 1 and kernel 2 launched from
+     the served path; printed: requests/s, served shots/s, latency p50 and
+     p99, dispatches, rounds, padded fraction, fused dispatches and
+     fallbacks, the dispatcher's replay time per session, graph nodes per
+     bucket, capture seconds, peak memory, and how many shots of each
+     session differ when the same rows are regrouped in reverse order;
+     then SERVE_V2_REQUESTS requests with all four tenants on the packed
+     codec (the JSON tenant's cost), every round bit-exact
+ 46. recovery: a second storm with an injected transient fault at the
+     serve_dispatch and serve_fused_dispatch sites, a device_restart
+     enactment (reset_device_state) and a heal of n225 from another
+     thread, under a fast retry policy and the HealthProbe; every request
+     answered once and bit-exact as in phase 45, every session healed and
+     its graphs recaptured, then a third storm on the recaptured graphs,
+     bit-exact; the ops plane's /metrics and /healthz answer
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -392,6 +421,21 @@ MESH43_SCALE = 4
 GRID44_P, GRID44_SHOTS = (0.02, 0.04, 0.06, 0.08), 2 * 2048
 # a worker of phase 44 that has not finished by then is killed
 GRID44_TIMEOUT = 300
+# phases 45-46: the served storm.  Sessions n625_a/b/c (one bucket family,
+# so their rounds fuse), n225 and n625_osd; request sizes drawn in
+# SERVE_SIZES; the batcher's targets; every wait bounded by SERVE_TIMEOUT_S
+SERVE_FAMILY_P = (0.01, 0.013, 0.016)
+SERVE_N225_P = 0.01
+SERVE_OSD_P = 0.05
+SERVE_REQUESTS = 400
+SERVE_V2_REQUESTS = 200
+SERVE_RECOVERY_REQUESTS = 120
+SERVE_AFTER_REQUESTS = 40
+SERVE_SIZES = (32, 1024)
+SERVE_MAX_BATCH = 4096
+SERVE_MAX_WAIT_S = 0.002
+SERVE_TIMEOUT_S = 300
+SERVE_FUSED_ROWS = 1000
 
 
 _T0 = time.time()
@@ -1321,6 +1365,424 @@ def mesh_phases(ctx) -> dict:
     return {"42": launches42, "42 v2": launches42v, "43": launches43}
 
 
+def serve_phases(ctx) -> dict:
+    """Phases 45-46 (module docstring): a served request storm on the card
+    and its recovery.  ``ctx``: ``dev``, ``counted`` (the launch-count
+    wrapper) and ``code`` (hgp_34_n625).  Returns phase 45's launches."""
+    import contextlib
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BP_Decoder_Class,
+        BPOSD_Decoder_Class,
+        decode_device,
+    )
+    from qldpc_fault_tolerance_tpu_torch.decoders import bp_decoders
+    from qldpc_fault_tolerance_tpu_torch.serve import (
+        ContinuousBatcher,
+        DecodeClient,
+        DecodeSession,
+        HealthProbe,
+        start_ops_thread,
+        start_server_thread,
+    )
+    from qldpc_fault_tolerance_tpu_torch.utils import (
+        faultinject,
+        resilience,
+        telemetry,
+    )
+    from qldpc_fault_tolerance_tpu_torch.utils.device import device_cond
+
+    dev = ctx.dev
+    t_new = time.time()
+    hx625 = ctx.code.hx
+    hx225 = load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n225.npz")).hx
+    n625, n225 = hx625.shape[1], hx225.shape[1]
+    bp625 = BP_Decoder_Class(n625 / 50, "minimum_sum", 0.625, device=dev)
+    bp225 = BP_Decoder_Class(n225 / 50, "minimum_sum", 0.625, device=dev)
+    osd625 = BPOSD_Decoder_Class(n625 / 50, "minimum_sum", 0.625, "osd_e", 10,
+                                 device=dev)
+    specs = {f"n625_{k}": (bp625, hx625, p)
+             for k, p in zip("abc", SERVE_FAMILY_P)}
+    specs["n225"] = (bp225, hx225, SERVE_N225_P)
+    specs["n625_osd"] = (osd625, hx625, SERVE_OSD_P)
+    sessions = {name: DecodeSession(name, decoder_class=cls,
+                                    params={"h": h, "p_data": p})
+                for name, (cls, h, p) in specs.items()}
+
+    class Recorder(ContinuousBatcher):
+        """The batcher, recording each dispatched round (its session, rows
+        in dispatch order, buckets and corrections) and which round and
+        rows answered each request."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rec_lock = threading.Lock()
+            self.answered = {}
+            self.rounds = []
+
+        def _finish_batch(self, session_name, batch, out, *a, **kw):
+            with self.rec_lock:
+                lo = 0
+                for r in batch:
+                    self.answered.setdefault(r.request_id, []).append(
+                        (len(self.rounds), lo, lo + r.shots))
+                    lo += r.shots
+                self.rounds.append({
+                    "name": session_name,
+                    "lanes": kw.get("fused_lanes", 0),
+                    "rows": np.concatenate([r.syndromes for r in batch]),
+                    "buckets": tuple(out.buckets),
+                    "cor": np.array(out.corrections),
+                    "conv": (None if out.converged is None
+                             else np.array(out.converged)),
+                    "shots": out.shots, "padded": out.padded_shots,
+                    "timings": out.timings})
+            return super()._finish_batch(session_name, batch, out, *a, **kw)
+
+    bat = Recorder(sessions, max_batch_shots=SERVE_MAX_BATCH,
+                   max_wait_s=SERVE_MAX_WAIT_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    caps0 = telemetry.compile_stats()
+    t = time.time()
+    bat.warm()  # every session's ladder, the fused lanes to max_batch_shots
+    warm_s = time.time() - t
+    caps1 = telemetry.compile_stats()
+    group = bat._fused_group("n625_a")
+    if group is None:
+        raise AssertionError("phase 45: the n625 sessions form no fused group")
+    n_warm = caps1["cuda.graph_captures"] - caps0["cuda.graph_captures"]
+    nodes = {name: {b: p.nodes for (b, _s), p in sorted(s.programs().items())}
+             for name, s in sessions.items()}
+    log(f"[45] warmed {len(sessions)} sessions x {len(sessions['n225'].buckets)} "
+        f"buckets and the n625 family's fused lanes 2-3 in {warm_s:.1f} s: "
+        f"{n_warm} captures, "
+        f"{caps1['cuda.graph_captures.seconds'] - caps0['cuda.graph_captures.seconds']:.2f}"
+        f" s of capture; graph nodes per bucket {nodes}; fused "
+        f"{ {k: p.nodes for k, p in sorted(group.programs().items())} }; "
+        f"kernel variants "
+        f"{ {n: s.bucket_variants for n, s in sessions.items()} }")
+
+    rng = np.random.default_rng(SEED + 45)
+
+    h_t = {name: np.ascontiguousarray(h.T, np.float32)
+           for name, (_c, h, _p) in specs.items()}
+
+    def storm(n_requests, fault_plan=None, during=None,
+              codecs=(2, 2, 2, 1)):
+        """``n_requests`` requests over four pipelined tenant clients (on
+        ``codecs``: three packed, one JSON by default); returns (results
+        by request id, {id: (session, syndromes)}, wall seconds)."""
+        names = sorted(sessions)
+        reqs = []
+        for i in range(n_requests):
+            name = names[i % len(names)]
+            _cls, h, p = specs[name]
+            k = int(rng.integers(SERVE_SIZES[0], SERVE_SIZES[1] + 1))
+            err = (rng.random((k, h.shape[1])) < p).astype(np.float32)
+            # float32 BLAS: the sums stay exact far below 2**24
+            synd = (err @ h_t[name]).astype(np.int64) % 2
+            reqs.append((i % 4, name, synd.astype(np.uint8)))
+        clients = [DecodeClient(*handle.address, tenant=f"tenant{j}",
+                                codec=codecs[j], timeout=SERVE_TIMEOUT_S)
+                   for j in range(4)]
+        sent = {}
+        results = {}
+        errors = []
+
+        def drive(j):
+            futs = [(name, synd, clients[j].submit(name, synd))
+                    for tenant, name, synd in reqs if tenant == j]
+            for name, synd, fut in futs:
+                try:
+                    res = fut.result(timeout=SERVE_TIMEOUT_S)
+                except Exception as exc:  # noqa: BLE001 — gated below
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                    continue
+                sent[res.request_id] = (name, synd)
+                results[res.request_id] = res
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=drive, args=(j,)) for j in range(4)]
+        try:
+            with (faultinject.active_plan(fault_plan) if fault_plan
+                  else contextlib.nullcontext()):
+                for th in threads:
+                    th.start()
+                if during is not None:
+                    during()
+                for th in threads:
+                    th.join(timeout=SERVE_TIMEOUT_S)
+        finally:
+            wall = time.perf_counter() - t0
+            for cli in clients:
+                cli.close()
+        if errors or any(th.is_alive() for th in threads) \
+                or len(results) != n_requests:
+            raise AssertionError(f"storm: {len(results)} of {n_requests} "
+                                 f"answered; errors {errors[:5]}")
+        return results, sent, wall
+
+    def offline(name, rows, buckets):
+        """``decode_device`` of ``rows`` chunked past the top bucket, each
+        chunk padded into its bucket, eagerly."""
+        sess = sessions[name]
+        top = sess.buckets[-1]
+        out = []
+        for i, bucket in enumerate(buckets):
+            chunk = rows[i * top:(i + 1) * top]
+            pad = np.zeros((bucket, rows.shape[1]), np.uint8)
+            pad[:chunk.shape[0]] = chunk
+            cor, _aux = decode_device(sess.static, sess.state,
+                                      torch.from_numpy(pad).to(dev))
+            out.append(cor.cpu().numpy()[:chunk.shape[0]])
+        return np.concatenate(out)
+
+    def check_bitexact(results, sent, tag, first_round):
+        """Every answer is its round's rows, answered once, and every
+        round since ``first_round`` equals the offline ``decode_device``
+        of the same rows padded into the same buckets."""
+        for rid, res in results.items():
+            answered = bat.answered.get(rid, [])
+            if len(answered) != 1:
+                raise AssertionError(f"[{tag}] request {rid} answered "
+                                     f"{len(answered)} times")
+            i, lo, hi = answered[0]
+            rnd = bat.rounds[i]
+            if rnd["name"] != sent[rid][0] \
+                    or not np.array_equal(rnd["rows"][lo:hi], sent[rid][1]) \
+                    or not np.array_equal(rnd["cor"][lo:hi], res.corrections):
+                raise AssertionError(f"[{tag}] request {rid}: the answer is "
+                                     f"not its dispatched round's")
+        rounds = bat.rounds[first_round:]
+        for rnd in rounds:
+            got = offline(rnd["name"], rnd["rows"], rnd["buckets"])
+            if not np.array_equal(got, rnd["cor"]):
+                bad = int((got != rnd["cor"]).any(axis=1).sum())
+                raise AssertionError(
+                    f"[{tag}] {rnd['name']} round at buckets "
+                    f"{rnd['buckets']}: {bad} served shots differ from the "
+                    f"offline decode of the same padded rows")
+        return sum(r["shots"] for r in rounds), len(rounds)
+
+    def regrouped(first_round, names):
+        """Shots of sessions ``names`` whose served correction differs
+        from the offline decode of the same session's rows at the same
+        bucket regrouped in reverse order (other neighbours, other tier
+        counts), by session, with how many of them BP had not converged
+        (the OSD stage decided them)."""
+        groups = {}
+        for rnd in bat.rounds[first_round:]:
+            if len(rnd["buckets"]) == 1 and rnd["name"] in names:
+                groups.setdefault((rnd["name"], rnd["buckets"][0]),
+                                  []).append(rnd)
+        diff = {}
+        for (name, bucket), rnds in groups.items():
+            rows = np.concatenate([r["rows"] for r in rnds])[::-1]
+            want = np.concatenate([r["cor"] for r in rnds])[::-1]
+            conv = np.concatenate([r["conv"] for r in rnds])[::-1]
+            n_chunks = -(-rows.shape[0] // bucket)
+            got = np.concatenate([
+                offline(name, rows[i * bucket:(i + 1) * bucket], (bucket,))
+                for i in range(n_chunks)])
+            bad = (got != want).any(axis=1)
+            n_bad, n_osd = diff.get(name, (0, 0))
+            diff[name] = (n_bad + int(bad.sum()),
+                          n_osd + int((bad & ~conv).sum()))
+        return diff
+
+    def program_reads():
+        return (sum(s.host_reads for s in sessions.values())
+                + sum(p.host_reads for p in group.programs().values()))
+
+    # 45. the storm
+    handle = start_server_thread(bat)
+    reads0, tier0 = program_reads(), (decode_device.host_reads,
+                                      device_cond.host_reads)
+    fused0, rounds0 = bat.fused_dispatches, len(bat.rounds)
+    caps0 = telemetry.compile_stats()["cuda.graph_captures"]
+    compiles0 = sum(s.compiles for s in sessions.values()) + group.compiles
+    (results, sent, wall), launches45 = ctx.counted(
+        lambda: storm(SERVE_REQUESTS))
+    caps = telemetry.compile_stats()["cuda.graph_captures"] - caps0
+    compiles = (sum(s.compiles for s in sessions.values()) + group.compiles
+                - compiles0)
+    rounds = bat.rounds[rounds0:]
+    fused = bat.fused_dispatches - fused0
+    solo = sum(1 for r in rounds if not r["lanes"])
+    dispatches = solo + fused
+    # a round past the top bucket runs in chunks, a read each
+    want_reads = fused + sum(len(r["buckets"]) for r in rounds
+                             if not r["lanes"])
+    # device_decode: replay to host read, once per dispatch (a fused
+    # dispatch's lanes share one timings dict)
+    stage = {}
+    for r in rounds:
+        stage[id(r["timings"])] = r["timings"]
+    replay_s = sum(t["device_decode"] for t in stage.values())
+    pad_s = sum(t["pad"] + t["slice"] for t in stage.values())
+    by_session = {}
+    for r in rounds:
+        row = by_session.setdefault(r["name"], [0, 0, 0.0])
+        row[0] += 1
+        row[1] += r["shots"]
+        row[2] += r["timings"]["device_decode"] / max(1, r["lanes"])
+    reads = program_reads() - reads0
+    tier = (decode_device.host_reads - tier0[0],
+            device_cond.host_reads - tier0[1])
+    health = bat.health()
+    lat = np.sort([r.latency_s for r in results.values()])
+    shots = sum(r.corrections.shape[0] for r in results.values())
+    real = sum(r["shots"] for r in rounds)
+    padded = sum(r["padded"] for r in rounds)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[45] {SERVE_REQUESTS} requests ({shots} shots) from 4 tenants "
+        f"(codec 2 x3, JSON x1) in {wall:.3f} s: {SERVE_REQUESTS / wall:.1f} "
+        f"requests/s, {shots / wall:.1f} served shots/s, latency p50 "
+        f"{1e3 * lat[len(lat) // 2]:.2f} ms p99 "
+        f"{1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.2f} ms; "
+        f"{dispatches} dispatches ({fused} fused, {solo} per session; "
+        f"{len(rounds)} session rounds, "
+        f"{SERVE_REQUESTS / len(rounds):.2f} requests a round), fused "
+        f"fallbacks {health['fused']['fallbacks']}, padded fraction "
+        f"{1 - real / padded:.4f}; dispatcher time in replay + read "
+        f"{replay_s:.3f} s, pad + slice {pad_s:.3f} s; per session "
+        f"(rounds, shots, replay s, a fused dispatch's split over its "
+        f"lanes) { {k: (a, b, round(c, 3)) for k, (a, b, c) in sorted(by_session.items())} }"
+        f"; host reads "
+        f"{reads} (tier reads {tier}); "
+        f"captures during the storm {caps}; peak memory {peak:.2f} GiB; "
+        f"launches {launches45}")
+    checked, n_rounds = check_bitexact(results, sent, "45", rounds0)
+    log(f"[45] every answer is its round's, and every round == the offline "
+        f"decode_device of the same rows padded into the same buckets "
+        f"({checked} shots in {n_rounds} rounds); the same rows regrouped "
+        f"by session and bucket in reverse order: shots differing (of "
+        f"them BP-failed) "
+        f"{regrouped(rounds0, ('n625_a', 'n625_osd'))}")
+    if health["completed"] < SERVE_REQUESTS or health["failed"]:
+        raise AssertionError(f"phase 45 health {health}")
+    if fused <= 0:
+        raise AssertionError("phase 45: no fused dispatch")
+    if caps or compiles:
+        raise AssertionError(f"phase 45: {caps} captures ({compiles} "
+                             f"programs built) during the storm")
+    if reads != want_reads or (dev.type == "cuda" and tier != (0, 0)):
+        raise AssertionError(f"phase 45: {reads} host reads (tier reads "
+                             f"{tier}) for {dispatches} dispatches, "
+                             f"{want_reads} chunks")
+    for name in ("bp_minsum_bf16", "bp_minsum", "osd_elim"):
+        if launches45[name] <= 0:
+            raise AssertionError(f"phase 45: {name} never launched")
+    # fused == per session: one 3-lane round against each member's program
+    parts = [(i, (rng.random((SERVE_FUSED_ROWS, n625)) < p).astype(np.uint8)
+              @ hx625.T % 2) for i, p in enumerate(SERVE_FAMILY_P)]
+    parts = [(i, s.astype(np.uint8)) for i, s in parts]
+    outs = group.decode(parts)
+    for (i, synd), out in zip(parts, outs):
+        own = group.sessions[i].decode(synd)
+        if not np.array_equal(out.corrections, own.corrections) \
+                or not np.array_equal(out.converged, own.converged):
+            raise AssertionError(f"phase 45: fused lane {i} != "
+                                 f"{group.sessions[i].name}'s program")
+    log(f"[45] a 3-lane fused round of {SERVE_FUSED_ROWS} shots a lane == "
+        f"each member's own program")
+    # the same traffic without the JSON tenant: what its codec costs
+    rounds_v2 = len(bat.rounds)
+    results, sent, wall = storm(SERVE_V2_REQUESTS, codecs=(2, 2, 2, 2))
+    checked, _ = check_bitexact(results, sent, "45 v2", rounds_v2)
+    lat = np.sort([r.latency_s for r in results.values()])
+    replay_v2 = sum({id(r["timings"]): r["timings"]["device_decode"]
+                     for r in bat.rounds[rounds_v2:]}.values())
+    log(f"[45] {SERVE_V2_REQUESTS} requests ({checked} shots) from 4 "
+        f"tenants all on codec 2 in {wall:.3f} s: "
+        f"{SERVE_V2_REQUESTS / wall:.1f} requests/s, {checked / wall:.1f} "
+        f"served shots/s, latency p50 {1e3 * lat[len(lat) // 2]:.2f} ms "
+        f"p99 {1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.2f} ms; "
+        f"dispatcher time in replay + read {replay_v2:.3f} s; every "
+        f"round bit-exact; phase 45 took {time.time() - t_new:.1f} s")
+
+    # 46. recovery mid-storm: a heal, an injected transient fault, a
+    # device restart; the probe heals and recaptures in the background
+    t_new = time.time()
+    prev_policy = resilience.current_policy()
+    resilience.set_default_policy(resilience.RetryPolicy(
+        max_attempts=4, base_delay=0.01, max_delay=0.05, reset_caches=False,
+        seed=SEED))
+    probe = HealthProbe(bat, interval_s=0.1)
+    ops = start_ops_thread(bat, probe=probe)
+    epoch0 = resilience.device_epoch()
+    heals0 = {n: s.heals for n, s in sessions.items()}
+    caps0 = telemetry.compile_stats()["cuda.graph_captures"]
+    built0 = sum(s.compiles for s in sessions.values())
+    rounds46 = len(bat.rounds)
+    plan = faultinject.FaultPlan([
+        faultinject.Fault(site="serve_dispatch", kind="raise", after=1),
+        faultinject.Fault(site="serve_dispatch", kind="device_restart",
+                          after=3),
+        faultinject.Fault(site="serve_fused_dispatch", kind="raise",
+                          after=1)], seed=SEED)
+    healed = []
+
+    def heal_midway():
+        time.sleep(0.2)
+        healed.append(sessions["n225"].heal("phase46"))
+
+    telemetry.enable()
+    try:
+        results, sent, wall = storm(SERVE_RECOVERY_REQUESTS, plan,
+                                    during=heal_midway)
+        probe.stop()
+        probe.probe_once()  # what the loop left pending
+        metrics = urllib.request.urlopen(
+            f"http://{ops.address[0]}:{ops.address[1]}/metrics",
+            timeout=10).read().decode()
+        healthz = urllib.request.urlopen(
+            f"http://{ops.address[0]}:{ops.address[1]}/healthz",
+            timeout=10).status
+    finally:
+        probe.stop()
+        ops.stop()
+        telemetry.disable()
+        resilience.set_default_policy(prev_policy)
+    caps = telemetry.compile_stats()["cuda.graph_captures"] - caps0
+    built = sum(s.compiles for s in sessions.values()) - built0
+    heals = {n: s.heals - heals0[n] for n, s in sessions.items()}
+    fired = {s: plan.hits(s) for s in ("serve_dispatch",
+                                       "serve_fused_dispatch")}
+    checked, _ = check_bitexact(results, sent, "46", rounds46)
+    rounds_after = len(bat.rounds)
+    after, sent_after, _ = storm(SERVE_AFTER_REQUESTS)
+    checked_after, _ = check_bitexact(after, sent_after, "46 after",
+                                      rounds_after)
+    log(f"[46] {SERVE_RECOVERY_REQUESTS} requests in {wall:.3f} s across a "
+        f"heal of n225 ({healed}), an injected transient fault and a "
+        f"device_restart (site hits {fired}; device epoch "
+        f"{epoch0} -> {resilience.device_epoch()}): every request "
+        f"answered once, {checked} shots == the offline decode at their "
+        f"buckets; heals {heals}, {built} programs rebuilt, {caps} "
+        f"captures; then "
+        f"{SERVE_AFTER_REQUESTS} requests on the recaptured graphs, "
+        f"{checked_after} shots bit-exact; /metrics {len(metrics)} bytes, "
+        f"/healthz {healthz}")
+    if resilience.device_epoch() == epoch0 or built <= 0 \
+            or (dev.type == "cuda" and caps < built) \
+            or not all(heals.values()) or healthz != 200 \
+            or "qldpc_serve_requests" not in metrics:
+        raise AssertionError(f"phase 46: epoch {resilience.device_epoch()}, "
+                             f"{built} programs rebuilt, {caps} captures, "
+                             f"heals {heals}, /healthz {healthz}")
+    handle.stop(drain=True, timeout=SERVE_TIMEOUT_S)
+    log(f"phase 46 took {time.time() - t_new:.1f} s")
+    return launches45
+
+
 def main() -> int:
     import torch
 
@@ -1348,7 +1810,7 @@ def main() -> int:
 
 
 def run_phases(dem_job, cpu42_job) -> int:
-    """Phases 1-44 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-46 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
@@ -3615,18 +4077,24 @@ def run_phases(dem_job, cpu42_job) -> int:
         fit=fit39, rec=rec39, counted=counted, ledger_run=ledger_run,
         run5=run5, shots5=16 * 4096, cpu42=cpu42_job))
 
+    # 45-46. decode-as-a-service on the card
+    launches_45 = serve_phases(SimpleNamespace(dev=dev, code=code,
+                                               counted=counted))
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
-         "launches": launches_26["bp_minsum"], "max_abs_err": k1_err,
+         "launches": launches_26["bp_minsum"] + launches_45["bp_minsum"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "osd_elim", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:547",
-         "launches": launches_6["osd_elim"], "max_abs_err": float(k2_err),
+         "launches": launches_6["osd_elim"] + launches_45["osd_elim"],
+         "max_abs_err": float(k2_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "gf2_sample", "route": "cuda",
@@ -3690,7 +4158,9 @@ def run_phases(dem_job, cpu42_job) -> int:
         {"name": "bp_minsum_bf16", "route": "cuda",
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
-         "launches": launches_5["bp_minsum_bf16"], "max_abs_err": bf16_err,
+         "launches": (launches_5["bp_minsum_bf16"]
+                     + launches_45["bp_minsum_bf16"]),
+         "max_abs_err": bf16_err,
          "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
          "bound_by": bf16_by, "library_ms": None},
         # the v1 tag's route: the same kernel over a PallasHeadGraph

@@ -114,8 +114,11 @@ def decode_device(static, state, syndromes):
     ``"bposd_dev"`` (``("bposd_dev", bp_static, n, rank, order, elim,
     method)``, ``method`` ``"osd_e"`` or ``"osd_cs"``) runs OSD on the
     BP-failed shots only, gathered into a
-    fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch);
-    results never depend on the tier.  The tiers are ``device_cond``s, as
+    fixed-capacity sub-batch (tiers at B/16 and B/4, then the full batch).
+    On the CPU results never depend on the tier; on the card the OSD
+    scoring's float32 sums run at the tier's sub-batch size, and a cost
+    tie may break otherwise at another size, so the batch's failure count
+    can change a failed shot's answer.  The tiers are ``device_cond``s, as
     the JAX package's ``lax.cond``s: conditional nodes during a CUDA-graph
     capture, elsewhere chosen on the host from one read of the failure
     count, counted in ``decode_device.host_reads``.

@@ -228,15 +228,20 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     at their convergence iteration, and the tail redecodes stragglers from
     scratch — BP is deterministic, so iterations 1..head replay identically
     before continuing.  The tiers are (tail_capacity, 4x, progressive
-    deepened head, full batch); results never depend on the tier taken.
+    deepened head, full batch).  Without a head results never depend on
+    the tier taken; with one, the tier decides which kernel decodes a
+    straggler (below).
 
     ``head`` (a ``bp_kernel.SparseHeadGraph``, int8 with
     ``quantize="int8"``, else bf16; or a ``bp_kernel.PallasHeadGraph``, bf16)
     runs the head and the compacted tail in that head's kernel where the
     JAX package does (``head_engages``; the tail when its capacity has a
     tile, with early exit), at the JAX package's tiles.  Their results then
-    follow that head's numerics, and int8 results depend on the tile.  Everything else (no head, a failed
-    gate, head_iters >= max_iter, the full-batch decode) is float32 min-sum.
+    follow that head's numerics, and int8 results depend on the tile.
+    Everything else (no head, a failed gate, head_iters >= max_iter, a
+    tail tier with no tile, the full-batch decode) is float32 min-sum,
+    so with a head the batch's straggler count can change a straggler's
+    result.
 
     The tier ladder is a nest of ``device_cond``s, shaped like the JAX
     package's ``lax.cond``s: during a CUDA-graph capture it is conditional
@@ -360,3 +365,106 @@ def first_min_bp_decode(graph: TannerGraph, syndromes, channel_llr, *,
         cur = torch.where(active[None, :], new, cur)
         weight = torch.where(active, new_weight, weight)
     return corr.t(), weight
+
+
+class _LruCache:
+    """Tiny bounded, thread-safe memo with per-key single-flight builds:
+    the serve stack's session cache and the in-process graph cache
+    (``utils/progcache.py``) are hit from concurrent request paths, where
+    an unguarded ``OrderedDict`` mutation can corrupt the map or build the
+    same key twice.  Concurrent first requests for ONE key build it
+    exactly once (losers wait on the building thread); builds for DIFFERENT keys
+    overlap — the map lock is never held across ``make()``, so a
+    multi-code service cold start doesn't serialize seconds-long graph
+    builds behind each other.  ``make()`` must not recursively request
+    its own key (builds may consult OTHER caches freely)."""
+
+    def __init__(self, maxsize: int = 128):
+        import threading
+        from collections import OrderedDict
+
+        self._d = OrderedDict()
+        self._lock = threading.Lock()
+        self._building: dict = {}  # key -> Event set when the build lands
+        self._gen = 0  # bumped by clear(); stale in-flight builds don't cache
+        self.maxsize = maxsize
+        # optional (key, value) callback on LRU eviction — the serve-layer
+        # SessionCache counts/announces evicted sessions through it
+        self.on_evict = None
+
+    def get(self, key, make):
+        import threading
+
+        while True:
+            with self._lock:
+                try:
+                    self._d.move_to_end(key)
+                    return self._d[key]
+                except KeyError:
+                    pass
+                waiter = self._building.get(key)
+                if waiter is None:
+                    waiter = self._building[key] = threading.Event()
+                    gen = self._gen
+                    break  # this thread builds
+            # another thread is building this key: wait, then re-check (a
+            # failed build leaves the map empty and the loop retries here)
+            waiter.wait()
+        try:
+            val = make()
+        except BaseException:
+            with self._lock:
+                self._building.pop(key, None)
+            waiter.set()
+            raise
+        evicted = None
+        with self._lock:
+            # a clear() (reset_device_state) that landed mid-build
+            # invalidates this value: hand it to THIS caller (whose
+            # enclosing retry re-resolves anyway) but never cache it
+            if self._gen == gen:
+                self._d[key] = val
+                self._d.move_to_end(key)
+                if len(self._d) > self.maxsize:
+                    evicted = self._d.popitem(last=False)
+            self._building.pop(key, None)
+        waiter.set()
+        # the hook runs OUTSIDE the lock (the map lock is never held
+        # across user code): hook I/O must not stall concurrent lookups,
+        # and a hook touching this cache must not deadlock
+        if evicted is not None and self.on_evict is not None:
+            try:
+                self.on_evict(*evicted)
+            except Exception:  # a hook must not poison the memo
+                pass
+        return val
+
+    def peek(self, key):
+        """Existing entry (LRU-touched), or KeyError — never builds."""
+        with self._lock:
+            self._d.move_to_end(key)
+            return self._d[key]
+
+    def keys(self):
+        with self._lock:
+            return list(self._d)
+
+    def __len__(self):
+        with self._lock:
+            return len(self._d)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._d
+
+    def pop(self, key) -> bool:
+        """Drop one entry (no-op when absent).  An in-flight build of the
+        same key still lands afterwards — callers evicting for STALENESS
+        (not device death) must also bump whatever keyed the build."""
+        with self._lock:
+            return self._d.pop(key, None) is not None
+
+    def clear(self):
+        with self._lock:
+            self._d.clear()
+            self._gen += 1

@@ -383,6 +383,7 @@ def _capture_graph(dev, warmup, body, register=None):
     stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
              "instantiate_s": t3 - t2,
              "nodes": _device.graph_nodes(graph) + rec.body_nodes}
+    telemetry.note_capture(t3 - t0)
     return graph, outs, rec.body_pool, stats
 
 
