@@ -171,9 +171,10 @@ Phases (any failure raises and the script exits non-zero):
      counted); eval_p 0.02, 9 rounds, 2 batches of 2048; pinned
  31. anchors: p = q = 0 gives no failure; one phase-28 batch with every
      kernel replaced by its plain version, and with packed=False, gives the
-     kernel path's failures and min weight; so does one phase-30 batch
-     (kernel 1, the bf16 head and the elimination's transform mode at
-     phase 30's shapes) with every kernel replaced; fused_sampler="v2" on six
+     kernel path's failures and min weight; so does one phase-30 batch of
+     PHENOM31_ROUNDS rounds (kernel 1, the bf16 head and the elimination's
+     transform mode at phase 30's shapes: the rounds are depth, each
+     round's decodes the same) with every kernel replaced; fused_sampler="v2" on six
      copies of hgp_34_n625 (n = 3750, which the fused kernel cannot take)
      runs as fused v1, its fallback counted, with v1's failures
  32. main path, the phenomenological space-time engine (the JAX package's
@@ -312,6 +313,39 @@ Phases (any failure raises and the script exits non-zero):
      answered once and bit-exact as in phase 45, every session healed and
      its graphs recaptured, then a third storm on the recaptured graphs,
      bit-exact; the ops plane's /metrics and /healthz answer
+ 47. the fleet (serve/router.py LocalFleet, serve/fleet.py): phase 45's
+     sessions and bucket ladder on two in-process hosts, each host's
+     batcher warmed, FLEET_REQUESTS requests of 32-1024 shots from four
+     pipelined tenants through the router; a seeded host_kill at
+     fleet_host_tick (after FLEET_KILL_AFTER collected answers) kills the
+     owner of n625_osd's family, the gateway's deadman alone hands its
+     families off; gates: every request answered once (at most one round
+     on each host, the answer the survivor's where it has one), every
+     round of both hosts == the offline decode_device of its padded rows
+     on that host's state, serve.host_kills == 1, a replayed journal
+     answer == the original; printed: requests/s, served shots/s, p50 /
+     p99 before and after the kill, the handoff's gate-to-promote
+     seconds, captures after the kill, the first adopted answer's
+     latency, the dead host's released programs, device memory at the
+     kill and peaks before and after
+ 48. the fault path, each part with an injected fault: (a) the data
+     engine at p 0.01, FAULT48_BATCHES x 2048, with fused_sampler="v2"
+     and packed: a transient fault at wer.data outliving its one retry
+     steps the engine's one rung (fused_v2->fused_pallas, within 4
+     binomial sigma of the v2 run and equal to the fault-free fused v1
+     engine; packed->dense, bit for bit the packed run), and a second
+     fault outliving the retries raises from the exhausted ladder (no
+     rung leaves the card's kernels); (b) phase 42's mesh with
+     mesh_device_loss at mesh_dispatch: one mesh_replan, counts equal to
+     phase 42's run; (c) BP + OSD-E 10 at p 0.05 on 2048 shots: a
+     transient fault in the device OSD stage raises from decode_batch (no
+     host fallback); the same batch through the host C++ OSD
+     (device_osd=False) equals _osd_numpy on FAULT48_ORACLE_SHOTS shots
+     and the device OSD except float-tied candidates (at most
+     FAULT48_TIE_SHARE of the BP-failed shots), its ms a shot with the
+     CPU's model; (d) phase 34's circuit engine with decoder 2 on the
+     host OSD (device_osd=False) within 4 binomial sigma of phase 34's
+     run.  Every other phase steps no rung and replans no mesh.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -397,6 +431,11 @@ ST33_P = 0.005
 # decoder 1 leaves every shot of 11 rounds failed; at 0.01 about 38% fail,
 # so the pin still tells how well the path decodes
 PHENOM29_P = 0.01
+# the rounds of phase 31's phase-30 batch (phase 30 runs 9): each round
+# decodes the same shapes, so two (one decoder-1 round, the final decoder 2)
+# hold every kernel of the path against its plain version at a fraction of
+# the plain run's minutes
+PHENOM31_ROUNDS = 2
 # phases 4 and 14 hold the elimination's three modes at these shots: 256,
 # and the 512-shot straggler tier of phase 6's batches of 2048
 ELIM_SHOTS = (256, 512)
@@ -436,6 +475,19 @@ SERVE_MAX_BATCH = 4096
 SERVE_MAX_WAIT_S = 0.002
 SERVE_TIMEOUT_S = 300
 SERVE_FUSED_ROWS = 1000
+# phase 47: the fleet storm's requests, the chaos tick (collected answers)
+# at which the host_kill fires, the gateway's scrape interval and deadman
+# window on the card
+FLEET_REQUESTS = 200
+FLEET_KILL_AFTER = 60
+FLEET_INTERVAL_S, FLEET_DOWN_AFTER_S = 0.1, 1.0
+# phase 48: the data engine's ladder run (batches of 2048 at p 0.01, key
+# FAULT48_KEY), the host OSD's oracle shots, and the share of BP-failed
+# shots whose host (float64) and device (float32) OSD-E answers may differ
+# on a float-tied candidate
+FAULT48_KEY, FAULT48_BATCHES = (48, SEED), 4
+FAULT48_ORACLE_SHOTS = 16
+FAULT48_TIE_SHARE = 0.05
 
 
 _T0 = time.time()
@@ -533,6 +585,44 @@ print("RESULT" + json.dumps({
     "grid_s": t2 - t1}), flush=True)
 dist.destroy_process_group()
 """
+
+
+def no_rungs(tag: str) -> None:
+    """Fail if a degradation rung or a mesh replan (a ``mesh_replan`` rung)
+    happened since the last ``clear_rungs`` (a phase that injected no
+    fault must step none)."""
+    from qldpc_fault_tolerance_tpu_torch.utils.resilience import \
+        DegradationLadder
+
+    if DegradationLadder.taken:
+        raise AssertionError(
+            f"phase {tag} injected no fault but stepped rungs "
+            f"{dict(DegradationLadder.taken)}")
+
+
+def clear_rungs() -> dict:
+    """The rungs stepped since the last call, then zeroed."""
+    from qldpc_fault_tolerance_tpu_torch.utils.resilience import \
+        DegradationLadder
+
+    out = dict(DegradationLadder.taken)
+    DegradationLadder.taken.clear()
+    return out
+
+
+def cpu_model() -> str:
+    """The host CPU's model as ``lscpu`` names it (x86 and Arm alike), and
+    the machine's architecture."""
+    import platform
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.startswith("Model name")), "model not named")
+    except (OSError, subprocess.SubprocessError):
+        name = "lscpu failed"
+    return f"{name} ({platform.machine()})"
 
 
 def log(msg: str) -> None:
@@ -1362,7 +1452,47 @@ def mesh_phases(ctx) -> dict:
         + "; ".join(f"rank {i}: start {r['start_s']:.1f} s, grid "
                     f"{r['grid_s']:.2f} s" for i, r in enumerate(results)))
     log(f"phase 44 took {time.time() - t_new:.1f} s")
-    return {"42": launches42, "42 v2": launches42v, "43": launches43}
+    return {"42": launches42, "42 v2": launches42v, "43": launches43,
+            "got42": got42}
+
+
+def recording_batcher():
+    """``ContinuousBatcher`` recording each dispatched round (its session,
+    rows in dispatch order, buckets and corrections) and which round and
+    rows answered each request (phases 45-47)."""
+    import threading
+
+    import numpy as np
+
+    from qldpc_fault_tolerance_tpu_torch.serve import ContinuousBatcher
+
+    class Recorder(ContinuousBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rec_lock = threading.Lock()
+            self.answered = {}
+            self.rounds = []
+
+        def _finish_batch(self, session_name, batch, out, *a, **kw):
+            with self.rec_lock:
+                lo = 0
+                for r in batch:
+                    self.answered.setdefault(r.request_id, []).append(
+                        (len(self.rounds), lo, lo + r.shots))
+                    lo += r.shots
+                self.rounds.append({
+                    "name": session_name,
+                    "lanes": kw.get("fused_lanes", 0),
+                    "rows": np.concatenate([r.syndromes for r in batch]),
+                    "buckets": tuple(out.buckets),
+                    "cor": np.array(out.corrections),
+                    "conv": (None if out.converged is None
+                             else np.array(out.converged)),
+                    "shots": out.shots, "padded": out.padded_shots,
+                    "timings": out.timings})
+            return super()._finish_batch(session_name, batch, out, *a, **kw)
+
+    return Recorder
 
 
 def serve_phases(ctx) -> dict:
@@ -1415,35 +1545,7 @@ def serve_phases(ctx) -> dict:
                                     params={"h": h, "p_data": p})
                 for name, (cls, h, p) in specs.items()}
 
-    class Recorder(ContinuousBatcher):
-        """The batcher, recording each dispatched round (its session, rows
-        in dispatch order, buckets and corrections) and which round and
-        rows answered each request."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.rec_lock = threading.Lock()
-            self.answered = {}
-            self.rounds = []
-
-        def _finish_batch(self, session_name, batch, out, *a, **kw):
-            with self.rec_lock:
-                lo = 0
-                for r in batch:
-                    self.answered.setdefault(r.request_id, []).append(
-                        (len(self.rounds), lo, lo + r.shots))
-                    lo += r.shots
-                self.rounds.append({
-                    "name": session_name,
-                    "lanes": kw.get("fused_lanes", 0),
-                    "rows": np.concatenate([r.syndromes for r in batch]),
-                    "buckets": tuple(out.buckets),
-                    "cor": np.array(out.corrections),
-                    "conv": (None if out.converged is None
-                             else np.array(out.converged)),
-                    "shots": out.shots, "padded": out.padded_shots,
-                    "timings": out.timings})
-            return super()._finish_batch(session_name, batch, out, *a, **kw)
+    Recorder = recording_batcher()
 
     bat = Recorder(sessions, max_batch_shots=SERVE_MAX_BATCH,
                    max_wait_s=SERVE_MAX_WAIT_S)
@@ -1529,10 +1631,11 @@ def serve_phases(ctx) -> dict:
                                  f"answered; errors {errors[:5]}")
         return results, sent, wall
 
-    def offline(name, rows, buckets):
+    def offline(name, rows, buckets, sess=None):
         """``decode_device`` of ``rows`` chunked past the top bucket, each
-        chunk padded into its bucket, eagerly."""
-        sess = sessions[name]
+        chunk padded into its bucket, eagerly, with session ``name``'s
+        state (or ``sess``'s)."""
+        sess = sessions[name] if sess is None else sess
         top = sess.buckets[-1]
         out = []
         for i, bucket in enumerate(buckets):
@@ -1693,6 +1796,7 @@ def serve_phases(ctx) -> dict:
                                  f"{group.sessions[i].name}'s program")
     log(f"[45] a 3-lane fused round of {SERVE_FUSED_ROWS} shots a lane == "
         f"each member's own program")
+    no_rungs("45")
     # the same traffic without the JSON tenant: what its codec costs
     rounds_v2 = len(bat.rounds)
     results, sent, wall = storm(SERVE_V2_REQUESTS, codecs=(2, 2, 2, 2))
@@ -1779,8 +1883,556 @@ def serve_phases(ctx) -> dict:
                              f"{built} programs rebuilt, {caps} captures, "
                              f"heals {heals}, /healthz {healthz}")
     handle.stop(drain=True, timeout=SERVE_TIMEOUT_S)
+    log(f"[46] rungs stepped by the injected faults: {clear_rungs()}")
     log(f"phase 46 took {time.time() - t_new:.1f} s")
-    return launches45
+    return launches45, SimpleNamespace(Recorder=Recorder, specs=specs,
+                                       rng=rng, h_t=h_t, offline=offline)
+
+
+def fleet_phase(ctx, kit) -> dict:
+    """Phase 47 (module docstring): phase 45's sessions behind a two-host
+    ``LocalFleet`` on the card, a storm through its router and a seeded
+    ``host_kill`` of the host that owns n625_osd's family, handed off by
+    the gateway's deadman.  ``ctx``: ``dev``; ``kit``: phase 45's
+    recording batcher class, session specs, request generator and offline
+    decode.  Returns what it measured."""
+    import logging
+    import threading
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.serve import (
+        DecodeClient,
+        DecodeSession,
+        LocalFleet,
+    )
+    from qldpc_fault_tolerance_tpu_torch.serve import scheduler as sched
+    from qldpc_fault_tolerance_tpu_torch.serve.session import family_digest
+    from qldpc_fault_tolerance_tpu_torch.utils import (
+        faultinject,
+        resilience,
+        telemetry,
+    )
+
+    dev = ctx.dev
+    t_new = time.time()
+    specs, rng = kit.specs, kit.rng
+
+    def factory():
+        return {name: DecodeSession(name, decoder_class=cls,
+                                    params={"h": h, "p_data": p})
+                for name, (cls, h, p) in specs.items()}
+
+    def counter(name):
+        return telemetry.snapshot().get(name, {}).get("value", 0)
+
+    prev_policy = resilience.current_policy()
+    resilience.set_default_policy(resilience.RetryPolicy(
+        max_attempts=4, base_delay=0.01, max_delay=0.05, reset_caches=False,
+        seed=SEED))
+    telemetry.enable()
+    # a killed host's sockets die under writes in flight: asyncio warns
+    # once a write, which is the chaos working, not a fault
+    asyncio_log = logging.getLogger("asyncio")
+    asyncio_level = asyncio_log.level
+    asyncio_log.setLevel(logging.ERROR)
+    kills0 = counter("serve.host_kills")
+    caps0 = telemetry.compile_stats()
+    t = time.time()
+    # every host's batcher records its rounds (phase 45's recorder)
+    stopped = False
+    with mock.patch.object(sched, "ContinuousBatcher", kit.Recorder):
+        fleet = LocalFleet(factory, n_hosts=2, interval_s=FLEET_INTERVAL_S,
+                           down_after_s=FLEET_DOWN_AFTER_S, batcher_kwargs={
+                               "max_batch_shots": SERVE_MAX_BATCH,
+                               "max_wait_s": SERVE_MAX_WAIT_S})
+    try:
+        for label in fleet.labels:
+            fleet.batchers[label].warm()
+        caps1 = telemetry.compile_stats()
+        warm_s = time.time() - t
+        fam = f"fam-{family_digest(fleet.sessions['h0']['n625_osd'].family)}"
+        placement = fleet.router.placement()
+        victim, survivor = (placement[fam]["owner"],
+                            placement[fam]["successor"])
+        victim_fams = sorted(f for f, pl in placement.items()
+                             if pl["owner"] == victim)
+        victim_names = {n for f in victim_fams
+                        for n in fleet.router.families.get(f, [])}
+        log(f"[47] LocalFleet of 2 hosts on {dev}, phase 45's sessions and "
+            f"bucket ladder, built and warmed in {warm_s:.1f} s: "
+            f"{caps1['cuda.graph_captures'] - caps0['cuda.graph_captures']}"
+            f" captures, {caps1['cuda.graph_captures.seconds'] - caps0['cuda.graph_captures.seconds']:.2f}"
+            f" s; placement {placement}; the kill aims at {victim} (owner "
+            f"of n625_osd's family {fam})")
+        cuda = dev.type == "cuda"
+
+        def memory(fn):
+            return fn(dev) if cuda else 0
+
+        memory(torch.cuda.synchronize)
+        memory(torch.cuda.reset_peak_memory_stats)
+        kill = {}
+        orig_kill = fleet.kill
+
+        def timed_kill(label):
+            kill["peak_before"] = memory(torch.cuda.max_memory_allocated)
+            kill["alloc_before"] = memory(torch.cuda.memory_allocated)
+            kill["t"] = time.perf_counter()
+            kill["caps"] = telemetry.compile_stats()
+            out = orig_kill(label)
+            memory(torch.cuda.synchronize)
+            kill["alloc_after"] = memory(torch.cuda.memory_allocated)
+            memory(torch.cuda.reset_peak_memory_stats)
+            return out
+
+        fleet.kill = timed_kill
+        names = sorted(specs)
+        reqs = []
+        for i in range(FLEET_REQUESTS):
+            name = names[i % len(names)]
+            _cls, h, p = specs[name]
+            k = int(rng.integers(SERVE_SIZES[0], SERVE_SIZES[1] + 1))
+            err = (rng.random((k, h.shape[1])) < p).astype(np.float32)
+            synd = (err @ kit.h_t[name]).astype(np.int64) % 2
+            reqs.append((i % 4, name, synd.astype(np.uint8)))
+        clients = [DecodeClient(*fleet.address, tenant=f"tenant{j}", codec=2,
+                                reconnect=True, timeout=SERVE_TIMEOUT_S)
+                   for j in range(4)]
+        results, errors, lock = {}, [], threading.Lock()
+
+        def drive(j):
+            futs = [(name, synd, clients[j].submit(name, synd))
+                    for tenant, name, synd in reqs if tenant == j]
+            for name, synd, fut in futs:
+                try:
+                    res = fut.result(timeout=SERVE_TIMEOUT_S)
+                except Exception as exc:  # noqa: BLE001 — gated below
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                    continue
+                with lock:
+                    results[res.request_id] = (name, synd, res,
+                                               time.perf_counter())
+                fleet.chaos_tick()
+
+        plan = faultinject.FaultPlan([faultinject.Fault(
+            site="fleet_host_tick", kind="host_kill",
+            after=FLEET_KILL_AFTER, target=fam)], seed=SEED)
+        threads = [threading.Thread(target=drive, args=(j,))
+                   for j in range(4)]
+        t0 = time.perf_counter()
+        try:
+            with plan.active():
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=SERVE_TIMEOUT_S)
+        finally:
+            wall = time.perf_counter() - t0
+            for cli in clients:
+                cli.close()
+        caps2 = telemetry.compile_stats()
+        peak_after = memory(torch.cuda.max_memory_allocated)
+        if errors or any(th.is_alive() for th in threads) \
+                or len(results) != FLEET_REQUESTS or "t" not in kill:
+            raise AssertionError(f"phase 47: {len(results)} of "
+                                 f"{FLEET_REQUESTS} answered, kill "
+                                 f"{sorted(kill)}; errors {errors[:5]}")
+        kills = counter("serve.host_kills") - kills0
+        report = fleet.router.handoff_report()
+        if kills != 1 or fleet.router.down != {victim} \
+                or fam not in report or report[fam]["to"] != survivor:
+            raise AssertionError(f"phase 47: host kills {kills}, down "
+                                 f"{fleet.router.down}, handoffs {report}")
+        recs = {label: fleet.batchers[label] for label in fleet.labels}
+        # a replayed answer equals the original: an answer the survivor
+        # imported from the dead host's journal, asked again
+        with recs[survivor]._cv:
+            imported = [(key, res) for key, res
+                        in recs[survivor]._answered.items()
+                        if res.request_id in recs[victim].answered
+                        and res.request_id not in recs[survivor].answered]
+        if not imported:
+            raise AssertionError("phase 47: the survivor imported no entry "
+                                 "of the dead host's journal")
+        (tenant, sess_name, idem), entry = imported[0]
+        i, lo, hi = recs[victim].answered[entry.request_id][0]
+        original = recs[victim].rounds[i]["cor"][lo:hi]
+        width = fleet.sessions[survivor][sess_name].syndrome_width
+        again = recs[survivor].submit(
+            sess_name, np.zeros((1, width), np.uint8), tenant=tenant,
+            idem=idem).result(timeout=SERVE_TIMEOUT_S)
+        if not (np.array_equal(again.corrections, original) and
+                np.array_equal(entry.corrections, original)):
+            raise AssertionError("phase 47: a replayed answer differs from "
+                                 "the original")
+        # the checks below read only the recorded rounds and the sessions'
+        # states: stop the fleet first, so its replication threads do not
+        # contend for the interpreter
+        fleet.stop()
+        stopped = True
+        t_stopped = time.perf_counter()
+        # every accepted request answered once: on the survivor at most
+        # one round answered it, on the dead host at most one, and the
+        # client holds the survivor's answer where it has one (else the
+        # dead host's, served before the kill or replayed from its
+        # imported journal)
+        # a request resubmitted after the kill carries a fresh wire id (and
+        # its idempotency key): find each request's rounds by its rows
+        index = {}
+        for label, rec in recs.items():
+            for hits in rec.answered.values():
+                for i, lo, hi in hits:
+                    rnd = rec.rounds[i]
+                    key = (rnd["name"], rnd["rows"][lo:hi].tobytes())
+                    index.setdefault(key, {lb: [] for lb in recs})[
+                        label].append((i, lo, hi))
+        replayed, fresh_after = 0, []
+        for rid, (name, synd, res, done) in results.items():
+            hits = index.get((name, synd.tobytes()),
+                             {lb: [] for lb in recs})
+            if len(hits[survivor]) > 1 or len(hits[victim]) > 1 \
+                    or not (hits[survivor] or hits[victim]):
+                raise AssertionError(f"phase 47: request {rid} answered by "
+                                     f"rounds {hits}")
+            label = survivor if hits[survivor] else victim
+            i, lo, hi = hits[label][0]
+            rnd = recs[label].rounds[i]
+            if rnd["name"] != name or not np.array_equal(
+                    rnd["rows"][lo:hi], synd) or not np.array_equal(
+                    rnd["cor"][lo:hi], res.corrections):
+                raise AssertionError(f"phase 47: request {rid}'s answer is "
+                                     f"not its round's on {label}")
+            if label == victim and done > kill["t"]:
+                replayed += 1
+            if label == survivor and done > kill["t"] \
+                    and name in victim_names:
+                fresh_after.append((done, res.latency_s))
+        t_matched = time.perf_counter()
+        # every round of every host == the offline decode of its padded
+        # rows on that host's session state
+        n_rounds, n_shots = 0, 0
+        for label, rec in recs.items():
+            for rnd in rec.rounds:
+                got = kit.offline(rnd["name"], rnd["rows"], rnd["buckets"],
+                                  sess=fleet.sessions[label][rnd["name"]])
+                if not np.array_equal(got, rnd["cor"]):
+                    bad = int((got != rnd["cor"]).any(axis=1).sum())
+                    raise AssertionError(
+                        f"phase 47: {label} {rnd['name']} round at buckets "
+                        f"{rnd['buckets']}: {bad} served shots differ from "
+                        f"the offline decode of the same padded rows")
+                n_rounds += 1
+                n_shots += rnd["shots"]
+        t_checked = time.perf_counter()
+
+        before = [r.latency_s for (_n, _s, r, d) in results.values()
+                  if d <= kill["t"]]
+        after = [r.latency_s for (_n, _s, r, d) in results.values()
+                 if d > kill["t"]]
+        shots = sum(r.corrections.shape[0]
+                    for (_n, _s, r, _d) in results.values())
+        durs = fleet.router.handoff_durations()
+        first = min(fresh_after)[1] if fresh_after else float("nan")
+
+        def pct(v, q):
+            v = np.sort(v)
+            return 1e3 * v[min(len(v) - 1, int(q * len(v)))] if len(v) \
+                else float("nan")
+
+        out = {"req_s": FLEET_REQUESTS / wall, "shots_s": shots / wall,
+               "handoff_s": durs, "kills": kills}
+        log(f"[47] {FLEET_REQUESTS} requests ({shots} shots) from 4 "
+            f"pipelined tenants through the router in {wall:.3f} s: "
+            f"{out['req_s']:.1f} requests/s, {out['shots_s']:.1f} served "
+            f"shots/s; latency before the kill p50 {pct(before, 0.5):.2f} "
+            f"ms p99 {pct(before, 0.99):.2f} ms ({len(before)} requests), "
+            f"after p50 {pct(after, 0.5):.2f} ms p99 {pct(after, 0.99):.2f}"
+            f" ms ({len(after)}); host_kill of {victim} at "
+            f"{kill['t'] - t0:.3f} s into the storm (serve.host_kills "
+            f"{kills}), handed off by the deadman: families {victim_fams} "
+            f"-> {survivor}, gate to promote {[round(d, 4) for d in durs]} "
+            f"s; captures from the kill to the storm's end "
+            f"{caps2['cuda.graph_captures'] - kill['caps']['cuda.graph_captures']}"
+            f" ({caps2['cuda.graph_captures.seconds'] - kill['caps']['cuda.graph_captures.seconds']:.3f}"
+            f" s); the first adopted answer's latency {1e3 * first:.2f} ms; "
+            f"{fleet.released.get(victim, 0)} programs released with the "
+            f"dead host; device memory allocated {kill['alloc_before'] / 2**30:.2f}"
+            f" -> {kill['alloc_after'] / 2**30:.2f} GiB at the kill, peak "
+            f"before {kill['peak_before'] / 2**30:.2f} GiB, after "
+            f"{peak_after / 2**30:.2f} GiB; answers replayed from the "
+            f"imported journal or served before the kill "
+            f"{replayed}; every request answered once, every round of both "
+            f"hosts ({n_rounds} rounds, {n_shots} shots) == the offline "
+            f"decode of its padded rows; a replayed answer == the original "
+            f"(checks after the fleet stopped: matching "
+            f"{t_matched - t_stopped:.1f} s, offline decodes "
+            f"{t_checked - t_matched:.1f} s)")
+    finally:
+        if not stopped:
+            fleet.stop()
+        telemetry.disable()
+        resilience.set_default_policy(prev_policy)
+        asyncio_log.setLevel(asyncio_level)
+    taken = clear_rungs()
+    if "mesh_replan" in taken or any("->" in k for k in taken):
+        raise AssertionError(f"phase 47 stepped engine rungs {taken}")
+    log(f"phase 47 took {time.time() - t_new:.1f} s (rungs {taken})")
+    return out
+
+
+def fault_phases(ctx) -> dict:
+    """Phase 48 (module docstring): the fault path on the card.  ``ctx``:
+    ``dev``, ``code`` (hgp_34_n625), phase 42's uninterrupted mesh run
+    (``got42``), ``circuit_sim`` (phase 34's engine factory), phase 34's
+    run and the BP + OSD-E 10 host decoder class.  Returns what it
+    measured."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BPDecoder,
+        BPOSD_Decoder,
+    )
+    from qldpc_fault_tolerance_tpu_torch.decoders import osd as tosd
+    from qldpc_fault_tolerance_tpu_torch.parallel import shot_mesh
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+    from qldpc_fault_tolerance_tpu_torch.utils import (
+        faultinject,
+        resilience,
+        telemetry,
+    )
+
+    dev, code = ctx.dev, ctx.code
+    n = code.N
+    t_new = time.time()
+    out = {}
+
+    def within(a, b, shots_a, shots_b, k=4.0):
+        fa, fb = a / shots_a, b / shots_b
+        sigma = (fa * (1 - fa) / shots_a + fb * (1 - fb) / shots_b) ** 0.5
+        return abs(fa - fb) <= k * sigma, abs(fa - fb), k * sigma
+
+    # (a) the data engine's ladder: fused v2 and packed at p 0.01; one
+    # injected transient fault outliving its one retry's budget
+    # (degrade_after 1) steps the engine's one rung, then a fault outliving
+    # both attempts finds the ladder exhausted and raises
+    p, shots = 0.01, FAULT48_BATCHES * 2048
+    probs = np.full(n, 2 * p / 3)
+
+    def data_sim(fused):
+        return CodeSimulator_DataError(
+            code=code, decoder_x=BPDecoder(code.hz, probs, 50, device=dev),
+            decoder_z=BPDecoder(code.hx, probs, 50, device=dev),
+            pauli_error_probs=[p / 3] * 3, seed=SEED, batch_size=2048,
+            scan_chunk=FAULT48_BATCHES, fused_sampler=fused, device=dev)
+
+    def wer_run(sim):
+        sim.min_logical_weight = sim.N
+        sim.WordErrorRate(shots, key=FAULT48_KEY)
+        return sim.last_failures, sim.min_logical_weight
+
+    ref = {tag: wer_run(data_sim(fused))
+           for tag, fused in (("v2", "v2"), ("v1", True), ("packed", False))}
+    no_rungs("48 (a) references")
+    policy = resilience.RetryPolicy(max_attempts=2, base_delay=0.0,
+                                    jitter=0.0, reset_caches=False,
+                                    degrade_after=1)
+
+    def faulted(sim, count):
+        plan = faultinject.FaultPlan([faultinject.Fault(
+            site="wer.data", kind="raise", count=count)], seed=SEED)
+        with resilience.policy_override(policy), plan.active():
+            return wer_run(sim), plan.hits("wer.data")
+
+    # (engine, its rung, the fault-free engine it must equal bit for bit,
+    # the engine above it, whether JAX promises the step bit-exact)
+    expect = [("v2", "fused_v2->fused_pallas", "v1", "v2", False),
+              (False, "packed->dense", "packed", "packed", True)]
+    steps = []
+    for fused, rung, same_as, above, exact in expect:
+        sim = data_sim(fused)
+        t = time.time()
+        got, hits = faulted(sim, 1)
+        dt = time.time() - t
+        taken = clear_rungs()
+        if taken != {rung: 1} or hits != 2:
+            raise AssertionError(f"phase 48 (a): expected {rung}, stepped "
+                                 f"{taken} (site hits {hits})")
+        ok, diff, bound = within(got[0], ref[above][0], shots, shots)
+        if exact and got != ref[above]:
+            raise AssertionError(f"phase 48 (a) {rung}: {got} != the rung "
+                                 f"above's {ref[above]}")
+        if not ok or got != ref[same_as]:
+            raise AssertionError(f"phase 48 (a) {rung}: {got} vs above "
+                                 f"{ref[above]} (|diff| {diff:.3e}, 4 sigma "
+                                 f"{bound:.3e}), its engine {ref[same_as]}")
+        try:
+            faulted(sim, 2)
+        except faultinject.InjectedFault as exc:
+            raised = type(exc).__name__
+        else:
+            raise AssertionError(f"phase 48 (a): a fault past {rung} did "
+                                 f"not raise")
+        taken = clear_rungs()
+        if taken:
+            raise AssertionError(f"phase 48 (a): past {rung} the exhausted "
+                                 f"ladder stepped {taken}")
+        steps.append((rung, got, dt))
+        log(f"[48a] fused_sampler={fused!r}: an injected transient fault at "
+            f"wer.data -> rung {rung}: (failures, min_w) {got} in {dt:.2f} "
+            f"s; the rung above {ref[above]} "
+            f"({'bit-exact' if exact else 'within 4 sigma'}"
+            f"{'' if exact else f': |diff| {diff:.3e} <= {bound:.3e}'}); "
+            f"== the fault-free {same_as} engine; a second fault outliving "
+            f"both attempts raised {raised} from the exhausted ladder, no "
+            f"rung stepped")
+    out["a"] = steps
+
+    # (b) phase 42's mesh (one megabatch a device), a device lost at its
+    # dispatch: one mesh_replan, the counts of phase 42's run
+    mesh2 = shot_mesh([dev, dev])
+    shots42 = mesh2.size * MESH42_BATCHES * 4096
+    sim42 = mesh42_sim(code, dev, mesh2, 4096)
+    plan = faultinject.FaultPlan([faultinject.Fault(
+        site="mesh_dispatch", kind="mesh_device_loss")], seed=SEED)
+    telemetry.enable()
+    replans0 = telemetry.snapshot().get("mesh.replans", {}).get("value", 0)
+    t = time.time()
+    try:
+        with plan.active():
+            sim42.min_logical_weight = sim42.N
+            sim42.WordErrorRate(shots42, key=MESH42_KEY)
+        replans = (telemetry.snapshot().get("mesh.replans", {}).get(
+            "value", 0) - replans0)
+    finally:
+        telemetry.disable()
+    dt = time.time() - t
+    got = (sim42.last_failures, sim42.min_logical_weight, sim42.last_shots)
+    taken = clear_rungs()
+    if got != tuple(ctx.got42) or replans != 1 \
+            or taken != {"mesh_replan": 1}:
+        raise AssertionError(f"phase 48 (b): {got} vs phase 42's "
+                             f"{ctx.got42}, replans {replans}, rungs {taken}")
+    out["b"] = (got, dt)
+    log(f"[48b] mesh_device_loss at mesh_dispatch ("
+        f"{plan.hits('mesh_dispatch')} hit) on shot_mesh([{dev}, {dev}]): "
+        f"mesh.replans {replans}, the cell rerun on the replay runner "
+        f"({plan.hits('mesh_replay_dispatch')} replay dispatches): "
+        f"(failures, min_w, shots) {got} == phase 42's uninterrupted run, "
+        f"{dt:.2f} s")
+
+    # (c) BP + OSD-E 10 at p 0.05: a transient fault in the device OSD
+    # stage raises (no host fallback); the same batch on the host C++ OSD
+    p = 0.05
+    probs = np.full(n, 2 * p / 3)
+    rng = np.random.default_rng(SEED + 48)
+    err = (rng.random((2048, n)) < 2 * p / 3).astype(np.uint8)
+    synd = (err @ code.hx.T % 2).astype(np.uint8)
+    dec = BPOSD_Decoder(code.hx, probs, 50, osd_method="osd_e", osd_order=10,
+                        device=dev)
+    t = time.time()
+    dev_out = dec.decode_batch(synd)
+    dev_s = time.time() - t
+    no_rungs("48 (c) device OSD")
+
+    def faulty(_syndromes):
+        raise resilience.TransientFault("injected device-OSD fault")
+
+    dec.decode_batch_device = faulty
+    osd_n0 = tosd.osd_postprocess.shots
+    try:
+        dec.decode_batch(synd)
+    except resilience.TransientFault:
+        pass
+    else:
+        raise AssertionError("phase 48 (c): the device-OSD fault did not "
+                             "raise")
+    del dec.decode_batch_device
+    taken = clear_rungs()
+    if taken or tosd.osd_postprocess.shots != osd_n0:
+        raise AssertionError(f"phase 48 (c): the faulted device decode "
+                             f"stepped {taken}, host OSD shots "
+                             f"{tosd.osd_postprocess.shots - osd_n0}")
+    hdec = BPOSD_Decoder(code.hx, probs, 50, osd_method="osd_e",
+                         osd_order=10, device=dev, device_osd=False)
+    osd_s0, osd_n0 = tosd.osd_postprocess.seconds, tosd.osd_postprocess.shots
+    t = time.time()
+    host_out = hdec.decode_batch(synd)
+    host_s = time.time() - t
+    osd_s = tosd.osd_postprocess.seconds - osd_s0
+    osd_n = tosd.osd_postprocess.shots - osd_n0
+    no_rungs("48 (c) host OSD")
+    if osd_n <= 0:
+        raise AssertionError("phase 48 (c): the host OSD decoded no shot")
+    if not np.array_equal(host_out @ code.hx.T % 2, synd):
+        raise AssertionError("phase 48 (c): a host OSD correction misses "
+                             "its syndrome")
+    # the host C++ == its plain version (numpy) on BP's outputs
+    bp_err, aux = hdec._bp_batch(torch.from_numpy(synd))
+    conv = aux["converged"].cpu().numpy()
+    failed = np.nonzero(~conv)[0]
+    idx = failed[:FAULT48_ORACLE_SHOTS]
+    post = aux["posterior_llr"].cpu().numpy().astype(np.float64)
+    cost = tosd._channel_cost(probs)
+    plain = tosd._osd_numpy(code.hx.astype(np.uint8), synd[idx], post[idx],
+                            cost, tosd.METHODS["osd_e"], 10)
+    if not np.array_equal(plain, host_out[idx]):
+        raise AssertionError("phase 48 (c): the host C++ OSD differs from "
+                             "_osd_numpy")
+    # host (float64 costs) against the device (float32): they may differ
+    # only on a float-tied candidate
+    differ = np.nonzero((host_out != dev_out).any(axis=1))[0]
+    for i in differ:
+        c_host = float(cost[host_out[i] == 1].sum())
+        c_dev = float(cost[dev_out[i] == 1].sum())
+        if c_host > c_dev + 1e-9 or c_dev - c_host > 1e-4 * max(1.0, c_host):
+            raise AssertionError(f"phase 48 (c) shot {i}: host cost "
+                                 f"{c_host!r}, device cost {c_dev!r}: not a "
+                                 f"float tie")
+    if len(differ) > FAULT48_TIE_SHARE * len(failed):
+        raise AssertionError(f"phase 48 (c): {len(differ)} of {len(failed)} "
+                             f"BP-failed shots differ, above the "
+                             f"{FAULT48_TIE_SHARE:.0%} bound")
+    cpu = cpu_model()
+    out["c"] = {"differ": len(differ), "failed": len(failed),
+                "ms_per_shot": 1e3 * osd_s / osd_n}
+    log(f"[48c] BPOSD-E 10 at p {p}, 2048 shots ({len(failed)} BP-failed): "
+        f"an injected transient fault in the device OSD stage raised from "
+        f"decode_batch (no rung, no host OSD shot); the same batch with "
+        f"device_osd=False: the host C++ OSD decoded {osd_n} shots in "
+        f"{osd_s:.3f} s ({1e3 * osd_s / osd_n:.3f} ms a shot on {cpu}, "
+        f"{os.cpu_count()} CPUs); the batch {host_s:.3f} s against "
+        f"{dev_s:.3f} s on the device; == _osd_numpy on {len(idx)} shots "
+        f"bit for bit; {len(differ)} shots differ from the device OSD, "
+        f"each a float-tied candidate (bound "
+        f"{FAULT48_TIE_SHARE:.0%} of the BP-failed shots)")
+
+    # (d) phase 34's circuit engine with a host-OSD decoder 2
+    sim34h, _ = ctx.circuit_sim(CIRCUIT_P, 2048, SEED, osd=ctx.osd_host)
+    osd_n0 = tosd.osd_postprocess.shots
+    t = time.time()
+    sim34h.WordErrorRate(4 * 2048)
+    dt = time.time() - t
+    ok, diff, bound = within(sim34h.last_failures, ctx.run34[0],
+                             sim34h.last_shots, 4 * 2048)
+    no_rungs("48 (d)")
+    if not ok or tosd.osd_postprocess.shots == osd_n0:
+        raise AssertionError(f"phase 48 (d): host-OSD circuit "
+                             f"{sim34h.last_failures} vs phase 34's "
+                             f"{ctx.run34[0]} (|diff| {diff:.3e}, 4 sigma "
+                             f"{bound:.3e})")
+    out["d"] = (sim34h.last_failures, dt)
+    log(f"[48d] phase 34's circuit engine with decoder 2 on the host OSD "
+        f"(device_osd=False, the windowed loop): {sim34h.last_failures} / "
+        f"{sim34h.last_shots} failures against phase 34's "
+        f"{ctx.run34[0]} (|diff| {diff:.3e} <= 4 sigma {bound:.3e}), "
+        f"{tosd.osd_postprocess.shots - osd_n0} shots through the host OSD, "
+        f"{sim34h.last_shots / dt:.1f} shots/s ({dt:.2f} s)")
+    log(f"phase 48 took {time.time() - t_new:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1810,7 +2462,7 @@ def main() -> int:
 
 
 def run_phases(dem_job, cpu42_job) -> int:
-    """Phases 1-46 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-48 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
@@ -3218,7 +3870,8 @@ def run_phases(dem_job, cpu42_job) -> int:
     # tier, against the same batch with every kernel replaced by its plain
     # version
     s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
-    _, l30 = counted(lambda: s.WordErrorRate(9, 2048, key=key31))
+    _, l30 = counted(lambda: s.WordErrorRate(PHENOM31_ROUNDS, 2048,
+                                             key=key31))
     got30 = [(s.last_failures, s.min_logical_weight)]
     if min(l30["bp_minsum_bf16"], l30["bp_minsum"],
            l30["osd_elim_transform"]) <= 0 or l30["osd_elim_device"]:
@@ -3226,12 +3879,13 @@ def run_phases(dem_job, cpu42_job) -> int:
     s = phenom_sim(code16, osd0[0], osd0[1], 0.02, 2048, SEED)
     t = time.time()
     with _kernels.force_plain():
-        s.WordErrorRate(9, 2048, key=key31)
+        s.WordErrorRate(PHENOM31_ROUNDS, 2048, key=key31)
     got30.append((s.last_failures, s.min_logical_weight))
     if got30[1] != got30[0]:
         raise AssertionError(f"phase 30 batch: kernels {got30[0]}, plain "
                              f"{got30[1]}")
-    log(f"[31] one phase 30 batch (launches {l30}): kernel path == plain "
+    log(f"[31] one phase 30 batch of {PHENOM31_ROUNDS} rounds (launches "
+        f"{l30}): kernel path == plain "
         f"path (failures, min_w) {got30[0]} (plain {time.time() - t:.1f} s)")
     # fused v2 on six copies of hgp_34_n625 (n = 3750: one fused shot needs
     # more than a block's shared memory) runs as fused v1, counted
@@ -3393,7 +4047,7 @@ def run_phases(dem_job, cpu42_job) -> int:
         k1_33["full decode"], err=max(d["err"] for d in k1_33.values()))
 
     # 34. the circuit engine's main path
-    def circuit_sim(p, batch, seed):
+    def circuit_sim(p, batch, seed, osd=None):
         """CodeSimulator_Circuit as the JAX package's sweeps build a cell
         (sweep/family.py _circuit_wer, SpaceTimeDecodingDemo's CX-only
         error parameters): decoder 1 BP on [H|I], decoder 2 BP + OSD-E 10
@@ -3402,7 +4056,7 @@ def run_phases(dem_job, cpu42_job) -> int:
         ccode = load_code(str(CODE))
         d1 = bp30.GetDecoder({"h": ext(ccode.hx), "p_data": p,
                               "p_syndrome": p})
-        d2 = osd_e10.GetDecoder({"h": ccode.hx, "p_data": p})
+        d2 = (osd or osd_e10).GetDecoder({"h": ccode.hx, "p_data": p})
         sim = CodeSimulator_Circuit(
             code=ccode, decoder1_z=d1, decoder2_z=d2, p=p, num_cycles=6,
             error_params={"p_i": 0, "p_state_p": 0, "p_m": 0, "p_CX": p,
@@ -4072,14 +4726,27 @@ def run_phases(dem_job, cpu42_job) -> int:
                                     device=dev)))
 
     # 42-44. the shot mesh and a grid across processes
-    mesh_phases(SimpleNamespace(
+    mesh42 = mesh_phases(SimpleNamespace(
         dev=dev, code=code, codes=codes39, dec1=bp30, dec2=osd_e10,
         fit=fit39, rec=rec39, counted=counted, ledger_run=ledger_run,
         run5=run5, shots5=16 * 4096, cpu42=cpu42_job))
+    # phases 1-44 injected no fault
+    no_rungs("1-44")
 
     # 45-46. decode-as-a-service on the card
-    launches_45 = serve_phases(SimpleNamespace(dev=dev, code=code,
-                                               counted=counted))
+    launches_45, serve_kit = serve_phases(SimpleNamespace(
+        dev=dev, code=code, counted=counted))
+
+    # 47. the fleet on the card, a host killed mid-storm
+    fleet_phase(SimpleNamespace(dev=dev), serve_kit)
+
+    # 48. the fault path: the data engine's ladder, the mesh's replan, a
+    # device-OSD fault, the host OSD, and phase 34's engine on it
+    fault_phases(SimpleNamespace(
+        dev=dev, code=code, got42=mesh42["got42"], circuit_sim=circuit_sim,
+        run34=run34, osd_host=BPOSD_Decoder_Class(
+            10, "minimum_sum", 0.625, "osd_e", 10, device=dev,
+            device_osd=False)))
 
     # the kernels line
     kernels = [

@@ -37,15 +37,21 @@ from __future__ import annotations
 
 import os
 from abc import ABC, abstractmethod
-from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..codes import gf2
 from ..ops import _kernels, bp, bp_kernel, osd_cs_device, osd_device
+from ..utils import telemetry
 from ..utils.device import device_cond, host_value, resolve_device
-from .osd import DEVICE_METHODS, METHODS, _channel_cost, _check_osd_order
+from .osd import (
+    DEVICE_METHODS,
+    METHODS,
+    _channel_cost,
+    _check_osd_order,
+    osd_postprocess,
+)
 
 __all__ = [
     "osd_compaction_tiers",
@@ -324,20 +330,14 @@ def state_from_jax(jax_state, device="cuda") -> dict:
     return state
 
 
-# (H's bytes and shape, device, the head's settings) -> the per-H build
-_PER_H: OrderedDict = OrderedDict()
-_PER_H_SIZE = 16
+# (H's bytes and shape, device, the head's settings) -> the per-H build;
+# thread-safe: serving threads build decoder states at once (a fleet's
+# hosts, a heal beside a new session)
+_PER_H = bp._LruCache(maxsize=16)
 
 
 def _memo(key, build):
-    hit = _PER_H.get(key)
-    if hit is None:
-        hit = _PER_H[key] = build()
-        while len(_PER_H) > _PER_H_SIZE:
-            _PER_H.popitem(last=False)
-    else:
-        _PER_H.move_to_end(key)
-    return hit
+    return _PER_H.get(key, build)
 
 
 def _h_key(h01) -> tuple:
@@ -375,6 +375,9 @@ class BPDecoder:
     ``BENCH_QUANT`` decoders: WER within ``bp_kernel.int8_parity_tolerance``
     of float32, not bit-exact); ``bp_kernel`` (default env
     ``QLDPC_BP_KERNEL``) picks the BP head (module docstring)."""
+
+    # OSD (if any) runs on the device: no host stage after decode_device
+    needs_host_postprocess = False
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, two_phase: bool = True,
@@ -432,39 +435,107 @@ class BPDecoder:
 
 
 class BPOSD_Decoder(BPDecoder):
-    """BP + OSD (reference BPOSD_Decoder): BP for the whole batch, then
-    device OSD on the shots BP failed: OSD-0/OSD-E (``ops/osd_device.py``)
-    or, for ``osd_method="osd_cs"``, the combination sweep
-    (``ops/osd_cs_device.py``).  The elimination route is read from
-    ``QLDPC_OSD_ELIM`` at construction (``"pallas"``, the default, or
-    ``"pallas_percol"``)."""
+    """BP + OSD (reference BPOSD_Decoder): BP for the whole batch, then OSD
+    on the shots BP failed.
+
+    ``device_osd`` (default True) picks where OSD runs.  On, it runs on
+    the device inside ``decode_device``: OSD-0/OSD-E
+    (``ops/osd_device.py``) or, for ``osd_method="osd_cs"``, the
+    combination sweep (``ops/osd_cs_device.py``); the elimination route is
+    read from ``QLDPC_OSD_ELIM`` at construction (``"pallas"``, the
+    default, or ``"pallas_percol"``).  Off, ``decode_device`` runs BP only
+    and OSD runs on the host in C++ (``decoders/osd.py``,
+    ``needs_host_postprocess``): an engine then takes its host-assisted
+    path.  Both implement the same semantics; the device scores costs in
+    float32, the host in float64, so only float-tied candidates may
+    differ.  The argument is the one way to choose the host: unlike the
+    JAX package, no environment variable switches it, and a fault of the
+    device decode raises instead of stepping to the host (ROADMAP §C)."""
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, osd_method="osd_e", osd_order=10,
-                 device="cuda"):
+                 device="cuda", device_osd: bool = True):
         super().__init__(h, channel_probs, max_iter, bp_method,
                          ms_scaling_factor, device=device)
         self.osd_method = str(osd_method)
-        if self.osd_method not in DEVICE_METHODS:
+        if self.osd_method not in METHODS:
             raise NotImplementedError(
-                f"device OSD implements OSD-0/OSD-E/OSD-CS only, not "
+                f"OSD implements OSD-0/OSD-E/OSD-CS only, not "
                 f"{self.osd_method!r}")
         self.osd_order = _check_osd_order(osd_order)
+        self.device_osd = _check_device_osd(device_osd, self.osd_method)
         self.osd_elim = osd_device.elim_route()
-        self._osd_plan = _osd_plan(self._h01, self.channel_probs,
-                                   self.device)
+        self._osd_plan = (_osd_plan(self._h01, self.channel_probs,
+                                    self.device)
+                          if self.device_osd else None)
+
+    @property
+    def needs_host_postprocess(self) -> bool:
+        return not self.device_osd
 
     @property
     def device_static(self):
+        bp_static = super().device_static
+        if not self.device_osd:
+            return bp_static
         order = 0 if METHODS[self.osd_method] == 0 else self.osd_order
         method = "osd_cs" if self.osd_method == "osd_cs" else "osd_e"
-        return ("bposd_dev", super().device_static, self._osd_plan.n,
+        return ("bposd_dev", bp_static, self._osd_plan.n,
                 self._osd_plan.rank, order, self.osd_elim, method)
 
     @property
     def device_state(self):
-        return dict(super().device_state, osd_packed=self._osd_plan.packed,
+        state = super().device_state
+        if not self.device_osd:
+            return state
+        return dict(state, osd_packed=self._osd_plan.packed,
                     osd_cost=self._osd_plan.cost)
+
+    def _bp_batch(self, syndromes):
+        """BP alone on a (B, m) uint8 tensor (the host path's device half)."""
+        return decode_device(BPDecoder.device_static.fget(self),
+                             BPDecoder.device_state.fget(self),
+                             syndromes.to(self.device, torch.uint8))
+
+    def host_postprocess(self, syndromes, corrections, aux) -> np.ndarray:
+        """The host OSD on a BP-only decode's outputs: ``syndromes`` and
+        ``corrections`` (B, m) / (B, n) and ``aux`` (``converged``,
+        ``posterior_llr``), host arrays or tensors."""
+        telemetry.count("osd.host_round_trips")
+        return self.osd_host(_host(syndromes), _host(corrections),
+                             _host(aux["converged"]),
+                             _host(aux["posterior_llr"]))
+
+    def osd_host(self, syndromes, bp_errors, converged,
+                 posterior_llrs) -> np.ndarray:
+        return osd_postprocess(
+            self._h01, syndromes, bp_errors, converged,
+            np.asarray(posterior_llrs, np.float64), self.channel_probs,
+            osd_method=self.osd_method, osd_order=self.osd_order)
+
+    def decode_batch(self, syndromes) -> np.ndarray:
+        if self.device_osd:
+            return super().decode_batch(syndromes)
+        synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
+        err, aux = self._bp_batch(synd)
+        return self.host_postprocess(synd.numpy(), err, aux)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _check_device_osd(device_osd: bool, osd_method: str) -> bool:
+    """``device_osd`` as a bool; True for a method without a device program
+    raises."""
+    if not isinstance(device_osd, (bool, np.bool_)):
+        raise TypeError(f"device_osd must be True or False, got "
+                        f"{device_osd!r}")
+    if device_osd and osd_method not in DEVICE_METHODS:
+        raise NotImplementedError(
+            f"device OSD implements OSD-0/OSD-E/OSD-CS only, not "
+            f"{osd_method!r}; use device_osd=False")
+    return bool(device_osd)
 
 
 class FirstMinBPDecoder:
@@ -472,6 +543,9 @@ class FirstMinBPDecoder:
     ``src/Decoders.py:49-74``): ``max_iter`` restarts of one min-sum
     iteration each (``bp.first_min_bp_decode``, plain PyTorch on either
     device)."""
+
+    # OSD (if any) runs on the device: no host stage after decode_device
+    needs_host_postprocess = False
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.9, device="cuda"):
@@ -537,6 +611,9 @@ class ST_BP_Decoder_syndrome:
     channel [p_data x n, p_synd x m] tiled num_rep times; the output is the
     XOR of the per-slice data-error estimates.  The inner decoder picks its
     BP head by the window matrix's shape, as any ``BPDecoder``."""
+
+    # OSD (if any) runs on the device: no host stage after decode_device
+    needs_host_postprocess = False
 
     def __init__(self, h, p_data, p_synd, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, num_rep=1, device="cuda"):
@@ -656,14 +733,18 @@ def _require(params):
 
 
 class BPOSD_Decoder_Class(DecoderClass):
+    """Factory of ``BPOSD_Decoder``; ``device_osd`` goes to each decoder."""
+
     def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
-                 osd_method, osd_order, device="cuda"):
+                 osd_method, osd_order, device="cuda",
+                 device_osd: bool = True):
         self.decoder_default_params = {
             "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
             "ms_scaling_factor": ms_scaling_factor, "osd_method": osd_method,
             "osd_order": osd_order,
         }
         self.device = device
+        self.device_osd = device_osd
 
     def GetDecoder(self, code_and_noise_channel_params):
         _require(code_and_noise_channel_params)
@@ -674,19 +755,20 @@ class BPOSD_Decoder_Class(DecoderClass):
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
             osd_method=d["osd_method"], osd_order=d["osd_order"],
-            device=self.device)
+            device=self.device, device_osd=self.device_osd)
 
     def GetDecoderState(self, code_and_noise_channel_params):
         """``GetDecoder(params)``'s ``(device_static, device_state)``
         without the build: its new leaves are the priors and OSD's costs
         (``BPOSD_Decoder``'s statics and per-H leaves, equal to a full
-        build's)."""
+        build's).  A host-OSD decoder has no device program of its whole
+        decode, so it raises."""
         _require(code_and_noise_channel_params)
         d = self.decoder_default_params
-        if d["osd_method"] not in DEVICE_METHODS:
-            raise NotImplementedError(
-                f"device OSD implements OSD-0/OSD-E/OSD-CS only, not "
-                f"{d['osd_method']!r}")
+        if not _check_device_osd(self.device_osd, d["osd_method"]):
+            raise ValueError(
+                "a host-OSD decoder (device_osd off) has no device state: "
+                "its OSD runs on the host after the device's BP")
         bp_static, state, h01, channel = _bp_state(
             d, code_and_noise_channel_params, self.device)
         plan = _osd_plan(h01, channel, resolve_device(self.device))
@@ -824,13 +906,15 @@ class ST_BPOSD_Decoder_Circuit_Class(DecoderClass):
     over ``max_iter_ratio``, passed unrounded as the reference does."""
 
     def __init__(self, max_iter_ratio, bp_method, ms_scaling_factor,
-                 osd_method, osd_order, device="cuda"):
+                 osd_method, osd_order, device="cuda",
+                 device_osd: bool = True):
         self.decoder_default_params = {
             "max_iter_ratio": max_iter_ratio, "bp_method": bp_method,
             "ms_scaling_factor": ms_scaling_factor, "osd_method": osd_method,
             "osd_order": osd_order,
         }
         self.device = device
+        self.device_osd = device_osd
 
     def GetDecoder(self, code_and_noise_channel_params):
         p = code_and_noise_channel_params
@@ -842,4 +926,4 @@ class ST_BPOSD_Decoder_Circuit_Class(DecoderClass):
             max_iter=num_qubits / d["max_iter_ratio"],
             bp_method=d["bp_method"], ms_scaling_factor=d["ms_scaling_factor"],
             osd_method=d["osd_method"], osd_order=d["osd_order"],
-            device=self.device)
+            device=self.device, device_osd=self.device_osd)

@@ -54,7 +54,7 @@ from ..ops.prng import (
     split_key,
 )
 from ..utils import device as _device
-from ..utils import telemetry
+from ..utils import faultinject, resilience, telemetry
 
 __all__ = ["SHOT_AXIS", "ShotMesh", "shot_mesh", "check_mesh",
            "split_keys_for_mesh", "replay_fold", "sharded_batch_stats",
@@ -546,7 +546,8 @@ class MegabatchDriver:
         n_run, carry = self._start(n_batches, int(start), carry0)
         if not self._graphed(carry):
             for s in range(int(start), n_run, k):
-                carry = self._megabatch(carry, seed, s, *extra)
+                carry = _dispatch(lambda c=carry, s=s: self._megabatch(
+                    c, seed, s, *extra))
                 yield carry, s + k
             return
         entry = self._graphs.get(extra)
@@ -559,9 +560,11 @@ class MegabatchDriver:
                 c.copy_(v)
             entry.inputs.start(seed, int(start))
         for s in range(int(start), n_run, k):
-            with _sync_mode(checked):
-                entry.inputs.before_replay(seed, s)
-                entry.graph.replay()
+            def replay(s=s):
+                with _sync_mode(checked):
+                    entry.inputs.before_replay(seed, s)
+                    entry.graph.replay()
+            _dispatch(replay)
             self.megabatches += 1
             yield entry.carry, s + k
 
@@ -591,10 +594,30 @@ class MegabatchDriver:
 
         def finish(item):
             pending, done = item
-            return pending.finish(), done
+
+            def fetch():
+                faultinject.site("megabatch_drain")
+                return pending.finish()
+
+            return resilience.guarded_fetch(fetch,
+                                            label="megabatch_drain"), done
 
         yield from drain_double_buffered(launch, finish,
                                          range(int(start), n_run, k))
+
+
+def _dispatch(fn):
+    """One megabatch dispatch under the active resilience policy, behind
+    the ``megabatch_dispatch`` fault site: a transient fault before the
+    launch retries it (the carry and the batch inputs are rebuilt from
+    the same seed and offset, so a retry is bit-exact); a deterministic
+    one raises."""
+
+    def attempt():
+        faultinject.site("megabatch_dispatch")
+        return fn()
+
+    return resilience.run_cell(attempt, label="megabatch_dispatch")
 
 
 class _PendingRead(NamedTuple):

@@ -28,8 +28,17 @@ JAX package's ``serve/``, speaking the same wire protocol.
                 resets), alert rules, and the /metrics /healthz /varz
                 /tracez /alertz HTTP sidecar.
 
-The multi-host fabric (the JAX package's ``fleet.py`` and ``router.py``)
-is not ported yet.
+  fleet.py      FleetGateway / FleetServer: scrape N hosts' ops planes,
+                merge their counters and histograms (bit-exact integer
+                sums), serve the fleet /metrics /healthz /varz /alertz; the
+                host-down deadman is an ordinary alert rule.
+  router.py     the multi-host fabric: HashRing (family-sticky
+                placement), FleetRouter (data plane, epoch fence, journal
+                replication, the deadman-driven handoff, move_family),
+                FleetScaler, and LocalFleet, N hosts in one process (on
+                one card their captures and replays serialize on
+                ``session.DEVICE_LOCK``; a killed host's programs are
+                released).
 """
 from .session import (
     DEFAULT_BUCKETS,
@@ -57,6 +66,17 @@ from .ops import (
     default_alert_rules,
     spawn_server_loop,
     start_ops_thread,
+)
+from .fleet import FleetGateway, FleetHandle, FleetServer, start_fleet_thread
+from .router import (
+    FleetRouter,
+    FleetScaler,
+    HashRing,
+    LocalFleet,
+    RouterFleetServer,
+    RouterHandle,
+    start_router_ops_thread,
+    start_router_thread,
 )
 from .server import DecodeServer, ServerHandle, start_server_thread
 from .client import ClientResult, DecodeClient
@@ -87,6 +107,18 @@ __all__ = [
     "default_alert_rules",
     "spawn_server_loop",
     "start_ops_thread",
+    "FleetGateway",
+    "FleetHandle",
+    "FleetServer",
+    "start_fleet_thread",
+    "FleetRouter",
+    "FleetScaler",
+    "HashRing",
+    "LocalFleet",
+    "RouterFleetServer",
+    "RouterHandle",
+    "start_router_ops_thread",
+    "start_router_thread",
     "DecodeServer",
     "ServerHandle",
     "start_server_thread",

@@ -1173,6 +1173,16 @@ class ContinuousBatcher:
                             pending_requests=self._queued_requests,
                             completed=int(self.completed))
 
+    def release(self) -> int:
+        """Drop every program this batcher's sessions and fused groups hold
+        (a dead host's): call after ``close``.  Returns how many."""
+        groups = [g for _objs, g in self._group_cache.values()
+                  if g is not None]
+        self._group_cache.clear()
+        return (sum(g.release() for g in groups)
+                + sum(self.sessions.get(name).release()
+                      for name in self.sessions.names()))
+
     def close(self) -> None:
         """Abandoning shutdown (tests/errors): fail queued futures instead
         of running them."""

@@ -589,6 +589,16 @@ class DecodeSession:
         with self._lock:
             return dict(self._programs)
 
+    def release(self) -> int:
+        """Drop this session's programs (its captured graphs and the
+        static buffers they read), as a dead host's sessions are; the
+        in-process cache keeps what another session of equal state still
+        shares.  Returns how many were dropped."""
+        with self._lock:
+            n = len(self._programs)
+            self._programs.clear()
+            return n
+
     @property
     def host_reads(self) -> int:
         """Host reads of this session's current programs."""
@@ -908,6 +918,13 @@ class FusedDecodeGroup:
         """The warm programs by ``(n_lanes, bucket)`` (a copy)."""
         with self._lock:
             return dict(self._programs)
+
+    def release(self) -> int:
+        """Drop this group's programs (``DecodeSession.release``)."""
+        with self._lock:
+            n = len(self._programs)
+            self._programs.clear()
+            return n
 
     def family_label(self) -> str:
         """Short STABLE label for telemetry/health, built from a content

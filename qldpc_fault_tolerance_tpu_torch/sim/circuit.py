@@ -17,6 +17,12 @@ captured megabatch (the sampler's REPEAT iterations and every per-round
 decode with its tier ladder inside it), one host read per megabatch.  The
 reference tracks no minimum logical weight here (the decode lives in
 detector space): the weight slot stays N.
+
+A run executes under the active resilience policy (site ``wer.circuit``,
+``sim.common.resilient_engine_run``).  A decoder 2 with a host OSD stage
+(``BPOSD_Decoder(device_osd=False)``) takes the host-assisted loop
+(``_count_host``, ``sim.common.windowed_count``): the same draws batch by
+batch, the OSD on the host.
 """
 from __future__ import annotations
 
@@ -39,11 +45,17 @@ from ..ops.prng import key_words, prng_key, split_key
 from ..parallel.shots import GeneratorInput, batch_generator, check_mesh
 from ..utils.device import resolve_device
 from .common import (
+    ShotBatcher,
     count_failures,
     decoder_key,
     degrade_mesh,
+    finish_decode,
+    launch_decode,
     megabatch_driver,
+    needs_host,
+    resilient_engine_run,
     wer_per_cycle,
+    windowed_count,
 )
 
 __all__ = ["CodeSimulator_Circuit", "build_memory_circuit"]
@@ -298,8 +310,16 @@ class CodeSimulator_Circuit:
         """The per-round decode of sampled detectors (``src/Simulators.py:
         612-632``): each noisy round's syndrome, corrected by the residual
         of the corrections so far, decoded by decoder 1; the final one by
-        decoder 2.  Returns (correction, corrected final syndrome, final
-        correction)."""
+        decoder 2 (its host OSD stage too, where it has one).  Returns
+        (correction, corrected final syndrome, final correction)."""
+        correction, corrected_final, pending = self._launch_rounds(dets)
+        return (correction, corrected_final,
+                finish_decode(self.decoder2_z, pending))
+
+    def _launch_rounds(self, dets):
+        """``_decode_rounds``' device half: (correction, corrected final
+        syndrome, decoder 2's pending decode,
+        ``sim.common.launch_decode``)."""
         B, n = dets.shape[0], self.N
         hist = dets.reshape(B, self.num_cycles, self._m)
         d1, d2 = self.decoder1_z, self.decoder2_z
@@ -314,14 +334,15 @@ class CodeSimulator_Circuit:
             correction = correction ^ data_cor
             residual = corrected ^ parity_apply(*self._hx, data_cor)
         corrected_final = hist[:, -1] ^ residual
-        final_cor, _ = decode_device(d2.device_static, d2.device_state,
-                                     corrected_final)
-        return correction, corrected_final, final_cor
+        return correction, corrected_final, launch_decode(d2,
+                                                          corrected_final)
 
     def _flags(self, dets, obs):
         """Per-shot failures (``src/Simulators.py:634-641``): a nonzero
         residual syndrome or a logical flip left by the corrections."""
-        correction, corrected_final, final_cor = self._decode_rounds(dets)
+        return self._check(obs, *self._decode_rounds(dets))
+
+    def _check(self, obs, correction, corrected_final, final_cor):
         residual_syn = corrected_final ^ parity_apply(*self._hx, final_cor)
         residual_log = obs ^ parity_apply(*self._lx, correction ^ final_cor)
         return residual_syn.bool().any(dim=-1) | residual_log.bool().any(
@@ -356,9 +377,47 @@ class CodeSimulator_Circuit:
 
     def _count_failures(self, num_samples: int, key=None):
         """(failure count, shots run) of ``num_samples`` shots
-        (``sim.common.count_failures``)."""
+        (``sim.common.count_failures``), under the active resilience
+        policy behind the fault site ``wer.circuit``.  A decoder 2 with a
+        host OSD stage runs the host-assisted loop (``_count_host``)."""
         self._ensure_circuit()
-        return count_failures(self, num_samples, key)
+        if needs_host(self.decoder1_z):
+            raise ValueError(
+                "decoder1 runs inside the per-round decode on the device: a "
+                "host OSD stage there has no path (use a BP decoder, as the "
+                "reference does)")
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+
+        def run():
+            if needs_host(self.decoder2_z):
+                return self._count_host(num_samples, key)
+            return count_failures(self, num_samples, key)
+
+        return resilient_engine_run(run, site="wer.circuit")
+
+    def _count_host(self, num_samples: int, key):
+        """The host-assisted run (the JAX package's windowed path): batch
+        ``j`` draws what the device path's batch ``j`` draws, its rounds
+        and decoder 2's BP run on the device, the OSD on the host
+        (``sim.common.windowed_count``)."""
+        batcher = ShotBatcher(num_samples, self.batch_size)
+        seed, B = key_words(key), self.batch_size
+
+        def launch(j):
+            dets, obs = self._sampler.sample_generator(
+                batch_generator(seed, j, self.device), B)
+            return (obs, *self._launch_rounds(dets))
+
+        def finish(pending):
+            obs, correction, corrected_final, dec = pending
+            return self._check(obs, correction, corrected_final,
+                               finish_decode(self.decoder2_z, dec)).cpu(
+                                   ).numpy()
+
+        count = windowed_count(launch, finish, range(batcher.num_batches))
+        self.last_failures, self.last_shots = count, batcher.total
+        return count, batcher.total
 
     def degrade_mesh(self) -> None:
         """Replay this engine's mesh runs on one device from now on

@@ -31,6 +31,11 @@ exactly against the JAX engine's functions on given detectors
 after construction, once the decoding graphs exist.  The weight slot of the
 megabatch fold stays N (the reference tracks no minimum logical weight in
 circuit engines).
+
+A run executes under the active resilience policy (site
+``wer.circuit_st``).  A decoder 2 with a host OSD stage
+(``BPOSD_Decoder(device_osd=False)``) takes the host-assisted loop
+(``_count_host``): the same draws batch by batch, the OSD on the host.
 """
 from __future__ import annotations
 
@@ -53,12 +58,18 @@ from ..parallel.shots import GeneratorInput, batch_generator, check_mesh
 from ..utils.device import resolve_device
 from .circuit import _swap_xz_inplace, build_memory_circuit
 from .common import (
+    ShotBatcher,
     count_failures,
     decoder_key,
     degrade_mesh,
+    finish_decode,
+    launch_decode,
     megabatch_driver,
+    needs_host,
+    resilient_engine_run,
     st_window_count,
     wer_per_cycle,
+    windowed_count,
 )
 
 __all__ = ["CodeSimulator_Circuit_SpaceTime"]
@@ -204,6 +215,11 @@ class CodeSimulator_Circuit_SpaceTime:
             # (src/Simulators_SpaceTime.py:994-1002), as the final one does
             if not hasattr(dec, "device_static"):
                 raise TypeError(f"{name} must be a device decoder")
+            if name == "decoder1_z" and needs_host(dec):
+                raise ValueError(
+                    "decoder1_z runs inside the window scan on the device: "
+                    "a host OSD stage there has no path (use a BP decoder, "
+                    "as the reference does)")
             if dec.device != self.device:
                 raise ValueError(f"{name} on {dec.device}, simulator on "
                                  f"{self.device}")
@@ -229,6 +245,11 @@ class CodeSimulator_Circuit_SpaceTime:
         """The window scan over sampled detectors, then the final decode:
         returns (logical correction, corrected final syndrome, final
         correction)."""
+        return self._final_decode(*self._windows(dets))
+
+    def _windows(self, dets):
+        """The window scan over sampled detectors: its (space correction,
+        logical correction) carry and the raw final detector slice."""
         B, m = dets.shape[0], self.num_checks
         hist = dets.reshape(B, self.num_cycles, m)
         windows = hist[:, :self.num_rounds * self.num_rep].reshape(
@@ -238,18 +259,24 @@ class CodeSimulator_Circuit_SpaceTime:
                              device=dets.device))
         for j in range(self.num_rounds):
             carry, _ = self._window_commit(carry, windows[:, j])
-        return self._final_decode(carry, hist[:, -1])
+        return carry, hist[:, -1]
+
+    def _final_launch(self, carry, final_syn_raw):
+        """Decoder 2's device half on the final detector slice corrected by
+        the carried space correction: (logical correction, final syndrome,
+        its pending decode, ``sim.common.launch_decode``)."""
+        total_space, total_log = carry
+        final_syn = final_syn_raw ^ total_space
+        return total_log, final_syn, launch_decode(self.decoder2_z,
+                                                   final_syn)
 
     def _final_decode(self, carry, final_syn_raw):
         """Decoder 2 on the final detector slice corrected by the carried
-        space correction: (logical correction, final syndrome, final
-        correction)."""
-        total_space, total_log = carry
-        final_syn = final_syn_raw ^ total_space
-        d2 = self.decoder2_z
-        final_cor, _ = decode_device(d2.device_static, d2.device_state,
-                                     final_syn)
-        return total_log, final_syn, final_cor
+        space correction (its host OSD stage too, where it has one):
+        (logical correction, final syndrome, final correction)."""
+        total_log, final_syn, pending = self._final_launch(carry,
+                                                           final_syn_raw)
+        return total_log, final_syn, finish_decode(self.decoder2_z, pending)
 
     def _check(self, obs, total_log, final_syn, final_cor):
         """Per-shot failures (``src/Simulators_SpaceTime.py:1004-1017``): a
@@ -295,9 +322,42 @@ class CodeSimulator_Circuit_SpaceTime:
 
     def _count_failures(self, num_samples: int, key=None):
         """(failure count, shots run) of ``num_samples`` shots
-        (``sim.common.count_failures``)."""
+        (``sim.common.count_failures``), under the active resilience
+        policy behind the fault site ``wer.circuit_st``.  A decoder 2 with
+        a host OSD stage runs the host-assisted loop (``_count_host``)."""
         self._ensure_ready()
-        return count_failures(self, num_samples, key)
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+
+        def run():
+            if needs_host(self.decoder2_z):
+                return self._count_host(num_samples, key)
+            return count_failures(self, num_samples, key)
+
+        return resilient_engine_run(run, site="wer.circuit_st")
+
+    def _count_host(self, num_samples: int, key):
+        """The host-assisted run (the JAX package's windowed path): batch
+        ``j`` draws what the device path's batch ``j`` draws, its windows
+        and decoder 2's BP run on the device, the OSD on the host
+        (``sim.common.windowed_count``)."""
+        batcher = ShotBatcher(num_samples, self.batch_size)
+        seed, B = key_words(key), self.batch_size
+
+        def launch(j):
+            dets, obs = self.detector_sampler.sample_generator(
+                batch_generator(seed, j, self.device), B)
+            return (obs, *self._final_launch(*self._windows(dets)))
+
+        def finish(pending):
+            obs, total_log, final_syn, dec = pending
+            return self._check(obs, total_log, final_syn,
+                               finish_decode(self.decoder2_z, dec)).cpu(
+                                   ).numpy()
+
+        count = windowed_count(launch, finish, range(batcher.num_batches))
+        self.last_failures, self.last_shots = count, batcher.total
+        return count, batcher.total
 
     def degrade_mesh(self) -> None:
         """Replay this engine's mesh runs on one device from now on

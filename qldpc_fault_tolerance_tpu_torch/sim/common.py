@@ -16,7 +16,14 @@ Besides the serial run's helpers, the JAX package's two families of
   * the shot mesh's (``replicate`` to ``degrade_mesh``): an engine built
     with ``mesh=`` runs every mesh device's share of the shots on its own
     replica of the engine (``mesh_batch_stats``), one captured megabatch
-    graph per device, and folds the devices' host reads.
+    graph per device, and folds the devices' host reads;
+  * the resilience layer's (``resilient_engine_run``,
+    ``engine_ladder_step``, ``windowed_count``): every engine run under the
+    active ``utils.resilience`` policy behind a fault site, its
+    degradation ladder (rungs that stay on the card's kernels: the fused
+    sampler's v2 -> v1, packed -> dense), the host-assisted (host OSD)
+    batch loop, and the mesh's ``mesh_replan`` rung stepped on a device
+    fault.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from ..decoders.bp_decoders import decode_device
 from ..ops.linalg import gf2_matmul
 from ..ops.prng import key_words, split_key
 from ..parallel.shots import (
@@ -39,7 +47,7 @@ from ..parallel.shots import (
     drain_double_buffered,
     replay_fold,
 )
-from ..utils import diagnostics, telemetry
+from ..utils import diagnostics, faultinject, resilience, telemetry
 from ..utils.device import canonical
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
@@ -58,7 +66,9 @@ __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "wer_single_shot_weighted", "wer_per_cycle_weighted",
            "weighted_driver", "resumable_weighted_stream",
            "drive_weighted_run", "replicate", "mesh_replica",
-           "mesh_batch_stats", "degrade_mesh", "refuse_mesh"]
+           "mesh_batch_stats", "degrade_mesh", "refuse_mesh",
+           "resilient_engine_run", "engine_ladder_step", "windowed_count",
+           "needs_host", "launch_decode", "finish_decode"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -359,7 +369,7 @@ def replicate(obj, device, **fields):
 
 # bookkeeping that changes run to run and is not what a replica copies
 _RUN_FIELDS = ("min_logical_weight", "_base_key", "_drivers",
-               "_mesh_replicas", "_mesh_lost")
+               "_mesh_replicas", "_mesh_lost", "_ladder")
 
 
 def _state_of(sim) -> list:
@@ -385,7 +395,7 @@ def mesh_replica(sim, device, slot: int):
     if hit is not None and _same_state(hit[0], state):
         return hit[1]
     rep = replicate(sim, device, _drivers={}, _mesh=None, _mesh_slot=slot,
-                    _mesh_replicas={})
+                    _mesh_replicas={}, _ladder=None)
     cache[(device, slot)] = (state, rep)
     return rep
 
@@ -398,26 +408,27 @@ def refuse_mesh(sim, what: str) -> None:
 
 
 def degrade_mesh(sim) -> None:
-    """The ``mesh_replan`` rung of the JAX package's engines, called
-    directly: from the next run on, ``sim``'s mesh runs replay the same
-    logical key streams in turn on the mesh's first device (counted in
-    telemetry's ``mesh.replans``).  Triggering it on a classified device
-    fault waits for the resilience ladder (ROADMAP queue A item 10)."""
+    """The ``mesh_replan`` rung of the JAX package's engines: from the next
+    run on, ``sim``'s mesh runs replay the same logical key streams in
+    turn on the mesh's first device (counted in telemetry's
+    ``mesh.replans``).  ``mesh_batch_stats`` steps it on a device fault
+    that is not deterministic; it can also be called directly."""
     if getattr(sim, "_mesh", None) is None or sim.__dict__.get("_mesh_lost"):
         return
     telemetry.count("mesh.replans")
     sim._mesh_lost = True
 
 
-def _mesh_stream(drivers, seed, n_batches, extra):
+def _mesh_stream(drivers, seed, n_batches, extra, inject):
     """Every driver's megabatch stream in lockstep: each megabatch launched
-    on every device, then their reads, double-buffered.  Returns each
-    driver's last host carry."""
+    on every device (after ``inject()``, its fault site), then their
+    reads, double-buffered.  Returns each driver's last host carry."""
     k = drivers[0].k_inner
     n_run = -(-int(n_batches) // k) * k
     its = [drv.stream(seed, n_batches, *extra) for drv in drivers]
 
     def launch(_):
+        inject()
         return [drv.read_launch(next(it)[0]) for drv, it in zip(drivers, its)]
 
     def finish(pending):
@@ -427,6 +438,32 @@ def _mesh_stream(drivers, seed, n_batches, extra):
     for last in drain_double_buffered(launch, finish, range(0, n_run, k)):
         pass
     return last
+
+
+def _mesh_run(sim, chunk, seed, n_batches, extra, lost: bool):
+    """One pass of the mesh's streams: on every mesh device, or after a
+    replan (``lost``) the replay runner, the n streams one after another on
+    the mesh's first device.  Returns ``(drivers, their host reads before,
+    host carries, devices)``."""
+    mesh = sim._mesh
+    if lost:
+        home = mesh.devices[0]
+        drivers = [mesh_replica(sim, home, d)._driver(chunk)
+                   for d in range(mesh.size)]
+        reads = [drv.host_reads for drv in drivers]
+
+        def inject():
+            faultinject.site("mesh_replay_dispatch")
+
+        hosts = [_mesh_stream([drv], seed, n_batches, extra, inject)[0]
+                 for drv in drivers]
+        return drivers, reads, hosts, [home] * mesh.size
+    drivers = [mesh_replica(sim, dev, d)._driver(chunk)
+               for d, dev in enumerate(mesh.devices)]
+    reads = [drv.host_reads for drv in drivers]
+    hosts = _mesh_stream(drivers, seed, n_batches, extra,
+                         lambda: faultinject.site("mesh_dispatch"))
+    return drivers, reads, hosts, list(mesh.devices)
 
 
 def mesh_batch_stats(sim, num_samples: int, key, *extra):
@@ -439,7 +476,17 @@ def mesh_batch_stats(sim, num_samples: int, key, *extra):
     host carries fold with ``replay_fold``.  After ``degrade_mesh(sim)``
     the same streams run in turn on the mesh's first device (the replay
     runner) and fold the same way, so counts and min weight are the mesh
-    run's bit for bit.  ``progress`` has no cursor here (as in the JAX
+    run's bit for bit.
+
+    A fault in the mesh run (the ``mesh_dispatch`` site fires before each
+    megabatch; a ``mesh_device_loss`` fault, or any fault
+    ``utils.resilience.classify_error`` does not call deterministic)
+    steps the ``mesh_replan`` ladder rung (``degrade_mesh``: counted,
+    with a ``degrade`` event) and reruns the whole cell from batch 0 on
+    the replay runner (site ``mesh_replay_dispatch``), as the JAX package
+    does: restarting keeps the counts equal to the uninterrupted run's,
+    since the lost device's partial counts are gone.  A deterministic
+    fault raises.  ``progress`` has no cursor here (as in the JAX
     package).  Records the run on ``sim`` (``last_mesh`` per device) and
     returns ``(failures, shots run)``."""
     mesh = sim._mesh
@@ -448,21 +495,17 @@ def mesh_batch_stats(sim, num_samples: int, key, *extra):
     chunk = min(batcher.num_batches, sim._scan_chunk)
     n_batches = -(-batcher.num_batches // chunk) * chunk
     seed = key_words(key)
-    if sim.__dict__.get("_mesh_lost"):
-        # the replay runner: the n streams one after another on one device
-        home = mesh.devices[0]
-        drivers = [mesh_replica(sim, home, d)._driver(chunk)
-                   for d in range(n)]
-        reads = [drv.host_reads for drv in drivers]
-        hosts = [_mesh_stream([drv], seed, n_batches, extra)[0]
-                 for drv in drivers]
-        devices = [home] * n
-    else:
-        drivers = [mesh_replica(sim, dev, d)._driver(chunk)
-                   for d, dev in enumerate(mesh.devices)]
-        reads = [drv.host_reads for drv in drivers]
-        hosts = _mesh_stream(drivers, seed, n_batches, extra)
-        devices = list(mesh.devices)
+    lost = bool(sim.__dict__.get("_mesh_lost"))
+    try:
+        drivers, reads, hosts, devices = _mesh_run(sim, chunk, seed,
+                                                   n_batches, extra, lost)
+    except Exception as exc:  # noqa: BLE001 — classification decides
+        if lost or resilience.classify_error(exc) == "deterministic":
+            raise
+        resilience.DegradationLadder(
+            [("mesh_replan", lambda: degrade_mesh(sim))]).step()
+        drivers, reads, hosts, devices = _mesh_run(sim, chunk, seed,
+                                                   n_batches, extra, True)
     failures, min_w = replay_fold(hosts)
     megabatches = n_batches // chunk
     sim.last_megabatches = megabatches
@@ -801,6 +844,7 @@ def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
     it runs on the card the caller builds the next bucket).  Returns
     ``(pending read, batches run)``; ``fused_cell_finish`` completes the
     read."""
+    faultinject.site("fused_cells_launch")
     with telemetry.span("fused_cells_launch"):
         carry, n_run = prog.driver.run_plan(
             prog.key, prog.n_batches, *prog.extras, start=start,
@@ -810,9 +854,16 @@ def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
 
 def fused_cell_finish(pending):
     """The drain half: one host read of the whole bucket's per-cell
-    counters -> host ``(failures, shots, min_w)`` arrays."""
-    with telemetry.span("megabatch_drain"):
+    counters -> host ``(failures, shots, min_w)`` arrays, watchdog-guarded
+    (``utils.resilience.guarded_fetch``; the pending read survives a
+    retry)."""
+
+    def fetch():
+        faultinject.site("fused_cells_drain")
         return _fused_host(pending.finish())
+
+    with telemetry.span("megabatch_drain"):
+        return resilience.guarded_fetch(fetch, label="fused_cells_drain")
 
 
 def fused_cell_stream(prog: FusedCellProgram, *, progress=None):
@@ -1151,3 +1202,102 @@ def drive_weighted_run(driver, key, n_batches, extra, *, batch_size, total,
         telemetry.count("driver.early_stops")
     return carry, done
 
+
+
+# ---------------------------------------------------------------------------
+# The resilience layer: engine runs under the retry policy, the degradation
+# ladder and the host-assisted (host OSD) batch loop
+# ---------------------------------------------------------------------------
+def needs_host(*decoders) -> bool:
+    """Whether any decoder runs a host stage after ``decode_device`` (a
+    ``BPOSD_Decoder(device_osd=False)``)."""
+    return any(getattr(d, "needs_host_postprocess", False) for d in decoders)
+
+
+def launch_decode(dec, syndromes):
+    """The device half of one decode: ``decode_device``'s corrections, or
+    for a decoder with a host OSD stage its BP's outputs; pass the result
+    to ``finish_decode``."""
+    if getattr(dec, "needs_host_postprocess", False):
+        err, aux = dec._bp_batch(syndromes)
+        return syndromes, err, aux
+    cor, _ = decode_device(dec.device_static, dec.device_state, syndromes)
+    return syndromes, cor, None
+
+
+def finish_decode(dec, pending) -> torch.Tensor:
+    """The corrections of a ``launch_decode``: a host OSD decoder's host
+    stage runs here (one host read), a device decoder's are returned."""
+    syndromes, err, aux = pending
+    if aux is None:
+        return err
+    return torch.from_numpy(dec.host_postprocess(syndromes, err, aux)).to(
+        err.device)
+
+
+def resilient_engine_run(fn, *, site, degrade=None):
+    """Run ``fn()`` under the active ``utils.resilience`` policy, the JAX
+    package's engine-level wrapper: the fault site ``site`` fires before
+    each attempt; transient faults retry (the run's key is fixed before the
+    first attempt, so a retry is bit-exact), deterministic ones raise, and
+    repeated faults step ``degrade`` (the engine's ladder).  A fault that
+    outlives the retries and the ladder raises.  With no policy installed
+    the run is one call behind one site check."""
+
+    def attempt():
+        faultinject.site(site)
+        return fn()
+
+    return resilience.run_cell(attempt, label=site, degrade=degrade)
+
+
+def engine_ladder_step(sim, extra_rungs=()):
+    """Build ``sim``'s degradation ladder on first use and step it once
+    (``utils.resilience.DegradationLadder``): ``extra_rungs`` (the engine's
+    own, the fused sampler's) in front of ``packed->dense`` where the
+    engine runs packed planes and no fused sampler
+    (``sim._set_packed(False)``, bit for bit the packed run).  Every rung stays on the card's kernels: the JAX
+    package's ``fused_pallas->fused_xla`` and ``device->cpu`` rungs (and
+    the fused sampler's ``fused->packed``) would move the run off them, so
+    the port has none and a fault past the last rung raises (ROADMAP §C).
+    Returns the rung taken, or None when exhausted."""
+    if sim.__dict__.get("_ladder") is None:
+        rungs = list(extra_rungs)
+        if getattr(sim, "_packed", False) and not getattr(
+                sim, "_fused_sampler", False):
+            rungs.append(("packed->dense", lambda: sim._set_packed(False)))
+        sim._ladder = resilience.DegradationLadder(rungs)
+    return sim._ladder.step()
+
+
+def windowed_count(launch, finish, keys, in_flight: int = 4) -> int:
+    """Failure count of the host-assisted paths (a decoder with a host OSD
+    stage): ``launch(key)`` enqueues one batch's device work (behind the
+    ``windowed_launch`` site, retried under the policy), ``finish(pending)``
+    reads it, runs the host stage and returns the batch's per-shot failure
+    flags (behind ``windowed_drain``, watchdog-guarded; the pending batch
+    survives a retry).  ``in_flight`` batches stay launched, so the device
+    works while the host post-processes."""
+
+    def _launch_one(k):
+        faultinject.site("windowed_launch")
+        return launch(k)
+
+    def _finish_one(item):
+        def fetch():
+            faultinject.site("windowed_drain")
+            return int(finish(item).sum())
+
+        return resilience.guarded_fetch(fetch, label="windowed_drain")
+
+    window, count = [], 0
+    for k in keys:
+        window.append(resilience.run_cell(lambda k=k: _launch_one(k),
+                                          label="windowed_launch"))
+        telemetry.count("driver.dispatches")
+        telemetry.set_gauge("driver.drain_depth", len(window))
+        if len(window) >= in_flight:
+            count += _finish_one(window.pop(0))
+    while window:
+        count += _finish_one(window.pop(0))
+    return count

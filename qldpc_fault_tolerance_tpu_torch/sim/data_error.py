@@ -52,6 +52,13 @@ megabatch, double-buffered.  On the card every ``WordErrorRate`` path (the
 default engine, the fused engines, every OSD method) replays a captured
 megabatch, cached per simulator and shape, so a run makes no other host
 read; ``run_batch`` returns per-shot flags and stays eager.
+
+Every run executes under the active ``utils.resilience`` policy
+(``sim.common.resilient_engine_run``, sites ``wer.data`` / ``wer.data_w``):
+transient faults retry bit for bit, deterministic ones raise, and repeated
+faults step the degradation ladder (``_degrade_once``); a fault that
+outlives both raises.  Decoders with a host OSD stage are refused, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -96,10 +103,13 @@ from .common import (
     degrade_mesh,
     dense_check_flags,
     drive_weighted_run,
+    engine_ladder_step,
     gather_lane_states,
     lane_view,
     megabatch_driver,
+    needs_host,
     refuse_mesh,
+    resilient_engine_run,
     resumable_weighted_stream,
     run_signature,
     select_failures,
@@ -197,6 +207,15 @@ class CodeSimulator_DataError:
                                                 np.float32),
                                      device=self.device)
         self._tilts = {}  # tilt triple -> its device tensor
+        self._ladder = None  # the degradation ladder, built at its first step
+        self._select_stats()
+
+    def _select_stats(self) -> None:
+        """``self._stats``, the batch unit of the engine the flags
+        (``_fused_sampler``, ``_packed``) name, building the fused specs it
+        needs."""
+        code, fused_sampler = self.code, self._fused_sampler
+        decoder_x, decoder_z = self.decoder_x, self.decoder_z
         self._stats = self._batch_stats if self._packed else self._dense_stats
         if fused_sampler == "v2":
             self._iters_x, msf_x, q_x = _bp_loop_params(decoder_x.device_static)
@@ -217,10 +236,45 @@ class CodeSimulator_DataError:
                 CodeSimulator_DataError.fused_fallbacks += 1
                 self._fused_sampler = fused_sampler = True
         if fused_sampler is True:
-            self._fspec = gf2_kernel.build_fused_spec(
-                code.hx, code.hz, code.lx, code.lz, self.channel_probs,
-                self.device)
+            if getattr(self, "_fspec", None) is None:
+                self._fspec = gf2_kernel.build_fused_spec(
+                    code.hx, code.hz, code.lx, code.lz, self.channel_probs,
+                    self.device)
             self._stats = self._stats_fused
+
+    def _set_packed(self, packed: bool) -> None:
+        """The ladder's ``packed->dense`` rung (bit for bit the packed
+        run)."""
+        self._packed = bool(packed)
+        self._select_stats()
+
+    def _set_fused(self, fused_sampler) -> None:
+        self._fused_sampler = fused_sampler
+        self._select_stats()
+
+    def _degrade_once(self):
+        """One rung down the degradation ladder, the JAX package's rungs
+        that stay on the card's kernels, in its order:
+        ``fused_v2->fused_pallas`` (B5's decode -> the B3/B4 kernels and
+        the BP kernels; v2 and v1 differ in BP's numerics, so within
+        binomial error) and, on a packed engine, ``packed->dense`` (bit for
+        bit).  JAX's ``fused_pallas->fused_xla``, ``fused->packed`` and
+        ``device->cpu`` would run B3-B5's work in plain PyTorch or on the
+        CPU; the port has no such rung (``engine_ladder_step``)."""
+        rungs = []
+        if self._fused_sampler == "v2":
+            rungs.append(("fused_v2->fused_pallas",
+                          lambda: self._set_fused(True)))
+        return engine_ladder_step(self, rungs)
+
+    def _reject_host_decoders(self) -> None:
+        """The data engine decodes inside its captured batches: a decoder
+        with a host OSD stage has no path here (as in the JAX package)."""
+        if needs_host(self.decoder_x, self.decoder_z):
+            raise ValueError(
+                "host-OSD decoders (device_osd=False) have no data-engine "
+                "path: BPOSD runs its OSD on the device inside the "
+                "megabatch")
 
     def _packed_stats(self, ex_p, ez_p):
         """One batch from packed (W, n) error planes -> (failure count,
@@ -371,8 +425,14 @@ class CodeSimulator_DataError:
         persists the run's cursor after every megabatch, and resumes a run
         killed mid-cell from it, seed for seed the unbroken run's result
         (``sim.common.resumable_stream``)."""
-        failures, shots = count_failures(self, num_run, key, target_failures,
-                                         progress=progress)
+        self._reject_host_decoders()
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+
+        failures, shots = resilient_engine_run(
+            lambda: count_failures(self, num_run, key, target_failures,
+                                   progress=progress),
+            site="wer.data", degrade=self._degrade_once)
         return wer_single_shot(failures, shots, self.K)
 
     def WeightedWordErrorRate(self, num_run: int, tilt_probs=None, key=None,
@@ -392,11 +452,21 @@ class CodeSimulator_DataError:
             raise ValueError(
                 "the fused sampler has its own PRNG stream; weighted "
                 "estimation covers the seed-comparable packed/dense paths")
+        self._reject_host_decoders()
         if tilt_probs is None:
             tilt_probs = list(self.channel_probs)
         tilt = check_tilt_probs(tilt_probs, self.channel_probs)
         if key is None:
             self._base_key, key = split_key(self._base_key)
+        ws = resilient_engine_run(
+            lambda: self._weighted_run(num_run, tilt, key, progress,
+                                       target_rse),
+            site="wer.data_w", degrade=self._degrade_once)
+        return wer_single_shot_weighted(ws, self.K)
+
+    def _weighted_run(self, num_run, tilt, key, progress, target_rse):
+        """One attempt of ``WeightedWordErrorRate``: its ``WeightedStats``,
+        recorded on the engine."""
         batcher = ShotBatcher(num_run, self.batch_size)
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
@@ -420,7 +490,7 @@ class CodeSimulator_DataError:
         self.last_failures, self.last_shots = ws.failures, ws.shots
         self.min_logical_weight = min(self.min_logical_weight, ws.min_w)
         self.last_weighted = ws
-        return wer_single_shot_weighted(ws, self.K)
+        return ws
 
     def degrade_mesh(self) -> None:
         """Replay this engine's mesh runs on one device from now on

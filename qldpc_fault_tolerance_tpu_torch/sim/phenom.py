@@ -84,10 +84,15 @@ from .common import (
     degrade_mesh,
     dense_check_flags,
     drive_weighted_run,
+    engine_ladder_step,
+    finish_decode,
     gather_lane_states,
+    launch_decode,
     lane_view,
     megabatch_driver,
+    needs_host,
     refuse_mesh,
+    resilient_engine_run,
     resumable_weighted_stream,
     run_signature,
     select_failures,
@@ -98,6 +103,7 @@ from .common import (
     wer_per_cycle,
     wer_per_cycle_weighted,
     wer_single_shot,
+    windowed_count,
 )
 
 __all__ = ["CodeSimulator_Phenon", "fused_cells_program",
@@ -163,6 +169,7 @@ class PhenomEngine:
         self.last_host_reads = 0
         self.last_graph = None  # the captured megabatch's cost, on the card
         self._drivers = {}
+        self._ladder = None  # the degradation ladder, built at its first step
         dev = self.device
         # sparse adjacency of [H | I] (row weight rw(H) + 1) and of H for
         # the packed syndromes and checks; (n, m) transposes for the dense
@@ -386,11 +393,73 @@ class PhenomEngine:
         return int(self.run_batch(sub, num_rounds, 1)[0])
 
     def _count_failures(self, num_rounds: int, num_samples: int, key=None,
-                        target_failures=None, progress=None):
+                        target_failures=None, progress=None,
+                        site: str = "wer.phenl"):
         """(failure count, shots run) of ``num_samples`` shots of
-        ``num_rounds`` rounds (``sim.common.count_failures``)."""
-        return count_failures(self, num_samples, key, target_failures,
-                              int(num_rounds), progress=progress)
+        ``num_rounds`` rounds (``sim.common.count_failures``), under the
+        active resilience policy behind the fault site ``site``
+        (``sim.common.resilient_engine_run``; the ladder is
+        ``_degrade_once``).  A decoder 2 with a host OSD stage runs the
+        host-assisted loop (``sim.common.windowed_count``)."""
+        if key is None:
+            self._base_key, key = split_key(self._base_key)
+
+        def run():
+            if needs_host(self.decoder2_x, self.decoder2_z):
+                return self._count_host(int(num_rounds), num_samples, key)
+            return count_failures(self, num_samples, key, target_failures,
+                                  int(num_rounds), progress=progress)
+
+        return resilient_engine_run(run, site=site,
+                                    degrade=self._degrade_once)
+
+    def _set_packed(self, packed: bool) -> None:
+        """The ladder's ``packed->dense`` rung (bit for bit the packed
+        run)."""
+        self._packed = bool(packed)
+
+    def _degrade_once(self):
+        """One rung down the degradation ladder: packed -> dense
+        (``sim.common.engine_ladder_step``), the JAX engine's rung that
+        stays on the card's kernels; past it a fault raises."""
+        return engine_ladder_step(self)
+
+    def _count_host(self, num_rounds: int, num_samples: int, key):
+        """The host-assisted run (decoder 2 with a host OSD stage): batch
+        ``j`` draws what the device path's batch ``j`` draws; its windows
+        and decoder 2's BP run on the device, the OSD on the host
+        (``windowed_count``).  No progress cursor and no early stop, as in
+        the JAX package."""
+        batcher = ShotBatcher(num_samples, self.batch_size)
+        seed = key_words(key)
+        B = self.batch_size
+
+        def launch(j):
+            draw = self._draws(batch_generator(seed, j, self.device), B)
+            data_x, data_z = self._zeros(B)
+            for _ in range(max(num_rounds - 1, 0)):
+                (data_x, data_z), _ = self._window(draw, data_x, data_z, B)
+            ex, ez = draw(True)
+            cur_x, cur_z = data_x ^ ex, data_z ^ ez
+            synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx", "hz", B)
+            return (cur_x, cur_z,
+                    launch_decode(self.decoder2_x, synd_x),
+                    launch_decode(self.decoder2_z, synd_z))
+
+        def finish(pending):
+            cur_x, cur_z, px, pz = pending
+            dx = finish_decode(self.decoder2_x, px)
+            dz = finish_decode(self.decoder2_z, pz)
+            if self._packed:
+                dx, dz = pack_shots(dx), pack_shots(dz)
+            fail, min_w = self._flags(cur_x ^ dx, cur_z ^ dz, B)
+            self.min_logical_weight = min(self.min_logical_weight,
+                                          int(min_w))
+            return fail.cpu().numpy()
+
+        count = windowed_count(launch, finish, range(batcher.num_batches))
+        self.last_failures, self.last_shots = count, batcher.total
+        return count, batcher.total
 
     def degrade_mesh(self) -> None:
         """Replay this engine's mesh runs on one device from now on
@@ -449,6 +518,7 @@ class CodeSimulator_Phenon(PhenomEngine):
         """Per-qubit-per-cycle WER and its error bar
         (``sim.common.wer_per_cycle``).  ``progress``: mid-cell resume, as
         the data engine's ``WordErrorRate``."""
+        self._reject_host_decoders()
         count, total = self._count_failures(num_rounds, num_samples, key,
                                             target_failures, progress)
         return wer_per_cycle(count, total, self.K, num_rounds)
@@ -456,8 +526,19 @@ class CodeSimulator_Phenon(PhenomEngine):
     def WordErrorProbability(self, num_rounds: int, num_samples: int,
                              key=None):
         """End-of-run word error probability (``wer_single_shot``)."""
+        self._reject_host_decoders()
         count, total = self._count_failures(num_rounds, num_samples, key)
         return wer_single_shot(count, total, self.K)
+
+    def _reject_host_decoders(self) -> None:
+        """The phenomenological engine decodes every round inside its
+        captured batches: host-OSD decoders have no path here (as in the
+        JAX package)."""
+        if needs_host(*(getattr(self, name) for name in _DECODERS)):
+            raise ValueError(
+                "host-OSD decoders (device_osd=False) have no phenom-engine "
+                "path: BPOSD runs its OSD on the device inside the "
+                "megabatch")
 
     def WeightedWordErrorRate(self, num_rounds: int, num_samples: int,
                               tilt_probs=None, tilt_q=None, key=None,
@@ -482,8 +563,19 @@ class CodeSimulator_Phenon(PhenomEngine):
                 f"tilt_q must be a probability covering the syndrome "
                 f"channel's support (synd_prob={float(self.synd_prob)}), "
                 f"got {tilt_q}")
+        self._reject_host_decoders()
         if key is None:
             self._base_key, key = split_key(self._base_key)
+        ws = resilient_engine_run(
+            lambda: self._weighted_run(num_rounds, num_samples, tilt, tilt_q,
+                                       key, progress, target_rse),
+            site="wer.phenl_w", degrade=self._degrade_once)
+        return wer_per_cycle_weighted(ws, self.K, num_rounds)
+
+    def _weighted_run(self, num_rounds, num_samples, tilt, tilt_q, key,
+                      progress, target_rse):
+        """One attempt of ``WeightedWordErrorRate``: its ``WeightedStats``,
+        recorded on the engine."""
         batcher = ShotBatcher(num_samples, self.batch_size)
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
@@ -506,7 +598,7 @@ class CodeSimulator_Phenon(PhenomEngine):
         self.last_failures, self.last_shots = ws.failures, ws.shots
         self.min_logical_weight = min(self.min_logical_weight, ws.min_w)
         self.last_weighted = ws
-        return wer_per_cycle_weighted(ws, self.K, num_rounds)
+        return ws
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,12 @@ nodes, one host read per megabatch.  The errors are drawn from
 ``torch.Generator`` streams, so the JAX engine's failures are matched within
 binomial error; the pipeline is held exactly against the JAX engine's
 functions on injected errors (``_stats_from_errors``).
+
+A run executes under the active resilience policy (site ``wer.phenl_st``,
+the phenom engine's ladder).  A decoder 2 with a host OSD stage
+(``BPOSD_Decoder(device_osd=False)``) takes the host-assisted loop
+(``PhenomEngine._count_host``): the same draws batch by batch, the OSD on
+the host.
 """
 from __future__ import annotations
 
@@ -110,5 +116,6 @@ class CodeSimulator_Phenon_SpaceTime(PhenomEngine):
         rate is normalised by the cycles those windows realize."""
         num_rounds, total_num_cycles = st_round_counts(num_cycles,
                                                        self.num_rep)
-        count, total = self._count_failures(num_rounds, num_samples, key)
+        count, total = self._count_failures(num_rounds, num_samples, key,
+                                            site="wer.phenl_st")
         return wer_per_cycle(count, total, self.K, total_num_cycles)

@@ -31,6 +31,7 @@ here (``sleep_for``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import random
@@ -168,8 +169,15 @@ class DegradationLadder:
     ``step()`` applies the next one (telemetry-counted) and returns its
     name, or ``None`` when the ladder is exhausted.  The serve stack's
     rungs (unshard a mesh-sharded session, then recapture its graphs) are
-    bit-exact with the rung above them; no rung steps to a plain version
-    or to the CPU."""
+    bit-exact with the rung above them; the engines'
+    (``sim.common.engine_ladder_step``: the fused sampler's v2 -> v1,
+    packed -> dense) and the mesh's ``mesh_replan`` stay on the card's
+    kernels.  No rung steps to a plain version or to the CPU.  A ladder
+    steps only on a fault that ``classify_error`` does not call
+    deterministic.  ``DegradationLadder.taken`` counts every rung stepped
+    in this process by name, so a run can show that none was."""
+
+    taken: collections.Counter = collections.Counter()
 
     def __init__(self, rungs):
         self._rungs = list(rungs)
@@ -185,6 +193,7 @@ class DegradationLadder:
         name, apply_fn = self._rungs[self._pos]
         self._pos += 1
         apply_fn()
+        DegradationLadder.taken[name] += 1
         telemetry.count("resilience.degrades")
         telemetry.event("degrade", rung=name)
         _log("degrade", rung=name)
