@@ -346,6 +346,33 @@ Phases (any failure raises and the script exits non-zero):
      CPU's model; (d) phase 34's circuit engine with decoder 2 on the
      host OSD (device_osd=False) within 4 binomial sigma of phase 34's
      run.  Every other phase steps no rung and replans no mesh.
+ 49. telemetry on the card (utils/telemetry.py device_tele_vec): one
+     megabatch (key KEY49) of phases 5 (the bf16 head), 6 (BPOSD-E: B2),
+     16 (OSD-CS: B7, B8), 25's v2 bf16 (B5's aux) and 28 (phenom,
+     PHENOM49_ROUNDS rounds) and one fused bucket of phase 40
+     (hgp_34_n225, one batch a cell), each through its telemetry-on graph
+     under check_syncs: failures and min weight equal the telemetry-off
+     run, one host read a megabatch, and the published counters
+     (bp.shots, bp.converged, the bp.iterations histogram and sum,
+     osd.device_shots == the BP-failed shots, the compaction tiers,
+     osd.cs_candidates / cs_chunks) equal a host recount (numpy) of the
+     same megabatch's decode aux run eagerly (_kernels.force_eager);
+     printed: the counters, the mean iterations, the histogram
+ 50. the waterfall (utils/profiling.py): phase 5's run under
+     profile_session, its graph captured again: results equal profiling
+     off, the waterfall's stages (launch, host sync, gap) sum to the
+     wall, the recorded graph cost's node count equals the capture's; a
+     torch.profiler trace of one replay, summed by parse_trace, names the
+     bp_minsum kernels phase 5 launches; the card's gates (smem_gates)
+ 51. warm restart from disk (utils/progcache.py's disk half): a process
+     started beside phases 49-50 serves phase 45's n625 sessions
+     (WARM51_SESSIONS, buckets WARM51_BUCKETS) with progcache.configure
+     (dir) and stores their states and programs; a second fresh process
+     from that directory serves the same rows: disk hits for every
+     (session, bucket) and each state, no decoder state rebuilt, one
+     recapture a bucket, every answer bit-exact with the first process;
+     then, in this process, a truncated artifact is one load error,
+     rebuilt and replaced
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -353,8 +380,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -451,6 +480,19 @@ ELIM27_SHOTS = (256, 512, 2048)
 # a device (the plain versions' result on the CPU, which the kernels give
 # bit for bit), and the small run that the CPU repeats beside the card
 # (MESH42_SMALL batches of 1024 shots a device)
+# the plain PyTorch version of each kernel launch: the function its wrapper
+# runs under _kernels.force_plain(), which every "== plain" check here uses
+# (qldpc_fault_tolerance_tpu_torch/analysis/rules_kernels.py holds each
+# wrapper to it)
+PLAIN_VERSIONS = {
+    "bp_minsum": "minsum_plain", "bp_minsum_bf16": "minsum_dense_plain",
+    "bp_int8": "minsum_int8_plain", "gf2_sample": "sample_syndrome_plain",
+    "gf2_residual": "residual_check_plain",
+    "fused_decode": "fused_decode_plain",
+    "fused_decode_int8": "fused_decode_plain",
+    "osd_elim": "eliminate_plain", "osd_elim_full": "eliminate_plain",
+    "osd_elim_percol": "eliminate_percol_plain",
+    "cs_sweep": "cs_sweep_plain", "cs_sweep_rows": "cs_sweep_rows_plain"}
 MESH42_KEY, MESH42_BATCHES, MESH42_SMALL = (42, SEED), 8, 1
 MESH_RUNS = {"42 v2": (195, 2)}
 # phase 43's mesh threshold runs MESH43_SCALE times phase 40's shots a
@@ -488,6 +530,16 @@ FLEET_INTERVAL_S, FLEET_DOWN_AFTER_S = 0.1, 1.0
 FAULT48_KEY, FAULT48_BATCHES = (48, SEED), 4
 FAULT48_ORACLE_SHOTS = 16
 FAULT48_TIE_SHARE = 0.05
+# phases 49-51: the key of phase 49's megabatches (and phase 50's run),
+# the rounds of phase 49's phenom megabatch (phase 28 runs 9), phase 51's
+# sessions (phase 45's n625 ones: name -> p), buckets, and the bound on
+# each of its processes
+KEY49 = (49, SEED)
+PHENOM49_ROUNDS = 3
+WARM51_SESSIONS = {"n625_a": 0.01, "n625_b": 0.013, "n625_c": 0.016,
+                   "n625_osd": 0.05}
+WARM51_BUCKETS = (256, 1024)
+WARM51_TIMEOUT = 300
 
 
 _T0 = time.time()
@@ -2435,6 +2487,437 @@ def fault_phases(ctx) -> dict:
     return out
 
 
+# phase 51's worker: one process serving phase 45's n625 sessions from a
+# program cache directory (its argv: the checkout, the directory, the
+# rows' file and the answers' file)
+WARM51_WORKER = r"""
+import json, sys, time
+t0 = time.time()
+root, cache, rows_path, out_path = sys.argv[1:5]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from qldpc_fault_tolerance_tpu_torch.codes import load_code
+from qldpc_fault_tolerance_tpu_torch.decoders import (BP_Decoder_Class,
+                                                      BPOSD_Decoder_Class)
+from qldpc_fault_tolerance_tpu_torch.serve import DecodeSession
+from qldpc_fault_tolerance_tpu_torch.utils import progcache, telemetry
+spec = json.loads(sys.argv[5])
+dev = torch.device(spec["device"])
+progcache.configure(cache)
+telemetry.enable()
+hx = load_code(spec["code"]).hx
+n = hx.shape[1]
+bp = BP_Decoder_Class(n / 50, "minimum_sum", 0.625, device=dev)
+osd = BPOSD_Decoder_Class(n / 50, "minimum_sum", 0.625, "osd_e", 10,
+                          device=dev)
+t1 = time.time()
+sessions = {name: DecodeSession(name, decoder_class=osd if name.endswith(
+                "osd") else bp, params={"h": hx, "p_data": p},
+                buckets=tuple(spec["buckets"]))
+            for name, p in spec["sessions"].items()}
+for s in sessions.values():
+    s.warm()
+t2 = time.time()
+rows = np.load(rows_path)
+out = {}
+for name, s in sessions.items():
+    for b in spec["buckets"]:
+        key = f"{name}/{b}"
+        out[key] = s.decode(rows[key]).corrections
+t3 = time.time()
+np.savez(out_path, **out)
+snap = telemetry.snapshot()
+print("RESULT" + json.dumps({
+    "stats": progcache.stats(),
+    "builds": snap.get("serve.session.builds", {}).get("value", 0),
+    "state_loads": snap.get("serve.session.state_loads", {}).get("value", 0),
+    "sources": {k: s.state_source for k, s in sessions.items()},
+    "compiles": {k: s.compiles for k, s in sessions.items()},
+    "loads": {k: s.loads for k, s in sessions.items()},
+    "start_s": t1 - t0, "sessions_s": t2 - t1, "decode_s": t3 - t2}),
+    flush=True)
+"""
+
+
+def host_recount(pairs) -> dict:
+    """The counters of a run's decodes recounted on the host from their aux
+    (numpy, one decode at a time): shots, converged, OSD-routed shots, the
+    iteration histogram and sum over converged shots, the compaction tier
+    of each OSD decode and the OSD-CS sweep's candidates and chunks."""
+    import numpy as np
+
+    from qldpc_fault_tolerance_tpu_torch.decoders.bp_decoders import \
+        osd_compaction_tiers
+    from qldpc_fault_tolerance_tpu_torch.ops.osd_cs_device import \
+        cs_sweep_shape
+    from qldpc_fault_tolerance_tpu_torch.utils.telemetry import ITER_BUCKETS
+
+    out = {"bp.shots": 0, "bp.converged": 0, "osd.device_shots": 0,
+           "osd.tier_none": 0, "osd.tier_compacted": 0, "osd.tier_full": 0,
+           "osd.cs_candidates": 0, "osd.cs_chunks": 0, "sum": 0,
+           "hist": np.zeros(len(ITER_BUCKETS) + 1, np.int64)}
+    for static, aux in pairs:
+        if aux.get("converged") is None:
+            continue
+        conv = aux["converged"].cpu().numpy().astype(bool)
+        its = aux["iterations"].cpu().numpy().astype(np.int64)
+        out["bp.shots"] += conv.size
+        out["bp.converged"] += int(conv.sum())
+        out["sum"] += int(its[conv].sum())
+        out["hist"] += np.bincount(np.searchsorted(ITER_BUCKETS, its[conv]),
+                                   minlength=len(ITER_BUCKETS) + 1)
+        if static[0] != "bposd_dev":
+            continue
+        bad = int((~conv).sum())
+        out["osd.device_shots"] += bad
+        caps = osd_compaction_tiers(conv.size)
+        tier = ("none" if bad == 0 else "compacted"
+                if any(bad <= c for c in caps) else "full")
+        out[f"osd.tier_{tier}"] += 1
+        if len(static) > 6 and static[6] == "osd_cs":
+            n_cand, n_chunks = cs_sweep_shape(*static[2:5])
+            out["osd.cs_candidates"] += n_cand * bad
+            out["osd.cs_chunks"] += n_chunks * (bad > 0)
+    return out
+
+
+def published(snap) -> dict:
+    """The same counters as the registry published them."""
+    import numpy as np
+
+    from qldpc_fault_tolerance_tpu_torch.utils.telemetry import ITER_BUCKETS
+
+    out = {k: snap.get(k, {}).get("value", 0) for k in (
+        "bp.shots", "bp.converged", "osd.device_shots", "osd.tier_none",
+        "osd.tier_compacted", "osd.tier_full", "osd.cs_candidates",
+        "osd.cs_chunks")}
+    hist = snap.get("bp.iterations", {})
+    out["sum"] = int(hist.get("sum", 0))
+    out["hist"] = np.asarray(hist.get("counts",
+                                      [0] * (len(ITER_BUCKETS) + 1)))
+    return out
+
+
+def telemetry_phases(ctx) -> None:
+    """Phases 49 and 50 (module docstring) on ``ctx.dev``: ``ctx`` holds
+    the engines of phases 5, 6, 16, 25 (bf16) and 28, phase 39's codes,
+    decoder classes and ledger record."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+    from qldpc_fault_tolerance_tpu_torch.parallel.shots import check_syncs
+    from qldpc_fault_tolerance_tpu_torch.sim import common as simc
+    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+    from qldpc_fault_tolerance_tpu_torch.utils import profiling, telemetry
+
+    dev = ctx.dev
+    t_new = time.time()
+
+    def same(tag, got, want):
+        bad = {k: (got[k], want[k]) for k in want
+               if not np.array_equal(np.asarray(got[k]), np.asarray(want[k]))}
+        if bad:
+            raise AssertionError(f"phase 49 {tag}: published != host "
+                                 f"recount {bad}")
+
+    def text(c):
+        mean = c["sum"] / max(int(c["hist"].sum()), 1)
+        return (f"bp.shots {c['bp.shots']}, bp.converged "
+                f"{c['bp.converged']}, mean iterations {mean:.4f}, "
+                f"histogram {c['hist'].tolist()}, osd.device_shots "
+                f"{c['osd.device_shots']}, tiers "
+                f"({c['osd.tier_none']}, {c['osd.tier_compacted']}, "
+                f"{c['osd.tier_full']}), cs ({c['osd.cs_candidates']}, "
+                f"{c['osd.cs_chunks']})")
+
+    def run_engine(tag, sim, osd, run):
+        """``run(sim)`` (one megabatch) through the telemetry-on graph under
+        check_syncs, then eagerly with telemetry off inside a collector of
+        every decode's aux: results equal, the published counters equal
+        the host recount."""
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            sim.min_logical_weight = sim.N
+            t0 = time.time()
+            with check_syncs():
+                run(sim)
+            dt = time.time() - t0
+            got = (sim.last_failures, sim.min_logical_weight)
+            reads = sim.last_host_reads / sim.last_megabatches
+            pub = published(telemetry.snapshot())
+        finally:
+            telemetry.disable()
+        sim.min_logical_weight = sim.N
+        with _kernels.force_eager(), telemetry.collect_device_aux() as aux:
+            run(sim)
+        off = (sim.last_failures, sim.min_logical_weight)
+        if got != off or reads != 1:
+            raise AssertionError(f"phase 49 {tag}: telemetry on {got}, off "
+                                 f"{off}; {reads} host reads a megabatch")
+        want = host_recount(aux)
+        same(tag, pub, want)
+        if osd and pub["osd.device_shots"] != \
+                pub["bp.shots"] - pub["bp.converged"]:
+            raise AssertionError(f"phase 49 {tag}: osd.device_shots "
+                                 f"{pub['osd.device_shots']} != BP-failed "
+                                 "shots")
+        log(f"[49] {tag}: (failures, min_w) {got} == telemetry off; 1 host "
+            f"read a megabatch ({sim.last_megabatches}); published == host "
+            f"recount of the eager megabatch: {text(pub)}; {dt:.2f} s with "
+            f"the capture")
+
+    # 49. telemetry on the card
+    runs = (("5 BP (bf16 head)", ctx.sim5, False,
+             lambda s: s.WordErrorRate(8 * s.batch_size, key=KEY49)),
+            ("6 BPOSD-E", ctx.sim6, True,
+             lambda s: s.WordErrorRate(8 * s.batch_size, key=KEY49)),
+            ("16 BPOSD-CS", ctx.sim16, True,
+             lambda s: s.WordErrorRate(8 * s.batch_size, key=KEY49)),
+            ("25 v2 bf16 (B5 aux)", ctx.sim25, False,
+             lambda s: s.WordErrorRate(8 * s.batch_size, key=KEY49)),
+            (f"28 phenom ({PHENOM49_ROUNDS} rounds)", ctx.sim28, True,
+             lambda s: s.WordErrorRate(PHENOM49_ROUNDS, 8 * s.batch_size,
+                                       key=KEY49)))
+    for tag, sim, osd, run in runs:
+        run_engine(tag, sim, osd, run)
+        simc.release_graphs(sim)
+
+    # one fused bucket of phase 40 (hgp_34_n225, every p of the
+    # threshold's grid, one batch a cell)
+    fam = CodeFamily(ctx.codes[:1], ctx.dec1, ctx.dec2, batch_size=ctx.batch,
+                     seed=SEED, device=dev)
+    p_list = sorted({c["cell"]["p"] for c in ctx.rec["cells"]})
+    bucket = [(i, 0, ctx.codes[0], p) for i, p in enumerate(p_list)]
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        prog = fam._data_bucket_program(bucket, "Total", ctx.batch)
+        with check_syncs():
+            got = simc.fused_cell_finish(simc.fused_cell_launch(prog)[0],
+                                         tele=prog.tele)
+        pub = published(telemetry.snapshot())
+        reads, tele_on = prog.driver.host_reads, prog.tele
+    finally:
+        telemetry.disable()
+        prog.release()
+    prog = fam._data_bucket_program(bucket, "Total", ctx.batch)
+    with _kernels.force_eager(), telemetry.collect_device_aux() as aux:
+        off = simc.fused_cell_finish(simc.fused_cell_launch(prog)[0])
+    prog.release()
+    if not tele_on or prog.tele or reads != 1 or any(
+            not np.array_equal(a, b) for a, b in zip(got, off)):
+        raise AssertionError(f"phase 49 fused bucket: on {got}, off {off}, "
+                             f"{reads} host reads")
+    same("40 fused bucket", pub, host_recount(aux))
+    log(f"[49] 40 fused bucket ({len(p_list)} cells x 1 batch of "
+        f"{ctx.batch}, hgp_34_n225): (failures, shots, min_w) == telemetry "
+        f"off; 1 host read; published == host recount: {text(pub)}")
+    log(f"phase 49 took {time.time() - t_new:.1f} s")
+
+    # 50. the waterfall: phase 5's run under profile_session
+    t_new = time.time()
+    sim5 = ctx.sim5
+    shots50 = 16 * sim5.batch_size
+
+    def run5():
+        sim5.min_logical_weight = sim5.N
+        with check_syncs():
+            sim5.WordErrorRate(shots50, key=KEY49)
+        return sim5.last_failures, sim5.min_logical_weight
+
+    off = run5()  # profiling off: captures phase 5's graph again
+    nodes_off = sim5.last_graph["nodes"]
+    simc.release_graphs(sim5)
+    with profiling.profile_session():
+        with profiling.engine_scope("phase50") as acct:
+            t0 = time.perf_counter()
+            on = run5()
+            wf = acct.waterfall(time.perf_counter() - t0)
+        costs = profiling.program_costs()
+    graph5 = sim5.last_graph
+    (label, cost), = costs.items()
+    st = wf["stages"]
+    total = st["dispatch_launch_s"] + st["host_sync_s"] + st["host_gap_s"]
+    if on != off or abs(total - wf["wall_s"]) > 5e-6 \
+            or len({cost["nodes"], graph5["nodes"], nodes_off}) != 1 \
+            or wf["n_dispatches"] != 2 or wf["n_syncs"] != 2:
+        raise AssertionError(f"phase 50: profiling on {on}, off {off}; "
+                             f"waterfall {wf}; cost {cost}; graph {graph5}")
+    replay_s = wf["wall_s"] - graph5["warmup_s"] - graph5["capture_s"] \
+        - graph5["instantiate_s"]
+    util = profiling.derive_utilization(cost, 8 * sim5.batch_size,
+                                        shots50 / replay_s)
+    log(f"[50] phase 5's run under profile_session: (failures, min_w) {on} "
+        f"== profiling off; waterfall {wf} (stages sum to the wall); graph "
+        f"{label}: {cost['nodes']} nodes == the capture's, pool "
+        f"{cost['pool_bytes'] / 2 ** 20:.1f} MiB, {cost['launches']} "
+        f"launches captured ({cost['costed_launches']} costed: "
+        f"{cost['ops']:.4g} ops, {cost['bytes_accessed']:.4g} B at max_iter); "
+        f"rates against {profiling.device_peaks(dev)['name']}'s peaks {util}")
+    # a torch.profiler trace of one replay, summed per kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "replay.json")
+        sim5.WordErrorRate(8 * sim5.batch_size, key=KEY49)  # warm
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            sim5.WordErrorRate(8 * sim5.batch_size, key=KEY49)
+            torch.cuda.synchronize(dev)
+        prof.export_chrome_trace(trace)
+        summary = profiling.parse_trace(trace)
+    names = [k for k in summary["kernels"] if "bp_minsum" in k]
+    if not names:
+        raise AssertionError(f"phase 50: the trace of one replay names no "
+                             f"bp_minsum kernel: {summary}")
+    log(f"[50] torch.profiler trace of one replay: device "
+        f"{summary['device_s'] * 1e3:.3f} ms, kernels "
+        + "; ".join(f"{k[:60]} {v * 1e3:.3f} ms"
+                    for k, v in list(summary["kernels"].items())[:6]))
+    gates = profiling.smem_gates(4096, *ctx.code.hx.shape,
+                                 int(ctx.code.hx.sum(1).max()),
+                                 int(ctx.code.hx.sum(0).max()), device=dev)
+    log(f"[50] the card's gates at phase 5's shape: "
+        + "; ".join(f"{k} {v['memory']} {v['threads']} threads "
+                    f"{v['smem_bytes']} B {v['resident']} resident"
+                    for k, v in gates["kernels"].items()))
+    log(f"phase 50 took {time.time() - t_new:.1f} s")
+
+
+def warm_restart_start(ctx):
+    """Phase 51's first process (module docstring), started in the
+    background: returns ``(process, directory, files)``."""
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="qldpc_p51_")
+    rng = np.random.default_rng(SEED + 51)
+    hx = ctx.code.hx
+    rows = {}
+    for name, p in WARM51_SESSIONS.items():
+        for b in WARM51_BUCKETS:
+            k = b - 3  # padded to the bucket
+            err = (rng.random((k, hx.shape[1])) < p).astype(np.float32)
+            rows[f"{name}/{b}"] = ((err @ hx.T.astype(np.float32))
+                                   .astype(np.int64) % 2).astype(np.uint8)
+    files = {"rows": os.path.join(tmp, "rows.npz"),
+             "cache": os.path.join(tmp, "cache"),
+             "out1": os.path.join(tmp, "out1.npz"),
+             "out2": os.path.join(tmp, "out2.npz")}
+    np.savez(files["rows"], **rows)
+    files["device"] = str(ctx.dev)
+    proc = warm51_process(files, "out1")
+    return proc, tmp, files
+
+
+def warm51_process(files, out):
+    spec = json.dumps({"code": str(CODE), "sessions": WARM51_SESSIONS,
+                       "buckets": list(WARM51_BUCKETS),
+                       "device": files["device"]})
+    return subprocess.Popen(
+        [sys.executable, "-c", WARM51_WORKER, str(ROOT), files["cache"],
+         files["rows"], files[out], spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def warm51_result(proc, tag):
+    try:
+        out, err = proc.communicate(timeout=WARM51_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"phase 51 {tag} process timed out")
+    lines = [ln for ln in out.splitlines() if ln.startswith("RESULT")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 51 {tag} process failed "
+                             f"({proc.returncode}): {err[-3000:]}")
+    return json.loads(lines[-1][len("RESULT"):])
+
+
+def warm_restart_phase(ctx, started) -> None:
+    """Phase 51 (module docstring): the first process's results, a second
+    fresh process from its directory, then a truncated artifact in this
+    process."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.decoders import BP_Decoder_Class
+    from qldpc_fault_tolerance_tpu_torch.serve import DecodeSession
+    from qldpc_fault_tolerance_tpu_torch.utils import progcache
+
+    t_new = time.time()
+    proc, tmp, files = started
+    try:
+        first = warm51_result(proc, "first")
+        proc = warm51_process(files, "out2")
+        second = warm51_result(proc, "second")
+        n_prog = len(WARM51_SESSIONS) * len(WARM51_BUCKETS)
+        n_sess = len(WARM51_SESSIONS)
+        s1, s2 = first["stats"], second["stats"]
+        a1, a2 = np.load(files["out1"]), np.load(files["out2"])
+        same = all(np.array_equal(a1[k], a2[k]) for k in a1.files)
+        if (s1["misses"], s1["stores"]) != (n_prog, n_prog + n_sess) \
+                or s2["disk_hits"] != n_prog + n_sess \
+                or s2["recaptures"] != n_prog or s2["misses"] != 0 \
+                or second["builds"] != 0 \
+                or set(second["sources"].values()) != {"disk"} \
+                or any(second["compiles"].values()) \
+                or sum(second["loads"].values()) != n_prog or not same:
+            raise AssertionError(f"phase 51: first {first}, second {second}, "
+                                 f"answers equal {same}")
+        log(f"[51] warm restart from disk: first process {n_prog} programs "
+            f"built and stored with {n_sess} states ({first['stats']}; "
+            f"start {first['start_s']:.1f} s, sessions "
+            f"{first['sessions_s']:.2f} s); a fresh process: disk hits "
+            f"{s2['disk_hits']} (every (session, bucket) and each state), "
+            f"decoder states rebuilt {second['builds']}, recaptures "
+            f"{s2['recaptures']} (one a bucket), sessions "
+            f"{second['sessions_s']:.2f} s against the first's "
+            f"{first['sessions_s']:.2f} s; every answer bit-exact")
+        # a truncated artifact in this process: a load error, rebuilt and
+        # replaced
+        name, b = "n625_a", WARM51_BUCKETS[0]
+        progcache.configure(files["cache"])
+        try:
+            bp = BP_Decoder_Class(ctx.code.N / 50, "minimum_sum", 0.625,
+                                  device=ctx.dev)
+            probe = DecodeSession(name, decoder_class=bp,
+                                  params={"h": ctx.code.hx,
+                                          "p_data": WARM51_SESSIONS[name]},
+                                  buckets=(b,))
+            key = progcache.cache_key("serve.session", probe._prog_parts(
+                probe.static, probe.state, probe.syndrome_width, b, False,
+                probe._digest))
+            path = os.path.join(files["cache"], key[:2],
+                                key + progcache.ARTIFACT_SUFFIX)
+            with open(path, "rb") as fh:
+                head = fh.read(64)
+            with open(path, "wb") as fh:
+                fh.write(head)
+            s0 = progcache.stats()
+            got = probe.decode(np.load(files["rows"])[f"{name}/{b}"]
+                               ).corrections
+            s3 = progcache.stats()
+            valid = torch.load(path, weights_only=False)["schema"] == 1
+            if s3["load_errors"] != s0["load_errors"] + 1 \
+                    or s3["stores"] != s0["stores"] + 1 or not valid \
+                    or not np.array_equal(got, a1[f"{name}/{b}"]):
+                raise AssertionError(f"phase 51 truncated artifact: {s0} -> "
+                                     f"{s3}, replaced {valid}")
+        finally:
+            progcache.configure(None)
+        log(f"[51] a truncated artifact ({name}, bucket {b}): one load "
+            f"error, rebuilt and replaced (stores +1), its answers "
+            f"bit-exact")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 51 took {time.time() - t_new:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2462,7 +2945,7 @@ def main() -> int:
 
 
 def run_phases(dem_job, cpu42_job) -> int:
-    """Phases 1-48 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-51 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
@@ -2502,7 +2985,8 @@ def run_phases(dem_job, cpu42_job) -> int:
     # 2. build
     t0 = time.time()
     libs = _kernels.build_all()
-    log(f"[2] built {sorted(libs)} in {time.time() - t0:.2f} s")
+    log(f"[2] built {sorted(libs)} in {time.time() - t0:.2f} s; each launch "
+        f"is held against its plain version {PLAIN_VERSIONS}")
 
     code = load_code(str(CODE))
     hx = code.hx
@@ -4747,6 +5231,23 @@ def run_phases(dem_job, cpu42_job) -> int:
         run34=run34, osd_host=BPOSD_Decoder_Class(
             10, "minimum_sum", 0.625, "osd_e", 10, device=dev,
             device_osd=False)))
+
+    # 49-51. what a run tells its operator: telemetry on the card, the
+    # waterfall, a warm restart from disk (its first process started now,
+    # beside phases 49-50)
+    started51 = warm_restart_start(SimpleNamespace(dev=dev, code=code))
+    try:
+        telemetry_phases(SimpleNamespace(
+            dev=dev, code=code, sim5=sim5, sim6=sim6, sim16=sim16,
+            sim25=sim25, sim28=sim28, codes=codes39, dec1=bp30,
+            dec2=osd_e10, batch=2048, rec=rec39))
+    except BaseException:
+        started51[0].kill()
+        started51[0].communicate()
+        shutil.rmtree(started51[1], ignore_errors=True)
+        raise
+    warm_restart_phase(SimpleNamespace(dev=dev, code=code), started51)
+    no_rungs("49-51")
 
     # the kernels line
     kernels = [

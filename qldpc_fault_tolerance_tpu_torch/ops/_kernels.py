@@ -19,7 +19,10 @@ kernel.  Outside a CUDA-graph capture that adds one to the wrapper's
 attribute at once.  During a capture it adds one to a device counter in the
 same branch as the launch, so only replays that run the branch count;
 ``fold_launch_counts`` adds the device counters' growth to the attributes
-(the megabatch driver reads them with its carry).
+(the megabatch driver reads them with its carry).  Within
+``collect_costs()`` (a capture under ``utils.profiling``) each captured
+launch is listed, with the operations and bytes its wrapper declares
+(``declare_cost``).
 
 The min-sum and elimination wrappers launch their kernels in the memory mode
 (``MEMORY_MODES``, ``ELIM_MEMORY_MODES``) that their layouts pick from the
@@ -48,7 +51,7 @@ __all__ = ["SOURCES", "build_all", "library", "force_plain", "plain_forced",
            "force_memory",
            "memory_mode", "PLANE_FORMS", "force_planes", "planes_form",
            "check_launch", "count_launch", "launch_counts",
-           "fold_launch_counts"]
+           "fold_launch_counts", "collect_costs", "declare_cost"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -231,6 +234,32 @@ def launch_counts(device) -> torch.Tensor:
     return entry[0]
 
 
+# the counters that count every launch of their wrapper (the others count
+# a mode's share of them)
+_TOTAL_ATTRS = ("launches", "full_launches", "int8_launches")
+
+
+@contextlib.contextmanager
+def collect_costs():
+    """Within the block (this thread) each counted launch appends
+    ``[kernel, ops, bytes]`` to the yielded list, ``ops`` and ``bytes``
+    None unless its wrapper declares them (``declare_cost``)."""
+    prev = getattr(_force, "costs", None)
+    _force.costs = costs = []
+    try:
+        yield costs
+    finally:
+        _force.costs = prev
+
+
+def declare_cost(ops: float, nbytes: float) -> None:
+    """The operations and bytes of the launch a wrapper just counted, for
+    an enclosing ``collect_costs``."""
+    costs = getattr(_force, "costs", None)
+    if costs:
+        costs[-1][1:] = [float(ops), float(nbytes)]
+
+
 def count_launch(fn, attr: str, device, launched=True) -> None:
     """Count one launch of ``fn``'s kernel on ``device`` in ``fn.attr``
     (nothing when ``launched`` is false): at once, or during a CUDA-graph
@@ -241,6 +270,9 @@ def count_launch(fn, attr: str, device, launched=True) -> None:
         launch_counts(device)[_slot(fn, attr)].add_(1)
     else:
         setattr(fn, attr, getattr(fn, attr) + 1)
+    costs = getattr(_force, "costs", None)
+    if costs is not None and attr in _TOTAL_ATTRS:
+        costs.append([fn.__name__, None, None])
 
 
 def fold_launch_counts(device, values) -> None:

@@ -585,7 +585,21 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
     _kernels.count_launch(bp_minsum, "checks_launches", dev,
                           memory == "checks")
     _kernels.count_launch(bp_minsum, "wide_launches", dev, minsum_wide(rw))
+    _kernels.declare_cost(*minsum_cost(m, n, rw, cw, B, B * int(max_iter)))
     return out
+
+
+def minsum_cost(m: int, n: int, rw: int, cw: int, B: int,
+                shot_iters: int) -> tuple[float, float]:
+    """(operations, bytes) of a min-sum decode of B shots running
+    ``shot_iters`` shot-iterations, as the "bound" column of PERF.md's
+    kernel table counts them: the syndromes, LLRs and graph read once and
+    the four outputs written once; per shot-iteration 11 operations per
+    edge and 2 per variable.  Edges are the graph's m x rw slots (its
+    nonzeros for the regular hgp_34 codes)."""
+    nbytes = (m * B + 4 * n + 5 * m * rw + 9 * n * cw
+              + n * B + 4 * n * B + B + 4 * B)
+    return shot_iters * (11 * m * rw + 2 * n), nbytes
 
 
 def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
@@ -1219,6 +1233,10 @@ def _launch_bf16(head, synd, llr0, head_iters, scale):
                           memory == "checks")
     _kernels.count_launch(bp_head_bf16, "wide_launches", dev,
                           minsum_wide(head.rw))
+    _kernels.declare_cost(*minsum_cost(head.m, head.n, head.rw,
+                                       head.var_edge.shape[-1],
+                                       synd.shape[0],
+                                       synd.shape[0] * int(head_iters)))
     return out
 
 

@@ -54,7 +54,7 @@ from ..ops.prng import (
     split_key,
 )
 from ..utils import device as _device
-from ..utils import faultinject, resilience, telemetry
+from ..utils import faultinject, profiling, resilience, telemetry
 
 __all__ = ["SHOT_AXIS", "ShotMesh", "shot_mesh", "check_mesh",
            "split_keys_for_mesh", "replay_fold", "sharded_batch_stats",
@@ -62,6 +62,7 @@ __all__ = ["SHOT_AXIS", "ShotMesh", "shot_mesh", "check_mesh",
            "batch_generator", "GeneratorInput", "KeyInput",
            "MegabatchDriver", "CellFusedDriver", "MeshCellFusedDriver",
            "count_min_driver", "cell_fused_driver", "drain_double_buffered",
+           "tele_zeros",
            "check_syncs", "CapturedStep"]
 
 SHOT_AXIS = "shots"
@@ -355,13 +356,15 @@ def check_syncs():
         _checks.syncs = prev
 
 
-def _capture_graph(dev, warmup, body, register=None):
+def _capture_graph(dev, warmup, body, register=None, label=None):
     """``warmup()`` under ``device_cond``'s both-branches hook on a side
     stream (counting no launch), then ``body()`` captured into a CUDA graph
     (``register(graph)`` first, for its generators) and instantiated.
     Returns (graph, body's outputs, the pool its conditional bodies
     allocate from, which must live as long as the graph, and what the
-    capture cost)."""
+    capture cost: its seconds, nodes and the device memory it took).  With
+    profiling on, the graph's ``ProgramCost`` is recorded under ``label``
+    (``utils.profiling.capture_jit_cost``)."""
     with torch.cuda.device(dev):
         _kernels.launch_counts(dev)
         stream = torch.cuda.Stream(dev)
@@ -372,18 +375,25 @@ def _capture_graph(dev, warmup, body, register=None):
             warmup()
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
+        mem0 = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if register is not None:
             register(graph)
-        with _device.graph_capture(graph, dev, stream) as rec:
+        with (_kernels.collect_costs() as costs,
+              _device.graph_capture(graph, dev, stream) as rec):
             outs = body()
         t2 = time.perf_counter()
         graph.instantiate()
         t3 = time.perf_counter()
     stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
              "instantiate_s": t3 - t2,
-             "nodes": _device.graph_nodes(graph) + rec.body_nodes}
+             "nodes": _device.graph_nodes(graph) + rec.body_nodes,
+             # the device memory the capture's private pool reserved
+             "pool_bytes": max(0, torch.cuda.memory_reserved(dev) - mem0)}
     telemetry.note_capture(t3 - t0)
+    if profiling.enabled():
+        profiling.capture_jit_cost(label or "graph", stats,
+                                   [tuple(c) for c in costs])
     return graph, outs, rec.body_pool, stats
 
 
@@ -440,8 +450,15 @@ class MegabatchDriver:
 
         graph, _, body_pool, stats = _capture_graph(
             carry[0].device, lambda: self._stats_fn(inputs.warmup(), *extra),
-            megabatch, inputs.register)
+            megabatch, inputs.register, label=self.cost_label)
         return _Graph(graph, carry, inputs, body_pool, stats)
+
+    @property
+    def cost_label(self) -> str:
+        """The captured graph's label in ``utils.profiling``'s cost table:
+        its batch function's name and the batches a megabatch."""
+        fn = getattr(self._stats_fn, "__qualname__", "stats")
+        return f"megabatch.{fn}.k{self.k_inner}"
 
     def _start(self, n_batches: int, start: int, carry0):
         """The run's batch count (a k_inner multiple) and its first carry:
@@ -546,8 +563,9 @@ class MegabatchDriver:
         n_run, carry = self._start(n_batches, int(start), carry0)
         if not self._graphed(carry):
             for s in range(int(start), n_run, k):
-                carry = _dispatch(lambda c=carry, s=s: self._megabatch(
-                    c, seed, s, *extra))
+                carry = profiling.timed_dispatch(
+                    lambda c=carry, s=s: _dispatch(lambda: self._megabatch(
+                        c, seed, s, *extra)), carry[0].device)
                 yield carry, s + k
             return
         entry = self._graphs.get(extra)
@@ -559,12 +577,13 @@ class MegabatchDriver:
             for c, v in zip(entry.carry, carry):
                 c.copy_(v)
             entry.inputs.start(seed, int(start))
+        dev = entry.carry[0].device
         for s in range(int(start), n_run, k):
             def replay(s=s):
                 with _sync_mode(checked):
                     entry.inputs.before_replay(seed, s)
                     entry.graph.replay()
-            _dispatch(replay)
+            profiling.timed_dispatch(lambda: _dispatch(replay), dev)
             self.megabatches += 1
             yield entry.carry, s + k
 
@@ -631,10 +650,12 @@ class _PendingRead(NamedTuple):
     checked: bool
 
     def finish(self) -> tuple:
+        t0 = time.perf_counter()
         with _sync_mode(self.checked and self.dev is not None):
             if self.ready is not None:
                 self.ready.synchronize()
             values = self.host.tolist()
+        profiling.record_host_sync(time.perf_counter() - t0)
         self.driver.host_reads += 1
         n = sum(c.numel() for c in self.carry)
         if self.dev is not None:
@@ -643,19 +664,28 @@ class _PendingRead(NamedTuple):
         return self.driver._unpack(self.carry, values[:n])
 
 
+def tele_zeros(device) -> torch.Tensor:
+    """A zero device telemetry vector (``telemetry.TELE_LEN`` int32): the
+    telemetry slot of a carry."""
+    return torch.zeros(telemetry.TELE_LEN, dtype=torch.int32, device=device)
+
+
 def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
-                     batch_input) -> MegabatchDriver:
+                     batch_input, tele: bool = False) -> MegabatchDriver:
     """MegabatchDriver for the ``(failure count, min logical weight)`` fold
     on ``device``; ``min_init`` seeds the min-weight track (the code length
-    N)."""
+    N).  With ``tele`` the stats function returns a third element, the
+    batch's device telemetry vector, which the carry sums."""
 
     def combine(c, o):
-        return (c[0] + o[0], torch.minimum(c[1], o[1]))
+        out = (c[0] + o[0], torch.minimum(c[1], o[1]))
+        return out + (c[2] + o[2],) if tele else out
 
     def init():
-        return (torch.zeros((), dtype=torch.int32, device=device),
-                torch.full((), int(min_init), dtype=torch.int32,
-                           device=device))
+        out = (torch.zeros((), dtype=torch.int32, device=device),
+               torch.full((), int(min_init), dtype=torch.int32,
+                          device=device))
+        return out + (tele_zeros(device),) if tele else out
 
     return MegabatchDriver(stats_fn, combine, init, batch_input,
                            k_inner=k_inner)
@@ -705,7 +735,9 @@ class CellFusedDriver(MegabatchDriver):
     masks by ``active`` and adds at the lane's cell.
 
     Carry: ``(failures (C,) int32, shots (C,) int64, min_w (C,) int32)``,
-    with ``weighted`` ``(s1, s2, w1, w2) (C,) float32`` after them.
+    with ``weighted`` ``(s1, s2, w1, w2) (C,) float32`` after them, and
+    with ``tele`` the bucket's device telemetry vector last (the stats
+    function returns a lane-batch's vector last; the active lanes' sum).
 
     The lane plan, per megabatch, is host vectors ``(lane_base,
     lane_stride, lane_cell, active)``: batch j of lane l draws from
@@ -730,10 +762,11 @@ class CellFusedDriver(MegabatchDriver):
 
     def __init__(self, stats_fn, n_cells: int, batch_size: int,
                  k_inner: int, min_init: int, device,
-                 weighted: bool = False, slots=None):
+                 weighted: bool = False, slots=None, tele: bool = False):
         self.n_cells = int(n_cells)
         self.batch_size = int(batch_size)
         self.weighted = bool(weighted)
+        self.tele = bool(tele)
         self.device = torch.device(device)
         self.slots = None if slots is None else tuple(int(d) for d in slots)
         self._min_init = int(min_init)
@@ -755,6 +788,8 @@ class CellFusedDriver(MegabatchDriver):
         if self.weighted:
             carry += tuple(torch.zeros(C, dtype=torch.float32, device=dev)
                            for _ in range(4))
+        if self.tele:
+            carry += (tele_zeros(dev),)
         return carry
 
     def host_init(self) -> tuple:
@@ -764,6 +799,8 @@ class CellFusedDriver(MegabatchDriver):
                 np.full(C, self._min_init, np.int64))
         if self.weighted:
             host += tuple(np.zeros(C, np.float64) for _ in range(4))
+        if self.tele:
+            host += (np.zeros(telemetry.TELE_LEN, np.int64),)
         return host
 
     def _unit(self, gens, lane: int, extra):
@@ -772,7 +809,8 @@ class CellFusedDriver(MegabatchDriver):
         outs = [self._stats_fn(gen, self._lane(lane), *extra) for gen in gens]
         if len(outs) == 1:
             return outs[0]
-        return replay_fold(outs, n_w=4 if self.weighted else 0)
+        return replay_fold(outs, n_w=4 if self.weighted else 0,
+                           has_tele=self.tele)
 
     def _fold(self, carry, lane: int, out):
         """Add lane ``lane``'s batch ``out`` at its cell if it is active:
@@ -785,6 +823,9 @@ class CellFusedDriver(MegabatchDriver):
         if self.weighted:
             new += tuple(torch.where(hit, carry[3 + i] + out[2 + i],
                                      carry[3 + i]) for i in range(4))
+        if self.tele:
+            new += (torch.where(self._active[lane], carry[-1] + out[-1],
+                                carry[-1]),)
         return new
 
     def _lane(self, lane: int):
@@ -827,7 +868,8 @@ class CellFusedDriver(MegabatchDriver):
         graph, _, body_pool, stats = _capture_graph(
             self.device, lambda: self._stats_fn(inputs.warmup(),
                                                 self._lane(0), *extra),
-            megabatch, inputs.register)
+            megabatch, inputs.register,
+            label=f"fused_cells.c{self.n_cells}.k{self.k_inner}")
         return _Graph(graph, carry, inputs, body_pool, stats)
 
     def dispatch(self, carry, seed, plan, *extra):
@@ -838,18 +880,23 @@ class CellFusedDriver(MegabatchDriver):
         base, stride, cells, active = plan
         self._write_plan(cells, active)
         if not self._graphed(carry):
-            return self._megabatch_plan(carry, seed, base, stride, active,
-                                        *extra)
+            return profiling.timed_dispatch(
+                lambda: self._megabatch_plan(carry, seed, base, stride,
+                                             active, *extra), self.device)
         entry = self._graphs.get(extra)
         if entry is None:
             entry = self._graphs[extra] = self._capture(extra, carry)
         self.graph_stats = entry.stats
-        with _sync_mode(getattr(_checks, "syncs", False)):
-            if carry is not entry.carry:
-                for c, v in zip(entry.carry, carry):
-                    c.copy_(v)
-            entry.inputs.reseed(seed, base, stride)
-            entry.graph.replay()
+
+        def replay():
+            with _sync_mode(getattr(_checks, "syncs", False)):
+                if carry is not entry.carry:
+                    for c, v in zip(entry.carry, carry):
+                        c.copy_(v)
+                entry.inputs.reseed(seed, base, stride)
+                entry.graph.replay()
+
+        profiling.timed_dispatch(replay, self.device)
         self.megabatches += 1
         return entry.carry
 
@@ -944,12 +991,13 @@ class MeshCellFusedDriver:
 
     def __init__(self, replicate, n_cells: int, batch_size: int,
                  k_inner: int, min_init: int, mesh: ShotMesh,
-                 weighted: bool = False):
+                 weighted: bool = False, tele: bool = False):
         self.mesh = mesh
         self.n_cells = int(n_cells)
         self.batch_size = int(batch_size)
         self.k_inner = max(1, int(k_inner))
         self.weighted = bool(weighted)
+        self.tele = bool(tele)
         self.device = mesh.devices[0]
         self.mesh_degraded = False
         self._replicate = replicate
@@ -960,7 +1008,8 @@ class MeshCellFusedDriver:
     def _sub(self, device, slots) -> CellFusedDriver:
         return CellFusedDriver(self._replicate(device), self.n_cells,
                                self.batch_size, self.k_inner, self._min_init,
-                               device, weighted=self.weighted, slots=slots)
+                               device, weighted=self.weighted, slots=slots,
+                               tele=self.tele)
 
     def degrade_mesh(self) -> None:
         """Run the mesh's key streams in turn on its first device from the
@@ -1055,7 +1104,7 @@ class MeshCellFusedDriver:
 
 def cell_fused_driver(stats_fn, n_cells: int, batch_size: int, k_inner: int,
                       *, min_init: int, device, weighted: bool = False,
-                      mesh=None, replicate=None):
+                      mesh=None, replicate=None, tele: bool = False):
     """A ``CellFusedDriver`` for one bucket (its graph is captured once,
     at its first megabatch, and replayed for every megabatch and plan), or
     with a ``ShotMesh`` a ``MeshCellFusedDriver`` whose device ``dev``
@@ -1064,10 +1113,10 @@ def cell_fused_driver(stats_fn, n_cells: int, batch_size: int, k_inner: int,
     None)."""
     if check_mesh(mesh) is None:
         return CellFusedDriver(stats_fn, n_cells, batch_size, k_inner,
-                               min_init, device, weighted=weighted)
+                               min_init, device, weighted=weighted, tele=tele)
     return MeshCellFusedDriver(
         replicate or (lambda dev: stats_fn), n_cells, batch_size, k_inner,
-        min_init, mesh, weighted=weighted)
+        min_init, mesh, weighted=weighted, tele=tele)
 
 
 class CapturedStep:
@@ -1112,7 +1161,8 @@ class CapturedStep:
             dev, lambda: self._body(throwaway, self.carry),
             lambda: self._step(gen),
             None if gen is None
-            else lambda graph: graph.register_generator_state(gen))
+            else lambda graph: graph.register_generator_state(gen),
+            label="stream_step")
         self._graph = (graph, outs, body_pool)
 
     def __call__(self):

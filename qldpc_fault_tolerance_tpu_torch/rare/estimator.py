@@ -82,12 +82,22 @@ def stratified_wer(sim, strata, samples_per_stratum: int,
     covered strata, ``variance`` its stratified variance, ``tail_mass``
     the ``P(W > k_max)`` truncation bound, ``head_mass`` the ``P(W <
     k_min)`` mass the caller skipped (not an error when those strata are
-    correctable), and ``stats`` a ``WeightedStats`` view of the run."""
+    correctable), and ``stats`` a ``WeightedStats`` view of the run.  The
+    run is recorded (``sim.common.record_wer_run``) in one
+    ``utils.profiling.engine_scope("wer.rare_strata")``."""
+    from ..utils import profiling
+
+    with profiling.engine_scope("wer.rare_strata"):
+        return _stratified_wer(sim, strata, samples_per_stratum, key)
+
+
+def _stratified_wer(sim, strata, samples_per_stratum, key):
     from ..ops.prng import fold_in, key_words, split_key
     from ..parallel.shots import GeneratorInput, count_min_driver
     from ..sim.common import (
         ShotBatcher,
         WeightedStats,
+        record_wer_run,
         refuse_mesh,
         wer_single_shot_weighted,
     )
@@ -149,6 +159,7 @@ def stratified_wer(sim, strata, samples_per_stratum: int,
                     for k in range(strata[0]))
     tail_mass = max(1.0 - covered - head_mass, 0.0)
     wer, wer_eb = wer_single_shot_weighted(stats, sim.K)
+    record_wer_run("data", failures_total, shots_total, wer, weighted=stats)
     return {"rate": rate, "variance": var, "wer": wer, "wer_eb": wer_eb,
             "strata": rows, "covered_mass": covered,
             "head_mass": head_mass, "tail_mass": tail_mass, "stats": stats}

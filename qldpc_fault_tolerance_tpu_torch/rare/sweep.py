@@ -79,7 +79,20 @@ def eval_weighted_cells(sims, tilts, num_samples: int, *,
     (a ``parallel.shots.ShotMesh``) shards the bucket's lane-batches over
     its devices, the budget divided by its size.  Returns one
     dict per rung, ``{index, p, tilt, wer, wer_eb, sigma, ess, rse,
-    stats}``, ready for ``fit_rare_distance``."""
+    stats}``, ready for ``fit_rare_distance``.  Each rung's run is
+    recorded (``sim.common.record_wer_run``, in one
+    ``utils.profiling.engine_scope("wer.rare")``)."""
+    from ..utils import profiling
+
+    with profiling.engine_scope("wer.rare"):
+        return _eval_weighted_cells(sims, tilts, num_samples, target_rse,
+                                    min_failures, checkpoint, progress_every,
+                                    cell_keys, mesh)
+
+
+def _eval_weighted_cells(sims, tilts, num_samples, target_rse, min_failures,
+                         checkpoint, progress_every, cell_keys, mesh):
+    from ..sim.common import record_wer_run
     from ..sim.data_error import weighted_cells_program
     from ..utils import diagnostics, telemetry
     from ..utils.checkpoint import CellProgress
@@ -118,7 +131,8 @@ def eval_weighted_cells(sims, tilts, num_samples: int, *,
         point = weighted_fit_point(p_axis, ws, sim.K, tilt=q_total)
         point["index"] = i
         point["stats"] = ws
-        ci = ws.ci_fields() if diagnostics.active() else {}
+        ci = record_wer_run("data", ws.failures, ws.shots, point["wer"],
+                            weighted=ws, tilt=q_total)
         cell_key = (prog.cell_keys[i] if prog.cell_keys
                     else {"p": p_total, "code": getattr(sim.code, "name",
                                                         "?"),

@@ -16,8 +16,14 @@ The port's counterpart of the JAX package's ``serve/session.py``.  A
     and the graph's launch counters to the host in ONE read
     (``resilience.guarded_fetch``);
   * the warm path captures nothing: ``compiles`` counts captures (builds on
-    the CPU), ``loads`` programs found in the in-process cache
-    (``utils.progcache``).
+    the CPU), ``loads`` programs found in the program cache
+    (``utils.progcache``): in this process, or with its disk half active
+    (``progcache.configure(dir)``) on disk.  There a factory session
+    (``decoder_class=``) stores its decoder state tensors under its recipe
+    (a digest of the class's configuration and the params) and each
+    bucket's layout picks; a fresh process loads the state instead of
+    rebuilding it (``state_source == "disk"``) and captures each bucket's
+    graph again, counted in ``progcache``'s ``recaptures``.
 
 The contract: a served round equals the offline ``decode_device`` of
 the same rows padded into the same bucket, bit for bit, on each device,
@@ -124,6 +130,39 @@ def _state_digest(state) -> str:
     return h.hexdigest()
 
 
+def _digest_value(h, v) -> None:
+    """Fold ``v`` (arrays by their bytes, containers by their items, the
+    rest by repr) into the hash ``h``."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, np.ndarray):
+        h.update(repr((v.shape, str(v.dtype))).encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    elif isinstance(v, dict):
+        for k in sorted(v, key=str):
+            h.update(repr(k).encode())
+            _digest_value(h, v[k])
+    elif isinstance(v, (list, tuple)):
+        h.update(f"{type(v).__name__}{len(v)}".encode())
+        for x in v:
+            _digest_value(h, x)
+    else:
+        h.update(repr(v).encode())
+
+
+def _recipe_digest(decoder_class, params) -> str:
+    """Digest of what a factory session's state is built from: the decoder
+    class, its configuration and the params (matrices by their bytes).
+    ``GetDecoderState`` is deterministic, so equal recipes build equal
+    states."""
+    h = hashlib.sha1()
+    _digest_value(h, (type(decoder_class).__module__,
+                      type(decoder_class).__qualname__,
+                      {k: v for k, v in vars(decoder_class).items()
+                       if not k.startswith("_")}, dict(params)))
+    return h.hexdigest()
+
+
 def _decode_fn(static, state):
     def fn(syndromes):
         cor, aux = decode_device(static, state, syndromes)
@@ -177,7 +216,8 @@ class _Program:
 
         t0 = time.perf_counter()
         graph, out, self.pool, stats = _capture_graph(
-            dev, lambda: self.fn(*self.bufs), body)
+            dev, lambda: self.fn(*self.bufs), body,
+            label="serve." + "x".join(str(d) for d in self.in_specs[0][0]))
         self.capture_s = time.perf_counter() - t0
         self.graph, self.out = graph, out
         self.nodes = stats["nodes"]
@@ -291,6 +331,12 @@ class DecodeSession:
         self.name = str(name)
         from ..parallel.shots import check_mesh
 
+        self._recipe = None       # a factory session's state recipe
+        self._factory = decoder_class
+        # where the state came from: "build" or, from the program cache's
+        # disk half, "disk"
+        self.state_source = "build"
+
         self._mesh = check_mesh(mesh)
         self._mesh_devices = 0 if mesh is None else int(mesh.size)
         self._sharded = False
@@ -313,6 +359,7 @@ class DecodeSession:
                 raise ValueError("decoder_class= requires params=")
             self._rebuild = lambda: decoder_class.GetDecoderState(
                 dict(params))
+            self._recipe = _recipe_digest(decoder_class, params)
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"invalid bucket ladder {buckets!r}")
@@ -328,16 +375,56 @@ class DecodeSession:
         self.bucket_variants: dict = {}
         self._resolve_state()
 
+    def _state_parts(self) -> dict:
+        """The key of a factory session's state artifact."""
+        return {"recipe": self._recipe}
+
+    def _resolve_pair(self):
+        """``(static, state, digest)``: loaded from the program cache's
+        disk half where a factory session stored it (its digest checked),
+        else built (and stored there when the disk half is active)."""
+        if self._recipe is not None and progcache.active():
+            payload = progcache.load_artifact("serve.state",
+                                              self._state_parts())
+            if payload is not None:
+                dev = self._state_home()
+                with DEVICE_LOCK:
+                    state = pytree.tree_map(
+                        lambda x: (x.to(dev) if isinstance(x, torch.Tensor)
+                                   else x), payload["state"])
+                    digest = _state_digest(state)
+                if digest == payload["digest"]:
+                    self.state_source = "disk"
+                    telemetry.count("serve.session.state_loads")
+                    return payload["static"], state, digest
+        t0 = time.perf_counter()
+        with DEVICE_LOCK:
+            static, state = self._rebuild()
+            digest = _state_digest(state)
+        telemetry.count("serve.session.builds")
+        self.state_source = "build"
+        if self._recipe is not None and progcache.active():
+            progcache.store_artifact(
+                "serve.state", self._state_parts(),
+                {"static": static, "digest": digest,
+                 "state": pytree.tree_map(
+                     lambda x: (x.detach().cpu() if isinstance(x, torch.Tensor)
+                                else x), state)},
+                label=f"serve.state.{self.name}",
+                build_s=time.perf_counter() - t0)
+        return static, state, digest
+
+    def _state_home(self) -> torch.device:
+        """The device a factory's states live on (its ``device``)."""
+        return canonical(getattr(self._factory, "device", "cuda"))
+
     def _resolved(self):
         """One fresh ``(static, state, syndrome_width, kernel_variant,
         osd_backend, digest)`` resolution, built without assigning so
         ``heal()`` can build replacement state while the current pair
         keeps serving."""
-        with DEVICE_LOCK:
-            static, state = self._rebuild()
-            digest = _state_digest(state)
+        static, state, digest = self._resolve_pair()
         width = device_syndrome_width(static, state)
-        telemetry.count("serve.session.builds")
         if static[0] != "bposd_dev":
             backend = "none"
         elif len(static) > 6 and static[6] == "osd_cs":
@@ -383,12 +470,15 @@ class DecodeSession:
             parts["mesh"] = tuple(str(d) for d in self._mesh.devices)
         return parts
 
-    def _compile_program(self, static, state, width, bucket: int,
-                         sharded: bool, digest: str):
-        """One program: the plain per-bucket program, or its mesh-sharded
-        twin (the bucket split over the mesh's entries, the state
-        replicated to each).  Returns ``(program, source)`` with source
-        ``"mem"`` (found in the in-process cache) or ``"compile"``."""
+    def _program_entry(self, static, state, width, bucket: int,
+                       sharded: bool, digest: str):
+        """What the program cache needs of one program: ``(parts, build,
+        picks, load)``, its key's parts, the build function (the plain
+        per-bucket program, or its mesh-sharded twin: the bucket split over
+        the mesh's entries, the state replicated to each), the bucket and
+        layout picks its artifact holds, and the loader of that artifact
+        (it captures the graph again; picks that moved refuse it, and the
+        program is rebuilt)."""
         parts = self._prog_parts(static, state, width, bucket, sharded,
                                  digest)
 
@@ -409,8 +499,30 @@ class DecodeSession:
                                       keep=rep))
             return _ShardedProgram(progs)
 
-        return progcache.compile_cached(build, kind="serve.session",
-                                        parts=parts)
+        picks = {"bucket": int(bucket), "width": int(width),
+                 "sharded": bool(sharded),
+                 "kernel_variant": kernel_variant(static, state, int(bucket)),
+                 "digest": digest}
+
+        def load(payload):
+            if payload != picks:
+                raise ValueError(f"stale program artifact {payload}")
+            return build()
+
+        return parts, build, picks, load
+
+    def _compile_program(self, static, state, width, bucket: int,
+                         sharded: bool, digest: str):
+        """One program (``_program_entry``) from the program cache.
+        Returns ``(program, source)`` with source ``"mem"`` (found in this
+        process), ``"disk"`` (its artifact loaded, the graph captured
+        again) or ``"compile"``."""
+        parts, build, picks, load = self._program_entry(
+            static, state, width, bucket, sharded, digest)
+        return progcache.compile_cached(
+            build, kind="serve.session", parts=parts,
+            save=lambda prog: picks, load=load,
+            label=f"serve.session.{self.name}.{int(bucket)}")
 
     def _route_sharded(self, bucket: int) -> bool:
         """Whether this bucket's decode runs the mesh-sharded program
@@ -483,8 +595,9 @@ class DecodeSession:
         recapture rung a serving dispatch steps after repeated transient
         faults (after ``reset_device_state`` the re-resolve rebuilds the
         state, and the next ``program()`` captures against it).
-        ``stale_artifact=True`` also evicts the warm keys from the
-        in-process cache, so a re-resolve to equal state captures anew."""
+        ``stale_artifact=True`` also evicts the warm keys from the program
+        cache (memory and disk) and the session's state artifact, so a
+        re-resolve to equal state builds and captures anew."""
         with self._lock:
             if stale_artifact:
                 for (bucket, sharded) in list(self._programs):
@@ -493,6 +606,9 @@ class DecodeSession:
                                              sharded, self._digest)
                     progcache.evict(
                         progcache.cache_key("serve.session", parts))
+                if self._recipe is not None:
+                    progcache.evict(progcache.cache_key(
+                        "serve.state", self._state_parts()))
                 telemetry.count("serve.session.artifact_evictions",
                                 len(self._programs))
             self._programs.clear()
@@ -512,8 +628,10 @@ class DecodeSession:
             return sorted([int(b), bool(s)] for (b, s) in self._programs)
 
     def adopt_program(self, bucket: int, sharded: bool = False) -> bool:
-        """Take one program from the in-process cache — never captures; a
-        miss is a no-op (False)."""
+        """Take one program from the program cache: in this process, or
+        with its disk half active from its artifact (the graph captured
+        again); never builds a program that has no artifact — a miss is a
+        no-op (False)."""
         if sharded is None:
             sharded = self._route_sharded(bucket)
         key = (int(bucket), bool(sharded))
@@ -522,10 +640,10 @@ class DecodeSession:
                 telemetry.count("serve.session.warm_already")
                 return True
             t0 = time.perf_counter()
-            parts = self._prog_parts(self.static, self.state,
-                                     self.syndrome_width, key[0], key[1],
-                                     self._digest)
-            prog = progcache.load_cached("serve.session", parts)
+            parts, _build, _picks, load = self._program_entry(
+                self.static, self.state, self.syndrome_width, key[0],
+                key[1], self._digest)
+            prog = progcache.load_cached("serve.session", parts, load=load)
             if prog is None:
                 telemetry.count("serve.session.warm_load_misses")
                 return False

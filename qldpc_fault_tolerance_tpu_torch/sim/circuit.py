@@ -53,6 +53,7 @@ from .common import (
     launch_decode,
     megabatch_driver,
     needs_host,
+    record_engine_run,
     resilient_engine_run,
     wer_per_cycle,
     windowed_count,
@@ -375,9 +376,10 @@ class CodeSimulator_Circuit:
         self._base_key, sub = split_key(self._base_key)
         return int(self.run_batch(sub, 1)[0])
 
-    def _count_failures(self, num_samples: int, key=None):
-        """(failure count, shots run) of ``num_samples`` shots
-        (``sim.common.count_failures``), under the active resilience
+    def _wer(self, num_samples: int, key=None):
+        """``(wer, wer_eb)`` per cycle of ``num_samples`` shots
+        (``sim.common.count_failures``), recorded
+        (``sim.common.record_engine_run``), under the active resilience
         policy behind the fault site ``wer.circuit``.  A decoder 2 with a
         host OSD stage runs the host-assisted loop (``_count_host``)."""
         self._ensure_circuit()
@@ -391,8 +393,12 @@ class CodeSimulator_Circuit:
 
         def run():
             if needs_host(self.decoder2_z):
-                return self._count_host(num_samples, key)
-            return count_failures(self, num_samples, key)
+                count, total = self._count_host(num_samples, key)
+            else:
+                count, total = count_failures(self, num_samples, key)
+            wer = wer_per_cycle(count, total, self.K, self.num_cycles)
+            record_engine_run(self, "circuit", (self.decoder1_z, self.decoder2_z), count, total, wer[0])
+            return wer
 
         return resilient_engine_run(run, site="wer.circuit")
 
@@ -417,6 +423,7 @@ class CodeSimulator_Circuit:
 
         count = windowed_count(launch, finish, range(batcher.num_batches))
         self.last_failures, self.last_shots = count, batcher.total
+        self.last_dispatches = batcher.num_batches
         return count, batcher.total
 
     def degrade_mesh(self) -> None:
@@ -436,5 +443,4 @@ class CodeSimulator_Circuit:
     def WordErrorRate(self, num_samples: int, key=None):
         """Per-qubit-per-cycle WER and its error bar (``src/Simulators.py:
         653-671``, ``sim.common.wer_per_cycle``)."""
-        count, total = self._count_failures(num_samples, key)
-        return wer_per_cycle(count, total, self.K, self.num_cycles)
+        return self._wer(num_samples, key)

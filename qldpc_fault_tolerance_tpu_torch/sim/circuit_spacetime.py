@@ -55,6 +55,7 @@ from ..decoders.bp_decoders import decode_device
 from ..ops.linalg import ParityOp
 from ..ops.prng import fold_in, key_words, prng_key, split_key
 from ..parallel.shots import GeneratorInput, batch_generator, check_mesh
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .circuit import _swap_xz_inplace, build_memory_circuit
 from .common import (
@@ -66,6 +67,7 @@ from .common import (
     launch_decode,
     megabatch_driver,
     needs_host,
+    record_engine_run,
     resilient_engine_run,
     st_window_count,
     wer_per_cycle,
@@ -320,9 +322,10 @@ class CodeSimulator_Circuit_SpaceTime:
         self._base_key, sub = split_key(self._base_key)
         return int(self.run_batch(sub, 1)[0])
 
-    def _count_failures(self, num_samples: int, key=None):
-        """(failure count, shots run) of ``num_samples`` shots
-        (``sim.common.count_failures``), under the active resilience
+    def _wer(self, num_samples: int, key=None):
+        """``(wer, wer_eb)`` per cycle of ``num_samples`` shots
+        (``sim.common.count_failures``), recorded
+        (``sim.common.record_engine_run``), under the active resilience
         policy behind the fault site ``wer.circuit_st``.  A decoder 2 with
         a host OSD stage runs the host-assisted loop (``_count_host``)."""
         self._ensure_ready()
@@ -331,8 +334,12 @@ class CodeSimulator_Circuit_SpaceTime:
 
         def run():
             if needs_host(self.decoder2_z):
-                return self._count_host(num_samples, key)
-            return count_failures(self, num_samples, key)
+                count, total = self._count_host(num_samples, key)
+            else:
+                count, total = count_failures(self, num_samples, key)
+            wer = wer_per_cycle(count, total, self.K, self.num_cycles)
+            record_engine_run(self, "circuit_st", (self.decoder1_z, self.decoder2_z), count, total, wer[0])
+            return wer
 
         return resilient_engine_run(run, site="wer.circuit_st")
 
@@ -357,6 +364,7 @@ class CodeSimulator_Circuit_SpaceTime:
 
         count = windowed_count(launch, finish, range(batcher.num_batches))
         self.last_failures, self.last_shots = count, batcher.total
+        self.last_dispatches = batcher.num_batches
         return count, batcher.total
 
     def degrade_mesh(self) -> None:
@@ -378,8 +386,7 @@ class CodeSimulator_Circuit_SpaceTime:
         """Per-qubit-per-cycle WER and its error bar
         (``src/Simulators_SpaceTime.py:1031-1049``,
         ``sim.common.wer_per_cycle``)."""
-        count, total = self._count_failures(num_samples, key)
-        return wer_per_cycle(count, total, self.K, self.num_cycles)
+        return self._wer(num_samples, key)
 
     def WordErrorRate_TargetFailure(self, target_failures: int,
                                     batch_size: int, max_batches: int,
@@ -392,13 +399,19 @@ class CodeSimulator_Circuit_SpaceTime:
         if key is None:
             self._base_key, key = split_key(self._base_key)
         total_samples, total_failures = 0, 0
-        for i in range(int(max_batches)):
-            fails = self.run_batch(fold_in(key, i), int(batch_size))
-            total_failures += int(fails.sum())
-            total_samples += int(batch_size)
-            if total_failures >= target_failures:
-                break
-        self.last_failures, self.last_shots = total_failures, total_samples
-        wer, _ = wer_per_cycle(total_failures, total_samples, self.K,
-                               self.num_cycles)
+        with profiling.engine_scope("wer.circuit_st"):
+            for i in range(int(max_batches)):
+                fails = profiling.timed_dispatch(lambda i=i: self.run_batch(
+                    fold_in(key, i), int(batch_size)))
+                total_failures += int(fails.sum())
+                total_samples += int(batch_size)
+                if total_failures >= target_failures:
+                    break
+            self.last_failures, self.last_shots = total_failures, total_samples
+            self.last_dispatches = total_samples // int(batch_size)
+            wer, _ = wer_per_cycle(total_failures, total_samples, self.K,
+                                   self.num_cycles)
+            record_engine_run(self, "circuit_st",
+                              (self.decoder1_z, self.decoder2_z),
+                              total_failures, total_samples, wer)
         return wer, total_samples

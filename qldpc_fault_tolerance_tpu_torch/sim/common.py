@@ -23,13 +23,25 @@ Besides the serial run's helpers, the JAX package's two families of
     degradation ladder (rungs that stay on the card's kernels: the fused
     sampler's v2 -> v1, packed -> dense), the host-assisted (host OSD)
     batch loop, and the mesh's ``mesh_replan`` rung stepped on a device
-    fault.
+    fault;
+  * the run record's (``tele_stats``, ``record_wer_run``,
+    ``joint_kernel_variant``, ``joint_osd_backend``): with telemetry on,
+    the data and phenom engines' batch units (serial, mesh, weighted and
+    fused) return the batch's device telemetry vector
+    (``utils.telemetry.device_tele_vec``) as a last element, the carry
+    sums it and the run's host read brings it back (telemetry off: the
+    units, carries and captured graphs of a run without it); every
+    engine's run ends in ``record_wer_run`` (the ``sim.*`` counters, one
+    ``wer_run`` and one ``heartbeat`` event with the run's waterfall,
+    ``utils.profiling``).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
+import time
 import types
 
 import numpy as np
@@ -46,8 +58,9 @@ from ..parallel.shots import (
     count_min_driver,
     drain_double_buffered,
     replay_fold,
+    tele_zeros,
 )
-from ..utils import diagnostics, faultinject, resilience, telemetry
+from ..utils import diagnostics, faultinject, profiling, resilience, telemetry
 from ..utils.device import canonical
 
 __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
@@ -68,7 +81,9 @@ __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "drive_weighted_run", "replicate", "mesh_replica",
            "mesh_batch_stats", "degrade_mesh", "refuse_mesh",
            "resilient_engine_run", "engine_ladder_step", "windowed_count",
-           "needs_host", "launch_decode", "finish_decode"]
+           "needs_host", "launch_decode", "finish_decode", "tele_stats",
+           "tele_on", "record_wer_run", "record_engine_run",
+           "joint_kernel_variant", "joint_osd_backend"]
 
 
 def wer_single_shot(error_count: int, num_run: int, K: int):
@@ -162,21 +177,50 @@ def decoder_key(dec) -> tuple:
         t.data_ptr() if isinstance(t, torch.Tensor) else t for t in leaves))
 
 
+def tele_on(sim) -> bool:
+    """Whether ``sim``'s runs carry the device telemetry vector now:
+    telemetry enabled and an engine that threads it (the data and phenom
+    engines, ``_DEVICE_TELE``, as in the JAX package)."""
+    return telemetry.enabled() and getattr(sim, "_DEVICE_TELE", False)
+
+
+def tele_stats(stats_fn, device):
+    """``stats_fn`` with the batch's device telemetry vector appended to
+    its outputs: the decodes it runs note their aux
+    (``telemetry.note_device_aux``), folded by ``device_tele_vec``."""
+
+    @functools.wraps(stats_fn)
+    def stats(*args):
+        with telemetry.collect_device_aux() as aux:
+            out = stats_fn(*args)
+        return (*out, telemetry.device_tele_vec(aux, device))
+
+    return stats
+
+
 def megabatch_driver(sim, chunk: int, program: tuple, stats_fn,
-                     batch_input):
+                     batch_input, tele: bool = False):
     """``sim``'s megabatch driver of ``chunk`` batches per megabatch over
     ``stats_fn``, kept in ``sim._drivers`` (its captured graphs with it) as
     long as ``program``, what a batch bakes in, is unchanged.  A mesh
-    replica (``mesh_replica``) draws its slot's stream."""
-    key = (chunk, *program)
+    replica (``mesh_replica``) draws its slot's stream.  ``tele`` (part of
+    the key) carries the device telemetry vector (``tele_stats``)."""
+    key = (chunk, *program) + (("tele",) if tele else ())
     driver = sim._drivers.get(key)
     if driver is None:
         slot = getattr(sim, "_mesh_slot", None)
         if slot is not None:
             batch_input = batch_input.on_slot(slot)
+        if tele:
+            stats_fn = tele_stats(stats_fn, sim.device)
         driver = sim._drivers[key] = count_min_driver(
-            stats_fn, sim.N, sim.device, chunk, batch_input)
+            stats_fn, sim.N, sim.device, chunk, batch_input, tele=tele)
     return driver
+
+
+def _engine_driver(sim, chunk: int, tele: bool):
+    """``sim._driver(chunk)``, with the telemetry slot when ``tele``."""
+    return sim._driver(chunk, tele=True) if tele else sim._driver(chunk)
 
 
 def release_graphs(sim) -> None:
@@ -198,7 +242,7 @@ def run_signature(engine: str, key, **fields) -> dict:
 
 
 def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
-                     min_init):
+                     min_init, tele: bool = False):
     """The mid-cell resume protocol of the megabatch engines, as the JAX
     package's: ``driver.run_keys`` with its cursor loaded from and saved
     to a ``utils.checkpoint.CellProgress``.
@@ -207,13 +251,17 @@ def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
     the persisted one on resume, ``(0, min_init)`` fresh — and an iterator
     of ``(carry, done)`` per drained megabatch that saves the cursor as it
     yields.  The cursor is honoured only when ``signature``
-    (``run_signature``) matches; telemetry is not part of that identity
-    (the port's carry holds no telemetry)."""
+    (``run_signature``) matches; telemetry is not part of that identity:
+    with ``tele`` the carry's telemetry vector persists in the cursor's
+    ``"tele"`` and seeds a resumed run's (zeros when a run saved without
+    it), as in the JAX package."""
     start, carry0 = 0, None
     state = progress.load(signature) if progress is not None else None
     if state:
         start = int(state["batches_done"])
         carry0 = (int(state["failures"]), int(state["min_w"]))
+        if tele:
+            carry0 += (state.get("tele") or [0] * telemetry.TELE_LEN,)
     initial = carry0 if state else (0, int(min_init))
 
     def stream():
@@ -221,7 +269,8 @@ def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
                                            start=start, carry0=carry0):
             if progress is not None:
                 progress.save(signature, batches_done=done,
-                              failures=int(carry[0]), min_w=int(carry[1]))
+                              failures=int(carry[0]), min_w=int(carry[1]),
+                              tele=carry[2] if len(carry) > 2 else None)
             yield carry, done
 
     return (initial, start), stream()
@@ -242,7 +291,9 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     counted (one more may have been launched), its host reads and its
     capture, and folds its min weight into ``min_logical_weight``; with
     diagnostics active, reports the counts to an enclosing sweep cell
-    (``utils.diagnostics.note_run``); returns ``(failures, shots run)``.
+    (``utils.diagnostics.note_run``); with telemetry on (``tele_on``) the
+    carry also sums the device telemetry vector, published at the run's
+    last read; returns ``(failures, shots run)``.
     An engine with a mesh runs ``mesh_batch_stats`` instead (no
     ``target_failures``, no cursor)."""
     if getattr(sim, "_mesh", None) is not None:
@@ -258,15 +309,16 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     batcher = ShotBatcher(num_samples, sim.batch_size)
     chunk = min(batcher.num_batches, sim._scan_chunk)
     n_batches = -(-batcher.num_batches // chunk) * chunk
-    driver = sim._driver(chunk)
+    tele = tele_on(sim)
+    driver = _engine_driver(sim, chunk, tele)
     reads = driver.host_reads
     signature = run_signature(type(sim).__name__, key,
                               batch_size=sim.batch_size, chunk=chunk,
                               n_batches=n_batches,
                               extra=[repr(e) for e in extra])
-    ((failures, min_w), start), stream = resumable_stream(
+    (carry, start), stream = resumable_stream(
         driver, key, n_batches, extra, signature=signature,
-        progress=progress, min_init=sim.N)
+        progress=progress, min_init=sim.N, tele=tele)
 
     def hit(f):
         return target_failures is not None and f >= int(target_failures)
@@ -275,10 +327,13 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
     # the crossing megabatch's save and the cell's record): stopping here
     # returns what the unbroken run returned
     done = start
-    if not hit(failures):
-        for (failures, min_w), done in stream:
-            if hit(failures):
+    if not hit(carry[0]):
+        for carry, done in stream:
+            if hit(carry[0]):
                 break
+    failures, min_w = carry[0], carry[1]
+    if len(carry) > 2:
+        telemetry.publish_device_tele(carry[2])
     sim.last_megabatches = (done - start) // driver.k_inner
     sim.last_dispatches = sim.last_megabatches
     sim.last_host_reads = driver.host_reads - reads
@@ -440,7 +495,8 @@ def _mesh_stream(drivers, seed, n_batches, extra, inject):
     return last
 
 
-def _mesh_run(sim, chunk, seed, n_batches, extra, lost: bool):
+def _mesh_run(sim, chunk, seed, n_batches, extra, lost: bool,
+              tele: bool = False):
     """One pass of the mesh's streams: on every mesh device, or after a
     replan (``lost``) the replay runner, the n streams one after another on
     the mesh's first device.  Returns ``(drivers, their host reads before,
@@ -448,7 +504,7 @@ def _mesh_run(sim, chunk, seed, n_batches, extra, lost: bool):
     mesh = sim._mesh
     if lost:
         home = mesh.devices[0]
-        drivers = [mesh_replica(sim, home, d)._driver(chunk)
+        drivers = [_engine_driver(mesh_replica(sim, home, d), chunk, tele)
                    for d in range(mesh.size)]
         reads = [drv.host_reads for drv in drivers]
 
@@ -458,7 +514,7 @@ def _mesh_run(sim, chunk, seed, n_batches, extra, lost: bool):
         hosts = [_mesh_stream([drv], seed, n_batches, extra, inject)[0]
                  for drv in drivers]
         return drivers, reads, hosts, [home] * mesh.size
-    drivers = [mesh_replica(sim, dev, d)._driver(chunk)
+    drivers = [_engine_driver(mesh_replica(sim, dev, d), chunk, tele)
                for d, dev in enumerate(mesh.devices)]
     reads = [drv.host_reads for drv in drivers]
     hosts = _mesh_stream(drivers, seed, n_batches, extra,
@@ -496,17 +552,20 @@ def mesh_batch_stats(sim, num_samples: int, key, *extra):
     n_batches = -(-batcher.num_batches // chunk) * chunk
     seed = key_words(key)
     lost = bool(sim.__dict__.get("_mesh_lost"))
+    tele = tele_on(sim)
     try:
-        drivers, reads, hosts, devices = _mesh_run(sim, chunk, seed,
-                                                   n_batches, extra, lost)
+        drivers, reads, hosts, devices = _mesh_run(
+            sim, chunk, seed, n_batches, extra, lost, tele)
     except Exception as exc:  # noqa: BLE001 — classification decides
         if lost or resilience.classify_error(exc) == "deterministic":
             raise
         resilience.DegradationLadder(
             [("mesh_replan", lambda: degrade_mesh(sim))]).step()
-        drivers, reads, hosts, devices = _mesh_run(sim, chunk, seed,
-                                                   n_batches, extra, True)
-    failures, min_w = replay_fold(hosts)
+        drivers, reads, hosts, devices = _mesh_run(
+            sim, chunk, seed, n_batches, extra, True, tele)
+    failures, min_w, *rest = replay_fold(hosts, has_tele=tele)
+    if tele:
+        telemetry.publish_device_tele(rest[0])
     megabatches = n_batches // chunk
     sim.last_megabatches = megabatches
     sim.last_dispatches = megabatches * n
@@ -710,6 +769,12 @@ class FusedCellProgram:
     reallocated_batches: int = 0
 
     @property
+    def tele(self) -> bool:
+        """Whether the bucket's carry holds the device telemetry vector
+        (telemetry was on when its driver was built)."""
+        return self.driver.tele
+
+    @property
     def signature(self) -> dict:
         if self._signature is None:
             self._signature = self.signature_fn()
@@ -738,12 +803,21 @@ def bucket_driver(unit, rep, stacked, ltypes, chunk: int, mesh=None,
     """The ``CellFusedDriver`` of a bucket whose lane unit is ``unit(rep,
     stacked, ltypes)`` (its representative engine, stacked states and
     logical-type codes); on a ``mesh`` each device runs the unit on its
-    ``replicate`` of the three."""
+    ``replicate`` of the three.  With telemetry on (``tele_on(rep)``) each
+    lane-batch also returns its device telemetry vector, which the
+    bucket's carry sums over the active lanes."""
+    tele = tele_on(rep)
+
+    def lane_unit(r, st, lt):
+        stats = unit(r, st, lt)
+        return tele_stats(stats, r.device) if tele else stats
+
     return cell_fused_driver(
-        unit(rep, stacked, ltypes), len(ltypes), rep.batch_size, chunk,
+        lane_unit(rep, stacked, ltypes), len(ltypes), rep.batch_size, chunk,
         min_init=rep.N, device=rep.device, weighted=weighted,
-        mesh=check_mesh(mesh),
-        replicate=lambda dev: unit(*replicate((rep, stacked, ltypes), dev)))
+        mesh=check_mesh(mesh), tele=tele,
+        replicate=lambda dev: lane_unit(*replicate((rep, stacked, ltypes),
+                                                   dev)))
 
 
 def tags_json(cell_tags) -> list:
@@ -809,7 +883,7 @@ def plan_lanes(cursors, undecided, n_lanes: int, k_inner: int,
     return base, stride, cell, active, advance, realloc
 
 
-def _fused_carry0(state, weighted: bool = False):
+def _fused_carry0(state, weighted: bool = False, tele: bool = False):
     """A fused carry's host values from a persisted per-cell progress
     record (``utils.checkpoint.CellProgress.save_cells``)."""
     carry = [state["failures"], state["shots"], state["min_w"]]
@@ -817,6 +891,8 @@ def _fused_carry0(state, weighted: bool = False):
         wm = state.get("weighted") or {}
         C = len(state["failures"])
         carry += [wm.get(k, [0.0] * C) for k in ("s1", "s2", "w1", "w2")]
+    if tele:
+        carry.append(state.get("tele") or [0] * telemetry.TELE_LEN)
     return tuple(carry)
 
 
@@ -834,7 +910,9 @@ def _save_cells(progress, prog, signature, batches_done, host,
             ("s1", "s2", "w1", "w2"), host[3:7])}}
     progress.save_cells(signature, batches_done=batches_done,
                         failures=failures, shots=shots, min_w=min_w,
-                        cursors=cursors, extra=extra)
+                        cursors=cursors,
+                        tele=np.asarray(host[-1]) if prog.tele else None,
+                        extra=extra)
 
 
 def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
@@ -852,18 +930,22 @@ def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
         return prog.driver.read_launch(carry), n_run
 
 
-def fused_cell_finish(pending):
+def fused_cell_finish(pending, tele: bool = False):
     """The drain half: one host read of the whole bucket's per-cell
     counters -> host ``(failures, shots, min_w)`` arrays, watchdog-guarded
     (``utils.resilience.guarded_fetch``; the pending read survives a
-    retry)."""
+    retry).  With ``tele`` (the program's ``tele``) the carry's telemetry
+    vector is published at that read."""
 
     def fetch():
         faultinject.site("fused_cells_drain")
-        return _fused_host(pending.finish())
+        return pending.finish()
 
     with telemetry.span("megabatch_drain"):
-        return resilience.guarded_fetch(fetch, label="fused_cells_drain")
+        host = resilience.guarded_fetch(fetch, label="fused_cells_drain")
+    if tele:
+        telemetry.publish_device_tele(host[-1])
+    return _fused_host(host)
 
 
 def fused_cell_stream(prog: FusedCellProgram, *, progress=None):
@@ -875,19 +957,22 @@ def fused_cell_stream(prog: FusedCellProgram, *, progress=None):
     state = progress.load(prog.signature) if progress is not None else None
     if state:
         start = int(state["batches_done"])
-        carry0 = _fused_carry0(state, prog.weighted)
+        carry0 = _fused_carry0(state, prog.weighted, prog.tele)
     k = prog.chunk
     n_run = -(-int(prog.n_batches) // k) * k
     if start >= n_run and state:
         # resumed past the end: the persisted counters are the result
-        return tuple(np.asarray(x) for x in carry0)
-    last = None
-    for host, done in prog.driver.run_plan_keys(
-            prog.key, prog.n_batches, *prog.extras, start=start,
-            carry0=carry0):
-        if progress is not None:
-            _save_cells(progress, prog, prog.signature, done, host)
-        last = tuple(np.asarray(x) for x in host)
+        last = tuple(np.asarray(x) for x in carry0)
+    else:
+        last = None
+        for host, done in prog.driver.run_plan_keys(
+                prog.key, prog.n_batches, *prog.extras, start=start,
+                carry0=carry0):
+            if progress is not None:
+                _save_cells(progress, prog, prog.signature, done, host)
+            last = tuple(np.asarray(x) for x in host)
+    if prog.tele:
+        telemetry.publish_device_tele(last[-1])
     return last
 
 
@@ -922,7 +1007,7 @@ def fused_cell_adaptive(prog: FusedCellProgram, *, target_failures=None,
     if state:
         cursors = np.asarray(
             state.get("cursors") or [state["batches_done"]] * C, np.int64)
-        host = _fused_carry0(state, prog.weighted)
+        host = _fused_carry0(state, prog.weighted, prog.tele)
         driver._fill(carry, host)
     host = tuple(np.asarray(x) for x in host)
 
@@ -951,6 +1036,8 @@ def fused_cell_adaptive(prog: FusedCellProgram, *, target_failures=None,
     stopped = sum(1 for c in range(C) if cursors[c] < n_run)
     if stopped:
         telemetry.count("driver.early_stops", stopped)
+    if prog.tele:
+        telemetry.publish_device_tele(host[-1])
     return host
 
 
@@ -1121,36 +1208,40 @@ def wer_per_cycle_weighted(stats: WeightedStats, K: int, num_cycles: int):
 
 
 def weighted_driver(sim, chunk: int, program: tuple, stats_fn,
-                    batch_input) -> MegabatchDriver:
+                    batch_input, tele: bool = False) -> MegabatchDriver:
     """``sim``'s weighted megabatch driver (carry ``(count, min_w, s1, s2,
-    w1, w2)``), kept in ``sim._drivers`` like ``megabatch_driver``'s."""
-    key = ("weighted", chunk, *program)
+    w1, w2)``, with ``tele`` the device telemetry vector after them), kept
+    in ``sim._drivers`` like ``megabatch_driver``'s."""
+    key = ("weighted", chunk, *program) + (("tele",) if tele else ())
     driver = sim._drivers.get(key)
     if driver is None:
         dev = sim.device
 
         def combine(c, o):
             return (c[0] + o[0], torch.minimum(c[1], o[1]),
-                    *(c[i] + o[i] for i in range(2, 6)))
+                    *(c[i] + o[i] for i in range(2, len(c))))
 
         def init():
-            return (torch.zeros((), dtype=torch.int32, device=dev),
-                    torch.full((), int(sim.N), dtype=torch.int32,
-                               device=dev),
-                    *(torch.zeros((), dtype=torch.float32, device=dev)
-                      for _ in range(4)))
+            out = (torch.zeros((), dtype=torch.int32, device=dev),
+                   torch.full((), int(sim.N), dtype=torch.int32,
+                              device=dev),
+                   *(torch.zeros((), dtype=torch.float32, device=dev)
+                     for _ in range(4)))
+            return out + (tele_zeros(dev),) if tele else out
 
+        if tele:
+            stats_fn = tele_stats(stats_fn, dev)
         driver = sim._drivers[key] = MegabatchDriver(
             stats_fn, combine, init, batch_input, k_inner=chunk)
     return driver
 
 
 def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
-                              progress):
+                              progress, tele: bool = False):
     """``resumable_stream`` for the weighted carry ``(count, min_w, s1, s2,
-    w1, w2)``: the float32 moments persist exactly in the cursor's
-    ``weighted`` block.  Returns ``((host carry0 or None, start),
-    stream)``."""
+    w1, w2[, tele])``: the float32 moments persist exactly in the cursor's
+    ``weighted`` block, the telemetry vector in its ``"tele"``.  Returns
+    ``((host carry0 or None, start), stream)``."""
     start, carry0 = 0, None
     state = progress.load(signature) if progress is not None else None
     if state:
@@ -1158,6 +1249,8 @@ def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
         wm = state.get("weighted") or {}
         carry0 = (int(state["failures"]), int(state["min_w"]),
                   *(float(wm.get(k, 0.0)) for k in ("s1", "s2", "w1", "w2")))
+        if tele:
+            carry0 += (state.get("tele") or [0] * telemetry.TELE_LEN,)
 
     def stream():
         for carry, done in driver.run_keys(key_words(key), n_batches, *extra,
@@ -1166,6 +1259,7 @@ def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
                 progress.save(
                     signature, batches_done=done, failures=int(carry[0]),
                     min_w=int(carry[1]),
+                    tele=carry[6] if len(carry) > 6 else None,
                     extra={"weighted": {
                         "s1": float(carry[2]), "s2": float(carry[3]),
                         "w1": float(carry[4]), "w2": float(carry[5])}})
@@ -1242,13 +1336,18 @@ def resilient_engine_run(fn, *, site, degrade=None):
     first attempt, so a retry is bit-exact), deterministic ones raise, and
     repeated faults step ``degrade`` (the engine's ladder).  A fault that
     outlives the retries and the ladder raises.  With no policy installed
-    the run is one call behind one site check."""
+    the run is one call behind one site check.
+
+    The run is one ``utils.profiling.engine_scope(site)``: its dispatches
+    and host reads record into it, and ``record_wer_run`` embeds the
+    scope's waterfall in the run's heartbeat."""
 
     def attempt():
         faultinject.site(site)
         return fn()
 
-    return resilience.run_cell(attempt, label=site, degrade=degrade)
+    with profiling.engine_scope(site):
+        return resilience.run_cell(attempt, label=site, degrade=degrade)
 
 
 def engine_ladder_step(sim, extra_rungs=()):
@@ -1288,12 +1387,17 @@ def windowed_count(launch, finish, keys, in_flight: int = 4) -> int:
             faultinject.site("windowed_drain")
             return int(finish(item).sum())
 
-        return resilience.guarded_fetch(fetch, label="windowed_drain")
+        t0 = time.perf_counter()
+        out = resilience.guarded_fetch(fetch, label="windowed_drain")
+        profiling.record_host_sync(time.perf_counter() - t0)
+        return out
 
     window, count = [], 0
     for k in keys:
+        t0 = time.perf_counter()
         window.append(resilience.run_cell(lambda k=k: _launch_one(k),
                                           label="windowed_launch"))
+        profiling.record_dispatch(time.perf_counter() - t0)
         telemetry.count("driver.dispatches")
         telemetry.set_gauge("driver.drain_depth", len(window))
         if len(window) >= in_flight:
@@ -1301,3 +1405,110 @@ def windowed_count(launch, finish, keys, in_flight: int = 4) -> int:
     while window:
         count += _finish_one(window.pop(0))
     return count
+
+
+# ---------------------------------------------------------------------------
+# The run record: the sim.* counters, wer_run and heartbeat
+# ---------------------------------------------------------------------------
+def joint_kernel_variant(*decoders, batch_size: int | None = None) -> str:
+    """The BP program serving a simulator's decoders
+    (``decoders.bp_decoders.kernel_variant`` of each, with the engine's
+    batch size so the heads' per-batch gates apply): their common variant,
+    or ``"mixed"`` when they differ."""
+    from ..decoders.bp_decoders import kernel_variant
+
+    vs = set()
+    for dec in decoders:
+        static = getattr(dec, "device_static", None)
+        if static is None:
+            vs.add("xla_twin")
+            continue
+        vs.add(kernel_variant(static, dec.device_state, batch_size))
+    if not vs:
+        return "xla_twin"
+    return vs.pop() if len(vs) == 1 else "mixed"
+
+
+def joint_osd_backend(*decoders) -> str:
+    """Where a simulator's OSD stages run (the ``wer_run`` event's
+    ``osd_backend``): ``"device"`` when every OSD decoder keeps OSD in its
+    device program (``"device_cs"`` when they all run the combination
+    sweep), ``"host"`` when every one runs it on the host, ``"mixed"`` on
+    disagreement, ``"none"`` without an OSD stage."""
+    backends = set()
+    for dec in decoders:
+        method = getattr(dec, "osd_method", None)
+        if method is None:
+            continue
+        if getattr(dec, "needs_host_postprocess", False):
+            backends.add("host")
+        else:
+            backends.add("device_cs" if method == "osd_cs" else "device")
+    if not backends:
+        return "none"
+    return backends.pop() if len(backends) == 1 else "mixed"
+
+
+def record_wer_run(engine: str, failures, shots, wer, dispatches=None,
+                   kernel_variant=None, weighted=None, tilt=None,
+                   osd_backend=None) -> dict:
+    """The per-run record of every engine's WER paths, the JAX package's:
+    the ``sim.shots`` / ``sim.failures`` / ``sim.runs`` counters, one
+    ``wer_run`` event (``dispatches`` where the path counts them,
+    ``kernel_variant`` of ``ops.bp_kernel.KERNEL_VARIANTS`` or
+    ``"mixed"``, ``osd_backend``, and for a weighted run (``weighted``, a
+    ``WeightedStats``) its ESS fields) and one ``heartbeat`` event with the
+    waterfall of the enclosing ``utils.profiling.engine_scope``.  With
+    ``utils.diagnostics`` active the event carries the run's uncertainty
+    block (ESS-aware for weighted runs), which is returned ({} otherwise)
+    so a cell's record can reuse it.  Host arithmetic on numbers already
+    read: the estimate is untouched."""
+    fields = {"engine": engine, "shots": int(shots),
+              "failures": int(failures), "wer": float(wer)}
+    if dispatches is not None:
+        fields["dispatches"] = int(dispatches)
+    if osd_backend is not None:
+        fields["osd_backend"] = str(osd_backend)
+    if weighted is not None:
+        fields.update(weighted.event_fields(tilt=tilt))
+    if kernel_variant is not None:
+        from ..ops.bp_kernel import KERNEL_VARIANTS
+
+        fields["kernel_variant"] = str(kernel_variant)
+        code = (KERNEL_VARIANTS.index(kernel_variant)
+                if kernel_variant in KERNEL_VARIANTS else -1)
+        telemetry.set_gauge("bp.kernel_variant", code)
+        telemetry.count(f"bp.kernel_variant.{kernel_variant}")
+    ci = {}
+    if diagnostics.active():
+        ci = (weighted.ci_fields() if weighted is not None
+              else diagnostics.ci_fields(failures, shots))
+        fields.update(ci)
+    telemetry.count("sim.shots", int(shots))
+    telemetry.count("sim.failures", int(failures))
+    telemetry.count("sim.runs")
+    telemetry.event("wer_run", **fields)
+    hb = {"engine": engine, "shots": int(shots)}
+    if ci:
+        hb["rse"] = ci["rse"]
+    wf = profiling.run_heartbeat()
+    if wf is not None:
+        hb["waterfall"] = wf
+        gap = wf.get("dispatch_gap_fraction")
+        if gap is not None:
+            telemetry.set_gauge("profile.dispatch_gap_fraction", gap)
+    telemetry.event("heartbeat", **hb)
+    return ci
+
+
+def record_engine_run(sim, engine: str, decoders, failures, shots, wer,
+                      **kw) -> dict:
+    """``record_wer_run`` of one run of ``sim`` with its ``decoders``: the
+    run's dispatches, their joint kernel variant at the engine's batch size
+    and their OSD backend."""
+    return record_wer_run(
+        engine, failures, shots, wer,
+        dispatches=getattr(sim, "last_dispatches", None),
+        kernel_variant=joint_kernel_variant(*decoders,
+                                            batch_size=sim.batch_size),
+        osd_backend=joint_osd_backend(*decoders), **kw)

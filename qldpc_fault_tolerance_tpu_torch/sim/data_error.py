@@ -53,6 +53,14 @@ default engine, the fused engines, every OSD method) replays a captured
 megabatch, cached per simulator and shape, so a run makes no other host
 read; ``run_batch`` returns per-shot flags and stays eager.
 
+With telemetry on (``utils.telemetry.enable``), every path's batch unit
+(dense, packed, fused v1 and v2, mesh, weighted, fused cells) also returns
+the batch's device telemetry vector (``device_tele_vec`` of both sectors'
+decode aux; in v2, B5's per-shot ``converged`` and ``iterations``), which
+the carry sums and the run's one host read a megabatch brings back; each
+run ends in ``sim.common.record_wer_run``.  Telemetry never changes a
+count.
+
 Every run executes under the active ``utils.resilience`` policy
 (``sim.common.resilient_engine_run``, sites ``wer.data`` / ``wer.data_w``):
 transient faults retry bit for bit, deterministic ones raise, and repeated
@@ -88,6 +96,7 @@ from ..parallel.shots import (
     batch_generator,
     check_mesh,
 )
+from ..utils import telemetry
 from ..utils.device import resolve_device
 from .common import (
     LTYPE_CODES,
@@ -108,6 +117,7 @@ from .common import (
     lane_view,
     megabatch_driver,
     needs_host,
+    record_engine_run,
     refuse_mesh,
     resilient_engine_run,
     resumable_weighted_stream,
@@ -115,6 +125,7 @@ from .common import (
     select_failures,
     stack_cell_states,
     tags_json,
+    tele_on,
     weighted_driver,
     weighted_unit,
     wer_single_shot,
@@ -153,6 +164,9 @@ class CodeSimulator_DataError:
     # v2 engines that ran as fused v1 because the card's fused kernel
     # could not take them
     fused_fallbacks = 0
+    # the batch units return the device telemetry vector when telemetry is
+    # on (sim.common.tele_on)
+    _DEVICE_TELE = True
 
     def __init__(self, code=None, decoder_x=None, decoder_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01),
@@ -290,8 +304,10 @@ class CodeSimulator_DataError:
 
     def _decode(self, synd_x, synd_z):
         dz, dx = self.decoder_z, self.decoder_x
-        cor_z, _ = decode_device(dz.device_static, dz.device_state, synd_z)
-        cor_x, _ = decode_device(dx.device_static, dx.device_state, synd_x)
+        cor_z, aux_z = decode_device(dz.device_static, dz.device_state, synd_z)
+        cor_x, aux_x = decode_device(dx.device_static, dx.device_state, synd_x)
+        telemetry.note_device_aux(dx.device_static, aux_x)
+        telemetry.note_device_aux(dz.device_static, aux_z)
         return cor_x, cor_z
 
     def _batch_stats(self, generator):
@@ -405,12 +421,16 @@ class CodeSimulator_DataError:
             self.eval_logical_type)
 
     def _stats_fused_v2(self, key):
-        """Whole-pipeline batch: one fused kernel from draws to checks."""
-        cnt, min_w, _aux_x, _aux_z = gf2_kernel.fused_decode_stats(
+        """Whole-pipeline batch: one fused kernel from draws to checks; its
+        per-shot ``converged`` / ``iterations`` of each sector feed the
+        device telemetry vector."""
+        cnt, min_w, aux_x, aux_z = gf2_kernel.fused_decode_stats(
             self._fspec2, key, self.batch_size,
             eval_type=self.eval_logical_type, max_iter_z=self._iters_z,
             max_iter_x=self._iters_x, ms_scaling_factor=self._msf,
             quantize=self._quantize)
+        telemetry.note_device_aux(self.decoder_x.device_static, aux_x)
+        telemetry.note_device_aux(self.decoder_z.device_static, aux_z)
         return cnt, min_w
 
     def WordErrorRate(self, num_run: int, key=None, target_failures=None,
@@ -429,11 +449,21 @@ class CodeSimulator_DataError:
         if key is None:
             self._base_key, key = split_key(self._base_key)
 
-        failures, shots = resilient_engine_run(
-            lambda: count_failures(self, num_run, key, target_failures,
-                                   progress=progress),
+        return resilient_engine_run(
+            lambda: self._wer_result(*count_failures(
+                self, num_run, key, target_failures, progress=progress)),
             site="wer.data", degrade=self._degrade_once)
-        return wer_single_shot(failures, shots, self.K)
+
+    def _record(self, failures, shots, wer, **kw) -> None:
+        """``record_wer_run`` of one run of this engine."""
+        record_engine_run(self, "data", (self.decoder_x, self.decoder_z),
+                          failures, shots, wer, **kw)
+
+    def _wer_result(self, failures: int, shots: int):
+        """The WER of a run, recorded (``record_wer_run``)."""
+        wer = wer_single_shot(failures, shots, self.K)
+        self._record(failures, shots, wer[0])
+        return wer
 
     def WeightedWordErrorRate(self, num_run: int, tilt_probs=None, key=None,
                               progress=None, target_rse=None):
@@ -458,11 +488,16 @@ class CodeSimulator_DataError:
         tilt = check_tilt_probs(tilt_probs, self.channel_probs)
         if key is None:
             self._base_key, key = split_key(self._base_key)
-        ws = resilient_engine_run(
-            lambda: self._weighted_run(num_run, tilt, key, progress,
-                                       target_rse),
-            site="wer.data_w", degrade=self._degrade_once)
-        return wer_single_shot_weighted(ws, self.K)
+
+        def run():
+            ws = self._weighted_run(num_run, tilt, key, progress, target_rse)
+            wer = wer_single_shot_weighted(ws, self.K)
+            self._record(ws.failures, ws.shots, wer[0], weighted=ws,
+                         tilt=float(sum(tilt)))
+            return wer
+
+        return resilient_engine_run(run, site="wer.data_w",
+                                    degrade=self._degrade_once)
 
     def _weighted_run(self, num_run, tilt, key, progress, target_rse):
         """One attempt of ``WeightedWordErrorRate``: its ``WeightedStats``,
@@ -471,19 +506,25 @@ class CodeSimulator_DataError:
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
         extra = (self._tilt_tensor(tilt),)
+        tele = tele_on(self)
         driver = weighted_driver(self, chunk, self._program(),
                                  self._weighted_stats,
-                                 GeneratorInput(self.device))
+                                 GeneratorInput(self.device), tele=tele)
         reads = driver.host_reads
+        megabatches = driver.megabatches
         fp = run_signature("data-w", key, batch_size=self.batch_size,
                            chunk=chunk, n_batches=n_batches,
                            tilt=[round(q, 12) for q in tilt])
         (carry0, start), stream = resumable_weighted_stream(
-            driver, key, n_batches, extra, signature=fp, progress=progress)
+            driver, key, n_batches, extra, signature=fp, progress=progress,
+            tele=tele)
         carry, done = drive_weighted_run(
             driver, key, n_batches, extra, batch_size=self.batch_size,
             total=batcher.total, carry0=carry0, start=start, stream=stream,
             target_rse=target_rse, progress=progress)
+        if tele:
+            telemetry.publish_device_tele(carry[6])
+        self.last_dispatches = driver.megabatches - megabatches
         ws = WeightedStats.from_carry(carry, done * self.batch_size)
         self.last_host_reads = driver.host_reads - reads
         self.last_graph = driver.graph_stats
@@ -503,13 +544,13 @@ class CodeSimulator_DataError:
                 self.eval_logical_type, self._fused_sampler, self._packed,
                 decoder_key(self.decoder_x), decoder_key(self.decoder_z))
 
-    def _driver(self, chunk: int):
+    def _driver(self, chunk: int, tele: bool = False):
         """The megabatch driver of ``chunk`` batches per megabatch (its
-        captured graph with it)."""
+        captured graph with it); ``tele`` adds the telemetry slot."""
         batch_input = (KeyInput if self._fused_sampler else
                        GeneratorInput)(self.device)
         return megabatch_driver(self, chunk, self._program(), self._stats,
-                                batch_input)
+                                batch_input, tele=tele)
 
 
 # ---------------------------------------------------------------------------

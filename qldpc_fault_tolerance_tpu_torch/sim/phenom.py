@@ -69,6 +69,7 @@ from ..parallel.shots import (
     batch_generator,
     check_mesh,
 )
+from ..utils import telemetry
 from ..utils.device import resolve_device
 from .common import (
     LTYPE_CODES,
@@ -91,6 +92,7 @@ from .common import (
     lane_view,
     megabatch_driver,
     needs_host,
+    record_engine_run,
     refuse_mesh,
     resilient_engine_run,
     resumable_weighted_stream,
@@ -98,6 +100,7 @@ from .common import (
     select_failures,
     stack_cell_states,
     tags_json,
+    tele_on,
     weighted_driver,
     weighted_unit,
     wer_per_cycle,
@@ -220,11 +223,16 @@ class PhenomEngine:
                                  batch_size))
         return gf2_matmul(cur_x, self._t[hz]), gf2_matmul(cur_z, self._t[hx])
 
-    def _decode(self, dec_x, dec_z, synd_x, synd_z):
+    def _decode(self, dec_x, dec_z, synd_x, synd_z, note: bool = False):
         """Both sectors' corrections (Z first, as the JAX engine), packed
-        when the engine runs packed."""
-        cz, _ = decode_device(dec_z.device_static, dec_z.device_state, synd_z)
-        cx, _ = decode_device(dec_x.device_static, dec_x.device_state, synd_x)
+        when the engine runs packed.  ``note``: the decodes' aux feed the
+        device telemetry vector (the final round's decoder 2 only, as in
+        the JAX package)."""
+        cz, az = decode_device(dec_z.device_static, dec_z.device_state, synd_z)
+        cx, ax = decode_device(dec_x.device_static, dec_x.device_state, synd_x)
+        if note:
+            telemetry.note_device_aux(dec_x.device_static, ax)
+            telemetry.note_device_aux(dec_z.device_static, az)
         if self._packed:
             return pack_shots(cx), pack_shots(cz)
         return cx, cz
@@ -244,7 +252,8 @@ class PhenomEngine:
         ex, ez = draw(True)
         cur_x, cur_z = data_x ^ ex, data_z ^ ez
         synd_x, synd_z = self._syndromes(cur_x, cur_z, "hx", "hz", batch_size)
-        dx, dz = self._decode(self.decoder2_x, self.decoder2_z, synd_x, synd_z)
+        dx, dz = self._decode(self.decoder2_x, self.decoder2_z, synd_x, synd_z,
+                              note=True)
         return cur_x ^ dx, cur_z ^ dz
 
     def _pipeline(self, draw, num_rounds: int, batch_size: int):
@@ -392,11 +401,12 @@ class PhenomEngine:
         self._base_key, sub = split_key(self._base_key)
         return int(self.run_batch(sub, num_rounds, 1)[0])
 
-    def _count_failures(self, num_rounds: int, num_samples: int, key=None,
-                        target_failures=None, progress=None,
+    def _count_failures(self, num_rounds: int, num_samples: int, wer_fn,
+                        key=None, target_failures=None, progress=None,
                         site: str = "wer.phenl"):
-        """(failure count, shots run) of ``num_samples`` shots of
-        ``num_rounds`` rounds (``sim.common.count_failures``), under the
+        """``wer_fn(failure count, shots run)`` of ``num_samples`` shots of
+        ``num_rounds`` rounds (``sim.common.count_failures``), recorded
+        (``record_engine_run``, the engine named by ``site``), under the
         active resilience policy behind the fault site ``site``
         (``sim.common.resilient_engine_run``; the ladder is
         ``_degrade_once``).  A decoder 2 with a host OSD stage runs the
@@ -406,9 +416,17 @@ class PhenomEngine:
 
         def run():
             if needs_host(self.decoder2_x, self.decoder2_z):
-                return self._count_host(int(num_rounds), num_samples, key)
-            return count_failures(self, num_samples, key, target_failures,
-                                  int(num_rounds), progress=progress)
+                count, total = self._count_host(int(num_rounds), num_samples,
+                                                key)
+            else:
+                count, total = count_failures(
+                    self, num_samples, key, target_failures,
+                    int(num_rounds), progress=progress)
+            wer = wer_fn(count, total)
+            record_engine_run(self, site.split(".", 1)[1],
+                              [getattr(self, name) for name in _DECODERS],
+                              count, total, wer[0])
+            return wer
 
         return resilient_engine_run(run, site=site,
                                     degrade=self._degrade_once)
@@ -459,6 +477,7 @@ class PhenomEngine:
 
         count = windowed_count(launch, finish, range(batcher.num_batches))
         self.last_failures, self.last_shots = count, batcher.total
+        self.last_dispatches = batcher.num_batches
         return count, batcher.total
 
     def degrade_mesh(self) -> None:
@@ -466,11 +485,13 @@ class PhenomEngine:
         (``sim.common.degrade_mesh``)."""
         degrade_mesh(self)
 
-    def _driver(self, chunk: int):
+    def _driver(self, chunk: int, tele: bool = False):
         """The megabatch driver of ``chunk`` batches per megabatch (its
-        captured graphs, one per round count, with it)."""
+        captured graphs, one per round count, with it); ``tele`` adds the
+        telemetry slot."""
         return megabatch_driver(self, chunk, self._program(),
-                                self._batch_stats, GeneratorInput(self.device))
+                                self._batch_stats, GeneratorInput(self.device),
+                                tele=tele)
 
     def _program(self) -> tuple:
         """What a captured batch bakes in besides its chunk."""
@@ -491,6 +512,10 @@ class CodeSimulator_Phenon(PhenomEngine):
     ``scan_chunk`` the batches per megabatch.  All four decoders must live
     on ``device``; ``mesh`` shards the runs (module docstring).
     """
+
+    # the batch units return the device telemetry vector (the final round's
+    # decoder 2) when telemetry is on (sim.common.tele_on)
+    _DEVICE_TELE = True
 
     def _window(self, draw, data_x, data_z, batch_size: int):
         """One noisy round: fresh data errors and syndrome flips, the [H | I]
@@ -519,16 +544,18 @@ class CodeSimulator_Phenon(PhenomEngine):
         (``sim.common.wer_per_cycle``).  ``progress``: mid-cell resume, as
         the data engine's ``WordErrorRate``."""
         self._reject_host_decoders()
-        count, total = self._count_failures(num_rounds, num_samples, key,
-                                            target_failures, progress)
-        return wer_per_cycle(count, total, self.K, num_rounds)
+        return self._count_failures(
+            num_rounds, num_samples,
+            lambda c, t: wer_per_cycle(c, t, self.K, num_rounds), key,
+            target_failures, progress)
 
     def WordErrorProbability(self, num_rounds: int, num_samples: int,
                              key=None):
         """End-of-run word error probability (``wer_single_shot``)."""
         self._reject_host_decoders()
-        count, total = self._count_failures(num_rounds, num_samples, key)
-        return wer_single_shot(count, total, self.K)
+        return self._count_failures(
+            num_rounds, num_samples,
+            lambda c, t: wer_single_shot(c, t, self.K), key)
 
     def _reject_host_decoders(self) -> None:
         """The phenomenological engine decodes every round inside its
@@ -566,11 +593,18 @@ class CodeSimulator_Phenon(PhenomEngine):
         self._reject_host_decoders()
         if key is None:
             self._base_key, key = split_key(self._base_key)
-        ws = resilient_engine_run(
-            lambda: self._weighted_run(num_rounds, num_samples, tilt, tilt_q,
-                                       key, progress, target_rse),
-            site="wer.phenl_w", degrade=self._degrade_once)
-        return wer_per_cycle_weighted(ws, self.K, num_rounds)
+        def run():
+            ws = self._weighted_run(num_rounds, num_samples, tilt, tilt_q,
+                                    key, progress, target_rse)
+            wer = wer_per_cycle_weighted(ws, self.K, num_rounds)
+            record_engine_run(self, "phenl",
+                              [getattr(self, name) for name in _DECODERS],
+                              ws.failures, ws.shots, wer[0], weighted=ws,
+                              tilt=float(sum(tilt)))
+            return wer
+
+        return resilient_engine_run(run, site="wer.phenl_w",
+                                    degrade=self._degrade_once)
 
     def _weighted_run(self, num_rounds, num_samples, tilt, tilt_q, key,
                       progress, target_rse):
@@ -580,20 +614,26 @@ class CodeSimulator_Phenon(PhenomEngine):
         chunk = min(batcher.num_batches, self._scan_chunk)
         n_batches = -(-batcher.num_batches // chunk) * chunk
         extra = (int(num_rounds), *self._tilt_tensors(tilt, tilt_q))
+        tele = tele_on(self)
         driver = weighted_driver(self, chunk, self._program(),
                                  self._weighted_stats,
-                                 GeneratorInput(self.device))
+                                 GeneratorInput(self.device), tele=tele)
+        megabatches = driver.megabatches
         fp = run_signature("phenl-w", key, batch_size=self.batch_size,
                            chunk=chunk, n_batches=n_batches,
                            rounds=int(num_rounds),
                            tilt=[round(q, 12) for q in tilt],
                            tilt_q=round(tilt_q, 12))
         (carry0, start), stream = resumable_weighted_stream(
-            driver, key, n_batches, extra, signature=fp, progress=progress)
+            driver, key, n_batches, extra, signature=fp, progress=progress,
+            tele=tele)
         carry, done = drive_weighted_run(
             driver, key, n_batches, extra, batch_size=self.batch_size,
             total=batcher.total, carry0=carry0, start=start, stream=stream,
             target_rse=target_rse, progress=progress)
+        if tele:
+            telemetry.publish_device_tele(carry[6])
+        self.last_dispatches = driver.megabatches - megabatches
         ws = WeightedStats.from_carry(carry, done * self.batch_size)
         self.last_failures, self.last_shots = ws.failures, ws.shots
         self.min_logical_weight = min(self.min_logical_weight, ws.min_w)

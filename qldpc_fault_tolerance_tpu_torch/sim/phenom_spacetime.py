@@ -116,6 +116,7 @@ class CodeSimulator_Phenon_SpaceTime(PhenomEngine):
         rate is normalised by the cycles those windows realize."""
         num_rounds, total_num_cycles = st_round_counts(num_cycles,
                                                        self.num_rep)
-        count, total = self._count_failures(num_rounds, num_samples, key,
-                                            site="wer.phenl_st")
-        return wer_per_cycle(count, total, self.K, total_num_cycles)
+        return self._count_failures(
+            num_rounds, num_samples,
+            lambda c, t: wer_per_cycle(c, t, self.K, total_num_cycles), key,
+            site="wer.phenl_st")

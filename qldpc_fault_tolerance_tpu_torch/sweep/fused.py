@@ -109,17 +109,18 @@ def _bucket_progress_key(cell_keys: list[dict]) -> dict:
     return head
 
 
-def _record_cell(cell_key: dict, wer: float, failures: int,
+def _record_cell(cell_key: dict, wer: float, engine: str, failures: int,
                  shots: int) -> dict:
-    """The serial loop's per-cell bookkeeping (one structured log line,
-    a ``cell_done`` event, the sweep run's record) for a fused cell, plus
+    """The serial loop's per-cell bookkeeping (the run record of
+    ``sim.common.record_wer_run``, one structured log line, a
+    ``cell_done`` event, the sweep run's record) for a fused cell, plus
     the fused counter.  Returns the uncertainty block (empty with
     diagnostics off) for the checkpoint record."""
+    from ..sim.common import record_wer_run
     from ..utils import diagnostics, telemetry
     from ..utils.observability import get_logger, log_record
 
-    ci = diagnostics.ci_fields(failures, shots) if diagnostics.active() \
-        else {}
+    ci = record_wer_run(engine, failures, shots, wer)
     log_record(get_logger(), "cell_done", **cell_key, wer=float(wer), **ci)
     telemetry.event("cell_done", **cell_key, wer=float(wer), **ci)
     diagnostics.record_cell(cell_key, float(wer), ci)
@@ -142,11 +143,23 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
 
     Returns ``(results, leftovers)``: ``{index: wer}`` for every cell that
     ran (or was checkpointed), and the cells of unfusable buckets for the
-    caller's serial loop.  ``eval_cells_fused.buckets`` lists each fused
+    caller's serial loop.  The grid runs in one
+    ``utils.profiling.engine_scope("wer.fused")``, whose waterfall so far
+    each cell's heartbeat carries.  ``eval_cells_fused.buckets`` lists each fused
     bucket's run: its cells, megabatches, host reads, captured graphs and
     their nodes, build seconds, and on the card the peak device memory
     allocated while it was built and launched (``peak_gib``, the largest
     of its devices', and per device in ``peak_gib_devices``)."""
+    from ..utils import profiling
+
+    with profiling.engine_scope("wer.fused"):
+        return _eval_cells_fused(cells, bucket_builder, cell_key_fn,
+                                 checkpoint, progress_every, target_failures,
+                                 mesh)
+
+
+def _eval_cells_fused(cells, bucket_builder, cell_key_fn, checkpoint,
+                      progress_every, target_failures, mesh):
     from ..parallel.shots import drain_double_buffered
     from ..sim import common as simc
     from ..utils import diagnostics, resilience, telemetry
@@ -203,8 +216,8 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
         for lane, item in enumerate(bucket):
             cell_key = cell_key_fn(*item)
             wer = float(prog.wer_fn(failures[lane], shots[lane])[0])
-            ci = _record_cell(cell_key, wer, int(failures[lane]),
-                              int(shots[lane]))
+            ci = _record_cell(cell_key, wer, prog.engine,
+                              int(failures[lane]), int(shots[lane]))
             if checkpoint is not None:
                 checkpoint.put(cell_key, {"wer": wer, **ci})
             results[item[0]] = wer
@@ -234,7 +247,8 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
             if launched is None:
                 return
             bucket, prog, run, pending = launched
-            failures, shots, _ = simc.fused_cell_finish(pending)
+            failures, shots, _ = simc.fused_cell_finish(pending,
+                                                        tele=prog.tele)
             close(bucket, prog, run, failures, shots)
 
         for _ in drain_double_buffered(launch, finish, buckets):

@@ -18,6 +18,14 @@ The port's counterpart of the JAX package's ``utils/telemetry.py``:
     package's compile tracker;
   * ``session`` for one enabled region.
 
+The **device telemetry vector** (``device_tele_vec``, slots ``TELE_*``):
+an int32 (``TELE_LEN``,) vector of decoder statistics (BP convergence, the
+iteration histogram, OSD routing, compaction tiers, the OSD-CS sweep's
+counts) built on the device from a batch's decode aux, folded through the
+megabatch carry and read in the run's one host read per megabatch;
+``publish_device_tele`` folds a host copy into the registry.  The engines
+collect a batch's aux with ``collect_device_aux`` / ``note_device_aux``.
+
 Counters the port's modules keep include ``driver.early_stops``,
 ``sweep.*``, ``mesh.replans``, ``resilience.*``, ``progcache.*`` and the
 serve stack's ``serve.*`` / ``stream.*``.
@@ -45,6 +53,11 @@ __all__ = [
     "default_buckets", "set_metric_help", "metric_help",
     "PROMETHEUS_CONTENT_TYPE",
     "EVENT_SCHEMA_VERSION", "EVENT_SCHEMAS", "validate_event",
+    "TELE_BP_SHOTS", "TELE_BP_CONVERGED", "TELE_OSD_SHOTS", "TELE_ITER_SUM",
+    "TELE_ITER_HIST0", "TELE_OSD_TIER_NONE", "TELE_OSD_TIER_COMPACT",
+    "TELE_OSD_TIER_FULL", "TELE_CS_CANDIDATES", "TELE_CS_CHUNKS", "TELE_LEN",
+    "device_tele_vec", "publish_device_tele", "collect_device_aux",
+    "note_device_aux",
 ]
 
 # ---------------------------------------------------------------------------
@@ -724,9 +737,9 @@ EVENT_SCHEMAS: dict[str, dict] = {
                      "value": _OPT_NUM, "threshold": _OPT_NUM,
                      "active_s": _NUM, "host": str},
     },
-    # one-shot surfacing of calibration gates the table ships without
-    # probe evidence (gates_measured=false) — emitted at first decoder
-    # construction (utils.profiling.note_unmeasured_gates, )
+    # one-shot surfacing of launch gates that no run on the card measured
+    # (utils.profiling.note_unmeasured_gates of smem_gates computed without
+    # a card)
     "unmeasured_gates": {
         "required": {"gates": list},
         "optional": {"backend": _OPT_STR, "table_generated_at": _OPT_STR},
@@ -1041,6 +1054,180 @@ def prometheus_text(snap: dict | None = None) -> str:
             lines.append(f"{pn}_sum {_prom_num(m['sum'])}")
             lines.append(f"{pn}_count {m['count']}")
     return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# Device telemetry vector (folded through the megabatch carry)
+# ---------------------------------------------------------------------------
+# int32 slot layout, the JAX package's: counts fold across batches on the
+# device and publish at the run's host read.  The iteration sum covers
+# CONVERGED shots only, so it holds ~2^31 / mean_iters shots a run;
+# publish_device_tele detects a wrapped sum and falls back to a
+# bucket-midpoint estimate.
+TELE_BP_SHOTS = 0        # decoder shots counted (both sectors)
+TELE_BP_CONVERGED = 1    # ... of which BP converged within max_iter
+TELE_OSD_SHOTS = 2       # shots routed to a device-OSD stage
+TELE_ITER_SUM = 3        # sum of iterations over CONVERGED shots
+TELE_ITER_HIST0 = 4      # + len(ITER_BUCKETS)+1 histogram slots
+# which compaction tier a bposd_dev decode's straggler OSD took, one count
+# per decode (decoders.bp_decoders.osd_compaction_tiers is the ladder)
+TELE_OSD_TIER_NONE = TELE_ITER_HIST0 + len(ITER_BUCKETS) + 1  # all converged
+TELE_OSD_TIER_COMPACT = TELE_OSD_TIER_NONE + 1  # a compaction tier engaged
+TELE_OSD_TIER_FULL = TELE_OSD_TIER_NONE + 2     # full-batch elimination
+# the OSD-CS sweep: candidates scored (sweep width x OSD-routed shots) and
+# chunk sweeps run, widths from ops.osd_cs_device.cs_sweep_shape (the
+# definition the decode sizes its sweep by)
+TELE_CS_CANDIDATES = TELE_OSD_TIER_FULL + 1
+TELE_CS_CHUNKS = TELE_CS_CANDIDATES + 1
+TELE_LEN = TELE_CS_CHUNKS + 1
+
+_AUX = threading.local()
+_EDGES: dict = {}   # device -> int32 ITER_BUCKETS tensor
+
+
+@contextlib.contextmanager
+def collect_device_aux():
+    """Within the block (this thread), ``note_device_aux`` appends each
+    decode's ``(static, aux)`` to the yielded list: the engines wrap one
+    batch in it and hand the list to ``device_tele_vec``."""
+    prev = getattr(_AUX, "items", None)
+    _AUX.items = items = []
+    try:
+        yield items
+    finally:
+        _AUX.items = prev
+
+
+def note_device_aux(static, aux) -> None:
+    """Record one decode's ``(static, aux)`` for the enclosing
+    ``collect_device_aux``; nothing outside one."""
+    items = getattr(_AUX, "items", None)
+    if items is not None:
+        items.append((static, aux))
+
+
+def _iter_edges(device):
+    """``ITER_BUCKETS`` as an int32 tensor on ``device``, made once per
+    device (a megabatch's warm-up makes it before its capture, in which a
+    host copy could not run)."""
+    import torch
+
+    key = str(device)
+    edges = _EDGES.get(key)
+    if edges is None:
+        edges = _EDGES[key] = torch.tensor(ITER_BUCKETS,
+                                           dtype=torch.int32).to(device)
+    return edges
+
+
+def device_tele_vec(aux_by_static, device=None):
+    """The (TELE_LEN,) int32 telemetry vector of one batch, on the device:
+    plain int32 arithmetic with no host read and no data-dependent shape,
+    so it captures into a megabatch's CUDA graph.  ``aux_by_static``:
+    ``(decoder static, aux)`` pairs as ``decoders.bp_decoders.
+    decode_device`` returns them.  Decoders without BP aux (FirstMin) add
+    nothing; ``bposd_dev`` statics also count their OSD-routed shots (the
+    BP-failed ones), the compaction tier their decode took and, for OSD-CS,
+    the sweep's candidates and chunks.  Iteration statistics cover
+    converged shots only.  ``device`` places the vector when no pair has
+    aux."""
+    import torch
+
+    from ..decoders.bp_decoders import osd_compaction_tiers
+    from ..ops.osd_cs_device import cs_sweep_shape
+
+    pairs = [(s, a) for s, a in aux_by_static
+             if a.get("converged") is not None]
+    if device is None:
+        device = pairs[0][1]["converged"].device if pairs else "cpu"
+    i32 = torch.int32
+
+    def zero():
+        return torch.zeros((), dtype=i32, device=device)
+
+    shots = 0
+    conv, osd, it_sum = zero(), zero(), zero()
+    hist = torch.zeros(len(ITER_BUCKETS) + 1, dtype=i32, device=device)
+    tier_none, tier_compact, tier_full = zero(), zero(), zero()
+    cs_cand, cs_chunks = zero(), zero()
+    for static, aux in pairs:
+        c = aux["converged"].bool()
+        shots += int(c.shape[0])
+        conv = conv + c.sum(dtype=i32)
+        if static and static[0] == "bposd_dev":
+            n_bad = (~c).sum(dtype=i32)
+            osd = osd + n_bad
+            # the tier decode_device's ladder takes: the smallest
+            # compaction capacity holding n_bad, else the full batch
+            fits = torch.zeros((), dtype=torch.bool, device=device)
+            for cap in osd_compaction_tiers(int(c.shape[0])):
+                fits = fits | (n_bad <= cap)
+            none_b = (n_bad == 0).to(i32)
+            compact_b = ((n_bad > 0) & fits).to(i32)
+            tier_none = tier_none + none_b
+            tier_compact = tier_compact + compact_b
+            tier_full = tier_full + (1 - none_b - compact_b)
+            if len(static) > 6 and static[6] == "osd_cs":
+                n_cand, n_chunks = cs_sweep_shape(
+                    int(static[2]), int(static[3]), int(static[4]))
+                cs_cand = cs_cand + n_bad * int(n_cand)
+                cs_chunks = cs_chunks + (n_bad > 0).to(i32) * int(n_chunks)
+        it = aux.get("iterations")
+        if it is not None:
+            cmask = c.to(i32)
+            it32 = it.to(i32).reshape(-1).contiguous()
+            it_sum = it_sum + (it32 * cmask).sum(dtype=i32)
+            idx = torch.searchsorted(_iter_edges(device), it32)
+            hist = hist.scatter_add(0, idx, cmask)
+    head = torch.stack([torch.full((), shots, dtype=i32, device=device),
+                        conv, osd, it_sum])
+    tail = torch.stack([tier_none, tier_compact, tier_full, cs_cand,
+                        cs_chunks])
+    return torch.cat([head, hist, tail])
+
+
+def _approx_iter_sum(counts) -> int:
+    """Bucket-midpoint estimate of the iteration sum: the fallback when
+    the device's int32 sum slot wrapped on a huge run."""
+    total, lo = 0, 0
+    for edge, c in zip(ITER_BUCKETS, counts):
+        total += int(c) * (lo + 1 + edge) // 2
+        lo = edge
+    total += int(counts[len(ITER_BUCKETS)]) * (ITER_BUCKETS[-1] * 3 // 2)
+    return total
+
+
+def publish_device_tele(vec) -> None:
+    """Fold a host copy of a device telemetry vector into the registry
+    (the engines call it right after their host read)."""
+    if not _ENABLED:
+        return
+    import numpy as np
+
+    v = np.asarray(vec).astype(np.int64).reshape(-1)
+    if int(v[TELE_BP_SHOTS]) == 0:
+        return
+    _REGISTRY.counter("bp.shots").inc(int(v[TELE_BP_SHOTS]))
+    _REGISTRY.counter("bp.converged").inc(int(v[TELE_BP_CONVERGED]))
+    if int(v[TELE_OSD_SHOTS]):
+        _REGISTRY.counter("osd.device_shots").inc(int(v[TELE_OSD_SHOTS]))
+    if len(v) > TELE_OSD_TIER_FULL:  # older persisted carries lack these
+        for slot, name in ((TELE_OSD_TIER_NONE, "osd.tier_none"),
+                           (TELE_OSD_TIER_COMPACT, "osd.tier_compacted"),
+                           (TELE_OSD_TIER_FULL, "osd.tier_full")):
+            if int(v[slot]):
+                _REGISTRY.counter(name).inc(int(v[slot]))
+    if len(v) > TELE_CS_CHUNKS:
+        for slot, name in ((TELE_CS_CANDIDATES, "osd.cs_candidates"),
+                           (TELE_CS_CHUNKS, "osd.cs_chunks")):
+            if int(v[slot]):
+                _REGISTRY.counter(name).inc(int(v[slot]))
+    hist = _REGISTRY.histogram("bp.iterations", ITER_BUCKETS)
+    counts = v[TELE_ITER_HIST0:TELE_ITER_HIST0 + len(ITER_BUCKETS) + 1]
+    it_sum = int(v[TELE_ITER_SUM])
+    if it_sum < 0:  # the int32 carry slot wrapped (TELE_ITER_SUM's bound)
+        it_sum = _approx_iter_sum(counts)
+    hist.merge_counts(counts, it_sum, int(counts.sum()))
 
 
 # metric-specific default boundaries: the serve latency histogram gets the

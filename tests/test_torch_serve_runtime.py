@@ -353,15 +353,17 @@ def test_progcache_single_flight_and_in_process_only():
     assert len(built) == 1
     assert sorted(src for _p, src in out) == ["compile", "mem", "mem", "mem"]
     assert len({id(p) for p, _src in out}) == 1
-    assert progcache.stats() == {"mem_hits": 3, "misses": 1, "stores": 1}
+    # inactive by default: the build stays in process, nothing is stored
+    assert not progcache.active()
+    stats = progcache.stats()
+    assert (stats["mem_hits"], stats["misses"], stats["stores"]) == (3, 1, 0)
     assert progcache.hit_rate() == 0.75
     key = progcache.cache_key("k", {"b": 64})
     assert key == progcache.cache_key("k", {"b": 64})
     assert key != progcache.cache_key("k", {"b": 128})
     assert progcache.evict(key) and progcache.load_cached("k", {"b": 64}) is None
-    with pytest.raises(NotImplementedError):
-        progcache.configure("/nonexistent/cache")
     progcache.configure(None)
+    assert not progcache.active()
 
 
 @pytest.mark.parametrize("impl", [jbp._LruCache, tbp._LruCache],
