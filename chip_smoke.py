@@ -373,6 +373,22 @@ Phases (any failure raises and the script exits non-zero):
      recapture a bucket, every answer bit-exact with the first process;
      then, in this process, a truncated artifact is one load error,
      rebuilt and replaced
+ 52. the reference notebooks on the card through the port's
+     compat.install(device="cuda"): (a) SpaceTimeDecodingDemo's import
+     cell without matplotlib and networkx, then its cells 2-4 verbatim
+     (hgp(ring_code(3), ring_code(3)), CodeSimulator_Circuit_SpaceTime
+     with ST_BP_Decoder_Circuit and ST_BPOSD_Decoder_Circuit OSD-E 10,
+     WordErrorRate(num_samples=10000)) and cell 5 (GenFaultHyperGraph);
+     its rate printed beside the JAX package's executed output and the
+     reference's, and its (failures, shots) equal to the port's direct
+     engine built without the shims, bit for bit; (b) Single-Shot's
+     cells 2-3 verbatim (the author's pickle paths through
+     load_object_compat to codes_lib_tpu/; 4 codes x 4 p x 1000 runs,
+     BPOSD OSD-E 10, max_iter N/10), the
+     n625 cell at the first p equal to the direct CodeSimulator_DataError
+     bit for bit; kernel 1 / the bf16 head and kernel 2 launched, no rung
+     stepped; its launches join the kernels line's bp_minsum,
+     bp_minsum_bf16 and osd_elim entries
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2918,6 +2934,158 @@ def warm_restart_phase(ctx, started) -> None:
     log(f"phase 51 took {time.time() - t_new:.1f} s")
 
 
+# phase 52: the reference notebooks, their cells run unmodified through
+# compat.install(device=...)
+EXECUTED = ROOT / "examples" / "executed"
+ST_NB = EXECUTED / "SpaceTimeDecodingDemo.executed.ipynb"
+SS_NB = EXECUTED / "Single-Shot-checkpoint.executed.ipynb"
+# SpaceTimeDecodingDemo cell 4's output as the JAX package's compat layer
+# executed it, and the reference's own saved output (10k samples,
+# scripts/run_reference_notebook.py)
+ST52_JAX_OUT = 0.0002528
+ST52_REFERENCE_OUT = 0.000193
+
+
+def notebook_phase(ctx) -> dict:
+    """Phase 52 (module docstring); returns its launches."""
+    import warnings
+
+    import numpy as np
+
+    import qldpc_fault_tolerance_tpu_torch.compat as compat
+    from qldpc_fault_tolerance_tpu_torch.codes import hgp, load_code, ring_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BPOSD_Decoder,
+        ST_BP_Decoder_Circuit,
+        ST_BPOSD_Decoder_Circuit,
+    )
+    from qldpc_fault_tolerance_tpu_torch.sim import (
+        CodeSimulator_Circuit_SpaceTime,
+        CodeSimulator_DataError,
+    )
+
+    t_new = time.time()
+    compat.install(device=ctx.dev)
+
+    # (a) SpaceTimeDecodingDemo: cells 2-4 verbatim, then cell 5
+    cells = compat.notebook_cells(ST_NB)
+    ns: dict = {}
+    exec(compat.notebook_header(cells), ns)
+    exec(cells[2], ns)
+    exec(cells[3], ns)
+    ta = time.time()
+    (wer_a, runs_a), launches_a = ctx.counted(
+        lambda: compat.run_cell(cells[4], ns))
+    ta = time.time() - ta
+    sim_a = ns["circuit_simulator"]
+    if len(runs_a) != 1 or runs_a[0] != (sim_a.last_failures,
+                                         sim_a.last_shots):
+        raise AssertionError(f"phase 52 (a): runs {runs_a}")
+    exec(cells[5], ns)
+    if not (len(ns["H_list"]) == len(ns["L_list"])
+            == len(ns["channel_prob_list"]) > 0):
+        raise AssertionError("phase 52 (a): cell 5 built no fault hypergraph")
+    # the port's direct engine, built without the shims, the same seed
+    code = hgp(ring_code(3), ring_code(3))
+    p = 1e-3
+    ep = {"p_i": 0 * p, "p_state_p": 0 * p, "p_m": 0 * p, "p_CX": 1 * p,
+          "p_idling_gate": 0 * p}
+    direct = CodeSimulator_Circuit_SpaceTime(
+        code=code, p=p, num_cycles=13, num_rep=3, error_params=ep,
+        eval_logical_type="Z", circuit_type="coloration",
+        rand_scheduling_seed=1, device=ctx.dev)
+    direct._generate_circuit()
+    direct._generate_circuit_graph()
+    g = direct.circuit_graph
+    kw = dict(max_iter=int(code.N / 10), bp_method="minimum_sum",
+              ms_scaling_factor=0.625, device=ctx.dev)
+    direct.decoder1_z = ST_BP_Decoder_Circuit(
+        h=g["h1"], channel_probs=g["channel_ps1"], **kw)
+    direct.decoder2_z = ST_BPOSD_Decoder_Circuit(
+        h=g["h2"], channel_probs=g["channel_ps2"], osd_method="osd_e",
+        osd_order=10, **kw)
+    wer_direct = direct.WordErrorRate(num_samples=10000)[0]
+    if (direct.last_failures, direct.last_shots) != runs_a[0] \
+            or wer_direct != wer_a:
+        raise AssertionError(
+            f"phase 52 (a): compat {runs_a[0]} wer {wer_a}, direct "
+            f"{(direct.last_failures, direct.last_shots)} wer {wer_direct}")
+    log(f"[52] (a) SpaceTimeDecodingDemo cells 2-5 through "
+        f"compat.install(): hgp(ring_code(3), ring_code(3)) [[{code.N},"
+        f"{code.K}]], 13 cycles, p_CX 1e-3, BP + BPOSD-E 10: WER per cycle "
+        f"{wer_a:.7f} ({runs_a[0][0]} failures in {runs_a[0][1]} shots; "
+        f"the JAX package's executed output {ST52_JAX_OUT}, the reference's "
+        f"{ST52_REFERENCE_OUT}); == the direct engine bit for bit; cell 4 "
+        f"{ta:.1f} s; launches "
+        f"{ {k: v for k, v in launches_a.items() if v} }; "
+        f"{len(ns['H_list'])} fault "
+        f"hypergraphs from cell 5")
+
+    # (b) Single-Shot: cells 2 and 3 verbatim (the author's paths through
+    # load_object_compat)
+    cells = compat.notebook_cells(SS_NB)
+    ns = {}
+    exec(compat.notebook_header(cells), ns)
+    with warnings.catch_warnings(record=True) as subs:
+        warnings.simplefilter("always")
+        exec(cells[2], ns)
+    tb = time.time()
+    (_, runs_b), launches_b = ctx.counted(
+        lambda: compat.run_cell(cells[3], ns))
+    tb = time.time() - tb
+    n_codes, n_p = len(ns["eval_code_list"]), len(ns["eval_p_list"])
+    if len(runs_b) != n_codes * n_p or len(ns["eval_wer_list"]) != len(runs_b):
+        raise AssertionError(f"phase 52 (b): {len(runs_b)} runs for "
+                             f"{n_codes} codes x {n_p} p")
+    # one cell, n625 at the first p, against the direct engine
+    code = load_code(str(CODE))
+    p = ns["eval_p_list"][0]
+    probs = [p / 3, p / 3, p / 3]
+    px, pz = probs[0] + probs[1], probs[1] + probs[2]
+    kw = dict(max_iter=int(code.N / 10), bp_method="minimum_sum",
+              ms_scaling_factor=0.625, osd_method="osd_e", osd_order=10,
+              device=ctx.dev)
+    direct = CodeSimulator_DataError(
+        code=code,
+        decoder_x=BPOSD_Decoder(h=code.hz, channel_probs=px * np.ones(code.N),
+                                **kw),
+        decoder_z=BPOSD_Decoder(h=code.hx, channel_probs=pz * np.ones(code.N),
+                                **kw),
+        pauli_error_probs=probs, device=ctx.dev)
+    wer_direct = direct.WordErrorRate(1000)[0]
+    i625 = [c.N for c in ns["eval_code_list"]].index(625) * n_p
+    if (direct.last_failures, direct.last_shots) != runs_b[i625] \
+            or wer_direct != ns["eval_wer_list"][i625]:
+        raise AssertionError(
+            f"phase 52 (b): compat {runs_b[i625]} wer "
+            f"{ns['eval_wer_list'][i625]}, direct "
+            f"{(direct.last_failures, direct.last_shots)} wer {wer_direct}")
+    grid = np.reshape(np.array(ns["eval_wer_list"]), (n_codes, n_p))
+    log(f"[52] (b) Single-Shot cells 2-3 through compat.install(): "
+        f"{len([w for w in subs if 'substituting' in str(w.message)])} "
+        f"author pickles substituted from codes_lib_tpu/; "
+        f"{n_codes} codes x {n_p} p x 1000 runs, BPOSD-E 10, max_iter N/10"
+        f"; cell 3 {tb:.1f} s (the JAX package's executed cell: 150.4 s); "
+        f"p {[round(float(q), 5) for q in ns['eval_p_list']]}; WER "
+        + "; ".join(f"[[{c.N},{c.K}]] "
+                    + ", ".join(f"{w:.5f}" for w in row)
+                    for c, row in zip(ns["eval_code_list"], grid))
+        + f"; n625 at p {float(p):.5f} == the direct engine bit for bit "
+        f"({runs_b[i625][0]} failures in {runs_b[i625][1]} shots); "
+        f"launches { {k: v for k, v in launches_b.items() if v} }")
+
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    head = launches["bp_minsum"] + launches["bp_minsum_bf16"]
+    if head <= 0 or launches["osd_elim"] <= 0 \
+            or launches_a["bp_minsum"] + launches_a["bp_minsum_bf16"] <= 0:
+        raise AssertionError(f"phase 52 launched no kernel 1 / head or no "
+                             f"elimination: (a) {launches_a}, (b) "
+                             f"{launches_b}")
+    no_rungs("52")
+    log(f"phase 52 took {time.time() - t_new:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2942,10 +3110,70 @@ def main() -> int:
         return run_phases(dem_job, cpu42_job)
     finally:
         dem_pool.shutdown(wait=True, cancel_futures=True)
+        stop_children()
+
+
+def child_pids() -> list:
+    """The pids of this process's live children (read from /proc)."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        # the fields after the parenthesised command: state, then ppid
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            pids.append(int(entry))
+    return pids
+
+
+def stop_children() -> None:
+    """Stop every process the script started that still runs: the
+    resource tracker that the spawn pool's queues started (it outlives its
+    parent by the moment it takes to read end-of-file), and any child that
+    a failed phase left behind."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if hasattr(tracker, "_stop"):
+        tracker._stop()
+    for pid in child_pids():
+        print(f"chip_smoke: stopping a leftover child process {pid}",
+              file=sys.stderr)
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    left = child_pids()
+    if left:
+        raise RuntimeError(f"child processes {left} outlived their stop")
+
+
+def thread_report() -> str:
+    """The threads other than the main one that are still alive, each
+    with the function it is in."""
+    import threading
+
+    frames = sys._current_frames()
+    out = []
+    for t in threading.enumerate():
+        if t is threading.main_thread():
+            continue
+        f = frames.get(t.ident)
+        where = (f"{Path(f.f_code.co_filename).name}:{f.f_lineno} "
+                 f"{f.f_code.co_name}" if f is not None else "?")
+        out.append(f"{t.name} ({'daemon' if t.daemon else 'not daemon'}, "
+                   f"in {where})")
+    return "; ".join(out) or "none"
 
 
 def run_phases(dem_job, cpu42_job) -> int:
-    """Phases 1-51 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-52 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
@@ -5249,19 +5477,24 @@ def run_phases(dem_job, cpu42_job) -> int:
     warm_restart_phase(SimpleNamespace(dev=dev, code=code), started51)
     no_rungs("49-51")
 
+    # 52. the reference notebooks on the card through compat.install()
+    launches_52 = notebook_phase(SimpleNamespace(dev=dev, counted=counted))
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
-         "launches": launches_26["bp_minsum"] + launches_45["bp_minsum"],
+         "launches": (launches_26["bp_minsum"] + launches_45["bp_minsum"]
+                     + launches_52["bp_minsum"]),
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "osd_elim", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:547",
-         "launches": launches_6["osd_elim"] + launches_45["osd_elim"],
+         "launches": (launches_6["osd_elim"] + launches_45["osd_elim"]
+                     + launches_52["osd_elim"]),
          "max_abs_err": float(k2_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
@@ -5327,7 +5560,8 @@ def run_phases(dem_job, cpu42_job) -> int:
          "source": f"{PKG}/csrc/bp_minsum.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
          "launches": (launches_5["bp_minsum_bf16"]
-                     + launches_45["bp_minsum_bf16"]),
+                     + launches_45["bp_minsum_bf16"]
+                     + launches_52["bp_minsum_bf16"]),
          "max_abs_err": bf16_err,
          "ms": bf16_ms, "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
          "bound_by": bf16_by, "library_ms": None},
@@ -5387,4 +5621,18 @@ def run_phases(dem_job, cpu42_job) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import traceback
+
+    try:
+        rc = main()
+    except BaseException:  # noqa: BLE001 - reported, then a non-zero exit
+        traceback.print_exc()
+        rc = 1
+    print(f"chip_smoke: threads alive at the end: {thread_report()}",
+          file=sys.stderr)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # every child process is reaped by now; leave without the interpreter's
+    # finalisation, so that no daemon thread of the serve stack still parked
+    # in the CUDA runtime can hold up or abort the exit
+    os._exit(rc)

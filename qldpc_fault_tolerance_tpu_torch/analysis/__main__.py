@@ -1,14 +1,14 @@
 """``python -m qldpc_fault_tolerance_tpu_torch.analysis [--root DIR]
 [--json]``: lint the port package (and its ``csrc/`` and the checkout's
-``chip_smoke.py``), nothing else.  Exit code 0 when clean, 1 on a
-finding."""
+``chip_smoke.py``) with every rule, nothing else.  Exit code 0 when
+clean, 1 on a finding."""
 from __future__ import annotations
 
 import argparse
 import json
 import sys
 
-from . import lint, repo_root
+from . import analyze_repo, repo_root
 
 
 def main(argv=None) -> int:
@@ -19,7 +19,7 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="the result as one JSON object")
     args = p.parse_args(argv)
-    result = lint(args.root or repo_root())
+    result = analyze_repo(args.root or repo_root())
     if args.as_json:
         print(json.dumps(result.to_dict(), sort_keys=True))
     else:

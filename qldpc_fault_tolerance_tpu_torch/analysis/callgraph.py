@@ -11,7 +11,8 @@ from __future__ import annotations
 import ast
 from typing import Iterable
 
-__all__ = ["dotted", "ModuleSymbols", "symbol_table", "reachable_symbols"]
+__all__ = ["dotted", "ModuleImports", "ModuleSymbols", "module_imports",
+           "module_nodes", "symbol_table", "reachable_symbols"]
 
 
 def dotted(node: ast.AST) -> list[str] | None:
@@ -25,6 +26,42 @@ def dotted(node: ast.AST) -> list[str] | None:
         parts.append(node.id)
         return parts[::-1]
     return None
+
+
+def module_nodes(module, ctx) -> list:
+    """Flat node list of the module AST, walked once and shared by every
+    rule that scans whole files."""
+    return ctx.cache(("nodes", module.rel),
+                     lambda: list(ast.walk(module.tree)))
+
+
+class ModuleImports:
+    """The names one module binds to the ``time`` module
+    (``import time as t``) and to its functions (``from time import
+    sleep``), module- and function-level imports folded together."""
+
+    def __init__(self, tree: ast.Module):
+        self.time: set[str] = set()
+        self.from_time: dict[str, str] = {}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                for a in node.names:
+                    if a.name == "time":
+                        self.time.add(a.asname or a.name)
+            elif isinstance(node, ast.ImportFrom) and node.module == "time":
+                for a in node.names:
+                    self.from_time[a.asname or a.name] = a.name
+
+    def chain_root_module(self, func: ast.AST) -> str | None:
+        """``"time"`` when a call target's root name is bound to the time
+        module, else None."""
+        chain = dotted(func)
+        return "time" if chain and chain[0] in self.time else None
+
+
+def module_imports(module, ctx) -> ModuleImports:
+    return ctx.cache(("imports", module.rel),
+                     lambda: ModuleImports(module.tree))
 
 
 def _module_rel_for(parts: list[str], by_rel: dict) -> str | None:

@@ -1,8 +1,8 @@
 """GF(2) linear algebra on the host (numpy).
 
-The port's own copy of the host routines the slice needs: rank, reduced row
-echelon form and kernels of {0,1} matrices, used once per code (logical
-operators, the OSD rank).  All matrices are dense ``uint8`` arrays holding
+The port's own copy of the host routines: rank, reduced row echelon form,
+kernels and solutions of {0,1} systems, used once per code (logical
+operators, the OSD rank, the reference-name shims).  All matrices are dense ``uint8`` arrays holding
 {0,1}.
 """
 from __future__ import annotations
@@ -15,8 +15,10 @@ __all__ = [
     "rank",
     "nullspace",
     "row_basis",
+    "solve",
     "gf2_mul",
     "block_diag",
+    "row_reduce_augmented",
     "IncrementalRowReducer",
 ]
 
@@ -92,6 +94,30 @@ def row_basis(a) -> np.ndarray:
     """A basis (subset of reduced rows) of the row space of ``a``."""
     r, pivots = rref(a)
     return r[: len(pivots)].copy()
+
+
+def solve(a, b):
+    """One solution ``x`` of ``a @ x = b (mod 2)``, or None if inconsistent."""
+    a = to_gf2(a)
+    b = to_gf2(np.atleast_1d(b)).ravel()
+    m, n = a.shape
+    aug = np.concatenate([a, b[:, None]], axis=1)
+    r, pivots = rref(aug, ncols=n)
+    x = np.zeros(n, dtype=np.uint8)
+    nrows = len(pivots)
+    # inconsistent iff a zero row of A maps to 1 in b
+    if np.any(r[nrows:, n]):
+        return None
+    for i, pc in enumerate(pivots):
+        x[pc] = r[i, n]
+    return x
+
+
+def row_reduce_augmented(a, b):
+    """Solve ``x @ a = b`` row-wise for many b: returns coefficients or None per row."""
+    a = to_gf2(a)
+    b = to_gf2(np.atleast_2d(b))
+    return [solve(a.T, row) for row in b]
 
 
 def block_diag(a, copies: int) -> np.ndarray:

@@ -20,10 +20,9 @@ mid-append leaves behind) is skipped with a warning and a
 ``json.JSONDecodeError`` and bricking the resume.
 
 This is the JAX package's module, jax-free there too, kept as the port's
-own copy; its telemetry and diagnostics are the port's
-(``utils.telemetry``, ``utils.diagnostics``).  Fault injection (the JAX
-package's ``sweep_ckpt_put`` site and its ``truncate`` fault) is not in the
-port yet: appends here never fail on purpose.
+own copy; its telemetry, diagnostics and fault injection are the port's
+(``utils.telemetry``, ``utils.diagnostics``, ``utils.faultinject``: the
+``sweep_ckpt_put`` site and its ``truncate`` fault).
 """
 from __future__ import annotations
 
@@ -109,15 +108,27 @@ class SweepCheckpoint:
         )
 
     def _append(self, obj: dict) -> None:
-        """Atomic append + fsync."""
+        """Atomic append + fsync, with the ``sweep_ckpt_put`` fault-injection
+        site: a ``truncate`` fault writes a torn prefix (exactly what a kill
+        mid-append leaves on disk) and then raises."""
+        from . import faultinject
+
         line = json.dumps(obj) + "\n"
         if self._needs_newline:
             line = "\n" + line
+        frac = faultinject.truncate_fraction("sweep_ckpt_put")
         # pessimistic until the full line lands: a write that dies partway
-        # leaves a torn tail, and the NEXT append from this process must
-        # start on a fresh line or it would corrupt its own record too
+        # (injected truncate, real I/O error) leaves a torn tail, and the
+        # NEXT append from this process must start on a fresh line or it
+        # would corrupt its own record too
         self._needs_newline = True
         with open(self.path, "a") as f:
+            if frac is not None:
+                f.write(line[: max(1, int(len(line) * frac))])
+                f.flush()
+                os.fsync(f.fileno())
+                raise faultinject.InjectedFault(
+                    "checkpoint append killed mid-write (injected)")
             f.write(line)
             f.flush()
             os.fsync(f.fileno())

@@ -141,21 +141,26 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
 
 
 # (device index, nesting depth) -> the stream IF bodies at that depth capture
-# on; siblings capture one after another, so a depth needs one stream
+# on; siblings capture one after another, so a depth needs one stream.  Two
+# threads (a fleet host and a heal) may ask for a new key at once: the check
+# and the set happen under the lock, so one stream is made a key
 _body_streams: dict = {}
+_STREAMS_LOCK = threading.Lock()
 
 
 def _body_stream(device: torch.device, depth: int):
     key = (device.index, depth)
-    stream = _body_streams.get(key)
-    if stream is None:
-        ptr = ctypes.c_void_p()
-        with torch.cuda.device(device):
-            rc = _lib().graph_stream_create(ctypes.byref(ptr))
-        if rc != 0:
-            raise RuntimeError(f"cudaStreamCreate failed with CUDA error {rc}")
-        stream = _body_streams[key] = torch.cuda.ExternalStream(
-            ptr.value, device=device)
+    with _STREAMS_LOCK:
+        stream = _body_streams.get(key)
+        if stream is None:
+            ptr = ctypes.c_void_p()
+            with torch.cuda.device(device):
+                rc = _lib().graph_stream_create(ctypes.byref(ptr))
+            if rc != 0:
+                raise RuntimeError(
+                    f"cudaStreamCreate failed with CUDA error {rc}")
+            stream = _body_streams[key] = torch.cuda.ExternalStream(
+                ptr.value, device=device)
     return stream
 
 

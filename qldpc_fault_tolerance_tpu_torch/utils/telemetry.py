@@ -1083,6 +1083,7 @@ TELE_LEN = TELE_CS_CHUNKS + 1
 
 _AUX = threading.local()
 _EDGES: dict = {}   # device -> int32 ITER_BUCKETS tensor
+_EDGES_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -1113,10 +1114,11 @@ def _iter_edges(device):
     import torch
 
     key = str(device)
-    edges = _EDGES.get(key)
-    if edges is None:
-        edges = _EDGES[key] = torch.tensor(ITER_BUCKETS,
-                                           dtype=torch.int32).to(device)
+    with _EDGES_LOCK:  # one tensor a device, whichever thread asks first
+        edges = _EDGES.get(key)
+        if edges is None:
+            edges = _EDGES[key] = torch.tensor(ITER_BUCKETS,
+                                               dtype=torch.int32).to(device)
     return edges
 
 
