@@ -62,7 +62,8 @@ Phases (any failure raises and the script exits non-zero):
      phase 36's launches;
      and B6's and B5's wide instances (bp_int8_wide at h2's shape,
      fused_decode_wide and fused_decode_int8_wide on phase 38's code),
-     with phase 38's launches
+     with phase 38's launches; and kernel 1's sector mode
+     (bp_minsum_sectors) with phase 53's numbers and launches
   9. kernel B3 (counter-PRNG sampler) against its plain version: hgp_34_n625,
      p=0.01, B=4096 with and without the error words, and a ragged B=4000;
      every word bit-exact
@@ -389,6 +390,25 @@ Phases (any failure raises and the script exits non-zero):
      bit for bit; kernel 1 / the bf16 head and kernel 2 launched, no rung
      stepped; its launches join the kernels line's bp_minsum,
      bp_minsum_bf16 and osd_elim entries
+ 53. kernel 1's sector mode, the fused X/Z decode and the sweep monitor:
+     (a) bp_minsum(sectors=) on hgp_34_n625's hz (+) hx (600 x 1250, two
+     sectors), B53 syndromes of p=P53A errors, IT53 iterations: every
+     output bit-exact against its plain version and against two kernel-1
+     launches on hz and hx alone; its layout, the ms of one sector-mode
+     launch against the two launches, the bound (both sectors'
+     operations); (b) run_batch of CodeSimulator_DataError(fuse_sectors=
+     True) on hgp_34_n625, BP-50 float32 (bp_kernel="xla": the pair takes
+     no head), p=0.01, RUN53_BATCHES batches of RUN53_BATCH == the same
+     run_batch without the pair, shot for shot; the sector mode's
+     launches and the shots/s of both, and of the default decoders
+     (bf16 head), with which fuse_sectors warns and builds no pair; (c) the sweep monitor on a fused
+     EvalWER over hgp_34_n225 and n625 at MON53_P, MON53_SHOTS a cell,
+     with a run ledger and telemetry on, two injected faults at the n625
+     bucket's launch under a retry policy: one packed->dense rung, exactly
+     one ladder_degrade anomaly naming the bucket's cells, each labelled
+     with the rung, one substrate_mismatch, cell_progress events from both
+     buckets, no other anomaly, every rate equal to the monitor-off run;
+     then n625 at STALL53_P raises one stalled_convergence
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -401,6 +421,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -508,7 +529,8 @@ PLAIN_VERSIONS = {
     "fused_decode_int8": "fused_decode_plain",
     "osd_elim": "eliminate_plain", "osd_elim_full": "eliminate_plain",
     "osd_elim_percol": "eliminate_percol_plain",
-    "cs_sweep": "cs_sweep_plain", "cs_sweep_rows": "cs_sweep_rows_plain"}
+    "cs_sweep": "cs_sweep_plain", "cs_sweep_rows": "cs_sweep_rows_plain",
+    "bp_minsum_sectors": "minsum_plain"}
 MESH42_KEY, MESH42_BATCHES, MESH42_SMALL = (42, SEED), 8, 1
 MESH_RUNS = {"42 v2": (195, 2)}
 # phase 43's mesh threshold runs MESH43_SCALE times phase 40's shots a
@@ -799,18 +821,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bp_bound_ms(graph, B: int, iters_total: int) -> tuple[float, str]:
+def bp_bound_ms(graph, B: int, iters_total: int | None,
+                sector_work=None) -> tuple[float, str]:
     """Least time for the min-sum decode of these inputs: bytes of reading
     the syndromes, LLRs and graph once and writing the four outputs once,
     against the operations the decode does (per shot-iteration 11 per edge
     — 8 in the check pass, 2 in the variable pass, 1 in the parity pass —
-    and 2 per variable)."""
+    and 2 per variable) over ``iters_total`` shot-iterations.  The sector
+    mode on a block-diagonal graph gives ``sector_work`` instead, one
+    (shot-iterations, edges, variables) a sector, and writes its converged
+    flags and iterations once a (shot, sector) item."""
     m, rw = graph.chk_nbr.shape
     n, cw = graph.var_nbr.shape
-    edges = int(graph.chk_mask.sum())
+    outs = 1 if sector_work is None else len(sector_work)
+    if sector_work is None:
+        sector_work = [(iters_total, int(graph.chk_mask.sum()), n)]
     nbytes = (m * B + 4 * n + 5 * m * rw + 9 * n * cw      # inputs
-              + n * B + 4 * n * B + B + 4 * B)               # outputs
-    ops = iters_total * (11 * edges + 2 * n)
+              + n * B + 4 * n * B + outs * B + 4 * outs * B)  # outputs
+    ops = sum(it * (11 * e + 2 * v) for it, e, v in sector_work)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2439,7 +2467,7 @@ def fault_phases(ctx) -> dict:
         raise AssertionError("phase 48 (c): a host OSD correction misses "
                              "its syndrome")
     # the host C++ == its plain version (numpy) on BP's outputs
-    bp_err, aux = hdec._bp_batch(torch.from_numpy(synd))
+    aux = hdec.bp_batch_device(torch.from_numpy(synd))._asdict()
     conv = aux["converged"].cpu().numpy()
     failed = np.nonzero(~conv)[0]
     idx = failed[:FAULT48_ORACLE_SHOTS]
@@ -3086,6 +3114,266 @@ def notebook_phase(ctx) -> dict:
     return launches
 
 
+# phase 53: kernel 1's sector mode on hz (+) hx of hgp_34_n625 (B53 shots of
+# p = P53A errors, IT53 iterations), the fused X/Z decode of run_batch
+# (RUN53_BATCHES batches of RUN53_BATCH at p = 0.01, BP-50), and the sweep
+# monitor on a fused grid (MON53_P on hgp_34_n225 and n625, MON53_SHOTS a
+# cell) with one bucket's rung stepped, then one cell at STALL53_P
+B53, P53A, IT53 = 4096, 0.05, 50
+RUN53_BATCH, RUN53_BATCHES = 4096, 8
+MON53_P, MON53_SHOTS, STALL53_P = [0.01, 0.02, 0.03], 2048, 0.2
+
+
+def sector_phase(ctx) -> dict:
+    """Phase 53 (module docstring) on ``ctx.dev`` with ``ctx.code``
+    (hgp_34_n625) and ``ctx.counted``; returns the kernels line's entry
+    values of the sector mode."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BP_Decoder_Class,
+        BPDecoder,
+        BPOSD_Decoder_Class,
+    )
+    from qldpc_fault_tolerance_tpu_torch.decoders.bp_decoders import \
+        FusedBPPair
+    from qldpc_fault_tolerance_tpu_torch.ops import _kernels
+    from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
+    from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
+    from qldpc_fault_tolerance_tpu_torch.ops.prng import prng_key
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+    from qldpc_fault_tolerance_tpu_torch.utils import (
+        diagnostics,
+        faultinject,
+        resilience,
+        telemetry,
+    )
+
+    t_new = time.time()
+    dev, code = ctx.dev, ctx.code
+    hz, hx = code.hz, code.hx
+    (ma, na), (mb, nb) = hz.shape, hx.shape
+    h = np.zeros((ma + mb, na + nb), np.uint8)
+    h[:ma, :na], h[ma:, na:] = hz, hx
+    sectors = ((ma, mb), (na, nb))
+
+    # (a) the sector mode against its plain version and two kernel-1
+    # launches
+    rng = np.random.default_rng(SEED + 53)
+    q = 2 * P53A / 3
+    synd_a, synd_b = (torch.from_numpy(
+        ((rng.random((B53, hm.shape[1])) < q).astype(np.uint8) @ hm.T % 2)
+        .astype(np.uint8)).to(dev) for hm in (hz, hx))
+    synd = torch.cat([synd_a, synd_b], dim=1)
+    graph = tbp.build_tanner_graph(h, dev)
+    g_a, g_b = tbp.build_tanner_graph(hz, dev), tbp.build_tanner_graph(hx, dev)
+    llr_a = tbp.llr_from_probs(np.full(na, q), dev)
+    llr_b = tbp.llr_from_probs(np.full(nb, q), dev)
+    llr = torch.cat([llr_a, llr_b])
+
+    def run_sec():
+        return bk.bp_minsum(graph, synd, llr, max_iter=IT53,
+                            ms_scaling_factor=0.625, sectors=sectors)
+
+    def run_two():
+        return (bk.bp_minsum(g_a, synd_a, llr_a, max_iter=IT53,
+                             ms_scaling_factor=0.625),
+                bk.bp_minsum(g_b, synd_b, llr_b, max_iter=IT53,
+                             ms_scaling_factor=0.625))
+
+    sec = run_sec()
+    with _kernels.force_plain():
+        plain = run_sec()
+    ka, kb = run_two()
+    two = (torch.cat([ka[0], kb[0]], 1), ka[1] & kb[1],
+           torch.cat([ka[2], kb[2]], 1), torch.maximum(ka[3], kb[3]))
+    torch.cuda.synchronize()
+    names = ("error", "converged", "posterior", "iterations")
+    for name, a, b, c in zip(names, sec, plain, two):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"phase 53 sector mode {name}: kernel, "
+                                 f"plain and two kernel-1 launches differ")
+    sec_err = float((sec[2] - plain[2]).abs().max())
+    sec_ms = event_ms(run_sec, 10)
+    two_ms = event_ms(run_two, 10)
+    with _kernels.force_plain():
+        sec_plain_ms = event_ms(run_sec, 2)
+    work = [(int(ka[3].sum()), int(g_a.chk_mask.sum()), na),
+            (int(kb[3].sum()), int(g_b.chk_mask.sum()), nb)]
+    sec_bound, sec_by = bp_bound_ms(graph, B53, None, sector_work=work)
+    m2, rw2 = graph.chk_nbr.shape
+    n2, cw2 = graph.var_nbr.shape
+    lay = bk.card_minsum_layout(dev, 2 * B53, m2, n2, rw2, cw2, False,
+                                rows=max(ma, mb, na, nb), sectors=True)
+    lay1 = bk.card_minsum_layout(dev, B53, ma, na, rw2, cw2, False)
+    log(f"[53] sector mode on hz (+) hx ({m2} x {n2}, sectors {sectors}), "
+        f"{B53} shots of p={P53A} errors, {IT53} iterations: error, "
+        f"converged, posterior, iterations == plain == two kernel-1 "
+        f"launches (posterior max |diff| {sec_err}); converged "
+        f"{float(sec[1].float().mean()):.4f}; one sector-mode launch "
+        f"{sec_ms:.3f} ms against {two_ms:.3f} ms for the two launches, "
+        f"plain {sec_plain_ms:.3f} ms, bound {sec_bound:.4f} ms ({sec_by}, "
+        f"shot-iterations {work[0][0]} + {work[1][0]}); layout "
+        f"{lay.lanes} items x {lay.threads // lay.lanes} threads per block, "
+        f"{lay.grid} blocks, {lay.resident} resident per SM, "
+        f"{lay.smem_bytes} B shared memory (one sector alone: {lay1.lanes} "
+        f"shots x {lay1.threads // lay1.lanes} threads, {lay1.smem_bytes} "
+        f"B)")
+
+    # (b) the engine: run_batch with the fused pair == without it, per shot
+    probs = np.full(code.N, 2 * 0.01 / 3)
+    dx, dz = (BPDecoder(hm, probs, 50, bp_kernel="xla", device=dev)
+              for hm in (hz, hx))
+    if not FusedBPPair.compatible(dx, dz):
+        raise AssertionError("phase 53: the float32 decoders do not fuse")
+    sims = {fuse: CodeSimulator_DataError(
+        code=code, decoder_x=dx, decoder_z=dz,
+        pauli_error_probs=[0.01 / 3] * 3, seed=SEED,
+        batch_size=RUN53_BATCH, device=dev, fuse_sectors=fuse)
+        for fuse in (True, False)}
+    if sims[True]._fused is None or sims[False]._fused is not None:
+        raise AssertionError("phase 53: fuse_sectors did not build the pair")
+    keys = [prng_key(SEED + 5300 + i) for i in range(RUN53_BATCHES)]
+
+    def batches(sim):
+        return [sim.run_batch(k) for k in keys]
+
+    flags, walls, launches = {}, {}, {}
+    for fuse in (True, False):
+        batches(sims[fuse])  # warm
+        torch.cuda.synchronize()
+        t = time.time()
+        flags[fuse], launches[fuse] = ctx.counted(
+            lambda fuse=fuse: batches(sims[fuse]))
+        walls[fuse] = time.time() - t
+    if any(not np.array_equal(a, b)
+           for a, b in zip(flags[True], flags[False])):
+        raise AssertionError("phase 53: fused run_batch != unfused, per shot")
+    if launches[True]["bp_minsum_sectors"] <= 0 \
+            or launches[False]["bp_minsum_sectors"] \
+            or launches[True]["bp_minsum"]:
+        raise AssertionError(f"phase 53 launches: fused {launches[True]}, "
+                             f"unfused {launches[False]}")
+    shots53 = RUN53_BATCH * RUN53_BATCHES
+    fails53 = int(sum(f.sum() for f in flags[True]))
+    log(f"[53] run_batch of CodeSimulator_DataError(fuse_sectors=True) on "
+        f"hgp_34_n625, BP-50 float32, p=0.01: {RUN53_BATCHES} batches of "
+        f"{RUN53_BATCH}, {fails53} failures, == without the pair shot for "
+        f"shot; {shots53 / walls[True]:.1f} shots/s fused "
+        f"({launches[True]['bp_minsum_sectors']} sector-mode launches) "
+        f"against {shots53 / walls[False]:.1f} unfused "
+        f"({launches[False]['bp_minsum']} kernel-1 launches)")
+    # the default decoders carry the bf16 head, which the pair refuses:
+    # fuse_sectors warns and changes nothing; their shots/s is what a
+    # user who does not pass bp_kernel="xla" gets
+    dflt = [BPDecoder(hm, probs, 50, device=dev) for hm in (hz, hx)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim_d = CodeSimulator_DataError(
+            code=code, decoder_x=dflt[0], decoder_z=dflt[1],
+            pauli_error_probs=[0.01 / 3] * 3, seed=SEED,
+            batch_size=RUN53_BATCH, device=dev, fuse_sectors=True)
+    if sim_d._fused is not None or not any(
+            "builds no FusedBPPair" in str(w.message) for w in caught):
+        raise AssertionError("phase 53: fuse_sectors with the bf16-head "
+                             "decoders built a pair or did not warn")
+    batches(sim_d)  # warm
+    torch.cuda.synchronize()
+    t = time.time()
+    flags_d, launches_d = ctx.counted(lambda: batches(sim_d))
+    wall_d = time.time() - t
+    if launches_d["bp_minsum_bf16"] <= 0 or launches_d["bp_minsum_sectors"]:
+        raise AssertionError(f"phase 53 default decoders' launches "
+                             f"{launches_d}")
+    log(f"[53] the default decoders (bf16 head; fuse_sectors warns, builds "
+        f"no pair): {int(sum(f.sum() for f in flags_d))} failures, "
+        f"{shots53 / wall_d:.1f} shots/s unfused "
+        f"({launches_d['bp_minsum_bf16']} bf16-head launches); fused "
+        f"float32 / default = {wall_d / walls[True]:.3f}")
+
+    # (c) the sweep monitor on a fused grid: one bucket's rung stepped by
+    # two injected faults, then a cell above threshold
+    codes = [load_code(str(ROOT / "codes_lib_tpu" / f"hgp_34_{t}.npz"))
+             for t in ("n225", "n625")]
+    fam = CodeFamily(codes, BP_Decoder_Class(30, "minimum_sum", 0.625,
+                                             device=dev),
+                     BPOSD_Decoder_Class(10, "minimum_sum", 0.625, "osd_e",
+                                         10, device=dev),
+                     batch_size=2048, seed=SEED, device=dev)
+    clear_rungs()
+    plain_wer = fam.EvalWER("data", "Total", MON53_P, MON53_SHOTS,
+                            if_plot=False, fused="auto")
+    sink = telemetry.MemorySink()
+    telemetry.reset()
+    telemetry.enable()
+    telemetry.add_sink(sink)
+    plan = faultinject.FaultPlan([faultinject.Fault(
+        site="fused_cells_launch", kind="raise", after=1, count=2)])
+    policy = resilience.RetryPolicy(max_attempts=4, base_delay=0.0,
+                                    degrade_after=2, reset_caches=False)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with resilience.policy_override(policy), plan.active():
+                mon_wer = fam.EvalWER("data", "Total", MON53_P, MON53_SHOTS,
+                                      if_plot=False, fused="auto",
+                                      ledger=tmp)
+            (rec,) = diagnostics.load_ledger(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            CodeFamily(codes[1:], fam.decoder1_class, fam.decoder2_class,
+                       batch_size=2048, seed=SEED, device=dev).EvalWER(
+                "data", "Total", [STALL53_P], MON53_SHOTS, if_plot=False,
+                fused="auto", ledger=tmp)
+            (rec_stall,) = diagnostics.load_ledger(tmp)
+    finally:
+        telemetry.remove_sink(sink)
+        telemetry.disable()
+    rungs = clear_rungs()
+    kinds = [a["anomaly"] for a in rec["anomalies"]]
+    ladder = [a for a in rec["anomalies"] if a["anomaly"] == "ladder_degrade"]
+    # the grid's cells in order: n225's, then n625's
+    n625 = [c["cell"] for c in rec["cells"][len(MON53_P):]]
+    tags = [rec["cells"][0]["cell"]["code"], n625[0]["code"]]
+    progress = {tuple(sorted({c.get("code") for c in e["cells"]}))
+                for e in sink.records if e["kind"] == "cell_progress"}
+    if not np.array_equal(np.asarray(mon_wer), np.asarray(plain_wer)):
+        raise AssertionError(f"phase 53: the monitored rates {mon_wer} != "
+                             f"the monitor-off run's {plain_wer}")
+    if rungs != {"packed->dense": 1} or len(ladder) != 1 \
+            or ladder[0]["cells"] != n625 \
+            or ladder[0]["rungs"] != ["packed->dense"]:
+        raise AssertionError(f"phase 53: rungs {rungs}, ladder anomalies "
+                             f"{ladder}, n625 cells {n625}")
+    for c in rec["cells"]:
+        want = "packed->dense" if c["cell"] in n625 else None
+        if c.get("substrate") != want:
+            raise AssertionError(f"phase 53: cell {c['cell']} labelled "
+                                 f"{c.get('substrate')}, not {want}")
+    if sorted(kinds) != ["ladder_degrade", "substrate_mismatch"]:
+        raise AssertionError(f"phase 53: anomalies {rec['anomalies']}")
+    if progress != {(tags[0],), (tags[1],)}:
+        raise AssertionError(f"phase 53: cell_progress events of {progress}")
+    stall = [a for a in rec_stall["anomalies"]
+             if a["anomaly"] == "stalled_convergence"]
+    if len(stall) != 1:
+        raise AssertionError(f"phase 53: the cell at p={STALL53_P}: "
+                             f"anomalies {rec_stall['anomalies']}")
+    log(f"[53] sweep monitor on the fused grid {MON53_P} x (n225, n625), "
+        f"{MON53_SHOTS} shots a cell, two faults at the n625 bucket's "
+        f"launch: rungs {rungs}; anomalies {kinds} (ladder_degrade names "
+        f"the {len(n625)} n625 cells, each labelled packed->dense); "
+        f"cell_progress from the buckets {sorted(progress)}; no stall or "
+        f"drift; rates == the monitor-off run; the cell at p={STALL53_P}: "
+        f"stalled_convergence, converged fraction "
+        f"{stall[0]['converged_fraction']} of {stall[0]['shots']} BP shots")
+    log(f"phase 53 took {time.time() - t_new:.1f} s")
+    return {"launches": launches[True]["bp_minsum_sectors"],
+            "max_abs_err": sec_err, "ms": sec_ms, "plain_ms": sec_plain_ms,
+            "bound_ms": sec_bound, "bound_by": sec_by}
+
+
 def main() -> int:
     import torch
 
@@ -3173,7 +3461,7 @@ def thread_report() -> str:
 
 
 def run_phases(dem_job, cpu42_job) -> int:
-    """Phases 1-52 (module docstring); ``dem_job`` the future of phase
+    """Phases 1-53 (module docstring); ``dem_job`` the future of phase
     36's decoding graphs, ``cpu42_job`` that of phase 42's CPU run."""
     import numpy as np
     import torch
@@ -3378,6 +3666,7 @@ def run_phases(dem_job, cpu42_job) -> int:
                 "fused_decode": (gk.fused_decode_stats, "launches"),
                 "fused_decode_int8": (gk.fused_decode_stats, "int8_launches"),
                 "bp_minsum": (bp_minsum, "launches"),
+                "bp_minsum_sectors": (bp_minsum, "sector_launches"),
                 "osd_elim": (tod.osd_elim, "launches"),
                 "osd_elim_full": (tod.osd_elim, "full_launches"),
                 "osd_elim_percol": (tod.osd_elim_percol, "launches"),
@@ -5480,6 +5769,10 @@ def run_phases(dem_job, cpu42_job) -> int:
     # 52. the reference notebooks on the card through compat.install()
     launches_52 = notebook_phase(SimpleNamespace(dev=dev, counted=counted))
 
+    # 53. kernel 1's sector mode, the fused X/Z decode, the sweep monitor
+    sec53 = sector_phase(SimpleNamespace(dev=dev, code=code,
+                                         counted=counted))
+
     # the kernels line
     kernels = [
         {"name": "bp_minsum", "route": "cuda",
@@ -5490,6 +5783,11 @@ def run_phases(dem_job, cpu42_job) -> int:
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
+        # kernel 1's sector mode (JAX bp_decode(sectors=)), phase 53
+        {"name": "bp_minsum_sectors", "route": "cuda",
+         "source": f"{PKG}/csrc/bp_minsum.cu",
+         "replaces": "qldpc_fault_tolerance_tpu/ops/bp_pallas.py:740",
+         **sec53, "library_ms": None},
         {"name": "osd_elim", "route": "cuda",
          "source": f"{PKG}/csrc/osd_elim.cu",
          "replaces": "qldpc_fault_tolerance_tpu/ops/osd_device.py:547",

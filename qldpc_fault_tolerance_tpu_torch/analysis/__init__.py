@@ -22,15 +22,21 @@ R102 bare sleep / ad-hoc retry loop outside ``utils/resilience.py``
 ==== =====================================================================
 
 ``# qldpc: ignore[R006]`` (several ids comma-separated) suppresses a
-finding on its line; an unused suppression is R000.  The JAX package's
+finding on its line; an unused suppression is R000.  Findings within the
+budgets of ``analysis/baseline.json`` (``Baseline``, the JAX package's
+format; empty while the tree is clean) fail nothing.  The JAX package's
 jit, tracer, PRNG-key and donation rules (R001-R004) have no counterpart
 here: the port has no traced code.
 """
 from __future__ import annotations
 
+import os
+
 from .core import (
     AnalysisContext,
     AnalysisResult,
+    Baseline,
+    BaselineEntry,
     Finding,
     Rule,
     SourceModule,
@@ -44,12 +50,13 @@ from .rules_runtime import (CaptureSiteRule, FaultSiteRule,
                             LockDisciplineRule, SchemaDriftRule)
 from .rules_style import BarePrintRule, BareSleepRule
 
-__all__ = ["AnalysisContext", "AnalysisResult", "Finding", "Rule",
-           "SourceModule", "collect_modules", "package_root", "repo_root",
-           "run_analysis", "KERNEL_CONTRACTS", "KernelContract",
-           "KernelContractRule", "SchemaDriftRule", "LockDisciplineRule",
-           "FaultSiteRule", "CaptureSiteRule", "BarePrintRule",
-           "BareSleepRule", "analyze_repo", "default_rules", "lint"]
+__all__ = ["AnalysisContext", "AnalysisResult", "Baseline", "BaselineEntry",
+           "Finding", "Rule", "SourceModule", "collect_modules",
+           "package_root", "repo_root", "run_analysis", "KERNEL_CONTRACTS",
+           "KernelContract", "KernelContractRule", "SchemaDriftRule",
+           "LockDisciplineRule", "FaultSiteRule", "CaptureSiteRule",
+           "BarePrintRule", "BareSleepRule", "analyze_repo", "default_rules",
+           "default_baseline_path", "DEFAULT_TARGETS"]
 
 
 def default_rules() -> list:
@@ -65,22 +72,24 @@ def default_rules() -> list:
     ]
 
 
-def _modules(root: str):
-    import os
-
-    return collect_modules(
-        [os.path.join(root, "qldpc_fault_tolerance_tpu_torch")], root)
+# what the lint parses by default, relative to the checkout's root
+DEFAULT_TARGETS = ("qldpc_fault_tolerance_tpu_torch",)
 
 
-def analyze_repo(root: str | None = None, rules=None) -> AnalysisResult:
-    """Lint the port package under ``root`` (the repo root by default) with
-    every rule (``default_rules()``), as the command line does."""
-    root = root or repo_root()
-    return run_analysis(_modules(root), rules or default_rules(), root)
+def default_baseline_path() -> str:
+    return os.path.join(package_root(), "analysis", "baseline.json")
 
 
-def lint(root: str | None = None, rules=None) -> AnalysisResult:
-    """Lint the port package under ``root`` with ``rules``, by default the
-    kernel-contract rule R007 alone; ``analyze_repo`` runs every rule."""
-    root = root or repo_root()
-    return run_analysis(_modules(root), rules or [KernelContractRule()], root)
+def analyze_repo(paths=None, *, rules=None, baseline_path=None,
+                 base=None) -> AnalysisResult:
+    """The lint's one entry point, with the JAX package's signature: parse
+    ``paths`` (by default ``DEFAULT_TARGETS``; relative to ``base``, the
+    checkout's root, by default this one) and run ``rules`` (by default
+    every rule, ``default_rules()``; ``[KernelContractRule()]`` runs R007
+    alone) against the baseline at ``baseline_path`` (by default
+    ``default_baseline_path()``)."""
+    base = base or repo_root()
+    modules = collect_modules(list(paths or DEFAULT_TARGETS), base)
+    baseline = Baseline.load(baseline_path or default_baseline_path())
+    return run_analysis(modules, rules if rules is not None
+                        else default_rules(), base, baseline)

@@ -14,11 +14,16 @@ modules.  Vocabulary:
 * ``Rule``: ``check(module, ctx)`` yields a module's findings;
   ``finish(ctx)`` yields findings outside the Python modules (the CUDA
   sources, ``chip_smoke.py``), once per run.
+* baseline: a checked-in budget of justified findings per (file, rule)
+  (``Baseline``, ``analysis/baseline.json``, the JAX package's format);
+  findings within a budget are counted as baselined and fail nothing, and
+  an entry with no live finding is reported stale.
 """
 from __future__ import annotations
 
 import ast
 import io
+import json
 import os
 import re
 import tokenize
@@ -26,8 +31,9 @@ from dataclasses import dataclass, field
 from typing import Iterable, Iterator
 
 __all__ = ["Finding", "Rule", "SourceModule", "AnalysisContext",
-           "AnalysisResult", "collect_modules", "run_analysis",
-           "package_root", "repo_root", "UNUSED_SUPPRESSION_RULE_ID"]
+           "AnalysisResult", "Baseline", "BaselineEntry", "collect_modules",
+           "run_analysis", "package_root", "repo_root",
+           "UNUSED_SUPPRESSION_RULE_ID"]
 
 # the engine's own rule: a suppression comment that masks nothing
 UNUSED_SUPPRESSION_RULE_ID = "R000"
@@ -140,6 +146,67 @@ class Rule:
         return ()
 
 
+# ---------------------------------------------------------------------------
+# Baseline
+# ---------------------------------------------------------------------------
+@dataclass
+class BaselineEntry:
+    file: str
+    rule: str
+    count: int
+    reason: str
+
+    def to_dict(self) -> dict:
+        return {"file": self.file, "rule": self.rule, "count": self.count,
+                "reason": self.reason}
+
+
+class Baseline:
+    """Budget of justified findings per (file, rule)."""
+
+    def __init__(self, entries: Iterable[BaselineEntry] = ()):
+        self.entries = list(entries)
+        self._budget = {(e.file, e.rule): e for e in self.entries}
+
+    @classmethod
+    def load(cls, path: str) -> "Baseline":
+        """The baseline at ``path``; an empty one where there is none."""
+        if not os.path.exists(path):
+            return cls()
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        return cls(BaselineEntry(e["file"], e["rule"], int(e["count"]),
+                                 e.get("reason", ""))
+                   for e in doc.get("entries", []))
+
+    def save(self, path: str) -> None:
+        doc = {"version": 1,
+               "entries": [e.to_dict() for e in sorted(
+                   self.entries, key=lambda e: (e.file, e.rule))]}
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(doc, fh, indent=2, sort_keys=True)
+            fh.write("\n")
+
+    def entry_for(self, file: str, rule: str) -> BaselineEntry | None:
+        return self._budget.get((file, rule))
+
+    @classmethod
+    def from_findings(cls, findings: Iterable[Finding],
+                      previous: "Baseline" = None) -> "Baseline":
+        """Budgets from live findings, keeping the reasons of surviving
+        (file, rule) entries of ``previous``."""
+        counts: dict = {}
+        for f in findings:
+            counts[(f.file, f.rule)] = counts.get((f.file, f.rule), 0) + 1
+        entries = []
+        for (file, rule), n in sorted(counts.items()):
+            prev = previous.entry_for(file, rule) if previous else None
+            reason = prev.reason if prev else \
+                "unreviewed (added by --update-baseline)"
+            entries.append(BaselineEntry(file, rule, n, reason))
+        return cls(entries)
+
+
 def package_root() -> str:
     """The port package's directory."""
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -191,10 +258,12 @@ def collect_modules(paths: Iterable[str], base: str) -> list[SourceModule]:
 
 @dataclass
 class AnalysisResult:
-    findings: list      # unsuppressed: what fails the run
+    findings: list      # unsuppressed, unbaselined: what fails the run
     suppressed: int     # masked by inline suppressions
     files: int
     rules: list         # rule ids that ran
+    baselined: int = 0  # absorbed by baseline budgets
+    stale_baseline: list = field(default_factory=list)  # entries unused
 
     @property
     def exit_code(self) -> int:
@@ -207,13 +276,16 @@ class AnalysisResult:
         return {"version": 1, "files": self.files, "rules": self.rules,
                 "findings": [f.to_dict() for f in sorted(self.findings)],
                 "counts": {k: counts[k] for k in sorted(counts)},
-                "suppressed": self.suppressed}
+                "suppressed": self.suppressed, "baselined": self.baselined,
+                "stale_baseline": [e.to_dict()
+                                   for e in self.stale_baseline]}
 
 
 def run_analysis(modules: list[SourceModule], rules: Iterable[Rule],
-                 root: str) -> AnalysisResult:
+                 root: str, baseline: Baseline = None) -> AnalysisResult:
     """Run ``rules`` over ``modules``: their findings, then the inline
-    suppressions (tracking use), then the unused suppressions as R000."""
+    suppressions (tracking use), then the unused suppressions as R000,
+    then the ``baseline`` budgets (the JAX package's order)."""
     rules = list(rules)
     ctx = AnalysisContext(modules, root)
     raw: list[Finding] = []
@@ -247,6 +319,22 @@ def run_analysis(modules: list[SourceModule], rules: Iterable[Rule],
                     module.rel, sup.comment_line, UNUSED_SUPPRESSION_RULE_ID,
                     f"unused suppression for {', '.join(dead)}: the finding "
                     f"it masked is gone; delete the comment"))
-    return AnalysisResult(findings=sorted(kept), suppressed=suppressed,
+    baseline = baseline or Baseline()
+    by_key: dict = {}
+    for f in kept:
+        by_key.setdefault((f.file, f.rule), []).append(f)
+    final: list[Finding] = []
+    baselined = 0
+    for key, fs in by_key.items():
+        entry = baseline.entry_for(*key)
+        budget = entry.count if entry else 0
+        fs.sort()
+        baselined += min(budget, len(fs))
+        final.extend(fs[budget:])
+    # only entries of a rule that ran can be judged stale
+    stale = [e for e in baseline.entries
+             if e.rule in ran and (e.file, e.rule) not in by_key]
+    return AnalysisResult(findings=sorted(final), suppressed=suppressed,
                           files=len(modules),
-                          rules=sorted(r.id for r in rules))
+                          rules=sorted(r.id for r in rules),
+                          baselined=baselined, stale_baseline=stale)

@@ -48,6 +48,8 @@ _OPS = PKG + "/ops/"
 KERNEL_CONTRACTS = (
     KernelContract("bp_minsum", _OPS + "bp_kernel.py", "bp_minsum",
                    "bp_minsum", "bp_minsum_launch", "minsum_plain"),
+    KernelContract("bp_minsum_sectors", _OPS + "bp_kernel.py", "bp_minsum",
+                   "bp_minsum", "bp_minsum_sectors_launch", "minsum_plain"),
     KernelContract("bp_minsum_bf16", _OPS + "bp_kernel.py", "bp_head_bf16",
                    "bp_minsum", "bp_minsum_bf16_launch",
                    "minsum_dense_plain"),

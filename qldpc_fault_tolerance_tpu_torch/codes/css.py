@@ -88,6 +88,25 @@ class CssCode:
     def K(self) -> int:
         return int(self.lx.shape[0])
 
+    def validate(self) -> None:
+        """Assert the full CSS contract: the checks commute, each logical
+        basis commutes with the other type's checks, K = N - rank(hx) -
+        rank(hz), and no logical row lies in the row space of its own
+        type's checks."""
+        assert not gf2.gf2_mul(self.hx, self.hz.T).any()
+        assert not gf2.gf2_mul(self.hx, self.lz.T).any(), \
+            "lz must commute with hx"
+        assert not gf2.gf2_mul(self.hz, self.lx.T).any(), \
+            "lx must commute with hz"
+        assert self.K == self.N - gf2.rank(self.hx) - gf2.rank(self.hz)
+        for checks, logicals, name in ((self.hx, self.lx, "lx"),
+                                       (self.hz, self.lz, "lz")):
+            red = gf2.IncrementalRowReducer(self.N)
+            for row in checks:
+                red.add(row)
+            for row in logicals:
+                assert red.add(row), f"{name} row lies in its checks' rowspace"
+
     def __repr__(self):
         tag = f" {self.name!r}" if self.name else ""
         return f"CssCode{tag}[[{self.N},{self.K}{',' + str(self.D) if self.D else ''}]]"

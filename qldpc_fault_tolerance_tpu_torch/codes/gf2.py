@@ -19,6 +19,8 @@ __all__ = [
     "gf2_mul",
     "block_diag",
     "row_reduce_augmented",
+    "pack_bitplane",
+    "unpack_bitplane",
     "IncrementalRowReducer",
 ]
 
@@ -136,6 +138,36 @@ def gf2_mul(a, b) -> np.ndarray:
     a = to_gf2(a)
     b = to_gf2(b)
     return (a.astype(np.int64) @ b.astype(np.int64) % 2).astype(np.uint8)
+
+
+def pack_bitplane(bits) -> np.ndarray:
+    """Host reference of ``ops.gf2_packed.pack_shots``: (B, ...) {0,1} ->
+    (ceil(B/32), ...) uint32, shot ``32*w + j`` in bit ``j`` (LSB-first).
+    numpy only, so host artifacts need no device and the device layout is
+    pinned by an independent implementation."""
+    bits = to_gf2(bits)
+    b = bits.shape[0]
+    w = -(-b // 32)
+    pad = w * 32 - b
+    if pad:
+        bits = np.concatenate(
+            [bits, np.zeros((pad,) + bits.shape[1:], np.uint8)], axis=0)
+    x = bits.reshape((w, 32) + bits.shape[1:]).astype(np.uint64)
+    shifts = np.arange(32, dtype=np.uint64).reshape(
+        (1, 32) + (1,) * (bits.ndim - 1))
+    return (x << shifts).sum(axis=1).astype(np.uint32)
+
+
+def unpack_bitplane(packed, batch_size: int) -> np.ndarray:
+    """Inverse of ``pack_bitplane``: (W, ...) uint32 -> (batch_size, ...)
+    uint8."""
+    packed = np.asarray(packed, dtype=np.uint32)
+    w = packed.shape[0]
+    shifts = np.arange(32, dtype=np.uint32).reshape(
+        (1, 32) + (1,) * (packed.ndim - 1))
+    bits = (packed[:, None] >> shifts) & np.uint32(1)
+    return bits.reshape((w * 32,) + packed.shape[1:]).astype(
+        np.uint8)[:batch_size]
 
 
 class IncrementalRowReducer:

@@ -88,6 +88,21 @@
 // L2, which every block shares, else 32-bit; the variable pass loads a
 // variable's first kTerms entries at once.
 //
+// Sector mode (bp_minsum_sectors_launch; ops/bp.py bp_decode(sectors=), the
+// JAX package's XLA sector decode, plain version minsum_plain with
+// sectors): the graph is a block diagonal of n_sec sectors whose messages
+// never leave their block (a FusedBPPair's hz (+) hx).  The claim counter
+// hands out (shot, sector) items b * n_sec + s, and a lane decodes one
+// sector of one shot: lane_decode walks only the sector's checks and
+// variables, by their indices in the whole graph, so every sum is the one
+// a decode of the sector alone adds (build_tanner_graph_host keeps each
+// variable's list in its own sector's order) and a sector's outputs
+// freeze at its own first converged iteration; conv and iters are per
+// item, (B, n_sec), and the wrapper takes their AND and max.  A straggler
+// in one sector no longer holds the other's lane.  The lane regions are
+// those of the whole graph (the shared-memory and device-memory modes
+// only; the check-state kernel decodes whole graphs).
+//
 // Row weights: a check's live slots and negative signs are bit masks
 // (minsum_body.cuh Top2), 32-bit up to row weight 32; the wide instances
 // (kWide, a template flag whose false value is the 32-bit code) take 64-bit
@@ -155,7 +170,9 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
                  int* __restrict__ next,               // claims, 0 at launch
                  int m, int n, int rw, int cw, int B, int max_iter,
                  float scale, int tpl,
-                 unsigned char* lanes_g) {  // lane regions; kMem > 0
+                 unsigned char* lanes_g,  // lane regions; kMem > 0
+                 int n_sec,               // sectors (1: the whole graph)
+                 const int* __restrict__ sec_off) {  // (2 * (n_sec + 1),)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_shot[kMaxLanes][2];
   const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
@@ -204,18 +221,28 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     // lane may still read
     if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
     minsum::lane_sync(lane, tpl);
-    const int b = s_shot[lane][k & 1];
-    if (b >= B) return;
+    // a work item: shot b's sector sec (the whole graph when n_sec == 1),
+    // its checks [c0, c1) and variables [v0, v1)
+    const int item = s_shot[lane][k & 1];
+    if (item >= B * n_sec) return;
+    const int b = item / n_sec, sec = item - b * n_sec;
+    int c0 = 0, c1 = m, v0 = 0, v1 = n;
+    if (n_sec > 1) {
+      c0 = __ldg(sec_off + sec);
+      c1 = __ldg(sec_off + sec + 1);
+      v0 = __ldg(sec_off + n_sec + 1 + sec);
+      v1 = __ldg(sec_off + n_sec + 2 + sec);
+    }
     uint8_t* err_b = err + (size_t)b * n;
     float* post_b = post + (size_t)b * n;
     if (max_iter == 0) {
-      for (int j = r; j < n; j += tpl) {
+      for (int j = v0 + r; j < v1; j += tpl) {
         err_b[j] = 0;
         post_b[j] = llr0(b, j);
       }
       if (r == 0) {
-        conv[b] = 0;
-        iters[b] = 0;
+        conv[item] = 0;
+        iters[item] = 0;
       }
       continue;
     }
@@ -225,16 +252,17 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
         typename std::conditional<kWide, unsigned long long, unsigned>::type;
     const bool bad = minsum::lane_decode<Msg, Mask>(
         g, [&](int i) { return synd_b[i]; }, [&](int v) { return llr0(b, v); },
-        c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it);
+        c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it, c0, c1, v0,
+        v1);
     // the totals of the last iteration, each read by the thread that wrote it
-    for (int j = r; j < n; j += tpl) {
+    for (int j = v0 + r; j < v1; j += tpl) {
       const float t = tot[j];
       err_b[j] = t < 0.f ? 1 : 0;
       post_b[j] = t;
     }
     if (r == 0) {
-      conv[b] = bad ? 0 : 1;
-      iters[b] = bad ? max_iter : it;
+      conv[item] = bad ? 0 : 1;
+      iters[item] = bad ? max_iter : it;
     }
   }
 }
@@ -502,7 +530,8 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
                uint8_t* err, float* post, uint8_t* conv, int32_t* iters,
                int* next, int m, int n, int rw, int cw, int B, int max_iter,
                float scale, int lanes, int tpl, int grid, int smem_bytes,
-               unsigned char* lanes_g, void* stream) {
+               unsigned char* lanes_g, int n_sec, const int* sec_off,
+               void* stream) {
   constexpr int kMaxRw = kWide ? minsum::kMaxRowWeight
                                 : minsum::mask_slots<unsigned>();
   const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
@@ -513,14 +542,16 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
                                      : 0;
   if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
       lanes * tpl > kMaxThreads || rw < 1 || rw > kMaxRw || grid < 1 ||
-      smem_bytes < need || (kMem > 0 && lanes_g == nullptr))
+      smem_bytes < need || (kMem > 0 && lanes_g == nullptr) || n_sec < 1 ||
+      (n_sec > 1 && sec_off == nullptr) || (long long)B * n_sec >= (1LL << 31))
     return -1;
   const int e = set_smem<Msg, kMem, kWide>(smem_bytes);
   if (e != 0) return e;
   bp_minsum_kernel<Msg, kMem, kWide>
       <<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
           synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters,
-          next, m, n, rw, cw, B, max_iter, scale, tpl, lanes_g);
+          next, m, n, rw, cw, B, max_iter, scale, tpl, lanes_g, n_sec,
+          sec_off);
   return (int)cudaGetLastError();
 }
 
@@ -570,7 +601,7 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            int* next, int m, int n, int rw, int cw, int B, int max_iter,
            float scale, int lanes, int tpl, int grid, int smem_bytes, int mem,
            int planes, const uint8_t* lens, unsigned char* lanes_g,
-           void* stream) {
+           int n_sec, const int* sec_off, void* stream) {
 #define BP_MINSUM_CHECKS(WIDE, PLANES)                                  \
   return launch_checks<Msg, WIDE, PLANES>(                              \
       synd, llr0, llr_per_shot, chk, edge, lens, err, post, conv, iters, \
@@ -580,9 +611,11 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
   return launch_mem<Msg, MEM, WIDE>(                                    \
       synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, \
       next, m, n, rw, cw, B, max_iter, scale, lanes, tpl, grid,          \
-      smem_bytes, lanes_g, stream)
+      smem_bytes, lanes_g, n_sec, sec_off, stream)
   const bool wide = rw > minsum::mask_slots<unsigned>();
   if (mem == 3) {
+    // the check-state mode decodes whole graphs only
+    if (n_sec != 1) return -1;
     switch (planes * 2 + wide) {
       case 0: BP_MINSUM_CHECKS(false, 0);
       case 1: BP_MINSUM_CHECKS(true, 0);
@@ -662,7 +695,27 @@ extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
   return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
                                 err, post, conv, iters, next, m, n, rw, cw, B,
                                 max_iter, scale, lanes, tpl, grid, smem_bytes,
-                                mem, planes, lens, lanes_g, stream);
+                                mem, planes, lens, lanes_g, 1, nullptr,
+                                stream);
+}
+
+// kernel 1's sector mode: a block-diagonal graph of n_sec sectors, sector
+// s its checks [sec_off[s], sec_off[s + 1]) and variables
+// [sec_off[n_sec + 1 + s], sec_off[n_sec + 2 + s]); the claims hand out
+// (shot, sector) items b * n_sec + s, and conv and iters are per item,
+// (B, n_sec).  The shared-memory and device-memory modes (mem 0-2).
+extern "C" int bp_minsum_sectors_launch(
+    const uint8_t* synd, const float* llr0, int llr_per_shot,
+    const uint16_t* chk, const uint16_t* edge, uint8_t* err, float* post,
+    uint8_t* conv, int32_t* iters, int* next, int m, int n, int rw, int cw,
+    int B, int max_iter, float scale, int lanes, int tpl, int grid,
+    int smem_bytes, int mem, int planes, const uint8_t* lens,
+    unsigned char* lanes_g, int n_sec, const int* sec_off, void* stream) {
+  return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
+                                err, post, conv, iters, next, m, n, rw, cw, B,
+                                max_iter, scale, lanes, tpl, grid, smem_bytes,
+                                mem, planes, lens, lanes_g, n_sec, sec_off,
+                                stream);
 }
 
 // the bf16 head: one channel-LLR vector shared by the shots
@@ -680,7 +733,7 @@ extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
   return launch<minsum::Bf16Msg>(synd, llr0, 0, chk, edge, slot, err, post,
                                  conv, iters, next, m, n, rw, cw, B, max_iter,
                                  scale, lanes, tpl, grid, smem_bytes, mem,
-                                 planes, lens, lanes_g, stream);
+                                 planes, lens, lanes_g, 1, nullptr, stream);
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM

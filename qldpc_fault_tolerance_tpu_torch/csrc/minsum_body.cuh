@@ -221,14 +221,23 @@ using Planes32 = PlanesT<uint32_t>;
 // totals, which each thread may read back for its own variables without a
 // barrier.  c2v, v2c and syn are free on return (the last barrier followed
 // every read of them); tot once the lane has passed its next barrier.
+//
+// A sector (bp_minsum.cu's sector mode): checks [c0, c1) and variables
+// [v0, v1) of a block-diagonal graph whose messages never leave the block;
+// the lane then walks only those, by their indices in the whole graph, so
+// each check, each variable and each sum is the one a decode of that block
+// alone computes.  By default (c1, v1 < 0) the whole graph.
 template <class Msg, class Mask = unsigned, class Synd, class Llr, class G>
 __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
                                             Llr llr0, float* c2v,
                                             typename Msg::T* v2c, float* tot,
                                             uint8_t* syn, int max_iter,
                                             float scale, int lane, int r,
-                                            int tpl, int& it) {
+                                            int tpl, int& it, int c0 = 0,
+                                            int c1 = -1, int v0 = 0,
+                                            int v1 = -1) {
   const int m = g.m, n = g.n, rw = g.rw, cw = g.cw;
+  const int ce = c1 < 0 ? m : c1, ve = v1 < 0 ? n : v1;
   // check i's scaled c2v on its live slots (bit s of `live`)
   auto put_c2v = [&](int i, const Top2<Mask>& c, Mask live) {
     for (int s = 0; s < rw; ++s)
@@ -236,7 +245,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
   };
 
   // iteration 1's check update, from the channel LLRs
-  for (int i = r; i < m; i += tpl) {
+  for (int i = c0 + r; i < ce; i += tpl) {
     const uint8_t sb = synd(i);
     syn[i] = sb;
     Mask live = 0u;
@@ -253,7 +262,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
   bool bad;
   for (;;) {
     lane_sync(lane, tpl);
-    for (int j = r; j < n; j += tpl) {
+    for (int j = v0 + r; j < ve; j += tpl) {
       const float total = var_total<Msg>(llr0(j), cw, [&](int t, float& c, int& s) {
         const int e = g.edge[t * n + j];
         if (e == G::kPad) return false;
@@ -273,7 +282,7 @@ __device__ __forceinline__ bool lane_decode(const G& g, Synd synd,
     // each check's parity of these totals and, unless this was the last
     // iteration, its next check update, in one walk over its slots
     bool fail = false;
-    for (int i = r; i < m; i += tpl) {
+    for (int i = c0 + r; i < ce; i += tpl) {
       const bool sb = syn[i];
       unsigned par = sb;
       Mask live = 0u;

@@ -57,7 +57,9 @@ __all__ = [
     "osd_compaction_tiers",
     "decode_device",
     "kernel_variant",
+    "device_syndrome_width",
     "state_from_jax",
+    "FusedBPPair",
     "BPDecoder",
     "BPOSD_Decoder",
     "FirstMinBPDecoder",
@@ -252,6 +254,17 @@ def kernel_variant(static, state, batch_size: int | None = None) -> str:
     return names[head_tag]
 
 
+def device_syndrome_width(static, state) -> int:
+    """Columns of the syndrome batch a ``decode_device`` program with this
+    (static, state) pair consumes (what a serve session sizes its request
+    buckets by): ``num_rep * m`` for the space-time wrapper, else the
+    Tanner graph's check count."""
+    if static[0] == "st_syndrome":
+        _, num_rep, m, _n, _inner = static
+        return int(num_rep) * int(m)
+    return int(state["graph"].chk_mask.shape[0])
+
+
 def _make_head(bp_method: str, graph_host, quantize=None,
                kernel: str | None = None, device="cuda"):
     """The decoder's BP head, ``(head, head_tag)``, by the JAX package's
@@ -369,6 +382,61 @@ def _osd_plan(h01, channel_probs, device):
     return base.with_cost(_channel_cost(channel_probs))
 
 
+class FusedBPPair:
+    """Two independent plain-BP decodes in one decode (the JAX package's
+    ``FusedBPPair``): the block-diagonal Tanner graph of ``dec_a.h`` and
+    ``dec_b.h`` decoded with per-sector convergence and freeze
+    (``ops/bp.py`` ``bp_decode_two_phase(sectors=)``, on the card kernel
+    1's sector mode), so results equal running the two decoders separately
+    while one launch decodes both sectors of every shot.  The data engine
+    fuses its X and Z decodes with it (``fuse_sectors``).
+
+    ``compatible`` is the JAX package's test (two plain two-phase
+    ``BPDecoder``s with equal settings) on one device, and it also refuses
+    a decoder that carries a BP head: the head is refused under sectors,
+    so a fused decode is float32 min-sum, and a decoder whose decodes run
+    in a bf16 or int8 head would give other results alone."""
+
+    @staticmethod
+    def compatible(dec_a, dec_b) -> bool:
+        return (
+            type(dec_a) is BPDecoder and type(dec_b) is BPDecoder
+            and dec_a.max_iter == dec_b.max_iter
+            and dec_a.bp_method == dec_b.bp_method
+            and dec_a.ms_scaling_factor == dec_b.ms_scaling_factor
+            and dec_a.two_phase and dec_b.two_phase
+            and dec_a.device == dec_b.device
+            and dec_a._head is None and dec_b._head is None
+        )
+
+    def __init__(self, dec_a, dec_b):
+        ha, hb = dec_a._h01, dec_b._h01
+        (ma, na), (mb, nb) = ha.shape, hb.shape
+        h = np.zeros((ma + mb, na + nb), dtype=np.uint8)
+        h[:ma, :na] = ha
+        h[ma:, na:] = hb
+        self.device = dec_a.device
+        self.graph = bp.build_tanner_graph(h, self.device)
+        self.sectors = ((ma, mb), (na, nb))
+        # read the graph's layout once here, not in a captured decode
+        bp_kernel.check_sectors(self.graph, self.sectors)
+        self._split = na
+        self.llr0 = torch.cat([dec_a.llr0, dec_b.llr0])
+        self.max_iter = dec_a.max_iter
+        self.bp_method = dec_a.bp_method
+        self.ms_scaling_factor = dec_a.ms_scaling_factor
+
+    def decode_pair_device(self, synd_a, synd_b):
+        """(B, ma), (B, mb) uint8 tensors -> corrections (B, na), (B, nb)."""
+        synd = torch.cat([synd_a.to(self.device, torch.uint8),
+                          synd_b.to(self.device, torch.uint8)], dim=-1)
+        res = bp.bp_decode_two_phase(
+            self.graph, synd, self.llr0, max_iter=self.max_iter,
+            method=self.bp_method, ms_scaling_factor=self.ms_scaling_factor,
+            sectors=self.sectors, device=self.device)
+        return res.error[:, :self._split], res.error[:, self._split:]
+
+
 class BPDecoder:
     """Plain BP decoder (reference BPDecoder).  ``quantize="int8"`` decodes
     with int8 min-sum messages (the JAX package's int8 serving and
@@ -424,10 +492,26 @@ class BPDecoder:
         return decode_device(self.device_static, self.device_state,
                              syndromes.to(self.device, torch.uint8))
 
+    def bp_batch_device(self, syndromes) -> bp.BPResult:
+        """This decoder's BP stage alone on a (B, m) uint8 tensor, as
+        ``decode_device`` runs it (two-phase where it engages): the
+        ``BPResult`` with posteriors and iterations."""
+        err, aux = decode_device(BPDecoder.device_static.fget(self),
+                                 BPDecoder.device_state.fget(self),
+                                 syndromes.to(self.device, torch.uint8))
+        return bp.BPResult(err, aux["converged"], aux["posterior_llr"],
+                           aux["iterations"])
+
+    def host_postprocess(self, syndromes, corrections, aux):
+        """No host stage for plain BP: the corrections as they are."""
+        return corrections
+
     def decode_batch(self, syndromes) -> np.ndarray:
         synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
-        out, _ = self.decode_batch_device(synd)
-        return out.cpu().numpy()
+        res = self.bp_batch_device(synd)
+        telemetry.record_bp_aux({"converged": res.converged,
+                                 "iterations": res.iterations})
+        return res.error.cpu().numpy()
 
     def decode(self, synd):
         """Reference-compatible single-shot decode."""
@@ -491,16 +575,13 @@ class BPOSD_Decoder(BPDecoder):
         return dict(state, osd_packed=self._osd_plan.packed,
                     osd_cost=self._osd_plan.cost)
 
-    def _bp_batch(self, syndromes):
-        """BP alone on a (B, m) uint8 tensor (the host path's device half)."""
-        return decode_device(BPDecoder.device_static.fget(self),
-                             BPDecoder.device_state.fget(self),
-                             syndromes.to(self.device, torch.uint8))
-
     def host_postprocess(self, syndromes, corrections, aux) -> np.ndarray:
         """The host OSD on a BP-only decode's outputs: ``syndromes`` and
         ``corrections`` (B, m) / (B, n) and ``aux`` (``converged``,
-        ``posterior_llr``), host arrays or tensors."""
+        ``posterior_llr``), host arrays or tensors.  The aux comes to the
+        host here, so its BP counts go to telemetry
+        (``telemetry.record_bp_aux``) at no further read."""
+        telemetry.record_bp_aux(aux)
         telemetry.count("osd.host_round_trips")
         return self.osd_host(_host(syndromes), _host(corrections),
                              _host(aux["converged"]),
@@ -514,11 +595,18 @@ class BPOSD_Decoder(BPDecoder):
             osd_method=self.osd_method, osd_order=self.osd_order)
 
     def decode_batch(self, syndromes) -> np.ndarray:
-        if self.device_osd:
-            return super().decode_batch(syndromes)
         synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
-        err, aux = self._bp_batch(synd)
-        return self.host_postprocess(synd.numpy(), err, aux)
+        if self.device_osd:
+            out, aux = self.decode_batch_device(synd)
+            telemetry.record_bp_aux(aux)
+            if telemetry.enabled():
+                # BP-failed shots go to the device OSD, as the device
+                # telemetry vector counts them
+                telemetry.count("osd.device_shots",
+                                int((~aux["converged"]).sum()))
+            return out.cpu().numpy()
+        res = self.bp_batch_device(synd)
+        return self.host_postprocess(synd.numpy(), res.error, res._asdict())
 
 
 def _host(x) -> np.ndarray:
@@ -578,6 +666,10 @@ class FirstMinBPDecoder:
         """(B, m) uint8 tensor -> (corrections (B, n) uint8, aux dict)."""
         return decode_device(self.device_static, self.device_state,
                              syndromes.to(self.device, torch.uint8))
+
+    def host_postprocess(self, syndromes, corrections, aux):
+        """No host stage: the corrections as they are."""
+        return corrections
 
     def decode_batch(self, syndromes) -> np.ndarray:
         synd = torch.from_numpy(np.atleast_2d(np.asarray(syndromes, np.uint8)))
@@ -647,6 +739,10 @@ class ST_BP_Decoder_syndrome:
         uint8, the inner decode's aux)."""
         return decode_device(self.device_static, self.device_state,
                              detector_histories.to(self.device, torch.uint8))
+
+    def host_postprocess(self, syndromes, corrections, aux):
+        """No host stage: the corrections as they are."""
+        return corrections
 
     def decode_batch(self, detector_histories) -> np.ndarray:
         """(B, num_rep, m) -> (B, n) folded data corrections (host arrays);

@@ -148,26 +148,37 @@ def _inputs(graph, syndromes, channel_llr, device):
 
 def bp_decode(graph: TannerGraph, syndromes, channel_llr, *, max_iter: int,
               method: str = "minimum_sum", ms_scaling_factor=0.625,
-              device="cuda") -> BPResult:
+              sectors: tuple | None = None, device="cuda") -> BPResult:
     """Decode a batch of syndromes against one Tanner graph.
 
     syndromes: (B, m) {0,1}; channel_llr: (n,) or (B, n) float32.  The
     public interface is batch-major; internally everything runs
-    batch-last."""
+    batch-last.
+
+    ``sectors=((m0, m1, ...), (n0, n1, ...))`` marks the graph as a block
+    diagonal of independent sub-decodes (check and variable counts per
+    block, in order), as in the JAX package: each sector's outputs freeze
+    at that sector's first converged iteration, so the results equal
+    separate decodes of the blocks; ``converged`` / ``iterations`` are the
+    AND / max across sectors.  Min-sum runs kernel 1's sector mode on the
+    card (``bp_kernel.bp_minsum``)."""
     graph, synd, llr = _inputs(graph, syndromes, channel_llr, device)
-    return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+    return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor,
+                   sectors)
 
 
-def _decode(graph, synd, llr, max_iter, method, ms_scaling_factor) -> BPResult:
+def _decode(graph, synd, llr, max_iter, method, ms_scaling_factor,
+            sectors=None) -> BPResult:
     if method == "minimum_sum":
         return BPResult(*bp_kernel.bp_minsum(
             graph, synd, llr, max_iter=max_iter,
-            ms_scaling_factor=ms_scaling_factor))
+            ms_scaling_factor=ms_scaling_factor, sectors=sectors))
     if method != "product_sum":
         raise ValueError(f"unknown BP method {method!r}")
     llr0_bl = llr.t() if llr.dim() == 2 else llr[:, None]
     err, done, post, iters = bp_kernel.bp_loop(
-        graph, synd.t(), llr0_bl, max_iter, _check_update_prodsum)
+        graph, synd.t(), llr0_bl, max_iter, _check_update_prodsum,
+        sectors=sectors)
     return BPResult(err.t(), done, post.t(), iters)
 
 
@@ -219,6 +230,7 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
                         head_iters: int = TWO_PHASE_HEAD_ITERS,
                         tail_capacity: int | None = None,
                         head=None, quantize: str | None = None,
+                        sectors: tuple | None = None,
                         device="cuda") -> BPResult:
     """Straggler-compacted BP: run ``head_iters`` for the whole batch, then
     decode only the unconverged shots (gathered into a fixed-capacity
@@ -243,6 +255,11 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     so with a head the batch's straggler count can change a straggler's
     result.
 
+    ``sectors`` (``bp_decode``) decodes a block-diagonal graph per sector,
+    in every tier; the head is refused under sectors, as in the JAX
+    package, so a sector decode is float32 min-sum throughout and equals
+    ``bp_decode(sectors=)``.
+
     The tier ladder is a nest of ``device_cond``s, shaped like the JAX
     package's ``lax.cond``s: during a CUDA-graph capture it is conditional
     nodes and reads nothing on the host; elsewhere each decode reads the
@@ -255,18 +272,21 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
     if tail_capacity is None:
         tail_capacity = max(1, b // TWO_PHASE_TAIL_DIV)
     if head_iters >= max_iter or tail_capacity >= b:
-        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
-    use_head = head_engages(head, b, method, llr)
+        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor,
+                       sectors)
+    use_head = sectors is None and head_engages(head, b, method, llr)
 
     def run(iters):
         """A full-batch decode of ``iters`` iterations."""
         if use_head:
             return _run_head(head, synd, llr, iters, ms_scaling_factor,
                              head.max_block_b(b, want=HEAD_BLOCK), quantize)
-        return _decode(graph, synd, llr, iters, method, ms_scaling_factor)
+        return _decode(graph, synd, llr, iters, method, ms_scaling_factor,
+                       sectors)
 
     def full():
-        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor)
+        return _decode(graph, synd, llr, max_iter, method, ms_scaling_factor,
+                       sectors)
 
     def compacted(capacity, head_res):
         # pad the gather with an out-of-range sentinel (b): padded rows read
@@ -285,7 +305,7 @@ def bp_decode_two_phase(graph: TannerGraph, syndromes, channel_llr, *,
             if llr.dim() == 2:
                 llr_c = torch.cat([llr, llr[:1]])[idx]
             tail = _decode(graph, synd_ext[idx], llr_c, max_iter, method,
-                           ms_scaling_factor)
+                           ms_scaling_factor, sectors)
 
         def merge(head_arr, tail_arr):
             ext = torch.cat([head_arr, head_arr.new_zeros((1,) + head_arr.shape[1:])])

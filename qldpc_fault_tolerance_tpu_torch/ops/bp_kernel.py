@@ -29,7 +29,10 @@ do not fit or 16 bits cannot number the graph), counted in
 run the kernels' 32-bit slot masks, up to 64 (a detector error model's
 window matrix) their wide instances (``minsum_wide``), counted in
 ``wide_launches``; so does the int8 head B6 (``bp_head_int8.wide_launches``);
-the plain versions take any row weight.
+the plain versions take any row weight.  ``sectors=`` runs kernel 1's
+sector mode (``bp_minsum_sectors_launch``, counted in
+``sector_launches``): a block-diagonal graph decoded as independent
+sectors, each freezing at its own convergence, equal to separate decodes.
 
 The BP head family (the port's counterpart of ``ops/bp_pallas.py``'s heads),
 which the two-phase decode runs when a decoder carries a head:
@@ -53,11 +56,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils.device import capturing
 from . import _kernels
@@ -67,7 +72,7 @@ __all__ = ["BIG", "bp_minsum", "minsum_plain", "bp_loop", "minsum_wide",
            "INT8_WER_NSIGMA", "int8_parity_tolerance", "SparseHeadGraph",
            "PallasHeadGraph", "build_sparse_head", "build_pallas_head",
            "sparse_head_from_planes", "pallas_head_from_planes",
-           "DenseStack", "dense_stack",
+           "DenseStack", "dense_stack", "check_sectors",
            "minsum_int8_plain", "bp_head_int8",
            "minsum_dense_plain", "bp_head_bf16", "slot_ordered_graph"]
 
@@ -115,7 +120,60 @@ def _edge_parity(err, graph):
     return bits.sum(dim=1, dtype=torch.uint8) & 1
 
 
-def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
+def _sector_split(sectors, m: int, n: int):
+    """The check and variable sizes of ``sectors`` (``((m0, ...), (n0,
+    ...))``, the whole graph when None), checked against (m, n)."""
+    if sectors is None:
+        return (m,), (n,)
+    chk_sizes, var_sizes = (tuple(int(x) for x in sizes) for sizes in sectors)
+    if (len(chk_sizes) != len(var_sizes) or not chk_sizes
+            or sum(chk_sizes) != m or sum(var_sizes) != n
+            or min(chk_sizes + var_sizes) < 0):
+        raise ValueError(f"sectors {sectors} do not split a {m} x {n} graph")
+    return chk_sizes, var_sizes
+
+
+# each check graph's (its chk_nbr's) sector splits found block diagonal
+_BLOCK_DIAGONAL = WeakIdKeyDictionary()
+_BLOCK_DIAGONAL_LOCK = threading.Lock()
+
+
+def check_sectors(graph, sectors):
+    """``sectors`` checked against ``graph``, as ``_sector_split`` returns
+    them: raises ValueError unless they split it and every check of sector
+    s touches only sector s's variables.  Kernel 1's sector mode walks a
+    (shot, sector) item's own check and variable ranges only, so an edge
+    across sectors would read messages no one wrote.  The check reads the
+    graph on the host once per (graph, sectors) pair, so a caller that
+    captures ``bp_minsum(sectors=)`` in a CUDA graph calls it first
+    (``FusedBPPair`` does)."""
+    m, n = graph.chk_nbr.shape[0], graph.var_nbr.shape[0]
+    split = _sector_split(sectors, m, n)
+    key = graph.chk_nbr
+    with _BLOCK_DIAGONAL_LOCK:
+        if split in _BLOCK_DIAGONAL.get(key, ()):
+            return split
+    if capturing():
+        raise ValueError("bp_minsum(sectors=) met an unchecked graph in a "
+                         "CUDA graph capture: call check_sectors first")
+    nbr = graph.chk_nbr.cpu().numpy()
+    mask = graph.chk_mask.cpu().numpy()
+    chk_sizes, var_sizes = split
+    var_off = np.concatenate([[0], np.cumsum(var_sizes)])
+    sec = np.repeat(np.arange(len(chk_sizes)), chk_sizes)[:, None]
+    bad = mask & ((nbr < var_off[sec]) | (nbr >= var_off[sec + 1]))
+    if bad.any():
+        i, s = np.argwhere(bad)[0]
+        raise ValueError(f"sectors {sectors} do not split this graph block "
+                         f"diagonally: check {i} touches variable "
+                         f"{nbr[i, s]}, outside its sector")
+    with _BLOCK_DIAGONAL_LOCK:
+        _BLOCK_DIAGONAL.setdefault(key, set()).add(split)
+    return split
+
+
+def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update,
+            sectors=None):
     """Plain batch-last BP iteration loop shared by min-sum and product-sum.
 
     synd_bl: (m, B) uint8; llr0_bl: (n, B) or (n, 1) float32.  Returns
@@ -123,9 +181,18 @@ def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
     frozen at each shot's first convergence.  Messages of converged shots
     keep updating; their values never reach an output, so the loop may stop
     early when every shot has converged (a host read), which it skips while
-    a CUDA graph is being captured."""
+    a CUDA graph is being captured.
+
+    ``sectors = ((m0, m1, ...), (n0, n1, ...))`` marks the graph as a block
+    diagonal of independent decodes (the JAX package's ``bp_decode(
+    sectors=)``): each sector's variables freeze at that sector's first
+    converged iteration; ``done`` is the AND across sectors and ``iters``
+    the max (a sector that never converges counts ``max_iter``)."""
     n, cw = graph.var_nbr.shape
     B = synd_bl.shape[1]
+    chk_sizes, var_sizes = _sector_split(sectors, synd_bl.shape[0], n)
+    n_sec = len(chk_sizes)
+    chk_off = np.concatenate([[0], np.cumsum(chk_sizes)]).astype(int)
     dev = synd_bl.device
     llr0_bl = llr0_bl.expand(n, B)
     synd_sign = 1.0 - 2.0 * synd_bl.to(torch.float32)
@@ -137,8 +204,8 @@ def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
     v2c = llr0_bl[chk_nbr]                                     # (m, rw, B)
     err = torch.zeros((n, B), dtype=torch.uint8, device=dev)
     llr = llr0_bl.clone()
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
+    done = torch.zeros((n_sec, B), dtype=torch.bool, device=dev)
+    iters = torch.full((n_sec, B), max_iter, dtype=torch.int32, device=dev)
     for it in range(max_iter):
         if not capturing() and bool(done.all()):
             break
@@ -150,19 +217,25 @@ def bp_loop(graph, synd_bl, llr0_bl, max_iter: int, check_update):
         total = llr0_bl + acc                                  # (n, B)
         v2c = (total[:, None, :] - c2v_var)[chk_nbr, chk_slot]
         err_new = (total < 0).to(torch.uint8)
-        match = (_edge_parity(err_new, graph) == synd_bl).all(dim=0)
-        keep = done[None, :]
+        ok = _edge_parity(err_new, graph) == synd_bl           # (m, B)
+        match = torch.stack([ok[chk_off[s]:chk_off[s + 1]].all(dim=0)
+                             for s in range(n_sec)])           # (n_sec, B)
+        keep = torch.cat([done[s][None].expand(var_sizes[s], B)
+                          for s in range(n_sec)])              # (n, B)
         err = torch.where(keep, err, err_new)
         llr = torch.where(keep, llr, total)
         iters = torch.where(match & ~done, it + 1, iters).to(torch.int32)
         done = done | match
-    return err, done, llr, iters
+    return err, done.all(dim=0), llr, iters.amax(dim=0)
 
 
-def minsum_plain(graph, synd_bl, llr0_bl, max_iter: int, scale: float):
-    """Plain PyTorch version of the min-sum kernel (same outputs, batch-last)."""
+def minsum_plain(graph, synd_bl, llr0_bl, max_iter: int, scale: float,
+                 sectors=None):
+    """Plain PyTorch version of the min-sum kernel (same outputs,
+    batch-last), of its sector mode with ``sectors`` (``bp_loop``)."""
     return bp_loop(graph, synd_bl, llr0_bl, max_iter,
-                   functools.partial(check_update_minsum, scale=float(scale)))
+                   functools.partial(check_update_minsum, scale=float(scale)),
+                   sectors=sectors)
 
 
 # shared memory a block may take on Hopper (227 KB), and an SM's (228 KB,
@@ -419,7 +492,9 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
                   sm_count: int, llr_shared: bool = True,
                   lanes: int | None = None,
                   memory: str = "shared",
-                  planes: str | None = None) -> MinsumLayout:
+                  planes: str | None = None,
+                  rows: int | None = None,
+                  sectors: bool = False) -> MinsumLayout:
     """The launch of csrc/bp_minsum.cu for a batch of B shots
     (``lane_layout`` with its shared memory, ``minsum_smem_bytes``) in
     ``memory``, one of _kernels.MEMORY_MODES (``"shared"`` raises where not
@@ -432,21 +507,30 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
     ``"device"`` (the lanes' messages in a device scratch, the 16-bit
     planes staged) while the planes fit a block, else ``"device_planes"``
     (32-bit planes read from device memory, nothing staged).  Every mode
-    takes ``lane_layout``'s shots per block."""
+    takes ``lane_layout``'s shots per block.
+
+    The sector mode (``sectors``; B counts its (shot, sector) items and
+    ``rows`` is the larger of a sector's checks and variables, by which a
+    lane's threads are sized) runs in the shared-memory and device-memory
+    modes only: ``"auto"`` passes over ``"checks"``, which raises."""
     minsum_wide(rw)
+    rows = max(m, n) if rows is None else int(rows)
     fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
     per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
     narrow = planes16(m, n, rw)
     form = planes or checks_planes(m, n, rw, cw, llr_shared)
     if memory == "auto":
         memory = ("shared" if narrow and fixed + per_shot <= SMEM_LIMIT
-                  else "checks" if form is not None
+                  else "checks" if form is not None and not sectors
                   else "device" if narrow and fixed <= SMEM_LIMIT
                   else "device_planes")
     if memory not in _kernels.MEMORY_MODES:
         raise ValueError(f"min-sum memory {memory!r} is not one of "
                          f"{_kernels.MEMORY_MODES} or 'auto'")
     if memory == "checks":
+        if sectors:
+            raise ValueError("the min-sum kernels' sector mode has no "
+                             "check-state mode")
         if form is None or cw > CHECKS_MAX_CW:
             raise ValueError(
                 f"the min-sum kernels: one shot's check records "
@@ -459,10 +543,10 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
         fixed = minsum_checks_bytes(0, m, n, rw, cw, form, llr_shared)
         per_shot = minsum_checks_bytes(1, m, n, rw, cw, form,
                                        llr_shared) - fixed
-        return lane_layout(B, fixed, per_shot, max(m, n), sm_count, lanes,
+        return lane_layout(B, fixed, per_shot, rows, sm_count, lanes,
                            memory=memory)._replace(planes=form)
     return lane_layout(B, 0 if memory == "device_planes" else fixed,
-                       per_shot, max(m, n), sm_count, lanes, memory=memory
+                       per_shot, rows, sm_count, lanes, memory=memory
                        )._replace(planes="global32" if memory == "device_planes"
                                   else "staged16")
 
@@ -494,13 +578,15 @@ def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int,
 
 
 def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
-                       memory="auto", planes=None):
+                       memory="auto", planes=None, rows=None,
+                       sectors=False):
     """``minsum_layout`` on CUDA device ``dev`` (by default the check-state
     or a device-memory mode where the shared one does not fit): its SM
     count, and the grid lowered to the blocks the card holds at once."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared,
-                        memory=memory, planes=planes)
+                        memory=memory, planes=planes, rows=rows,
+                        sectors=sectors)
     held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes,
                            lay.memory, minsum_wide(rw), lay.planes)
     if held < 1:
@@ -511,20 +597,27 @@ def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
 
 
 def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
-                 max_iter, scale):
+                 max_iter, scale, sectors=None):
     """Launch kernel 1 or the bf16 head on (B, m) syndromes, in the memory
     mode ``card_minsum_layout`` picks (or ``_kernels.force_memory``
     fixes): ``fn`` takes ``inputs(planes)`` (its inputs before the
     outputs, over the graph's planes), the outputs, the claim counter, the
-    sizes, the layout and the device scratch of its device-memory modes.
-    Returns batch-major (err, conv, post, iters) and the mode."""
+    sizes, the layout and the device scratch of its device-memory modes,
+    and with ``sectors`` (kernel 1's sector mode) the sector count and
+    offsets.  Returns batch-major (err, conv, post, iters) and the mode;
+    with sectors conv and iters are (B, n_sec)."""
     B, m = synd.shape
     if hasattr(graph, "chk_nbr"):  # a TannerGraph
         rw, (n, cw) = graph.chk_nbr.shape[1], graph.var_nbr.shape
     else:                          # a head's planes
         rw, (n, cw) = graph.chk_idx.shape[0], graph.var_edge.shape
-    lay = card_minsum_layout(dev, B, m, n, rw, cw, bf16, not per_shot,
-                             _kernels.memory_mode(), _kernels.planes_form())
+    n_sec = 1 if sectors is None else len(sectors[0])
+    rows = None if sectors is None else max(max(sectors[0]),
+                                            max(sectors[1]))
+    lay = card_minsum_layout(dev, B * n_sec, m, n, rw, cw, bf16,
+                             not per_shot, _kernels.memory_mode(),
+                             _kernels.planes_form(), rows=rows,
+                             sectors=sectors is not None)
     lanes_g = None
     if lay.lane_bytes:
         lanes_g = torch.empty((lay.grid * lay.lanes * lay.lane_bytes,),
@@ -533,26 +626,41 @@ def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
     pointers = inputs(planes)
     err = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = torch.empty((B, n), dtype=torch.float32, device=dev)
-    conv = torch.empty((B,), dtype=torch.uint8, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    conv = torch.empty((B, n_sec), dtype=torch.uint8, device=dev)
+    iters = torch.empty((B, n_sec), dtype=torch.int32, device=dev)
     claims = torch.zeros((1,), dtype=torch.int32, device=dev)
     outs = [t.data_ptr() for t in (err, post, conv, iters, claims)]
     p, i = ctypes.c_void_p, ctypes.c_int
+    tail, tail_types = [], []
+    if sectors is not None:
+        sec_off = sector_offsets(sectors, dev)
+        tail, tail_types = [n_sec, sec_off.data_ptr()], [i, p]
     fn.argtypes = [type(a) if isinstance(a, ctypes.c_int) else p
                    for a in pointers] + [p] * 5 + [i] * 6 + [ctypes.c_float] \
-        + [i] * 6 + [p, p, p]
+        + [i] * 6 + [p, p] + tail_types + [p]
     fn.restype = ctypes.c_int
     rc = _stream_call(fn, dev, *pointers, *outs, m, n, rw, cw, B,
                       int(max_iter), float(scale), lay.lanes,
                       lay.threads // lay.lanes, lay.grid, lay.smem_bytes,
                       _kernels.MEMORY_MODES.index(lay.memory),
                       PLANE_FORMS.index(lay.planes), planes.lens.data_ptr(),
-                      None if lanes_g is None else lanes_g.data_ptr())
+                      None if lanes_g is None else lanes_g.data_ptr(), *tail)
     _kernels.check_launch(name, rc)
+    if sectors is None:
+        conv, iters = conv[:, 0], iters[:, 0]
     return (err, conv.to(torch.bool), post, iters), lay.memory
 
 
-def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
+@functools.lru_cache(maxsize=64)
+def sector_offsets(sectors, device) -> torch.Tensor:
+    """``sectors = ((m0, m1, ...), (n0, n1, ...))`` as csrc/bp_minsum.cu's
+    sector mode reads them: int32 (2 * (n_sec + 1),), the check offsets
+    then the variable offsets, each from 0 to its total."""
+    offs = [np.concatenate([[0], np.cumsum(sizes)]) for sizes in sectors]
+    return torch.from_numpy(np.concatenate(offs).astype(np.int32)).to(device)
+
+
+def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale, sectors=None):
     m, rw = graph.chk_nbr.shape
     n, cw = graph.var_nbr.shape
     B = synd.shape[0]
@@ -571,6 +679,9 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
     minsum_wide(rw)
     if m * B >= 2 ** 31 or n * B >= 2 ** 31:
         raise ValueError("bp_minsum batch too large for int32 indexing")
+    if sectors is not None:
+        return _launch_sectors(graph, synd, llr0, llr_per_shot, max_iter,
+                               scale, sectors)
     out, memory = _minsum_call(
         "bp_minsum", _kernels.library("bp_minsum").bp_minsum_launch, dev,
         synd, lambda planes: [synd.data_ptr(), llr0.data_ptr(),
@@ -589,6 +700,28 @@ def _launch(graph, synd, llr0, llr_per_shot, max_iter, scale):
     return out
 
 
+def _launch_sectors(graph, synd, llr0, llr_per_shot, max_iter, scale,
+                    sectors):
+    """Kernel 1's sector mode: one launch whose claims hand out (shot,
+    sector) items; each shot's convergence is the AND over its sectors and
+    its iterations the max.  ``sectors`` as ``check_sectors`` returns
+    them."""
+    m, rw = graph.chk_nbr.shape
+    n, cw = graph.var_nbr.shape
+    B = synd.shape[0]
+    dev = synd.device
+    (err, conv, post, iters), _ = _minsum_call(
+        "bp_minsum_sectors",
+        _kernels.library("bp_minsum").bp_minsum_sectors_launch, dev, synd,
+        lambda planes: [synd.data_ptr(), llr0.data_ptr(),
+                        ctypes.c_int(int(llr_per_shot)),
+                        planes.chk.data_ptr(), planes.edge.data_ptr()],
+        graph, False, llr_per_shot, max_iter, scale, sectors=sectors)
+    _kernels.count_launch(bp_minsum, "sector_launches", dev)
+    _kernels.declare_cost(*minsum_cost(m, n, rw, cw, B, B * int(max_iter)))
+    return err, conv.all(dim=1), post, iters.amax(dim=1)
+
+
 def minsum_cost(m: int, n: int, rw: int, cw: int, B: int,
                 shot_iters: int) -> tuple[float, float]:
     """(operations, bytes) of a min-sum decode of B shots running
@@ -603,7 +736,7 @@ def minsum_cost(m: int, n: int, rw: int, cw: int, B: int,
 
 
 def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
-              ms_scaling_factor: float = 0.625):
+              ms_scaling_factor: float = 0.625, sectors=None):
     """Min-sum decode of (B, m) uint8 syndromes; ``channel_llr`` is (n,) or
     (B, n) float32 on the same device.  Returns batch-major
     ``(error (B, n) uint8, converged (B,) bool, posterior_llr (B, n) f32,
@@ -612,14 +745,26 @@ def bp_minsum(graph, syndromes, channel_llr, *, max_iter: int,
     ``checks_launches`` those in the check-state mode,
     ``device_launches`` and ``device_planes_launches`` those in each
     device-memory mode, ``wide_launches`` those of the wide instance (row
-    weights 33-64).  CPU tensors run ``minsum_plain``."""
+    weights 33-64).  CPU tensors run ``minsum_plain``.
+
+    ``sectors = ((m0, m1, ...), (n0, n1, ...))`` decodes a block-diagonal
+    graph as independent sub-decodes (``bp_loop``): on the card in
+    kernel 1's sector mode (``csrc/bp_minsum.cu``
+    ``bp_minsum_sectors_launch``, counted in ``sector_launches`` and in no
+    other count), whose claims hand out (shot, sector) items, so each lane
+    decodes one sector of one shot; its outputs equal separate decodes of
+    the sectors bit for bit.  Both routes raise ValueError unless the
+    graph is block diagonal along ``sectors`` (``check_sectors``)."""
     per_shot = channel_llr.dim() == 2
+    if sectors is not None:
+        sectors = check_sectors(graph, sectors)
     if syndromes.is_cuda and not _kernels.plain_forced():
         return _launch(graph, syndromes.contiguous(), channel_llr.contiguous(),
-                       per_shot, max_iter, ms_scaling_factor)
+                       per_shot, max_iter, ms_scaling_factor, sectors)
     llr0_bl = channel_llr.t() if per_shot else channel_llr[:, None]
     err, conv, llr, iters = minsum_plain(graph, syndromes.t().contiguous(),
-                                         llr0_bl, max_iter, ms_scaling_factor)
+                                         llr0_bl, max_iter, ms_scaling_factor,
+                                         sectors)
     return err.t(), conv, llr.t(), iters
 
 
@@ -628,6 +773,7 @@ bp_minsum.device_launches = 0
 bp_minsum.device_planes_launches = 0
 bp_minsum.checks_launches = 0
 bp_minsum.wide_launches = 0
+bp_minsum.sector_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ __all__ = [
     "pack_shots",
     "unpack_shots",
     "xor_reduce",
+    "or_reduce",
     "popcount",
     "packed_parity_apply",
     "packed_gf2_matmul",
@@ -102,6 +103,12 @@ def xor_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _halving_reduce(x, dim, torch.bitwise_xor)
 
 
+def or_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Bitwise-OR reduction along ``dim`` (packed ``any`` over a plane
+    axis)."""
+    return _halving_reduce(x, dim, torch.bitwise_or)
+
+
 def popcount(x: torch.Tensor) -> torch.Tensor:
     """Per-word set-bit count of int32 words (SWAR), int32 out."""
     x = x - ((x >> 1) & 0x55555555)
@@ -137,7 +144,7 @@ def packed_gf2_matmul(packed_bits, h_t) -> torch.Tensor:
 
 def packed_any(packed_words, dim: int = -1) -> torch.Tensor:
     """Per-shot OR over a plane axis: (W, m) -> (W,) flag words."""
-    return _halving_reduce(packed_words, dim, torch.bitwise_or)
+    return or_reduce(packed_words, dim)
 
 
 def packed_count(flag_words, batch_size: int) -> torch.Tensor:

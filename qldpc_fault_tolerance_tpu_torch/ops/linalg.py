@@ -7,7 +7,8 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["ParityOp", "parity_apply", "gf2_matmul"]
+__all__ = ["ParityOp", "parity_apply", "gf2_matmul", "syndrome",
+           "as_device_gf2"]
 
 
 def gf2_matmul(x, h_t) -> torch.Tensor:
@@ -17,6 +18,19 @@ def gf2_matmul(x, h_t) -> torch.Tensor:
     uint8.  float32 accumulation is exact for row sums below 2**24."""
     acc = torch.matmul(x.to(torch.float32), h_t.to(torch.float32))
     return torch.remainder(acc, 2.0).to(torch.uint8)
+
+
+def syndrome(h, e) -> torch.Tensor:
+    """Syndrome ``H @ e % 2`` of batched errors e: (..., n) -> (..., m)
+    uint8, on e's device."""
+    h = torch.as_tensor(np.asarray(h), device=e.device)
+    return gf2_matmul(e, h.t())
+
+
+def as_device_gf2(a, device="cuda") -> torch.Tensor:
+    """Host {0,1} matrix -> uint8 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(a), dtype=torch.uint8,
+                           device=resolve_device(device))
 
 
 class ParityOp:

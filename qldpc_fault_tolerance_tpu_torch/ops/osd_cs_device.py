@@ -50,7 +50,7 @@ from . import _kernels, osd_device as od
 __all__ = ["osd_cs_decode_device", "osd_cs_decode_values", "cs_pat_chunk",
            "cs_sweep_shape", "cs_sweep", "cs_sweep_plain", "cs_planes",
            "cs_sweep_rows", "cs_sweep_rows_plain", "cs_rows_smem_bytes",
-           "sweep_inputs", "SweepInputs"]
+           "cs_sweep_feasible", "sweep_inputs", "SweepInputs"]
 
 # per-chunk compute-tile budget of the pattern-chunk chooser (bytes); the
 # JAX package's default, which its TPU calibration may override
@@ -261,6 +261,20 @@ def cs_rows_smem_bytes(W: int, r: int, f: int, w: int) -> int:
     pivot rows of W words, their signed costs and indices, the free
     positions, dplane and the pairs' X, 4 bytes each."""
     return 4 * (r * W + 2 * r + 2 * f + w * (w - 1) // 2)
+
+
+def cs_sweep_feasible(n: int, rank: int, osd_order: int,
+                      bt: int = 128) -> bool:
+    """The JAX package's residency gate of its sweep kernel, with a block's
+    shared memory in the place of its TPU's scoped VMEM: whether one
+    shot's pivot rows and candidate planes for the (n, rank, osd_order)
+    sweep (``cs_rows_smem_bytes``) fit the block of ``cs_sweep_rows``,
+    the sweep the decode runs.  ``bt``, the JAX kernel's batch tile, plays
+    no part: the card's sweep takes one shot a block."""
+    del bt
+    f, w, _ = _cs_counts(n, rank, osd_order)
+    return cs_rows_smem_bytes(-(-int(n) // 32), int(rank), f,
+                              w) <= od.SMEM_LIMIT
 
 
 def cs_sweep_rows(packed, pr, signed_piv, cost_free, free_perm, base, *,

@@ -872,6 +872,14 @@ class CellFusedDriver(MegabatchDriver):
             label=f"fused_cells.c{self.n_cells}.k{self.k_inner}")
         return _Graph(graph, carry, inputs, body_pool, stats)
 
+    def degrade_mesh(self) -> None:
+        """The ``mesh_replan`` rung of the JAX package's driver: a no-op
+        for a driver on one device (``MeshCellFusedDriver`` runs a mesh)."""
+
+    def dispatch_plan(self, carry, seed, plan, *extra):
+        """``dispatch`` under the JAX package's name."""
+        return self.dispatch(carry, seed, plan, *extra)
+
     def dispatch(self, carry, seed, plan, *extra):
         """One megabatch of every lane under the host lane plan ``(base,
         stride, cell, active)``, folded into ``carry``; returns the new

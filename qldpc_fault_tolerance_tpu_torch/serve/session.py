@@ -65,7 +65,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..decoders.bp_decoders import decode_device, kernel_variant
+from ..decoders.bp_decoders import (decode_device, device_syndrome_width,
+                                     kernel_variant)
 from ..ops import _kernels
 from ..parallel.shots import _capture_graph
 from ..utils import progcache, resilience, telemetry
@@ -88,16 +89,6 @@ OCCUPANCY_BUCKETS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 # every serve capture, replay-and-read and state resolution holds this
 # (module docstring)
 DEVICE_LOCK = threading.RLock()
-
-
-def device_syndrome_width(static, state) -> int:
-    """Columns of the syndrome batch a decode program consumes: the
-    space-time wrapper flattens ``num_rep`` detector slices into one row;
-    every other kind reads the check count off the Tanner graph."""
-    if static[0] == "st_syndrome":
-        _, num_rep, m, _n, _inner = static
-        return int(num_rep) * int(m)
-    return int(state["graph"].chk_mask.shape[0])
 
 
 def _state_device(state) -> torch.device:

@@ -82,6 +82,8 @@ __all__ = ["wer_single_shot", "wer_per_cycle", "ShotBatcher",
            "mesh_batch_stats", "degrade_mesh", "refuse_mesh",
            "resilient_engine_run", "engine_ladder_step", "windowed_count",
            "needs_host", "launch_decode", "finish_decode", "tele_stats",
+           "SimResult", "accumulate_device", "accumulate_counts",
+           "timed_host_sync", "key_bytes",
            "tele_on", "record_wer_run", "record_engine_run",
            "joint_kernel_variant", "joint_osd_backend"]
 
@@ -151,6 +153,62 @@ def select_failures(x_fail, z_fail, eval_type: str):
     if eval_type == "ALL":
         return torch.stack([x_fail, z_fail, x_fail | z_fail], dim=-1)
     return x_fail | z_fail
+
+
+@dataclasses.dataclass
+class SimResult:
+    """Structured result record (the reference prints these)."""
+
+    failures: int
+    num_samples: int
+    wer: float
+    wer_eb: float | None
+    extra: dict = dataclasses.field(default_factory=dict)
+
+
+def accumulate_device(step_fn, keys, combine):
+    """Fold ``step_fn(key)`` outputs with ``combine`` on the device, with
+    no host read (the caller reads the result once).  None for no keys."""
+    acc = None
+    for k in keys:
+        out = step_fn(k)
+        acc = out if acc is None else combine(acc, out)
+    return acc
+
+
+def accumulate_counts(count_fn, keys) -> int:
+    """The sum of ``count_fn(key)``'s device counts over ``keys`` with one
+    host read at the end, watchdog-guarded (``resilience.guarded_fetch``):
+    the ``device_dispatch`` and ``device_sync`` stage timers, the
+    dispatch and host-read waterfall, and ``driver.dispatches``, as in the
+    JAX package."""
+    from ..utils.observability import stage_timer
+
+    keys = list(keys)
+    with stage_timer("device_dispatch"):
+        t0 = time.perf_counter()
+        total = accumulate_device(count_fn, keys, lambda a, b: a + b)
+        profiling.record_dispatch(time.perf_counter() - t0)
+    telemetry.count("driver.dispatches", len(keys))
+    if total is None:
+        return 0
+    with stage_timer("device_sync"):
+        return timed_host_sync(lambda: resilience.guarded_fetch(
+            lambda: int(total), label="device_sync"))
+
+
+def timed_host_sync(fn):
+    """Run a blocking device-to-host read ``fn()`` and record its wall
+    clock as ``host_sync`` time in the active profiling scope."""
+    t0 = time.perf_counter()
+    out = fn()
+    profiling.record_host_sync(time.perf_counter() - t0)
+    return out
+
+
+def key_bytes(key) -> np.ndarray:
+    """The uint32 words of a key (``ops.prng``: two 32-bit words)."""
+    return np.asarray(key_words(key), dtype=np.uint32)
 
 
 class ShotBatcher:
@@ -237,8 +295,7 @@ def run_signature(engine: str, key, **fields) -> dict:
     records (``utils.checkpoint.CellProgress``): the key words plus the
     batch layout.  A resume is honoured only when it matches — resuming a
     cursor under another stream would silently change the estimate."""
-    return {"engine": engine, "key": [int(w) for w in key_words(key)],
-            **fields}
+    return {"engine": engine, "key": key_bytes(key).tolist(), **fields}
 
 
 def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
@@ -767,6 +824,10 @@ class FusedCellProgram:
     weighted: bool = False
     # lane-batches given to lanes beyond a cell's first (adaptive runs)
     reallocated_batches: int = 0
+    # the bucket's representative engine and a builder of its driver anew:
+    # ``degrade`` steps the engine's ladder and rebuilds the driver
+    rep: object = None
+    rebuild: object = None
 
     @property
     def tele(self) -> bool:
@@ -783,6 +844,22 @@ class FusedCellProgram:
     def release(self) -> None:
         """Drop the bucket's captured graphs (their memory with them)."""
         self.driver.release()
+
+    def degrade(self):
+        """The bucket's degradation ladder (``utils.resilience.RetryPolicy``
+        steps it on repeated faults of the bucket's run): one rung of the
+        representative engine's ladder (its ``_degrade_once``: the
+        ``packed->dense`` rung of ``engine_ladder_step``), then the driver
+        built and captured anew on it, so the bucket's next attempt runs
+        the rung, bit for bit the run above it.  Returns the rung, or None
+        when the ladder is spent (or the bucket has none)."""
+        if self.rep is None:
+            return None
+        rung = self.rep._degrade_once()
+        if rung is not None:
+            self.driver.release()
+            self.driver = self.rebuild()
+        return rung
 
 
 def bucket_layout(rep, num_samples: int, mesh=None):
@@ -930,12 +1007,46 @@ def fused_cell_launch(prog: FusedCellProgram, *, start: int = 0,
         return prog.driver.read_launch(carry), n_run
 
 
-def fused_cell_finish(pending, tele: bool = False):
+def _fused_cell_progress(prog: FusedCellProgram, host) -> None:
+    """Publish the bucket's per-cell intervals (gauges and one
+    ``cell_progress`` event) from a host carry a read already fetched (no
+    further read; one boolean when diagnostics are off); a weighted
+    bucket's event carries each cell's ESS interval and effective sample
+    size instead, as the JAX package's ``rare/sweep.py`` publishes it."""
+    if not diagnostics.active():
+        return
+    if not prog.weighted:
+        cells = (prog.cell_keys if prog.cell_keys is not None
+                 else prog.cell_tags)
+        diagnostics.publish_cell_progress(prog.engine, cells, host[0],
+                                          host[1])
+        return
+    failures, shots, _, s1, s2, w1, w2 = (np.asarray(x) for x in host[:7])
+    if prog.cell_keys is not None:
+        cells = prog.cell_keys
+    elif prog.cell_tags is not None:
+        # a weighted tag is (px, py, pz, qx, qy, qz): the p total names it
+        cells = [{"p": round(float(sum(t[:3])), 12)} for t in prog.cell_tags]
+    else:
+        cells = [{"p": i} for i in range(len(failures))]
+    blocks = [diagnostics.weighted_ci_fields(int(f), a, b, c, d, int(n))
+              for f, a, b, c, d, n in zip(failures, s1, s2, w1, w2, shots)]
+    telemetry.event(
+        "cell_progress", engine=prog.engine,
+        cells=[c if isinstance(c, dict) else {"p": c} for c in cells],
+        failures=[int(x) for x in failures], shots=[int(x) for x in shots],
+        ci_low=[b["ci_low"] for b in blocks],
+        ci_high=[b["ci_high"] for b in blocks],
+        rse=[b["rse"] for b in blocks], ess=[b["ess"] for b in blocks])
+
+
+def fused_cell_finish(pending, tele: bool = False, prog=None):
     """The drain half: one host read of the whole bucket's per-cell
     counters -> host ``(failures, shots, min_w)`` arrays, watchdog-guarded
     (``utils.resilience.guarded_fetch``; the pending read survives a
     retry).  With ``tele`` (the program's ``tele``) the carry's telemetry
-    vector is published at that read."""
+    vector is published at that read; with ``prog`` (the bucket's
+    program) its per-cell intervals too."""
 
     def fetch():
         faultinject.site("fused_cells_drain")
@@ -945,6 +1056,8 @@ def fused_cell_finish(pending, tele: bool = False):
         host = resilience.guarded_fetch(fetch, label="fused_cells_drain")
     if tele:
         telemetry.publish_device_tele(host[-1])
+    if prog is not None:
+        _fused_cell_progress(prog, host)
     return _fused_host(host)
 
 
@@ -971,6 +1084,8 @@ def fused_cell_stream(prog: FusedCellProgram, *, progress=None):
             if progress is not None:
                 _save_cells(progress, prog, prog.signature, done, host)
             last = tuple(np.asarray(x) for x in host)
+            # live per-cell intervals at the read the stream already pays
+            _fused_cell_progress(prog, last)
     if prog.tele:
         telemetry.publish_device_tele(last[-1])
     return last
@@ -1033,6 +1148,8 @@ def fused_cell_adaptive(prog: FusedCellProgram, *, target_failures=None,
         host = tuple(np.asarray(x) for x in driver.read(carry))
         if progress is not None:
             _save_cells(progress, prog, signature, 0, host, cursors=cursors)
+        # the adaptive read already holds the whole bucket's counts
+        _fused_cell_progress(prog, host)
     stopped = sum(1 for c in range(C) if cursors[c] < n_run)
     if stopped:
         telemetry.count("driver.early_stops", stopped)
@@ -1313,8 +1430,8 @@ def launch_decode(dec, syndromes):
     for a decoder with a host OSD stage its BP's outputs; pass the result
     to ``finish_decode``."""
     if getattr(dec, "needs_host_postprocess", False):
-        err, aux = dec._bp_batch(syndromes)
-        return syndromes, err, aux
+        res = dec.bp_batch_device(syndromes)
+        return syndromes, res.error, res._asdict()
     cor, _ = decode_device(dec.device_static, dec.device_state, syndromes)
     return syndromes, cor, None
 
@@ -1387,10 +1504,8 @@ def windowed_count(launch, finish, keys, in_flight: int = 4) -> int:
             faultinject.site("windowed_drain")
             return int(finish(item).sum())
 
-        t0 = time.perf_counter()
-        out = resilience.guarded_fetch(fetch, label="windowed_drain")
-        profiling.record_host_sync(time.perf_counter() - t0)
-        return out
+        return timed_host_sync(lambda: resilience.guarded_fetch(
+            fetch, label="windowed_drain"))
 
     window, count = [], 0
     for k in keys:

@@ -70,10 +70,12 @@ the JAX package.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
-from ..decoders.bp_decoders import decode_device
+from ..decoders.bp_decoders import FusedBPPair, decode_device
 from ..noise import (
     depolarizing_xz,
     depolarizing_xz_packed,
@@ -159,6 +161,12 @@ class CodeSimulator_DataError:
     whether the default engine packs its planes (module docstring).  Both
     decoders must live on ``device``; with a ``mesh`` the runs go to its
     devices, each holding a replica (module docstring).
+
+    ``fuse_sectors`` (as in the JAX package) decodes ``run_batch``'s X and
+    Z syndromes in one ``FusedBPPair`` decode when both decoders are
+    compatible (``FusedBPPair.compatible``; on the card one launch of
+    kernel 1's sector mode), with the same failures as the two separate
+    decodes; otherwise it changes nothing and warns.
     """
 
     # v2 engines that ran as fused v1 because the card's fused kernel
@@ -173,7 +181,7 @@ class CodeSimulator_DataError:
                  eval_logical_type="Total", seed: int = 0,
                  batch_size: int = 2048, scan_chunk: int = 8,
                  fused_sampler=False, packed: bool = True, device="cuda",
-                 mesh=None):
+                 mesh=None, fuse_sectors: bool = False):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -222,6 +230,15 @@ class CodeSimulator_DataError:
                                      device=self.device)
         self._tilts = {}  # tilt triple -> its device tensor
         self._ladder = None  # the degradation ladder, built at its first step
+        self._fused = None
+        if fuse_sectors and FusedBPPair.compatible(decoder_x, decoder_z):
+            self._fused = FusedBPPair(decoder_x, decoder_z)
+        elif fuse_sectors:
+            warnings.warn(
+                "fuse_sectors=True builds no FusedBPPair: the decoders are "
+                "not two plain two-phase BPDecoders with equal settings "
+                "and no BP head (on the card pass bp_kernel='xla'); X and "
+                "Z decode separately", stacklevel=2)
         self._select_stats()
 
     def _select_stats(self) -> None:
@@ -315,13 +332,15 @@ class CodeSimulator_DataError:
             generator, (self.batch_size, self.N), self.channel_probs)
         return self._packed_stats(ex_p, ez_p)
 
-    def _dense_flags(self, generator, batch_size: int):
+    def _dense_flags(self, generator, batch_size: int, pair=None):
         """One unpacked batch: per-shot failures (bool) and the min logical
-        weight (``packed=False``, ``run_batch``)."""
+        weight (``packed=False``, ``run_batch``); ``pair`` (a
+        ``FusedBPPair``) decodes both sectors at once."""
         ex, ez = depolarizing_xz(generator, (batch_size, self.N),
                                  self.channel_probs)
-        cor_x, cor_z = self._decode(gf2_matmul(ex, self._hz_t),
-                                    gf2_matmul(ez, self._hx_t))
+        decode = self._decode if pair is None else pair.decode_pair_device
+        cor_x, cor_z = decode(gf2_matmul(ex, self._hz_t),
+                              gf2_matmul(ez, self._hx_t))
         x_fail, z_fail, min_w = dense_check_flags(
             ex ^ cor_x, ez ^ cor_z, self._hz_t, self._hx_t, self._lz_t,
             self._lx_t, self.N)
@@ -396,10 +415,12 @@ class CodeSimulator_DataError:
     def run_batch(self, key, batch_size: int | None = None) -> np.ndarray:
         """One batch drawn from ``key`` (batch 0 of a default-engine run's
         stream with that key), unpacked: per-shot failure flags (host bool
-        array); updates ``min_logical_weight``."""
+        array); updates ``min_logical_weight``.  With ``fuse_sectors`` and
+        compatible decoders both sectors decode in one ``FusedBPPair``
+        decode."""
         bs = int(batch_size or self.batch_size)
         gen = batch_generator(key_words(key), 0, self.device)
-        fail, min_w = self._dense_flags(gen, bs)
+        fail, min_w = self._dense_flags(gen, bs, self._fused)
         fail = fail.cpu().numpy()
         self.min_logical_weight = min(self.min_logical_weight, int(min_w))
         return fail
@@ -611,12 +632,14 @@ def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
             return cnt3.index_select(0, lt.index_select(0, cell))[0], min_w
         return stats
 
-    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
+    def rebuild():
+        return bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
+
     K = rep.K
     return FusedCellProgram(
-        driver=driver, key=key_words(key), extras=(), n_batches=n_batches,
+        driver=rebuild(), key=key_words(key), extras=(), n_batches=n_batches,
         chunk=chunk, batch_size=rep.batch_size, n_cells=len(codes),
-        engine="data",
+        engine="data", rep=rep, rebuild=rebuild,
         wer_fn=lambda failures, shots: wer_single_shot(
             int(failures), int(shots), K),
         signature_fn=lambda: run_signature(
@@ -666,8 +689,10 @@ def weighted_cells_program(sims, tilts, num_samples: int, mesh=None):
                     w1, w2)
         return stats
 
-    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh,
-                           weighted=True)
+    def rebuild():
+        return bucket_driver(unit, rep, stacked, ltypes, chunk, mesh,
+                             weighted=True)
+
     cell_tags = [[float(p) for p in s.channel_probs] + [float(q) for q in t]
                  for s, t in zip(sims, tilts)]
 
@@ -677,9 +702,9 @@ def weighted_cells_program(sims, tilts, num_samples: int, mesh=None):
             "drive it through rare.sweep.eval_weighted_cells")
 
     return FusedCellProgram(
-        driver=driver, key=key_words(key), extras=(), n_batches=n_batches,
+        driver=rebuild(), key=key_words(key), extras=(), n_batches=n_batches,
         chunk=chunk, batch_size=rep.batch_size, n_cells=len(codes),
-        engine="data", wer_fn=direct_wer,
+        engine="data", wer_fn=direct_wer, rep=rep, rebuild=rebuild,
         signature_fn=lambda: run_signature(
             "data-cells-w", key, batch_size=rep.batch_size, chunk=chunk,
             n_batches=n_batches, cells=tags_json(cell_tags), ltypes=codes),

@@ -674,12 +674,14 @@ def fused_cells_program_states(rep, cell_states, ltype_codes, cell_tags,
             return cnt3.index_select(0, lt.index_select(0, cell))[0], min_w
         return stats
 
-    driver = bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
+    def rebuild():
+        return bucket_driver(unit, rep, stacked, ltypes, chunk, mesh)
+
     K = rep.K
     return FusedCellProgram(
-        driver=driver, key=key_words(key), extras=(int(num_rounds),),
+        driver=rebuild(), key=key_words(key), extras=(int(num_rounds),),
         n_batches=n_batches, chunk=chunk, batch_size=rep.batch_size,
-        n_cells=len(codes), engine="phenl",
+        n_cells=len(codes), engine="phenl", rep=rep, rebuild=rebuild,
         wer_fn=lambda failures, shots: wer_per_cycle(
             int(failures), int(shots), K, num_rounds),
         signature_fn=lambda: run_signature(

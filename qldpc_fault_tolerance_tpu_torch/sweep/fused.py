@@ -110,12 +110,14 @@ def _bucket_progress_key(cell_keys: list[dict]) -> dict:
 
 
 def _record_cell(cell_key: dict, wer: float, engine: str, failures: int,
-                 shots: int) -> dict:
+                 shots: int, rungs: list = ()) -> dict:
     """The serial loop's per-cell bookkeeping (the run record of
     ``sim.common.record_wer_run``, one structured log line, a
     ``cell_done`` event, the sweep run's record) for a fused cell, plus
-    the fused counter.  Returns the uncertainty block (empty with
-    diagnostics off) for the checkpoint record."""
+    the fused counter.  ``rungs`` is the bucket's once-drained list of
+    ladder rungs (one device run serves every cell, so the label applies
+    bucket-wide).  Returns the uncertainty block (empty with diagnostics
+    off) for the checkpoint record."""
     from ..sim.common import record_wer_run
     from ..utils import diagnostics, telemetry
     from ..utils.observability import get_logger, log_record
@@ -123,7 +125,7 @@ def _record_cell(cell_key: dict, wer: float, engine: str, failures: int,
     ci = record_wer_run(engine, failures, shots, wer)
     log_record(get_logger(), "cell_done", **cell_key, wer=float(wer), **ci)
     telemetry.event("cell_done", **cell_key, wer=float(wer), **ci)
-    diagnostics.record_cell(cell_key, float(wer), ci)
+    diagnostics.record_cell(cell_key, float(wer), ci, rungs=list(rungs))
     telemetry.count("sweep.cells")
     telemetry.count("sweep.fused_cells")
     return ci
@@ -149,7 +151,16 @@ def eval_cells_fused(cells, bucket_builder, cell_key_fn, *,
     bucket's run: its cells, megabatches, host reads, captured graphs and
     their nodes, build seconds, and on the card the peak device memory
     allocated while it was built and launched (``peak_gib``, the largest
-    of its devices', and per device in ``peak_gib_devices``)."""
+    of its devices', and per device in ``peak_gib_devices``).
+
+    A bucket's run goes under the active ``utils.resilience`` policy with
+    the bucket's ladder (``FusedCellProgram.degrade``).  A ladder step
+    during it applies to every cell of the bucket: its rungs are drained
+    once for the bucket (``diagnostics.drain_degrade_rungs``, right after
+    its launch and again when it is recorded, so a pipelined neighbour's
+    step is not taken for its own), one ``ladder_degrade`` anomaly names
+    every cell, and each cell is labelled with the rung.  Each bucket's
+    read publishes its per-cell intervals (``cell_progress``)."""
     from ..utils import profiling
 
     with profiling.engine_scope("wer.fused"):
@@ -207,7 +218,11 @@ def _eval_cells_fused(cells, bucket_builder, cell_key_fn, checkpoint,
         runs.append(run)
         return bucket, prog, run
 
-    def close(bucket, prog, run, failures, shots):
+    def close(bucket, prog, run, failures, shots, rungs=()):
+        rungs = list(rungs) + diagnostics.drain_degrade_rungs()
+        if rungs:
+            diagnostics.report_ladder_anomaly(
+                [cell_key_fn(*it) for it in bucket], rungs)
         driver = prog.driver
         run.update(megabatches=driver.megabatches,
                    host_reads=driver.host_reads, graphs=len(driver._graphs),
@@ -217,7 +232,8 @@ def _eval_cells_fused(cells, bucket_builder, cell_key_fn, checkpoint,
             cell_key = cell_key_fn(*item)
             wer = float(prog.wer_fn(failures[lane], shots[lane])[0])
             ci = _record_cell(cell_key, wer, prog.engine,
-                              int(failures[lane]), int(shots[lane]))
+                              int(failures[lane]), int(shots[lane]),
+                              rungs=rungs)
             if checkpoint is not None:
                 checkpoint.put(cell_key, {"wer": wer, **ci})
             results[item[0]] = wer
@@ -239,17 +255,20 @@ def _eval_cells_fused(cells, bucket_builder, cell_key_fn, checkpoint,
                 return None
             bucket, prog, run = built
             pending = resilience.run_cell(
-                lambda: simc.fused_cell_launch(prog)[0], label="cell:fused")
+                lambda: simc.fused_cell_launch(prog)[0], label="cell:fused",
+                degrade=prog.degrade)
             peak(run, prog)
-            return bucket, prog, run, pending
+            return bucket, prog, run, pending, \
+                diagnostics.drain_degrade_rungs()
 
         def finish(launched):
             if launched is None:
                 return
-            bucket, prog, run, pending = launched
+            bucket, prog, run, pending, rungs = launched
             failures, shots, _ = simc.fused_cell_finish(pending,
-                                                        tele=prog.tele)
-            close(bucket, prog, run, failures, shots)
+                                                        tele=prog.tele,
+                                                        prog=prog)
+            close(bucket, prog, run, failures, shots, rungs)
 
         for _ in drain_double_buffered(launch, finish, buckets):
             pass
@@ -276,7 +295,8 @@ def _eval_cells_fused(cells, bucket_builder, cell_key_fn, checkpoint,
                     progress=progress)
             return simc.fused_cell_stream(prog, progress=progress)
 
-        host = resilience.run_cell(run_bucket, label="cell:fused")
+        host = resilience.run_cell(run_bucket, label="cell:fused",
+                                   degrade=prog.degrade)
         peak(run, prog)
         close(bucket, prog, run, host[0], host[1])
     return results, leftovers

@@ -7,9 +7,12 @@ parts a sweep and its fits call:
     width and relative standard error from a cell's ``(failures, shots)``
     counts (``ci_fields`` / ``ci_arrays``), carried by every ``cell_done``
     event, cell record and checkpoint cursor;
-  * **the grid's monotonicity check** — ``SweepMonitor`` flags a higher-p
-    cell whose failure rate sits decisively (Wilson CIs disjoint) below a
-    lower-p cell's, as a structured ``anomaly``;
+  * **anomaly detection** — ``SweepMonitor`` watches a grid for
+    non-monotone WER vs p beyond CI overlap, degradation-ladder steps and
+    substrate mismatches within one grid, BP-iteration-histogram drift
+    between cells, and stalled-convergence cells, each a structured
+    ``anomaly`` event; fused buckets publish their live per-cell intervals
+    (``publish_cell_progress``) from counts they already read;
   * **run ledger** — ``RunLedger`` appends one JSONL record per sweep run
     (run id, config fingerprint, per-cell final counts + CIs, fit reports,
     anomalies) under a ``ledger/`` dir.
@@ -20,11 +23,10 @@ already crossed to the host.  The switch follows the telemetry enable;
 
 The weighted (importance-sampled) runs' intervals map a weight stream to
 its effective binomial counts (``ess_interval``, ``weighted_ci_fields``).
-
-Not here yet (ROADMAP queue A item 10): the BP-statistics detectors
-(stalled convergence, iteration-histogram drift), which read the device
-telemetry vector, and the degradation-ladder detectors (the port has no
-ladder).
+The BP-statistics detectors read the ``bp.*`` counters that the device
+telemetry vector and ``telemetry.record_bp_aux`` publish, so they need
+telemetry on; the ladder detectors hear of each step from
+``utils.resilience`` (``notify_degrade``) with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -63,7 +65,11 @@ __all__ = [
     "cell_scope",
     "note_run",
     "record_cell",
+    "drain_degrade_rungs",
+    "report_ladder_anomaly",
+    "notify_degrade",
     "note_fit",
+    "publish_cell_progress",
     "RunLedger",
     "resolve_ledger",
     "load_ledger",
@@ -247,7 +253,7 @@ def active() -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Anomaly monitor
+# Anomaly monitors
 # ---------------------------------------------------------------------------
 def _log(event: str, **fields) -> None:
     from .observability import get_logger, log_record
@@ -256,22 +262,70 @@ def _log(event: str, **fields) -> None:
 
 
 class SweepMonitor:
-    """Host-side estimator-health monitor for one sweep grid, fed finished
-    cells via ``note_cell``.  ``finalize`` runs the grid check:
+    """Host-side estimator-health monitor for one sweep grid, as the JAX
+    package's: a telemetry sink for ``degrade`` events (``emit``; a sweep
+    run feeds it through ``notify_degrade`` instead) fed finished cells
+    via ``note_cell``.  Five detectors, each raising a structured
+    ``anomaly`` event plus ``diag.anomalies`` / ``diag.anomaly.<kind>``
+    counters and a log line:
 
-      * ``non_monotone_wer`` — within one (code, type, noise, cycles)
-        curve, a higher-p cell's failure rate sits DECISIVELY below a
-        lower-p cell's (Wilson CIs disjoint): the rate must be
-        non-decreasing in p, so this flags a broken estimate, not noise.
+      * ``ladder_degrade`` — a degradation-ladder step fired while a cell
+        ran (the cell's result came from a fallback substrate); names the
+        cell and the rung(s) taken.
+      * ``substrate_mismatch`` — cells of ONE grid completed on different
+        substrates (some degraded, some not): each cell is still bit-exact
+        rung for rung, but a curve mixing substrates deserves a flag
+        (finalize-time check).
+      * ``stalled_convergence`` — a cell whose BP converged fraction
+        (``bp.shots`` / ``bp.converged`` registry delta between cells)
+        fell below ``stall_fraction``.
+      * ``bp_iteration_drift`` — the per-cell BP iterations-to-convergence
+        histogram (registry delta, normalized) moved by more than
+        ``drift_tv`` in total-variation distance vs the previous cell.
+      * ``non_monotone_wer`` — finalize-time: within one (code, type,
+        noise, cycles) curve, a higher-p cell's failure rate sits
+        DECISIVELY below a lower-p cell's (Wilson CIs disjoint): the rate
+        must be non-decreasing in p, so this flags a broken estimate, not
+        noise.
 
-    Each anomaly is a structured ``anomaly`` event plus ``diag.anomalies``
-    / ``diag.anomaly.<kind>`` counters and a log line."""
+    The BP detectors skip cells of fewer than ``min_shots`` BP shots."""
 
-    def __init__(self, grid: dict | None = None):
+    def __init__(self, grid: dict | None = None, *,
+                 stall_fraction: float = 0.5, min_shots: int = 256,
+                 drift_tv: float = 0.35):
         self.grid = dict(grid or {})
+        self.stall_fraction = float(stall_fraction)
+        self.min_shots = int(min_shots)
+        self.drift_tv = float(drift_tv)
         self.cells: list[dict] = []
         self.anomalies: list[dict] = []
+        self._lock = threading.Lock()
+        self._pending_rungs: list[str] = []
+        self._last_bp = self._bp_snapshot()
+        self._last_hist: np.ndarray | None = None
         self._finalized = False
+
+    # -- telemetry sink protocol (degrade events only) -------------------
+    def emit(self, record: dict) -> None:
+        if record.get("kind") == "degrade":
+            with self._lock:
+                self._pending_rungs.append(str(record.get("rung")))
+
+    def close(self) -> None:
+        pass
+
+    # -- detectors -------------------------------------------------------
+    @staticmethod
+    def _bp_snapshot() -> dict:
+        snap = telemetry.snapshot()
+        it = snap.get("bp.iterations", {})
+        return {
+            "shots": snap.get("bp.shots", {}).get("value", 0),
+            "converged": snap.get("bp.converged", {}).get("value", 0),
+            "counts": np.asarray(it.get("counts")
+                                 or [0] * (len(telemetry.ITER_BUCKETS) + 1),
+                                 np.int64),
+        }
 
     def _anomaly(self, kind: str, **fields) -> None:
         rec = {"anomaly": kind, **fields}
@@ -281,17 +335,65 @@ class SweepMonitor:
         telemetry.event("anomaly", **rec)
         _log("anomaly", **rec)
 
-    def note_cell(self, cell_key: dict, wer: float, ci: dict | None) -> None:
-        """Record one finished cell (ci: a ``ci_fields`` block or {})."""
-        self.cells.append({"cell": dict(cell_key), "wer": float(wer),
-                           **(ci or {})})
+    def drain_rungs(self) -> list[str]:
+        """Take (and clear) the ladder rungs recorded since the last
+        drain.  A fused bucket (one device run serves every cell) drains
+        once before recording its cells, so all of them are labelled with
+        the fallback substrate, not only the first."""
+        with self._lock:
+            rungs, self._pending_rungs = self._pending_rungs, []
+        return rungs
+
+    def note_cell(self, cell_key: dict, wer: float, ci: dict | None,
+                  rungs: list | None = None) -> None:
+        """Record one finished cell (ci: a ``ci_fields`` block or {}).
+        ``rungs=None`` (serial cells) drains the pending ladder queue and
+        raises the per-cell ladder anomaly itself; an explicit list (a
+        fused bucket's cells: the caller drained once for the whole bucket
+        and raised one bucket-level anomaly) only labels the substrate."""
+        cell = {"cell": dict(cell_key), "wer": float(wer), **(ci or {})}
+        if rungs is None:
+            rungs = self.drain_rungs()
+            if rungs:
+                self._anomaly("ladder_degrade", cell=dict(cell_key),
+                              rungs=list(rungs))
+        if rungs:
+            cell["substrate"] = rungs[-1]
+        self.cells.append(cell)
+        self._bp_deltas(cell_key)
+
+    def _bp_deltas(self, cell_key: dict) -> None:
+        snap = self._bp_snapshot()
+        last, self._last_bp = self._last_bp, snap
+        d_shots = int(snap["shots"]) - int(last["shots"])
+        if d_shots < self.min_shots:
+            return
+        d_conv = int(snap["converged"]) - int(last["converged"])
+        frac = d_conv / d_shots
+        if frac < self.stall_fraction:
+            self._anomaly("stalled_convergence", cell=dict(cell_key),
+                          converged_fraction=round(frac, 6),
+                          shots=d_shots)
+        d_hist = snap["counts"] - last["counts"]
+        total = int(d_hist.sum())
+        if total <= 0:
+            return
+        norm = d_hist / total
+        if self._last_hist is not None:
+            tv = 0.5 * float(np.abs(norm - self._last_hist).sum())
+            if tv > self.drift_tv:
+                self._anomaly("bp_iteration_drift", cell=dict(cell_key),
+                              tv_distance=round(tv, 4))
+        self._last_hist = norm
 
     def finalize(self) -> None:
-        """The grid check once every cell is in.  Idempotent."""
+        """Grid-level checks once every cell is in: monotonicity beyond CI
+        overlap and the substrate-mismatch scan.  Idempotent."""
         if self._finalized:
             return
         self._finalized = True
         self._check_monotone()
+        self._check_substrates()
 
     def _check_monotone(self) -> None:
         groups: dict[tuple, list[dict]] = {}
@@ -316,6 +418,17 @@ class SweepMonitor:
                         rate_low=a.get("rate"), rate_high=b.get("rate"),
                         ci_low_cell=[a["ci_low"], a["ci_high"]],
                         ci_high_cell=[b["ci_low"], b["ci_high"]])
+
+    def _check_substrates(self) -> None:
+        by_sub: dict[str, list[dict]] = {}
+        for c in self.cells:
+            by_sub.setdefault(c.get("substrate") or "default", []).append(c)
+        if len(by_sub) > 1:
+            self._anomaly(
+                "substrate_mismatch",
+                substrates={sub: [cc["cell"] for cc in cs]
+                            for sub, cs in by_sub.items()})
+
 
 # ---------------------------------------------------------------------------
 # Run ledger
@@ -430,8 +543,9 @@ class SweepRun:
         self.error: str | None = None
         self.t0 = time.time()
 
-    def note_cell(self, cell_key: dict, wer: float, ci: dict | None) -> None:
-        self.monitor.note_cell(cell_key, wer, ci)
+    def note_cell(self, cell_key: dict, wer: float, ci: dict | None,
+                  rungs: list | None = None) -> None:
+        self.monitor.note_cell(cell_key, wer, ci, rungs=rungs)
 
     def note_fit(self, report: dict) -> None:
         self.fits.append(dict(report))
@@ -469,8 +583,10 @@ class SweepRun:
 @contextlib.contextmanager
 def sweep_run(config: dict | None = None, ledger=None):
     """Scope one sweep grid's diagnostics: resolves the ledger, activates
-    a SweepMonitor for the grid, and finalizes (grid check + ledger
-    append) on exit.  Reentrant — a nested
+    a SweepMonitor for the grid (ladder steps reach it via
+    ``notify_degrade``, so it works with telemetry off; the BP-statistics
+    detectors read the telemetry registry and so need telemetry on), and
+    finalizes (grid checks + ledger append) on exit.  Reentrant — a nested
     scope (EvalWER inside EvalThreshold) joins the outer run so fit
     reports land in the same ledger record.  A no-op context (yields None)
     when diagnostics are off AND no ledger was requested — the
@@ -502,12 +618,43 @@ def current_run() -> SweepRun | None:
     return getattr(_TL, "run", None)
 
 
-def record_cell(cell_key: dict, wer: float, ci: dict | None = None) -> None:
+def record_cell(cell_key: dict, wer: float, ci: dict | None = None,
+                rungs: list | None = None) -> None:
     """Feed one finished cell to the active sweep run (monitor + ledger).
-    No-op outside a run."""
+    ``rungs``: see ``SweepMonitor.note_cell`` — a fused bucket passes its
+    once-drained rung list so every cell of the bucket is labelled.  No-op
+    outside a run."""
     run = getattr(_TL, "run", None)
     if run is not None:
-        run.note_cell(cell_key, wer, ci)
+        run.note_cell(cell_key, wer, ci, rungs=rungs)
+
+
+def drain_degrade_rungs() -> list:
+    """Ladder rungs recorded since the last drain, from the active run's
+    monitor ([] outside a run): a fused bucket calls this once before
+    recording its cells."""
+    run = getattr(_TL, "run", None)
+    return run.monitor.drain_rungs() if run is not None else []
+
+
+def report_ladder_anomaly(cells: list, rungs: list) -> None:
+    """One bucket-level ``ladder_degrade`` anomaly naming every cell the
+    degraded device run served (a fused bucket: one run, many cells)."""
+    run = getattr(_TL, "run", None)
+    if run is not None and rungs:
+        run.monitor._anomaly("ladder_degrade",
+                             cells=[dict(c) for c in cells],
+                             rungs=list(rungs))
+
+
+def notify_degrade(rung) -> None:
+    """Route a degradation-ladder step to the active sweep run's monitor.
+    ``utils.resilience`` calls this beside its ``degrade`` telemetry
+    event, so ladder anomalies fire in ledger-only runs where telemetry
+    (and so the event stream) is off.  No-op outside a sweep run."""
+    run = getattr(_TL, "run", None)
+    if run is not None:
+        run.monitor.emit({"kind": "degrade", "rung": str(rung)})
 
 
 def note_fit(report: dict) -> None:
@@ -560,3 +707,49 @@ def note_run(failures, shots) -> None:
     box = getattr(_TL, "cell", None)
     if box is not None:
         box.runs.append((int(failures), int(shots)))
+
+
+# ---------------------------------------------------------------------------
+# Fused-grid live publishing (counts already on the host: no extra read)
+# ---------------------------------------------------------------------------
+def publish_cell_progress(engine: str, cells, failures, shots,
+                          z: float = Z_95) -> None:
+    """Publish per-cell interval gauges and one ``cell_progress`` event
+    from a fused bucket's counters that a megabatch read already brought
+    to the host (no further transfer).
+
+    ``cells``: per-cell descriptors — the sweep planner's cell-key dicts
+    when available, else the builders' p-value tags, else lane indices.
+    Gauges: ``cell.<code>.p<p>.ci_low`` / ``.ci_high`` / ``.rse`` (rse
+    only when defined; bare p tags when no cell key is available — the
+    code qualifier keeps same-p cells of different codes from overwriting
+    each other's gauges)."""
+    if not active():
+        return
+    f = np.asarray(failures, np.int64)
+    n = np.asarray(shots, np.int64)
+    arrs = ci_arrays(f, n, z)
+    if cells is None:
+        cells = list(range(len(f)))
+    cells = list(cells)
+
+    def tag(c):
+        if isinstance(c, dict):
+            p = c.get("p")
+            p_part = f"p{p:g}" if isinstance(p, float) else f"p{p}"
+            code = c.get("code")
+            return f"{code}.{p_part}" if code else p_part
+        return f"{c:g}" if isinstance(c, float) else str(c)
+
+    for c, lo, hi, rse in zip(cells, arrs["ci_low"], arrs["ci_high"],
+                              arrs["rse"]):
+        t = tag(c)
+        telemetry.set_gauge(f"cell.{t}.ci_low", lo)
+        telemetry.set_gauge(f"cell.{t}.ci_high", hi)
+        if rse is not None:
+            telemetry.set_gauge(f"cell.{t}.rse", rse)
+    telemetry.event(
+        "cell_progress", engine=str(engine),
+        cells=[c if isinstance(c, dict) else {"p": c} for c in cells],
+        failures=[int(x) for x in f], shots=[int(x) for x in n],
+        ci_low=arrs["ci_low"], ci_high=arrs["ci_high"], rse=arrs["rse"])

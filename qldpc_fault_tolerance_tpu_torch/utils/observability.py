@@ -3,8 +3,8 @@
 The reference has no tracing or logging at all — notebooks time whole sweeps
 with ``time.time()`` prints (SURVEY §5).  Here every sweep stage can be
 timed and the results are structured records.  The port's copy of the JAX
-package's module, less ``profile_trace`` (the JAX profiler): on the card,
-``torch.profiler`` traces a region (``scripts/profile_port_wer.py``).
+package's module; ``profile_trace`` traces a region with ``torch.profiler``
+where the JAX package attaches its profiler.
 """
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ import threading
 import time
 from collections import defaultdict
 
-__all__ = ["stage_timer", "timings", "reset_timings", "get_logger",
-           "log_record"]
+__all__ = ["stage_timer", "timings", "reset_timings", "profile_trace",
+           "get_logger", "log_record"]
 
 _TIMINGS: dict[str, list[float]] = defaultdict(list)
 # timers may run on several threads; append and snapshot would
@@ -82,6 +82,37 @@ def timings() -> dict[str, dict]:
 def reset_timings() -> None:
     with _TIMINGS_LOCK:
         _TIMINGS.clear()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Trace a region with ``torch.profiler`` (the host, and the card's
+    kernels when CUDA is there) and write its Chrome trace under
+    ``log_dir`` (``utils.profiling.parse_trace`` sums it).  A no-op
+    context when the profiler cannot start (e.g. one is already
+    running)."""
+    import os
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = None
+    try:
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+    except Exception as e:  # noqa: BLE001 - the region runs untraced
+        logging.getLogger("qldpc").warning("profiler not started: %s", e)
+        prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(log_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                log_dir, f"trace.{os.getpid()}.{time.time_ns()}.json"))
 
 
 def get_logger(name: str = "qldpc") -> logging.Logger:

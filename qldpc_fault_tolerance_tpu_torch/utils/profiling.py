@@ -65,7 +65,8 @@ __all__ = [
     "device_peaks", "derive_utilization",
     "engine_scope", "current_scope", "run_heartbeat", "deep_timing",
     "deep_timing_enabled", "record_dispatch", "record_host_sync",
-    "timed_dispatch", "timeit_block", "per_call_seconds", "measure_stages",
+    "timed_dispatch", "timeit_block", "timeit_async", "per_call_seconds",
+    "measure_stages",
     "parse_trace", "probe_max_block", "smem_gates", "note_unmeasured_gates",
     "H100_SXM_PEAKS",
 ]
@@ -165,6 +166,12 @@ class ProgramCost:
     ops: float = 0.0
     bytes_accessed: float = 0.0
     capture_s: float = 0.0
+
+    @property
+    def peak_bytes(self) -> int:
+        """The graph's live-memory peak proxy, the JAX name for it: the
+        device memory its capture reserved."""
+        return self.pool_bytes
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -438,6 +445,26 @@ def timeit_block(fn, *args, reps: int = 5, **kw):
             out = fn(*args, **kw)
             times.append(time.perf_counter() - t0)
     return sorted(times)[len(times) // 2], out
+
+
+def timeit_async(fn, *args, reps: int = 20, **kw):
+    """Steady-state seconds per call: one warm call waited for, then
+    ``reps`` calls launched back to back and waited for once, the time
+    divided by ``reps`` (the wait's fixed cost spread over the calls).
+    On the card the wait is a device synchronize.  Returns ``(seconds,
+    last output)``."""
+    import torch
+
+    def wait(out):
+        if _on_card(out) and torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    wait(fn(*args, **kw))
+    t0 = time.perf_counter()
+    for _ in range(max(1, reps)):
+        out = fn(*args, **kw)
+    wait(out)
+    return (time.perf_counter() - t0) / max(1, reps), out
 
 
 def per_call_seconds(fn, *args, lo: int = 3, hi: int = 23, trials: int = 3):

@@ -200,6 +200,11 @@ class DegradationLadder:
         # black box: a degrade means a rung died — ship the in-flight ring
         # (no-op unless a postmortem directory is configured)
         tracing.note_failure("degrade", rung=name)
+        # the sweep monitor hears of the step directly (not through the
+        # event stream), so ladder anomalies fire with telemetry off
+        from . import diagnostics
+
+        diagnostics.notify_degrade(name)
         return name
 
 

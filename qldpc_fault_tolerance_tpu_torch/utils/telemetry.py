@@ -57,7 +57,7 @@ __all__ = [
     "TELE_ITER_HIST0", "TELE_OSD_TIER_NONE", "TELE_OSD_TIER_COMPACT",
     "TELE_OSD_TIER_FULL", "TELE_CS_CANDIDATES", "TELE_CS_CHUNKS", "TELE_LEN",
     "device_tele_vec", "publish_device_tele", "collect_device_aux",
-    "note_device_aux",
+    "note_device_aux", "record_bp_aux",
 ]
 
 # ---------------------------------------------------------------------------
@@ -1230,6 +1230,37 @@ def publish_device_tele(vec) -> None:
     if it_sum < 0:  # the int32 carry slot wrapped (TELE_ITER_SUM's bound)
         it_sum = _approx_iter_sum(counts)
     hist.merge_counts(counts, it_sum, int(counts.sum()))
+
+
+def record_bp_aux(aux) -> None:
+    """The host twin of ``device_tele_vec`` for the host-assisted paths
+    (a BPOSD decoder's host OSD stage, the decoders' host batch API),
+    where the decoder aux comes to the host anyway: records its
+    ``converged`` / ``iterations`` (host arrays or tensors) into the same
+    ``bp.shots``, ``bp.converged`` and ``bp.iterations`` (converged shots
+    only) metrics, so both paths merge.  OSD routing is counted where it
+    happens, not here."""
+    if not _ENABLED:
+        return
+    import numpy as np
+
+    def host(x):
+        return np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
+
+    conv = aux.get("converged") if isinstance(aux, dict) else None
+    if conv is None:
+        return
+    conv = host(conv).astype(bool).ravel()
+    _REGISTRY.counter("bp.shots").inc(int(conv.size))
+    _REGISTRY.counter("bp.converged").inc(int(conv.sum()))
+    it = aux.get("iterations")
+    if it is not None:
+        it = host(it).ravel().astype(np.int64)[conv]
+        edges = np.asarray(ITER_BUCKETS, np.int64)
+        idx = np.searchsorted(edges, it)
+        counts = np.bincount(idx, minlength=len(ITER_BUCKETS) + 1)
+        _REGISTRY.histogram("bp.iterations", ITER_BUCKETS).merge_counts(
+            counts, int(it.sum()), int(it.size))
 
 
 # metric-specific default boundaries: the serve latency histogram gets the

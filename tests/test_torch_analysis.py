@@ -13,7 +13,8 @@ import pytest
 
 from qldpc_fault_tolerance_tpu_torch.analysis import (
     KERNEL_CONTRACTS,
-    lint,
+    KernelContractRule,
+    analyze_repo,
     repo_root,
 )
 from qldpc_fault_tolerance_tpu_torch.analysis.rules_kernels import (
@@ -22,6 +23,12 @@ from qldpc_fault_tolerance_tpu_torch.analysis.rules_kernels import (
 
 PKG = "qldpc_fault_tolerance_tpu_torch"
 REPO = repo_root()
+
+
+def lint(root):
+    """R007 alone on the checkout at ``root``, through the lint's one
+    entry point."""
+    return analyze_repo(base=root, rules=[KernelContractRule()])
 
 
 def _copy(tmp_path):
@@ -59,7 +66,7 @@ def test_every_extern_launch_is_registered():
                 launches |= {(fn[:-3], s) for s, _ in launch_symbols(
                     fh.read())}
     assert launches == {(c.source, c.launch) for c in KERNEL_CONTRACTS}
-    assert len(launches) == 12
+    assert len(launches) == 13
 
 
 def test_wrapper_off_its_plain_version_is_reported(tmp_path):

@@ -55,7 +55,7 @@ def findings_of(rule, src, **kw):
 # the tree and the command line
 # ---------------------------------------------------------------------------
 def test_port_tree_is_clean_under_every_rule():
-    result = analyze_repo(REPO)
+    result = analyze_repo(base=REPO)
     assert result.findings == [], [f.render() for f in result.findings]
     assert result.rules == ALL_RULES and result.files > 50
 
