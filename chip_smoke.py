@@ -392,11 +392,12 @@ Phases (any failure raises and the script exits non-zero):
      bp_minsum_bf16 and osd_elim entries
  53. kernel 1's sector mode, the fused X/Z decode and the sweep monitor:
      (a) bp_minsum(sectors=) on hgp_34_n625's hz (+) hx (600 x 1250, two
-     sectors), B53 syndromes of p=P53A errors, IT53 iterations: every
-     output bit-exact against its plain version and against two kernel-1
-     launches on hz and hx alone; its layout, the ms of one sector-mode
-     launch against the two launches, the bound (both sectors'
-     operations); (b) run_batch of CodeSimulator_DataError(fuse_sectors=
+     sectors) and on hgp_34_n1600's (1536 x 3200), B53 syndromes of
+     p=P53A errors, IT53 iterations: every output bit-exact against its
+     plain version and against two kernel-1 launches on hz and hx alone;
+     its layout (at least 8 and 3 items per block: a lane's region is one
+     sector's), the ms of one sector-mode launch against the two
+     launches, the bound (both sectors' operations); (b) run_batch of CodeSimulator_DataError(fuse_sectors=
      True) on hgp_34_n625, BP-50 float32 (bp_kernel="xla": the pair takes
      no head), p=0.01, RUN53_BATCHES batches of RUN53_BATCH == the same
      run_batch without the pair, shot for shot; the sector mode's
@@ -3124,44 +3125,25 @@ RUN53_BATCH, RUN53_BATCHES = 4096, 8
 MON53_P, MON53_SHOTS, STALL53_P = [0.01, 0.02, 0.03], 2048, 0.2
 
 
-def sector_phase(ctx) -> dict:
-    """Phase 53 (module docstring) on ``ctx.dev`` with ``ctx.code``
-    (hgp_34_n625) and ``ctx.counted``; returns the kernels line's entry
-    values of the sector mode."""
+def sector_case(dev, code, tag: str) -> dict:
+    """Phase 53 (a) on hz (+) hx of ``code``: the sector mode on B53
+    syndromes of p = P53A errors, IT53 iterations, every output bit-exact
+    against its plain version and against two kernel-1 launches on hz and
+    hx alone; its layout, the ms of one launch against the two, the plain
+    version's and the bound (both sectors' operations), logged and
+    returned."""
     import numpy as np
     import torch
 
-    from qldpc_fault_tolerance_tpu_torch.codes import load_code
-    from qldpc_fault_tolerance_tpu_torch.decoders import (
-        BP_Decoder_Class,
-        BPDecoder,
-        BPOSD_Decoder_Class,
-    )
-    from qldpc_fault_tolerance_tpu_torch.decoders.bp_decoders import \
-        FusedBPPair
     from qldpc_fault_tolerance_tpu_torch.ops import _kernels
     from qldpc_fault_tolerance_tpu_torch.ops import bp as tbp
     from qldpc_fault_tolerance_tpu_torch.ops import bp_kernel as bk
-    from qldpc_fault_tolerance_tpu_torch.ops.prng import prng_key
-    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
-    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
-    from qldpc_fault_tolerance_tpu_torch.utils import (
-        diagnostics,
-        faultinject,
-        resilience,
-        telemetry,
-    )
 
-    t_new = time.time()
-    dev, code = ctx.dev, ctx.code
     hz, hx = code.hz, code.hx
     (ma, na), (mb, nb) = hz.shape, hx.shape
     h = np.zeros((ma + mb, na + nb), np.uint8)
     h[:ma, :na], h[ma:, na:] = hz, hx
     sectors = ((ma, mb), (na, nb))
-
-    # (a) the sector mode against its plain version and two kernel-1
-    # launches
     rng = np.random.default_rng(SEED + 53)
     q = 2 * P53A / 3
     synd_a, synd_b = (torch.from_numpy(
@@ -3194,8 +3176,9 @@ def sector_phase(ctx) -> dict:
     names = ("error", "converged", "posterior", "iterations")
     for name, a, b, c in zip(names, sec, plain, two):
         if not (torch.equal(a, b) and torch.equal(a, c)):
-            raise AssertionError(f"phase 53 sector mode {name}: kernel, "
-                                 f"plain and two kernel-1 launches differ")
+            raise AssertionError(f"phase 53 sector mode on {tag} {name}: "
+                                 f"kernel, plain and two kernel-1 launches "
+                                 f"differ")
     sec_err = float((sec[2] - plain[2]).abs().max())
     sec_ms = event_ms(run_sec, 10)
     two_ms = event_ms(run_two, 10)
@@ -3207,21 +3190,67 @@ def sector_phase(ctx) -> dict:
     m2, rw2 = graph.chk_nbr.shape
     n2, cw2 = graph.var_nbr.shape
     lay = bk.card_minsum_layout(dev, 2 * B53, m2, n2, rw2, cw2, False,
-                                rows=max(ma, mb, na, nb), sectors=True)
+                                sectors=sectors)
     lay1 = bk.card_minsum_layout(dev, B53, ma, na, rw2, cw2, False)
-    log(f"[53] sector mode on hz (+) hx ({m2} x {n2}, sectors {sectors}), "
-        f"{B53} shots of p={P53A} errors, {IT53} iterations: error, "
-        f"converged, posterior, iterations == plain == two kernel-1 "
+    log(f"[53] sector mode on {tag} hz (+) hx ({m2} x {n2}, sectors "
+        f"{sectors}), {B53} shots of p={P53A} errors, {IT53} iterations: "
+        f"error, converged, posterior, iterations == plain == two kernel-1 "
         f"launches (posterior max |diff| {sec_err}); converged "
         f"{float(sec[1].float().mean()):.4f}; one sector-mode launch "
         f"{sec_ms:.3f} ms against {two_ms:.3f} ms for the two launches, "
         f"plain {sec_plain_ms:.3f} ms, bound {sec_bound:.4f} ms ({sec_by}, "
         f"shot-iterations {work[0][0]} + {work[1][0]}); layout "
-        f"{lay.lanes} items x {lay.threads // lay.lanes} threads per block, "
-        f"{lay.grid} blocks, {lay.resident} resident per SM, "
-        f"{lay.smem_bytes} B shared memory (one sector alone: {lay1.lanes} "
-        f"shots x {lay1.threads // lay1.lanes} threads, {lay1.smem_bytes} "
-        f"B)")
+        f"{lay.lanes} items x {lay.threads // lay.lanes} threads per block "
+        f"({lay.memory}), {lay.grid} blocks, {lay.resident} resident per "
+        f"SM, {lay.smem_bytes} B shared memory (one sector alone: "
+        f"{lay1.lanes} shots x {lay1.threads // lay1.lanes} threads, "
+        f"{lay1.smem_bytes} B)")
+    return {"max_abs_err": sec_err, "ms": sec_ms, "two_ms": two_ms,
+            "plain_ms": sec_plain_ms, "bound_ms": sec_bound,
+            "bound_by": sec_by, "lanes": lay.lanes, "threads": lay.threads,
+            "smem_bytes": lay.smem_bytes}
+
+
+def sector_phase(ctx) -> dict:
+    """Phase 53 (module docstring) on ``ctx.dev`` with ``ctx.code``
+    (hgp_34_n625) and ``ctx.counted``; returns the kernels line's entry
+    values of the sector mode."""
+    import numpy as np
+    import torch
+
+    from qldpc_fault_tolerance_tpu_torch.codes import load_code
+    from qldpc_fault_tolerance_tpu_torch.decoders import (
+        BP_Decoder_Class,
+        BPDecoder,
+        BPOSD_Decoder_Class,
+    )
+    from qldpc_fault_tolerance_tpu_torch.decoders.bp_decoders import \
+        FusedBPPair
+    from qldpc_fault_tolerance_tpu_torch.ops.prng import prng_key
+    from qldpc_fault_tolerance_tpu_torch.sim import CodeSimulator_DataError
+    from qldpc_fault_tolerance_tpu_torch.sweep import CodeFamily
+    from qldpc_fault_tolerance_tpu_torch.utils import (
+        diagnostics,
+        faultinject,
+        resilience,
+        telemetry,
+    )
+
+    t_new = time.time()
+    dev, code = ctx.dev, ctx.code
+    hz, hx = code.hz, code.hx
+
+    # (a) the sector mode against its plain version and two kernel-1
+    # launches, on hz (+) hx of n625 and of n1600
+    cases = {tag: sector_case(dev, c, tag) for tag, c in (
+        ("n625", code),
+        ("n1600", load_code(str(ROOT / "codes_lib_tpu" / "hgp_34_n1600.npz"))))}
+    sec = cases["n625"]
+    if cases["n625"]["lanes"] < 8 or cases["n1600"]["lanes"] < 3:
+        raise AssertionError(f"phase 53: the sector mode's items per block "
+                             f"{cases['n625']['lanes']} (n625), "
+                             f"{cases['n1600']['lanes']} (n1600): its lane "
+                             f"regions are not one sector's")
 
     # (b) the engine: run_batch with the fused pair == without it, per shot
     probs = np.full(code.N, 2 * 0.01 / 3)
@@ -3370,8 +3399,8 @@ def sector_phase(ctx) -> dict:
         f"{stall[0]['converged_fraction']} of {stall[0]['shots']} BP shots")
     log(f"phase 53 took {time.time() - t_new:.1f} s")
     return {"launches": launches[True]["bp_minsum_sectors"],
-            "max_abs_err": sec_err, "ms": sec_ms, "plain_ms": sec_plain_ms,
-            "bound_ms": sec_bound, "bound_by": sec_by}
+            **{k: sec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}}
 
 
 def main() -> int:

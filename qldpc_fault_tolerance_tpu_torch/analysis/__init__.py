@@ -92,4 +92,4 @@ def analyze_repo(paths=None, *, rules=None, baseline_path=None,
     modules = collect_modules(list(paths or DEFAULT_TARGETS), base)
     baseline = Baseline.load(baseline_path or default_baseline_path())
     return run_analysis(modules, rules if rules is not None
-                        else default_rules(), base, baseline)
+                        else default_rules(), baseline, root=base)

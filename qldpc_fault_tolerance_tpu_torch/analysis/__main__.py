@@ -44,7 +44,7 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.update_baseline:
-        raw = run_analysis(modules, rules, root)
+        raw = run_analysis(modules, rules, root=root)
         analyzed = {m.rel for m in modules}
         kept = [e for e in baseline.entries if e.file not in analyzed]
         new = Baseline(Baseline.from_findings(
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
         print(f"baseline updated: {len(new.entries)} entries "
               f"({len(kept)} outside this run kept) -> {baseline_path}")
         return 0
-    result = run_analysis(modules, rules, root, baseline)
+    result = run_analysis(modules, rules, baseline, root=root)
     if args.as_json:
         print(json.dumps(result.to_dict(), sort_keys=True))
     else:

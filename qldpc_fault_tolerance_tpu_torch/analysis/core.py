@@ -115,12 +115,13 @@ class SourceModule:
 
 class AnalysisContext:
     """What rules may consult: every parsed module by relative path, the
-    root the paths are relative to, and memoized cross-module indexes."""
+    checkout ``root`` the paths are relative to (by default this one), and
+    memoized cross-module indexes."""
 
-    def __init__(self, modules: list[SourceModule], root: str):
+    def __init__(self, modules: list[SourceModule], *, root: str = None):
         self.modules = modules
         self.by_rel = {m.rel: m for m in modules}
-        self.root = root
+        self.root = root or repo_root()
         self._caches: dict = {}
 
     def cache(self, key, build):
@@ -258,12 +259,12 @@ def collect_modules(paths: Iterable[str], base: str) -> list[SourceModule]:
 
 @dataclass
 class AnalysisResult:
-    findings: list      # unsuppressed, unbaselined: what fails the run
-    suppressed: int     # masked by inline suppressions
+    findings: list        # unsuppressed, unbaselined: what fails the run
+    suppressed: int       # masked by inline suppressions
+    baselined: int        # absorbed by baseline budgets
+    stale_baseline: list  # baseline entries no finding used
     files: int
-    rules: list         # rule ids that ran
-    baselined: int = 0  # absorbed by baseline budgets
-    stale_baseline: list = field(default_factory=list)  # entries unused
+    rules: list           # rule ids that ran
 
     @property
     def exit_code(self) -> int:
@@ -282,12 +283,14 @@ class AnalysisResult:
 
 
 def run_analysis(modules: list[SourceModule], rules: Iterable[Rule],
-                 root: str, baseline: Baseline = None) -> AnalysisResult:
+                 baseline: Baseline = None, *, ctx: AnalysisContext = None,
+                 root: str = None) -> AnalysisResult:
     """Run ``rules`` over ``modules``: their findings, then the inline
     suppressions (tracking use), then the unused suppressions as R000,
-    then the ``baseline`` budgets (the JAX package's order)."""
+    then the ``baseline`` budgets (the JAX package's order).  Without a
+    ``ctx`` the rules consult a fresh one over ``modules`` and ``root``."""
     rules = list(rules)
-    ctx = AnalysisContext(modules, root)
+    ctx = ctx or AnalysisContext(modules, root=root)
     raw: list[Finding] = []
     for module in modules:
         if getattr(module, "parse_error", None):

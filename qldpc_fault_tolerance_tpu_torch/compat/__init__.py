@@ -176,17 +176,20 @@ def _bind(obj, device):
     if not isinstance(obj, type):
         return obj
     try:
-        names = list(inspect.signature(obj.__init__).parameters)
+        params = inspect.signature(obj.__init__).parameters
     except (TypeError, ValueError):
         return obj
-    if "device" not in names:
+    if "device" not in params:
         return obj
     base_init = obj.__init__
-    pos = names.index("device") - 1  # its place among the arguments after self
+    # its place among the arguments after self; None where it is keyword-only
+    pos = (list(params).index("device") - 1
+           if params["device"].kind is inspect.Parameter.POSITIONAL_OR_KEYWORD
+           else None)
 
     @functools.wraps(base_init)  # the signature stays the port's
     def __init__(self, *args, **kwargs):
-        if "device" not in kwargs and len(args) <= pos:
+        if "device" not in kwargs and (pos is None or len(args) <= pos):
             kwargs["device"] = device
         base_init(self, *args, **kwargs)
 

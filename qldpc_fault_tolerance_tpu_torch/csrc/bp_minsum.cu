@@ -93,15 +93,23 @@
 // sectors): the graph is a block diagonal of n_sec sectors whose messages
 // never leave their block (a FusedBPPair's hz (+) hx).  The claim counter
 // hands out (shot, sector) items b * n_sec + s, and a lane decodes one
-// sector of one shot: lane_decode walks only the sector's checks and
-// variables, by their indices in the whole graph, so every sum is the one
-// a decode of the sector alone adds (build_tanner_graph_host keeps each
-// variable's list in its own sector's order) and a sector's outputs
-// freeze at its own first converged iteration; conv and iters are per
-// item, (B, n_sec), and the wrapper takes their AND and max.  A straggler
-// in one sector no longer holds the other's lane.  The lane regions are
-// those of the whole graph (the shared-memory and device-memory modes
-// only; the check-state kernel decodes whole graphs).
+// sector of one shot as a graph of its own: the host numbers each
+// sector's planes within the sector (its variables from v0, its edges
+// s * sm + i - c0) and pads them to the largest sector's sm checks and sn
+// variables (ops/bp_kernel.py minsum_planes), the block stages all n_sec
+// of them once, and an item hands lane_decode its sector's planes, its
+// syndrome and LLRs from c0 and v0, and its counts.  So a lane's region
+// (c2v, v2c, totals, syndrome) is one sector's, not the whole graph's: at
+// hz (+) hx of hgp_34_n625, 19,616 B an item where the whole graph's
+// regions took 39,216 B, so a block holds twice the items (shared memory)
+// and the device scratch per lane halves (device-memory modes).  Every sum
+// is the one a decode of the sector alone adds (build_tanner_graph_host
+// keeps each variable's list in its own sector's order) and a sector's
+// outputs freeze at its own first converged iteration; conv and iters are
+// per item, (B, n_sec), and the wrapper takes their AND and max.  A
+// straggler in one sector no longer holds the other's lane.  The shared-
+// memory and device-memory modes only (the check-state kernel decodes
+// whole graphs).
 //
 // Row weights: a check's live slots and negative signs are bit masks
 // (minsum_body.cuh Top2), 32-bit up to row weight 32; the wide instances
@@ -137,17 +145,20 @@ __host__ __device__ inline size_t align16(size_t x) {
 }
 
 // byte offsets in dynamic shared memory (mirrored by ops/bp_kernel.py
-// minsum_smem_bytes)
+// minsum_smem_bytes): a lane's region holds one graph of m checks and n
+// variables (the largest sector's in the sector mode), the staged planes
+// n_sec such graphs and the shared channel LLRs the whole graph's n_llr
 struct Offsets {
   size_t edge, slot, llr, lanes;  // staged planes (chk at 0), lane regions
   size_t v2c, tot, syn, lane;     // within a lane region (c2v at 0); its size
   __host__ __device__ Offsets(int m, int n, int rw, int cw, int msg_bytes,
-                              bool slots, bool llr_shared) {
+                              bool slots, bool llr_shared, int n_sec,
+                              int n_llr) {
     const size_t E = (size_t)m * rw, V = (size_t)n * cw;
-    edge = align16(2 * E);
-    slot = edge + align16(2 * V);
-    llr = slot + (slots ? align16(V) : 0);
-    lanes = llr + (llr_shared ? align16(4 * (size_t)n) : 0);
+    edge = align16(2 * E * n_sec);
+    slot = edge + align16(2 * V * n_sec);
+    llr = slot + (slots ? align16(V * n_sec) : 0);
+    lanes = llr + (llr_shared ? align16(4 * (size_t)n_llr) : 0);
     v2c = align16(4 * E);
     tot = v2c + align16(msg_bytes * E);
     syn = tot + align16(4 * (size_t)n);
@@ -160,29 +171,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
                  const float* __restrict__ llr,        // (n,) or (B, n)
                  int llr_per_shot,
-                 const uint16_t* __restrict__ chk_g,   // (rw, m)
-                 const uint16_t* __restrict__ edge_g,  // (cw, n)
+                 const uint16_t* __restrict__ chk_g,   // (n_sec, rw, sm)
+                 const uint16_t* __restrict__ edge_g,  // (n_sec, cw, sn)
                  const uint8_t* __restrict__ slot_g,   // (cw, n), bf16 only
                  uint8_t* __restrict__ err,            // (B, n)
                  float* __restrict__ post,             // (B, n)
-                 uint8_t* __restrict__ conv,           // (B,)
-                 int32_t* __restrict__ iters,          // (B,)
+                 uint8_t* __restrict__ conv,           // (B, n_sec)
+                 int32_t* __restrict__ iters,          // (B, n_sec)
                  int* __restrict__ next,               // claims, 0 at launch
                  int m, int n, int rw, int cw, int B, int max_iter,
                  float scale, int tpl,
                  unsigned char* lanes_g,  // lane regions; kMem > 0
                  int n_sec,               // sectors (1: the whole graph)
-                 const int* __restrict__ sec_off) {  // (2 * (n_sec + 1),)
+                 const int* __restrict__ sec_off,  // (2 * (n_sec + 1),)
+                 int sm, int sn) {  // the planes' m, n (a sector's, padded)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_shot[kMaxLanes][2];
-  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
-                  !llr_per_shot);
+  const Offsets o(sm, sn, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
+                  !llr_per_shot, n_sec, n);
   uint16_t* chk = (uint16_t*)smem;
   uint16_t* edge = (uint16_t*)(smem + o.edge);
   uint8_t* slot = smem + o.slot;
   float* llr_s = (float*)(smem + o.llr);
   if (kMem < 2) {
-    const int E = m * rw, V = n * cw;
+    const int E = n_sec * sm * rw, V = n_sec * sn * cw;
     for (int k = threadIdx.x; k < E; k += blockDim.x) chk[k] = chk_g[k];
     for (int k = threadIdx.x; k < V; k += blockDim.x) {
       edge[k] = edge_g[k];
@@ -212,9 +224,9 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
   using G = typename std::conditional<kMem == 2, minsum::Planes32,
                                       minsum::Planes>::type;
   using Idx = typename G::Index;
-  const G g{kMem == 2 ? (const Idx*)chk_g : (const Idx*)chk,
-            kMem == 2 ? (const Idx*)edge_g : (const Idx*)edge,
-            kMem == 2 ? slot_g : slot, m, n, rw, cw};
+  const Idx* chk_p = kMem == 2 ? (const Idx*)chk_g : (const Idx*)chk;
+  const Idx* edge_p = kMem == 2 ? (const Idx*)edge_g : (const Idx*)edge;
+  const uint8_t* slot_p = kMem == 2 ? slot_g : slot;
 
   for (int k = 0;; ++k) {
     // the slot alternates, so a claim never overwrites one a thread of the
@@ -222,23 +234,26 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
     if (r == 0) s_shot[lane][k & 1] = atomicAdd(next, 1);
     minsum::lane_sync(lane, tpl);
     // a work item: shot b's sector sec (the whole graph when n_sec == 1),
-    // its checks [c0, c1) and variables [v0, v1)
+    // its nc checks from c0 and nv variables from v0, and its planes
     const int item = s_shot[lane][k & 1];
     if (item >= B * n_sec) return;
     const int b = item / n_sec, sec = item - b * n_sec;
-    int c0 = 0, c1 = m, v0 = 0, v1 = n;
+    int c0 = 0, nc = m, v0 = 0, nv = n;
     if (n_sec > 1) {
       c0 = __ldg(sec_off + sec);
-      c1 = __ldg(sec_off + sec + 1);
+      nc = __ldg(sec_off + sec + 1) - c0;
       v0 = __ldg(sec_off + n_sec + 1 + sec);
-      v1 = __ldg(sec_off + n_sec + 2 + sec);
+      nv = __ldg(sec_off + n_sec + 2 + sec) - v0;
     }
-    uint8_t* err_b = err + (size_t)b * n;
-    float* post_b = post + (size_t)b * n;
+    const size_t pe = (size_t)sec * sm * rw, pv = (size_t)sec * sn * cw;
+    const G g{chk_p + pe, edge_p + pv, Msg::kBf16 ? slot_p + pv : slot_p,
+              sm, sn, rw, cw};
+    uint8_t* err_b = err + (size_t)b * n + v0;
+    float* post_b = post + (size_t)b * n + v0;
     if (max_iter == 0) {
-      for (int j = v0 + r; j < v1; j += tpl) {
+      for (int j = r; j < nv; j += tpl) {
         err_b[j] = 0;
-        post_b[j] = llr0(b, j);
+        post_b[j] = llr0(b, v0 + j);
       }
       if (r == 0) {
         conv[item] = 0;
@@ -246,16 +261,16 @@ bp_minsum_kernel(const uint8_t* __restrict__ synd,     // (B, m)
       }
       continue;
     }
-    const uint8_t* synd_b = synd + (size_t)b * m;
+    const uint8_t* synd_b = synd + (size_t)b * m + c0;
     int it;
     using Mask =
         typename std::conditional<kWide, unsigned long long, unsigned>::type;
     const bool bad = minsum::lane_decode<Msg, Mask>(
-        g, [&](int i) { return synd_b[i]; }, [&](int v) { return llr0(b, v); },
-        c2v, v2c, tot, syn, max_iter, scale, lane, r, tpl, it, c0, c1, v0,
-        v1);
+        g, [&](int i) { return synd_b[i]; },
+        [&](int v) { return llr0(b, v0 + v); }, c2v, v2c, tot, syn, max_iter,
+        scale, lane, r, tpl, it, nc, nv);
     // the totals of the last iteration, each read by the thread that wrote it
-    for (int j = v0 + r; j < v1; j += tpl) {
+    for (int j = r; j < nv; j += tpl) {
       const float t = tot[j];
       err_b[j] = t < 0.f ? 1 : 0;
       post_b[j] = t;
@@ -531,11 +546,11 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
                int* next, int m, int n, int rw, int cw, int B, int max_iter,
                float scale, int lanes, int tpl, int grid, int smem_bytes,
                unsigned char* lanes_g, int n_sec, const int* sec_off,
-               void* stream) {
+               int sm, int sn, void* stream) {
   constexpr int kMaxRw = kWide ? minsum::kMaxRowWeight
                                 : minsum::mask_slots<unsigned>();
-  const Offsets o(m, n, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
-                  !llr_per_shot);
+  const Offsets o(sm, sn, rw, cw, sizeof(typename Msg::T), Msg::kBf16,
+                  !llr_per_shot, n_sec, n);
   // the shared memory each mode stages
   const long long need = kMem == 0 ? (long long)(o.lanes + lanes * o.lane)
                          : kMem == 1 ? (long long)o.lanes
@@ -543,7 +558,9 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
   if (lanes < 1 || lanes > kMaxLanes || tpl < 32 || tpl % 32 != 0 ||
       lanes * tpl > kMaxThreads || rw < 1 || rw > kMaxRw || grid < 1 ||
       smem_bytes < need || (kMem > 0 && lanes_g == nullptr) || n_sec < 1 ||
-      (n_sec > 1 && sec_off == nullptr) || (long long)B * n_sec >= (1LL << 31))
+      (n_sec > 1 && (sec_off == nullptr || sm < 1 || sn < 1)) ||
+      (n_sec == 1 && (sm != m || sn != n)) ||
+      (long long)B * n_sec >= (1LL << 31))
     return -1;
   const int e = set_smem<Msg, kMem, kWide>(smem_bytes);
   if (e != 0) return e;
@@ -551,7 +568,7 @@ int launch_mem(const uint8_t* synd, const float* llr0, int llr_per_shot,
       <<<grid, lanes * tpl, smem_bytes, (cudaStream_t)stream>>>(
           synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters,
           next, m, n, rw, cw, B, max_iter, scale, tpl, lanes_g, n_sec,
-          sec_off);
+          sec_off, sm, sn);
   return (int)cudaGetLastError();
 }
 
@@ -601,7 +618,7 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
            int* next, int m, int n, int rw, int cw, int B, int max_iter,
            float scale, int lanes, int tpl, int grid, int smem_bytes, int mem,
            int planes, const uint8_t* lens, unsigned char* lanes_g,
-           int n_sec, const int* sec_off, void* stream) {
+           int n_sec, const int* sec_off, int sm, int sn, void* stream) {
 #define BP_MINSUM_CHECKS(WIDE, PLANES)                                  \
   return launch_checks<Msg, WIDE, PLANES>(                              \
       synd, llr0, llr_per_shot, chk, edge, lens, err, post, conv, iters, \
@@ -611,7 +628,7 @@ int launch(const uint8_t* synd, const float* llr0, int llr_per_shot,
   return launch_mem<Msg, MEM, WIDE>(                                    \
       synd, llr0, llr_per_shot, chk, edge, slot, err, post, conv, iters, \
       next, m, n, rw, cw, B, max_iter, scale, lanes, tpl, grid,          \
-      smem_bytes, lanes_g, n_sec, sec_off, stream)
+      smem_bytes, lanes_g, n_sec, sec_off, sm, sn, stream)
   const bool wide = rw > minsum::mask_slots<unsigned>();
   if (mem == 3) {
     // the check-state mode decodes whole graphs only
@@ -695,7 +712,7 @@ extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
   return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
                                 err, post, conv, iters, next, m, n, rw, cw, B,
                                 max_iter, scale, lanes, tpl, grid, smem_bytes,
-                                mem, planes, lens, lanes_g, 1, nullptr,
+                                mem, planes, lens, lanes_g, 1, nullptr, m, n,
                                 stream);
 }
 
@@ -703,19 +720,23 @@ extern "C" int bp_minsum_launch(const uint8_t* synd, const float* llr0,
 // s its checks [sec_off[s], sec_off[s + 1]) and variables
 // [sec_off[n_sec + 1 + s], sec_off[n_sec + 2 + s]); the claims hand out
 // (shot, sector) items b * n_sec + s, and conv and iters are per item,
-// (B, n_sec).  The shared-memory and device-memory modes (mem 0-2).
+// (B, n_sec).  chk and edge are the sectors' planes (ops/bp_kernel.py
+// minsum_planes with sectors), each numbered within its sector and padded
+// to sm checks and sn variables, the largest sector's.  The shared-memory
+// and device-memory modes (mem 0-2).
 extern "C" int bp_minsum_sectors_launch(
     const uint8_t* synd, const float* llr0, int llr_per_shot,
     const uint16_t* chk, const uint16_t* edge, uint8_t* err, float* post,
     uint8_t* conv, int32_t* iters, int* next, int m, int n, int rw, int cw,
     int B, int max_iter, float scale, int lanes, int tpl, int grid,
     int smem_bytes, int mem, int planes, const uint8_t* lens,
-    unsigned char* lanes_g, int n_sec, const int* sec_off, void* stream) {
+    unsigned char* lanes_g, int n_sec, const int* sec_off, int sm, int sn,
+    void* stream) {
   return launch<minsum::F32Msg>(synd, llr0, llr_per_shot, chk, edge, nullptr,
                                 err, post, conv, iters, next, m, n, rw, cw, B,
                                 max_iter, scale, lanes, tpl, grid, smem_bytes,
                                 mem, planes, lens, lanes_g, n_sec, sec_off,
-                                stream);
+                                sm, sn, stream);
 }
 
 // the bf16 head: one channel-LLR vector shared by the shots
@@ -733,7 +754,8 @@ extern "C" int bp_minsum_bf16_launch(const uint8_t* synd, const float* llr0,
   return launch<minsum::Bf16Msg>(synd, llr0, 0, chk, edge, slot, err, post,
                                  conv, iters, next, m, n, rw, cw, B, max_iter,
                                  scale, lanes, tpl, grid, smem_bytes, mem,
-                                 planes, lens, lanes_g, 1, nullptr, stream);
+                                 planes, lens, lanes_g, 1, nullptr, m, n,
+                                 stream);
 }
 
 // blocks of `threads` threads and `smem_bytes` of shared memory that one SM

@@ -538,7 +538,7 @@ class BPOSD_Decoder(BPDecoder):
 
     def __init__(self, h, channel_probs, max_iter, bp_method="minimum_sum",
                  ms_scaling_factor=0.625, osd_method="osd_e", osd_order=10,
-                 device="cuda", device_osd: bool = True):
+                 device_osd: bool = True, *, device="cuda"):
         super().__init__(h, channel_probs, max_iter, bp_method,
                          ms_scaling_factor, device=device)
         self.osd_method = str(osd_method)

@@ -280,7 +280,9 @@ class MinsumPlanes(NamedTuple):
     ``s * m + i`` is check i's slot-s edge.  The 16-bit planes (staged in
     shared memory) hold uint16 values (0xFFFF for padding) in int16
     tensors; the 32-bit ones (read from device memory by the kernels'
-    device-memory mode) int32 values, -1 for padding."""
+    device-memory mode) int32 values, -1 for padding.  The sector mode's
+    planes are (n_sec, ...) stacks of each sector's, numbered within the
+    sector and padded to the largest sector's m checks and n variables."""
 
     chk: torch.Tensor   # (rw, m): the variable of edge s * m + i
     edge: torch.Tensor  # (cw, n): variable j's t-th edge in summation order
@@ -300,11 +302,14 @@ def planes16(m: int, n: int, rw: int) -> bool:
     return m * rw < PAD16 and n < PAD16
 
 
-def minsum_planes(graph, wide: bool = False) -> MinsumPlanes:
+def minsum_planes(graph, wide: bool = False, sectors=None) -> MinsumPlanes:
     """The MinsumPlanes of a TannerGraph (kernel 1: each variable's terms in
     the order of its list) or of a SparseHeadGraph / PallasHeadGraph (the
     bf16 head: in ascending edge order, which is (slot, check) order), on
-    the graph's device: 16-bit planes, or 32-bit with ``wide``."""
+    the graph's device: 16-bit planes, or 32-bit with ``wide``.  With
+    ``sectors`` (as ``check_sectors`` returns them; kernel 1's sector mode)
+    each sector's planes, numbered within it (``_sector_planes``); ``lens``
+    stays the whole graph's."""
     pad = -1 if wide else PAD16
     if hasattr(graph, "chk_nbr"):
         chk_nbr, chk_mask, var_nbr, var_slot, var_mask = (
@@ -332,28 +337,57 @@ def minsum_planes(graph, wide: bool = False) -> MinsumPlanes:
         lists[:, ::-1] != pad).argmax(axis=1), 0), 255)
             for lists in (chk.T, edge.T)]
     lens = torch.from_numpy(np.concatenate(lens).astype(np.uint8)).to(dev)
+    if sectors is not None:
+        chk, edge, slot = _sector_planes(chk, edge, slot, sectors, pad)
     slot = torch.from_numpy(np.ascontiguousarray(slot, np.uint8)).to(dev)
     if wide:
         return MinsumPlanes(*(torch.from_numpy(np.ascontiguousarray(
             a, np.int32)).to(dev) for a in (chk, edge)), slot, lens)
-    if not planes16(chk.shape[1], edge.shape[1], chk.shape[0]):
+    if not planes16(chk.shape[-1], edge.shape[-1], chk.shape[-2]):
         raise ValueError("the min-sum kernels number edges and variables "
                          "with 16 bits")
     return MinsumPlanes(_u16(chk).to(dev), _u16(edge).to(dev), slot, lens)
 
 
+def _sector_planes(chk, edge, slot, sectors, pad):
+    """The whole graph's (rw, m) / (cw, n) planes cut into its sectors' (as
+    ``check_sectors`` returns them): (n_sec, rw, M) and (n_sec, cw, N)
+    stacks, M and N the largest sector's checks and variables, in which
+    sector k's check i - c0 reads variable v - v0 and its variable j - v0
+    edge s * M + i - c0 (c0, v0 its first check and variable), in the
+    same slot and list order; the rest is padding."""
+    (chk_sizes, var_sizes), m = sectors, chk.shape[1]
+    M, N = max(chk_sizes), max(var_sizes)
+    c_off, v_off = (np.concatenate([[0], np.cumsum(sizes)])
+                    for sizes in sectors)
+    out_chk = np.full((len(chk_sizes), chk.shape[0], M), pad, np.int64)
+    out_edge = np.full((len(chk_sizes), edge.shape[0], N), pad, np.int64)
+    out_slot = np.zeros(out_edge.shape, np.int64)
+    for k, (c0, c1, v0, v1) in enumerate(zip(c_off, c_off[1:], v_off,
+                                             v_off[1:])):
+        blk = chk[:, c0:c1]
+        out_chk[k, :, :c1 - c0] = np.where(blk != pad, blk - v0, pad)
+        blk = edge[:, v0:v1]
+        out_edge[k, :, :v1 - v0] = np.where(
+            blk != pad, blk // m * M + blk % m - c0, pad)
+        out_slot[k, :, :v1 - v0] = slot[:, v0:v1]
+    return out_chk, out_edge, out_slot
+
+
 _PLANES: dict = {}
 
 
-def _planes_of(graph, wide: bool = False) -> MinsumPlanes:
-    """``minsum_planes(graph, wide)``, built once for as long as the graph's
-    tensors live (keyed on all of them: two graphs may share some)."""
+def _planes_of(graph, wide: bool = False, sectors=None) -> MinsumPlanes:
+    """``minsum_planes(graph, wide, sectors)``, built once for as long as
+    the graph's tensors live (keyed on all of them: two graphs may share
+    some)."""
     leaves = tuple(graph)
-    key = tuple(map(id, leaves)) + ((True,) if wide else ())
+    key = tuple(map(id, leaves)) + ((True,) if wide else ()) + (
+        (sectors,) if sectors is not None else ())
     hit = _PLANES.get(key)
     if hit is not None and all(r() is t for r, t in zip(hit[0], leaves)):
         return hit[1]
-    planes = minsum_planes(graph, wide)
+    planes = minsum_planes(graph, wide, sectors)
     _PLANES[key] = (tuple(weakref.ref(t, lambda _, k=key: _PLANES.pop(k, None))
                           for t in leaves), planes)
     return planes
@@ -364,13 +398,21 @@ def _align16(x: int) -> int:
 
 
 def minsum_smem_bytes(lanes: int, m: int, n: int, rw: int, cw: int,
-                      bf16: bool, llr_shared: bool = True) -> int:
+                      bf16: bool, llr_shared: bool = True,
+                      sectors=None) -> int:
     """Dynamic shared memory of csrc/bp_minsum.cu for ``lanes`` shots per
     block: the staged planes (and the shared channel LLRs), then per shot
-    c2v, v2c, the totals and the syndrome, each rounded up to 16 bytes."""
+    c2v, v2c, the totals and the syndrome, each rounded up to 16 bytes.
+    With ``sectors`` (``((m0, ...), (n0, ...))``, the sector mode) a lane
+    holds one (shot, sector) item, sized by the largest sector, and the
+    staged planes are every sector's padded to that size."""
+    n_llr, n_sec = n, 1
+    if sectors is not None:
+        m, n, n_sec = max(sectors[0]), max(sectors[1]), len(sectors[0])
     E, V = m * rw, n * cw
-    staged = (_align16(2 * E) + _align16(2 * V) + (_align16(V) if bf16 else 0)
-              + (_align16(4 * n) if llr_shared else 0))
+    staged = (_align16(2 * E * n_sec) + _align16(2 * V * n_sec)
+              + (_align16(V * n_sec) if bf16 else 0)
+              + (_align16(4 * n_llr) if llr_shared else 0))
     per_shot = (_align16(4 * E) + _align16((2 if bf16 else 4) * E)
                 + _align16(4 * n) + _align16(m))
     return staged + lanes * per_shot
@@ -493,8 +535,7 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
                   lanes: int | None = None,
                   memory: str = "shared",
                   planes: str | None = None,
-                  rows: int | None = None,
-                  sectors: bool = False) -> MinsumLayout:
+                  sectors=None) -> MinsumLayout:
     """The launch of csrc/bp_minsum.cu for a batch of B shots
     (``lane_layout`` with its shared memory, ``minsum_smem_bytes``) in
     ``memory``, one of _kernels.MEMORY_MODES (``"shared"`` raises where not
@@ -509,26 +550,30 @@ def minsum_layout(B: int, m: int, n: int, rw: int, cw: int, bf16: bool,
     (32-bit planes read from device memory, nothing staged).  Every mode
     takes ``lane_layout``'s shots per block.
 
-    The sector mode (``sectors``; B counts its (shot, sector) items and
-    ``rows`` is the larger of a sector's checks and variables, by which a
-    lane's threads are sized) runs in the shared-memory and device-memory
-    modes only: ``"auto"`` passes over ``"checks"``, which raises."""
+    The sector mode (``sectors``, the sizes ``((m0, ...), (n0, ...))``
+    that ``check_sectors`` returns; B counts its (shot, sector) items) sizes
+    a lane's region, its threads and its 16-bit planes by the largest
+    sector (``minsum_smem_bytes``), and runs in the shared-memory and
+    device-memory modes only: ``"auto"`` passes over ``"checks"``, which
+    raises."""
     minsum_wide(rw)
-    rows = max(m, n) if rows is None else int(rows)
-    fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared)
-    per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared) - fixed
-    narrow = planes16(m, n, rw)
+    fixed = minsum_smem_bytes(0, m, n, rw, cw, bf16, llr_shared, sectors)
+    per_shot = minsum_smem_bytes(1, m, n, rw, cw, bf16, llr_shared,
+                                 sectors) - fixed
+    lm, ln = (m, n) if sectors is None else map(max, sectors)
+    rows = max(lm, ln)
+    narrow = planes16(lm, ln, rw)
     form = planes or checks_planes(m, n, rw, cw, llr_shared)
     if memory == "auto":
         memory = ("shared" if narrow and fixed + per_shot <= SMEM_LIMIT
-                  else "checks" if form is not None and not sectors
+                  else "checks" if form is not None and sectors is None
                   else "device" if narrow and fixed <= SMEM_LIMIT
                   else "device_planes")
     if memory not in _kernels.MEMORY_MODES:
         raise ValueError(f"min-sum memory {memory!r} is not one of "
                          f"{_kernels.MEMORY_MODES} or 'auto'")
     if memory == "checks":
-        if sectors:
+        if sectors is not None:
             raise ValueError("the min-sum kernels' sector mode has no "
                              "check-state mode")
         if form is None or cw > CHECKS_MAX_CW:
@@ -578,15 +623,13 @@ def minsum_resident(index: int, bf16: bool, threads: int, smem_bytes: int,
 
 
 def card_minsum_layout(dev, B, m, n, rw, cw, bf16, llr_shared=True,
-                       memory="auto", planes=None, rows=None,
-                       sectors=False):
+                       memory="auto", planes=None, sectors=None):
     """``minsum_layout`` on CUDA device ``dev`` (by default the check-state
     or a device-memory mode where the shared one does not fit): its SM
     count, and the grid lowered to the blocks the card holds at once."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = minsum_layout(B, m, n, rw, cw, bf16, _sm_count(index), llr_shared,
-                        memory=memory, planes=planes, rows=rows,
-                        sectors=sectors)
+                        memory=memory, planes=planes, sectors=sectors)
     held = minsum_resident(index, bf16, lay.threads, lay.smem_bytes,
                            lay.memory, minsum_wide(rw), lay.planes)
     if held < 1:
@@ -612,17 +655,15 @@ def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
     else:                          # a head's planes
         rw, (n, cw) = graph.chk_idx.shape[0], graph.var_edge.shape
     n_sec = 1 if sectors is None else len(sectors[0])
-    rows = None if sectors is None else max(max(sectors[0]),
-                                            max(sectors[1]))
     lay = card_minsum_layout(dev, B * n_sec, m, n, rw, cw, bf16,
                              not per_shot, _kernels.memory_mode(),
-                             _kernels.planes_form(), rows=rows,
-                             sectors=sectors is not None)
+                             _kernels.planes_form(), sectors=sectors)
     lanes_g = None
     if lay.lane_bytes:
         lanes_g = torch.empty((lay.grid * lay.lanes * lay.lane_bytes,),
                               dtype=torch.uint8, device=dev)
-    planes = _planes_of(graph, wide=lay.planes == "global32")
+    planes = _planes_of(graph, wide=lay.planes == "global32",
+                        sectors=sectors)
     pointers = inputs(planes)
     err = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = torch.empty((B, n), dtype=torch.float32, device=dev)
@@ -634,7 +675,8 @@ def _minsum_call(name, fn, dev, synd, inputs, graph, bf16, per_shot,
     tail, tail_types = [], []
     if sectors is not None:
         sec_off = sector_offsets(sectors, dev)
-        tail, tail_types = [n_sec, sec_off.data_ptr()], [i, p]
+        tail = [n_sec, sec_off.data_ptr(), max(sectors[0]), max(sectors[1])]
+        tail_types = [i, p, i, i]
     fn.argtypes = [type(a) if isinstance(a, ctypes.c_int) else p
                    for a in pointers] + [p] * 5 + [i] * 6 + [ctypes.c_float] \
         + [i] * 6 + [p, p] + tail_types + [p]

@@ -98,15 +98,15 @@ def _halving_reduce(x: torch.Tensor, dim: int, op) -> torch.Tensor:
     return x[0]
 
 
-def xor_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Bitwise-XOR reduction along ``dim`` (the packed mod-2 accumulator)."""
-    return _halving_reduce(x, dim, torch.bitwise_xor)
+def xor_reduce(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Bitwise-XOR reduction along ``axis`` (the packed mod-2 accumulator)."""
+    return _halving_reduce(x, axis, torch.bitwise_xor)
 
 
-def or_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Bitwise-OR reduction along ``dim`` (packed ``any`` over a plane
+def or_reduce(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Bitwise-OR reduction along ``axis`` (packed ``any`` over a plane
     axis)."""
-    return _halving_reduce(x, dim, torch.bitwise_or)
+    return _halving_reduce(x, axis, torch.bitwise_or)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
@@ -139,12 +139,12 @@ def packed_gf2_matmul(packed_bits, h_t) -> torch.Tensor:
     sel = torch.where(h_t[None, :, :] != 0, packed_bits[:, :, None],
                       torch.zeros((), dtype=packed_bits.dtype,
                                   device=packed_bits.device))  # (W, n, k)
-    return xor_reduce(sel, dim=1)
+    return xor_reduce(sel, axis=1)
 
 
-def packed_any(packed_words, dim: int = -1) -> torch.Tensor:
+def packed_any(packed_words, axis: int = -1) -> torch.Tensor:
     """Per-shot OR over a plane axis: (W, m) -> (W,) flag words."""
-    return or_reduce(packed_words, dim)
+    return or_reduce(packed_words, axis)
 
 
 def packed_count(flag_words, batch_size: int) -> torch.Tensor:

@@ -409,8 +409,8 @@ class MegabatchDriver:
                  counterpart that a run on the card needs.
     """
 
-    def __init__(self, stats_fn, combine, init_fn, batch_input,
-                 k_inner: int = 8):
+    def __init__(self, stats_fn, combine, init_fn, k_inner: int = 8, *,
+                 batch_input):
         self.k_inner = max(1, int(k_inner))
         self._stats_fn = stats_fn
         self._combine = combine
@@ -687,8 +687,8 @@ def count_min_driver(stats_fn, min_init: int, device, k_inner: int,
                           device=device))
         return out + (tele_zeros(device),) if tele else out
 
-    return MegabatchDriver(stats_fn, combine, init, batch_input,
-                           k_inner=k_inner)
+    return MegabatchDriver(stats_fn, combine, init, k_inner,
+                           batch_input=batch_input)
 
 
 class _LaneGenerators:
@@ -770,8 +770,8 @@ class CellFusedDriver(MegabatchDriver):
         self.device = torch.device(device)
         self.slots = None if slots is None else tuple(int(d) for d in slots)
         self._min_init = int(min_init)
-        super().__init__(stats_fn, None, self._init, GeneratorInput(device),
-                         k_inner=k_inner)
+        super().__init__(stats_fn, None, self._init, k_inner,
+                         batch_input=GeneratorInput(device))
         C, dev = self.n_cells, self.device
         self._shots_inc = self.batch_size * len(self.slots or (None,))
         self._arange = torch.arange(C, device=dev)

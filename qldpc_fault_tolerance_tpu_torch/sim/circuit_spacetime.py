@@ -96,8 +96,8 @@ class CodeSimulator_Circuit_SpaceTime:
                  decoder2_z=None, decoder2_x=None, p=0, num_cycles=1,
                  num_rep=1, error_params=None, eval_logical_type="Z",
                  circuit_type="coloration", rand_scheduling_seed=0,
-                 seed: int = 0, batch_size: int = 256, scan_chunk: int = 4,
-                 pz=None, device="cuda", mesh=None):
+                 seed: int = 0, batch_size: int = 256, mesh=None, pz=None, *,
+                 scan_chunk: int = 4, device="cuda"):
         if pz is not None:
             p = pz
         self.device = resolve_device(device)

@@ -299,7 +299,7 @@ def run_signature(engine: str, key, **fields) -> dict:
 
 
 def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
-                     min_init, tele: bool = False):
+                     min_init, tele_on: bool = False):
     """The mid-cell resume protocol of the megabatch engines, as the JAX
     package's: ``driver.run_keys`` with its cursor loaded from and saved
     to a ``utils.checkpoint.CellProgress``.
@@ -309,7 +309,7 @@ def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
     of ``(carry, done)`` per drained megabatch that saves the cursor as it
     yields.  The cursor is honoured only when ``signature``
     (``run_signature``) matches; telemetry is not part of that identity:
-    with ``tele`` the carry's telemetry vector persists in the cursor's
+    with ``tele_on`` the carry's telemetry vector persists in the cursor's
     ``"tele"`` and seeds a resumed run's (zeros when a run saved without
     it), as in the JAX package."""
     start, carry0 = 0, None
@@ -317,7 +317,7 @@ def resumable_stream(driver, key, n_batches, extra, *, signature, progress,
     if state:
         start = int(state["batches_done"])
         carry0 = (int(state["failures"]), int(state["min_w"]))
-        if tele:
+        if tele_on:
             carry0 += (state.get("tele") or [0] * telemetry.TELE_LEN,)
     initial = carry0 if state else (0, int(min_init))
 
@@ -375,7 +375,7 @@ def count_failures(sim, num_samples: int, key=None, target_failures=None,
                               extra=[repr(e) for e in extra])
     (carry, start), stream = resumable_stream(
         driver, key, n_batches, extra, signature=signature,
-        progress=progress, min_init=sim.N, tele=tele)
+        progress=progress, min_init=sim.N, tele_on=tele)
 
     def hit(f):
         return target_failures is not None and f >= int(target_failures)
@@ -1349,12 +1349,12 @@ def weighted_driver(sim, chunk: int, program: tuple, stats_fn,
         if tele:
             stats_fn = tele_stats(stats_fn, dev)
         driver = sim._drivers[key] = MegabatchDriver(
-            stats_fn, combine, init, batch_input, k_inner=chunk)
+            stats_fn, combine, init, chunk, batch_input=batch_input)
     return driver
 
 
 def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
-                              progress, tele: bool = False):
+                              progress, tele_on: bool = False):
     """``resumable_stream`` for the weighted carry ``(count, min_w, s1, s2,
     w1, w2[, tele])``: the float32 moments persist exactly in the cursor's
     ``weighted`` block, the telemetry vector in its ``"tele"``.  Returns
@@ -1366,7 +1366,7 @@ def resumable_weighted_stream(driver, key, n_batches, extra, *, signature,
         wm = state.get("weighted") or {}
         carry0 = (int(state["failures"]), int(state["min_w"]),
                   *(float(wm.get(k, 0.0)) for k in ("s1", "s2", "w1", "w2")))
-        if tele:
+        if tele_on:
             carry0 += (state.get("tele") or [0] * telemetry.TELE_LEN,)
 
     def stream():

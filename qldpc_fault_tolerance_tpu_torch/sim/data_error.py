@@ -179,9 +179,9 @@ class CodeSimulator_DataError:
     def __init__(self, code=None, decoder_x=None, decoder_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01),
                  eval_logical_type="Total", seed: int = 0,
-                 batch_size: int = 2048, scan_chunk: int = 8,
-                 fused_sampler=False, packed: bool = True, device="cuda",
-                 mesh=None, fuse_sectors: bool = False):
+                 batch_size: int = 2048, mesh=None, fuse_sectors: bool = False,
+                 scan_chunk: int = 8, packed: bool = True,
+                 fused_sampler=False, *, device="cuda"):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -538,7 +538,7 @@ class CodeSimulator_DataError:
                            tilt=[round(q, 12) for q in tilt])
         (carry0, start), stream = resumable_weighted_stream(
             driver, key, n_batches, extra, signature=fp, progress=progress,
-            tele=tele)
+            tele_on=tele)
         carry, done = drive_weighted_run(
             driver, key, n_batches, extra, batch_size=self.batch_size,
             total=batcher.total, carry0=carry0, start=start, stream=stream,

@@ -134,8 +134,8 @@ class PhenomEngine:
                  decoder2_x=None, decoder2_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01), q=0,
                  eval_logical_type="Total", seed: int = 0,
-                 batch_size: int = 1024, scan_chunk: int = 4,
-                 packed: bool = True, device="cuda", mesh=None):
+                 batch_size: int = 1024, mesh=None, scan_chunk: int = 4,
+                 packed: bool = True, *, device="cuda"):
         if eval_logical_type not in ("X", "Z", "Total"):
             raise ValueError(f"eval_logical_type must be X, Z or Total, "
                              f"got {eval_logical_type!r}")
@@ -539,7 +539,7 @@ class CodeSimulator_Phenon(PhenomEngine):
         return self._stats_given(rounds, final, len(rounds) + 1)
 
     def WordErrorRate(self, num_rounds: int, num_samples: int, key=None,
-                      target_failures=None, progress=None):
+                      progress=None, target_failures=None):
         """Per-qubit-per-cycle WER and its error bar
         (``sim.common.wer_per_cycle``).  ``progress``: mid-cell resume, as
         the data engine's ``WordErrorRate``."""
@@ -550,12 +550,14 @@ class CodeSimulator_Phenon(PhenomEngine):
             target_failures, progress)
 
     def WordErrorProbability(self, num_rounds: int, num_samples: int,
-                             key=None):
-        """End-of-run word error probability (``wer_single_shot``)."""
+                             key=None, progress=None):
+        """End-of-run word error probability (``wer_single_shot``).
+        ``progress``: mid-cell resume, as ``WordErrorRate``."""
         self._reject_host_decoders()
         return self._count_failures(
             num_rounds, num_samples,
-            lambda c, t: wer_single_shot(c, t, self.K), key)
+            lambda c, t: wer_single_shot(c, t, self.K), key,
+            progress=progress)
 
     def _reject_host_decoders(self) -> None:
         """The phenomenological engine decodes every round inside its
@@ -626,7 +628,7 @@ class CodeSimulator_Phenon(PhenomEngine):
                            tilt_q=round(tilt_q, 12))
         (carry0, start), stream = resumable_weighted_stream(
             driver, key, n_batches, extra, signature=fp, progress=progress,
-            tele=tele)
+            tele_on=tele)
         carry, done = drive_weighted_run(
             driver, key, n_batches, extra, batch_size=self.batch_size,
             total=batcher.total, carry0=carry0, start=start, stream=stream,

@@ -62,8 +62,8 @@ class CodeSimulator_Phenon_SpaceTime(PhenomEngine):
                  decoder2_x=None, decoder2_z=None,
                  pauli_error_probs=(0.01, 0.01, 0.01), q=0,
                  eval_logical_type="Total", num_rep: int = 1, seed: int = 0,
-                 batch_size: int = 512, scan_chunk: int = 4, device="cuda",
-                 mesh=None):
+                 batch_size: int = 512, mesh=None, *, scan_chunk: int = 4,
+                 device="cuda"):
         super().__init__(code=code, decoder1_x=decoder1_x,
                          decoder1_z=decoder1_z, decoder2_x=decoder2_x,
                          decoder2_z=decoder2_z,

@@ -49,7 +49,7 @@ class CodeFamily_SpaceTime:
 
     def __init__(self, code_list: list, decoder1_class: DecoderClass,
                  decoder2_class: DecoderClass, batch_size: int = 512,
-                 seed: int = 0, device="cuda", mesh=None):
+                 seed: int = 0, mesh=None, *, device="cuda"):
         self.code_list = code_list
         self.decoder1_class = decoder1_class
         self.decoder2_class = decoder2_class

@@ -507,16 +507,17 @@ def measure_stages(stages, reps: int = 5) -> dict:
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def parse_trace(path: str) -> dict:
-    """Summary of a ``torch.profiler`` Chrome trace: ``path`` a trace file
-    (``.json`` or ``.json.gz``) or a directory searched for ``*.json*``.
+def parse_trace(log_dir: str) -> dict:
+    """Summary of a ``torch.profiler`` Chrome trace: ``log_dir`` a
+    directory searched for ``*.json*``, or one trace file (``.json`` or
+    ``.json.gz``).
     Complete events (``ph == "X"``) are summed per name and split by
     category: device work (``kernel``, ``gpu_memcpy``, ``gpu_memset``)
     against host events.  Returns ``{"files", "device_s", "host_s",
     "kernels": {kernel name: device seconds}, "events": {name: seconds}}``
     (the 50 largest of each); an unreadable file is skipped."""
-    files = ([path] if os.path.isfile(path) else sorted(
-        glob.glob(os.path.join(path, "**", "*.json*"), recursive=True)))
+    files = ([log_dir] if os.path.isfile(log_dir) else sorted(
+        glob.glob(os.path.join(log_dir, "**", "*.json*"), recursive=True)))
     kernels: dict = {}
     events: dict = {}
     device_s = host_s = 0.0
@@ -556,9 +557,9 @@ def parse_trace(path: str) -> dict:
 # ---------------------------------------------------------------------------
 # The card's gates
 # ---------------------------------------------------------------------------
-def probe_max_block(try_launch, candidates) -> tuple[int, list]:
+def probe_max_block(try_compile, candidates) -> tuple[int, list]:
     """The largest working block of ``candidates`` (tried in the order
-    given, largest first): ``try_launch(block)`` builds or launches it,
+    given, largest first): ``try_compile(block)`` builds or launches it,
     and an exception or a false return marks it infeasible, as data, not
     a crash.  Returns ``(best, attempts)``: ``best`` 0 when nothing works,
     ``attempts`` ``(block, ok, error text or None)`` per try."""
@@ -567,7 +568,7 @@ def probe_max_block(try_launch, candidates) -> tuple[int, list]:
     for cand in candidates:
         cand = int(cand)
         try:
-            ok = bool(try_launch(cand))
+            ok = bool(try_compile(cand))
             err = None
         except Exception as e:  # noqa: BLE001 — a failed try is the probe
             ok, err = False, f"{type(e).__name__}: {e}"

@@ -859,22 +859,33 @@ def write_snapshot_event(**extra_fields) -> dict:
 # ---------------------------------------------------------------------------
 # Process provenance
 # ---------------------------------------------------------------------------
-def process_info() -> dict:
+_PROCESS_INFO: dict | None = None
+_PROCESS_INFO_LOCK = threading.Lock()
+
+
+def process_info(refresh: bool = False) -> dict:
     """Environment provenance for the run ledger and ``/varz``: pid,
     hostname, python and platform strings, the event schema version, and
     the torch version and CUDA build when torch is already imported (this
-    never imports it)."""
+    never imports it).  Cached per process; ``refresh`` probes anew, and
+    a cache made before torch was imported probes torch again."""
+    global _PROCESS_INFO
     import platform
     import sys
 
-    info = {"pid": os.getpid(), "hostname": platform.node() or "unknown",
-            "python": platform.python_version(),
-            "platform": platform.platform(), "torch": None, "cuda": None,
-            "schema_version": EVENT_SCHEMA_VERSION}
-    torch = sys.modules.get("torch")
-    if torch is not None:
-        info["torch"] = str(torch.__version__)
-        info["cuda"] = getattr(torch.version, "cuda", None)
+    with _PROCESS_INFO_LOCK:
+        if _PROCESS_INFO is None or refresh:
+            _PROCESS_INFO = {
+                "pid": os.getpid(), "hostname": platform.node() or "unknown",
+                "python": platform.python_version(),
+                "platform": platform.platform(), "torch": None, "cuda": None,
+                "schema_version": EVENT_SCHEMA_VERSION}
+        torch = sys.modules.get("torch")
+        if _PROCESS_INFO["torch"] is None and torch is not None:
+            _PROCESS_INFO["torch"] = str(torch.__version__)
+            _PROCESS_INFO["cuda"] = getattr(torch.version, "cuda", None)
+        info = dict(_PROCESS_INFO)
+    info["pid"] = os.getpid()  # survives a fork; the rest is the host's
     return info
 
 

@@ -342,7 +342,7 @@ def test_driver_key_stream_hands_each_batch_its_folded_key():
 
     driver = MegabatchDriver(stats, lambda c, o: (c[0] + o[0],),
                              lambda: (torch.zeros((), dtype=torch.int32),),
-                             fold_in, k_inner=3)
+                             batch_input=fold_in, k_inner=3)
     carry, done = driver.run((0, 9), 5)
     assert done == 6 and int(carry[0]) == 6
     assert seen == [tuple(int(w) for w in np.asarray(jax.random.key_data(

@@ -44,7 +44,7 @@ def run_src(rule, src, rel=FIX, extra=None):
     sources.update(extra or {})
     modules = [SourceModule.parse(r, textwrap.dedent(s))
                for r, s in sources.items()]
-    return run_analysis(modules, [rule], REPO)
+    return run_analysis(modules, [rule], root=REPO)
 
 
 def findings_of(rule, src, **kw):
@@ -147,7 +147,7 @@ def test_r005_reads_the_port_telemetry_floors():
     rule = SchemaDriftRule()
     (mod,) = collect_modules([os.path.join(REPO, STUB_REL)], REPO)
     assert rule.schema_module_rel == STUB_REL
-    assert not list(rule.check(mod, AnalysisContext([mod], REPO)))
+    assert not list(rule.check(mod, AnalysisContext([mod], root=REPO)))
     assert sorted(rule.frozen_floors) == [f"_V{i}_EVENT_KINDS"
                                           for i in range(1, 8)]
 
@@ -266,7 +266,7 @@ def run_fault_rule(sources):
     all_sources.update(sources)
     modules = [SourceModule.parse(r, textwrap.dedent(s))
                for r, s in all_sources.items()]
-    return run_analysis(modules, [FaultSiteRule()], REPO)
+    return run_analysis(modules, [FaultSiteRule()], root=REPO)
 
 
 def test_r008_fires_on_unregistered_site_literal():
@@ -333,7 +333,7 @@ def test_r008_quiet_on_registered_unique_and_dynamic_sites():
 def test_r008_checkpoint_site_is_planted_in_the_port():
     modules = collect_modules([os.path.join(REPO, PKG)], REPO)
     found = [f for f in run_analysis(modules, [FaultSiteRule()],
-                                     REPO).findings]
+                                     root=REPO).findings]
     assert found == []
     with open(os.path.join(REPO, PKG + "utils/checkpoint.py"),
               encoding="utf-8") as fh:
@@ -517,7 +517,7 @@ def jax_tree():
                              os.path.join(REPO, "scripts")], REPO)
     jrules = {r.id: r for r in janalysis.default_rules()}
     return (jmods, janalysis.AnalysisContext(jmods), jrules,
-            tmods, AnalysisContext(tmods, REPO))
+            tmods, AnalysisContext(tmods, root=REPO))
 
 
 @pytest.mark.parametrize("rule_id", ["R005", "R006", "R008", "R101", "R102"])
